@@ -5,15 +5,22 @@ Run from the root of a checkout:
     python3 chip_smoke.py
 
 In order, it: prints the card; builds the CUDA kernels from the sources
-in the checkout; rebuilds the full-size (1024 x 4096 x 128, seed 0,
-integration baseline) golden archive with the port's synthetic generator
-and cleans it through ``clean_archive`` on the card with every kernel
-launch count set to 0 just before and read just after (each kernel of
-the route must have launched); holds the mask against
-``tests/goldens/fullsize_mask.npz`` under the golden's flip rule; holds
-every kernel against its plain PyTorch version on the card at the shapes
-that clean gives it; times each kernel, its plain version and the
-library yardstick beside the least time the card could take; prints one
+in the checkout; rebuilds the full-size (1024 x 4096 x 128, seed 0)
+golden archive once with the port's synthetic generator and cleans it
+through ``clean_archive`` on the card four times, covering every route
+of the engine — the default configuration (K1, K2), ``baseline_mode=
+'profile'`` (the two-read route, K7), ``stats_frame='dedispersed'``
+(K6; K3 and the combine on all) and a pulse window with ``-u`` (the
+two-read route with three resident cubes, and the residual unloaded) —
+with every kernel launch count set to 0 just before each clean and read
+just after (the route's kernels must have launched, the others not);
+holds the default and profile masks against
+``tests/goldens/fullsize_mask*.npz`` under the goldens' flip rule and
+the other two against the default one under the frames' contract;
+holds every kernel against its plain PyTorch version on the card at
+the shapes its route gives it; times
+each kernel, its plain version and the library yardstick beside the
+least time the card could take, and each route's iteration; prints one
 JSON line with the kernels and, last, ``{"ok": true, "device": ...}``.
 
 It exits non-zero, printing no result, when no CUDA device is present
@@ -25,6 +32,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import subprocess
 import sys
@@ -35,12 +43,28 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDENS = os.path.join(HERE, "tests", "goldens")
 
-# The golden's flip rule (the reference harness benchmarks/fullsize_golden.py):
+# The goldens' flip rule (the reference harness benchmarks/fullsize_golden.py):
 # a float32 run may flip only cells the float64 oracle scored within the
 # borderline band, each within FLIP_NOISE_ENV of the threshold, at most
 # MAX_BORDERLINE_FLIPS of them, with the oracle's loop count.
 MAX_BORDERLINE_FLIPS = 10
 FLIP_NOISE_ENV = 0.01
+
+# Routes whose mask has no golden are held against the default route's
+# mask (the reference package's tests/test_stats_frame.py, made
+# symmetric): no disagreement on a cell that both runs scored outside
+# [0.8, 1.3], and at most so many disagreeing cells in all and on cells
+# the default run alone scored outside the band.  The reference's
+# one-sided form does not hold for the reference itself at the golden's
+# RFI density (tests/test_torch_routes.py
+# test_frames_contract_at_bench_density).  The limits are about three
+# times what the card gave on this archive: 132 cells in all and 14 one-
+# sided for the dedispersed frame, 338 and 98 for the pulse window.
+DECIDED_BELOW, DECIDED_ABOVE = 0.8, 1.3
+CONTRACT_LIMITS = {   # route: (cells disagreeing, of them one-sided)
+    "dedispersed": (400, 40),
+    "pulse_unload": (1000, 300),
+}
 
 # H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit): HBM3
 # bandwidth and the float32 rate outside the tensor cores (TF32 is off on
@@ -50,7 +74,8 @@ PEAK_F32_PER_S = 67e12
 
 # Tolerances of the kernel checks (see tests/test_torch_kernels.py):
 K1_RTOL = 1e-5   # of sum |w * disp|: float32 sums in another order
-K2_RTOL = 1e-4   # of each plane's scale: float32 reassociation; masked exact
+K2_RTOL = 1e-4   # of each plane's scale (K2, K6, K7): float32
+#                  reassociation; masked cells exact
 
 
 def fail(msg: str) -> None:
@@ -113,6 +138,53 @@ def max_abs_diff(got, want, torch) -> float:
     return float(torch.where(same, torch.zeros_like(diff), diff).max())
 
 
+def diags_check(got, want, mask, torch):
+    """K2/K6/K7 against their plain versions: rtol of each plane's scale,
+    masked cells bit-equal.  Returns (max abs error, ok)."""
+    err, ok = 0.0, True
+    for g, w in zip(got, want):
+        scale = float(w[~mask].abs().max())
+        diff = (g - w).abs()
+        err = max(err, float(diff.max()))
+        ok &= bool((diff <= K2_RTOL * (w.abs() + scale)).all())
+        ok &= bits_mismatch(g[mask], w[mask], torch) == 0
+    return err, ok
+
+
+def golden_mask(name, shape):
+    with open(os.path.join(GOLDENS, f"fullsize_mask_golden{name}.json")) as f:
+        golden = json.load(f)
+    with np.load(os.path.join(GOLDENS, f"fullsize_mask{name}.npz")) as z:
+        zap = np.unpackbits(z["zap"])[: shape[0] * shape[1]].reshape(
+            shape).astype(bool)
+    return golden, zap
+
+
+def contract(route, base, other) -> None:
+    """Hold ``other``'s mask against the default route's ``base`` under
+    CONTRACT_LIMITS; print the counts."""
+    max_all, max_one = CONTRACT_LIMITS[route]
+    if not np.all(np.isfinite(other.final_weights)):
+        fail(f"route {route}: final weights not finite")
+    disagree = (base.final_weights == 0) != (other.final_weights == 0)
+    decided = [(r.scores < DECIDED_BELOW) | (r.scores > DECIDED_ABOVE)
+               for r in (base, other)]
+    n_all = int(disagree.sum())
+    n_one = int((disagree & decided[0]).sum())
+    n_both = int((disagree & decided[0] & decided[1]).sum())
+    cells = [(int(i), int(c), round(float(base.scores[i, c]), 4),
+              round(float(other.scores[i, c]), 4))
+             for i, c in np.argwhere(disagree & decided[0])[:20]]
+    print(f"contract {route} vs default: {n_all} cells disagree (limit "
+          f"{max_all}); outside the band [{DECIDED_BELOW}, {DECIDED_ABOVE}] "
+          f"in the default run {n_one} (limit {max_one}), in both runs "
+          f"{n_both} (limit 0); {other.loops} loops, converged "
+          f"{other.converged}; (subint, chan, default "
+          f"score, {route} score) of the first: {cells}", flush=True)
+    if n_both or n_all > max_all or n_one > max_one:
+        fail(f"route {route}: mask outside its contract with the default")
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
 
@@ -128,16 +200,18 @@ def main() -> int:
     from iterative_cleaner_torch import CleanConfig
     from iterative_cleaner_torch.backends import clean_archive
     from iterative_cleaner_torch.engine.loop import (
+        ROUTE_KERNELS,
         build_template,
         iteration_step,
         nyq_correction_row,
+        prepare,
+        select_route,
     )
     from iterative_cleaner_torch.io.synthetic import (
         FULLSIZE_SHAPE,
         make_fullsize_archive,
     )
     from iterative_cleaner_torch.ops.dsp import (
-        prepare_cube_integration,
         rotate_bins,
         weighted_marginal_totals,
     )
@@ -165,68 +239,117 @@ def main() -> int:
             if "registers" in line or "spill" in line or line.startswith("=="):
                 print("  " + line.strip())
 
-    # ---- 2. the main path, counted: full-size archive through clean_archive
+    # ---- 2. each route, counted: the full-size archive through
+    # clean_archive, launch counts set to 0 just before and read just after
     NSUB, NCHAN, NBIN = FULLSIZE_SHAPE
     t0 = time.perf_counter()
     ar = make_fullsize_archive()
     print(f"archive: {NSUB}x{NCHAN}x{NBIN} rebuilt in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    cfg = CleanConfig()  # the default configuration, on the card
-    torch.cuda.synchronize()
-    K.reset_launch_counts()
-    t0 = time.perf_counter()
-    result = clean_archive(ar, cfg)
-    torch.cuda.synchronize()
-    clean_ms = (time.perf_counter() - t0) * 1e3
-    counts = K.launch_counts()
-    print("kernels: " + json.dumps(counts), flush=True)
-    not_launched = [k for k, v in counts.items() if v < 1]
-    if not_launched:
-        fail(f"kernels of the main path never launched: {not_launched}")
+    # "route" below names a configuration; its engine route is
+    # select_route's (pulse_unload: the integration two-read route, three
+    # resident cubes, and the residual unloaded after the loop)
+    configs = {"default": CleanConfig(),
+               "profile": CleanConfig(baseline_mode="profile"),
+               "dedispersed": CleanConfig(stats_frame="dedispersed"),
+               "pulse_unload": CleanConfig(pulse_region=(0.2, 30, 60),
+                                           unload_res=True)}
+    results, counts, clean_ms, peak_gib = {}, {}, {}, {}
+    for route, cfg in configs.items():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        results[route] = clean_archive(ar, cfg)
+        torch.cuda.synchronize()
+        clean_ms[route] = (time.perf_counter() - t0) * 1e3
+        counts[route] = K.launch_counts()
+        peak_gib[route] = torch.cuda.max_memory_allocated() / 2 ** 30
+        engine_route = select_route(cfg, ar.dedispersed)
+        print(f"route {route} ({engine_route}): kernels "
+              f"{json.dumps(counts[route])}, {results[route].loops} loops, "
+              f"whole clean {clean_ms[route]:.1f} ms, peak device memory "
+              f"{peak_gib[route]:.2f} GiB {tag}", flush=True)
+        own = ROUTE_KERNELS[engine_route]
+        missing = [k for k in own if counts[route][k] < 1]
+        stray = [k for k, v in counts[route].items() if k not in own and v]
+        if missing or stray:
+            fail(f"route {route}: kernels of the route never launched "
+                 f"{missing}, kernels of other routes launched {stray}")
 
-    # ---- 3. what came out is right: the full-size golden ----
-    with open(os.path.join(GOLDENS, "fullsize_mask_golden.json")) as f:
-        golden = json.load(f)
-    with np.load(os.path.join(GOLDENS, "fullsize_mask.npz")) as z:
-        want_zap = np.unpackbits(z["zap"])[: NSUB * NCHAN].reshape(
-            NSUB, NCHAN).astype(bool)
-    fw = result.final_weights
-    if fw.shape != (NSUB, NCHAN) or not np.all(np.isfinite(fw)):
-        fail(f"final weights malformed: shape {fw.shape}")
-    got_zap = fw == 0
-    flips = np.argwhere(want_zap != got_zap)
-    verdict = flip_verdict(flips, golden)
-    golden_ok = (verdict["ok"] and result.loops == golden["loops"]
-                 and result.converged == golden["converged"])
-    print(f"golden: loops {result.loops} (want {golden['loops']}), converged "
-          f"{result.converged}, zapped {int(got_zap.sum())} (want "
-          f"{golden['zap_cells']}), flips {len(flips)} (cap "
-          f"{MAX_BORDERLINE_FLIPS}), rogue {verdict['rogue'][:5]}, wide "
-          f"{verdict['wide'][:5]}", flush=True)
-    if not golden_ok:
-        fail("full-size mask outside the golden's flip rule")
+    # ---- 3. what came out is right: the goldens and the frames' contract
+    for route, suffix in (("default", ""), ("profile", "_profile")):
+        golden, want_zap = golden_mask(suffix, (NSUB, NCHAN))
+        result = results[route]
+        fw = result.final_weights
+        if fw.shape != (NSUB, NCHAN) or not np.all(np.isfinite(fw)):
+            fail(f"route {route}: final weights malformed: shape {fw.shape}")
+        got_zap = fw == 0
+        flips = np.argwhere(want_zap != got_zap)
+        verdict = flip_verdict(flips, golden)
+        print(f"golden fullsize_mask{suffix}: loops {result.loops} (want "
+              f"{golden['loops']}), converged {result.converged}, zapped "
+              f"{int(got_zap.sum())} (want {golden['zap_cells']}), flips "
+              f"{len(flips)} (cap {MAX_BORDERLINE_FLIPS}), rogue "
+              f"{verdict['rogue'][:5]}, wide {verdict['wide'][:5]}",
+              flush=True)
+        if not (verdict["ok"] and result.loops == golden["loops"]
+                and result.converged == golden["converged"]):
+            fail(f"route {route}: full-size mask outside the golden's flip "
+                 f"rule")
+    for route in CONTRACT_LIMITS:
+        contract(route, results["default"], results[route])
+    res = results["pulse_unload"].residual
+    if res is None or res.shape != (NSUB, NCHAN, NBIN) \
+            or not np.all(np.isfinite(res)):
+        fail(f"route pulse_unload: residual malformed: "
+             f"{None if res is None else res.shape}")
+    print(f"residual of pulse_unload: {res.shape} {res.dtype}, finite",
+          flush=True)
+    results["pulse_unload"].residual = res = None   # 2 GB of host memory
 
-    # ---- 4. each kernel against its plain version, at the main path's
+    # ---- 4. each kernel against its plain version, at its route's
     # shapes: the first iteration's inputs of the same archive ----
-    def upload(a):
-        return torch.from_numpy(
-            np.ascontiguousarray(a, dtype=np.float32)).to(dev, copy=True)
-
-    weights = upload(ar.weights)
-    mask = weights == 0
     f32 = torch.float32
-    disp, shifts, offsets = prepare_cube_integration(
-        upload(ar.total_intensity()), weights, upload(ar.freqs_mhz),
-        torch.tensor(ar.dm, dtype=f32, device=dev),
-        torch.tensor(ar.centre_freq_mhz, dtype=f32, device=dev),
-        torch.tensor(ar.period_s, dtype=f32, device=dev),
-        baseline_duty=cfg.baseline_duty)
-    template = build_template(disp, weights, shifts, offsets,
-                              rotation=cfg.rotation,
-                              baseline_duty=cfg.baseline_duty)
-    rot_t = rotate_bins(template.expand(NCHAN, NBIN), shifts,
-                        method=cfg.rotation).contiguous()
-    nyq = nyq_correction_row(shifts, NBIN, cfg.rotation, f32)
+    cube32 = np.ascontiguousarray(ar.total_intensity(), dtype=np.float32)
+    weights = torch.from_numpy(
+        np.ascontiguousarray(ar.weights, dtype=np.float32)).to(dev)
+    mask = weights == 0
+    meta = [torch.from_numpy(np.ascontiguousarray(ar.freqs_mhz,
+                                                  dtype=np.float32)).to(dev)]
+    meta += [torch.tensor(v, dtype=f32, device=dev)
+             for v in (ar.dm, ar.centre_freq_mhz, ar.period_s)]
+    cfg = configs["default"]
+    common = dict(chanthresh=cfg.chanthresh, subintthresh=cfg.subintthresh,
+                  rotation=cfg.rotation, baseline_duty=cfg.baseline_duty)
+
+    preps = {r: prepare(torch.from_numpy(cube32).to(dev), weights, *meta, c,
+                        dedispersed=ar.dedispersed)
+             for r, c in configs.items()}
+    templates = {r: build_template(p, weights, rotation=cfg.rotation,
+                                   baseline_duty=cfg.baseline_duty)
+                 for r, p in preps.items()}
+
+    def rotated_template(route):
+        """The (nchan, nbin) rotated template rows of K2 and K7: the
+        template times the pulse window, rotated to each channel."""
+        p, t = preps[route], templates[route]
+        t = t if p.window is None else t * p.window
+        return rotate_bins(t.expand(NCHAN, NBIN), p.back_shifts,
+                           method=cfg.rotation).contiguous()
+
+    disp = preps["default"].disp_base
+    template = templates["default"]
+    rot_t = rotated_template("default")
+    nyq = nyq_correction_row(preps["default"].back_shifts, NBIN, cfg.rotation,
+                             f32)
+    pp, t_p, rot_t_p = preps["profile"], templates["profile"], \
+        rotated_template("profile")
+    pw, t_w, rot_t_w = preps["pulse_unload"], templates["pulse_unload"], \
+        rotated_template("pulse_unload")
+    pd = preps["dedispersed"]
+    t_d = templates["dedispersed"]
     torch.cuda.synchronize()
 
     # K1
@@ -240,21 +363,44 @@ def main() -> int:
           f"{K1_RTOL:g} * sum|w*disp|: {'ok' if ok1 else 'FAIL'}")
     del pa, pt1, sa, st1
 
-    # K2
-    diags = K.cell_diagnostics_disp(disp, rot_t, nyq, template, weights, mask)
-    plain = K.cell_diagnostics_disp_plain(
-        disp, rot_t, nyq, template, weights, mask)
-    err2, ok2 = 0.0, True
-    for name, g, w in zip(("std", "mean", "ptp", "fft"), diags, plain):
-        scale = float(w[~mask].abs().max())
-        diff = (g - w).abs()
-        err2 = max(err2, float(diff.max()))
-        ok2 &= bool((diff <= K2_RTOL * (w.abs() + scale)).all())
-        ok2 &= bits_mismatch(g[mask], w[mask], torch) == 0
-    print(f"check K2 cell_diagnostics_disp: max abs {err2:.3e}, tolerance "
-          f"rtol {K2_RTOL:g} of each plane's scale, masked cells exact: "
-          f"{'ok' if ok2 else 'FAIL'}")
-    del plain
+    # K2, K7 (without and with the pulse window: its fit takes the
+    # unwindowed template, its residual the windowed one), K6; timed below
+    # at the first input of each
+    diag_calls = {
+        "cell_diagnostics_disp": [(
+            lambda: K.cell_diagnostics_disp(disp, rot_t, nyq, template,
+                                            weights, mask),
+            lambda: K.cell_diagnostics_disp_plain(disp, rot_t, nyq, template,
+                                                  weights, mask))],
+        "cell_diagnostics_two_read": [(
+            lambda: K.cell_diagnostics_two_read(pp.ded, pp.disp_base,
+                                                rot_t_p, t_p, weights, mask),
+            lambda: K.cell_diagnostics_two_read_plain(
+                pp.ded, pp.disp_base, rot_t_p, t_p, weights, mask)), (
+            lambda: K.cell_diagnostics_two_read(pw.ded, pw.disp_base,
+                                                rot_t_w, t_w, weights, mask),
+            lambda: K.cell_diagnostics_two_read_plain(
+                pw.ded, pw.disp_base, rot_t_w, t_w, weights, mask))],
+        "cell_diagnostics_dedisp": [(
+            lambda: K.cell_diagnostics_dedisp(pd.ded, t_d, pd.window,
+                                              weights, mask),
+            lambda: K.cell_diagnostics_dedisp_plain(pd.ded, t_d, pd.window,
+                                                    weights, mask))],
+    }
+    diag_err, diag_ok = {}, {}
+    for name, pairs in diag_calls.items():
+        diag_err[name], diag_ok[name] = 0.0, True
+        for n, (kfn, pfn) in enumerate(pairs):
+            got = kfn()
+            err, ok = diags_check(got, pfn(), mask, torch)
+            diag_err[name] = max(diag_err[name], err)
+            diag_ok[name] &= ok
+            if name == "cell_diagnostics_disp":
+                diags = got
+            what = " (pulse window)" if n else ""
+            print(f"check {name}{what}: max abs {err:.3e}, tolerance rtol "
+                  f"{K2_RTOL:g} of each plane's scale, masked cells exact: "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
 
     # K3, both orientations, and the combine: bit-equal on identical inputs
     sides, ok3, err3 = {}, {}, {}
@@ -276,7 +422,7 @@ def main() -> int:
     print(f"check combine_zap: {bad_c} cells differ in bits, max abs "
           f"{errc:.3e} (tolerance: bit-equal, NaN included): "
           f"{'ok' if okc else 'FAIL'}", flush=True)
-    if not (ok1 and ok2 and ok3[0] and ok3[1] and okc):
+    if not (ok1 and all(diag_ok.values()) and ok3[0] and ok3[1] and okc):
         fail("a kernel disagrees with its plain version")
 
     # ---- 5. times: kernel, plain version, library yardstick, bound ----
@@ -288,44 +434,66 @@ def main() -> int:
         tb, to = nbytes / PEAK_BYTES_PER_S * 1e3, nops / PEAK_F32_PER_S * 1e3
         return (tb, "bytes") if tb >= to else (to, "operations")
 
+    # The cell diagnostics' least work per cell: the residual, the fit and
+    # the moments (about 12 operations a bin), and max_k |rfft(row)|,
+    # whose least count is an FFT's: 2.5 B log2 B for a real row (half of
+    # a complex FFT's 5 N log2 N) and 4 per k for |X_k|^2 and the max.
+    # The kernels' DFT against tables does about 4 B (B/2 + 1) instead.
+    diag_ops = cells * (2.5 * B * math.log2(B) + 4 * nk + 12 * B)
+    # the weights, the mask and the four output planes
+    diag_io = 4 * (cells + 4 * cells) + cells
     b1 = bound(4 * (cells * B + cells + C * B + S * B), 3 * cells * B)
-    b2 = bound(4 * (cells * B + 2 * C * B + cells + 2 * B * nk + 4 * cells)
-               + cells, cells * (4 * B * nk + 12 * B))
+    b2 = bound(4 * (cells * B + 2 * C * B + B) + diag_io, diag_ops)
+    b7 = bound(4 * (2 * cells * B + C * B + B) + diag_io, diag_ops)
+    b6 = bound(4 * (cells * B + 2 * B) + diag_io, diag_ops)
     # the select: 34 counting passes per median, 2 medians per diagnostic
-    b3 = bound(cells * (4 * 4 + 1 + 4 * 4), 4 * 2 * 34 * cells)
+    sel_ops = 4 * 2 * 34 * cells
+    b3 = bound(cells * (4 * 4 + 1 + 4 * 4), sel_ops)
     bc = bound(cells * (9 * 4 + 2 * 4), 16 * cells)
+    # K4 and K5 are one launch on the TPU: the cube and the template rows
+    # in, the weights and mask in, new weights, scores and d_std out
+    sweep_io = 4 * cells + cells + 3 * 4 * cells
+    sweep_ops = diag_ops + 2 * sel_ops + 16 * cells
+    b4 = bound(4 * (cells * B + 2 * C * B + B) + sweep_io, sweep_ops)
+    b5 = bound(4 * (cells * B + 2 * B) + sweep_io, sweep_ops)
     entries = [
         ("weighted_marginals", "marginals.cu", "_marginals_kernel :633",
-         counts["weighted_marginals"], err1,
+         "default", err1,
          lambda: K.weighted_marginals(disp, weights),
          lambda: weighted_marginal_totals(disp, weights),
          lambda: (torch.einsum("sc,scb->cb", weights, disp),
                   torch.einsum("sc,scb->sb", weights, disp)), b1, 20),
         ("cell_diagnostics_disp", "cell_stats.cu",
-         "_cell_stats_disp_kernel :909", counts["cell_diagnostics_disp"],
-         err2, lambda: K.cell_diagnostics_disp(disp, rot_t, nyq, template,
-                                               weights, mask),
-         lambda: K.cell_diagnostics_disp_plain(
-             disp, rot_t, nyq, template, weights, mask), None, b2, 5),
+         "_cell_stats_disp_kernel :909", "default",
+         diag_err["cell_diagnostics_disp"],
+         *diag_calls["cell_diagnostics_disp"][0], None, b2, 5),
+        ("cell_diagnostics_two_read", "cell_stats.cu",
+         "_cell_stats_kernel :852", "profile",
+         diag_err["cell_diagnostics_two_read"],
+         *diag_calls["cell_diagnostics_two_read"][0], None, b7, 5),
+        ("cell_diagnostics_dedisp", "cell_stats.cu",
+         "_cell_stats_dedisp_kernel :934", "dedispersed",
+         diag_err["cell_diagnostics_dedisp"],
+         *diag_calls["cell_diagnostics_dedisp"][0], None, b6, 5),
         ("scaled_sides_axis0", "scaled_sides.cu",
-         "_scaled_sides_kernel :281", counts["scaled_sides_axis0"], err3[0],
+         "_scaled_sides_kernel :281", "default", err3[0],
          lambda: K.scaled_sides(diags, mask, 0, cfg.chanthresh),
          lambda: K.scaled_sides_plain(diags, mask, 0, cfg.chanthresh), None,
          b3, 10),
         ("scaled_sides_axis1", "scaled_sides.cu",
-         "_scaled_sides_t_kernel :289", counts["scaled_sides_axis1"], err3[1],
+         "_scaled_sides_t_kernel :289", "default", err3[1],
          lambda: K.scaled_sides(diags, mask, 1, cfg.subintthresh),
          lambda: K.scaled_sides_plain(diags, mask, 1, cfg.subintthresh), None,
          b3, 10),
-        ("combine_zap", "combine.cu", "_combine_zap :1555",
-         counts["combine_zap"], errc,
+        ("combine_zap", "combine.cu", "_combine_zap :1555", "default", errc,
          lambda: K.combine_zap(sides[0], sides[1], weights),
          lambda: K.combine_zap_plain(sides[0], sides[1], weights), None,
          bc, 50),
     ]
     kernels = []
-    for (name, src, replaces, launches, err, kfn, pfn, lfn, (bms, bby),
+    for (name, src, replaces, route, err, kfn, pfn, lfn, (bms, bby),
          reps) in entries:
+        launches = counts[route][name]
         ms = cuda_ms(kfn, reps, torch)
         pms = cuda_ms(pfn, max(2, reps // 5), torch)
         lms = cuda_ms(lfn, max(2, reps // 5), torch) if lfn else None
@@ -340,14 +508,23 @@ def main() -> int:
         lib = "null" if lms is None else f"{lms:.4f}"
         print(f"time {name}: {ms:.4f} ms, bound {bms:.4f} ms ({bby}), plain "
               f"{pms:.4f} ms, library {lib} ms, {launches} launches on the "
-              f"main path {tag}", flush=True)
-    iter_ms = cuda_ms(lambda: iteration_step(
-        disp, weights, weights, mask, shifts, offsets,
-        chanthresh=cfg.chanthresh, subintthresh=cfg.subintthresh,
-        rotation=cfg.rotation, baseline_duty=cfg.baseline_duty), 5, torch)
-    print(f"clean: {result.loops} loops, whole clean {clean_ms:.1f} ms "
-          f"(upload, preamble, loop, download), {iter_ms:.3f} ms per "
-          f"iteration (device, resident cube) {tag}", flush=True)
+              f"{route} route {tag}", flush=True)
+    ms_of = {k["name"]: k["ms"] for k in kernels}
+    tail = (ms_of["scaled_sides_axis0"] + ms_of["scaled_sides_axis1"]
+            + ms_of["combine_zap"])
+    for seq, diag, (bms, bby) in (("K4", "cell_diagnostics_disp", b4),
+                                  ("K5", "cell_diagnostics_dedisp", b5)):
+        print(f"time {seq} as {diag} + scaled_sides x2 + combine_zap: "
+              f"{ms_of[diag] + tail:.4f} ms, bound of the one-launch sweep "
+              f"{bms:.4f} ms ({bby}) {tag}", flush=True)
+    for route, prep in preps.items():
+        iter_ms = cuda_ms(lambda: iteration_step(prep, weights, weights, mask,
+                                                 **common), 5, torch)
+        print(f"clean {route}: {results[route].loops} loops, whole clean "
+              f"{clean_ms[route]:.1f} ms (upload, preamble, loop, download), "
+              f"{iter_ms:.3f} ms per iteration (device, resident cubes), "
+              f"peak device memory of the clean {peak_gib[route]:.2f} GiB "
+              f"{tag}", flush=True)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "
           f"build included", flush=True)

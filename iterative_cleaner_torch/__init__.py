@@ -2,12 +2,15 @@
 cleaner, for NVIDIA Hopper (H100).
 
 The JAX package ``iterative_cleaner_tpu`` is the reference this package
-is held against; nothing here imports it (or ``jax``).  The port runs the
-default configuration end to end: integration baseline, dispersed stats
-frame, fourier rotation, no pulse window, a non-DEDISP input — the
-reference's ``disp_iteration`` route.  Every kernel that route launches
-on the TPU has a hand-written CUDA counterpart in
-:mod:`iterative_cleaner_torch.stats.kernels`.
+is held against; nothing here imports it (or ``jax``).  The port runs
+every whole-archive route of the reference engine: the default
+configuration (integration baseline, dispersed stats frame, no pulse
+window, a non-DEDISP input — the reference's ``disp_iteration``), the
+two-read route (the pulse window ``-r``, ``baseline_mode='profile'``,
+DEDISP=1 inputs) and the dedispersed stats frame, each with ``-u``.
+Every kernel those routes launch on the TPU has a hand-written CUDA
+counterpart in :mod:`iterative_cleaner_torch.stats.kernels`.  float64
+and bf16 storage are not ported yet.
 
 Entry points run on the card (``CleanConfig.device`` defaults to
 ``"cuda"``); ``device="cpu"`` runs every kernel's plain PyTorch version

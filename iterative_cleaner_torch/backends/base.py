@@ -17,6 +17,8 @@ class CleanResult:
     scores: np.ndarray               # last iteration's zap scores
     loops: int                       # iterations actually run
     converged: bool
+    # (nsub, nchan, nbin) pulse-free residual, with config.unload_res
+    residual: Optional[np.ndarray] = None
     n_bad_subints: int = 0           # whole-line removals by the sweep
     n_bad_channels: int = 0
     loop_diffs: Optional[np.ndarray] = None      # (loops,) cells changed

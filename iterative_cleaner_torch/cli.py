@@ -1,11 +1,13 @@
 """Command line of the port: the reference CLI's single-archive path.
 
-``python -m iterative_cleaner_torch [-c] [-s] [-m] [-o] [--bad_chan]
-[--bad_subint] [--device] obs.npz`` cleans each archive, writes
-``obs.npz_cleaned.npz`` (the input's data with the cleaned weights) and
-appends the reference-format line to ``clean.log`` beside the output.
-The rest of the reference's flag surface is not ported yet (ROADMAP.md
-'Modules still to port' item 2).
+``python -m iterative_cleaner_torch [-c] [-s] [-m] [-r] [-u] [-o]
+[--bad_chan] [--bad_subint] [--baseline_mode] [--stats_frame] [--device]
+obs.npz`` cleans each archive, writes ``obs.npz_cleaned.npz`` (the
+input's data with the cleaned weights), with ``-u`` also the single-pol
+residual archive ``obs.npz_residual_<loops>.npz`` in the working
+directory, and appends the reference-format line to ``clean.log`` beside
+the output.  The rest of the reference's flag surface is not ported yet
+(ROADMAP.md 'Modules still to port' item 2).
 """
 
 from __future__ import annotations
@@ -36,6 +38,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-m", "--max_iter", type=int, default=5,
                    metavar="maximum_iterations",
                    help="Maximum number of cleaning iterations.")
+    p.add_argument("-u", "--unload_res", action="store_true",
+                   help="Also write the pulse-free residual archive.")
+    p.add_argument("-r", "--pulse_region", nargs=3, type=float,
+                   default=[0, 0, 1],
+                   metavar=("pulse_start", "pulse_end", "scaling_factor"),
+                   help="Pulse window and suppression factor. NOTE: "
+                        "consumed as (factor, start, end), matching the "
+                        "reference implementation's behaviour.")
     p.add_argument("-o", "--output", type=str, default="",
                    metavar="output_filename",
                    help="Output filename. 'std' uses the pattern "
@@ -46,6 +56,21 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--bad_subint", type=float, default=1,
                    help="Fraction of removed channels above which the "
                         "whole subint is removed.")
+    p.add_argument("--stats_frame",
+                   choices=("auto", "dispersed", "dedispersed"),
+                   default="auto",
+                   help="Frame the detection statistics run in: "
+                        "'dispersed' (= auto) re-rotates the residual "
+                        "exactly like the reference; 'dedispersed' skips "
+                        "that rotation (one cube read per iteration; with "
+                        "the fourier rotation borderline cells can zap "
+                        "differently).")
+    p.add_argument("--baseline_mode", choices=("integration", "profile"),
+                   default="integration",
+                   help="Baseline estimator: 'integration' (default) places "
+                        "one window per subintegration at the weighted "
+                        "total profile's smoothed minimum; 'profile' takes "
+                        "each profile's own min-mean window.")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to clean on (default cuda; 'cpu' "
                         "runs the kernels' plain PyTorch versions).")
@@ -77,8 +102,12 @@ def clean_one(in_path: str, args) -> str:
     ar = load_archive(in_path)
     cfg = CleanConfig(chanthresh=args.chanthresh,
                       subintthresh=args.subintthresh,
-                      max_iter=args.max_iter, bad_chan=args.bad_chan,
-                      bad_subint=args.bad_subint, device=args.device)
+                      max_iter=args.max_iter,
+                      pulse_region=tuple(args.pulse_region),
+                      bad_chan=args.bad_chan, bad_subint=args.bad_subint,
+                      stats_frame=args.stats_frame,
+                      baseline_mode=args.baseline_mode,
+                      unload_res=args.unload_res, device=args.device)
     print("Total number of profiles: %s" % ar.weights.size)
     result = clean_archive(ar, cfg)
     for i, (d, f) in enumerate(zip(result.loop_diffs, result.loop_rfi_frac),
@@ -98,8 +127,15 @@ def clean_one(in_path: str, args) -> str:
         ar, weights=result.final_weights.astype(ar.weights.dtype))
     o_name = output_name(ar, args, in_path)
     save_archive(out, o_name)
-    append_clean_log(ar.display_name() or os.path.basename(in_path), args,
-                     result.loops,
+    ar_name = ar.display_name() or os.path.basename(in_path)
+    if args.unload_res:
+        # the residual is total intensity, so the archive is single-pol
+        res_ar = dataclasses.replace(
+            ar, data=result.residual[:, None, :, :].astype(ar.data.dtype),
+            pol_state="Intensity", filename="")
+        save_archive(res_ar, "%s_residual_%s%s" % (
+            ar_name, result.loops, os.path.splitext(o_name)[1]))
+    append_clean_log(ar_name, args, result.loops,
                      os.path.join(os.path.dirname(o_name) or ".",
                                   "clean.log"))
     print("Cleaned archive: %s" % o_name)

@@ -36,9 +36,9 @@ def archive_from_reference(obj) -> Archive:
 
 def config_from_reference(cfg, device: str = "cuda") -> CleanConfig:
     """The port's :class:`CleanConfig` with a reference configuration's
-    algorithm fields.  Its TPU route knobs have no counterpart (the port
-    has one route); a setting outside the port's slice raises
-    ``NotImplementedError`` from the config."""
+    algorithm fields.  Its TPU route knobs have no counterpart (the
+    device decides the kernels); a setting outside the port's slice
+    raises ``NotImplementedError`` from the config."""
     return CleanConfig(
         chanthresh=float(cfg.chanthresh),
         subintthresh=float(cfg.subintthresh),
@@ -47,6 +47,7 @@ def config_from_reference(cfg, device: str = "cuda") -> CleanConfig:
         bad_chan=float(cfg.bad_chan),
         bad_subint=float(cfg.bad_subint),
         rotation=str(cfg.rotation),
+        stats_frame=str(cfg.stats_frame),
         baseline_duty=float(cfg.baseline_duty),
         baseline_mode=str(cfg.baseline_mode),
         dtype=str(cfg.dtype),

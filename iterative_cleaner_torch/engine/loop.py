@@ -1,13 +1,23 @@
-"""The cleaning iteration of the default route (the reference's
-``disp_iteration``), in torch.
+"""The cleaning iteration, in torch: the reference's whole-archive routes.
 
 - Every iteration rebuilds the template from the ORIGINAL data under the
   previous iteration's weights, so zaps re-derive from scratch and a cell
   can be un-zapped (the reference re-clones its archive each round).
-- The baseline-removed DISPERSED cube ``disp`` is the one resident cube;
-  it is read twice per iteration: once by the marginal kernel (K1) for the
-  template stage, once by the cell-diagnostics kernel (K2).  Rotations act
-  on (nchan, nbin) rows only.
+- The preamble (baseline removal, dedispersion) is hoisted out of the
+  loop; the cubes it leaves on the device depend on the route, which
+  follows from the configuration and the archive as in the reference
+  (``disp_iteration_enabled`` and the stats frame):
+
+  - ``default`` (integration baseline, dispersed frame, no pulse window,
+    a non-DEDISP input): K1 marginals -> K2 -> K3 x 2 -> combine; one
+    resident cube ``disp_clean``, read twice per iteration.
+  - ``two_read`` (dispersed frame and any of the pulse window, the
+    profile baseline, a DEDISP=1 input): the template einsum over
+    ``ded`` (+ the integration correction over ``disp_clean``) -> K7 ->
+    K3 x 2 -> combine.
+  - ``dedispersed`` (``stats_frame='dedispersed'``): the template einsum
+    (+ correction) -> K6 -> K3 x 2 -> combine, the port's K5.
+
 - Convergence is cycle detection against every earlier weight matrix,
   held in a ``(max_iter+1)``-deep history seeded with the original
   weights.  That flag is the loop's only host synchronisation; the
@@ -19,19 +29,29 @@
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
+from iterative_cleaner_torch.config import CleanConfig, resolve_stats_frame
 from iterative_cleaner_torch.ops.dsp import (
+    fit_template_amplitudes,
+    prepare_cube_integration,
+    prepare_cube_with_correction,
     rotate_bins,
     template_numerator_from_channel_profiles,
+    template_residuals,
+    weighted_template,
 )
 from iterative_cleaner_torch.ops.psrchive_baseline import (
+    template_correction,
     template_correction_from_totals,
 )
 from iterative_cleaner_torch.stats.kernels import (
+    cell_diagnostics_dedisp,
     cell_diagnostics_disp,
+    cell_diagnostics_two_read,
     combine_zap,
     scaled_sides,
     weighted_marginals,
@@ -41,12 +61,121 @@ from iterative_cleaner_torch.stats.masked_torch import masked_median
 # columns of CleanOutputs.iter_metrics
 ITER_METRICS_WIDTH = 4  # zap_count, mask_churn, residual_std, template_peak
 
+# The routes, and the kernels (launch-count names of stats.kernels) each
+# launches every iteration; a route launches none of the others.
+_SHARED_KERNELS = ("scaled_sides_axis0", "scaled_sides_axis1", "combine_zap")
+ROUTE_KERNELS = {
+    "default": ("weighted_marginals", "cell_diagnostics_disp")
+    + _SHARED_KERNELS,
+    "two_read": ("cell_diagnostics_two_read",) + _SHARED_KERNELS,
+    "dedispersed": ("cell_diagnostics_dedisp",) + _SHARED_KERNELS,
+}
+
+
+def disp_iteration_enabled(baseline_mode: str, stats_frame: str,
+                           pulse_active: bool, dedispersed: bool) -> bool:
+    """The reference's eligibility predicate of the dispersed-frame route
+    (the port's ``default``): the dispersed residual base IS the pristine
+    ``disp_clean`` only under the integration preamble, the dispersed
+    frame, no pulse window (the fit must see the unwindowed template) and
+    a non-DEDISP input."""
+    return (baseline_mode == "integration" and stats_frame == "dispersed"
+            and not pulse_active and not dedispersed)
+
+
+def select_route(config: CleanConfig, dedispersed: bool) -> str:
+    """The route of :data:`ROUTE_KERNELS` ``config`` runs on an archive
+    (``dedispersed``: a DEDISP=1 input), as the reference chooses it
+    (``disp_iteration_enabled`` and the resolved stats frame)."""
+    stats_frame = resolve_stats_frame(config.stats_frame)
+    if stats_frame == "dedispersed":
+        return "dedispersed"
+    if disp_iteration_enabled(config.baseline_mode, stats_frame,
+                              config.pulse_region_active, bool(dedispersed)):
+        return "default"
+    return "two_read"
+
+
+def pulse_window(nbin, pulse_slice, pulse_scale, pulse_active, dtype,
+                 device):
+    """(nbin,) multiplier the reference applies to the residual's
+    on-pulse bins: 1 everywhere, ``pulse_scale`` on [start, end), built
+    in float64 and cast as the reference builds it.  None when
+    inactive."""
+    if not pulse_active:
+        return None
+    m = np.ones(nbin, dtype=np.float64)
+    start, end = pulse_slice
+    m[start:end] = pulse_scale
+    return torch.from_numpy(m).to(device=device, dtype=dtype)
+
+
+def dispersed_residual_base(ded, back_shifts, *, window, rotation):
+    """Iteration-invariant part of the dispersed-frame residual:
+    ``rot(ded * m)``.  The residual the statistics consume is
+    ``rot(amps * t * m - ded * m)``; rotation is linear, so the cube part
+    is rotated once here and each iteration rotates only the (nbin,)
+    template."""
+    masked = ded if window is None else ded * window
+    return rotate_bins(masked, back_shifts, method=rotation)
+
+
+class Prepared(NamedTuple):
+    """What the preamble leaves on the device for one route."""
+
+    route: str
+    back_shifts: torch.Tensor                 # (nchan,) re-dispersion shifts
+    ded: Optional[torch.Tensor]               # dedispersed cube (not default)
+    disp_base: Optional[torch.Tensor]         # default: disp_clean; two_read
+    disp_clean: Optional[torch.Tensor]        # integration baseline only
+    base_offsets: Optional[torch.Tensor]      # integration baseline only
+    window: Optional[torch.Tensor]            # (nbin,) pulse window or None
+
+
+def prepare(cube, weights, freqs_mhz, dm, ref_freq_mhz, period_s,
+            config: CleanConfig, *, dedispersed) -> Prepared:
+    """Run the preamble of the route :func:`select_route` picks on the
+    uploaded ``cube`` (consumed: the baseline is subtracted in place) and
+    keep only the cubes the route reads: ``disp_clean`` (default);
+    ``ded`` and ``disp_base``, plus ``disp_clean`` under the integration
+    baseline (two_read); ``ded``, plus ``disp_clean`` under the
+    integration baseline (dedispersed).  Every argument but ``config``
+    and ``dedispersed`` is a tensor on the device."""
+    route = select_route(config, dedispersed)
+    rotation, duty = config.rotation, config.baseline_duty
+    if route == "default":
+        _, shifts, disp_clean, offsets = prepare_cube_integration(
+            cube, weights, freqs_mhz, dm, ref_freq_mhz, period_s,
+            baseline_duty=duty, rotation=rotation, with_ded=False)
+        return Prepared(route, shifts, None, disp_clean, disp_clean, offsets,
+                        None)
+    window = pulse_window(cube.shape[-1], config.pulse_slice,
+                          config.pulse_scale, config.pulse_region_active,
+                          cube.dtype, cube.device)
+    ded, shifts, corr = prepare_cube_with_correction(
+        cube, weights, freqs_mhz, dm, ref_freq_mhz, period_s,
+        baseline_duty=duty, rotation=rotation,
+        dedispersed=bool(dedispersed), baseline_mode=config.baseline_mode)
+    disp_clean, offsets = (corr[0], corr[1]) if corr is not None \
+        else (None, None)
+    disp_base = None
+    if route == "two_read":
+        disp_base = dispersed_residual_base(ded, shifts, window=window,
+                                            rotation=rotation)
+    elif window is None:
+        # the dedispersed-frame kernel always takes a window row
+        window = torch.ones(ded.shape[-1], dtype=ded.dtype,
+                            device=ded.device)
+    return Prepared(route, shifts, ded, disp_base, disp_clean, offsets,
+                    window)
+
 
 class CleanOutputs(NamedTuple):
     final_weights: torch.Tensor   # (nsub, nchan) cleaned weights
     loops: int                    # iterations run
     converged: bool
     scores: torch.Tensor          # (nsub, nchan) last iteration's scores
+    template_weights: torch.Tensor  # weights the last template was built from
     loop_diffs: torch.Tensor      # (max_iter,) cells changed per loop
     loop_rfi_frac: torch.Tensor   # (max_iter,) zero-weight fraction per loop
     history: torch.Tensor         # (max_iter+1, nsub, nchan) weight matrices
@@ -70,37 +199,63 @@ def nyq_correction_row(back_shifts, nbin, rotation, dtype):
     return (gamma / nbin)[:, None] * alt[None, :]
 
 
-def build_template(disp, weights, back_shifts, base_offsets, *, rotation,
-                   baseline_duty):
-    """Template stage of one iteration: both weighted marginals of the
-    dispersed cube in one read (K1); the dedispersion rotation applied
-    to the (nchan, nbin) channel profiles; the integration-baseline
-    correction under the current weights; the reference's x10000."""
-    a, t1 = weighted_marginals(disp, weights)
-    num = template_numerator_from_channel_profiles(a, back_shifts, rotation)
-    den = torch.sum(weights)
-    safe = torch.where(den == 0, torch.ones_like(den), den)
-    template = torch.where(den == 0, torch.zeros_like(num), num / safe)
-    template = template + template_correction_from_totals(
-        t1, base_offsets, weights, baseline_duty)
+def build_template(prep: Prepared, weights, *, rotation, baseline_duty):
+    """Template stage of one iteration, the reference's x10000 included.
+
+    default: both weighted marginals of the dispersed cube in one read
+    (K1), the dedispersion rotation applied to the (nchan, nbin) channel
+    profiles, the integration-baseline correction from the per-subint
+    totals.  Other routes: the weighted template over ``ded`` and, under
+    the integration baseline, the correction over ``disp_clean`` — plain
+    products, as in the reference."""
+    if prep.route == "default":
+        a, t1 = weighted_marginals(prep.disp_base, weights)
+        num = template_numerator_from_channel_profiles(a, prep.back_shifts,
+                                                       rotation)
+        den = torch.sum(weights)
+        safe = torch.where(den == 0, torch.ones_like(den), den)
+        template = torch.where(den == 0, torch.zeros_like(num), num / safe)
+        template = template + template_correction_from_totals(
+            t1, prep.base_offsets, weights, baseline_duty)
+    else:
+        template = weighted_template(prep.ded, weights)
+        if prep.disp_clean is not None:
+            template = template + template_correction(
+                prep.disp_clean, prep.base_offsets, weights, baseline_duty)
     return template * 10000.0
 
 
-def iteration_step(disp, weights, orig_weights, cell_mask, back_shifts,
-                   base_offsets, *, chanthresh, subintthresh, rotation,
-                   baseline_duty):
-    """One iteration: template -> fit -> residual diagnostics (K2) ->
-    both scaler orientations (K3) -> 4-way median and zap (combine).
-    Returns ``(new_weights, scores, residual_std, template_peak)``, the
-    last two as device scalars for the telemetry rows."""
-    nchan, nbin = disp.shape[1:]
-    template = build_template(disp, weights, back_shifts, base_offsets,
-                              rotation=rotation, baseline_duty=baseline_duty)
-    rot_t = rotate_bins(template.expand(nchan, nbin), back_shifts,
+def route_diagnostics(prep: Prepared, template, orig_weights, cell_mask, *,
+                     rotation):
+    """The four per-cell diagnostic planes of the route's residual: K2
+    (default), K7 (two_read) or K6 (dedispersed)."""
+    if prep.route == "dedispersed":
+        return cell_diagnostics_dedisp(prep.ded, template, prep.window,
+                                       orig_weights, cell_mask)
+    nchan, nbin = prep.disp_base.shape[1:]
+    t = template if prep.window is None else template * prep.window
+    rot_t = rotate_bins(t.expand(nchan, nbin), prep.back_shifts,
                         method=rotation).contiguous()
-    nyq_row = nyq_correction_row(back_shifts, nbin, rotation, disp.dtype)
-    diags = cell_diagnostics_disp(disp, rot_t, nyq_row, template,
-                                  orig_weights, cell_mask)
+    if prep.route == "two_read":
+        return cell_diagnostics_two_read(prep.ded, prep.disp_base, rot_t,
+                                         template, orig_weights, cell_mask)
+    nyq_row = nyq_correction_row(prep.back_shifts, nbin, rotation,
+                                 prep.disp_base.dtype)
+    return cell_diagnostics_disp(prep.disp_base, rot_t, nyq_row, template,
+                                 orig_weights, cell_mask)
+
+
+def iteration_step(prep: Prepared, weights, orig_weights, cell_mask, *,
+                   chanthresh, subintthresh, rotation, baseline_duty):
+    """One iteration: template -> fit -> residual diagnostics (K2, K6 or
+    K7) -> both scaler orientations (K3) -> 4-way median and zap
+    (combine).  Returns ``(new_weights, scores, residual_std,
+    template_peak)``, the last two as device scalars for the telemetry
+    rows."""
+    template = build_template(prep, weights, rotation=rotation,
+                              baseline_duty=baseline_duty)
+    diags = route_diagnostics(prep, template, orig_weights, cell_mask,
+                             rotation=rotation)
     chan = scaled_sides(diags, cell_mask, 0, chanthresh)
     sub = scaled_sides(diags, cell_mask, 1, subintthresh)
     new_weights, scores = combine_zap(chan, sub, orig_weights)
@@ -109,42 +264,69 @@ def iteration_step(disp, weights, orig_weights, cell_mask, back_shifts,
     return new_weights, scores, rstd, torch.max(template)
 
 
-def clean_dispersed(disp, orig_weights, back_shifts, base_offsets, *,
-                    max_iter, chanthresh, subintthresh, rotation,
-                    baseline_duty) -> CleanOutputs:
-    """Run the iteration loop on the baseline-removed dispersed cube."""
-    nsub, nchan, _ = disp.shape
-    dev = disp.device
+def clean_loop(prep: Prepared, orig_weights, *, max_iter, chanthresh,
+               subintthresh, rotation, baseline_duty) -> CleanOutputs:
+    """Run the iteration loop on the prepared cubes."""
+    nsub, nchan = orig_weights.shape
+    dev = orig_weights.device
+    dtype = prep.back_shifts.dtype
     cell_mask = orig_weights == 0
     history = torch.zeros((max_iter + 1, nsub, nchan), dtype=orig_weights.dtype,
                           device=dev)
     history[0] = orig_weights
     loop_diffs = torch.zeros((max_iter,), dtype=torch.int32, device=dev)
-    loop_rfi_frac = torch.zeros((max_iter,), dtype=disp.dtype, device=dev)
+    loop_rfi_frac = torch.zeros((max_iter,), dtype=dtype, device=dev)
     iter_metrics = torch.zeros((max_iter, ITER_METRICS_WIDTH),
                                dtype=torch.float32, device=dev)
-    weights = orig_weights
-    scores = torch.zeros((nsub, nchan), dtype=disp.dtype, device=dev)
+    weights = template_weights = orig_weights
+    scores = torch.zeros((nsub, nchan), dtype=dtype, device=dev)
     count, loops, converged = 1, max_iter, False
     for x in range(max_iter):
         new_w, scores, rstd, tpeak = iteration_step(
-            disp, weights, orig_weights, cell_mask, back_shifts,
-            base_offsets, chanthresh=chanthresh, subintthresh=subintthresh,
-            rotation=rotation, baseline_duty=baseline_duty)
+            prep, weights, orig_weights, cell_mask, chanthresh=chanthresh,
+            subintthresh=subintthresh, rotation=rotation,
+            baseline_duty=baseline_duty)
         repeat = (history[:count] == new_w[None]).flatten(1).all(dim=1).any()
         history[count] = new_w
         count += 1
         loop_diffs[x] = torch.sum(new_w != weights)
-        loop_rfi_frac[x] = torch.mean((new_w == 0).to(disp.dtype))
+        loop_rfi_frac[x] = torch.mean((new_w == 0).to(dtype))
         iter_metrics[x] = torch.stack([
             torch.sum(new_w == 0).to(torch.float32),
             torch.sum((new_w == 0) != (weights == 0)).to(torch.float32),
             rstd.to(torch.float32), tpeak.to(torch.float32)])
-        weights = new_w
+        template_weights, weights = weights, new_w
         if bool(repeat):  # the loop's one host sync
             converged, loops = True, x + 1
             break
     return CleanOutputs(
         final_weights=weights, loops=loops, converged=converged,
-        scores=scores, loop_diffs=loop_diffs, loop_rfi_frac=loop_rfi_frac,
+        scores=scores, template_weights=template_weights,
+        loop_diffs=loop_diffs, loop_rfi_frac=loop_rfi_frac,
         history=history, history_count=count, iter_metrics=iter_metrics)
+
+
+def unload_residual(prep: Prepared, template_weights, *, rotation,
+                    baseline_duty, pulse_slice, pulse_scale, pulse_active):
+    """The last iteration's pulse-free residual in the archive's own
+    (dispersed) frame, as the reference reconstructs it after its loop:
+    the template from ``template_weights`` over ``ded`` (plus the
+    integration correction), the closed-form fit, ``amp * t - ded`` with
+    the pulse window's bins scaled, rotated back by the re-dispersion
+    shifts.  The default route keeps no ``ded``: its ``disp_clean`` is
+    rotated into the dedispersed frame here, once."""
+    ded = prep.ded
+    if ded is None:
+        ded = rotate_bins(prep.disp_clean, -prep.back_shifts,
+                          method=rotation)
+    template = weighted_template(ded, template_weights)
+    if prep.disp_clean is not None:
+        template = template + template_correction(
+            prep.disp_clean, prep.base_offsets, template_weights,
+            baseline_duty)
+    template = template * 10000.0
+    amps = fit_template_amplitudes(ded, template)
+    resid = template_residuals(ded, template, amps, pulse_slice, pulse_scale,
+                               pulse_active)
+    del ded
+    return rotate_bins(resid, prep.back_shifts, method=rotation)

@@ -47,6 +47,15 @@ def baseline_offsets_integration(cube, weights, duty: float):
     return torch.einsum("scb,sb->sc", cube, window.to(cube.dtype)) / w
 
 
+def template_correction(disp_clean, base_offsets, weights, duty):
+    """:func:`template_correction_from_totals` from the baseline-removed
+    dispersed cube itself: one contraction ``t1 = sum_c w * disp_clean``
+    (the routes whose template stage does not take both marginals in
+    one read)."""
+    t1 = torch.einsum("sc,scb->sb", weights, disp_clean)
+    return template_correction_from_totals(t1, base_offsets, weights, duty)
+
+
 def template_correction_from_totals(t1, base_offsets, weights, duty):
     """Per-iteration template shift of the integration baseline under the
     CURRENT weights, from the per-subint weighted totals

@@ -1,11 +1,12 @@
 """Where the time of one full-size clean goes, on the card.
 
     python -m iterative_cleaner_torch.profile_iteration [--reps 5]
-        [--report PATH]
+        [--report PATH] [--baseline_mode profile]
+        [--stats_frame dedispersed] [-r FACTOR START END]
 
 Rebuilds the full-size golden archive (``make_fullsize_archive``, as
-``chip_smoke.py`` does), cleans it under the default ``CleanConfig``
-and times two whole
+``chip_smoke.py`` does), cleans it under ``CleanConfig`` (the default,
+or the route the options select) and times two whole
 ``clean_archive`` calls in a row (the first pays the process's one-time
 CUDA set-up, the second is warm).  Then it times the phases of
 ``clean_cube`` one by one: the host's float32 conversion of the cube,
@@ -31,9 +32,12 @@ import torch
 
 from iterative_cleaner_torch.backends import clean_archive
 from iterative_cleaner_torch.config import CleanConfig
-from iterative_cleaner_torch.engine.loop import iteration_step
+from iterative_cleaner_torch.engine.loop import (
+    iteration_step,
+    prepare,
+    select_route,
+)
 from iterative_cleaner_torch.io.synthetic import make_fullsize_archive
-from iterative_cleaner_torch.ops.dsp import prepare_cube_integration
 from iterative_cleaner_torch.stats import kernels as K
 
 
@@ -51,6 +55,14 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--report", default="")
+    ap.add_argument("--baseline_mode", default="integration",
+                    choices=("integration", "profile"))
+    ap.add_argument("--stats_frame", default="auto",
+                    choices=("auto", "dispersed", "dedispersed"))
+    ap.add_argument("-r", "--pulse_region", nargs=3, type=float,
+                    default=[0.0, 0.0, 1.0],
+                    help="pulse window as the CLI takes it: factor, start, "
+                         "end")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_iteration: needs a CUDA device", file=sys.stderr)
@@ -66,7 +78,11 @@ def main(argv=None) -> int:
     K.load_library()
 
     ar = make_fullsize_archive()
-    cfg = CleanConfig()
+    cfg = CleanConfig(baseline_mode=args.baseline_mode,
+                      stats_frame=args.stats_frame,
+                      pulse_region=tuple(args.pulse_region))
+    route = select_route(cfg, ar.dedispersed)
+    print(f"route: {route} {tag}", flush=True)
     phases = {}
     # whole cleans first, so that the first one pays the process's
     # one-time CUDA set-up as a user's first archive does
@@ -90,20 +106,20 @@ def main(argv=None) -> int:
     out = {}
 
     def preamble():
-        out["p"] = prepare_cube_integration(
+        out["p"] = prepare(
             cube, weights, torch.tensor(ar.freqs_mhz, dtype=f32, device=dev),
             torch.tensor(ar.dm, dtype=f32, device=dev),
             torch.tensor(ar.centre_freq_mhz, dtype=f32, device=dev),
             torch.tensor(ar.period_s, dtype=f32, device=dev),
-            baseline_duty=cfg.baseline_duty)
+            cfg, dedispersed=ar.dedispersed)
 
     phases["preamble_ms"] = _events_ms(preamble)
-    disp, shifts, offsets = out["p"]
+    prep = out["p"]
     mask = weights == 0
 
     def step():
-        out["s"] = iteration_step(disp, weights, weights, mask, shifts,
-                                  offsets, chanthresh=cfg.chanthresh,
+        out["s"] = iteration_step(prep, weights, weights, mask,
+                                  chanthresh=cfg.chanthresh,
                                   subintthresh=cfg.subintthresh,
                                   rotation=cfg.rotation,
                                   baseline_duty=cfg.baseline_duty)
@@ -143,7 +159,7 @@ def main(argv=None) -> int:
     for name, ms in rows[:12]:
         print(f"  {ms / args.reps:9.4f} ms/iter {100 * ms / busy:5.1f}%  "
               f"{name[:90]}")
-    report = {"card": card, "phases": phases,
+    report = {"card": card, "route": route, "phases": phases,
               "profile_wall_ms_per_iter": wall / args.reps,
               "profile_busy_ms_per_iter": busy / args.reps,
               "kernels_ms_per_iter": {n: ms / args.reps for n, ms in rows}}

@@ -1,5 +1,5 @@
-"""The hand-written CUDA kernels of the default route, their plain
-PyTorch versions, and the build that binds them.
+"""The hand-written CUDA kernels of the port, their plain PyTorch
+versions, and the build that binds them.
 
 One wrapper per kernel.  Each takes its plain version only for tensors
 that lie on the CPU; for CUDA tensors it launches the kernel or raises —
@@ -19,13 +19,19 @@ K3     :func:`scaled_sides`               ``scaled_sides_pallas``, both axes
        (csrc/scaled_sides.cu)             (body ``_scaled_sides_body``)
 K4     K2 + K3 x 2 + :func:`combine_zap`  ``fused_sweep_pallas`` (tail
        (csrc/combine.cu)                  ``_combine_zap`` / ``_median4``)
+K5     K6 + K3 x 2 + :func:`combine_zap`  ``fused_sweep_pallas_dedisp``
+K6     :func:`cell_diagnostics_dedisp`    ``cell_diagnostics_pallas_dedisp``
+       (csrc/cell_stats.cu)               (``_wres_dedisp`` + ``_diag_tail``)
+K7     :func:`cell_diagnostics_two_read`  ``cell_diagnostics_pallas``
+       (csrc/cell_stats.cu)               (``_cell_stats_kernel``)
 =====  =================================  ==================================
 
 Each source file states what bounds its kernel on the card and what its
-design does about it.  The TPU sweep K4 keeps the whole cell plane in
-VMEM under a 24 MiB cap; a Hopper block cannot hold an archive's planes
-and its grid is not sequential, so the port has one launch sequence for
-every plane size (K2, K3 per orientation, combine) — no size gate.
+design does about it.  The TPU sweeps K4 and K5 keep the whole cell
+plane in VMEM under a 24 MiB cap; a Hopper block cannot hold an
+archive's planes and its grid is not sequential, so the port has one
+launch sequence for every plane size (K2 or K6, K3 per orientation,
+combine) — no size gate.
 
 The sources are compiled at first use with ``nvcc`` into one shared
 library under ``iterative_cleaner_torch/_build/`` (one ``nvcc`` per
@@ -49,6 +55,7 @@ import numpy as np
 import torch
 
 from iterative_cleaner_torch.ops.dsp import (
+    fit_template_amplitudes,
     fit_template_amplitudes_disp,
     weighted_marginal_totals,
 )
@@ -139,6 +146,9 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
 _SIGNATURES = {
     "icln_weighted_marginals": [_P] * 6 + [_I] * 5 + [_P],
     "icln_cell_stats_disp": [_P] * 12 + [_LL] + [_I] * 6 + [_LL, _F, _P],
+    "icln_cell_stats_two_read": [_P] * 13 + [_LL] + [_I] * 6
+    + [_LL, _F, _P],
+    "icln_cell_stats_dedisp": [_P] * 12 + [_LL] + [_I] * 6 + [_LL, _F, _P],
     "icln_scaled_sides": [_P] * 9 + [_I, _I, _LL, _LL, _F, _I, _LL, _P],
     "icln_combine_zap": [_P] * 11 + [_LL, _P],
 }
@@ -305,6 +315,43 @@ def cell_diagnostics_disp_plain(disp, rot_t, nyq_row, template, weights,
     return cell_diagnostics(wres, cell_mask, "dft")
 
 
+def _launch_cell_stats(entry, cube, template, weights, cell_mask, cubes,
+                       chan_rows, bin_rows, ptrs):
+    """Check and launch one of the cell-diagnostics kernels (K2, K6, K7
+    share ``cell_stats.cu``'s launch geometry).  ``cubes``,
+    ``chan_rows`` and ``bin_rows`` are ``(name, tensor)`` pairs checked
+    as (nsub, nchan, nbin) cubes, (nchan, nbin) rows and (nbin,) rows;
+    ``ptrs`` are the entry's leading pointer arguments in order.  Returns
+    the entry's return code and the four (nsub, nchan) planes."""
+    nsub, nchan, nbin = cube.shape
+    if nbin > MAX_NBIN:
+        raise ValueError(f"nbin {nbin} > {MAX_NBIN}")
+    for name, t in cubes:
+        _require(t, name, torch.float32, (nsub, nchan, nbin))
+    for name, t in chan_rows:
+        _require(t, name, torch.float32, (nchan, nbin))
+    for name, t in bin_rows:
+        _require(t, name, torch.float32, (nbin,))
+    _require(template, "template", torch.float32, (nbin,))
+    _require(weights, "weights", torch.float32, (nsub, nchan))
+    _require(cell_mask, "cell_mask", torch.bool, (nsub, nchan))
+    info = tt_info(template)
+    threads = 256
+    group, kchunk, smem = cell_stats_geometry(nbin, threads)
+    cos_t, sin_t = _dft_tables_cached(nbin, str(cube.device))
+    outs = [torch.empty((nsub, nchan), dtype=torch.float32,
+                        device=cube.device) for _ in range(4)]
+    ncells = nsub * nchan
+    grid = max(1, min(-(-ncells // group), 4 * _sm_count(str(cube.device))))
+    inv_n = float(np.float32(1.0 / nbin))
+    fn = getattr(load_library(), entry)
+    with torch.cuda.device(cube.device):
+        rc = fn(*ptrs, _ptr(cos_t), _ptr(sin_t), _ptr(info),
+                *(_ptr(o) for o in outs), ncells, nchan, nbin, group, kchunk,
+                threads, grid, smem, inv_n, _stream(cube))
+    return rc, tuple(outs)
+
+
 def cell_diagnostics_disp(disp, rot_t, nyq_row, template, weights,
                           cell_mask):
     """``(d_std, d_mean, d_ptp, d_fft)`` of the dispersed-frame weighted
@@ -314,39 +361,107 @@ def cell_diagnostics_disp(disp, rot_t, nyq_row, template, weights,
     if not _on_card(disp, rot_t, template, weights, cell_mask):
         return cell_diagnostics_disp_plain(disp, rot_t, nyq_row, template,
                                            weights, cell_mask)
-    nsub, nchan, nbin = disp.shape
-    if nbin > MAX_NBIN:
-        raise ValueError(f"nbin {nbin} > {MAX_NBIN}")
-    _require(disp, "disp", torch.float32, (nsub, nchan, nbin))
-    _require(rot_t, "rot_t", torch.float32, (nchan, nbin))
-    _require(template, "template", torch.float32, (nbin,))
-    if nyq_row is not None:
-        _require(nyq_row, "nyq_row", torch.float32, (nchan, nbin))
-    _require(weights, "weights", torch.float32, (nsub, nchan))
-    _require(cell_mask, "cell_mask", torch.bool, (nsub, nchan))
-    info = tt_info(template)
-    threads = 256
-    group, kchunk, smem = cell_stats_geometry(nbin, threads)
-    cos_t, sin_t = _dft_tables_cached(nbin, str(disp.device))
-    outs = [torch.empty((nsub, nchan), dtype=torch.float32,
-                        device=disp.device) for _ in range(4)]
-    ncells = nsub * nchan
-    grid = max(1, min(-(-ncells // group), 4 * _sm_count(str(disp.device))))
-    inv_n = float(np.float32(1.0 / nbin))
-    lib = load_library()
-    with torch.cuda.device(disp.device):
-        rc = lib.icln_cell_stats_disp(
-            _ptr(disp), _ptr(rot_t),
-            None if nyq_row is None else _ptr(nyq_row), _ptr(weights),
-            _ptr(cell_mask), _ptr(cos_t), _ptr(sin_t), _ptr(info),
-            *(_ptr(o) for o in outs), ncells, nchan, nbin, group, kchunk,
-            threads, grid, smem, inv_n, _stream(disp))
+    rows = [("rot_t", rot_t)] + ([] if nyq_row is None
+                                 else [("nyq_row", nyq_row)])
+    rc, outs = _launch_cell_stats(
+        "icln_cell_stats_disp", disp, template, weights, cell_mask,
+        [("disp", disp)], rows, [],
+        [_ptr(disp), _ptr(rot_t), None if nyq_row is None else _ptr(nyq_row),
+         _ptr(weights), _ptr(cell_mask)])
     cell_diagnostics_disp.launches += 1
     _check_rc(rc, "cell_diagnostics_disp")
-    return tuple(outs)
+    return outs
 
 
 cell_diagnostics_disp.launches = 0
+
+
+# --------------------------------------------------------------------------
+# K7: two-read cell diagnostics (pulse window, profile baseline, DEDISP=1)
+# --------------------------------------------------------------------------
+
+def wres_two_read(ded, disp_base, rot_t, template, weights):
+    """Two-read weighted residual (the reference's ``_cell_stats_kernel``
+    body): the fit ``<ded, t>`` against the UNWINDOWED template, the
+    residual ``amp * rot_t - disp_base`` in the dispersed frame,
+    weighting."""
+    amp = fit_template_amplitudes(ded, template)
+    resid = amp[:, :, None] * rot_t[None] - disp_base
+    return resid * weights[:, :, None]
+
+
+def cell_diagnostics_two_read_plain(ded, disp_base, rot_t, template,
+                                    weights, cell_mask):
+    """The plain version of K7: :func:`wres_two_read`, then
+    :func:`~iterative_cleaner_torch.stats.masked_torch.cell_diagnostics`
+    with the DFT."""
+    wres = wres_two_read(ded, disp_base, rot_t, template, weights)
+    return cell_diagnostics(wres, cell_mask, "dft")
+
+
+def cell_diagnostics_two_read(ded, disp_base, rot_t, template, weights,
+                              cell_mask):
+    """``(d_std, d_mean, d_ptp, d_fft)`` of the two-read weighted
+    residual — kernel K7 on the card,
+    :func:`cell_diagnostics_two_read_plain` on the CPU.  ``rot_t`` is the
+    rotation of the WINDOWED template, ``template`` the unwindowed one
+    the fit uses."""
+    if not _on_card(ded, disp_base, rot_t, template, weights, cell_mask):
+        return cell_diagnostics_two_read_plain(ded, disp_base, rot_t,
+                                               template, weights, cell_mask)
+    rc, outs = _launch_cell_stats(
+        "icln_cell_stats_two_read", ded, template, weights, cell_mask,
+        [("ded", ded), ("disp_base", disp_base)], [("rot_t", rot_t)], [],
+        [_ptr(ded), _ptr(disp_base), _ptr(rot_t), _ptr(template),
+         _ptr(weights), _ptr(cell_mask)])
+    cell_diagnostics_two_read.launches += 1
+    _check_rc(rc, "cell_diagnostics_two_read")
+    return outs
+
+
+cell_diagnostics_two_read.launches = 0
+
+
+# --------------------------------------------------------------------------
+# K6: dedispersed-frame cell diagnostics (K5 = K6 + K3 x 2 + combine)
+# --------------------------------------------------------------------------
+
+def wres_dedisp(ded, template, window, weights):
+    """Dedispersed-frame weighted residual (the reference's
+    ``_wres_dedisp``): ``(amp * t - ded) * window``, weighted."""
+    amp = fit_template_amplitudes(ded, template)
+    resid = (amp[:, :, None] * template - ded) * window
+    return resid * weights[:, :, None]
+
+
+def cell_diagnostics_dedisp_plain(ded, template, window, weights,
+                                  cell_mask):
+    """The plain version of K6: :func:`wres_dedisp`, then
+    :func:`~iterative_cleaner_torch.stats.masked_torch.cell_diagnostics`
+    with the DFT."""
+    wres = wres_dedisp(ded, template, window, weights)
+    return cell_diagnostics(wres, cell_mask, "dft")
+
+
+def cell_diagnostics_dedisp(ded, template, window, weights, cell_mask):
+    """``(d_std, d_mean, d_ptp, d_fft)`` of the dedispersed-frame
+    weighted residual — kernel K6 on the card,
+    :func:`cell_diagnostics_dedisp_plain` on the CPU.  ``window`` is the
+    (nbin,) pulse-window multiplier (all ones when the window is off)."""
+    if not _on_card(ded, template, window, weights, cell_mask):
+        return cell_diagnostics_dedisp_plain(ded, template, window, weights,
+                                             cell_mask)
+    rc, outs = _launch_cell_stats(
+        "icln_cell_stats_dedisp", ded, template, weights, cell_mask,
+        [("ded", ded)], [], [("window", window)],
+        [_ptr(ded), _ptr(template), _ptr(window), _ptr(weights),
+         _ptr(cell_mask)])
+    cell_diagnostics_dedisp.launches += 1
+    _check_rc(rc, "cell_diagnostics_dedisp")
+    return outs
+
+
+cell_diagnostics_dedisp.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -500,6 +615,8 @@ combine_zap.launches = 0
 def reset_launch_counts() -> None:
     weighted_marginals.launches = 0
     cell_diagnostics_disp.launches = 0
+    cell_diagnostics_two_read.launches = 0
+    cell_diagnostics_dedisp.launches = 0
     scaled_sides.launches = [0, 0]
     combine_zap.launches = 0
 
@@ -508,6 +625,8 @@ def launch_counts() -> dict:
     return {
         "weighted_marginals": weighted_marginals.launches,
         "cell_diagnostics_disp": cell_diagnostics_disp.launches,
+        "cell_diagnostics_two_read": cell_diagnostics_two_read.launches,
+        "cell_diagnostics_dedisp": cell_diagnostics_dedisp.launches,
         "scaled_sides_axis0": scaled_sides.launches[0],
         "scaled_sides_axis1": scaled_sides.launches[1],
         "combine_zap": combine_zap.launches,

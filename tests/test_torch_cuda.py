@@ -8,9 +8,9 @@ run on a GPU machine with
 does not use and a GPU machine need not have).
 
 Tolerances as in tests/test_torch_kernels.py: K1 1e-5 of sum|w*disp|,
-K2 rtol 1e-4 of each plane's scale with masked cells exact, K3 and the
-combine bit-equal (NaN included), and the whole slice's mask equal to
-the CPU run's.
+K2, K6 and K7 rtol 1e-4 of each plane's scale with masked cells exact,
+K3 and the combine bit-equal (NaN included), and every route's mask
+equal to the CPU run's.
 """
 
 import numpy as np
@@ -19,7 +19,11 @@ import torch
 
 from iterative_cleaner_torch import CleanConfig
 from iterative_cleaner_torch.backends import clean_archive
-from iterative_cleaner_torch.engine.loop import nyq_correction_row
+from iterative_cleaner_torch.engine.loop import (
+    dispersed_residual_base,
+    nyq_correction_row,
+    pulse_window,
+)
 from iterative_cleaner_torch.io.synthetic import make_synthetic_archive
 from iterative_cleaner_torch.ops.dsp import (
     rotate_bins,
@@ -89,6 +93,72 @@ def test_kernels_match_plain_on_card(card, nsub, nchan, nbin, rotation):
     assert _bits_mismatch(new_w, pw) == 0
 
 
+def _assert_diags_match(diags, plain, mask):
+    for g, p in zip(diags, plain):
+        scale = float(p[~mask].abs().max())
+        assert bool(((g - p).abs() <= 1e-4 * (p.abs() + scale)).all())
+        assert _bits_mismatch(g[mask], p[mask]) == 0
+
+
+@pytest.mark.parametrize("window_on", [False, True])
+@pytest.mark.parametrize("nsub,nchan,nbin,rotation", GEOMS)
+def test_k6_k7_match_plain_on_card(card, nsub, nchan, nbin, rotation,
+                                   window_on):
+    ded, w, mask, template, _, _ = _inputs(nsub, nchan, nbin, rotation,
+                                           card, seed=1)
+    g = torch.Generator().manual_seed(2)
+    shifts = (torch.rand(nchan, generator=g) * nbin / 1.5 - nbin / 3).to(card)
+    win = pulse_window(nbin, (nbin // 4, nbin // 2), 0.2, window_on,
+                       torch.float32, card)
+    disp_base = dispersed_residual_base(ded, shifts, window=win,
+                                        rotation=rotation)
+    t_w = template if win is None else template * win
+    rot_t = rotate_bins(t_w.expand(nchan, nbin), shifts,
+                        method=rotation).contiguous()
+    _assert_diags_match(
+        tk.cell_diagnostics_two_read(ded, disp_base, rot_t, template, w,
+                                     mask),
+        tk.cell_diagnostics_two_read_plain(ded, disp_base, rot_t, template,
+                                           w, mask), mask)
+    window = torch.ones(nbin, device=card) if win is None else win
+    _assert_diags_match(
+        tk.cell_diagnostics_dedisp(ded, template, window, w, mask),
+        tk.cell_diagnostics_dedisp_plain(ded, template, window, w, mask),
+        mask)
+
+
+ROUTE_CONFIGS = {
+    "two_read": dict(pulse_region=(0.2, 30, 60), unload_res=True),
+    "profile": dict(baseline_mode="profile"),
+    "dedispersed": dict(stats_frame="dedispersed"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ROUTE_CONFIGS))
+def test_routes_on_card_match_cpu(card, name):
+    ar, _ = make_synthetic_archive(nsub=64, nchan=256, nbin=128,
+                                   n_prezapped=30, seed=1)
+    kwargs = ROUTE_CONFIGS[name]
+    tk.reset_launch_counts()
+    on_card = clean_archive(ar, CleanConfig(**kwargs))
+    counts = tk.launch_counts()
+    on_cpu = clean_archive(ar, CleanConfig(device="cpu", **kwargs))
+    diag = ("cell_diagnostics_dedisp" if name == "dedispersed"
+            else "cell_diagnostics_two_read")
+    for k, v in counts.items():
+        ran = k == diag or k.startswith(("scaled_sides", "combine"))
+        assert v == (on_card.loops if ran else 0), counts
+    np.testing.assert_array_equal(on_card.final_weights, on_cpu.final_weights)
+    assert (on_card.loops, on_card.converged) == (on_cpu.loops,
+                                                  on_cpu.converged)
+    np.testing.assert_allclose(on_card.scores, on_cpu.scores, rtol=1e-4,
+                               atol=1e-4)
+    if on_cpu.residual is not None:
+        np.testing.assert_allclose(
+            on_card.residual, on_cpu.residual, rtol=0,
+            atol=1e-4 * np.abs(on_cpu.residual).max())
+
+
 def test_slice_on_card_matches_cpu(card):
     ar, _ = make_synthetic_archive(nsub=64, nchan=256, nbin=128,
                                    n_prezapped=30, seed=1)
@@ -96,7 +166,9 @@ def test_slice_on_card_matches_cpu(card):
     on_card = clean_archive(ar, CleanConfig())
     counts = tk.launch_counts()
     on_cpu = clean_archive(ar, CleanConfig(device="cpu"))
-    assert all(v == on_card.loops for v in counts.values()), counts
+    for k, v in counts.items():
+        ran = k not in ("cell_diagnostics_two_read", "cell_diagnostics_dedisp")
+        assert v == (on_card.loops if ran else 0), counts
     np.testing.assert_array_equal(on_card.final_weights, on_cpu.final_weights)
     assert (on_card.loops, on_card.converged) == (on_cpu.loops,
                                                   on_cpu.converged)

@@ -4,13 +4,14 @@ JAX package's Pallas kernels in interpret mode, on identical inputs.
 Tolerances, and why:
 - K1 marginals: |diff| <= 1e-5 * sum|w*disp| per output (float32 sums
   taken in another order).
-- K2 cell diagnostics: rtol 1e-4 against each plane's scale (float32
-  reassociation of the fit, moments and DFT); masked cells exact.
+- K2, K6 and K7 cell diagnostics: rtol 1e-4 against each plane's scale
+  (float32 reassociation of the fit, moments and DFT); masked cells
+  exact.
 - K3 scaled sides and the combine: bit-equal, NaN included (the same
   exact selects and the same float op sequence).
-- The composite sweep: masks equal, scores rtol 1e-4 with a 1e-4 floor
-  (scores are in threshold units; near-median cells lose relative
-  precision to cancellation).
+- The composite sweeps (K4, K5): masks equal, scores rtol 1e-4 with a
+  1e-4 floor (scores are in threshold units; near-median cells lose
+  relative precision to cancellation).
 """
 
 import numpy as np
@@ -20,7 +21,11 @@ import torch
 import jax.numpy as jnp
 
 from iterative_cleaner_tpu.stats import pallas_kernels as pk
-from iterative_cleaner_torch.engine.loop import nyq_correction_row
+from iterative_cleaner_torch.engine.loop import (
+    dispersed_residual_base,
+    nyq_correction_row,
+    pulse_window,
+)
 from iterative_cleaner_torch.ops.dsp import rotate_bins
 from iterative_cleaner_torch.stats import kernels as tk
 from iterative_cleaner_torch.stats.masked_torch import scale_and_combine
@@ -184,6 +189,94 @@ def test_composite_sweep_vs_fused_sweep(nsub, nchan, nbin, rotation):
                                rtol=1e-4, atol=1e-4)
 
 
+def _ded_inputs(nsub, nchan, nbin, rotation, window_on, seed):
+    """The dedispersed-frame twin of :func:`_cell_inputs`: a dedispersed
+    cube, its dispersed residual base ``rot(ded * m)``, the rotated
+    WINDOWED template rows and the (unwindowed) template."""
+    x = _cell_inputs(nsub, nchan, nbin, rotation, seed)
+    rng = np.random.default_rng(seed + 100)
+    ded = x["disp"]
+    shifts = _t(rng.uniform(-nbin / 3, nbin / 3, nchan).astype(np.float32))
+    win = pulse_window(nbin, (nbin // 4, nbin // 2), 0.2, window_on,
+                       torch.float32, "cpu")
+    disp_base = dispersed_residual_base(_t(ded), shifts, window=win,
+                                        rotation=rotation)
+    t = _t(x["template"])
+    t_w = t if win is None else t * win
+    rot_t = rotate_bins(t_w.expand(nchan, nbin), shifts,
+                        method=rotation).contiguous()
+    window = torch.ones(nbin) if win is None else win
+    return dict(x, ded=ded, disp_base=disp_base.numpy(),
+                rot_t=rot_t.numpy(), window=window.numpy())
+
+
+def _assert_diags_close(got, want, mask):
+    for g, w in zip(got, want):
+        g, w = g.numpy(), np.asarray(w)
+        scale = np.abs(w).max()
+        np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4 * scale)
+    # masked cells exact: std/mean 0, ptp the np.ma fill, spectrum of zeros
+    for g, w in zip(got, want):
+        _bits_equal(g.numpy()[mask], np.asarray(w)[mask])
+
+
+@pytest.mark.parametrize("window_on", [False, True])
+@pytest.mark.parametrize("nsub,nchan,nbin,rotation", GEOMS)
+def test_k7_two_read_plain_vs_pallas(nsub, nchan, nbin, rotation,
+                                     window_on):
+    """K7's fit takes the UNWINDOWED template while its residual takes
+    the rotated windowed one: only the window-on cases tell them apart."""
+    x = _ded_inputs(nsub, nchan, nbin, rotation, window_on, seed=7)
+    got = tk.cell_diagnostics_two_read(
+        _t(x["ded"]), _t(x["disp_base"]), _t(x["rot_t"]), _t(x["template"]),
+        _t(x["weights"]), _t(x["mask"]))
+    want = pk.cell_diagnostics_pallas(
+        jnp.asarray(x["ded"]), jnp.asarray(x["disp_base"]),
+        jnp.asarray(x["rot_t"]), jnp.asarray(x["template"]),
+        jnp.asarray(x["weights"]), jnp.asarray(x["mask"]))
+    _assert_diags_close(got, want, x["mask"])
+
+
+@pytest.mark.parametrize("window_on", [False, True])
+@pytest.mark.parametrize("nsub,nchan,nbin,rotation", GEOMS)
+def test_k6_dedisp_plain_vs_pallas(nsub, nchan, nbin, rotation, window_on):
+    x = _ded_inputs(nsub, nchan, nbin, rotation, window_on, seed=8)
+    got = tk.cell_diagnostics_dedisp(
+        _t(x["ded"]), _t(x["template"]), _t(x["window"]), _t(x["weights"]),
+        _t(x["mask"]))
+    want = pk.cell_diagnostics_pallas_dedisp(
+        jnp.asarray(x["ded"]), jnp.asarray(x["template"]),
+        jnp.asarray(x["window"]), jnp.asarray(x["weights"]),
+        jnp.asarray(x["mask"]))
+    _assert_diags_close(got, want, x["mask"])
+
+
+@pytest.mark.parametrize("window_on", [False, True])
+@pytest.mark.parametrize("nsub,nchan,nbin,rotation", GEOMS)
+def test_composite_dedisp_sweep_vs_fused_sweep(nsub, nchan, nbin, rotation,
+                                               window_on):
+    """K6 -> K3 (both axes) -> combine, the port's K5, against the
+    one-launch TPU dedispersed sweep."""
+    x = _ded_inputs(nsub, nchan, nbin, rotation, window_on, seed=9)
+    mask = _t(x["mask"])
+    diags = tk.cell_diagnostics_dedisp(
+        _t(x["ded"]), _t(x["template"]), _t(x["window"]), _t(x["weights"]),
+        mask)
+    chan = tk.scaled_sides(diags, mask, 0, 5.0)
+    sub = tk.scaled_sides(diags, mask, 1, 4.0)
+    new_w, scores = tk.combine_zap(chan, sub, _t(x["weights"]))
+    want_w, want_s, want_std = pk.fused_sweep_pallas_dedisp(
+        jnp.asarray(x["ded"]), jnp.asarray(x["template"]),
+        jnp.asarray(x["window"]), jnp.asarray(x["weights"]),
+        jnp.asarray(x["mask"]), 5.0, 4.0)
+    np.testing.assert_array_equal(new_w.numpy() == 0, np.asarray(want_w) == 0)
+    np.testing.assert_allclose(scores.numpy(), np.asarray(want_s),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(diags[0].numpy(), np.asarray(want_std),
+                               rtol=1e-4,
+                               atol=1e-4 * np.abs(np.asarray(want_std)).max())
+
+
 def test_wrappers_raise_on_cuda_without_a_card():
     """A CUDA request never reaches a plain version: with no CUDA device
     present, every wrapper raises before launching."""
@@ -199,6 +292,9 @@ def test_wrappers_raise_on_cuda_without_a_card():
     calls = [
         lambda: tk.weighted_marginals(fake, fake),
         lambda: tk.cell_diagnostics_disp(fake, fake, None, fake, fake, fake),
+        lambda: tk.cell_diagnostics_two_read(fake, fake, fake, fake, fake,
+                                             fake),
+        lambda: tk.cell_diagnostics_dedisp(fake, fake, fake, fake, fake),
         lambda: tk.scaled_sides([fake] * 4, fake, 0, 5.0),
         lambda: tk.scaled_sides([fake] * 4, fake, 1, 5.0),
         lambda: tk.combine_zap([fake] * 4, [fake] * 4, fake),

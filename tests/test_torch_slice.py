@@ -96,22 +96,12 @@ def test_synthetic_archive_byte_identical(kwargs):
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(pulse_region=(0.5, 10, 20)),
-    dict(baseline_mode="profile"),
-    dict(unload_res=True),
     dict(dtype="bfloat16"),
     dict(dtype="float64"),
 ])
 def test_out_of_slice_configs_refused(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         CleanConfig(device="cpu", **kwargs)
-
-
-def test_dedispersed_input_refused():
-    ar, _ = make_synthetic_archive(nsub=4, nchan=8, nbin=32, seed=0)
-    ar.dedispersed = True
-    with pytest.raises(NotImplementedError, match="DEDISP"):
-        clean_archive(ar, CleanConfig(device="cpu"))
 
 
 def test_default_device_is_the_card():
