@@ -17,6 +17,13 @@ just after (the route's kernels must have launched, the others not);
 holds the default and profile masks against
 ``tests/goldens/fullsize_mask*.npz`` under the goldens' flip rule and
 the other two against the default one under the frames' contract;
+streams the same archive four times through ``clean_streaming`` —
+exact in 128-subint tiles with nothing pinned (an archive larger than
+the card; K1, K2 per tile, K8 per iteration), exact with every tile
+pinned (bit-equal to the first), exact on the profile route (K7 per
+tile) and online in 256-subint tiles — with the launch counts, the tile
+cache's transfers, the H2D rate and the peak memory of each, holding
+them to the goldens, the whole default clean and the expected uploads;
 holds every kernel against its plain PyTorch version on the card at
 the shapes its route gives it; times
 each kernel, its plain version and the library yardstick beside the
@@ -71,6 +78,16 @@ CONTRACT_LIMITS = {   # route: (cells disagreeing, of them one-sided)
 # this route; the selects' integer compares are counted at this rate too).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+
+# Exact streaming against the whole default clean of the same run: the
+# cross-tile template sum may flip a cell the whole run scored this close
+# to the threshold, at most so many of them.
+STREAM_FLIP_BAND = 1e-3
+STREAM_MAX_FLIPS = 10
+# The online mode's scalers see only a tile's subints: the reference
+# bounds its disagreement with the whole clean (iterative_cleaner_tpu/
+# parallel/streaming.py).
+ONLINE_MAX_FRACTION = 1e-3
 
 # Tolerances of the kernel checks (see tests/test_torch_kernels.py):
 K1_RTOL = 1e-5   # of sum |w * disp|: float32 sums in another order
@@ -151,6 +168,27 @@ def diags_check(got, want, mask, torch):
     return err, ok
 
 
+def golden_check(label, result, suffix, shape) -> None:
+    """Hold ``result``'s mask to ``fullsize_mask{suffix}.npz`` under the
+    goldens' flip rule, with the golden's loops and convergence."""
+    golden, want_zap = golden_mask(suffix, shape)
+    fw = result.final_weights
+    if fw.shape != shape or not np.all(np.isfinite(fw)):
+        fail(f"{label}: final weights malformed: shape {fw.shape}")
+    got_zap = fw == 0
+    flips = np.argwhere(want_zap != got_zap)
+    verdict = flip_verdict(flips, golden)
+    print(f"golden fullsize_mask{suffix} ({label}): loops {result.loops} "
+          f"(want {golden['loops']}), converged {result.converged}, zapped "
+          f"{int(got_zap.sum())} (want {golden['zap_cells']}), flips "
+          f"{len(flips)} (cap {MAX_BORDERLINE_FLIPS}), rogue "
+          f"{verdict['rogue'][:5]}, wide {verdict['wide'][:5]}",
+          flush=True)
+    if not (verdict["ok"] and result.loops == golden["loops"]
+            and result.converged == golden["converged"]):
+        fail(f"{label}: full-size mask outside the golden's flip rule")
+
+
 def golden_mask(name, shape):
     with open(os.path.join(GOLDENS, f"fullsize_mask_golden{name}.json")) as f:
         golden = json.load(f)
@@ -197,10 +235,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("no CUDA device present")
     sys.path.insert(0, HERE)
-    from iterative_cleaner_torch import CleanConfig
+    from iterative_cleaner_torch import CleanConfig, clean_streaming
     from iterative_cleaner_torch.backends import clean_archive
     from iterative_cleaner_torch.engine.loop import (
         ROUTE_KERNELS,
+        STREAM_KERNELS,
         build_template,
         iteration_step,
         nyq_correction_row,
@@ -215,6 +254,8 @@ def main() -> int:
         rotate_bins,
         weighted_marginal_totals,
     )
+    from iterative_cleaner_torch.parallel.tile_cache import DictRegistry
+    from iterative_cleaner_torch.profile_iteration import stream_line
     from iterative_cleaner_torch.stats import kernels as K
 
     t_start = time.perf_counter()
@@ -280,24 +321,7 @@ def main() -> int:
 
     # ---- 3. what came out is right: the goldens and the frames' contract
     for route, suffix in (("default", ""), ("profile", "_profile")):
-        golden, want_zap = golden_mask(suffix, (NSUB, NCHAN))
-        result = results[route]
-        fw = result.final_weights
-        if fw.shape != (NSUB, NCHAN) or not np.all(np.isfinite(fw)):
-            fail(f"route {route}: final weights malformed: shape {fw.shape}")
-        got_zap = fw == 0
-        flips = np.argwhere(want_zap != got_zap)
-        verdict = flip_verdict(flips, golden)
-        print(f"golden fullsize_mask{suffix}: loops {result.loops} (want "
-              f"{golden['loops']}), converged {result.converged}, zapped "
-              f"{int(got_zap.sum())} (want {golden['zap_cells']}), flips "
-              f"{len(flips)} (cap {MAX_BORDERLINE_FLIPS}), rogue "
-              f"{verdict['rogue'][:5]}, wide {verdict['wide'][:5]}",
-              flush=True)
-        if not (verdict["ok"] and result.loops == golden["loops"]
-                and result.converged == golden["converged"]):
-            fail(f"route {route}: full-size mask outside the golden's flip "
-                 f"rule")
+        golden_check(f"route {route}", results[route], suffix, (NSUB, NCHAN))
     for route in CONTRACT_LIMITS:
         contract(route, results["default"], results[route])
     res = results["pulse_unload"].residual
@@ -308,6 +332,108 @@ def main() -> int:
     print(f"residual of pulse_unload: {res.shape} {res.dtype}, finite",
           flush=True)
     results["pulse_unload"].residual = res = None   # 2 GB of host memory
+
+    # ---- 3b. streaming, counted like the whole cleans: (a) exact with
+    # nothing pinned, the regime of an archive larger than the card; (b)
+    # exact with every tile pinned; (c) exact on the profile route; (d)
+    # online, four tiles cleaned on their own
+    streams = {
+        "a": (128, CleanConfig(stream_hbm_mb=0), "exact"),
+        "b": (128, CleanConfig(), "exact"),
+        "c": (128, CleanConfig(baseline_mode="profile", stream_hbm_mb=0),
+              "exact"),
+        "d": (256, CleanConfig(), "online"),
+    }
+    cube_bytes = NSUB * NCHAN * NBIN * 4
+    whole = results["default"]
+    stream_regs = {}
+    for run, (chunk, cfg_s, mode) in streams.items():
+        key = f"stream ({run})"
+        reg = stream_regs[run] = DictRegistry()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        results[key] = r = clean_streaming(ar, chunk, cfg_s, mode=mode,
+                                           registry=reg)
+        torch.cuda.synchronize()
+        clean_ms[key] = (time.perf_counter() - t0) * 1e3
+        counts[key] = K.launch_counts()
+        peak_gib[key] = torch.cuda.max_memory_allocated() / 2 ** 30
+        n_tiles = -(-NSUB // chunk)
+        engine_route = select_route(cfg_s, ar.dedispersed)
+        g, c = reg.gauges, reg.counters
+        if mode == "exact":
+            want = {k: 0 for k in counts[key]}
+            for k in STREAM_KERNELS[engine_route]:
+                want[k] = r.loops * (n_tiles if k in (
+                    "weighted_marginals", "cell_diagnostics_disp",
+                    "cell_diagnostics_two_read",
+                    "cell_diagnostics_dedisp") else 1)
+            print(f"stream ({run}) exact, {n_tiles} tiles of {chunk}, "
+                  f"budget {g['stream_cache_budget_bytes']} bytes, route "
+                  f"{engine_route}: kernels {json.dumps(counts[key])}, "
+                  f"{r.loops} loops, converged {r.converged}, whole clean "
+                  f"{clean_ms[key]:.1f} ms; {stream_line(g)}; peak device "
+                  f"memory {peak_gib[key]:.2f} GiB {tag}", flush=True)
+            cache_gauges = {k: v for k, v in g.items() if "cache" in k}
+            print(f"stream ({run}) cache: {json.dumps(c)} "
+                  f"{json.dumps(cache_gauges)}", flush=True)
+            if counts[key] != want:
+                fail(f"stream ({run}): launch counts {counts[key]}, want "
+                     f"{want}")
+        else:
+            print(f"stream ({run}) online, {n_tiles} tiles of {chunk}: "
+                  f"kernels {json.dumps(counts[key])}, {r.loops} loops "
+                  f"(most of a tile), converged {r.converged}, whole clean "
+                  f"{clean_ms[key]:.1f} ms, ms per iteration not measured "
+                  f"(tiles iterate apart), peak device memory "
+                  f"{peak_gib[key]:.2f} GiB {tag}", flush=True)
+            own = ROUTE_KERNELS[engine_route]
+            if any(counts[key][k] < n_tiles for k in own) or any(
+                    v for k, v in counts[key].items() if k not in own):
+                fail(f"stream ({run}): launch counts {counts[key]}")
+        if r.final_weights.shape != (NSUB, NCHAN) \
+                or not np.all(np.isfinite(r.final_weights)):
+            fail(f"stream ({run}): final weights malformed")
+    ra, rb = results["stream (a)"], results["stream (b)"]
+    golden_check("stream (a)", ra, "", (NSUB, NCHAN))
+    golden_check("stream (c)", results["stream (c)"], "_profile",
+                 (NSUB, NCHAN))
+    flips = (ra.final_weights == 0) != (whole.final_weights == 0)
+    near = np.abs(whole.scores - 1.0) <= STREAM_FLIP_BAND
+    print(f"stream (a) against the whole default clean: {int(flips.sum())} "
+          f"cells differ (limit {STREAM_MAX_FLIPS}, each scored within "
+          f"{STREAM_FLIP_BAND:g} of 1 by the whole run), "
+          f"{int((flips & ~near).sum())} outside that band; peak device "
+          f"memory {peak_gib['stream (a)']:.2f} GiB against the whole "
+          f"clean's {peak_gib['default']:.2f} GiB", flush=True)
+    if flips.sum() > STREAM_MAX_FLIPS or (flips & ~near).any():
+        fail("stream (a): mask outside its contract with the whole clean")
+    if peak_gib["stream (a)"] > 0.5 * peak_gib["default"]:
+        fail("stream (a): peak device memory above half the whole clean's")
+    bad_b = bits_mismatch(torch.from_numpy(rb.final_weights),
+                          torch.from_numpy(ra.final_weights), torch) \
+        + bits_mismatch(torch.from_numpy(rb.scores),
+                        torch.from_numpy(ra.scores), torch)
+    print(f"stream (b) against stream (a): {bad_b} cells differ in bits "
+          f"(weights and scores; tolerance: bit-equal)", flush=True)
+    if bad_b or (rb.loops, rb.converged) != (ra.loops, ra.converged):
+        fail("stream (b): differs from stream (a)")
+    for run, cubes in (("a", 1 + 2 * ra.loops), ("b", 1)):
+        got = stream_regs[run].counters["stream_h2d_cube_bytes"]
+        print(f"stream ({run}) uploaded {got} cube bytes (want {cubes} x "
+              f"{cube_bytes})", flush=True)
+        if got != cubes * cube_bytes:
+            fail(f"stream ({run}): cube uploads off")
+    online = results["stream (d)"]
+    frac = float(np.mean((online.final_weights == 0)
+                         != (whole.final_weights == 0)))
+    print(f"stream (d) online against the whole default clean: {frac:.3e} "
+          f"of the cells differ (limit {ONLINE_MAX_FRACTION:g})", flush=True)
+    if frac >= ONLINE_MAX_FRACTION:
+        fail("stream (d): online mask drifted past its bound")
 
     # ---- 4. each kernel against its plain version, at its route's
     # shapes: the first iteration's inputs of the same archive ----
@@ -422,7 +548,18 @@ def main() -> int:
     print(f"check combine_zap: {bad_c} cells differ in bits, max abs "
           f"{errc:.3e} (tolerance: bit-equal, NaN included): "
           f"{'ok' if okc else 'FAIL'}", flush=True)
-    if not (ok1 and all(diag_ok.values()) and ok3[0] and ok3[1] and okc):
+    thresholds = (cfg.chanthresh, cfg.subintthresh)
+    fw, fs = K.fused_combine(diags, mask, weights, *thresholds)
+    pfw, pfs = K.fused_combine_plain(diags, mask, weights, *thresholds)
+    bad8 = bits_mismatch(fs, pfs, torch) + bits_mismatch(fw, pfw, torch)
+    err8 = max(max_abs_diff(fs, pfs, torch), max_abs_diff(fw, pfw, torch))
+    ok8 = bad8 == 0
+    print(f"check K8 fused_combine: {bad8} cells differ in bits, max abs "
+          f"{err8:.3e} (tolerance: bit-equal, NaN included): "
+          f"{'ok' if ok8 else 'FAIL'}", flush=True)
+    del fw, fs, pfw, pfs
+    if not (ok1 and all(diag_ok.values()) and ok3[0] and ok3[1] and okc
+            and ok8):
         fail("a kernel disagrees with its plain version")
 
     # ---- 5. times: kernel, plain version, library yardstick, bound ----
@@ -456,6 +593,9 @@ def main() -> int:
     sweep_ops = diag_ops + 2 * sel_ops + 16 * cells
     b4 = bound(4 * (cells * B + 2 * C * B + B) + sweep_io, sweep_ops)
     b5 = bound(4 * (cells * B + 2 * B) + sweep_io, sweep_ops)
+    # K8: four planes, the mask and the weights in, new weights and scores
+    # out (29 bytes a cell); both orientations' selects and the combine
+    b8 = bound(cells * (4 * 4 + 1 + 4 + 2 * 4), 2 * sel_ops + 16 * cells)
     entries = [
         ("weighted_marginals", "marginals.cu", "_marginals_kernel :633",
          "default", err1,
@@ -489,11 +629,25 @@ def main() -> int:
          lambda: K.combine_zap(sides[0], sides[1], weights),
          lambda: K.combine_zap_plain(sides[0], sides[1], weights), None,
          bc, 50),
+        ("fused_combine", "scaled_sides.cu", "fused_combine_pallas :1836",
+         "stream (a)", err8,
+         lambda: K.fused_combine(diags, mask, weights, *thresholds),
+         lambda: K.fused_combine_plain(diags, mask, weights, *thresholds),
+         None, b8, 10),
     ]
+    # K8 is a sequence: K3 per orientation (scaled_sides.cu), then the
+    # combine kernel (combine.cu).  Its counter counts sequences; its
+    # "launches" are those of its parts in the same run.
+    k8_sources = ["iterative_cleaner_torch/stats/csrc/scaled_sides.cu",
+                  "iterative_cleaner_torch/stats/csrc/combine.cu"]
+    k8_parts = ["scaled_sides_axis0", "scaled_sides_axis1", "combine_zap"]
     kernels = []
     for (name, src, replaces, route, err, kfn, pfn, lfn, (bms, bby),
          reps) in entries:
         launches = counts[route][name]
+        if name == "fused_combine":
+            sequences = launches
+            launches = sum(counts[route][k] for k in k8_parts)
         ms = cuda_ms(kfn, reps, torch)
         pms = cuda_ms(pfn, max(2, reps // 5), torch)
         lms = cuda_ms(lfn, max(2, reps // 5), torch) if lfn else None
@@ -505,10 +659,15 @@ def main() -> int:
             "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": pms, "bound_ms": bms, "bound_by": bby,
             "library_ms": lms})
+        what = f"{launches} launches"
+        if name == "fused_combine":
+            kernels[-1].update(sources=k8_sources, sequences=sequences,
+                               parts=k8_parts)
+            what += f" ({sequences} sequences of {', '.join(k8_parts)})"
         lib = "null" if lms is None else f"{lms:.4f}"
         print(f"time {name}: {ms:.4f} ms, bound {bms:.4f} ms ({bby}), plain "
-              f"{pms:.4f} ms, library {lib} ms, {launches} launches on the "
-              f"{route} route {tag}", flush=True)
+              f"{pms:.4f} ms, library {lib} ms, {what} on the {route} route "
+              f"{tag}", flush=True)
     ms_of = {k["name"]: k["ms"] for k in kernels}
     tail = (ms_of["scaled_sides_axis0"] + ms_of["scaled_sides_axis1"]
             + ms_of["combine_zap"])

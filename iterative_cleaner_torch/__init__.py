@@ -7,10 +7,13 @@ every whole-archive route of the reference engine: the default
 configuration (integration baseline, dispersed stats frame, no pulse
 window, a non-DEDISP input — the reference's ``disp_iteration``), the
 two-read route (the pulse window ``-r``, ``baseline_mode='profile'``,
-DEDISP=1 inputs) and the dedispersed stats frame, each with ``-u``.
-Every kernel those routes launch on the TPU has a hand-written CUDA
-counterpart in :mod:`iterative_cleaner_torch.stats.kernels`.  float64
-and bf16 storage are not ported yet.
+DEDISP=1 inputs) and the dedispersed stats frame, each with ``-u``; and
+the same routes in subint tiles (:func:`clean_streaming`): exactly, with
+the tiles held in host memory for archives larger than the card, or
+online, each tile on its own.  Every kernel those paths launch on the
+TPU has a hand-written CUDA counterpart in
+:mod:`iterative_cleaner_torch.stats.kernels`.  float64 and bf16 storage
+are not ported yet.
 
 Entry points run on the card (``CleanConfig.device`` defaults to
 ``"cuda"``); ``device="cpu"`` runs every kernel's plain PyTorch version
@@ -24,6 +27,7 @@ Layout, host boundary first:
 - :mod:`~iterative_cleaner_torch.stats` — detection statistics and the kernels
 - :mod:`~iterative_cleaner_torch.engine` — the iteration loop
 - :mod:`~iterative_cleaner_torch.backends` — ``clean_archive``
+- :mod:`~iterative_cleaner_torch.parallel` — ``clean_streaming``
 - :mod:`~iterative_cleaner_torch.cli` — ``python -m iterative_cleaner_torch``
 """
 
@@ -31,3 +35,8 @@ __version__ = "0.1.0"
 
 from iterative_cleaner_torch.archive import Archive  # noqa: F401
 from iterative_cleaner_torch.config import CleanConfig  # noqa: F401
+from iterative_cleaner_torch.parallel import (  # noqa: F401
+    StreamingCleaner,
+    clean_streaming,
+    clean_streaming_exact,
+)

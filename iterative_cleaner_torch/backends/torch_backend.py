@@ -1,6 +1,8 @@
 """The PyTorch/CUDA backend: one upload of the cube, the preamble and the
 iteration loop on the device, one download of the (nsub, nchan) results
-(and of the residual cube with ``unload_res``)."""
+(and of the residual cube with ``unload_res``).  The device set-up and
+the uploads are shared with exact streaming
+(:mod:`iterative_cleaner_torch.parallel.streaming_exact`)."""
 
 from __future__ import annotations
 
@@ -29,6 +31,33 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
+def clean_device(config: CleanConfig) -> torch.device:
+    """:func:`resolve_device` of ``config.device``, with TF32 switched
+    off: the reference runs its products at full float32 precision, and
+    TF32 would keep about 3 decimal digits.  Process-wide torch settings,
+    set on every clean so no other code path can leave them on."""
+    device = resolve_device(config.device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return device
+
+
+def upload(a, device) -> torch.Tensor:
+    """A host array as a new float32 tensor on ``device``."""
+    return torch.from_numpy(
+        np.ascontiguousarray(a, dtype=np.float32)).to(device, copy=True)
+
+
+def upload_meta(freqs_mhz, dm, ref_freq_mhz, period_s, device):
+    """The archive's dispersion metadata as float32 device tensors, in
+    the preamble's argument order."""
+    f32 = torch.float32
+    return (upload(freqs_mhz, device),
+            torch.tensor(dm, dtype=f32, device=device),
+            torch.tensor(ref_freq_mhz, dtype=f32, device=device),
+            torch.tensor(period_s, dtype=f32, device=device))
+
+
 def clean_cube(cube, orig_weights, freqs_mhz, dm, ref_freq_mhz, period_s,
                config: CleanConfig, *, dedispersed: bool = False
                ) -> CleanResult:
@@ -36,27 +65,14 @@ def clean_cube(cube, orig_weights, freqs_mhz, dm, ref_freq_mhz, period_s,
     ``config.device``.  ``dedispersed=True`` marks an already-dedispersed
     input (PSRFITS ``DEDISP=1``): the preamble skips only the forward
     rotation."""
-    device = resolve_device(config.device)
-    # The reference runs its products at full float32 precision; TF32
-    # would keep ~3 decimal digits.  Process-wide torch settings, set on
-    # every clean so no other code path can leave them on.
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    f32 = torch.float32
-
-    def upload(a):
-        return torch.from_numpy(
-            np.ascontiguousarray(a, dtype=np.float32)).to(device, copy=True)
-
-    weights_t = upload(orig_weights)
+    device = clean_device(config)
+    weights_t = upload(orig_weights, device)
     # the uploaded cube is consumed by the preamble: it becomes
     # disp_clean (integration baseline) or ded (profile baseline, DEDISP=1)
     # where the route reads it, and is freed here otherwise
     prep = prepare(
-        upload(cube), weights_t, upload(freqs_mhz),
-        torch.tensor(dm, dtype=f32, device=device),
-        torch.tensor(ref_freq_mhz, dtype=f32, device=device),
-        torch.tensor(period_s, dtype=f32, device=device),
+        upload(cube, device), weights_t,
+        *upload_meta(freqs_mhz, dm, ref_freq_mhz, period_s, device),
         config, dedispersed=dedispersed)
     outs = clean_loop(
         prep, weights_t, max_iter=config.max_iter,

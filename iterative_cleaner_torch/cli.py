@@ -2,12 +2,15 @@
 
 ``python -m iterative_cleaner_torch [-c] [-s] [-m] [-r] [-u] [-o]
 [--bad_chan] [--bad_subint] [--baseline_mode] [--stats_frame] [--device]
-obs.npz`` cleans each archive, writes ``obs.npz_cleaned.npz`` (the
-input's data with the cleaned weights), with ``-u`` also the single-pol
-residual archive ``obs.npz_residual_<loops>.npz`` in the working
-directory, and appends the reference-format line to ``clean.log`` beside
-the output.  The rest of the reference's flag surface is not ported yet
-(ROADMAP.md 'Modules still to port' item 2).
+[--stream N [--stream_mode exact|online] [--stream_hbm_mb MB]] obs.npz``
+cleans each archive, writes ``obs.npz_cleaned.npz`` (the input's data
+with the cleaned weights), with ``-u`` also the single-pol residual
+archive ``obs.npz_residual_<loops>.npz`` in the working directory, and
+appends the reference-format line to ``clean.log`` beside the output.
+``--stream N`` cleans in N-subint tiles (``parallel/streaming.py``).  The
+rest of the reference's flag surface is not ported yet (ROADMAP.md
+'Modules still to port' item 2; the live ``--stream DIR`` session, item
+5).
 """
 
 from __future__ import annotations
@@ -74,7 +77,40 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to clean on (default cuda; 'cpu' "
                         "runs the kernels' plain PyTorch versions).")
+    p.add_argument("--stream", type=str, default="0", metavar="CHUNK",
+                   help="An integer CHUNK > 0 cleans each archive in "
+                        "CHUNK-subint tiles (--stream_mode) instead of "
+                        "one device footprint: for archives larger than "
+                        "the card. 0 (default) disables.")
+    p.add_argument("--stream_mode", choices=("exact", "online"),
+                   default="exact",
+                   help="exact (default): masks equal to the whole "
+                        "clean's, two passes over the tiles per "
+                        "iteration, the tiles held in host memory. "
+                        "online: each tile cleaned on its own; its "
+                        "scalers see only the tile's subints.")
+    p.add_argument("--stream_hbm_mb", type=float, default=None,
+                   metavar="MB",
+                   help="Device byte budget (MiB) of the exact mode's "
+                        "tile cache: tiles that fit stay on the card. "
+                        "Default: 40%% of the card's memory. 0 pins "
+                        "nothing.")
     return p
+
+
+def stream_chunk(value: str) -> int:
+    """``--stream``'s tile size; 0 disables streaming.  A directory (the
+    reference's live online session) is not ported."""
+    try:
+        chunk = int(value)
+    except ValueError:
+        raise NotImplementedError(
+            f"--stream {value!r}: the live online session over a "
+            f"directory is not ported yet: ROADMAP.md 'Modules still to "
+            f"port' item 5 (online)") from None
+    if chunk < 0:
+        raise ValueError(f"--stream must be >= 0, got {chunk}")
+    return chunk
 
 
 def output_name(ar, args, in_path: str) -> str:
@@ -98,6 +134,7 @@ def append_clean_log(ar_name, args, loops, log_path) -> None:
 
 def clean_one(in_path: str, args) -> str:
     from iterative_cleaner_torch.backends import clean_archive
+    from iterative_cleaner_torch.parallel import clean_streaming
 
     ar = load_archive(in_path)
     cfg = CleanConfig(chanthresh=args.chanthresh,
@@ -107,14 +144,20 @@ def clean_one(in_path: str, args) -> str:
                       bad_chan=args.bad_chan, bad_subint=args.bad_subint,
                       stats_frame=args.stats_frame,
                       baseline_mode=args.baseline_mode,
-                      unload_res=args.unload_res, device=args.device)
+                      unload_res=args.unload_res, device=args.device,
+                      stream_hbm_mb=args.stream_hbm_mb)
     print("Total number of profiles: %s" % ar.weights.size)
-    result = clean_archive(ar, cfg)
-    for i, (d, f) in enumerate(zip(result.loop_diffs, result.loop_rfi_frac),
-                               start=1):
-        print("Loop: %s" % i)
-        print("Differences to previous weights: %s  RFI fraction: %s"
-              % (int(d), float(f)))
+    chunk = stream_chunk(args.stream)
+    if chunk > 0:
+        result = clean_streaming(ar, chunk, cfg, mode=args.stream_mode)
+    else:
+        result = clean_archive(ar, cfg)
+    if result.loop_diffs is not None:   # the online mode has none
+        for i, (d, f) in enumerate(zip(result.loop_diffs,
+                                       result.loop_rfi_frac), start=1):
+            print("Loop: %s" % i)
+            print("Differences to previous weights: %s  RFI fraction: %s"
+                  % (int(d), float(f)))
     if result.converged:
         print("RFI removal stops after %s loops." % result.loops)
     else:
@@ -144,6 +187,7 @@ def clean_one(in_path: str, args) -> str:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    stream_chunk(args.stream)   # refuse a directory before any clean
     for path in args.archive:
         clean_one(path, args)
     return 0

@@ -14,7 +14,7 @@ item that will bring it, never silently approximated.
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import Optional, Tuple
 
 # ROADMAP.md "Modules still to port" items the refusals point at.
 _ROADMAP_F64 = "ROADMAP.md 'Modules still to port' item 1 (float64)"
@@ -56,6 +56,11 @@ class CleanConfig:
     # torch device the clean runs on; "cuda" raises when no card is
     # present — the port never falls back to the CPU on its own
     device: str = "cuda"
+    # device byte budget (MiB) of exact streaming's tile cache
+    # (parallel/tile_cache.py); None takes a card-sized default; 0 pins
+    # nothing (an archive larger than the card: every pass re-streams
+    # its tiles)
+    stream_hbm_mb: Optional[float] = None
 
     @property
     def pulse_region_active(self) -> bool:
@@ -81,6 +86,10 @@ class CleanConfig:
             raise ValueError(f"unknown stats frame {self.stats_frame!r}")
         if self.max_iter < 1:
             raise ValueError("max_iter must be >= 1")
+        if self.stream_hbm_mb is not None and self.stream_hbm_mb < 0:
+            raise ValueError(
+                f"stream_hbm_mb must be >= 0 (0 disables the stream tile "
+                f"cache), got {self.stream_hbm_mb}")
         if self.dtype == "bfloat16":
             raise NotImplementedError(
                 f"bfloat16 is not ported yet: {_ROADMAP_BF16}")

@@ -54,4 +54,5 @@ def config_from_reference(cfg, device: str = "cuda") -> CleanConfig:
         record_history=bool(cfg.record_history),
         unload_res=bool(cfg.unload_res),
         device=device,
+        stream_hbm_mb=getattr(cfg, "stream_hbm_mb", None),
     )

@@ -24,6 +24,10 @@
   per-iteration telemetry stays on the device until the loop ends.
 - The final mask applies the last iteration's scores to the original
   weights.
+
+Exact streaming (``parallel/streaming_exact.py``) runs the same routes
+tile by tile through :func:`template_partial`, :func:`assemble_template`
+and :func:`tile_prepared` with :func:`route_diagnostics`.
 """
 
 from __future__ import annotations
@@ -43,10 +47,12 @@ from iterative_cleaner_torch.ops.dsp import (
     template_numerator_from_channel_profiles,
     template_residuals,
     weighted_template,
+    weighted_template_numerator,
 )
 from iterative_cleaner_torch.ops.psrchive_baseline import (
     template_correction,
-    template_correction_from_totals,
+    template_correction_numerator_from_totals,
+    template_correction_numerator_raw,
 )
 from iterative_cleaner_torch.stats.kernels import (
     cell_diagnostics_dedisp,
@@ -70,6 +76,10 @@ ROUTE_KERNELS = {
     "two_read": ("cell_diagnostics_two_read",) + _SHARED_KERNELS,
     "dedispersed": ("cell_diagnostics_dedisp",) + _SHARED_KERNELS,
 }
+# Exact streaming (parallel/streaming_exact.py) launches the same kernels
+# per iteration, its combine as the sequence K8 (fused_combine).
+STREAM_KERNELS = {route: kernels + ("fused_combine",)
+                  for route, kernels in ROUTE_KERNELS.items()}
 
 
 def disp_iteration_enabled(baseline_mode: str, stats_frame: str,
@@ -133,14 +143,17 @@ class Prepared(NamedTuple):
 
 
 def prepare(cube, weights, freqs_mhz, dm, ref_freq_mhz, period_s,
-            config: CleanConfig, *, dedispersed) -> Prepared:
+            config: CleanConfig, *, dedispersed,
+            residual_base: bool = True) -> Prepared:
     """Run the preamble of the route :func:`select_route` picks on the
     uploaded ``cube`` (consumed: the baseline is subtracted in place) and
     keep only the cubes the route reads: ``disp_clean`` (default);
     ``ded`` and ``disp_base``, plus ``disp_clean`` under the integration
     baseline (two_read); ``ded``, plus ``disp_clean`` under the
     integration baseline (dedispersed).  Every argument but ``config``
-    and ``dedispersed`` is a tensor on the device."""
+    and ``dedispersed`` is a tensor on the device.  ``residual_base=
+    False`` leaves the two_read route's ``disp_base`` unbuilt (exact
+    streaming rebuilds it per tile, :func:`tile_prepared`)."""
     route = select_route(config, dedispersed)
     rotation, duty = config.rotation, config.baseline_duty
     if route == "default":
@@ -159,7 +172,7 @@ def prepare(cube, weights, freqs_mhz, dm, ref_freq_mhz, period_s,
     disp_clean, offsets = (corr[0], corr[1]) if corr is not None \
         else (None, None)
     disp_base = None
-    if route == "two_read":
+    if route == "two_read" and residual_base:
         disp_base = dispersed_residual_base(ded, shifts, window=window,
                                             rotation=rotation)
     elif window is None:
@@ -199,50 +212,103 @@ def nyq_correction_row(back_shifts, nbin, rotation, dtype):
     return (gamma / nbin)[:, None] * alt[None, :]
 
 
+def template_partial(route, tile, weights, offsets, raw, *, baseline_duty):
+    """The template stage's partial over a subint tile (or the whole
+    cube): ``(numerator, correction numerator)``, both summing over tiles
+    to the whole archive's.  default: K1's ``(A, t1)`` on the dispersed
+    ``tile``, the numerator being ``A`` and the correction's from the
+    totals ``t1``.  Other routes: the weighted numerator over the
+    dedispersed ``tile`` and, under the integration baseline (``raw``
+    given), the correction's from the raw cube.  ``offsets`` are the
+    tile's integration-baseline levels (None under the profile
+    baseline)."""
+    if route == "default":
+        a, t1 = weighted_marginals(tile, weights)
+        return a, template_correction_numerator_from_totals(
+            t1, offsets, weights, baseline_duty)
+    num = weighted_template_numerator(tile, weights)
+    if raw is None:
+        return num, None
+    return num, template_correction_numerator_raw(raw, offsets, weights,
+                                                  baseline_duty)
+
+
+def assemble_template(route, num, corr, weights, back_shifts, *, rotation):
+    """The template from the accumulated partials and the full (nsub,
+    nchan) weights: the default route's dedispersion rotation of the
+    channel profiles ``A``, the ``den == 0`` guards, the reference's
+    x10000."""
+    if route == "default":
+        num = template_numerator_from_channel_profiles(num, back_shifts,
+                                                       rotation)
+    den = torch.sum(weights)
+    safe = torch.where(den == 0, torch.ones_like(den), den)
+    template = torch.where(den == 0, torch.zeros_like(num), num / safe)
+    if corr is not None:
+        template = template + torch.where(den == 0, torch.zeros_like(corr),
+                                          corr / safe)
+    return template * 10000.0
+
+
 def build_template(prep: Prepared, weights, *, rotation, baseline_duty):
     """Template stage of one iteration, the reference's x10000 included.
 
     default: both weighted marginals of the dispersed cube in one read
     (K1), the dedispersion rotation applied to the (nchan, nbin) channel
     profiles, the integration-baseline correction from the per-subint
-    totals.  Other routes: the weighted template over ``ded`` and, under
-    the integration baseline, the correction over ``disp_clean`` — plain
-    products, as in the reference."""
+    totals (:func:`template_partial` and :func:`assemble_template` over
+    the whole cube).  Other routes: the weighted template over ``ded``
+    and, under the integration baseline, the correction over
+    ``disp_clean`` — plain products, as in the reference."""
     if prep.route == "default":
-        a, t1 = weighted_marginals(prep.disp_base, weights)
-        num = template_numerator_from_channel_profiles(a, prep.back_shifts,
-                                                       rotation)
-        den = torch.sum(weights)
-        safe = torch.where(den == 0, torch.ones_like(den), den)
-        template = torch.where(den == 0, torch.zeros_like(num), num / safe)
-        template = template + template_correction_from_totals(
-            t1, prep.base_offsets, weights, baseline_duty)
-    else:
-        template = weighted_template(prep.ded, weights)
-        if prep.disp_clean is not None:
-            template = template + template_correction(
-                prep.disp_clean, prep.base_offsets, weights, baseline_duty)
+        num, corr = template_partial("default", prep.disp_base, weights,
+                                     prep.base_offsets, None,
+                                     baseline_duty=baseline_duty)
+        return assemble_template("default", num, corr, weights,
+                                 prep.back_shifts, rotation=rotation)
+    template = weighted_template(prep.ded, weights)
+    if prep.disp_clean is not None:
+        template = template + template_correction(
+            prep.disp_clean, prep.base_offsets, weights, baseline_duty)
     return template * 10000.0
 
 
+def tile_prepared(route, tile, back_shifts, window, *, rotation
+                  ) -> Prepared:
+    """The :class:`Prepared` of one subint tile of the route's prepared
+    cube (``disp_clean`` on the default route, ``ded`` on the others),
+    for :func:`route_diagnostics`: the two_read route's residual base is
+    built here, per tile."""
+    if route == "default":
+        return Prepared(route, back_shifts, None, tile, tile, None, None)
+    disp_base = None
+    if route == "two_read":
+        disp_base = dispersed_residual_base(tile, back_shifts, window=window,
+                                            rotation=rotation)
+    return Prepared(route, back_shifts, tile, disp_base, None, None, window)
+
+
 def route_diagnostics(prep: Prepared, template, orig_weights, cell_mask, *,
-                     rotation):
+                      rotation, out=None):
     """The four per-cell diagnostic planes of the route's residual: K2
-    (default), K7 (two_read) or K6 (dedispersed)."""
+    (default), K7 (two_read) or K6 (dedispersed).  ``out``: four
+    contiguous (nsub, nchan) float32 views the kernel writes (a tile's
+    rows of the full planes)."""
     if prep.route == "dedispersed":
         return cell_diagnostics_dedisp(prep.ded, template, prep.window,
-                                       orig_weights, cell_mask)
+                                       orig_weights, cell_mask, out=out)
     nchan, nbin = prep.disp_base.shape[1:]
     t = template if prep.window is None else template * prep.window
     rot_t = rotate_bins(t.expand(nchan, nbin), prep.back_shifts,
                         method=rotation).contiguous()
     if prep.route == "two_read":
         return cell_diagnostics_two_read(prep.ded, prep.disp_base, rot_t,
-                                         template, orig_weights, cell_mask)
+                                         template, orig_weights, cell_mask,
+                                         out=out)
     nyq_row = nyq_correction_row(prep.back_shifts, nbin, rotation,
                                  prep.disp_base.dtype)
     return cell_diagnostics_disp(prep.disp_base, rot_t, nyq_row, template,
-                                 orig_weights, cell_mask)
+                                 orig_weights, cell_mask, out=out)
 
 
 def iteration_step(prep: Prepared, weights, orig_weights, cell_mask, *,
@@ -259,9 +325,15 @@ def iteration_step(prep: Prepared, weights, orig_weights, cell_mask, *,
     chan = scaled_sides(diags, cell_mask, 0, chanthresh)
     sub = scaled_sides(diags, cell_mask, 1, subintthresh)
     new_weights, scores = combine_zap(chan, sub, orig_weights)
-    rstd = masked_median(diags[0].reshape(1, -1), cell_mask.reshape(1, -1),
+    return (new_weights, scores, residual_std(diags[0], cell_mask),
+            torch.max(template))
+
+
+def residual_std(d_std, cell_mask):
+    """The residual-std telemetry value: the median of the unmasked
+    cells' ``d_std`` (a device scalar)."""
+    return masked_median(d_std.reshape(1, -1), cell_mask.reshape(1, -1),
                          1)[0, 0]
-    return new_weights, scores, rstd, torch.max(template)
 
 
 def clean_loop(prep: Prepared, orig_weights, *, max_iter, chanthresh,

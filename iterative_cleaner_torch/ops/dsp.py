@@ -269,12 +269,18 @@ def template_numerator_from_channel_profiles(a, back_shifts, rotation):
     return rotate_bins(a, -back_shifts, method=rotation).sum(dim=0)
 
 
+def weighted_template_numerator(cube, weights):
+    """The un-normalised weighted profile sum over all (subint, channel)
+    cells, grouped as the reference groups it: per-subint (1, C) x (C, B)
+    products, then the sum over subints.  Exact streaming accumulates it
+    per subint tile on the routes other than the default."""
+    return torch.einsum("sc,scb->sb", weights, cube).sum(dim=0)
+
+
 def weighted_template(cube, weights):
     """Weighted mean profile over all (subint, channel) cells; an
-    all-zero weight matrix gives the zero template.  The numerator is
-    grouped as the reference groups it: per-subint (1, C) x (C, B)
-    products, then the sum over subints."""
-    num = torch.einsum("sc,scb->sb", weights, cube).sum(dim=0)
+    all-zero weight matrix gives the zero template."""
+    num = weighted_template_numerator(cube, weights)
     den = torch.sum(weights)
     safe = torch.where(den == 0, torch.ones_like(den), den)
     return torch.where(den == 0, torch.zeros_like(num), num / safe)

@@ -56,17 +56,42 @@ def template_correction(disp_clean, base_offsets, weights, duty):
     return template_correction_from_totals(t1, base_offsets, weights, duty)
 
 
+def template_correction_numerator_from_totals(t1, base_offsets, weights,
+                                              duty):
+    """Un-normalised correction over a (tile of) per-subint weighted
+    totals ``t1 = sum_c w * disp_clean``: every term is local to a subint
+    row or a plain sum, so tile numerators add up to the whole archive's
+    (exact streaming's default-route partial)."""
+    w = window_width(t1.shape[-1], duty)
+    r = torch.sum(weights * base_offsets, dim=1)
+    sm = centred_window_means(t1, w) + r[:, None]
+    return torch.sum(weights * base_offsets) \
+        - torch.sum(torch.min(sm, dim=-1).values)
+
+
+def template_correction_numerator_raw(cube_raw, base_offsets, weights,
+                                      duty):
+    """Un-normalised correction over a subint tile of the RAW
+    (pre-baseline) cube: the smoothed total straight from the raw
+    weighted sum (``wm(sum_c w*(clean + V)) = wm(sum_c w*clean) + sum_c
+    w*V``).  Exact streaming accumulates these per tile on the routes
+    other than the default and divides by the global weight sum."""
+    w = window_width(cube_raw.shape[-1], duty)
+    t1 = torch.einsum("sc,scb->sb", weights, cube_raw)
+    sm = centred_window_means(t1, w)
+    return torch.sum(weights * base_offsets) \
+        - torch.sum(torch.min(sm, dim=-1).values)
+
+
 def template_correction_from_totals(t1, base_offsets, weights, duty):
     """Per-iteration template shift of the integration baseline under the
     CURRENT weights, from the per-subint weighted totals
     ``t1 = sum_c w * disp_clean`` (reference :88-94 recomputes baselines
     on every template build; the hoisted preamble used the original
-    weights, and the difference is this scalar)."""
-    w = window_width(t1.shape[-1], duty)
-    r = torch.sum(weights * base_offsets, dim=1)
-    sm = centred_window_means(t1, w) + r[:, None]
-    num = torch.sum(weights * base_offsets) \
-        - torch.sum(torch.min(sm, dim=-1).values)
+    weights, and the difference is this scalar): the numerator over the
+    weight sum."""
+    num = template_correction_numerator_from_totals(t1, base_offsets,
+                                                    weights, duty)
     den = torch.sum(weights)
     safe = torch.where(den == 0, torch.ones_like(den), den)
     return torch.where(den == 0, torch.zeros_like(num), num / safe)

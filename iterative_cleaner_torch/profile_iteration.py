@@ -3,6 +3,7 @@
     python -m iterative_cleaner_torch.profile_iteration [--reps 5]
         [--report PATH] [--baseline_mode profile]
         [--stats_frame dedispersed] [-r FACTOR START END]
+        [--stream N [--stream_hbm_mb MB]]
 
 Rebuilds the full-size golden archive (``make_fullsize_archive``, as
 ``chip_smoke.py`` does), cleans it under ``CleanConfig`` (the default,
@@ -14,13 +15,27 @@ the upload, the preamble, the first iteration, steady iterations (CUDA
 events), and the download, all warm.  Then it traces
 ``--reps`` steady iterations with ``torch.profiler`` and prints the
 device time per iteration of every kernel, and the device's busy share
-of the iteration's wall time.  Needs a CUDA device; prints the card's
-name and power limit beside every number.
+of the iteration's wall time.
+
+With ``--stream N`` it profiles exact streaming in N-subint tiles
+instead (``clean_streaming``, budget ``--stream_hbm_mb``, default the
+card-sized one): two whole streaming cleans (cold, warm) with the
+engine's times and transfers (per-pass spans of the compute stream, H2D
+bytes and the copy stream's time), then a third under
+``torch.profiler``: device time by kernel and copy within the
+iterations, and the device's busy share of the iterations' wall time
+(the union of kernel and copy intervals over the
+``icln_stream_iteration`` ranges; the profiler's device-side copy of
+such a range is an annotation, not work, and is left out).
+
+Needs a CUDA device; prints the card's name and power limit beside
+every number.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -38,6 +53,7 @@ from iterative_cleaner_torch.engine.loop import (
     select_route,
 )
 from iterative_cleaner_torch.io.synthetic import make_fullsize_archive
+from iterative_cleaner_torch.parallel.streaming_exact import STREAM_ITERATION
 from iterative_cleaner_torch.stats import kernels as K
 
 
@@ -49,6 +65,107 @@ def _events_ms(fn) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop)
+
+
+def stream_line(gauges) -> str:
+    """An exact stream's times and transfers on the card, from the
+    engine's registry gauges (``clean_streaming_exact``)."""
+    g = gauges
+    passes = np.asarray(g["stream_pass_ms_by_iteration"])
+    template, diagnostics, combine = passes.mean(axis=0)
+    by_iter = np.round(passes, 2).tolist()
+    rate = g["stream_h2d_copy_bytes"] / g["stream_h2d_copy_ms"] / 1e6
+    return (f"host store {g['stream_host_store_alloc_ms']:.1f} ms, preamble "
+            f"{g['stream_prep_ms']:.1f} ms, {g['stream_iteration_ms']:.1f} "
+            f"ms per iteration (compute stream, mean: template pass "
+            f"{template:.2f}, diagnostics pass {diagnostics:.2f}, combine "
+            f"{combine:.2f} ms; by iteration {by_iter}), H2D "
+            f"{g['stream_h2d_copy_bytes']} bytes in "
+            f"{g['stream_h2d_copy_ms']:.1f} ms of the copy stream "
+            f"({rate:.2f} GB/s)")
+
+
+def _device_work(prof):
+    """The kernels and copies of a ``torch.profiler`` trace: its CUDA
+    events less the device-side copies of ``record_function`` ranges,
+    which span the work they annotate."""
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA \
+                or getattr(e, "is_user_annotation", False) \
+                or e.name == STREAM_ITERATION:
+            continue
+        yield e
+
+
+def _union_ms(intervals) -> float:
+    """Length of the union of (start, end) intervals, in ms of us."""
+    total, end = 0.0, -float("inf")
+    for a, b in sorted(intervals):
+        if b <= end:
+            continue
+        total += b - max(a, end)
+        end = b
+    return total / 1e3
+
+
+def profile_stream(ar, cfg, args, card, tag) -> dict:
+    """Exact streaming's time on the card: see the module docstring."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from iterative_cleaner_torch.parallel import clean_streaming
+    from iterative_cleaner_torch.parallel.tile_cache import DictRegistry
+
+    cfg = dataclasses.replace(cfg, stream_hbm_mb=args.stream_hbm_mb)
+    runs = {}
+    for key in ("cold", "warm"):
+        reg = DictRegistry()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        result = clean_streaming(ar, args.stream, cfg, registry=reg)
+        torch.cuda.synchronize()
+        runs[key] = {"clean_ms": (time.perf_counter() - t0) * 1e3,
+                     "loops": result.loops,
+                     "peak_mem_gib": torch.cuda.max_memory_allocated()
+                     / 2 ** 30, "gauges": reg.gauges,
+                     "counters": reg.counters}
+        print(f"stream {key}: whole clean {runs[key]['clean_ms']:.1f} ms, "
+              f"{result.loops} loops, {stream_line(reg.gauges)}, cube "
+              f"uploads {reg.counters['stream_h2d_cube_bytes']} bytes, peak "
+              f"device memory {runs[key]['peak_mem_gib']:.2f} GiB {tag}",
+              flush=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        clean_streaming(ar, args.stream, cfg)
+        torch.cuda.synchronize()
+    windows = [(e.time_range.start, e.time_range.end) for e in prof.events()
+               if e.name == STREAM_ITERATION
+               and e.device_type == torch.autograd.DeviceType.CPU]
+    wall = sum(b - a for a, b in windows) / 1e3
+    device, per_name = [], {}
+    for e in _device_work(prof):
+        a, b = e.time_range.start, e.time_range.end
+        for w0, w1 in windows:
+            lo, hi = max(a, w0), min(b, w1)
+            if hi > lo:
+                device.append((lo, hi))
+                per_name[e.name] = per_name.get(e.name, 0.0) \
+                    + (hi - lo) / 1e3
+    busy = _union_ms(device)
+    n = max(1, len(windows))
+    share = 100 * busy / wall if wall else 0.0
+    print(f"stream profile: {len(windows)} iterations, wall "
+          f"{wall / n:.3f} ms per iteration, device busy (kernels and "
+          f"copies, union) {busy / n:.3f} ms ({share:.1f}%) {tag}",
+          flush=True)
+    rows = sorted(per_name.items(), key=lambda kv: -kv[1])
+    for name, ms in rows[:12]:
+        print(f"  {ms / n:9.4f} ms/iter  {name[:90]}")
+    return {"card": card, "stream_chunk": args.stream,
+            "stream_hbm_mb": args.stream_hbm_mb, "runs": runs,
+            "profile_wall_ms_per_iter": wall / n,
+            "profile_busy_ms_per_iter": busy / n,
+            "device_ms_per_iter": {k: v / n for k, v in rows}}
 
 
 def main(argv=None) -> int:
@@ -63,6 +180,10 @@ def main(argv=None) -> int:
                     default=[0.0, 0.0, 1.0],
                     help="pulse window as the CLI takes it: factor, start, "
                          "end")
+    ap.add_argument("--stream", type=int, default=0,
+                    help="profile exact streaming in N-subint tiles")
+    ap.add_argument("--stream_hbm_mb", type=float, default=None,
+                    help="the tile cache's budget with --stream (MiB)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("profile_iteration: needs a CUDA device", file=sys.stderr)
@@ -83,6 +204,12 @@ def main(argv=None) -> int:
                       pulse_region=tuple(args.pulse_region))
     route = select_route(cfg, ar.dedispersed)
     print(f"route: {route} {tag}", flush=True)
+    if args.stream > 0:
+        report = profile_stream(ar, cfg, args, card, tag)
+        if args.report:
+            with open(args.report, "w") as f:
+                json.dump(report, f, indent=1)
+        return 0
     phases = {}
     # whole cleans first, so that the first one pays the process's
     # one-time CUDA set-up as a user's first archive does
@@ -147,10 +274,9 @@ def main(argv=None) -> int:
                              ProfilerActivity.CUDA]) as prof:
         wall = sum(_events_ms(step) for _ in range(args.reps))
     per_kernel = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            us = e.time_range.elapsed_us()
-            per_kernel[e.name] = per_kernel.get(e.name, 0.0) + us / 1e3
+    for e in _device_work(prof):
+        us = e.time_range.elapsed_us()
+        per_kernel[e.name] = per_kernel.get(e.name, 0.0) + us / 1e3
     busy = sum(per_kernel.values())
     rows = sorted(per_kernel.items(), key=lambda kv: -kv[1])
     print(f"profile: {args.reps} iterations, wall {wall / args.reps:.3f} ms "

@@ -6,6 +6,8 @@ that lie on the CPU; for CUDA tensors it launches the kernel or raises —
 there is no fallback.  Each carries a launch count, a plain integer
 attribute (``weighted_marginals.launches``, ...; ``scaled_sides`` keeps
 one per orientation), incremented where it launches and nowhere else.
+K8 (:func:`fused_combine`) launches through the K3 and combine wrappers,
+which count those launches; its own count is of completed sequences.
 
 =====  =================================  ==================================
 port   wrapper (source)                   replaces (iterative_cleaner_tpu/
@@ -24,6 +26,8 @@ K6     :func:`cell_diagnostics_dedisp`    ``cell_diagnostics_pallas_dedisp``
        (csrc/cell_stats.cu)               (``_wres_dedisp`` + ``_diag_tail``)
 K7     :func:`cell_diagnostics_two_read`  ``cell_diagnostics_pallas``
        (csrc/cell_stats.cu)               (``_cell_stats_kernel``)
+K8     :func:`fused_combine`: K3 x 2 +    ``fused_combine_pallas``
+       :func:`combine_zap`                (exact streaming's combine)
 =====  =================================  ==================================
 
 Each source file states what bounds its kernel on the card and what its
@@ -315,14 +319,27 @@ def cell_diagnostics_disp_plain(disp, rot_t, nyq_row, template, weights,
     return cell_diagnostics(wres, cell_mask, "dft")
 
 
+def _plain_into(planes, out):
+    """The plain version's planes, written into ``out`` when given (the
+    kernels' ``out=``): the CPU path of a tile that fills its rows of the
+    full planes."""
+    if out is None:
+        return planes
+    for o, p in zip(out, planes):
+        o.copy_(p)
+    return tuple(out)
+
+
 def _launch_cell_stats(entry, cube, template, weights, cell_mask, cubes,
-                       chan_rows, bin_rows, ptrs):
+                       chan_rows, bin_rows, ptrs, out=None):
     """Check and launch one of the cell-diagnostics kernels (K2, K6, K7
     share ``cell_stats.cu``'s launch geometry).  ``cubes``,
     ``chan_rows`` and ``bin_rows`` are ``(name, tensor)`` pairs checked
     as (nsub, nchan, nbin) cubes, (nchan, nbin) rows and (nbin,) rows;
-    ``ptrs`` are the entry's leading pointer arguments in order.  Returns
-    the entry's return code and the four (nsub, nchan) planes."""
+    ``ptrs`` are the entry's leading pointer arguments in order.  ``out``
+    is an optional 4-tuple of contiguous (nsub, nchan) float32 views the
+    kernel writes (a tile's rows of the full planes).  Returns the
+    entry's return code and the four (nsub, nchan) planes."""
     nsub, nchan, nbin = cube.shape
     if nbin > MAX_NBIN:
         raise ValueError(f"nbin {nbin} > {MAX_NBIN}")
@@ -339,8 +356,16 @@ def _launch_cell_stats(entry, cube, template, weights, cell_mask, cubes,
     threads = 256
     group, kchunk, smem = cell_stats_geometry(nbin, threads)
     cos_t, sin_t = _dft_tables_cached(nbin, str(cube.device))
-    outs = [torch.empty((nsub, nchan), dtype=torch.float32,
-                        device=cube.device) for _ in range(4)]
+    if out is None:
+        outs = [torch.empty((nsub, nchan), dtype=torch.float32,
+                            device=cube.device) for _ in range(4)]
+    else:
+        outs = list(out)
+        for i, o in enumerate(outs):
+            if o.device != cube.device:
+                raise ValueError(f"out[{i}] on {o.device}, cube on "
+                                 f"{cube.device}")
+            _require(o, f"out[{i}]", torch.float32, (nsub, nchan))
     ncells = nsub * nchan
     grid = max(1, min(-(-ncells // group), 4 * _sm_count(str(cube.device))))
     inv_n = float(np.float32(1.0 / nbin))
@@ -353,21 +378,21 @@ def _launch_cell_stats(entry, cube, template, weights, cell_mask, cubes,
 
 
 def cell_diagnostics_disp(disp, rot_t, nyq_row, template, weights,
-                          cell_mask):
+                          cell_mask, out=None):
     """``(d_std, d_mean, d_ptp, d_fft)`` of the dispersed-frame weighted
     residual — kernel K2 on the card, :func:`cell_diagnostics_disp_plain`
     on the CPU.  ``nyq_row`` is None where the rotation round-trips
-    exactly (roll, odd nbin)."""
+    exactly (roll, odd nbin); ``out`` as in :func:`_launch_cell_stats`."""
     if not _on_card(disp, rot_t, template, weights, cell_mask):
-        return cell_diagnostics_disp_plain(disp, rot_t, nyq_row, template,
-                                           weights, cell_mask)
+        return _plain_into(cell_diagnostics_disp_plain(
+            disp, rot_t, nyq_row, template, weights, cell_mask), out)
     rows = [("rot_t", rot_t)] + ([] if nyq_row is None
                                  else [("nyq_row", nyq_row)])
     rc, outs = _launch_cell_stats(
         "icln_cell_stats_disp", disp, template, weights, cell_mask,
         [("disp", disp)], rows, [],
         [_ptr(disp), _ptr(rot_t), None if nyq_row is None else _ptr(nyq_row),
-         _ptr(weights), _ptr(cell_mask)])
+         _ptr(weights), _ptr(cell_mask)], out)
     cell_diagnostics_disp.launches += 1
     _check_rc(rc, "cell_diagnostics_disp")
     return outs
@@ -400,20 +425,20 @@ def cell_diagnostics_two_read_plain(ded, disp_base, rot_t, template,
 
 
 def cell_diagnostics_two_read(ded, disp_base, rot_t, template, weights,
-                              cell_mask):
+                              cell_mask, out=None):
     """``(d_std, d_mean, d_ptp, d_fft)`` of the two-read weighted
     residual — kernel K7 on the card,
     :func:`cell_diagnostics_two_read_plain` on the CPU.  ``rot_t`` is the
     rotation of the WINDOWED template, ``template`` the unwindowed one
-    the fit uses."""
+    the fit uses; ``out`` as in :func:`_launch_cell_stats`."""
     if not _on_card(ded, disp_base, rot_t, template, weights, cell_mask):
-        return cell_diagnostics_two_read_plain(ded, disp_base, rot_t,
-                                               template, weights, cell_mask)
+        return _plain_into(cell_diagnostics_two_read_plain(
+            ded, disp_base, rot_t, template, weights, cell_mask), out)
     rc, outs = _launch_cell_stats(
         "icln_cell_stats_two_read", ded, template, weights, cell_mask,
         [("ded", ded), ("disp_base", disp_base)], [("rot_t", rot_t)], [],
         [_ptr(ded), _ptr(disp_base), _ptr(rot_t), _ptr(template),
-         _ptr(weights), _ptr(cell_mask)])
+         _ptr(weights), _ptr(cell_mask)], out)
     cell_diagnostics_two_read.launches += 1
     _check_rc(rc, "cell_diagnostics_two_read")
     return outs
@@ -443,19 +468,21 @@ def cell_diagnostics_dedisp_plain(ded, template, window, weights,
     return cell_diagnostics(wres, cell_mask, "dft")
 
 
-def cell_diagnostics_dedisp(ded, template, window, weights, cell_mask):
+def cell_diagnostics_dedisp(ded, template, window, weights, cell_mask,
+                            out=None):
     """``(d_std, d_mean, d_ptp, d_fft)`` of the dedispersed-frame
     weighted residual — kernel K6 on the card,
     :func:`cell_diagnostics_dedisp_plain` on the CPU.  ``window`` is the
-    (nbin,) pulse-window multiplier (all ones when the window is off)."""
+    (nbin,) pulse-window multiplier (all ones when the window is off);
+    ``out`` as in :func:`_launch_cell_stats`."""
     if not _on_card(ded, template, window, weights, cell_mask):
-        return cell_diagnostics_dedisp_plain(ded, template, window, weights,
-                                             cell_mask)
+        return _plain_into(cell_diagnostics_dedisp_plain(
+            ded, template, window, weights, cell_mask), out)
     rc, outs = _launch_cell_stats(
         "icln_cell_stats_dedisp", ded, template, weights, cell_mask,
         [("ded", ded)], [], [("window", window)],
         [_ptr(ded), _ptr(template), _ptr(window), _ptr(weights),
-         _ptr(cell_mask)])
+         _ptr(cell_mask)], out)
     cell_diagnostics_dedisp.launches += 1
     _check_rc(rc, "cell_diagnostics_dedisp")
     return outs
@@ -612,6 +639,42 @@ def combine_zap(chan_sides, sub_sides, orig_weights):
 combine_zap.launches = 0
 
 
+# --------------------------------------------------------------------------
+# K8: the combine of exact streaming on the full planes
+# --------------------------------------------------------------------------
+
+def fused_combine_plain(diagnostics, cell_mask, orig_weights, chanthresh,
+                        subintthresh):
+    """The plain version of K8: both orientations'
+    :func:`scaled_sides_plain`, then :func:`combine_zap_plain`."""
+    chan = scaled_sides_plain(diagnostics, cell_mask, 0, chanthresh)
+    sub = scaled_sides_plain(diagnostics, cell_mask, 1, subintthresh)
+    return combine_zap_plain(chan, sub, orig_weights)
+
+
+def fused_combine(diagnostics, cell_mask, orig_weights, chanthresh,
+                  subintthresh):
+    """``(new_weights, scores)`` from four full (nsub, nchan) diagnostic
+    planes: both scaler orientations, the 4-way median and the zap.  On
+    the card the sequence K3 axis 0, K3 axis 1, combine (a Hopper block
+    cannot hold four full planes, and the axis-1 pass would need a
+    grid-wide barrier after the axis-0 one: the port's K4/K5 design);
+    :func:`fused_combine_plain` on the CPU.  Bit-equal to the reference's
+    ``fused_combine_pallas``, whose (8, 128) padding has no counterpart
+    here: nothing is padded on the card."""
+    if not _on_card(*diagnostics, cell_mask, orig_weights):
+        return fused_combine_plain(diagnostics, cell_mask, orig_weights,
+                                   chanthresh, subintthresh)
+    chan = scaled_sides(diagnostics, cell_mask, 0, chanthresh)
+    sub = scaled_sides(diagnostics, cell_mask, 1, subintthresh)
+    out = combine_zap(chan, sub, orig_weights)
+    fused_combine.launches += 1   # one sequence of the three launches above
+    return out
+
+
+fused_combine.launches = 0
+
+
 def reset_launch_counts() -> None:
     weighted_marginals.launches = 0
     cell_diagnostics_disp.launches = 0
@@ -619,6 +682,7 @@ def reset_launch_counts() -> None:
     cell_diagnostics_dedisp.launches = 0
     scaled_sides.launches = [0, 0]
     combine_zap.launches = 0
+    fused_combine.launches = 0
 
 
 def launch_counts() -> dict:
@@ -630,4 +694,5 @@ def launch_counts() -> dict:
         "scaled_sides_axis0": scaled_sides.launches[0],
         "scaled_sides_axis1": scaled_sides.launches[1],
         "combine_zap": combine_zap.launches,
+        "fused_combine": fused_combine.launches,
     }

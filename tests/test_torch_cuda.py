@@ -9,20 +9,25 @@ does not use and a GPU machine need not have).
 
 Tolerances as in tests/test_torch_kernels.py: K1 1e-5 of sum|w*disp|,
 K2, K6 and K7 rtol 1e-4 of each plane's scale with masked cells exact,
-K3 and the combine bit-equal (NaN included), and every route's mask
-equal to the CPU run's.
+K3, the combine and K8 bit-equal (NaN included), and every route's mask
+equal to the CPU run's.  Exact streaming on every route: masks equal to
+the whole clean on the card, budget 0 and the default budget (every
+tile pinned) bit-equal.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from iterative_cleaner_torch import CleanConfig
+from iterative_cleaner_torch import CleanConfig, clean_streaming
 from iterative_cleaner_torch.backends import clean_archive
 from iterative_cleaner_torch.engine.loop import (
+    ROUTE_KERNELS,
+    STREAM_KERNELS,
     dispersed_residual_base,
     nyq_correction_row,
     pulse_window,
+    select_route,
 )
 from iterative_cleaner_torch.io.synthetic import make_synthetic_archive
 from iterative_cleaner_torch.ops.dsp import (
@@ -91,6 +96,10 @@ def test_kernels_match_plain_on_card(card, nsub, nchan, nbin, rotation):
     pw, ps = tk.combine_zap_plain(sides[0], sides[1], w)
     assert _bits_mismatch(scores, ps) == 0
     assert _bits_mismatch(new_w, pw) == 0
+    fw, fs = tk.fused_combine(diags, mask, w, 5.0, 5.0)
+    pw, ps = tk.fused_combine_plain(diags, mask, w, 5.0, 5.0)
+    assert _bits_mismatch(fs, ps) == 0
+    assert _bits_mismatch(fw, pw) == 0
 
 
 def _assert_diags_match(diags, plain, mask):
@@ -167,10 +176,59 @@ def test_slice_on_card_matches_cpu(card):
     counts = tk.launch_counts()
     on_cpu = clean_archive(ar, CleanConfig(device="cpu"))
     for k, v in counts.items():
-        ran = k not in ("cell_diagnostics_two_read", "cell_diagnostics_dedisp")
+        ran = k in ROUTE_KERNELS["default"]
         assert v == (on_card.loops if ran else 0), counts
     np.testing.assert_array_equal(on_card.final_weights, on_cpu.final_weights)
     assert (on_card.loops, on_card.converged) == (on_cpu.loops,
                                                   on_cpu.converged)
     np.testing.assert_allclose(on_card.scores, on_cpu.scores, rtol=1e-4,
                                atol=1e-4)
+
+
+STREAM_CONFIGS = {
+    "default": dict(),
+    "profile": dict(baseline_mode="profile"),
+    "dedispersed": dict(stats_frame="dedispersed"),
+    # the integration two-read route: the raw tiles kept and uploaded too
+    "pulse": dict(pulse_region=(0.2, 30, 60)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(STREAM_CONFIGS))
+def test_exact_streaming_on_card(card, name):
+    """64 x 256 x 128 in four 16-subint tiles, nothing pinned and every
+    tile pinned (the default budget): masks equal to the whole clean on
+    the card, the two budgets bit-equal, each tile's kernels launched
+    once per pass, and at budget 0 a peak under the whole clean's."""
+    ar, _ = make_synthetic_archive(nsub=64, nchan=256, nbin=128,
+                                   n_prezapped=30, seed=1)
+    kwargs = STREAM_CONFIGS[name]
+    route = select_route(CleanConfig(**kwargs), ar.dedispersed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    whole = clean_archive(ar, CleanConfig(**kwargs))
+    peak_whole = torch.cuda.max_memory_allocated()
+    runs = {}
+    for mb in (0, None):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        tk.reset_launch_counts()
+        res = clean_streaming(ar, 16, CleanConfig(stream_hbm_mb=mb, **kwargs))
+        runs[mb] = (res, tk.launch_counts(), torch.cuda.max_memory_allocated())
+        np.testing.assert_array_equal(res.final_weights, whole.final_weights)
+        assert (res.loops, res.converged) == (whole.loops, whole.converged)
+        per_tile = ("weighted_marginals", "cell_diagnostics_disp",
+                    "cell_diagnostics_two_read", "cell_diagnostics_dedisp")
+        for k, v in runs[mb][1].items():
+            want = 0
+            if k in STREAM_KERNELS[route]:
+                want = res.loops * (4 if k in per_tile else 1)
+            assert v == want, (k, runs[mb][1])
+    (zero, _, peak_zero), (pinned, _, _) = runs[0], runs[None]
+    assert _bits_mismatch(torch.from_numpy(zero.final_weights),
+                          torch.from_numpy(pinned.final_weights)) == 0
+    assert _bits_mismatch(torch.from_numpy(zero.scores),
+                          torch.from_numpy(pinned.scores)) == 0
+    if route == "default":
+        assert peak_zero < peak_whole, (peak_zero, peak_whole)

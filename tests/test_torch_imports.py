@@ -1,6 +1,7 @@
-"""The port stands alone: importing it and running its main path never
-loads ``jax`` or the reference package, and no source of the port (or
-``chip_smoke.py``) imports either."""
+"""The port stands alone: importing it and running its main path (the
+whole clean and both streaming modes) never loads ``jax`` or the
+reference package, and no source of the port (``parallel/*`` included)
+or ``chip_smoke.py`` imports either."""
 
 import ast
 import os
@@ -50,9 +51,14 @@ from iterative_cleaner_torch import CleanConfig
 from iterative_cleaner_torch.backends import clean_archive
 from iterative_cleaner_torch.io.synthetic import make_synthetic_archive
 import iterative_cleaner_torch.cli, iterative_cleaner_torch.convert
+import iterative_cleaner_torch.parallel.tile_cache
+from iterative_cleaner_torch.parallel import clean_streaming
 ar, _ = make_synthetic_archive(nsub=8, nchan=16, nbin=32, seed=0)
 res = clean_archive(ar, CleanConfig(device="cpu"))
 assert res.loops >= 1
+for mode in ("exact", "online"):
+    assert clean_streaming(ar, 3, CleanConfig(device="cpu"),
+                           mode=mode).loops >= 1
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "iterative_cleaner_tpu"))
 print("LOADED", bad)

@@ -34,7 +34,11 @@ from iterative_cleaner_torch.convert import (
     archive_from_reference,
     config_from_reference,
 )
-from iterative_cleaner_torch.engine.loop import ROUTE_KERNELS, select_route
+from iterative_cleaner_torch.engine.loop import (
+    ROUTE_KERNELS,
+    STREAM_KERNELS,
+    select_route,
+)
 from iterative_cleaner_torch.io import load_archive, save_archive
 from iterative_cleaner_torch.stats.kernels import launch_counts
 
@@ -103,10 +107,15 @@ def test_route_matches_reference(case, route):
 
 
 def test_route_kernels_cover_every_launch_counter():
-    """``ROUTE_KERNELS`` (what chip_smoke.py holds each route's launch
-    counts to) names every counted kernel, each on some route."""
-    named = {k for ks in ROUTE_KERNELS.values() for k in ks}
+    """``ROUTE_KERNELS`` and ``STREAM_KERNELS`` (what chip_smoke.py holds
+    each whole clean's and each exact stream's launch counts to) name
+    every counted kernel, each on some route; exact streaming launches
+    a route's kernels and K8."""
+    named = {k for table in (ROUTE_KERNELS, STREAM_KERNELS)
+             for ks in table.values() for k in ks}
     assert named == set(launch_counts())
+    for route, kernels in ROUTE_KERNELS.items():
+        assert set(STREAM_KERNELS[route]) == set(kernels) | {"fused_combine"}
 
 
 @pytest.mark.parametrize("case", ["pulse-window", "dedisp-frame-fourier",
