@@ -24,11 +24,18 @@ pinned (bit-equal to the first), exact on the profile route (K7 per
 tile) and online in 256-subint tiles — with the launch counts, the tile
 cache's transfers, the H2D rate and the peak memory of each, holding
 them to the goldens, the whole default clean and the expected uploads;
-holds every kernel against its plain PyTorch version on the card at
-the shapes its route gives it; times
-each kernel, its plain version and the library yardstick beside the
-least time the card could take, and each route's iteration; prints one
-JSON line with the kernels and, last, ``{"ok": true, "device": ...}``.
+cleans it through ``clean_archive_sharded`` (the cell-sharded clean,
+K10) on one rank under NCCL — the default route and the dedispersed
+frame, each held to the whole clean's mask and scores — and on four
+gloo ranks sharing the card as a 2 x 2 mesh, each rank mapping the
+cube from one file and uploading its quarter, held to the whole clean
+and the golden, with each rank's launch counts, peak memory and
+iteration time; holds every kernel against its plain PyTorch version on
+the card at the shapes its route gives it (K10 also against K2 and K6,
+bit for bit, on the whole cube and on one 2 x 2 shard); times each
+kernel, its plain version and the library yardstick beside the least
+time the card could take, and each route's iteration; prints one JSON
+line with the kernels and, last, ``{"ok": true, "device": ...}``.
 
 It exits non-zero, printing no result, when no CUDA device is present
 or when the port's package is not beside it.  It imports nothing of JAX
@@ -41,8 +48,10 @@ import argparse
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -88,6 +97,9 @@ STREAM_MAX_FLIPS = 10
 # bounds its disagreement with the whole clean (iterative_cleaner_tpu/
 # parallel/streaming.py).
 ONLINE_MAX_FRACTION = 1e-3
+# The four gloo ranks of phase 3d: a rank that is not done by then fails
+# the script.
+GLOO_RANKS, GLOO_TIMEOUT_S = 4, 600
 
 # Tolerances of the kernel checks (see tests/test_torch_kernels.py):
 K1_RTOL = 1e-5   # of sum |w * disp|: float32 sums in another order
@@ -189,6 +201,83 @@ def golden_check(label, result, suffix, shape) -> None:
         fail(f"{label}: full-size mask outside the golden's flip rule")
 
 
+def whole_contract(label, result, whole) -> None:
+    """Hold ``result``'s mask to the whole default clean's: at most
+    STREAM_MAX_FLIPS cells, each scored within STREAM_FLIP_BAND of 1 by
+    the whole run (a cross-tile or cross-rank template sum may move a
+    score by an ulp)."""
+    flips = (result.final_weights == 0) != (whole.final_weights == 0)
+    near = np.abs(whole.scores - 1.0) <= STREAM_FLIP_BAND
+    print(f"{label} against the whole default clean: {int(flips.sum())} "
+          f"cells differ (limit {STREAM_MAX_FLIPS}, each scored within "
+          f"{STREAM_FLIP_BAND:g} of 1 by the whole run), "
+          f"{int((flips & ~near).sum())} outside that band", flush=True)
+    if flips.sum() > STREAM_MAX_FLIPS or (flips & ~near).any():
+        fail(f"{label}: mask outside its contract with the whole clean")
+
+
+def gloo_shard_rank(shard_dir):
+    """One of the GLOO_RANKS ranks of phase 3d, started by
+    ``run_local_ranks`` with gloo on cuda:0: the cell-sharded clean of
+    the cube in ``shard_dir`` (mapped, not read: the rank converts and
+    uploads only its block), then three timed iterations on its prepared
+    block.  Returns its counts, times, peak memory and (rank 0) the
+    result."""
+    import torch
+    import torch.distributed as dist
+
+    from iterative_cleaner_torch import Archive, CleanConfig
+    from iterative_cleaner_torch.backends import clean_archive_sharded
+    from iterative_cleaner_torch.backends.torch_backend import upload_meta
+    from iterative_cleaner_torch.engine.loop import iteration_step, prepare
+    from iterative_cleaner_torch.parallel.mesh import cell_mesh
+    from iterative_cleaner_torch.parallel.sharding import (
+        shard_layout,
+        upload_shard,
+    )
+    from iterative_cleaner_torch.stats import kernels as K
+
+    cube = np.load(os.path.join(shard_dir, "cube.npy"), mmap_mode="r")
+    with np.load(os.path.join(shard_dir, "meta.npz")) as z:
+        meta = {k: z[k] for k in z.files}
+    ar = Archive(data=cube[:, None], weights=meta["weights"],
+                 freqs_mhz=meta["freqs_mhz"], period_s=float(meta["period_s"]),
+                 dm=float(meta["dm"]),
+                 centre_freq_mhz=float(meta["centre_freq_mhz"]))
+    cfg = CleanConfig(device="cuda:0")
+    mesh = cell_mesh()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = clean_archive_sharded(ar, cfg, mesh)
+    torch.cuda.synchronize()
+    clean_ms = (time.perf_counter() - t0) * 1e3
+    counts = K.launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    layout = shard_layout(mesh, ar.nsub, ar.nchan)
+    c, w, f = upload_shard(cube, ar.weights, ar.freqs_mhz, layout,
+                           mesh.device)
+    prep = prepare(c, w, *upload_meta(f, ar.dm, ar.centre_freq_mhz,
+                                      ar.period_s, mesh.device),
+                   cfg, dedispersed=False, mesh=mesh)
+    step = dict(chanthresh=cfg.chanthresh, subintthresh=cfg.subintthresh,
+                rotation=cfg.rotation, baseline_duty=cfg.baseline_duty,
+                mesh=mesh)
+    iteration_step(prep, w, w, w == 0, **step)
+    torch.cuda.synchronize()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        iteration_step(prep, w, w, w == 0, **step)
+    torch.cuda.synchronize()
+    dist.barrier()
+    iter_ms = (time.perf_counter() - t0) / 3 * 1e3
+    return {"rank": mesh.rank, "coords": mesh.coords, "counts": counts,
+            "clean_ms": clean_ms, "iter_ms": iter_ms, "peak_gib": peak_gib,
+            "block": (layout.s0, layout.s1, layout.c0, layout.c1),
+            "result": result}
+
+
 def golden_mask(name, shape):
     with open(os.path.join(GOLDENS, f"fullsize_mask_golden{name}.json")) as f:
         golden = json.load(f)
@@ -236,9 +325,13 @@ def main() -> int:
         fail("no CUDA device present")
     sys.path.insert(0, HERE)
     from iterative_cleaner_torch import CleanConfig, clean_streaming
-    from iterative_cleaner_torch.backends import clean_archive
+    from iterative_cleaner_torch.backends import (
+        clean_archive,
+        clean_archive_sharded,
+    )
     from iterative_cleaner_torch.engine.loop import (
         ROUTE_KERNELS,
+        SHARD_KERNELS,
         STREAM_KERNELS,
         build_template,
         iteration_step,
@@ -254,6 +347,8 @@ def main() -> int:
         rotate_bins,
         weighted_marginal_totals,
     )
+    from iterative_cleaner_torch.parallel import distributed
+    from iterative_cleaner_torch.parallel.mesh import cell_mesh
     from iterative_cleaner_torch.parallel.tile_cache import DictRegistry
     from iterative_cleaner_torch.profile_iteration import stream_line
     from iterative_cleaner_torch.stats import kernels as K
@@ -401,16 +496,10 @@ def main() -> int:
     golden_check("stream (a)", ra, "", (NSUB, NCHAN))
     golden_check("stream (c)", results["stream (c)"], "_profile",
                  (NSUB, NCHAN))
-    flips = (ra.final_weights == 0) != (whole.final_weights == 0)
-    near = np.abs(whole.scores - 1.0) <= STREAM_FLIP_BAND
-    print(f"stream (a) against the whole default clean: {int(flips.sum())} "
-          f"cells differ (limit {STREAM_MAX_FLIPS}, each scored within "
-          f"{STREAM_FLIP_BAND:g} of 1 by the whole run), "
-          f"{int((flips & ~near).sum())} outside that band; peak device "
-          f"memory {peak_gib['stream (a)']:.2f} GiB against the whole "
-          f"clean's {peak_gib['default']:.2f} GiB", flush=True)
-    if flips.sum() > STREAM_MAX_FLIPS or (flips & ~near).any():
-        fail("stream (a): mask outside its contract with the whole clean")
+    whole_contract("stream (a)", ra, whole)
+    print(f"stream (a): peak device memory {peak_gib['stream (a)']:.2f} GiB "
+          f"against the whole clean's {peak_gib['default']:.2f} GiB {tag}",
+          flush=True)
     if peak_gib["stream (a)"] > 0.5 * peak_gib["default"]:
         fail("stream (a): peak device memory above half the whole clean's")
     bad_b = bits_mismatch(torch.from_numpy(rb.final_weights),
@@ -435,10 +524,91 @@ def main() -> int:
     if frac >= ONLINE_MAX_FRACTION:
         fail("stream (d): online mask drifted past its bound")
 
+    # ---- 3c. the cell-sharded clean on one rank under NCCL: K10 on the
+    # whole cube, the scalers' selects as real NCCL all-reduces over one
+    # rank; counted like the whole cleans, held to their masks and scores
+    store_dir = tempfile.mkdtemp(prefix="icln_chip_smoke_")
+    distributed.initialize("nccl", f"file://{store_dir}/store",
+                           device="cuda:0", rank=0, world_size=1)
+    mesh1 = cell_mesh()
+    for route in SHARD_KERNELS:
+        key = f"sharded 1 ({route})"
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        results[key] = r = clean_archive_sharded(ar, configs[route], mesh1)
+        torch.cuda.synchronize()
+        clean_ms[key] = (time.perf_counter() - t0) * 1e3
+        counts[key] = K.launch_counts()
+        peak_gib[key] = torch.cuda.max_memory_allocated() / 2 ** 30
+        want = {k: (r.loops if k in SHARD_KERNELS[route] else 0)
+                for k in counts[key]}
+        base = results[route]
+        n_mask = int(((r.final_weights == 0)
+                      != (base.final_weights == 0)).sum())
+        n_bits = bits_mismatch(torch.from_numpy(r.scores),
+                               torch.from_numpy(base.scores), torch)
+        print(f"sharded 1 ({route}), one NCCL rank: kernels "
+              f"{json.dumps(counts[key])}, {r.loops} loops, whole clean "
+              f"{clean_ms[key]:.1f} ms, peak device memory "
+              f"{peak_gib[key]:.2f} GiB; against the whole {route} clean: "
+              f"{n_mask} mask cells and {n_bits} scores differ in bits "
+              f"(tolerance: 0 and 0) {tag}", flush=True)
+        if counts[key] != want:
+            fail(f"{key}: launch counts {counts[key]}, want {want}")
+        if n_mask or n_bits or (r.loops, r.converged) != (base.loops,
+                                                          base.converged):
+            fail(f"{key}: mask, scores or loops differ from the whole clean")
+    golden_check("sharded 1 (default)", results["sharded 1 (default)"], "",
+                 (NSUB, NCHAN))
+
+    # ---- 3d. four gloo ranks sharing the card (NCCL refuses two ranks
+    # on one GPU): the 2 x 2 mesh cell_mesh(4) builds, every cross-rank
+    # merge exercised on the card; the ranks map the float32 cube from
+    # one file and each uploads its quarter
+    cube32 = np.ascontiguousarray(ar.total_intensity(), dtype=np.float32)
+    shard_dir = tempfile.mkdtemp(prefix="icln_chip_smoke_ranks_")
+    try:
+        np.save(os.path.join(shard_dir, "cube.npy"), cube32)
+        np.savez(os.path.join(shard_dir, "meta.npz"), weights=ar.weights,
+                 freqs_mhz=ar.freqs_mhz, period_s=ar.period_s, dm=ar.dm,
+                 centre_freq_mhz=ar.centre_freq_mhz)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        try:
+            ranks = distributed.run_local_ranks(
+                gloo_shard_rank, GLOO_RANKS, (shard_dir,), workdir=shard_dir,
+                device="cuda:0", backend="gloo", timeout_s=GLOO_TIMEOUT_S)
+        except (RuntimeError, TimeoutError) as exc:
+            fail(f"sharded 4 (gloo): {exc}")
+        gloo_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(shard_dir, ignore_errors=True)
+    r4 = results["sharded 4 (gloo)"] = ranks[0]["result"]
+    for rk in ranks:
+        want = {k: (r4.loops if k in SHARD_KERNELS["default"] else 0)
+                for k in rk["counts"]}
+        print(f"sharded 4 (gloo) rank {rk['rank']} {tuple(rk['coords'])}, "
+              f"block {rk['block']}: kernels {json.dumps(rk['counts'])}, "
+              f"whole clean {rk['clean_ms']:.1f} ms, "
+              f"{rk['iter_ms']:.1f} ms per iteration (host, 3 iterations "
+              f"between barriers), peak device memory "
+              f"{rk['peak_gib']:.2f} GiB {tag}", flush=True)
+        if rk["counts"] != want:
+            fail(f"sharded 4 (gloo) rank {rk['rank']}: launch counts "
+                 f"{rk['counts']}, want {want}")
+    print(f"sharded 4 (gloo): {GLOO_RANKS} rank processes in {gloo_s:.1f} s "
+          f"(start-up, mapping, cleans, timing), {r4.loops} loops {tag}",
+          flush=True)
+    whole_contract("sharded 4 (gloo)", r4, whole)
+    golden_check("sharded 4 (gloo)", r4, "", (NSUB, NCHAN))
+
     # ---- 4. each kernel against its plain version, at its route's
     # shapes: the first iteration's inputs of the same archive ----
     f32 = torch.float32
-    cube32 = np.ascontiguousarray(ar.total_intensity(), dtype=np.float32)
     weights = torch.from_numpy(
         np.ascontiguousarray(ar.weights, dtype=np.float32)).to(dev)
     mask = weights == 0
@@ -528,6 +698,44 @@ def main() -> int:
                   f"{K2_RTOL:g} of each plane's scale, masked cells exact: "
                   f"{'ok' if ok else 'FAIL'}", flush=True)
 
+    # K10 on the whole cube (a one-rank mesh's shard) and on one 2 x 2
+    # shard: bit-equal to K2 and K6 on the same cells, and within K2's
+    # tolerance of the plain version
+    q = (slice(0, NSUB // 2), slice(0, NCHAN // 2))
+    k10_in = {
+        "shard_diagnostics_disp": {
+            "whole cube": (disp, rot_t, nyq, template, weights, mask),
+            "2x2 shard": (disp[q].contiguous(), rot_t[q[1]].contiguous(),
+                          nyq[q[1]].contiguous(), template,
+                          weights[q].contiguous(), mask[q].contiguous())},
+        "shard_diagnostics_dedisp": {
+            "whole cube": (pd.ded, t_d, pd.window, weights, mask),
+            "2x2 shard": (pd.ded[q].contiguous(), t_d, pd.window,
+                          weights[q].contiguous(), mask[q].contiguous())},
+    }
+    k10_twin = {
+        "shard_diagnostics_disp": (K.cell_diagnostics_disp,
+                                   K.cell_diagnostics_disp_plain),
+        "shard_diagnostics_dedisp": (K.cell_diagnostics_dedisp,
+                                     K.cell_diagnostics_dedisp_plain)}
+    k10_err, k10_ok = {}, {}
+    for name, ins in k10_in.items():
+        twin, plain = k10_twin[name]
+        k10_err[name], k10_ok[name] = 0.0, True
+        for where, args in ins.items():
+            got = getattr(K, name)(*args)
+            bits = sum(bits_mismatch(g, w, torch)
+                       for g, w in zip(got, twin(*args)))
+            err, ok = diags_check(got, plain(*args), args[-1], torch)
+            k10_err[name] = max(k10_err[name], err)
+            k10_ok[name] &= ok and bits == 0
+            print(f"check K10 {name} ({where}, {tuple(args[0].shape)}): "
+                  f"{bits} cells differ in bits from {twin.__name__} "
+                  f"(tolerance: bit-equal); against the plain version max "
+                  f"abs {err:.3e}, tolerance rtol {K2_RTOL:g} of each "
+                  f"plane's scale, masked cells exact: "
+                  f"{'ok' if ok and bits == 0 else 'FAIL'}", flush=True)
+
     # K3, both orientations, and the combine: bit-equal on identical inputs
     sides, ok3, err3 = {}, {}, {}
     for axis, thresh in ((0, cfg.chanthresh), (1, cfg.subintthresh)):
@@ -558,8 +766,8 @@ def main() -> int:
           f"{err8:.3e} (tolerance: bit-equal, NaN included): "
           f"{'ok' if ok8 else 'FAIL'}", flush=True)
     del fw, fs, pfw, pfs
-    if not (ok1 and all(diag_ok.values()) and ok3[0] and ok3[1] and okc
-            and ok8):
+    if not (ok1 and all(diag_ok.values()) and all(k10_ok.values())
+            and ok3[0] and ok3[1] and okc and ok8):
         fail("a kernel disagrees with its plain version")
 
     # ---- 5. times: kernel, plain version, library yardstick, bound ----
@@ -596,6 +804,11 @@ def main() -> int:
     # K8: four planes, the mask and the weights in, new weights and scores
     # out (29 bytes a cell); both orientations' selects and the combine
     b8 = bound(cells * (4 * 4 + 1 + 4 + 2 * 4), 2 * sel_ops + 16 * cells)
+    # K10 on a 2 x 2 shard: K2's and K6's bounds at a quarter of the cells
+    # and half of the channel rows
+    b2q = bound(4 * (cells // 4 * B + C * B + B) + diag_io // 4,
+                diag_ops / 4)
+    b6q = bound(4 * (cells // 4 * B + 2 * B) + diag_io // 4, diag_ops / 4)
     entries = [
         ("weighted_marginals", "marginals.cu", "_marginals_kernel :633",
          "default", err1,
@@ -634,7 +847,24 @@ def main() -> int:
          lambda: K.fused_combine(diags, mask, weights, *thresholds),
          lambda: K.fused_combine_plain(diags, mask, weights, *thresholds),
          None, b8, 10),
+        ("shard_diagnostics_disp", "shard_stats.cu",
+         "sweep_shard_diags_disp :1469", "sharded 1 (default)",
+         k10_err["shard_diagnostics_disp"],
+         lambda: K.shard_diagnostics_disp(
+             *k10_in["shard_diagnostics_disp"]["whole cube"]),
+         lambda: K.cell_diagnostics_disp_plain(
+             *k10_in["shard_diagnostics_disp"]["whole cube"]), None, b2, 5),
+        ("shard_diagnostics_dedisp", "shard_stats.cu",
+         "sweep_shard_diags_dedisp :1492", "sharded 1 (dedispersed)",
+         k10_err["shard_diagnostics_dedisp"],
+         lambda: K.shard_diagnostics_dedisp(
+             *k10_in["shard_diagnostics_dedisp"]["whole cube"]),
+         lambda: K.cell_diagnostics_dedisp_plain(
+             *k10_in["shard_diagnostics_dedisp"]["whole cube"]), None, b6,
+         5),
     ]
+    k10_shard_bound = {"shard_diagnostics_disp": b2q,
+                       "shard_diagnostics_dedisp": b6q}
     # K8 is a sequence: K3 per orientation (scaled_sides.cu), then the
     # combine kernel (combine.cu).  Its counter counts sequences; its
     # "launches" are those of its parts in the same run.
@@ -660,6 +890,16 @@ def main() -> int:
             "plain_ms": pms, "bound_ms": bms, "bound_by": bby,
             "library_ms": lms})
         what = f"{launches} launches"
+        if name in k10_in:
+            # K10 on one 2 x 2 shard too, the shape each of four ranks
+            # gives it
+            args = k10_in[name]["2x2 shard"]
+            sms = cuda_ms(lambda: getattr(K, name)(*args), reps * 2, torch)
+            sbms, sbby = k10_shard_bound[name]
+            kernels[-1].update(shard_shape=list(args[0].shape), shard_ms=sms,
+                               shard_bound_ms=sbms, shard_bound_by=sbby)
+            what += (f"; on a 2x2 shard {tuple(args[0].shape)}: {sms:.4f} "
+                     f"ms, bound {sbms:.4f} ms ({sbby})")
         if name == "fused_combine":
             kernels[-1].update(sources=k8_sources, sequences=sequences,
                                parts=k8_parts)
@@ -684,6 +924,18 @@ def main() -> int:
               f"{iter_ms:.3f} ms per iteration (device, resident cubes), "
               f"peak device memory of the clean {peak_gib[route]:.2f} GiB "
               f"{tag}", flush=True)
+
+    for route in SHARD_KERNELS:
+        key = f"sharded 1 ({route})"
+        iter_ms = cuda_ms(lambda: iteration_step(
+            preps[route], weights, weights, mask, mesh=mesh1, **common), 5,
+            torch)
+        print(f"clean {key}: {results[key].loops} loops, whole clean "
+              f"{clean_ms[key]:.1f} ms, {iter_ms:.3f} ms per iteration "
+              f"(device, resident shard, one NCCL rank), peak device memory "
+              f"of the clean {peak_gib[key]:.2f} GiB {tag}", flush=True)
+    distributed.shutdown()
+    shutil.rmtree(store_dir, ignore_errors=True)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the "
           f"build included", flush=True)

@@ -10,7 +10,10 @@ two-read route (the pulse window ``-r``, ``baseline_mode='profile'``,
 DEDISP=1 inputs) and the dedispersed stats frame, each with ``-u``; and
 the same routes in subint tiles (:func:`clean_streaming`): exactly, with
 the tiles held in host memory for archives larger than the card, or
-online, each tile on its own.  Every kernel those paths launch on the
+online, each tile on its own; and the default route and the dedispersed
+frame over the ranks of a ``torch.distributed`` process group, each rank
+holding one (subint, channel) block on its own card
+(:func:`clean_archive_sharded`).  Every kernel those paths launch on the
 TPU has a hand-written CUDA counterpart in
 :mod:`iterative_cleaner_torch.stats.kernels`.  float64 and bf16 storage
 are not ported yet.
@@ -27,7 +30,8 @@ Layout, host boundary first:
 - :mod:`~iterative_cleaner_torch.stats` — detection statistics and the kernels
 - :mod:`~iterative_cleaner_torch.engine` — the iteration loop
 - :mod:`~iterative_cleaner_torch.backends` — ``clean_archive``
-- :mod:`~iterative_cleaner_torch.parallel` — ``clean_streaming``
+- :mod:`~iterative_cleaner_torch.parallel` — ``clean_streaming``,
+  ``clean_archive_sharded``
 - :mod:`~iterative_cleaner_torch.cli` — ``python -m iterative_cleaner_torch``
 """
 
@@ -37,6 +41,7 @@ from iterative_cleaner_torch.archive import Archive  # noqa: F401
 from iterative_cleaner_torch.config import CleanConfig  # noqa: F401
 from iterative_cleaner_torch.parallel import (  # noqa: F401
     StreamingCleaner,
+    clean_archive_sharded,
     clean_streaming,
     clean_streaming_exact,
 )

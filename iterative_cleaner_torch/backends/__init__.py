@@ -1,4 +1,6 @@
-"""``clean_archive``: one archive through the PyTorch/CUDA backend."""
+"""``clean_archive``: one archive through the PyTorch/CUDA backend;
+``clean_archive_sharded``: one archive over the ranks of a process
+group."""
 
 from iterative_cleaner_torch.backends.base import (  # noqa: F401
     CleanResult,
@@ -18,3 +20,14 @@ def clean_archive(archive, config):
         archive.dm, archive.centre_freq_mhz, archive.period_s, config,
         dedispersed=archive.dedispersed)
     return apply_bad_parts(result, config)
+
+
+def clean_archive_sharded(archive, config, mesh=None):
+    """Clean one archive over the ranks of a ``torch.distributed``
+    process group: :func:`iterative_cleaner_torch.parallel.sharding.
+    clean_archive_sharded` (rank 0 gets the result, the others None)."""
+    from iterative_cleaner_torch.parallel.sharding import (
+        clean_archive_sharded as sharded,
+    )
+
+    return sharded(archive, config, mesh)

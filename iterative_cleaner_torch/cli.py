@@ -2,15 +2,22 @@
 
 ``python -m iterative_cleaner_torch [-c] [-s] [-m] [-r] [-u] [-o]
 [--bad_chan] [--bad_subint] [--baseline_mode] [--stats_frame] [--device]
-[--stream N [--stream_mode exact|online] [--stream_hbm_mb MB]] obs.npz``
+[--stream N [--stream_mode exact|online] [--stream_hbm_mb MB]]
+[--mesh off|cell] obs.npz``
 cleans each archive, writes ``obs.npz_cleaned.npz`` (the input's data
 with the cleaned weights), with ``-u`` also the single-pol residual
 archive ``obs.npz_residual_<loops>.npz`` in the working directory, and
 appends the reference-format line to ``clean.log`` beside the output.
-``--stream N`` cleans in N-subint tiles (``parallel/streaming.py``).  The
-rest of the reference's flag surface is not ported yet (ROADMAP.md
-'Modules still to port' item 2; the live ``--stream DIR`` session, item
-5).
+``--stream N`` cleans in N-subint tiles (``parallel/streaming.py``).
+``--mesh cell`` cleans each archive over the ranks of a
+``torch.distributed`` job (``parallel/sharding.py``), started as
+``torchrun --nproc_per_node N -m iterative_cleaner_torch --mesh cell
+obs.npz``: one rank per card (NCCL), or gloo ranks with ``--device
+cpu``; every rank reads the archive and keeps its block, and rank 0
+alone prints, writes the output and ``clean.log``.  The rest of the
+reference's flag surface is not ported yet (ROADMAP.md 'Modules still to
+port' item 2; the live ``--stream DIR`` session, item 5; ``--mesh
+batch``, item 3).
 """
 
 from __future__ import annotations
@@ -21,7 +28,7 @@ import datetime
 import os
 import sys
 
-from iterative_cleaner_torch.config import CleanConfig
+from iterative_cleaner_torch.config import MESH_MODES, CleanConfig, check_mesh
 from iterative_cleaner_torch.io import load_archive, save_archive
 
 
@@ -95,6 +102,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "tile cache: tiles that fit stay on the card. "
                         "Default: 40%% of the card's memory. 0 pins "
                         "nothing.")
+    p.add_argument("--mesh", choices=MESH_MODES, default="off",
+                   help="Multi-GPU execution: 'cell' shards each archive's "
+                        "(subint x channel) grid over the ranks of a "
+                        "torchrun job, one rank per card (or gloo ranks "
+                        "on the CPU with --device cpu); uneven grids are "
+                        "zero-weight padded and cropped back. 'batch' is "
+                        "not ported yet.")
     return p
 
 
@@ -132,23 +146,38 @@ def append_clean_log(ar_name, args, loops, log_path) -> None:
                 % (datetime.datetime.now(), ar_name, args, loops))
 
 
-def clean_one(in_path: str, args) -> str:
-    from iterative_cleaner_torch.backends import clean_archive
+def config_of(args) -> CleanConfig:
+    return CleanConfig(chanthresh=args.chanthresh,
+                       subintthresh=args.subintthresh,
+                       max_iter=args.max_iter,
+                       pulse_region=tuple(args.pulse_region),
+                       bad_chan=args.bad_chan, bad_subint=args.bad_subint,
+                       stats_frame=args.stats_frame,
+                       baseline_mode=args.baseline_mode,
+                       unload_res=args.unload_res, device=args.device,
+                       stream_hbm_mb=args.stream_hbm_mb)
+
+
+def clean_one(in_path: str, args, mesh=None):
+    """Clean one archive and write its output; returns the output's name.
+    Under ``mesh`` (``--mesh cell``) every rank cleans its block and only
+    rank 0 reports and writes (the others return None)."""
+    from iterative_cleaner_torch.backends import (
+        clean_archive,
+        clean_archive_sharded,
+    )
     from iterative_cleaner_torch.parallel import clean_streaming
 
     ar = load_archive(in_path)
-    cfg = CleanConfig(chanthresh=args.chanthresh,
-                      subintthresh=args.subintthresh,
-                      max_iter=args.max_iter,
-                      pulse_region=tuple(args.pulse_region),
-                      bad_chan=args.bad_chan, bad_subint=args.bad_subint,
-                      stats_frame=args.stats_frame,
-                      baseline_mode=args.baseline_mode,
-                      unload_res=args.unload_res, device=args.device,
-                      stream_hbm_mb=args.stream_hbm_mb)
-    print("Total number of profiles: %s" % ar.weights.size)
+    cfg = config_of(args)
+    if mesh is None or mesh.rank == 0:
+        print("Total number of profiles: %s" % ar.weights.size)
     chunk = stream_chunk(args.stream)
-    if chunk > 0:
+    if mesh is not None:
+        result = clean_archive_sharded(ar, cfg, mesh)
+        if result is None:
+            return None
+    elif chunk > 0:
         result = clean_streaming(ar, chunk, cfg, mode=args.stream_mode)
     else:
         result = clean_archive(ar, cfg)
@@ -187,9 +216,23 @@ def clean_one(in_path: str, args) -> str:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    stream_chunk(args.stream)   # refuse a directory before any clean
-    for path in args.archive:
-        clean_one(path, args)
+    # refuse a directory, and what the mesh does not run, before any clean
+    streaming = stream_chunk(args.stream) > 0
+    check_mesh(args.mesh, config_of(args), streaming=streaming)
+    if args.mesh == "off":
+        for path in args.archive:
+            clean_one(path, args)
+        return 0
+    from iterative_cleaner_torch.parallel import distributed
+    from iterative_cleaner_torch.parallel.mesh import cell_mesh
+
+    distributed.initialize(device=args.device)
+    try:
+        mesh = cell_mesh()
+        for path in args.archive:
+            clean_one(path, args, mesh)
+    finally:
+        distributed.shutdown()
     return 0
 
 

@@ -19,6 +19,10 @@ from typing import Optional, Tuple
 # ROADMAP.md "Modules still to port" items the refusals point at.
 _ROADMAP_F64 = "ROADMAP.md 'Modules still to port' item 1 (float64)"
 _ROADMAP_BF16 = "ROADMAP.md 'Modules still to port' item 6 (mixed precision)"
+_ROADMAP_BATCH = "ROADMAP.md 'Modules still to port' item 3 (batch and fleet)"
+ROADMAP_MESH = "ROADMAP.md 'Modules still to port' item 7 (multi-GPU)"
+
+MESH_MODES = ("off", "cell", "batch")
 
 STATS_FRAMES = ("auto", "dispersed", "dedispersed")
 
@@ -98,3 +102,33 @@ class CleanConfig:
                 f"dtype={self.dtype!r}: the port runs float32 only (the "
                 f"kernels' order-preserving keys are 32-bit): "
                 f"{_ROADMAP_F64}")
+
+
+def check_mesh(mesh: str, config: CleanConfig, *, dedispersed: bool = False,
+               streaming: bool = False) -> None:
+    """Refuse, with ``NotImplementedError`` naming its ROADMAP.md item,
+    what the multi-GPU clean does not run yet: ``mesh='batch'``, the
+    cell-sharded clean in subint tiles (the reference's streamed shard
+    path), and the cell-sharded two_read route (the dispersed frame under
+    the profile baseline, a pulse window or a DEDISP=1 input; the
+    reference runs it through K7 per shard and
+    ``sharded_scale_and_combine``).  ``mesh='cell'`` runs the default
+    route and the dedispersed frame."""
+    if mesh not in MESH_MODES:
+        raise ValueError(f"unknown mesh {mesh!r}")
+    if mesh == "batch":
+        raise NotImplementedError(
+            f"--mesh batch is not ported yet: {_ROADMAP_BATCH}")
+    if mesh == "off":
+        return
+    if streaming:
+        raise NotImplementedError(
+            f"the cell-sharded clean in subint tiles (--mesh cell with "
+            f"--stream) is not ported yet: {ROADMAP_MESH}")
+    if resolve_stats_frame(config.stats_frame) == "dispersed" and (
+            config.baseline_mode != "integration"
+            or config.pulse_region_active or dedispersed):
+        raise NotImplementedError(
+            f"the cell-sharded two_read route (the dispersed frame with "
+            f"the profile baseline, a pulse window or a DEDISP=1 input) "
+            f"is not ported yet: {ROADMAP_MESH}")

@@ -28,6 +28,18 @@
 Exact streaming (``parallel/streaming_exact.py``) runs the same routes
 tile by tile through :func:`template_partial`, :func:`assemble_template`
 and :func:`tile_prepared` with :func:`route_diagnostics`.
+
+The cell-sharded clean (``parallel/sharding.py``) runs :func:`prepare`,
+:func:`build_template` and :func:`clean_loop` on each rank's (subint,
+channel) shard with a ``mesh`` (a ``parallel.mesh.CellMesh``): the sums
+that cross shards (the baseline window's total profile, the template's
+numerators and weight sum, the marginals) are added in rank order, the
+iteration's post-template half is the sharded sweep (kernel K10, the
+scalers as tree-reduced selects, the combine kernel;
+:func:`_sharded_sweep`), the telemetry median a tree-reduced
+select, and the cycle check's flags and counts int32 all-reduces, so
+every rank leaves the loop at the same iteration.  It runs the
+``default`` and ``dedispersed`` routes (:data:`SHARD_KERNELS`).
 """
 
 from __future__ import annotations
@@ -60,6 +72,8 @@ from iterative_cleaner_torch.stats.kernels import (
     cell_diagnostics_two_read,
     combine_zap,
     scaled_sides,
+    shard_diagnostics_dedisp,
+    shard_diagnostics_disp,
     weighted_marginals,
 )
 from iterative_cleaner_torch.stats.masked_torch import masked_median
@@ -80,6 +94,14 @@ ROUTE_KERNELS = {
 # per iteration, its combine as the sequence K8 (fused_combine).
 STREAM_KERNELS = {route: kernels + ("fused_combine",)
                   for route, kernels in ROUTE_KERNELS.items()}
+# The cell-sharded clean launches per iteration and rank K1 (default
+# route), K10 and the combine kernel; its scalers are tree-reduced
+# selects of torch ops, not K3.
+SHARD_KERNELS = {
+    "default": ("weighted_marginals", "shard_diagnostics_disp",
+                "combine_zap"),
+    "dedispersed": ("shard_diagnostics_dedisp", "combine_zap"),
+}
 
 
 def disp_iteration_enabled(baseline_mode: str, stats_frame: str,
@@ -144,7 +166,7 @@ class Prepared(NamedTuple):
 
 def prepare(cube, weights, freqs_mhz, dm, ref_freq_mhz, period_s,
             config: CleanConfig, *, dedispersed,
-            residual_base: bool = True) -> Prepared:
+            residual_base: bool = True, mesh=None) -> Prepared:
     """Run the preamble of the route :func:`select_route` picks on the
     uploaded ``cube`` (consumed: the baseline is subtracted in place) and
     keep only the cubes the route reads: ``disp_clean`` (default);
@@ -153,13 +175,16 @@ def prepare(cube, weights, freqs_mhz, dm, ref_freq_mhz, period_s,
     integration baseline (dedispersed).  Every argument but ``config``
     and ``dedispersed`` is a tensor on the device.  ``residual_base=
     False`` leaves the two_read route's ``disp_base`` unbuilt (exact
-    streaming rebuilds it per tile, :func:`tile_prepared`)."""
+    streaming rebuilds it per tile, :func:`tile_prepared`).  ``mesh``:
+    the arguments are a rank's shard (see the module docstring)."""
     route = select_route(config, dedispersed)
+    if mesh is not None and route not in SHARD_KERNELS:
+        raise ValueError(f"the {route} route has no sharded form")
     rotation, duty = config.rotation, config.baseline_duty
     if route == "default":
         _, shifts, disp_clean, offsets = prepare_cube_integration(
             cube, weights, freqs_mhz, dm, ref_freq_mhz, period_s,
-            baseline_duty=duty, rotation=rotation, with_ded=False)
+            baseline_duty=duty, rotation=rotation, with_ded=False, mesh=mesh)
         return Prepared(route, shifts, None, disp_clean, disp_clean, offsets,
                         None)
     window = pulse_window(cube.shape[-1], config.pulse_slice,
@@ -168,7 +193,8 @@ def prepare(cube, weights, freqs_mhz, dm, ref_freq_mhz, period_s,
     ded, shifts, corr = prepare_cube_with_correction(
         cube, weights, freqs_mhz, dm, ref_freq_mhz, period_s,
         baseline_duty=duty, rotation=rotation,
-        dedispersed=bool(dedispersed), baseline_mode=config.baseline_mode)
+        dedispersed=bool(dedispersed), baseline_mode=config.baseline_mode,
+        mesh=mesh)
     disp_clean, offsets = (corr[0], corr[1]) if corr is not None \
         else (None, None)
     disp_base = None
@@ -212,7 +238,8 @@ def nyq_correction_row(back_shifts, nbin, rotation, dtype):
     return (gamma / nbin)[:, None] * alt[None, :]
 
 
-def template_partial(route, tile, weights, offsets, raw, *, baseline_duty):
+def template_partial(route, tile, weights, offsets, raw, *, baseline_duty,
+                     mesh=None):
     """The template stage's partial over a subint tile (or the whole
     cube): ``(numerator, correction numerator)``, both summing over tiles
     to the whole archive's.  default: K1's ``(A, t1)`` on the dispersed
@@ -221,11 +248,20 @@ def template_partial(route, tile, weights, offsets, raw, *, baseline_duty):
     dedispersed ``tile`` and, under the integration baseline (``raw``
     given), the correction's from the raw cube.  ``offsets`` are the
     tile's integration-baseline levels (None under the profile
-    baseline)."""
+    baseline).  On a cell ``mesh`` (default route): K1 per shard, ``A``
+    summed over the rank's column and ``t1`` over its row, the
+    correction numerator the whole archive's."""
     if route == "default":
-        a, t1 = weighted_marginals(tile, weights)
+        if mesh is None:
+            a, t1 = weighted_marginals(tile, weights)
+        else:
+            from iterative_cleaner_torch.parallel.shard_stats import (
+                sharded_weighted_marginals,
+            )
+
+            a, t1 = sharded_weighted_marginals(mesh, tile, weights)
         return a, template_correction_numerator_from_totals(
-            t1, offsets, weights, baseline_duty)
+            t1, offsets, weights, baseline_duty, mesh)
     num = weighted_template_numerator(tile, weights)
     if raw is None:
         return num, None
@@ -233,15 +269,19 @@ def template_partial(route, tile, weights, offsets, raw, *, baseline_duty):
                                                   baseline_duty)
 
 
-def assemble_template(route, num, corr, weights, back_shifts, *, rotation):
+def assemble_template(route, num, corr, weights, back_shifts, *, rotation,
+                      mesh=None):
     """The template from the accumulated partials and the full (nsub,
     nchan) weights: the default route's dedispersion rotation of the
     channel profiles ``A``, the ``den == 0`` guards, the reference's
-    x10000."""
+    x10000.  On a cell ``mesh`` the rank's shard of the weights, the
+    channel sum and the weight sum crossing ranks."""
     if route == "default":
         num = template_numerator_from_channel_profiles(num, back_shifts,
-                                                       rotation)
+                                                       rotation, mesh)
     den = torch.sum(weights)
+    if mesh is not None:
+        den = mesh.total(den, "all")
     safe = torch.where(den == 0, torch.ones_like(den), den)
     template = torch.where(den == 0, torch.zeros_like(num), num / safe)
     if corr is not None:
@@ -250,7 +290,8 @@ def assemble_template(route, num, corr, weights, back_shifts, *, rotation):
     return template * 10000.0
 
 
-def build_template(prep: Prepared, weights, *, rotation, baseline_duty):
+def build_template(prep: Prepared, weights, *, rotation, baseline_duty,
+                   mesh=None):
     """Template stage of one iteration, the reference's x10000 included.
 
     default: both weighted marginals of the dispersed cube in one read
@@ -259,17 +300,19 @@ def build_template(prep: Prepared, weights, *, rotation, baseline_duty):
     totals (:func:`template_partial` and :func:`assemble_template` over
     the whole cube).  Other routes: the weighted template over ``ded``
     and, under the integration baseline, the correction over
-    ``disp_clean`` — plain products, as in the reference."""
+    ``disp_clean`` — plain products, as in the reference.  ``mesh``: the
+    sums that cross a rank's shard (see the module docstring)."""
     if prep.route == "default":
         num, corr = template_partial("default", prep.disp_base, weights,
                                      prep.base_offsets, None,
-                                     baseline_duty=baseline_duty)
+                                     baseline_duty=baseline_duty, mesh=mesh)
         return assemble_template("default", num, corr, weights,
-                                 prep.back_shifts, rotation=rotation)
-    template = weighted_template(prep.ded, weights)
+                                 prep.back_shifts, rotation=rotation,
+                                 mesh=mesh)
+    template = weighted_template(prep.ded, weights, mesh)
     if prep.disp_clean is not None:
         template = template + template_correction(
-            prep.disp_clean, prep.base_offsets, weights, baseline_duty)
+            prep.disp_clean, prep.base_offsets, weights, baseline_duty, mesh)
     return template * 10000.0
 
 
@@ -297,29 +340,45 @@ def route_diagnostics(prep: Prepared, template, orig_weights, cell_mask, *,
     if prep.route == "dedispersed":
         return cell_diagnostics_dedisp(prep.ded, template, prep.window,
                                        orig_weights, cell_mask, out=out)
-    nchan, nbin = prep.disp_base.shape[1:]
-    t = template if prep.window is None else template * prep.window
-    rot_t = rotate_bins(t.expand(nchan, nbin), prep.back_shifts,
-                        method=rotation).contiguous()
+    rot_t, nyq_row = _dispersed_rows(prep, template, rotation)
     if prep.route == "two_read":
         return cell_diagnostics_two_read(prep.ded, prep.disp_base, rot_t,
                                          template, orig_weights, cell_mask,
                                          out=out)
-    nyq_row = nyq_correction_row(prep.back_shifts, nbin, rotation,
-                                 prep.disp_base.dtype)
     return cell_diagnostics_disp(prep.disp_base, rot_t, nyq_row, template,
                                  orig_weights, cell_mask, out=out)
 
 
+def _dispersed_rows(prep: Prepared, template, rotation):
+    """The dispersed-frame kernels' (nchan, nbin) rows: the (windowed)
+    template rotated to each channel, and the Nyquist correction rows of
+    the one-read fit (None where the rotation round-trips exactly)."""
+    nchan, nbin = prep.disp_base.shape[1:]
+    t = template if prep.window is None else template * prep.window
+    rot_t = rotate_bins(t.expand(nchan, nbin), prep.back_shifts,
+                        method=rotation).contiguous()
+    return rot_t, nyq_correction_row(prep.back_shifts, nbin, rotation,
+                                     prep.disp_base.dtype)
+
+
 def iteration_step(prep: Prepared, weights, orig_weights, cell_mask, *,
-                   chanthresh, subintthresh, rotation, baseline_duty):
+                   chanthresh, subintthresh, rotation, baseline_duty,
+                   mesh=None):
     """One iteration: template -> fit -> residual diagnostics (K2, K6 or
     K7) -> both scaler orientations (K3) -> 4-way median and zap
-    (combine).  Returns ``(new_weights, scores, residual_std,
-    template_peak)``, the last two as device scalars for the telemetry
-    rows."""
+    (combine); on a cell ``mesh`` the sharded sweep after the template
+    (K10, tree-reduced scalers, combine).  Returns ``(new_weights,
+    scores, residual_std, template_peak)``, the last two as device
+    scalars for the telemetry rows."""
     template = build_template(prep, weights, rotation=rotation,
-                              baseline_duty=baseline_duty)
+                              baseline_duty=baseline_duty, mesh=mesh)
+    if mesh is not None:
+        new_weights, scores, d_std = _sharded_sweep(
+            prep, template, orig_weights, cell_mask, mesh,
+            chanthresh=chanthresh, subintthresh=subintthresh,
+            rotation=rotation)
+        return (new_weights, scores, residual_std(d_std, cell_mask, mesh),
+                torch.max(template))
     diags = route_diagnostics(prep, template, orig_weights, cell_mask,
                              rotation=rotation)
     chan = scaled_sides(diags, cell_mask, 0, chanthresh)
@@ -329,17 +388,54 @@ def iteration_step(prep: Prepared, weights, orig_weights, cell_mask, *,
             torch.max(template))
 
 
-def residual_std(d_std, cell_mask):
+def _sharded_sweep(prep: Prepared, template, orig_weights, cell_mask, mesh,
+                   *, chanthresh, subintthresh, rotation):
+    """The post-template half of a sharded iteration on this rank's
+    shard, the reference's ``sharded_fused_sweep``/``_dedisp``: kernel
+    K10 on the shard, then the tree-reduced scalers and the combine.
+    Returns ``(new_weights, scores, d_std)``."""
+    from iterative_cleaner_torch.parallel.shard_stats import tree_combine_zap
+
+    if prep.route == "dedispersed":
+        diags = shard_diagnostics_dedisp(prep.ded, template, prep.window,
+                                         orig_weights, cell_mask)
+    else:
+        rot_t, nyq_row = _dispersed_rows(prep, template, rotation)
+        diags = shard_diagnostics_disp(prep.disp_base, rot_t, nyq_row,
+                                       template, orig_weights, cell_mask)
+    new_weights, scores = tree_combine_zap(diags, cell_mask, orig_weights,
+                                           chanthresh, subintthresh, mesh)
+    return new_weights, scores, diags[0]
+
+
+def residual_std(d_std, cell_mask, mesh=None):
     """The residual-std telemetry value: the median of the unmasked
-    cells' ``d_std`` (a device scalar)."""
-    return masked_median(d_std.reshape(1, -1), cell_mask.reshape(1, -1),
-                         1)[0, 0]
+    cells' ``d_std`` (a device scalar); on a cell ``mesh`` over every
+    rank's cells, by the tree-reduced select (the same value as the sort
+    on the whole plane)."""
+    if mesh is None:
+        return masked_median(d_std.reshape(1, -1), cell_mask.reshape(1, -1),
+                             1)[0, 0]
+    from iterative_cleaner_torch.parallel.shard_stats import (
+        tree_masked_median_lanes,
+        tree_reducers,
+    )
+
+    med, _ = tree_masked_median_lanes(d_std.reshape(-1, 1),
+                                      cell_mask.reshape(-1, 1), 0,
+                                      tree_reducers(mesh, "all"))
+    return med[0, 0]
 
 
 def clean_loop(prep: Prepared, orig_weights, *, max_iter, chanthresh,
-               subintthresh, rotation, baseline_duty) -> CleanOutputs:
-    """Run the iteration loop on the prepared cubes."""
+               subintthresh, rotation, baseline_duty,
+               mesh=None) -> CleanOutputs:
+    """Run the iteration loop on the prepared cubes.  On a cell ``mesh``
+    each rank loops over its shard: the weights, scores and history are
+    its shard's, the per-loop counts and the cycle check's verdict the
+    whole grid's (int32 all-reduces)."""
     nsub, nchan = orig_weights.shape
+    ncells = nsub * nchan * (1 if mesh is None else math.prod(mesh.shape))
     dev = orig_weights.device
     dtype = prep.back_shifts.dtype
     cell_mask = orig_weights == 0
@@ -357,18 +453,26 @@ def clean_loop(prep: Prepared, orig_weights, *, max_iter, chanthresh,
         new_w, scores, rstd, tpeak = iteration_step(
             prep, weights, orig_weights, cell_mask, chanthresh=chanthresh,
             subintthresh=subintthresh, rotation=rotation,
-            baseline_duty=baseline_duty)
-        repeat = (history[:count] == new_w[None]).flatten(1).all(dim=1).any()
+            baseline_duty=baseline_duty, mesh=mesh)
+        same = (history[:count] == new_w[None]).flatten(1).all(dim=1)
+        counts = torch.stack([torch.sum(new_w != weights),
+                              torch.sum(new_w == 0),
+                              torch.sum((new_w == 0) != (weights == 0))])
+        if mesh is not None:
+            # a history slot repeats only if it does on every shard
+            same = mesh.reduce_int(same.to(torch.int32), "min") > 0
+            counts = mesh.reduce_int(counts.to(torch.int32), "sum")
+        repeat = same.any()
+        diffs, zeros, churn = counts
         history[count] = new_w
         count += 1
-        loop_diffs[x] = torch.sum(new_w != weights)
-        loop_rfi_frac[x] = torch.mean((new_w == 0).to(dtype))
+        loop_diffs[x] = diffs
+        loop_rfi_frac[x] = zeros.to(dtype) / ncells
         iter_metrics[x] = torch.stack([
-            torch.sum(new_w == 0).to(torch.float32),
-            torch.sum((new_w == 0) != (weights == 0)).to(torch.float32),
+            zeros.to(torch.float32), churn.to(torch.float32),
             rstd.to(torch.float32), tpeak.to(torch.float32)])
         template_weights, weights = weights, new_w
-        if bool(repeat):  # the loop's one host sync
+        if bool(repeat):  # the loop's one host sync, the same on every rank
             converged, loops = True, x + 1
             break
     return CleanOutputs(

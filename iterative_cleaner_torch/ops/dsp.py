@@ -197,7 +197,7 @@ def remove_baseline(profiles, duty=0.15):
 
 def prepare_cube_integration(cube, weights, freqs_mhz, dm, ref_freq_mhz,
                              period_s, *, baseline_duty, rotation,
-                             dedispersed=False, with_ded=True):
+                             dedispersed=False, with_ded=True, mesh=None):
     """Integration-baseline preamble.
 
     Returns ``(ded, back_shifts, disp_clean, base_offsets)``.
@@ -207,7 +207,9 @@ def prepare_cube_integration(cube, weights, freqs_mhz, dm, ref_freq_mhz,
     cube — or ``disp_clean`` itself for a DEDISP=1 input (the state-aware
     dedispersion no-ops; the back-shifts stay unchanged).  ``with_ded=
     False`` skips the rotation (``ded`` is None): the default route never
-    reads it."""
+    reads it.  On a cell ``mesh`` the arguments are a rank's shard and its
+    channels' frequencies; only the baseline window's total profile
+    crosses ranks."""
     from iterative_cleaner_torch.ops.psrchive_baseline import (
         baseline_offsets_integration,
     )
@@ -216,7 +218,7 @@ def prepare_cube_integration(cube, weights, freqs_mhz, dm, ref_freq_mhz,
     shifts = dispersion_shift_bins(freqs_mhz.to(cube.dtype), dm,
                                    ref_freq_mhz, period_s, nbin)
     offsets = baseline_offsets_integration(cube, weights.to(cube.dtype),
-                                           baseline_duty)
+                                           baseline_duty, mesh)
     disp_clean = cube.sub_(offsets[..., None])
     ded = None
     if with_ded:
@@ -227,18 +229,21 @@ def prepare_cube_integration(cube, weights, freqs_mhz, dm, ref_freq_mhz,
 
 def prepare_cube_with_correction(cube, weights, freqs_mhz, dm, ref_freq_mhz,
                                  period_s, *, baseline_duty, rotation,
-                                 dedispersed=False, baseline_mode="profile"):
+                                 dedispersed=False, baseline_mode="profile",
+                                 mesh=None):
     """Cleaning preamble: baseline removal (in place in ``cube``), then
     the forward dedispersion, skipped for a DEDISP=1 input (the
     back-shifts stay unchanged).  Returns ``(ded_cube, back_shifts,
     baseline_corr)``, where ``baseline_corr`` is the ``(disp_clean,
     base_offsets, duty)`` triple of the integration mode's per-iteration
-    template correction and None under the profile mode."""
+    template correction and None under the profile mode.  ``mesh``: as
+    :func:`prepare_cube_integration` (the profile baseline is
+    cell-local)."""
     if baseline_mode == "integration":
         ded, shifts, disp_clean, offsets = prepare_cube_integration(
             cube, weights, freqs_mhz, dm, ref_freq_mhz, period_s,
             baseline_duty=baseline_duty, rotation=rotation,
-            dedispersed=dedispersed)
+            dedispersed=dedispersed, mesh=mesh)
         return ded, shifts, (disp_clean, offsets, baseline_duty)
     if baseline_mode != "profile":
         raise ValueError(f"unknown baseline mode {baseline_mode!r}")
@@ -262,11 +267,15 @@ def weighted_marginal_totals(disp, weights):
     return wx.sum(dim=0), wx.sum(dim=1)
 
 
-def template_numerator_from_channel_profiles(a, back_shifts, rotation):
+def template_numerator_from_channel_profiles(a, back_shifts, rotation,
+                                             mesh=None):
     """Template numerator ``sum_c rot_c^{-1}(A[c])``: the dedispersion
     rotation applied to the (nchan, nbin) channel profiles instead of
-    the cube (rotation is linear, weighting bin-independent)."""
-    return rotate_bins(a, -back_shifts, method=rotation).sum(dim=0)
+    the cube (rotation is linear, weighting bin-independent).  On a cell
+    ``mesh``, ``a`` holds the rank's channels and the sum crosses its
+    row."""
+    num = rotate_bins(a, -back_shifts, method=rotation).sum(dim=0)
+    return num if mesh is None else mesh.total(num, "chan")
 
 
 def weighted_template_numerator(cube, weights):
@@ -277,11 +286,14 @@ def weighted_template_numerator(cube, weights):
     return torch.einsum("sc,scb->sb", weights, cube).sum(dim=0)
 
 
-def weighted_template(cube, weights):
+def weighted_template(cube, weights, mesh=None):
     """Weighted mean profile over all (subint, channel) cells; an
-    all-zero weight matrix gives the zero template."""
+    all-zero weight matrix gives the zero template.  On a cell ``mesh``
+    both sums run over every rank's shard."""
     num = weighted_template_numerator(cube, weights)
     den = torch.sum(weights)
+    if mesh is not None:
+        num, den = mesh.total(num, "all"), mesh.total(den, "all")
     safe = torch.where(den == 0, torch.ones_like(den), den)
     return torch.where(den == 0, torch.zeros_like(num), num / safe)
 

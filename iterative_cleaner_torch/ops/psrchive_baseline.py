@@ -30,16 +30,20 @@ def integration_window_centres(total_profiles, duty: float):
     return torch.argmin(centred_window_means(total_profiles, w), dim=-1)
 
 
-def baseline_offsets_integration(cube, weights, duty: float):
+def baseline_offsets_integration(cube, weights, duty: float, mesh=None):
     """Per-(subint, channel) baseline levels, (nsub, nchan).
 
     Each channel's level is its mean over the subint's shared window:
     the cube contracted with the subint's 0/1 window row, then ``/ w`` —
     the column of the reference's circulant window-sum matmul at the
-    centre bin, without forming the other ``nbin - 1`` columns."""
+    centre bin, without forming the other ``nbin - 1`` columns.  On a
+    cell ``mesh`` (a rank's shard) the weighted total profile sums over
+    the channel blocks of the rank's row."""
     nbin = cube.shape[-1]
     w = window_width(nbin, duty)
     total = torch.einsum("sc,scb->sb", weights, cube)
+    if mesh is not None:
+        total = mesh.total(total, "chan")
     centres = integration_window_centres(total, duty)
     j = torch.arange(nbin, device=cube.device)
     window = torch.remainder(j[None, :] - centres[:, None] + w // 2,
@@ -47,26 +51,38 @@ def baseline_offsets_integration(cube, weights, duty: float):
     return torch.einsum("scb,sb->sc", cube, window.to(cube.dtype)) / w
 
 
-def template_correction(disp_clean, base_offsets, weights, duty):
+def template_correction(disp_clean, base_offsets, weights, duty,
+                        mesh=None):
     """:func:`template_correction_from_totals` from the baseline-removed
     dispersed cube itself: one contraction ``t1 = sum_c w * disp_clean``
     (the routes whose template stage does not take both marginals in
-    one read)."""
+    one read); on a cell ``mesh`` summed over the rank's row."""
     t1 = torch.einsum("sc,scb->sb", weights, disp_clean)
-    return template_correction_from_totals(t1, base_offsets, weights, duty)
+    if mesh is not None:
+        t1 = mesh.total(t1, "chan")
+    return template_correction_from_totals(t1, base_offsets, weights, duty,
+                                           mesh)
 
 
 def template_correction_numerator_from_totals(t1, base_offsets, weights,
-                                              duty):
+                                              duty, mesh=None):
     """Un-normalised correction over a (tile of) per-subint weighted
     totals ``t1 = sum_c w * disp_clean``: every term is local to a subint
     row or a plain sum, so tile numerators add up to the whole archive's
-    (exact streaming's default-route partial)."""
+    (exact streaming's default-route partial).  On a cell ``mesh`` ``t1``
+    is this rank's subints' (summed over its row already): the per-subint
+    offset sums cross the row, the sum of the minima the column, the
+    weighted offsets' total every rank."""
     w = window_width(t1.shape[-1], duty)
     r = torch.sum(weights * base_offsets, dim=1)
+    if mesh is not None:
+        r = mesh.total(r, "chan")
     sm = centred_window_means(t1, w) + r[:, None]
-    return torch.sum(weights * base_offsets) \
-        - torch.sum(torch.min(sm, dim=-1).values)
+    total = torch.sum(weights * base_offsets)
+    minima = torch.sum(torch.min(sm, dim=-1).values)
+    if mesh is not None:
+        total, minima = mesh.total(total, "all"), mesh.total(minima, "sub")
+    return total - minima
 
 
 def template_correction_numerator_raw(cube_raw, base_offsets, weights,
@@ -83,15 +99,18 @@ def template_correction_numerator_raw(cube_raw, base_offsets, weights,
         - torch.sum(torch.min(sm, dim=-1).values)
 
 
-def template_correction_from_totals(t1, base_offsets, weights, duty):
+def template_correction_from_totals(t1, base_offsets, weights, duty,
+                                    mesh=None):
     """Per-iteration template shift of the integration baseline under the
     CURRENT weights, from the per-subint weighted totals
     ``t1 = sum_c w * disp_clean`` (reference :88-94 recomputes baselines
     on every template build; the hoisted preamble used the original
     weights, and the difference is this scalar): the numerator over the
-    weight sum."""
+    weight sum (over every rank of a cell ``mesh``)."""
     num = template_correction_numerator_from_totals(t1, base_offsets,
-                                                    weights, duty)
+                                                    weights, duty, mesh)
     den = torch.sum(weights)
+    if mesh is not None:
+        den = mesh.total(den, "all")
     safe = torch.where(den == 0, torch.ones_like(den), den)
     return torch.where(den == 0, torch.zeros_like(num), num / safe)

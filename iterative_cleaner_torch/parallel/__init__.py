@@ -1,7 +1,10 @@
-"""Streaming: archives cleaned in subint tiles, exactly (whole-archive
-masks, the tiles held in host memory) or online (each tile on its
-own)."""
+"""Streaming (archives cleaned in subint tiles, exactly or online) and
+the cell-sharded clean (one archive over the ranks of a
+``torch.distributed`` process group)."""
 
+from iterative_cleaner_torch.parallel.sharding import (  # noqa: F401
+    clean_archive_sharded,
+)
 from iterative_cleaner_torch.parallel.streaming import (  # noqa: F401
     StreamingCleaner,
     clean_streaming,

@@ -29,8 +29,7 @@ from typing import Iterator, List, Optional
 import numpy as np
 
 from iterative_cleaner_torch.backends.base import CleanResult, apply_bad_parts
-from iterative_cleaner_torch.config import CleanConfig
-from iterative_cleaner_torch.parallel.streaming_exact import ROADMAP_MESH
+from iterative_cleaner_torch.config import ROADMAP_MESH, CleanConfig
 
 
 @dataclasses.dataclass

@@ -66,7 +66,7 @@ from iterative_cleaner_torch.backends.torch_backend import (
     upload,
     upload_meta,
 )
-from iterative_cleaner_torch.config import CleanConfig
+from iterative_cleaner_torch.config import ROADMAP_MESH, CleanConfig
 from iterative_cleaner_torch.engine.loop import (
     assemble_template,
     prepare,
@@ -85,7 +85,6 @@ from iterative_cleaner_torch.parallel.tile_cache import (
 )
 from iterative_cleaner_torch.stats.kernels import fused_combine
 
-ROADMAP_MESH = "ROADMAP.md 'Modules still to port' item 7 (multi-GPU)"
 
 # the torch.profiler range of each iteration
 STREAM_ITERATION = "icln_stream_iteration"

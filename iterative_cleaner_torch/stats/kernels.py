@@ -28,6 +28,9 @@ K7     :func:`cell_diagnostics_two_read`  ``cell_diagnostics_pallas``
        (csrc/cell_stats.cu)               (``_cell_stats_kernel``)
 K8     :func:`fused_combine`: K3 x 2 +    ``fused_combine_pallas``
        :func:`combine_zap`                (exact streaming's combine)
+K10    :func:`shard_diagnostics_disp`,    ``sweep_shard_diags_disp``,
+       :func:`shard_diagnostics_dedisp`   ``sweep_shard_diags_dedisp``
+       (csrc/shard_stats.cu)              (the cell-sharded clean's shard)
 =====  =================================  ==================================
 
 Each source file states what bounds its kernel on the card and what its
@@ -74,7 +77,8 @@ from iterative_cleaner_torch.stats.masked_torch import (
 _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = _PKG_DIR / "_build"
-SOURCES = ("marginals.cu", "cell_stats.cu", "scaled_sides.cu", "combine.cu")
+SOURCES = ("marginals.cu", "cell_stats.cu", "shard_stats.cu",
+           "scaled_sides.cu", "combine.cu")
 # -fmad=false: no contraction of a*b+c, so the kernels round as the
 # reference does; no fast-math; sm_90a (Hopper).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -153,6 +157,8 @@ _SIGNATURES = {
     "icln_cell_stats_two_read": [_P] * 13 + [_LL] + [_I] * 6
     + [_LL, _F, _P],
     "icln_cell_stats_dedisp": [_P] * 12 + [_LL] + [_I] * 6 + [_LL, _F, _P],
+    "icln_shard_stats_disp": [_P] * 12 + [_LL] + [_I] * 6 + [_LL, _F, _P],
+    "icln_shard_stats_dedisp": [_P] * 12 + [_LL] + [_I] * 6 + [_LL, _F, _P],
     "icln_scaled_sides": [_P] * 9 + [_I, _I, _LL, _LL, _F, _I, _LL, _P],
     "icln_combine_zap": [_P] * 11 + [_LL, _P],
 }
@@ -284,12 +290,23 @@ def tt_info(template):
                         (tt == 0).to(template.dtype)])
 
 
-def cell_stats_geometry(nbin: int, threads: int = 256):
+def cell_stats_geometry(nbin: int, threads: int = 256,
+                        pipelined: bool = False):
     """(group, kchunk, smem_bytes) of K2's launch: cells per block group,
-    DFT-table columns staged per chunk, dynamic shared memory."""
+    DFT-table columns staged per chunk, dynamic shared memory.
+    ``pipelined`` (K10): two row buffers at ``cell_stats.cuh``'s
+    ``icln_pipe_pitch``, the group halved until one table column pair
+    fits beside them."""
     nk = nbin // 2 + 1
     group = 32 if nbin <= 383 else 16 if nbin <= 767 else 8
-    cen_bytes = group * (nbin + 1) * 4
+    if pipelined:
+        pitch, nbuf = -(-nbin // 4) * 4 + 4, 2
+    else:
+        pitch, nbuf = nbin + 1, 1
+    cen_bytes = nbuf * group * pitch * 4
+    while group > 1 and 200 * 1024 - cen_bytes < 2 * nbin * 4:
+        group //= 2
+        cen_bytes = nbuf * group * pitch * 4
     table_budget = min(96 * 1024, 200 * 1024 - cen_bytes)
     kchunk = max(1, min(nk, table_budget // (2 * nbin * 4)))
     smem = cen_bytes + 2 * nbin * kchunk * 4 + threads * 4
@@ -331,15 +348,16 @@ def _plain_into(planes, out):
 
 
 def _launch_cell_stats(entry, cube, template, weights, cell_mask, cubes,
-                       chan_rows, bin_rows, ptrs, out=None):
+                       chan_rows, bin_rows, ptrs, out=None, pipelined=False):
     """Check and launch one of the cell-diagnostics kernels (K2, K6, K7
     share ``cell_stats.cu``'s launch geometry).  ``cubes``,
     ``chan_rows`` and ``bin_rows`` are ``(name, tensor)`` pairs checked
     as (nsub, nchan, nbin) cubes, (nchan, nbin) rows and (nbin,) rows;
     ``ptrs`` are the entry's leading pointer arguments in order.  ``out``
     is an optional 4-tuple of contiguous (nsub, nchan) float32 views the
-    kernel writes (a tile's rows of the full planes).  Returns the
-    entry's return code and the four (nsub, nchan) planes."""
+    kernel writes (a tile's rows of the full planes); ``pipelined`` takes
+    K10's launch geometry.  Returns the entry's return code and the four
+    (nsub, nchan) planes."""
     nsub, nchan, nbin = cube.shape
     if nbin > MAX_NBIN:
         raise ValueError(f"nbin {nbin} > {MAX_NBIN}")
@@ -354,7 +372,7 @@ def _launch_cell_stats(entry, cube, template, weights, cell_mask, cubes,
     _require(cell_mask, "cell_mask", torch.bool, (nsub, nchan))
     info = tt_info(template)
     threads = 256
-    group, kchunk, smem = cell_stats_geometry(nbin, threads)
+    group, kchunk, smem = cell_stats_geometry(nbin, threads, pipelined)
     cos_t, sin_t = _dft_tables_cached(nbin, str(cube.device))
     if out is None:
         outs = [torch.empty((nsub, nchan), dtype=torch.float32,
@@ -489,6 +507,55 @@ def cell_diagnostics_dedisp(ded, template, window, weights, cell_mask,
 
 
 cell_diagnostics_dedisp.launches = 0
+
+
+# --------------------------------------------------------------------------
+# K10: one rank's shard of the cell-sharded clean (K2's and K6's values)
+# --------------------------------------------------------------------------
+
+def shard_diagnostics_disp(disp, rot_t, nyq_row, template, weights,
+                           cell_mask):
+    """K2's four planes on one rank's (subint, channel) shard, its cube
+    rows staged through a double-buffered asynchronous copy — kernel K10
+    on the card (bit-equal to :func:`cell_diagnostics_disp` on the same
+    shard), :func:`cell_diagnostics_disp_plain` on the CPU.  ``rot_t``
+    and ``nyq_row`` are the shard's channel rows."""
+    if not _on_card(disp, rot_t, template, weights, cell_mask):
+        return cell_diagnostics_disp_plain(disp, rot_t, nyq_row, template,
+                                           weights, cell_mask)
+    rows = [("rot_t", rot_t)] + ([] if nyq_row is None
+                                 else [("nyq_row", nyq_row)])
+    rc, outs = _launch_cell_stats(
+        "icln_shard_stats_disp", disp, template, weights, cell_mask,
+        [("disp", disp)], rows, [],
+        [_ptr(disp), _ptr(rot_t), None if nyq_row is None else _ptr(nyq_row),
+         _ptr(weights), _ptr(cell_mask)], pipelined=True)
+    shard_diagnostics_disp.launches += 1
+    _check_rc(rc, "shard_diagnostics_disp")
+    return outs
+
+
+shard_diagnostics_disp.launches = 0
+
+
+def shard_diagnostics_dedisp(ded, template, window, weights, cell_mask):
+    """K6's four planes on one rank's shard — kernel K10 on the card
+    (bit-equal to :func:`cell_diagnostics_dedisp` on the same shard),
+    :func:`cell_diagnostics_dedisp_plain` on the CPU."""
+    if not _on_card(ded, template, window, weights, cell_mask):
+        return cell_diagnostics_dedisp_plain(ded, template, window, weights,
+                                             cell_mask)
+    rc, outs = _launch_cell_stats(
+        "icln_shard_stats_dedisp", ded, template, weights, cell_mask,
+        [("ded", ded)], [], [("window", window)],
+        [_ptr(ded), _ptr(template), _ptr(window), _ptr(weights),
+         _ptr(cell_mask)], pipelined=True)
+    shard_diagnostics_dedisp.launches += 1
+    _check_rc(rc, "shard_diagnostics_dedisp")
+    return outs
+
+
+shard_diagnostics_dedisp.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -680,6 +747,8 @@ def reset_launch_counts() -> None:
     cell_diagnostics_disp.launches = 0
     cell_diagnostics_two_read.launches = 0
     cell_diagnostics_dedisp.launches = 0
+    shard_diagnostics_disp.launches = 0
+    shard_diagnostics_dedisp.launches = 0
     scaled_sides.launches = [0, 0]
     combine_zap.launches = 0
     fused_combine.launches = 0
@@ -691,6 +760,8 @@ def launch_counts() -> dict:
         "cell_diagnostics_disp": cell_diagnostics_disp.launches,
         "cell_diagnostics_two_read": cell_diagnostics_two_read.launches,
         "cell_diagnostics_dedisp": cell_diagnostics_dedisp.launches,
+        "shard_diagnostics_disp": shard_diagnostics_disp.launches,
+        "shard_diagnostics_dedisp": shard_diagnostics_dedisp.launches,
         "scaled_sides_axis0": scaled_sides.launches[0],
         "scaled_sides_axis1": scaled_sides.launches[1],
         "combine_zap": combine_zap.launches,

@@ -12,7 +12,9 @@ K2, K6 and K7 rtol 1e-4 of each plane's scale with masked cells exact,
 K3, the combine and K8 bit-equal (NaN included), and every route's mask
 equal to the CPU run's.  Exact streaming on every route: masks equal to
 the whole clean on the card, budget 0 and the default budget (every
-tile pinned) bit-equal.
+tile pinned) bit-equal.  K10 bit-equal to K2 and K6 on the same cells,
+its rows 16-byte aligned or not; the cell-sharded clean on one rank under
+NCCL bit-equal to the whole clean.
 """
 
 import numpy as np
@@ -21,8 +23,10 @@ import torch
 
 from iterative_cleaner_torch import CleanConfig, clean_streaming
 from iterative_cleaner_torch.backends import clean_archive
+from iterative_cleaner_torch.backends import clean_archive_sharded
 from iterative_cleaner_torch.engine.loop import (
     ROUTE_KERNELS,
+    SHARD_KERNELS,
     STREAM_KERNELS,
     dispersed_residual_base,
     nyq_correction_row,
@@ -34,6 +38,8 @@ from iterative_cleaner_torch.ops.dsp import (
     rotate_bins,
     weighted_marginal_totals,
 )
+from iterative_cleaner_torch.parallel import distributed
+from iterative_cleaner_torch.parallel.mesh import cell_mesh
 from iterative_cleaner_torch.stats import kernels as tk
 
 pytestmark = pytest.mark.cuda
@@ -232,3 +238,65 @@ def test_exact_streaming_on_card(card, name):
                           torch.from_numpy(pinned.scores)) == 0
     if route == "default":
         assert peak_zero < peak_whole, (peak_zero, peak_whole)
+
+
+def _misaligned(x):
+    """A contiguous copy of ``x`` whose data starts 4 bytes past a
+    16-byte boundary: K10 then stages its rows with 4-byte copies."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    assert out.data_ptr() % 16 != 0
+    return out
+
+
+@pytest.mark.parametrize("nsub,nchan,nbin,rotation",
+                         GEOMS + [(64, 256, 128, "fourier")])
+def test_k10_bit_equal_to_k2_k6_on_card(card, nsub, nchan, nbin, rotation):
+    disp, w, mask, template, rot_t, nyq = _inputs(nsub, nchan, nbin,
+                                                  rotation, card, seed=3)
+    window = pulse_window(nbin, (nbin // 4, nbin // 2), 0.2, True,
+                          torch.float32, card)
+    for cube in (disp, _misaligned(disp)):
+        tk.reset_launch_counts()
+        got = tk.shard_diagnostics_disp(cube, rot_t, nyq, template, w, mask)
+        want = tk.cell_diagnostics_disp(disp, rot_t, nyq, template, w, mask)
+        assert [_bits_mismatch(g, p) for g, p in zip(got, want)] == [0] * 4
+        got = tk.shard_diagnostics_dedisp(cube, template, window, w, mask)
+        want = tk.cell_diagnostics_dedisp(disp, template, window, w, mask)
+        assert [_bits_mismatch(g, p) for g, p in zip(got, want)] == [0] * 4
+        counts = tk.launch_counts()
+        assert counts["shard_diagnostics_disp"] == 1
+        assert counts["shard_diagnostics_dedisp"] == 1
+    _assert_diags_match(
+        tk.shard_diagnostics_disp(disp, rot_t, nyq, template, w, mask),
+        tk.cell_diagnostics_disp_plain(disp, rot_t, nyq, template, w, mask),
+        mask)
+
+
+@pytest.mark.parametrize("frame", ["dispersed", "dedispersed"])
+def test_sharded_clean_one_rank_nccl_on_card(card, frame, tmp_path):
+    """clean_archive_sharded on one NCCL rank: bit-equal to the whole
+    clean (K10 = K2/K6 on the whole cube, the tree-reduced selects = K3),
+    K10, K1 and the combine launched once per loop, K2, K6 and K3 not."""
+    ar, _ = make_synthetic_archive(nsub=64, nchan=256, nbin=128,
+                                   n_prezapped=30, seed=1)
+    cfg = CleanConfig(stats_frame=frame)
+    route = select_route(cfg, ar.dedispersed)
+    distributed.initialize("nccl", f"file://{tmp_path}/store",
+                           device="cuda:0", rank=0, world_size=1)
+    try:
+        tk.reset_launch_counts()
+        got = clean_archive_sharded(ar, cfg, cell_mesh())
+        counts = tk.launch_counts()
+    finally:
+        distributed.shutdown()
+    want = clean_archive(ar, cfg)
+    for k, v in counts.items():
+        assert v == (got.loops if k in SHARD_KERNELS[route] else 0), counts
+    assert (got.loops, got.converged) == (want.loops, want.converged)
+    for field in ("final_weights", "scores"):
+        assert _bits_mismatch(torch.from_numpy(getattr(got, field)),
+                              torch.from_numpy(getattr(want, field))) == 0
+    np.testing.assert_array_equal(got.loop_diffs, want.loop_diffs)
+    np.testing.assert_array_equal(got.iter_metrics, want.iter_metrics)

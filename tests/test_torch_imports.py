@@ -1,7 +1,7 @@
 """The port stands alone: importing it and running its main path (the
-whole clean and both streaming modes) never loads ``jax`` or the
-reference package, and no source of the port (``parallel/*`` included)
-or ``chip_smoke.py`` imports either."""
+whole clean, both streaming modes and the cell-sharded clean on one
+rank) never loads ``jax`` or the reference package, and no source of the
+port (``parallel/*`` included) or ``chip_smoke.py`` imports either."""
 
 import ast
 import os
@@ -59,6 +59,15 @@ assert res.loops >= 1
 for mode in ("exact", "online"):
     assert clean_streaming(ar, 3, CleanConfig(device="cpu"),
                            mode=mode).loops >= 1
+from iterative_cleaner_torch.parallel import distributed
+from iterative_cleaner_torch.parallel.mesh import cell_mesh
+from iterative_cleaner_torch import clean_archive_sharded
+distributed.initialize(device="cpu")
+try:
+    assert clean_archive_sharded(ar, CleanConfig(device="cpu"),
+                                 cell_mesh()).loops >= 1
+finally:
+    distributed.shutdown()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "iterative_cleaner_tpu"))
 print("LOADED", bad)

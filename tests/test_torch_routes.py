@@ -36,6 +36,7 @@ from iterative_cleaner_torch.convert import (
 )
 from iterative_cleaner_torch.engine.loop import (
     ROUTE_KERNELS,
+    SHARD_KERNELS,
     STREAM_KERNELS,
     select_route,
 )
@@ -107,15 +108,22 @@ def test_route_matches_reference(case, route):
 
 
 def test_route_kernels_cover_every_launch_counter():
-    """``ROUTE_KERNELS`` and ``STREAM_KERNELS`` (what chip_smoke.py holds
-    each whole clean's and each exact stream's launch counts to) name
-    every counted kernel, each on some route; exact streaming launches
-    a route's kernels and K8."""
-    named = {k for table in (ROUTE_KERNELS, STREAM_KERNELS)
+    """``ROUTE_KERNELS``, ``STREAM_KERNELS`` and ``SHARD_KERNELS`` (what
+    chip_smoke.py holds each whole clean's, each exact stream's and each
+    sharded clean's launch counts to) name every counted kernel, each on
+    some route; exact streaming launches a route's kernels and K8; the
+    sharded routes are whole-clean routes with K10 for the cell
+    diagnostics and no K3."""
+    named = {k for table in (ROUTE_KERNELS, STREAM_KERNELS, SHARD_KERNELS)
              for ks in table.values() for k in ks}
     assert named == set(launch_counts())
     for route, kernels in ROUTE_KERNELS.items():
         assert set(STREAM_KERNELS[route]) == set(kernels) | {"fused_combine"}
+    k10 = {"cell_diagnostics_disp": "shard_diagnostics_disp",
+           "cell_diagnostics_dedisp": "shard_diagnostics_dedisp"}
+    for route, kernels in SHARD_KERNELS.items():
+        assert set(kernels) == {k10.get(k, k) for k in ROUTE_KERNELS[route]
+                                if not k.startswith("scaled_sides")}
 
 
 @pytest.mark.parametrize("case", ["pulse-window", "dedisp-frame-fourier",

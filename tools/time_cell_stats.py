@@ -1,0 +1,130 @@
+"""Time the cell-diagnostics kernels on the card: K2, K6, K7 and, where
+the package has them, K10 and the cell-sharded clean's tree-reduced
+selects on one NCCL rank.
+
+    python tools/time_cell_stats.py [--shape S C B] [--reps N]
+
+Random inputs of the given shape (default the full-size golden's,
+1024 x 4096 x 128), CUDA-event means over ``--reps`` back-to-back
+launches after a warm-up.  Run it by path with ``PYTHONPATH`` naming the
+checkout whose ``iterative_cleaner_torch`` to time: the same script then
+times two trees in turns (parent, change, change, parent) in one call on
+one card.  Prints one JSON line, with the card's name and power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import tempfile
+
+import torch
+
+
+def _ms(fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def main() -> int:
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--shape", type=int, nargs=3, default=(1024, 4096, 128))
+    p.add_argument("--reps", type=int, default=5)
+    args = p.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("time_cell_stats: no CUDA device present")
+    import iterative_cleaner_torch
+    from iterative_cleaner_torch.engine.loop import nyq_correction_row
+    from iterative_cleaner_torch.ops.dsp import rotate_bins
+    from iterative_cleaner_torch.stats import kernels as K
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    dev = torch.device("cuda")
+    nsub, nchan, nbin = args.shape
+    g = torch.Generator(device=dev).manual_seed(0)
+    cube = torch.randn(nsub, nchan, nbin, generator=g, device=dev)
+    base = torch.randn(nsub, nchan, nbin, generator=g, device=dev)
+    w = (torch.rand(nsub, nchan, generator=g, device=dev) > 0.05).float()
+    mask = w == 0
+    phase = (torch.arange(nbin, device=dev) + 0.5) / nbin
+    t = 1e4 * torch.exp(-0.5 * ((phase - 0.3) / 0.03) ** 2)
+    shifts = torch.rand(nchan, generator=g, device=dev) * nbin / 1.5 \
+        - nbin / 3
+    rot_t = rotate_bins(t.expand(nchan, nbin), shifts,
+                        method="fourier").contiguous()
+    nyq = nyq_correction_row(shifts, nbin, "fourier", torch.float32)
+    window = torch.ones(nbin, device=dev)
+    calls = {
+        "cell_diagnostics_disp": lambda: K.cell_diagnostics_disp(
+            cube, rot_t, nyq, t, w, mask),
+        "cell_diagnostics_dedisp": lambda: K.cell_diagnostics_dedisp(
+            cube, t, window, w, mask),
+        "cell_diagnostics_two_read": lambda: K.cell_diagnostics_two_read(
+            cube, base, rot_t, t, w, mask),
+    }
+    if hasattr(K, "shard_diagnostics_disp"):
+        calls["shard_diagnostics_disp"] = lambda: K.shard_diagnostics_disp(
+            cube, rot_t, nyq, t, w, mask)
+        calls["shard_diagnostics_dedisp"] = \
+            lambda: K.shard_diagnostics_dedisp(cube, t, window, w, mask)
+    out = {"card": card, "package": os.path.dirname(
+        iterative_cleaner_torch.__file__), "shape": [nsub, nchan, nbin],
+        "reps": args.reps,
+        "ms": {name: _ms(fn, args.reps) for name, fn in calls.items()}}
+    if hasattr(K, "shard_diagnostics_disp"):
+        out["one_nccl_rank_ms"] = _selects(K.cell_diagnostics_disp(
+            cube, rot_t, nyq, t, w, mask), mask, w, args.reps)
+    print(json.dumps(out))
+    return 0
+
+
+def _selects(diags, mask, w, reps):
+    """The sharded clean's post-K10 work on one NCCL rank: each scaler
+    orientation's tree-reduced select, the combine, the telemetry
+    median."""
+    from iterative_cleaner_torch.engine.loop import residual_std
+    from iterative_cleaner_torch.parallel import distributed
+    from iterative_cleaner_torch.parallel.mesh import cell_mesh
+    from iterative_cleaner_torch.parallel.shard_stats import (
+        tree_combine_zap,
+        tree_scaled_sides,
+    )
+
+    with tempfile.TemporaryDirectory() as store:
+        distributed.initialize("nccl", f"file://{store}/store",
+                               device="cuda:0", rank=0, world_size=1)
+        try:
+            mesh = cell_mesh()
+            return {
+                "tree_scaled_sides_axis0": _ms(lambda: tree_scaled_sides(
+                    diags, mask, 0, 5.0, mesh), reps),
+                "tree_scaled_sides_axis1": _ms(lambda: tree_scaled_sides(
+                    diags, mask, 1, 5.0, mesh), reps),
+                "tree_combine_zap": _ms(lambda: tree_combine_zap(
+                    diags, mask, w, 5.0, 5.0, mesh), reps),
+                "residual_std": _ms(lambda: residual_std(
+                    diags[0], mask, mesh), reps),
+                "all_reduce_int_4x4096": _ms(lambda: mesh.reduce_int(
+                    torch.ones(4, 1, 4096, dtype=torch.int32,
+                               device="cuda")), 100),
+            }
+        finally:
+            distributed.shutdown()
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
