@@ -32,10 +32,18 @@ cube from one file and uploading its quarter, held to the whole clean
 and the golden, with each rank's launch counts, peak memory and
 iteration time; holds every kernel against its plain PyTorch version on
 the card at the shapes its route gives it (K10 also against K2 and K6,
-bit for bit, on the whole cube and on one 2 x 2 shard); times each
-kernel, its plain version and the library yardstick beside the least
-time the card could take, and each route's iteration; prints one JSON
-line with the kernels and, last, ``{"ok": true, "device": ...}``.
+bit for bit, on the whole cube and on one 2 x 2 shard; K9, the masked
+median of every single-card route's residual-std telemetry, bit for bit
+on the telemetry's line of 4,194,304 cells, along both axes of the
+plane and on hand-made edge lines, and the default clean's first
+telemetry value against K9's plain version on K2's first plane); runs
+the CLI session a user runs on the same archive written as PSRFITS
+(``--metrics-json --prom-textfile --log-format json --timing``) and
+holds its output mask, run report, Prometheus file and event log to
+the in-process clean; times each kernel, its plain version and the
+library yardstick beside the least time the card could take, and each
+route's iteration; prints one JSON line with the kernels and, last,
+``{"ok": true, "device": ...}``.
 
 It exits non-zero, printing no result, when no CUDA device is present
 or when the port's package is not beside it.  It imports nothing of JAX
@@ -45,6 +53,7 @@ or of the reference package.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -100,6 +109,10 @@ ONLINE_MAX_FRACTION = 1e-3
 # The four gloo ranks of phase 3d: a rank that is not done by then fails
 # the script.
 GLOO_RANKS, GLOO_TIMEOUT_S = 4, 600
+
+# The CLI phase writes the archive as PSRFITS (nbits 32) and the CLI
+# writes its cleaned copy beside it: room for both and a margin.
+CLI_DISK_FACTOR = 2.5
 
 # Tolerances of the kernel checks (see tests/test_torch_kernels.py):
 K1_RTOL = 1e-5   # of sum |w * disp|: float32 sums in another order
@@ -278,6 +291,99 @@ def gloo_shard_rank(shard_dir):
             "result": result}
 
 
+def cli_phase(ar, whole, want_counts, tag):
+    """The CLI session on the archive written as PSRFITS (nbits 32: its
+    float32 cube is the in-memory archive's cast), in a temporary
+    directory removed afterwards.  Holds the output mask to the
+    in-process clean ``whole`` (bit for bit) and the golden, the run
+    report's iteration history to ``whole.iter_metrics`` (exactly), the
+    Prometheus file to its parser, the event log's sequence, and the
+    launch counts to ``want_counts``.  Returns the phase's times."""
+    import torch
+
+    from iterative_cleaner_torch import cli
+    from iterative_cleaner_torch.io import load_archive
+    from iterative_cleaner_torch.io.psrfits import save_psrfits
+    from iterative_cleaner_torch.stats import kernels as K
+    from iterative_cleaner_torch.telemetry import (
+        iter_metrics_dict,
+        parse_prometheus_text,
+    )
+    from iterative_cleaner_torch.telemetry.events import read_events
+
+    shape = whole.final_weights.shape
+    work = tempfile.mkdtemp(prefix="icln_chip_smoke_cli_")
+    cwd = os.getcwd()
+    try:
+        need = CLI_DISK_FACTOR * ar.data.size * 4
+        free = shutil.disk_usage(work).free
+        print(f"cli: {free / 2 ** 30:.1f} GiB free in the temporary "
+              f"directory, {need / 2 ** 30:.1f} GiB wanted", flush=True)
+        if free < need:
+            fail("cli: not enough disk for the full-size PSRFITS pair")
+        path = os.path.join(work, "golden.sf")
+        t0 = time.perf_counter()
+        save_psrfits(ar, path, nbits=32)
+        write_in_s = time.perf_counter() - t0
+        size_gb = os.path.getsize(path) / 1e9
+        os.chdir(work)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = cli.main(["--metrics-json", "run.json", "--prom-textfile",
+                       "run.prom", "--log-format", "json", "--timing",
+                       "golden.sf"])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        counts = K.launch_counts()
+        if rc != 0:
+            fail(f"cli: exit code {rc}")
+        if counts != want_counts:
+            fail(f"cli: launch counts {counts}, want {want_counts}")
+        out = load_archive("golden.sf_cleaned.sf")
+        if out.weights.shape != shape or out.data.shape != ar.data.shape:
+            fail(f"cli: output malformed: {out.weights.shape}")
+        n_mask = int(((out.weights == 0) != (whole.final_weights == 0)).sum())
+        with open("run.json") as f:
+            doc = json.load(f)
+        arch = doc["archives"][0]
+        hist_ok = arch["iter_history"] == iter_metrics_dict(
+            whole.iter_metrics)
+        with open("run.prom") as f:
+            prom = parse_prometheus_text(f.read())
+        kinds = [e["event"] for e in read_events("clean.events.jsonl")]
+        seq = [k for k in kinds if k != "phase"]
+        want_seq = ["run_start"] + ["iteration"] * whole.loops + [
+            "archive", "run_end"]
+        phases = doc["phases_s"]
+        print(f"cli: golden.sf ({size_gb:.2f} GB, written in {write_in_s:.1f} "
+              f"s) cleaned by cli.main in {cli_s:.1f} s: load "
+              f"{phases['load']:.1f} s, clean {phases['clean']:.1f} s, "
+              f"write {phases['write']:.1f} s, the rest (report, Prometheus "
+              f"file, event log, clean.log, prints) "
+              f"{cli_s - sum(phases.values()):.3f} s; kernels "
+              f"{json.dumps(counts)}; output mask against the in-process "
+              f"clean: {n_mask} cells differ (tolerance 0); iter_history "
+              f"equal to iter_metrics: {hist_ok}; Prometheus samples "
+              f"{len(prom)}; events {seq} {tag}", flush=True)
+        if n_mask:
+            fail("cli: output mask differs from the in-process clean")
+        golden_check("cli", dataclasses.replace(
+            whole, final_weights=out.weights), "", shape)
+        if not hist_ok or arch["loops"] != whole.loops:
+            fail(f"cli: run report's iter_history {arch['iter_history']} "
+                 f"differs from the clean's iter_metrics")
+        if prom.get("icln_archives_cleaned_total") != 1.0:
+            fail("cli: the Prometheus file lacks the cleaned archive")
+        if seq != want_seq or kinds.count("phase") != 3:
+            fail(f"cli: event sequence {kinds}")
+        return {"psrfits_gb": size_gb, "write_in_s": write_in_s,
+                "cli_s": cli_s, **{f"{k}_s": v for k, v in phases.items()}}
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def golden_mask(name, shape):
     with open(os.path.join(GOLDENS, f"fullsize_mask_golden{name}.json")) as f:
         golden = json.load(f)
@@ -413,6 +519,10 @@ def main() -> int:
         if missing or stray:
             fail(f"route {route}: kernels of the route never launched "
                  f"{missing}, kernels of other routes launched {stray}")
+        if counts[route]["masked_median"] != results[route].loops:
+            fail(f"route {route}: K9 launched "
+                 f"{counts[route]['masked_median']} times in "
+                 f"{results[route].loops} loops")
 
     # ---- 3. what came out is right: the goldens and the frames' contract
     for route, suffix in (("default", ""), ("profile", "_profile")):
@@ -486,8 +596,11 @@ def main() -> int:
                   f"(tiles iterate apart), peak device memory "
                   f"{peak_gib[key]:.2f} GiB {tag}", flush=True)
             own = ROUTE_KERNELS[engine_route]
+            # K9 once per tile iteration, as K3 axis 0
             if any(counts[key][k] < n_tiles for k in own) or any(
-                    v for k, v in counts[key].items() if k not in own):
+                    v for k, v in counts[key].items() if k not in own) \
+                    or counts[key]["masked_median"] \
+                    != counts[key]["scaled_sides_axis0"]:
                 fail(f"stream ({run}): launch counts {counts[key]}")
         if r.final_weights.shape != (NSUB, NCHAN) \
                 or not np.all(np.isfinite(r.final_weights)):
@@ -605,6 +718,10 @@ def main() -> int:
           flush=True)
     whole_contract("sharded 4 (gloo)", r4, whole)
     golden_check("sharded 4 (gloo)", r4, "", (NSUB, NCHAN))
+
+    # ---- 3e. the CLI session a user runs, on the archive as PSRFITS,
+    # counted like the default whole clean and held to it
+    cli_phase(ar, whole, counts["default"], tag)
 
     # ---- 4. each kernel against its plain version, at its route's
     # shapes: the first iteration's inputs of the same archive ----
@@ -766,8 +883,51 @@ def main() -> int:
           f"{err8:.3e} (tolerance: bit-equal, NaN included): "
           f"{'ok' if ok8 else 'FAIL'}", flush=True)
     del fw, fs, pfw, pfs
+
+    # K9 on the first iteration's d_std plane (K2's own output) and cell
+    # mask: as the telemetry's one line, along both axes, and on the
+    # hand-made edge lines; bit-equal, NaN by position
+    from iterative_cleaner_torch.stats.masked_torch import (
+        masked_median as sort_route_median,
+    )
+
+    d_std = diags[0]
+    line_v, line_m = d_std.reshape(1, -1), mask.reshape(1, -1)
+    from tests.torch_median_edges import median_edge_lines
+
+    ev, em = (t.to(dev) for t in median_edge_lines())
+    k9_cases = {
+        "telemetry line": (line_v, line_m, 1),
+        "plane dim 0": (d_std, mask, 0),
+        "plane dim 1": (d_std, mask, 1),
+        "edge lines dim 1": (ev, em, 1),
+        "edge lines dim 0": (ev.t().contiguous(), em.t().contiguous(), 0),
+    }
+    ok9, err9 = True, 0.0
+    for where, (v, m, dim) in k9_cases.items():
+        got = K.masked_median(v, m, dim)
+        want = K.masked_median_keys(v, m, dim)[0]
+        bad = bits_mismatch(got, want, torch) if got.shape == want.shape \
+            else got.numel()
+        err = max_abs_diff(got, want, torch) if where.startswith(
+            ("telemetry", "plane")) else 0.0
+        err9 = max(err9, err)
+        ok9 &= bad == 0
+        print(f"check K9 masked_median ({where}, {tuple(v.shape)} along dim "
+              f"{dim}): {bad} of {got.numel()} medians differ in bits, max "
+              f"abs {err:.3e} (tolerance: bit-equal, NaN by position): "
+              f"{'ok' if bad == 0 else 'FAIL'}", flush=True)
+    first = K.masked_median_keys(line_v, line_m, 1)[0].reshape(1)
+    rstd0 = np.array([results["default"].iter_metrics[0, 2]], np.float32)
+    same = int(rstd0.view(np.int32)[0]) == int(
+        first.cpu().numpy().view(np.int32)[0])
+    print(f"check the default clean's first residual_std "
+          f"{float(rstd0[0])!r} against K9's plain version on K2's first "
+          f"d_std plane {float(first[0])!r}: "
+          f"{'bit-equal' if same else 'FAIL'}", flush=True)
+    ok9 &= same
     if not (ok1 and all(diag_ok.values()) and all(k10_ok.values())
-            and ok3[0] and ok3[1] and okc and ok8):
+            and ok3[0] and ok3[1] and okc and ok8 and ok9):
         fail("a kernel disagrees with its plain version")
 
     # ---- 5. times: kernel, plain version, library yardstick, bound ----
@@ -809,6 +969,10 @@ def main() -> int:
     b2q = bound(4 * (cells // 4 * B + C * B + B) + diag_io // 4,
                 diag_ops / 4)
     b6q = bound(4 * (cells // 4 * B + 2 * B) + diag_io // 4, diag_ops / 4)
+    # K9 on the telemetry's line: the values and the mask read once, one
+    # float out; five passes of a few integer ops an entry
+    n9 = line_v.numel()
+    b9 = bound(5 * n9 + 4, 5 * 8 * n9)
     entries = [
         ("weighted_marginals", "marginals.cu", "_marginals_kernel :633",
          "default", err1,
@@ -862,6 +1026,9 @@ def main() -> int:
          lambda: K.cell_diagnostics_dedisp_plain(
              *k10_in["shard_diagnostics_dedisp"]["whole cube"]), None, b6,
          5),
+        ("masked_median", "masked_median.cu", "masked_median_pallas :1882",
+         "default", err9, lambda: K.masked_median(line_v, line_m, 1),
+         lambda: K.masked_median_keys(line_v, line_m, 1), None, b9, 50),
     ]
     k10_shard_bound = {"shard_diagnostics_disp": b2q,
                        "shard_diagnostics_dedisp": b6q}
@@ -904,6 +1071,20 @@ def main() -> int:
             kernels[-1].update(sources=k8_sources, sequences=sequences,
                                parts=k8_parts)
             what += f" ({sequences} sequences of {', '.join(k8_parts)})"
+        if name == "masked_median":
+            # K9 along both axes of the plane, the sort route it replaced
+            # on the telemetry's line, and its launches on every route
+            d0 = cuda_ms(lambda: K.masked_median(d_std, mask, 0), reps, torch)
+            d1 = cuda_ms(lambda: K.masked_median(d_std, mask, 1), reps, torch)
+            sort_ms = cuda_ms(lambda: sort_route_median(line_v, line_m, 1),
+                              10, torch)
+            by_route = {r: c["masked_median"] for r, c in counts.items()}
+            kernels[-1].update(dim0_ms=d0, dim1_ms=d1, sort_route_ms=sort_ms,
+                               launches_by_route=by_route)
+            what += (f"; along dim 0 of the plane {d0:.4f} ms, dim 1 "
+                     f"{d1:.4f} ms; the sort route it replaced "
+                     f"{sort_ms:.4f} ms; launches by route "
+                     f"{json.dumps(by_route)}")
         lib = "null" if lms is None else f"{lms:.4f}"
         print(f"time {name}: {ms:.4f} ms, bound {bms:.4f} ms ({bby}), plain "
               f"{pms:.4f} ms, library {lib} ms, {what} on the {route} route "

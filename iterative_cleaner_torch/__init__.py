@@ -13,10 +13,13 @@ the tiles held in host memory for archives larger than the card, or
 online, each tile on its own; and the default route and the dedispersed
 frame over the ranks of a ``torch.distributed`` process group, each rank
 holding one (subint, channel) block on its own card
-(:func:`clean_archive_sharded`).  Every kernel those paths launch on the
-TPU has a hand-written CUDA counterpart in
-:mod:`iterative_cleaner_torch.stats.kernels`.  float64 and bf16 storage
-are not ported yet.
+(:func:`clean_archive_sharded`).  Its CLI runs the reference's session
+over archives: ``.npz`` and fold-mode PSRFITS in and out, the run report
+(``--metrics-json``), the Prometheus textfile, the JSON-lines event log
+and ``--timing``.  Every TPU kernel of the reference has a hand-written
+CUDA counterpart in :mod:`iterative_cleaner_torch.stats.kernels` (K9,
+the masked median, computes every iteration's residual-std telemetry).
+float64 and bf16 storage are not ported yet.
 
 Entry points run on the card (``CleanConfig.device`` defaults to
 ``"cuda"``); ``device="cpu"`` runs every kernel's plain PyTorch version
@@ -25,13 +28,17 @@ instead, which is how the CPU tests hold the port against the reference.
 Layout, host boundary first:
 
 - :mod:`~iterative_cleaner_torch.archive`, :mod:`~iterative_cleaner_torch.config`
-- :mod:`~iterative_cleaner_torch.io` — ``.npz`` load/save, synthetic archives
+- :mod:`~iterative_cleaner_torch.io` — ``.npz`` and PSRFITS load/save,
+  synthetic archives
 - :mod:`~iterative_cleaner_torch.ops` — dispersion, rotation, baselines
 - :mod:`~iterative_cleaner_torch.stats` — detection statistics and the kernels
 - :mod:`~iterative_cleaner_torch.engine` — the iteration loop
 - :mod:`~iterative_cleaner_torch.backends` — ``clean_archive``
 - :mod:`~iterative_cleaner_torch.parallel` — ``clean_streaming``,
   ``clean_archive_sharded``
+- :mod:`~iterative_cleaner_torch.telemetry`,
+  :mod:`~iterative_cleaner_torch.utils` — the CLI session's run report,
+  metrics, event log and ``clean.log``
 - :mod:`~iterative_cleaner_torch.cli` — ``python -m iterative_cleaner_torch``
 """
 

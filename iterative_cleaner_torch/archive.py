@@ -70,6 +70,19 @@ class Archive:
     def mjd_mid(self) -> float:
         return 0.5 * (self.mjd_start + self.mjd_end)
 
+    def pscrunch(self) -> None:
+        """Collapse to total intensity in place (PSRCHIVE's
+        ``pscrunch``); idempotent."""
+        if self.npol == 1:
+            self.pol_state = "Intensity"
+            return
+        if self.pol_state == "Coherence":
+            total = self.data[:, 0:1] + self.data[:, 1:2]
+        else:  # Stokes: I is the first component
+            total = self.data[:, 0:1]
+        self.data = np.ascontiguousarray(total)
+        self.pol_state = "Intensity"
+
     def total_intensity(self) -> np.ndarray:
         """The (nsub, nchan, nbin) total-intensity cube, without mutating."""
         if self.pol_state == "Coherence" and self.npol > 1:

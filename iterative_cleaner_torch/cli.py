@@ -1,42 +1,59 @@
-"""Command line of the port: the reference CLI's single-archive path.
+"""Command line of the port: the reference CLI's session over archives.
 
-``python -m iterative_cleaner_torch [-c] [-s] [-m] [-r] [-u] [-o]
-[--bad_chan] [--bad_subint] [--baseline_mode] [--stats_frame] [--device]
-[--stream N [--stream_mode exact|online] [--stream_hbm_mb MB]]
-[--mesh off|cell] obs.npz``
-cleans each archive, writes ``obs.npz_cleaned.npz`` (the input's data
-with the cleaned weights), with ``-u`` also the single-pol residual
-archive ``obs.npz_residual_<loops>.npz`` in the working directory, and
-appends the reference-format line to ``clean.log`` beside the output.
+``python -m iterative_cleaner_torch [-c] [-s] [-m] [-u] [-p] [-q] [-l]
+[-r] [-o] [--bad_chan] [--bad_subint] [--baseline_mode] [--stats_frame]
+[--device] [--stream N [--stream_mode exact|online] [--stream_hbm_mb MB]]
+[--mesh off|cell] [--metrics-json PATH] [--prom-textfile PATH]
+[--event-log PATH] [--log-format text|json] [--timing] [--keep_going]
+obs.sf ...``
+cleans each archive (``.npz``, or fold-mode PSRFITS: ``.sf``, ``.rf``,
+``.fits``, ``.psrfits`` and ``.ar`` files with the FITS magic), writes
+``obs.sf_cleaned.sf`` (the input's data with the cleaned weights; ``-p``
+pscrunched), with ``-u`` also the single-pol residual archive
+``obs.sf_residual_<loops>.sf`` in the working directory, and appends the
+reference-format line to ``clean.log`` beside the output (not with
+``-l``).  One session spans all the archives: ``--metrics-json`` writes
+the run report (counters, phase times, each archive's iteration history,
+whose ``residual_std`` kernel K9 computes), ``--prom-textfile`` the same
+metrics in Prometheus text, ``--log-format json`` (or ``--event-log
+PATH``) a JSON-lines event log (``clean.events.jsonl``), and ``--timing``
+one ``Timing:`` line of the load, clean and write seconds at the end.
+An archive that fails ends the session with its exception; with
+``--keep_going`` it is recorded, printed to stderr, the others are
+cleaned, and the exit code is 1.
 ``--stream N`` cleans in N-subint tiles (``parallel/streaming.py``).
 ``--mesh cell`` cleans each archive over the ranks of a
 ``torch.distributed`` job (``parallel/sharding.py``), started as
 ``torchrun --nproc_per_node N -m iterative_cleaner_torch --mesh cell
-obs.npz``: one rank per card (NCCL), or gloo ranks with ``--device
+obs.sf``: one rank per card (NCCL), or gloo ranks with ``--device
 cpu``; every rank reads the archive and keeps its block, and rank 0
-alone prints, writes the output and ``clean.log``.  The rest of the
-reference's flag surface is not ported yet (ROADMAP.md 'Modules still to
-port' item 2; the live ``--stream DIR`` session, item 5; ``--mesh
-batch``, item 3).
+alone prints, records the telemetry, writes the output and the logs.
+Not ported yet: ``-z``, ``--prefetch`` and ``--checkpoint`` (ROADMAP.md
+'Modules still to port' item 2), the live ``--stream DIR`` session (item
+5), ``--mesh batch`` (item 3).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
-import datetime
 import os
 import sys
 
 from iterative_cleaner_torch.config import MESH_MODES, CleanConfig, check_mesh
 from iterative_cleaner_torch.io import load_archive, save_archive
+from iterative_cleaner_torch.telemetry import RunTelemetry
+from iterative_cleaner_torch.utils.logging import append_clean_log
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m iterative_cleaner_torch",
         description="Iterative RFI cleaner (PyTorch/CUDA port)")
-    p.add_argument("archive", nargs="+", help="The chosen archives (.npz)")
+    p.add_argument("archive", nargs="+",
+                   help="The chosen archives (.npz, or PSRFITS: .sf, .rf, "
+                        ".fits, .psrfits, .ar)")
     p.add_argument("-c", "--chanthresh", type=float, default=5,
                    metavar="channel_threshold",
                    help="Sigma threshold for a profile to stand out "
@@ -50,6 +67,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Maximum number of cleaning iterations.")
     p.add_argument("-u", "--unload_res", action="store_true",
                    help="Also write the pulse-free residual archive.")
+    p.add_argument("-p", "--pscrunch", action="store_true",
+                   help="Pscrunch the output archive.")
+    p.add_argument("-q", "--quiet", action="store_true",
+                   help="Do not print cleaning information.")
+    p.add_argument("-l", "--no_log", action="store_true",
+                   help="Do not append to the cleaning log.")
     p.add_argument("-r", "--pulse_region", nargs=3, type=float,
                    default=[0, 0, 1],
                    metavar=("pulse_start", "pulse_end", "scaling_factor"),
@@ -109,6 +132,32 @@ def build_parser() -> argparse.ArgumentParser:
                         "on the CPU with --device cpu); uneven grids are "
                         "zero-weight padded and cropped back. 'batch' is "
                         "not ported yet.")
+    p.add_argument("--metrics-json", "--metrics_json", type=str, default="",
+                   dest="metrics_json", metavar="PATH",
+                   help="Write a JSON run report (counters, phase "
+                        "timings, per-archive iteration histories) to "
+                        "PATH at session end.")
+    p.add_argument("--prom-textfile", "--prom_textfile", type=str,
+                   default="", dest="prom_textfile", metavar="PATH",
+                   help="Write the run metrics in Prometheus text "
+                        "exposition format to PATH at session end "
+                        "(atomic write).")
+    p.add_argument("--log-format", "--log_format", choices=("text", "json"),
+                   default="text", dest="log_format",
+                   help="'json' also writes a JSON-lines run-event log "
+                        "(one event per archive, iteration and phase) to "
+                        "clean.events.jsonl; clean.log is unaffected.")
+    p.add_argument("--event-log", "--event_log", type=str, default="",
+                   dest="event_log", metavar="PATH",
+                   help="Path of the JSON-lines event log (writes it "
+                        "without --log-format json too).")
+    p.add_argument("--timing", action="store_true",
+                   help="Print the session's load/clean/write wall-clock "
+                        "at its end.")
+    p.add_argument("--keep_going", action="store_true",
+                   help="Report a failed archive and go on with the rest "
+                        "instead of ending the session (exit code 1 if "
+                        "any failed).")
     return p
 
 
@@ -138,14 +187,6 @@ def output_name(ar, args, in_path: str) -> str:
     return args.output
 
 
-def append_clean_log(ar_name, args, loops, log_path) -> None:
-    """The reference's clean.log line: timestamp, archive name, the
-    argument namespace and the loop count."""
-    with open(log_path, "a") as f:
-        f.write("\n %s: Cleaned %s with %s, required loops=%s"
-                % (datetime.datetime.now(), ar_name, args, loops))
-
-
 def config_of(args) -> CleanConfig:
     return CleanConfig(chanthresh=args.chanthresh,
                        subintthresh=args.subintthresh,
@@ -158,47 +199,57 @@ def config_of(args) -> CleanConfig:
                        stream_hbm_mb=args.stream_hbm_mb)
 
 
-def clean_one(in_path: str, args, mesh=None):
-    """Clean one archive and write its output; returns the output's name.
-    Under ``mesh`` (``--mesh cell``) every rank cleans its block and only
-    rank 0 reports and writes (the others return None)."""
+def clean_one(in_path: str, args, telemetry: RunTelemetry, mesh=None):
+    """Load, clean and write one archive, its phases timed into the
+    session's registry and its result recorded in ``telemetry``; returns
+    the output's name.  Under ``mesh`` (``--mesh cell``) every rank
+    cleans its block and only rank 0 reports, writes and records (the
+    others return None)."""
     from iterative_cleaner_torch.backends import (
         clean_archive,
         clean_archive_sharded,
     )
     from iterative_cleaner_torch.parallel import clean_streaming
 
-    ar = load_archive(in_path)
+    timer = telemetry.registry.timer
+    say = (mesh is None or mesh.rank == 0) and not args.quiet
+    with timer.phase("load"):
+        ar = load_archive(in_path)
     cfg = config_of(args)
-    if mesh is None or mesh.rank == 0:
+    if say:
         print("Total number of profiles: %s" % ar.weights.size)
     chunk = stream_chunk(args.stream)
-    if mesh is not None:
-        result = clean_archive_sharded(ar, cfg, mesh)
-        if result is None:
-            return None
-    elif chunk > 0:
-        result = clean_streaming(ar, chunk, cfg, mode=args.stream_mode)
-    else:
-        result = clean_archive(ar, cfg)
-    if result.loop_diffs is not None:   # the online mode has none
-        for i, (d, f) in enumerate(zip(result.loop_diffs,
-                                       result.loop_rfi_frac), start=1):
-            print("Loop: %s" % i)
-            print("Differences to previous weights: %s  RFI fraction: %s"
-                  % (int(d), float(f)))
-    if result.converged:
-        print("RFI removal stops after %s loops." % result.loops)
-    else:
-        print("Cleaning was interrupted after the maximum amount of loops "
-              "(%s)" % cfg.max_iter)
-    if result.n_bad_subints + result.n_bad_channels:
-        print("Removed %s bad subintegrations and %s bad channels."
-              % (result.n_bad_subints, result.n_bad_channels))
+    with timer.phase("clean"):
+        if mesh is not None:
+            result = clean_archive_sharded(ar, cfg, mesh)
+        elif chunk > 0:
+            result = clean_streaming(ar, chunk, cfg, mode=args.stream_mode)
+        else:
+            result = clean_archive(ar, cfg)
+    if result is None:
+        return None
+    if say:
+        if result.loop_diffs is not None:   # the online mode has none
+            for i, (d, f) in enumerate(zip(result.loop_diffs,
+                                           result.loop_rfi_frac), start=1):
+                print("Loop: %s" % i)
+                print("Differences to previous weights: %s  RFI fraction: "
+                      "%s" % (int(d), float(f)))
+        if result.converged:
+            print("RFI removal stops after %s loops." % result.loops)
+        else:
+            print("Cleaning was interrupted after the maximum amount of "
+                  "loops (%s)" % cfg.max_iter)
+        if result.n_bad_subints + result.n_bad_channels:
+            print("Removed %s bad subintegrations and %s bad channels."
+                  % (result.n_bad_subints, result.n_bad_channels))
     out = dataclasses.replace(
         ar, weights=result.final_weights.astype(ar.weights.dtype))
+    if args.pscrunch:
+        out.pscrunch()
     o_name = output_name(ar, args, in_path)
-    save_archive(out, o_name)
+    with timer.phase("write"):
+        save_archive(out, o_name)
     ar_name = ar.display_name() or os.path.basename(in_path)
     if args.unload_res:
         # the residual is total intensity, so the archive is single-pol
@@ -207,11 +258,58 @@ def clean_one(in_path: str, args, mesh=None):
             pol_state="Intensity", filename="")
         save_archive(res_ar, "%s_residual_%s%s" % (
             ar_name, result.loops, os.path.splitext(o_name)[1]))
-    append_clean_log(ar_name, args, result.loops,
-                     os.path.join(os.path.dirname(o_name) or ".",
-                                  "clean.log"))
-    print("Cleaned archive: %s" % o_name)
+    if not args.no_log:
+        append_clean_log(ar_name, args, result.loops,
+                         os.path.join(os.path.dirname(o_name) or ".",
+                                      "clean.log"))
+    telemetry.record_archive(in_path, result)
+    if say:
+        print("Cleaned archive: %s" % o_name)
     return o_name
+
+
+@contextlib.contextmanager
+def run_session(args, lead: bool = True):
+    """One CLI session: yields its :class:`RunTelemetry` (``run_start``
+    emitted), and at its end, however it ends, writes the metric exports
+    and ``run_end`` and prints the one ``--timing`` report.  A rank other
+    than the ``lead`` (rank 0 of ``--mesh cell``) gets a telemetry with
+    nothing configured and prints nothing."""
+    telemetry = RunTelemetry.from_args(args) if lead else RunTelemetry()
+    if telemetry.events is not None:
+        telemetry.events.emit("run_start", n_archives=len(args.archive))
+    try:
+        yield telemetry
+    finally:
+        telemetry.finalize()
+        if args.timing and lead:
+            print(telemetry.registry.timer.report())
+
+
+def run_archives(args, mesh=None) -> int:
+    """Clean every archive of ``args`` in one session; 1 if any failed
+    under ``--keep_going``, else 0 (without it a failure raises)."""
+    lead = mesh is None or mesh.rank == 0
+    failed = []
+    with run_session(args, lead) as telemetry:
+        for path in args.archive:
+            try:
+                clean_one(path, args, telemetry, mesh)
+            except Exception as exc:  # per-archive isolation
+                if not args.keep_going:
+                    raise
+                failed.append(path)
+                telemetry.record_failure(path, exc)
+                if lead:
+                    print("ERROR cleaning %s: %s: %s"
+                          % (path, type(exc).__name__, exc), file=sys.stderr)
+    if failed:
+        if lead:
+            print("Failed %d/%d archives: %s"
+                  % (len(failed), len(args.archive), ", ".join(failed)),
+                  file=sys.stderr)
+        return 1
+    return 0
 
 
 def main(argv=None) -> int:
@@ -220,20 +318,15 @@ def main(argv=None) -> int:
     streaming = stream_chunk(args.stream) > 0
     check_mesh(args.mesh, config_of(args), streaming=streaming)
     if args.mesh == "off":
-        for path in args.archive:
-            clean_one(path, args)
-        return 0
+        return run_archives(args)
     from iterative_cleaner_torch.parallel import distributed
     from iterative_cleaner_torch.parallel.mesh import cell_mesh
 
     distributed.initialize(device=args.device)
     try:
-        mesh = cell_mesh()
-        for path in args.archive:
-            clean_one(path, args, mesh)
+        return run_archives(args, cell_mesh())
     finally:
         distributed.shutdown()
-    return 0
 
 
 if __name__ == "__main__":

@@ -18,6 +18,8 @@
   - ``dedispersed`` (``stats_frame='dedispersed'``): the template einsum
     (+ correction) -> K6 -> K3 x 2 -> combine, the port's K5.
 
+- Every route's iteration also takes the residual-std telemetry value,
+  the masked median of the unmasked cells' ``d_std`` (kernel K9).
 - Convergence is cycle detection against every earlier weight matrix,
   held in a ``(max_iter+1)``-deep history seeded with the original
   weights.  That flag is the loop's only host synchronisation; the
@@ -71,19 +73,21 @@ from iterative_cleaner_torch.stats.kernels import (
     cell_diagnostics_disp,
     cell_diagnostics_two_read,
     combine_zap,
+    masked_median,
     scaled_sides,
     shard_diagnostics_dedisp,
     shard_diagnostics_disp,
     weighted_marginals,
 )
-from iterative_cleaner_torch.stats.masked_torch import masked_median
 
 # columns of CleanOutputs.iter_metrics
 ITER_METRICS_WIDTH = 4  # zap_count, mask_churn, residual_std, template_peak
 
 # The routes, and the kernels (launch-count names of stats.kernels) each
-# launches every iteration; a route launches none of the others.
-_SHARED_KERNELS = ("scaled_sides_axis0", "scaled_sides_axis1", "combine_zap")
+# launches every iteration; a route launches none of the others.  K9
+# (masked_median) is the residual-std telemetry's median.
+_SHARED_KERNELS = ("scaled_sides_axis0", "scaled_sides_axis1", "combine_zap",
+                   "masked_median")
 ROUTE_KERNELS = {
     "default": ("weighted_marginals", "cell_diagnostics_disp")
     + _SHARED_KERNELS,
@@ -95,13 +99,33 @@ ROUTE_KERNELS = {
 STREAM_KERNELS = {route: kernels + ("fused_combine",)
                   for route, kernels in ROUTE_KERNELS.items()}
 # The cell-sharded clean launches per iteration and rank K1 (default
-# route), K10 and the combine kernel; its scalers are tree-reduced
-# selects of torch ops, not K3.
+# route), K10 and the combine kernel; its scalers and its telemetry
+# median are tree-reduced selects of torch ops, not K3 and K9.
 SHARD_KERNELS = {
     "default": ("weighted_marginals", "shard_diagnostics_disp",
                 "combine_zap"),
     "dedispersed": ("shard_diagnostics_dedisp", "combine_zap"),
 }
+
+
+def iter_quality_series(iter_metrics, n_cells: int) -> dict:
+    """The quality view of one run's ``iter_metrics``: named host-side
+    series, the zap count normalised to the archive's ``n_cells``.
+    Returns ``{"zap_frac": [...], "mask_churn": [...], "residual_std":
+    [...], "template_peak": [...]}``, one entry per iteration run (read
+    by ``telemetry.quality.observe_result``; kept beside the loop that
+    fills the columns, so their order has one authority)."""
+    im = np.asarray(iter_metrics, dtype=np.float64)
+    if im.ndim != 2 or im.shape[1] != ITER_METRICS_WIDTH:
+        raise ValueError(f"iter_metrics must be (loops, "
+                         f"{ITER_METRICS_WIDTH}), got {im.shape}")
+    cells = float(max(int(n_cells), 1))
+    return {
+        "zap_frac": [float(v) / cells for v in im[:, 0]],
+        "mask_churn": [float(v) for v in im[:, 1]],
+        "residual_std": [float(v) for v in im[:, 2]],
+        "template_peak": [float(v) for v in im[:, 3]],
+    }
 
 
 def disp_iteration_enabled(baseline_mode: str, stats_frame: str,
@@ -410,9 +434,9 @@ def _sharded_sweep(prep: Prepared, template, orig_weights, cell_mask, mesh,
 
 def residual_std(d_std, cell_mask, mesh=None):
     """The residual-std telemetry value: the median of the unmasked
-    cells' ``d_std`` (a device scalar); on a cell ``mesh`` over every
-    rank's cells, by the tree-reduced select (the same value as the sort
-    on the whole plane)."""
+    cells' ``d_std`` (a device scalar), kernel K9 over the plane as one
+    line; on a cell ``mesh`` over every rank's cells, by the tree-reduced
+    select (the same value as K9 on the whole plane)."""
     if mesh is None:
         return masked_median(d_std.reshape(1, -1), cell_mask.reshape(1, -1),
                              1)[0, 0]

@@ -39,6 +39,9 @@ import torch.distributed as dist
 
 # Seconds a collective waits for the other ranks before it raises.
 DEFAULT_TIMEOUT_S = 600.0
+# After a rank of run_local_ranks fails, how long the others may take to
+# exit before they are stopped and the failed ranks reported.
+FAILURE_GRACE_S = 5.0
 
 _OPS = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN,
         "max": dist.ReduceOp.MAX}
@@ -215,6 +218,15 @@ def run_local_ranks(target, world_size: int, args=(), *, workdir: str,
             codes = [p.exitcode for p in procs]
             failed = [(r, c) for r, c in enumerate(codes) if c not in (None, 0)]
             if failed:
+                # a rank's death fails the peers waiting on it, and a peer
+                # can exit first: wait a moment for the others, so the
+                # report names every rank that failed
+                grace = time.monotonic() + FAILURE_GRACE_S
+                while any(p.exitcode is None for p in procs) \
+                        and time.monotonic() < grace:
+                    time.sleep(0.05)
+                failed = [(r, p.exitcode) for r, p in enumerate(procs)
+                          if p.exitcode not in (None, 0)]
                 raise RuntimeError(f"rank processes failed (rank, exit "
                                    f"code): {failed}")
             if all(c == 0 for c in codes):

@@ -14,8 +14,9 @@ CUDA set-up, the second is warm).  Then it times the phases of
 the upload, the preamble, the first iteration, steady iterations (CUDA
 events), and the download, all warm.  Then it traces
 ``--reps`` steady iterations with ``torch.profiler`` and prints the
-device time per iteration of every kernel, and the device's busy share
-of the iteration's wall time.
+device time per iteration of every kernel (K9, the residual-std
+telemetry's median, as its ``icln_mm_*`` launches), and the device's
+busy share of the iteration's wall time.
 
 With ``--stream N`` it profiles exact streaming in N-subint tiles
 instead (``clean_streaming``, budget ``--stream_hbm_mb``, default the

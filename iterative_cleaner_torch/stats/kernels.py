@@ -28,6 +28,9 @@ K7     :func:`cell_diagnostics_two_read`  ``cell_diagnostics_pallas``
        (csrc/cell_stats.cu)               (``_cell_stats_kernel``)
 K8     :func:`fused_combine`: K3 x 2 +    ``fused_combine_pallas``
        :func:`combine_zap`                (exact streaming's combine)
+K9     :func:`masked_median`              ``masked_median_pallas``
+       (csrc/masked_median.cu)            (``_median_axis0``, body
+                                          ``_median_kernel``)
 K10    :func:`shard_diagnostics_disp`,    ``sweep_shard_diags_disp``,
        :func:`shard_diagnostics_dedisp`   ``sweep_shard_diags_dedisp``
        (csrc/shard_stats.cu)              (the cell-sharded clean's shard)
@@ -78,7 +81,7 @@ _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = _PKG_DIR / "_build"
 SOURCES = ("marginals.cu", "cell_stats.cu", "shard_stats.cu",
-           "scaled_sides.cu", "combine.cu")
+           "scaled_sides.cu", "combine.cu", "masked_median.cu")
 # -fmad=false: no contraction of a*b+c, so the kernels round as the
 # reference does; no fast-math; sm_90a (Hopper).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -161,6 +164,7 @@ _SIGNATURES = {
     "icln_shard_stats_dedisp": [_P] * 12 + [_LL] + [_I] * 6 + [_LL, _F, _P],
     "icln_scaled_sides": [_P] * 9 + [_I, _I, _LL, _LL, _F, _I, _LL, _P],
     "icln_combine_zap": [_P] * 11 + [_LL, _P],
+    "icln_masked_median": [_P] * 4 + [_I, _I, _LL, _LL, _I, _I, _P],
 }
 
 
@@ -595,6 +599,66 @@ def masked_median_keys(values, mask, dim):
     return torch.where(n == 0, torch.zeros_like(med), med), n
 
 
+# --------------------------------------------------------------------------
+# K9: the masked median along one axis
+# --------------------------------------------------------------------------
+
+# Entries of a line one block of K9 takes: the residual-std telemetry's
+# line of 4,194,304 cells spreads over 1024 blocks.
+MEDIAN_BLOCK_ENTRIES = 4096
+
+
+def masked_median_geometry(n: int):
+    """(entries per block, blocks per line) of K9's launch on lines of
+    ``n`` entries: as few blocks as hold MEDIAN_BLOCK_ENTRIES each, the
+    entries shared out evenly."""
+    bpl = max(1, -(-n // MEDIAN_BLOCK_ENTRIES))
+    return -(-n // bpl), bpl
+
+
+def masked_median(values, mask, dim):
+    """``np.ma.median`` of the float32 ``values`` along ``dim`` (0 or
+    1, keepdims) over the entries whose bool ``mask`` is False; 0.0 on a
+    line with no valid entry.  Kernel K9 on the card,
+    ``masked_median_keys(values, mask, dim)[0]`` on the CPU; bit-equal to
+    the reference's ``masked_median_pallas``."""
+    if values.dtype != torch.float32:
+        raise TypeError(f"masked_median requires float32, got {values.dtype}")
+    if dim not in (0, 1):
+        raise ValueError("dim must be 0 or 1 for 2-D values")
+    if values.dim() != 2:
+        raise ValueError(f"values must be 2-D, got {tuple(values.shape)}")
+    if not _on_card(values, mask):
+        return masked_median_keys(values, mask, dim)[0]
+    nrow, ncol = values.shape
+    _require(values, "values", torch.float32, (nrow, ncol))
+    _require(mask, "mask", torch.bool, (nrow, ncol))
+    if dim == 0:
+        n, nlines, line_stride, elem_stride = nrow, ncol, 1, ncol
+        out = torch.empty((1, ncol), dtype=torch.float32, device=values.device)
+    else:
+        n, nlines, line_stride, elem_stride = ncol, nrow, ncol, 1
+        out = torch.empty((nrow, 1), dtype=torch.float32, device=values.device)
+    if n == 0 or nlines == 0:
+        raise ValueError(f"masked_median of an empty line set "
+                         f"{tuple(values.shape)} along dim {dim}")
+    chunk, bpl = masked_median_geometry(n)
+    # 256 histogram bins and five per-line states (see masked_median.cu)
+    scratch = torch.empty((nlines * 261,), dtype=torch.int32,
+                          device=values.device)
+    lib = load_library()
+    with torch.cuda.device(values.device):
+        rc = lib.icln_masked_median(
+            _ptr(values), _ptr(mask), _ptr(out), _ptr(scratch), n, nlines,
+            line_stride, elem_stride, chunk, bpl, _stream(values))
+    masked_median.launches += 1
+    _check_rc(rc, "masked_median")
+    return out
+
+
+masked_median.launches = 0
+
+
 def scaled_sides_plain(diagnostics, cell_mask, axis, thresh):
     """The plain version of K3 (the reference's ``_scaled_sides_body``
     along ``axis``): masked median -> centring -> MAD -> ``_masked_side``
@@ -752,6 +816,7 @@ def reset_launch_counts() -> None:
     scaled_sides.launches = [0, 0]
     combine_zap.launches = 0
     fused_combine.launches = 0
+    masked_median.launches = 0
 
 
 def launch_counts() -> dict:
@@ -766,4 +831,5 @@ def launch_counts() -> dict:
         "scaled_sides_axis1": scaled_sides.launches[1],
         "combine_zap": combine_zap.launches,
         "fused_combine": fused_combine.launches,
+        "masked_median": masked_median.launches,
     }

@@ -18,11 +18,13 @@ with its behaviour made explicit (rules pinned by the reference package's
 Masks are cell-uniform across pulse bins (they come from the (nsub,
 nchan) weights), so the bin-axis reductions are mask-free and patched.
 
-These are the sort-route functions: :func:`masked_median` serves the
-engine's residual-std telemetry, :func:`cell_diagnostics` is the body of
-kernel K2's plain version, :func:`_masked_side`/:func:`_patch_nan_lines`
-are the epilogues kernel K3 reproduces, and :func:`scale_and_combine` is
-the reference's sort-route combine that the kernel route is held against.
+These are the sort-route functions: :func:`masked_median` is the
+composition's median (the engine's residual-std telemetry takes kernel
+K9, ``stats.kernels.masked_median``), :func:`cell_diagnostics` is the
+body of kernel K2's plain version, :func:`_masked_side` and
+:func:`_patch_nan_lines` are the epilogues kernel K3 reproduces, and
+:func:`scale_and_combine` is the reference's sort-route combine that the
+kernel route is held against.
 """
 
 from __future__ import annotations

@@ -14,7 +14,10 @@ equal to the CPU run's.  Exact streaming on every route: masks equal to
 the whole clean on the card, budget 0 and the default budget (every
 tile pinned) bit-equal.  K10 bit-equal to K2 and K6 on the same cells,
 its rows 16-byte aligned or not; the cell-sharded clean on one rank under
-NCCL bit-equal to the whole clean.
+NCCL bit-equal to the whole clean.  K9 bit-equal to its plain version
+(NaN by position) on the residual-std telemetry's line of 4,194,304
+cells, along both axes of a 1024 x 4096 plane and on hand-made edge
+lines.
 """
 
 import numpy as np
@@ -41,6 +44,7 @@ from iterative_cleaner_torch.ops.dsp import (
 from iterative_cleaner_torch.parallel import distributed
 from iterative_cleaner_torch.parallel.mesh import cell_mesh
 from iterative_cleaner_torch.stats import kernels as tk
+from tests.torch_median_edges import median_edge_lines
 
 pytestmark = pytest.mark.cuda
 
@@ -161,7 +165,8 @@ def test_routes_on_card_match_cpu(card, name):
     diag = ("cell_diagnostics_dedisp" if name == "dedispersed"
             else "cell_diagnostics_two_read")
     for k, v in counts.items():
-        ran = k == diag or k.startswith(("scaled_sides", "combine"))
+        ran = k == diag or k.startswith(("scaled_sides", "combine")) \
+            or k == "masked_median"
         assert v == (on_card.loops if ran else 0), counts
     np.testing.assert_array_equal(on_card.final_weights, on_cpu.final_weights)
     assert (on_card.loops, on_card.converged) == (on_cpu.loops,
@@ -300,3 +305,42 @@ def test_sharded_clean_one_rank_nccl_on_card(card, frame, tmp_path):
                               torch.from_numpy(getattr(want, field))) == 0
     np.testing.assert_array_equal(got.loop_diffs, want.loop_diffs)
     np.testing.assert_array_equal(got.iter_metrics, want.iter_metrics)
+
+
+def _median_plane(shape, seed):
+    """A d_std-like plane (positive, duplicated values) with a mask of
+    about one cell in ten and a fully masked column and row."""
+    rng = np.random.default_rng(seed)
+    v = rng.gamma(2.0, 1.5, shape).astype(np.float32)
+    v = np.where(rng.random(shape) < 0.2, np.round(v), v)
+    m = rng.random(shape) < 0.1
+    m[:, 0] = True
+    m[0, :] = True
+    return torch.from_numpy(v), torch.from_numpy(m)
+
+
+@pytest.mark.parametrize("case", ["line", "dim0", "dim1", "edge0", "edge1"])
+def test_k9_masked_median_bit_equal_on_card(card, case):
+    if case.startswith("edge"):
+        v, m = median_edge_lines()
+    else:
+        v, m = _median_plane((1024, 4096), seed=3)
+    if case == "line":
+        v, m = v.reshape(1, -1), m.reshape(1, -1)
+    dim = 0 if case in ("dim0", "edge0") else 1
+    v, m = v.to(card), m.to(card)
+    before = tk.masked_median.launches
+    got = tk.masked_median(v, m, dim)
+    torch.cuda.synchronize()
+    assert tk.masked_median.launches == before + 1
+    want, _ = tk.masked_median_keys(v, m, dim)
+    assert got.shape == want.shape
+    assert _bits_mismatch(got, want) == 0
+
+
+def test_k9_masked_median_refuses_on_card(card):
+    v, m = median_edge_lines()
+    with pytest.raises(TypeError, match="float32"):
+        tk.masked_median(v.double().to(card), m.to(card), 1)
+    with pytest.raises(ValueError, match="dim"):
+        tk.masked_median(v.to(card), m.to(card), 2)

@@ -1,7 +1,9 @@
 """The port stands alone: importing it and running its main path (the
-whole clean, both streaming modes and the cell-sharded clean on one
-rank) never loads ``jax`` or the reference package, and no source of the
-port (``parallel/*`` included) or ``chip_smoke.py`` imports either."""
+whole clean, both streaming modes, the cell-sharded clean on one rank,
+and the CLI session on a PSRFITS archive with its run report, Prometheus
+file and event log) never loads ``jax`` or the reference package, and no
+source of the port (``parallel/*``, ``telemetry/*``, ``utils/*`` and
+``io/psrfits.py`` included) or ``chip_smoke.py`` imports either."""
 
 import ast
 import os
@@ -68,6 +70,21 @@ try:
                                  cell_mesh()).loops >= 1
 finally:
     distributed.shutdown()
+import os, tempfile
+import iterative_cleaner_torch.telemetry.events
+import iterative_cleaner_torch.telemetry.exporters
+import iterative_cleaner_torch.telemetry.quality
+import iterative_cleaner_torch.telemetry.registry
+import iterative_cleaner_torch.telemetry.run
+import iterative_cleaner_torch.utils.logging
+from iterative_cleaner_torch.io import psrfits, save_archive
+os.chdir(tempfile.mkdtemp())
+save_archive(ar, "obs.sf")
+assert psrfits.is_fits("obs.sf")
+assert iterative_cleaner_torch.cli.main([
+    "--device", "cpu", "-q", "--metrics-json", "r.json", "--prom-textfile",
+    "r.prom", "--log-format", "json", "--timing", "obs.sf"]) == 0
+assert os.path.exists("obs.sf_cleaned.sf") and os.path.exists("r.json")
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "iterative_cleaner_tpu"))
 print("LOADED", bad)

@@ -9,6 +9,10 @@ Tolerances, and why:
   exact.
 - K3 scaled sides and the combine: bit-equal, NaN included (the same
   exact selects and the same float op sequence).
+- K9 masked median: bit-equal to ``masked_median_pallas``, NaN lines by
+  position (the same exact order statistics of the same keys, and the
+  same ``0.5 * (lo + hi)``); equal in value to the reference's sort
+  route, whose stable sort ties -0 with +0 where the keys order them.
 - The composite sweeps (K4, K5): masks equal, scores rtol 1e-4 with a
   1e-4 floor (scores are in threshold units; near-median cells lose
   relative precision to cancellation).
@@ -20,6 +24,7 @@ import torch
 
 import jax.numpy as jnp
 
+from iterative_cleaner_tpu.stats import masked_jax
 from iterative_cleaner_tpu.stats import pallas_kernels as pk
 from iterative_cleaner_torch.engine.loop import (
     dispersed_residual_base,
@@ -29,6 +34,7 @@ from iterative_cleaner_torch.engine.loop import (
 from iterative_cleaner_torch.ops.dsp import rotate_bins
 from iterative_cleaner_torch.stats import kernels as tk
 from iterative_cleaner_torch.stats.masked_torch import scale_and_combine
+from tests.torch_median_edges import median_edge_lines
 
 
 def _bits_equal(got, want):
@@ -302,3 +308,67 @@ def test_wrappers_raise_on_cuda_without_a_card():
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
+
+
+def _median_edge_lines():
+    """The hand-made edge lines chip_smoke.py holds K9 to on the card, as
+    numpy arrays."""
+    v, m = median_edge_lines()
+    return v.numpy(), m.numpy()
+
+
+def _median_cases():
+    """(values, mask, dim) of the K9 tests: the edge lines along both
+    axes, random planes with masked and duplicated entries, and one long
+    line (the residual-std telemetry's shape)."""
+    v, m = _median_edge_lines()
+    rng = np.random.default_rng(9)
+    r = rng.standard_normal((33, 47)).astype(np.float32)
+    r[:, ::5] = np.round(r[:, ::5])    # duplicates
+    rm = rng.random(r.shape) < 0.3
+    rm[:, 3] = True
+    rm[4, :] = True
+    line = rng.gamma(2.0, 1.5, (1, 65536)).astype(np.float32)
+    line[0, ::7] = np.round(line[0, ::7], 1)
+    lm = rng.random(line.shape) < 0.2
+    return {"edge-dim1": (v, m, 1), "edge-dim0": (v.T.copy(), m.T.copy(), 0),
+            "random-dim0": (r, rm, 0), "random-dim1": (r, rm, 1),
+            "line-65536": (line, lm, 1)}
+
+
+MEDIAN_CASES = _median_cases()
+
+
+@pytest.mark.parametrize("case", sorted(MEDIAN_CASES))
+def test_k9_masked_median_bit_equal(case):
+    """K9's plain version against ``masked_median_pallas`` (interpret
+    mode), bit for bit, and the reference's sort route, by value (the
+    signs of a zero median may differ)."""
+    v, m, dim = MEDIAN_CASES[case]
+    got = tk.masked_median(_t(v), _t(m), dim).numpy()
+    want = pk.masked_median_pallas(jnp.asarray(v), jnp.asarray(m), dim)
+    _bits_equal(got, want)
+    np.testing.assert_array_equal(got, np.asarray(masked_jax.masked_median(
+        jnp.asarray(v), jnp.asarray(m), dim, impl="sort")))
+    assert got.shape == ((1, v.shape[1]) if dim == 0 else (v.shape[0], 1))
+
+
+def test_k9_masked_median_edge_values():
+    """The edge lines' medians, written out."""
+    v, m = _median_edge_lines()
+    got = tk.masked_median(_t(v), _t(m), 1).numpy()[:, 0]
+    _bits_equal(got, np.array([4, 2, 4, 0, 2, 0, 7, np.inf], np.float32))
+
+
+def test_k9_masked_median_refuses_what_the_kernel_does_not_take():
+    v, m = _median_edge_lines()
+    with pytest.raises(TypeError, match="float32"):
+        tk.masked_median(_t(v.astype(np.float64)), _t(m), 0)
+    with pytest.raises(ValueError, match="dim"):
+        tk.masked_median(_t(v), _t(m), 2)
+    fake = type("FakeCudaTensor", (), {"device": torch.device("cuda"),
+                                       "dtype": torch.float32,
+                                       "dim": lambda self: 2})()
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            tk.masked_median(fake, fake, 1)
