@@ -40,7 +40,14 @@ telemetry value against K9's plain version on K2's first plane); runs
 the CLI session a user runs on the same archive written as PSRFITS
 (``--metrics-json --prom-textfile --log-format json --timing``) and
 holds its output mask, run report, Prometheus file and event log to
-the in-process clean; times each kernel, its plain version and the
+the in-process clean; cleans a 16 x 32 x 8192 archive (long profiles:
+the DFT tables streamed in chunks) on the default, profile-baseline and
+dedispersed routes with each mask held to the port's CPU clean and each
+kernel to its plain version there; holds K3 and K8 bit for bit to their
+plain versions on scaler lines of 50,000 entries (longer than a block
+holds: K9 and the two tail kernels of ``sides_tail.cu`` in place of K3)
+and streams a 48,000 x 4 x 32 archive exactly at budget 0, its mask
+held to the whole clean's; times each kernel, its plain version and the
 library yardstick beside the least time the card could take, and each
 route's iteration; prints one JSON line with the kernels and, last,
 ``{"ok": true, "device": ...}``.
@@ -418,6 +425,289 @@ def contract(route, base, other) -> None:
         fail(f"route {route}: mask outside its contract with the default")
 
 
+def route_inputs(ar, cube32, configs, dev):
+    """The first iteration's kernel inputs of each configuration's route
+    on ``ar`` (``cube32`` its float32 total intensity): the prepared
+    cubes, templates, rotated template rows and Nyquist rows that K1, K2,
+    K6 and K7 take on the card."""
+    import torch
+
+    from iterative_cleaner_torch.engine.loop import (
+        build_template,
+        nyq_correction_row,
+        prepare,
+    )
+    from iterative_cleaner_torch.ops.dsp import rotate_bins
+
+    f32 = torch.float32
+    nchan, nbin = cube32.shape[1:]
+    weights = torch.from_numpy(
+        np.ascontiguousarray(ar.weights, dtype=np.float32)).to(dev)
+    meta = [torch.from_numpy(np.ascontiguousarray(ar.freqs_mhz,
+                                                  dtype=np.float32)).to(dev)]
+    meta += [torch.tensor(v, dtype=f32, device=dev)
+             for v in (ar.dm, ar.centre_freq_mhz, ar.period_s)]
+    cfg = configs["default"]
+    preps = {r: prepare(torch.from_numpy(cube32).to(dev), weights, *meta, c,
+                        dedispersed=ar.dedispersed)
+             for r, c in configs.items()}
+    templates = {r: build_template(p, weights, rotation=cfg.rotation,
+                                   baseline_duty=cfg.baseline_duty)
+                 for r, p in preps.items()}
+
+    def rotated_template(route):
+        """The (nchan, nbin) rotated template rows of K2 and K7: the
+        template times the pulse window, rotated to each channel."""
+        p, t = preps[route], templates[route]
+        t = t if p.window is None else t * p.window
+        return rotate_bins(t.expand(nchan, nbin), p.back_shifts,
+                           method=cfg.rotation).contiguous()
+
+    out = {"weights": weights, "mask": weights == 0, "preps": preps,
+           "disp": preps["default"].disp_base,
+           "template": templates["default"],
+           "rot_t": rotated_template("default"),
+           "nyq": nyq_correction_row(preps["default"].back_shifts, nbin,
+                                     cfg.rotation, f32),
+           "pd": preps["dedispersed"], "t_d": templates["dedispersed"]}
+    for key, route in (("p", "profile"), ("w", "pulse_unload")):
+        out[key] = preps[route]
+        out["t_" + key] = templates[route]
+        out["rot_t_" + key] = rotated_template(route)
+    return out
+
+
+def check_k1(disp, weights, what):
+    """K1 against its plain version, within K1_RTOL of sum|w*disp|."""
+    from iterative_cleaner_torch.ops.dsp import weighted_marginal_totals
+    from iterative_cleaner_torch.stats import kernels as K
+
+    a, t1 = K.weighted_marginals(disp, weights)
+    pa, pt1 = weighted_marginal_totals(disp, weights)
+    sa, st1 = weighted_marginal_totals(disp.abs(), weights.abs())
+    err = max(float((a - pa).abs().max()), float((t1 - pt1).abs().max()))
+    ok = bool(((a - pa).abs() <= K1_RTOL * sa).all()
+              and ((t1 - pt1).abs() <= K1_RTOL * st1).all())
+    print(f"check K1 weighted_marginals{what}: max abs {err:.3e}, tolerance "
+          f"{K1_RTOL:g} * sum|w*disp|: {'ok' if ok else 'FAIL'}", flush=True)
+    return err, ok
+
+
+def diag_calls_for(ri):
+    """(kernel, plain version) pairs of K2, K7 (without and with the
+    pulse window: its fit takes the unwindowed template, its residual the
+    windowed one) and K6 on ``route_inputs``' tensors."""
+    from iterative_cleaner_torch.stats import kernels as K
+
+    disp, rot_t, nyq, template, weights, mask = (
+        ri[k] for k in ("disp", "rot_t", "nyq", "template", "weights",
+                        "mask"))
+    pp, t_p, rot_t_p = ri["p"], ri["t_p"], ri["rot_t_p"]
+    pw, t_w, rot_t_w = ri["w"], ri["t_w"], ri["rot_t_w"]
+    pd, t_d = ri["pd"], ri["t_d"]
+    return {
+        "cell_diagnostics_disp": [(
+            lambda: K.cell_diagnostics_disp(disp, rot_t, nyq, template,
+                                            weights, mask),
+            lambda: K.cell_diagnostics_disp_plain(disp, rot_t, nyq, template,
+                                                  weights, mask))],
+        "cell_diagnostics_two_read": [(
+            lambda: K.cell_diagnostics_two_read(pp.ded, pp.disp_base,
+                                                rot_t_p, t_p, weights, mask),
+            lambda: K.cell_diagnostics_two_read_plain(
+                pp.ded, pp.disp_base, rot_t_p, t_p, weights, mask)), (
+            lambda: K.cell_diagnostics_two_read(pw.ded, pw.disp_base,
+                                                rot_t_w, t_w, weights, mask),
+            lambda: K.cell_diagnostics_two_read_plain(
+                pw.ded, pw.disp_base, rot_t_w, t_w, weights, mask))],
+        "cell_diagnostics_dedisp": [(
+            lambda: K.cell_diagnostics_dedisp(pd.ded, t_d, pd.window,
+                                              weights, mask),
+            lambda: K.cell_diagnostics_dedisp_plain(pd.ded, t_d, pd.window,
+                                                    weights, mask))],
+    }
+
+
+def check_diags(diag_calls, mask, what):
+    """Each cell-diagnostics kernel against its plain version (K2_RTOL of
+    each plane's scale, masked cells exact).  Returns the errors, the
+    verdicts and K2's planes."""
+    import torch
+
+    diag_err, diag_ok, diags = {}, {}, None
+    for name, pairs in diag_calls.items():
+        diag_err[name], diag_ok[name] = 0.0, True
+        for n, (kfn, pfn) in enumerate(pairs):
+            got = kfn()
+            err, ok = diags_check(got, pfn(), mask, torch)
+            diag_err[name] = max(diag_err[name], err)
+            diag_ok[name] &= ok
+            if name == "cell_diagnostics_disp":
+                diags = got
+            window = " (pulse window)" if n else ""
+            print(f"check {name}{window}{what}: max abs {err:.3e}, tolerance "
+                  f"rtol {K2_RTOL:g} of each plane's scale, masked cells "
+                  f"exact: {'ok' if ok else 'FAIL'}", flush=True)
+    return diag_err, diag_ok, diags
+
+
+def long_phase(configs, dev, tag):
+    """Phase 3f: a 16 x 32 x 8192 archive cleaned on the card on the
+    default, profile-baseline and dedispersed routes, each route's kernels
+    launched, masks equal to the port's CPU clean; then K1 and the
+    cell-diagnostics kernels against their plain versions on its first
+    iteration's inputs."""
+    import torch
+
+    from iterative_cleaner_torch.backends import clean_archive
+    from iterative_cleaner_torch.engine.loop import ROUTE_KERNELS, select_route
+    from iterative_cleaner_torch.io.synthetic import make_synthetic_archive
+    from iterative_cleaner_torch.stats import kernels as K
+
+    ar, _ = make_synthetic_archive(nsub=16, nchan=32, nbin=8192,
+                                   n_prezapped=5, seed=8)
+    what = f" (nbin {ar.nbin})"
+    for route in ("default", "profile", "dedispersed"):
+        cfg = configs[route]
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        got = clean_archive(ar, cfg)
+        torch.cuda.synchronize()
+        card_ms = (time.perf_counter() - t0) * 1e3
+        got_counts = K.launch_counts()
+        want = clean_archive(ar, dataclasses.replace(cfg, device="cpu"))
+        own = ROUTE_KERNELS[select_route(cfg, ar.dedispersed)]
+        missing = [k for k in own if got_counts[k] < 1]
+        n_mask = int(((got.final_weights == 0)
+                      != (want.final_weights == 0)).sum())
+        print(f"long profiles{what}, route {route}: kernels "
+              f"{json.dumps(got_counts)}, {got.loops} loops (CPU "
+              f"{want.loops}), {card_ms:.1f} ms on the card; against the "
+              f"port's CPU clean {n_mask} mask cells differ (tolerance 0) "
+              f"{tag}", flush=True)
+        if missing or n_mask or got.loops != want.loops:
+            fail(f"long profiles, route {route}: kernels never launched "
+                 f"{missing}, or the mask or loops differ from the CPU clean")
+    cube32 = np.ascontiguousarray(ar.total_intensity(), dtype=np.float32)
+    ri = route_inputs(ar, cube32, configs, dev)
+    _, ok1 = check_k1(ri["disp"], ri["weights"], what)
+    _, diag_ok, _ = check_diags(diag_calls_for(ri), ri["mask"], what)
+    k10 = [getattr(K, name)(*args) for name, args in (
+        ("shard_diagnostics_disp", (ri["disp"], ri["rot_t"], ri["nyq"],
+                                    ri["template"], ri["weights"],
+                                    ri["mask"])),)]
+    twin = K.cell_diagnostics_disp(ri["disp"], ri["rot_t"], ri["nyq"],
+                                   ri["template"], ri["weights"], ri["mask"])
+    bits = sum(bits_mismatch(g, w, torch) for g, w in zip(k10[0], twin))
+    print(f"check K10 shard_diagnostics_disp{what}: {bits} cells differ in "
+          f"bits from cell_diagnostics_disp (tolerance: bit-equal)",
+          flush=True)
+    if not (ok1 and all(diag_ok.values()) and bits == 0):
+        fail("long profiles: a kernel disagrees with its plain version")
+
+
+def long_line_phase(dev, counts, clean_ms, tag):
+    """Phase 3g: K3 and K8 on 50,000-entry lines along both axes, bit-equal
+    to their plain versions; an exact stream at budget 0 of a 48,000 x 4
+    x 32 archive (its channel lines 48,000 long) against the whole clean;
+    the tail kernels timed on the stream's planes.  Returns the tail
+    kernels' entries for the kernels line."""
+    import torch
+
+    from iterative_cleaner_torch import CleanConfig, clean_streaming
+    from iterative_cleaner_torch.backends import clean_archive
+    from iterative_cleaner_torch.io.synthetic import make_synthetic_archive
+    from iterative_cleaner_torch.stats import kernels as K
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    ok = True
+    for axis in (0, 1):
+        shape = (50000, 4) if axis == 0 else (4, 50000)
+        d = [torch.randn(shape, generator=g, device=dev) * s
+             for s in (1.0, 0.3, 5.0, 2.0)]
+        mask = torch.rand(shape, generator=g, device=dev) < 0.2
+        d[0][mask] = 0.0
+        d[2][mask] = 1e20
+        d[3].view(-1)[[21, 40]] = float("nan")
+        d[3].view(-1)[22] = float("inf")
+        K.reset_launch_counts()
+        got = K.scaled_sides(d, mask, axis, 5.0)
+        used = K.launch_counts()
+        bad = sum(bits_mismatch(a, b, torch) for a, b in
+                  zip(got, K.scaled_sides_plain(d, mask, axis, 5.0)))
+        worig = (~mask).float()
+        fw, fs = K.fused_combine(d, mask, worig, 5.0, 4.0)
+        pw, ps = K.fused_combine_plain(d, mask, worig, 5.0, 4.0)
+        bad8 = bits_mismatch(fs, ps, torch) + bits_mismatch(fw, pw, torch)
+        print(f"check K3 scaled_sides axis {axis} on {shape} (lines of "
+              f"50,000): {bad} cells differ in bits, K8 fused_combine "
+              f"{bad8} (tolerance: bit-equal, NaN included); launches "
+              f"{json.dumps(used)}", flush=True)
+        ok &= bad == 0 and bad8 == 0 and used["side_centre"] == 4 \
+            and used[f"scaled_sides_axis{axis}"] == 0
+    if not ok:
+        fail("long lines: K3 or K8 disagrees with its plain version")
+
+    ar, _ = make_synthetic_archive(nsub=48000, nchan=4, nbin=32,
+                                   n_prezapped=50, seed=12)
+    whole = clean_archive(ar, CleanConfig())
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    r = clean_streaming(ar, 6000, CleanConfig(stream_hbm_mb=0))
+    torch.cuda.synchronize()
+    key = "stream (long lines)"
+    clean_ms[key] = (time.perf_counter() - t0) * 1e3
+    counts[key] = K.launch_counts()
+    n_mask = int(((r.final_weights == 0) != (whole.final_weights == 0)).sum())
+    print(f"{key}: exact, 8 tiles of 6000 subints of 48000 x 4 x 32, "
+          f"budget 0: kernels {json.dumps(counts[key])}, {r.loops} loops "
+          f"(whole {whole.loops}), {clean_ms[key]:.1f} ms; against the whole "
+          f"clean {n_mask} mask cells differ (tolerance 0) {tag}", flush=True)
+    if n_mask or r.loops != whole.loops or counts[key]["side_centre"] < 1 \
+            or counts[key]["scaled_sides_axis0"]:
+        fail(f"{key}: mask, loops or launches off")
+
+    # the tail kernels at the stream's shapes: one diagnostic plane of
+    # 48,000 x 4 along axis 0
+    plane = torch.from_numpy(np.ascontiguousarray(r.scores,
+                                                  dtype=np.float32)).to(dev)
+    pmask = torch.from_numpy(r.final_weights == 0).to(dev)
+    med = K.masked_median(plane, pmask, 0)
+    centred, absc, _ = K.side_centre(plane, pmask, med, 0, True)
+    mad = K.masked_median(absc, pmask, 0)
+    n = plane.numel()
+    entries = []
+    for name, kfn, pfn, nbytes in (
+            ("side_centre",
+             lambda: K.side_centre(plane, pmask, med, 0, True),
+             lambda: K.side_centre_plain(plane, pmask, med, 0, True), 13 * n),
+            ("side_scale",
+             lambda: K.side_scale(centred, pmask, mad, None, 0, 5.0, True),
+             lambda: K.side_scale_plain(centred, pmask, mad, None, 0, 5.0,
+                                        True), 9 * n)):
+        got, want = kfn(), pfn()
+        got = got if isinstance(got, torch.Tensor) else got[0]
+        want = want if isinstance(want, torch.Tensor) else want[0]
+        err = max_abs_diff(got, want, torch)
+        bad = bits_mismatch(got, want, torch)
+        if bad:
+            fail(f"{name}: {bad} cells differ from its plain version")
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "iterative_cleaner_torch/stats/csrc/sides_tail.cu",
+            "replaces": "iterative_cleaner_tpu/stats/pallas_kernels.py:433",
+            "launches": counts[key][name], "max_abs_err": err,
+            "ms": cuda_ms(kfn, 50, torch), "plain_ms": cuda_ms(pfn, 10, torch),
+            "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "library_ms": None, "launches_route": key})
+        print(f"time {name}: {entries[-1]['ms']:.4f} ms, bound "
+              f"{entries[-1]['bound_ms']:.4f} ms (bytes), plain "
+              f"{entries[-1]['plain_ms']:.4f} ms, {entries[-1]['launches']} "
+              f"launches in {key}; bit-equal to its plain version {tag}",
+              flush=True)
+    return entries
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
 
@@ -439,20 +729,14 @@ def main() -> int:
         ROUTE_KERNELS,
         SHARD_KERNELS,
         STREAM_KERNELS,
-        build_template,
         iteration_step,
-        nyq_correction_row,
-        prepare,
         select_route,
     )
     from iterative_cleaner_torch.io.synthetic import (
         FULLSIZE_SHAPE,
         make_fullsize_archive,
     )
-    from iterative_cleaner_torch.ops.dsp import (
-        rotate_bins,
-        weighted_marginal_totals,
-    )
+    from iterative_cleaner_torch.ops.dsp import weighted_marginal_totals
     from iterative_cleaner_torch.parallel import distributed
     from iterative_cleaner_torch.parallel.mesh import cell_mesh
     from iterative_cleaner_torch.parallel.tile_cache import DictRegistry
@@ -723,97 +1007,32 @@ def main() -> int:
     # counted like the default whole clean and held to it
     cli_phase(ar, whole, counts["default"], tag)
 
+    # ---- 3f. long profiles: an archive of 8192 bins (the DFT tables
+    # streamed in chunks, two cells a group) on the default,
+    # profile-baseline and dedispersed routes, masks held to the port's
+    # CPU clean, each kernel to its plain version
+    long_phase(configs, dev, tag)
+
+    # ---- 3g. scaler lines longer than a block holds: K3 and K8 on
+    # 50,000-entry lines (K9 and the tail kernels in place of K3), and an
+    # exact stream at budget 0 of an archive of 48,000 subints, its mask
+    # held to the whole clean's
+    tail_entries = long_line_phase(dev, counts, clean_ms, tag)
+
     # ---- 4. each kernel against its plain version, at its route's
     # shapes: the first iteration's inputs of the same archive ----
-    f32 = torch.float32
-    weights = torch.from_numpy(
-        np.ascontiguousarray(ar.weights, dtype=np.float32)).to(dev)
-    mask = weights == 0
-    meta = [torch.from_numpy(np.ascontiguousarray(ar.freqs_mhz,
-                                                  dtype=np.float32)).to(dev)]
-    meta += [torch.tensor(v, dtype=f32, device=dev)
-             for v in (ar.dm, ar.centre_freq_mhz, ar.period_s)]
     cfg = configs["default"]
     common = dict(chanthresh=cfg.chanthresh, subintthresh=cfg.subintthresh,
                   rotation=cfg.rotation, baseline_duty=cfg.baseline_duty)
-
-    preps = {r: prepare(torch.from_numpy(cube32).to(dev), weights, *meta, c,
-                        dedispersed=ar.dedispersed)
-             for r, c in configs.items()}
-    templates = {r: build_template(p, weights, rotation=cfg.rotation,
-                                   baseline_duty=cfg.baseline_duty)
-                 for r, p in preps.items()}
-
-    def rotated_template(route):
-        """The (nchan, nbin) rotated template rows of K2 and K7: the
-        template times the pulse window, rotated to each channel."""
-        p, t = preps[route], templates[route]
-        t = t if p.window is None else t * p.window
-        return rotate_bins(t.expand(NCHAN, NBIN), p.back_shifts,
-                           method=cfg.rotation).contiguous()
-
-    disp = preps["default"].disp_base
-    template = templates["default"]
-    rot_t = rotated_template("default")
-    nyq = nyq_correction_row(preps["default"].back_shifts, NBIN, cfg.rotation,
-                             f32)
-    pp, t_p, rot_t_p = preps["profile"], templates["profile"], \
-        rotated_template("profile")
-    pw, t_w, rot_t_w = preps["pulse_unload"], templates["pulse_unload"], \
-        rotated_template("pulse_unload")
-    pd = preps["dedispersed"]
-    t_d = templates["dedispersed"]
+    ri = route_inputs(ar, cube32, configs, dev)
+    weights, mask, preps = ri["weights"], ri["mask"], ri["preps"]
+    disp, template, rot_t, nyq = (ri[k] for k in ("disp", "template",
+                                                  "rot_t", "nyq"))
+    pd, t_d = ri["pd"], ri["t_d"]
     torch.cuda.synchronize()
-
-    # K1
-    a, t1 = K.weighted_marginals(disp, weights)
-    pa, pt1 = weighted_marginal_totals(disp, weights)
-    sa, st1 = weighted_marginal_totals(disp.abs(), weights.abs())
-    err1 = max(float((a - pa).abs().max()), float((t1 - pt1).abs().max()))
-    ok1 = bool(((a - pa).abs() <= K1_RTOL * sa).all()
-               and ((t1 - pt1).abs() <= K1_RTOL * st1).all())
-    print(f"check K1 weighted_marginals: max abs {err1:.3e}, tolerance "
-          f"{K1_RTOL:g} * sum|w*disp|: {'ok' if ok1 else 'FAIL'}")
-    del pa, pt1, sa, st1
-
-    # K2, K7 (without and with the pulse window: its fit takes the
-    # unwindowed template, its residual the windowed one), K6; timed below
-    # at the first input of each
-    diag_calls = {
-        "cell_diagnostics_disp": [(
-            lambda: K.cell_diagnostics_disp(disp, rot_t, nyq, template,
-                                            weights, mask),
-            lambda: K.cell_diagnostics_disp_plain(disp, rot_t, nyq, template,
-                                                  weights, mask))],
-        "cell_diagnostics_two_read": [(
-            lambda: K.cell_diagnostics_two_read(pp.ded, pp.disp_base,
-                                                rot_t_p, t_p, weights, mask),
-            lambda: K.cell_diagnostics_two_read_plain(
-                pp.ded, pp.disp_base, rot_t_p, t_p, weights, mask)), (
-            lambda: K.cell_diagnostics_two_read(pw.ded, pw.disp_base,
-                                                rot_t_w, t_w, weights, mask),
-            lambda: K.cell_diagnostics_two_read_plain(
-                pw.ded, pw.disp_base, rot_t_w, t_w, weights, mask))],
-        "cell_diagnostics_dedisp": [(
-            lambda: K.cell_diagnostics_dedisp(pd.ded, t_d, pd.window,
-                                              weights, mask),
-            lambda: K.cell_diagnostics_dedisp_plain(pd.ded, t_d, pd.window,
-                                                    weights, mask))],
-    }
-    diag_err, diag_ok = {}, {}
-    for name, pairs in diag_calls.items():
-        diag_err[name], diag_ok[name] = 0.0, True
-        for n, (kfn, pfn) in enumerate(pairs):
-            got = kfn()
-            err, ok = diags_check(got, pfn(), mask, torch)
-            diag_err[name] = max(diag_err[name], err)
-            diag_ok[name] &= ok
-            if name == "cell_diagnostics_disp":
-                diags = got
-            what = " (pulse window)" if n else ""
-            print(f"check {name}{what}: max abs {err:.3e}, tolerance rtol "
-                  f"{K2_RTOL:g} of each plane's scale, masked cells exact: "
-                  f"{'ok' if ok else 'FAIL'}", flush=True)
+    err1, ok1 = check_k1(disp, weights, "")
+    diag_calls = diag_calls_for(ri)
+    diag_err, diag_ok, diags = check_diags(diag_calls, mask, "")
 
     # K10 on the whole cube (a one-rank mesh's shard) and on one 2 x 2
     # shard: bit-equal to K2 and K6 on the same cells, and within K2's
@@ -1089,6 +1308,7 @@ def main() -> int:
         print(f"time {name}: {ms:.4f} ms, bound {bms:.4f} ms ({bby}), plain "
               f"{pms:.4f} ms, library {lib} ms, {what} on the {route} route "
               f"{tag}", flush=True)
+    kernels.extend(tail_entries)
     ms_of = {k["name"]: k["ms"] for k in kernels}
     tail = (ms_of["scaled_sides_axis0"] + ms_of["scaled_sides_axis1"]
             + ms_of["combine_zap"])

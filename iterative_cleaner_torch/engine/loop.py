@@ -106,6 +106,10 @@ SHARD_KERNELS = {
                 "combine_zap"),
     "dedispersed": ("shard_diagnostics_dedisp", "combine_zap"),
 }
+# K3's route on scaler lines over 46,486 entries (the archive's subints
+# or channels): K9 for the medians and these two for the centring and
+# the side (stats.kernels.scaled_sides_long), on any route.
+LONG_LINE_KERNELS = ("side_centre", "side_scale")
 
 
 def iter_quality_series(iter_metrics, n_cells: int) -> dict:

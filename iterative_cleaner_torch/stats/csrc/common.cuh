@@ -11,6 +11,7 @@
 
 #include <climits>
 #include <cmath>
+#include <cstdint>
 #include <cuda_runtime.h>
 
 #define ICLN_KEY_MASKED 0x7F800000  // key of +inf: the masked sentinel
@@ -94,4 +95,62 @@ __device__ __forceinline__ int icln_block_reduce_int(int v, int* red, int& parit
     if (OP == ICLN_MAX) r = max(r, half[i]);
   }
   return r;
+}
+
+// ---- Hopper's bulk copies (TMA, 1-D) completing on an mbarrier ----
+// One thread arms a stage's barrier with the bytes it expects and issues
+// the copy; the consumers wait on the barrier's phase parity.  Source,
+// destination and size must be multiples of 16 bytes.
+
+__device__ __forceinline__ unsigned icln_smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void icln_mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(icln_smem_addr(bar)),
+               "r"(count) : "memory");
+}
+
+// make the barriers' initialisation visible to the async proxy
+__device__ __forceinline__ void icln_mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void icln_mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(icln_smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void icln_mbar_arrive_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   icln_smem_addr(bar)),
+               "r"(bytes) : "memory");
+}
+
+// wait until the phase of parity `parity` has completed
+__device__ __forceinline__ void icln_mbar_wait(uint64_t* bar, unsigned parity) {
+  const unsigned a = icln_smem_addr(bar);
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(a), "r"(parity) : "memory");
+  }
+}
+
+// order this thread's (and, after a block barrier, the block's) earlier
+// shared-memory accesses before the async proxy's next writes
+__device__ __forceinline__ void icln_fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void icln_bulk_load(void* dst, const void* src, unsigned bytes,
+                                               uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(icln_smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(icln_smem_addr(bar))
+      : "memory");
 }

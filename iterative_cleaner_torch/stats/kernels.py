@@ -34,6 +34,9 @@ K9     :func:`masked_median`              ``masked_median_pallas``
 K10    :func:`shard_diagnostics_disp`,    ``sweep_shard_diags_disp``,
        :func:`shard_diagnostics_dedisp`   ``sweep_shard_diags_dedisp``
        (csrc/shard_stats.cu)              (the cell-sharded clean's shard)
+tail   :func:`side_centre`,               ``_scaled_sides_body``'s centring
+       :func:`side_scale`                 and side on lines too long for K3
+       (csrc/sides_tail.cu)               (:func:`scaled_sides_long`, with K9)
 =====  =================================  ==================================
 
 Each source file states what bounds its kernel on the card and what its
@@ -60,6 +63,7 @@ import subprocess
 import tempfile
 import threading
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -81,18 +85,28 @@ _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = _PKG_DIR / "_build"
 SOURCES = ("marginals.cu", "cell_stats.cu", "shard_stats.cu",
-           "scaled_sides.cu", "combine.cu", "masked_median.cu")
+           "scaled_sides.cu", "combine.cu", "masked_median.cu",
+           "sides_tail.cu")
 # -fmad=false: no contraction of a*b+c, so the kernels round as the
 # reference does; no fast-math; sm_90a (Hopper).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-fmad=false", "-std=c++17", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-# Longest profile any kernel takes: K2's shared-memory plan (a centred
-# row per cell of its group plus a k-chunk of the DFT tables) fits the
-# 227 KB a Hopper block may use up to here.
-MAX_NBIN = 4096
-_SMEM_LIMIT = 232448
+# Longest profile the cube kernels take: their DFT tables, nbin x
+# (nbin/2 + 1) x 8 bytes, are 1.07 GB on the card at 16384 bins (and
+# the plain version's as much on the host).  Longer profiles wait for
+# the rFFT route.
+MAX_NBIN = 16384
+_SMEM_LIMIT = 232448    # dynamic shared memory one Hopper block may use
+
+
+def _check_nbin(nbin: int) -> None:
+    if nbin > MAX_NBIN:
+        raise NotImplementedError(
+            f"nbin {nbin} > {MAX_NBIN}: longer profiles need the rFFT "
+            f"route (ROADMAP item 9, long-profile spectra)")
+
 
 _LIB = None
 _LIB_LOCK = threading.Lock()
@@ -155,16 +169,18 @@ def build_library() -> Path:
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _SIGNATURES = {
-    "icln_weighted_marginals": [_P] * 6 + [_I] * 5 + [_P],
-    "icln_cell_stats_disp": [_P] * 12 + [_LL] + [_I] * 6 + [_LL, _F, _P],
-    "icln_cell_stats_two_read": [_P] * 13 + [_LL] + [_I] * 6
+    "icln_weighted_marginals": [_P] * 6 + [_I] * 7 + [_LL, _P],
+    "icln_cell_stats_disp": [_P] * 12 + [_LL] + [_I] * 10 + [_LL, _F, _P],
+    "icln_cell_stats_two_read": [_P] * 13 + [_LL] + [_I] * 10
     + [_LL, _F, _P],
-    "icln_cell_stats_dedisp": [_P] * 12 + [_LL] + [_I] * 6 + [_LL, _F, _P],
-    "icln_shard_stats_disp": [_P] * 12 + [_LL] + [_I] * 6 + [_LL, _F, _P],
-    "icln_shard_stats_dedisp": [_P] * 12 + [_LL] + [_I] * 6 + [_LL, _F, _P],
+    "icln_cell_stats_dedisp": [_P] * 12 + [_LL] + [_I] * 10 + [_LL, _F, _P],
+    "icln_shard_stats_disp": [_P] * 12 + [_LL] + [_I] * 10 + [_LL, _F, _P],
+    "icln_shard_stats_dedisp": [_P] * 12 + [_LL] + [_I] * 10 + [_LL, _F, _P],
     "icln_scaled_sides": [_P] * 9 + [_I, _I, _LL, _LL, _F, _I, _LL, _P],
     "icln_combine_zap": [_P] * 11 + [_LL, _P],
     "icln_masked_median": [_P] * 4 + [_I, _I, _LL, _LL, _I, _I, _P],
+    "icln_side_centre": [_P] * 6 + [_LL, _I, _I, _I, _P],
+    "icln_side_scale": [_P] * 5 + [_LL, _I, _I, _I, _F, _P],
 }
 
 
@@ -229,10 +245,38 @@ def _ptr(t):
 # K1: weighted marginals
 # --------------------------------------------------------------------------
 
-def marginals_tiles(nsub: int, nchan: int, nbin: int):
-    """(sb, cb): K1's tile of subints x channels.  One subint's slab of
-    a tile is at most 4096 floats (two of them in shared memory)."""
-    return min(nsub, 64), max(1, min(nchan, 4096 // nbin))
+class MarginalsPlan(NamedTuple):
+    """K1's launch: ``sb`` subints per run, tiles of ``cb`` channels x
+    ``bb`` bins, ``lanes`` bin lanes per channel group (a power of two
+    at least ``bb``; ``256 // lanes`` groups of 32 channels each), the
+    dynamic shared memory of its three-stage ring."""
+    sb: int
+    cb: int
+    bb: int
+    lanes: int
+    smem: int
+
+
+MARGINALS_THREADS = 256
+MARGINALS_CHANNELS_PER_THREAD = 32
+MARGINALS_STAGES = 3
+
+
+def marginals_tiles(nsub: int, nchan: int, nbin: int,
+                    sm_count: int = 132) -> MarginalsPlan:
+    """K1's tile plan (``marginals.cu``): whole rows up to 256 bins, the
+    bins tiled by 256 above; subint runs sized so that the grid is about
+    two waves of two blocks per SM."""
+    _check_nbin(nbin)
+    bb = nbin if nbin <= 256 else 256
+    lanes = 1 << (bb - 1).bit_length()
+    cb = MARGINALS_THREADS // lanes * MARGINALS_CHANNELS_PER_THREAD
+    ntiles = -(-nchan // cb) * -(-nbin // bb)
+    nsb = max(1, min(nsub, 4 * sm_count // ntiles))
+    sb = -(-nsub // nsb)
+    smem = 32 + 4 * (2 * MARGINALS_THREADS
+                     + MARGINALS_STAGES * (cb * bb + cb))
+    return MarginalsPlan(sb, cb, bb, lanes, smem)
 
 
 def weighted_marginals(disp, weights):
@@ -242,12 +286,10 @@ def weighted_marginals(disp, weights):
     if not _on_card(disp, weights):
         return weighted_marginal_totals(disp, weights)
     nsub, nchan, nbin = disp.shape
-    if nbin > MAX_NBIN:
-        raise ValueError(f"nbin {nbin} > {MAX_NBIN}")
     _require(disp, "disp", torch.float32, (nsub, nchan, nbin))
     _require(weights, "weights", torch.float32, (nsub, nchan))
-    sb, cb = marginals_tiles(nsub, nchan, nbin)
-    nsb, ncb = -(-nsub // sb), -(-nchan // cb)
+    plan = marginals_tiles(nsub, nchan, nbin, _sm_count(str(disp.device)))
+    nsb, ncb = -(-nsub // plan.sb), -(-nchan // plan.cb)
     kw = dict(dtype=torch.float32, device=disp.device)
     a_part = torch.empty((nsb, nchan, nbin), **kw)
     t1_part = torch.empty((ncb, nsub, nbin), **kw)
@@ -257,7 +299,8 @@ def weighted_marginals(disp, weights):
     with torch.cuda.device(disp.device):
         rc = lib.icln_weighted_marginals(
             _ptr(disp), _ptr(weights), _ptr(a_part), _ptr(t1_part), _ptr(a),
-            _ptr(t1), nsub, nchan, nbin, sb, cb, _stream(disp))
+            _ptr(t1), nsub, nchan, nbin, plan.sb, plan.cb, plan.bb,
+            plan.lanes, plan.smem, _stream(disp))
     weighted_marginals.launches += 1
     _check_rc(rc, "weighted_marginals")
     return a, t1
@@ -294,36 +337,99 @@ def tt_info(template):
                         (tt == 0).to(template.dtype)])
 
 
-def cell_stats_geometry(nbin: int, threads: int = 256,
-                        pipelined: bool = False):
-    """(group, kchunk, smem_bytes) of K2's launch: cells per block group,
-    DFT-table columns staged per chunk, dynamic shared memory.
-    ``pipelined`` (K10): two row buffers at ``cell_stats.cuh``'s
-    ``icln_pipe_pitch``, the group halved until one table column pair
-    fits beside them."""
+class CellStatsPlan(NamedTuple):
+    """The launch of the cell-diagnostics kernels (``cell_stats.cuh``):
+    ``group`` cells per block group, ``ctile`` cells per thread tile (4
+    or 1; each tile holds 4 DFT columns), table chunks of ``kchunk``
+    columns (of ``nkp``, nbin/2 + 1 padded to a multiple of 4) by
+    ``bchunk`` rows — the whole table when it fits — ``producers`` warps
+    running phase 1 of the ``threads``, and the dynamic shared memory."""
+    group: int
+    ctile: int
+    kchunk: int
+    bchunk: int
+    nkp: int
+    producers: int
+    threads: int
+    smem: int
+
+
+CELL_WARPS = 20     # cell_stats.cuh's ICLN_CELL_MAX_THREADS / 32
+
+
+def cell_stats_smem(nbin: int, group: int, kchunk: int, bchunk: int) -> int:
+    """Bytes of ``cell_stats.cuh``'s shared memory (its
+    ``icln_cell_layout``): two mbarriers, the cos and sin table chunks,
+    two buffers of centred rows ``[b][cell]``, two stage slots of
+    ``group`` rows (none at one cell a group: phase 1 then works in the
+    centred-row buffers), the per-cell maxima, two rows each of weights
+    and mask bytes."""
+    slot = -(-group * nbin * 4 // 16) * 16
+    stages = 0 if group == 1 else 2 * slot
+    return 16 + 2 * bchunk * kchunk * 4 + 2 * slot + stages + 14 * group
+
+
+def cell_stats_geometry(nbin: int):
+    """The :class:`CellStatsPlan` of K2, K6, K7 and K10 at ``nbin``.
+
+    A block of ``CELL_WARPS`` warps: the consumers (phase 2) hold at
+    most one tile (``ctile`` cells x 4 columns) each per table chunk and
+    one cell each for the final write; the rest are producers (phase 1,
+    one warp per cell).  Among the plans whose shared memory fits a
+    block, the one with the least estimated time per cell: the larger of
+    the consumers' DFT issue slots (chunks x rows x the 3 shared loads
+    and 8 * ctile FMAs of a row, per busy warp, over at most 4
+    schedulers) and the producers' latency (about 1000 clocks a cell per
+    warp), a fifth of the other, and the table refills of a chunked
+    plan."""
+    _check_nbin(nbin)
     nk = nbin // 2 + 1
-    group = 32 if nbin <= 383 else 16 if nbin <= 767 else 8
-    if pipelined:
-        pitch, nbuf = -(-nbin // 4) * 4 + 4, 2
-    else:
-        pitch, nbuf = nbin + 1, 1
-    cen_bytes = nbuf * group * pitch * 4
-    while group > 1 and 200 * 1024 - cen_bytes < 2 * nbin * 4:
-        group //= 2
-        cen_bytes = nbuf * group * pitch * 4
-    table_budget = min(96 * 1024, 200 * 1024 - cen_bytes)
-    kchunk = max(1, min(nk, table_budget // (2 * nbin * 4)))
-    smem = cen_bytes + 2 * nbin * kchunk * 4 + threads * 4
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"nbin {nbin}: K2 needs {smem} bytes of shared "
-                         f"memory, over the {_SMEM_LIMIT}-byte limit")
-    return group, kchunk, smem
+    nkp = -(-nk // 4) * 4
+    ktiles = nkp // 4
+    best = None
+    for ctile in (4, 1):
+        for group in range(ctile, 32 * (CELL_WARPS - 8) + 1, ctile):
+            ct = group // ctile
+            per = min(ktiles, 32 * (CELL_WARPS - 8) // ct)
+            if per == 0:
+                break
+            nkc = -(-ktiles // per)
+            per = -(-ktiles // nkc)
+            consumers = -(-max(ct * per, group) // 32)
+            producers = CELL_WARPS - consumers
+            kchunk = 4 * per
+            room = _SMEM_LIMIT - cell_stats_smem(nbin, group, kchunk, 0)
+            bchunk = min(nbin, room // (8 * kchunk)) if room > 0 else 0
+            if bchunk < 1:
+                continue
+            nbc = -(-nbin // bchunk)
+            dft = (-(-ct * per // 32) * nkc * nbin * (3 + 8 * ctile)
+                   / min(4, consumers))
+            phase1 = -(-group // producers) * 1000
+            refill = (0 if nkc == nbc == 1
+                      else nkc * nbc * 2000 + 8 * nbin * nkp // (32 * consumers))
+            cost = (max(dft, phase1) + min(dft, phase1) / 5 + refill) / group
+            if best is None or cost < best[0]:
+                smem = cell_stats_smem(nbin, group, kchunk, bchunk)
+                best = (cost, CellStatsPlan(group, ctile, kchunk, bchunk, nkp,
+                                            producers, 32 * CELL_WARPS, smem))
+    if best is None:
+        raise NotImplementedError(
+            f"nbin {nbin}: no cell-diagnostics plan fits a block")
+    return best[1]
 
 
 @functools.lru_cache(maxsize=8)
-def _dft_tables_cached(nbin: int, device: str):
-    return tuple(t.contiguous() for t in
-                 dft_tables(nbin, torch.float32, torch.device(device)))
+def _dft_tables_padded(nbin: int, nkp: int, device: str):
+    """The (nbin, nkp) cos/sin tables the kernels read: ``dft_tables``
+    with zero columns past nbin/2 + 1 (|X|^2 = 0 there, which never wins
+    the max; a row holding NaN or inf is NaN in a real column too)."""
+    out = []
+    for t in dft_tables(nbin, torch.float32, torch.device(device)):
+        pad = torch.zeros((nbin, nkp), dtype=torch.float32, device=device)
+        pad[:, : t.shape[1]] = t
+        out.append(pad)
+    return tuple(out)
 
 
 @functools.lru_cache(maxsize=8)
@@ -352,19 +458,16 @@ def _plain_into(planes, out):
 
 
 def _launch_cell_stats(entry, cube, template, weights, cell_mask, cubes,
-                       chan_rows, bin_rows, ptrs, out=None, pipelined=False):
+                       chan_rows, bin_rows, ptrs, out=None):
     """Check and launch one of the cell-diagnostics kernels (K2, K6, K7
-    share ``cell_stats.cu``'s launch geometry).  ``cubes``,
-    ``chan_rows`` and ``bin_rows`` are ``(name, tensor)`` pairs checked
-    as (nsub, nchan, nbin) cubes, (nchan, nbin) rows and (nbin,) rows;
-    ``ptrs`` are the entry's leading pointer arguments in order.  ``out``
-    is an optional 4-tuple of contiguous (nsub, nchan) float32 views the
-    kernel writes (a tile's rows of the full planes); ``pipelined`` takes
-    K10's launch geometry.  Returns the entry's return code and the four
-    (nsub, nchan) planes."""
+    and K10 share ``cell_stats.cuh``'s kernel and launch plan).
+    ``cubes``, ``chan_rows`` and ``bin_rows`` are ``(name, tensor)``
+    pairs checked as (nsub, nchan, nbin) cubes, (nchan, nbin) rows and
+    (nbin,) rows; ``ptrs`` are the entry's leading pointer arguments in
+    order.  ``out`` is an optional 4-tuple of contiguous (nsub, nchan)
+    float32 views the kernel writes (a tile's rows of the full planes).
+    Returns the entry's return code and the four (nsub, nchan) planes."""
     nsub, nchan, nbin = cube.shape
-    if nbin > MAX_NBIN:
-        raise ValueError(f"nbin {nbin} > {MAX_NBIN}")
     for name, t in cubes:
         _require(t, name, torch.float32, (nsub, nchan, nbin))
     for name, t in chan_rows:
@@ -374,10 +477,9 @@ def _launch_cell_stats(entry, cube, template, weights, cell_mask, cubes,
     _require(template, "template", torch.float32, (nbin,))
     _require(weights, "weights", torch.float32, (nsub, nchan))
     _require(cell_mask, "cell_mask", torch.bool, (nsub, nchan))
+    plan = cell_stats_geometry(nbin)
     info = tt_info(template)
-    threads = 256
-    group, kchunk, smem = cell_stats_geometry(nbin, threads, pipelined)
-    cos_t, sin_t = _dft_tables_cached(nbin, str(cube.device))
+    cos_t, sin_t = _dft_tables_padded(nbin, plan.nkp, str(cube.device))
     if out is None:
         outs = [torch.empty((nsub, nchan), dtype=torch.float32,
                             device=cube.device) for _ in range(4)]
@@ -389,13 +491,18 @@ def _launch_cell_stats(entry, cube, template, weights, cell_mask, cubes,
                                  f"{cube.device}")
             _require(o, f"out[{i}]", torch.float32, (nsub, nchan))
     ncells = nsub * nchan
-    grid = max(1, min(-(-ncells // group), 4 * _sm_count(str(cube.device))))
+    per_sm = max(1, min(2048 // plan.threads,
+                        (_SMEM_LIMIT + 1024) // (plan.smem + 1024)))
+    grid = max(1, min(-(-ncells // plan.group),
+                      per_sm * _sm_count(str(cube.device))))
     inv_n = float(np.float32(1.0 / nbin))
     fn = getattr(load_library(), entry)
     with torch.cuda.device(cube.device):
         rc = fn(*ptrs, _ptr(cos_t), _ptr(sin_t), _ptr(info),
-                *(_ptr(o) for o in outs), ncells, nchan, nbin, group, kchunk,
-                threads, grid, smem, inv_n, _stream(cube))
+                *(_ptr(o) for o in outs), ncells, nchan, nbin, plan.group,
+                plan.ctile, plan.kchunk, plan.bchunk, plan.nkp, plan.producers,
+                plan.threads,
+                grid, plan.smem, inv_n, _stream(cube))
     return rc, tuple(outs)
 
 
@@ -519,9 +626,9 @@ cell_diagnostics_dedisp.launches = 0
 
 def shard_diagnostics_disp(disp, rot_t, nyq_row, template, weights,
                            cell_mask):
-    """K2's four planes on one rank's (subint, channel) shard, its cube
-    rows staged through a double-buffered asynchronous copy — kernel K10
-    on the card (bit-equal to :func:`cell_diagnostics_disp` on the same
+    """K2's four planes on one rank's (subint, channel) shard — kernel
+    K10 on the card (K2's kernel under the shard's entry and launch
+    count, so bit-equal to :func:`cell_diagnostics_disp` on the same
     shard), :func:`cell_diagnostics_disp_plain` on the CPU.  ``rot_t``
     and ``nyq_row`` are the shard's channel rows."""
     if not _on_card(disp, rot_t, template, weights, cell_mask):
@@ -533,7 +640,7 @@ def shard_diagnostics_disp(disp, rot_t, nyq_row, template, weights,
         "icln_shard_stats_disp", disp, template, weights, cell_mask,
         [("disp", disp)], rows, [],
         [_ptr(disp), _ptr(rot_t), None if nyq_row is None else _ptr(nyq_row),
-         _ptr(weights), _ptr(cell_mask)], pipelined=True)
+         _ptr(weights), _ptr(cell_mask)])
     shard_diagnostics_disp.launches += 1
     _check_rc(rc, "shard_diagnostics_disp")
     return outs
@@ -553,7 +660,7 @@ def shard_diagnostics_dedisp(ded, template, window, weights, cell_mask):
         "icln_shard_stats_dedisp", ded, template, weights, cell_mask,
         [("ded", ded)], [], [("window", window)],
         [_ptr(ded), _ptr(template), _ptr(window), _ptr(weights),
-         _ptr(cell_mask)], pipelined=True)
+         _ptr(cell_mask)])
     shard_diagnostics_dedisp.launches += 1
     _check_rc(rc, "shard_diagnostics_dedisp")
     return outs
@@ -681,11 +788,136 @@ def scaled_sides_plain(diagnostics, cell_mask, axis, thresh):
     return tuple(outs)
 
 
+# --------------------------------------------------------------------------
+# The scaler's tail on long lines: K9 for the medians, two elementwise
+# kernels for the centring and the side (csrc/sides_tail.cu)
+# --------------------------------------------------------------------------
+
+def scaled_sides_route(n: int) -> str:
+    """``"block"`` where K3 holds a line of ``n`` entries (its values and
+    mask, 5 bytes an entry, and 16 more) in one block's shared memory,
+    ``"long"`` above: n = 46,486 is the longest block line."""
+    return "block" if 5 * n + 16 <= _SMEM_LIMIT else "long"
+
+
+def _line_dims(plane, axis):
+    nsub, nchan = plane.shape
+    return (1, nchan) if axis == 0 else (nsub, 1)
+
+
+def side_centre_plain(d, mask, med, axis, masked):
+    """The plain version of :func:`side_centre`."""
+    centred = torch.where(mask, d, d - med) if masked else d - med
+    absc = torch.abs(centred)
+    if masked:
+        return centred, absc, None
+    flags = (torch.any(torch.isnan(d), dim=axis, keepdim=True).to(torch.int32)
+             | 2 * torch.any(torch.isnan(absc), dim=axis,
+                             keepdim=True).to(torch.int32))
+    return centred, absc, flags
+
+
+def side_centre(d, mask, med, axis, masked):
+    """``(centred, |centred|, flags)`` of one diagnostic plane around its
+    per-line median ``med`` (keepdims along ``axis``): masked entries
+    pass through when ``masked``; on the plain path ``flags`` holds per
+    line bit 1 (a NaN in ``d``) and bit 2 (a NaN magnitude), else None.
+    The side_centre kernel on the card, :func:`side_centre_plain` on the
+    CPU."""
+    if not _on_card(d, mask, med):
+        return side_centre_plain(d, mask, med, axis, masked)
+    shape = tuple(d.shape)
+    _require(d, "d", torch.float32, shape)
+    _require(mask, "mask", torch.bool, shape)
+    _require(med, "med", torch.float32, _line_dims(d, axis))
+    centred, absc = torch.empty_like(d), torch.empty_like(d)
+    flags = None if masked else torch.zeros(_line_dims(d, axis),
+                                            dtype=torch.int32,
+                                            device=d.device)
+    lib = load_library()
+    with torch.cuda.device(d.device):
+        rc = lib.icln_side_centre(
+            _ptr(d), _ptr(mask), _ptr(med), _ptr(centred), _ptr(absc),
+            None if masked else _ptr(flags), d.numel(), shape[1], axis,
+            int(masked), _stream(d))
+    side_centre.launches += 1
+    _check_rc(rc, "side_centre")
+    return centred, absc, flags
+
+
+side_centre.launches = 0
+
+
+def side_scale_plain(centred, mask, mad, flags, axis, thresh, masked):
+    """The plain version of :func:`side_scale`: ``_masked_side``, or the
+    NaN-patched ``|c / mad| * float32(1/thresh)``."""
+    if masked:
+        n = torch.sum(~mask, dim=axis, keepdim=True)
+        return _masked_side(centred, mad, mask, n, thresh)
+    nan = torch.full_like(centred, math.nan)
+    ce = torch.where((flags & 1) != 0, nan, centred)
+    me = torch.where(flags != 0, torch.full_like(mad, math.nan), mad)
+    return torch.abs(ce / me) * inverse_threshold(thresh, ce)
+
+
+def side_scale(centred, mask, mad, flags, axis, thresh, masked):
+    """One scaled side from :func:`side_centre`'s planes and the per-line
+    MAD ``mad``: the side_scale kernel on the card,
+    :func:`side_scale_plain` on the CPU."""
+    if not _on_card(centred, mask, mad):
+        return side_scale_plain(centred, mask, mad, flags, axis, thresh,
+                                masked)
+    shape = tuple(centred.shape)
+    _require(centred, "centred", torch.float32, shape)
+    _require(mask, "mask", torch.bool, shape)
+    _require(mad, "mad", torch.float32, _line_dims(centred, axis))
+    if not masked:
+        _require(flags, "flags", torch.int32, _line_dims(centred, axis))
+    out = torch.empty_like(centred)
+    inv_t = float(np.float32(1.0) / np.float32(thresh))
+    lib = load_library()
+    with torch.cuda.device(centred.device):
+        rc = lib.icln_side_scale(
+            _ptr(centred), _ptr(mask), _ptr(mad),
+            None if masked else _ptr(flags), _ptr(out), centred.numel(),
+            shape[1], axis, int(masked), inv_t, _stream(centred))
+    side_scale.launches += 1
+    _check_rc(rc, "side_scale")
+    return out
+
+
+side_scale.launches = 0
+
+
+def scaled_sides_long(diagnostics, cell_mask, axis, thresh):
+    """K3's function on lines of any length, bit-equal to it: per masked
+    diagnostic K9 for the median, :func:`side_centre`, K9 on the
+    magnitudes for the MAD, :func:`side_scale`; the rFFT diagnostic the
+    same with an all-False mask and the NaN-line flags.  Each step is its
+    kernel on the card and its plain version on the CPU."""
+    d0, d1, d2, d3 = diagnostics
+    outs = []
+    for d in (d0, d1, d2):
+        med = masked_median(d, cell_mask, axis)
+        centred, absc, _ = side_centre(d, cell_mask, med, axis, True)
+        mad = masked_median(absc, cell_mask, axis)
+        outs.append(side_scale(centred, cell_mask, mad, None, axis, thresh,
+                               True))
+    plain = torch.zeros_like(cell_mask)
+    med = masked_median(d3, plain, axis)
+    centred, absc, flags = side_centre(d3, plain, med, axis, False)
+    mad = masked_median(absc, plain, axis)
+    outs.append(side_scale(centred, plain, mad, flags, axis, thresh, False))
+    return tuple(outs)
+
+
 def scaled_sides(diagnostics, cell_mask, axis, thresh):
     """All four scaled sides of one orientation: ``axis=0`` scales each
     channel down the subints (channel threshold), ``axis=1`` each subint
-    across channels.  Kernel K3 on the card, :func:`scaled_sides_plain`
-    on the CPU; bit-equal to the reference's ``scaled_sides_pallas``."""
+    across channels.  Kernel K3 on the card where a line fits a block
+    (:func:`scaled_sides_route`), :func:`scaled_sides_long` above;
+    :func:`scaled_sides_plain` on the CPU.  Bit-equal to the reference's
+    ``scaled_sides_pallas``."""
     if axis not in (0, 1):
         raise ValueError("axis must be 0 or 1")
     if not _on_card(*diagnostics, cell_mask):
@@ -698,10 +930,9 @@ def scaled_sides(diagnostics, cell_mask, axis, thresh):
         n, nlines, line_stride, elem_stride = nsub, nchan, 1, nchan
     else:
         n, nlines, line_stride, elem_stride = nchan, nsub, nchan, 1
+    if scaled_sides_route(n) == "long":
+        return scaled_sides_long(diagnostics, cell_mask, axis, thresh)
     smem = n * 4 + n + 16
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"line length {n}: K3 needs {smem} bytes of shared "
-                         f"memory, over the {_SMEM_LIMIT}-byte limit")
     threads = 256 if n <= 1024 else 512
     inv_t = float(np.float32(1.0) / np.float32(thresh))
     outs = [torch.empty_like(diagnostics[0]) for _ in range(4)]
@@ -817,6 +1048,8 @@ def reset_launch_counts() -> None:
     combine_zap.launches = 0
     fused_combine.launches = 0
     masked_median.launches = 0
+    side_centre.launches = 0
+    side_scale.launches = 0
 
 
 def launch_counts() -> dict:
@@ -832,4 +1065,6 @@ def launch_counts() -> dict:
         "combine_zap": combine_zap.launches,
         "fused_combine": fused_combine.launches,
         "masked_median": masked_median.launches,
+        "side_centre": side_centre.launches,
+        "side_scale": side_scale.launches,
     }

@@ -17,7 +17,11 @@ its rows 16-byte aligned or not; the cell-sharded clean on one rank under
 NCCL bit-equal to the whole clean.  K9 bit-equal to its plain version
 (NaN by position) on the residual-std telemetry's line of 4,194,304
 cells, along both axes of a 1024 x 4096 plane and on hand-made edge
-lines.
+lines.  Long profiles (nbin 8192) and ragged shapes (odd nbin, nbin/2 + 1
+not a multiple of the DFT tile, a short last group, a cube not 16-byte
+aligned) within the same tolerances, K1 bit-equal from run to run, and
+K3 and K8 bit-equal on scaler lines of 50,000 and 100,000 entries (K9
+and the tail kernels in place of K3).
 """
 
 import numpy as np
@@ -344,3 +348,87 @@ def test_k9_masked_median_refuses_on_card(card):
         tk.masked_median(v.double().to(card), m.to(card), 1)
     with pytest.raises(ValueError, match="dim"):
         tk.masked_median(v.to(card), m.to(card), 2)
+
+
+# Long profiles and ragged shapes: nbin 8192 (table streamed in chunks,
+# two cells a group), odd nbin (rows not 16-byte aligned: read from device
+# memory), nbin 64 (nbin/2 + 1 = 33 columns, padded to 36), a last group
+# shorter than the rest, and a cube whose start is 4 bytes past a 16-byte
+# boundary (K1's and the cell kernels' copies fall back to plain loads).
+RAGGED = [(16, 32, 8192, "fourier", False), (7, 37, 63, "roll", False),
+          (9, 29, 64, "fourier", False), (7, 37, 128, "fourier", True),
+          (3, 11, 1000, "fourier", True)]
+
+
+@pytest.mark.parametrize("nsub,nchan,nbin,rotation,shifted", RAGGED)
+def test_kernels_match_plain_at_long_and_ragged_shapes(card, nsub, nchan, nbin,
+                                                       rotation, shifted):
+    disp, w, mask, template, rot_t, nyq = _inputs(nsub, nchan, nbin,
+                                                  rotation, card, seed=4)
+    cube = _misaligned(disp) if shifted else disp
+    a, t1 = tk.weighted_marginals(cube, w)
+    pa, pt1 = weighted_marginal_totals(disp, w)
+    sa, st1 = weighted_marginal_totals(disp.abs(), w)
+    assert bool(((a - pa).abs() <= 1e-5 * sa).all())
+    assert bool(((t1 - pt1).abs() <= 1e-5 * st1).all())
+    window = pulse_window(nbin, (nbin // 4, nbin // 2), 0.2, True,
+                          torch.float32, card)
+    pairs = [
+        (tk.cell_diagnostics_disp(cube, rot_t, nyq, template, w, mask),
+         tk.cell_diagnostics_disp_plain(disp, rot_t, nyq, template, w, mask)),
+        (tk.shard_diagnostics_disp(cube, rot_t, nyq, template, w, mask),
+         tk.cell_diagnostics_disp_plain(disp, rot_t, nyq, template, w, mask)),
+        (tk.cell_diagnostics_dedisp(cube, template, window, w, mask),
+         tk.cell_diagnostics_dedisp_plain(disp, template, window, w, mask)),
+        (tk.shard_diagnostics_dedisp(cube, template, window, w, mask),
+         tk.cell_diagnostics_dedisp_plain(disp, template, window, w, mask)),
+        (tk.cell_diagnostics_two_read(cube, disp * 0.5, rot_t, template, w,
+                                      mask),
+         tk.cell_diagnostics_two_read_plain(disp, disp * 0.5, rot_t,
+                                            template, w, mask)),
+    ]
+    for got, want in pairs:
+        _assert_diags_match(got, want, mask)
+
+
+@pytest.mark.parametrize("shifted", [False, True])
+def test_k1_twice_bit_equal_on_card(card, shifted):
+    disp, w, _, _, _, _ = _inputs(64, 512, 128, "fourier", card, seed=5)
+    cube = _misaligned(disp) if shifted else disp
+    first = tk.weighted_marginals(cube, w)
+    second = tk.weighted_marginals(cube, w)
+    for f, s in zip(first, second):
+        assert _bits_mismatch(f, s) == 0
+
+
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("n", [50000, 100000])
+def test_k3_k8_long_lines_bit_equal_on_card(card, n, axis):
+    """Lines over 46,486 entries take K9 and the two tail kernels in
+    place of K3: the sides and K8's weights and scores bit-equal to the
+    plain versions, NaN and +-inf included."""
+    g = torch.Generator().manual_seed(6)
+    shape = (n, 3) if axis == 0 else (3, n)
+    d = [torch.randn(shape, generator=g) * s for s in (1.0, 0.3, 5.0, 2.0)]
+    mask = torch.rand(shape, generator=g) < 0.2
+    mask[(slice(None), 2) if axis == 0 else (2, slice(None))] = True
+    d[0][mask] = 0.0
+    d[2][mask] = 1e20
+    d[3].view(-1)[[21, 40]] = float("nan")
+    d[3].view(-1)[[22, 23]] = torch.tensor([float("inf"), -float("inf")])
+    d[1].view(-1)[301] = float("nan")
+    d = [p.to(card) for p in d]
+    mask = mask.to(card)
+    tk.reset_launch_counts()
+    got = tk.scaled_sides(d, mask, axis, 5.0)
+    counts = tk.launch_counts()
+    assert counts["scaled_sides_axis%d" % axis] == 0
+    assert counts["side_centre"] == 4 and counts["side_scale"] == 4
+    assert counts["masked_median"] == 8
+    want = tk.scaled_sides_plain(d, mask, axis, 5.0)
+    assert [_bits_mismatch(a, b) for a, b in zip(got, want)] == [0] * 4
+    worig = (~mask).float()
+    fw, fs = tk.fused_combine(d, mask, worig, 5.0, 4.0)
+    pw, ps = tk.fused_combine_plain(d, mask, worig, 5.0, 4.0)
+    assert _bits_mismatch(fs, ps) == 0
+    assert _bits_mismatch(fw, pw) == 0

@@ -304,6 +304,8 @@ def test_wrappers_raise_on_cuda_without_a_card():
         lambda: tk.scaled_sides([fake] * 4, fake, 0, 5.0),
         lambda: tk.scaled_sides([fake] * 4, fake, 1, 5.0),
         lambda: tk.combine_zap([fake] * 4, [fake] * 4, fake),
+        lambda: tk.side_centre(fake, fake, fake, 0, True),
+        lambda: tk.side_scale(fake, fake, fake, None, 0, 5.0, True),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -35,6 +35,7 @@ from iterative_cleaner_torch.convert import (
     config_from_reference,
 )
 from iterative_cleaner_torch.engine.loop import (
+    LONG_LINE_KERNELS,
     ROUTE_KERNELS,
     SHARD_KERNELS,
     STREAM_KERNELS,
@@ -110,13 +111,14 @@ def test_route_matches_reference(case, route):
 def test_route_kernels_cover_every_launch_counter():
     """``ROUTE_KERNELS``, ``STREAM_KERNELS`` and ``SHARD_KERNELS`` (what
     chip_smoke.py holds each whole clean's, each exact stream's and each
-    sharded clean's launch counts to) name every counted kernel, each on
+    sharded clean's launch counts to) and ``LONG_LINE_KERNELS`` (K3's
+    route on lines too long for a block) name every counted kernel, each on
     some route; exact streaming launches a route's kernels and K8; the
     sharded routes are whole-clean routes with K10 for the cell
     diagnostics and no K3 or K9 (tree-reduced selects instead)."""
     named = {k for table in (ROUTE_KERNELS, STREAM_KERNELS, SHARD_KERNELS)
              for ks in table.values() for k in ks}
-    assert named == set(launch_counts())
+    assert named | set(LONG_LINE_KERNELS) == set(launch_counts())
     for route, kernels in ROUTE_KERNELS.items():
         assert set(STREAM_KERNELS[route]) == set(kernels) | {"fused_combine"}
     k10 = {"cell_diagnostics_disp": "shard_diagnostics_disp",

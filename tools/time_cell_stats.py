@@ -1,20 +1,24 @@
-"""Time the cell-diagnostics kernels on the card: K2, K6, K7 and, where
-the package has them, K10 and the cell-sharded clean's tree-reduced
-selects on one NCCL rank.
+"""Time the cube kernels on the card: K1, K2, K6, K7 and, where the
+package has them, K10 and the cell-sharded clean's tree-reduced selects
+on one NCCL rank; and fingerprint what they compute.
 
-    python tools/time_cell_stats.py [--shape S C B] [--reps N]
+    python tools/time_cell_stats.py [--shape S C B] [--reps N] [--no-selects]
 
 Random inputs of the given shape (default the full-size golden's,
-1024 x 4096 x 128), CUDA-event means over ``--reps`` back-to-back
-launches after a warm-up.  Run it by path with ``PYTHONPATH`` naming the
-checkout whose ``iterative_cleaner_torch`` to time: the same script then
-times two trees in turns (parent, change, change, parent) in one call on
-one card.  Prints one JSON line, with the card's name and power limit.
+1024 x 4096 x 128), made on the card from seed 0, CUDA-event means over
+``--reps`` back-to-back launches after a warm-up, and the SHA-256 of
+each kernel's output planes on those inputs.  Run it by path with
+``PYTHONPATH`` naming the checkout whose ``iterative_cleaner_torch`` to
+time: the same script then times two trees in turns (parent, change,
+change, parent) in one call on one card, and equal digests show their
+kernels' planes equal bit for bit.  Prints one JSON line, with the
+card's name and power limit.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -40,6 +44,8 @@ def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--shape", type=int, nargs=3, default=(1024, 4096, 128))
     p.add_argument("--reps", type=int, default=5)
+    p.add_argument("--no-selects", action="store_true",
+                   help="skip the sharded selects on one NCCL rank")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("time_cell_stats: no CUDA device present")
@@ -69,6 +75,7 @@ def main() -> int:
     nyq = nyq_correction_row(shifts, nbin, "fourier", torch.float32)
     window = torch.ones(nbin, device=dev)
     calls = {
+        "weighted_marginals": lambda: K.weighted_marginals(cube, w),
         "cell_diagnostics_disp": lambda: K.cell_diagnostics_disp(
             cube, rot_t, nyq, t, w, mask),
         "cell_diagnostics_dedisp": lambda: K.cell_diagnostics_dedisp(
@@ -84,12 +91,22 @@ def main() -> int:
     out = {"card": card, "package": os.path.dirname(
         iterative_cleaner_torch.__file__), "shape": [nsub, nchan, nbin],
         "reps": args.reps,
-        "ms": {name: _ms(fn, args.reps) for name, fn in calls.items()}}
-    if hasattr(K, "shard_diagnostics_disp"):
+        "ms": {name: _ms(fn, args.reps) for name, fn in calls.items()},
+        "sha256": {name: _digest(fn()) for name, fn in calls.items()}}
+    if hasattr(K, "shard_diagnostics_disp") and not args.no_selects:
         out["one_nccl_rank_ms"] = _selects(K.cell_diagnostics_disp(
             cube, rot_t, nyq, t, w, mask), mask, w, args.reps)
     print(json.dumps(out))
     return 0
+
+
+def _digest(planes):
+    """SHA-256 of the output planes' bytes, in order."""
+    torch.cuda.synchronize()
+    h = hashlib.sha256()
+    for t in planes:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
 
 
 def _selects(diags, mask, w, reps):
