@@ -36,7 +36,9 @@ bit for bit, on the whole cube and on one 2 x 2 shard; K9, the masked
 median of every single-card route's residual-std telemetry, bit for bit
 on the telemetry's line of 4,194,304 cells, along both axes of the
 plane and on hand-made edge lines, and the default clean's first
-telemetry value against K9's plain version on K2's first plane); runs
+telemetry value against K9's plain version on K2's first plane; its
+device operations a call counted in a torch.profiler trace, at most 5
+on the telemetry line and 1 along an axis of the plane); runs
 the CLI session a user runs on the same archive written as PSRFITS
 (``--metrics-json --prom-textfile --log-format json --timing``) and
 holds its output mask, run report, Prometheus file and event log to
@@ -740,7 +742,10 @@ def main() -> int:
     from iterative_cleaner_torch.parallel import distributed
     from iterative_cleaner_torch.parallel.mesh import cell_mesh
     from iterative_cleaner_torch.parallel.tile_cache import DictRegistry
-    from iterative_cleaner_torch.profile_iteration import stream_line
+    from iterative_cleaner_torch.profile_iteration import (
+        device_ops,
+        stream_line,
+    )
     from iterative_cleaner_torch.stats import kernels as K
 
     t_start = time.perf_counter()
@@ -1084,6 +1089,22 @@ def main() -> int:
         print(f"check K3 scaled_sides axis {axis}: {bad} cells differ in "
               f"bits, max abs {err3[axis]:.3e} (tolerance: bit-equal, NaN "
               f"included): {'ok' if bad == 0 else 'FAIL'}")
+    # K3 on the hand-made edge lines as rows and as columns of all four
+    # diagnostics, 8 and 11 lines (11: a ragged last block of 8 columns)
+    from tests.torch_median_edges import median_edge_lines, sides_edge_planes
+
+    for axis in (0, 1):
+        for nlines in (8, 11):
+            ed, emk = sides_edge_planes(axis, nlines)
+            ed, emk = [p.to(dev) for p in ed], emk.to(dev)
+            bad = sum(bits_mismatch(g, w, torch) for g, w in zip(
+                K.scaled_sides(ed, emk, axis, 5.0),
+                K.scaled_sides_plain(ed, emk, axis, 5.0)))
+            ok3[axis] &= bad == 0
+            print(f"check K3 scaled_sides axis {axis} on the edge lines "
+                  f"({nlines} lines of 7): {bad} cells differ in bits "
+                  f"(tolerance: bit-equal, NaN included): "
+                  f"{'ok' if bad == 0 else 'FAIL'}", flush=True)
     new_w, scores = K.combine_zap(sides[0], sides[1], weights)
     pw, ps = K.combine_zap_plain(sides[0], sides[1], weights)
     bad_c = bits_mismatch(scores, ps, torch) + bits_mismatch(new_w, pw, torch)
@@ -1112,8 +1133,6 @@ def main() -> int:
 
     d_std = diags[0]
     line_v, line_m = d_std.reshape(1, -1), mask.reshape(1, -1)
-    from tests.torch_median_edges import median_edge_lines
-
     ev, em = (t.to(dev) for t in median_edge_lines())
     k9_cases = {
         "telemetry line": (line_v, line_m, 1),
@@ -1122,6 +1141,12 @@ def main() -> int:
         "edge lines dim 1": (ev, em, 1),
         "edge lines dim 0": (ev.t().contiguous(), em.t().contiguous(), 0),
     }
+    # the edge lines repeated into lines over 4096 entries: the grid route
+    for reps in (600, 601):
+        gv, gm = ev.repeat(1, reps), em.repeat(1, reps)
+        k9_cases[f"edge lines x{reps} dim 1"] = (gv, gm, 1)
+        k9_cases[f"edge lines x{reps} dim 0"] = (gv.t().contiguous(),
+                                                  gm.t().contiguous(), 0)
     ok9, err9 = True, 0.0
     for where, (v, m, dim) in k9_cases.items():
         got = K.masked_median(v, m, dim)
@@ -1132,10 +1157,27 @@ def main() -> int:
             ("telemetry", "plane")) else 0.0
         err9 = max(err9, err)
         ok9 &= bad == 0
+        k9_route = K.masked_median_geometry(v.shape[dim], dim).route
         print(f"check K9 masked_median ({where}, {tuple(v.shape)} along dim "
-              f"{dim}): {bad} of {got.numel()} medians differ in bits, max "
+              f"{dim}, {k9_route} route): {bad} of {got.numel()} medians "
+              f"differ in bits, max "
               f"abs {err:.3e} (tolerance: bit-equal, NaN by position): "
               f"{'ok' if bad == 0 else 'FAIL'}", flush=True)
+    # K9's device operations a call, counted in a torch.profiler trace:
+    # at most 5 on the grid route (the scratch's memset and four passes),
+    # 1 on the block route
+    k9_ops = {}
+    for where, limit in (("telemetry line", 5), ("plane dim 0", 1),
+                         ("plane dim 1", 1)):
+        v, m, dim = k9_cases[where]
+        ops = device_ops(lambda: K.masked_median(v, m, dim))
+        k9_ops[where] = sum(ops.values())
+        good = 0 < k9_ops[where] <= limit
+        ok9 &= good
+        print(f"check K9 masked_median ({where}): {k9_ops[where]} device "
+              f"operations a call in a torch.profiler trace "
+              f"{json.dumps(ops)} (limit {limit}): "
+              f"{'ok' if good else 'FAIL'}", flush=True)
     first = K.masked_median_keys(line_v, line_m, 1)[0].reshape(1)
     rstd0 = np.array([results["default"].iter_metrics[0, 2]], np.float32)
     same = int(rstd0.view(np.int32)[0]) == int(
@@ -1170,8 +1212,9 @@ def main() -> int:
     b2 = bound(4 * (cells * B + 2 * C * B + B) + diag_io, diag_ops)
     b7 = bound(4 * (2 * cells * B + C * B + B) + diag_io, diag_ops)
     b6 = bound(4 * (cells * B + 2 * B) + diag_io, diag_ops)
-    # the select: 34 counting passes per median, 2 medians per diagnostic
-    sel_ops = 4 * 2 * 34 * cells
+    # the select: 4 counting passes per median (the radix digits; the
+    # upper middle comes from the last pass), 2 medians per diagnostic
+    sel_ops = 4 * 2 * 4 * cells
     b3 = bound(cells * (4 * 4 + 1 + 4 * 4), sel_ops)
     bc = bound(cells * (9 * 4 + 2 * 4), 16 * cells)
     # K4 and K5 are one launch on the TPU: the cube and the template rows
@@ -1189,9 +1232,9 @@ def main() -> int:
                 diag_ops / 4)
     b6q = bound(4 * (cells // 4 * B + 2 * B) + diag_io // 4, diag_ops / 4)
     # K9 on the telemetry's line: the values and the mask read once, one
-    # float out; five passes of a few integer ops an entry
+    # float out; four passes of a few integer ops an entry
     n9 = line_v.numel()
-    b9 = bound(5 * n9 + 4, 5 * 8 * n9)
+    b9 = bound(5 * n9 + 4, 4 * 8 * n9)
     entries = [
         ("weighted_marginals", "marginals.cu", "_marginals_kernel :633",
          "default", err1,
@@ -1299,8 +1342,10 @@ def main() -> int:
                               10, torch)
             by_route = {r: c["masked_median"] for r, c in counts.items()}
             kernels[-1].update(dim0_ms=d0, dim1_ms=d1, sort_route_ms=sort_ms,
-                               launches_by_route=by_route)
-            what += (f"; along dim 0 of the plane {d0:.4f} ms, dim 1 "
+                               launches_by_route=by_route,
+                               device_ops_per_call=k9_ops)
+            what += (f"; device operations a call {json.dumps(k9_ops)}; "
+                     f"along dim 0 of the plane {d0:.4f} ms, dim 1 "
                      f"{d1:.4f} ms; the sort route it replaced "
                      f"{sort_ms:.4f} ms; launches by route "
                      f"{json.dumps(by_route)}")

@@ -98,6 +98,24 @@ def _device_work(prof):
         yield e
 
 
+def device_ops(fn) -> dict:
+    """The device operations (kernels, memsets, copies) that one call of
+    ``fn`` makes, counted by name in a ``torch.profiler`` trace of it
+    (after one untraced call, which builds and loads what it needs)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = {}
+    for e in _device_work(prof):
+        ops[e.name] = ops.get(e.name, 0) + 1
+    return ops
+
+
 def _union_ms(intervals) -> float:
     """Length of the union of (start, end) intervals, in ms of us."""
     total, end = 0.0, -float("inf")

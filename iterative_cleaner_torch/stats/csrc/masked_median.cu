@@ -16,196 +16,247 @@
 // 21.0 MB for the residual-std telemetry's one line of 4,194,304 cells
 // (1024 x 4096), 6.3 us at 3.35 TB/s.
 //
-// Design: a radix select over the order-preserving keys (as unsigned,
-// key ^ 0x80000000), 8 bits a pass, lines split over as many blocks as
-// it takes to fill the card (a block per 4096 entries: the telemetry's
-// line takes 1024 blocks; a Hopper block cannot hold its 16.8 MB of
-// keys, and the TPU kernel's whole line in VMEM has no counterpart).
-// Pass p histograms byte p of the keys whose higher bytes equal the
-// prefix found so far: each block counts into 256 shared-memory bins
-// (the lanes of a warp holding the same digit add once, through
-// __match_any_sync) and adds its bins to the line's 256 int32 bins in
-// device memory with integer atomics, exact in any order.  After each
-// pass one thread per line walks its bins to the digit holding the
-// remaining rank, appends it to the prefix and clears the bins.  Four
-// passes give the k_lo-th key; a fifth read counts the keys at or below
-// it and takes the least key above it (int32 atomicAdd / atomicMin), and
-// one thread per line forms the median.  The state (prefix, rank, valid
-// count) stays in device memory between launches: no host round trip.
-// A line is (start, stride) into the tensor as it lies, so no transposed
-// copy is made; along dim 0 the entries a warp reads are a row apart.
-// The work moves the bytes five times (31 us at the byte rate for the
-// telemetry's line) plus ten short launches: 0.12 ms on that line on an
-// NVIDIA H100 80GB HBM3 at 700 W, against 0.43-0.46 ms for the
-// torch.sort route it replaced (chip_smoke.py).
+// Design: the radix select of common.cuh (four 8-bit passes over the
+// keys as unsigned, key ^ 0x80000000, one warp scanning each line's 256
+// bins with a shuffle scan and a ballot; the upper middle from the last
+// pass's bins or the least key above its bucket, so no successor pass),
+// by one of two routes (stats.kernels.masked_median_geometry):
+// - block: lines of up to 4096 entries, W of them a block (W = 8 along
+//   dim 0, where a line is a column and a warp then reads 32-byte row
+//   segments; 1 along dim 1), their keys made once into shared memory and
+//   selected in one chain by icln_block_select.  One launch.
+// - grid: longer lines spread over blocks of 4096 entries (the
+//   telemetry's line takes 1024; a block cannot hold its 16.8 MB of
+//   keys).  A pass is one launch: each warp of a block counts its digits
+//   into its own 256 shared bins, and the block adds their sums to the
+//   line's int32 bins in device memory with integer atomics, exact in any
+//   order; then, after a __threadfence, the block that takes the line's
+//   last ticket (an int atomicAdd) picks the digit with the warp scan,
+//   clearing the bins as it reads them (atomicExch).  Pass 3's last block
+//   also forms the median.  Four launches (and the memset of the
+//   scratch), against ten, with a thread a line walking the bins serially,
+//   before this design.  The state (prefix, rank, counts) stays in device
+//   memory between launches: no host round trip.
+// Every thread issues the loads of four entries before it uses any.  A
+// line is (start, stride) into the tensor as it lies: no transposed copy
+// is made.
 
 #include "common.cuh"
-
-// unsigned order of the digits == signed order of the keys
-__device__ __forceinline__ unsigned icln_mm_radix(int key) {
-  return (unsigned)key ^ 0x80000000u;
-}
 
 struct IclnMmLines {
   const float* vals;
   const unsigned char* mask;
   int n;                  // entries per line
-  int chunk;              // entries per block
-  int bpl;                // blocks per line
+  int chunk;              // entries per block (grid route)
+  int bpl;                // blocks per line (grid route)
   long long line_stride;  // elements between the starts of two lines
   long long elem_stride;  // elements between two entries of a line
 };
 
-__device__ __forceinline__ int icln_mm_key(const IclnMmLines& L, long long base, int e,
-                                           bool* masked) {
-  const long long off = base + (long long)e * L.elem_stride;
-  *masked = L.mask[off] != 0;
-  return *masked ? ICLN_KEY_MASKED : icln_ordered_key(L.vals[off]);
+// The keys of entries e + j * step of a line (j < ICLN_LOAD_BATCH), all
+// loads issued before any is used; an entry at or past e1 gets
+// INT_MIN and counts as masked.  Masked entries take +inf's key.
+__device__ __forceinline__ void icln_mm_keys(const IclnMmLines& L, long long base, int e,
+                                             int step, int e1, int (&key)[ICLN_LOAD_BATCH],
+                                             bool (&masked)[ICLN_LOAD_BATCH]) {
+  float v[ICLN_LOAD_BATCH];
+#pragma unroll
+  for (int j = 0; j < ICLN_LOAD_BATCH; ++j) {
+    const int ej = e + j * step;
+    const long long off = base + (long long)ej * L.elem_stride;
+    masked[j] = ej >= e1 || L.mask[off] != 0;
+    v[j] = ej < e1 ? L.vals[off] : 0.0f;
+  }
+#pragma unroll
+  for (int j = 0; j < ICLN_LOAD_BATCH; ++j)
+    key[j] = e + j * step >= e1 ? INT_MIN : masked[j] ? ICLN_KEY_MASKED : icln_ordered_key(v[j]);
 }
 
-// One pass of the radix select: the histogram of the digit at `shift`
-// over the keys whose higher digits equal prefix[line].  FIRST (the top
-// digit) takes every key and also counts the line's valid entries.
-template <bool FIRST>
-__global__ void icln_mm_histogram_kernel(IclnMmLines L, int shift,
-                                         const unsigned* __restrict__ prefix,
-                                         int* __restrict__ hist, int* __restrict__ nvalid) {
-  __shared__ int bins[256];
-  __shared__ int red[64];
-  const int line = blockIdx.x / L.bpl;
-  const int e0 = (blockIdx.x - line * L.bpl) * L.chunk;
-  const int e1 = min(L.n, e0 + L.chunk);
-  const long long base = (long long)line * L.line_stride;
-  for (int i = threadIdx.x; i < 256; i += blockDim.x) bins[i] = 0;
+// ---- block route: W lines a block, one launch ----
+
+__global__ void __launch_bounds__(1024)
+    icln_mm_block_kernel(IclnMmLines L, int nlines, int W, float* __restrict__ out) {
+  extern __shared__ int smem[];
+  __shared__ IclnSelState st;
+  const int ls = icln_key_stride(L.n);
+  int* keys = smem;
+  int* hist = keys + W * ls;
+  for (int i = threadIdx.x; i < W * 256; i += blockDim.x) hist[i] = 0;
+  if (threadIdx.x < W) {
+    st.nv[threadIdx.x] = 0;
+    st.moff[threadIdx.x] = -1;  // the keys hold the mask (ICLN_KEY_MASKED)
+  }
   __syncthreads();
-  const unsigned want = FIRST ? 0u : prefix[line];
-  const int lane = threadIdx.x & 31;
+  const int c = threadIdx.x & (W - 1);
+  const long long line = (long long)blockIdx.x * W + c;
+  const bool live = line < nlines;
+  const long long base = line * L.line_stride;
   int valid = 0;
-  // the trip count is the warp's, so all its lanes meet at the match
-  for (int w0 = e0 + (threadIdx.x & ~31); w0 < e1; w0 += blockDim.x) {
-    const int e = w0 + lane;
-    int digit = -1;
-    if (e < e1) {
-      bool masked;
-      const unsigned u = icln_mm_radix(icln_mm_key(L, base, e, &masked));
-      valid += !masked;
-      if (FIRST || (u >> (shift + 8)) == want) digit = (int)((u >> shift) & 255u);
+  const int rstep = blockDim.x / W;
+  for (int rb = threadIdx.x / W; rb < L.n; rb += ICLN_LOAD_BATCH * rstep) {
+    int key[ICLN_LOAD_BATCH];
+    bool masked[ICLN_LOAD_BATCH];
+    icln_mm_keys(L, base, rb, rstep, live ? L.n : 0, key, masked);
+#pragma unroll
+    for (int j = 0; j < ICLN_LOAD_BATCH; ++j) {
+      const int r = rb + j * rstep;
+      if (r >= L.n) break;
+      keys[c * ls + r] = live ? key[j] : 0;
+      valid += !masked[j];
     }
-    const unsigned peers = __match_any_sync(0xffffffffu, digit);
-    if (digit >= 0 && lane == __ffs(peers) - 1) atomicAdd(&bins[digit], __popc(peers));
+  }
+  icln_lines_add(valid, W, st.nv);
+  __syncthreads();
+  icln_block_select(keys, L.n, W, hist, nullptr, st);
+  if (threadIdx.x < W && (long long)blockIdx.x * W + threadIdx.x < nlines)
+    out[(long long)blockIdx.x * W + threadIdx.x] = icln_sel_median(st, threadIdx.x);
+}
+
+// ---- grid route: a line over bpl blocks, a launch a pass ----
+
+struct IclnMmState {
+  int* hist;         // 256 bins a line
+  int* nvalid;       // valid entries a line
+  int* ticket;       // blocks of the line done with the current launch
+  int* above;        // least key above the last pass's bucket
+  int* krem;         // rank left inside the prefix's bucket
+  unsigned* prefix;  // digits of lo found so far
+};
+
+// After a block's atomics: true in the block that finished the line's
+// launch last (its ticket resets for the next launch).
+__device__ __forceinline__ bool icln_mm_last_block(const IclnMmState& S, int line, int bpl) {
+  __shared__ bool last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    last = atomicAdd(&S.ticket[line], 1) == bpl - 1;
+    if (last) S.ticket[line] = 0;
   }
   __syncthreads();
-  int* h = hist + (long long)line * 256;
-  for (int i = threadIdx.x; i < 256; i += blockDim.x)
-    if (bins[i]) atomicAdd(&h[i], bins[i]);
-  if (FIRST) {
-    int parity = 0;
-    valid = icln_block_reduce_int<ICLN_SUM>(valid, red, parity);
-    if (threadIdx.x == 0) atomicAdd(&nvalid[line], valid);
-  }
+  if (last) __threadfence();
+  return last;
 }
 
-// One thread per line: the digit whose bins hold the remaining rank
-// (the k_lo-th key's, set from the valid count on the first pass), the
-// prefix extended by it, the bins cleared for the next pass; the last
-// pass also arms the successor pass's accumulators.
-__global__ void icln_mm_select_kernel(int nlines, bool first, bool last,
-                                      int* __restrict__ hist, const int* __restrict__ nvalid,
-                                      int* __restrict__ krem, unsigned* __restrict__ prefix,
-                                      int* __restrict__ cnt_le, int* __restrict__ succ) {
-  const int line = blockIdx.x * blockDim.x + threadIdx.x;
-  if (line >= nlines) return;
-  const int k = first ? max(nvalid[line] - 1, 0) / 2 : krem[line];
-  int* h = hist + (long long)line * 256;
-  int digit = 0, below = 0;
-  for (; digit < 255; ++digit) {
-    const int c = h[digit];
-    if (below + c > k) break;
-    below += c;
-  }
-  for (int i = 0; i < 256; ++i) h[i] = 0;
-  krem[line] = k - below;
-  prefix[line] = first ? (unsigned)digit : (prefix[line] << 8) | (unsigned)digit;
-  if (last) {
-    cnt_le[line] = 0;
-    succ[line] = INT_MAX;
-  }
-}
+#define ICLN_MM_GRID_WARPS 8  // the grid route's blocks: 256 threads
 
-// The reference's _select_adjacent tail: keys at or below the k_lo-th
-// key, and the least key above it.
-__global__ void icln_mm_successor_kernel(IclnMmLines L, const unsigned* __restrict__ prefix,
-                                         int* __restrict__ cnt_le, int* __restrict__ succ) {
+// Pass PASS: the histogram of the digit at shift 24 - 8 * PASS over the
+// keys whose higher digits equal the line's prefix (pass 0: every key,
+// and the valid count; pass 3: also the least key above the bucket),
+// each warp into its own 256 shared bins, their sums added to the line's
+// bins in device memory; then the last block's pick, which after pass 3
+// takes the least key above lo and writes the median.
+template <int PASS>
+__global__ void icln_mm_pass_kernel(IclnMmLines L, IclnMmState S, float* __restrict__ out) {
+  __shared__ int bins[ICLN_MM_GRID_WARPS][256];
   __shared__ int red[64];
-  int parity = 0;
+  const int shift = 24 - 8 * PASS;
   const int line = blockIdx.x / L.bpl;
   const int e0 = (blockIdx.x - line * L.bpl) * L.chunk;
   const int e1 = min(L.n, e0 + L.chunk);
   const long long base = (long long)line * L.line_stride;
-  const int lo = (int)(prefix[line] ^ 0x80000000u);
-  int cnt = 0, above = INT_MAX;
-  for (int e = e0 + threadIdx.x; e < e1; e += blockDim.x) {
-    bool masked;
-    const int k = icln_mm_key(L, base, e, &masked);
-    cnt += k <= lo;
-    if (k > lo) above = min(above, k);
+  for (int i = threadIdx.x; i < ICLN_MM_GRID_WARPS * 256; i += blockDim.x) (&bins[0][0])[i] = 0;
+  __syncthreads();
+  int* wbins = bins[threadIdx.x >> 5];
+  const unsigned want = PASS == 0 ? 0u : S.prefix[line];
+  const int lane = threadIdx.x & 31;
+  int valid = 0, above = INT_MAX;
+  for (int eb = e0 + threadIdx.x; eb < e1; eb += ICLN_LOAD_BATCH * blockDim.x) {
+    int key[ICLN_LOAD_BATCH];
+    bool masked[ICLN_LOAD_BATCH];
+    icln_mm_keys(L, base, eb, blockDim.x, e1, key, masked);
+#pragma unroll
+    for (int j = 0; j < ICLN_LOAD_BATCH; ++j) {
+      if (eb + j * blockDim.x >= e1) break;
+      const unsigned u = icln_radix(key[j]);
+      valid += !masked[j];
+      if (PASS == 0 || (u >> (shift + 8)) == want)
+        atomicAdd(&wbins[(u >> shift) & 255u], 1);
+      else if (PASS == 3 && (u >> 8) > want)
+        above = min(above, key[j]);
+    }
   }
-  cnt = icln_block_reduce_int<ICLN_SUM>(cnt, red, parity);
-  above = icln_block_reduce_int<ICLN_MIN>(above, red, parity);
-  if (threadIdx.x == 0) {
-    atomicAdd(&cnt_le[line], cnt);
-    atomicMin(&succ[line], above);
+  __syncthreads();
+  int* h = S.hist + (long long)line * 256;
+  for (int i = threadIdx.x; i < 256; i += blockDim.x) {
+    int sum = 0;
+    for (int w = 0; w < ICLN_MM_GRID_WARPS; ++w) sum += bins[w][i];
+    if (sum) atomicAdd(&h[i], sum);
+  }
+  int parity = 0;
+  if (PASS == 0) {
+    valid = icln_block_reduce_int<ICLN_SUM>(valid, red, parity);
+    if (threadIdx.x == 0 && valid) atomicAdd(&S.nvalid[line], valid);
+  }
+  if (PASS == 3) {
+    above = icln_block_reduce_int<ICLN_MIN>(above, red, parity);
+    if (threadIdx.x == 0 && above != INT_MAX) atomicMin(&S.above[line], above);
+  }
+  if (!icln_mm_last_block(S, line, L.bpl) || threadIdx.x >= 32) return;
+  int b[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) b[i] = atomicExch(&h[8 * lane + i], 0);
+  const int nv = __ldcg(&S.nvalid[line]);
+  const int k = PASS == 0 ? icln_sel_klo(nv) : S.krem[line];
+  const IclnPick p = icln_warp_pick(b, k);
+  if (PASS < 3) {
+    if (lane == 0) {
+      S.krem[line] = k - p.below;
+      S.prefix[line] = PASS == 0 ? (unsigned)p.digit : (want << 8) | (unsigned)p.digit;
+      if (PASS == 2) S.above[line] = INT_MAX;
+    }
+    return;
+  }
+  // lo, and hi where more than k_hi keys lie at or below lo, else the
+  // least key above lo (K3's icln_sel_median)
+  const unsigned succ = icln_successor_radix(b, p.digit, want, icln_radix(__ldcg(&S.above[line])));
+  if (lane == 0) {
+    const int lo = (int)icln_radix((int)((want << 8) | (unsigned)p.digit));
+    const int count_le = icln_sel_klo(nv) - (k - p.below) + p.count;
+    const bool need = nv > 0 && count_le <= nv / 2;
+    out[line] = icln_sel_median_of(lo, need ? (int)icln_radix((int)succ) : lo, nv);
   }
 }
 
-__global__ void icln_mm_final_kernel(int nlines, const int* __restrict__ nvalid,
-                                     const unsigned* __restrict__ prefix,
-                                     const int* __restrict__ cnt_le,
-                                     const int* __restrict__ succ, float* __restrict__ out) {
-  const int line = blockIdx.x * blockDim.x + threadIdx.x;
-  if (line >= nlines) return;
-  const int nv = nvalid[line];
-  const int lo = (int)(prefix[line] ^ 0x80000000u);
-  const int hi = cnt_le[line] > nv / 2 ? lo : succ[line];
-  const float med = 0.5f * (icln_key_to_float(lo) + icln_key_to_float(hi));
-  out[line] = nv == 0 ? 0.0f : med;
-}
-
-// scratch: int32 [nlines * 256 bins | nvalid | krem | prefix | cnt_le |
-// succ], nlines * 261 entries, the wrapper's allocation.
+// Block route (bpl == 1): `lines` (W) lines a block of `threads` threads
+// and smem_bytes of dynamic shared memory; scratch unused.  Grid route:
+// scratch is int32 [nlines * 256 bins | nvalid | ticket | above | krem |
+// prefix], nlines * 261 entries, the wrapper's allocation.
 extern "C" int icln_masked_median(const float* vals, const unsigned char* mask, float* out,
                                   int* scratch, int n, int nlines, long long line_stride,
-                                  long long elem_stride, int chunk, int bpl, void* stream) {
+                                  long long elem_stride, int chunk, int bpl, int lines,
+                                  int threads, long long smem_bytes, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  int* hist = scratch;
-  int* nvalid = hist + (long long)nlines * 256;
-  int* krem = nvalid + nlines;
-  unsigned* prefix = reinterpret_cast<unsigned*>(krem + nlines);
-  int* cnt_le = krem + 2 * (long long)nlines;
-  int* succ = cnt_le + nlines;
   const IclnMmLines L{vals, mask, n, chunk, bpl, line_stride, elem_stride};
+  cudaError_t err;
+  if (bpl == 1) {
+    if (lines < 1 || lines > 8 || (lines & (lines - 1)) || threads % 32 || threads > 1024)
+      return (int)cudaErrorInvalidConfiguration;
+    err = cudaFuncSetAttribute(icln_mm_block_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
+    if (err != cudaSuccess) return (int)err;
+    icln_mm_block_kernel<<<(nlines + lines - 1) / lines, threads, (size_t)smem_bytes, s>>>(
+        L, nlines, lines, out);
+    return (int)cudaGetLastError();
+  }
+  IclnMmState S;
+  S.hist = scratch;
+  S.nvalid = S.hist + (long long)nlines * 256;
+  S.ticket = S.nvalid + nlines;
+  S.above = S.ticket + nlines;
+  S.krem = S.above + nlines;
+  S.prefix = reinterpret_cast<unsigned*>(S.krem + nlines);
   const long long blocks = (long long)nlines * bpl;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
-  const int threads = 256, sel_threads = 128;
-  const int sel_blocks = (nlines + sel_threads - 1) / sel_threads;
-  cudaError_t err = cudaMemsetAsync(hist, 0, sizeof(int) * (size_t)nlines * 257, s);
+  const unsigned grid = (unsigned)blocks, threads_g = 32 * ICLN_MM_GRID_WARPS;
+  err = cudaMemsetAsync(scratch, 0, sizeof(int) * (size_t)nlines * 258, s);
   if (err != cudaSuccess) return (int)err;
-  for (int pass = 0; pass < 4; ++pass) {
-    const int shift = 24 - 8 * pass;
-    if (pass == 0)
-      icln_mm_histogram_kernel<true><<<(unsigned)blocks, threads, 0, s>>>(L, shift, prefix,
-                                                                          hist, nvalid);
-    else
-      icln_mm_histogram_kernel<false><<<(unsigned)blocks, threads, 0, s>>>(L, shift, prefix,
-                                                                           hist, nvalid);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    icln_mm_select_kernel<<<sel_blocks, sel_threads, 0, s>>>(nlines, pass == 0, pass == 3, hist,
-                                                             nvalid, krem, prefix, cnt_le, succ);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  }
-  icln_mm_successor_kernel<<<(unsigned)blocks, threads, 0, s>>>(L, prefix, cnt_le, succ);
+  icln_mm_pass_kernel<0><<<grid, threads_g, 0, s>>>(L, S, out);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  icln_mm_final_kernel<<<sel_blocks, sel_threads, 0, s>>>(nlines, nvalid, prefix, cnt_le, succ,
-                                                          out);
+  icln_mm_pass_kernel<1><<<grid, threads_g, 0, s>>>(L, S, out);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  icln_mm_pass_kernel<2><<<grid, threads_g, 0, s>>>(L, S, out);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  icln_mm_pass_kernel<3><<<grid, threads_g, 0, s>>>(L, S, out);
   return (int)cudaGetLastError();
 }

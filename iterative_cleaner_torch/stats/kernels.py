@@ -176,9 +176,11 @@ _SIGNATURES = {
     "icln_cell_stats_dedisp": [_P] * 12 + [_LL] + [_I] * 10 + [_LL, _F, _P],
     "icln_shard_stats_disp": [_P] * 12 + [_LL] + [_I] * 10 + [_LL, _F, _P],
     "icln_shard_stats_dedisp": [_P] * 12 + [_LL] + [_I] * 10 + [_LL, _F, _P],
-    "icln_scaled_sides": [_P] * 9 + [_I, _I, _LL, _LL, _F, _I, _LL, _P],
+    "icln_scaled_sides": [_P] * 9 + [_I, _I, _LL, _LL, _F, _I, _I, _I, _LL,
+                                     _P],
     "icln_combine_zap": [_P] * 11 + [_LL, _P],
-    "icln_masked_median": [_P] * 4 + [_I, _I, _LL, _LL, _I, _I, _P],
+    "icln_masked_median": [_P] * 4 + [_I, _I, _LL, _LL, _I, _I, _I, _I, _LL,
+                                      _P],
     "icln_side_centre": [_P] * 6 + [_LL, _I, _I, _I, _P],
     "icln_side_scale": [_P] * 5 + [_LL, _I, _I, _I, _F, _P],
 }
@@ -710,17 +712,55 @@ def masked_median_keys(values, mask, dim):
 # K9: the masked median along one axis
 # --------------------------------------------------------------------------
 
-# Entries of a line one block of K9 takes: the residual-std telemetry's
-# line of 4,194,304 cells spreads over 1024 blocks.
+# Entries of a line one block of K9 takes: longer lines spread over
+# blocks (the residual-std telemetry's line of 4,194,304 cells over 1024).
 MEDIAN_BLOCK_ENTRIES = 4096
+SELECT_MAX_THREADS = 1024   # threads of a block-select launch (K3, K9)
+# Static shared memory of the block-select kernels (the select's state
+# and per-line flags, under 1 KB) beside their dynamic shared memory.
+SELECT_STATIC_SMEM = 1024
 
 
-def masked_median_geometry(n: int):
-    """(entries per block, blocks per line) of K9's launch on lines of
-    ``n`` entries: as few blocks as hold MEDIAN_BLOCK_ENTRIES each, the
-    entries shared out evenly."""
+def _select_threads(entries: int) -> int:
+    """Threads of a block select over ``entries`` keys in all: about 8
+    keys a thread a pass, 64 to SELECT_MAX_THREADS, a multiple of 32."""
+    return min(SELECT_MAX_THREADS, max(64, -(-entries // 8 // 32) * 32))
+
+
+def _key_stride(n: int) -> int:
+    """Shared-memory int32 keys a line of ``n`` takes (common.cuh's
+    ``icln_key_stride``): ``n`` rounded up to 32, plus 4, so that rows stay
+    16-byte aligned and adjacent lines start 4 banks apart."""
+    return -(-n // 32) * 32 + 4
+
+
+class MedianPlan(NamedTuple):
+    """K9's launch on lines of ``n`` entries: ``route`` ``"block"`` (one
+    kernel; ``lines`` lines a block of ``threads``, ``smem`` bytes of
+    dynamic shared memory) or ``"grid"`` (a memset of the scratch and four
+    kernels, one a pass; a line over ``bpl`` blocks of ``chunk`` entries,
+    256 threads)."""
+    route: str
+    chunk: int
+    bpl: int
+    lines: int
+    threads: int
+    smem: int
+
+
+def masked_median_geometry(n: int, dim: int = 1) -> MedianPlan:
+    """K9's :class:`MedianPlan` on lines of ``n`` entries along ``dim``:
+    the block route where a line has at most MEDIAN_BLOCK_ENTRIES (8
+    lines a block along dim 0, whose lines are columns: a warp then reads
+    32-byte row segments; 1 along dim 1), else the grid route with as few
+    blocks a line as hold MEDIAN_BLOCK_ENTRIES each, the entries shared out
+    evenly."""
     bpl = max(1, -(-n // MEDIAN_BLOCK_ENTRIES))
-    return -(-n // bpl), bpl
+    if bpl > 1:
+        return MedianPlan("grid", -(-n // bpl), bpl, 1, 256, 0)
+    lines = 8 if dim == 0 else 1
+    smem = 4 * lines * (_key_stride(n) + 256)
+    return MedianPlan("block", n, 1, lines, _select_threads(lines * n), smem)
 
 
 def masked_median(values, mask, dim):
@@ -749,15 +789,17 @@ def masked_median(values, mask, dim):
     if n == 0 or nlines == 0:
         raise ValueError(f"masked_median of an empty line set "
                          f"{tuple(values.shape)} along dim {dim}")
-    chunk, bpl = masked_median_geometry(n)
-    # 256 histogram bins and five per-line states (see masked_median.cu)
-    scratch = torch.empty((nlines * 261,), dtype=torch.int32,
-                          device=values.device)
+    plan = masked_median_geometry(n, dim)
+    # the grid route's 256 histogram bins and five per-line states (see
+    # masked_median.cu); the block route needs none
+    scratch = torch.empty((nlines * 261 if plan.route == "grid" else 1,),
+                          dtype=torch.int32, device=values.device)
     lib = load_library()
     with torch.cuda.device(values.device):
         rc = lib.icln_masked_median(
             _ptr(values), _ptr(mask), _ptr(out), _ptr(scratch), n, nlines,
-            line_stride, elem_stride, chunk, bpl, _stream(values))
+            line_stride, elem_stride, plan.chunk, plan.bpl, plan.lines,
+            plan.threads, plan.smem, _stream(values))
     masked_median.launches += 1
     _check_rc(rc, "masked_median")
     return out
@@ -793,11 +835,59 @@ def scaled_sides_plain(diagnostics, cell_mask, axis, thresh):
 # kernels for the centring and the side (csrc/sides_tail.cu)
 # --------------------------------------------------------------------------
 
+class SidesPlan(NamedTuple):
+    """K3's launch (``scaled_sides.cu``): ``lines`` (W) adjacent lines a
+    block, ``diags`` (D) of the four diagnostics selected at once (in
+    4 / D turns), ``threads`` a block and ``smem`` bytes of dynamic shared
+    memory."""
+    lines: int
+    diags: int
+    threads: int
+    smem: int
+
+
+def scaled_sides_smem(n: int, diags: int, lines: int) -> int:
+    """Bytes of K3's dynamic shared memory: ``lines * diags`` lines of
+    int32 keys and 256 int32 bins each, and each line's mask as bits."""
+    return 4 * (lines * diags * (_key_stride(n) + 256)
+                + lines * -(-n // 32))
+
+
+def _sides_fits(n: int, diags: int, lines: int) -> bool:
+    return (scaled_sides_smem(n, diags, lines) + SELECT_STATIC_SMEM
+            <= _SMEM_LIMIT)
+
+
+def scaled_sides_geometry(n: int, axis: int) -> SidesPlan:
+    """K3's :class:`SidesPlan` on lines of ``n`` entries along ``axis``:
+    the most lines a block that fit — along axis 0 (a line is a column of
+    the row-major plane) up to 8, so that a warp reads 32-byte row
+    segments; along axis 1 (a line is a row) one — then the most
+    diagnostics at once (4, 2 or 1) whose keys fit with them.  Along axis 0
+    the wide reads are worth more than the diagnostics at once: at 2048
+    subints 8 columns x 2 diagnostics take 0.49 ms against 0.59 for 4 x 4,
+    at 4096 8 x 1 take 0.97 ms against 1.19 for 4 x 2 and 1.49 for 2 x 4
+    (``tools/time_cell_stats.py --k3-plans``, H100 80GB HBM3 at 700 W).
+    Every block line of :func:`scaled_sides_route` has a plan."""
+    for lines in ((8, 4, 2, 1) if axis == 0 else (1,)):
+        for diags in (4, 2, 1):
+            if _sides_fits(n, diags, lines):
+                return SidesPlan(lines, diags, _select_threads(lines * n),
+                                 scaled_sides_smem(n, diags, lines))
+    raise ValueError(f"scaled_sides: lines of {n} entries do not fit a "
+                     f"block (scaled_sides_route takes them long)")
+
+
+# The longest line K3 takes in one block; longer lines go through
+# scaled_sides_long.  The boundary is kept where the port has always drawn
+# it, so that no shape changes route.
+LONGEST_BLOCK_LINE = 46486
+
+
 def scaled_sides_route(n: int) -> str:
-    """``"block"`` where K3 holds a line of ``n`` entries (its values and
-    mask, 5 bytes an entry, and 16 more) in one block's shared memory,
-    ``"long"`` above: n = 46,486 is the longest block line."""
-    return "block" if 5 * n + 16 <= _SMEM_LIMIT else "long"
+    """``"block"`` where K3 takes a line of ``n`` entries in one block
+    (n up to LONGEST_BLOCK_LINE), ``"long"`` above."""
+    return "block" if n <= LONGEST_BLOCK_LINE else "long"
 
 
 def _line_dims(plane, axis):
@@ -926,14 +1016,14 @@ def scaled_sides(diagnostics, cell_mask, axis, thresh):
     for i, d in enumerate(diagnostics):
         _require(d, f"diagnostics[{i}]", torch.float32, (nsub, nchan))
     _require(cell_mask, "cell_mask", torch.bool, (nsub, nchan))
-    if axis == 0:
-        n, nlines, line_stride, elem_stride = nsub, nchan, 1, nchan
-    else:
-        n, nlines, line_stride, elem_stride = nchan, nsub, nchan, 1
+    n = nsub if axis == 0 else nchan
     if scaled_sides_route(n) == "long":
         return scaled_sides_long(diagnostics, cell_mask, axis, thresh)
-    smem = n * 4 + n + 16
-    threads = 256 if n <= 1024 else 512
+    plan = scaled_sides_geometry(n, axis)
+    if axis == 0:
+        nlines, line_stride, elem_stride = nchan, 1, nchan
+    else:
+        nlines, line_stride, elem_stride = nsub, nchan, 1
     inv_t = float(np.float32(1.0) / np.float32(thresh))
     outs = [torch.empty_like(diagnostics[0]) for _ in range(4)]
     lib = load_library()
@@ -941,7 +1031,8 @@ def scaled_sides(diagnostics, cell_mask, axis, thresh):
         rc = lib.icln_scaled_sides(
             *(_ptr(d) for d in diagnostics), _ptr(cell_mask),
             *(_ptr(o) for o in outs), n, nlines, line_stride, elem_stride,
-            inv_t, threads, smem, _stream(cell_mask))
+            inv_t, plan.lines, plan.diags, plan.threads, plan.smem,
+            _stream(cell_mask))
     scaled_sides.launches[axis] += 1
     _check_rc(rc, f"scaled_sides(axis={axis})")
     return tuple(outs)

@@ -21,7 +21,15 @@ lines.  Long profiles (nbin 8192) and ragged shapes (odd nbin, nbin/2 + 1
 not a multiple of the DFT tile, a short last group, a cube not 16-byte
 aligned) within the same tolerances, K1 bit-equal from run to run, and
 K3 and K8 bit-equal on scaler lines of 50,000 and 100,000 entries (K9
-and the tail kernels in place of K3).
+and the tail kernels in place of K3).  K3 bit-equal along both axes on
+the edge lines and on tie-heavy lines (three distinct values, zero-MAD,
+fully masked and one-valid lines, NaN and +inf) at 1 to 46,486 entries,
+both sides of the plan's change from four diagnostics at once to two,
+under every plan of 8, 4, 2 and 1 lines a block, with a line count that is not a multiple of 8; K9 on the edge lines by
+both routes (one block a line, and lines spread over blocks) and on
+tie-heavy lines, one counted launch a call, and its device operations a
+call in a torch.profiler trace (1 on the block route, at most 5 on the
+grid route).
 """
 
 import numpy as np
@@ -48,7 +56,7 @@ from iterative_cleaner_torch.ops.dsp import (
 from iterative_cleaner_torch.parallel import distributed
 from iterative_cleaner_torch.parallel.mesh import cell_mesh
 from iterative_cleaner_torch.stats import kernels as tk
-from tests.torch_median_edges import median_edge_lines
+from tests.torch_median_edges import median_edge_lines, sides_edge_planes
 
 pytestmark = pytest.mark.cuda
 
@@ -432,3 +440,155 @@ def test_k3_k8_long_lines_bit_equal_on_card(card, n, axis):
     pw, ps = tk.fused_combine_plain(d, mask, worig, 5.0, 4.0)
     assert _bits_mismatch(fs, ps) == 0
     assert _bits_mismatch(fw, pw) == 0
+
+
+# K3's and K9's block radix select (common.cuh): the edge lines, tie-heavy
+# lines, zero-MAD, fully masked and one-valid lines, at the line lengths
+# where the launch plan changes (scaled_sides_geometry) and with a line
+# count that is not a multiple of the 8 lines a block along axis 0.
+
+def _d_boundary(axis):
+    """The longest line K3 selects four diagnostics of at once."""
+    n = 1
+    while tk.scaled_sides_geometry(n + 1, axis).diags == 4:
+        n += 1
+    return n
+
+
+def _tie_sides_planes(n, nlines, axis, seed):
+    """Four planes of ``nlines`` lines of ``n`` entries along ``axis``
+    drawn from 3 distinct values (duplicates straddle every middle), with
+    a fully masked line, a one-valid line, a constant (zero-MAD) line, an
+    unmasked line, a line of even and one of odd valid count, and NaN and
+    +inf in d3."""
+    rng = np.random.default_rng(seed)
+    pick = lambda vals: rng.choice(np.float32(vals), size=(nlines, n))
+    d = [pick([1.0, 2.0, 3.0]), pick([-0.5, 0.0, 0.5]),
+         pick([0.25, 4.0, 1e20]), pick([-1.0, 0.0, 2.0])]
+    mask = rng.random((nlines, n)) < 0.3
+    mask[0] = True
+    mask[1] = True
+    mask[1, n // 2] = False
+    for p in d:
+        p[2] = p[2, 0]
+    mask[3] = False
+    mask[4] = False
+    mask[4, : 1 + (n % 2 == 0)] = True
+    mask[5] = False
+    mask[5, :1] = True
+    d[3][6, n // 3] = np.nan
+    d[3][7, n // 2] = np.inf
+    d[0][8, :] = np.float32(2.0)
+    d = [torch.from_numpy(p) for p in d]
+    mask = torch.from_numpy(mask)
+    if axis == 0:
+        d, mask = [p.t().contiguous() for p in d], mask.t().contiguous()
+    return d, mask
+
+
+def _sides_bit_equal(d, mask, axis, card):
+    d = [p.to(card) for p in d]
+    mask = mask.to(card)
+    before = list(tk.scaled_sides.launches)
+    got = tk.scaled_sides(d, mask, axis, 5.0)
+    torch.cuda.synchronize()
+    assert tk.scaled_sides.launches[axis] == before[axis] + 1
+    want = tk.scaled_sides_plain(d, mask, axis, 5.0)
+    assert [_bits_mismatch(a, b) for a, b in zip(got, want)] == [0] * 4
+
+
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("nlines", [8, 11])
+def test_k3_edge_lines_bit_equal_on_card(card, axis, nlines):
+    _sides_bit_equal(*sides_edge_planes(axis, nlines), axis, card)
+
+
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("n", [1, 2, 31, 32, 33, 1023, 1024, 4096, "d4",
+                               "d4+1", 7000, 14080, 20000, 46486])
+def test_k3_tie_heavy_lines_bit_equal_on_card(card, axis, n):
+    if isinstance(n, str):
+        n = _d_boundary(axis) + (1 if n.endswith("+1") else 0)
+    assert tk.scaled_sides_route(n) == "block"
+    nlines = 11 if n < 20000 else 9
+    _sides_bit_equal(*_tie_sides_planes(n, nlines, axis, seed=n), axis,
+                     card)
+
+
+@pytest.mark.parametrize("dim", [0, 1])
+@pytest.mark.parametrize("reps", [1, 600, 601])
+def test_k9_edge_lines_both_routes_on_card(card, dim, reps):
+    """The edge lines as they are (the block route) and each repeated
+    600 or 601 times into lines over 4096 entries (the grid route, even
+    and odd counts): one counted launch a call, bit-equal to the plain
+    version."""
+    v, m = median_edge_lines()
+    v, m = v.repeat(1, reps), m.repeat(1, reps)
+    if dim == 0:
+        v, m = v.t().contiguous(), m.t().contiguous()
+    route = tk.masked_median_geometry(v.shape[dim], dim).route
+    assert route == ("block" if reps == 1 else "grid")
+    v, m = v.to(card), m.to(card)
+    before = tk.masked_median.launches
+    got = tk.masked_median(v, m, dim)
+    torch.cuda.synchronize()
+    assert tk.masked_median.launches == before + 1
+    want, _ = tk.masked_median_keys(v, m, dim)
+    assert _bits_mismatch(got, want) == 0
+
+
+def _tie_median_lines(seed):
+    """Lines of 1 to 1000 entries, by length, about 30% masked: drawn from
+    three distinct values (duplicates straddle every middle; -0 beside +0;
+    +inf; NaN), a normal line, a constant line and a fully masked one."""
+    rng = np.random.default_rng(seed)
+    lines = {}
+    for n in (1, 2, 3, 4, 7, 8, 33, 64, 257, 1000):
+        rows = [rng.choice(np.float32(vals), n)
+                for vals in ([1.0, 2.0, 3.0], [-0.0, 0.0, 1.0],
+                             [np.inf, -1.0, 5.0], [np.nan, 1.0, 1.0])]
+        rows += [rng.standard_normal(n).astype(np.float32),
+                 np.full(n, 2.5, np.float32), np.full(n, 2.5, np.float32)]
+        mask = rng.random((len(rows), n)) < 0.3
+        mask[-2] = False
+        mask[-1] = True
+        lines[n] = (torch.from_numpy(np.stack(rows)), torch.from_numpy(mask))
+    return lines
+
+
+@pytest.mark.parametrize("dim", [0, 1])
+@pytest.mark.parametrize("route", ["block", "grid"])
+def test_k9_tie_heavy_lines_both_routes_on_card(card, dim, route):
+    """Tie-heavy lines as they are (the block route) and repeated into
+    lines over 4096 entries (the grid route): bit-equal to the plain
+    version."""
+    for n, (v, m) in _tie_median_lines(seed=dim).items():
+        reps = 1 if route == "block" else -(-(tk.MEDIAN_BLOCK_ENTRIES + 1)
+                                            // n)
+        v, m = v.repeat(1, reps), m.repeat(1, reps)
+        if dim == 0:
+            v, m = v.t().contiguous(), m.t().contiguous()
+        assert tk.masked_median_geometry(v.shape[dim], dim).route == route
+        v, m = v.to(card), m.to(card)
+        got = tk.masked_median(v, m, dim)
+        want, _ = tk.masked_median_keys(v, m, dim)
+        assert _bits_mismatch(got, want) == 0, n
+
+
+@pytest.mark.parametrize("dim", [0, 1])
+@pytest.mark.parametrize("n,limit", [(1024, 1), (4096, 1), (4097, 5),
+                                     (4194304, 5)])
+def test_k9_device_ops_a_call_on_card(card, dim, n, limit):
+    """K9's device operations a call, counted in a torch.profiler trace:
+    one kernel on the block route; the scratch's memset and four passes on
+    the grid route."""
+    from iterative_cleaner_torch.profile_iteration import device_ops
+
+    g = torch.Generator(device=card).manual_seed(n)
+    shape = (n, 8) if dim == 0 else (8, n)
+    v = torch.randn(shape, generator=g, device=card)
+    m = torch.rand(shape, generator=g, device=card) < 0.1
+    ops = device_ops(lambda: tk.masked_median(v, m, dim))
+    assert 0 < sum(ops.values()) <= limit, ops
+    assert all("icln_mm_" in name or "memset" in name.lower()
+               for name in ops), ops

@@ -1,6 +1,6 @@
-"""The hand-made edge lines K9 (the masked median) is held to, shared by
-the CPU parity tests, the card tests and chip_smoke.py.  Imports only
-torch."""
+"""The hand-made edge lines K9 (the masked median) and K3 (the scaled
+sides) are held to, shared by the CPU parity tests, the card tests and
+chip_smoke.py.  Imports only torch."""
 
 import torch
 
@@ -31,3 +31,20 @@ def median_edge_lines():
     m[6, 1:] = True
     m[7, 6] = True
     return v, m
+
+
+def sides_edge_planes(axis, nlines):
+    """The edge lines of :func:`median_edge_lines` as ``nlines`` lines
+    (tiled) of all four scaler diagnostics along ``axis``: NaN only in the
+    rFFT diagnostic d3, the masked diagnostics d0-d2 holding finite
+    stand-ins where it stood.  Returns the four planes and the mask.
+    chip_smoke.py and tests/test_torch_cuda.py hold K3 to them."""
+    v, m = median_edge_lines()
+    reps = -(-nlines // v.shape[0])
+    v, m = v.repeat(reps, 1)[:nlines], m.repeat(reps, 1)[:nlines]
+    nan = torch.isnan(v)
+    d = [torch.where(nan, torch.full_like(v, s), v * f)
+         for s, f in ((7.5, 1.0), (-3.0, 0.5), (0.0, -2.0))] + [v]
+    if axis == 0:
+        d, m = [p.t().contiguous() for p in d], m.t().contiguous()
+    return d, m

@@ -1,14 +1,20 @@
 """Time the cube kernels on the card: K1, K2, K6, K7 and, where the
 package has them, K10 and the cell-sharded clean's tree-reduced selects
-on one NCCL rank; and fingerprint what they compute.
+on one NCCL rank; then the selects on K2's planes: K3 along both axes,
+K8 and K9 (the residual-std telemetry's one line, and along both axes of
+the d_std plane); and fingerprint what they compute.
 
     python tools/time_cell_stats.py [--shape S C B] [--reps N] [--no-selects]
+        [--k3-plans W:D ...]
 
 Random inputs of the given shape (default the full-size golden's,
 1024 x 4096 x 128), made on the card from seed 0, CUDA-event means over
 ``--reps`` back-to-back launches after a warm-up, and the SHA-256 of
-each kernel's output planes on those inputs.  Run it by path with
-``PYTHONPATH`` naming the checkout whose ``iterative_cleaner_torch`` to
+each kernel's output planes on those inputs.  ``--k3-plans W:D ...``
+also times K3 along axis 0 launched straight through the kernel library
+at W columns a block and D diagnostics at once, plans the package's
+``scaled_sides_geometry`` may not pick (``ms_k3_plans``).  Run it by path
+with ``PYTHONPATH`` naming the checkout whose ``iterative_cleaner_torch`` to
 time: the same script then times two trees in turns (parent, change,
 change, parent) in one call on one card, and equal digests show their
 kernels' planes equal bit for bit.  Prints one JSON line, with the
@@ -18,12 +24,15 @@ card's name and power limit.
 from __future__ import annotations
 
 import argparse
+import ctypes
+import functools
 import hashlib
 import json
 import os
 import subprocess
 import tempfile
 
+import numpy as np
 import torch
 
 
@@ -46,6 +55,8 @@ def main() -> int:
     p.add_argument("--reps", type=int, default=5)
     p.add_argument("--no-selects", action="store_true",
                    help="skip the sharded selects on one NCCL rank")
+    p.add_argument("--k3-plans", nargs="*", default=[], metavar="W:D",
+                   help="also time K3 along axis 0 under these plans")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("time_cell_stats: no CUDA device present")
@@ -88,11 +99,31 @@ def main() -> int:
             cube, rot_t, nyq, t, w, mask)
         calls["shard_diagnostics_dedisp"] = \
             lambda: K.shard_diagnostics_dedisp(cube, t, window, w, mask)
+    diags = K.cell_diagnostics_disp(cube, rot_t, nyq, t, w, mask)
+    line_v, line_m = diags[0].reshape(1, -1), mask.reshape(1, -1)
+    selects = {
+        "scaled_sides_axis0": lambda: K.scaled_sides(diags, mask, 0, 5.0),
+        "scaled_sides_axis1": lambda: K.scaled_sides(diags, mask, 1, 5.0),
+        "fused_combine": lambda: K.fused_combine(diags, mask, w, 5.0, 5.0),
+        "masked_median_line": lambda: (K.masked_median(line_v, line_m, 1),),
+        "masked_median_dim0": lambda: (K.masked_median(diags[0], mask, 0),),
+        "masked_median_dim1": lambda: (K.masked_median(diags[0], mask, 1),),
+    }
     out = {"card": card, "package": os.path.dirname(
         iterative_cleaner_torch.__file__), "shape": [nsub, nchan, nbin],
         "reps": args.reps,
         "ms": {name: _ms(fn, args.reps) for name, fn in calls.items()},
         "sha256": {name: _digest(fn()) for name, fn in calls.items()}}
+    out["ms"].update({name: _ms(fn, 4 * args.reps)
+                      for name, fn in selects.items()})
+    out["sha256"].update({name: _digest(fn()) for name, fn in selects.items()})
+    if args.k3_plans:
+        out["ms_k3_plans"], out["sha256_k3_plans"] = {}, {}
+        for spec in args.k3_plans:
+            fn = functools.partial(_k3_axis0_under, K, diags, mask,
+                                   *map(int, spec.split(":")))
+            out["ms_k3_plans"][spec] = _ms(fn, 4 * args.reps)
+            out["sha256_k3_plans"][spec] = _digest(fn())
     if hasattr(K, "shard_diagnostics_disp") and not args.no_selects:
         out["one_nccl_rank_ms"] = _selects(K.cell_diagnostics_disp(
             cube, rot_t, nyq, t, w, mask), mask, w, args.reps)
@@ -107,6 +138,26 @@ def _digest(planes):
     for t in planes:
         h.update(t.contiguous().cpu().numpy().tobytes())
     return h.hexdigest()
+
+
+def _k3_axis0_under(K, diags, mask, lines, nd):
+    """K3 along axis 0 (threshold 5) at ``lines`` columns a block and
+    ``nd`` diagnostics at once, launched through the kernel library."""
+    n, nchan = mask.shape
+    smem = K.scaled_sides_smem(n, nd, lines)
+    if smem + K.SELECT_STATIC_SMEM > K._SMEM_LIMIT:
+        raise SystemExit(f"K3 plan {lines}:{nd} does not fit a block at "
+                         f"{n} subints")
+    outs = [torch.empty_like(diags[0]) for _ in range(4)]
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    rc = K.load_library().icln_scaled_sides(
+        *map(ptr, diags), ptr(mask), *map(ptr, outs), n, nchan, 1, nchan,
+        float(np.float32(1) / np.float32(5.0)), lines, nd,
+        K._select_threads(lines * n), smem,
+        torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise SystemExit(f"K3 plan {lines}:{nd}: CUDA error {rc}")
+    return outs
 
 
 def _selects(diags, mask, w, reps):
