@@ -42,7 +42,13 @@ on the telemetry line and 1 along an axis of the plane); runs
 the CLI session a user runs on the same archive written as PSRFITS
 (``--metrics-json --prom-textfile --log-format json --timing``) and
 holds its output mask, run report, Prometheus file and event log to
-the in-process clean; cleans a 16 x 32 x 8192 archive (long profiles:
+the in-process clean, its load to the native PSRFITS reader (held bit
+for bit to the pure-Python reader on the same file, both timed); writes
+the archive as ``.icar`` and runs one session over it and the PSRFITS
+file with ``--prefetch 1``, both output masks held to the in-process
+clean and the ``.icar`` output's cube to its input's, each archive's
+load seconds printed (the second the wait for its prefetched load);
+cleans a 16 x 32 x 8192 archive (long profiles:
 the DFT tables streamed in chunks) on the default, profile-baseline and
 dedispersed routes with each mask held to the port's CPU clean and each
 kernel to its plain version there; holds K3 and K8 bit for bit to their
@@ -71,6 +77,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -119,9 +126,10 @@ ONLINE_MAX_FRACTION = 1e-3
 # the script.
 GLOO_RANKS, GLOO_TIMEOUT_S = 4, 600
 
-# The CLI phase writes the archive as PSRFITS (nbits 32) and the CLI
-# writes its cleaned copy beside it: room for both and a margin.
-CLI_DISK_FACTOR = 2.5
+# The CLI phases write the archive as PSRFITS (nbits 32) and as .icar,
+# and the CLI writes a cleaned copy beside each: room for the four (about
+# 4.1 float32 cubes) and a margin.
+CLI_DISK_FACTOR = 4.5
 
 # Tolerances of the kernel checks (see tests/test_torch_kernels.py):
 K1_RTOL = 1e-5   # of sum |w * disp|: float32 sums in another order
@@ -300,19 +308,38 @@ def gloo_shard_rank(shard_dir):
             "result": result}
 
 
+def same_archive(a, b) -> list:
+    """The fields in which two loads of one file differ (arrays bit for
+    bit)."""
+    diff = [k for k in ("data", "weights", "freqs_mhz")
+            if not np.array_equal(getattr(a, k), getattr(b, k))]
+    return diff + [k for k in ("period_s", "dm", "centre_freq_mhz", "source",
+                               "mjd_start", "mjd_end", "pol_state",
+                               "dedispersed", "psrfits_nbits")
+                   if getattr(a, k) != getattr(b, k)]
+
+
 def cli_phase(ar, whole, want_counts, tag):
     """The CLI session on the archive written as PSRFITS (nbits 32: its
     float32 cube is the in-memory archive's cast), in a temporary
-    directory removed afterwards.  Holds the output mask to the
-    in-process clean ``whole`` (bit for bit) and the golden, the run
-    report's iteration history to ``whole.iter_metrics`` (exactly), the
-    Prometheus file to its parser, the event log's sequence, and the
-    launch counts to ``want_counts``.  Returns the phase's times."""
+    directory removed afterwards.  First loads the file once through the
+    native reader and once through the pure-Python one and holds the
+    two bit for bit.  Holds the session's output mask to the in-process
+    clean ``whole`` (bit for bit) and the golden, the run report's
+    iteration history to ``whole.iter_metrics`` (exactly), the
+    Prometheus file to its parser, the event log's sequence, the launch
+    counts to ``want_counts``, and its load to the native reader.  Then
+    phase 3h (:func:`prefetch_phase`) in the same directory.  Returns
+    the phases' times."""
     import torch
 
     from iterative_cleaner_torch import cli
-    from iterative_cleaner_torch.io import load_archive
-    from iterative_cleaner_torch.io.psrfits import save_psrfits
+    from iterative_cleaner_torch.io import load_archive, native
+    from iterative_cleaner_torch.io.psrfits import (
+        _load_psrfits_native,
+        load_psrfits,
+        save_psrfits,
+    )
     from iterative_cleaner_torch.stats import kernels as K
     from iterative_cleaner_torch.telemetry import (
         iter_metrics_dict,
@@ -335,9 +362,24 @@ def cli_phase(ar, whole, want_counts, tag):
         save_psrfits(ar, path, nbits=32)
         write_in_s = time.perf_counter() - t0
         size_gb = os.path.getsize(path) / 1e9
+        t0 = time.perf_counter()
+        nat = _load_psrfits_native(path)
+        native_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pure = load_psrfits(path, prefer_native=False)
+        pure_s = time.perf_counter() - t0
+        differ = ["native reader declined"] if nat is None \
+            else same_archive(nat, pure)
+        print(f"cli: golden.sf loaded by the native reader in {native_s:.3f} "
+              f"s, by the pure-Python reader in {pure_s:.3f} s; fields that "
+              f"differ (arrays bit for bit): {differ} {tag}", flush=True)
+        if differ:
+            fail(f"cli: the native and pure-Python loads differ in {differ}")
+        nat = pure = None
         os.chdir(work)
         torch.cuda.synchronize()
         K.reset_launch_counts()
+        native.reset_load_counts()
         t0 = time.perf_counter()
         rc = cli.main(["--metrics-json", "run.json", "--prom-textfile",
                        "run.prom", "--log-format", "json", "--timing",
@@ -345,10 +387,13 @@ def cli_phase(ar, whole, want_counts, tag):
         torch.cuda.synchronize()
         cli_s = time.perf_counter() - t0
         counts = K.launch_counts()
+        loads = native.load_counts()
         if rc != 0:
             fail(f"cli: exit code {rc}")
         if counts != want_counts:
             fail(f"cli: launch counts {counts}, want {want_counts}")
+        if loads != {"psrfits": 1, "icar": 0}:
+            fail(f"cli: native loads {loads}, want one PSRFITS load")
         out = load_archive("golden.sf_cleaned.sf")
         if out.weights.shape != shape or out.data.shape != ar.data.shape:
             fail(f"cli: output malformed: {out.weights.shape}")
@@ -374,7 +419,8 @@ def cli_phase(ar, whole, want_counts, tag):
               f"{json.dumps(counts)}; output mask against the in-process "
               f"clean: {n_mask} cells differ (tolerance 0); iter_history "
               f"equal to iter_metrics: {hist_ok}; Prometheus samples "
-              f"{len(prom)}; events {seq} {tag}", flush=True)
+              f"{len(prom)}; events {seq}; native loads {loads} {tag}",
+              flush=True)
         if n_mask:
             fail("cli: output mask differs from the in-process clean")
         golden_check("cli", dataclasses.replace(
@@ -386,11 +432,89 @@ def cli_phase(ar, whole, want_counts, tag):
             fail("cli: the Prometheus file lacks the cleaned archive")
         if seq != want_seq or kinds.count("phase") != 3:
             fail(f"cli: event sequence {kinds}")
-        return {"psrfits_gb": size_gb, "write_in_s": write_in_s,
-                "cli_s": cli_s, **{f"{k}_s": v for k, v in phases.items()}}
+        times = {"psrfits_gb": size_gb, "write_in_s": write_in_s,
+                 "native_load_s": native_s, "pure_load_s": pure_s,
+                 "cli_s": cli_s, **{f"{k}_s": v for k, v in phases.items()}}
+        times.update(prefetch_phase(ar, whole, want_counts, tag))
+        return times
     finally:
         os.chdir(cwd)
         shutil.rmtree(work, ignore_errors=True)
+
+
+def prefetch_phase(ar, whole, want_counts, tag):
+    """Phase 3h, in the working directory of phase 3e (``golden.sf`` is
+    there): the archive written as ``golden.icar``, then one CLI session
+    over ``golden.icar`` and ``golden.sf`` with ``--prefetch 1``, so
+    golden.sf loads on the loader's thread while golden.icar cleans.
+    Holds both output masks to ``whole`` bit for bit, the ``.icar``
+    output's cube to its input's bit for bit, the launch counts to twice
+    ``want_counts`` and the loads to the native readers.  Prints each
+    archive's load seconds: the second is the wait for the prefetched
+    load.  Returns the times."""
+    import torch
+
+    from iterative_cleaner_torch import cli
+    from iterative_cleaner_torch.io import load_archive, native
+    from iterative_cleaner_torch.stats import kernels as K
+    from iterative_cleaner_torch.telemetry.events import read_events
+
+    t0 = time.perf_counter()
+    native.save_icar(ar, "golden.icar")
+    icar_write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    native.load_icar("golden.icar")
+    icar_load_s = time.perf_counter() - t0
+    icar_gb = os.path.getsize("golden.icar") / 1e9
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    native.reset_load_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(["--prefetch", "1", "--timing", "--metrics-json",
+                   "run2.json", "--event-log", "run2.events.jsonl",
+                   "golden.icar", "golden.sf"])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t0
+    counts = K.launch_counts()
+    loads = native.load_counts()
+    if rc != 0:
+        fail(f"prefetch: exit code {rc}")
+    want = {k: 2 * v for k, v in want_counts.items()}
+    if counts != want:
+        fail(f"prefetch: launch counts {counts}, want {want}")
+    if loads != {"psrfits": 1, "icar": 1}:
+        fail(f"prefetch: native loads {loads}, want one of each")
+    load_s = [e["seconds"] for e in read_events("run2.events.jsonl")
+              if e["event"] == "phase" and e["phase"] == "load"]
+    with open("run2.json") as f:
+        phases = json.load(f)["phases_s"]
+    n_mask = {}
+    for name in ("golden.icar_cleaned.icar", "golden.sf_cleaned.sf"):
+        w = load_archive(name).weights
+        n_mask[name] = -1 if w.shape != whole.final_weights.shape else int(
+            ((w == 0) != (whole.final_weights == 0)).sum())
+    header = native._HEADER.size + ar.nchan * 8 + ar.nsub * ar.nchan * 4
+    cubes = [np.memmap(name, dtype="<f4", mode="r", offset=header,
+                       shape=ar.data.shape)
+             for name in ("golden.icar", "golden.icar_cleaned.icar")]
+    cube_equal = bool(np.array_equal(cubes[0], cubes[1]))
+    cubes = None
+    print(f"prefetch: golden.icar ({icar_gb:.2f} GB) written by save_icar in "
+          f"{icar_write_s:.3f} s, loaded by load_icar in {icar_load_s:.3f} s; "
+          f"cli.main --prefetch 1 over golden.icar and golden.sf in "
+          f"{cli_s:.1f} s: load {load_s[0]:.3f} s (golden.icar) and "
+          f"{load_s[1]:.3f} s (golden.sf, the wait for its prefetched load), "
+          f"clean {phases['clean']:.1f} s, write {phases['write']:.1f} s; "
+          f"kernels {json.dumps(counts)}; native loads {loads}; output masks "
+          f"against the in-process clean: {n_mask} cells differ (tolerance "
+          f"0); .icar output cube bit-equal to its input's: {cube_equal} "
+          f"{tag}", flush=True)
+    if any(n_mask.values()) or not cube_equal or len(load_s) != 2:
+        fail("prefetch: an output differs from the in-process clean or "
+             "its input")
+    return {"icar_gb": icar_gb, "icar_write_s": icar_write_s,
+            "icar_load_s": icar_load_s, "prefetch_cli_s": cli_s,
+            "prefetch_load_s": load_s}
 
 
 def golden_mask(name, shape):
@@ -734,6 +858,7 @@ def main() -> int:
         iteration_step,
         select_route,
     )
+    from iterative_cleaner_torch.io import native as host_io
     from iterative_cleaner_torch.io.synthetic import (
         FULLSIZE_SHAPE,
         make_fullsize_archive,
@@ -757,12 +882,18 @@ def main() -> int:
           f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)",
           flush=True)
 
-    # ---- 1. build the kernels from source ----
+    # ---- 1. build the kernels from source, and beside them the host
+    # I/O library (g++) the CLI phases read and write archives through
     t0 = time.perf_counter()
-    lib_path = K.build_library()
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        host_build = pool.submit(host_io.build_library)
+        lib_path = K.build_library()
+        host_path = host_build.result()
     K.load_library()
+    host_io.load_library()
     build_s = time.perf_counter() - t0
-    print(f"build: {os.path.relpath(lib_path, HERE)} in {build_s:.1f} s",
+    print(f"build: {os.path.relpath(lib_path, HERE)} and "
+          f"{os.path.relpath(host_path, HERE)} in {build_s:.1f} s",
           flush=True)
     log_path = os.path.join(K.BUILD_DIR, "build.log")
     if os.path.exists(log_path):
@@ -1009,7 +1140,10 @@ def main() -> int:
     golden_check("sharded 4 (gloo)", r4, "", (NSUB, NCHAN))
 
     # ---- 3e. the CLI session a user runs, on the archive as PSRFITS,
-    # counted like the default whole clean and held to it
+    # counted like the default whole clean and held to it, its load
+    # through the native reader (held bit for bit to the pure-Python
+    # one); 3h. the same archive as .icar and as PSRFITS in one session
+    # with --prefetch 1
     cli_phase(ar, whole, counts["default"], tag)
 
     # ---- 3f. long profiles: an archive of 8192 bins (the DFT tables

@@ -14,9 +14,9 @@ online, each tile on its own; and the default route and the dedispersed
 frame over the ranks of a ``torch.distributed`` process group, each rank
 holding one (subint, channel) block on its own card
 (:func:`clean_archive_sharded`).  Its CLI runs the reference's session
-over archives: ``.npz`` and fold-mode PSRFITS in and out, the run report
-(``--metrics-json``), the Prometheus textfile, the JSON-lines event log
-and ``--timing``.  Every TPU kernel of the reference has a hand-written
+over archives: ``.npz``, ``.icar``, fold-mode PSRFITS and TIMER ``.ar``
+in and out, ``--prefetch``, the run report (``--metrics-json``), the
+Prometheus textfile, the JSON-lines event log and ``--timing``.  Every TPU kernel of the reference has a hand-written
 CUDA counterpart in :mod:`iterative_cleaner_torch.stats.kernels` (K9,
 the masked median, computes every iteration's residual-std telemetry).
 float64 and bf16 storage are not ported yet.
@@ -28,7 +28,8 @@ instead, which is how the CPU tests hold the port against the reference.
 Layout, host boundary first:
 
 - :mod:`~iterative_cleaner_torch.archive`, :mod:`~iterative_cleaner_torch.config`
-- :mod:`~iterative_cleaner_torch.io` — ``.npz`` and PSRFITS load/save,
+- :mod:`~iterative_cleaner_torch.io` — ``.npz``, ``.icar``, PSRFITS and
+  TIMER ``.ar`` load/save (the host I/O library, built with ``g++``),
   synthetic archives
 - :mod:`~iterative_cleaner_torch.ops` — dispersion, rotation, baselines
 - :mod:`~iterative_cleaner_torch.stats` — detection statistics and the kernels
@@ -39,7 +40,8 @@ Layout, host boundary first:
 - :mod:`~iterative_cleaner_torch.telemetry`,
   :mod:`~iterative_cleaner_torch.utils` — the CLI session's run report,
   metrics, event log and ``clean.log``
-- :mod:`~iterative_cleaner_torch.cli` — ``python -m iterative_cleaner_torch``
+- :mod:`~iterative_cleaner_torch.cli` — ``python -m iterative_cleaner_torch``;
+  :mod:`~iterative_cleaner_torch.tools` — ``info`` and ``convert``
 """
 
 __version__ = "0.1.0"

@@ -1,19 +1,24 @@
 """Command line of the port: the reference CLI's session over archives.
 
-``python -m iterative_cleaner_torch [-c] [-s] [-m] [-u] [-p] [-q] [-l]
-[-r] [-o] [--bad_chan] [--bad_subint] [--baseline_mode] [--stats_frame]
-[--device] [--stream N [--stream_mode exact|online] [--stream_hbm_mb MB]]
-[--mesh off|cell] [--metrics-json PATH] [--prom-textfile PATH]
-[--event-log PATH] [--log-format text|json] [--timing] [--keep_going]
-obs.sf ...``
-cleans each archive (``.npz``, or fold-mode PSRFITS: ``.sf``, ``.rf``,
-``.fits``, ``.psrfits`` and ``.ar`` files with the FITS magic), writes
+``python -m iterative_cleaner_torch [-c] [-s] [-m] [-z] [-u] [-p] [-q]
+[-l] [-r] [-o] [--bad_chan] [--bad_subint] [--baseline_mode]
+[--stats_frame] [--device] [--stream N [--stream_mode exact|online]
+[--stream_hbm_mb MB]] [--mesh off|cell] [--prefetch N] [--io-workers N]
+[--metrics-json PATH] [--prom-textfile PATH] [--event-log PATH]
+[--log-format text|json] [--timing] [--keep_going] obs.sf ...``
+cleans each archive (``.npz``, ``.icar``, fold-mode PSRFITS: ``.sf``,
+``.rf``, ``.fits``, ``.psrfits`` and ``.ar`` files with the FITS magic,
+and TIMER-format ``.ar`` through the psrchive bindings), writes
 ``obs.sf_cleaned.sf`` (the input's data with the cleaned weights; ``-p``
 pscrunched), with ``-u`` also the single-pol residual archive
-``obs.sf_residual_<loops>.sf`` in the working directory, and appends the
+``obs.sf_residual_<loops>.sf`` in the working directory, with ``-z`` the
+zap plot ``<name>_<c>_<s>.png`` (matplotlib), and appends the
 reference-format line to ``clean.log`` beside the output (not with
-``-l``).  One session spans all the archives: ``--metrics-json`` writes
-the run report (counters, phase times, each archive's iteration history,
+``-l``).  ``--prefetch N`` loads up to N archives ahead on
+``--io-workers`` threads while the current one cleans; ``--timing``'s
+load phase then measures the wait for the load, not the load.  One
+session spans all the archives: ``--metrics-json`` writes the run
+report (counters, phase times, each archive's iteration history,
 whose ``residual_std`` kernel K9 computes), ``--prom-textfile`` the same
 metrics in Prometheus text, ``--log-format json`` (or ``--event-log
 PATH``) a JSON-lines event log (``clean.events.jsonl``), and ``--timing``
@@ -28,9 +33,9 @@ cleaned, and the exit code is 1.
 obs.sf``: one rank per card (NCCL), or gloo ranks with ``--device
 cpu``; every rank reads the archive and keeps its block, and rank 0
 alone prints, records the telemetry, writes the output and the logs.
-Not ported yet: ``-z``, ``--prefetch`` and ``--checkpoint`` (ROADMAP.md
-'Modules still to port' item 2), the live ``--stream DIR`` session (item
-5), ``--mesh batch`` (item 3).
+Not ported yet: ``--checkpoint``, ``--record_history`` and ``--model``
+(ROADMAP.md 'Modules still to port' item 8), the live ``--stream DIR``
+session (item 5), ``--mesh batch`` (item 3).
 """
 
 from __future__ import annotations
@@ -65,6 +70,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-m", "--max_iter", type=int, default=5,
                    metavar="maximum_iterations",
                    help="Maximum number of cleaning iterations.")
+    p.add_argument("-z", "--print_zap", action="store_true",
+                   help="Save a plot of which profiles get zapped.")
     p.add_argument("-u", "--unload_res", action="store_true",
                    help="Also write the pulse-free residual archive.")
     p.add_argument("-p", "--pscrunch", action="store_true",
@@ -132,6 +139,15 @@ def build_parser() -> argparse.ArgumentParser:
                         "on the CPU with --device cpu); uneven grids are "
                         "zero-weight padded and cropped back. 'batch' is "
                         "not ported yet.")
+    p.add_argument("--prefetch", type=int, default=0, metavar="N",
+                   help="Load up to N archives ahead on background "
+                        "threads while the card cleans the current one "
+                        "(costs N archives of host memory; 0 = "
+                        "sequential).")
+    p.add_argument("--io-workers", "--io_workers", type=int, default=None,
+                   dest="io_workers", metavar="N",
+                   help="Threads of the --prefetch loader (default: the "
+                        "ICLEAN_IO_WORKERS environment variable, else 2).")
     p.add_argument("--metrics-json", "--metrics_json", type=str, default="",
                    dest="metrics_json", metavar="PATH",
                    help="Write a JSON run report (counters, phase "
@@ -199,12 +215,51 @@ def config_of(args) -> CleanConfig:
                        stream_hbm_mb=args.stream_hbm_mb)
 
 
-def clean_one(in_path: str, args, telemetry: RunTelemetry, mesh=None):
+def resolve_io_workers(value=None) -> int:
+    """The ``--prefetch`` loader's width: ``value``, else the
+    ``ICLEAN_IO_WORKERS`` environment variable, else 2."""
+    if value is None:
+        env = os.environ.get("ICLEAN_IO_WORKERS", "")
+        value = int(env) if env else 2
+    value = int(value)
+    if value < 1:
+        raise ValueError(f"io_workers must be >= 1, got {value}")
+    return value
+
+
+def iter_archives(paths, prefetch: int, workers: int = 1):
+    """Yield (path, load future or None) pairs; with ``prefetch`` > 0 a
+    pool of up to ``workers`` threads stays up to that many loads ahead
+    of the consumer, so host I/O overlaps the clean on the card (the
+    native readers release the GIL).  A load error raises when the
+    consumer reads that archive's future, at its turn in the session."""
+    if prefetch <= 0 or len(paths) < 2:
+        for p in paths:
+            yield p, None
+        return
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=max(1, min(workers, prefetch))) \
+            as pool:
+        pending = [(p, pool.submit(load_archive, p))
+                   for p in paths[: prefetch + 1]]
+        next_i = len(pending)
+        while pending:
+            yield pending.pop(0)
+            if next_i < len(paths):
+                pending.append((paths[next_i],
+                                pool.submit(load_archive, paths[next_i])))
+                next_i += 1
+
+
+def clean_one(in_path: str, args, telemetry: RunTelemetry, mesh=None,
+              preloaded=None):
     """Load, clean and write one archive, its phases timed into the
     session's registry and its result recorded in ``telemetry``; returns
-    the output's name.  Under ``mesh`` (``--mesh cell``) every rank
-    cleans its block and only rank 0 reports, writes and records (the
-    others return None)."""
+    the output's name.  ``preloaded`` is the ``--prefetch`` loader's
+    future, read inside the load phase (which then times the wait).
+    Under ``mesh`` (``--mesh cell``) every rank cleans its block and
+    only rank 0 reports, writes and records (the others return None)."""
     from iterative_cleaner_torch.backends import (
         clean_archive,
         clean_archive_sharded,
@@ -214,7 +269,8 @@ def clean_one(in_path: str, args, telemetry: RunTelemetry, mesh=None):
     timer = telemetry.registry.timer
     say = (mesh is None or mesh.rank == 0) and not args.quiet
     with timer.phase("load"):
-        ar = load_archive(in_path)
+        ar = load_archive(in_path) if preloaded is None \
+            else preloaded.result()
     cfg = config_of(args)
     if say:
         print("Total number of profiles: %s" % ar.weights.size)
@@ -258,6 +314,11 @@ def clean_one(in_path: str, args, telemetry: RunTelemetry, mesh=None):
             pol_state="Intensity", filename="")
         save_archive(res_ar, "%s_residual_%s%s" % (
             ar_name, result.loops, os.path.splitext(o_name)[1]))
+    if args.print_zap:
+        from iterative_cleaner_torch.utils.plotting import save_zap_plot
+
+        save_zap_plot(result.scores, ar_name, args.chanthresh,
+                      args.subintthresh)
     if not args.no_log:
         append_clean_log(ar_name, args, result.loops,
                          os.path.join(os.path.dirname(o_name) or ".",
@@ -292,9 +353,11 @@ def run_archives(args, mesh=None) -> int:
     lead = mesh is None or mesh.rank == 0
     failed = []
     with run_session(args, lead) as telemetry:
-        for path in args.archive:
+        for path, preloaded in iter_archives(
+                list(args.archive), args.prefetch,
+                resolve_io_workers(args.io_workers)):
             try:
-                clean_one(path, args, telemetry, mesh)
+                clean_one(path, args, telemetry, mesh, preloaded)
             except Exception as exc:  # per-archive isolation
                 if not args.keep_going:
                     raise
@@ -313,7 +376,10 @@ def run_archives(args, mesh=None) -> int:
 
 
 def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.io_workers is not None and args.io_workers < 1:
+        parser.error(f"--io-workers must be >= 1, got {args.io_workers}")
     # refuse a directory, and what the mesh does not run, before any clean
     streaming = stream_chunk(args.stream) > 0
     check_mesh(args.mesh, config_of(args), streaming=streaming)

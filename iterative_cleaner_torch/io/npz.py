@@ -2,14 +2,18 @@
 
 - ``.npz``: the portable container (the same member layout as the
   reference package's, so either package reads the other's files).
+- ``.icar``: the native container (:mod:`~iterative_cleaner_torch.io.
+  native`), read through an mmap.
 - ``.sf``/``.rf``/``.fits``/``.psrfits``, and ``.ar`` files that carry
   the FITS magic: fold-mode PSRFITS (:mod:`~iterative_cleaner_torch.io.
-  psrfits`); a cleaned ``.ar`` is written as PSRFITS.
-- ``.icar`` (the reference's native container) and TIMER-format ``.ar``
-  archives (no FITS magic; the reference reads them through the psrchive
-  bridge) are not ported: ROADMAP.md 'Modules still to port' item 2.
+  psrfits`, the native reader first).
+- ``.ar`` files without the FITS magic (TIMER format): the psrchive
+  bridge (:mod:`~iterative_cleaner_torch.io.psrchive_bridge`) when its
+  bindings are installed.  A cleaned archive whose source is a TIMER
+  ``.ar`` is written back in that format through the bridge; any other
+  ``.ar`` is written as PSRFITS.
 
-Every writer is atomic (temp file + ``os.replace``).
+Every writer but the bridge's is atomic (temp file + ``os.replace``).
 """
 
 from __future__ import annotations
@@ -19,14 +23,12 @@ import os
 import numpy as np
 
 from iterative_cleaner_torch.archive import Archive
-from iterative_cleaner_torch.io import psrfits
+from iterative_cleaner_torch.io import native, psrfits
 from iterative_cleaner_torch.io.atomic import atomic_output
 
 _META_KEYS = ("period_s", "dm", "centre_freq_mhz", "mjd_start", "mjd_end")
 
 PSRFITS_EXTS = (".sf", ".rf", ".fits", ".psrfits")
-
-_NOT_PORTED = "is not ported yet (ROADMAP.md 'Modules still to port' item 2)"
 
 
 def _ext(path: str) -> str:
@@ -34,13 +36,31 @@ def _ext(path: str) -> str:
 
 
 def save_archive(ar: Archive, path: str) -> None:
-    """Write ``ar`` to ``path`` atomically, in the container its
-    extension names (``.npz`` when it has none).  The npz is written
-    through a file object so numpy cannot append '.npz' to the name."""
+    """Write ``ar`` to ``path`` in the container its extension names
+    (``.npz`` when it has none).  The npz is written through a file
+    object so numpy cannot append '.npz' to the name."""
     ext = _ext(path)
     if ext == ".icar":
-        raise NotImplementedError(f"{path}: the .icar container {_NOT_PORTED}")
+        native.save_icar(ar, path)
+        return
     if ext in PSRFITS_EXTS or ext == ".ar":
+        src = ar.filename
+        if ext == ".ar" and src and src.lower().endswith(".ar"):
+            if not os.path.exists(src):
+                import warnings
+
+                warnings.warn(
+                    f"source archive {src} is no longer on disk; writing "
+                    f"{path} in the built-in PSRFITS layout (a TIMER-format "
+                    "source would otherwise round-trip through the psrchive "
+                    "bridge)", stacklevel=2)
+            elif not psrfits.is_fits(src):
+                # a TIMER source keeps its format (PSRCHIVE's unload);
+                # the bridge loaded it, so its bindings import here
+                from iterative_cleaner_torch.io import psrchive_bridge
+
+                psrchive_bridge.save_ar(ar, path)
+                return
         with atomic_output(path) as tmp:
             psrfits.save_psrfits(ar, tmp)
         return
@@ -68,17 +88,27 @@ def load_archive(path: str) -> Archive:
     its FITS magic)."""
     ext = _ext(path)
     if ext == ".icar":
-        raise NotImplementedError(f"{path}: the .icar container {_NOT_PORTED}")
+        return native.load_icar(path)
     if ext in PSRFITS_EXTS:
         return psrfits.load_psrfits(path)
     if ext == ".ar":
         if psrfits.is_fits(path):
             return psrfits.load_psrfits(path)
-        raise NotImplementedError(
-            f"{path}: a pre-PSRFITS (TIMER-format) .ar archive; the psrchive "
-            f"bridge that reads it {_NOT_PORTED}.  Convert it once with "
-            f"PSRCHIVE (`psrconv -o PSRFITS {os.path.basename(path)}`) and "
-            f"clean the PSRFITS file")
+        from iterative_cleaner_torch.io import psrchive_bridge
+
+        try:
+            return psrchive_bridge.load_ar(path)
+        except ImportError as e:
+            raise ValueError(
+                f"{path} is a pre-PSRFITS (TIMER-format) .ar archive and "
+                "the psrchive Python bindings are not installed. Either "
+                "convert it once with PSRCHIVE's own tools — "
+                "`psrconv -o PSRFITS " + os.path.basename(path) + "` (or "
+                "`pam -a PSRFITS`) — and clean the resulting PSRFITS file, "
+                "or run in an environment where `import psrchive` works "
+                "(the optional bridge then loads TIMER directly). See "
+                "MIGRATION.md."
+            ) from e
     with np.load(path, allow_pickle=False) as z:
         kwargs = {k: float(z[k]) for k in _META_KEYS}
         return Archive(

@@ -1,12 +1,18 @@
-"""PSRFITS fold-mode archives, read and written in pure Python.
+"""PSRFITS fold-mode archives: a native one-pass reader, and a reader
+and writer in pure Python.
 
 Most modern ``.ar`` archives are PSRFITS (Hotan, van Straten & Manchester
 2004): FITS files whose ``SUBINT`` binary table holds the fold-mode data
-cube.  This is the port's own copy of the reference package's pure-Python
-reader and writer of that subset (``iterative_cleaner_tpu/io/psrfits.py``),
-byte for byte the same files.  The reference's native C++ reader (an mmap
-fast path for the same subset) is not ported: ROADMAP.md 'Modules still to
-port' item 2.
+cube.  This is the port's own copy of the reference package's reader and
+writer of that subset (``iterative_cleaner_tpu/io/psrfits.py``), byte
+for byte the same files.  :func:`load_psrfits` reads through the host
+library's C++ reader (``io/csrc/psrfits_io.cpp``, built at first use by
+:mod:`~iterative_cleaner_torch.io.native`), which decodes the
+big-endian rows, scales them and writes the float64 cube in one pass
+over an mmap, the same bits as the pure-Python reader below.  A file
+the native reader declines (outside its subset: another mode, a
+corrupt or truncated file) goes to the pure-Python reader, which loads
+it or raises its own error; a library that cannot be built raises.
 
 Supported layout:
 
@@ -34,12 +40,15 @@ table payloads, header and data padding.
 
 from __future__ import annotations
 
+import ctypes
+import math
 import re
 import struct
 
 import numpy as np
 
 from iterative_cleaner_torch.archive import POL_STATES, Archive
+from iterative_cleaner_torch.io import native
 
 BLOCK = 2880
 CARD = 80
@@ -452,8 +461,59 @@ def _mmap_parse(path: str, parser):
 
 
 
-def load_psrfits(path: str) -> Archive:
-    """Load a fold-mode PSRFITS archive (the pure-Python reader)."""
+def _load_psrfits_native(path: str):
+    """Read through the host library's reader; None when the file is
+    outside its subset (the caller then takes the pure-Python reader).
+    Raises ``RuntimeError`` when the library cannot be built."""
+    lib = native.load_library()
+    handle = lib.psrfits_open(path.encode())
+    if not handle:
+        return None
+    try:
+        dims = [ctypes.c_uint32() for _ in range(4)]
+        lib.psrfits_dims(handle, *[ctypes.byref(d) for d in dims])
+        nsub, npol, nchan, nbin = (d.value for d in dims)
+        meta = [ctypes.c_double() for _ in range(5)]
+        dedisp, pol_code = ctypes.c_int(), ctypes.c_int()
+        data_nbits = ctypes.c_int()
+        source = ctypes.create_string_buffer(64)
+        lib.psrfits_meta_v2(handle, *[ctypes.byref(m) for m in meta],
+                            ctypes.byref(dedisp), ctypes.byref(pol_code),
+                            ctypes.byref(data_nbits), source)
+        data = np.empty((nsub, npol, nchan, nbin), dtype=np.float64)
+        weights = np.empty((nsub, nchan), dtype=np.float64)
+        freqs = np.empty(nchan, dtype=np.float64)
+        dp = ctypes.POINTER(ctypes.c_double)
+        lib.psrfits_read(handle, data.ctypes.data_as(dp),
+                         weights.ctypes.data_as(dp),
+                         freqs.ctypes.data_as(dp))
+    finally:
+        lib.psrfits_close(handle)
+    native.count_load("psrfits")
+    period, dm, cfreq, mjd0, mjd1 = (m.value for m in meta)
+    return Archive(
+        data=data, weights=weights, freqs_mhz=freqs,
+        period_s=period, dm=dm,
+        # NaN: OBSFREQ absent (psrfits_io.cpp); the pure reader's
+        # mid-channel stand-in, and OBSFREQ=0 stays 0 in both
+        centre_freq_mhz=float(freqs[nchan // 2]) if math.isnan(cfreq)
+        else cfreq,
+        source=source.value.decode("utf-8", "replace"),
+        mjd_start=mjd0, mjd_end=mjd1, filename=path,
+        pol_state=POL_STATES[pol_code.value],
+        dedispersed=bool(dedisp.value),
+        psrfits_nbits=data_nbits.value,
+    )
+
+
+def load_psrfits(path: str, prefer_native: bool = True) -> Archive:
+    """Load a fold-mode PSRFITS archive: through the native reader, and
+    through the pure-Python reader where the native one declines the
+    file (or with ``prefer_native=False``)."""
+    if prefer_native:
+        ar = _load_psrfits_native(path)
+        if ar is not None:
+            return ar
     return _mmap_parse(path, _parse_psrfits)
 
 
@@ -544,6 +604,72 @@ def _parse_psrfits(buf: memoryview, path: str) -> Archive:
         dedispersed=bool(_as_int(sub, "DEDISP", 0)),
         psrfits_nbits=16 if dcode == "I" else 32,
     )
+
+
+def read_psrfits_info(path: str):
+    """(meta dict, (nsub, nchan) weights) without touching the DATA column.
+
+    The file is mmap'd, so only the header blocks and each row's DAT_WTS
+    bytes are paged in: ``tools info`` stays cheap on multi-GB archives.
+    Meta keys mirror :func:`~iterative_cleaner_torch.io.native.
+    read_icar_header`."""
+    return _mmap_parse(path, _parse_info)
+
+
+def _parse_info(buf: memoryview, path: str):
+    if bytes(buf[:6]) != b"SIMPLE":
+        raise ValueError(f"{path} is not a FITS file")
+    primary, sub, data_off = _find_subint(buf)
+    nsub = _as_int(sub, "NAXIS2")
+    nchan = _as_int(sub, "NCHAN")
+    cols, row_bytes = _columns(sub)
+    col = {name: (code, repeat, off) for name, code, repeat, off in cols}
+    for need in ("DAT_FREQ", "DAT_WTS"):
+        if need not in col:
+            raise ValueError(f"SUBINT table missing column {need}")
+        if col[need][1] < nchan:
+            raise ValueError(f"SUBINT column {need}: repeat "
+                             f"{col[need][1]} < expected {nchan}")
+    _, _, w_off = col["DAT_WTS"]
+    weights = np.empty((nsub, nchan), dtype=np.float64)
+    for i in range(nsub):
+        start = data_off + i * row_bytes + w_off
+        weights[i] = np.frombuffer(buf[start: start + 4 * nchan], dtype=">f4")
+    tsub_total = 0.0
+    if "TSUBINT" in col:
+        _, _, t_off = col["TSUBINT"]
+        for i in range(nsub):
+            start = data_off + i * row_bytes + t_off
+            tsub_total += struct.unpack(">d", bytes(buf[start: start + 8]))[0]
+    mjd_start = (_as_int(primary, "STT_IMJD", 0)
+                 + _as_int(primary, "STT_SMJD", 0) / 86400.0
+                 + _as_float(primary, "STT_OFFS", 0.0) / 86400.0)
+    if "OBSFREQ" in primary:
+        cfreq = _as_float(primary, "OBSFREQ")
+    else:  # the loaders' stand-in: mid-channel DAT_FREQ
+        fcode, _, f_off = col["DAT_FREQ"]
+        w = _TFORM_BYTES.get(fcode, 4)
+        dt = ">f8" if fcode == "D" else ">f4"
+        start = data_off + f_off + w * (nchan // 2)
+        cfreq = float(np.frombuffer(buf[start: start + w], dtype=dt)[0])
+    npol = _as_int(sub, "NPOL")
+    meta = dict(
+        source=primary.get("SRC_NAME", "unknown").strip(),
+        nsub=nsub, npol=npol, nchan=nchan,
+        nbin=_as_int(sub, "NBIN"),
+        dm=_as_float(sub, "CHAN_DM", _as_float(sub, "DM", 0.0)),
+        period_s=_resolve_period(buf, sub),
+        centre_freq_mhz=cfreq,
+        mjd_start=mjd_start,
+        mjd_end=mjd_start + tsub_total / 86400.0,
+        # the npol-aware rule of _parse_psrfits: the pol_state a load of
+        # the file gives
+        pol_state=_STATE_OF_POL_TYPE.get(
+            sub.get("POL_TYPE", "INTEN").strip().upper(),
+            "Intensity" if npol == 1 else "Stokes"),
+        dedispersed=bool(_as_int(sub, "DEDISP", 0)),
+    )
+    return meta, weights
 
 
 def is_fits(path: str) -> bool:

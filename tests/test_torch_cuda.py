@@ -29,7 +29,9 @@ under every plan of 8, 4, 2 and 1 lines a block, with a line count that is not a
 both routes (one block a line, and lines spread over blocks) and on
 tie-heavy lines, one counted launch a call, and its device operations a
 call in a torch.profiler trace (1 on the block route, at most 5 on the
-grid route).
+grid route).  Archives read through the host library (``.icar`` and the
+native PSRFITS reader, int16 and float32 DATA) clean on the card to the
+CPU clean's mask.
 """
 
 import numpy as np
@@ -592,3 +594,27 @@ def test_k9_device_ops_a_call_on_card(card, dim, n, limit):
     assert 0 < sum(ops.values()) <= limit, ops
     assert all("icln_mm_" in name or "memset" in name.lower()
                for name in ops), ops
+
+
+@pytest.mark.parametrize("ext,nbits", [(".icar", None), (".sf", 16),
+                                       (".sf", 32)])
+def test_clean_from_native_load_on_card(card, tmp_path, ext, nbits):
+    """An archive read through the host library (the ``.icar`` mmap, the
+    native PSRFITS reader) and cleaned on the card: the mask equal to the
+    CPU clean of the same file, the load counted as native."""
+    from iterative_cleaner_torch.io import load_archive, native, save_archive
+
+    ar, _ = make_synthetic_archive(nsub=64, nchan=256, nbin=128,
+                                   n_prezapped=30, seed=4)
+    if nbits:
+        ar.psrfits_nbits = nbits
+    path = str(tmp_path / ("obs" + ext))
+    save_archive(ar, path)
+    native.reset_load_counts()
+    loaded = load_archive(path)
+    assert native.load_counts()["icar" if ext == ".icar" else "psrfits"] == 1
+    on_card = clean_archive(loaded, CleanConfig())
+    on_cpu = clean_archive(load_archive(path), CleanConfig(device="cpu"))
+    np.testing.assert_array_equal(on_card.final_weights, on_cpu.final_weights)
+    assert (on_card.loops, on_card.converged) == (on_cpu.loops,
+                                                  on_cpu.converged)

@@ -1,9 +1,11 @@
 """The port stands alone: importing it and running its main path (the
 whole clean, both streaming modes, the cell-sharded clean on one rank,
-and the CLI session on a PSRFITS archive with its run report, Prometheus
-file and event log) never loads ``jax`` or the reference package, and no
+the CLI session on a PSRFITS archive with its run report, Prometheus
+file and event log, and PSRFITS and ``.icar`` files read through the
+port's host library) never loads ``jax`` or the reference package; no
 source of the port (``parallel/*``, ``telemetry/*``, ``utils/*`` and
-``io/psrfits.py`` included) or ``chip_smoke.py`` imports either."""
+``io/*`` included) or ``chip_smoke.py`` imports either, and none names
+the reference's ``native/`` directory or its ``libicar.so``."""
 
 import ast
 import os
@@ -17,10 +19,16 @@ PKG = os.path.join(REPO, "iterative_cleaner_torch")
 FORBIDDEN = ("jax", "jaxlib", "iterative_cleaner_tpu")
 
 
-def _port_sources():
-    for root, _dirs, files in os.walk(PKG):
+# The reference's native directory and its library: the port builds its
+# own from io/csrc into _build/.
+FORBIDDEN_STRINGS = ("native/", "libicar.so")
+
+
+def _port_sources(exts=(".py",)):
+    for root, dirs, files in os.walk(PKG):
+        dirs[:] = [d for d in dirs if d not in ("_build", "__pycache__")]
         for name in files:
-            if name.endswith(".py"):
+            if name.endswith(exts):
                 yield os.path.join(root, name)
     yield os.path.join(REPO, "chip_smoke.py")
 
@@ -42,6 +50,16 @@ def test_no_forbidden_import_in_source(path):
     bad = [m for m in _imported_modules(path)
            if m.split(".")[0] in FORBIDDEN]
     assert not bad, f"{path} imports {bad}"
+
+
+@pytest.mark.parametrize(
+    "path", sorted(_port_sources((".py", ".cpp", ".cu", ".cuh"))),
+    ids=lambda p: os.path.relpath(p, REPO))
+def test_no_reference_native_library_in_source(path):
+    with open(path) as f:
+        text = f.read()
+    bad = [s for s in FORBIDDEN_STRINGS if s in text]
+    assert not bad, f"{path} names {bad}"
 
 
 def test_main_path_runs_without_jax():
@@ -85,6 +103,13 @@ assert iterative_cleaner_torch.cli.main([
     "--device", "cpu", "-q", "--metrics-json", "r.json", "--prom-textfile",
     "r.prom", "--log-format", "json", "--timing", "obs.sf"]) == 0
 assert os.path.exists("obs.sf_cleaned.sf") and os.path.exists("r.json")
+from iterative_cleaner_torch.io import load_archive, native
+native.reset_load_counts()
+save_archive(ar, "obs.icar")
+for name in ("obs.sf", "obs.icar"):
+    back = load_archive(name)
+    assert np.array_equal(back.weights, ar.weights), name
+assert native.load_counts() == {"psrfits": 1, "icar": 1}
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "iterative_cleaner_tpu"))
 print("LOADED", bad)

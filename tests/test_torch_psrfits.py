@@ -1,16 +1,21 @@
-"""The port's PSRFITS reader and writer and its archive dispatch, against
-the reference package's pure-Python ones on identical archives.
+"""The port's PSRFITS readers and writer and its archive dispatch, against
+the reference package's on identical archives.
 
 Exact throughout: the port writes the same bytes as the reference for
 the same archive (int16 and float32 DATA, every pol state, non-finite
 cubes), each package loads the other's file to equal arrays and
 metadata, foreign writers' layouts and corrupted files load to the same
-archive or are refused by both, and the extension dispatch refuses what
-is not ported (``.icar``, TIMER-format ``.ar``) with
-``NotImplementedError``.
+archive or are refused by both.  The port's native reader (the host
+library's C++ reader, the default) is bit-equal to its pure-Python
+reader and to the reference's ``load_psrfits`` on every layout the
+parser takes (int16 and float32 DATA, float32 and float64 DAT_FREQ,
+padded repeats, shuffled columns, a POLYCO and a TBIN period, OBSFREQ
+absent), declines what lies outside its subset, and such files then
+load or fail as the reference's do.
 """
 
 import dataclasses
+import struct
 import warnings
 
 import numpy as np
@@ -25,7 +30,7 @@ from iterative_cleaner_tpu.io.synthetic import (
 from iterative_cleaner_torch.convert import archive_from_reference
 from iterative_cleaner_torch.io import load_archive, save_archive
 from iterative_cleaner_torch.io import psrfits
-from tests.test_psrfits import _write_foreign_variant
+from tests.test_psrfits import _strip_card, _write_foreign_variant
 
 _META = ("period_s", "dm", "centre_freq_mhz", "source", "mjd_start",
          "mjd_end", "pol_state", "dedispersed", "psrfits_nbits")
@@ -135,23 +140,7 @@ def test_ar_dispatch_by_fits_magic(tmp_path):
         ref_psrfits.load_psrfits(path, prefer_native=False)))
 
 
-def test_unported_containers_refused(tmp_path):
-    ref, ar = _pair()
-    icar = str(tmp_path / "a.icar")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        save_archive(ar, icar)
-    ref_save_archive(ref, icar)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        load_archive(icar)
-    timer = str(tmp_path / "old.ar")
-    with open(timer, "wb") as f:
-        f.write(b"TIMER archive header" + b"\0" * 512)
-    assert not psrfits.is_fits(timer)
-    with pytest.raises(NotImplementedError, match="TIMER"):
-        load_archive(timer)
-
-
-@pytest.mark.parametrize("variant", [
+FOREIGN_VARIANTS = [
     dict(order=["DATA", "DAT_OFFS", "DAT_SCL", "DAT_WTS", "DAT_FREQ",
                 "OFFS_SUB", "TSUBINT"]),
     dict(tdim="none"),
@@ -159,7 +148,10 @@ def test_unported_containers_refused(tmp_path):
     dict(leading_hdu=True, trailing_hdu=True, long_string=True,
          period="polyco", data_code="I"),
     dict(data_code="B"),
-])
+]
+
+
+@pytest.mark.parametrize("variant", FOREIGN_VARIANTS)
 def test_foreign_writer_variants_load_like_reference(tmp_path, variant):
     """Layouts another writer may emit: the port loads each to the
     reference's archive, or refuses it as the reference does."""
@@ -180,16 +172,16 @@ def test_foreign_writer_variants_load_like_reference(tmp_path, variant):
                          archive_from_reference(want))
 
 
-def test_corrupted_files_load_or_fail_like_reference(tmp_path):
-    """Truncations, bit flips and garbage blocks (seeded): the port
-    loads each to the reference's archive or raises where it raises."""
+def _corrupted_files(tmp_path, trials=36):
+    """Truncations, bit flips and garbage blocks of one good file
+    (seeded), each written to the same path in turn."""
     ref, ar = _pair(nsub=4, nchan=6, nbin=16)
     good = tmp_path / "g.sf"
     psrfits.save_psrfits(ar, str(good))
     raw = good.read_bytes()
     rng = np.random.default_rng(2)
     bad = tmp_path / "bad.sf"
-    for trial in range(36):
+    for trial in range(trials):
         buf = bytearray(raw)
         kind = trial % 3
         if kind == 0:
@@ -204,17 +196,218 @@ def test_corrupted_files_load_or_fail_like_reference(tmp_path):
             buf[i: i + n] = bytes(rng.integers(0, 256, size=n,
                                                dtype=np.uint8))
         bad.write_bytes(bytes(buf))
-        with np.errstate(all="ignore"), warnings.catch_warnings():
-            warnings.simplefilter("ignore")
-            try:
-                want = ref_psrfits.load_psrfits(str(bad), prefer_native=False)
-            except Exception as exc:  # the reference refuses: so must we
-                with pytest.raises(type(exc)):
-                    psrfits.load_psrfits(str(bad))
-                continue
-            got = psrfits.load_psrfits(str(bad))
-        np.testing.assert_array_equal(got.data, want.data)
-        np.testing.assert_array_equal(got.weights, want.weights)
+        yield str(bad)
+
+
+def _load_or_fail_like_reference(path, prefer_native):
+    with np.errstate(all="ignore"), warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        try:
+            want = ref_psrfits.load_psrfits(path, prefer_native=prefer_native)
+        except Exception as exc:  # the reference refuses: so must we
+            with pytest.raises(type(exc)):
+                psrfits.load_psrfits(path, prefer_native=prefer_native)
+            return
+        got = psrfits.load_psrfits(path, prefer_native=prefer_native)
+    np.testing.assert_array_equal(got.data, want.data)
+    np.testing.assert_array_equal(got.weights, want.weights)
+
+
+def test_corrupted_files_load_or_fail_like_reference(tmp_path):
+    """The port loads each corrupted file to the archive the reference's
+    ``load_psrfits`` gives or raises where it raises, both preferring
+    their native readers as they do by default (the reference prefers
+    its library when it loads in this process), and the two native
+    readers decline the same files."""
+    prefer = ref_psrfits._psrfits_lib() is not None
+    for path in _corrupted_files(tmp_path):
+        _load_or_fail_like_reference(path, prefer)
+        with np.errstate(all="ignore"):
+            nat = psrfits._load_psrfits_native(path)
+            ref_nat = ref_psrfits._load_psrfits_native(path)
+        if prefer:
+            assert (nat is None) == (ref_nat is None)
+        if nat is not None and ref_nat is not None:
+            _assert_same_archive(nat, archive_from_reference(ref_nat))
+
+
+def test_corrupted_files_pure_reader_like_reference(tmp_path):
+    for path in _corrupted_files(tmp_path):
+        _load_or_fail_like_reference(path, prefer_native=False)
+
+
+def _same_three_ways(path):
+    """The port's native reader, its pure-Python reader and the
+    reference's ``load_psrfits`` on one file: equal bits everywhere."""
+    nat = psrfits._load_psrfits_native(path)
+    assert nat is not None, "the native reader declined a supported file"
+    pure = psrfits.load_psrfits(path, prefer_native=False)
+    ref = archive_from_reference(ref_psrfits.load_psrfits(path))
+    for got in (nat, pure):
+        _assert_same_archive(got, ref)
+        assert got.filename == path
+    _assert_same_archive(psrfits.load_psrfits(path), nat)
+    return nat
+
+
+@pytest.mark.parametrize("variant", FOREIGN_VARIANTS)
+def test_native_reader_bit_equal_on_foreign_variants(tmp_path, variant):
+    """float32 DAT_FREQ, shuffled columns, TDIM spellings, extra HDUs,
+    long strings: the three readers agree.  A layout the reference
+    refuses (8-bit DATA; int16 TFORM over float32 rows) the native
+    reader declines, and the port fails with the reference's error."""
+    ar, _ = ref_make_synthetic_archive(nsub=4, nchan=6, nbin=16, seed=11,
+                                       n_rfi_cells=2)
+    ar.data = np.asarray(ar.data, dtype=np.float32).astype(np.float64)
+    ar.freqs_mhz = np.asarray(ar.freqs_mhz, np.float32).astype(np.float64)
+    path = str(tmp_path / "foreign.sf")
+    _write_foreign_variant(ar, path, **variant)
+    try:
+        ref_psrfits.load_psrfits(path)
+    except ValueError as exc:
+        assert psrfits._load_psrfits_native(path) is None
+        with pytest.raises(ValueError) as got:
+            psrfits.load_psrfits(path)
+        assert str(got.value) == str(exc)
+        return
+    _same_three_ways(path)
+
+
+def _append_polyco(path, out, f0):
+    """``path`` without its PERIOD card and with a POLYCO table whose
+    last row's REF_F0 is ``f0``."""
+    polyco = psrfits._end_pad([
+        psrfits._card("XTENSION", "BINTABLE"),
+        psrfits._card("BITPIX", 8),
+        psrfits._card("NAXIS", 2),
+        psrfits._card("NAXIS1", 8),
+        psrfits._card("NAXIS2", 2),
+        psrfits._card("PCOUNT", 0),
+        psrfits._card("GCOUNT", 1),
+        psrfits._card("TFIELDS", 1),
+        psrfits._card("EXTNAME", "POLYCO"),
+        psrfits._card("TTYPE1", "REF_F0"),
+        psrfits._card("TFORM1", "1D"),
+    ])
+    rows = struct.pack(">d", 1.0) + struct.pack(">d", f0)
+    rows += b"\x00" * ((-len(rows)) % psrfits.BLOCK)
+    with open(out, "wb") as f:
+        f.write(_strip_card(path, "PERIOD"))
+        f.write(polyco)
+        f.write(rows)
+
+
+@pytest.mark.parametrize("layout", ["int16", "float32", "coherence16",
+                                    "polyco", "tbin", "no_obsfreq",
+                                    "padded"])
+def test_native_reader_bit_equal_on_layouts(tmp_path, layout):
+    """The port's writer's layouts (float64 DAT_FREQ) and the period and
+    OBSFREQ rules: int16 and float32 DATA, a four-pol coherence cube,
+    the period from a POLYCO table and from TBIN * NBIN, OBSFREQ absent
+    (the middle channel's frequency stands in), padded repeats."""
+    npol, state = (4, "Coherence") if layout == "coherence16" else (1, None)
+    ref, ar = _pair(npol=npol, pol_state=state, nsub=9, nchan=10, nbin=24)
+    ar.data[0, 0, 1, 2] = -3.0e5   # a wide int16 scale in one cell
+    path = str(tmp_path / "obs.sf")
+    psrfits.save_psrfits(ar, path, nbits=32 if layout == "float32" else 16)
+    if layout in ("polyco", "tbin", "no_obsfreq"):
+        out = str(tmp_path / f"{layout}.sf")
+        if layout == "polyco":
+            _append_polyco(path, out, f0=2.5)
+        else:
+            with open(out, "wb") as f:
+                f.write(_strip_card(path, "PERIOD" if layout == "tbin"
+                                    else "OBSFREQ"))
+        path = out
+    if layout == "padded":
+        # every column but DATA one entry longer than its payload
+        raw = bytearray(open(path, "rb").read())
+        nchan, ncell = ar.nchan, ar.npol * ar.nchan
+        for key, old, new in (("TFORM3", f"{nchan}D", f"{nchan + 1}D"),
+                              ("TFORM4", f"{nchan}E", f"{nchan + 1}E"),
+                              ("TFORM5", f"{ncell}E", f"{ncell + 1}E"),
+                              ("TFORM6", f"{ncell}E", f"{ncell + 1}E")):
+            card = psrfits._card(key, old)
+            i = bytes(raw).index(card)
+            raw[i: i + 80] = psrfits._card(key, new)
+        # the rows grow: rewrite them from the unpadded file's columns
+        path = _repad_rows(bytes(raw), ar, str(tmp_path / "padded.sf"))
+    got = _same_three_ways(path)
+    if layout == "polyco":
+        assert got.period_s == 1.0 / 2.5
+    if layout == "no_obsfreq":
+        assert got.centre_freq_mhz == got.freqs_mhz[ar.nchan // 2]
+
+
+def _repad_rows(header_raw, ar, out):
+    """A file with ``header_raw``'s headers (TFORMs already padded by one
+    entry) whose rows carry one zero entry after each padded column's
+    payload, NAXIS1 to match."""
+    nchan, ncell = ar.nchan, ar.npol * ar.nchan
+    buf = memoryview(header_raw)
+    primary_end = psrfits._parse_header(buf, 0)[1]
+    sub_cards, data_off = psrfits._parse_header(buf, primary_end)
+    cols, _ = psrfits._columns(sub_cards)
+    old_row = int(sub_cards["NAXIS1"])
+    new_row = old_row + 8 + 4 + 4 + 4
+    head = bytearray(header_raw[:data_off])
+    i = bytes(head).index(psrfits._card("NAXIS1", old_row, "bytes per row"))
+    head[i: i + 80] = psrfits._card("NAXIS1", new_row, "bytes per row")
+    nsub = int(sub_cards["NAXIS2"])
+    pads = {"DAT_FREQ": 8, "DAT_WTS": 4, "DAT_SCL": 4, "DAT_OFFS": 4}
+    widths = {"TSUBINT": 8, "OFFS_SUB": 8, "DAT_FREQ": 8 * nchan,
+              "DAT_WTS": 4 * nchan, "DAT_SCL": 4 * ncell,
+              "DAT_OFFS": 4 * ncell}
+    rows = bytearray()
+    for isub in range(nsub):
+        row = header_raw[data_off + isub * old_row:
+                         data_off + (isub + 1) * old_row]
+        off = 0
+        for name, _code, _repeat, _off in cols:
+            width = widths.get(name, len(row) - off)
+            rows += row[off: off + width] + b"\x00" * pads.get(name, 0)
+            off += width
+    rows += b"\x00" * ((-(len(head) + len(rows))) % psrfits.BLOCK)
+    with open(out, "wb") as f:
+        f.write(bytes(head) + bytes(rows))
+    return out
+
+
+@pytest.mark.parametrize("kind", ["search_mode", "truncated", "zero_byte",
+                                  "not_fits", "no_period"])
+def test_declined_files_load_or_fail_like_reference(tmp_path, kind):
+    """Files outside the native reader's subset: it declines each (as
+    the reference's does), and the port then loads or fails as the
+    reference's ``load_psrfits`` does, the same error and message."""
+    _, ar = _pair()
+    good = str(tmp_path / "g.sf")
+    psrfits.save_psrfits(ar, good)
+    raw = open(good, "rb").read()
+    if kind == "search_mode":
+        raw = raw.replace(b"'PSR     '", b"'SEARCH  '", 1)
+    elif kind == "truncated":
+        raw = raw[: len(raw) // 2]
+    elif kind == "zero_byte":
+        raw = b""
+    elif kind == "not_fits":
+        raw = b"\x00" * 5760
+    else:
+        raw = _strip_card(good, "PERIOD")
+        open(good, "wb").write(raw)
+        raw = _strip_card(good, "TBIN")
+    path = str(tmp_path / f"{kind}.sf")
+    open(path, "wb").write(raw)
+    assert psrfits._load_psrfits_native(path) is None
+    assert ref_psrfits._load_psrfits_native(path) is None
+    try:
+        want = ref_psrfits.load_psrfits(path)
+    except Exception as exc:
+        with pytest.raises(type(exc)) as got:
+            psrfits.load_psrfits(path)
+        assert str(got.value) == str(exc)
+        return
+    _assert_same_archive(psrfits.load_psrfits(path),
+                         archive_from_reference(want))
 
 
 def test_pscrunch_matches_reference():
