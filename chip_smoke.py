@@ -24,13 +24,20 @@ pinned (bit-equal to the first), exact on the profile route (K7 per
 tile) and online in 256-subint tiles — with the launch counts, the tile
 cache's transfers, the H2D rate and the peak memory of each, holding
 them to the goldens, the whole default clean and the expected uploads;
-cleans it through ``clean_archive_sharded`` (the cell-sharded clean,
-K10) on one rank under NCCL — the default route and the dedispersed
-frame, each held to the whole clean's mask and scores — and on four
-gloo ranks sharing the card as a 2 x 2 mesh, each rank mapping the
-cube from one file and uploading its quarter, held to the whole clean
-and the golden, with each rank's launch counts, peak memory and
-iteration time; holds every kernel against its plain PyTorch version on
+cleans it through ``clean_archive_sharded`` (the cell-sharded clean)
+on one rank under NCCL — the default route and the dedispersed frame
+(K10, the tree-reduced selects) and the profile baseline and the pulse
+window (the two_read route: K7 on the block, then K3, the combine and
+K9 on the planes gathered whole), each held bit for bit to the whole
+clean's mask, scores and telemetry — and on four gloo ranks sharing the
+card as a 2 x 2 mesh, each rank mapping the cube from one file and
+uploading its quarter, on the default and profile routes, held to the
+whole cleans and the goldens, with each rank's launch counts, peak
+memory and iteration time; streams it over the one NCCL rank
+(``clean_streaming(..., mesh)``: exact at budget 0 on the default and
+profile routes, online), each bit-equal to its single-card stream, and
+a 256 x 1024 x 128 archive over the four gloo ranks, mask-equal to the
+single-card exact stream; holds every kernel against its plain PyTorch version on
 the card at the shapes its route gives it (K10 also against K2 and K6,
 bit for bit, on the whole cube and on one 2 x 2 shard; K9, the masked
 median of every single-card route's residual-std telemetry, bit for bit
@@ -125,6 +132,15 @@ ONLINE_MAX_FRACTION = 1e-3
 # The four gloo ranks of phase 3d: a rank that is not done by then fails
 # the script.
 GLOO_RANKS, GLOO_TIMEOUT_S = 4, 600
+
+# The streamed shard phase's four gloo ranks: an exact stream of this
+# archive, cut from the full size to a quarter of the subints and of the
+# channels (four ranks time-share one card and stage every gather through
+# host memory), in tiles of 64 subints.
+SHARD_STREAM_ARCHIVE = dict(nsub=256, nchan=1024, nbin=128, seed=11,
+                            n_prezapped=200, n_rfi_cells=400,
+                            n_rfi_channels=8, n_rfi_subints=4)
+SHARD_STREAM_CHUNK = 64
 
 # The CLI phases write the archive as PSRFITS (nbits 32) and as .icar,
 # and the CLI writes a cleaned copy beside each: room for the four (about
@@ -231,14 +247,14 @@ def golden_check(label, result, suffix, shape) -> None:
         fail(f"{label}: full-size mask outside the golden's flip rule")
 
 
-def whole_contract(label, result, whole) -> None:
-    """Hold ``result``'s mask to the whole default clean's: at most
-    STREAM_MAX_FLIPS cells, each scored within STREAM_FLIP_BAND of 1 by
-    the whole run (a cross-tile or cross-rank template sum may move a
-    score by an ulp)."""
+def whole_contract(label, result, whole, what="default") -> None:
+    """Hold ``result``'s mask to the whole clean's (of the ``what``
+    configuration): at most STREAM_MAX_FLIPS cells, each scored within
+    STREAM_FLIP_BAND of 1 by the whole run (a cross-tile or cross-rank
+    template sum may move a score by an ulp)."""
     flips = (result.final_weights == 0) != (whole.final_weights == 0)
     near = np.abs(whole.scores - 1.0) <= STREAM_FLIP_BAND
-    print(f"{label} against the whole default clean: {int(flips.sum())} "
+    print(f"{label} against the whole {what} clean: {int(flips.sum())} "
           f"cells differ (limit {STREAM_MAX_FLIPS}, each scored within "
           f"{STREAM_FLIP_BAND:g} of 1 by the whole run), "
           f"{int((flips & ~near).sum())} outside that band", flush=True)
@@ -251,8 +267,9 @@ def gloo_shard_rank(shard_dir):
     ``run_local_ranks`` with gloo on cuda:0: the cell-sharded clean of
     the cube in ``shard_dir`` (mapped, not read: the rank converts and
     uploads only its block), then three timed iterations on its prepared
-    block.  Returns its counts, times, peak memory and (rank 0) the
-    result."""
+    block, then the same clean on the two_read route (the profile
+    baseline: K7 on the block, the gathered scaler).  Returns its counts,
+    times, peak memory and (rank 0) the results."""
     import torch
     import torch.distributed as dist
 
@@ -302,10 +319,65 @@ def gloo_shard_rank(shard_dir):
     torch.cuda.synchronize()
     dist.barrier()
     iter_ms = (time.perf_counter() - t0) / 3 * 1e3
+    del prep, c, w
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    profile = clean_archive_sharded(
+        ar, CleanConfig(device="cuda:0", baseline_mode="profile"), mesh)
+    torch.cuda.synchronize()
     return {"rank": mesh.rank, "coords": mesh.coords, "counts": counts,
             "clean_ms": clean_ms, "iter_ms": iter_ms, "peak_gib": peak_gib,
             "block": (layout.s0, layout.s1, layout.c0, layout.c1),
+            "result": result, "profile_counts": K.launch_counts(),
+            "profile_clean_ms": (time.perf_counter() - t0) * 1e3,
+            "profile_peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "profile_result": profile}
+
+
+def gloo_stream_rank():
+    """One of the GLOO_RANKS ranks of the streamed shard phase, started
+    by ``run_local_ranks`` with gloo on cuda:0: the exact stream at
+    budget 0 of the SHARD_STREAM_ARCHIVE in SHARD_STREAM_CHUNK-subint
+    tiles over the 2 x 2 mesh (each rank its block of every tile, K8 on
+    the gathered whole planes).  Returns its counts, the stream's gauges
+    and counters, peak memory and (rank 0) the result."""
+    import torch
+
+    from iterative_cleaner_torch import CleanConfig, clean_streaming
+    from iterative_cleaner_torch.io.synthetic import make_synthetic_archive
+    from iterative_cleaner_torch.parallel.mesh import cell_mesh
+    from iterative_cleaner_torch.parallel.tile_cache import DictRegistry
+    from iterative_cleaner_torch.stats import kernels as K
+
+    ar, _ = make_synthetic_archive(**SHARD_STREAM_ARCHIVE)
+    mesh = cell_mesh()
+    reg = DictRegistry()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = clean_streaming(ar, SHARD_STREAM_CHUNK,
+                             CleanConfig(device="cuda:0", stream_hbm_mb=0),
+                             mesh, registry=reg)
+    torch.cuda.synchronize()
+    return {"rank": mesh.rank, "coords": mesh.coords,
+            "counts": K.launch_counts(), "gauges": reg.gauges,
+            "counters": reg.counters,
+            "clean_ms": (time.perf_counter() - t0) * 1e3,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
             "result": result}
+
+
+def stream_counts(route_kernels, names, loops, n_tiles) -> dict:
+    """The launch counts of an exact stream (a rank's, over a mesh) of
+    ``loops`` iterations in ``n_tiles`` tiles: the route's template and
+    cell-diagnostics kernels once a tile, its other kernels once an
+    iteration, every other kernel of ``names`` never."""
+    per_tile = ("weighted_marginals", "cell_diagnostics_disp",
+                "cell_diagnostics_two_read", "cell_diagnostics_dedisp")
+    return {k: (loops * (n_tiles if k in per_tile else 1)
+                if k in route_kernels else 0) for k in names}
 
 
 def same_archive(a, b) -> list:
@@ -862,6 +934,7 @@ def main() -> int:
     from iterative_cleaner_torch.io.synthetic import (
         FULLSIZE_SHAPE,
         make_fullsize_archive,
+        make_synthetic_archive,
     )
     from iterative_cleaner_torch.ops.dsp import weighted_marginal_totals
     from iterative_cleaner_torch.parallel import distributed
@@ -990,12 +1063,8 @@ def main() -> int:
         engine_route = select_route(cfg_s, ar.dedispersed)
         g, c = reg.gauges, reg.counters
         if mode == "exact":
-            want = {k: 0 for k in counts[key]}
-            for k in STREAM_KERNELS[engine_route]:
-                want[k] = r.loops * (n_tiles if k in (
-                    "weighted_marginals", "cell_diagnostics_disp",
-                    "cell_diagnostics_two_read",
-                    "cell_diagnostics_dedisp") else 1)
+            want = stream_counts(STREAM_KERNELS[engine_route], counts[key],
+                                 r.loops, n_tiles)
             print(f"stream ({run}) exact, {n_tiles} tiles of {chunk}, "
                   f"budget {g['stream_cache_budget_bytes']} bytes, route "
                   f"{engine_route}: kernels {json.dumps(counts[key])}, "
@@ -1057,45 +1126,61 @@ def main() -> int:
     if frac >= ONLINE_MAX_FRACTION:
         fail("stream (d): online mask drifted past its bound")
 
-    # ---- 3c. the cell-sharded clean on one rank under NCCL: K10 on the
-    # whole cube, the scalers' selects as real NCCL all-reduces over one
-    # rank; counted like the whole cleans, held to their masks and scores
+    # ---- 3c. the cell-sharded clean on one rank under NCCL, counted like
+    # the whole cleans, held to their masks and scores bit for bit: the
+    # default route and the dedispersed frame (K10 on the whole cube, the
+    # scalers' selects as real NCCL all-reduces over one rank), and the
+    # two_read route under the profile baseline and a pulse window (K7 on
+    # the block, the gathered scaler and K9 through a real NCCL gather)
     store_dir = tempfile.mkdtemp(prefix="icln_chip_smoke_")
     distributed.initialize("nccl", f"file://{store_dir}/store",
                            device="cuda:0", rank=0, world_size=1)
     mesh1 = cell_mesh()
-    for route in SHARD_KERNELS:
-        key = f"sharded 1 ({route})"
+    # run name: (its configuration, the whole clean it is held to)
+    shard_runs = {
+        "default": (configs["default"], "default"),
+        "dedispersed": (configs["dedispersed"], "dedispersed"),
+        "profile": (configs["profile"], "profile"),
+        "pulse window": (CleanConfig(pulse_region=(0.2, 30, 60)),
+                         "pulse_unload"),
+    }
+    for name, (cfg_s, base_name) in shard_runs.items():
+        key = f"sharded 1 ({name})"
+        engine_route = select_route(cfg_s, ar.dedispersed)
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         K.reset_launch_counts()
         t0 = time.perf_counter()
-        results[key] = r = clean_archive_sharded(ar, configs[route], mesh1)
+        results[key] = r = clean_archive_sharded(ar, cfg_s, mesh1)
         torch.cuda.synchronize()
         clean_ms[key] = (time.perf_counter() - t0) * 1e3
         counts[key] = K.launch_counts()
         peak_gib[key] = torch.cuda.max_memory_allocated() / 2 ** 30
-        want = {k: (r.loops if k in SHARD_KERNELS[route] else 0)
+        want = {k: (r.loops if k in SHARD_KERNELS[engine_route] else 0)
                 for k in counts[key]}
-        base = results[route]
+        base = results[base_name]
         n_mask = int(((r.final_weights == 0)
                       != (base.final_weights == 0)).sum())
         n_bits = bits_mismatch(torch.from_numpy(r.scores),
                                torch.from_numpy(base.scores), torch)
-        print(f"sharded 1 ({route}), one NCCL rank: kernels "
+        print(f"{key}, one NCCL rank, route {engine_route}: kernels "
               f"{json.dumps(counts[key])}, {r.loops} loops, whole clean "
               f"{clean_ms[key]:.1f} ms, peak device memory "
-              f"{peak_gib[key]:.2f} GiB; against the whole {route} clean: "
-              f"{n_mask} mask cells and {n_bits} scores differ in bits "
-              f"(tolerance: 0 and 0) {tag}", flush=True)
+              f"{peak_gib[key]:.2f} GiB; against the whole {base_name} "
+              f"clean: {n_mask} mask cells and {n_bits} scores differ in "
+              f"bits (tolerance: 0 and 0) {tag}", flush=True)
         if counts[key] != want:
             fail(f"{key}: launch counts {counts[key]}, want {want}")
         if n_mask or n_bits or (r.loops, r.converged) != (base.loops,
-                                                          base.converged):
-            fail(f"{key}: mask, scores or loops differ from the whole clean")
+                                                          base.converged) \
+                or not np.array_equal(r.iter_metrics, base.iter_metrics):
+            fail(f"{key}: mask, scores, loops or telemetry differ from the "
+                 f"whole clean")
     golden_check("sharded 1 (default)", results["sharded 1 (default)"], "",
                  (NSUB, NCHAN))
+    golden_check("sharded 1 (profile)", results["sharded 1 (profile)"],
+                 "_profile", (NSUB, NCHAN))
 
     # ---- 3d. four gloo ranks sharing the card (NCCL refuses two ranks
     # on one GPU): the 2 x 2 mesh cell_mesh(4) builds, every cross-rank
@@ -1121,23 +1206,129 @@ def main() -> int:
     finally:
         shutil.rmtree(shard_dir, ignore_errors=True)
     r4 = results["sharded 4 (gloo)"] = ranks[0]["result"]
+    r4p = results["sharded 4 (gloo, profile)"] = ranks[0]["profile_result"]
     for rk in ranks:
-        want = {k: (r4.loops if k in SHARD_KERNELS["default"] else 0)
-                for k in rk["counts"]}
-        print(f"sharded 4 (gloo) rank {rk['rank']} {tuple(rk['coords'])}, "
-              f"block {rk['block']}: kernels {json.dumps(rk['counts'])}, "
-              f"whole clean {rk['clean_ms']:.1f} ms, "
-              f"{rk['iter_ms']:.1f} ms per iteration (host, 3 iterations "
-              f"between barriers), peak device memory "
-              f"{rk['peak_gib']:.2f} GiB {tag}", flush=True)
-        if rk["counts"] != want:
-            fail(f"sharded 4 (gloo) rank {rk['rank']}: launch counts "
-                 f"{rk['counts']}, want {want}")
+        for route, res, pre in (("default", r4, ""),
+                                ("two_read", r4p, "profile_")):
+            got = rk[pre + "counts"]
+            want = {k: (res.loops if k in SHARD_KERNELS[route] else 0)
+                    for k in got}
+            print(f"sharded 4 (gloo{', profile' if pre else ''}) rank "
+                  f"{rk['rank']} {tuple(rk['coords'])}, block {rk['block']}:"
+                  f" kernels {json.dumps(got)}, whole clean "
+                  f"{rk[pre + 'clean_ms']:.1f} ms, "
+                  + ("" if pre else f"{rk['iter_ms']:.1f} ms per iteration "
+                     f"(host, 3 iterations between barriers), ")
+                  + f"peak device memory {rk[pre + 'peak_gib']:.2f} GiB "
+                  f"{tag}", flush=True)
+            if got != want:
+                fail(f"sharded 4 (gloo) rank {rk['rank']} ({route}): launch "
+                     f"counts {got}, want {want}")
     print(f"sharded 4 (gloo): {GLOO_RANKS} rank processes in {gloo_s:.1f} s "
-          f"(start-up, mapping, cleans, timing), {r4.loops} loops {tag}",
-          flush=True)
+          f"(start-up, mapping, cleans of both routes, timing), {r4.loops} "
+          f"and {r4p.loops} loops {tag}", flush=True)
     whole_contract("sharded 4 (gloo)", r4, whole)
     golden_check("sharded 4 (gloo)", r4, "", (NSUB, NCHAN))
+    whole_contract("sharded 4 (gloo, profile)", r4p, results["profile"],
+                   "profile")
+    golden_check("sharded 4 (gloo, profile)", r4p, "_profile", (NSUB, NCHAN))
+
+    # ---- 3i. streaming over a cell mesh: on the one NCCL rank at full
+    # size, (a), (c) and (d) again, each bit-equal to its single-card
+    # stream with the same launch counts (exact) or a one-rank sharded
+    # clean per tile (online); then four gloo ranks streaming a cut
+    # archive, mask-equal to the single-card exact stream
+    shard_streams = {"a": "stream (a)", "c": "stream (c)", "d": "stream (d)"}
+    for run, base_key in shard_streams.items():
+        chunk, cfg_s, mode = streams[run]
+        key = f"shard stream ({run})"
+        reg = stream_regs[key] = DictRegistry()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        results[key] = r = clean_streaming(ar, chunk, cfg_s, mesh1,
+                                           mode=mode, registry=reg)
+        torch.cuda.synchronize()
+        clean_ms[key] = (time.perf_counter() - t0) * 1e3
+        counts[key] = K.launch_counts()
+        peak_gib[key] = torch.cuda.max_memory_allocated() / 2 ** 30
+        base = results[base_key]
+        n_bits = bits_mismatch(torch.from_numpy(r.final_weights),
+                               torch.from_numpy(base.final_weights), torch) \
+            + bits_mismatch(torch.from_numpy(r.scores),
+                            torch.from_numpy(base.scores), torch)
+        if mode == "exact":
+            want = stream_counts(
+                STREAM_KERNELS[select_route(cfg_s, ar.dedispersed)],
+                counts[key], r.loops, -(-NSUB // chunk))
+            h2d = reg.counters["stream_h2d_bytes"]
+            # the preamble uploads the cube and the weights once; each
+            # iteration uploads the rest
+            per_iter = (h2d - cube_bytes - NSUB * NCHAN * 4) / r.loops
+            what = (f"{stream_line(reg.gauges)}; H2D {h2d} bytes (the "
+                    f"single-card stream "
+                    f"{stream_regs[run].counters['stream_h2d_bytes']}), "
+                    f"{per_iter:.0f} an iteration after the preamble")
+        else:
+            n_it = counts[key]["combine_zap"]
+            want = {k: (n_it if k in SHARD_KERNELS["default"] else 0)
+                    for k in counts[key]}
+            what = f"{n_it} tile iterations, each a one-rank sharded clean's"
+        print(f"{key} {mode} over one NCCL rank, {-(-NSUB // chunk)} tiles "
+              f"of {chunk}: kernels {json.dumps(counts[key])}, {r.loops} "
+              f"loops, whole clean {clean_ms[key]:.1f} ms; {what}; peak "
+              f"device memory {peak_gib[key]:.2f} GiB; against {base_key}: "
+              f"{n_bits} cells differ in bits (weights and scores; "
+              f"tolerance: bit-equal) {tag}", flush=True)
+        if counts[key] != want:
+            fail(f"{key}: launch counts {counts[key]}, want {want}")
+        if n_bits or (r.loops, r.converged) != (base.loops, base.converged):
+            fail(f"{key}: differs from {base_key}")
+    golden_check("shard stream (c)", results["shard stream (c)"], "_profile",
+                 (NSUB, NCHAN))
+    ar_s, _ = make_synthetic_archive(**SHARD_STREAM_ARCHIVE)
+    single = clean_streaming(ar_s, SHARD_STREAM_CHUNK,
+                             CleanConfig(stream_hbm_mb=0))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="icln_chip_smoke_ranks_") as wd:
+        try:
+            ranks = distributed.run_local_ranks(
+                gloo_stream_rank, GLOO_RANKS, (), workdir=wd,
+                device="cuda:0", backend="gloo", timeout_s=GLOO_TIMEOUT_S)
+        except (RuntimeError, TimeoutError) as exc:
+            fail(f"shard stream 4 (gloo): {exc}")
+    gloo_s = time.perf_counter() - t0
+    r4s = results["shard stream 4 (gloo)"] = ranks[0]["result"]
+    shape_s = tuple(SHARD_STREAM_ARCHIVE[k] for k in ("nsub", "nchan",
+                                                      "nbin"))
+    want = stream_counts(STREAM_KERNELS["default"], ranks[0]["counts"],
+                         r4s.loops, -(-ar_s.nsub // SHARD_STREAM_CHUNK))
+    for rk in ranks:
+        g, c = rk["gauges"], rk["counters"]
+        print(f"shard stream 4 (gloo) rank {rk['rank']} "
+              f"{tuple(rk['coords'])}, exact, {shape_s} in tiles of "
+              f"{SHARD_STREAM_CHUNK}: kernels {json.dumps(rk['counts'])}, "
+              f"whole clean {rk['clean_ms']:.1f} ms; {stream_line(g)}; H2D "
+              f"{c['stream_h2d_bytes']} bytes; peak device memory "
+              f"{rk['peak_gib']:.2f} GiB {tag}", flush=True)
+        if rk["counts"] != want:
+            fail(f"shard stream 4 (gloo) rank {rk['rank']}: launch counts "
+                 f"{rk['counts']}, want {want}")
+    n_mask = int(((r4s.final_weights == 0)
+                  != (single.final_weights == 0)).sum())
+    print(f"shard stream 4 (gloo): {GLOO_RANKS} rank processes in "
+          f"{gloo_s:.1f} s (start-up, archive, stream), {r4s.loops} loops; "
+          f"against the single-card exact stream: {n_mask} mask cells "
+          f"differ (tolerance: 0), {int((single.final_weights == 0).sum())} "
+          f"zapped {tag}", flush=True)
+    if n_mask or (r4s.loops, r4s.converged) != (single.loops,
+                                                single.converged):
+        fail("shard stream 4 (gloo): mask or loops differ from the "
+             "single-card exact stream")
 
     # ---- 3e. the CLI session a user runs, on the archive as PSRFITS,
     # counted like the default whole clean and held to it, its load
@@ -1451,7 +1642,10 @@ def main() -> int:
                         f"{replaces.split(':')[1]}",
             "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": pms, "bound_ms": bms, "bound_by": bby,
-            "library_ms": lms})
+            "library_ms": lms,
+            # the kernel's launches in every counted run that launched it
+            "launches_by_route": {r: c[name] for r, c in counts.items()
+                                  if c.get(name)}})
         what = f"{launches} launches"
         if name in k10_in:
             # K10 on one 2 x 2 shard too, the shape each of four ranks
@@ -1496,24 +1690,37 @@ def main() -> int:
         print(f"time {seq} as {diag} + scaled_sides x2 + combine_zap: "
               f"{ms_of[diag] + tail:.4f} ms, bound of the one-launch sweep "
               f"{bms:.4f} ms ({bby}) {tag}", flush=True)
+    whole_iter_ms = {}
     for route, prep in preps.items():
-        iter_ms = cuda_ms(lambda: iteration_step(prep, weights, weights, mask,
-                                                 **common), 5, torch)
+        whole_iter_ms[route] = iter_ms = cuda_ms(
+            lambda: iteration_step(prep, weights, weights, mask, **common), 5,
+            torch)
         print(f"clean {route}: {results[route].loops} loops, whole clean "
               f"{clean_ms[route]:.1f} ms (upload, preamble, loop, download), "
               f"{iter_ms:.3f} ms per iteration (device, resident cubes), "
               f"peak device memory of the clean {peak_gib[route]:.2f} GiB "
               f"{tag}", flush=True)
 
-    for route in SHARD_KERNELS:
-        key = f"sharded 1 ({route})"
+    # the gathered scaler's gather: four diagnostic planes and the weights
+    # stacked and gathered over the one NCCL rank
+    gather_ms = cuda_ms(lambda: mesh1.gather_cells(
+        torch.stack([*diags, weights])), 10, torch)
+    for name, (_, base_name) in shard_runs.items():
+        key = f"sharded 1 ({name})"
+        prep = preps[base_name]
         iter_ms = cuda_ms(lambda: iteration_step(
-            preps[route], weights, weights, mask, mesh=mesh1, **common), 5,
-            torch)
+            prep, weights, weights, mask, mesh=mesh1, **common), 5, torch)
+        what = ""
+        if prep.route == "two_read":
+            what = (f"; the gather {gather_ms:.3f} ms of it "
+                    f"({100 * gather_ms / iter_ms:.1f}%), the whole "
+                    f"{base_name} clean's iteration "
+                    f"{whole_iter_ms[base_name]:.3f} ms")
         print(f"clean {key}: {results[key].loops} loops, whole clean "
               f"{clean_ms[key]:.1f} ms, {iter_ms:.3f} ms per iteration "
-              f"(device, resident shard, one NCCL rank), peak device memory "
-              f"of the clean {peak_gib[key]:.2f} GiB {tag}", flush=True)
+              f"(device, resident shard, one NCCL rank){what}, peak device "
+              f"memory of the clean {peak_gib[key]:.2f} GiB {tag}",
+              flush=True)
     distributed.shutdown()
     shutil.rmtree(store_dir, ignore_errors=True)
 

@@ -28,11 +28,13 @@ An archive that fails ends the session with its exception; with
 cleaned, and the exit code is 1.
 ``--stream N`` cleans in N-subint tiles (``parallel/streaming.py``).
 ``--mesh cell`` cleans each archive over the ranks of a
-``torch.distributed`` job (``parallel/sharding.py``), started as
+``torch.distributed`` job (``parallel/sharding.py``; with ``--stream N``
+each tile over the ranks, ``parallel/streaming.py``), started as
 ``torchrun --nproc_per_node N -m iterative_cleaner_torch --mesh cell
-obs.sf``: one rank per card (NCCL), or gloo ranks with ``--device
-cpu``; every rank reads the archive and keeps its block, and rank 0
-alone prints, records the telemetry, writes the output and the logs.
+[--stream N] obs.sf``: one rank per card (NCCL), or gloo ranks with
+``--device cpu``; every rank reads the archive and keeps its block, and
+rank 0 alone prints, records the telemetry, writes the output and the
+logs.
 Not ported yet: ``--checkpoint``, ``--record_history`` and ``--model``
 (ROADMAP.md 'Modules still to port' item 8), the live ``--stream DIR``
 session (item 5), ``--mesh batch`` (item 3).
@@ -137,8 +139,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "(subint x channel) grid over the ranks of a "
                         "torchrun job, one rank per card (or gloo ranks "
                         "on the CPU with --device cpu); uneven grids are "
-                        "zero-weight padded and cropped back. 'batch' is "
-                        "not ported yet.")
+                        "zero-weight padded and cropped back. With "
+                        "--stream N each tile is sharded (each mesh axis "
+                        "must divide the tile grid). 'batch' is not "
+                        "ported yet.")
     p.add_argument("--prefetch", type=int, default=0, metavar="N",
                    help="Load up to N archives ahead on background "
                         "threads while the card cleans the current one "
@@ -276,10 +280,11 @@ def clean_one(in_path: str, args, telemetry: RunTelemetry, mesh=None,
         print("Total number of profiles: %s" % ar.weights.size)
     chunk = stream_chunk(args.stream)
     with timer.phase("clean"):
-        if mesh is not None:
+        if chunk > 0:
+            result = clean_streaming(ar, chunk, cfg, mesh,
+                                     mode=args.stream_mode)
+        elif mesh is not None:
             result = clean_archive_sharded(ar, cfg, mesh)
-        elif chunk > 0:
-            result = clean_streaming(ar, chunk, cfg, mode=args.stream_mode)
         else:
             result = clean_archive(ar, cfg)
     if result is None:
@@ -381,8 +386,8 @@ def main(argv=None) -> int:
     if args.io_workers is not None and args.io_workers < 1:
         parser.error(f"--io-workers must be >= 1, got {args.io_workers}")
     # refuse a directory, and what the mesh does not run, before any clean
-    streaming = stream_chunk(args.stream) > 0
-    check_mesh(args.mesh, config_of(args), streaming=streaming)
+    stream_chunk(args.stream)
+    check_mesh(args.mesh, config_of(args))
     if args.mesh == "off":
         return run_archives(args)
     from iterative_cleaner_torch.parallel import distributed

@@ -20,7 +20,6 @@ from typing import Optional, Tuple
 _ROADMAP_F64 = "ROADMAP.md 'Modules still to port' item 1 (float64)"
 _ROADMAP_BF16 = "ROADMAP.md 'Modules still to port' item 6 (mixed precision)"
 _ROADMAP_BATCH = "ROADMAP.md 'Modules still to port' item 3 (batch and fleet)"
-ROADMAP_MESH = "ROADMAP.md 'Modules still to port' item 7 (multi-GPU)"
 
 MESH_MODES = ("off", "cell", "batch")
 
@@ -104,31 +103,20 @@ class CleanConfig:
                 f"{_ROADMAP_F64}")
 
 
-def check_mesh(mesh: str, config: CleanConfig, *, dedispersed: bool = False,
-               streaming: bool = False) -> None:
-    """Refuse, with ``NotImplementedError`` naming its ROADMAP.md item,
-    what the multi-GPU clean does not run yet: ``mesh='batch'``, the
-    cell-sharded clean in subint tiles (the reference's streamed shard
-    path), and the cell-sharded two_read route (the dispersed frame under
-    the profile baseline, a pulse window or a DEDISP=1 input; the
-    reference runs it through K7 per shard and
-    ``sharded_scale_and_combine``).  ``mesh='cell'`` runs the default
-    route and the dedispersed frame."""
+def check_mesh(mesh: str, config: CleanConfig) -> None:
+    """Refuse what the multi-GPU clean does not run: ``mesh='batch'``
+    (``NotImplementedError`` naming its ROADMAP.md item) and, on a cell
+    mesh, the outputs that are not gathered across ranks (``unload_res``,
+    ``record_history``: ``ValueError``, as in the reference).
+    ``mesh='cell'`` runs every route, whole or streamed in subint
+    tiles."""
     if mesh not in MESH_MODES:
         raise ValueError(f"unknown mesh {mesh!r}")
     if mesh == "batch":
         raise NotImplementedError(
             f"--mesh batch is not ported yet: {_ROADMAP_BATCH}")
-    if mesh == "off":
-        return
-    if streaming:
-        raise NotImplementedError(
-            f"the cell-sharded clean in subint tiles (--mesh cell with "
-            f"--stream) is not ported yet: {ROADMAP_MESH}")
-    if resolve_stats_frame(config.stats_frame) == "dispersed" and (
-            config.baseline_mode != "integration"
-            or config.pulse_region_active or dedispersed):
-        raise NotImplementedError(
-            f"the cell-sharded two_read route (the dispersed frame with "
-            f"the profile baseline, a pulse window or a DEDISP=1 input) "
-            f"is not ported yet: {ROADMAP_MESH}")
+    if mesh == "cell" and (config.unload_res or config.record_history):
+        raise ValueError(
+            "unload_res/record_history are not supported on the sharded "
+            "path (residual cubes and weight histories are not gathered); "
+            "clean unsharded for those outputs")

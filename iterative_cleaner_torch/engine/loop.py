@@ -36,12 +36,15 @@ The cell-sharded clean (``parallel/sharding.py``) runs :func:`prepare`,
 channel) shard with a ``mesh`` (a ``parallel.mesh.CellMesh``): the sums
 that cross shards (the baseline window's total profile, the template's
 numerators and weight sum, the marginals) are added in rank order, the
-iteration's post-template half is the sharded sweep (kernel K10, the
-scalers as tree-reduced selects, the combine kernel;
-:func:`_sharded_sweep`), the telemetry median a tree-reduced
-select, and the cycle check's flags and counts int32 all-reduces, so
-every rank leaves the loop at the same iteration.  It runs the
-``default`` and ``dedispersed`` routes (:data:`SHARD_KERNELS`).
+iteration's post-template half is the sharded sweep
+(:func:`_sharded_sweep`), and the cycle check's flags and counts int32
+all-reduces, so every rank leaves the loop at the same iteration.  The
+sweep, by route (:data:`SHARD_KERNELS`): on ``default`` and
+``dedispersed`` kernel K10 on the shard, the scalers and the telemetry
+median as tree-reduced selects, the combine kernel; on ``two_read`` K7
+on the shard, then the gathered scaler (the four diagnostic planes
+gathered whole on every rank, K3 twice and the combine on them) and K9
+on the gathered ``d_std``, as the reference runs that route.
 """
 
 from __future__ import annotations
@@ -98,12 +101,15 @@ ROUTE_KERNELS = {
 # per iteration, its combine as the sequence K8 (fused_combine).
 STREAM_KERNELS = {route: kernels + ("fused_combine",)
                   for route, kernels in ROUTE_KERNELS.items()}
-# The cell-sharded clean launches per iteration and rank K1 (default
-# route), K10 and the combine kernel; its scalers and its telemetry
-# median are tree-reduced selects of torch ops, not K3 and K9.
+# The cell-sharded clean launches per iteration and rank: on the default
+# and dedispersed routes K1 (default route), K10 and the combine kernel,
+# its scalers and its telemetry median tree-reduced selects of torch ops,
+# not K3 and K9; on the two_read route K7 on the rank's block, then K3
+# twice, the combine and K9 on the gathered whole planes.
 SHARD_KERNELS = {
     "default": ("weighted_marginals", "shard_diagnostics_disp",
                 "combine_zap"),
+    "two_read": ROUTE_KERNELS["two_read"],
     "dedispersed": ("shard_diagnostics_dedisp", "combine_zap"),
 }
 # K3's route on scaler lines over 46,486 entries (the archive's subints
@@ -206,8 +212,6 @@ def prepare(cube, weights, freqs_mhz, dm, ref_freq_mhz, period_s,
     streaming rebuilds it per tile, :func:`tile_prepared`).  ``mesh``:
     the arguments are a rank's shard (see the module docstring)."""
     route = select_route(config, dedispersed)
-    if mesh is not None and route not in SHARD_KERNELS:
-        raise ValueError(f"the {route} route has no sharded form")
     rotation, duty = config.rotation, config.baseline_duty
     if route == "default":
         _, shifts, disp_clean, offsets = prepare_cube_integration(
@@ -276,9 +280,10 @@ def template_partial(route, tile, weights, offsets, raw, *, baseline_duty,
     dedispersed ``tile`` and, under the integration baseline (``raw``
     given), the correction's from the raw cube.  ``offsets`` are the
     tile's integration-baseline levels (None under the profile
-    baseline).  On a cell ``mesh`` (default route): K1 per shard, ``A``
-    summed over the rank's column and ``t1`` over its row, the
-    correction numerator the whole archive's."""
+    baseline).  On a cell ``mesh`` the arguments are the rank's block of
+    the tile and the partials the whole tile's: on the default route K1
+    per block, ``A`` summed over the rank's column and ``t1`` over its
+    row; on the others the numerator summed over every rank."""
     if route == "default":
         if mesh is None:
             a, t1 = weighted_marginals(tile, weights)
@@ -291,10 +296,12 @@ def template_partial(route, tile, weights, offsets, raw, *, baseline_duty,
         return a, template_correction_numerator_from_totals(
             t1, offsets, weights, baseline_duty, mesh)
     num = weighted_template_numerator(tile, weights)
+    if mesh is not None:
+        num = mesh.total(num, "all")
     if raw is None:
         return num, None
     return num, template_correction_numerator_raw(raw, offsets, weights,
-                                                  baseline_duty)
+                                                  baseline_duty, mesh)
 
 
 def assemble_template(route, num, corr, weights, back_shifts, *, rotation,
@@ -395,18 +402,17 @@ def iteration_step(prep: Prepared, weights, orig_weights, cell_mask, *,
     """One iteration: template -> fit -> residual diagnostics (K2, K6 or
     K7) -> both scaler orientations (K3) -> 4-way median and zap
     (combine); on a cell ``mesh`` the sharded sweep after the template
-    (K10, tree-reduced scalers, combine).  Returns ``(new_weights,
-    scores, residual_std, template_peak)``, the last two as device
-    scalars for the telemetry rows."""
+    (:func:`_sharded_sweep`).  Returns ``(new_weights, scores,
+    residual_std, template_peak)``, the last two as device scalars for
+    the telemetry rows."""
     template = build_template(prep, weights, rotation=rotation,
                               baseline_duty=baseline_duty, mesh=mesh)
     if mesh is not None:
-        new_weights, scores, d_std = _sharded_sweep(
+        new_weights, scores, rstd = _sharded_sweep(
             prep, template, orig_weights, cell_mask, mesh,
             chanthresh=chanthresh, subintthresh=subintthresh,
             rotation=rotation)
-        return (new_weights, scores, residual_std(d_std, cell_mask, mesh),
-                torch.max(template))
+        return new_weights, scores, rstd, torch.max(template)
     diags = route_diagnostics(prep, template, orig_weights, cell_mask,
                              rotation=rotation)
     chan = scaled_sides(diags, cell_mask, 0, chanthresh)
@@ -419,11 +425,23 @@ def iteration_step(prep: Prepared, weights, orig_weights, cell_mask, *,
 def _sharded_sweep(prep: Prepared, template, orig_weights, cell_mask, mesh,
                    *, chanthresh, subintthresh, rotation):
     """The post-template half of a sharded iteration on this rank's
-    shard, the reference's ``sharded_fused_sweep``/``_dedisp``: kernel
-    K10 on the shard, then the tree-reduced scalers and the combine.
-    Returns ``(new_weights, scores, d_std)``."""
-    from iterative_cleaner_torch.parallel.shard_stats import tree_combine_zap
+    shard.  two_read (the reference's ``sharded_cell_diagnostics_fused``
+    and ``sharded_scale_and_combine``): K7 on the shard, the gathered
+    scaler, K9 on the gathered ``d_std``.  The others (the reference's
+    ``sharded_fused_sweep``/``_dedisp``): kernel K10 on the shard, then
+    the tree-reduced scalers, the combine and the tree-reduced telemetry
+    median.  Returns ``(new_weights, scores, residual_std)``."""
+    from iterative_cleaner_torch.parallel.shard_stats import (
+        sharded_scale_and_combine,
+        tree_combine_zap,
+    )
 
+    if prep.route == "two_read":
+        diags = route_diagnostics(prep, template, orig_weights, cell_mask,
+                                  rotation=rotation)
+        new_weights, scores, d_std, whole_mask = sharded_scale_and_combine(
+            mesh, diags, orig_weights, chanthresh, subintthresh)
+        return new_weights, scores, residual_std(d_std, whole_mask)
     if prep.route == "dedispersed":
         diags = shard_diagnostics_dedisp(prep.ded, template, prep.window,
                                          orig_weights, cell_mask)
@@ -433,7 +451,7 @@ def _sharded_sweep(prep: Prepared, template, orig_weights, cell_mask, mesh,
                                        template, orig_weights, cell_mask)
     new_weights, scores = tree_combine_zap(diags, cell_mask, orig_weights,
                                            chanthresh, subintthresh, mesh)
-    return new_weights, scores, diags[0]
+    return new_weights, scores, residual_std(diags[0], cell_mask, mesh)
 
 
 def residual_std(d_std, cell_mask, mesh=None):

@@ -86,17 +86,25 @@ def template_correction_numerator_from_totals(t1, base_offsets, weights,
 
 
 def template_correction_numerator_raw(cube_raw, base_offsets, weights,
-                                      duty):
+                                      duty, mesh=None):
     """Un-normalised correction over a subint tile of the RAW
     (pre-baseline) cube: the smoothed total straight from the raw
     weighted sum (``wm(sum_c w*(clean + V)) = wm(sum_c w*clean) + sum_c
     w*V``).  Exact streaming accumulates these per tile on the routes
-    other than the default and divides by the global weight sum."""
+    other than the default and divides by the global weight sum.  On a
+    cell ``mesh`` (a rank's block of the tile) the totals sum over the
+    rank's row, the minima over its column, the weighted offsets over
+    every rank."""
     w = window_width(cube_raw.shape[-1], duty)
     t1 = torch.einsum("sc,scb->sb", weights, cube_raw)
+    if mesh is not None:
+        t1 = mesh.total(t1, "chan")
     sm = centred_window_means(t1, w)
-    return torch.sum(weights * base_offsets) \
-        - torch.sum(torch.min(sm, dim=-1).values)
+    total = torch.sum(weights * base_offsets)
+    minima = torch.sum(torch.min(sm, dim=-1).values)
+    if mesh is not None:
+        total, minima = mesh.total(total, "all"), mesh.total(minima, "sub")
+    return total - minima
 
 
 def template_correction_from_totals(t1, base_offsets, weights, duty,

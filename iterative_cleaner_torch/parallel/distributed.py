@@ -16,8 +16,10 @@ collectives the shards exchange, and rank processes on one host.
   counts and keys, :func:`gather_in_rank_order` for float partials —
   gathered and added in group-rank order, so every rank adds the same
   floats in the same order and holds the same bits; no float sum crosses
-  ranks through an all-reduce, whose order the backend picks — and
-  :func:`host_fetch`, which gathers result planes to rank 0.
+  ranks through an all-reduce, whose order the backend picks —,
+  :func:`gather_cells`, which tiles every rank's block of a cell plane
+  into the whole plane on every rank, and :func:`host_fetch`, which
+  gathers result planes to rank 0.
 - gloo does not take CUDA tensors in every collective (its ``gather`` is
   CPU-only), so on gloo every CUDA operand is staged through host memory
   explicitly; the kernels still run on the card.
@@ -153,6 +155,22 @@ def _all_gather(x, group):
     parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, src, group=group)
     return [p.reshape(x.shape).to(x.device) for p in parts]
+
+
+def gather_cells(x, grid, group=None):
+    """The (..., s, c) blocks ``x`` of the ranks of an (a, b) rank grid
+    (rank ``i * b + j`` holding block (i, j)) tiled into the whole
+    (..., a * s, b * c) plane on every rank: the 'sub' blocks down the
+    rows, the 'chan' blocks across the columns, in rank order (the
+    reference's two tiled ``all_gather``s).  One all-gather over
+    ``group``, which must hold exactly the grid's ranks."""
+    a, b = grid
+    parts = _all_gather(x, group)
+    if len(parts) != a * b:
+        raise ValueError(f"{len(parts)} ranks gathered for an {a} x {b} "
+                         f"grid")
+    rows = [torch.cat(parts[i * b:(i + 1) * b], dim=-1) for i in range(a)]
+    return torch.cat(rows, dim=-2)
 
 
 def gather_in_rank_order(x, group=None):

@@ -36,7 +36,8 @@ class CellMesh:
     """This rank's place in the (a, b) rank grid, its device and its two
     subgroups, with the collectives the sharded clean runs over them:
     float partials added in rank order (``total``), int32 all-reduces
-    (``reduce_int``)."""
+    (``reduce_int``), blocks tiled into whole planes
+    (``gather_cells``)."""
 
     shape: tuple            # (a, b): 'sub' and 'chan' axis sizes
     rank: int
@@ -59,6 +60,13 @@ class CellMesh:
     def reduce_int(self, x, op: str = "sum", axis: str = "all"):
         """An int32 tensor all-reduced over ``axis``."""
         return _dist.all_reduce_int(x, op, self.group(axis))
+
+    def gather_cells(self, x):
+        """This rank's (..., s, c) block of a cell plane tiled with every
+        other rank's into the whole (..., a * s, b * c) plane, the same
+        on every rank (:func:`~iterative_cleaner_torch.parallel.
+        distributed.gather_cells`)."""
+        return _dist.gather_cells(x, self.shape)
 
 
 def cell_mesh() -> CellMesh:

@@ -1,13 +1,14 @@
 """Statistics of the cell-sharded clean that cross ranks: the weighted
-marginals of K1 per shard and the tree-reduced robust statistics.
+marginals of K1 per shard, the tree-reduced robust statistics and the
+gathered scaler.
 
 The port's counterpart of ``iterative_cleaner_tpu/parallel/
 shard_stats.py`` (``tree_reducers``, ``tree_masked_median_lanes``,
 ``tree_scaled_sides``, ``tree_combine_zap``,
-``sharded_weighted_marginals``).  Its ``shard_divisible`` has no
-counterpart: the port always pads the grid to the rank grid
-(``parallel/sharding.py``), as the reference's callers do before they
-assert it.
+``sharded_weighted_marginals``, ``sharded_scale_and_combine``).  Its
+``shard_divisible`` is ``parallel/sharding.py``'s ``check_tile_grid``
+on the streamed routes; the sharded clean pads the grid to the rank
+grid instead, as the reference's callers do before they assert it.
 
 The scalers' medians and MADs run the reference's exact select
 (``_select_kth``/``_select_adjacent``, ``stats/pallas_kernels.py``) as a
@@ -34,6 +35,7 @@ from iterative_cleaner_torch.stats.kernels import (
     combine_zap,
     key_to_float,
     ordered_key,
+    scaled_sides,
     weighted_marginals,
 )
 from iterative_cleaner_torch.stats.masked_torch import (
@@ -156,6 +158,31 @@ def tree_combine_zap(diagnostics, cell_mask, orig_weights, chanthresh,
     chan = tree_scaled_sides(diagnostics, cell_mask, 0, chanthresh, mesh)
     sub = tree_scaled_sides(diagnostics, cell_mask, 1, subintthresh, mesh)
     return combine_zap(chan, sub, orig_weights)
+
+
+def sharded_scale_and_combine(mesh, diagnostics, orig_weights, chanthresh,
+                              subintthresh):
+    """The iteration's tail of the two_read route on a cell ``mesh``,
+    the reference's gather-compute-slice: the four diagnostic planes and
+    the original weights of every rank gathered into the whole (padded)
+    planes on every rank (one all-gather of five planes), K3 in both
+    orientations and the combine kernel on the whole planes, and this
+    rank's block of the new weights and scores kept.  The cell mask is
+    the gathered weights' zeros, so a pad cell is masked.  With one rank
+    it is K3 and the combine on the rank's own planes.  Returns
+    ``(new_weights, scores, d_std, cell_mask)``, the last two the whole
+    planes the residual-std telemetry reads."""
+    s, c = orig_weights.shape
+    whole = mesh.gather_cells(torch.stack([*diagnostics, orig_weights]))
+    diags, weights = tuple(whole[:4]), whole[4]
+    cell_mask = weights == 0
+    chan = scaled_sides(diags, cell_mask, 0, chanthresh)
+    sub = scaled_sides(diags, cell_mask, 1, subintthresh)
+    new_w, scores = combine_zap(chan, sub, weights)
+    i, j = mesh.coords
+    block = (slice(i * s, (i + 1) * s), slice(j * c, (j + 1) * c))
+    return (new_w[block].contiguous(), scores[block].contiguous(),
+            diags[0], cell_mask)
 
 
 def sharded_weighted_marginals(mesh, disp, weights):

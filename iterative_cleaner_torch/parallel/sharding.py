@@ -21,8 +21,8 @@ per rank where the reference shards one program over a device mesh:
 Rank 0 returns the :class:`CleanResult`; the other ranks return None.
 Every rank must call with the same archive and configuration.  The
 weight history and the residual cube are not gathered: ``record_history``
-and ``unload_res`` are refused, as in the reference; the other refusals
-are :func:`~iterative_cleaner_torch.config.check_mesh`'s.
+and ``unload_res`` are refused, as in the reference
+(:func:`~iterative_cleaner_torch.config.check_mesh`).
 """
 
 from __future__ import annotations
@@ -32,7 +32,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from iterative_cleaner_torch.backends.base import CleanResult, apply_bad_parts
+from iterative_cleaner_torch.backends import base
+from iterative_cleaner_torch.backends.base import CleanResult
 from iterative_cleaner_torch.backends.torch_backend import (
     clean_device,
     upload_meta,
@@ -72,6 +73,19 @@ def shard_layout(mesh: CellMesh, nsub: int, nchan: int) -> ShardLayout:
                        j * c_loc, (j + 1) * c_loc)
 
 
+def check_tile_grid(mesh: CellMesh, tile_nsub: int, nchan: int) -> None:
+    """The streamed shard route's layout rule (the reference's
+    ``shard_divisible`` check): each mesh axis divides the tile's
+    (subint, channel) grid exactly, else ``ValueError``.  A streamed
+    tile is not padded up to the mesh, as in the reference."""
+    a, b = mesh.shape
+    if tile_nsub % a or nchan % b:
+        raise ValueError(
+            f"each mesh axis must divide the tile grid exactly: tile "
+            f"{tile_nsub}x{nchan} vs mesh {{'sub': {a}, 'chan': {b}}}; "
+            f"adjust chunk_nsub or the mesh")
+
+
 def _block(a, layout: ShardLayout) -> np.ndarray:
     """This rank's block of the host (nsub, nchan, ...) array ``a`` as
     float32, zero where the block covers padding.  Only the block is
@@ -96,18 +110,17 @@ def upload_shard(cube, weights, freqs_mhz, layout: ShardLayout, device):
 
 def clean_cube_sharded(cube, weights, freqs_mhz, dm, centre_freq_mhz,
                        period_s, config: CleanConfig, mesh: CellMesh, *,
+                       apply_bad_parts: bool = True,
                        dedispersed: bool = False
                        ) -> Optional[CleanResult]:
     """Clean one total-intensity (nsub, nchan, nbin) host cube over the
     ranks of ``mesh``.  ``config.device`` names the device type; the
     rank's device is ``mesh.device``.  Returns the result on rank 0 and
-    None on the other ranks."""
-    check_mesh("cell", config, dedispersed=dedispersed)
-    if config.unload_res or config.record_history:
-        raise ValueError(
-            "unload_res/record_history are not supported on the sharded "
-            "path (residual cubes and weight histories are not gathered); "
-            "clean unsharded for those outputs")
+    None on the other ranks.  ``apply_bad_parts=False`` skips the
+    whole-line sweep (the online stream's tiles: the sweep belongs to
+    the reassembled archive, whose zero-weight padding would dominate a
+    tile's fractions)."""
+    check_mesh("cell", config)
     if clean_device(config).type != mesh.device.type:
         raise ValueError(f"config.device {config.device!r} and the rank's "
                          f"device {mesh.device} differ in type")
@@ -152,7 +165,8 @@ def clean_cube_sharded(cube, weights, freqs_mhz, dm, centre_freq_mhz,
         loop_rfi_frac=fr,
         iter_metrics=im,
     )
-    return apply_bad_parts(result, config)
+    return base.apply_bad_parts(result, config) if apply_bad_parts \
+        else result
 
 
 def clean_archive_sharded(archive, config: CleanConfig,

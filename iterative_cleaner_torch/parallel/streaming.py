@@ -17,8 +17,14 @@ subints.  The reference measured about 0.01-0.02% of cells changing at
 (``iterative_cleaner_tpu/parallel/streaming.py``).  The reassembled
 result's ``loops``/``converged`` are the tiles' max/all.
 
-A ``mesh`` is refused (ROADMAP.md item 7); the live session over a
-directory of subint files is ROADMAP.md item 5.
+With a cell ``mesh`` both modes shard each tile's work over the ranks
+(the reference's streamed shard route): exact as the module above
+describes, online each tile through :func:`~iterative_cleaner_torch.
+parallel.sharding.clean_cube_sharded` without its bad-parts sweep.
+Each mesh axis must divide the tile grid; ``unload_res`` and
+``record_history`` are refused, when the session is made.  Every rank
+calls; rank 0 gets the results, the other ranks None.  The live
+session over a directory of subint files is ROADMAP.md item 5.
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ from typing import Iterator, List, Optional
 import numpy as np
 
 from iterative_cleaner_torch.backends.base import CleanResult, apply_bad_parts
-from iterative_cleaner_torch.config import ROADMAP_MESH, CleanConfig
+from iterative_cleaner_torch.config import CleanConfig, check_mesh
 
 
 @dataclasses.dataclass
@@ -38,7 +44,7 @@ class StreamTileResult:
 
     start_subint: int
     n_valid: int              # valid (non-padding) subints in this tile
-    result: CleanResult
+    result: Optional[CleanResult]   # None on a mesh's ranks other than 0
 
     @property
     def weights(self) -> np.ndarray:
@@ -60,12 +66,17 @@ class StreamingCleaner:
     def __init__(self, chunk_nsub: int, config: CleanConfig, freqs_mhz,
                  dm: float, centre_freq_mhz: float, period_s: float,
                  mesh=None, dedispersed: bool = False):
-        if mesh is not None:
-            raise NotImplementedError(
-                f"streaming over a device mesh is not ported yet: "
-                f"{ROADMAP_MESH}")
         if int(chunk_nsub) <= 0:
             raise ValueError(f"chunk_nsub must be positive, got {chunk_nsub}")
+        if mesh is not None:
+            # refuse at construction, not when the first tile fills
+            from iterative_cleaner_torch.parallel.sharding import (
+                check_tile_grid,
+            )
+
+            check_mesh("cell", config)
+            check_tile_grid(mesh, int(chunk_nsub), len(freqs_mhz))
+        self.mesh = mesh
         self.chunk_nsub = int(chunk_nsub)
         self.config = config
         self.freqs_mhz = np.asarray(freqs_mhz)
@@ -128,9 +139,19 @@ class StreamingCleaner:
                                    weights.dtype)], axis=0)
         # no bad-parts sweep per tile (padding rows would dominate the
         # fractions): clean_streaming sweeps the reassembled archive once
-        result = clean_cube(data, weights, self.freqs_mhz, self.dm,
-                            self.centre_freq_mhz, self.period_s, self.config,
-                            dedispersed=self.dedispersed)
+        if self.mesh is not None:
+            from iterative_cleaner_torch.parallel.sharding import (
+                clean_cube_sharded,
+            )
+
+            result = clean_cube_sharded(
+                data, weights, self.freqs_mhz, self.dm, self.centre_freq_mhz,
+                self.period_s, self.config, self.mesh, apply_bad_parts=False,
+                dedispersed=self.dedispersed)
+        else:
+            result = clean_cube(data, weights, self.freqs_mhz, self.dm,
+                                self.centre_freq_mhz, self.period_s,
+                                self.config, dedispersed=self.dedispersed)
         tile = StreamTileResult(start_subint=self._emitted, n_valid=n_valid,
                                 result=result)
         self._emitted += n_valid
@@ -173,33 +194,33 @@ def combine_tile_iter_metrics(tiles: List[StreamTileResult], nchan: int,
 
 def clean_streaming(archive, chunk_nsub: int, config: CleanConfig,
                     mesh=None, mode: str = "exact",
-                    registry=None) -> CleanResult:
+                    registry=None) -> Optional[CleanResult]:
     """Clean a whole archive through the streaming path and reassemble a
     whole-archive :class:`CleanResult`.  ``mode="exact"`` (the default,
     as the CLI's ``--stream_mode``): whole-archive masks, the tiles held
     in host memory (``registry`` receives its transfer counters).
     ``mode="online"``: each tile cleaned on its own as it fills (with
     ``unload_res``, the tiles' residuals reassembled).  The bad-parts
-    sweep runs once, over the reassembled archive."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"streaming over a device mesh is not ported yet: "
-            f"{ROADMAP_MESH}")
+    sweep runs once, over the reassembled archive.  ``mesh``: each
+    tile's work sharded over a cell mesh's ranks (the module
+    docstring); rank 0 gets the result, the other ranks None."""
     if mode == "exact":
         from iterative_cleaner_torch.parallel.streaming_exact import (
             clean_streaming_exact,
         )
 
-        return clean_streaming_exact(archive, chunk_nsub, config,
+        return clean_streaming_exact(archive, chunk_nsub, config, mesh=mesh,
                                      registry=registry)
     if mode != "online":
         raise ValueError(f"unknown streaming mode {mode!r}")
     sc = StreamingCleaner(chunk_nsub, config, archive.freqs_mhz, archive.dm,
                           archive.centre_freq_mhz, archive.period_s,
-                          dedispersed=archive.dedispersed)
+                          mesh=mesh, dedispersed=archive.dedispersed)
     tiles: List[StreamTileResult] = []
     tiles.extend(sc.push(archive.total_intensity(), archive.weights))
     tiles.extend(sc.finish())
+    if mesh is not None and mesh.rank != 0:
+        return None
     result = CleanResult(
         final_weights=np.concatenate([t.weights for t in tiles], axis=0),
         scores=np.concatenate([t.result.scores[: t.n_valid] for t in tiles],

@@ -44,18 +44,32 @@ the same code on the same inputs, and only the template's cross-tile
 sum is regrouped (K1 also sums its 64-subint partials per tile), which
 may move the template by an ulp; masks are the contract.
 
+Over a cell ``mesh`` (the reference's streamed shard route, its
+``_clean_exact_jax(mesh=...)``) each rank holds, uploads and prepares
+only its (subint, channel) block of every tile: the template's partials
+come from the route's kernels on the block and cross ranks in rank
+order (:mod:`iterative_cleaner_torch.parallel.mesh`), each tile's four
+diagnostic blocks are gathered into the tile's rows of the whole
+planes, which every rank holds, and K8 runs on those replicated planes,
+so every rank computes the same new weights and the masks are the
+single-card stream's.  Each mesh axis must divide the tile grid (a
+final partial tile is padded with zero-weight subints up to the 'sub'
+axis); the tile cache's budget is 0 (every tile uploaded each pass, the
+two-tile lookahead), as in the reference.  Rank 0 returns the result,
+the other ranks None.
+
 Not ported from the reference (``iterative_cleaner_tpu/parallel/
 streaming_exact.py``): ``_clean_exact_numpy`` (its numpy oracle: the
 port's CPU path is its plain versions); ``_warm_tile_programs`` and
 ``_host_parallelism`` (XLA compile warm-up: torch compiles nothing);
-the padding of the final tile, which let every tile share one compiled
-program.  A ``mesh`` is refused (ROADMAP.md item 7).
+the padding of the final tile to the full tile, which let every tile
+share one compiled program.
 """
 
 from __future__ import annotations
 
 import time
-from typing import List
+from typing import List, NamedTuple
 
 import numpy as np
 import torch
@@ -66,7 +80,7 @@ from iterative_cleaner_torch.backends.torch_backend import (
     upload,
     upload_meta,
 )
-from iterative_cleaner_torch.config import ROADMAP_MESH, CleanConfig
+from iterative_cleaner_torch.config import CleanConfig, check_mesh
 from iterative_cleaner_torch.engine.loop import (
     assemble_template,
     prepare,
@@ -76,6 +90,7 @@ from iterative_cleaner_torch.engine.loop import (
     template_partial,
     tile_prepared,
 )
+from iterative_cleaner_torch.parallel.sharding import check_tile_grid
 from iterative_cleaner_torch.parallel.tile_cache import (
     CopyStream,
     TileCache,
@@ -95,6 +110,54 @@ _PREP, _RAW = 0, 1
 
 def _tile_slices(nsub: int, chunk: int) -> List[slice]:
     return [slice(s, min(s + chunk, nsub)) for s in range(0, nsub, chunk)]
+
+
+class RankTiles(NamedTuple):
+    """This rank's block of every subint tile: the rows of its local
+    (n_local, c_loc) planes and host store.  Without a mesh (or on a
+    grid of one rank) the block is the whole tile."""
+
+    rows: np.ndarray     # (n_local,) archive subint of each local row, -1: pad
+    local: List[slice]   # each tile's local rows
+    chans: slice         # the rank's channels
+    trivial: bool        # the local planes are the whole planes
+
+    def local_of(self, plane):
+        """This rank's rows and channels of a whole (nsub, nchan) host
+        array or device tensor, zero on the pad rows (``plane`` itself
+        when the layout is trivial)."""
+        if self.trivial:
+            return plane
+        valid = self.rows >= 0
+        idx = np.where(valid, self.rows, 0)
+        if isinstance(plane, torch.Tensor):
+            out = plane[torch.from_numpy(idx).to(plane.device),
+                        self.chans].contiguous()
+            out[torch.from_numpy(~valid).to(plane.device)] = 0
+            return out
+        out = np.ascontiguousarray(plane[idx, self.chans])
+        out[~valid] = 0
+        return out
+
+
+def rank_tiles(tiles, nsub: int, nchan: int, mesh=None) -> RankTiles:
+    """The :class:`RankTiles` of ``mesh``'s rank: tile ``t`` of ``n``
+    subints is cut into ``a`` blocks of ``ceil(n / a)`` subints (rank
+    (i, j) the i-th), the channels into ``b`` blocks of ``nchan / b``;
+    the rows of the last blocks past the tile's end are padding."""
+    if mesh is None or tuple(mesh.shape) == (1, 1):
+        return RankTiles(np.arange(nsub), list(tiles), slice(0, nchan), True)
+    (a, b), (i, j) = mesh.shape, mesh.coords
+    rows, local, off = [], [], 0
+    for sl in tiles:
+        s_loc = -(-(sl.stop - sl.start) // a)
+        g = np.arange(sl.start + i * s_loc, sl.start + (i + 1) * s_loc)
+        rows.append(np.where(g < sl.stop, g, -1))
+        local.append(slice(off, off + s_loc))
+        off += s_loc
+    c_loc = nchan // b
+    return RankTiles(np.concatenate(rows), local,
+                     slice(j * c_loc, (j + 1) * c_loc), False)
 
 
 def _run_iterations(orig_weights, config: CleanConfig, step) -> CleanResult:
@@ -150,8 +213,13 @@ def _tile_event(device, timing=False):
 
 def _clean_exact(cube, weights, freqs_mhz, dm, ref_freq_mhz, period_s,
                  config: CleanConfig, tiles, dedispersed,
-                 registry=None) -> CleanResult:
+                 registry=None, mesh=None) -> CleanResult:
     device = clean_device(config)
+    if mesh is not None:
+        if device.type != mesh.device.type:
+            raise ValueError(f"config.device {config.device!r} and the "
+                             f"rank's device {mesh.device} differ in type")
+        device = mesh.device
     on_card = device.type == "cuda"
     route = select_route(config, dedispersed)
     integration = config.baseline_mode == "integration"
@@ -159,69 +227,87 @@ def _clean_exact(cube, weights, freqs_mhz, dm, ref_freq_mhz, period_s,
     rotation = config.rotation
     nsub, nchan, nbin = cube.shape
     n_tiles = len(tiles)
+    lay = rank_tiles(tiles, nsub, nchan, mesh)
+    n_local, c_loc = len(lay.rows), lay.chans.stop - lay.chans.start
     uploader = CopyStream(device) if on_card else host_copy
-    cache = TileCache(resolve_budget_bytes(config.stream_hbm_mb, device),
-                      uploader, registry=registry)
+    # on a mesh every tile is uploaded each pass (the reference's budget)
+    budget = 0 if mesh is not None else resolve_budget_bytes(
+        config.stream_hbm_mb, device)
+    cache = TileCache(budget, uploader, registry=registry)
 
     def gauge(name, value):
         cache.registry.gauge_set(f"stream_{name}", value)
 
-    # the host backing store: the prepared tiles (and the raw ones), one
-    # buffer for the clean, pinned on the card so the uploads are
-    # asynchronous
+    # the host backing store: the (rank's blocks of the) prepared tiles
+    # (and the raw ones), one buffer for the clean, pinned on the card so
+    # the uploads are asynchronous
     t0 = time.perf_counter()
-    store = torch.empty((2 if keep_raw else 1, nsub, nchan, nbin),
+    store = torch.empty((2 if keep_raw else 1, n_local, c_loc, nbin),
                         dtype=torch.float32, pin_memory=on_card)
     gauge("host_store_alloc_ms", (time.perf_counter() - t0) * 1e3)
 
     # the (nsub, nchan) planes stay on the device: nbin times smaller
-    # than the cube
+    # than the cube; on a mesh each rank holds the whole planes the
+    # combine reads and the local ones of its blocks
     orig32 = np.ascontiguousarray(weights, dtype=np.float32)
-    orig_w_d = upload(orig32, device)
-    cache.count_h2d(orig32.nbytes)
+    orig_local = lay.local_of(orig32)
+    orig_w_d = upload(orig_local, device)
+    cache.count_h2d(orig_local.nbytes)
     cell_mask_d = orig_w_d == 0
-    meta = upload_meta(freqs_mhz, dm, ref_freq_mhz, period_s, device)
-    offsets_d = torch.empty((nsub, nchan), dtype=torch.float32,
+    whole_w_d = orig_w_d
+    if not lay.trivial:
+        whole_w_d = upload(orig32, device)
+        cache.count_h2d(orig32.nbytes)
+    whole_mask_d = whole_w_d == 0
+    meta = upload_meta(np.asarray(freqs_mhz)[lay.chans], dm, ref_freq_mhz,
+                       period_s, device)
+    offsets_d = torch.empty((n_local, c_loc), dtype=torch.float32,
                             device=device) if integration else None
     planes = [torch.empty((nsub, nchan), dtype=torch.float32, device=device)
               for _ in range(4)]
 
-    def tile_bytes(sl):
-        return (sl.stop - sl.start) * nchan * nbin * 4
+    def tile_bytes(i):
+        sl = lay.local[i]
+        return (sl.stop - sl.start) * c_loc * nbin * 4
 
     # the residency plan: the prepared tiles (two uploads per iteration
     # saved each), then the raw ones (one)
-    plan = [(("prep", i), tile_bytes(sl)) for i, sl in enumerate(tiles)]
+    plan = [(("prep", i), tile_bytes(i)) for i in range(n_tiles)]
     if keep_raw:
-        plan += [(("raw", i), tile_bytes(sl)) for i, sl in enumerate(tiles)]
+        plan += [(("raw", i), tile_bytes(i)) for i in range(n_tiles)]
     depth = n_tiles if cache.plan(plan) else 1
 
     # the preamble, tile by tile: every step of it is local to a subint
+    # (on a mesh its sums cross the rank's row)
     t0 = time.perf_counter()
     shifts = window = None
-    for i, sl in enumerate(tiles):
-        slot = store[_RAW if keep_raw else _PREP, sl]
-        slot.numpy()[...] = cube[sl]     # float64 -> float32, one tile
+    for i, lsl in enumerate(lay.local):
+        slot = store[_RAW if keep_raw else _PREP, lsl]
+        rows = lay.rows[lsl]
+        n_real = int(np.sum(rows >= 0))   # the pad rows come last
+        # float64 -> float32, one tile (block)
+        slot.numpy()[:n_real] = cube[rows[0]:rows[0] + n_real, lay.chans]
+        slot.numpy()[n_real:] = 0
         raw_key = ("raw", i) if keep_raw else None
         raw_d = cache.get(raw_key, slot, cube=True)
         # the preamble subtracts in place: a pinned raw tile stays raw
         work = raw_d.clone() if keep_raw and cache.holds(raw_key) else raw_d
-        p = prepare(work, orig_w_d[sl], *meta, config,
-                    dedispersed=dedispersed, residual_base=False)
+        p = prepare(work, orig_w_d[lsl], *meta, config,
+                    dedispersed=dedispersed, residual_base=False, mesh=mesh)
         tile_d = p.disp_base if route == "default" else p.ded
         shifts, window = p.back_shifts, p.window
         if integration:
-            offsets_d[sl] = p.base_offsets
+            offsets_d[lsl] = p.base_offsets
         # the host copy (a synchronous D2H: the preamble's per-tile sync)
-        store[_PREP, sl].copy_(tile_d)
-        cache.count_d2h(tile_bytes(sl))
-        cache.adopt(("prep", i), tile_d, tile_bytes(sl))
+        store[_PREP, lsl].copy_(tile_d)
+        cache.count_d2h(tile_bytes(i))
+        cache.adopt(("prep", i), tile_d, tile_bytes(i))
         cache.mark_sync()
         del p, work, raw_d, tile_d
     gauge("prep_ms", (time.perf_counter() - t0) * 1e3)
 
     def host_tile(row, i):
-        return store[row, tiles[i]]
+        return store[row, lay.local[i]]
 
     # the device copy of the host weights the next step starts from
     mirror = [orig32, orig_w_d]
@@ -237,8 +323,9 @@ def _clean_exact(cube, weights, freqs_mhz, dm, ref_freq_mhz, period_s,
         if cur is mirror[0]:
             cur_d = mirror[1]
         else:
-            cur_d = upload(cur, device)
-            cache.count_h2d(cur.nbytes)
+            cur_local = lay.local_of(cur)
+            cur_d = upload(cur_local, device)
+            cache.count_h2d(cur_local.nbytes)
         acc = {}
 
         # pass 1: the template's partials, accumulated in tile order
@@ -250,12 +337,12 @@ def _clean_exact(cube, weights, freqs_mhz, dm, ref_freq_mhz, period_s,
             return ins
 
         def run_template(i, ins):
-            sl = tiles[i]
+            lsl = lay.local[i]
             part = template_partial(
-                route, ins[0], cur_d[sl],
-                None if offsets_d is None else offsets_d[sl],
+                route, ins[0], cur_d[lsl],
+                None if offsets_d is None else offsets_d[lsl],
                 ins[1] if keep_raw else None,
-                baseline_duty=config.baseline_duty)
+                baseline_duty=config.baseline_duty, mesh=mesh)
             return part, _tile_event(device)
 
         def drain_template(i, out):
@@ -268,20 +355,25 @@ def _clean_exact(cube, weights, freqs_mhz, dm, ref_freq_mhz, period_s,
         pipelined_sweep(n_tiles, put_template, run_template, drain_template,
                         depth=depth)
         template = assemble_template(route, acc["num"], acc["corr"], cur_d,
-                                     shifts, rotation=rotation)
+                                     shifts, rotation=rotation, mesh=mesh)
         marks.append(_tile_event(device, timing=True))
 
         # pass 2: each tile's kernel writes its rows of the full planes
+        # (on a mesh its block's, gathered into the tile's rows)
         def put_diag(i):
             return cache.get(("prep", i), host_tile(_PREP, i), cube=True)
 
         def run_diag(i, tile_d):
-            sl = tiles[i]
-            route_diagnostics(
+            sl, lsl = tiles[i], lay.local[i]
+            diags = route_diagnostics(
                 tile_prepared(route, tile_d, shifts, window,
                               rotation=rotation),
-                template, orig_w_d[sl], cell_mask_d[sl], rotation=rotation,
-                out=[p[sl] for p in planes])
+                template, orig_w_d[lsl], cell_mask_d[lsl], rotation=rotation,
+                out=None if mesh is not None else [p[sl] for p in planes])
+            if mesh is not None:
+                whole = mesh.gather_cells(torch.stack(diags))
+                for p, d in zip(planes, whole):
+                    p[sl] = d[:sl.stop - sl.start]
             return _tile_event(device)
 
         def drain_diag(i, event):
@@ -290,17 +382,17 @@ def _clean_exact(cube, weights, freqs_mhz, dm, ref_freq_mhz, period_s,
         pipelined_sweep(n_tiles, put_diag, run_diag, drain_diag, depth=depth)
         marks.append(_tile_event(device, timing=True))
 
-        new_w_d, scores_d = fused_combine(planes, cell_mask_d, orig_w_d,
+        new_w_d, scores_d = fused_combine(planes, whole_mask_d, whole_w_d,
                                           config.chanthresh,
                                           config.subintthresh)
-        rstd = residual_std(planes[0], cell_mask_d)
+        rstd = residual_std(planes[0], whole_mask_d)
         tpeak = torch.max(template)
         marks.append(_tile_event(device, timing=True))
         new_w = new_w_d.cpu().numpy()
         scores = scores_d.cpu().numpy()
         cache.count_d2h(new_w.nbytes + scores.nbytes)
         cache.mark_sync()   # the fetches synchronised the iteration
-        mirror[:] = [new_w, new_w_d]
+        mirror[:] = [new_w, lay.local_of(new_w_d)]
         step_ms.append((time.perf_counter() - t_step) * 1e3)
         if on_card:   # the fetches above completed every mark
             pass_ms.append([a.elapsed_time(b)
@@ -334,22 +426,27 @@ def clean_streaming_exact(archive, chunk_nsub: int, config: CleanConfig,
     ``stream_h2d_copy_bytes`` and ``stream_h2d_copy_ms`` (every upload's
     bytes and the copy stream's event time of the copies).
     Each iteration is a ``torch.profiler`` range named
-    ``icln_stream_iteration``."""
+    ``icln_stream_iteration``.  ``mesh``: a cell mesh
+    (:mod:`~iterative_cleaner_torch.parallel.mesh`) the tiles are
+    sharded over (see the module docstring); every rank calls, rank 0
+    gets the result and the others None."""
     if config.unload_res:
         raise ValueError(
             "unload_res is not supported in exact streaming mode (the "
             "residual cube is never materialised whole); use mode='online' "
             "or whole-archive cleaning")
-    if mesh is not None:
-        raise NotImplementedError(
-            f"exact streaming over a device mesh is not ported yet: "
-            f"{ROADMAP_MESH}")
     if chunk_nsub <= 0:
         raise ValueError(f"chunk_nsub must be positive, got {chunk_nsub}")
     cube = archive.total_intensity()
+    if mesh is not None:
+        check_mesh("cell", config)
+        check_tile_grid(mesh, min(int(chunk_nsub), cube.shape[0]),
+                        cube.shape[1])
     tiles = _tile_slices(cube.shape[0], int(chunk_nsub))
     result = _clean_exact(
         cube, archive.weights, archive.freqs_mhz, archive.dm,
         archive.centre_freq_mhz, archive.period_s, config, tiles,
-        archive.dedispersed, registry=registry)
+        archive.dedispersed, registry=registry, mesh=mesh)
+    if mesh is not None and mesh.rank != 0:
+        return None
     return apply_bad_parts(result, config)

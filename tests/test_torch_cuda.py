@@ -14,7 +14,9 @@ equal to the CPU run's.  Exact streaming on every route: masks equal to
 the whole clean on the card, budget 0 and the default budget (every
 tile pinned) bit-equal.  K10 bit-equal to K2 and K6 on the same cells,
 its rows 16-byte aligned or not; the cell-sharded clean on one rank under
-NCCL bit-equal to the whole clean.  K9 bit-equal to its plain version
+NCCL bit-equal to the whole clean, on the default, dedispersed and
+two_read routes, and streaming over a one-rank NCCL mesh (exact and
+online) bit-equal to the single-card stream.  K9 bit-equal to its plain version
 (NaN by position) on the residual-std telemetry's line of 4,194,304
 cells, along both axes of a 1024 x 4096 plane and on hand-made edge
 lines.  Long profiles (nbin 8192) and ragged shapes (odd nbin, nbin/2 + 1
@@ -319,6 +321,79 @@ def test_sharded_clean_one_rank_nccl_on_card(card, frame, tmp_path):
                               torch.from_numpy(getattr(want, field))) == 0
     np.testing.assert_array_equal(got.loop_diffs, want.loop_diffs)
     np.testing.assert_array_equal(got.iter_metrics, want.iter_metrics)
+
+
+TWO_READ_CASES = {
+    "profile": (True, dict(baseline_mode="profile")),
+    "pulse": (True, dict(pulse_region=(0.2, 30, 60))),
+    "dedisp_input": (False, {}),
+}
+
+
+def _nccl_one_rank(tmp_path, fn):
+    """``fn(mesh)`` on a one-rank NCCL mesh, with the launch counts of
+    the call."""
+    distributed.initialize("nccl", f"file://{tmp_path}/store",
+                           device="cuda:0", rank=0, world_size=1)
+    try:
+        tk.reset_launch_counts()
+        got = fn(cell_mesh())
+        return got, tk.launch_counts()
+    finally:
+        distributed.shutdown()
+
+
+def _assert_bit_equal(got, want):
+    assert (got.loops, got.converged) == (want.loops, want.converged)
+    for field in ("final_weights", "scores"):
+        assert _bits_mismatch(torch.from_numpy(getattr(got, field)),
+                              torch.from_numpy(getattr(want, field))) == 0
+    if want.loop_diffs is not None:
+        np.testing.assert_array_equal(got.loop_diffs, want.loop_diffs)
+    np.testing.assert_array_equal(got.iter_metrics, want.iter_metrics)
+
+
+@pytest.mark.parametrize("case", sorted(TWO_READ_CASES))
+def test_sharded_two_read_one_rank_nccl_on_card(card, case, tmp_path):
+    """The sharded two_read route on one NCCL rank (K7 on the block, the
+    gathered scaler: K3 twice, the combine and K9 on the gathered
+    planes), each once per loop, bit-equal to the whole clean."""
+    disperse, kw = TWO_READ_CASES[case]
+    ar, _ = make_synthetic_archive(nsub=64, nchan=256, nbin=128,
+                                   n_prezapped=30, seed=1, disperse=disperse)
+    ar.dedispersed = not disperse
+    cfg = CleanConfig(**kw)
+    assert select_route(cfg, ar.dedispersed) == "two_read"
+    got, counts = _nccl_one_rank(
+        tmp_path, lambda mesh: clean_archive_sharded(ar, cfg, mesh))
+    for k, v in counts.items():
+        assert v == (got.loops if k in SHARD_KERNELS["two_read"] else 0), \
+            counts
+    _assert_bit_equal(got, clean_archive(ar, cfg))
+
+
+@pytest.mark.parametrize("mode,kw", [
+    ("exact", dict(stream_hbm_mb=0)),
+    ("exact", dict(baseline_mode="profile", stream_hbm_mb=0)),
+    ("online", {}),
+])
+def test_streamed_shard_one_rank_nccl_on_card(card, mode, kw, tmp_path):
+    """Streaming over a one-rank NCCL mesh, bit-equal to the single-card
+    stream: exact (the route's kernels per tile block, K8 on the
+    gathered whole planes) and online (each tile a one-rank sharded
+    clean)."""
+    ar, _ = make_synthetic_archive(nsub=96, nchan=128, nbin=64,
+                                   n_prezapped=30, seed=5)
+    cfg = CleanConfig(**kw)
+    got, counts = _nccl_one_rank(
+        tmp_path, lambda mesh: clean_streaming(ar, 32, cfg, mesh, mode=mode))
+    tk.reset_launch_counts()
+    want = clean_streaming(ar, 32, cfg, mode=mode)
+    if mode == "exact":
+        assert counts == tk.launch_counts()
+    else:
+        assert counts["combine_zap"] > 0 and counts["scaled_sides_axis0"] == 0
+    _assert_bit_equal(got, want)
 
 
 def _median_plane(shape, seed):

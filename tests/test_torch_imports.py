@@ -1,5 +1,6 @@
 """The port stands alone: importing it and running its main path (the
-whole clean, both streaming modes, the cell-sharded clean on one rank,
+whole clean, both streaming modes, the cell-sharded clean on one rank
+on the default and two_read routes, both streaming modes over that rank,
 the CLI session on a PSRFITS archive with its run report, Prometheus
 file and event log, and PSRFITS and ``.icar`` files read through the
 port's host library) never loads ``jax`` or the reference package; no
@@ -84,8 +85,15 @@ from iterative_cleaner_torch.parallel.mesh import cell_mesh
 from iterative_cleaner_torch import clean_archive_sharded
 distributed.initialize(device="cpu")
 try:
+    mesh = cell_mesh()
     assert clean_archive_sharded(ar, CleanConfig(device="cpu"),
-                                 cell_mesh()).loops >= 1
+                                 mesh).loops >= 1
+    assert clean_archive_sharded(
+        ar, CleanConfig(device="cpu", baseline_mode="profile"),
+        mesh).loops >= 1
+    for mode in ("exact", "online"):
+        assert clean_streaming(ar, 4, CleanConfig(device="cpu"), mesh,
+                               mode=mode).loops >= 1
 finally:
     distributed.shutdown()
 import os, tempfile

@@ -114,8 +114,11 @@ def test_route_kernels_cover_every_launch_counter():
     sharded clean's launch counts to) and ``LONG_LINE_KERNELS`` (K3's
     route on lines too long for a block) name every counted kernel, each on
     some route; exact streaming launches a route's kernels and K8; the
-    sharded routes are whole-clean routes with K10 for the cell
-    diagnostics and no K3 or K9 (tree-reduced selects instead)."""
+    sharded default and dedispersed routes are whole-clean routes with
+    K10 for the cell diagnostics and no K3 or K9 (tree-reduced selects
+    instead); the sharded two_read route launches the whole route's
+    kernels (K7 per block; K3, the combine and K9 on the gathered
+    planes)."""
     named = {k for table in (ROUTE_KERNELS, STREAM_KERNELS, SHARD_KERNELS)
              for ks in table.values() for k in ks}
     assert named | set(LONG_LINE_KERNELS) == set(launch_counts())
@@ -123,7 +126,11 @@ def test_route_kernels_cover_every_launch_counter():
         assert set(STREAM_KERNELS[route]) == set(kernels) | {"fused_combine"}
     k10 = {"cell_diagnostics_disp": "shard_diagnostics_disp",
            "cell_diagnostics_dedisp": "shard_diagnostics_dedisp"}
+    assert set(SHARD_KERNELS) == set(ROUTE_KERNELS)
     for route, kernels in SHARD_KERNELS.items():
+        if route == "two_read":
+            assert set(kernels) == set(ROUTE_KERNELS[route])
+            continue
         assert set(kernels) == {k10.get(k, k) for k in ROUTE_KERNELS[route]
                                 if not k.startswith("scaled_sides")
                                 and k != "masked_median"}

@@ -29,7 +29,10 @@ import pytest
 import jax.numpy as jnp
 
 from iterative_cleaner_torch import CleanConfig
-from iterative_cleaner_torch.backends import clean_archive
+from iterative_cleaner_torch.backends import (
+    clean_archive,
+    clean_archive_sharded,
+)
 from iterative_cleaner_torch.io import load_archive, save_archive
 from iterative_cleaner_torch.io.synthetic import make_synthetic_archive
 from iterative_cleaner_torch.parallel.distributed import run_local_ranks
@@ -288,19 +291,33 @@ def test_cell_mesh_needs_initialize():
     ({}, False, True),
 ])
 def test_mesh_refusals_name_their_item(kwargs, dedispersed, streaming):
+    """What ROADMAP item 7 refused until the sharded two_read route and
+    the streamed shard route were ported (the profile baseline, a pulse
+    window, a DEDISP=1 input, ``--stream``) passes ``check_mesh`` and
+    cleans on a one-rank mesh with the mask of the clean without one;
+    ``--mesh batch`` still names item 3."""
     from iterative_cleaner_torch.config import check_mesh
+    from iterative_cleaner_torch.parallel import clean_streaming, distributed
+    from iterative_cleaner_torch.parallel.mesh import cell_mesh
 
-    cfg = CleanConfig(device="cpu", **kwargs)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        check_mesh("cell", cfg, dedispersed=dedispersed, streaming=streaming)
+    cfg = CleanConfig(device="cpu", rotation="roll", **kwargs)
+    check_mesh("cell", cfg)
     with pytest.raises(NotImplementedError, match="item 3"):
         check_mesh("batch", CleanConfig(device="cpu"))
-    # the sharded routes pass
-    check_mesh("cell", CleanConfig(device="cpu"))
-    check_mesh("cell", CleanConfig(device="cpu", stats_frame="dedispersed",
-                                   baseline_mode="profile",
-                                   pulse_region=(0.2, 3, 9)),
-               dedispersed=True)
+    ar, _ = make_synthetic_archive(nsub=8, nchan=8, nbin=32, seed=2,
+                                   n_prezapped=3, disperse=not dedispersed)
+    ar.dedispersed = dedispersed
+    distributed.initialize(device="cpu")
+    try:
+        mesh = cell_mesh()
+        got = clean_streaming(ar, 4, cfg, mesh) if streaming \
+            else clean_archive_sharded(ar, cfg, mesh)
+    finally:
+        distributed.shutdown()
+    want = clean_streaming(ar, 4, cfg) if streaming \
+        else clean_archive(ar, cfg)
+    np.testing.assert_array_equal(got.final_weights, want.final_weights)
+    assert got.loops == want.loops
 
 
 # ------------------------------------------------------------------ CLI

@@ -18,6 +18,7 @@ every kernel through its plain PyTorch version, against the JAX package.
 """
 
 import os
+import types
 
 import numpy as np
 import pytest
@@ -608,14 +609,17 @@ def test_refusals():
     with pytest.raises(ValueError, match="unload_res"):
         clean_streaming_exact(ar, 4, CleanConfig(device="cpu",
                                                  unload_res=True))
-    for call in (lambda: clean_streaming_exact(ar, 4, cfg, mesh="m"),
-                 lambda: clean_streaming(ar, 4, cfg, mesh="m"),
-                 lambda: clean_streaming(ar, 4, cfg, mesh="m",
+    # a mesh whose 'sub' axis does not divide the tile: refused before any
+    # work (the streamed shard route; tests/test_torch_shard_stream.py)
+    mesh = types.SimpleNamespace(shape=(3, 1), rank=0, coords=(0, 0))
+    for call in (lambda: clean_streaming_exact(ar, 4, cfg, mesh=mesh),
+                 lambda: clean_streaming(ar, 4, cfg, mesh=mesh),
+                 lambda: clean_streaming(ar, 4, cfg, mesh=mesh,
                                          mode="online"),
                  lambda: StreamingCleaner(4, cfg, ar.freqs_mhz, ar.dm,
                                           ar.centre_freq_mhz, ar.period_s,
-                                          mesh="m")):
-        with pytest.raises(NotImplementedError, match="item 7"):
+                                          mesh=mesh)):
+        with pytest.raises(ValueError, match="must divide the tile grid"):
             call()
     for chunk in (0, -3):
         with pytest.raises(ValueError, match="chunk_nsub"):
