@@ -67,6 +67,27 @@ library yardstick beside the least time the card could take, and each
 route's iteration; prints one JSON line with the kernels and, last,
 ``{"ok": true, "device": ...}``.
 
+The batch phases (``parallel/batch.py``): (a) 32 archives of 64 x 128 x
+512 (seeds 100-131, their RFI density stepped so that their loop counts
+differ) cleaned as one batch on the default route through
+``clean_archives_batched``, each archive held to its single clean on the
+card (masks, loops, convergence and per-loop diffs equal; scores within
+BATCH_SCORE_RTOL, the template stage's batched reductions adding in
+another order, the ops named by a comparison of each on identical
+inputs), each kernel of the route launched once per batch iteration (the
+launch counts, and one batch iteration's trace on a process of its
+own); (b) the same on the
+profile, dedispersed and pulse-window routes; (c) four 1024 x 4096 x 128
+archives (the golden's, seed 0, held to the golden, and seeds 1-3 made
+as it is, built on worker processes while the earlier phases run) as
+one batch; the batched K1, K2, K6, K7, K3 (both axes), combine and K9
+each against its plain version and timed against B launches on one
+archive, at both sizes; (d) ``--batch 8`` over 16 PSRFITS files of two
+interleaved shapes against a sequential CLI session (the prepass's
+grouping, masks and report entries); (e) ``--mesh batch`` on the one
+NCCL rank (bit-equal to the plain batch) and on four gloo ranks sharing
+the card over 10 archives padded to 12 (mask-equal).
+
 It exits non-zero, printing no result, when no CUDA device is present
 or when the port's package is not beside it.  It imports nothing of JAX
 or of the reference package.
@@ -75,6 +96,7 @@ or of the reference package.
 from __future__ import annotations
 
 import argparse
+import atexit
 import dataclasses
 import json
 import math
@@ -84,7 +106,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 
 import numpy as np
 
@@ -151,6 +173,10 @@ CLI_DISK_FACTOR = 4.5
 K1_RTOL = 1e-5   # of sum |w * disp|: float32 sums in another order
 K2_RTOL = 1e-4   # of each plane's scale (K2, K6, K7): float32
 #                  reassociation; masked cells exact
+# A batch's scores against its archives' single cleans: on the card the
+# template stage's batched reductions add in another order than one
+# archive's (PERF.md); masks, loops and per-loop diffs are held equal.
+BATCH_SCORE_RTOL, BATCH_SCORE_ATOL = 2e-4, 1e-4
 
 
 def fail(msg: str) -> None:
@@ -367,6 +393,247 @@ def gloo_stream_rank():
             "clean_ms": (time.perf_counter() - t0) * 1e3,
             "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
             "result": result}
+
+
+# The batch phases: BATCH_SEEDS archives of BATCH_SHAPE (BASELINE.md
+# config 1's shape, config 4's count), their RFI density varied so that
+# their loop counts differ; four full-size archives (the golden's, seed 0,
+# and FULLSIZE_BATCH_SEEDS, made as it is made, built on worker processes
+# while the earlier phases run); the CLI's --batch over BATCH_CLI_FILES
+# PSRFITS files of two shapes; --mesh batch over BATCH_MESH_ARCHIVES of
+# the small archives on the four gloo ranks (padded to a multiple of 4).
+BATCH_SHAPE = (64, 128, 512)
+BATCH_SEEDS = range(100, 132)
+FULLSIZE_BATCH_SEEDS = (1, 2, 3)
+BATCH_CLI_SHAPES = ((64, 128, 512), (32, 256, 256))
+BATCH_CLI_FILES, BATCH_CLI_GROUP = 16, 8
+BATCH_MESH_ARCHIVES = 10
+TRACE_ATTEMPTS = 3          # batch (a)'s torch.profiler traces at most
+BATCH_ROUTES = {"default": {}, "profile": dict(baseline_mode="profile"),
+                "dedispersed": dict(stats_frame="dedispersed"),
+                "pulse": dict(pulse_region=(0.2, 30, 60))}
+
+
+def batch_small_archive(seed, shape=BATCH_SHAPE):
+    """One archive of the batch phases: ``shape``, its RFI density and
+    strength stepping with ``seed % 4``."""
+    from iterative_cleaner_torch.io.synthetic import make_synthetic_archive
+
+    k = seed % 4
+    nsub, nchan, nbin = shape
+    ar, _ = make_synthetic_archive(
+        nsub=nsub, nchan=nchan, nbin=nbin, seed=seed,
+        n_rfi_cells=4 + 40 * k, n_rfi_channels=k % 3,
+        n_rfi_subints=(k + 1) % 2, rfi_strength=6.0 + 12.0 * k,
+        n_prezapped=3 * k)
+    return ar
+
+
+def build_fullsize_seed(seed, out_dir):
+    """A full-size archive made as the golden's is (``bench_rfi_density``,
+    float64, dispersed) at ``seed``, its cube saved to ``out_dir`` as a
+    ``.npy`` (run on a worker process); returns the other fields."""
+    import dataclasses as dc
+
+    from iterative_cleaner_torch.io.synthetic import (
+        FULLSIZE_SHAPE,
+        bench_rfi_density,
+        make_synthetic_archive,
+    )
+
+    nsub, nchan, nbin = FULLSIZE_SHAPE
+    ar, _ = make_synthetic_archive(nsub=nsub, nchan=nchan, nbin=nbin,
+                                   **bench_rfi_density(nsub, nchan),
+                                   seed=seed, dtype=np.float64, disperse=True)
+    path = os.path.join(out_dir, f"seed{seed}.npy")
+    np.save(path, ar.data)
+    return path, {f.name: getattr(ar, f.name) for f in dc.fields(ar)
+                  if f.name != "data"}
+
+
+def gloo_batch_rank(seeds):
+    """One of the GLOO_RANKS ranks of batch (e), started by
+    ``run_local_ranks`` with gloo on cuda:0: the batch of the small
+    archives of ``seeds`` over the ('batch',) mesh (each rank its share of
+    the padded batch).  Returns its counts, peak memory, clean ms and
+    (rank 0) the results."""
+    import torch
+
+    from iterative_cleaner_torch import CleanConfig
+    from iterative_cleaner_torch.parallel.batch import clean_archives_batched
+    from iterative_cleaner_torch.parallel.mesh import batch_mesh
+    from iterative_cleaner_torch.stats import kernels as K
+
+    ars = [batch_small_archive(s) for s in seeds]
+    mesh = batch_mesh()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = clean_archives_batched(ars, CleanConfig(device="cuda:0"), mesh)
+    torch.cuda.synchronize()
+    return {"rank": mesh.rank, "share": mesh.share(len(ars)),
+            "counts": K.launch_counts(),
+            "clean_ms": (time.perf_counter() - t0) * 1e3,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "results": results}
+
+
+def batch_vs_single(label, got, want, tag):
+    """Hold each archive of a batch to its single clean: masks, loops,
+    convergence and per-loop diffs equal; scores bit-equal or, where the
+    template stage's batched reductions add in another order (PERF.md),
+    within BATCH_SCORE_RTOL with a BATCH_SCORE_ATOL floor.  Returns the
+    score cells that differ in bits and their largest relative
+    difference."""
+    import torch
+
+    bad, n_bits, worst = [], 0, 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not (np.array_equal(g.final_weights == 0, w.final_weights == 0)
+                and (g.loops, g.converged) == (w.loops, w.converged)
+                and np.array_equal(g.loop_diffs, w.loop_diffs)):
+            bad.append(i)
+        n_bits += bits_mismatch(torch.from_numpy(g.scores),
+                                torch.from_numpy(w.scores), torch)
+        d = np.abs(g.scores - w.scores)
+        fin = np.isfinite(d)
+        worst = max(worst, float(np.max(d[fin] / np.maximum(
+            np.abs(w.scores[fin]), BATCH_SCORE_ATOL), initial=0.0)))
+        if not np.allclose(g.scores, w.scores, rtol=BATCH_SCORE_RTOL,
+                           atol=BATCH_SCORE_ATOL, equal_nan=True):
+            bad.append(i)
+    print(f"{label} against the single cleans: {len(got)} archives, loops "
+          f"{sorted({g.loops for g in got})}, archives differing in mask, "
+          f"loops, convergence, diffs or scores past the bound "
+          f"{sorted(set(bad))} (tolerance: none), score cells differing in "
+          f"bits {n_bits}, largest relative difference {worst:.3e} (bound "
+          f"rtol {BATCH_SCORE_RTOL:g}, floor {BATCH_SCORE_ATOL:g}) {tag}",
+          flush=True)
+    if bad:
+        fail(f"{label}: archives {sorted(set(bad))} differ from their "
+             f"single cleans")
+    return n_bits, worst
+
+
+BATCH_TRACE_NAMES = ("icln_marginals_kernel", "icln_sum_parts",
+                     "icln_cell_stats_kernel", "icln_scaled_sides_kernel",
+                     "icln_combine_zap_kernel", "icln_mm_")
+BATCH_TRACE_WANT = {"icln_marginals_kernel": 1, "icln_sum_parts": 2,
+                    "icln_cell_stats_kernel": 1,
+                    "icln_scaled_sides_kernel": 2,
+                    "icln_combine_zap_kernel": 1}
+
+
+def batch_trace_worker(seeds):
+    """Batch (a)'s trace, in a process of its own (``batch_trace_phase``):
+    the batch of the small archives of ``seeds`` prepared on the card, then
+    up to TRACE_ATTEMPTS times one batch iteration on the default route
+    (``iteration_step`` over the whole batch) through ``device_ops``, the
+    launch counters set to 0 before each.  Returns each attempt's device
+    operations by name and launch counts; stops at the first trace in
+    which each of BATCH_TRACE_NAMES shows as ``batch_trace_ok`` wants."""
+    import torch
+
+    from iterative_cleaner_torch import CleanConfig
+    from iterative_cleaner_torch.engine.loop import iteration_step
+    from iterative_cleaner_torch.profile_iteration import device_ops
+    from iterative_cleaner_torch.stats import kernels as K
+
+    K.load_library()
+    cfg = CleanConfig()
+    prep, w, m = batch_prep([batch_small_archive(s) for s in seeds], cfg,
+                            torch.device("cuda"))
+    attempts = []
+    for _ in range(TRACE_ATTEMPTS):
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        ops = device_ops(lambda: iteration_step(
+            prep, w, w, m, chanthresh=cfg.chanthresh,
+            subintthresh=cfg.subintthresh, rotation=cfg.rotation,
+            baseline_duty=cfg.baseline_duty))
+        torch.cuda.synchronize()
+        attempts.append((ops, K.launch_counts()))
+        if batch_trace_ok(ops)[0]:
+            break
+    return attempts
+
+
+def batch_trace_ok(ops):
+    """Whether a trace's device operations ``ops`` show each of the port's
+    kernels of the default route once (K1's two partial sums twice, K3
+    twice, K9 1 to 4 passes), and those counts by kernel name."""
+    by_kernel = {n: sum(v for k, v in ops.items() if n in k)
+                 for n in BATCH_TRACE_NAMES}
+    k9_ops = by_kernel.pop("icln_mm_")
+    return (by_kernel == BATCH_TRACE_WANT and 1 <= k9_ops <= 4,
+            by_kernel, k9_ops)
+
+
+def batch_trace_phase(tag):
+    """Batch (a)'s launches in a trace: the device operations of one batch
+    iteration of the BATCH_SEEDS small archives in a torch.profiler trace,
+    each of the port's kernels of the route counted by its kernel name:
+    once for the whole batch.
+
+    It runs on a spawned process of its own, where the trace is the
+    process's first: a trace taken after other torch.profiler traces in
+    one process can come back short of device records.  The launch
+    counters, read over the same calls, must show each of the route's
+    wrappers once a call; they decide the launches.  A trace that
+    disagrees with them is the profiler's loss or surplus of records, not
+    a launch: it is printed in full and taken again, up to TRACE_ATTEMPTS
+    times, and the phase fails unless one trace shows each kernel once."""
+    import multiprocessing
+
+    from iterative_cleaner_torch.engine.loop import ROUTE_KERNELS
+
+    with ProcessPoolExecutor(
+            max_workers=1,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        attempts = pool.submit(batch_trace_worker, list(BATCH_SEEDS)).result()
+    # device_ops calls the step twice: once untraced, once traced
+    want_counts = None
+    for attempt, (ops, counted) in enumerate(attempts, 1):
+        if want_counts is None:
+            want_counts = {k: 2 if k in ROUTE_KERNELS["default"] else 0
+                           for k in counted}
+        ok, by_kernel, k9_ops = batch_trace_ok(ops)
+        print(f"batch (a): one batch iteration's device operations in a "
+              f"torch.profiler trace (attempt {attempt}, on a process of its "
+              f"own): the port's kernels {json.dumps(by_kernel)} and K9's "
+              f"{k9_ops} (want {json.dumps(BATCH_TRACE_WANT)}, K9 1 to 4: "
+              f"each once for the {len(BATCH_SEEDS)} archives); "
+              f"{sum(ops.values())} device operations in all; launch "
+              f"counters over the untraced and the traced call "
+              f"{json.dumps(counted)} (want each of the route's 2) {tag}",
+              flush=True)
+        if counted != want_counts:
+            fail("batch (a): a kernel launched other than once per batch "
+                 "iteration (launch counters)")
+        if ok:
+            return
+        print("batch (a): the trace disagrees with the launch counters; "
+              "its port kernels: " + json.dumps(
+                  {k: v for k, v in ops.items() if "icln" in k}), flush=True)
+    fail(f"batch (a): no one of {len(attempts)} torch.profiler traces "
+         f"showed each kernel once per batch iteration")
+
+
+def stack_inputs(ars, dev):
+    """The stacked float32 upload of ``ars`` on ``dev``
+    (``stack_archive_batch``), and its weights and mask."""
+    from iterative_cleaner_torch.parallel.batch import stack_archive_batch
+
+    ins, _ = stack_archive_batch(ars, 0, dev)
+    return ins, ins[1], ins[1] == 0
+
+
+def batch_prep(ars, cfg, dev):
+    """:func:`prepare_batch` of ``ars`` under ``cfg`` on ``dev``."""
+    from iterative_cleaner_torch.engine.loop import prepare_batch
+
+    ins, weights, mask = stack_inputs(ars, dev)
+    return prepare_batch(*ins, cfg, dedispersed=False), weights, mask
 
 
 def stream_counts(route_kernels, names, loops, n_tiles) -> dict:
@@ -676,13 +943,13 @@ def route_inputs(ar, cube32, configs, dev):
 
 
 def check_k1(disp, weights, what):
-    """K1 against its plain version, within K1_RTOL of sum|w*disp|."""
-    from iterative_cleaner_torch.ops.dsp import weighted_marginal_totals
+    """K1 against its plain version, within K1_RTOL of sum|w*disp| (a
+    batch's cube and weights too)."""
     from iterative_cleaner_torch.stats import kernels as K
 
     a, t1 = K.weighted_marginals(disp, weights)
-    pa, pt1 = weighted_marginal_totals(disp, weights)
-    sa, st1 = weighted_marginal_totals(disp.abs(), weights.abs())
+    pa, pt1 = K.weighted_marginals_plain(disp, weights)
+    sa, st1 = K.weighted_marginals_plain(disp.abs(), weights.abs())
     err = max(float((a - pa).abs().max()), float((t1 - pt1).abs().max()))
     ok = bool(((a - pa).abs() <= K1_RTOL * sa).all()
               and ((t1 - pt1).abs() <= K1_RTOL * st1).all())
@@ -747,6 +1014,512 @@ def check_diags(diag_calls, mask, what):
                   f"rtol {K2_RTOL:g} of each plane's scale, masked cells "
                   f"exact: {'ok' if ok else 'FAIL'}", flush=True)
     return diag_err, diag_ok, diags
+
+
+def batch_diags_check(got, want, mask):
+    """:func:`diags_check` archive by archive of a batch's planes."""
+    import torch
+
+    err, ok = 0.0, True
+    for b in range(mask.shape[0]):
+        e, o = diags_check([g[b] for g in got], [w[b] for w in want],
+                           mask[b], torch)
+        err, ok = max(err, e), ok and o
+    return err, ok
+
+
+def batch_kernels(prep, weights, mask, cfg, label, times, tag, reps=5):
+    """The batched kernels of ``prep``'s route on its first iteration's
+    inputs: each against its plain version (K1 K1_RTOL, the cell kernels
+    K2_RTOL archive by archive, K3 both axes, the combine and K9 on the
+    batch's lines bit-equal), and each timed batched against B times its
+    launch on archive 0 alone, beside the batch's bound.  Records into
+    ``times[name][label]``; returns whether every check held."""
+    import torch
+
+    from iterative_cleaner_torch.engine.loop import (
+        _dispersed_rows,
+        build_template,
+    )
+    from iterative_cleaner_torch.stats import kernels as K
+
+    nb, nsub, nchan = weights.shape
+    template = build_template(prep, weights, rotation=cfg.rotation,
+                              baseline_duty=cfg.baseline_duty)
+    ok_all = True
+    calls = {}
+    if prep.route == "dedispersed":
+        args = (prep.ded, template, prep.window, weights, mask)
+        calls["cell_diagnostics_dedisp"] = (
+            K.cell_diagnostics_dedisp, K.cell_diagnostics_dedisp_plain,
+            args, lambda a: (a[0][0], a[1][0], a[2], a[3][0], a[4][0]))
+    else:
+        rot_t, nyq = _dispersed_rows(prep, template, cfg.rotation)
+        if prep.route == "two_read":
+            args = (prep.ded, prep.disp_base, rot_t, template, weights, mask)
+            calls["cell_diagnostics_two_read"] = (
+                K.cell_diagnostics_two_read,
+                K.cell_diagnostics_two_read_plain, args,
+                lambda a: tuple(x[0] for x in a))
+        else:
+            err, ok = check_k1(prep.disp_base, weights, f" ({label})")
+            ok_all &= ok
+            calls["weighted_marginals"] = (
+                K.weighted_marginals, None, (prep.disp_base, weights),
+                lambda a: tuple(x[0] for x in a))
+            args = (prep.disp_base, rot_t, nyq, template, weights, mask)
+            calls["cell_diagnostics_disp"] = (
+                K.cell_diagnostics_disp, K.cell_diagnostics_disp_plain,
+                args, lambda a: tuple(None if x is None else x[0]
+                                      for x in a))
+    diags = None
+    for name, (kfn, pfn, args, first) in calls.items():
+        if pfn is not None:
+            diags = kfn(*args)
+            err, ok = batch_diags_check(diags, pfn(*args), mask)
+            ok_all &= ok
+            print(f"check {name} ({label}, {nb} archives in one launch): max "
+                  f"abs {err:.3e}, tolerance rtol {K2_RTOL:g} of each "
+                  f"archive's plane scale, masked cells exact: "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+        one = first(args)
+        times.setdefault(name, {})[label] = (
+            cuda_ms(lambda: kfn(*args), reps, torch),
+            nb * cuda_ms(lambda: kfn(*one), reps, torch))
+    cases = {"scaled_sides_axis0": (0, cfg.chanthresh),
+             "scaled_sides_axis1": (1, cfg.subintthresh)}
+    sides = {}
+    for name, (axis, thresh) in cases.items():
+        sides[axis] = got = K.scaled_sides(diags, mask, axis, thresh)
+        bad = sum(bits_mismatch(g, w, torch) for g, w in zip(
+            got, K.scaled_sides_plain(diags, mask, axis, thresh)))
+        ok_all &= bad == 0
+        print(f"check K3 {name} ({label}, {nb} archives in one launch): "
+              f"{bad} cells differ in bits (tolerance: bit-equal): "
+              f"{'ok' if bad == 0 else 'FAIL'}", flush=True)
+        one = [d[0] for d in diags]
+        times.setdefault(name, {})[label] = (
+            cuda_ms(lambda: K.scaled_sides(diags, mask, axis, thresh), reps,
+                    torch),
+            nb * cuda_ms(lambda: K.scaled_sides(one, mask[0], axis, thresh),
+                         reps, torch))
+    new_w, scores = K.combine_zap(sides[0], sides[1], weights)
+    pw, ps = K.combine_zap_plain(sides[0], sides[1], weights)
+    bad = bits_mismatch(scores, ps, torch) + bits_mismatch(new_w, pw, torch)
+    lines = (diags[0].reshape(nb, -1), mask.reshape(nb, -1))
+    bad9 = bits_mismatch(K.masked_median(*lines, 1),
+                         K.masked_median_keys(*lines, 1)[0], torch)
+    ok_all &= bad == 0 and bad9 == 0
+    print(f"check combine_zap and K9 on the {nb} archives' lines ({label}): "
+          f"{bad} and {bad9} cells differ in bits (tolerance: bit-equal): "
+          f"{'ok' if bad == 0 and bad9 == 0 else 'FAIL'}", flush=True)
+    times.setdefault("combine_zap", {})[label] = (
+        cuda_ms(lambda: K.combine_zap(sides[0], sides[1], weights), reps,
+                torch),
+        nb * cuda_ms(lambda: K.combine_zap([p[0] for p in sides[0]],
+                                           [p[0] for p in sides[1]],
+                                           weights[0]), reps, torch))
+    one_line = (diags[0][0].reshape(1, -1), mask[0].reshape(1, -1))
+    times.setdefault("masked_median", {})[label] = (
+        cuda_ms(lambda: K.masked_median(*lines, 1), reps, torch),
+        nb * cuda_ms(lambda: K.masked_median(*one_line, 1), reps, torch))
+    for name in [*calls, *cases, "combine_zap", "masked_median"]:
+        ms, singles = times[name][label]
+        print(f"time {name} batched ({label}): {ms:.4f} ms in one launch "
+              f"against {nb} x its launch on one archive {singles:.4f} ms "
+              f"{tag}", flush=True)
+    return ok_all
+
+
+def template_stage_ops(ars, dev, tag):
+    """The template stage of a batch of ``ars`` against each archive's
+    own (one archive's preamble and weights, the ops as a clean of it
+    alone runs them), op by op on identical inputs: the values differing
+    in bits in each op's output.  Names the ops whose reduction order on
+    the card follows the batch's shape.  Returns ``{op: cells}``."""
+    import torch
+
+    from iterative_cleaner_torch import CleanConfig
+    from iterative_cleaner_torch.engine.loop import (
+        Prepared,
+        _dispersed_rows,
+        build_template,
+    )
+    from iterative_cleaner_torch.ops.dsp import (
+        template_numerator_from_channel_profiles,
+        weighted_template_numerator,
+    )
+    from iterative_cleaner_torch.ops.psrchive_baseline import (
+        template_correction_numerator_from_totals,
+    )
+    from iterative_cleaner_torch.stats import kernels as K
+
+    diff = {}
+
+    def count(op, batched, one):
+        n = sum(bits_mismatch(batched[b].reshape(-1), one(b).reshape(-1),
+                              torch) for b in range(len(ars)))
+        diff[op] = diff.get(op, 0) + n
+
+    for cfg in (CleanConfig(), CleanConfig(baseline_mode="profile")):
+        prep, w, _ = batch_prep(ars, cfg, dev)
+        singles = [Prepared(prep.route, *(None if t is None else t[b]
+                                          for t in prep[1:6]), prep.window)
+                   for b in range(len(ars))]
+        rot, duty = cfg.rotation, cfg.baseline_duty
+        if prep.route == "default":
+            a, t1 = K.weighted_marginals(prep.disp_base, w)
+            count("template_correction_numerator_from_totals (t1 @ window "
+                  "box, sums over channels and subints)",
+                  template_correction_numerator_from_totals(
+                      t1, prep.base_offsets, w, duty),
+                  lambda b: template_correction_numerator_from_totals(
+                      t1[b], prep.base_offsets[b], w[b], duty))
+            count("template_numerator_from_channel_profiles (rotate_bins "
+                  "row matmuls, sum over channels)",
+                  template_numerator_from_channel_profiles(
+                      a, prep.back_shifts, rot),
+                  lambda b: template_numerator_from_channel_profiles(
+                      a[b], prep.back_shifts[b], rot))
+        else:
+            count("weighted_template_numerator (einsum over channels, sum "
+                  "over subints)", weighted_template_numerator(prep.ded, w),
+                  lambda b: weighted_template_numerator(prep.ded[b], w[b]))
+        template = build_template(prep, w, rotation=rot, baseline_duty=duty)
+        count(f"build_template ({prep.route} route, as a whole)", template,
+              lambda b: build_template(singles[b], w[b], rotation=rot,
+                                       baseline_duty=duty))
+        count("_dispersed_rows (rotate_bins row matmuls of the template)",
+              _dispersed_rows(prep, template, rot)[0],
+              lambda b: _dispersed_rows(singles[b], template[b], rot)[0])
+        count("tt_info (sum over bins)", K.tt_info(template),
+              lambda b: K.tt_info(template[b]))
+        del prep, singles
+    print(f"batch (a) template stage, batch of {len(ars)} against each "
+          f"archive alone on identical inputs, values differing in bits by "
+          f"op: {json.dumps(diff)} {tag}", flush=True)
+    return diff
+
+
+def batch_phases(ar0, whole, counts, clean_ms, peak_gib, dev, tag,
+                 fullsize):
+    """Batch phases (a)-(c): see the module docstring.  ``ar0`` is the
+    seed-0 full-size archive and ``whole`` its single default clean,
+    ``fullsize`` the worker futures of the other full-size archives.
+    Returns the batched kernels' times (``{name: {label: (batched ms, B x
+    single ms)}}``), the batches' shapes and the small archives."""
+    import torch
+
+    from iterative_cleaner_torch import CleanConfig
+    from iterative_cleaner_torch.archive import Archive
+    from iterative_cleaner_torch.backends import clean_archive
+    from iterative_cleaner_torch.engine.loop import (
+        ROUTE_KERNELS,
+        iteration_step,
+        select_route,
+    )
+    from iterative_cleaner_torch.io.synthetic import FULLSIZE_SHAPE
+    from iterative_cleaner_torch.parallel.batch import clean_archives_batched
+    from iterative_cleaner_torch.stats import kernels as K
+
+    times, ok = {}, True
+
+    def counted(key, fn):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        clean_ms[key] = (time.perf_counter() - t0) * 1e3
+        counts[key] = K.launch_counts()
+        peak_gib[key] = torch.cuda.max_memory_allocated() / 2 ** 30
+        return out
+
+    # (a) and (b): BATCH_SEEDS small archives on every route
+    t0 = time.perf_counter()
+    ars = [batch_small_archive(s) for s in BATCH_SEEDS]
+    nb = len(ars)
+    print(f"batch: {nb} archives of {BATCH_SHAPE} made in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for name, kw in BATCH_ROUTES.items():
+        cfg = CleanConfig(**kw)
+        run = "a" if name == "default" else "b"
+        key = "batch" if name == "default" else f"batch ({name})"
+        got = counted(key, lambda: clean_archives_batched(ars, cfg))
+        torch.cuda.empty_cache()   # the singles start as cold as the batch
+        t0 = time.perf_counter()
+        want = [clean_archive(a, cfg) for a in ars]
+        torch.cuda.synchronize()
+        single_ms = (time.perf_counter() - t0) * 1e3
+        route = select_route(cfg, False)
+        iters = max(g.loops for g in got)
+        want_counts = {k: (iters if k in ROUTE_KERNELS[route] else 0)
+                       for k in counts[key]}
+        common = dict(chanthresh=cfg.chanthresh,
+                      subintthresh=cfg.subintthresh, rotation=cfg.rotation,
+                      baseline_duty=cfg.baseline_duty)
+        prep, w, m = batch_prep(ars, cfg, dev)
+        iter_ms = cuda_ms(lambda: iteration_step(prep, w, w, m, **common), 5,
+                          torch)
+        print(f"batch ({run}) {name}, route {route}: {nb} archives of "
+              f"{BATCH_SHAPE}, kernels {json.dumps(counts[key])} (want each "
+              f"of the route's once per batch iteration, {iters}), loops "
+              f"{[g.loops for g in got]}; whole batch clean "
+              f"{clean_ms[key]:.1f} ms against {single_ms:.1f} ms for the "
+              f"{nb} single cleans (host clock); {iter_ms:.3f} ms per batch "
+              f"iteration (CUDA events); peak device memory "
+              f"{peak_gib[key]:.2f} GiB {tag}", flush=True)
+        if counts[key] != want_counts:
+            fail(f"batch ({run}) {name}: launch counts {counts[key]}, want "
+                 f"{want_counts}")
+        if run == "a" and len({g.loops for g in got}) < 2:
+            fail("batch (a): the archives' loop counts do not differ")
+        batch_vs_single(f"batch ({run}) {name}", got, want, tag)
+        clean_ms[key + " singles"] = single_ms
+        clean_ms[key + " iteration"] = iter_ms
+        if run == "a":
+            times["template_stage_bits"] = template_stage_ops(ars[:4], dev,
+                                                             tag)
+        if name != "pulse":   # its kernels are the profile route's
+            ok &= batch_kernels(prep, w, m, cfg, f"{nb} x {BATCH_SHAPE}",
+                                times, tag)
+        del prep, w, m
+
+    # (c) four full-size archives on the default route
+    t0 = time.perf_counter()
+    big = [ar0]
+    for fut in fullsize:
+        path, fields = fut.result()
+        big.append(Archive(data=np.load(path), **fields))
+        os.remove(path)
+    print(f"batch (c): {len(big)} archives of {FULLSIZE_SHAPE} ready in "
+          f"{time.perf_counter() - t0:.1f} s more (seeds 1-3 built on "
+          f"worker processes meanwhile)", flush=True)
+    cfg = CleanConfig()
+    got = counted("batch (c)", lambda: clean_archives_batched(big, cfg))
+    want = [whole]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    want += [clean_archive(a, cfg) for a in big[1:]]
+    torch.cuda.synchronize()
+    print(f"batch (c): {len(big)} full-size archives in one batch, kernels "
+          f"{json.dumps(counts['batch (c)'])}, loops "
+          f"{[g.loops for g in got]}, whole batch clean "
+          f"{clean_ms['batch (c)']:.1f} ms against the single cleans' "
+          f"{clean_ms['default'] + (time.perf_counter() - t0) * 1e3:.1f} ms "
+          f"(host clock); peak device memory {peak_gib['batch (c)']:.2f} GiB "
+          f"{tag}", flush=True)
+    golden_check("batch (c) seed 0", got[0], "", FULLSIZE_SHAPE[:2])
+    batch_vs_single("batch (c)", got, want, tag)
+    prep, w, m = batch_prep(big, cfg, dev)
+    clean_ms["batch (c) iteration"] = cuda_ms(lambda: iteration_step(
+        prep, w, w, m, chanthresh=cfg.chanthresh,
+        subintthresh=cfg.subintthresh, rotation=cfg.rotation,
+        baseline_duty=cfg.baseline_duty), 3, torch)
+    print(f"batch (c): {clean_ms['batch (c) iteration']:.3f} ms per batch "
+          f"iteration (CUDA events) {tag}", flush=True)
+    ok &= batch_kernels(prep, w, m, cfg, f"{len(big)} x {FULLSIZE_SHAPE}",
+                        times, tag, reps=3)
+    del prep, w, m, big
+    if not ok:
+        fail("a batched kernel disagrees with its plain version")
+    return times, {f"{nb} x {BATCH_SHAPE}": (nb, BATCH_SHAPE),
+                   f"{len(want)} x {FULLSIZE_SHAPE}": (len(want),
+                                                       FULLSIZE_SHAPE)}, ars
+
+
+def batch_cli_phase(tag):
+    """Batch (d): ``--batch BATCH_CLI_GROUP --timing --metrics-json`` over
+    BATCH_CLI_FILES PSRFITS files of the two BATCH_CLI_SHAPES interleaved,
+    against a sequential session over the same files (links to them in a
+    directory of each run): the prepass groups the shapes (the report
+    lists each shape's archives together), and each output mask and
+    report entry equals the sequential session's."""
+    from iterative_cleaner_torch.cli import bucket_by_shape
+    from iterative_cleaner_torch.cli import main as cli_main
+    from iterative_cleaner_torch.io import load_archive, save_archive
+
+    work = tempfile.mkdtemp(prefix="icln_chip_smoke_batch_cli_")
+    cwd = os.getcwd()
+    try:
+        files = []
+        for i in range(BATCH_CLI_FILES):
+            ar = batch_small_archive(200 + i, BATCH_CLI_SHAPES[i % 2])
+            files.append(os.path.join(work, f"obs{i:02d}.sf"))
+            save_archive(ar, files[-1])
+        runs = {}
+        for run, extra in (("sequential", []),
+                           ("batch", ["--batch", str(BATCH_CLI_GROUP)])):
+            d = os.path.join(work, run)
+            os.mkdir(d)
+            links = []
+            for f in files:
+                links.append(os.path.join(d, os.path.basename(f)))
+                os.symlink(f, links[-1])
+            os.chdir(d)
+            t0 = time.perf_counter()
+            rc = cli_main(["-q", "--timing", "--metrics-json", "run.json",
+                           *extra, *links])
+            secs = time.perf_counter() - t0
+            os.chdir(cwd)
+            if rc != 0:
+                fail(f"batch (d): the {run} session exited {rc}")
+            with open(os.path.join(d, "run.json")) as fh:
+                doc = json.load(fh)
+            masks = {os.path.basename(p): load_archive(
+                p + "_cleaned.sf").weights == 0 for p in links}
+            runs[run] = (links, doc, masks, secs)
+        links, doc, masks, secs = runs["batch"]
+        want_order = links[0::2] + links[1::2]
+        grouped = (bucket_by_shape(links) == want_order
+                   and [e["path"] for e in doc["archives"]] == want_order)
+        seq = {os.path.basename(e["path"]): e
+               for e in runs["sequential"][1]["archives"]}
+        n_mask = sum(int((m != runs["sequential"][2][k]).sum())
+                     for k, m in masks.items())
+        # every field equal but the two telemetry columns the template
+        # stage moves (residual_std, template_peak): those within
+        # BATCH_SCORE_RTOL, their cells differing in bits counted
+        n_entry, n_float_bits = 0, 0
+        for e in doc["archives"]:
+            w = seq[os.path.basename(e["path"])]
+            floats = ("residual_std", "template_peak")
+            hist = {k: v for k, v in e["iter_history"].items()
+                    if k not in floats}
+            whist = {k: v for k, v in w["iter_history"].items()
+                     if k not in floats}
+            same = ({**e, "path": w["path"], "iter_history": hist}
+                    == {**w, "iter_history": whist})
+            for k in floats:
+                a, b = (np.asarray(x[k], dtype=np.float64)
+                        for x in (e["iter_history"], w["iter_history"]))
+                same &= a.shape == b.shape and bool(np.allclose(
+                    a, b, rtol=BATCH_SCORE_RTOL, atol=0.0))
+                n_float_bits += int((a != b).sum()) if a.shape == b.shape \
+                    else a.size
+            n_entry += not same
+        print(f"batch (d): --batch {BATCH_CLI_GROUP} over {len(files)} "
+              f"PSRFITS files of {BATCH_CLI_SHAPES} interleaved: prepass "
+              f"grouped by shape {grouped}; against the sequential session "
+              f"{n_mask} mask cells and {n_entry} report entries differ "
+              f"(tolerance: 0 and 0; residual_std and template_peak within "
+              f"rtol {BATCH_SCORE_RTOL:g}, {n_float_bits} of their values "
+              f"differ in bits); counters batch_archives "
+              f"{doc['counters'].get('batch_archives')}, batch_h2d_bytes "
+              f"{doc['counters'].get('batch_h2d_bytes')}; session "
+              f"{secs:.2f} s against {runs['sequential'][3]:.2f} s "
+              f"sequential (host clock) {tag}", flush=True)
+        if not grouped or n_mask or n_entry \
+                or doc["counters"].get("batch_archives") != len(files):
+            fail("batch (d): the --batch session differs from the "
+                 "sequential one")
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def batch_mesh_phase(ars, counts, tag):
+    """Batch (e), with the one-rank NCCL group of phase 3c up: the small
+    batch ``ars`` over the ('batch',) mesh of that rank, bit-equal to the plain
+    batch; then BATCH_MESH_ARCHIVES of them over GLOO_RANKS gloo rank
+    processes sharing the card (padded to a multiple of the ranks),
+    mask-equal to the plain batch of the same archives."""
+    import torch
+
+    from iterative_cleaner_torch import CleanConfig
+    from iterative_cleaner_torch.parallel import distributed
+    from iterative_cleaner_torch.parallel.batch import clean_archives_batched
+    from iterative_cleaner_torch.parallel.mesh import batch_mesh
+    from iterative_cleaner_torch.stats import kernels as K
+
+    plain = clean_archives_batched(ars, CleanConfig())
+    K.reset_launch_counts()
+    got = clean_archives_batched(ars, CleanConfig(), batch_mesh())
+    counts["batch mesh 1"] = K.launch_counts()
+    n_bits = sum(bits_mismatch(torch.from_numpy(g.final_weights),
+                               torch.from_numpy(w.final_weights), torch)
+                 + bits_mismatch(torch.from_numpy(g.scores),
+                                 torch.from_numpy(w.scores), torch)
+                 + int(not np.array_equal(g.iter_metrics, w.iter_metrics))
+                 + int((g.loops, g.converged) != (w.loops, w.converged))
+                 for g, w in zip(got, plain))
+    print(f"batch (e) --mesh batch on one NCCL rank, {len(ars)} archives: "
+          f"kernels {json.dumps(counts['batch mesh 1'])}; against the plain "
+          f"batch {n_bits} cells or rows differ in bits (weights, scores, "
+          f"telemetry, loops; tolerance: bit-equal) {tag}", flush=True)
+    if n_bits:
+        fail("batch (e): the one-rank batch mesh differs from the plain "
+             "batch")
+    seeds = list(BATCH_SEEDS)[:BATCH_MESH_ARCHIVES]
+    plain = clean_archives_batched(ars[:BATCH_MESH_ARCHIVES], CleanConfig())
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="icln_chip_smoke_ranks_") as wd:
+        try:
+            ranks = distributed.run_local_ranks(
+                gloo_batch_rank, GLOO_RANKS, (seeds,), workdir=wd,
+                device="cuda:0", backend="gloo", timeout_s=GLOO_TIMEOUT_S)
+        except (RuntimeError, TimeoutError) as exc:
+            fail(f"batch (e) gloo: {exc}")
+    for rk in ranks:
+        print(f"batch (e) gloo rank {rk['rank']}: share (pad, start, stop) "
+              f"{rk['share']}, kernels {json.dumps(rk['counts'])}, clean "
+              f"{rk['clean_ms']:.1f} ms, peak device memory "
+              f"{rk['peak_gib']:.2f} GiB {tag}", flush=True)
+    got = ranks[0]["results"]
+    n_mask = sum(int(((g.final_weights == 0) != (w.final_weights == 0)).sum())
+                 + int(g.loops != w.loops) for g, w in zip(got, plain))
+    print(f"batch (e) --mesh batch on {GLOO_RANKS} gloo ranks: "
+          f"{len(seeds)} archives padded to "
+          f"{len(seeds) + ranks[0]['share'][0]}, {len(got)} results on rank "
+          f"0 in {time.perf_counter() - t0:.1f} s; against the plain batch "
+          f"{n_mask} mask cells or loop counts differ (tolerance: 0) {tag}",
+          flush=True)
+    if len(got) != len(seeds) or n_mask or any(
+            rk["results"] is not None for rk in ranks[1:]):
+        fail("batch (e): the gloo batch mesh differs from the plain batch")
+
+
+def kernel_bounds(S, C, B):
+    """The least time of each kernel on one S x C x B archive: the larger
+    of the bytes it must move over PEAK_BYTES_PER_S and its least
+    operations over PEAK_F32_PER_S, ``(ms, "bytes" or "operations")``.
+    A batch of N such archives is bound by N times it."""
+    cells, nk = S * C, B // 2 + 1
+
+    def bound(nbytes, nops):
+        tb, to = nbytes / PEAK_BYTES_PER_S * 1e3, nops / PEAK_F32_PER_S * 1e3
+        return (tb, "bytes") if tb >= to else (to, "operations")
+
+    # The cell diagnostics' least work per cell: the residual, the fit and
+    # the moments (about 12 operations a bin), and max_k |rfft(row)|,
+    # whose least count is an FFT's: 2.5 B log2 B for a real row (half of
+    # a complex FFT's 5 N log2 N) and 4 per k for |X_k|^2 and the max.
+    # The kernels' DFT against tables does about 4 B (B/2 + 1) instead.
+    diag_ops = cells * (2.5 * B * math.log2(B) + 4 * nk + 12 * B)
+    # the weights, the mask and the four output planes
+    diag_io = 4 * (cells + 4 * cells) + cells
+    # the select: 4 counting passes per median (the radix digits; the
+    # upper middle comes from the last pass), 2 medians per diagnostic
+    sel_ops = 4 * 2 * 4 * cells
+    sides = bound(cells * (4 * 4 + 1 + 4 * 4), sel_ops)
+    return {
+        "weighted_marginals": bound(4 * (cells * B + cells + C * B + S * B),
+                                    3 * cells * B),
+        "cell_diagnostics_disp": bound(4 * (cells * B + 2 * C * B + B)
+                                       + diag_io, diag_ops),
+        "cell_diagnostics_two_read": bound(4 * (2 * cells * B + C * B + B)
+                                           + diag_io, diag_ops),
+        "cell_diagnostics_dedisp": bound(4 * (cells * B + 2 * B) + diag_io,
+                                         diag_ops),
+        "scaled_sides_axis0": sides,
+        "scaled_sides_axis1": sides,
+        "combine_zap": bound(cells * (9 * 4 + 2 * 4), 16 * cells),
+        # K9 on the telemetry's line: the values and the mask read once,
+        # one float out; four passes of a few integer ops an entry
+        "masked_median": bound(5 * cells + 4, 4 * 8 * cells),
+    }
 
 
 def long_phase(configs, dev, tag):
@@ -974,6 +1747,18 @@ def main() -> int:
             if "registers" in line or "spill" in line or line.startswith("=="):
                 print("  " + line.strip())
 
+    # the batch phase's other full-size archives, built on worker
+    # processes while the phases before it run
+    import multiprocessing
+
+    batch_dir = tempfile.mkdtemp(prefix="icln_chip_smoke_batch_")
+    atexit.register(shutil.rmtree, batch_dir, True)
+    archive_pool = ProcessPoolExecutor(
+        max_workers=len(FULLSIZE_BATCH_SEEDS),
+        mp_context=multiprocessing.get_context("spawn"))
+    fullsize_futs = [archive_pool.submit(build_fullsize_seed, s, batch_dir)
+                     for s in FULLSIZE_BATCH_SEEDS]
+
     # ---- 2. each route, counted: the full-size archive through
     # clean_archive, launch counts set to 0 just before and read just after
     NSUB, NCHAN, NBIN = FULLSIZE_SHAPE
@@ -1030,6 +1815,18 @@ def main() -> int:
     print(f"residual of pulse_unload: {res.shape} {res.dtype}, finite",
           flush=True)
     results["pulse_unload"].residual = res = None   # 2 GB of host memory
+
+    # ---- 3j. batches of equal-shaped archives (parallel/batch.py), each
+    # kernel launched once per batch iteration: (a) BATCH_SEEDS small
+    # archives on the default route, (b) on the other routes, each held
+    # to its single cleans; (c) four full-size archives, the golden's
+    # among them; (d) the CLI's --batch against a sequential session
+    batch_times, batch_shapes, batch_ars = batch_phases(
+        ar, results["default"], counts, clean_ms, peak_gib, dev, tag,
+        fullsize_futs)
+    archive_pool.shutdown()
+    shutil.rmtree(batch_dir, ignore_errors=True)
+    batch_cli_phase(tag)
 
     # ---- 3b. streaming, counted like the whole cleans: (a) exact with
     # nothing pinned, the regime of an archive larger than the card; (b)
@@ -1288,6 +2085,9 @@ def main() -> int:
             fail(f"{key}: differs from {base_key}")
     golden_check("shard stream (c)", results["shard stream (c)"], "_profile",
                  (NSUB, NCHAN))
+    # ---- batch (e): --mesh batch over the one NCCL rank and over four
+    # gloo ranks sharing the card
+    batch_mesh_phase(batch_ars, counts, tag)
     ar_s, _ = make_synthetic_archive(**SHARD_STREAM_ARCHIVE)
     single = clean_streaming(ar_s, SHARD_STREAM_CHUNK,
                              CleanConfig(stream_hbm_mb=0))
@@ -1512,6 +2312,8 @@ def main() -> int:
           f"d_std plane {float(first[0])!r}: "
           f"{'bit-equal' if same else 'FAIL'}", flush=True)
     ok9 &= same
+    # batch (a)'s one batch iteration in a trace, on a process of its own
+    batch_trace_phase(tag)
     if not (ok1 and all(diag_ok.values()) and all(k10_ok.values())
             and ok3[0] and ok3[1] and okc and ok8 and ok9):
         fail("a kernel disagrees with its plain version")
@@ -1525,23 +2327,15 @@ def main() -> int:
         tb, to = nbytes / PEAK_BYTES_PER_S * 1e3, nops / PEAK_F32_PER_S * 1e3
         return (tb, "bytes") if tb >= to else (to, "operations")
 
-    # The cell diagnostics' least work per cell: the residual, the fit and
-    # the moments (about 12 operations a bin), and max_k |rfft(row)|,
-    # whose least count is an FFT's: 2.5 B log2 B for a real row (half of
-    # a complex FFT's 5 N log2 N) and 4 per k for |X_k|^2 and the max.
-    # The kernels' DFT against tables does about 4 B (B/2 + 1) instead.
+    kb = kernel_bounds(S, C, B)
+    b1, b2, b7, b6, b3, bc, b9 = (kb[k] for k in (
+        "weighted_marginals", "cell_diagnostics_disp",
+        "cell_diagnostics_two_read", "cell_diagnostics_dedisp",
+        "scaled_sides_axis0", "combine_zap", "masked_median"))
+    # as kernel_bounds counts them
     diag_ops = cells * (2.5 * B * math.log2(B) + 4 * nk + 12 * B)
-    # the weights, the mask and the four output planes
     diag_io = 4 * (cells + 4 * cells) + cells
-    b1 = bound(4 * (cells * B + cells + C * B + S * B), 3 * cells * B)
-    b2 = bound(4 * (cells * B + 2 * C * B + B) + diag_io, diag_ops)
-    b7 = bound(4 * (2 * cells * B + C * B + B) + diag_io, diag_ops)
-    b6 = bound(4 * (cells * B + 2 * B) + diag_io, diag_ops)
-    # the select: 4 counting passes per median (the radix digits; the
-    # upper middle comes from the last pass), 2 medians per diagnostic
     sel_ops = 4 * 2 * 4 * cells
-    b3 = bound(cells * (4 * 4 + 1 + 4 * 4), sel_ops)
-    bc = bound(cells * (9 * 4 + 2 * 4), 16 * cells)
     # K4 and K5 are one launch on the TPU: the cube and the template rows
     # in, the weights and mask in, new weights, scores and d_std out
     sweep_io = 4 * cells + cells + 3 * 4 * cells
@@ -1556,10 +2350,6 @@ def main() -> int:
     b2q = bound(4 * (cells // 4 * B + C * B + B) + diag_io // 4,
                 diag_ops / 4)
     b6q = bound(4 * (cells // 4 * B + 2 * B) + diag_io // 4, diag_ops / 4)
-    # K9 on the telemetry's line: the values and the mask read once, one
-    # float out; four passes of a few integer ops an entry
-    n9 = line_v.numel()
-    b9 = bound(5 * n9 + 4, 4 * 8 * n9)
     entries = [
         ("weighted_marginals", "marginals.cu", "_marginals_kernel :633",
          "default", err1,
@@ -1647,6 +2437,19 @@ def main() -> int:
             "launches_by_route": {r: c[name] for r, c in counts.items()
                                   if c.get(name)}})
         what = f"{launches} launches"
+        if name in batch_times:
+            # one launch for a whole batch, against B launches on one
+            # archive, beside the batch's bound
+            kernels[-1]["batch"] = {}
+            for label, (bms_b, singles) in batch_times[name].items():
+                nb_b, (bs, bc_, bb_) = batch_shapes[label]
+                bound_b, by_b = kernel_bounds(bs, bc_, bb_)[name]
+                kernels[-1]["batch"][label] = {
+                    "ms": bms_b, "b_x_single_ms": singles,
+                    "bound_ms": nb_b * bound_b, "bound_by": by_b}
+                what += (f"; batch {label}: {bms_b:.4f} ms against "
+                         f"{singles:.4f} ms for {nb_b} single launches, "
+                         f"bound {nb_b * bound_b:.4f} ms ({by_b})")
         if name in k10_in:
             # K10 on one 2 x 2 shard too, the shape each of four ranks
             # gives it

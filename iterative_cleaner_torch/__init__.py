@@ -13,7 +13,10 @@ the tiles held in host memory for archives larger than the card, or
 online, each tile on its own; and the default route and the dedispersed
 frame over the ranks of a ``torch.distributed`` process group, each rank
 holding one (subint, channel) block on its own card
-(:func:`clean_archive_sharded`).  Its CLI runs the reference's session
+(:func:`clean_archive_sharded`); and equal-shaped archives cleaned as one
+batch, each kernel launched once per iteration for the whole batch,
+optionally split over the ranks (:func:`clean_archives_batched`, the
+CLI's ``--batch B`` and ``--mesh batch``).  Its CLI runs the reference's session
 over archives: ``.npz``, ``.icar``, fold-mode PSRFITS and TIMER ``.ar``
 in and out, ``--prefetch``, the run report (``--metrics-json``), the
 Prometheus textfile, the JSON-lines event log and ``--timing``.  Every TPU kernel of the reference has a hand-written
@@ -36,7 +39,7 @@ Layout, host boundary first:
 - :mod:`~iterative_cleaner_torch.engine` — the iteration loop
 - :mod:`~iterative_cleaner_torch.backends` — ``clean_archive``
 - :mod:`~iterative_cleaner_torch.parallel` — ``clean_streaming``,
-  ``clean_archive_sharded``
+  ``clean_archive_sharded``, ``clean_archives_batched``
 - :mod:`~iterative_cleaner_torch.telemetry`,
   :mod:`~iterative_cleaner_torch.utils` — the CLI session's run report,
   metrics, event log and ``clean.log``
@@ -51,6 +54,7 @@ from iterative_cleaner_torch.config import CleanConfig  # noqa: F401
 from iterative_cleaner_torch.parallel import (  # noqa: F401
     StreamingCleaner,
     clean_archive_sharded,
+    clean_archives_batched,
     clean_streaming,
     clean_streaming_exact,
 )

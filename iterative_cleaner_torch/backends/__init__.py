@@ -1,6 +1,6 @@
 """``clean_archive``: one archive through the PyTorch/CUDA backend;
 ``clean_archive_sharded``: one archive over the ranks of a process
-group."""
+group; ``clean_archives_batched``: equal-shaped archives as one batch."""
 
 from iterative_cleaner_torch.backends.base import (  # noqa: F401
     CleanResult,
@@ -31,3 +31,15 @@ def clean_archive_sharded(archive, config, mesh=None):
     )
 
     return sharded(archive, config, mesh)
+
+
+def clean_archives_batched(archives, config, mesh=None, registry=None):
+    """Clean equal-shaped archives as one batch on the card
+    (:func:`iterative_cleaner_torch.parallel.batch.clean_archives_batched`;
+    over a ``mesh`` of ranks rank 0 gets the results, the others
+    None)."""
+    from iterative_cleaner_torch.parallel.batch import (
+        clean_archives_batched as batched,
+    )
+
+    return batched(archives, config, mesh, registry)

@@ -3,7 +3,8 @@
 ``python -m iterative_cleaner_torch [-c] [-s] [-m] [-z] [-u] [-p] [-q]
 [-l] [-r] [-o] [--bad_chan] [--bad_subint] [--baseline_mode]
 [--stats_frame] [--device] [--stream N [--stream_mode exact|online]
-[--stream_hbm_mb MB]] [--mesh off|cell] [--prefetch N] [--io-workers N]
+[--stream_hbm_mb MB]] [--batch B] [--mesh off|cell|batch] [--prefetch N]
+[--io-workers N]
 [--metrics-json PATH] [--prom-textfile PATH] [--event-log PATH]
 [--log-format text|json] [--timing] [--keep_going] obs.sf ...``
 cleans each archive (``.npz``, ``.icar``, fold-mode PSRFITS: ``.sf``,
@@ -35,9 +36,21 @@ each tile over the ranks, ``parallel/streaming.py``), started as
 ``--device cpu``; every rank reads the archive and keeps its block, and
 rank 0 alone prints, records the telemetry, writes the output and the
 logs.
+``--batch B`` cleans runs of up to B consecutive equal-shaped archives
+as one batch on the card (``parallel/batch.py``): a header prepass puts
+archives of one (nsub, nchan, nbin, DEDISP) key next to each other, and
+each group is loaded, cleaned in one batched clean and written archive
+by archive, with the sequential path's outputs, console lines and logs.
+With ``--keep_going`` an archive that fails to load, or a group that
+fails to clean, is reported and the rest go on; a failed write is
+reported per archive and never stops the session.  ``--prefetch`` is
+ignored with B > 1.  ``--mesh batch`` splits each group over the ranks
+of a ``torchrun`` job (``torchrun --nproc_per_node N -m
+iterative_cleaner_torch --batch B --mesh batch ...``): each rank cleans
+its share, rank 0 writes.
 Not ported yet: ``--checkpoint``, ``--record_history`` and ``--model``
 (ROADMAP.md 'Modules still to port' item 8), the live ``--stream DIR``
-session (item 5), ``--mesh batch`` (item 3).
+session (item 5), ``--fleet`` (item 3).
 """
 
 from __future__ import annotations
@@ -49,7 +62,7 @@ import os
 import sys
 
 from iterative_cleaner_torch.config import MESH_MODES, CleanConfig, check_mesh
-from iterative_cleaner_torch.io import load_archive, save_archive
+from iterative_cleaner_torch.io import load_archive, peek_shape, save_archive
 from iterative_cleaner_torch.telemetry import RunTelemetry
 from iterative_cleaner_torch.utils.logging import append_clean_log
 
@@ -141,13 +154,21 @@ def build_parser() -> argparse.ArgumentParser:
                         "on the CPU with --device cpu); uneven grids are "
                         "zero-weight padded and cropped back. With "
                         "--stream N each tile is sharded (each mesh axis "
-                        "must divide the tile grid). 'batch' is not "
-                        "ported yet.")
+                        "must divide the tile grid). 'batch' splits each "
+                        "--batch group over the ranks (zero-weight "
+                        "padded to a multiple of them).")
+    p.add_argument("--batch", type=int, default=0, metavar="B",
+                   help="Clean runs of up to B consecutive equal-shaped "
+                        "archives as one batch on the card (one launch of "
+                        "each kernel per iteration for the whole batch; "
+                        "for many small archives). Incompatible with "
+                        "--unload_res and --stream.")
     p.add_argument("--prefetch", type=int, default=0, metavar="N",
                    help="Load up to N archives ahead on background "
                         "threads while the card cleans the current one "
                         "(costs N archives of host memory; 0 = "
-                        "sequential).")
+                        "sequential; ignored when --batch B > 1, whose "
+                        "groups are loaded up front).")
     p.add_argument("--io-workers", "--io_workers", type=int, default=None,
                    dest="io_workers", metavar="N",
                    help="Threads of the --prefetch loader (default: the "
@@ -257,13 +278,15 @@ def iter_archives(paths, prefetch: int, workers: int = 1):
 
 
 def clean_one(in_path: str, args, telemetry: RunTelemetry, mesh=None,
-              preloaded=None):
+              preloaded=None, result=None):
     """Load, clean and write one archive, its phases timed into the
     session's registry and its result recorded in ``telemetry``; returns
     the output's name.  ``preloaded`` is the ``--prefetch`` loader's
-    future, read inside the load phase (which then times the wait).
-    Under ``mesh`` (``--mesh cell``) every rank cleans its block and
-    only rank 0 reports, writes and records (the others return None)."""
+    future, read inside the load phase (which then times the wait), or
+    the loaded archive itself; ``result`` a clean already computed (the
+    ``--batch`` path), which skips the clean.  Under ``mesh`` (``--mesh
+    cell``) every rank cleans its block and only rank 0 reports, writes
+    and records (the others return None)."""
     from iterative_cleaner_torch.backends import (
         clean_archive,
         clean_archive_sharded,
@@ -273,20 +296,25 @@ def clean_one(in_path: str, args, telemetry: RunTelemetry, mesh=None,
     timer = telemetry.registry.timer
     say = (mesh is None or mesh.rank == 0) and not args.quiet
     with timer.phase("load"):
-        ar = load_archive(in_path) if preloaded is None \
-            else preloaded.result()
+        if preloaded is None:
+            ar = load_archive(in_path)
+        elif hasattr(preloaded, "result"):
+            ar = preloaded.result()
+        else:
+            ar = preloaded
     cfg = config_of(args)
     if say:
         print("Total number of profiles: %s" % ar.weights.size)
     chunk = stream_chunk(args.stream)
-    with timer.phase("clean"):
-        if chunk > 0:
-            result = clean_streaming(ar, chunk, cfg, mesh,
-                                     mode=args.stream_mode)
-        elif mesh is not None:
-            result = clean_archive_sharded(ar, cfg, mesh)
-        else:
-            result = clean_archive(ar, cfg)
+    if result is None:
+        with timer.phase("clean"):
+            if chunk > 0:
+                result = clean_streaming(ar, chunk, cfg, mesh,
+                                         mode=args.stream_mode)
+            elif mesh is not None:
+                result = clean_archive_sharded(ar, cfg, mesh)
+            else:
+                result = clean_archive(ar, cfg)
     if result is None:
         return None
     if say:
@@ -352,25 +380,119 @@ def run_session(args, lead: bool = True):
             print(telemetry.registry.timer.report())
 
 
+def bucket_by_shape(paths: list) -> list:
+    """The archives reordered so that each (nsub, nchan, nbin, DEDISP)
+    key's archives are consecutive (a batch cleans one key only): the keys
+    in order of first appearance, each key's archives in input order.  The
+    keys come from header peeks (:func:`~iterative_cleaner_torch.io.npz.
+    peek_shape`, no cube read); an archive whose header cannot be read (or
+    a TIMER ``.ar``, which has no header-only peek) keeps its place among
+    the others at the end, where the group loop's load reports it."""
+    buckets, tail = {}, []
+    for p in paths:
+        try:
+            key = peek_shape(p, cheap_only=True)
+        except Exception:  # reported by the group loop's load
+            tail.append(p)
+            continue
+        buckets.setdefault(key, []).append(p)
+    return [p for group in buckets.values() for p in group] + tail
+
+
+def run_batched(args, telemetry: RunTelemetry, mesh=None) -> list:
+    """The ``--batch B`` session: the archives bucketed by shape, then
+    groups of up to B consecutive equal-shaped archives loaded, cleaned in
+    one :func:`~iterative_cleaner_torch.parallel.batch.
+    clean_archives_batched` (over the ranks of a ``--mesh batch``) and
+    written archive by archive through :func:`clean_one`, whose outputs,
+    console lines and logs are the sequential session's.  A load or a
+    group's clean that fails raises, or with ``--keep_going`` is recorded
+    and the rest go on; a write that fails is recorded and reported per
+    archive and never stops the session.  Returns the failed paths."""
+    from iterative_cleaner_torch.parallel.batch import clean_archives_batched
+
+    lead = mesh is None or mesh.rank == 0
+    cfg = config_of(args)
+    phase = telemetry.registry.timer.phase
+    paths = bucket_by_shape(list(args.archive))
+    failed = []
+
+    def record_failure(bad, exc, what="cleaning"):
+        failed.extend(bad)
+        for p in bad:
+            telemetry.record_failure(p, exc)
+        if lead:
+            print("ERROR %s %s: %s: %s" % (what, ", ".join(bad),
+                                           type(exc).__name__, exc),
+                  file=sys.stderr)
+
+    i, carried = 0, None   # (path, archive) that ended the previous group
+    while i < len(paths) or carried:
+        group, ars = ([carried[0]], [carried[1]]) if carried else ([], [])
+        carried = None
+        while i < len(paths) and len(group) < args.batch:
+            p = paths[i]
+            i += 1
+            try:
+                with phase("load"):
+                    ar = load_archive(p)
+            except Exception as exc:
+                if not args.keep_going:
+                    raise
+                record_failure([p], exc)
+                continue
+            if ars and (ar.nsub, ar.nchan, ar.nbin, ar.dedispersed) != (
+                    ars[0].nsub, ars[0].nchan, ars[0].nbin,
+                    ars[0].dedispersed):
+                carried = (p, ar)   # seeds the next group, not reloaded
+                break
+            group.append(p)
+            ars.append(ar)
+        if not group:
+            continue
+        try:
+            with phase("clean"):
+                results = clean_archives_batched(ars, cfg, mesh,
+                                                 registry=telemetry.registry)
+        except Exception as exc:
+            if not args.keep_going:
+                raise
+            record_failure(group, exc)
+            continue
+        if not lead:
+            continue
+        for p, ar, res in zip(group, ars, results):
+            try:
+                clean_one(p, args, telemetry, preloaded=ar, result=res)
+            except Exception as exc:  # the group's cleans are done
+                record_failure([p], exc, "writing")
+    return failed
+
+
 def run_archives(args, mesh=None) -> int:
     """Clean every archive of ``args`` in one session; 1 if any failed
-    under ``--keep_going``, else 0 (without it a failure raises)."""
+    under ``--keep_going`` (or a ``--batch`` write failed), else 0
+    (without it a failure raises)."""
     lead = mesh is None or mesh.rank == 0
     failed = []
     with run_session(args, lead) as telemetry:
-        for path, preloaded in iter_archives(
-                list(args.archive), args.prefetch,
-                resolve_io_workers(args.io_workers)):
-            try:
-                clean_one(path, args, telemetry, mesh, preloaded)
-            except Exception as exc:  # per-archive isolation
-                if not args.keep_going:
-                    raise
-                failed.append(path)
-                telemetry.record_failure(path, exc)
-                if lead:
-                    print("ERROR cleaning %s: %s: %s"
-                          % (path, type(exc).__name__, exc), file=sys.stderr)
+        if args.batch > 1:
+            failed = run_batched(args, telemetry, mesh)
+        else:
+            for path, preloaded in iter_archives(
+                    list(args.archive), args.prefetch,
+                    resolve_io_workers(args.io_workers)):
+                try:
+                    clean_one(path, args, telemetry, mesh, preloaded)
+                except Exception as exc:  # per-archive isolation
+                    if not args.keep_going:
+                        raise
+                    failed.append(path)
+                    telemetry.record_failure(path, exc)
+                    if lead:
+                        print("ERROR cleaning %s: %s: %s"
+                              % (path, type(exc).__name__, exc),
+                              file=sys.stderr)
     if failed:
         if lead:
             print("Failed %d/%d archives: %s"
@@ -386,16 +508,24 @@ def main(argv=None) -> int:
     if args.io_workers is not None and args.io_workers < 1:
         parser.error(f"--io-workers must be >= 1, got {args.io_workers}")
     # refuse a directory, and what the mesh does not run, before any clean
-    stream_chunk(args.stream)
+    chunk = stream_chunk(args.stream)
+    if args.batch > 1 and (args.unload_res or chunk > 0
+                           or args.mesh == "cell"):
+        parser.error("--batch is incompatible with --unload_res, --stream "
+                     "and --mesh cell")
+    if args.mesh == "batch" and args.batch <= 1:
+        parser.error("--mesh batch splits the --batch groups over the "
+                     "ranks; pass --batch B (B > 1)")
     check_mesh(args.mesh, config_of(args))
     if args.mesh == "off":
         return run_archives(args)
     from iterative_cleaner_torch.parallel import distributed
-    from iterative_cleaner_torch.parallel.mesh import cell_mesh
+    from iterative_cleaner_torch.parallel.mesh import batch_mesh, cell_mesh
 
     distributed.initialize(device=args.device)
     try:
-        return run_archives(args, cell_mesh())
+        return run_archives(
+            args, batch_mesh() if args.mesh == "batch" else cell_mesh())
     finally:
         distributed.shutdown()
 

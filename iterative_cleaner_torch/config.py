@@ -19,7 +19,6 @@ from typing import Optional, Tuple
 # ROADMAP.md "Modules still to port" items the refusals point at.
 _ROADMAP_F64 = "ROADMAP.md 'Modules still to port' item 1 (float64)"
 _ROADMAP_BF16 = "ROADMAP.md 'Modules still to port' item 6 (mixed precision)"
-_ROADMAP_BATCH = "ROADMAP.md 'Modules still to port' item 3 (batch and fleet)"
 
 MESH_MODES = ("off", "cell", "batch")
 
@@ -104,18 +103,15 @@ class CleanConfig:
 
 
 def check_mesh(mesh: str, config: CleanConfig) -> None:
-    """Refuse what the multi-GPU clean does not run: ``mesh='batch'``
-    (``NotImplementedError`` naming its ROADMAP.md item) and, on a cell
-    mesh, the outputs that are not gathered across ranks (``unload_res``,
+    """Refuse what the multi-GPU clean does not run: on a mesh, the
+    outputs that are not gathered across ranks (``unload_res``,
     ``record_history``: ``ValueError``, as in the reference).
-    ``mesh='cell'`` runs every route, whole or streamed in subint
-    tiles."""
+    ``mesh='cell'`` runs every route, whole or streamed in subint tiles;
+    ``mesh='batch'`` splits a batch of archives over the ranks
+    (``parallel/batch.py``)."""
     if mesh not in MESH_MODES:
         raise ValueError(f"unknown mesh {mesh!r}")
-    if mesh == "batch":
-        raise NotImplementedError(
-            f"--mesh batch is not ported yet: {_ROADMAP_BATCH}")
-    if mesh == "cell" and (config.unload_res or config.record_history):
+    if mesh != "off" and (config.unload_res or config.record_history):
         raise ValueError(
             "unload_res/record_history are not supported on the sharded "
             "path (residual cubes and weight histories are not gathered); "

@@ -45,6 +45,16 @@ median as tree-reduced selects, the combine kernel; on ``two_read`` K7
 on the shard, then the gathered scaler (the four diagnostic planes
 gathered whole on every rank, K3 twice and the combine on them) and K9
 on the gathered ``d_std``, as the reference runs that route.
+
+A batch of equal-shaped archives (``parallel/batch.py``) runs the same
+routes with a leading batch dimension on every per-archive tensor:
+:func:`prepare_batch` runs the preamble archive by archive into stacked
+resident cubes, and :func:`clean_loop_batch` iterates the batch as
+``jax.vmap`` iterates the reference's ``while_loop``: until every
+archive has stopped, each archive's carry frozen from the iteration it
+stopped at.  Each iteration is one launch of each of the route's
+kernels for the whole batch (the batch folded into the launch), and the
+template stage takes the batch in its tensor ops.
 """
 
 from __future__ import annotations
@@ -63,6 +73,7 @@ from iterative_cleaner_torch.ops.dsp import (
     rotate_bins,
     template_numerator_from_channel_profiles,
     template_residuals,
+    trailing_sum,
     weighted_template,
     weighted_template_numerator,
 )
@@ -187,7 +198,8 @@ def dispersed_residual_base(ded, back_shifts, *, window, rotation):
 
 
 class Prepared(NamedTuple):
-    """What the preamble leaves on the device for one route."""
+    """What the preamble leaves on the device for one route (a batch's:
+    each tensor but ``window`` with a leading batch dimension)."""
 
     route: str
     back_shifts: torch.Tensor                 # (nchan,) re-dispersion shifts
@@ -241,6 +253,38 @@ def prepare(cube, weights, freqs_mhz, dm, ref_freq_mhz, period_s,
                     window)
 
 
+def prepare_batch(cubes, weights, freqs_mhz, dms, ref_freqs_mhz, periods_s,
+                  config: CleanConfig, *, dedispersed) -> Prepared:
+    """:func:`prepare` on each archive of a batch: the stacked upload
+    ``cubes`` (B, nsub, nchan, nbin) (consumed), ``weights`` (B, nsub,
+    nchan), ``freqs_mhz`` (B, nchan) and the (B,) ``dms``,
+    ``ref_freqs_mhz`` and ``periods_s``.  Archive b's preamble runs on
+    its slices alone, so its cubes are bit-equal to a clean of it alone;
+    a cube the route keeps in the upload itself (``disp_clean``, the
+    profile baseline's ``ded``) stays there, the others are copied into
+    stacked cubes allocated at the first archive, so the preamble's
+    temporaries stay one archive's.  The pulse window is shared."""
+    names = ("back_shifts", "ded", "disp_base", "disp_clean", "base_offsets")
+    stacked, prep = {}, None
+    for b in range(cubes.shape[0]):
+        prep = prepare(cubes[b], weights[b], freqs_mhz[b], dms[b],
+                       ref_freqs_mhz[b], periods_s[b], config,
+                       dedispersed=dedispersed)
+        if b == 0:
+            owner = {cubes[0].data_ptr(): cubes}
+            for name in names:
+                t = getattr(prep, name)
+                if t is not None and t.data_ptr() not in owner:
+                    owner[t.data_ptr()] = t.new_empty(
+                        (cubes.shape[0],) + tuple(t.shape))
+                stacked[name] = None if t is None else owner[t.data_ptr()]
+        for name in names:
+            dst = stacked[name]
+            if dst is not None and dst is not cubes:
+                dst[b].copy_(getattr(prep, name))
+    return Prepared(prep.route, *(stacked[n] for n in names), prep.window)
+
+
 class CleanOutputs(NamedTuple):
     final_weights: torch.Tensor   # (nsub, nchan) cleaned weights
     loops: int                    # iterations run
@@ -267,7 +311,7 @@ def nyq_correction_row(back_shifts, nbin, rotation, dtype):
     gamma = torch.cos(math.pi * frac.to(dtype)) ** 2 - 1.0
     alt = (1.0 - 2.0 * (torch.arange(nbin, device=back_shifts.device) % 2)
            ).to(dtype)
-    return (gamma / nbin)[:, None] * alt[None, :]
+    return (gamma / nbin)[..., None] * alt
 
 
 def template_partial(route, tile, weights, offsets, raw, *, baseline_duty,
@@ -310,18 +354,20 @@ def assemble_template(route, num, corr, weights, back_shifts, *, rotation,
     nchan) weights: the default route's dedispersion rotation of the
     channel profiles ``A``, the ``den == 0`` guards, the reference's
     x10000.  On a cell ``mesh`` the rank's shard of the weights, the
-    channel sum and the weight sum crossing ranks."""
+    channel sum and the weight sum crossing ranks.  A batch's weights
+    give one template per archive, (B, nbin)."""
     if route == "default":
         num = template_numerator_from_channel_profiles(num, back_shifts,
                                                        rotation, mesh)
-    den = torch.sum(weights)
+    den = trailing_sum(weights, 2)
     if mesh is not None:
         den = mesh.total(den, "all")
     safe = torch.where(den == 0, torch.ones_like(den), den)
-    template = torch.where(den == 0, torch.zeros_like(num), num / safe)
+    template = torch.where(den[..., None] == 0, torch.zeros_like(num),
+                           num / safe[..., None])
     if corr is not None:
         template = template + torch.where(den == 0, torch.zeros_like(corr),
-                                          corr / safe)
+                                          corr / safe)[..., None]
     return template * 10000.0
 
 
@@ -347,7 +393,8 @@ def build_template(prep: Prepared, weights, *, rotation, baseline_duty,
     template = weighted_template(prep.ded, weights, mesh)
     if prep.disp_clean is not None:
         template = template + template_correction(
-            prep.disp_clean, prep.base_offsets, weights, baseline_duty, mesh)
+            prep.disp_clean, prep.base_offsets, weights, baseline_duty,
+            mesh)[..., None]
     return template * 10000.0
 
 
@@ -387,11 +434,12 @@ def route_diagnostics(prep: Prepared, template, orig_weights, cell_mask, *,
 def _dispersed_rows(prep: Prepared, template, rotation):
     """The dispersed-frame kernels' (nchan, nbin) rows: the (windowed)
     template rotated to each channel, and the Nyquist correction rows of
-    the one-read fit (None where the rotation round-trips exactly)."""
-    nchan, nbin = prep.disp_base.shape[1:]
+    the one-read fit (None where the rotation round-trips exactly); (B,
+    nchan, nbin) for a batch."""
+    nchan, nbin = prep.disp_base.shape[-2:]
     t = template if prep.window is None else template * prep.window
-    rot_t = rotate_bins(t.expand(nchan, nbin), prep.back_shifts,
-                        method=rotation).contiguous()
+    rot_t = rotate_bins(t[..., None, :].expand(*t.shape[:-1], nchan, nbin),
+                        prep.back_shifts, method=rotation).contiguous()
     return rot_t, nyq_correction_row(prep.back_shifts, nbin, rotation,
                                      prep.disp_base.dtype)
 
@@ -404,7 +452,8 @@ def iteration_step(prep: Prepared, weights, orig_weights, cell_mask, *,
     (combine); on a cell ``mesh`` the sharded sweep after the template
     (:func:`_sharded_sweep`).  Returns ``(new_weights, scores,
     residual_std, template_peak)``, the last two as device scalars for
-    the telemetry rows."""
+    the telemetry rows ((B,) for a batch: each kernel launched once for
+    the whole batch)."""
     template = build_template(prep, weights, rotation=rotation,
                               baseline_duty=baseline_duty, mesh=mesh)
     if mesh is not None:
@@ -419,7 +468,7 @@ def iteration_step(prep: Prepared, weights, orig_weights, cell_mask, *,
     sub = scaled_sides(diags, cell_mask, 1, subintthresh)
     new_weights, scores = combine_zap(chan, sub, orig_weights)
     return (new_weights, scores, residual_std(diags[0], cell_mask),
-            torch.max(template))
+            torch.amax(template, dim=-1))
 
 
 def _sharded_sweep(prep: Prepared, template, orig_weights, cell_mask, mesh,
@@ -457,11 +506,14 @@ def _sharded_sweep(prep: Prepared, template, orig_weights, cell_mask, mesh,
 def residual_std(d_std, cell_mask, mesh=None):
     """The residual-std telemetry value: the median of the unmasked
     cells' ``d_std`` (a device scalar), kernel K9 over the plane as one
-    line; on a cell ``mesh`` over every rank's cells, by the tree-reduced
-    select (the same value as K9 on the whole plane)."""
+    line (a batch's B planes as B lines, one launch: (B,) values); on a
+    cell ``mesh`` over every rank's cells, by the tree-reduced select (the
+    same value as K9 on the whole plane)."""
     if mesh is None:
-        return masked_median(d_std.reshape(1, -1), cell_mask.reshape(1, -1),
-                             1)[0, 0]
+        lead = d_std.shape[:-2]
+        cells = d_std.shape[-2] * d_std.shape[-1]
+        return masked_median(d_std.reshape(-1, cells),
+                             cell_mask.reshape(-1, cells), 1).reshape(lead)
     from iterative_cleaner_torch.parallel.shard_stats import (
         tree_masked_median_lanes,
         tree_reducers,
@@ -526,6 +578,85 @@ def clean_loop(prep: Prepared, orig_weights, *, max_iter, chanthresh,
         scores=scores, template_weights=template_weights,
         loop_diffs=loop_diffs, loop_rfi_frac=loop_rfi_frac,
         history=history, history_count=count, iter_metrics=iter_metrics)
+
+
+class BatchOutputs(NamedTuple):
+    """:class:`CleanOutputs` of a batch, every field with a leading batch
+    dimension: ``loops`` (B,) int64 and ``converged`` (B,) bool device
+    tensors, archive b's ``history`` populated in [0:loops[b] + 1]."""
+    final_weights: torch.Tensor
+    loops: torch.Tensor
+    converged: torch.Tensor
+    scores: torch.Tensor
+    template_weights: torch.Tensor
+    loop_diffs: torch.Tensor
+    loop_rfi_frac: torch.Tensor
+    history: torch.Tensor
+    iter_metrics: torch.Tensor
+
+
+def clean_loop_batch(prep: Prepared, orig_weights, *, max_iter, chanthresh,
+                     subintthresh, rotation, baseline_duty) -> BatchOutputs:
+    """:func:`clean_loop` over a batch (:func:`prepare_batch`'s
+    ``prep``, (B, nsub, nchan) ``orig_weights``), as ``jax.vmap`` runs the
+    reference's ``while_loop``: each iteration is one
+    :func:`iteration_step` for the whole batch (each of the route's
+    kernels launched once); an archive whose weights repeat a history
+    entry stops there, and from the next iteration on its carry —
+    weights, scores, history, loops, convergence, per-loop counts and
+    telemetry rows — is frozen (its new values computed and discarded by
+    a select), so each archive's outputs are those of its own
+    :func:`clean_loop`.  The batch iterates until every archive has
+    stopped or ``max_iter``; the per-archive ``active`` flags stay on the
+    device and "all stopped?" is the loop's one host synchronisation."""
+    nb, nsub, nchan = orig_weights.shape
+    ncells = nsub * nchan
+    dev = orig_weights.device
+    dtype = prep.back_shifts.dtype
+    cell_mask = orig_weights == 0
+    history = torch.zeros((nb, max_iter + 1, nsub, nchan),
+                          dtype=orig_weights.dtype, device=dev)
+    history[:, 0] = orig_weights
+    loop_diffs = torch.zeros((nb, max_iter), dtype=torch.int32, device=dev)
+    loop_rfi_frac = torch.zeros((nb, max_iter), dtype=dtype, device=dev)
+    iter_metrics = torch.zeros((nb, max_iter, ITER_METRICS_WIDTH),
+                               dtype=torch.float32, device=dev)
+    weights = template_weights = orig_weights
+    scores = torch.zeros((nb, nsub, nchan), dtype=dtype, device=dev)
+    active = torch.ones((nb,), dtype=torch.bool, device=dev)
+    loops = torch.full((nb,), max_iter, dtype=torch.int64, device=dev)
+    for x in range(max_iter):
+        new_w, new_scores, rstd, tpeak = iteration_step(
+            prep, weights, orig_weights, cell_mask, chanthresh=chanthresh,
+            subintthresh=subintthresh, rotation=rotation,
+            baseline_duty=baseline_duty)
+        repeat = (history[:, :x + 1] == new_w[:, None]).flatten(2).all(
+            dim=2).any(dim=1)
+        diffs = torch.sum(new_w != weights, dim=(1, 2))
+        zeros = torch.sum(new_w == 0, dim=(1, 2))
+        churn = torch.sum((new_w == 0) != (weights == 0), dim=(1, 2))
+        on = active[:, None, None]
+        history[:, x + 1] = torch.where(on, new_w, history[:, x + 1])
+        loop_diffs[:, x] = torch.where(active, diffs.to(torch.int32), 0)
+        loop_rfi_frac[:, x] = torch.where(active, zeros.to(dtype) / ncells,
+                                          0.0)
+        rows = torch.stack([zeros.to(torch.float32), churn.to(torch.float32),
+                            rstd.to(torch.float32), tpeak.to(torch.float32)],
+                           dim=1)
+        iter_metrics[:, x] = torch.where(active[:, None], rows, 0.0)
+        template_weights = torch.where(on, weights, template_weights)
+        weights = torch.where(on, new_w, weights)
+        scores = torch.where(on, new_scores, scores)
+        stops = active & repeat
+        loops = torch.where(stops, x + 1, loops)
+        active = active & ~repeat
+        if not bool(active.any()):  # the loop's one host sync
+            break
+    return BatchOutputs(
+        final_weights=weights, loops=loops, converged=~active,
+        scores=scores, template_weights=template_weights,
+        loop_diffs=loop_diffs, loop_rfi_frac=loop_rfi_frac, history=history,
+        iter_metrics=iter_metrics)
 
 
 def unload_residual(prep: Prepared, template_weights, *, rotation,

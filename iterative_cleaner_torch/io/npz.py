@@ -83,6 +83,44 @@ def save_archive(ar: Archive, path: str) -> None:
             )
 
 
+def peek_shape(path: str, cheap_only: bool = False):
+    """``(nsub, nchan, nbin, dedispersed)`` without reading the data cube:
+    the key the CLI's ``--batch`` prepass groups archives by (a batch
+    cleans equal keys only).  ``.icar`` reads its header, PSRFITS its
+    header cards (an mmap), ``.npz`` the ``data`` member's npy header and
+    the ``dedispersed`` member.  A TIMER ``.ar`` has no header-only read:
+    it is loaded through the bridge, or with ``cheap_only`` raises
+    ``ValueError`` (the prepass then leaves it to the group loop's load
+    instead of loading it twice)."""
+    ext = _ext(path)
+    if ext == ".icar":
+        m = native.read_icar_header(path)
+        return m["nsub"], m["nchan"], m["nbin"], m["dedispersed"]
+    if ext in PSRFITS_EXTS or ext == ".ar":
+        if ext != ".ar" or psrfits.is_fits(path):
+            return psrfits.read_psrfits_shape(path)
+        if cheap_only:
+            raise ValueError(
+                f"{path}: TIMER-format .ar has no header-only shape peek")
+        ar = load_archive(path)
+        return ar.nsub, ar.nchan, ar.nbin, ar.dedispersed
+    import zipfile
+
+    from numpy.lib import format as npy_format
+
+    with zipfile.ZipFile(path) as z:
+        with z.open("data.npy") as f:
+            version = npy_format.read_magic(f)
+            if version == (1, 0):
+                shape, _, _ = npy_format.read_array_header_1_0(f)
+            else:
+                shape, _, _ = npy_format.read_array_header_2_0(f)
+        with z.open("dedispersed.npy") as f:
+            ded = bool(npy_format.read_array(f, allow_pickle=False))
+    nsub, _npol, nchan, nbin = shape
+    return int(nsub), int(nchan), int(nbin), ded
+
+
 def load_archive(path: str) -> Archive:
     """Read the archive at ``path``, by its extension (and, for ``.ar``,
     its FITS magic)."""

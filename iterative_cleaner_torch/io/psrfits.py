@@ -672,6 +672,22 @@ def _parse_info(buf: memoryview, path: str):
     return meta, weights
 
 
+def read_psrfits_shape(path: str):
+    """``(nsub, nchan, nbin, dedispersed)`` from the SUBINT header cards
+    alone: no DAT_WTS row, no period (POLYCO) resolution.  The CLI's
+    ``--batch`` shape prepass reads it; ``tools info`` wants
+    :func:`read_psrfits_info`."""
+
+    def parse(buf: memoryview, p: str):
+        if bytes(buf[:6]) != b"SIMPLE":
+            raise ValueError(f"{p} is not a FITS file")
+        _, sub, _ = _find_subint(buf)
+        return (_as_int(sub, "NAXIS2"), _as_int(sub, "NCHAN"),
+                _as_int(sub, "NBIN"), bool(_as_int(sub, "DEDISP", 0)))
+
+    return _mmap_parse(path, parse)
+
+
 def is_fits(path: str) -> bool:
     """Cheap magic sniff: FITS files begin with the SIMPLE card."""
     try:

@@ -18,6 +18,12 @@ Cubes are rotated in channel chunks, so the temporaries stay a bounded
 slice of the cube.  These are plain products that the reference computes
 outside any Pallas kernel.  Matmuls run in full float32 (TF32 is switched
 off by :func:`iterative_cleaner_torch.backends.torch_backend.clean_cube`).
+
+The template stage's functions also take a batch of equal-shaped
+archives (``parallel/batch.py``): a leading dimension B on the weights
+(B, nsub, nchan), the cubes, the channel profiles and the shifts (B,
+nchan), each archive's sums its own.  On one archive they run the same
+ops as before the batch existed.
 """
 
 from __future__ import annotations
@@ -51,6 +57,24 @@ def _rfft_tables(nbin: int, dtype, device):
     kf = torch.arange(nbin // 2 + 1, dtype=dtype, device=device)
     ang = (2.0 * math.pi / nbin) * torch.outer(b, kf)
     return torch.cos(ang), torch.sin(ang)
+
+
+def trailing_sum(x, ndim: int):
+    """The sum over the last ``ndim`` dimensions: ``torch.sum(x)`` (a
+    0-d tensor) where those are all of ``x``'s, one archive; one sum per
+    archive of a batch otherwise."""
+    if x.dim() == ndim:
+        return torch.sum(x)
+    return torch.sum(x, dim=tuple(range(-ndim, 0)))
+
+
+def weighted_channel_sum(weights, cube):
+    """``sum_c w[s, c] * cube[s, c, :]``, (nsub, nbin) per archive (as
+    the reference groups it: per-subint (1, C) x (C, B) products); (B,
+    nsub, nbin) for a batch."""
+    if weights.dim() == 2:
+        return torch.einsum("sc,scb->sb", weights, cube)
+    return torch.einsum("xsc,xscb->xsb", weights, cube)
 
 
 def _irfft_weights(nbin: int, device):
@@ -131,13 +155,23 @@ def rotate_bins(x, shift_bins, method="fourier"):
 
     ``fourier``: fractional rotation through an rFFT phase ramp (the
     Nyquist bin of a fractionally rotated profile attenuates by
-    cos(pi*s)); ``roll``: nearest-integer gather, exact."""
+    cos(pi*s)); ``roll``: nearest-integer gather, exact.
+
+    A batch's rows, (B, nchan, nbin) with (B, nchan) shifts (each
+    archive its own), are rotated as B * nchan rows."""
     if method not in ("fourier", "roll"):
         raise ValueError(f"unknown rotation method {method!r}")
     if x.ndim < 2:
         raise ValueError(f"rotate_bins takes (..., nchan, nbin) profiles, "
                          f"got {tuple(x.shape)}")
     nchan, nbin = x.shape[-2:]
+    if shift_bins.dim() == 2:
+        if x.ndim != 3 or tuple(shift_bins.shape) != tuple(x.shape[:2]):
+            raise ValueError(f"per-archive shifts {tuple(shift_bins.shape)} "
+                             f"take (B, nchan, nbin) rows, got "
+                             f"{tuple(x.shape)}")
+        return rotate_bins(x.reshape(-1, nbin), shift_bins.reshape(-1),
+                           method).reshape(x.shape)
     s_chan = torch.broadcast_to(shift_bins.to(x.dtype), (nchan,))
     if method == "roll":
         base = torch.arange(nbin, device=x.device)
@@ -274,7 +308,7 @@ def template_numerator_from_channel_profiles(a, back_shifts, rotation,
     the cube (rotation is linear, weighting bin-independent).  On a cell
     ``mesh``, ``a`` holds the rank's channels and the sum crosses its
     row."""
-    num = rotate_bins(a, -back_shifts, method=rotation).sum(dim=0)
+    num = rotate_bins(a, -back_shifts, method=rotation).sum(dim=-2)
     return num if mesh is None else mesh.total(num, "chan")
 
 
@@ -283,7 +317,7 @@ def weighted_template_numerator(cube, weights):
     cells, grouped as the reference groups it: per-subint (1, C) x (C, B)
     products, then the sum over subints.  Exact streaming accumulates it
     per subint tile on the routes other than the default."""
-    return torch.einsum("sc,scb->sb", weights, cube).sum(dim=0)
+    return weighted_channel_sum(weights, cube).sum(dim=-2)
 
 
 def weighted_template(cube, weights, mesh=None):
@@ -291,9 +325,10 @@ def weighted_template(cube, weights, mesh=None):
     all-zero weight matrix gives the zero template.  On a cell ``mesh``
     both sums run over every rank's shard."""
     num = weighted_template_numerator(cube, weights)
-    den = torch.sum(weights)
+    den = trailing_sum(weights, 2)
     if mesh is not None:
         num, den = mesh.total(num, "all"), mesh.total(den, "all")
+    den = den[..., None]
     safe = torch.where(den == 0, torch.ones_like(den), den)
     return torch.where(den == 0, torch.zeros_like(num), num / safe)
 

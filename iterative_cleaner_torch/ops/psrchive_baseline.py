@@ -1,5 +1,8 @@
 """PSRCHIVE-spec integration-consensus baseline, in torch.
 
+The per-iteration template correction also takes a batch of equal-shaped
+archives (a leading dimension B; one correction per archive).
+
 One phase window per subintegration, placed at the smoothed minimum of
 the subint's weighted total profile (``w = max(1, round(duty * nbin))``
 bins, centred window ``(c - w//2 + j) % nbin``, ties to the lowest bin);
@@ -57,7 +60,9 @@ def template_correction(disp_clean, base_offsets, weights, duty,
     dispersed cube itself: one contraction ``t1 = sum_c w * disp_clean``
     (the routes whose template stage does not take both marginals in
     one read); on a cell ``mesh`` summed over the rank's row."""
-    t1 = torch.einsum("sc,scb->sb", weights, disp_clean)
+    from iterative_cleaner_torch.ops.dsp import weighted_channel_sum
+
+    t1 = weighted_channel_sum(weights, disp_clean)
     if mesh is not None:
         t1 = mesh.total(t1, "chan")
     return template_correction_from_totals(t1, base_offsets, weights, duty,
@@ -73,13 +78,15 @@ def template_correction_numerator_from_totals(t1, base_offsets, weights,
     is this rank's subints' (summed over its row already): the per-subint
     offset sums cross the row, the sum of the minima the column, the
     weighted offsets' total every rank."""
+    from iterative_cleaner_torch.ops.dsp import trailing_sum
+
     w = window_width(t1.shape[-1], duty)
-    r = torch.sum(weights * base_offsets, dim=1)
+    r = torch.sum(weights * base_offsets, dim=-1)
     if mesh is not None:
         r = mesh.total(r, "chan")
-    sm = centred_window_means(t1, w) + r[:, None]
-    total = torch.sum(weights * base_offsets)
-    minima = torch.sum(torch.min(sm, dim=-1).values)
+    sm = centred_window_means(t1, w) + r[..., None]
+    total = trailing_sum(weights * base_offsets, 2)
+    minima = trailing_sum(torch.min(sm, dim=-1).values, 1)
     if mesh is not None:
         total, minima = mesh.total(total, "all"), mesh.total(minima, "sub")
     return total - minima
@@ -115,9 +122,11 @@ def template_correction_from_totals(t1, base_offsets, weights, duty,
     on every template build; the hoisted preamble used the original
     weights, and the difference is this scalar): the numerator over the
     weight sum (over every rank of a cell ``mesh``)."""
+    from iterative_cleaner_torch.ops.dsp import trailing_sum
+
     num = template_correction_numerator_from_totals(t1, base_offsets,
                                                     weights, duty, mesh)
-    den = torch.sum(weights)
+    den = trailing_sum(weights, 2)
     if mesh is not None:
         den = mesh.total(den, "all")
     safe = torch.where(den == 0, torch.ones_like(den), den)

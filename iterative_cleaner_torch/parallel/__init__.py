@@ -1,6 +1,15 @@
-"""Streaming (archives cleaned in subint tiles, exactly or online) and
-the cell-sharded clean (one archive over the ranks of a
-``torch.distributed`` process group)."""
+"""Streaming (archives cleaned in subint tiles, exactly or online), the
+cell-sharded clean (one archive over the ranks of a ``torch.distributed``
+process group) and the batched clean (equal-shaped archives as one
+batch, optionally split over the ranks)."""
+
+from iterative_cleaner_torch.parallel.batch import (  # noqa: F401
+    clean_archives_batched,
+)
+from iterative_cleaner_torch.parallel.mesh import (  # noqa: F401
+    batch_mesh,
+    cell_mesh,
+)
 
 from iterative_cleaner_torch.parallel.sharding import (  # noqa: F401
     clean_archive_sharded,

@@ -1,0 +1,180 @@
+"""Batched cleaning of equal-shaped archives: B archives cleaned as one
+batch on the card, optionally split over the ranks of a
+``torch.distributed`` job (a ('batch',) mesh).
+
+The port's counterpart of ``iterative_cleaner_tpu/parallel/batch.py``
+(``check_equal_shapes``, ``stack_archive_batch``, ``unpack_batch_results``
+and ``clean_archives_batched``).  Where the reference ``jax.vmap``s its
+clean and the Pallas kernels' ``custom_vmap`` rules fold the batch into
+each launch's grid, the port stacks the archives along a leading batch
+dimension and runs :func:`~iterative_cleaner_torch.engine.loop.
+prepare_batch` and :func:`~iterative_cleaner_torch.engine.loop.
+clean_loop_batch`: each iteration launches each of the route's kernels
+once for the whole batch.  Each archive's result is that of a clean of it
+alone: masks, loops, convergence and per-loop counts equal, scores
+bit-equal where the template stage's batched reductions add in the same
+order as the one-archive ones (PERF.md states where they do not).
+
+On a ('batch',) mesh (:func:`~iterative_cleaner_torch.parallel.mesh.
+batch_mesh`) the batch is zero-weight padded to a multiple of the ranks,
+each rank cleans its contiguous share, and the results go to rank 0
+(``distributed.host_fetch``); no collective crosses archives.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from iterative_cleaner_torch.backends.base import CleanResult, apply_bad_parts
+from iterative_cleaner_torch.backends.torch_backend import clean_device
+from iterative_cleaner_torch.config import CleanConfig
+from iterative_cleaner_torch.engine.loop import (
+    BatchOutputs,
+    clean_loop_batch,
+    prepare_batch,
+)
+
+# the fields of BatchOutputs a result is unpacked from, in the order the
+# mesh gathers them
+_RESULT_FIELDS = ("final_weights", "scores", "loops", "converged",
+                  "loop_diffs", "loop_rfi_frac", "iter_metrics")
+
+
+def check_equal_shapes(archives: Sequence) -> None:
+    """``ValueError`` unless every archive has one (nsub, nchan, nbin)
+    and one DEDISP state: both fix the batch's route and shapes."""
+    shapes = {(a.nsub, a.nchan, a.nbin) for a in archives}
+    if len(shapes) != 1:
+        raise ValueError(
+            f"batched cleaning needs equal-shaped archives, got {shapes}; "
+            "bucket by shape first (parallel.streaming handles ragged time "
+            "axes)")
+    if len({bool(a.dedispersed) for a in archives}) != 1:
+        raise ValueError(
+            "batched cleaning needs a homogeneous dedispersed flag (the "
+            "forward rotation is chosen per batch); split the batch by "
+            "Archive.dedispersed first")
+
+
+def stack_archive_batch(archives: Sequence, pad: int, device, like=None):
+    """The batch's inputs on ``device``, stacked along a leading batch
+    axis with ``pad`` trailing zero-weight slots: ``(cubes, weights,
+    freqs, dms, refs, periods)`` as float32 tensors, and the bytes
+    uploaded.  Each archive's total-intensity cube is converted to
+    float32 straight into its slot of one host buffer (never a stack of
+    the float64 cubes), which is uploaded once.  The pad slots' cube and
+    weights are 0, their frequencies, reference frequency and period 1
+    and their DM 0, so their dispersion shifts are exactly zero and they
+    clean trivially.  ``like`` gives the shape where ``archives`` is
+    empty (a mesh rank whose share is all padding)."""
+    nb = len(archives) + pad
+    like = archives[0] if archives else like
+    nsub, nchan, nbin = like.nsub, like.nchan, like.nbin
+    cubes = np.zeros((nb, nsub, nchan, nbin), dtype=np.float32)
+    weights = np.zeros((nb, nsub, nchan), dtype=np.float32)
+    freqs = np.ones((nb, nchan), dtype=np.float32)
+    meta = np.zeros((3, nb), dtype=np.float64)   # dm, ref freq, period
+    meta[1:, len(archives):] = 1.0
+    for b, a in enumerate(archives):
+        np.copyto(cubes[b], a.total_intensity(), casting="unsafe")
+        weights[b] = a.weights
+        freqs[b] = a.freqs_mhz
+        meta[:, b] = (a.dm, a.centre_freq_mhz, a.period_s)
+    host = (cubes, weights, freqs, *meta.astype(np.float32))
+    return (tuple(torch.from_numpy(np.ascontiguousarray(x)).to(device)
+                  for x in host),
+            sum(int(x.nbytes) for x in host))
+
+
+def unpack_batch_results(outs, n: int, config: CleanConfig
+                         ) -> List[CleanResult]:
+    """Per-archive :class:`CleanResult` from a batch's outputs (host
+    arrays or tensors of :data:`_RESULT_FIELDS`, each with a leading batch
+    dimension; slots past ``n``, the padding, dropped), each with the
+    whole-line sweep applied."""
+    host = {k: np.asarray(torch.as_tensor(getattr(outs, k)).cpu())
+            for k in _RESULT_FIELDS}
+    results = []
+    for i in range(n):
+        loops = int(host["loops"][i])
+        results.append(apply_bad_parts(CleanResult(
+            final_weights=host["final_weights"][i],
+            scores=host["scores"][i],
+            loops=loops,
+            converged=bool(host["converged"][i]),
+            loop_diffs=host["loop_diffs"][i][:loops],
+            loop_rfi_frac=host["loop_rfi_frac"][i][:loops],
+            iter_metrics=host["iter_metrics"][i][:loops]), config))
+    return results
+
+
+def _clean_stack(archives, pad, like, config: CleanConfig, device,
+                 registry) -> BatchOutputs:
+    """Upload, preamble and loop of one batch (``pad`` trailing pad
+    slots; ``like`` an archive of the batch's shape and DEDISP state) on
+    ``device``."""
+    (cubes, weights, freqs, dms, refs, periods), nbytes = \
+        stack_archive_batch(archives, pad, device, like)
+    if registry is not None:
+        registry.counter_inc("batch_h2d_bytes", nbytes)
+    prep = prepare_batch(cubes, weights, freqs, dms, refs, periods, config,
+                         dedispersed=bool(like.dedispersed))
+    del cubes   # the route's resident cubes hold what it reads
+    return clean_loop_batch(
+        prep, weights, max_iter=config.max_iter,
+        chanthresh=config.chanthresh, subintthresh=config.subintthresh,
+        rotation=config.rotation, baseline_duty=config.baseline_duty)
+
+
+def clean_archives_batched(archives: Sequence, config: CleanConfig,
+                           mesh=None, registry=None
+                           ) -> Optional[List[CleanResult]]:
+    """Clean equal-shaped archives as one batch on ``config.device``:
+    one list of :class:`CleanResult`, in the archives' order.
+
+    ``mesh`` (a :class:`~iterative_cleaner_torch.parallel.mesh.BatchMesh`)
+    splits the batch over the ranks of the process group: every rank
+    passes the same archives, the batch is padded with zero-weight
+    archives to a multiple of the ranks, each rank cleans its contiguous
+    share on its own device, and rank 0 gathers the results (the other
+    ranks return None).  ``registry`` (a telemetry registry) receives the
+    bytes this call uploaded as ``batch_h2d_bytes`` and the archives as
+    ``batch_archives``.  The residual (``unload_res``) and the weight
+    history (``record_history``) are not batched: ``ValueError``."""
+    if not archives:
+        return []
+    if config.unload_res or config.record_history:
+        raise ValueError(
+            "unload_res/record_history are not supported on the batched "
+            "path (residual cubes and weight histories are not batched); "
+            "clean archive by archive for those outputs")
+    check_equal_shapes(archives)
+    n = len(archives)
+    device = clean_device(config)
+    if registry is not None:
+        registry.counter_inc("batch_archives", n)
+    if mesh is None:
+        outs = _clean_stack(archives, 0, archives[0], config, device,
+                            registry)
+        return unpack_batch_results(outs, n, config)
+    if device.type != mesh.device.type:
+        raise ValueError(f"config.device {config.device!r} and the rank's "
+                         f"device {mesh.device} differ in type")
+    from iterative_cleaner_torch.parallel.distributed import host_fetch
+
+    _, start, stop = mesh.share(n)
+    mine = list(archives[start:stop])
+    outs = _clean_stack(mine, stop - start - len(mine), archives[0], config,
+                        mesh.device, registry)
+    # (converged as int32: not every backend gathers bool tensors)
+    parts = {k: host_fetch(getattr(outs, k).to(torch.int32)
+                           if k == "converged" else getattr(outs, k))
+             for k in _RESULT_FIELDS}
+    if mesh.rank != 0:
+        return None
+    gathered = BatchOutputs(**{k: torch.cat(v) for k, v in parts.items()},
+                            template_weights=None, history=None)
+    return unpack_batch_results(gathered, n, config)

@@ -1,4 +1,5 @@
-"""The ('sub', 'chan') rank grid of the cell-sharded clean.
+"""The ('sub', 'chan') rank grid of the cell-sharded clean, and the 1-D
+('batch',) rank axis of the batched clean.
 
 The port's counterpart of ``iterative_cleaner_tpu/parallel/mesh.py``
 ``cell_mesh``: where the reference lays its devices out as a 2-D
@@ -10,6 +11,11 @@ block ``i`` and channel block ``j`` of the (padded) cell grid, as device
 ranks of its column (they hold the other subint blocks of its channels:
 the channel scaler and the channel profiles reduce over it), its
 ``'chan'`` subgroup the ranks of its row.
+
+:func:`batch_mesh` lays the same ranks out as the reference's
+``batch_mesh``: a 1-D axis over which a batch of archives is split in
+contiguous shares (``parallel/batch.py``); archives are independent, so
+no collective crosses them and only the results travel, to rank 0.
 """
 
 from __future__ import annotations
@@ -87,3 +93,32 @@ def cell_mesh() -> CellMesh:
     rows = [dist.new_group([ii * b + jj for jj in range(b)])
             for ii in range(a)]
     return CellMesh((a, b), rank, (i, j), ctx.device, columns[j], rows[i])
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchMesh:
+    """This rank's place on the ('batch',) axis: ``size`` ranks, each
+    cleaning the ``rank``-th contiguous share of a batch on ``device``."""
+
+    size: int
+    rank: int
+    device: torch.device
+
+    def share(self, n: int) -> tuple[int, int, int]:
+        """``(pad, start, stop)`` of a batch of ``n`` archives: zero-weight
+        pad slots up to a multiple of the axis (as the reference pads),
+        and this rank's slots [start, stop) of the padded batch."""
+        pad = (-n) % self.size
+        per = (n + pad) // self.size
+        return pad, self.rank * per, (self.rank + 1) * per
+
+
+def batch_mesh() -> BatchMesh:
+    """The :class:`BatchMesh` of this rank over the process group that
+    :func:`~iterative_cleaner_torch.parallel.distributed.initialize`
+    started, on the device it chose."""
+    ctx = _dist.context()
+    if ctx is None or not dist.is_initialized():
+        raise RuntimeError("batch_mesh needs the process group of "
+                           "parallel.distributed.initialize")
+    return BatchMesh(dist.get_world_size(), dist.get_rank(), ctx.device)

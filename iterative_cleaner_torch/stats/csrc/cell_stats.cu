@@ -43,6 +43,10 @@
 // profiles stream the table in chunks and take one cell a tile.  K2 takes
 // the Nyquist term as a compile-time flag: a run-time test of the row
 // pointer in every bin made it measurably slower on the card.
+//
+// A batch of equal-shaped archives is one launch over all their cells
+// (`cpa` cells an archive; cell_stats.cuh): the TPU kernels fold the
+// batch into their subint grid (_FusedScaffold's batch=).
 
 #include "cell_stats.cuh"
 
@@ -50,13 +54,14 @@ extern "C" int icln_cell_stats_disp(
     const float* disp, const float* rott, const float* nyq, const float* w,
     const unsigned char* mask, const float* cos_t, const float* sin_t,
     const float* tt, float* d_std, float* d_mean, float* d_ptp, float* d_fft,
-    long long ncells, int nchan, int nbin, int group, int ctile, int kchunk,
+    long long ncells, long long cpa, int nchan, int nbin, int group, int ctile, int kchunk,
     int bchunk, int nkp, int producers, int threads, int grid, long long smem_bytes, float inv_n,
     void* stream) {
   CellStatsArgs p = icln_cell_stats_args(mask, w, cos_t, sin_t, tt, d_std,
                                          d_mean, d_ptp, d_fft, ncells, nchan,
                                          nbin, group, kchunk, bchunk, nkp,
                                          inv_n);
+  p.cpa = cpa;
   p.cube = disp;
   p.rott = rott;
   p.nyq = nyq;
@@ -71,7 +76,7 @@ extern "C" int icln_cell_stats_two_read(
     const float* ded, const float* disp_base, const float* rott,
     const float* tmpl, const float* w, const unsigned char* mask,
     const float* cos_t, const float* sin_t, const float* tt, float* d_std,
-    float* d_mean, float* d_ptp, float* d_fft, long long ncells, int nchan,
+    float* d_mean, float* d_ptp, float* d_fft, long long ncells, long long cpa, int nchan,
     int nbin, int group, int ctile, int kchunk, int bchunk, int nkp, int producers,
     int threads,
     int grid, long long smem_bytes, float inv_n, void* stream) {
@@ -79,6 +84,7 @@ extern "C" int icln_cell_stats_two_read(
                                          d_mean, d_ptp, d_fft, ncells, nchan,
                                          nbin, group, kchunk, bchunk, nkp,
                                          inv_n);
+  p.cpa = cpa;
   p.cube = ded;
   p.base = disp_base;
   p.rott = rott;
@@ -91,13 +97,14 @@ extern "C" int icln_cell_stats_dedisp(
     const float* ded, const float* tmpl, const float* win, const float* w,
     const unsigned char* mask, const float* cos_t, const float* sin_t,
     const float* tt, float* d_std, float* d_mean, float* d_ptp, float* d_fft,
-    long long ncells, int nchan, int nbin, int group, int ctile, int kchunk,
+    long long ncells, long long cpa, int nchan, int nbin, int group, int ctile, int kchunk,
     int bchunk, int nkp, int producers, int threads, int grid, long long smem_bytes, float inv_n,
     void* stream) {
   CellStatsArgs p = icln_cell_stats_args(mask, w, cos_t, sin_t, tt, d_std,
                                          d_mean, d_ptp, d_fft, ncells, nchan,
                                          nbin, group, kchunk, bchunk, nkp,
                                          inv_n);
+  p.cpa = cpa;
   p.cube = ded;
   p.tmpl = tmpl;
   p.win = win;

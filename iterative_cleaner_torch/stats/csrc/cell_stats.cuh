@@ -42,6 +42,13 @@
 //              columns with icln_max and the consumers meet in a shared
 //              int atomicMax (the values are >= +0 or the positive quiet
 //              NaN, whose int order is the float order with NaN on top).
+// A batch of equal-shaped archives is one launch over all their cells,
+// B * nsub * nchan of them, the cube, weights, mask and outputs being
+// contiguous across archives: each cell finds its archive as cell / cpa
+// (cells per archive) and reads that archive's template rows, template
+// and <t,t>; the DFT tables are shared.  A group may straddle two
+// archives, which changes nothing: every cell's arithmetic is its own, so
+// each archive's planes are bit-equal to a launch on it alone.
 // Named barriers hand the two centred-row buffers between the roles
 // (ICLN_BAR_FULL / ICLN_BAR_EMPTY); each role also has its own.  The
 // split is the measured design: with one role per block and the phases
@@ -57,33 +64,39 @@
 struct CellStatsArgs {
   const float* cube;   // K2, K10 disp: disp; K6, K7, K10 dedisp: ded — (ncells, nbin)
   const float* base;   // K7: disp_base (ncells, nbin)
-  const float* rott;   // K2, K7: (nchan, nbin) rotated template rows
-  const float* nyq;    // K2: (nchan, nbin) Nyquist rows, or null
-  const float* tmpl;   // K6, K7: (nbin,) template
-  const float* win;    // K6: (nbin,) pulse window
+  const float* rott;   // K2, K7: (B, nchan, nbin) rotated template rows
+  const float* nyq;    // K2: (B, nchan, nbin) Nyquist rows, or null
+  const float* tmpl;   // K6, K7: (B, nbin) templates
+  const float* win;    // K6: (nbin,) pulse window, shared
   const float* w;
   const unsigned char* mask;
   const float* cos_t;  // (nbin, nkp), zero past nbin/2 + 1
   const float* sin_t;
-  const float* tt;     // [<t,t> (1 where 0), 1 if <t,t> == 0]
+  const float* tt;     // (B, 2): [<t,t> (1 where 0), 1 if <t,t> == 0]
   float* d_std;
   float* d_mean;
   float* d_ptp;
   float* d_fft;
-  long long ncells;
+  long long ncells;    // B * cpa
+  long long cpa;       // cells per archive, nsub * nchan
   int nchan, nbin, group, kchunk, bchunk, nkp;
   float inv_n;
   int aligned;         // the cube starts 16-byte aligned
   int producers;       // warps running phase 1; the rest run phase 2
 };
 
-// tt = (<t,t> (1 where 0), 1 if <t,t> == 0), read once per block
+// tt = (<t,t> (1 where 0), 1 if <t,t> == 0) of archive `arch`
+__device__ __forceinline__ float2 icln_tt(const CellStatsArgs& p, long long arch) {
+  return make_float2(p.tt[2 * arch], p.tt[2 * arch + 1]);
+}
+
 __device__ __forceinline__ float icln_amp(float2 tt, float tp) {
   return tt.y != 0.0f ? 1.0f : tp / tt.x;
 }
 
 // Each residual struct works a bin at a time, so that phase 1 can run
-// two cells' bins in one loop: setup() points it at its cell's rows,
+// two cells' bins in one loop: setup() points it at its cell's rows (of
+// channel c of archive a),
 // fit() takes bin b of the row (reading x, the staged row itself or
 // device memory, keeping it in row) into the lane's partial sums of
 // <x, t> (and for K2 of x * (-1)^b), finish() takes those after the warp
@@ -98,11 +111,12 @@ struct ResDisp {
   const float* rt;
   const float* nr;
   float amp, nq, wc;
-  __device__ void setup(const CellStatsArgs& p, long long, int c) {
-    rt = p.rott + (size_t)c * p.nbin;
+  __device__ void setup(const CellStatsArgs& p, long long, int c, long long a) {
+    const size_t row = ((size_t)a * p.nchan + c) * p.nbin;
+    rt = p.rott + row;
     // (the pointer test stays: written as `NYQ ? ...` it compiled to a
     // slower K2 on sm_90a, the loop laid out differently)
-    nr = p.nyq ? p.nyq + (size_t)c * p.nbin : nullptr;
+    nr = p.nyq ? p.nyq + row : nullptr;
   }
   __device__ void fit(const float* x, float* row, int b, float& tp, float& q) const {
     const float v = x[b];
@@ -133,10 +147,10 @@ struct ResTwoRead {
   const float* rt;
   const float* y;
   float amp, wc;
-  __device__ void setup(const CellStatsArgs& p, long long cell, int c) {
+  __device__ void setup(const CellStatsArgs& p, long long cell, int c, long long a) {
     x = p.cube + cell * p.nbin;
-    t = p.tmpl;
-    rt = p.rott + (size_t)c * p.nbin;
+    t = p.tmpl + a * p.nbin;
+    rt = p.rott + ((size_t)a * p.nchan + c) * p.nbin;
     y = p.base + cell * p.nbin;
   }
   __device__ void fit(const float*, float*, int b, float& tp, float&) const {
@@ -157,8 +171,8 @@ struct ResDedisp {
   const float* t;
   const float* win;
   float amp, wc;
-  __device__ void setup(const CellStatsArgs& p, long long, int) {
-    t = p.tmpl;
+  __device__ void setup(const CellStatsArgs& p, long long, int, long long a) {
+    t = p.tmpl + a * p.nbin;
     win = p.win;
   }
   __device__ void fit(const float* x, float* row, int b, float& tp, float&) const {
@@ -313,7 +327,6 @@ __global__ void __launch_bounds__(ICLN_CELL_MAX_THREADS)
   if (warp < npw) {
     // ---- producers, phase 1: weighted residual + moments, one warp per
     // cell, the centred rows written transposed ----
-    const float2 tt = make_float2(p.tt[0], p.tt[1]);
     if (tid == 0 && nit > 0) icln_cell_issue<Res>(p, blockIdx.x, stage, &bar[0]);
     for (long long it = 0; it < nit; ++it) {
       const int j = (int)(it & 1);
@@ -339,11 +352,12 @@ __global__ void __launch_bounds__(ICLN_CELL_MAX_THREADS)
       const float* wg = wsm + j * group;
       const unsigned char* mg = msm + j * group;
       for (int g = warp; g < cells; g += npw) {
-        const long long cell = cell0 + g;
+        const long long cell = cell0 + g, arch = cell / p.cpa;
         float* row = buf + (size_t)g * nbin;
         const float* x = staged ? row : p.cube + cell * nbin;
+        const float2 tt = icln_tt(p, arch);
         Res res;
-        res.setup(p, cell, (chan0 + g) % p.nchan);
+        res.setup(p, cell, (chan0 + g) % p.nchan, arch);
         float tp = 0.0f, q = 0.0f;
 #pragma unroll 4
         for (int b = lane; b < nbin; b += 32) res.fit(x, row, b, tp, q);
@@ -481,7 +495,8 @@ static int icln_cell_stats_launch(CellStatsArgs p, int ctile, int producers, int
   if (L.total > smem_bytes || threads > ICLN_CELL_MAX_THREADS || threads % 32
       || producers < 1 || ncons < 32 || p.group > ncons || p.kchunk % 4 || p.nkp % 4
       || (ctile != 4 && ctile != 1) || p.group % ctile
-      || (p.group / ctile) * (p.kchunk / 4) > ncons)
+      || (p.group / ctile) * (p.kchunk / 4) > ncons || p.cpa < 1 || p.ncells % p.cpa
+      || p.cpa % p.nchan)
     return (int)cudaErrorInvalidValue;
   p.aligned = (uintptr_t)p.cube % 16 == 0;
   p.producers = producers;
@@ -506,6 +521,7 @@ static CellStatsArgs icln_cell_stats_args(
   p.d_ptp = d_ptp;
   p.d_fft = d_fft;
   p.ncells = ncells;
+  p.cpa = ncells;  // one archive; the batched entries set their own
   p.nchan = nchan;
   p.nbin = nbin;
   p.group = group;

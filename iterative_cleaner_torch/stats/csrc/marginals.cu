@@ -44,6 +44,13 @@
 // On the card (NVIDIA H100 80GB HBM3, 700.00 W): 0.79-0.86 ms at
 // 1024x4096x128, 75-82% of the byte bound, against the first design's
 // 1.67 ms and the two einsums' 1.52-1.57 ms (PERF.md).
+//
+// A batch of equal-shaped archives, (nb, nsub, nchan, nbin), is one
+// launch: grid.z is the archive, each archive has its own partials, and
+// the second pass adds each archive's partials in the same fixed order.
+// The plan (sb, cb, bb) is the one archive's, so every archive's sums are
+// bit-equal to a launch on that archive alone.  TMA is taken only where
+// every archive's slab (not only the first) starts 16-byte aligned.
 
 #include "common.cuh"
 
@@ -52,14 +59,15 @@
 #define ICLN_MARG_STAGES 3
 
 struct MargArgs {
-  const float* disp;
+  const float* disp;  // (nb, nsub, nchan, nbin): archive blockIdx.z
   const float* w;
-  float* a_part;   // (nsb, nchan, nbin)
-  float* t1_part;  // (ncb, nsub, nbin)
+  float* a_part;   // (nb, nsb, nchan, nbin)
+  float* t1_part;  // (nb, ncb, nsub, nbin)
   int nsub, nchan, nbin;
   int sb, cb, bb;  // subints per run, channels and bins per tile
   int lanes;       // bin lanes per channel group (a power of two >= bb)
   int ncb;         // channel tiles
+  int nsb;         // subint runs
 };
 
 // floats of one stage: the slab at pitch bb, then the tile's weights
@@ -84,7 +92,14 @@ static __device__ void icln_marg_issue(const MargArgs& p, int s, int c0, int cn,
 
 template <bool TMA>
 __global__ void __launch_bounds__(ICLN_MARG_THREADS)
-    icln_marginals_kernel(const MargArgs p) {
+    icln_marginals_kernel(MargArgs p) {
+  {  // this block's archive
+    const size_t z = blockIdx.z, cells = (size_t)p.nsub * p.nchan;
+    p.disp += z * cells * p.nbin;
+    p.w += z * cells;
+    p.a_part += z * p.nsb * (size_t)p.nchan * p.nbin;
+    p.t1_part += z * p.ncb * (size_t)p.nsub * p.nbin;
+  }
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw);  // ICLN_MARG_STAGES
   float* red = reinterpret_cast<float*>(smem_raw + 32);    // 2 x 256
@@ -169,33 +184,40 @@ __global__ void __launch_bounds__(ICLN_MARG_THREADS)
   }
 }
 
-// out[i] = sum_p part[p, i], partials added in index order.
+// out[z, i] = sum_p part[z, p, i] for archive z = blockIdx.y, partials
+// added in index order.
 __global__ void icln_sum_parts(const float* __restrict__ part,
                                float* __restrict__ out, int nparts, size_t n) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
+  part += (size_t)blockIdx.y * nparts * n;
   float t = 0.0f;
   for (int p = 0; p < nparts; ++p) t += part[(size_t)p * n + i];
-  out[i] = t;
+  out[(size_t)blockIdx.y * n + i] = t;
 }
 
 extern "C" int icln_weighted_marginals(const float* disp, const float* w,
                                        float* a_part, float* t1_part,
-                                       float* a, float* t1, int nsub, int nchan,
-                                       int nbin, int sb, int cb, int bb, int lanes,
-                                       long long smem_bytes, void* stream) {
+                                       float* a, float* t1, int nb, int nsub,
+                                       int nchan, int nbin, int sb, int cb, int bb,
+                                       int lanes, long long smem_bytes, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  MargArgs p{disp, w, a_part, t1_part, nsub, nchan, nbin, sb, cb, bb, lanes,
-             (nchan + cb - 1) / cb};
   const int nbt = (nbin + bb - 1) / bb, nsb = (nsub + sb - 1) / sb;
+  MargArgs p{disp, w, a_part, t1_part, nsub, nchan, nbin, sb, cb, bb, lanes,
+             (nchan + cb - 1) / cb, nsb};
   const long long need =
       32 + (2LL * ICLN_MARG_THREADS
             + (long long)ICLN_MARG_STAGES * icln_marg_stage_floats(cb, bb)) * sizeof(float);
-  if (need > smem_bytes || cb != (ICLN_MARG_THREADS / lanes) * ICLN_MARG_J || bb > lanes)
+  if (need > smem_bytes || cb != (ICLN_MARG_THREADS / lanes) * ICLN_MARG_J || bb > lanes
+      || nb < 1 || nb > 65535)
     return (int)cudaErrorInvalidValue;
+  // every archive's cube slab and weights start 16-byte aligned: the first
+  // one's pointers, and the archive strides a multiple of 16 bytes
+  const size_t cells = (size_t)nsub * nchan;
   const bool tma = nbin % 4 == 0 && nchan % 4 == 0 && (uintptr_t)disp % 16 == 0
-                   && (uintptr_t)w % 16 == 0;
-  const dim3 grid((unsigned)(p.ncb * nbt), (unsigned)nsb);
+                   && (uintptr_t)w % 16 == 0 && (cells * nbin * sizeof(float)) % 16 == 0
+                   && (cells * sizeof(float)) % 16 == 0;
+  const dim3 grid((unsigned)(p.ncb * nbt), (unsigned)nsb, (unsigned)nb);
   cudaError_t err;
   if (tma) {
     err = cudaFuncSetAttribute(icln_marginals_kernel<true>,
@@ -211,10 +233,12 @@ extern "C" int icln_weighted_marginals(const float* disp, const float* w,
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const size_t na = (size_t)nchan * nbin, nt = (size_t)nsub * nbin;
-  icln_sum_parts<<<(unsigned)((na + 255) / 256), 256, 0, st>>>(a_part, a, nsb, na);
+  icln_sum_parts<<<dim3((unsigned)((na + 255) / 256), (unsigned)nb), 256, 0, st>>>(
+      a_part, a, nsb, na);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  icln_sum_parts<<<(unsigned)((nt + 255) / 256), 256, 0, st>>>(t1_part, t1, p.ncb, nt);
+  icln_sum_parts<<<dim3((unsigned)((nt + 255) / 256), (unsigned)nb), 256, 0, st>>>(
+      t1_part, t1, p.ncb, nt);
   return (int)cudaGetLastError();
 }
 

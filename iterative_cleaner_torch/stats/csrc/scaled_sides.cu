@@ -36,6 +36,15 @@
 // as a multiply by float32(1/thresh) — the reference's compiler rewrites
 // the division by its constant threshold that way.  The launch plan (W,
 // D, threads, shared memory) is stats.kernels.scaled_sides_geometry.
+//
+// A batch of equal-shaped (B, nsub, nchan) planes is one launch: along
+// axis 1 its B * nsub rows are lines of the plain row layout; along axis
+// 0 its B * nchan columns are lines, line l starting at (l / lpa) *
+// archive_stride + (l % lpa) * line_stride (lpa = nchan lines an
+// archive, archive_stride = nsub * nchan), read in place.  A block's W
+// columns may straddle two archives; each line's select is its own, so
+// every archive's sides are bit-equal to a launch on it alone.  One
+// archive is lpa = nlines, archive_stride = 0.
 
 #include "common.cuh"
 
@@ -46,7 +55,8 @@ __global__ void __launch_bounds__(1024)
                              const unsigned char* __restrict__ mask, float* __restrict__ o0,
                              float* __restrict__ o1, float* __restrict__ o2,
                              float* __restrict__ o3, int n, int nlines, long long line_stride,
-                             long long elem_stride, int W, float inv_t) {
+                             long long elem_stride, long long lpa, long long archive_stride,
+                             int W, float inv_t) {
   extern __shared__ int smem[];
   __shared__ IclnSelState st;
   __shared__ int nvalid[8], nan_in[8], nan_abs[8];  // per line of the block
@@ -67,7 +77,7 @@ __global__ void __launch_bounds__(1024)
   const int r0 = threadIdx.x / W, rstep = blockDim.x / W;
   const long long line = (long long)blockIdx.x * W + c;
   const bool live = line < nlines;  // the ragged last block
-  const long long base = line * line_stride;
+  const long long base = (line / lpa) * archive_stride + (line % lpa) * line_stride;
   unsigned* mb = mbits + c * nw;
 
   const float* const ins[4] = {d0, d1, d2, d3};
@@ -184,16 +194,17 @@ template <int D>
 static int icln_scaled_sides_launch(const float* d0, const float* d1, const float* d2,
                                     const float* d3, const unsigned char* mask, float* o0,
                                     float* o1, float* o2, float* o3, int n, int nlines,
-                                    long long line_stride, long long elem_stride, float inv_t,
-                                    int lines, int threads, long long smem_bytes,
-                                    cudaStream_t stream) {
+                                    long long line_stride, long long elem_stride, long long lpa,
+                                    long long archive_stride, float inv_t, int lines,
+                                    int threads, long long smem_bytes, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(icln_scaled_sides_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem_bytes);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (nlines + lines - 1) / lines;
   icln_scaled_sides_kernel<D><<<blocks, threads, (size_t)smem_bytes, stream>>>(
-      d0, d1, d2, d3, mask, o0, o1, o2, o3, n, nlines, line_stride, elem_stride, lines, inv_t);
+      d0, d1, d2, d3, mask, o0, o1, o2, o3, n, nlines, line_stride, elem_stride, lpa,
+      archive_stride, lines, inv_t);
   return (int)cudaGetLastError();
 }
 
@@ -202,24 +213,28 @@ extern "C" int icln_scaled_sides(const float* d0, const float* d1, const float* 
                                  const float* d3, const unsigned char* mask,
                                  float* o0, float* o1, float* o2, float* o3, int n,
                                  int nlines, long long line_stride,
-                                 long long elem_stride, float inv_t, int lines, int diags,
+                                 long long elem_stride, long long lpa,
+                                 long long archive_stride, float inv_t, int lines, int diags,
                                  int threads, long long smem_bytes, void* stream) {
   if (lines < 1 || lines > 8 || (lines & (lines - 1)) || diags * lines > ICLN_SEL_LINES ||
-      threads % 32 || threads > 1024)
+      threads % 32 || threads > 1024 || lpa < 1 || nlines % lpa)
     return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = (cudaStream_t)stream;
   switch (diags) {
     case 4:
       return icln_scaled_sides_launch<4>(d0, d1, d2, d3, mask, o0, o1, o2, o3, n, nlines,
-                                         line_stride, elem_stride, inv_t, lines, threads,
+                                         line_stride, elem_stride, lpa, archive_stride, inv_t,
+                                         lines, threads,
                                          smem_bytes, s);
     case 2:
       return icln_scaled_sides_launch<2>(d0, d1, d2, d3, mask, o0, o1, o2, o3, n, nlines,
-                                         line_stride, elem_stride, inv_t, lines, threads,
+                                         line_stride, elem_stride, lpa, archive_stride, inv_t,
+                                         lines, threads,
                                          smem_bytes, s);
     case 1:
       return icln_scaled_sides_launch<1>(d0, d1, d2, d3, mask, o0, o1, o2, o3, n, nlines,
-                                         line_stride, elem_stride, inv_t, lines, threads,
+                                         line_stride, elem_stride, lpa, archive_stride, inv_t,
+                                         lines, threads,
                                          smem_bytes, s);
     default:
       return (int)cudaErrorInvalidConfiguration;

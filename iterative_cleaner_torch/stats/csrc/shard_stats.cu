@@ -23,13 +23,14 @@ extern "C" int icln_shard_stats_disp(
     const float* disp, const float* rott, const float* nyq, const float* w,
     const unsigned char* mask, const float* cos_t, const float* sin_t,
     const float* tt, float* d_std, float* d_mean, float* d_ptp, float* d_fft,
-    long long ncells, int nchan, int nbin, int group, int ctile, int kchunk,
+    long long ncells, long long cpa, int nchan, int nbin, int group, int ctile, int kchunk,
     int bchunk, int nkp, int producers, int threads, int grid, long long smem_bytes, float inv_n,
     void* stream) {
   CellStatsArgs p = icln_cell_stats_args(mask, w, cos_t, sin_t, tt, d_std,
                                          d_mean, d_ptp, d_fft, ncells, nchan,
                                          nbin, group, kchunk, bchunk, nkp,
                                          inv_n);
+  p.cpa = cpa;
   p.cube = disp;
   p.rott = rott;
   p.nyq = nyq;
@@ -44,13 +45,14 @@ extern "C" int icln_shard_stats_dedisp(
     const float* ded, const float* tmpl, const float* win, const float* w,
     const unsigned char* mask, const float* cos_t, const float* sin_t,
     const float* tt, float* d_std, float* d_mean, float* d_ptp, float* d_fft,
-    long long ncells, int nchan, int nbin, int group, int ctile, int kchunk,
+    long long ncells, long long cpa, int nchan, int nbin, int group, int ctile, int kchunk,
     int bchunk, int nkp, int producers, int threads, int grid, long long smem_bytes, float inv_n,
     void* stream) {
   CellStatsArgs p = icln_cell_stats_args(mask, w, cos_t, sin_t, tt, d_std,
                                          d_mean, d_ptp, d_fft, ncells, nchan,
                                          nbin, group, kchunk, bchunk, nkp,
                                          inv_n);
+  p.cpa = cpa;
   p.cube = ded;
   p.tmpl = tmpl;
   p.win = win;

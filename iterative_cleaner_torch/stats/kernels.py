@@ -49,6 +49,16 @@ combine) — no size gate.
 The sources are compiled at first use with ``nvcc`` into one shared
 library under ``iterative_cleaner_torch/_build/`` (one ``nvcc`` per
 source, run in parallel, then one link) and bound with ``ctypes``.
+
+A batch of B equal-shaped archives (``parallel/batch.py``) is one launch
+of each kernel: K1, K2, K6 and K7 take a leading batch dimension on every
+per-archive operand (a (B, nsub, nchan, nbin) cube, (B, nsub, nchan)
+weights and mask, (B, nchan, nbin) template rows, (B, nbin) templates)
+and K3 (B, nsub, nchan) planes; the combine kernel is elementwise and K9
+takes the B archives' lines as B lines.  The batch moves only the index:
+each archive's outputs are bit-equal to the same kernel launched on that
+archive alone.  The plain versions take the batch too, one archive at a
+time.
 """
 
 from __future__ import annotations
@@ -169,15 +179,19 @@ def build_library() -> Path:
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _SIGNATURES = {
-    "icln_weighted_marginals": [_P] * 6 + [_I] * 7 + [_LL, _P],
-    "icln_cell_stats_disp": [_P] * 12 + [_LL] + [_I] * 10 + [_LL, _F, _P],
-    "icln_cell_stats_two_read": [_P] * 13 + [_LL] + [_I] * 10
+    "icln_weighted_marginals": [_P] * 6 + [_I] * 8 + [_LL, _P],
+    "icln_cell_stats_disp": [_P] * 12 + [_LL] * 2 + [_I] * 10
     + [_LL, _F, _P],
-    "icln_cell_stats_dedisp": [_P] * 12 + [_LL] + [_I] * 10 + [_LL, _F, _P],
-    "icln_shard_stats_disp": [_P] * 12 + [_LL] + [_I] * 10 + [_LL, _F, _P],
-    "icln_shard_stats_dedisp": [_P] * 12 + [_LL] + [_I] * 10 + [_LL, _F, _P],
-    "icln_scaled_sides": [_P] * 9 + [_I, _I, _LL, _LL, _F, _I, _I, _I, _LL,
-                                     _P],
+    "icln_cell_stats_two_read": [_P] * 13 + [_LL] * 2 + [_I] * 10
+    + [_LL, _F, _P],
+    "icln_cell_stats_dedisp": [_P] * 12 + [_LL] * 2 + [_I] * 10
+    + [_LL, _F, _P],
+    "icln_shard_stats_disp": [_P] * 12 + [_LL] * 2 + [_I] * 10
+    + [_LL, _F, _P],
+    "icln_shard_stats_dedisp": [_P] * 12 + [_LL] * 2 + [_I] * 10
+    + [_LL, _F, _P],
+    "icln_scaled_sides": [_P] * 9 + [_I, _I, _LL, _LL, _LL, _LL, _F, _I, _I,
+                                     _I, _LL, _P],
     "icln_combine_zap": [_P] * 11 + [_LL, _P],
     "icln_masked_median": [_P] * 4 + [_I, _I, _LL, _LL, _I, _I, _I, _I, _LL,
                                       _P],
@@ -243,6 +257,18 @@ def _ptr(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
+def _stack_each(fn, nb: int, *args):
+    """The plain version of a batched kernel: ``fn`` on each archive's
+    slice of ``args`` (``(tensor, batched)`` pairs; an unbatched tensor,
+    or None, is passed whole), each of its outputs stacked along a new
+    leading batch dimension."""
+    outs = [fn(*(a[b] if batched and a is not None else a
+                 for a, batched in args)) for b in range(nb)]
+    if isinstance(outs[0], tuple):
+        return tuple(torch.stack(parts) for parts in zip(*outs))
+    return torch.stack(outs)
+
+
 # --------------------------------------------------------------------------
 # K1: weighted marginals
 # --------------------------------------------------------------------------
@@ -281,27 +307,41 @@ def marginals_tiles(nsub: int, nchan: int, nbin: int,
     return MarginalsPlan(sb, cb, bb, lanes, smem)
 
 
+def weighted_marginals_plain(disp, weights):
+    """The plain version of K1: :func:`weighted_marginal_totals`, per
+    archive of a batch."""
+    if disp.dim() == 4:
+        return _stack_each(weighted_marginal_totals, disp.shape[0],
+                           (disp, True), (weights, True))
+    return weighted_marginal_totals(disp, weights)
+
+
 def weighted_marginals(disp, weights):
     """``(A, t1)`` with ``A[c] = sum_s w*disp`` and ``t1[s] = sum_c
-    w*disp`` — kernel K1 on the card, :func:`weighted_marginal_totals`
-    on the CPU."""
+    w*disp`` — kernel K1 on the card, :func:`weighted_marginals_plain`
+    on the CPU.  A batch, (B, nsub, nchan, nbin) ``disp`` and (B, nsub,
+    nchan) ``weights``, gives (B, nchan, nbin) and (B, nsub, nbin) in one
+    launch (grid.z the archive, one archive's plan)."""
     if not _on_card(disp, weights):
-        return weighted_marginal_totals(disp, weights)
-    nsub, nchan, nbin = disp.shape
-    _require(disp, "disp", torch.float32, (nsub, nchan, nbin))
-    _require(weights, "weights", torch.float32, (nsub, nchan))
+        return weighted_marginals_plain(disp, weights)
+    batched = disp.dim() == 4
+    nb = disp.shape[0] if batched else 1
+    nsub, nchan, nbin = disp.shape[-3:]
+    lead = (nb,) if batched else ()
+    _require(disp, "disp", torch.float32, lead + (nsub, nchan, nbin))
+    _require(weights, "weights", torch.float32, lead + (nsub, nchan))
     plan = marginals_tiles(nsub, nchan, nbin, _sm_count(str(disp.device)))
     nsb, ncb = -(-nsub // plan.sb), -(-nchan // plan.cb)
     kw = dict(dtype=torch.float32, device=disp.device)
-    a_part = torch.empty((nsb, nchan, nbin), **kw)
-    t1_part = torch.empty((ncb, nsub, nbin), **kw)
-    a = torch.empty((nchan, nbin), **kw)
-    t1 = torch.empty((nsub, nbin), **kw)
+    a_part = torch.empty((nb, nsb, nchan, nbin), **kw)
+    t1_part = torch.empty((nb, ncb, nsub, nbin), **kw)
+    a = torch.empty(lead + (nchan, nbin), **kw)
+    t1 = torch.empty(lead + (nsub, nbin), **kw)
     lib = load_library()
     with torch.cuda.device(disp.device):
         rc = lib.icln_weighted_marginals(
             _ptr(disp), _ptr(weights), _ptr(a_part), _ptr(t1_part), _ptr(a),
-            _ptr(t1), nsub, nchan, nbin, plan.sb, plan.cb, plan.bb,
+            _ptr(t1), nb, nsub, nchan, nbin, plan.sb, plan.cb, plan.bb,
             plan.lanes, plan.smem, _stream(disp))
     weighted_marginals.launches += 1
     _check_rc(rc, "weighted_marginals")
@@ -333,10 +373,12 @@ def wres_disp(disp, rot_t, nyq_row, template, weights):
 
 def tt_info(template):
     """``[<t,t> (1 where it is 0), 1.0 if <t,t> == 0 else 0.0]`` as a
-    device tensor, so K2 reads it without a host round trip."""
-    tt = torch.sum(template * template)
+    device tensor, so K2 reads it without a host round trip; (B, 2) for
+    a batch's (B, nbin) templates."""
+    tt = torch.sum(template * template) if template.dim() == 1 \
+        else torch.sum(template * template, dim=-1)
     return torch.stack([torch.where(tt == 0, torch.ones_like(tt), tt),
-                        (tt == 0).to(template.dtype)])
+                        (tt == 0).to(template.dtype)], dim=-1)
 
 
 class CellStatsPlan(NamedTuple):
@@ -443,7 +485,12 @@ def cell_diagnostics_disp_plain(disp, rot_t, nyq_row, template, weights,
                                 cell_mask):
     """The plain version of K2: :func:`wres_disp`, then
     :func:`~iterative_cleaner_torch.stats.masked_torch.cell_diagnostics`
-    with the DFT."""
+    with the DFT (per archive of a batch)."""
+    if disp.dim() == 4:
+        return _stack_each(cell_diagnostics_disp_plain, disp.shape[0],
+                           (disp, True), (rot_t, True), (nyq_row, True),
+                           (template, True), (weights, True),
+                           (cell_mask, True))
     wres = wres_disp(disp, rot_t, nyq_row, template, weights)
     return cell_diagnostics(wres, cell_mask, "dft")
 
@@ -466,24 +513,30 @@ def _launch_cell_stats(entry, cube, template, weights, cell_mask, cubes,
     ``cubes``, ``chan_rows`` and ``bin_rows`` are ``(name, tensor)``
     pairs checked as (nsub, nchan, nbin) cubes, (nchan, nbin) rows and
     (nbin,) rows; ``ptrs`` are the entry's leading pointer arguments in
-    order.  ``out`` is an optional 4-tuple of contiguous (nsub, nchan)
-    float32 views the kernel writes (a tile's rows of the full planes).
-    Returns the entry's return code and the four (nsub, nchan) planes."""
-    nsub, nchan, nbin = cube.shape
+    order.  A batch (K2, K6, K7) has a leading dimension B on the cubes,
+    the channel rows, the template, the weights and the mask (not on
+    ``bin_rows``: the pulse window is shared) and is one launch over its
+    B * nsub * nchan cells.  ``out`` is an optional 4-tuple of contiguous
+    planes of the weights' shape the kernel writes (a tile's rows of the
+    full planes).  Returns the entry's return code and the four
+    planes."""
+    batched = cube.dim() == 4
+    lead = cube.shape[:1] if batched else ()
+    nsub, nchan, nbin = cube.shape[-3:]
     for name, t in cubes:
-        _require(t, name, torch.float32, (nsub, nchan, nbin))
+        _require(t, name, torch.float32, lead + (nsub, nchan, nbin))
     for name, t in chan_rows:
-        _require(t, name, torch.float32, (nchan, nbin))
+        _require(t, name, torch.float32, lead + (nchan, nbin))
     for name, t in bin_rows:
         _require(t, name, torch.float32, (nbin,))
-    _require(template, "template", torch.float32, (nbin,))
-    _require(weights, "weights", torch.float32, (nsub, nchan))
-    _require(cell_mask, "cell_mask", torch.bool, (nsub, nchan))
+    _require(template, "template", torch.float32, lead + (nbin,))
+    _require(weights, "weights", torch.float32, lead + (nsub, nchan))
+    _require(cell_mask, "cell_mask", torch.bool, lead + (nsub, nchan))
     plan = cell_stats_geometry(nbin)
     info = tt_info(template)
     cos_t, sin_t = _dft_tables_padded(nbin, plan.nkp, str(cube.device))
     if out is None:
-        outs = [torch.empty((nsub, nchan), dtype=torch.float32,
+        outs = [torch.empty(lead + (nsub, nchan), dtype=torch.float32,
                             device=cube.device) for _ in range(4)]
     else:
         outs = list(out)
@@ -491,8 +544,9 @@ def _launch_cell_stats(entry, cube, template, weights, cell_mask, cubes,
             if o.device != cube.device:
                 raise ValueError(f"out[{i}] on {o.device}, cube on "
                                  f"{cube.device}")
-            _require(o, f"out[{i}]", torch.float32, (nsub, nchan))
-    ncells = nsub * nchan
+            _require(o, f"out[{i}]", torch.float32, lead + (nsub, nchan))
+    cpa = nsub * nchan
+    ncells = weights.numel()
     per_sm = max(1, min(2048 // plan.threads,
                         (_SMEM_LIMIT + 1024) // (plan.smem + 1024)))
     grid = max(1, min(-(-ncells // plan.group),
@@ -501,10 +555,10 @@ def _launch_cell_stats(entry, cube, template, weights, cell_mask, cubes,
     fn = getattr(load_library(), entry)
     with torch.cuda.device(cube.device):
         rc = fn(*ptrs, _ptr(cos_t), _ptr(sin_t), _ptr(info),
-                *(_ptr(o) for o in outs), ncells, nchan, nbin, plan.group,
-                plan.ctile, plan.kchunk, plan.bchunk, plan.nkp, plan.producers,
-                plan.threads,
-                grid, plan.smem, inv_n, _stream(cube))
+                *(_ptr(o) for o in outs), ncells, cpa, nchan, nbin,
+                plan.group, plan.ctile, plan.kchunk, plan.bchunk, plan.nkp,
+                plan.producers, plan.threads, grid, plan.smem, inv_n,
+                _stream(cube))
     return rc, tuple(outs)
 
 
@@ -513,7 +567,8 @@ def cell_diagnostics_disp(disp, rot_t, nyq_row, template, weights,
     """``(d_std, d_mean, d_ptp, d_fft)`` of the dispersed-frame weighted
     residual — kernel K2 on the card, :func:`cell_diagnostics_disp_plain`
     on the CPU.  ``nyq_row`` is None where the rotation round-trips
-    exactly (roll, odd nbin); ``out`` as in :func:`_launch_cell_stats`."""
+    exactly (roll, odd nbin); a batch and ``out`` as in
+    :func:`_launch_cell_stats`."""
     if not _on_card(disp, rot_t, template, weights, cell_mask):
         return _plain_into(cell_diagnostics_disp_plain(
             disp, rot_t, nyq_row, template, weights, cell_mask), out)
@@ -550,7 +605,12 @@ def cell_diagnostics_two_read_plain(ded, disp_base, rot_t, template,
                                     weights, cell_mask):
     """The plain version of K7: :func:`wres_two_read`, then
     :func:`~iterative_cleaner_torch.stats.masked_torch.cell_diagnostics`
-    with the DFT."""
+    with the DFT (per archive of a batch)."""
+    if ded.dim() == 4:
+        return _stack_each(cell_diagnostics_two_read_plain, ded.shape[0],
+                           (ded, True), (disp_base, True), (rot_t, True),
+                           (template, True), (weights, True),
+                           (cell_mask, True))
     wres = wres_two_read(ded, disp_base, rot_t, template, weights)
     return cell_diagnostics(wres, cell_mask, "dft")
 
@@ -561,7 +621,7 @@ def cell_diagnostics_two_read(ded, disp_base, rot_t, template, weights,
     residual — kernel K7 on the card,
     :func:`cell_diagnostics_two_read_plain` on the CPU.  ``rot_t`` is the
     rotation of the WINDOWED template, ``template`` the unwindowed one
-    the fit uses; ``out`` as in :func:`_launch_cell_stats`."""
+    the fit uses; a batch and ``out`` as in :func:`_launch_cell_stats`."""
     if not _on_card(ded, disp_base, rot_t, template, weights, cell_mask):
         return _plain_into(cell_diagnostics_two_read_plain(
             ded, disp_base, rot_t, template, weights, cell_mask), out)
@@ -594,7 +654,11 @@ def cell_diagnostics_dedisp_plain(ded, template, window, weights,
                                   cell_mask):
     """The plain version of K6: :func:`wres_dedisp`, then
     :func:`~iterative_cleaner_torch.stats.masked_torch.cell_diagnostics`
-    with the DFT."""
+    with the DFT (per archive of a batch; the window shared)."""
+    if ded.dim() == 4:
+        return _stack_each(cell_diagnostics_dedisp_plain, ded.shape[0],
+                           (ded, True), (template, True), (window, False),
+                           (weights, True), (cell_mask, True))
     wres = wres_dedisp(ded, template, window, weights)
     return cell_diagnostics(wres, cell_mask, "dft")
 
@@ -604,8 +668,9 @@ def cell_diagnostics_dedisp(ded, template, window, weights, cell_mask,
     """``(d_std, d_mean, d_ptp, d_fft)`` of the dedispersed-frame
     weighted residual — kernel K6 on the card,
     :func:`cell_diagnostics_dedisp_plain` on the CPU.  ``window`` is the
-    (nbin,) pulse-window multiplier (all ones when the window is off);
-    ``out`` as in :func:`_launch_cell_stats`."""
+    (nbin,) pulse-window multiplier (all ones when the window is off),
+    shared by a batch; a batch and ``out`` as in
+    :func:`_launch_cell_stats`."""
     if not _on_card(ded, template, window, weights, cell_mask):
         return _plain_into(cell_diagnostics_dedisp_plain(
             ded, template, window, weights, cell_mask), out)
@@ -812,7 +877,12 @@ def scaled_sides_plain(diagnostics, cell_mask, axis, thresh):
     """The plain version of K3 (the reference's ``_scaled_sides_body``
     along ``axis``): masked median -> centring -> MAD -> ``_masked_side``
     for the three masked diagnostics; the plain NaN-patched path for the
-    rFFT one."""
+    rFFT one.  Per archive of a batch of (B, nsub, nchan) planes."""
+    if cell_mask.dim() == 3:
+        return _stack_each(
+            lambda *a: scaled_sides_plain(a[:4], a[4], axis, thresh),
+            cell_mask.shape[0], *((d, True) for d in diagnostics),
+            (cell_mask, True))
     d0, d1, d2, d3 = diagnostics
     outs = []
     for d in (d0, d1, d2):
@@ -1007,23 +1077,37 @@ def scaled_sides(diagnostics, cell_mask, axis, thresh):
     across channels.  Kernel K3 on the card where a line fits a block
     (:func:`scaled_sides_route`), :func:`scaled_sides_long` above;
     :func:`scaled_sides_plain` on the CPU.  Bit-equal to the reference's
-    ``scaled_sides_pallas``."""
+    ``scaled_sides_pallas``.  A batch of (B, nsub, nchan) planes is one
+    launch: along axis 1 its B * nsub rows, along axis 0 its B * nchan
+    columns, each archive's read in place through K3's per-archive stride
+    (no transposed copy); lines too long for a block take
+    :func:`scaled_sides_long` archive by archive."""
     if axis not in (0, 1):
         raise ValueError("axis must be 0 or 1")
     if not _on_card(*diagnostics, cell_mask):
         return scaled_sides_plain(diagnostics, cell_mask, axis, thresh)
-    nsub, nchan = cell_mask.shape
+    batched = cell_mask.dim() == 3
+    nb = cell_mask.shape[0] if batched else 1
+    nsub, nchan = cell_mask.shape[-2:]
+    lead = (nb,) if batched else ()
     for i, d in enumerate(diagnostics):
-        _require(d, f"diagnostics[{i}]", torch.float32, (nsub, nchan))
-    _require(cell_mask, "cell_mask", torch.bool, (nsub, nchan))
+        _require(d, f"diagnostics[{i}]", torch.float32, lead + (nsub, nchan))
+    _require(cell_mask, "cell_mask", torch.bool, lead + (nsub, nchan))
     n = nsub if axis == 0 else nchan
     if scaled_sides_route(n) == "long":
-        return scaled_sides_long(diagnostics, cell_mask, axis, thresh)
+        if not batched:
+            return scaled_sides_long(diagnostics, cell_mask, axis, thresh)
+        return _stack_each(
+            lambda *a: scaled_sides_long(a[:4], a[4], axis, thresh), nb,
+            *((d, True) for d in diagnostics), (cell_mask, True))
     plan = scaled_sides_geometry(n, axis)
+    # lpa lines an archive, archive_stride elements apart (K3's stride)
     if axis == 0:
-        nlines, line_stride, elem_stride = nchan, 1, nchan
+        nlines, line_stride, elem_stride = nb * nchan, 1, nchan
+        lpa, archive_stride = nchan, nsub * nchan
     else:
-        nlines, line_stride, elem_stride = nsub, nchan, 1
+        nlines, line_stride, elem_stride = nb * nsub, nchan, 1
+        lpa, archive_stride = nlines, 0
     inv_t = float(np.float32(1.0) / np.float32(thresh))
     outs = [torch.empty_like(diagnostics[0]) for _ in range(4)]
     lib = load_library()
@@ -1031,7 +1115,8 @@ def scaled_sides(diagnostics, cell_mask, axis, thresh):
         rc = lib.icln_scaled_sides(
             *(_ptr(d) for d in diagnostics), _ptr(cell_mask),
             *(_ptr(o) for o in outs), n, nlines, line_stride, elem_stride,
-            inv_t, plan.lines, plan.diags, plan.threads, plan.smem,
+            lpa, archive_stride, inv_t, plan.lines, plan.diags, plan.threads,
+            plan.smem,
             _stream(cell_mask))
     scaled_sides.launches[axis] += 1
     _check_rc(rc, f"scaled_sides(axis={axis})")
@@ -1070,7 +1155,8 @@ def combine_zap(chan_sides, sub_sides, orig_weights):
     """``(new_weights, scores)`` from the two orientations' scaled sides:
     elementwise max per diagnostic, 4-way median, ``scores >= 1`` zaps
     ``orig_weights``.  The combine kernel on the card,
-    :func:`combine_zap_plain` on the CPU."""
+    :func:`combine_zap_plain` on the CPU; elementwise, so a batch's (B,
+    nsub, nchan) planes are one launch over their cells."""
     if not _on_card(*chan_sides, *sub_sides, orig_weights):
         return combine_zap_plain(chan_sides, sub_sides, orig_weights)
     shape = tuple(orig_weights.shape)

@@ -693,3 +693,130 @@ def test_clean_from_native_load_on_card(card, tmp_path, ext, nbits):
     np.testing.assert_array_equal(on_card.final_weights, on_cpu.final_weights)
     assert (on_card.loops, on_card.converged) == (on_cpu.loops,
                                                   on_cpu.converged)
+
+
+# ---- batched cleaning: the batch folded into K1, K2, K6, K7 and K3 ----
+
+BATCH_GEOMS = [(3, 20, 40, 128, "fourier"), (4, 16, 30, 63, "roll"),
+               (2, 7, 300, 1024, "fourier")]
+
+
+def _batch_inputs(nb, nsub, nchan, nbin, rotation, dev):
+    """``nb`` archives' kernel inputs (as :func:`_inputs`, seeds 0..nb-1),
+    stacked along a leading batch dimension."""
+    per = [_inputs(nsub, nchan, nbin, rotation, dev, seed=s)
+           for s in range(nb)]
+    return [None if parts[0] is None else torch.stack(parts)
+            for parts in zip(*per)]
+
+
+def _each_bit_equal(batched, singles):
+    """Bits differing between archive b of each batched plane and the
+    single launch's plane, over every archive and plane."""
+    return sum(_bits_mismatch(batched[i][b], s)
+               for b, single in enumerate(singles)
+               for i, s in enumerate(single))
+
+
+@pytest.mark.parametrize("nb,nsub,nchan,nbin,rotation", BATCH_GEOMS)
+def test_batched_kernels_bit_equal_to_single_launches_on_card(
+        card, nb, nsub, nchan, nbin, rotation):
+    """One launch of K1, K2, K6, K7 and K3 (both axes) over a batch:
+    each archive's outputs bit-equal to the kernel launched on it alone,
+    each batched wrapper counted once, and within the plain version's
+    tolerance (K3 bit-equal)."""
+    disp, w, mask, template, rot_t, nyq = _batch_inputs(
+        nb, nsub, nchan, nbin, rotation, card)
+    window = pulse_window(nbin, (nbin // 4, nbin // 2), 0.2, True,
+                          torch.float32, card)
+    ded = disp.flip(-1).contiguous()
+    calls = {
+        "weighted_marginals": (tk.weighted_marginals, (disp, w), None),
+        "cell_diagnostics_disp": (tk.cell_diagnostics_disp,
+                                  (disp, rot_t, nyq, template, w, mask),
+                                  tk.cell_diagnostics_disp_plain),
+        "cell_diagnostics_two_read": (
+            tk.cell_diagnostics_two_read,
+            (ded, disp, rot_t, template, w, mask),
+            tk.cell_diagnostics_two_read_plain),
+        "cell_diagnostics_dedisp": (
+            tk.cell_diagnostics_dedisp, (ded, template, window, w, mask),
+            tk.cell_diagnostics_dedisp_plain),
+    }
+    shared = {"cell_diagnostics_dedisp": 2}   # the window's position
+    planes = None
+    for name, (fn, args, plain) in calls.items():
+        tk.reset_launch_counts()
+        got = fn(*args)
+        assert tk.launch_counts()[name] == 1
+        singles = [fn(*(a if i == shared.get(name) or a is None else a[b]
+                        for i, a in enumerate(args))) for b in range(nb)]
+        assert _each_bit_equal(got, singles) == 0, name
+        if plain is not None:
+            for g, p in zip(got, plain(*args)):
+                _assert_diags_match([g.reshape(-1, nchan)],
+                                    [p.reshape(-1, nchan)],
+                                    mask.reshape(-1, nchan))
+        if name == "cell_diagnostics_disp":
+            planes = got
+    for axis in (0, 1):
+        tk.reset_launch_counts()
+        got = tk.scaled_sides(planes, mask, axis, 5.0)
+        assert tk.launch_counts()[f"scaled_sides_axis{axis}"] == 1
+        singles = [tk.scaled_sides([p[b] for p in planes], mask[b], axis,
+                                   5.0) for b in range(nb)]
+        assert _each_bit_equal(got, singles) == 0
+        want = tk.scaled_sides_plain(planes, mask, axis, 5.0)
+        assert [_bits_mismatch(g, p) for g, p in zip(got, want)] == [0] * 4
+    a, t1 = tk.weighted_marginals(disp, w)
+    pa, pt1 = tk.weighted_marginals_plain(disp, w)
+    sa, st1 = tk.weighted_marginals_plain(disp.abs(), w)
+    assert bool(((a - pa).abs() <= 1e-5 * sa).all())
+    assert bool(((t1 - pt1).abs() <= 1e-5 * st1).all())
+
+
+def test_batched_k3_long_lines_per_archive_on_card(card):
+    """Scaler lines over 46,486 entries in a batch take K9 + the tail
+    kernels archive by archive: bit-equal to the plain version."""
+    g = torch.Generator().manual_seed(3)
+    planes = [torch.randn(2, 50000, 4, generator=g).to(card)
+              for _ in range(4)]
+    mask = (torch.rand(2, 50000, 4, generator=g) < 0.05).to(card)
+    got = tk.scaled_sides(planes, mask, 0, 5.0)
+    want = tk.scaled_sides_plain(planes, mask, 0, 5.0)
+    assert [_bits_mismatch(a, b) for a, b in zip(got, want)] == [0] * 4
+
+
+BATCH_ROUTES = {"default": {}, "profile": dict(baseline_mode="profile"),
+                "dedispersed": dict(stats_frame="dedispersed"),
+                "pulse": dict(pulse_region=(0.2, 30, 60))}
+
+
+@pytest.mark.parametrize("name", sorted(BATCH_ROUTES))
+def test_batched_clean_matches_single_cleans_on_card(card, name):
+    """``clean_archives_batched`` on the card: each archive's mask,
+    loops, convergence and per-loop diffs equal to its single clean on
+    the card (scores rtol 2e-4 with a 1e-4 floor: on the card the template
+    stage's batched reductions add in another order than one archive's;
+    up to 1.24e-4 relative on these archives, PERF.md),
+    each of the route's kernels launched once per batch iteration."""
+    from iterative_cleaner_torch.parallel.batch import clean_archives_batched
+
+    ars = [make_synthetic_archive(nsub=32, nchan=64, nbin=128, seed=s,
+                                  n_rfi_cells=4 + 20 * (s % 3),
+                                  n_prezapped=3)[0] for s in range(5)]
+    cfg = CleanConfig(**BATCH_ROUTES[name])
+    tk.reset_launch_counts()
+    got = clean_archives_batched(ars, cfg)
+    counts = tk.launch_counts()
+    route = select_route(cfg, False)
+    iters = max(r.loops for r in got)
+    assert {k: v for k, v in counts.items() if v} == {
+        k: iters for k in ROUTE_KERNELS[route]}
+    for ar, g in zip(ars, got):
+        want = clean_archive(ar, cfg)
+        np.testing.assert_array_equal(g.final_weights, want.final_weights)
+        assert (g.loops, g.converged) == (want.loops, want.converged)
+        np.testing.assert_array_equal(g.loop_diffs, want.loop_diffs)
+        np.testing.assert_allclose(g.scores, want.scores, rtol=2e-4,
+                                   atol=1e-4)

@@ -1,5 +1,6 @@
 """The port stands alone: importing it and running its main path (the
-whole clean, both streaming modes, the cell-sharded clean on one rank
+whole clean, both streaming modes, the batched clean (``--batch``), the
+cell-sharded clean on one rank
 on the default and two_read routes, both streaming modes over that rank,
 the CLI session on a PSRFITS archive with its run report, Prometheus
 file and event log, and PSRFITS and ``.icar`` files read through the
@@ -63,6 +64,11 @@ def test_no_reference_native_library_in_source(path):
     assert not bad, f"{path} names {bad}"
 
 
+def test_batch_module_is_scanned():
+    """The batched clean's module is among the scanned sources."""
+    assert os.path.join(PKG, "parallel", "batch.py") in set(_port_sources())
+
+
 def test_main_path_runs_without_jax():
     code = """
 import sys
@@ -80,6 +86,9 @@ assert res.loops >= 1
 for mode in ("exact", "online"):
     assert clean_streaming(ar, 3, CleanConfig(device="cpu"),
                            mode=mode).loops >= 1
+from iterative_cleaner_torch.parallel import clean_archives_batched
+assert [r.loops for r in clean_archives_batched(
+    [ar, ar], CleanConfig(device="cpu"))] == [res.loops] * 2
 from iterative_cleaner_torch.parallel import distributed
 from iterative_cleaner_torch.parallel.mesh import cell_mesh
 from iterative_cleaner_torch import clean_archive_sharded
@@ -118,6 +127,8 @@ for name in ("obs.sf", "obs.icar"):
     back = load_archive(name)
     assert np.array_equal(back.weights, ar.weights), name
 assert native.load_counts() == {"psrfits": 1, "icar": 1}
+assert iterative_cleaner_torch.cli.main([
+    "--device", "cpu", "-q", "--batch", "2", "obs.sf", "obs.icar"]) == 0
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "iterative_cleaner_tpu"))
 print("LOADED", bad)

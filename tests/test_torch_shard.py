@@ -295,15 +295,17 @@ def test_mesh_refusals_name_their_item(kwargs, dedispersed, streaming):
     the streamed shard route were ported (the profile baseline, a pulse
     window, a DEDISP=1 input, ``--stream``) passes ``check_mesh`` and
     cleans on a one-rank mesh with the mask of the clean without one;
-    ``--mesh batch`` still names item 3."""
+    ``--mesh batch``, which named item 3 until the batched clean was
+    ported, passes too, and refuses the residual as the cell mesh does."""
     from iterative_cleaner_torch.config import check_mesh
     from iterative_cleaner_torch.parallel import clean_streaming, distributed
     from iterative_cleaner_torch.parallel.mesh import cell_mesh
 
     cfg = CleanConfig(device="cpu", rotation="roll", **kwargs)
     check_mesh("cell", cfg)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        check_mesh("batch", CleanConfig(device="cpu"))
+    check_mesh("batch", CleanConfig(device="cpu"))
+    with pytest.raises(ValueError, match="unload_res/record_history"):
+        check_mesh("batch", CleanConfig(device="cpu", unload_res=True))
     ar, _ = make_synthetic_archive(nsub=8, nchan=8, nbin=32, seed=2,
                                    n_prezapped=3, disperse=not dedispersed)
     ar.dedispersed = dedispersed

@@ -165,7 +165,8 @@ def test_refusals(archives):
     """Refused before any collective or device work: a tile grid the
     mesh does not divide (``ValueError``, the reference's message), the
     outputs that are not gathered (``unload_res``, ``record_history``),
-    and ``--mesh batch`` (ROADMAP item 3)."""
+    on the batch mesh too (which itself no longer refuses: the batched
+    clean is ported)."""
     ar = archives["partial"][0]
     mesh = types.SimpleNamespace(shape=(2, 2), rank=0, coords=(0, 0))
     cfg = _config("default")
@@ -185,8 +186,9 @@ def test_refusals(archives):
             check_mesh("cell", _config("default", **kw))
     with pytest.raises(ValueError, match="unload_res"):
         clean_streaming(ar, 8, _config("default", unload_res=True), mesh)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        check_mesh("batch", cfg)
+    check_mesh("batch", cfg)
+    with pytest.raises(ValueError, match="unload_res/record_history"):
+        check_mesh("batch", _config("default", unload_res=True))
 
 
 # ------------------------------------------------------------------ CLI

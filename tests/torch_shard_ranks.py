@@ -1,6 +1,7 @@
 """Rank functions of the cell-sharded tests (tests/test_torch_shard.py,
-tests/test_torch_shard_two_read.py, tests/test_torch_shard_stream.py),
-run in spawned rank processes by
+tests/test_torch_shard_two_read.py, tests/test_torch_shard_stream.py) and
+of the batch mesh (tests/test_torch_batch.py), run in spawned rank
+processes by
 ``iterative_cleaner_torch.parallel.distributed.run_local_ranks``.  This
 module imports only the port, so the ranks never load JAX."""
 
@@ -12,7 +13,8 @@ from iterative_cleaner_torch import CleanConfig
 from iterative_cleaner_torch.backends import clean_archive_sharded
 from iterative_cleaner_torch.io import load_archive
 from iterative_cleaner_torch.parallel import clean_streaming
-from iterative_cleaner_torch.parallel.mesh import cell_mesh
+from iterative_cleaner_torch.parallel.batch import clean_archives_batched
+from iterative_cleaner_torch.parallel.mesh import batch_mesh, cell_mesh
 from iterative_cleaner_torch.parallel.shard_stats import (
     sharded_scale_and_combine,
     tree_combine_zap,
@@ -36,6 +38,15 @@ def clean_rank(path, config_kwargs):
     results = [clean_archive_sharded(ar, CleanConfig(device="cpu", **kw))
                for kw in config_kwargs]
     return None if results[0] is None else results
+
+
+def batch_rank(paths, config_kwargs):
+    """The batched clean of the archives at ``paths`` over the
+    ('batch',) mesh of every rank: rank 0's results, None on the
+    others."""
+    return clean_archives_batched([load_archive(p) for p in paths],
+                                  CleanConfig(device="cpu", **config_kwargs),
+                                  batch_mesh())
 
 
 def jobs_rank(jobs):
