@@ -71,10 +71,11 @@ The batch phases (``parallel/batch.py``): (a) 32 archives of 64 x 128 x
 512 (seeds 100-131, their RFI density stepped so that their loop counts
 differ) cleaned as one batch on the default route through
 ``clean_archives_batched``, each archive held to its single clean on the
-card (masks, loops, convergence and per-loop diffs equal; scores within
-BATCH_SCORE_RTOL, the template stage's batched reductions adding in
-another order, the ops named by a comparison of each on identical
-inputs), each kernel of the route launched once per batch iteration (the
+card bit for bit (masks, loops, convergence, per-loop diffs, scores and
+telemetry rows; the template stage's products and sums run at one
+archive's shapes, held to the single archive's op by op on identical
+inputs and timed against its archives one by one), each kernel of the
+route launched once per batch iteration (the
 launch counts, and one batch iteration's trace on a process of its
 own); (b) the same on the
 profile, dedispersed and pulse-window routes; (c) four 1024 x 4096 x 128
@@ -87,6 +88,25 @@ interleaved shapes against a sequential CLI session (the prepass's
 grouping, masks and report entries); (e) ``--mesh batch`` on the one
 NCCL rank (bit-equal to the plain batch) and on four gloo ranks sharing
 the card over 10 archives padded to 12 (mask-equal).
+
+The bf16 storage mode (``compute_dtype='bfloat16'``; its parity probe run
+once before the counted runs): the golden archive on the default route
+(K1 and K2 read the bf16 cube; held to the golden's band, at most
+BF16_MAX_BORDERLINE_FLIPS flips); a full-size bf16-exact
+archive (the reference's construction, the roll rotation) on the default,
+profile and dedispersed routes, each bf16 mask bit-equal to its float32
+clean's, both runs' ms per iteration; stream (a) in bf16, its cube
+uploads exactly half of (a)'s bytes a loop, held to the whole bf16 clean
+of the raw cube rounded as the stream rounds it (its flips against the
+golden, an unrounded input's, printed); batch
+(a) in bf16, bit-equal to its single bf16 cleans; the one-rank NCCL
+sharded clean in bf16 (default and dedispersed routes, K10 on the bf16
+block), bit-equal to the whole bf16 cleans.  Each phase prints its
+launch counts (the bf16 builds counted under ``<name>_bf16``), ms per
+iteration, peak memory and the ``compute_dtype_ineligible`` counters,
+which must stay empty.  The bf16 builds are held bit for bit to their
+float32 launches on the upcast cubes and to their plain versions at the
+route's shapes, and listed in the kernels line beside the float32 ones.
 
 It exits non-zero, printing no result, when no CUDA device is present
 or when the port's package is not beside it.  It imports nothing of JAX
@@ -173,10 +193,6 @@ CLI_DISK_FACTOR = 4.5
 K1_RTOL = 1e-5   # of sum |w * disp|: float32 sums in another order
 K2_RTOL = 1e-4   # of each plane's scale (K2, K6, K7): float32
 #                  reassociation; masked cells exact
-# A batch's scores against its archives' single cleans: on the card the
-# template stage's batched reductions add in another order than one
-# archive's (PERF.md); masks, loops and per-loop diffs are held equal.
-BATCH_SCORE_RTOL, BATCH_SCORE_ATOL = 2e-4, 1e-4
 
 
 def fail(msg: str) -> None:
@@ -194,7 +210,7 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def flip_verdict(flips, golden) -> dict:
+def flip_verdict(flips, golden, cap=MAX_BORDERLINE_FLIPS) -> dict:
     """Classify mask flips against the golden's borderline band."""
     border = {(i, c): s for i, c, s in golden["borderline"]}
     rogue, wide = [], []
@@ -204,7 +220,7 @@ def flip_verdict(flips, golden) -> dict:
             rogue.append(key)
         elif abs(border[key] - 1.0) > FLIP_NOISE_ENV:
             wide.append(key)
-    over_cap = len(flips) > MAX_BORDERLINE_FLIPS
+    over_cap = len(flips) > cap
     return {"rogue": rogue, "wide": wide, "over_cap": over_cap,
             "ok": not rogue and not wide and not over_cap}
 
@@ -252,20 +268,26 @@ def diags_check(got, want, mask, torch):
     return err, ok
 
 
-def golden_check(label, result, suffix, shape) -> None:
+def golden_check(label, result, suffix, shape,
+                 cap=MAX_BORDERLINE_FLIPS) -> None:
     """Hold ``result``'s mask to ``fullsize_mask{suffix}.npz`` under the
-    goldens' flip rule, with the golden's loops and convergence."""
+    goldens' flip rule (at most ``cap`` flips), with the golden's loops
+    and convergence."""
     golden, want_zap = golden_mask(suffix, shape)
     fw = result.final_weights
     if fw.shape != shape or not np.all(np.isfinite(fw)):
         fail(f"{label}: final weights malformed: shape {fw.shape}")
     got_zap = fw == 0
     flips = np.argwhere(want_zap != got_zap)
-    verdict = flip_verdict(flips, golden)
+    verdict = flip_verdict(flips, golden, cap)
+    border = {(i, c): s for i, c, s in golden["borderline"]}
+    band = sorted(abs(border[(int(i), int(c))] - 1.0) for i, c in flips
+                  if (int(i), int(c)) in border)
     print(f"golden fullsize_mask{suffix} ({label}): loops {result.loops} "
           f"(want {golden['loops']}), converged {result.converged}, zapped "
           f"{int(got_zap.sum())} (want {golden['zap_cells']}), flips "
-          f"{len(flips)} (cap {MAX_BORDERLINE_FLIPS}), rogue "
+          f"{len(flips)} (cap {cap}; the oracle's |score - 1| of each "
+          f"{[round(x, 5) for x in band]}), rogue "
           f"{verdict['rogue'][:5]}, wide {verdict['wide'][:5]}",
           flush=True)
     if not (verdict["ok"] and result.loops == golden["loops"]
@@ -479,40 +501,32 @@ def gloo_batch_rank(seeds):
 
 
 def batch_vs_single(label, got, want, tag):
-    """Hold each archive of a batch to its single clean: masks, loops,
-    convergence and per-loop diffs equal; scores bit-equal or, where the
-    template stage's batched reductions add in another order (PERF.md),
-    within BATCH_SCORE_RTOL with a BATCH_SCORE_ATOL floor.  Returns the
-    score cells that differ in bits and their largest relative
-    difference."""
+    """Hold each archive of a batch to its single clean bit for bit:
+    weights, scores, telemetry rows, loops, convergence and per-loop
+    diffs.  Returns the cells and rows that differ in bits."""
     import torch
 
-    bad, n_bits, worst = [], 0, 0.0
+    bad, n_bits = [], 0
     for i, (g, w) in enumerate(zip(got, want)):
-        if not (np.array_equal(g.final_weights == 0, w.final_weights == 0)
-                and (g.loops, g.converged) == (w.loops, w.converged)
-                and np.array_equal(g.loop_diffs, w.loop_diffs)):
-            bad.append(i)
-        n_bits += bits_mismatch(torch.from_numpy(g.scores),
-                                torch.from_numpy(w.scores), torch)
-        d = np.abs(g.scores - w.scores)
-        fin = np.isfinite(d)
-        worst = max(worst, float(np.max(d[fin] / np.maximum(
-            np.abs(w.scores[fin]), BATCH_SCORE_ATOL), initial=0.0)))
-        if not np.allclose(g.scores, w.scores, rtol=BATCH_SCORE_RTOL,
-                           atol=BATCH_SCORE_ATOL, equal_nan=True):
+        n = sum(bits_mismatch(torch.from_numpy(np.ascontiguousarray(a)),
+                              torch.from_numpy(np.ascontiguousarray(b)),
+                              torch)
+                for a, b in ((g.final_weights, w.final_weights),
+                             (g.scores, w.scores),
+                             (g.iter_metrics, w.iter_metrics)))
+        n_bits += n
+        if n or (g.loops, g.converged) != (w.loops, w.converged) \
+                or not np.array_equal(g.loop_diffs, w.loop_diffs):
             bad.append(i)
     print(f"{label} against the single cleans: {len(got)} archives, loops "
-          f"{sorted({g.loops for g in got})}, archives differing in mask, "
-          f"loops, convergence, diffs or scores past the bound "
-          f"{sorted(set(bad))} (tolerance: none), score cells differing in "
-          f"bits {n_bits}, largest relative difference {worst:.3e} (bound "
-          f"rtol {BATCH_SCORE_RTOL:g}, floor {BATCH_SCORE_ATOL:g}) {tag}",
-          flush=True)
+          f"{sorted({g.loops for g in got})}, archives differing "
+          f"{sorted(bad)}, cells and telemetry values differing in bits "
+          f"{n_bits} (weights, scores, telemetry, loops, diffs; tolerance: "
+          f"bit-equal) {tag}", flush=True)
     if bad:
-        fail(f"{label}: archives {sorted(set(bad))} differ from their "
-             f"single cleans")
-    return n_bits, worst
+        fail(f"{label}: archives {sorted(bad)} differ from their single "
+             f"cleans")
+    return n_bits
 
 
 BATCH_TRACE_NAMES = ("icln_marginals_kernel", "icln_sum_parts",
@@ -643,7 +657,8 @@ def stream_counts(route_kernels, names, loops, n_tiles) -> dict:
     iteration, every other kernel of ``names`` never."""
     per_tile = ("weighted_marginals", "cell_diagnostics_disp",
                 "cell_diagnostics_two_read", "cell_diagnostics_dedisp")
-    return {k: (loops * (n_tiles if k in per_tile else 1)
+    return {k: (loops * (n_tiles if k.removesuffix("_bf16") in per_tile
+                         else 1)
                 if k in route_kernels else 0) for k in names}
 
 
@@ -1133,10 +1148,12 @@ def batch_kernels(prep, weights, mask, cfg, label, times, tag, reps=5):
 
 def template_stage_ops(ars, dev, tag):
     """The template stage of a batch of ``ars`` against each archive's
-    own (one archive's preamble and weights, the ops as a clean of it
-    alone runs them), op by op on identical inputs: the values differing
-    in bits in each op's output.  Names the ops whose reduction order on
-    the card follows the batch's shape.  Returns ``{op: cells}``."""
+    own (one archive's preamble and weights, as a clean of it alone runs
+    it), op by op on identical inputs: the values differing in bits in
+    the template, the dispersed-frame rows and ``tt_info`` (each must be
+    0: the stage's products and sums run at one archive's shapes); and
+    the default route's stage time for the batch against its B archives
+    one after the other.  Returns ``{op: cells}`` and ``{form: ms}``."""
     import torch
 
     from iterative_cleaner_torch import CleanConfig
@@ -1145,48 +1162,30 @@ def template_stage_ops(ars, dev, tag):
         _dispersed_rows,
         build_template,
     )
-    from iterative_cleaner_torch.ops.dsp import (
-        template_numerator_from_channel_profiles,
-        weighted_template_numerator,
-    )
-    from iterative_cleaner_torch.ops.psrchive_baseline import (
-        template_correction_numerator_from_totals,
-    )
     from iterative_cleaner_torch.stats import kernels as K
 
-    diff = {}
+    diff, ms = {}, {}
+
+    def archive_of(prep, b):
+        """Archive ``b`` of a batch's prepared cubes (views)."""
+        return Prepared(prep.route, *(None if t is None else t[b]
+                                      for t in prep[1:6]), prep.window)
 
     def count(op, batched, one):
         n = sum(bits_mismatch(batched[b].reshape(-1), one(b).reshape(-1),
                               torch) for b in range(len(ars)))
         diff[op] = diff.get(op, 0) + n
 
+    def stage(prep, w, rot, duty):
+        t = build_template(prep, w, rotation=rot, baseline_duty=duty)
+        return t, *_dispersed_rows(prep, t, rot), K.tt_info(t)
+
     for cfg in (CleanConfig(), CleanConfig(baseline_mode="profile")):
         prep, w, _ = batch_prep(ars, cfg, dev)
-        singles = [Prepared(prep.route, *(None if t is None else t[b]
-                                          for t in prep[1:6]), prep.window)
-                   for b in range(len(ars))]
+        singles = [archive_of(prep, b) for b in range(len(ars))]
         rot, duty = cfg.rotation, cfg.baseline_duty
-        if prep.route == "default":
-            a, t1 = K.weighted_marginals(prep.disp_base, w)
-            count("template_correction_numerator_from_totals (t1 @ window "
-                  "box, sums over channels and subints)",
-                  template_correction_numerator_from_totals(
-                      t1, prep.base_offsets, w, duty),
-                  lambda b: template_correction_numerator_from_totals(
-                      t1[b], prep.base_offsets[b], w[b], duty))
-            count("template_numerator_from_channel_profiles (rotate_bins "
-                  "row matmuls, sum over channels)",
-                  template_numerator_from_channel_profiles(
-                      a, prep.back_shifts, rot),
-                  lambda b: template_numerator_from_channel_profiles(
-                      a[b], prep.back_shifts[b], rot))
-        else:
-            count("weighted_template_numerator (einsum over channels, sum "
-                  "over subints)", weighted_template_numerator(prep.ded, w),
-                  lambda b: weighted_template_numerator(prep.ded[b], w[b]))
         template = build_template(prep, w, rotation=rot, baseline_duty=duty)
-        count(f"build_template ({prep.route} route, as a whole)", template,
+        count(f"build_template ({prep.route} route)", template,
               lambda b: build_template(singles[b], w[b], rotation=rot,
                                        baseline_duty=duty))
         count("_dispersed_rows (rotate_bins row matmuls of the template)",
@@ -1194,11 +1193,24 @@ def template_stage_ops(ars, dev, tag):
               lambda b: _dispersed_rows(singles[b], template[b], rot)[0])
         count("tt_info (sum over bins)", K.tt_info(template),
               lambda b: K.tt_info(template[b]))
+        if prep.route == "default":
+            ms["batch"] = cuda_ms(lambda: stage(prep, w, rot, duty), 10,
+                                  torch)
+            ms["single archives"] = cuda_ms(lambda: [
+                stage(one, w[b], rot, duty)
+                for b, one in enumerate(singles)], 10, torch)
         del prep, singles
     print(f"batch (a) template stage, batch of {len(ars)} against each "
           f"archive alone on identical inputs, values differing in bits by "
-          f"op: {json.dumps(diff)} {tag}", flush=True)
-    return diff
+          f"op: {json.dumps(diff)} (tolerance: 0); the default route's "
+          f"template stage (K1, the template, the rows, tt_info) "
+          f"{ms['batch']:.3f} ms per batch iteration, "
+          f"{ms['single archives']:.3f} ms for its archives one by one "
+          f"(CUDA events) {tag}", flush=True)
+    if any(diff.values()):
+        fail("batch (a): the template stage differs from the single "
+             "archives'")
+    return diff, ms
 
 
 def batch_phases(ar0, whole, counts, clean_ms, peak_gib, dev, tag,
@@ -1280,8 +1292,11 @@ def batch_phases(ar0, whole, counts, clean_ms, peak_gib, dev, tag,
         clean_ms[key + " singles"] = single_ms
         clean_ms[key + " iteration"] = iter_ms
         if run == "a":
-            times["template_stage_bits"] = template_stage_ops(ars[:4], dev,
-                                                             tag)
+            times["template_stage_bits"], stage_ms = template_stage_ops(
+                ars, dev, tag)
+            clean_ms["batch template stage"] = stage_ms["batch"]
+            clean_ms["batch template stage, archives one by one"] = \
+                stage_ms["single archives"]
         if name != "pulse":   # its kernels are the profile route's
             ok &= batch_kernels(prep, w, m, cfg, f"{nb} x {BATCH_SHAPE}",
                                 times, tag)
@@ -1379,34 +1394,17 @@ def batch_cli_phase(tag):
                for e in runs["sequential"][1]["archives"]}
         n_mask = sum(int((m != runs["sequential"][2][k]).sum())
                      for k, m in masks.items())
-        # every field equal but the two telemetry columns the template
-        # stage moves (residual_std, template_peak): those within
-        # BATCH_SCORE_RTOL, their cells differing in bits counted
-        n_entry, n_float_bits = 0, 0
-        for e in doc["archives"]:
-            w = seq[os.path.basename(e["path"])]
-            floats = ("residual_std", "template_peak")
-            hist = {k: v for k, v in e["iter_history"].items()
-                    if k not in floats}
-            whist = {k: v for k, v in w["iter_history"].items()
-                     if k not in floats}
-            same = ({**e, "path": w["path"], "iter_history": hist}
-                    == {**w, "iter_history": whist})
-            for k in floats:
-                a, b = (np.asarray(x[k], dtype=np.float64)
-                        for x in (e["iter_history"], w["iter_history"]))
-                same &= a.shape == b.shape and bool(np.allclose(
-                    a, b, rtol=BATCH_SCORE_RTOL, atol=0.0))
-                n_float_bits += int((a != b).sum()) if a.shape == b.shape \
-                    else a.size
-            n_entry += not same
+        # every field of every report entry equal, the telemetry's
+        # residual_std and template_peak too
+        n_entry = sum({**e, "path": seq[os.path.basename(e["path"])]["path"]}
+                      != seq[os.path.basename(e["path"])]
+                      for e in doc["archives"])
         print(f"batch (d): --batch {BATCH_CLI_GROUP} over {len(files)} "
               f"PSRFITS files of {BATCH_CLI_SHAPES} interleaved: prepass "
               f"grouped by shape {grouped}; against the sequential session "
               f"{n_mask} mask cells and {n_entry} report entries differ "
-              f"(tolerance: 0 and 0; residual_std and template_peak within "
-              f"rtol {BATCH_SCORE_RTOL:g}, {n_float_bits} of their values "
-              f"differ in bits); counters batch_archives "
+              f"(tolerance: 0 and 0, the telemetry's floats included); "
+              f"counters batch_archives "
               f"{doc['counters'].get('batch_archives')}, batch_h2d_bytes "
               f"{doc['counters'].get('batch_h2d_bytes')}; session "
               f"{secs:.2f} s against {runs['sequential'][3]:.2f} s "
@@ -1481,12 +1479,15 @@ def batch_mesh_phase(ars, counts, tag):
         fail("batch (e): the gloo batch mesh differs from the plain batch")
 
 
-def kernel_bounds(S, C, B):
+def kernel_bounds(S, C, B, cube_bytes=4):
     """The least time of each kernel on one S x C x B archive: the larger
     of the bytes it must move over PEAK_BYTES_PER_S and its least
     operations over PEAK_F32_PER_S, ``(ms, "bytes" or "operations")``.
-    A batch of N such archives is bound by N times it."""
+    A batch of N such archives is bound by N times it.  ``cube_bytes``:
+    the bytes of a cube element (2 for the bf16 storage mode; every
+    other operand is float32)."""
     cells, nk = S * C, B // 2 + 1
+    cb = cube_bytes
 
     def bound(nbytes, nops):
         tb, to = nbytes / PEAK_BYTES_PER_S * 1e3, nops / PEAK_F32_PER_S * 1e3
@@ -1505,14 +1506,16 @@ def kernel_bounds(S, C, B):
     sel_ops = 4 * 2 * 4 * cells
     sides = bound(cells * (4 * 4 + 1 + 4 * 4), sel_ops)
     return {
-        "weighted_marginals": bound(4 * (cells * B + cells + C * B + S * B),
+        "weighted_marginals": bound(cb * cells * B
+                                    + 4 * (cells + C * B + S * B),
                                     3 * cells * B),
-        "cell_diagnostics_disp": bound(4 * (cells * B + 2 * C * B + B)
+        "cell_diagnostics_disp": bound(cb * cells * B + 4 * (2 * C * B + B)
                                        + diag_io, diag_ops),
-        "cell_diagnostics_two_read": bound(4 * (2 * cells * B + C * B + B)
-                                           + diag_io, diag_ops),
-        "cell_diagnostics_dedisp": bound(4 * (cells * B + 2 * B) + diag_io,
-                                         diag_ops),
+        "cell_diagnostics_two_read": bound(cb * 2 * cells * B
+                                           + 4 * (C * B + B) + diag_io,
+                                           diag_ops),
+        "cell_diagnostics_dedisp": bound(cb * cells * B + 4 * 2 * B
+                                         + diag_io, diag_ops),
         "scaled_sides_axis0": sides,
         "scaled_sides_axis1": sides,
         "combine_zap": bound(cells * (9 * 4 + 2 * 4), 16 * cells),
@@ -1520,6 +1523,308 @@ def kernel_bounds(S, C, B):
         # one float out; four passes of a few integer ops an entry
         "masked_median": bound(5 * cells + 4, 4 * 8 * cells),
     }
+
+
+# The bf16 storage mode's phases (compute_dtype="bfloat16"): the
+# archive of phase 2 made bf16-exact as the reference's tests make it
+# (samples on the bf16 grid, DM 0, the baseline window exactly 0), cleaned
+# with the roll rotation, whose masks must equal the float32 cleans'.
+BF16_EXACT_SEED = 0
+BF16 = "bfloat16"
+# The golden archive cleaned in bf16 storage is held to the goldens' flip
+# rule with this cap: every flip a cell the float64 oracle scored within
+# FLIP_NOISE_ENV of the threshold, the oracle's loops, at most this many
+# flips.  bf16 rounds every prepared sample to 2**-9 relative, coarser
+# than the float32 runs MAX_BORDERLINE_FLIPS was set for: the card flipped
+# 11 of the golden's 53 cells within the band (measured on one H100;
+# float32: 2), and the cap is three times that, as CONTRACT_LIMITS are.
+BF16_MAX_BORDERLINE_FLIPS = 33
+
+
+def bf16_phases(ar, results, counts, clean_ms, peak_gib, stream_regs, mesh1,
+                batch_ars, dev, tag):
+    """The bf16 phases, each counted like the float32 ones and printing
+    its ms per iteration, peak memory and the compute_dtype_ineligible
+    counters (which must stay empty): (1) the golden archive under
+    compute_dtype='bfloat16' on the default route, held to the golden's
+    band with BF16_MAX_BORDERLINE_FLIPS;
+    (2) a full-size bf16-exact archive on the default, profile and
+    dedispersed routes, bf16 masks bit-equal to float32 (ms per iteration
+    of both on its resident cubes); (3) stream (a) in bf16: the cube
+    bytes uploaded exactly half of stream (a)'s a loop, its peak at most
+    half the whole bf16 clean's, its mask held to the whole bf16 clean of
+    the same quantized input (the stream rounds the raw tiles to bf16
+    before the preamble, as the reference's stream does, where the whole
+    clean rounds the prepared cube: at the golden's baseline of 100 counts
+    a raw sample keeps 2**-9 of 100, the noise's 0.14 sigma, so the
+    golden, made from unrounded samples, is another input's; its flips
+    are printed, not held); (4) batch
+    (a) in bf16, bit-equal to its single bf16 cleans; (5) the one-rank
+    NCCL sharded clean in bf16 on the default and dedispersed routes,
+    bit-equal to the whole bf16 cleans."""
+    import torch
+
+    from iterative_cleaner_torch import CleanConfig, clean_streaming
+    from iterative_cleaner_torch.backends import (
+        clean_archive,
+        clean_archive_sharded,
+    )
+    from iterative_cleaner_torch.backends import torch_backend as tb
+    from iterative_cleaner_torch.engine.loop import (
+        ROUTE_KERNELS,
+        SHARD_KERNELS,
+        STREAM_KERNELS,
+        iteration_step,
+        prepare,
+        prepare_batch,
+        select_route,
+        storage_kernels,
+        store_prepared,
+    )
+    from iterative_cleaner_torch.io.synthetic import make_bf16_exact_archive
+    from iterative_cleaner_torch.parallel.batch import clean_archives_batched
+    from iterative_cleaner_torch.parallel.tile_cache import DictRegistry
+    from iterative_cleaner_torch.profile_iteration import stream_line
+    from iterative_cleaner_torch.stats import kernels as K
+
+    nsub, nchan, nbin = ar.nsub, ar.nchan, ar.nbin
+    # the parity probe runs once per process, before any counted run
+    t0 = time.perf_counter()
+    if tb.resolve_compute_dtype(BF16, device=dev) != BF16:
+        fail("bf16: the parity probe failed on the card")
+    print(f"bf16: the parity probe (4 x 8 x 32, every route, float32 "
+          f"against bf16 storage) passed in "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms", flush=True)
+
+    def ineligible(label):
+        got = tb.compute_dtype_ineligible_counts()
+        print(f"{label}: compute_dtype_ineligible counters "
+              f"{json.dumps(got)} (must be empty)", flush=True)
+        if got:
+            fail(f"{label}: a stage was downgraded to float32")
+
+    def counted(key, fn):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        clean_ms[key] = (time.perf_counter() - t0) * 1e3
+        counts[key] = K.launch_counts()
+        peak_gib[key] = torch.cuda.max_memory_allocated() / 2 ** 30
+        return out
+
+    def want_counts(kernels, loops, names):
+        return {k: (loops if k in kernels else 0) for k in names}
+
+    def iteration_ms(archive, cfg, compute_dtype, mesh=None):
+        """CUDA-event ms of one iteration on ``archive``'s resident cubes
+        prepared under ``cfg`` and stored at ``compute_dtype``."""
+        cube = torch.from_numpy(np.ascontiguousarray(
+            archive.total_intensity(), dtype=np.float32)).to(dev)
+        w = torch.from_numpy(np.ascontiguousarray(
+            archive.weights, dtype=np.float32)).to(dev)
+        meta = [torch.from_numpy(np.ascontiguousarray(
+            archive.freqs_mhz, dtype=np.float32)).to(dev)] + [
+            torch.tensor(v, dtype=torch.float32, device=dev)
+            for v in (archive.dm, archive.centre_freq_mhz, archive.period_s)]
+        prep = store_prepared(prepare(cube, w, *meta, cfg,
+                                      dedispersed=archive.dedispersed),
+                              compute_dtype)
+        del cube
+        return cuda_ms(lambda: iteration_step(
+            prep, w, w, w == 0, chanthresh=cfg.chanthresh,
+            subintthresh=cfg.subintthresh, rotation=cfg.rotation,
+            baseline_duty=cfg.baseline_duty, mesh=mesh), 5, torch)
+
+    # (1) the golden archive, default route, bf16
+    cfg16 = CleanConfig(compute_dtype=BF16)
+    key = "bf16 default"
+    r16 = results[key] = counted(key, lambda: clean_archive(ar, cfg16))
+    want = want_counts(storage_kernels(ROUTE_KERNELS["default"], BF16),
+                       r16.loops, counts[key])
+    it16 = iteration_ms(ar, cfg16, BF16)
+    it32 = iteration_ms(ar, CleanConfig(), "float32")
+    flips = int(((r16.final_weights == 0)
+                 != (results["default"].final_weights == 0)).sum())
+    print(f"bf16 (1) golden archive, default route: kernels "
+          f"{json.dumps(counts[key])}, {r16.loops} loops, whole clean "
+          f"{clean_ms[key]:.1f} ms (float32 {clean_ms['default']:.1f}), "
+          f"{it16:.3f} ms per iteration (float32 {it32:.3f}, same call; "
+          f"CUDA events, resident cubes), peak device memory "
+          f"{peak_gib[key]:.2f} GiB (float32 {peak_gib['default']:.2f}); "
+          f"{flips} mask cells differ from the float32 clean {tag}",
+          flush=True)
+    if counts[key] != want:
+        fail(f"{key}: launch counts {counts[key]}, want {want}")
+    golden_check("bf16 (1) default", r16, "", (nsub, nchan),
+                 cap=BF16_MAX_BORDERLINE_FLIPS)
+    ineligible("bf16 (1)")
+    clean_ms["bf16 default iteration"] = it16
+    clean_ms["default iteration (bf16 call)"] = it32
+
+    # (2) a full-size bf16-exact archive on three routes, bf16 = float32
+    t0 = time.perf_counter()
+    ex = make_bf16_exact_archive(nsub, nchan, nbin, seed=BF16_EXACT_SEED)
+    print(f"bf16 (2): the bf16-exact {nsub}x{nchan}x{nbin} archive made in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    routes = {"default": {}, "profile": dict(baseline_mode="profile"),
+              "dedispersed": dict(stats_frame="dedispersed")}
+    for name, kw in routes.items():
+        got = {}
+        for cd in ("float32", BF16):
+            cfg = CleanConfig(rotation="roll", compute_dtype=cd, **kw)
+            key = f"bf16 exact {name}" + ("" if cd == BF16 else " float32")
+            got[cd] = counted(key, lambda: clean_archive(ex, cfg))
+            route = select_route(cfg, ex.dedispersed)
+            want = want_counts(storage_kernels(ROUTE_KERNELS[route], cd),
+                               got[cd].loops, counts[key])
+            if counts[key] != want:
+                fail(f"{key}: launch counts {counts[key]}, want {want}")
+        g16, g32 = got[BF16], got["float32"]
+        n_mask = int(((g16.final_weights == 0)
+                      != (g32.final_weights == 0)).sum())
+        n_bits = bits_mismatch(torch.from_numpy(g16.scores),
+                               torch.from_numpy(g32.scores), torch)
+        ms = {cd: iteration_ms(ex, CleanConfig(rotation="roll", **kw), cd)
+              for cd in ("float32", BF16)}
+        key = f"bf16 exact {name}"
+        print(f"bf16 (2) exact archive, {name} route: bf16 kernels "
+              f"{json.dumps({k: v for k, v in counts[key].items() if v})}, "
+              f"loops {g16.loops} (float32 {g32.loops}), zapped "
+              f"{int((g16.final_weights == 0).sum())}; against float32 "
+              f"{n_mask} mask cells differ (tolerance: 0), {n_bits} scores "
+              f"differ in bits; ms per iteration bf16 {ms[BF16]:.3f}, "
+              f"float32 {ms['float32']:.3f}; whole clean "
+              f"{clean_ms[key]:.1f} ms (float32 "
+              f"{clean_ms[key + ' float32']:.1f}), peak device memory "
+              f"{peak_gib[key]:.2f} GiB (float32 "
+              f"{peak_gib[key + ' float32']:.2f}) {tag}", flush=True)
+        if n_mask or (g16.loops, g16.converged) != (g32.loops,
+                                                    g32.converged):
+            fail(f"bf16 (2) {name}: the bf16 mask differs from float32 on a "
+                 f"bf16-exact archive")
+        clean_ms[f"bf16 exact {name} iteration"] = ms[BF16]
+        clean_ms[f"bf16 exact {name} iteration float32"] = ms["float32"]
+    del ex
+    ineligible("bf16 (2)")
+
+    # (3) stream (a) in bf16
+    key, chunk = "bf16 stream (a)", 128
+    reg = stream_regs[key] = DictRegistry()
+    r = results[key] = counted(key, lambda: clean_streaming(
+        ar, chunk, CleanConfig(stream_hbm_mb=0, compute_dtype=BF16),
+        registry=reg))
+    n_tiles = -(-nsub // chunk)
+    want = stream_counts(storage_kernels(STREAM_KERNELS["default"], BF16),
+                         counts[key], r.loops, n_tiles)
+    cube16 = (1 + 2 * r.loops) * nsub * nchan * nbin * 2
+    got16 = reg.counters["stream_h2d_cube_bytes"]
+    a32 = stream_regs["a"]
+    print(f"bf16 (3) stream (a) bf16, {n_tiles} tiles of {chunk}, budget 0: "
+          f"kernels {json.dumps(counts[key])}, {r.loops} loops, whole clean "
+          f"{clean_ms[key]:.1f} ms (float32 {clean_ms['stream (a)']:.1f}), "
+          f"{reg.gauges['stream_iteration_ms']:.1f} ms per iteration "
+          f"(float32 {a32.gauges['stream_iteration_ms']:.1f}; host clock); "
+          f"{stream_line(reg.gauges)}; cube bytes uploaded {got16} (want "
+          f"{cube16}: half of {2 * cube16}; the float32 stream "
+          f"{a32.counters['stream_h2d_cube_bytes']} in "
+          f"{results['stream (a)'].loops} loops); peak device memory "
+          f"{peak_gib[key]:.2f} GiB (float32 "
+          f"{peak_gib['stream (a)']:.2f}) {tag}", flush=True)
+    if counts[key] != want:
+        fail(f"{key}: launch counts {counts[key]}, want {want}")
+    if got16 != cube16:
+        fail(f"{key}: the cube bytes uploaded are not half the float32 "
+             f"stream's")
+    # the whole bf16 clean of the same quantized input: the raw cube
+    # rounded to bf16 through float32, as the stream's host store rounds it
+    raw16 = torch.from_numpy(np.ascontiguousarray(
+        ar.data, dtype=np.float32)).to(torch.bfloat16).double().numpy()
+    whole_q = clean_archive(dataclasses.replace(ar, data=raw16), cfg16)
+    del raw16
+    whole_contract(key, r, whole_q, "bf16 (raw rounded to bf16)")
+    print(f"{key}: peak device memory {peak_gib[key]:.2f} GiB against the "
+          f"whole bf16 clean's {peak_gib['bf16 default']:.2f} GiB (limit: "
+          f"half) {tag}", flush=True)
+    if peak_gib[key] > 0.5 * peak_gib["bf16 default"]:
+        fail(f"{key}: peak device memory above half the whole bf16 clean's")
+    golden, want_zap = golden_mask("", (nsub, nchan))
+    flips = np.argwhere(want_zap != (r.final_weights == 0))
+    verdict = flip_verdict(flips, golden)
+    print(f"{key} against the golden (made from unrounded samples; not "
+          f"held): {len(flips)} flips, {len(verdict['rogue'])} outside the "
+          f"golden's borderline list, {len(verdict['wide'])} in it but "
+          f"beyond {FLIP_NOISE_ENV:g} of the threshold, loops {r.loops} "
+          f"(golden {golden['loops']}), zapped "
+          f"{int((r.final_weights == 0).sum())} (golden "
+          f"{golden['zap_cells']}) {tag}", flush=True)
+    ineligible("bf16 (3)")
+
+    # (4) batch (a) in bf16
+    key = "bf16 batch (a)"
+    got = counted(key, lambda: clean_archives_batched(batch_ars, cfg16))
+    singles = [clean_archive(a, cfg16) for a in batch_ars]
+    iters = max(g.loops for g in got)
+    want = want_counts(storage_kernels(ROUTE_KERNELS["default"], BF16),
+                       iters, counts[key])
+    cube32s, bw, bm = stack_inputs(batch_ars, dev)
+    bprep = prepare_batch(*cube32s, cfg16, dedispersed=False,
+                          compute_dtype=BF16)
+    del cube32s
+    bms = cuda_ms(lambda: iteration_step(
+        bprep, bw, bw, bm, chanthresh=cfg16.chanthresh,
+        subintthresh=cfg16.subintthresh, rotation=cfg16.rotation,
+        baseline_duty=cfg16.baseline_duty), 5, torch)
+    del bprep
+    print(f"bf16 (4) batch (a) bf16, {len(batch_ars)} archives: kernels "
+          f"{json.dumps(counts[key])}, loops {[g.loops for g in got]}, whole "
+          f"batch clean {clean_ms[key]:.1f} ms (float32 "
+          f"{clean_ms['batch']:.1f}), {bms:.3f} ms per batch iteration "
+          f"(float32 {clean_ms['batch iteration']:.3f}), peak device memory "
+          f"{peak_gib[key]:.2f} GiB (float32 {peak_gib['batch']:.2f}) {tag}",
+          flush=True)
+    if counts[key] != want:
+        fail(f"{key}: launch counts {counts[key]}, want {want}")
+    batch_vs_single(key, got, singles, tag)
+    clean_ms["bf16 batch iteration"] = bms
+    ineligible("bf16 (4)")
+
+    # (5) the one-rank NCCL sharded clean in bf16
+    for name, kw, base in (("default", {}, r16),
+                           ("dedispersed", dict(stats_frame="dedispersed"),
+                            None)):
+        cfg = CleanConfig(compute_dtype=BF16, **kw)
+        key = f"bf16 sharded 1 ({name})"
+        rs = results[key] = counted(key, lambda: clean_archive_sharded(
+            ar, cfg, mesh1))
+        if base is None:
+            base = clean_archive(ar, cfg)
+        route = select_route(cfg, ar.dedispersed)
+        want = want_counts(storage_kernels(SHARD_KERNELS[route], BF16),
+                           rs.loops, counts[key])
+        n_bits = sum(bits_mismatch(torch.from_numpy(a), torch.from_numpy(b),
+                                   torch)
+                     for a, b in ((rs.final_weights, base.final_weights),
+                                  (rs.scores, base.scores)))
+        sms = iteration_ms(ar, cfg, BF16, mesh=mesh1)
+        print(f"bf16 (5) {key}, route {route}: kernels "
+              f"{json.dumps(counts[key])}, {rs.loops} loops, whole clean "
+              f"{clean_ms[key]:.1f} ms, {sms:.3f} ms per iteration (device, "
+              f"resident shard), peak device memory {peak_gib[key]:.2f} GiB; "
+              f"against the whole bf16 clean {n_bits} cells differ in bits "
+              f"(weights and scores; tolerance: bit-equal) {tag}",
+              flush=True)
+        if counts[key] != want:
+            fail(f"{key}: launch counts {counts[key]}, want {want}")
+        if n_bits or (rs.loops, rs.converged) != (base.loops,
+                                                  base.converged) \
+                or not np.array_equal(rs.iter_metrics, base.iter_metrics):
+            fail(f"{key}: differs from the whole bf16 clean")
+        clean_ms[key + " iteration"] = sms
+    ineligible("bf16 (5)")
 
 
 def long_phase(configs, dev, tag):
@@ -2085,6 +2390,11 @@ def main() -> int:
             fail(f"{key}: differs from {base_key}")
     golden_check("shard stream (c)", results["shard stream (c)"], "_profile",
                  (NSUB, NCHAN))
+    # ---- 3k. the bf16 storage mode (compute_dtype='bfloat16') on the
+    # golden archive, a bf16-exact archive, stream (a), batch (a) and the
+    # one NCCL rank
+    bf16_phases(ar, results, counts, clean_ms, peak_gib, stream_regs, mesh1,
+                batch_ars, dev, tag)
     # ---- batch (e): --mesh batch over the one NCCL rank and over four
     # gloo ranks sharing the card
     batch_mesh_phase(batch_ars, counts, tag)
@@ -2202,6 +2512,54 @@ def main() -> int:
                   f"plane's scale, masked cells exact: "
                   f"{'ok' if ok and bits == 0 else 'FAIL'}", flush=True)
 
+    # the bf16 builds of K1, K2, K7, K6 and K10 on the same inputs, the
+    # cubes narrowed as a bf16 clean stores them: bit-equal to the
+    # float32 launch on the upcast cubes, and within the float32
+    # tolerances of the plain version (which upcasts on read)
+    n16 = lambda t: t.to(torch.bfloat16)   # noqa: E731
+    pp = ri["p"]
+    disp16, ded16 = n16(disp), n16(pd.ded)
+    bf16_in = {
+        "weighted_marginals": ((disp16,), (weights,)),
+        "cell_diagnostics_disp": ((disp16,),
+                                  (rot_t, nyq, template, weights, mask)),
+        "cell_diagnostics_two_read": ((n16(pp.ded), n16(pp.disp_base)),
+                                      (ri["rot_t_p"], ri["t_p"], weights,
+                                       mask)),
+        "cell_diagnostics_dedisp": ((ded16,), (t_d, pd.window, weights,
+                                               mask)),
+        "shard_diagnostics_disp": ((disp16,),
+                                   (rot_t, nyq, template, weights, mask)),
+        "shard_diagnostics_dedisp": ((ded16,), (t_d, pd.window, weights,
+                                                mask)),
+    }
+    bf16_plain = {
+        "weighted_marginals": K.weighted_marginals_plain,
+        "cell_diagnostics_disp": K.cell_diagnostics_disp_plain,
+        "cell_diagnostics_two_read": K.cell_diagnostics_two_read_plain,
+        "cell_diagnostics_dedisp": K.cell_diagnostics_dedisp_plain,
+        "shard_diagnostics_disp": K.cell_diagnostics_disp_plain,
+        "shard_diagnostics_dedisp": K.cell_diagnostics_dedisp_plain}
+    bf16_err, ok16 = {}, True
+    for name, (cubes, rest) in bf16_in.items():
+        fn = getattr(K, name)
+        got = fn(*cubes, *rest)
+        bits = sum(bits_mismatch(g, w, torch) for g, w in zip(
+            got, fn(*(c.float() for c in cubes), *rest)))
+        if name == "weighted_marginals":
+            err, ok = check_k1(cubes[0], weights, " (bf16 cube)")
+        else:
+            err, ok = diags_check(got, bf16_plain[name](*cubes, *rest), mask,
+                                  torch)
+        bf16_err[name] = err
+        ok16 &= ok and bits == 0
+        print(f"check {name} (bf16 cube {tuple(cubes[0].shape)}): {bits} "
+              f"values differ in bits from the float32 launch on the upcast "
+              f"cube (tolerance: bit-equal); against the plain version max "
+              f"abs {err:.3e}: {'ok' if ok and bits == 0 else 'FAIL'}",
+              flush=True)
+        del got
+
     # K3, both orientations, and the combine: bit-equal on identical inputs
     sides, ok3, err3 = {}, {}, {}
     for axis, thresh in ((0, cfg.chanthresh), (1, cfg.subintthresh)):
@@ -2315,7 +2673,7 @@ def main() -> int:
     # batch (a)'s one batch iteration in a trace, on a process of its own
     batch_trace_phase(tag)
     if not (ok1 and all(diag_ok.values()) and all(k10_ok.values())
-            and ok3[0] and ok3[1] and okc and ok8 and ok9):
+            and ok16 and ok3[0] and ok3[1] and okc and ok8 and ok9):
         fail("a kernel disagrees with its plain version")
 
     # ---- 5. times: kernel, plain version, library yardstick, bound ----
@@ -2407,6 +2765,27 @@ def main() -> int:
          "default", err9, lambda: K.masked_median(line_v, line_m, 1),
          lambda: K.masked_median_keys(line_v, line_m, 1), None, b9, 50),
     ]
+    # the bf16 builds: their cube bytes at 2 a sample, their launches in
+    # the bf16 phases' runs of their routes, no library call computing the
+    # same function (a bf16 einsum rounds its output to bf16)
+    kb16 = kernel_bounds(S, C, B, cube_bytes=2)
+    kb16["shard_diagnostics_disp"] = kb16["cell_diagnostics_disp"]
+    kb16["shard_diagnostics_dedisp"] = kb16["cell_diagnostics_dedisp"]
+    bf16_route = {"weighted_marginals": "bf16 default",
+                  "cell_diagnostics_disp": "bf16 default",
+                  "cell_diagnostics_two_read": "bf16 exact profile",
+                  "cell_diagnostics_dedisp": "bf16 exact dedispersed",
+                  "shard_diagnostics_disp": "bf16 sharded 1 (default)",
+                  "shard_diagnostics_dedisp": "bf16 sharded 1 (dedispersed)"}
+    for name, (src, replaces) in {
+            e[0]: (e[1], e[2]) for e in entries
+            if e[0] in bf16_in}.items():
+        cubes, rest = bf16_in[name]
+        entries.append((
+            name + "_bf16", src, replaces, bf16_route[name], bf16_err[name],
+            lambda fn=getattr(K, name), a=cubes + rest: fn(*a),
+            lambda fn=bf16_plain[name], a=cubes + rest: fn(*a), None,
+            kb16[name], 20 if name == "weighted_marginals" else 5))
     k10_shard_bound = {"shard_diagnostics_disp": b2q,
                        "shard_diagnostics_dedisp": b6q}
     # K8 is a sequence: K3 per orientation (scaled_sides.cu), then the

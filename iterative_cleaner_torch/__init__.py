@@ -22,7 +22,9 @@ in and out, ``--prefetch``, the run report (``--metrics-json``), the
 Prometheus textfile, the JSON-lines event log and ``--timing``.  Every TPU kernel of the reference has a hand-written
 CUDA counterpart in :mod:`iterative_cleaner_torch.stats.kernels` (K9,
 the masked median, computes every iteration's residual-std telemetry).
-float64 and bf16 storage are not ported yet.
+Every route also runs in the reference's mixed-precision mode
+(``CleanConfig(compute_dtype="bfloat16")``: the cube stored in bf16,
+every stage computing in float32).  float64 is not ported yet.
 
 Entry points run on the card (``CleanConfig.device`` defaults to
 ``"cuda"``); ``device="cpu"`` runs every kernel's plain PyTorch version

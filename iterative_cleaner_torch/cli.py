@@ -1,8 +1,9 @@
 """Command line of the port: the reference CLI's session over archives.
 
 ``python -m iterative_cleaner_torch [-c] [-s] [-m] [-z] [-u] [-p] [-q]
-[-l] [-r] [-o] [--bad_chan] [--bad_subint] [--baseline_mode]
-[--stats_frame] [--device] [--stream N [--stream_mode exact|online]
+[-l] [-r] [-o] [--memory] [--bad_chan] [--bad_subint] [--rotation
+fourier|roll] [--baseline_mode] [--stats_frame] [--compute-dtype
+float32|bfloat16] [--record_history] [--device] [--stream N [--stream_mode exact|online]
 [--stream_hbm_mb MB]] [--batch B] [--mesh off|cell|batch] [--prefetch N]
 [--io-workers N]
 [--metrics-json PATH] [--prom-textfile PATH] [--event-log PATH]
@@ -27,6 +28,14 @@ one ``Timing:`` line of the load, clean and write seconds at the end.
 An archive that fails ends the session with its exception; with
 ``--keep_going`` it is recorded, printed to stderr, the others are
 cleaned, and the exit code is 1.
+``--compute-dtype bfloat16`` (or ``ICLEAN_COMPUTE_DTYPE=bfloat16``) stores
+the cube in bf16 on the card while every stage computes in float32; a
+stage the parity probe finds ineligible stays float32 with a notice and a
+``compute_dtype_ineligible{stage=,reason=}`` counter in the run report.
+``--memory`` is accepted and does nothing (the reference's compatibility
+flag: the input is never mutated); ``--record_history`` keeps every
+iteration's weights in the clean's result, as the reference does, and
+writes nothing more.
 ``--stream N`` cleans in N-subint tiles (``parallel/streaming.py``).
 ``--mesh cell`` cleans each archive over the ranks of a
 ``torch.distributed`` job (``parallel/sharding.py``; with ``--stream N``
@@ -48,9 +57,9 @@ ignored with B > 1.  ``--mesh batch`` splits each group over the ranks
 of a ``torchrun`` job (``torchrun --nproc_per_node N -m
 iterative_cleaner_torch --batch B --mesh batch ...``): each rank cleans
 its share, rank 0 writes.
-Not ported yet: ``--checkpoint``, ``--record_history`` and ``--model``
-(ROADMAP.md 'Modules still to port' item 8), the live ``--stream DIR``
-session (item 5), ``--fleet`` (item 3).
+Not ported yet: ``--checkpoint`` and ``--model`` (ROADMAP.md 'Modules still
+to port' item 2c), the live ``--stream DIR`` session (item 5), ``--fleet``
+(item 3).
 """
 
 from __future__ import annotations
@@ -105,12 +114,34 @@ def build_parser() -> argparse.ArgumentParser:
                    metavar="output_filename",
                    help="Output filename. 'std' uses the pattern "
                         "NAME.FREQ.MJD.<ext>.")
+    p.add_argument("--memory", action="store_true",
+                   help="Keep the archive full-pol in memory instead of "
+                        "pscrunching (reference compatibility flag; the "
+                        "input is never mutated, so it changes nothing).")
     p.add_argument("--bad_chan", type=float, default=1,
                    help="Fraction of removed subints above which the "
                         "whole channel is removed.")
     p.add_argument("--bad_subint", type=float, default=1,
                    help="Fraction of removed channels above which the "
                         "whole subint is removed.")
+    p.add_argument("--rotation", choices=("fourier", "roll"),
+                   default="fourier",
+                   help="Dedispersion rotation: exact fractional-bin "
+                        "Fourier phase ramp, or nearest-bin roll.")
+    p.add_argument("--compute-dtype", "--compute_dtype",
+                   choices=("float32", "bfloat16"), default=None,
+                   dest="compute_dtype",
+                   help="'bfloat16' stores the cube in bf16 on the card "
+                        "(half the cube bytes each kernel reads and each "
+                        "streamed tile uploads) while every stage "
+                        "computes in float32; masks are bit-equal to "
+                        "float32 on bf16-exact cubes, and a stage whose "
+                        "parity probe disagrees stays float32 with a "
+                        "notice. Default: the ICLEAN_COMPUTE_DTYPE "
+                        "environment variable, else float32.")
+    p.add_argument("--record_history", action="store_true",
+                   help="Keep every iteration's weight matrix in the "
+                        "clean's result (regression diffing).")
     p.add_argument("--stats_frame",
                    choices=("auto", "dispersed", "dedispersed"),
                    default="auto",
@@ -234,10 +265,32 @@ def config_of(args) -> CleanConfig:
                        max_iter=args.max_iter,
                        pulse_region=tuple(args.pulse_region),
                        bad_chan=args.bad_chan, bad_subint=args.bad_subint,
+                       rotation=args.rotation,
                        stats_frame=args.stats_frame,
                        baseline_mode=args.baseline_mode,
+                       compute_dtype=args.compute_dtype,
+                       record_history=args.record_history,
                        unload_res=args.unload_res, device=args.device,
                        stream_hbm_mb=args.stream_hbm_mb)
+
+
+def notice_compute_dtype_downgrade(cfg: CleanConfig, telemetry) -> str:
+    """The mixed-precision rung of the session: resolve an explicit
+    ``--compute-dtype bfloat16`` (or ``ICLEAN_COMPUTE_DTYPE``) once with
+    the session's registry, so that a downgraded stage's
+    ``compute_dtype_ineligible{stage=,reason=}`` counter lands in the
+    run report (the resolve prints the notice and never raises).
+    Returns the resolved dtype."""
+    knob = cfg.compute_dtype or os.environ.get("ICLEAN_COMPUTE_DTYPE", "")
+    if knob != "bfloat16":
+        return "float32"
+    from iterative_cleaner_torch.backends.torch_backend import (
+        clean_device,
+        config_compute_dtype,
+    )
+
+    return config_compute_dtype(cfg, "engine", clean_device(cfg),
+                                telemetry.registry)
 
 
 def resolve_io_workers(value=None) -> int:
@@ -308,6 +361,7 @@ def clean_one(in_path: str, args, telemetry: RunTelemetry, mesh=None,
     chunk = stream_chunk(args.stream)
     if result is None:
         with timer.phase("clean"):
+            notice_compute_dtype_downgrade(cfg, telemetry)
             if chunk > 0:
                 result = clean_streaming(ar, chunk, cfg, mesh,
                                          mode=args.stream_mode)
@@ -412,7 +466,9 @@ def run_batched(args, telemetry: RunTelemetry, mesh=None) -> list:
     from iterative_cleaner_torch.parallel.batch import clean_archives_batched
 
     lead = mesh is None or mesh.rank == 0
-    cfg = config_of(args)
+    # the batch keeps no weight history, and the session writes none
+    # (only a checkpoint would, ROADMAP item 2c)
+    cfg = dataclasses.replace(config_of(args), record_history=False)
     phase = telemetry.registry.timer.phase
     paths = bucket_by_shape(list(args.archive))
     failed = []

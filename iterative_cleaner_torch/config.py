@@ -2,8 +2,13 @@
 
 The reference-algorithm fields keep the reference package's names and
 defaults.  The TPU route knobs (``stats_impl``, ``median_impl``,
-``fft_mode``, ``fused_sweep``, ``compute_dtype``) have no counterpart: on
-the port the device decides the kernels.  The route itself follows from
+``fft_mode``, ``fused_sweep``) have no counterpart: on the port the
+device decides the kernels.  ``compute_dtype`` is the reference's
+mixed-precision mode: ``"bfloat16"`` stores the cube-sized operands in
+bf16 after the float32 preamble and every stage still computes in
+float32 (resolved, env mirror and parity probe included, by
+:func:`iterative_cleaner_torch.backends.torch_backend.
+resolve_compute_dtype`).  The route itself follows from
 the algorithm fields and the archive, as in the reference
 (``disp_iteration_enabled`` and the stats frame; see
 :mod:`iterative_cleaner_torch.engine.loop`).  What the port cannot run
@@ -18,7 +23,8 @@ from typing import Optional, Tuple
 
 # ROADMAP.md "Modules still to port" items the refusals point at.
 _ROADMAP_F64 = "ROADMAP.md 'Modules still to port' item 1 (float64)"
-_ROADMAP_BF16 = "ROADMAP.md 'Modules still to port' item 6 (mixed precision)"
+
+COMPUTE_DTYPES = ("float32", "bfloat16")
 
 MESH_MODES = ("off", "cell", "batch")
 
@@ -53,6 +59,11 @@ class CleanConfig:
     baseline_duty: float = 0.15  # off-pulse window fraction
     baseline_mode: str = "integration"  # or "profile"
     dtype: str = "float32"
+    # mixed-precision storage: "bfloat16" keeps the cube-sized operands
+    # in bf16 on the device (and exact streaming's host store and
+    # uploads) while every sum, select and threshold stays float32;
+    # None defers to ICLEAN_COMPUTE_DTYPE, then "float32"
+    compute_dtype: Optional[str] = None
     record_history: bool = False
     unload_res: bool = False     # -u: also return the pulse-free residual
     # torch device the clean runs on; "cuda" raises when no card is
@@ -92,9 +103,23 @@ class CleanConfig:
             raise ValueError(
                 f"stream_hbm_mb must be >= 0 (0 disables the stream tile "
                 f"cache), got {self.stream_hbm_mb}")
+        if self.compute_dtype is not None \
+                and self.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(
+                f"unknown compute dtype {self.compute_dtype!r} (choose "
+                f"'float32' or 'bfloat16')")
+        if self.compute_dtype == "bfloat16" and self.dtype != "float32":
+            raise ValueError(
+                "compute_dtype='bfloat16' requires dtype='float32' (the "
+                "bf16 storage mode upcasts into float32 arithmetic)")
         if self.dtype == "bfloat16":
-            raise NotImplementedError(
-                f"bfloat16 is not ported yet: {_ROADMAP_BF16}")
+            # the reference accepts the field and its clean then raises
+            # ValueError (its rFFT takes float32 or float64); the port
+            # says so up front
+            raise ValueError(
+                "dtype='bfloat16' runs no clean (arithmetic in bf16 is "
+                "not offered): use dtype='float32' with "
+                "compute_dtype='bfloat16' for bf16 cube storage")
         if self.dtype != "float32":
             raise NotImplementedError(
                 f"dtype={self.dtype!r}: the port runs float32 only (the "

@@ -51,6 +51,7 @@ def config_from_reference(cfg, device: str = "cuda") -> CleanConfig:
         baseline_duty=float(cfg.baseline_duty),
         baseline_mode=str(cfg.baseline_mode),
         dtype=str(cfg.dtype),
+        compute_dtype=getattr(cfg, "compute_dtype", None),
         record_history=bool(cfg.record_history),
         unload_res=bool(cfg.unload_res),
         device=device,

@@ -53,8 +53,20 @@ resident cubes, and :func:`clean_loop_batch` iterates the batch as
 ``jax.vmap`` iterates the reference's ``while_loop``: until every
 archive has stopped, each archive's carry frozen from the iteration it
 stopped at.  Each iteration is one launch of each of the route's
-kernels for the whole batch (the batch folded into the launch), and the
-template stage takes the batch in its tensor ops.
+kernels for the whole batch (the batch folded into the launch); the
+template stage takes the batch in its tensor ops, its products and sums
+archive by archive at one archive's shapes (``ops.dsp.each_archive``),
+so that a batch's floats are bit-equal to its single cleans' on the
+card too (a library product or reduction may pick its kernel, and so its
+order of addition, by the shape it is given).
+
+Mixed precision (``CleanConfig.compute_dtype='bfloat16'``, the
+reference's ``compute_dtype``): :func:`store_prepared` narrows the
+route's cube-sized operands to bf16 after the float32 preamble, exactly
+where the reference does; every kernel upcasts each element it reads
+(K1, K2, K6, K7, K10 have bf16 builds), the template stage's products
+upcast a piece of subints at a time (``ops.dsp.subint_chunks``), and
+the plane-sized operands, the carries and every sum stay float32.
 """
 
 from __future__ import annotations
@@ -71,6 +83,7 @@ from iterative_cleaner_torch.ops.dsp import (
     prepare_cube_integration,
     prepare_cube_with_correction,
     rotate_bins,
+    subint_chunks,
     template_numerator_from_channel_profiles,
     template_residuals,
     trailing_sum,
@@ -123,6 +136,22 @@ SHARD_KERNELS = {
     "two_read": ROUTE_KERNELS["two_read"],
     "dedispersed": ("shard_diagnostics_dedisp", "combine_zap"),
 }
+# The kernels that read the cube, each with a build for a bf16-stored
+# cube counted apart (``<name>_bf16`` in stats.kernels.launch_counts).
+CUBE_KERNELS = ("weighted_marginals", "cell_diagnostics_disp",
+                "cell_diagnostics_two_read", "cell_diagnostics_dedisp",
+                "shard_diagnostics_disp", "shard_diagnostics_dedisp")
+
+
+def storage_kernels(kernels, compute_dtype: str) -> tuple:
+    """The launch-count names ``kernels`` (of :data:`ROUTE_KERNELS` and
+    the others) run under at ``compute_dtype``: the cube kernels' bf16
+    builds under ``'bfloat16'``, the rest (float32 planes) as named."""
+    if compute_dtype != "bfloat16":
+        return tuple(kernels)
+    return tuple(k + "_bf16" if k in CUBE_KERNELS else k for k in kernels)
+
+
 # K3's route on scaler lines over 46,486 entries (the archive's subints
 # or channels): K9 for the medians and these two for the centring and
 # the side (stats.kernels.scaled_sides_long), on any route.
@@ -199,7 +228,9 @@ def dispersed_residual_base(ded, back_shifts, *, window, rotation):
 
 class Prepared(NamedTuple):
     """What the preamble leaves on the device for one route (a batch's:
-    each tensor but ``window`` with a leading batch dimension)."""
+    each tensor but ``window`` with a leading batch dimension).  The
+    cubes (``ded``, ``disp_base``, ``disp_clean``) are float32, or bf16
+    after :func:`store_prepared`."""
 
     route: str
     back_shifts: torch.Tensor                 # (nchan,) re-dispersion shifts
@@ -253,8 +284,81 @@ def prepare(cube, weights, freqs_mhz, dm, ref_freq_mhz, period_s,
                     window)
 
 
+def store_prepared(prep: Prepared, compute_dtype: str) -> Prepared:
+    """The route's cubes in the storage dtype of ``compute_dtype``: under
+    ``'bfloat16'`` ``ded``, ``disp_base`` and ``disp_clean`` narrowed to
+    bf16 after the float32 preamble (the reference's ``clean_dedispersed_
+    jax``: the one narrowing of the mixed-precision mode; lossless where
+    the prepared cube is bf16-exact), a cube the route keeps twice (the
+    default route's ``disp_base`` is its ``disp_clean``) narrowed once.
+    The shifts, offsets and window stay float32.  ``'float32'`` returns
+    ``prep`` itself."""
+    if compute_dtype == "float32":
+        return prep
+    if compute_dtype != "bfloat16":
+        raise ValueError(f"unknown compute dtype {compute_dtype!r}")
+    narrowed = {}
+
+    def narrow(t):
+        if t is None:
+            return None
+        if t.data_ptr() not in narrowed:
+            narrowed[t.data_ptr()] = t.to(torch.bfloat16)
+        return narrowed[t.data_ptr()]
+
+    return prep._replace(ded=narrow(prep.ded),
+                         disp_base=narrow(prep.disp_base),
+                         disp_clean=narrow(prep.disp_clean))
+
+
+def prepare_stored(piece, shape, weights, freqs_mhz, dm, ref_freq_mhz,
+                   period_s, config: CleanConfig, *, dedispersed,
+                   compute_dtype: str, mesh=None) -> Prepared:
+    """:func:`prepare` then :func:`store_prepared` of a cube of ``shape``
+    (nsub, nchan, nbin), its float32 subints ``sl`` uploaded by
+    ``piece(sl)`` (each upload consumed by the preamble).  Under
+    ``'float32'`` one piece, the whole cube.  Under ``'bfloat16'`` the
+    preamble runs a :func:`~iterative_cleaner_torch.ops.dsp.subint_chunks`
+    piece at a time (every step of it is local to a subint, as exact
+    streaming uses it) and each piece's cubes are narrowed into the
+    resident bf16 cubes, so that the whole float32 cube is never on the
+    device and the peak falls to the resident bf16 cubes and one piece's
+    temporaries.  A piece's float32 products may round differently from
+    a whole cube's in the last bit, so an element next to a bf16 rounding
+    boundary may store the other neighbour; every clean of a shape cuts
+    the same pieces (a single clean, each archive of a batch, a one-rank
+    mesh's block)."""
+    meta = (freqs_mhz, dm, ref_freq_mhz, period_s)
+    nsub = shape[0]
+    if compute_dtype == "float32":
+        return prepare(piece(slice(0, nsub)), weights, *meta, config,
+                       dedispersed=dedispersed, mesh=mesh)
+    names = ("ded", "disp_base", "disp_clean", "base_offsets")
+    out, first = {}, None
+    for sl in subint_chunks(*shape):
+        part = store_prepared(prepare(piece(sl), weights[sl], *meta, config,
+                                      dedispersed=dedispersed, mesh=mesh),
+                              compute_dtype)
+        if first is None:
+            first, owner = part, {}
+            for name in names:
+                t = getattr(part, name)
+                if t is not None and t.data_ptr() not in owner:
+                    owner[t.data_ptr()] = t.new_empty((nsub,) + t.shape[1:])
+                out[name] = None if t is None else owner[t.data_ptr()]
+        done = set()
+        for name in names:
+            dst = out[name]
+            if dst is not None and id(dst) not in done:
+                dst[sl] = getattr(part, name)
+                done.add(id(dst))
+        del part
+    return first._replace(**out)
+
+
 def prepare_batch(cubes, weights, freqs_mhz, dms, ref_freqs_mhz, periods_s,
-                  config: CleanConfig, *, dedispersed) -> Prepared:
+                  config: CleanConfig, *, dedispersed,
+                  compute_dtype: str = "float32") -> Prepared:
     """:func:`prepare` on each archive of a batch: the stacked upload
     ``cubes`` (B, nsub, nchan, nbin) (consumed), ``weights`` (B, nsub,
     nchan), ``freqs_mhz`` (B, nchan) and the (B,) ``dms``,
@@ -263,13 +367,17 @@ def prepare_batch(cubes, weights, freqs_mhz, dms, ref_freqs_mhz, periods_s,
     a cube the route keeps in the upload itself (``disp_clean``, the
     profile baseline's ``ded``) stays there, the others are copied into
     stacked cubes allocated at the first archive, so the preamble's
-    temporaries stay one archive's.  The pulse window is shared."""
+    temporaries stay one archive's.  Under ``compute_dtype='bfloat16'``
+    each archive's cubes are narrowed after its float32 preamble, a piece
+    at a time as a single clean's (:func:`prepare_stored`), into stacked
+    bf16 cubes.  The pulse window is shared."""
     names = ("back_shifts", "ded", "disp_base", "disp_clean", "base_offsets")
     stacked, prep = {}, None
     for b in range(cubes.shape[0]):
-        prep = prepare(cubes[b], weights[b], freqs_mhz[b], dms[b],
-                       ref_freqs_mhz[b], periods_s[b], config,
-                       dedispersed=dedispersed)
+        prep = prepare_stored(
+            lambda sl, b=b: cubes[b][sl], tuple(cubes.shape[1:]), weights[b],
+            freqs_mhz[b], dms[b], ref_freqs_mhz[b], periods_s[b], config,
+            dedispersed=dedispersed, compute_dtype=compute_dtype)
         if b == 0:
             owner = {cubes[0].data_ptr(): cubes}
             for name in names:
@@ -382,7 +490,9 @@ def build_template(prep: Prepared, weights, *, rotation, baseline_duty,
     the whole cube).  Other routes: the weighted template over ``ded``
     and, under the integration baseline, the correction over
     ``disp_clean`` — plain products, as in the reference.  ``mesh``: the
-    sums that cross a rank's shard (see the module docstring)."""
+    sums that cross a rank's shard (see the module docstring).  A batch's
+    (B, nsub, nchan) ``weights`` give (B, nbin) templates, each bit-equal
+    to its archive's single clean's."""
     if prep.route == "default":
         num, corr = template_partial("default", prep.disp_base, weights,
                                      prep.base_offsets, None,
@@ -434,14 +544,15 @@ def route_diagnostics(prep: Prepared, template, orig_weights, cell_mask, *,
 def _dispersed_rows(prep: Prepared, template, rotation):
     """The dispersed-frame kernels' (nchan, nbin) rows: the (windowed)
     template rotated to each channel, and the Nyquist correction rows of
-    the one-read fit (None where the rotation round-trips exactly); (B,
-    nchan, nbin) for a batch."""
+    the one-read fit (None where the rotation round-trips exactly);
+    float32 whatever the cube's storage.  (B, nchan, nbin) for a batch,
+    each archive's rows bit-equal to its single clean's."""
     nchan, nbin = prep.disp_base.shape[-2:]
     t = template if prep.window is None else template * prep.window
     rot_t = rotate_bins(t[..., None, :].expand(*t.shape[:-1], nchan, nbin),
                         prep.back_shifts, method=rotation).contiguous()
     return rot_t, nyq_correction_row(prep.back_shifts, nbin, rotation,
-                                     prep.disp_base.dtype)
+                                     prep.back_shifts.dtype)
 
 
 def iteration_step(prep: Prepared, weights, orig_weights, cell_mask, *,
@@ -667,11 +778,15 @@ def unload_residual(prep: Prepared, template_weights, *, rotation,
     integration correction), the closed-form fit, ``amp * t - ded`` with
     the pulse window's bins scaled, rotated back by the re-dispersion
     shifts.  The default route keeps no ``ded``: its ``disp_clean`` is
-    rotated into the dedispersed frame here, once."""
+    rotated into the dedispersed frame here, once.  A bf16-stored cube is
+    upcast whole here, once after the loop: the residual it gives is a
+    float32 cube of the same size anyway."""
     ded = prep.ded
     if ded is None:
-        ded = rotate_bins(prep.disp_clean, -prep.back_shifts,
+        ded = rotate_bins(prep.disp_clean.float(), -prep.back_shifts,
                           method=rotation)
+    else:
+        ded = ded.float()
     template = weighted_template(ded, template_weights)
     if prep.disp_clean is not None:
         template = template + template_correction(

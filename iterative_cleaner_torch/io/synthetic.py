@@ -204,3 +204,37 @@ def make_synthetic_archive(
         prezapped=prezapped,
     )
     return ar, truth
+
+
+def make_bf16_exact_archive(nsub: int = 8, nchan: int = 16, nbin: int = 32,
+                            seed: int = 0):
+    """An archive whose whole clean is lossless in bf16 storage (the
+    reference's ``tests/test_mixed_precision.py`` construction): samples
+    on the bf16 grid, DM 0 (zero shifts), the last quarter of every
+    profile exactly zero (with non-negative samples the baseline window
+    lands there, so the subtracted baseline is exactly 0), RFI spikes in
+    the first half.  With ``rotation='roll'`` its bf16 masks equal its
+    float32 masks.  The metadata are :func:`make_synthetic_archive`'s
+    (float32, DM 0, undispersed), its cube not drawn."""
+    import torch
+
+    freqs = 1400.0 + 200.0 * (np.arange(nchan) / nchan - 0.5)
+    rng = np.random.default_rng(seed)
+    phase = (np.arange(nbin) + 0.5) / nbin
+    profile = np.exp(-0.5 * ((phase - 0.3) / 0.05) ** 2)
+    spectrum = 1.0 + 0.5 * np.arange(nchan) / nchan
+    gain = 1.0 + 0.3 * np.arange(nsub) / max(1, nsub)
+    cube = (30.0 * gain[:, None, None] * spectrum[None, :, None]
+            * profile[None, None, :]).astype(np.float32)
+    cube[:, :, 3 * nbin // 4:] = 0.0
+    cells = rng.choice(nsub * nchan, size=max(4, nsub * nchan // 24),
+                       replace=False)
+    for s, c in zip(*np.unravel_index(cells, (nsub, nchan))):
+        bins = rng.integers(0, nbin // 2, size=max(1, nbin // 16))
+        cube[s, c, bins] += 40.0
+    data = torch.from_numpy(cube).to(torch.bfloat16).float().numpy()
+    return Archive(
+        data=data[:, None], weights=np.ones((nsub, nchan), np.float32),
+        freqs_mhz=freqs.astype(np.float32), period_s=0.714, dm=0.0,
+        centre_freq_mhz=1400.0, source=f"FAKE{seed:04d}+{nchan:02d}",
+        pol_state="Intensity", filename="")

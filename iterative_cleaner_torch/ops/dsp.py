@@ -22,8 +22,13 @@ off by :func:`iterative_cleaner_torch.backends.torch_backend.clean_cube`).
 The template stage's functions also take a batch of equal-shaped
 archives (``parallel/batch.py``): a leading dimension B on the weights
 (B, nsub, nchan), the cubes, the channel profiles and the shifts (B,
-nchan), each archive's sums its own.  On one archive they run the same
-ops as before the batch existed.
+nchan), each archive's sums its own.  Their elementwise ops take the
+batch whole; their products and sums, whose kernels (cuBLAS's, the
+reductions') are picked by the shape they are given and so add in an
+order that may follow it, run archive by archive at one archive's
+shapes (:func:`each_archive`): a batch's values are then bit-equal to
+its archives' single cleans' on the card too.  On one archive they run
+the same ops as before the batch existed.
 """
 
 from __future__ import annotations
@@ -37,6 +42,9 @@ from iterative_cleaner_torch.archive import KDM_S
 # The reference's gate for the matmul rotation of cubes: the
 # (nchan, nbin, nbin) operator tensor, in elements (512 MB of float32).
 _ROT_MATMUL_MAX_ELEMS = 2 ** 27
+# float32 bytes of one piece of a cube-sized product over subints
+# (:func:`subint_chunks`)
+UPCAST_CHUNK_BYTES = 256 * 2 ** 20
 # Elements of the cube one channel chunk of a cube rotation covers
 # (256 MB of float32): bounds each chunk's permuted copies.
 _ROTATE_CHUNK_ELEMS = 2 ** 26
@@ -59,22 +67,47 @@ def _rfft_tables(nbin: int, dtype, device):
     return torch.cos(ang), torch.sin(ang)
 
 
+def each_archive(fn, ndim: int, *xs):
+    """``fn(*xs)`` on one archive's tensors (the first with ``ndim``
+    dimensions); on a batch's (one more, leading), ``fn`` on each
+    archive's slices, stacked: a product or a sum then runs at one
+    archive's shapes, as in that archive's single clean."""
+    if xs[0].dim() == ndim:
+        return fn(*xs)
+    return torch.stack([fn(*(x[b] for x in xs))
+                        for b in range(xs[0].shape[0])])
+
+
 def trailing_sum(x, ndim: int):
     """The sum over the last ``ndim`` dimensions: ``torch.sum(x)`` (a
-    0-d tensor) where those are all of ``x``'s, one archive; one sum per
-    archive of a batch otherwise."""
-    if x.dim() == ndim:
-        return torch.sum(x)
-    return torch.sum(x, dim=tuple(range(-ndim, 0)))
+    0-d tensor) where those are all of ``x``'s, one archive; one such
+    sum per archive of a batch otherwise (:func:`each_archive`)."""
+    return each_archive(torch.sum, ndim, x)
+
+
+def subint_chunks(nsub: int, nchan: int, nbin: int):
+    """Slices of the subint axis of an (nsub, nchan, nbin) cube, at most
+    :data:`UPCAST_CHUNK_BYTES` of float32 each: the pieces a cube-sized
+    product reads, so that a bf16-stored cube is upcast a piece at a
+    time (the reference's ``_acc`` convert, which XLA fuses into the
+    product, would be a whole float32 copy of the cube in torch).  The
+    pieces depend on the shape only, so a float32 cube and its bf16 twin
+    run the same products."""
+    per = max(1, UPCAST_CHUNK_BYTES // (4 * nchan * nbin))
+    return [slice(s, min(s + per, nsub)) for s in range(0, nsub, per)]
 
 
 def weighted_channel_sum(weights, cube):
     """``sum_c w[s, c] * cube[s, c, :]``, (nsub, nbin) per archive (as
     the reference groups it: per-subint (1, C) x (C, B) products); (B,
-    nsub, nbin) for a batch."""
-    if weights.dim() == 2:
-        return torch.einsum("sc,scb->sb", weights, cube)
-    return torch.einsum("xsc,xscb->xsb", weights, cube)
+    nsub, nbin) for a batch.  A bf16-stored cube is upcast to float32 a
+    :func:`subint_chunks` piece at a time; the products are float32."""
+    def one(w, c):
+        parts = [torch.einsum("sc,scb->sb", w[sl], c[sl].float())
+                 for sl in subint_chunks(*c.shape)]
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+    return each_archive(one, 2, weights, cube)
 
 
 def _irfft_weights(nbin: int, device):
@@ -109,23 +142,32 @@ def _rotate_fft(x, s_chan):
     return torch.fft.irfft(spec * phase, n=nbin, dim=-1).to(x.dtype)
 
 
-def _rotate_rows(x, s_chan):
-    """(nchan, nbin) rows, each rotated by its own fourier shift."""
+def _rotate_rows(x, s_chan, group=None):
+    """(nchan, nbin) rows, each rotated by its own fourier shift;
+    ``group``: the rows of one archive of a batch's B * nchan rows, each
+    archive's products taken apart, at one archive's shapes."""
     nchan, nbin = x.shape
     if not _use_matmul_rotation(nchan, nbin, 2, x.dtype):
         return _rotate_fft(x, s_chan)
     dtype = x.dtype
     cos_bk, sin_bk = _rfft_tables(nbin, dtype, x.device)
     kf = torch.arange(nbin // 2 + 1, device=x.device).to(dtype)
-    xr = x @ cos_bk
-    xi = -(x @ sin_bk)
+
+    def mm(a, b):
+        if group is None or group == a.shape[0]:
+            return a @ b
+        return torch.cat([a[r:r + group] @ b
+                          for r in range(0, a.shape[0], group)])
+
+    xr = mm(x, cos_bk)
+    xi = -mm(x, sin_bk)
     theta = (2.0 * math.pi / nbin) * torch.outer(s_chan, kf)
     pr = torch.cos(theta)
     pi_ = -torch.sin(theta)
     xr_p = xr * pr - xi * pi_
     xi_p = xr * pi_ + xi * pr
     wk = (_irfft_weights(nbin, x.device) / nbin).to(dtype)[None, :]
-    return (xr_p * wk) @ cos_bk.T - (xi_p * wk) @ sin_bk.T
+    return mm(xr_p * wk, cos_bk.T) - mm(xi_p * wk, sin_bk.T)
 
 
 def rotation_operators(s_chan, nbin: int):
@@ -158,7 +200,8 @@ def rotate_bins(x, shift_bins, method="fourier"):
     cos(pi*s)); ``roll``: nearest-integer gather, exact.
 
     A batch's rows, (B, nchan, nbin) with (B, nchan) shifts (each
-    archive its own), are rotated as B * nchan rows."""
+    archive its own), are rotated as B * nchan rows, each archive's
+    products taken at one archive's shapes."""
     if method not in ("fourier", "roll"):
         raise ValueError(f"unknown rotation method {method!r}")
     if x.ndim < 2:
@@ -170,8 +213,11 @@ def rotate_bins(x, shift_bins, method="fourier"):
             raise ValueError(f"per-archive shifts {tuple(shift_bins.shape)} "
                              f"take (B, nchan, nbin) rows, got "
                              f"{tuple(x.shape)}")
-        return rotate_bins(x.reshape(-1, nbin), shift_bins.reshape(-1),
-                           method).reshape(x.shape)
+        rows, shifts = x.reshape(-1, nbin), shift_bins.reshape(-1)
+        if method == "roll":
+            return rotate_bins(rows, shifts, method).reshape(x.shape)
+        return _rotate_rows(rows, shifts.to(x.dtype),
+                            group=nchan).reshape(x.shape)
     s_chan = torch.broadcast_to(shift_bins.to(x.dtype), (nchan,))
     if method == "roll":
         base = torch.arange(nbin, device=x.device)
@@ -308,7 +354,8 @@ def template_numerator_from_channel_profiles(a, back_shifts, rotation,
     the cube (rotation is linear, weighting bin-independent).  On a cell
     ``mesh``, ``a`` holds the rank's channels and the sum crosses its
     row."""
-    num = rotate_bins(a, -back_shifts, method=rotation).sum(dim=-2)
+    num = each_archive(lambda r: r.sum(dim=-2), 2,
+                       rotate_bins(a, -back_shifts, method=rotation))
     return num if mesh is None else mesh.total(num, "chan")
 
 
@@ -317,7 +364,8 @@ def weighted_template_numerator(cube, weights):
     cells, grouped as the reference groups it: per-subint (1, C) x (C, B)
     products, then the sum over subints.  Exact streaming accumulates it
     per subint tile on the routes other than the default."""
-    return weighted_channel_sum(weights, cube).sum(dim=-2)
+    return each_archive(lambda t: t.sum(dim=-2), 2,
+                        weighted_channel_sum(weights, cube))
 
 
 def weighted_template(cube, weights, mesh=None):

@@ -78,13 +78,15 @@ def template_correction_numerator_from_totals(t1, base_offsets, weights,
     is this rank's subints' (summed over its row already): the per-subint
     offset sums cross the row, the sum of the minima the column, the
     weighted offsets' total every rank."""
-    from iterative_cleaner_torch.ops.dsp import trailing_sum
+    from iterative_cleaner_torch.ops.dsp import each_archive, trailing_sum
 
     w = window_width(t1.shape[-1], duty)
-    r = torch.sum(weights * base_offsets, dim=-1)
+    r = each_archive(lambda x: torch.sum(x, dim=-1), 2,
+                     weights * base_offsets)
     if mesh is not None:
         r = mesh.total(r, "chan")
-    sm = centred_window_means(t1, w) + r[..., None]
+    sm = each_archive(lambda t: centred_window_means(t, w), 2, t1) \
+        + r[..., None]
     total = trailing_sum(weights * base_offsets, 2)
     minima = trailing_sum(torch.min(sm, dim=-1).values, 1)
     if mesh is not None:
@@ -102,8 +104,10 @@ def template_correction_numerator_raw(cube_raw, base_offsets, weights,
     cell ``mesh`` (a rank's block of the tile) the totals sum over the
     rank's row, the minima over its column, the weighted offsets over
     every rank."""
+    from iterative_cleaner_torch.ops.dsp import weighted_channel_sum
+
     w = window_width(cube_raw.shape[-1], duty)
-    t1 = torch.einsum("sc,scb->sb", weights, cube_raw)
+    t1 = weighted_channel_sum(weights, cube_raw)
     if mesh is not None:
         t1 = mesh.total(t1, "chan")
     sm = centred_window_means(t1, w)

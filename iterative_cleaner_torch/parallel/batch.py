@@ -11,9 +11,12 @@ dimension and runs :func:`~iterative_cleaner_torch.engine.loop.
 prepare_batch` and :func:`~iterative_cleaner_torch.engine.loop.
 clean_loop_batch`: each iteration launches each of the route's kernels
 once for the whole batch.  Each archive's result is that of a clean of it
-alone: masks, loops, convergence and per-loop counts equal, scores
-bit-equal where the template stage's batched reductions add in the same
-order as the one-archive ones (PERF.md states where they do not).
+alone: masks, loops, convergence, per-loop counts and scores equal,
+bit for bit (the template stage runs each archive's tensor ops at one
+archive's shapes).  Under ``compute_dtype='bfloat16'`` (resolved with
+``stage='batch'``) the stacked resident cubes are bf16, each archive's
+narrowed after its float32 preamble, and the folded K1, K2, K6 and K7
+launches read them.
 
 On a ('batch',) mesh (:func:`~iterative_cleaner_torch.parallel.mesh.
 batch_mesh`) the batch is zero-weight padded to a multiple of the ranks,
@@ -29,7 +32,10 @@ import numpy as np
 import torch
 
 from iterative_cleaner_torch.backends.base import CleanResult, apply_bad_parts
-from iterative_cleaner_torch.backends.torch_backend import clean_device
+from iterative_cleaner_torch.backends.torch_backend import (
+    clean_device,
+    config_compute_dtype,
+)
 from iterative_cleaner_torch.config import CleanConfig
 from iterative_cleaner_torch.engine.loop import (
     BatchOutputs,
@@ -120,8 +126,11 @@ def _clean_stack(archives, pad, like, config: CleanConfig, device,
         stack_archive_batch(archives, pad, device, like)
     if registry is not None:
         registry.counter_inc("batch_h2d_bytes", nbytes)
-    prep = prepare_batch(cubes, weights, freqs, dms, refs, periods, config,
-                         dedispersed=bool(like.dedispersed))
+    prep = prepare_batch(
+        cubes, weights, freqs, dms, refs, periods, config,
+        dedispersed=bool(like.dedispersed),
+        compute_dtype=config_compute_dtype(config, "batch", device,
+                                           registry))
     del cubes   # the route's resident cubes hold what it reads
     return clean_loop_batch(
         prep, weights, max_iter=config.max_iter,

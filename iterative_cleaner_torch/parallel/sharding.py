@@ -12,7 +12,9 @@ per rank where the reference shards one program over a device mesh:
 - each rank converts and uploads only its block of the cube;
 - :func:`~iterative_cleaner_torch.engine.loop.prepare` and
   :func:`~iterative_cleaner_torch.engine.loop.clean_loop` run on the
-  block with the rank's :class:`~iterative_cleaner_torch.parallel.mesh.
+  block (stored bf16 after the preamble under ``compute_dtype=
+  'bfloat16'``, resolved with ``stage='mesh'``: K10, K1 and K7 read the
+  bf16 block) with the rank's :class:`~iterative_cleaner_torch.parallel.mesh.
   CellMesh` (the sums, selects and cycle check that cross blocks);
 - the final weights and scores are gathered to rank 0, cropped, the pad
   cells taken out of the zap telemetry, and the whole-line sweep
@@ -36,10 +38,11 @@ from iterative_cleaner_torch.backends import base
 from iterative_cleaner_torch.backends.base import CleanResult
 from iterative_cleaner_torch.backends.torch_backend import (
     clean_device,
+    config_compute_dtype,
     upload_meta,
 )
 from iterative_cleaner_torch.config import CleanConfig, check_mesh
-from iterative_cleaner_torch.engine.loop import clean_loop, prepare
+from iterative_cleaner_torch.engine.loop import clean_loop, prepare_stored
 from iterative_cleaner_torch.parallel.distributed import host_fetch
 from iterative_cleaner_torch.parallel.mesh import CellMesh, cell_mesh
 
@@ -98,14 +101,20 @@ def _block(a, layout: ShardLayout) -> np.ndarray:
     return out
 
 
-def upload_shard(cube, weights, freqs_mhz, layout: ShardLayout, device):
-    """This rank's block of the cube and the weights as float32 tensors
-    on ``device``, and its channels' frequencies on the host (a padded
-    channel takes the last real channel's)."""
+def shard_host(cube, weights, freqs_mhz, layout: ShardLayout):
+    """This rank's block of the cube and the weights as float32 host
+    arrays, and its channels' frequencies (a padded channel takes the
+    last real channel's)."""
     chans = np.minimum(np.arange(layout.c0, layout.c1), layout.nchan - 1)
-    return (torch.from_numpy(_block(cube, layout)).to(device),
-            torch.from_numpy(_block(weights, layout)).to(device),
+    return (_block(cube, layout), _block(weights, layout),
             np.asarray(freqs_mhz)[chans])
+
+
+def upload_shard(cube, weights, freqs_mhz, layout: ShardLayout, device):
+    """:func:`shard_host`'s block and weights as tensors on ``device``,
+    and the frequencies."""
+    c, w, f = shard_host(cube, weights, freqs_mhz, layout)
+    return torch.from_numpy(c).to(device), torch.from_numpy(w).to(device), f
 
 
 def clean_cube_sharded(cube, weights, freqs_mhz, dm, centre_freq_mhz,
@@ -126,13 +135,16 @@ def clean_cube_sharded(cube, weights, freqs_mhz, dm, centre_freq_mhz,
                          f"device {mesh.device} differ in type")
     nsub, nchan = int(cube.shape[0]), int(cube.shape[1])
     layout = shard_layout(mesh, nsub, nchan)
-    cube_t, w_t, freqs = upload_shard(cube, weights, freqs_mhz, layout,
-                                      mesh.device)
-    prep = prepare(cube_t, w_t,
-                   *upload_meta(freqs, dm, centre_freq_mhz, period_s,
-                                mesh.device),
-                   config, dedispersed=dedispersed, mesh=mesh)
-    del cube_t   # consumed by the preamble
+    compute_dtype = config_compute_dtype(config, "mesh", mesh.device)
+    block, w_host, freqs = shard_host(cube, weights, freqs_mhz, layout)
+    w_t = torch.from_numpy(w_host).to(mesh.device)
+    # each upload of the block is consumed by the preamble
+    prep = prepare_stored(
+        lambda sl: torch.from_numpy(block[sl]).to(mesh.device), block.shape,
+        w_t, *upload_meta(freqs, dm, centre_freq_mhz, period_s, mesh.device),
+        config, dedispersed=dedispersed, compute_dtype=compute_dtype,
+        mesh=mesh)
+    del block
     outs = clean_loop(
         prep, w_t, max_iter=config.max_iter, chanthresh=config.chanthresh,
         subintthresh=config.subintthresh, rotation=config.rotation,

@@ -39,6 +39,15 @@ pass uploads every tile, at most a few tiles are on the card at once
 event), and the card uploads the cube ``1 + 2 * loops`` times on the
 default route; under a budget that holds every tile, once.
 
+Mixed precision (``compute_dtype='bfloat16'``) follows the reference's
+streaming quantization points, which are not the whole clean's: every
+raw tile is converted from the host's float64 to bf16 (as ml_dtypes'
+``astype`` rounds: through float32) before its upload, upcast on the
+device for the float32 preamble, and the prepared tile is narrowed to
+bf16; the host store, the uploads and the tile cache hold bf16, so the
+cube bytes uploaded halve and the same budget pins twice the tiles.  The
+two_read route's residual base is built in float32 from the upcast tile.
+
 Masks equal the whole clean's: every per-cell quantity is computed by
 the same code on the same inputs, and only the template's cross-tile
 sum is regrouped (K1 also sums its 64-subint partials per tile), which
@@ -77,6 +86,7 @@ import torch
 from iterative_cleaner_torch.backends.base import CleanResult, apply_bad_parts
 from iterative_cleaner_torch.backends.torch_backend import (
     clean_device,
+    config_compute_dtype,
     upload,
     upload_meta,
 )
@@ -211,6 +221,20 @@ def _tile_event(device, timing=False):
     return event
 
 
+def host_store_tile(dst: torch.Tensor, src) -> None:
+    """Write the host float64 (or float32) tile ``src`` into the store's
+    ``dst`` (float32 or bf16).  A float64 value goes to bf16 as the
+    reference's ml_dtypes ``astype`` takes it: rounded to float32, then
+    to bf16 (round to nearest even each time; torch's conversion from
+    float64 rounds the same two steps)."""
+    src = np.asarray(src)
+    if dst.dtype == torch.float32:
+        dst.numpy()[...] = src
+    else:
+        dst.copy_(torch.from_numpy(np.ascontiguousarray(
+            src, dtype=np.float32)))
+
+
 def _clean_exact(cube, weights, freqs_mhz, dm, ref_freq_mhz, period_s,
                  config: CleanConfig, tiles, dedispersed,
                  registry=None, mesh=None) -> CleanResult:
@@ -221,6 +245,10 @@ def _clean_exact(cube, weights, freqs_mhz, dm, ref_freq_mhz, period_s,
                              f"rank's device {mesh.device} differ in type")
         device = mesh.device
     on_card = device.type == "cuda"
+    compute_dtype = config_compute_dtype(config, "streaming", device,
+                                         registry)
+    store_dtype = torch.bfloat16 if compute_dtype == "bfloat16" \
+        else torch.float32
     route = select_route(config, dedispersed)
     integration = config.baseline_mode == "integration"
     keep_raw = integration and route != "default"
@@ -243,7 +271,7 @@ def _clean_exact(cube, weights, freqs_mhz, dm, ref_freq_mhz, period_s,
     # the uploads are asynchronous
     t0 = time.perf_counter()
     store = torch.empty((2 if keep_raw else 1, n_local, c_loc, nbin),
-                        dtype=torch.float32, pin_memory=on_card)
+                        dtype=store_dtype, pin_memory=on_card)
     gauge("host_store_alloc_ms", (time.perf_counter() - t0) * 1e3)
 
     # the (nsub, nchan) planes stay on the device: nbin times smaller
@@ -268,7 +296,7 @@ def _clean_exact(cube, weights, freqs_mhz, dm, ref_freq_mhz, period_s,
 
     def tile_bytes(i):
         sl = lay.local[i]
-        return (sl.stop - sl.start) * c_loc * nbin * 4
+        return (sl.stop - sl.start) * c_loc * nbin * store.element_size()
 
     # the residency plan: the prepared tiles (two uploads per iteration
     # saved each), then the raw ones (one)
@@ -285,16 +313,20 @@ def _clean_exact(cube, weights, freqs_mhz, dm, ref_freq_mhz, period_s,
         slot = store[_RAW if keep_raw else _PREP, lsl]
         rows = lay.rows[lsl]
         n_real = int(np.sum(rows >= 0))   # the pad rows come last
-        # float64 -> float32, one tile (block)
-        slot.numpy()[:n_real] = cube[rows[0]:rows[0] + n_real, lay.chans]
-        slot.numpy()[n_real:] = 0
+        # float64 -> the store's dtype, one tile (block)
+        host_store_tile(slot[:n_real],
+                        cube[rows[0]:rows[0] + n_real, lay.chans])
+        slot[n_real:] = 0
         raw_key = ("raw", i) if keep_raw else None
         raw_d = cache.get(raw_key, slot, cube=True)
         # the preamble subtracts in place: a pinned raw tile stays raw
-        work = raw_d.clone() if keep_raw and cache.holds(raw_key) else raw_d
+        # (a bf16 one is upcast into a new float32 tile)
+        work = raw_d.clone() if keep_raw and cache.holds(raw_key) \
+            and store_dtype == torch.float32 else raw_d.float()
         p = prepare(work, orig_w_d[lsl], *meta, config,
                     dedispersed=dedispersed, residual_base=False, mesh=mesh)
         tile_d = p.disp_base if route == "default" else p.ded
+        tile_d = tile_d.to(store_dtype)
         shifts, window = p.back_shifts, p.window
         if integration:
             offsets_d[lsl] = p.base_offsets
@@ -365,6 +397,10 @@ def _clean_exact(cube, weights, freqs_mhz, dm, ref_freq_mhz, period_s,
 
         def run_diag(i, tile_d):
             sl, lsl = tiles[i], lay.local[i]
+            if route == "two_read":
+                # its residual base in float32 from the upcast tile, as
+                # the reference builds it (K7 then reads float32 cubes)
+                tile_d = tile_d.float()
             diags = route_diagnostics(
                 tile_prepared(route, tile_d, shifts, window,
                               rotation=rotation),

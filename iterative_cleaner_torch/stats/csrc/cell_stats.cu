@@ -44,6 +44,12 @@
 // the Nyquist term as a compile-time flag: a run-time test of the row
 // pointer in every bin made it measurably slower on the card.
 //
+// A bf16-stored cube (`bf16`; the mixed-precision mode) runs the same
+// kernel over 2-byte elements, each upcast where phase 1 reads it
+// (cell_stats.cuh): the planes are bit-equal to the float32 launch on the
+// upcast cube, the staged bytes halve, and the DFT, which bounds it, is
+// unchanged.
+//
 // A batch of equal-shaped archives is one launch over all their cells
 // (`cpa` cells an archive; cell_stats.cuh): the TPU kernels fold the
 // batch into their subint grid (_FusedScaffold's batch=).
@@ -51,12 +57,12 @@
 #include "cell_stats.cuh"
 
 extern "C" int icln_cell_stats_disp(
-    const float* disp, const float* rott, const float* nyq, const float* w,
+    const void* disp, const float* rott, const float* nyq, const float* w,
     const unsigned char* mask, const float* cos_t, const float* sin_t,
     const float* tt, float* d_std, float* d_mean, float* d_ptp, float* d_fft,
     long long ncells, long long cpa, int nchan, int nbin, int group, int ctile, int kchunk,
     int bchunk, int nkp, int producers, int threads, int grid, long long smem_bytes, float inv_n,
-    void* stream) {
+    int bf16, void* stream) {
   CellStatsArgs p = icln_cell_stats_args(mask, w, cos_t, sin_t, tt, d_std,
                                          d_mean, d_ptp, d_fft, ncells, nchan,
                                          nbin, group, kchunk, bchunk, nkp,
@@ -65,21 +71,26 @@ extern "C" int icln_cell_stats_disp(
   p.cube = disp;
   p.rott = rott;
   p.nyq = nyq;
-  if (nyq)
-    return icln_cell_stats_launch<ResDisp<true>>(p, ctile, producers, threads, grid, smem_bytes,
-                                                   stream);
-  return icln_cell_stats_launch<ResDisp<false>>(p, ctile, producers, threads, grid, smem_bytes,
-                                                   stream);
+  if (bf16)
+    return nyq ? icln_cell_stats_launch<ResDisp<icln_bf16, true>>(p, ctile, producers, threads,
+                                                                  grid, smem_bytes, stream)
+               : icln_cell_stats_launch<ResDisp<icln_bf16, false>>(p, ctile, producers, threads,
+                                                                   grid, smem_bytes, stream);
+  return nyq ? icln_cell_stats_launch<ResDisp<float, true>>(p, ctile, producers, threads, grid,
+                                                            smem_bytes, stream)
+             : icln_cell_stats_launch<ResDisp<float, false>>(p, ctile, producers, threads, grid,
+                                                             smem_bytes, stream);
 }
 
 extern "C" int icln_cell_stats_two_read(
-    const float* ded, const float* disp_base, const float* rott,
+    const void* ded, const void* disp_base, const float* rott,
     const float* tmpl, const float* w, const unsigned char* mask,
     const float* cos_t, const float* sin_t, const float* tt, float* d_std,
     float* d_mean, float* d_ptp, float* d_fft, long long ncells, long long cpa, int nchan,
     int nbin, int group, int ctile, int kchunk, int bchunk, int nkp, int producers,
     int threads,
-    int grid, long long smem_bytes, float inv_n, void* stream) {
+    int grid, long long smem_bytes, float inv_n, int bf16,
+    void* stream) {
   CellStatsArgs p = icln_cell_stats_args(mask, w, cos_t, sin_t, tt, d_std,
                                          d_mean, d_ptp, d_fft, ncells, nchan,
                                          nbin, group, kchunk, bchunk, nkp,
@@ -89,17 +100,19 @@ extern "C" int icln_cell_stats_two_read(
   p.base = disp_base;
   p.rott = rott;
   p.tmpl = tmpl;
-  return icln_cell_stats_launch<ResTwoRead>(p, ctile, producers, threads, grid, smem_bytes,
-                                                   stream);
+  return bf16 ? icln_cell_stats_launch<ResTwoRead<icln_bf16>>(p, ctile, producers, threads, grid,
+                                                          smem_bytes, stream)
+              : icln_cell_stats_launch<ResTwoRead<float>>(p, ctile, producers, threads, grid,
+                                                      smem_bytes, stream);
 }
 
 extern "C" int icln_cell_stats_dedisp(
-    const float* ded, const float* tmpl, const float* win, const float* w,
+    const void* ded, const float* tmpl, const float* win, const float* w,
     const unsigned char* mask, const float* cos_t, const float* sin_t,
     const float* tt, float* d_std, float* d_mean, float* d_ptp, float* d_fft,
     long long ncells, long long cpa, int nchan, int nbin, int group, int ctile, int kchunk,
     int bchunk, int nkp, int producers, int threads, int grid, long long smem_bytes, float inv_n,
-    void* stream) {
+    int bf16, void* stream) {
   CellStatsArgs p = icln_cell_stats_args(mask, w, cos_t, sin_t, tt, d_std,
                                          d_mean, d_ptp, d_fft, ncells, nchan,
                                          nbin, group, kchunk, bchunk, nkp,
@@ -108,6 +121,8 @@ extern "C" int icln_cell_stats_dedisp(
   p.cube = ded;
   p.tmpl = tmpl;
   p.win = win;
-  return icln_cell_stats_launch<ResDedisp>(p, ctile, producers, threads, grid, smem_bytes,
-                                                   stream);
+  return bf16 ? icln_cell_stats_launch<ResDedisp<icln_bf16>>(p, ctile, producers, threads, grid,
+                                                          smem_bytes, stream)
+              : icln_cell_stats_launch<ResDedisp<float>>(p, ctile, producers, threads, grid,
+                                                      smem_bytes, stream);
 }

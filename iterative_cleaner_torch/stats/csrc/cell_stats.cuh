@@ -48,7 +48,24 @@
 // (cells per archive) and reads that archive's template rows, template
 // and <t,t>; the DFT tables are shared.  A group may straddle two
 // archives, which changes nothing: every cell's arithmetic is its own, so
-// each archive's planes are bit-equal to a launch on it alone.
+// each archive's planes are bit-equal to a launch on it alone.  That
+// addressing is a compile-time flag (BATCH): one archive's launch keeps
+// the single-archive form (no division per cell, <t,t> read once a
+// block), which the per-cell form had made 3-8% slower at 1024 x 4096 x
+// 128 on one H100 (tools/time_cell_stats.py, both forms in turns).
+// A bf16-stored cube (the mixed-precision mode) is the same kernel over
+// 2-byte elements (Res<icln_bf16>): the stage slots hold the group's bf16
+// run (half the bytes of a float32 slot; a run is staged where it starts
+// and ends on a 16-byte word, 8 elements), and each element is upcast to
+// float32 where phase 1 reads it (icln_f32, icln_ldf), the counterpart of
+// _wres_disp / _wres_dedisp / _cell_stats_kernel upcasting each staged
+// block on the TPU.  A float32 slot doubles as the row's working buffer
+// (the residual is written over the staged row); a bf16 slot cannot hold
+// float32 rows, so phase 1 recomputes the weighted residual from the
+// staged row where the float32 form re-reads the buffer — the same
+// operations on the same values, so the centred rows, and all four
+// planes, are bit-equal to the float32 kernel's on the upcast cube.  The
+// centred-row buffers the DFT reads stay float32.
 // Named barriers hand the two centred-row buffers between the roles
 // (ICLN_BAR_FULL / ICLN_BAR_EMPTY); each role also has its own.  The
 // split is the measured design: with one role per block and the phases
@@ -58,12 +75,14 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 #include "common.cuh"
 
 struct CellStatsArgs {
-  const float* cube;   // K2, K10 disp: disp; K6, K7, K10 dedisp: ded — (ncells, nbin)
-  const float* base;   // K7: disp_base (ncells, nbin)
+  const void* cube;    // K2, K10 disp: disp; K6, K7, K10 dedisp: ded — (ncells, nbin),
+                       // float or icln_bf16 (the Res struct's element type)
+  const void* base;    // K7: disp_base (ncells, nbin), of the cube's type
   const float* rott;   // K2, K7: (B, nchan, nbin) rotated template rows
   const float* nyq;    // K2: (B, nchan, nbin) Nyquist rows, or null
   const float* tmpl;   // K6, K7: (B, nbin) templates
@@ -98,15 +117,17 @@ __device__ __forceinline__ float icln_amp(float2 tt, float tp) {
 // two cells' bins in one loop: setup() points it at its cell's rows (of
 // channel c of archive a),
 // fit() takes bin b of the row (reading x, the staged row itself or
-// device memory, keeping it in row) into the lane's partial sums of
-// <x, t> (and for K2 of x * (-1)^b), finish() takes those after the warp
-// sums, and at() is the weighted residual at bin b.  The arithmetic and
-// its order are the first design's.
+// device memory, keeping it in row for a float32 cube) into the lane's
+// partial sums of <x, t> (and for K2 of x * (-1)^b), finish() takes
+// those after the warp sums, and at() is the weighted residual at bin b
+// (from the kept row; for a bf16 cube from x again).  The arithmetic and
+// its order are the first design's.  T is the cube's element type.
 
 // K2 (_wres_disp): (amp * rot_t - (disp + nq * nyq)) * w; the Nyquist
 // term only with NYQ (fourier rotation, even nbin).
-template <bool NYQ>
+template <class T, bool NYQ>
 struct ResDisp {
+  using Elem = T;
   static constexpr bool kStaged = true;
   const float* rt;
   const float* nr;
@@ -118,9 +139,9 @@ struct ResDisp {
     // slower K2 on sm_90a, the loop laid out differently)
     nr = p.nyq ? p.nyq + row : nullptr;
   }
-  __device__ void fit(const float* x, float* row, int b, float& tp, float& q) const {
-    const float v = x[b];
-    row[b] = v;
+  __device__ void fit(const T* x, float* row, int b, float& tp, float& q) const {
+    const float v = icln_f32(x[b]);
+    if constexpr (std::is_same<T, float>::value) row[b] = v;
     tp += v * __ldg(rt + b);
     q += (b & 1) ? -v : v;  // disp * (-1)^b
   }
@@ -129,8 +150,8 @@ struct ResDisp {
     amp = icln_amp(tt, tp);
     wc = w;
   }
-  __device__ float at(const float* row, int b) const {
-    const float v = row[b];
+  __device__ float at(const T* row, int b) const {
+    const float v = icln_f32(row[b]);
     const float base = NYQ ? v + nq * __ldg(nr + b) : v;
     return (amp * __ldg(rt + b) - base) * wc;
   }
@@ -140,33 +161,37 @@ struct ResDisp {
 // Reads both cubes from device memory itself, unstaged (a ring of two
 // cubes' rows would halve the group; taking the kernel's pointer compiled
 // to a K7 8% slower on sm_90a, PERF.md).
+template <class T>
 struct ResTwoRead {
+  using Elem = T;
   static constexpr bool kStaged = false;
-  const float* x;
+  const T* x;
   const float* t;
   const float* rt;
-  const float* y;
+  const T* y;
   float amp, wc;
   __device__ void setup(const CellStatsArgs& p, long long cell, int c, long long a) {
-    x = p.cube + cell * p.nbin;
+    x = static_cast<const T*>(p.cube) + cell * p.nbin;
     t = p.tmpl + a * p.nbin;
     rt = p.rott + ((size_t)a * p.nchan + c) * p.nbin;
-    y = p.base + cell * p.nbin;
+    y = static_cast<const T*>(p.base) + cell * p.nbin;
   }
-  __device__ void fit(const float*, float*, int b, float& tp, float&) const {
-    tp += __ldg(x + b) * __ldg(t + b);
+  __device__ void fit(const T*, float*, int b, float& tp, float&) const {
+    tp += icln_ldf(x + b) * __ldg(t + b);
   }
   __device__ void finish(float2 tt, float w, float tp, float) {
     amp = icln_amp(tt, tp);
     wc = w;
   }
-  __device__ float at(const float*, int b) const {
-    return (amp * __ldg(rt + b) - __ldg(y + b)) * wc;
+  __device__ float at(const T*, int b) const {
+    return (amp * __ldg(rt + b) - icln_ldf(y + b)) * wc;
   }
 };
 
 // K6 (_wres_dedisp): ((amp * t - ded) * window) * w
+template <class T>
 struct ResDedisp {
+  using Elem = T;
   static constexpr bool kStaged = true;
   const float* t;
   const float* win;
@@ -175,42 +200,44 @@ struct ResDedisp {
     t = p.tmpl + a * p.nbin;
     win = p.win;
   }
-  __device__ void fit(const float* x, float* row, int b, float& tp, float&) const {
-    const float v = x[b];
-    row[b] = v;
+  __device__ void fit(const T* x, float* row, int b, float& tp, float&) const {
+    const float v = icln_f32(x[b]);
+    if constexpr (std::is_same<T, float>::value) row[b] = v;
     tp += v * __ldg(t + b);
   }
   __device__ void finish(float2 tt, float w, float tp, float) {
     amp = icln_amp(tt, tp);
     wc = w;
   }
-  __device__ float at(const float* row, int b) const {
-    return ((amp * __ldg(t + b) - row[b]) * __ldg(win + b)) * wc;
+  __device__ float at(const T* row, int b) const {
+    return ((amp * __ldg(t + b) - icln_f32(row[b])) * __ldg(win + b)) * wc;
   }
 };
 
 // Byte offsets of the block's shared memory (kernels.cell_stats_smem
 // mirrors its size): the two stage slots' mbarriers, the cos and sin table
 // chunks (bchunk rows of kchunk columns each), two buffers of centred
-// rows transposed [b][group], two stage slots of `group` rows (none at
-// one cell a group), the per-cell maxima (int), and two rows each of
-// weights and mask bytes.
+// rows transposed [b][group] (float32), two stage slots of `group` rows
+// of `es`-byte cube elements (none at one cell a group), the per-cell
+// maxima (int), and two rows each of weights and mask bytes.
 struct IclnCellLayout {
-  long long tables, cen, cslot, stage, red, wsm, msm, total;
+  long long tables, cen, cslot, sslot, stage, red, wsm, msm, total;
 };
 
 __host__ __device__ inline long long icln_a16(long long x) { return (x + 15) / 16 * 16; }
 
 __host__ __device__ inline IclnCellLayout icln_cell_layout(int nbin, int group, int kchunk,
-                                                           int bchunk) {
+                                                           int bchunk, int es) {
   IclnCellLayout L;
   L.tables = 16;
   L.cen = L.tables + 2LL * bchunk * kchunk * 4;
   L.cslot = icln_a16((long long)group * nbin * 4);
+  L.sslot = icln_a16((long long)group * nbin * es);
   // one cell a group (the longest profiles): no staging, phase 1 works in
-  // the centred-row buffer itself, [b][1] being the row
+  // the centred-row buffer itself, [b][1] being the row (a bf16 cube's
+  // phase 1 keeps no row)
   L.stage = group == 1 ? L.cen : L.cen + 2 * L.cslot;
-  L.red = L.stage + 2 * L.cslot;
+  L.red = group == 1 ? L.cen + 2 * L.cslot : L.stage + 2 * L.sslot;
   L.wsm = L.red + (long long)group * 4;
   L.msm = L.wsm + 2LL * group * 4;
   L.total = L.msm + 2LL * group;
@@ -237,8 +264,9 @@ __device__ __forceinline__ void icln_bar_arrive(int id, int n) {
 template <class Res>
 __device__ __forceinline__ bool icln_group_staged(const CellStatsArgs& p, long long cell0,
                                                   int cells) {
-  return Res::kStaged && p.group > 1 && p.aligned && (cell0 * p.nbin) % 4 == 0
-         && ((long long)cells * p.nbin) % 4 == 0;
+  constexpr int kWord = 16 / (int)sizeof(typename Res::Elem);  // elements a 16-byte word
+  return Res::kStaged && p.group > 1 && p.aligned && (cell0 * p.nbin) % kWord == 0
+         && ((long long)cells * p.nbin) % kWord == 0;
 }
 
 __device__ __forceinline__ int icln_group_cells(const CellStatsArgs& p, long long grp) {
@@ -247,14 +275,15 @@ __device__ __forceinline__ int icln_group_cells(const CellStatsArgs& p, long lon
 
 // One thread: start group grp's run into `slot`, or arm the barrier alone.
 template <class Res>
-__device__ void icln_cell_issue(const CellStatsArgs& p, long long grp, float* slot,
+__device__ void icln_cell_issue(const CellStatsArgs& p, long long grp, void* slot,
                                 uint64_t* bar) {
+  using T = typename Res::Elem;
   const long long cell0 = grp * p.group;
   const int cells = icln_group_cells(p, grp);
   if (icln_group_staged<Res>(p, cell0, cells)) {
-    const unsigned bytes = (unsigned)((long long)cells * p.nbin * 4);
+    const unsigned bytes = (unsigned)((long long)cells * p.nbin * sizeof(T));
     icln_mbar_arrive_tx(bar, bytes);
-    icln_bulk_load(slot, p.cube + cell0 * p.nbin, bytes, bar);
+    icln_bulk_load(slot, static_cast<const T*>(p.cube) + cell0 * p.nbin, bytes, bar);
   } else {
     icln_mbar_arrive(bar);
   }
@@ -289,18 +318,21 @@ __device__ __forceinline__ void icln_fill_tables(const CellStatsArgs& p, float* 
 // FULL + j (producers arrive once their rows are written, consumers
 // wait) and EMPTY + j (consumers arrive once their DFT is done, producers
 // wait before rewriting the buffer).
-template <class Res, int CT>
+template <class Res, int CT, bool BATCH>
 __global__ void __launch_bounds__(ICLN_CELL_MAX_THREADS)
     icln_cell_stats_kernel(const CellStatsArgs p) {
+  using T = typename Res::Elem;
+  constexpr bool kF32 = std::is_same<T, float>::value;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int nbin = p.nbin, group = p.group, kchunk = p.kchunk, bchunk = p.bchunk;
-  const IclnCellLayout L = icln_cell_layout(nbin, group, kchunk, bchunk);
+  const IclnCellLayout L = icln_cell_layout(nbin, group, kchunk, bchunk, (int)sizeof(T));
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw);
   float* cos_s = reinterpret_cast<float*>(smem_raw + L.tables);
   float* sin_s = cos_s + bchunk * kchunk;
   const long long slot_fl = L.cslot / 4;
   float* cen_base = reinterpret_cast<float*>(smem_raw + L.cen);
-  float* stage = reinterpret_cast<float*>(smem_raw + L.stage);
+  unsigned char* stage = smem_raw + L.stage;
+  const T* cube = static_cast<const T*>(p.cube);
   int* rmax = reinterpret_cast<int*>(smem_raw + L.red);
   float* wsm = reinterpret_cast<float*>(smem_raw + L.wsm);
   unsigned char* msm = smem_raw + L.msm;
@@ -327,6 +359,7 @@ __global__ void __launch_bounds__(ICLN_CELL_MAX_THREADS)
   if (warp < npw) {
     // ---- producers, phase 1: weighted residual + moments, one warp per
     // cell, the centred rows written transposed ----
+    const float2 tt1 = BATCH ? make_float2(0.0f, 0.0f) : icln_tt(p, 0);
     if (tid == 0 && nit > 0) icln_cell_issue<Res>(p, blockIdx.x, stage, &bar[0]);
     for (long long it = 0; it < nit; ++it) {
       const int j = (int)(it & 1);
@@ -336,7 +369,7 @@ __global__ void __launch_bounds__(ICLN_CELL_MAX_THREADS)
       if (it + 1 < nit) {
         if (tid == 0) {
           icln_fence_proxy_async();
-          icln_cell_issue<Res>(p, grp + gridDim.x, stage + (j ^ 1) * slot_fl, &bar[j ^ 1]);
+          icln_cell_issue<Res>(p, grp + gridDim.x, stage + (j ^ 1) * L.sslot, &bar[j ^ 1]);
         }
         icln_cell_scalars(p, grp + gridDim.x, tid, wsm + (j ^ 1) * group,
                           msm + (j ^ 1) * group);
@@ -347,15 +380,18 @@ __global__ void __launch_bounds__(ICLN_CELL_MAX_THREADS)
       const int cells = icln_group_cells(p, grp);
       const bool staged = icln_group_staged<Res>(p, cell0, cells);
       const int chan0 = (int)(cell0 % p.nchan);  // the group's first channel
-      float* buf = stage + j * slot_fl;
+      T* buf = reinterpret_cast<T*>(stage + j * L.sslot);
       float* cen = cen_base + j * slot_fl;
       const float* wg = wsm + j * group;
       const unsigned char* mg = msm + j * group;
       for (int g = warp; g < cells; g += npw) {
-        const long long cell = cell0 + g, arch = cell / p.cpa;
-        float* row = buf + (size_t)g * nbin;
-        const float* x = staged ? row : p.cube + cell * nbin;
-        const float2 tt = icln_tt(p, arch);
+        const long long cell = cell0 + g, arch = BATCH ? cell / p.cpa : 0;
+        // a float32 cube's row is the staged one, or a copy in its place;
+        // a bf16 cube's is read where it lies, staged or in device memory
+        T* srow = buf + (size_t)g * nbin;
+        const T* x = staged ? srow : cube + cell * nbin;
+        float* row = kF32 ? reinterpret_cast<float*>(srow) : nullptr;
+        const float2 tt = BATCH ? icln_tt(p, arch) : tt1;
         Res res;
         res.setup(p, cell, (chan0 + g) % p.nchan, arch);
         float tp = 0.0f, q = 0.0f;
@@ -367,8 +403,13 @@ __global__ void __launch_bounds__(ICLN_CELL_MAX_THREADS)
         float sum = 0.0f, mx = -INFINITY, mn = INFINITY;
 #pragma unroll 4
         for (int b = lane; b < nbin; b += 32) {
-          const float wres = res.at(row, b);
-          row[b] = wres;
+          float wres;
+          if constexpr (kF32) {
+            wres = res.at(srow, b);
+            row[b] = wres;
+          } else {
+            wres = res.at(x, b);
+          }
           sum += wres;
           mx = icln_max(mx, wres);
           mn = icln_min(mn, wres);
@@ -382,7 +423,12 @@ __global__ void __launch_bounds__(ICLN_CELL_MAX_THREADS)
         float var = 0.0f;
 #pragma unroll 4
         for (int b = lane; b < nbin; b += 32) {
-          const float cv = row[b] - centre;
+          float cv;
+          if constexpr (kF32) {
+            cv = row[b] - centre;
+          } else {
+            cv = res.at(x, b) - centre;
+          }
           cen[(size_t)b * group + g] = cv;
           var += cv * cv;
         }
@@ -476,21 +522,30 @@ __global__ void __launch_bounds__(ICLN_CELL_MAX_THREADS)
   }
 }
 
-template <class Res, int CT>
+template <class Res, int CT, bool BATCH>
 static cudaError_t icln_cell_stats_start(const CellStatsArgs& p, int threads, int grid,
                                          long long smem_bytes, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(icln_cell_stats_kernel<Res, CT>,
+  cudaError_t err = cudaFuncSetAttribute(icln_cell_stats_kernel<Res, CT, BATCH>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem_bytes);
   if (err != cudaSuccess) return err;
-  icln_cell_stats_kernel<Res, CT><<<grid, threads, (size_t)smem_bytes, stream>>>(p);
+  icln_cell_stats_kernel<Res, CT, BATCH><<<grid, threads, (size_t)smem_bytes, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <class Res, int CT>
+static cudaError_t icln_cell_stats_start(const CellStatsArgs& p, int threads, int grid,
+                                         long long smem_bytes, cudaStream_t stream) {
+  return p.cpa == p.ncells
+             ? icln_cell_stats_start<Res, CT, false>(p, threads, grid, smem_bytes, stream)
+             : icln_cell_stats_start<Res, CT, true>(p, threads, grid, smem_bytes, stream);
 }
 
 template <class Res>
 static int icln_cell_stats_launch(CellStatsArgs p, int ctile, int producers, int threads,
                                   int grid, long long smem_bytes, void* stream) {
-  const IclnCellLayout L = icln_cell_layout(p.nbin, p.group, p.kchunk, p.bchunk);
+  const IclnCellLayout L = icln_cell_layout(p.nbin, p.group, p.kchunk, p.bchunk,
+                                            (int)sizeof(typename Res::Elem));
   const int ncons = threads - 32 * producers;
   if (L.total > smem_bytes || threads > ICLN_CELL_MAX_THREADS || threads % 32
       || producers < 1 || ncons < 32 || p.group > ncons || p.kchunk % 4 || p.nkp % 4

@@ -27,6 +27,27 @@ __device__ __forceinline__ float icln_key_to_float(int o) {
   return __int_as_float(o ^ ((o >> 31) & 0x7FFFFFFF));
 }
 
+// A bf16-stored cube element (the mixed-precision mode): the high 16 bits
+// of a float32, so the upcast is a shift and exact.  K1, K2, K6, K7 and
+// K10 read every cube element through icln_f32 / icln_ldf, the one
+// upcast point of each, as the TPU kernels upcast each staged block.
+struct icln_bf16 {
+  unsigned short bits;
+};
+
+__device__ __forceinline__ float icln_f32(float x) { return x; }
+
+__device__ __forceinline__ float icln_f32(icln_bf16 x) {
+  return __uint_as_float((unsigned)x.bits << 16);
+}
+
+// a read-only (__ldg) load of a cube element, as float32
+__device__ __forceinline__ float icln_ldf(const float* p) { return __ldg(p); }
+
+__device__ __forceinline__ float icln_ldf(const icln_bf16* p) {
+  return __uint_as_float((unsigned)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
+}
+
 __device__ __forceinline__ float icln_nan() { return __int_as_float(0x7FC00000); }
 
 __device__ __forceinline__ bool icln_isnan(float x) { return x != x; }

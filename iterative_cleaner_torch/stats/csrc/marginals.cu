@@ -51,6 +51,17 @@
 // The plan (sb, cb, bb) is the one archive's, so every archive's sums are
 // bit-equal to a launch on that archive alone.  TMA is taken only where
 // every archive's slab (not only the first) starts 16-byte aligned.
+//
+// A bf16-stored cube (the mixed-precision mode; the TPU kernel upcasts
+// each staged block, pallas_kernels.py _marginals_kernel) is the same
+// kernel over 2-byte elements: the ring's slabs hold bf16 (half the bytes
+// of a stage, so the bulk copies move half the bytes), and each element
+// is upcast to float32 where a thread reads it, before the product with
+// its weight, so every sum is the float32 kernel's on the upcast cube,
+// bit for bit.  A bulk copy needs 16-byte rows: 8 bf16 elements, so TMA
+// takes nbin a multiple of 8 there (4 for float32); the weights stay
+// float32 (nchan a multiple of 4).  Bound: 2 * nsub * nchan * nbin bytes,
+// half the float32 cube's.
 
 #include "common.cuh"
 
@@ -59,7 +70,7 @@
 #define ICLN_MARG_STAGES 3
 
 struct MargArgs {
-  const float* disp;  // (nb, nsub, nchan, nbin): archive blockIdx.z
+  const void* disp;   // (nb, nsub, nchan, nbin) float or icln_bf16: archive blockIdx.z
   const float* w;
   float* a_part;   // (nb, nsb, nchan, nbin)
   float* t1_part;  // (nb, ncb, nsub, nbin)
@@ -70,32 +81,38 @@ struct MargArgs {
   int nsb;         // subint runs
 };
 
-// floats of one stage: the slab at pitch bb, then the tile's weights
-__host__ __device__ inline int icln_marg_stage_floats(int cb, int bb) {
-  return cb * bb + cb;
+// bytes of one stage: the slab of `es`-byte elements at pitch bb, then
+// the tile's float32 weights
+__host__ __device__ inline int icln_marg_stage_bytes(int cb, int bb, int es) {
+  return cb * bb * es + cb * (int)sizeof(float);
 }
 
 // Issue the bulk copies of subint s of this block's tile into `st`.
-static __device__ void icln_marg_issue(const MargArgs& p, int s, int c0, int cn, int b0,
-                                       int bn, float* st, uint64_t* bar) {
+template <class T>
+static __device__ void icln_marg_issue(const MargArgs& p, const T* disp, int s, int c0,
+                                       int cn, int b0, int bn, unsigned char* st,
+                                       uint64_t* bar) {
   const size_t row0 = (size_t)s * p.nchan + c0;
-  icln_mbar_arrive_tx(bar, (unsigned)((cn * bn + cn) * sizeof(float)));
+  T* slab = reinterpret_cast<T*>(st);
+  icln_mbar_arrive_tx(bar, (unsigned)(cn * bn * sizeof(T) + cn * sizeof(float)));
   if (bn == p.nbin) {
-    icln_bulk_load(st, p.disp + row0 * p.nbin, (unsigned)(cn * bn * sizeof(float)), bar);
+    icln_bulk_load(slab, disp + row0 * p.nbin, (unsigned)(cn * bn * sizeof(T)), bar);
   } else {
     for (int c = 0; c < cn; ++c)
-      icln_bulk_load(st + c * p.bb, p.disp + (row0 + c) * p.nbin + b0,
-                     (unsigned)(bn * sizeof(float)), bar);
+      icln_bulk_load(slab + c * p.bb, disp + (row0 + c) * p.nbin + b0,
+                     (unsigned)(bn * sizeof(T)), bar);
   }
-  icln_bulk_load(st + p.cb * p.bb, p.w + row0, (unsigned)(cn * sizeof(float)), bar);
+  icln_bulk_load(st + (size_t)p.cb * p.bb * sizeof(T), p.w + row0,
+                 (unsigned)(cn * sizeof(float)), bar);
 }
 
-template <bool TMA>
+template <class T, bool TMA>
 __global__ void __launch_bounds__(ICLN_MARG_THREADS)
     icln_marginals_kernel(MargArgs p) {
+  const T* disp;
   {  // this block's archive
     const size_t z = blockIdx.z, cells = (size_t)p.nsub * p.nchan;
-    p.disp += z * cells * p.nbin;
+    disp = static_cast<const T*>(p.disp) + z * cells * p.nbin;
     p.w += z * cells;
     p.a_part += z * p.nsb * (size_t)p.nchan * p.nbin;
     p.t1_part += z * p.ncb * (size_t)p.nsub * p.nbin;
@@ -103,8 +120,8 @@ __global__ void __launch_bounds__(ICLN_MARG_THREADS)
   extern __shared__ __align__(16) unsigned char smem_raw[];
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw);  // ICLN_MARG_STAGES
   float* red = reinterpret_cast<float*>(smem_raw + 32);    // 2 x 256
-  float* stages = red + 2 * ICLN_MARG_THREADS;
-  const int sfl = icln_marg_stage_floats(p.cb, p.bb);
+  unsigned char* stages = smem_raw + 32 + 2 * ICLN_MARG_THREADS * sizeof(float);
+  const int sbytes = icln_marg_stage_bytes(p.cb, p.bb, (int)sizeof(T));
   const int tid = threadIdx.x;
   const int cblk = blockIdx.x % p.ncb, bblk = blockIdx.x / p.ncb;
   const int sblk = blockIdx.y;
@@ -123,7 +140,7 @@ __global__ void __launch_bounds__(ICLN_MARG_THREADS)
     __syncthreads();
     if (tid == 0)
       for (int i = 0; i < min(ICLN_MARG_STAGES, sn); ++i)
-        icln_marg_issue(p, s0 + i, c0, cn, b0, bn, stages + i * sfl, &bar[i]);
+        icln_marg_issue<T>(p, disp, s0 + i, c0, cn, b0, bn, stages + i * sbytes, &bar[i]);
   }
 
   float acc[ICLN_MARG_J];
@@ -132,7 +149,8 @@ __global__ void __launch_bounds__(ICLN_MARG_THREADS)
 
   for (int i = 0; i < sn; ++i) {
     const int slot = i % ICLN_MARG_STAGES;
-    const float* st = stages + slot * sfl;
+    const T* st = reinterpret_cast<const T*>(stages + slot * sbytes);
+    const float* wst = reinterpret_cast<const float*>(st + p.cb * p.bb);
     const size_t srow = (size_t)(s0 + i);
     if (TMA) icln_mbar_wait(&bar[slot], (unsigned)((i / ICLN_MARG_STAGES) & 1));
     float t = 0.0f;
@@ -143,10 +161,10 @@ __global__ void __launch_bounds__(ICLN_MARG_THREADS)
         if (c < cn) {
           float v, wc;
           if (TMA) {
-            v = st[c * p.bb + lb];
-            wc = st[p.cb * p.bb + c];
+            v = icln_f32(st[c * p.bb + lb]);
+            wc = wst[c];
           } else {
-            v = p.disp[(srow * p.nchan + c0 + c) * p.nbin + b0 + lb];
+            v = icln_f32(disp[(srow * p.nchan + c0 + c) * p.nbin + b0 + lb]);
             wc = p.w[srow * p.nchan + c0 + c];
           }
           const float x = v * wc;
@@ -170,8 +188,8 @@ __global__ void __launch_bounds__(ICLN_MARG_THREADS)
     }
     if (TMA && tid == 0 && i + ICLN_MARG_STAGES < sn) {
       icln_fence_proxy_async();
-      icln_marg_issue(p, s0 + i + ICLN_MARG_STAGES, c0, cn, b0, bn,
-                      stages + slot * sfl, &bar[slot]);
+      icln_marg_issue<T>(p, disp, s0 + i + ICLN_MARG_STAGES, c0, cn, b0, bn,
+                         stages + slot * sbytes, &bar[slot]);
     }
   }
   if (live) {
@@ -196,41 +214,49 @@ __global__ void icln_sum_parts(const float* __restrict__ part,
   out[(size_t)blockIdx.y * n + i] = t;
 }
 
-extern "C" int icln_weighted_marginals(const float* disp, const float* w,
+template <class T, bool TMA>
+static cudaError_t icln_marginals_start(const MargArgs& p, dim3 grid, long long smem_bytes,
+                                        cudaStream_t st) {
+  const cudaError_t err =
+      cudaFuncSetAttribute(icln_marginals_kernel<T, TMA>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
+  if (err != cudaSuccess) return err;
+  icln_marginals_kernel<T, TMA><<<grid, ICLN_MARG_THREADS, (size_t)smem_bytes, st>>>(p);
+  return cudaGetLastError();
+}
+
+// `bf16`: the cube is bf16-stored (icln_bf16 elements), else float32.
+extern "C" int icln_weighted_marginals(const void* disp, const float* w,
                                        float* a_part, float* t1_part,
                                        float* a, float* t1, int nb, int nsub,
                                        int nchan, int nbin, int sb, int cb, int bb,
-                                       int lanes, long long smem_bytes, void* stream) {
+                                       int lanes, int bf16, long long smem_bytes,
+                                       void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int nbt = (nbin + bb - 1) / bb, nsb = (nsub + sb - 1) / sb;
+  const int es = bf16 ? (int)sizeof(icln_bf16) : (int)sizeof(float);
   MargArgs p{disp, w, a_part, t1_part, nsub, nchan, nbin, sb, cb, bb, lanes,
              (nchan + cb - 1) / cb, nsb};
-  const long long need =
-      32 + (2LL * ICLN_MARG_THREADS
-            + (long long)ICLN_MARG_STAGES * icln_marg_stage_floats(cb, bb)) * sizeof(float);
+  const long long need = 32 + 2LL * ICLN_MARG_THREADS * sizeof(float)
+                         + (long long)ICLN_MARG_STAGES * icln_marg_stage_bytes(cb, bb, es);
   if (need > smem_bytes || cb != (ICLN_MARG_THREADS / lanes) * ICLN_MARG_J || bb > lanes
       || nb < 1 || nb > 65535)
     return (int)cudaErrorInvalidValue;
   // every archive's cube slab and weights start 16-byte aligned: the first
-  // one's pointers, and the archive strides a multiple of 16 bytes
+  // one's pointers, and the archive strides a multiple of 16 bytes; a row
+  // of bins is whole 16-byte words (4 float32 or 8 bf16 elements)
   const size_t cells = (size_t)nsub * nchan;
-  const bool tma = nbin % 4 == 0 && nchan % 4 == 0 && (uintptr_t)disp % 16 == 0
-                   && (uintptr_t)w % 16 == 0 && (cells * nbin * sizeof(float)) % 16 == 0
+  const bool tma = nbin % (16 / es) == 0 && nchan % 4 == 0 && (uintptr_t)disp % 16 == 0
+                   && (uintptr_t)w % 16 == 0 && (cells * nbin * es) % 16 == 0
                    && (cells * sizeof(float)) % 16 == 0;
   const dim3 grid((unsigned)(p.ncb * nbt), (unsigned)nsb, (unsigned)nb);
   cudaError_t err;
-  if (tma) {
-    err = cudaFuncSetAttribute(icln_marginals_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
-    if (err != cudaSuccess) return (int)err;
-    icln_marginals_kernel<true><<<grid, ICLN_MARG_THREADS, (size_t)smem_bytes, st>>>(p);
-  } else {
-    err = cudaFuncSetAttribute(icln_marginals_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
-    if (err != cudaSuccess) return (int)err;
-    icln_marginals_kernel<false><<<grid, ICLN_MARG_THREADS, (size_t)smem_bytes, st>>>(p);
-  }
-  err = cudaGetLastError();
+  if (bf16)
+    err = tma ? icln_marginals_start<icln_bf16, true>(p, grid, smem_bytes, st)
+              : icln_marginals_start<icln_bf16, false>(p, grid, smem_bytes, st);
+  else
+    err = tma ? icln_marginals_start<float, true>(p, grid, smem_bytes, st)
+              : icln_marginals_start<float, false>(p, grid, smem_bytes, st);
   if (err != cudaSuccess) return (int)err;
   const size_t na = (size_t)nchan * nbin, nt = (size_t)nsub * nbin;
   icln_sum_parts<<<dim3((unsigned)((na + 255) / 256), (unsigned)nb), 256, 0, st>>>(

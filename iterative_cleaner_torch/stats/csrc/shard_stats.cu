@@ -15,17 +15,19 @@
 // under the shard's own entry points and launch count.  Its rows were
 // the first to be staged (a cp.async double buffer); since K2 and K6
 // stage theirs by TMA bulk copy too, the three are one kernel, and K10's
-// planes are bit-equal to K2's and K6's on the same shard.
+// planes are bit-equal to K2's and K6's on the same shard.  A bf16-stored
+// block (`bf16`; the TPU kernels' _dma_scratch stages the storage dtype)
+// takes K2's and K6's bf16 instantiations.
 
 #include "cell_stats.cuh"
 
 extern "C" int icln_shard_stats_disp(
-    const float* disp, const float* rott, const float* nyq, const float* w,
+    const void* disp, const float* rott, const float* nyq, const float* w,
     const unsigned char* mask, const float* cos_t, const float* sin_t,
     const float* tt, float* d_std, float* d_mean, float* d_ptp, float* d_fft,
     long long ncells, long long cpa, int nchan, int nbin, int group, int ctile, int kchunk,
     int bchunk, int nkp, int producers, int threads, int grid, long long smem_bytes, float inv_n,
-    void* stream) {
+    int bf16, void* stream) {
   CellStatsArgs p = icln_cell_stats_args(mask, w, cos_t, sin_t, tt, d_std,
                                          d_mean, d_ptp, d_fft, ncells, nchan,
                                          nbin, group, kchunk, bchunk, nkp,
@@ -34,20 +36,24 @@ extern "C" int icln_shard_stats_disp(
   p.cube = disp;
   p.rott = rott;
   p.nyq = nyq;
-  if (nyq)
-    return icln_cell_stats_launch<ResDisp<true>>(p, ctile, producers, threads, grid, smem_bytes,
-                                                   stream);
-  return icln_cell_stats_launch<ResDisp<false>>(p, ctile, producers, threads, grid, smem_bytes,
-                                                   stream);
+  if (bf16)
+    return nyq ? icln_cell_stats_launch<ResDisp<icln_bf16, true>>(p, ctile, producers, threads,
+                                                                  grid, smem_bytes, stream)
+               : icln_cell_stats_launch<ResDisp<icln_bf16, false>>(p, ctile, producers, threads,
+                                                                   grid, smem_bytes, stream);
+  return nyq ? icln_cell_stats_launch<ResDisp<float, true>>(p, ctile, producers, threads, grid,
+                                                            smem_bytes, stream)
+             : icln_cell_stats_launch<ResDisp<float, false>>(p, ctile, producers, threads, grid,
+                                                             smem_bytes, stream);
 }
 
 extern "C" int icln_shard_stats_dedisp(
-    const float* ded, const float* tmpl, const float* win, const float* w,
+    const void* ded, const float* tmpl, const float* win, const float* w,
     const unsigned char* mask, const float* cos_t, const float* sin_t,
     const float* tt, float* d_std, float* d_mean, float* d_ptp, float* d_fft,
     long long ncells, long long cpa, int nchan, int nbin, int group, int ctile, int kchunk,
     int bchunk, int nkp, int producers, int threads, int grid, long long smem_bytes, float inv_n,
-    void* stream) {
+    int bf16, void* stream) {
   CellStatsArgs p = icln_cell_stats_args(mask, w, cos_t, sin_t, tt, d_std,
                                          d_mean, d_ptp, d_fft, ncells, nchan,
                                          nbin, group, kchunk, bchunk, nkp,
@@ -56,6 +62,8 @@ extern "C" int icln_shard_stats_dedisp(
   p.cube = ded;
   p.tmpl = tmpl;
   p.win = win;
-  return icln_cell_stats_launch<ResDedisp>(p, ctile, producers, threads, grid, smem_bytes,
-                                                   stream);
+  return bf16 ? icln_cell_stats_launch<ResDedisp<icln_bf16>>(p, ctile, producers, threads, grid,
+                                                          smem_bytes, stream)
+              : icln_cell_stats_launch<ResDedisp<float>>(p, ctile, producers, threads, grid,
+                                                      smem_bytes, stream);
 }

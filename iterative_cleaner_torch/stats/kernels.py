@@ -50,6 +50,14 @@ The sources are compiled at first use with ``nvcc`` into one shared
 library under ``iterative_cleaner_torch/_build/`` (one ``nvcc`` per
 source, run in parallel, then one link) and bound with ``ctypes``.
 
+K1, K2, K6, K7 and K10 also read a bf16-stored cube (the mixed-precision
+mode, ``CleanConfig.compute_dtype='bfloat16'``), as the TPU functions do:
+each element is upcast to float32 where the kernel reads it, and every
+other operand, every sum and every output stays float32, so a launch on
+a bf16 cube is bit-equal to the float32 launch on ``cube.float()``.  Their
+bf16 launches are counted apart (``launches_bf16``; ``<name>_bf16`` in
+:func:`launch_counts`).  The plain versions upcast the cube on read.
+
 A batch of B equal-shaped archives (``parallel/batch.py``) is one launch
 of each kernel: K1, K2, K6 and K7 take a leading batch dimension on every
 per-archive operand (a (B, nsub, nchan, nbin) cube, (B, nsub, nchan)
@@ -79,6 +87,7 @@ import numpy as np
 import torch
 
 from iterative_cleaner_torch.ops.dsp import (
+    each_archive,
     fit_template_amplitudes,
     fit_template_amplitudes_disp,
     weighted_marginal_totals,
@@ -179,17 +188,17 @@ def build_library() -> Path:
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
 _SIGNATURES = {
-    "icln_weighted_marginals": [_P] * 6 + [_I] * 8 + [_LL, _P],
+    "icln_weighted_marginals": [_P] * 6 + [_I] * 9 + [_LL, _P],
     "icln_cell_stats_disp": [_P] * 12 + [_LL] * 2 + [_I] * 10
-    + [_LL, _F, _P],
+    + [_LL, _F, _I, _P],
     "icln_cell_stats_two_read": [_P] * 13 + [_LL] * 2 + [_I] * 10
-    + [_LL, _F, _P],
+    + [_LL, _F, _I, _P],
     "icln_cell_stats_dedisp": [_P] * 12 + [_LL] * 2 + [_I] * 10
-    + [_LL, _F, _P],
+    + [_LL, _F, _I, _P],
     "icln_shard_stats_disp": [_P] * 12 + [_LL] * 2 + [_I] * 10
-    + [_LL, _F, _P],
+    + [_LL, _F, _I, _P],
     "icln_shard_stats_dedisp": [_P] * 12 + [_LL] * 2 + [_I] * 10
-    + [_LL, _F, _P],
+    + [_LL, _F, _I, _P],
     "icln_scaled_sides": [_P] * 9 + [_I, _I, _LL, _LL, _LL, _LL, _F, _I, _I,
                                      _I, _LL, _P],
     "icln_combine_zap": [_P] * 11 + [_LL, _P],
@@ -233,8 +242,12 @@ def _on_card(*tensors) -> bool:
     return True
 
 
+# the storage dtypes of the cube operands K1, K2, K6, K7 and K10 read
+CUBE_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def _require(t, name, dtype, shape):
-    if t.dtype != dtype:
+    if t.dtype not in (dtype if isinstance(dtype, tuple) else (dtype,)):
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
@@ -255,6 +268,15 @@ def _stream(t) -> int:
 
 def _ptr(t):
     return ctypes.c_void_p(t.data_ptr())
+
+
+def _count(fn, cube) -> None:
+    """One launch of cube kernel ``fn``, counted by the cube's storage:
+    ``fn.launches`` (float32) or ``fn.launches_bf16``."""
+    if cube.dtype == torch.bfloat16:
+        fn.launches_bf16 += 1
+    else:
+        fn.launches += 1
 
 
 def _stack_each(fn, nb: int, *args):
@@ -291,10 +313,11 @@ MARGINALS_STAGES = 3
 
 
 def marginals_tiles(nsub: int, nchan: int, nbin: int,
-                    sm_count: int = 132) -> MarginalsPlan:
+                    sm_count: int = 132, itemsize: int = 4) -> MarginalsPlan:
     """K1's tile plan (``marginals.cu``): whole rows up to 256 bins, the
     bins tiled by 256 above; subint runs sized so that the grid is about
-    two waves of two blocks per SM."""
+    two waves of two blocks per SM.  ``itemsize``: the cube's element
+    bytes (2 for a bf16 cube: its slabs take half the shared memory)."""
     _check_nbin(nbin)
     bb = nbin if nbin <= 256 else 256
     lanes = 1 << (bb - 1).bit_length()
@@ -302,14 +325,15 @@ def marginals_tiles(nsub: int, nchan: int, nbin: int,
     ntiles = -(-nchan // cb) * -(-nbin // bb)
     nsb = max(1, min(nsub, 4 * sm_count // ntiles))
     sb = -(-nsub // nsb)
-    smem = 32 + 4 * (2 * MARGINALS_THREADS
-                     + MARGINALS_STAGES * (cb * bb + cb))
+    smem = 32 + 4 * 2 * MARGINALS_THREADS \
+        + MARGINALS_STAGES * (cb * bb * itemsize + 4 * cb)
     return MarginalsPlan(sb, cb, bb, lanes, smem)
 
 
 def weighted_marginals_plain(disp, weights):
-    """The plain version of K1: :func:`weighted_marginal_totals`, per
-    archive of a batch."""
+    """The plain version of K1: :func:`weighted_marginal_totals` of the
+    float32 cube, per archive of a batch."""
+    disp = disp.float()
     if disp.dim() == 4:
         return _stack_each(weighted_marginal_totals, disp.shape[0],
                            (disp, True), (weights, True))
@@ -321,16 +345,18 @@ def weighted_marginals(disp, weights):
     w*disp`` — kernel K1 on the card, :func:`weighted_marginals_plain`
     on the CPU.  A batch, (B, nsub, nchan, nbin) ``disp`` and (B, nsub,
     nchan) ``weights``, gives (B, nchan, nbin) and (B, nsub, nbin) in one
-    launch (grid.z the archive, one archive's plan)."""
+    launch (grid.z the archive, one archive's plan).  ``disp`` may be
+    bf16-stored (the outputs stay float32)."""
     if not _on_card(disp, weights):
         return weighted_marginals_plain(disp, weights)
     batched = disp.dim() == 4
     nb = disp.shape[0] if batched else 1
     nsub, nchan, nbin = disp.shape[-3:]
     lead = (nb,) if batched else ()
-    _require(disp, "disp", torch.float32, lead + (nsub, nchan, nbin))
+    _require(disp, "disp", CUBE_DTYPES, lead + (nsub, nchan, nbin))
     _require(weights, "weights", torch.float32, lead + (nsub, nchan))
-    plan = marginals_tiles(nsub, nchan, nbin, _sm_count(str(disp.device)))
+    plan = marginals_tiles(nsub, nchan, nbin, _sm_count(str(disp.device)),
+                           disp.element_size())
     nsb, ncb = -(-nsub // plan.sb), -(-nchan // plan.cb)
     kw = dict(dtype=torch.float32, device=disp.device)
     a_part = torch.empty((nb, nsb, nchan, nbin), **kw)
@@ -342,13 +368,15 @@ def weighted_marginals(disp, weights):
         rc = lib.icln_weighted_marginals(
             _ptr(disp), _ptr(weights), _ptr(a_part), _ptr(t1_part), _ptr(a),
             _ptr(t1), nb, nsub, nchan, nbin, plan.sb, plan.cb, plan.bb,
-            plan.lanes, plan.smem, _stream(disp))
-    weighted_marginals.launches += 1
+            plan.lanes, int(disp.dtype == torch.bfloat16), plan.smem,
+            _stream(disp))
+    _count(weighted_marginals, disp)
     _check_rc(rc, "weighted_marginals")
     return a, t1
 
 
 weighted_marginals.launches = 0
+weighted_marginals.launches_bf16 = 0
 
 
 # --------------------------------------------------------------------------
@@ -374,9 +402,9 @@ def wres_disp(disp, rot_t, nyq_row, template, weights):
 def tt_info(template):
     """``[<t,t> (1 where it is 0), 1.0 if <t,t> == 0 else 0.0]`` as a
     device tensor, so K2 reads it without a host round trip; (B, 2) for
-    a batch's (B, nbin) templates."""
-    tt = torch.sum(template * template) if template.dim() == 1 \
-        else torch.sum(template * template, dim=-1)
+    a batch's (B, nbin) templates, each row taken as one archive's (the
+    sum's order then does not depend on the batch)."""
+    tt = each_archive(torch.sum, 1, template * template)
     return torch.stack([torch.where(tt == 0, torch.ones_like(tt), tt),
                         (tt == 0).to(template.dtype)], dim=-1)
 
@@ -401,19 +429,21 @@ class CellStatsPlan(NamedTuple):
 CELL_WARPS = 20     # cell_stats.cuh's ICLN_CELL_MAX_THREADS / 32
 
 
-def cell_stats_smem(nbin: int, group: int, kchunk: int, bchunk: int) -> int:
+def cell_stats_smem(nbin: int, group: int, kchunk: int, bchunk: int,
+                    itemsize: int = 4) -> int:
     """Bytes of ``cell_stats.cuh``'s shared memory (its
     ``icln_cell_layout``): two mbarriers, the cos and sin table chunks,
-    two buffers of centred rows ``[b][cell]``, two stage slots of
-    ``group`` rows (none at one cell a group: phase 1 then works in the
-    centred-row buffers), the per-cell maxima, two rows each of weights
-    and mask bytes."""
+    two buffers of centred rows ``[b][cell]`` (float32), two stage slots
+    of ``group`` rows of ``itemsize``-byte cube elements (none at one
+    cell a group: phase 1 then works in the centred-row buffers), the
+    per-cell maxima, two rows each of weights and mask bytes."""
     slot = -(-group * nbin * 4 // 16) * 16
-    stages = 0 if group == 1 else 2 * slot
+    stage = -(-group * nbin * itemsize // 16) * 16
+    stages = 0 if group == 1 else 2 * stage
     return 16 + 2 * bchunk * kchunk * 4 + 2 * slot + stages + 14 * group
 
 
-def cell_stats_geometry(nbin: int):
+def cell_stats_geometry(nbin: int, itemsize: int = 4):
     """The :class:`CellStatsPlan` of K2, K6, K7 and K10 at ``nbin``.
 
     A block of ``CELL_WARPS`` warps: the consumers (phase 2) hold at
@@ -425,6 +455,8 @@ def cell_stats_geometry(nbin: int):
     and 8 * ctile FMAs of a row, per busy warp, over at most 4
     schedulers) and the producers' latency (about 1000 clocks a cell per
     warp), a fifth of the other, and the table refills of a chunked
+    plan.  ``itemsize``: the cube's element bytes (2 for bf16, whose
+    stage slots are half the size); the planes do not depend on the
     plan."""
     _check_nbin(nbin)
     nk = nbin // 2 + 1
@@ -442,7 +474,8 @@ def cell_stats_geometry(nbin: int):
             consumers = -(-max(ct * per, group) // 32)
             producers = CELL_WARPS - consumers
             kchunk = 4 * per
-            room = _SMEM_LIMIT - cell_stats_smem(nbin, group, kchunk, 0)
+            room = _SMEM_LIMIT - cell_stats_smem(nbin, group, kchunk, 0,
+                                                 itemsize)
             bchunk = min(nbin, room // (8 * kchunk)) if room > 0 else 0
             if bchunk < 1:
                 continue
@@ -454,7 +487,8 @@ def cell_stats_geometry(nbin: int):
                       else nkc * nbc * 2000 + 8 * nbin * nkp // (32 * consumers))
             cost = (max(dft, phase1) + min(dft, phase1) / 5 + refill) / group
             if best is None or cost < best[0]:
-                smem = cell_stats_smem(nbin, group, kchunk, bchunk)
+                smem = cell_stats_smem(nbin, group, kchunk, bchunk,
+                                       itemsize)
                 best = (cost, CellStatsPlan(group, ctile, kchunk, bchunk, nkp,
                                             producers, 32 * CELL_WARPS, smem))
     if best is None:
@@ -483,9 +517,10 @@ def _sm_count(device: str) -> int:
 
 def cell_diagnostics_disp_plain(disp, rot_t, nyq_row, template, weights,
                                 cell_mask):
-    """The plain version of K2: :func:`wres_disp`, then
-    :func:`~iterative_cleaner_torch.stats.masked_torch.cell_diagnostics`
-    with the DFT (per archive of a batch)."""
+    """The plain version of K2: :func:`wres_disp` of the float32 cube,
+    then :func:`~iterative_cleaner_torch.stats.masked_torch.
+    cell_diagnostics` with the DFT (per archive of a batch)."""
+    disp = disp.float()
     if disp.dim() == 4:
         return _stack_each(cell_diagnostics_disp_plain, disp.shape[0],
                            (disp, True), (rot_t, True), (nyq_row, True),
@@ -516,15 +551,16 @@ def _launch_cell_stats(entry, cube, template, weights, cell_mask, cubes,
     order.  A batch (K2, K6, K7) has a leading dimension B on the cubes,
     the channel rows, the template, the weights and the mask (not on
     ``bin_rows``: the pulse window is shared) and is one launch over its
-    B * nsub * nchan cells.  ``out`` is an optional 4-tuple of contiguous
-    planes of the weights' shape the kernel writes (a tile's rows of the
-    full planes).  Returns the entry's return code and the four
-    planes."""
+    B * nsub * nchan cells.  The cubes are float32 or all bf16-stored.
+    ``out`` is an optional 4-tuple of contiguous planes of the weights'
+    shape the kernel writes (a tile's rows of the full planes).  Returns
+    the entry's return code and the four planes."""
     batched = cube.dim() == 4
     lead = cube.shape[:1] if batched else ()
     nsub, nchan, nbin = cube.shape[-3:]
     for name, t in cubes:
-        _require(t, name, torch.float32, lead + (nsub, nchan, nbin))
+        _require(t, name, cube.dtype if cube.dtype in CUBE_DTYPES
+                 else CUBE_DTYPES, lead + (nsub, nchan, nbin))
     for name, t in chan_rows:
         _require(t, name, torch.float32, lead + (nchan, nbin))
     for name, t in bin_rows:
@@ -532,7 +568,7 @@ def _launch_cell_stats(entry, cube, template, weights, cell_mask, cubes,
     _require(template, "template", torch.float32, lead + (nbin,))
     _require(weights, "weights", torch.float32, lead + (nsub, nchan))
     _require(cell_mask, "cell_mask", torch.bool, lead + (nsub, nchan))
-    plan = cell_stats_geometry(nbin)
+    plan = cell_stats_geometry(nbin, cube.element_size())
     info = tt_info(template)
     cos_t, sin_t = _dft_tables_padded(nbin, plan.nkp, str(cube.device))
     if out is None:
@@ -558,7 +594,7 @@ def _launch_cell_stats(entry, cube, template, weights, cell_mask, cubes,
                 *(_ptr(o) for o in outs), ncells, cpa, nchan, nbin,
                 plan.group, plan.ctile, plan.kchunk, plan.bchunk, plan.nkp,
                 plan.producers, plan.threads, grid, plan.smem, inv_n,
-                _stream(cube))
+                int(cube.dtype == torch.bfloat16), _stream(cube))
     return rc, tuple(outs)
 
 
@@ -579,12 +615,13 @@ def cell_diagnostics_disp(disp, rot_t, nyq_row, template, weights,
         [("disp", disp)], rows, [],
         [_ptr(disp), _ptr(rot_t), None if nyq_row is None else _ptr(nyq_row),
          _ptr(weights), _ptr(cell_mask)], out)
-    cell_diagnostics_disp.launches += 1
+    _count(cell_diagnostics_disp, disp)
     _check_rc(rc, "cell_diagnostics_disp")
     return outs
 
 
 cell_diagnostics_disp.launches = 0
+cell_diagnostics_disp.launches_bf16 = 0
 
 
 # --------------------------------------------------------------------------
@@ -605,7 +642,8 @@ def cell_diagnostics_two_read_plain(ded, disp_base, rot_t, template,
                                     weights, cell_mask):
     """The plain version of K7: :func:`wres_two_read`, then
     :func:`~iterative_cleaner_torch.stats.masked_torch.cell_diagnostics`
-    with the DFT (per archive of a batch)."""
+    with the DFT (per archive of a batch), the cubes read as float32."""
+    ded, disp_base = ded.float(), disp_base.float()
     if ded.dim() == 4:
         return _stack_each(cell_diagnostics_two_read_plain, ded.shape[0],
                            (ded, True), (disp_base, True), (rot_t, True),
@@ -630,12 +668,13 @@ def cell_diagnostics_two_read(ded, disp_base, rot_t, template, weights,
         [("ded", ded), ("disp_base", disp_base)], [("rot_t", rot_t)], [],
         [_ptr(ded), _ptr(disp_base), _ptr(rot_t), _ptr(template),
          _ptr(weights), _ptr(cell_mask)], out)
-    cell_diagnostics_two_read.launches += 1
+    _count(cell_diagnostics_two_read, ded)
     _check_rc(rc, "cell_diagnostics_two_read")
     return outs
 
 
 cell_diagnostics_two_read.launches = 0
+cell_diagnostics_two_read.launches_bf16 = 0
 
 
 # --------------------------------------------------------------------------
@@ -654,7 +693,9 @@ def cell_diagnostics_dedisp_plain(ded, template, window, weights,
                                   cell_mask):
     """The plain version of K6: :func:`wres_dedisp`, then
     :func:`~iterative_cleaner_torch.stats.masked_torch.cell_diagnostics`
-    with the DFT (per archive of a batch; the window shared)."""
+    with the DFT (per archive of a batch; the window shared), the cube
+    read as float32."""
+    ded = ded.float()
     if ded.dim() == 4:
         return _stack_each(cell_diagnostics_dedisp_plain, ded.shape[0],
                            (ded, True), (template, True), (window, False),
@@ -679,12 +720,13 @@ def cell_diagnostics_dedisp(ded, template, window, weights, cell_mask,
         [("ded", ded)], [], [("window", window)],
         [_ptr(ded), _ptr(template), _ptr(window), _ptr(weights),
          _ptr(cell_mask)], out)
-    cell_diagnostics_dedisp.launches += 1
+    _count(cell_diagnostics_dedisp, ded)
     _check_rc(rc, "cell_diagnostics_dedisp")
     return outs
 
 
 cell_diagnostics_dedisp.launches = 0
+cell_diagnostics_dedisp.launches_bf16 = 0
 
 
 # --------------------------------------------------------------------------
@@ -708,12 +750,13 @@ def shard_diagnostics_disp(disp, rot_t, nyq_row, template, weights,
         [("disp", disp)], rows, [],
         [_ptr(disp), _ptr(rot_t), None if nyq_row is None else _ptr(nyq_row),
          _ptr(weights), _ptr(cell_mask)])
-    shard_diagnostics_disp.launches += 1
+    _count(shard_diagnostics_disp, disp)
     _check_rc(rc, "shard_diagnostics_disp")
     return outs
 
 
 shard_diagnostics_disp.launches = 0
+shard_diagnostics_disp.launches_bf16 = 0
 
 
 def shard_diagnostics_dedisp(ded, template, window, weights, cell_mask):
@@ -728,12 +771,13 @@ def shard_diagnostics_dedisp(ded, template, window, weights, cell_mask):
         [("ded", ded)], [], [("window", window)],
         [_ptr(ded), _ptr(template), _ptr(window), _ptr(weights),
          _ptr(cell_mask)])
-    shard_diagnostics_dedisp.launches += 1
+    _count(shard_diagnostics_dedisp, ded)
     _check_rc(rc, "shard_diagnostics_dedisp")
     return outs
 
 
 shard_diagnostics_dedisp.launches = 0
+shard_diagnostics_dedisp.launches_bf16 = 0
 
 
 # --------------------------------------------------------------------------
@@ -1214,13 +1258,14 @@ def fused_combine(diagnostics, cell_mask, orig_weights, chanthresh,
 fused_combine.launches = 0
 
 
+_CUBE_WRAPPERS = (weighted_marginals, cell_diagnostics_disp,
+                  cell_diagnostics_two_read, cell_diagnostics_dedisp,
+                  shard_diagnostics_disp, shard_diagnostics_dedisp)
+
+
 def reset_launch_counts() -> None:
-    weighted_marginals.launches = 0
-    cell_diagnostics_disp.launches = 0
-    cell_diagnostics_two_read.launches = 0
-    cell_diagnostics_dedisp.launches = 0
-    shard_diagnostics_disp.launches = 0
-    shard_diagnostics_dedisp.launches = 0
+    for fn in _CUBE_WRAPPERS:
+        fn.launches = fn.launches_bf16 = 0
     scaled_sides.launches = [0, 0]
     combine_zap.launches = 0
     fused_combine.launches = 0
@@ -1230,13 +1275,10 @@ def reset_launch_counts() -> None:
 
 
 def launch_counts() -> dict:
+    """Every wrapper's launches, the cube kernels' bf16 builds as
+    ``<name>_bf16``."""
     return {
-        "weighted_marginals": weighted_marginals.launches,
-        "cell_diagnostics_disp": cell_diagnostics_disp.launches,
-        "cell_diagnostics_two_read": cell_diagnostics_two_read.launches,
-        "cell_diagnostics_dedisp": cell_diagnostics_dedisp.launches,
-        "shard_diagnostics_disp": shard_diagnostics_disp.launches,
-        "shard_diagnostics_dedisp": shard_diagnostics_dedisp.launches,
+        **{fn.__name__: fn.launches for fn in _CUBE_WRAPPERS},
         "scaled_sides_axis0": scaled_sides.launches[0],
         "scaled_sides_axis1": scaled_sides.launches[1],
         "combine_zap": combine_zap.launches,
@@ -1244,4 +1286,5 @@ def launch_counts() -> dict:
         "masked_median": masked_median.launches,
         "side_centre": side_centre.launches,
         "side_scale": side_scale.launches,
+        **{fn.__name__ + "_bf16": fn.launches_bf16 for fn in _CUBE_WRAPPERS},
     }

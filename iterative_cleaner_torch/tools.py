@@ -9,8 +9,7 @@
 
 ``diff``, ``sweep``, ``borderline`` and ``selftest`` are parsed as the
 reference package's tools parse them and raise ``NotImplementedError``:
-ROADMAP.md 'Modules still to port' item 8 (item 2c: checkpoints and
-models).
+ROADMAP.md 'Modules still to port' item 2c (checkpoints and models).
 """
 
 from __future__ import annotations
@@ -23,7 +22,7 @@ import zipfile
 import numpy as np
 
 _NOT_PORTED = ("is not ported yet (ROADMAP.md 'Modules still to port' item "
-               "8, item 2c: checkpoints and models)")
+               "2c: checkpoints and models)")
 
 
 def cmd_convert(args) -> int:

@@ -33,7 +33,19 @@ tie-heavy lines, one counted launch a call, and its device operations a
 call in a torch.profiler trace (1 on the block route, at most 5 on the
 grid route).  Archives read through the host library (``.icar`` and the
 native PSRFITS reader, int16 and float32 DATA) clean on the card to the
-CPU clean's mask.
+CPU clean's mask.  A batch's clean is bit-equal to its single cleans on
+the card (masks, loops, scores, telemetry rows).
+
+The bf16 storage mode (``compute_dtype='bfloat16'``): K1, K2, K6, K7 and
+K10 on a bf16 cube bit-equal to the same kernel's float32 launch on the
+upcast cube (batched too, at nbin 36 and 132, whose rows are whole
+16-byte words in float32 but not in bf16, so the bf16 launch reads them
+unstaged, and at nbin 4096 and 8192, two cells and one cell a group)
+and within the plain version's tolerance, each counted under
+its bf16 name; on a bf16-exact archive the whole clean on every route,
+exact streaming (the cube uploads halved), the batch and the one-rank
+NCCL sharded clean bit-equal to their float32 runs, with no
+``compute_dtype_ineligible`` count.
 """
 
 import numpy as np
@@ -43,6 +55,7 @@ import torch
 from iterative_cleaner_torch import CleanConfig, clean_streaming
 from iterative_cleaner_torch.backends import clean_archive
 from iterative_cleaner_torch.backends import clean_archive_sharded
+from iterative_cleaner_torch.backends import torch_backend as tb
 from iterative_cleaner_torch.engine.loop import (
     ROUTE_KERNELS,
     SHARD_KERNELS,
@@ -51,8 +64,12 @@ from iterative_cleaner_torch.engine.loop import (
     nyq_correction_row,
     pulse_window,
     select_route,
+    storage_kernels,
 )
-from iterative_cleaner_torch.io.synthetic import make_synthetic_archive
+from iterative_cleaner_torch.io.synthetic import (
+    make_bf16_exact_archive,
+    make_synthetic_archive,
+)
 from iterative_cleaner_torch.ops.dsp import (
     rotate_bins,
     weighted_marginal_totals,
@@ -795,11 +812,10 @@ BATCH_ROUTES = {"default": {}, "profile": dict(baseline_mode="profile"),
 @pytest.mark.parametrize("name", sorted(BATCH_ROUTES))
 def test_batched_clean_matches_single_cleans_on_card(card, name):
     """``clean_archives_batched`` on the card: each archive's mask,
-    loops, convergence and per-loop diffs equal to its single clean on
-    the card (scores rtol 2e-4 with a 1e-4 floor: on the card the template
-    stage's batched reductions add in another order than one archive's;
-    up to 1.24e-4 relative on these archives, PERF.md),
-    each of the route's kernels launched once per batch iteration."""
+    loops, convergence, per-loop diffs, scores and telemetry rows
+    bit-equal to its single clean on the card (the template stage runs
+    each archive's tensor ops at one archive's shapes), each of the
+    route's kernels launched once per batch iteration."""
     from iterative_cleaner_torch.parallel.batch import clean_archives_batched
 
     ars = [make_synthetic_archive(nsub=32, nchan=64, nbin=128, seed=s,
@@ -818,5 +834,183 @@ def test_batched_clean_matches_single_cleans_on_card(card, name):
         np.testing.assert_array_equal(g.final_weights, want.final_weights)
         assert (g.loops, g.converged) == (want.loops, want.converged)
         np.testing.assert_array_equal(g.loop_diffs, want.loop_diffs)
-        np.testing.assert_allclose(g.scores, want.scores, rtol=2e-4,
-                                   atol=1e-4)
+        _assert_bit_equal(g, want)
+
+
+# --------------------------------------------- bf16 cube storage
+
+@pytest.fixture
+def bf16_card(card):
+    """The card, its bf16 parity probe run already (its launches are not
+    a test's), and the process's downgrade counts as they stand."""
+    assert tb.resolve_compute_dtype("bfloat16", device=card) == "bfloat16"
+    return card, tb.compute_dtype_ineligible_counts()
+
+
+def _bf16_misaligned(x):
+    """A contiguous bf16 copy of ``x`` starting 2 bytes past a 16-byte
+    boundary (every bf16 run read unstaged)."""
+    buf = torch.empty(x.numel() + 1, dtype=torch.bfloat16, device=x.device)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    assert out.data_ptr() % 16 != 0
+    return out
+
+
+BF16_GEOMS = [(20, 40, 128, "fourier"), (16, 32, 63, "roll"),
+              (12, 40, 36, "fourier"), (10, 24, 132, "fourier"),
+              (7, 300, 1024, "fourier"), (3, 11, 4096, "fourier"),
+              (4, 16, 8192, "fourier")]
+
+
+def _kernel_calls(disp, w, mask, template, rot_t, nyq, window):
+    """(name, wrapper, args with the cube operands first) of every cube
+    kernel, on the cube ``disp`` (``ded``, ``disp_base`` derived)."""
+    ded = disp.flip(-1).contiguous()
+    return [
+        ("weighted_marginals", tk.weighted_marginals, (disp,), (w,)),
+        ("cell_diagnostics_disp", tk.cell_diagnostics_disp, (disp,),
+         (rot_t, nyq, template, w, mask)),
+        ("cell_diagnostics_two_read", tk.cell_diagnostics_two_read,
+         (ded, disp), (rot_t, template, w, mask)),
+        ("cell_diagnostics_dedisp", tk.cell_diagnostics_dedisp, (ded,),
+         (template, window, w, mask)),
+        ("shard_diagnostics_disp", tk.shard_diagnostics_disp, (disp,),
+         (rot_t, nyq, template, w, mask)),
+        ("shard_diagnostics_dedisp", tk.shard_diagnostics_dedisp, (ded,),
+         (template, window, w, mask)),
+    ]
+
+
+@pytest.mark.parametrize("nsub,nchan,nbin,rotation", BF16_GEOMS)
+def test_bf16_kernels_bit_equal_to_float32_on_card(bf16_card, nsub, nchan,
+                                                   nbin, rotation):
+    """Each cube kernel on a bf16 cube: bit-equal to its float32 launch
+    on the upcast cube and to the bf16 launch on a misaligned copy,
+    counted once under its bf16 name, and within the plain version's
+    tolerance."""
+    card, _ = bf16_card
+    disp, w, mask, template, rot_t, nyq = _inputs(nsub, nchan, nbin,
+                                                  rotation, card, seed=4)
+    window = pulse_window(nbin, (nbin // 4, nbin // 2), 0.2, True,
+                          torch.float32, card)
+    d16 = disp.to(torch.bfloat16)
+    calls16 = _kernel_calls(d16, w, mask, template, rot_t, nyq, window)
+    calls32 = _kernel_calls(d16.float(), w, mask, template, rot_t, nyq,
+                            window)
+    for (name, fn, cubes, rest), (_, _, cubes32, _) in zip(calls16, calls32):
+        tk.reset_launch_counts()
+        got = fn(*cubes, *rest)
+        counts = tk.launch_counts()
+        assert counts[name + "_bf16"] == 1 and counts[name] == 0, name
+        want = fn(*cubes32, *rest)
+        assert [_bits_mismatch(g, p) for g, p in zip(got, want)] == \
+            [0] * len(got), name
+        odd = fn(*(_bf16_misaligned(c) for c in cubes), *rest)
+        assert [_bits_mismatch(g, p) for g, p in zip(odd, got)] == \
+            [0] * len(got), name
+        plain = {"weighted_marginals": tk.weighted_marginals_plain,
+                 "cell_diagnostics_disp": tk.cell_diagnostics_disp_plain,
+                 "shard_diagnostics_disp": tk.cell_diagnostics_disp_plain,
+                 "cell_diagnostics_two_read":
+                     tk.cell_diagnostics_two_read_plain,
+                 "cell_diagnostics_dedisp": tk.cell_diagnostics_dedisp_plain,
+                 "shard_diagnostics_dedisp":
+                     tk.cell_diagnostics_dedisp_plain}[name](*cubes, *rest)
+        if name == "weighted_marginals":
+            sa, st1 = tk.weighted_marginals_plain(cubes[0].float().abs(), w)
+            assert bool(((got[0] - plain[0]).abs() <= 1e-5 * sa).all())
+            assert bool(((got[1] - plain[1]).abs() <= 1e-5 * st1).all())
+        else:
+            _assert_diags_match(got, plain, mask)
+
+
+@pytest.mark.parametrize("nb,nsub,nchan,nbin,rotation",
+                         BATCH_GEOMS + [(3, 12, 40, 36, "fourier")])
+def test_bf16_batched_kernels_on_card(bf16_card, nb, nsub, nchan, nbin,
+                                      rotation):
+    """A batch's bf16 launch: each archive bit-equal to the bf16 launch
+    on it alone and to the batched float32 launch on the upcast cubes."""
+    card, _ = bf16_card
+    disp, w, mask, template, rot_t, nyq = _batch_inputs(
+        nb, nsub, nchan, nbin, rotation, card)
+    window = pulse_window(nbin, (nbin // 4, nbin // 2), 0.2, True,
+                          torch.float32, card)
+    d16 = disp.to(torch.bfloat16)
+    calls16 = _kernel_calls(d16, w, mask, template, rot_t, nyq, window)[:4]
+    calls32 = _kernel_calls(d16.float(), w, mask, template, rot_t, nyq,
+                            window)[:4]
+    for (name, fn, cubes, rest), (_, _, cubes32, _) in zip(calls16, calls32):
+        tk.reset_launch_counts()
+        got = fn(*cubes, *rest)
+        assert tk.launch_counts()[name + "_bf16"] == 1, name
+        want = fn(*cubes32, *rest)
+        assert [_bits_mismatch(g, p) for g, p in zip(got, want)] == \
+            [0] * len(got), name
+        singles = [fn(*(c[b] for c in cubes),
+                      *(a if a is window or a is None else a[b]
+                        for a in rest)) for b in range(nb)]
+        assert _each_bit_equal(got, singles) == 0, name
+
+
+BF16_ROUTES = {"default": {}, "profile": dict(baseline_mode="profile"),
+               "dedispersed": dict(stats_frame="dedispersed")}
+
+
+def _bf16_archive():
+    return make_bf16_exact_archive(64, 256, 128, seed=2)
+
+
+@pytest.mark.parametrize("name", sorted(BF16_ROUTES))
+def test_bf16_clean_bit_equal_to_float32_on_card(bf16_card, name):
+    """A bf16-exact archive (roll rotation): the bf16 clean on the card
+    bit-equal to the float32 clean, through the route's bf16 kernels,
+    with no downgrade counted."""
+    card, counts0 = bf16_card
+    ar = _bf16_archive()
+    kw = dict(rotation="roll", **BF16_ROUTES[name])
+    cfg = CleanConfig(compute_dtype="bfloat16", **kw)
+    route = select_route(cfg, ar.dedispersed)
+    tk.reset_launch_counts()
+    got = clean_archive(ar, cfg)
+    counts = tk.launch_counts()
+    want = clean_archive(ar, CleanConfig(**kw))
+    for k, v in counts.items():
+        ran = k in storage_kernels(ROUTE_KERNELS[route], "bfloat16")
+        assert v == (got.loops if ran else 0), counts
+    _assert_bit_equal(got, want)
+    assert int((got.final_weights == 0).sum()) > 0
+    assert tb.compute_dtype_ineligible_counts() == counts0
+
+
+def test_bf16_exact_stream_batch_and_shard_on_card(bf16_card, tmp_path):
+    """The bf16-exact archive streamed at budget 0 (every tile uploaded
+    each pass: the cube bytes uploaded halve), a batch of three and a
+    one-rank NCCL sharded clean: each bit-equal to its float32 run."""
+    from iterative_cleaner_torch.parallel.batch import clean_archives_batched
+    from iterative_cleaner_torch.parallel.tile_cache import DictRegistry
+
+    card, counts0 = bf16_card
+    ar = _bf16_archive()
+    kw = dict(rotation="roll")
+    h2d, res = {}, {}
+    for cd in ("float32", "bfloat16"):
+        reg = DictRegistry()
+        res[cd] = clean_streaming(ar, 16, CleanConfig(
+            compute_dtype=cd, stream_hbm_mb=0, **kw), registry=reg)
+        h2d[cd] = reg.counters["stream_h2d_cube_bytes"]
+    _assert_bit_equal(res["bfloat16"], res["float32"])
+    assert 2 * h2d["bfloat16"] == h2d["float32"]
+    ars = [make_bf16_exact_archive(32, 64, 128, seed=s) for s in range(3)]
+    b16 = clean_archives_batched(ars, CleanConfig(compute_dtype="bfloat16",
+                                                  **kw))
+    b32 = clean_archives_batched(ars, CleanConfig(**kw))
+    for g, want in zip(b16, b32):
+        _assert_bit_equal(g, want)
+    cfg = CleanConfig(compute_dtype="bfloat16", **kw)
+    got, counts = _nccl_one_rank(
+        tmp_path, lambda mesh: clean_archive_sharded(ar, cfg, mesh))
+    assert counts["shard_diagnostics_disp_bf16"] == got.loops
+    assert counts["shard_diagnostics_disp"] == 0
+    _assert_bit_equal(got, clean_archive(ar, cfg))
+    assert tb.compute_dtype_ineligible_counts() == counts0

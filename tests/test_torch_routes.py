@@ -40,6 +40,7 @@ from iterative_cleaner_torch.engine.loop import (
     SHARD_KERNELS,
     STREAM_KERNELS,
     select_route,
+    storage_kernels,
 )
 from iterative_cleaner_torch.io import load_archive, save_archive
 from iterative_cleaner_torch.stats.kernels import launch_counts
@@ -118,9 +119,12 @@ def test_route_kernels_cover_every_launch_counter():
     K10 for the cell diagnostics and no K3 or K9 (tree-reduced selects
     instead); the sharded two_read route launches the whole route's
     kernels (K7 per block; K3, the combine and K9 on the gathered
-    planes)."""
+    planes).  Each cube kernel's bf16 build (``storage_kernels``) is
+    counted under its own name."""
     named = {k for table in (ROUTE_KERNELS, STREAM_KERNELS, SHARD_KERNELS)
-             for ks in table.values() for k in ks}
+             for ks in table.values()
+             for cd in ("float32", "bfloat16")
+             for k in storage_kernels(ks, cd)}
     assert named | set(LONG_LINE_KERNELS) == set(launch_counts())
     for route, kernels in ROUTE_KERNELS.items():
         assert set(STREAM_KERNELS[route]) == set(kernels) | {"fused_combine"}

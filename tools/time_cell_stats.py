@@ -5,7 +5,7 @@ K8 and K9 (the residual-std telemetry's one line, and along both axes of
 the d_std plane); and fingerprint what they compute.
 
     python tools/time_cell_stats.py [--shape S C B] [--reps N] [--no-selects]
-        [--k3-plans W:D ...]
+        [--k3-plans W:D ...] [--bf16]
 
 Random inputs of the given shape (default the full-size golden's,
 1024 x 4096 x 128), made on the card from seed 0, CUDA-event means over
@@ -13,7 +13,10 @@ Random inputs of the given shape (default the full-size golden's,
 each kernel's output planes on those inputs.  ``--k3-plans W:D ...``
 also times K3 along axis 0 launched straight through the kernel library
 at W columns a block and D diagnostics at once, plans the package's
-``scaled_sides_geometry`` may not pick (``ms_k3_plans``).  Run it by path
+``scaled_sides_geometry`` may not pick (``ms_k3_plans``).  ``--bf16``
+(a package with bf16 cube storage) also times each cube kernel on the
+cube rounded to bf16 (``<name>_bf16``) and checks its planes bit-equal
+to the float32 launch on the upcast cube (``bf16_bit_equal``).  Run it by path
 with ``PYTHONPATH`` naming the checkout whose ``iterative_cleaner_torch`` to
 time: the same script then times two trees in turns (parent, change,
 change, parent) in one call on one card, and equal digests show their
@@ -57,6 +60,8 @@ def main() -> int:
                    help="skip the sharded selects on one NCCL rank")
     p.add_argument("--k3-plans", nargs="*", default=[], metavar="W:D",
                    help="also time K3 along axis 0 under these plans")
+    p.add_argument("--bf16", action="store_true",
+                   help="also time the cube kernels on a bf16 cube")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("time_cell_stats: no CUDA device present")
@@ -85,20 +90,23 @@ def main() -> int:
                         method="fourier").contiguous()
     nyq = nyq_correction_row(shifts, nbin, "fourier", torch.float32)
     window = torch.ones(nbin, device=dev)
-    calls = {
-        "weighted_marginals": lambda: K.weighted_marginals(cube, w),
-        "cell_diagnostics_disp": lambda: K.cell_diagnostics_disp(
-            cube, rot_t, nyq, t, w, mask),
-        "cell_diagnostics_dedisp": lambda: K.cell_diagnostics_dedisp(
-            cube, t, window, w, mask),
-        "cell_diagnostics_two_read": lambda: K.cell_diagnostics_two_read(
-            cube, base, rot_t, t, w, mask),
+    # each cube kernel as a function of its cubes
+    on = {
+        "weighted_marginals": lambda c, b: K.weighted_marginals(c, w),
+        "cell_diagnostics_disp": lambda c, b: K.cell_diagnostics_disp(
+            c, rot_t, nyq, t, w, mask),
+        "cell_diagnostics_dedisp": lambda c, b: K.cell_diagnostics_dedisp(
+            c, t, window, w, mask),
+        "cell_diagnostics_two_read": lambda c, b: K.cell_diagnostics_two_read(
+            c, b, rot_t, t, w, mask),
     }
     if hasattr(K, "shard_diagnostics_disp"):
-        calls["shard_diagnostics_disp"] = lambda: K.shard_diagnostics_disp(
-            cube, rot_t, nyq, t, w, mask)
-        calls["shard_diagnostics_dedisp"] = \
-            lambda: K.shard_diagnostics_dedisp(cube, t, window, w, mask)
+        on["shard_diagnostics_disp"] = lambda c, b: K.shard_diagnostics_disp(
+            c, rot_t, nyq, t, w, mask)
+        on["shard_diagnostics_dedisp"] = \
+            lambda c, b: K.shard_diagnostics_dedisp(c, t, window, w, mask)
+    calls = {name: functools.partial(fn, cube, base)
+             for name, fn in on.items()}
     diags = K.cell_diagnostics_disp(cube, rot_t, nyq, t, w, mask)
     line_v, line_m = diags[0].reshape(1, -1), mask.reshape(1, -1)
     selects = {
@@ -114,6 +122,14 @@ def main() -> int:
         "reps": args.reps,
         "ms": {name: _ms(fn, args.reps) for name, fn in calls.items()},
         "sha256": {name: _digest(fn()) for name, fn in calls.items()}}
+    if args.bf16:
+        c16, b16 = cube.to(torch.bfloat16), base.to(torch.bfloat16)
+        out["bf16_bit_equal"] = {}
+        for name, fn in on.items():
+            out["ms"][name + "_bf16"] = _ms(lambda: fn(c16, b16), args.reps)
+            out["sha256"][name + "_bf16"] = _digest(fn(c16, b16))
+            out["bf16_bit_equal"][name] = out["sha256"][name + "_bf16"] \
+                == _digest(fn(c16.float(), b16.float()))
     out["ms"].update({name: _ms(fn, 4 * args.reps)
                       for name, fn in selects.items()})
     out["sha256"].update({name: _digest(fn()) for name, fn in selects.items()})
