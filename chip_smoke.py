@@ -108,6 +108,25 @@ which must stay empty.  The bf16 builds are held bit for bit to their
 float32 launches on the upcast cubes and to their plain versions at the
 route's shapes, and listed in the kernels line beside the float32 ones.
 
+float64 (``dtype='float64'``, the oracle-parity mode the goldens were made
+in): the golden archive on the default, profile, dedispersed and
+pulse-window routes, every kernel launched its float64 build and nothing
+else, the default and profile masks held to the goldens with no flip at
+all and the golden's loops (the reference harness's float64 rule), the
+other two to the float64 default under the frames' contract; stream (a)
+in float64 at budget 0, 0 cells off the whole float64 clean, its cube
+uploads exactly twice (a)'s a pass; ``tools selftest`` on the card as a
+subprocess and ``--backend numpy`` (the float64 numpy oracle) through the
+CLI on a 64 x 128 x 128 archive, equal to the float64 card clean's mask;
+the float64 builds of K1, K2, K6, K7, K3, the combine, K8 and K9 against
+their plain float64 versions at full size (K1 within 1e-12 of
+sum|w*disp|, the cell planes within 1e-12 of each plane's scale, the
+rest bit-equal), each timed beside its bound (bytes at 8 a sample,
+operations at PEAK_F64_PER_S) and listed in the kernels line; a
+48,000 x 4 x 32 archive streamed in float64 (K9 and the tail kernels'
+float64 builds), held to its whole float64 clean.  Each float64 phase
+prints its seconds.
+
 It exits non-zero, printing no result, when no CUDA device is present
 or when the port's package is not beside it.  It imports nothing of JAX
 or of the reference package.
@@ -161,6 +180,9 @@ CONTRACT_LIMITS = {   # route: (cells disagreeing, of them one-sided)
 # this route; the selects' integer compares are counted at this rate too).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+# The float64 rate outside the tensor cores (the same data sheet): the
+# float64 builds' DFT is DFMA chains, their selects 8 radix passes.
+PEAK_F64_PER_S = 34e12
 
 # Exact streaming against the whole default clean of the same run: the
 # cross-tile template sum may flip a cell the whole run scored this close
@@ -241,9 +263,10 @@ def cuda_ms(fn, reps: int, torch) -> float:
 
 
 def bits_mismatch(got, want, torch) -> int:
-    """Cells whose float32 bits differ, NaN matching NaN."""
+    """Cells whose float32 (float64) bits differ, NaN matching NaN."""
     nan_g, nan_w = torch.isnan(got), torch.isnan(want)
-    same = (got.view(torch.int32) == want.view(torch.int32)) | (nan_g & nan_w)
+    bits = torch.int64 if got.dtype == torch.float64 else torch.int32
+    same = (got.view(bits) == want.view(bits)) | (nan_g & nan_w)
     return int((~same).sum())
 
 
@@ -255,15 +278,15 @@ def max_abs_diff(got, want, torch) -> float:
     return float(torch.where(same, torch.zeros_like(diff), diff).max())
 
 
-def diags_check(got, want, mask, torch):
-    """K2/K6/K7 against their plain versions: rtol of each plane's scale,
-    masked cells bit-equal.  Returns (max abs error, ok)."""
+def diags_check(got, want, mask, torch, rtol=K2_RTOL):
+    """K2/K6/K7 against their plain versions: ``rtol`` of each plane's
+    scale, masked cells bit-equal.  Returns (max abs error, ok)."""
     err, ok = 0.0, True
     for g, w in zip(got, want):
         scale = float(w[~mask].abs().max())
         diff = (g - w).abs()
         err = max(err, float(diff.max()))
-        ok &= bool((diff <= K2_RTOL * (w.abs() + scale)).all())
+        ok &= bool((diff <= rtol * (w.abs() + scale)).all())
         ok &= bits_mismatch(g[mask], w[mask], torch) == 0
     return err, ok
 
@@ -657,8 +680,8 @@ def stream_counts(route_kernels, names, loops, n_tiles) -> dict:
     iteration, every other kernel of ``names`` never."""
     per_tile = ("weighted_marginals", "cell_diagnostics_disp",
                 "cell_diagnostics_two_read", "cell_diagnostics_dedisp")
-    return {k: (loops * (n_tiles if k.removesuffix("_bf16") in per_tile
-                         else 1)
+    return {k: (loops * (n_tiles if k.removesuffix("_bf16").removesuffix(
+                    "_f64") in per_tile else 1)
                 if k in route_kernels else 0) for k in names}
 
 
@@ -907,9 +930,10 @@ def contract(route, base, other) -> None:
 
 def route_inputs(ar, cube32, configs, dev):
     """The first iteration's kernel inputs of each configuration's route
-    on ``ar`` (``cube32`` its float32 total intensity): the prepared
-    cubes, templates, rotated template rows and Nyquist rows that K1, K2,
-    K6 and K7 take on the card."""
+    on ``ar`` (``cube32`` its float32 total intensity, or its float64 one
+    for the float64 builds' inputs, every tensor then float64): the
+    prepared cubes, templates, rotated template rows and Nyquist rows that
+    K1, K2, K6 and K7 take on the card."""
     import torch
 
     from iterative_cleaner_torch.engine.loop import (
@@ -919,12 +943,12 @@ def route_inputs(ar, cube32, configs, dev):
     )
     from iterative_cleaner_torch.ops.dsp import rotate_bins
 
-    f32 = torch.float32
+    f32 = torch.float64 if cube32.dtype == np.float64 else torch.float32
     nchan, nbin = cube32.shape[1:]
     weights = torch.from_numpy(
-        np.ascontiguousarray(ar.weights, dtype=np.float32)).to(dev)
+        np.ascontiguousarray(ar.weights, dtype=cube32.dtype)).to(dev)
     meta = [torch.from_numpy(np.ascontiguousarray(ar.freqs_mhz,
-                                                  dtype=np.float32)).to(dev)]
+                                                  dtype=cube32.dtype)).to(dev)]
     meta += [torch.tensor(v, dtype=f32, device=dev)
              for v in (ar.dm, ar.centre_freq_mhz, ar.period_s)]
     cfg = configs["default"]
@@ -957,8 +981,8 @@ def route_inputs(ar, cube32, configs, dev):
     return out
 
 
-def check_k1(disp, weights, what):
-    """K1 against its plain version, within K1_RTOL of sum|w*disp| (a
+def check_k1(disp, weights, what, rtol=K1_RTOL):
+    """K1 against its plain version, within ``rtol`` of sum|w*disp| (a
     batch's cube and weights too)."""
     from iterative_cleaner_torch.stats import kernels as K
 
@@ -966,10 +990,10 @@ def check_k1(disp, weights, what):
     pa, pt1 = K.weighted_marginals_plain(disp, weights)
     sa, st1 = K.weighted_marginals_plain(disp.abs(), weights.abs())
     err = max(float((a - pa).abs().max()), float((t1 - pt1).abs().max()))
-    ok = bool(((a - pa).abs() <= K1_RTOL * sa).all()
-              and ((t1 - pt1).abs() <= K1_RTOL * st1).all())
+    ok = bool(((a - pa).abs() <= rtol * sa).all()
+              and ((t1 - pt1).abs() <= rtol * st1).all())
     print(f"check K1 weighted_marginals{what}: max abs {err:.3e}, tolerance "
-          f"{K1_RTOL:g} * sum|w*disp|: {'ok' if ok else 'FAIL'}", flush=True)
+          f"{rtol:g} * sum|w*disp|: {'ok' if ok else 'FAIL'}", flush=True)
     return err, ok
 
 
@@ -1008,9 +1032,9 @@ def diag_calls_for(ri):
     }
 
 
-def check_diags(diag_calls, mask, what):
-    """Each cell-diagnostics kernel against its plain version (K2_RTOL of
-    each plane's scale, masked cells exact).  Returns the errors, the
+def check_diags(diag_calls, mask, what, rtol=K2_RTOL):
+    """Each cell-diagnostics kernel against its plain version (``rtol``
+    of each plane's scale, masked cells exact).  Returns the errors, the
     verdicts and K2's planes."""
     import torch
 
@@ -1019,14 +1043,14 @@ def check_diags(diag_calls, mask, what):
         diag_err[name], diag_ok[name] = 0.0, True
         for n, (kfn, pfn) in enumerate(pairs):
             got = kfn()
-            err, ok = diags_check(got, pfn(), mask, torch)
+            err, ok = diags_check(got, pfn(), mask, torch, rtol)
             diag_err[name] = max(diag_err[name], err)
             diag_ok[name] &= ok
             if name == "cell_diagnostics_disp":
                 diags = got
             window = " (pulse window)" if n else ""
             print(f"check {name}{window}{what}: max abs {err:.3e}, tolerance "
-                  f"rtol {K2_RTOL:g} of each plane's scale, masked cells "
+                  f"rtol {rtol:g} of each plane's scale, masked cells "
                   f"exact: {'ok' if ok else 'FAIL'}", flush=True)
     return diag_err, diag_ok, diags
 
@@ -1485,12 +1509,18 @@ def kernel_bounds(S, C, B, cube_bytes=4):
     operations over PEAK_F32_PER_S, ``(ms, "bytes" or "operations")``.
     A batch of N such archives is bound by N times it.  ``cube_bytes``:
     the bytes of a cube element (2 for the bf16 storage mode; every
-    other operand is float32)."""
+    other operand is float32; 8 for float64, whose every operand is
+    float64, whose operations count at PEAK_F64_PER_S and whose selects
+    take 8 radix passes)."""
     cells, nk = S * C, B // 2 + 1
     cb = cube_bytes
+    f64 = cube_bytes == 8
+    rb = 8 if f64 else 4                 # a plane element's bytes
+    peak = PEAK_F64_PER_S if f64 else PEAK_F32_PER_S
+    passes = 8 if f64 else 4
 
     def bound(nbytes, nops):
-        tb, to = nbytes / PEAK_BYTES_PER_S * 1e3, nops / PEAK_F32_PER_S * 1e3
+        tb, to = nbytes / PEAK_BYTES_PER_S * 1e3, nops / peak * 1e3
         return (tb, "bytes") if tb >= to else (to, "operations")
 
     # The cell diagnostics' least work per cell: the residual, the fit and
@@ -1500,28 +1530,32 @@ def kernel_bounds(S, C, B, cube_bytes=4):
     # The kernels' DFT against tables does about 4 B (B/2 + 1) instead.
     diag_ops = cells * (2.5 * B * math.log2(B) + 4 * nk + 12 * B)
     # the weights, the mask and the four output planes
-    diag_io = 4 * (cells + 4 * cells) + cells
-    # the select: 4 counting passes per median (the radix digits; the
-    # upper middle comes from the last pass), 2 medians per diagnostic
-    sel_ops = 4 * 2 * 4 * cells
-    sides = bound(cells * (4 * 4 + 1 + 4 * 4), sel_ops)
+    diag_io = rb * (cells + 4 * cells) + cells
+    # the select: `passes` counting passes per median (the radix digits;
+    # the upper middle comes from the last pass), 2 medians per diagnostic
+    sel_ops = passes * 2 * 4 * cells
+    sides = bound(cells * (4 * rb + 1 + 4 * rb), sel_ops)
     return {
         "weighted_marginals": bound(cb * cells * B
-                                    + 4 * (cells + C * B + S * B),
+                                    + rb * (cells + C * B + S * B),
                                     3 * cells * B),
-        "cell_diagnostics_disp": bound(cb * cells * B + 4 * (2 * C * B + B)
+        "cell_diagnostics_disp": bound(cb * cells * B + rb * (2 * C * B + B)
                                        + diag_io, diag_ops),
         "cell_diagnostics_two_read": bound(cb * 2 * cells * B
-                                           + 4 * (C * B + B) + diag_io,
+                                           + rb * (C * B + B) + diag_io,
                                            diag_ops),
-        "cell_diagnostics_dedisp": bound(cb * cells * B + 4 * 2 * B
+        "cell_diagnostics_dedisp": bound(cb * cells * B + rb * 2 * B
                                          + diag_io, diag_ops),
         "scaled_sides_axis0": sides,
         "scaled_sides_axis1": sides,
-        "combine_zap": bound(cells * (9 * 4 + 2 * 4), 16 * cells),
+        "combine_zap": bound(cells * (9 * rb + 2 * rb), 16 * cells),
+        # K8: four planes, the mask and the weights in, new weights and
+        # scores out; both orientations' selects and the combine
+        "fused_combine": bound(cells * (4 * rb + 1 + rb + 2 * rb),
+                               2 * sel_ops + 16 * cells),
         # K9 on the telemetry's line: the values and the mask read once,
-        # one float out; four passes of a few integer ops an entry
-        "masked_median": bound(5 * cells + 4, 4 * 8 * cells),
+        # one value out; `passes` passes of a few integer ops an entry
+        "masked_median": bound((rb + 1) * cells + rb, passes * 8 * cells),
     }
 
 
@@ -1948,6 +1982,31 @@ def long_line_phase(dev, counts, clean_ms, tag):
     plane = torch.from_numpy(np.ascontiguousarray(r.scores,
                                                   dtype=np.float32)).to(dev)
     pmask = torch.from_numpy(r.final_weights == 0).to(dev)
+    return tail_entries(plane, pmask, counts[key], key, "", tag)
+
+
+# The float64 phases (dtype="float64", the reference's oracle-parity
+# mode): the goldens are the float64 oracle's masks, and the reference
+# harness holds a float64 run to them with no flip at all.
+F64_K1_RTOL = 1e-12   # of sum |w * disp|: float64 sums in another order
+F64_PLANE_RTOL = 1e-12   # of each plane's scale (K2, K6, K7): float64
+#                          reassociation; masked cells exact
+F64_LONG_ARCHIVE = dict(nsub=48000, nchan=4, nbin=32, n_prezapped=50,
+                        seed=12)
+F64_CLI_ARCHIVE = dict(nsub=64, nchan=128, nbin=128, n_prezapped=20,
+                       seed=21)
+
+
+def tail_entries(plane, pmask, launches, route, suffix, tag):
+    """The tail kernels (``sides_tail.cu``) on one diagnostic plane along
+    axis 0 against their plain versions (bit-equal), timed, as kernels-line
+    entries named ``side_centre{suffix}`` and ``side_scale{suffix}``:
+    ``launches`` the run ``route``'s counts."""
+    import torch
+
+    from iterative_cleaner_torch.stats import kernels as K
+
+    rb = plane.element_size()
     med = K.masked_median(plane, pmask, 0)
     centred, absc, _ = K.side_centre(plane, pmask, med, 0, True)
     mad = K.masked_median(absc, pmask, 0)
@@ -1956,32 +2015,357 @@ def long_line_phase(dev, counts, clean_ms, tag):
     for name, kfn, pfn, nbytes in (
             ("side_centre",
              lambda: K.side_centre(plane, pmask, med, 0, True),
-             lambda: K.side_centre_plain(plane, pmask, med, 0, True), 13 * n),
+             lambda: K.side_centre_plain(plane, pmask, med, 0, True),
+             (3 * rb + 1) * n),
             ("side_scale",
              lambda: K.side_scale(centred, pmask, mad, None, 0, 5.0, True),
              lambda: K.side_scale_plain(centred, pmask, mad, None, 0, 5.0,
-                                        True), 9 * n)):
+                                        True), (2 * rb + 1) * n)):
         got, want = kfn(), pfn()
         got = got if isinstance(got, torch.Tensor) else got[0]
         want = want if isinstance(want, torch.Tensor) else want[0]
         err = max_abs_diff(got, want, torch)
         bad = bits_mismatch(got, want, torch)
         if bad:
-            fail(f"{name}: {bad} cells differ from its plain version")
+            fail(f"{name}{suffix}: {bad} cells differ from its plain version")
         entries.append({
-            "name": name, "route": "cuda",
+            "name": name + suffix, "route": "cuda",
             "source": "iterative_cleaner_torch/stats/csrc/sides_tail.cu",
             "replaces": "iterative_cleaner_tpu/stats/pallas_kernels.py:433",
-            "launches": counts[key][name], "max_abs_err": err,
+            "launches": launches[name + suffix], "max_abs_err": err,
             "ms": cuda_ms(kfn, 50, torch), "plain_ms": cuda_ms(pfn, 10, torch),
             "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "library_ms": None, "launches_route": key})
-        print(f"time {name}: {entries[-1]['ms']:.4f} ms, bound "
+            "library_ms": None, "launches_route": route})
+        print(f"time {name}{suffix}: {entries[-1]['ms']:.4f} ms, bound "
               f"{entries[-1]['bound_ms']:.4f} ms (bytes), plain "
               f"{entries[-1]['plain_ms']:.4f} ms, {entries[-1]['launches']} "
-              f"launches in {key}; bit-equal to its plain version {tag}",
+              f"launches in {route}; bit-equal to its plain version {tag}",
               flush=True)
     return entries
+
+
+def float64_phases(ar, configs, results, counts, clean_ms, peak_gib,
+                   stream_regs, dev, tag):
+    """The float64 phases, each printing its seconds: (1) the golden
+    archive on the default, profile, dedispersed and pulse-window routes
+    in float64, counted (every kernel of the route its float64 build,
+    nothing else), the default and profile masks held to the goldens with
+    0 flips and the golden's loops and convergence, the other two to the
+    float64 default mask under the frames' contract; (2) stream (a) in
+    float64 at budget 0, held to the whole float64 clean with 0 cells off,
+    its cube uploads exactly twice stream (a)'s bytes a loop; (3)
+    ``tools selftest`` on the card as a subprocess, and ``--backend
+    numpy`` through the CLI on a small archive, equal to the float64 card
+    clean's mask; (4) each float64 build against its plain float64 version
+    at full size on the routes' first-iteration inputs (K1 within
+    F64_K1_RTOL, K2, K6 and K7 within F64_PLANE_RTOL, masked cells exact;
+    K3, the combine, K8 and K9 bit-equal), timed beside its bound (bytes
+    at 8 a sample, operations at PEAK_F64_PER_S), its plain version and a
+    library call; (5) a 48,000 x 4 x 32 archive streamed exactly at budget
+    0 in float64 (K9 and the tail kernels' float64 builds in place of K3),
+    held to its whole float64 clean.  Returns the float64 builds'
+    kernels-line entries."""
+    import torch
+
+    from iterative_cleaner_torch import CleanConfig, clean_streaming, cli
+    from iterative_cleaner_torch.backends import clean_archive
+    from iterative_cleaner_torch.engine.loop import (
+        LONG_LINE_KERNELS,
+        ROUTE_KERNELS,
+        STREAM_KERNELS,
+        iteration_step,
+        select_route,
+        storage_kernels,
+    )
+    from iterative_cleaner_torch.io import load_archive, save_archive
+    from iterative_cleaner_torch.io.synthetic import make_synthetic_archive
+    from iterative_cleaner_torch.parallel.tile_cache import DictRegistry
+    from iterative_cleaner_torch.profile_iteration import stream_line
+    from iterative_cleaner_torch.stats import kernels as K
+
+    NSUB, NCHAN, NBIN = ar.nsub, ar.nchan, ar.nbin
+    shape = (NSUB, NCHAN)
+    f64 = lambda ks: storage_kernels(ks, "float32", "float64")  # noqa: E731
+
+    # ---- (1) the golden archive on every route, counted
+    t_phase = time.perf_counter()
+    runs = {"default": CleanConfig(dtype="float64"),
+            "profile": CleanConfig(dtype="float64", baseline_mode="profile"),
+            "dedispersed": CleanConfig(dtype="float64",
+                                       stats_frame="dedispersed"),
+            "pulse window": CleanConfig(dtype="float64",
+                                        pulse_region=(0.2, 30, 60))}
+    for name, cfg in runs.items():
+        key = f"f64 {name}"
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        results[key] = r = clean_archive(ar, cfg)
+        torch.cuda.synchronize()
+        clean_ms[key] = (time.perf_counter() - t0) * 1e3
+        counts[key] = K.launch_counts()
+        peak_gib[key] = torch.cuda.max_memory_allocated() / 2 ** 30
+        route = select_route(cfg, ar.dedispersed)
+        own = f64(ROUTE_KERNELS[route])
+        print(f"float64 route {name} ({route}): kernels "
+              f"{json.dumps({k: v for k, v in counts[key].items() if v})}, "
+              f"{r.loops} loops, converged {r.converged}, whole clean "
+              f"{clean_ms[key]:.1f} ms, peak device memory "
+              f"{peak_gib[key]:.2f} GiB {tag}", flush=True)
+        missing = [k for k in own if counts[key][k] < 1]
+        stray = [k for k, v in counts[key].items() if k not in own and v]
+        if missing or stray or counts[key]["masked_median_f64"] != r.loops:
+            fail(f"float64 route {name}: float64 builds never launched "
+                 f"{missing}, other launches {stray}")
+        if r.scores.dtype != np.float64:
+            fail(f"float64 route {name}: scores are {r.scores.dtype}")
+    base = results["f64 default"]
+    golden_check("float64 default", base, "", shape, cap=0)
+    golden_check("float64 profile", results["f64 profile"], "_profile",
+                 shape, cap=0)
+    contract("dedispersed", base, results["f64 dedispersed"])
+    contract("pulse_unload", base, results["f64 pulse window"])
+    print(f"float64 phase (1), the golden archive on four routes: "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # ---- (2) stream (a) in float64: budget 0, 128-subint tiles
+    t_phase = time.perf_counter()
+    key = "f64 stream (a)"
+    reg = stream_regs[key] = DictRegistry()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    results[key] = r = clean_streaming(
+        ar, 128, CleanConfig(dtype="float64", stream_hbm_mb=0), registry=reg)
+    torch.cuda.synchronize()
+    clean_ms[key] = (time.perf_counter() - t0) * 1e3
+    counts[key] = K.launch_counts()
+    peak_gib[key] = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_tiles = -(-NSUB // 128)
+    want = stream_counts(f64(STREAM_KERNELS["default"]), counts[key],
+                         r.loops, n_tiles)
+    cube_bytes = NSUB * NCHAN * NBIN * 8
+    got_cube = reg.counters["stream_h2d_cube_bytes"]
+    ra = results["stream (a)"]
+    f32_cube = stream_regs["a"].counters["stream_h2d_cube_bytes"]
+    per_loop, per_loop32 = got_cube / (1 + 2 * r.loops), \
+        f32_cube / (1 + 2 * ra.loops)
+    n_off = int(((r.final_weights == 0) != (base.final_weights == 0)).sum())
+    print(f"{key}: exact, {n_tiles} tiles of 128, budget 0: kernels "
+          f"{json.dumps({k: v for k, v in counts[key].items() if v})}, "
+          f"{r.loops} loops, whole clean {clean_ms[key]:.1f} ms; "
+          f"{stream_line(reg.gauges)}; H2D {reg.counters['stream_h2d_bytes']} "
+          f"bytes, cube {got_cube} (want {(1 + 2 * r.loops) * cube_bytes}), "
+          f"{per_loop:.0f} a cube pass against stream (a)'s {per_loop32:.0f} "
+          f"(ratio {per_loop / per_loop32:.6f}, want 2); peak device memory "
+          f"{peak_gib[key]:.2f} GiB; against the whole float64 clean "
+          f"{n_off} cells differ (tolerance 0) {tag}", flush=True)
+    if counts[key] != want:
+        fail(f"{key}: launch counts {counts[key]}, want {want}")
+    if got_cube != (1 + 2 * r.loops) * cube_bytes \
+            or got_cube * (1 + 2 * ra.loops) != 2 * f32_cube * (
+                1 + 2 * r.loops):
+        fail(f"{key}: cube uploads off")
+    if n_off or (r.loops, r.converged) != (base.loops, base.converged):
+        fail(f"{key}: differs from the whole float64 clean")
+    print(f"float64 phase (2), stream (a): "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # ---- (3) tools selftest on the card; --backend numpy through the CLI
+    t_phase = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "iterative_cleaner_torch.tools", "selftest"],
+        cwd=HERE, capture_output=True, text=True, timeout=600)
+    for line in out.stdout.strip().splitlines():
+        print(f"selftest: {line}", flush=True)
+    if out.returncode != 0:
+        fail(f"tools selftest exited {out.returncode}: "
+             f"{out.stderr.strip()[-400:]}")
+    small, _ = make_synthetic_archive(**F64_CLI_ARCHIVE)
+    card_mask = clean_archive(small, CleanConfig(dtype="float64")
+                              ).final_weights == 0
+    with tempfile.TemporaryDirectory(prefix="icln_chip_smoke_np_") as wd:
+        src, dst = os.path.join(wd, "obs.npz"), os.path.join(wd, "np.npz")
+        save_archive(small, src)
+        t0 = time.perf_counter()
+        rc = cli.main(["-q", "-l", "--backend", "numpy", "-o", dst, src])
+        np_s = time.perf_counter() - t0
+        oracle_mask = load_archive(dst).weights == 0
+    n_off = int((oracle_mask != card_mask).sum())
+    print(f"--backend numpy through the CLI on "
+          f"{tuple(F64_CLI_ARCHIVE[k] for k in ('nsub', 'nchan', 'nbin'))}: "
+          f"exit {rc}, {np_s:.1f} s on the host; against the float64 card "
+          f"clean {n_off} mask cells differ (tolerance 0), "
+          f"{int(card_mask.sum())} zapped {tag}", flush=True)
+    if rc != 0 or n_off:
+        fail("--backend numpy: the oracle's mask differs from the float64 "
+             "card clean's")
+    print(f"float64 phase (3), selftest and the oracle: "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # ---- (4) each float64 build against its plain version, timed
+    t_phase = time.perf_counter()
+    cube64 = np.ascontiguousarray(ar.total_intensity(), dtype=np.float64)
+    ri = route_inputs(ar, cube64, configs, dev)
+    del cube64
+    weights, mask = ri["weights"], ri["mask"]
+    disp, template, rot_t, nyq = (ri[k] for k in ("disp", "template",
+                                                  "rot_t", "nyq"))
+    err1, ok = check_k1(disp, weights, " (float64)", F64_K1_RTOL)
+    diag_calls = diag_calls_for(ri)
+    diag_err, diag_ok, diags = check_diags(diag_calls, mask, " (float64)",
+                                           F64_PLANE_RTOL)
+    ok &= all(diag_ok.values())
+    sides, errs = {}, {}
+    for axis, thresh in ((0, 5.0), (1, 5.0)):
+        got = K.scaled_sides(diags, mask, axis, thresh)
+        want = K.scaled_sides_plain(diags, mask, axis, thresh)
+        bad = sum(bits_mismatch(g, w, torch) for g, w in zip(got, want))
+        errs[f"scaled_sides_axis{axis}"] = max(
+            max_abs_diff(g, w, torch) for g, w in zip(got, want))
+        sides[axis] = got
+        ok &= bad == 0
+        print(f"check K3 scaled_sides axis {axis} (float64): {bad} cells "
+              f"differ in bits (tolerance: bit-equal, NaN included)",
+              flush=True)
+    new_w, scores = K.combine_zap(sides[0], sides[1], weights)
+    pw, ps = K.combine_zap_plain(sides[0], sides[1], weights)
+    bad = bits_mismatch(scores, ps, torch) + bits_mismatch(new_w, pw, torch)
+    errs["combine_zap"] = max_abs_diff(scores, ps, torch)
+    fw, fs = K.fused_combine(diags, mask, weights, 5.0, 5.0)
+    pfw, pfs = K.fused_combine_plain(diags, mask, weights, 5.0, 5.0)
+    bad8 = bits_mismatch(fs, pfs, torch) + bits_mismatch(fw, pfw, torch)
+    errs["fused_combine"] = max_abs_diff(fs, pfs, torch)
+    line_v, line_m = diags[0].reshape(1, -1), mask.reshape(1, -1)
+    bad9 = 0
+    for v, m, dim in ((line_v, line_m, 1), (diags[0], mask, 0),
+                      (diags[0], mask, 1)):
+        bad9 += bits_mismatch(K.masked_median(v, m, dim),
+                              K.masked_median_keys(v, m, dim)[0], torch)
+    errs["masked_median"] = 0.0
+    print(f"check combine_zap, K8 fused_combine and K9 masked_median "
+          f"(float64; K9 on the telemetry line and along both axes): "
+          f"{bad}, {bad8} and {bad9} values differ in bits (tolerance: "
+          f"bit-equal, NaN included)", flush=True)
+    if not (ok and bad == 0 and bad8 == 0 and bad9 == 0):
+        fail("a float64 build disagrees with its plain version")
+    kb = kernel_bounds(NSUB, NCHAN, NBIN, cube_bytes=8)
+    pp, pd = ri["p"], ri["pd"]
+    entries = [
+        ("weighted_marginals", "marginals.cu", ":633", "default", err1,
+         lambda: K.weighted_marginals(disp, weights),
+         lambda: K.weighted_marginals_plain(disp, weights),
+         lambda: (torch.einsum("sc,scb->cb", weights, disp),
+                  torch.einsum("sc,scb->sb", weights, disp)), 10),
+        ("cell_diagnostics_disp", "cell_stats.cu", ":909", "default",
+         diag_err["cell_diagnostics_disp"],
+         *diag_calls["cell_diagnostics_disp"][0], None, 3),
+        ("cell_diagnostics_two_read", "cell_stats.cu", ":852", "profile",
+         diag_err["cell_diagnostics_two_read"],
+         *diag_calls["cell_diagnostics_two_read"][0], None, 3),
+        ("cell_diagnostics_dedisp", "cell_stats.cu", ":934", "dedispersed",
+         diag_err["cell_diagnostics_dedisp"],
+         *diag_calls["cell_diagnostics_dedisp"][0], None, 3),
+        ("scaled_sides_axis0", "scaled_sides.cu", ":281", "default",
+         errs["scaled_sides_axis0"],
+         lambda: K.scaled_sides(diags, mask, 0, 5.0),
+         lambda: K.scaled_sides_plain(diags, mask, 0, 5.0), None, 10),
+        ("scaled_sides_axis1", "scaled_sides.cu", ":289", "default",
+         errs["scaled_sides_axis1"],
+         lambda: K.scaled_sides(diags, mask, 1, 5.0),
+         lambda: K.scaled_sides_plain(diags, mask, 1, 5.0), None, 10),
+        ("combine_zap", "combine.cu", ":1555", "default", errs["combine_zap"],
+         lambda: K.combine_zap(sides[0], sides[1], weights),
+         lambda: K.combine_zap_plain(sides[0], sides[1], weights), None, 20),
+        ("fused_combine", "scaled_sides.cu", ":1836", "stream (a)",
+         errs["fused_combine"],
+         lambda: K.fused_combine(diags, mask, weights, 5.0, 5.0),
+         lambda: K.fused_combine_plain(diags, mask, weights, 5.0, 5.0), None,
+         5),
+        ("masked_median", "masked_median.cu", ":1882", "default",
+         errs["masked_median"], lambda: K.masked_median(line_v, line_m, 1),
+         lambda: K.masked_median_keys(line_v, line_m, 1), None, 20),
+    ]
+    k8_parts = ["scaled_sides_axis0_f64", "scaled_sides_axis1_f64",
+                "combine_zap_f64"]
+    kernels = []
+    for (name, src, line, route, err, kfn, pfn, lfn, reps) in entries:
+        run = "f64 stream (a)" if route == "stream (a)" else f"f64 {route}"
+        launches = counts[run][name + "_f64"]
+        extra = {}
+        if name == "fused_combine":
+            extra = dict(sequences=launches, parts=k8_parts, sources=[
+                "iterative_cleaner_torch/stats/csrc/scaled_sides.cu",
+                "iterative_cleaner_torch/stats/csrc/combine.cu"])
+            launches = sum(counts[run][k] for k in k8_parts)
+        bms, bby = kb[name]
+        ms = cuda_ms(kfn, reps, torch)
+        pms = cuda_ms(pfn, 2, torch)
+        lms = cuda_ms(lfn, 2, torch) if lfn else None
+        kernels.append({
+            "name": name + "_f64", "route": "cuda",
+            "source": f"iterative_cleaner_torch/stats/csrc/{src}",
+            "replaces": f"iterative_cleaner_tpu/stats/pallas_kernels.py"
+                        f"{line}",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": pms, "bound_ms": bms, "bound_by": bby,
+            "library_ms": lms, "launches_route": run, **extra})
+        lib = "null" if lms is None else f"{lms:.4f}"
+        print(f"time {name}_f64: {ms:.4f} ms, bound {bms:.4f} ms ({bby}), "
+              f"plain {pms:.4f} ms, library {lib} ms, {launches} launches "
+              f"in the {run} run {tag}", flush=True)
+    common = dict(chanthresh=5.0, subintthresh=5.0, rotation="fourier",
+                  baseline_duty=0.15)
+    for route, prep in ri["preps"].items():
+        it_ms = cuda_ms(lambda: iteration_step(prep, weights, weights, mask,
+                                               **common), 3, torch)
+        key = f"f64 {route}" if route != "pulse_unload" \
+            else "f64 pulse window"
+        print(f"clean float64 {route}: {results[key].loops} loops, whole "
+              f"clean {clean_ms[key]:.1f} ms, {it_ms:.3f} ms per iteration "
+              f"(device, resident cubes), peak device memory of the clean "
+              f"{peak_gib[key]:.2f} GiB {tag}", flush=True)
+    del ri, diags, sides, fw, fs, pfw, pfs, new_w, scores, pw, ps
+    torch.cuda.empty_cache()
+    print(f"float64 phase (4), the float64 builds at full size: "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # ---- (5) long scaler lines in float64: an exact stream of 48,000
+    # subints at budget 0 (K9 and the tail kernels in place of K3)
+    t_phase = time.perf_counter()
+    lar, _ = make_synthetic_archive(**F64_LONG_ARCHIVE)
+    whole = clean_archive(lar, CleanConfig(dtype="float64"))
+    K.reset_launch_counts()
+    key = "f64 stream (long lines)"
+    t0 = time.perf_counter()
+    r = clean_streaming(lar, 6000, CleanConfig(dtype="float64",
+                                               stream_hbm_mb=0))
+    torch.cuda.synchronize()
+    clean_ms[key] = (time.perf_counter() - t0) * 1e3
+    counts[key] = K.launch_counts()
+    n_mask = int(((r.final_weights == 0) != (whole.final_weights == 0)).sum())
+    long_own = set(f64(STREAM_KERNELS["default"] + LONG_LINE_KERNELS))
+    stray = [k for k, v in counts[key].items() if v and k not in long_own]
+    print(f"{key}: exact, 8 tiles of 6000 subints of 48000 x 4 x 32, "
+          f"budget 0: kernels "
+          f"{json.dumps({k: v for k, v in counts[key].items() if v})}, "
+          f"{r.loops} loops (whole {whole.loops}), {clean_ms[key]:.1f} ms; "
+          f"against the whole float64 clean {n_mask} mask cells differ "
+          f"(tolerance 0) {tag}", flush=True)
+    if n_mask or r.loops != whole.loops or stray \
+            or counts[key]["side_centre_f64"] < 1 \
+            or counts[key]["scaled_sides_axis0_f64"]:
+        fail(f"{key}: mask, loops or launches off")
+    plane = torch.from_numpy(np.ascontiguousarray(r.scores)).to(dev)
+    pmask = torch.from_numpy(r.final_weights == 0).to(dev)
+    kernels.extend(tail_entries(plane, pmask, counts[key], key, "_f64", tag))
+    print(f"float64 phase (5), long lines: "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return kernels
 
 
 def main() -> int:
@@ -2395,6 +2779,11 @@ def main() -> int:
     # one NCCL rank
     bf16_phases(ar, results, counts, clean_ms, peak_gib, stream_regs, mesh1,
                 batch_ars, dev, tag)
+    # ---- 3l. float64 (dtype='float64'): the golden archive on every route
+    # held to the goldens with no flip, stream (a), selftest and the numpy
+    # oracle, the float64 builds against their plain versions, long lines
+    f64_kernels = float64_phases(ar, configs, results, counts, clean_ms,
+                                 peak_gib, stream_regs, dev, tag)
     # ---- batch (e): --mesh batch over the one NCCL rank and over four
     # gloo ranks sharing the card
     batch_mesh_phase(batch_ars, counts, tag)
@@ -2457,7 +2846,7 @@ def main() -> int:
     # 50,000-entry lines (K9 and the tail kernels in place of K3), and an
     # exact stream at budget 0 of an archive of 48,000 subints, its mask
     # held to the whole clean's
-    tail_entries = long_line_phase(dev, counts, clean_ms, tag)
+    tail_ms = long_line_phase(dev, counts, clean_ms, tag)
 
     # ---- 4. each kernel against its plain version, at its route's
     # shapes: the first iteration's inputs of the same archive ----
@@ -2700,9 +3089,7 @@ def main() -> int:
     sweep_ops = diag_ops + 2 * sel_ops + 16 * cells
     b4 = bound(4 * (cells * B + 2 * C * B + B) + sweep_io, sweep_ops)
     b5 = bound(4 * (cells * B + 2 * B) + sweep_io, sweep_ops)
-    # K8: four planes, the mask and the weights in, new weights and scores
-    # out (29 bytes a cell); both orientations' selects and the combine
-    b8 = bound(cells * (4 * 4 + 1 + 4 + 2 * 4), 2 * sel_ops + 16 * cells)
+    b8 = kb["fused_combine"]
     # K10 on a 2 x 2 shard: K2's and K6's bounds at a quarter of the cells
     # and half of the channel rows
     b2q = bound(4 * (cells // 4 * B + C * B + B) + diag_io // 4,
@@ -2863,7 +3250,8 @@ def main() -> int:
         print(f"time {name}: {ms:.4f} ms, bound {bms:.4f} ms ({bby}), plain "
               f"{pms:.4f} ms, library {lib} ms, {what} on the {route} route "
               f"{tag}", flush=True)
-    kernels.extend(tail_entries)
+    kernels.extend(tail_ms)
+    kernels.extend(f64_kernels)
     ms_of = {k["name"]: k["ms"] for k in kernels}
     tail = (ms_of["scaled_sides_axis0"] + ms_of["scaled_sides_axis1"]
             + ms_of["combine_zap"])

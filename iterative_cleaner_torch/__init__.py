@@ -24,7 +24,13 @@ CUDA counterpart in :mod:`iterative_cleaner_torch.stats.kernels` (K9,
 the masked median, computes every iteration's residual-std telemetry).
 Every route also runs in the reference's mixed-precision mode
 (``CleanConfig(compute_dtype="bfloat16")``: the cube stored in bf16,
-every stage computing in float32).  float64 is not ported yet.
+every stage computing in float32), and in float64
+(``CleanConfig(dtype="float64")``, the reference's oracle-parity mode:
+the kernels' float64 builds on the card) on every single-card route and
+in both streaming modes; ``CleanConfig(backend="numpy")`` (the CLI's
+``--backend numpy``) cleans on the port's own float64 numpy oracle on
+the host, which ``python -m iterative_cleaner_torch.tools selftest``
+holds the card's float64 masks to.
 
 Entry points run on the card (``CleanConfig.device`` defaults to
 ``"cuda"``); ``device="cpu"`` runs every kernel's plain PyTorch version
@@ -39,14 +45,16 @@ Layout, host boundary first:
 - :mod:`~iterative_cleaner_torch.ops` — dispersion, rotation, baselines
 - :mod:`~iterative_cleaner_torch.stats` — detection statistics and the kernels
 - :mod:`~iterative_cleaner_torch.engine` — the iteration loop
-- :mod:`~iterative_cleaner_torch.backends` — ``clean_archive``
+- :mod:`~iterative_cleaner_torch.backends` — ``clean_archive`` (the
+  torch engine or the numpy oracle)
 - :mod:`~iterative_cleaner_torch.parallel` — ``clean_streaming``,
   ``clean_archive_sharded``, ``clean_archives_batched``
 - :mod:`~iterative_cleaner_torch.telemetry`,
   :mod:`~iterative_cleaner_torch.utils` — the CLI session's run report,
   metrics, event log and ``clean.log``
 - :mod:`~iterative_cleaner_torch.cli` — ``python -m iterative_cleaner_torch``;
-  :mod:`~iterative_cleaner_torch.tools` — ``info`` and ``convert``
+  :mod:`~iterative_cleaner_torch.tools` — ``info``, ``convert`` and
+  ``selftest``
 """
 
 __version__ = "0.1.0"

@@ -1,6 +1,8 @@
-"""``clean_archive``: one archive through the PyTorch/CUDA backend;
-``clean_archive_sharded``: one archive over the ranks of a process
-group; ``clean_archives_batched``: equal-shaped archives as one batch."""
+"""``clean_archive``: one archive through the backend ``config.backend``
+names — the PyTorch/CUDA engine (``"torch"``) or the float64 numpy
+oracle (``"numpy"``); ``clean_archive_sharded``: one archive over the
+ranks of a process group; ``clean_archives_batched``: equal-shaped
+archives as one batch."""
 
 from iterative_cleaner_torch.backends.base import (  # noqa: F401
     CleanResult,
@@ -9,13 +11,26 @@ from iterative_cleaner_torch.backends.base import (  # noqa: F401
 )
 
 
+def get_backend(name: str):
+    """The backend module of ``name`` (``"torch"`` or ``"numpy"``); each
+    has ``clean_cube`` with one signature."""
+    if name == "numpy":
+        from iterative_cleaner_torch.backends import numpy_backend
+
+        return numpy_backend
+    if name == "torch":
+        from iterative_cleaner_torch.backends import torch_backend
+
+        return torch_backend
+    raise ValueError(f"unknown backend {name!r}")
+
+
 def clean_archive(archive, config):
     """Clean one archive: extract the total-intensity cube, run the
-    iteration loop on ``config.device``, then the optional whole-line
-    sweep (gated as the reference gates it)."""
-    from iterative_cleaner_torch.backends.torch_backend import clean_cube
-
-    result = clean_cube(
+    iteration loop of ``config.backend`` (the torch engine on
+    ``config.device``, or the numpy oracle on the host), then the
+    optional whole-line sweep (gated as the reference gates it)."""
+    result = get_backend(config.backend).clean_cube(
         archive.total_intensity(), archive.weights, archive.freqs_mhz,
         archive.dm, archive.centre_freq_mhz, archive.period_s, config,
         dedispersed=archive.dedispersed)

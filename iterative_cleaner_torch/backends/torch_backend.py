@@ -179,20 +179,28 @@ def config_compute_dtype(config: CleanConfig, stage: str, device,
                                  device=device)
 
 
-def upload(a, device) -> torch.Tensor:
-    """A host array as a new float32 tensor on ``device``."""
+def engine_dtype(config: CleanConfig) -> torch.dtype:
+    """The torch dtype the engine stores and computes in:
+    ``config.dtype`` (float32, or float64 in the oracle-parity mode)."""
+    return torch.float64 if config.dtype == "float64" else torch.float32
+
+
+def upload(a, device, dtype=torch.float32) -> torch.Tensor:
+    """A host array as a new tensor of ``dtype`` (float32 or float64)
+    on ``device``."""
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
     return torch.from_numpy(
-        np.ascontiguousarray(a, dtype=np.float32)).to(device, copy=True)
+        np.ascontiguousarray(a, dtype=np_dtype)).to(device, copy=True)
 
 
-def upload_meta(freqs_mhz, dm, ref_freq_mhz, period_s, device):
-    """The archive's dispersion metadata as float32 device tensors, in
-    the preamble's argument order."""
-    f32 = torch.float32
-    return (upload(freqs_mhz, device),
-            torch.tensor(dm, dtype=f32, device=device),
-            torch.tensor(ref_freq_mhz, dtype=f32, device=device),
-            torch.tensor(period_s, dtype=f32, device=device))
+def upload_meta(freqs_mhz, dm, ref_freq_mhz, period_s, device,
+                dtype=torch.float32):
+    """The archive's dispersion metadata as device tensors of ``dtype``,
+    in the preamble's argument order."""
+    return (upload(freqs_mhz, device, dtype),
+            torch.tensor(dm, dtype=dtype, device=device),
+            torch.tensor(ref_freq_mhz, dtype=dtype, device=device),
+            torch.tensor(period_s, dtype=dtype, device=device))
 
 
 def clean_cube(cube, orig_weights, freqs_mhz, dm, ref_freq_mhz, period_s,
@@ -204,17 +212,20 @@ def clean_cube(cube, orig_weights, freqs_mhz, dm, ref_freq_mhz, period_s,
     rotation.  Under ``compute_dtype='bfloat16'`` the route's cubes are
     stored bf16 after the float32 preamble, which then uploads and
     prepares the cube a piece of subints at a time (a downgrade counted in
-    ``registry`` where given)."""
+    ``registry`` where given).  Under ``dtype='float64'`` every upload,
+    cube, plane and score is float64 and the kernels' float64 builds run
+    (``iter_metrics`` stays float32, as in the reference)."""
     device = clean_device(config)
     compute_dtype = config_compute_dtype(config, "engine", device, registry)
-    weights_t = upload(orig_weights, device)
+    dtype = engine_dtype(config)
+    weights_t = upload(orig_weights, device, dtype)
     # each upload is consumed by the preamble: it becomes disp_clean
     # (integration baseline) or ded (profile baseline, DEDISP=1) where the
     # route reads it, and is freed here otherwise (or, in bf16 storage,
     # once narrowed)
     prep = prepare_stored(
-        lambda sl: upload(cube[sl], device), cube.shape, weights_t,
-        *upload_meta(freqs_mhz, dm, ref_freq_mhz, period_s, device),
+        lambda sl: upload(cube[sl], device, dtype), cube.shape, weights_t,
+        *upload_meta(freqs_mhz, dm, ref_freq_mhz, period_s, device, dtype),
         config, dedispersed=dedispersed, compute_dtype=compute_dtype)
     outs = clean_loop(
         prep, weights_t, max_iter=config.max_iter,

@@ -1,9 +1,10 @@
 """Command line of the port: the reference CLI's session over archives.
 
 ``python -m iterative_cleaner_torch [-c] [-s] [-m] [-z] [-u] [-p] [-q]
-[-l] [-r] [-o] [--memory] [--bad_chan] [--bad_subint] [--rotation
-fourier|roll] [--baseline_mode] [--stats_frame] [--compute-dtype
-float32|bfloat16] [--record_history] [--device] [--stream N [--stream_mode exact|online]
+[-l] [-r] [-o] [--memory] [--bad_chan] [--bad_subint] [--backend
+torch|numpy] [--rotation fourier|roll] [--baseline_mode] [--stats_frame]
+[--compute-dtype float32|bfloat16] [--record_history] [--device]
+[--stream N [--stream_mode exact|online]
 [--stream_hbm_mb MB]] [--batch B] [--mesh off|cell|batch] [--prefetch N]
 [--io-workers N]
 [--metrics-json PATH] [--prom-textfile PATH] [--event-log PATH]
@@ -32,6 +33,10 @@ cleaned, and the exit code is 1.
 the cube in bf16 on the card while every stage computes in float32; a
 stage the parity probe finds ineligible stays float32 with a notice and a
 ``compute_dtype_ineligible{stage=,reason=}`` counter in the run report.
+``--backend numpy`` cleans on the float64 numpy oracle on the host (the
+reference's ``--backend numpy``; ``--device`` then means nothing), whole
+or with ``--stream N`` in both modes; with ``--batch B > 1`` or a mesh it
+is a parser error, as in the reference.
 ``--memory`` is accepted and does nothing (the reference's compatibility
 flag: the input is never mutated); ``--record_history`` keeps every
 iteration's weights in the clean's result, as the reference does, and
@@ -70,7 +75,12 @@ import dataclasses
 import os
 import sys
 
-from iterative_cleaner_torch.config import MESH_MODES, CleanConfig, check_mesh
+from iterative_cleaner_torch.config import (
+    BACKENDS,
+    MESH_MODES,
+    CleanConfig,
+    check_mesh,
+)
 from iterative_cleaner_torch.io import load_archive, peek_shape, save_archive
 from iterative_cleaner_torch.telemetry import RunTelemetry
 from iterative_cleaner_torch.utils.logging import append_clean_log
@@ -124,6 +134,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--bad_subint", type=float, default=1,
                    help="Fraction of removed channels above which the "
                         "whole subint is removed.")
+    p.add_argument("--backend", choices=BACKENDS, default="torch",
+                   help="Compute backend: the PyTorch/CUDA engine on "
+                        "--device, or the float64 numpy oracle on the "
+                        "host.")
     p.add_argument("--rotation", choices=("fourier", "roll"),
                    default="fourier",
                    help="Dedispersion rotation: exact fractional-bin "
@@ -268,6 +282,7 @@ def config_of(args) -> CleanConfig:
                        rotation=args.rotation,
                        stats_frame=args.stats_frame,
                        baseline_mode=args.baseline_mode,
+                       backend=args.backend,
                        compute_dtype=args.compute_dtype,
                        record_history=args.record_history,
                        unload_res=args.unload_res, device=args.device,
@@ -282,7 +297,7 @@ def notice_compute_dtype_downgrade(cfg: CleanConfig, telemetry) -> str:
     run report (the resolve prints the notice and never raises).
     Returns the resolved dtype."""
     knob = cfg.compute_dtype or os.environ.get("ICLEAN_COMPUTE_DTYPE", "")
-    if knob != "bfloat16":
+    if knob != "bfloat16" or cfg.backend != "torch":
         return "float32"
     from iterative_cleaner_torch.backends.torch_backend import (
         clean_device,
@@ -572,6 +587,9 @@ def main(argv=None) -> int:
     if args.mesh == "batch" and args.batch <= 1:
         parser.error("--mesh batch splits the --batch groups over the "
                      "ranks; pass --batch B (B > 1)")
+    if args.backend != "torch" and (args.batch > 1 or args.mesh != "off"):
+        parser.error("--batch B > 1 and --mesh cell|batch require "
+                     "--backend torch")
     check_mesh(args.mesh, config_of(args))
     if args.mesh == "off":
         return run_archives(args)

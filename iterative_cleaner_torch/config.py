@@ -3,7 +3,12 @@
 The reference-algorithm fields keep the reference package's names and
 defaults.  The TPU route knobs (``stats_impl``, ``median_impl``,
 ``fft_mode``, ``fused_sweep``) have no counterpart: on the port the
-device decides the kernels.  ``compute_dtype`` is the reference's
+device decides the kernels.  ``backend`` picks the torch engine (on
+``device``, the default) or the float64 numpy oracle (``"numpy"``, the
+reference's ``--backend numpy``; host only, whatever ``dtype`` and
+``device`` say).  ``dtype="float64"`` runs the torch engine in float64,
+the reference's oracle-parity mode (the float64 builds of the kernels on
+the card).  ``compute_dtype`` is the reference's
 mixed-precision mode: ``"bfloat16"`` stores the cube-sized operands in
 bf16 after the float32 preamble and every stage still computes in
 float32 (resolved, env mirror and parity probe included, by
@@ -22,7 +27,12 @@ import dataclasses
 from typing import Optional, Tuple
 
 # ROADMAP.md "Modules still to port" items the refusals point at.
-_ROADMAP_F64 = "ROADMAP.md 'Modules still to port' item 1 (float64)"
+ROADMAP_F64_MESH = ("ROADMAP.md 'Modules still to port' item 1b (float64 "
+                    "on a mesh and in a batch)")
+
+BACKENDS = ("torch", "numpy")
+
+DTYPES = ("float32", "float64")
 
 COMPUTE_DTYPES = ("float32", "bfloat16")
 
@@ -58,6 +68,10 @@ class CleanConfig:
     stats_frame: str = "auto"
     baseline_duty: float = 0.15  # off-pulse window fraction
     baseline_mode: str = "integration"  # or "profile"
+    # "torch": the engine on `device`; "numpy": the float64 oracle (host)
+    backend: str = "torch"
+    # the engine's storage and arithmetic: "float32" or "float64" (the
+    # oracle-parity mode)
     dtype: str = "float32"
     # mixed-precision storage: "bfloat16" keeps the cube-sized operands
     # in bf16 on the device (and exact streaming's host store and
@@ -99,6 +113,8 @@ class CleanConfig:
             raise ValueError(f"unknown stats frame {self.stats_frame!r}")
         if self.max_iter < 1:
             raise ValueError("max_iter must be >= 1")
+        if self.backend not in BACKENDS:
+            raise ValueError(f"unknown backend {self.backend!r}")
         if self.stream_hbm_mb is not None and self.stream_hbm_mb < 0:
             raise ValueError(
                 f"stream_hbm_mb must be >= 0 (0 disables the stream tile "
@@ -120,24 +136,36 @@ class CleanConfig:
                 "dtype='bfloat16' runs no clean (arithmetic in bf16 is "
                 "not offered): use dtype='float32' with "
                 "compute_dtype='bfloat16' for bf16 cube storage")
-        if self.dtype != "float32":
-            raise NotImplementedError(
-                f"dtype={self.dtype!r}: the port runs float32 only (the "
-                f"kernels' order-preserving keys are 32-bit): "
-                f"{_ROADMAP_F64}")
+        if self.dtype not in DTYPES:
+            raise ValueError(f"unknown dtype {self.dtype!r} (choose "
+                             f"'float32' or 'float64')")
 
 
 def check_mesh(mesh: str, config: CleanConfig) -> None:
     """Refuse what the multi-GPU clean does not run: on a mesh, the
     outputs that are not gathered across ranks (``unload_res``,
-    ``record_history``: ``ValueError``, as in the reference).
+    ``record_history``) and the numpy oracle (``ValueError``, as in the
+    reference); float64 (``NotImplementedError``, item 1b).
     ``mesh='cell'`` runs every route, whole or streamed in subint tiles;
     ``mesh='batch'`` splits a batch of archives over the ranks
     (``parallel/batch.py``)."""
     if mesh not in MESH_MODES:
         raise ValueError(f"unknown mesh {mesh!r}")
-    if mesh != "off" and (config.unload_res or config.record_history):
+    if mesh == "off":
+        return
+    if config.backend != "torch":
+        raise ValueError("a mesh requires the torch backend")
+    if config.unload_res or config.record_history:
         raise ValueError(
             "unload_res/record_history are not supported on the sharded "
             "path (residual cubes and weight histories are not gathered); "
             "clean unsharded for those outputs")
+    check_float64_mesh(config, f"mesh={mesh!r}")
+
+
+def check_float64_mesh(config: CleanConfig, what: str) -> None:
+    """Refuse ``dtype='float64'`` where it would need K10's float64 build
+    or 64-bit sharded selects: on a mesh and in a batch."""
+    if config.dtype == "float64":
+        raise NotImplementedError(
+            f"dtype='float64' with {what}: {ROADMAP_F64_MESH}")

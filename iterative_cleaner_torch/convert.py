@@ -37,8 +37,9 @@ def archive_from_reference(obj) -> Archive:
 def config_from_reference(cfg, device: str = "cuda") -> CleanConfig:
     """The port's :class:`CleanConfig` with a reference configuration's
     algorithm fields.  Its TPU route knobs have no counterpart (the
-    device decides the kernels); a setting outside the port's slice
-    raises ``NotImplementedError`` from the config."""
+    device decides the kernels); its ``backend`` maps ``"jax"`` to the
+    port's ``"torch"``; a setting outside the port's slice raises
+    ``NotImplementedError`` from the config."""
     return CleanConfig(
         chanthresh=float(cfg.chanthresh),
         subintthresh=float(cfg.subintthresh),
@@ -50,6 +51,9 @@ def config_from_reference(cfg, device: str = "cuda") -> CleanConfig:
         stats_frame=str(cfg.stats_frame),
         baseline_duty=float(cfg.baseline_duty),
         baseline_mode=str(cfg.baseline_mode),
+        # the reference's accelerator backend is jax, the port's torch
+        backend="numpy" if getattr(cfg, "backend", "jax") == "numpy"
+        else "torch",
         dtype=str(cfg.dtype),
         compute_dtype=getattr(cfg, "compute_dtype", None),
         record_history=bool(cfg.record_history),

@@ -60,6 +60,12 @@ so that a batch's floats are bit-equal to its single cleans' on the
 card too (a library product or reduction may pick its kernel, and so its
 order of addition, by the shape it is given).
 
+float64 (``CleanConfig.dtype='float64'``, the reference's oracle-parity
+mode): the uploads, the cubes, every plane, sum, select and score are
+float64 on every single-card route, and each kernel launches its float64
+build (:func:`storage_kernels`); ``iter_metrics`` stays float32, as in
+the reference.
+
 Mixed precision (``CleanConfig.compute_dtype='bfloat16'``, the
 reference's ``compute_dtype``): :func:`store_prepared` narrows the
 route's cube-sized operands to bf16 after the float32 preamble, exactly
@@ -87,6 +93,7 @@ from iterative_cleaner_torch.ops.dsp import (
     template_numerator_from_channel_profiles,
     template_residuals,
     trailing_sum,
+    upcast_stored,
     weighted_template,
     weighted_template_numerator,
 )
@@ -143,10 +150,16 @@ CUBE_KERNELS = ("weighted_marginals", "cell_diagnostics_disp",
                 "shard_diagnostics_disp", "shard_diagnostics_dedisp")
 
 
-def storage_kernels(kernels, compute_dtype: str) -> tuple:
+def storage_kernels(kernels, compute_dtype: str,
+                    dtype: str = "float32") -> tuple:
     """The launch-count names ``kernels`` (of :data:`ROUTE_KERNELS` and
     the others) run under at ``compute_dtype``: the cube kernels' bf16
-    builds under ``'bfloat16'``, the rest (float32 planes) as named."""
+    builds under ``'bfloat16'``, the rest (float32 planes) as named.
+    Under ``dtype='float64'`` every kernel's float64 build
+    (``<name>_f64``; the single-card routes', exact streaming's and the
+    long lines' kernels have one, K10 none)."""
+    if dtype == "float64":
+        return tuple(k + "_f64" for k in kernels)
     if compute_dtype != "bfloat16":
         return tuple(kernels)
     return tuple(k + "_bf16" if k in CUBE_KERNELS else k for k in kernels)
@@ -229,8 +242,8 @@ def dispersed_residual_base(ded, back_shifts, *, window, rotation):
 class Prepared(NamedTuple):
     """What the preamble leaves on the device for one route (a batch's:
     each tensor but ``window`` with a leading batch dimension).  The
-    cubes (``ded``, ``disp_base``, ``disp_clean``) are float32, or bf16
-    after :func:`store_prepared`."""
+    cubes (``ded``, ``disp_base``, ``disp_clean``) are float32 (float64
+    under ``dtype='float64'``), or bf16 after :func:`store_prepared`."""
 
     route: str
     back_shifts: torch.Tensor                 # (nchan,) re-dispersion shifts
@@ -783,10 +796,10 @@ def unload_residual(prep: Prepared, template_weights, *, rotation,
     float32 cube of the same size anyway."""
     ded = prep.ded
     if ded is None:
-        ded = rotate_bins(prep.disp_clean.float(), -prep.back_shifts,
+        ded = rotate_bins(upcast_stored(prep.disp_clean), -prep.back_shifts,
                           method=rotation)
     else:
-        ded = ded.float()
+        ded = upcast_stored(ded)
     template = weighted_template(ded, template_weights)
     if prep.disp_clean is not None:
         template = template + template_correction(

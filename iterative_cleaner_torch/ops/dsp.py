@@ -97,13 +97,20 @@ def subint_chunks(nsub: int, nchan: int, nbin: int):
     return [slice(s, min(s + per, nsub)) for s in range(0, nsub, per)]
 
 
+def upcast_stored(t):
+    """A cube in its arithmetic dtype: a bf16-stored one upcast to
+    float32, a float32 or float64 one as it is."""
+    return t.float() if t.dtype == torch.bfloat16 else t
+
+
 def weighted_channel_sum(weights, cube):
     """``sum_c w[s, c] * cube[s, c, :]``, (nsub, nbin) per archive (as
     the reference groups it: per-subint (1, C) x (C, B) products); (B,
     nsub, nbin) for a batch.  A bf16-stored cube is upcast to float32 a
-    :func:`subint_chunks` piece at a time; the products are float32."""
+    :func:`subint_chunks` piece at a time; the products are float32 (or
+    float64 for a float64 cube)."""
     def one(w, c):
-        parts = [torch.einsum("sc,scb->sb", w[sl], c[sl].float())
+        parts = [torch.einsum("sc,scb->sb", w[sl], upcast_stored(c[sl]))
                  for sl in subint_chunks(*c.shape)]
         return parts[0] if len(parts) == 1 else torch.cat(parts)
 
@@ -136,7 +143,9 @@ def _rotate_fft(x, s_chan):
     """Fourier rotation through ``torch.fft`` (the reference's path above
     the matmul gate): ``irfft(rfft(x) * exp(-2j*pi*k*s/nbin))``."""
     nbin = x.shape[-1]
-    k = torch.arange(nbin // 2 + 1, device=x.device)
+    # k at x's dtype: the phase ramp is then complex128 for a float64 x
+    # (an integer k would make it complex64, torch's default)
+    k = torch.arange(nbin // 2 + 1, device=x.device, dtype=x.dtype)
     phase = torch.exp((-2j * math.pi) * k * s_chan[:, None] / nbin)
     spec = torch.fft.rfft(x, dim=-1)
     return torch.fft.irfft(spec * phase, n=nbin, dim=-1).to(x.dtype)

@@ -36,7 +36,7 @@ from iterative_cleaner_torch.backends.torch_backend import (
     clean_device,
     config_compute_dtype,
 )
-from iterative_cleaner_torch.config import CleanConfig
+from iterative_cleaner_torch.config import CleanConfig, check_float64_mesh
 from iterative_cleaner_torch.engine.loop import (
     BatchOutputs,
     clean_loop_batch,
@@ -152,7 +152,12 @@ def clean_archives_batched(archives: Sequence, config: CleanConfig,
     ranks return None).  ``registry`` (a telemetry registry) receives the
     bytes this call uploaded as ``batch_h2d_bytes`` and the archives as
     ``batch_archives``.  The residual (``unload_res``) and the weight
-    history (``record_history``) are not batched: ``ValueError``."""
+    history (``record_history``) are not batched, nor is the numpy
+    oracle: ``ValueError``; float64 is ROADMAP item 1b:
+    ``NotImplementedError``."""
+    if config.backend != "torch":
+        raise ValueError("the batched clean requires the torch backend")
+    check_float64_mesh(config, "clean_archives_batched")
     if not archives:
         return []
     if config.unload_res or config.record_history:

@@ -4,8 +4,9 @@
 parallel.streaming_exact.clean_streaming_exact`: whole-archive masks at
 two passes over the tiles per iteration.  ``mode="online"`` cleans each
 fixed-size tile on its own as it fills (:class:`StreamingCleaner`), in
-one device footprint of a tile, through
-:func:`~iterative_cleaner_torch.backends.torch_backend.clean_cube`.  A
+one device footprint of a tile, through the ``clean_cube`` of
+``config.backend`` (:func:`~iterative_cleaner_torch.backends.
+get_backend`: the torch engine, or the numpy oracle on the host).  A
 final partial tile is padded with zero-weight subints.
 
 An online tile differs from the whole clean in one way: the scalers'
@@ -126,7 +127,7 @@ class StreamingCleaner:
         return out
 
     def _clean_tile(self, taken) -> StreamTileResult:
-        from iterative_cleaner_torch.backends.torch_backend import clean_cube
+        from iterative_cleaner_torch.backends import get_backend
 
         data, weights = taken
         n_valid = data.shape[0]
@@ -149,9 +150,9 @@ class StreamingCleaner:
                 self.period_s, self.config, self.mesh, apply_bad_parts=False,
                 dedispersed=self.dedispersed)
         else:
-            result = clean_cube(data, weights, self.freqs_mhz, self.dm,
-                                self.centre_freq_mhz, self.period_s,
-                                self.config, dedispersed=self.dedispersed)
+            result = get_backend(self.config.backend).clean_cube(
+                data, weights, self.freqs_mhz, self.dm, self.centre_freq_mhz,
+                self.period_s, self.config, dedispersed=self.dedispersed)
         tile = StreamTileResult(start_subint=self._emitted, n_valid=n_valid,
                                 result=result)
         self._emitted += n_valid

@@ -10,7 +10,8 @@ tile_cache`).  Each iteration makes two passes over the tiles:
   loop.template_partial`: K1's channel profiles and the correction
   numerator from its totals on the default route; the weighted numerator
   and, under the integration baseline, the raw tile's correction
-  numerator on the others) on the device, in float32, in tile order, and
+  numerator on the others) on the device, in the engine's dtype, in
+  tile order, and
   :func:`~iterative_cleaner_torch.engine.loop.assemble_template` divides
   by the full weight plane's sum.
 - **Diagnostics.**  The four diagnostics reduce only the bin axis, so
@@ -33,7 +34,9 @@ residual base per tile in pass 2.
 
 The host backing store is one buffer (pinned on the card), allocated
 once per clean; the raw cube is converted from float64 to float32 one
-tile at a time.  At budget 0 (an archive larger than the card) every
+tile at a time (under ``dtype='float64'`` the store, the uploads and the
+tile cache hold float64: 8 bytes a sample, the same budget pinning half
+the tiles).  At budget 0 (an archive larger than the card) every
 pass uploads every tile, at most a few tiles are on the card at once
 (``pipelined_sweep`` at depth 1, each drain waiting for its tile's
 event), and the card uploads the cube ``1 + 2 * loops`` times on the
@@ -67,9 +70,11 @@ axis); the tile cache's budget is 0 (every tile uploaded each pass, the
 two-tile lookahead), as in the reference.  Rank 0 returns the result,
 the other ranks None.
 
+``backend='numpy'`` streams on the float64 numpy oracle
+(:func:`_clean_exact_numpy`, the reference's, on the host).
+
 Not ported from the reference (``iterative_cleaner_tpu/parallel/
-streaming_exact.py``): ``_clean_exact_numpy`` (its numpy oracle: the
-port's CPU path is its plain versions); ``_warm_tile_programs`` and
+streaming_exact.py``): ``_warm_tile_programs`` and
 ``_host_parallelism`` (XLA compile warm-up: torch compiles nothing);
 the padding of the final tile to the full tile, which let every tile
 share one compiled program.
@@ -87,6 +92,7 @@ from iterative_cleaner_torch.backends.base import CleanResult, apply_bad_parts
 from iterative_cleaner_torch.backends.torch_backend import (
     clean_device,
     config_compute_dtype,
+    engine_dtype,
     upload,
     upload_meta,
 )
@@ -223,16 +229,109 @@ def _tile_event(device, timing=False):
 
 def host_store_tile(dst: torch.Tensor, src) -> None:
     """Write the host float64 (or float32) tile ``src`` into the store's
-    ``dst`` (float32 or bf16).  A float64 value goes to bf16 as the
-    reference's ml_dtypes ``astype`` takes it: rounded to float32, then
-    to bf16 (round to nearest even each time; torch's conversion from
+    ``dst`` (float32, float64 or bf16).  A float64 value goes to bf16 as
+    the reference's ml_dtypes ``astype`` takes it: rounded to float32,
+    then to bf16 (round to nearest even each time; torch's conversion from
     float64 rounds the same two steps)."""
     src = np.asarray(src)
-    if dst.dtype == torch.float32:
+    if dst.dtype in (torch.float32, torch.float64):
         dst.numpy()[...] = src
     else:
         dst.copy_(torch.from_numpy(np.ascontiguousarray(
             src, dtype=np.float32)))
+
+
+def _clean_exact_numpy(cube, weights, freqs, dm, ref_freq, period,
+                       config: CleanConfig, tiles, dedispersed
+                       ) -> CleanResult:
+    """Exact streaming on the float64 numpy oracle (the reference's
+    ``_clean_exact_numpy``): the prepared tiles in host memory, pass 1
+    the template's numerator (and the integration correction's from the
+    raw tiles) accumulated in tile order, pass 2 each tile's four
+    ``numpy.ma`` diagnostics concatenated, the scalers on the full
+    planes."""
+    from iterative_cleaner_torch.ops.dsp_numpy import (
+        fit_template_amplitudes,
+        prepare_cube,
+        prepare_cube_integration,
+        rotate_bins,
+        template_residuals,
+        weighted_template_numerator,
+    )
+    from iterative_cleaner_torch.ops.psrchive_baseline_numpy import (
+        template_correction_numerator_raw,
+    )
+    from iterative_cleaner_torch.stats.masked_numpy import (
+        cell_diagnostics_numpy,
+        scale_and_combine_numpy,
+    )
+
+    cube = np.asarray(cube, dtype=np.float64)
+    orig_weights = np.asarray(weights, dtype=np.float64)
+    integration = config.baseline_mode == "integration"
+    ded_tiles = []
+    v_tiles = []  # each tile's consensus offsets (integration mode)
+    shifts = None
+    for sl in tiles:
+        if integration:
+            # the consensus window is subint-local, so tiling is exact
+            ded_t, shifts, _, v_t = prepare_cube_integration(
+                cube[sl], orig_weights[sl], freqs, dm, ref_freq, period,
+                baseline_duty=config.baseline_duty,
+                rotation=config.rotation, dedispersed=dedispersed)
+            v_tiles.append(v_t)
+        else:
+            ded_t, shifts = prepare_cube(
+                cube[sl], freqs, dm, ref_freq, period,
+                baseline_duty=config.baseline_duty,
+                rotation=config.rotation, dedispersed=dedispersed)
+        ded_tiles.append(ded_t)
+    cell_mask = orig_weights == 0
+
+    def step(cur):
+        # pass 1: the whole template, the partials in tile order
+        num = np.zeros(cube.shape[-1], dtype=np.float64)
+        for sl, ded_t in zip(tiles, ded_tiles):
+            num += weighted_template_numerator(ded_t, cur[sl])
+        den = np.sum(cur)
+        template = np.zeros_like(num) if den == 0 else num / den
+        if integration:
+            corr = 0.0
+            for sl, v_t in zip(tiles, v_tiles):
+                corr += template_correction_numerator_raw(
+                    cube[sl], v_t, cur[sl], config.baseline_duty)
+            template = template + (0.0 if den == 0 else corr / den)
+        template = template * 10000.0
+
+        # pass 2: the cell-local diagnostics per tile, the scalers on the
+        # full planes
+        diag_tiles = []
+        for sl, ded_t in zip(tiles, ded_tiles):
+            amps = fit_template_amplitudes(ded_t, template)
+            resid = template_residuals(
+                ded_t, template, amps, config.pulse_slice,
+                config.pulse_scale, config.pulse_region_active)
+            resid = rotate_bins(resid, shifts, method=config.rotation)
+            weighted = resid * orig_weights[sl][:, :, None]
+            diag_tiles.append(
+                cell_diagnostics_numpy(weighted, cell_mask[sl]))
+        # the first three diagnostics are numpy.ma (their masks survive
+        # the concatenation); the rFFT one stays plain, as a whole
+        # clean's (np.ma.concatenate would make it masked and move its
+        # zero-MAD lines onto the masked path)
+        diags = [np.ma.concatenate([t[i] for t in diag_tiles], axis=0)
+                 for i in range(3)]
+        diags.append(np.concatenate([np.asarray(t[3]) for t in diag_tiles],
+                                    axis=0))
+        scores = scale_and_combine_numpy(diags, config.chanthresh,
+                                         config.subintthresh)
+        valid = ~cell_mask
+        rstd = (float(np.median(np.ma.getdata(diags[0])[valid]))
+                if valid.any() else 0.0)
+        return (np.where(scores >= 1.0, 0.0, orig_weights), scores,
+                (rstd, float(np.max(template))))
+
+    return _run_iterations(orig_weights, config, step)
 
 
 def _clean_exact(cube, weights, freqs_mhz, dm, ref_freq_mhz, period_s,
@@ -247,8 +346,11 @@ def _clean_exact(cube, weights, freqs_mhz, dm, ref_freq_mhz, period_s,
     on_card = device.type == "cuda"
     compute_dtype = config_compute_dtype(config, "streaming", device,
                                          registry)
-    store_dtype = torch.bfloat16 if compute_dtype == "bfloat16" \
-        else torch.float32
+    # the engine's dtype (float32, or float64: the host store, the
+    # uploads and the tile cache at 8 bytes a sample), narrowed to bf16
+    # for storage in the mixed-precision mode
+    real = engine_dtype(config)
+    store_dtype = torch.bfloat16 if compute_dtype == "bfloat16" else real
     route = select_route(config, dedispersed)
     integration = config.baseline_mode == "integration"
     keep_raw = integration and route != "default"
@@ -277,21 +379,22 @@ def _clean_exact(cube, weights, freqs_mhz, dm, ref_freq_mhz, period_s,
     # the (nsub, nchan) planes stay on the device: nbin times smaller
     # than the cube; on a mesh each rank holds the whole planes the
     # combine reads and the local ones of its blocks
-    orig32 = np.ascontiguousarray(weights, dtype=np.float32)
-    orig_local = lay.local_of(orig32)
-    orig_w_d = upload(orig_local, device)
+    orig_h = np.ascontiguousarray(
+        weights, dtype=np.float64 if real == torch.float64 else np.float32)
+    orig_local = lay.local_of(orig_h)
+    orig_w_d = upload(orig_local, device, real)
     cache.count_h2d(orig_local.nbytes)
     cell_mask_d = orig_w_d == 0
     whole_w_d = orig_w_d
     if not lay.trivial:
-        whole_w_d = upload(orig32, device)
-        cache.count_h2d(orig32.nbytes)
+        whole_w_d = upload(orig_h, device, real)
+        cache.count_h2d(orig_h.nbytes)
     whole_mask_d = whole_w_d == 0
     meta = upload_meta(np.asarray(freqs_mhz)[lay.chans], dm, ref_freq_mhz,
-                       period_s, device)
-    offsets_d = torch.empty((n_local, c_loc), dtype=torch.float32,
+                       period_s, device, real)
+    offsets_d = torch.empty((n_local, c_loc), dtype=real,
                             device=device) if integration else None
-    planes = [torch.empty((nsub, nchan), dtype=torch.float32, device=device)
+    planes = [torch.empty((nsub, nchan), dtype=real, device=device)
               for _ in range(4)]
 
     def tile_bytes(i):
@@ -322,7 +425,7 @@ def _clean_exact(cube, weights, freqs_mhz, dm, ref_freq_mhz, period_s,
         # the preamble subtracts in place: a pinned raw tile stays raw
         # (a bf16 one is upcast into a new float32 tile)
         work = raw_d.clone() if keep_raw and cache.holds(raw_key) \
-            and store_dtype == torch.float32 else raw_d.float()
+            and store_dtype == real else raw_d.to(real)
         p = prepare(work, orig_w_d[lsl], *meta, config,
                     dedispersed=dedispersed, residual_base=False, mesh=mesh)
         tile_d = p.disp_base if route == "default" else p.ded
@@ -342,7 +445,7 @@ def _clean_exact(cube, weights, freqs_mhz, dm, ref_freq_mhz, period_s,
         return store[row, lay.local[i]]
 
     # the device copy of the host weights the next step starts from
-    mirror = [orig32, orig_w_d]
+    mirror = [orig_h, orig_w_d]
     step_ms, pass_ms = [], []
 
     def step(cur):
@@ -356,7 +459,7 @@ def _clean_exact(cube, weights, freqs_mhz, dm, ref_freq_mhz, period_s,
             cur_d = mirror[1]
         else:
             cur_local = lay.local_of(cur)
-            cur_d = upload(cur_local, device)
+            cur_d = upload(cur_local, device, real)
             cache.count_h2d(cur_local.nbytes)
         acc = {}
 
@@ -400,7 +503,7 @@ def _clean_exact(cube, weights, freqs_mhz, dm, ref_freq_mhz, period_s,
             if route == "two_read":
                 # its residual base in float32 from the upcast tile, as
                 # the reference builds it (K7 then reads float32 cubes)
-                tile_d = tile_d.float()
+                tile_d = tile_d.to(real)
             diags = route_diagnostics(
                 tile_prepared(route, tile_d, shifts, window,
                               rotation=rotation),
@@ -435,7 +538,7 @@ def _clean_exact(cube, weights, freqs_mhz, dm, ref_freq_mhz, period_s,
                             for a, b in zip(marks, marks[1:])])
         return new_w, scores, (float(rstd), float(tpeak))
 
-    result = _run_iterations(orig32, config, step)
+    result = _run_iterations(orig_h, config, step)
     gauge("iteration_ms", float(np.mean(step_ms)))
     if on_card:
         gauge("pass_ms_by_iteration", pass_ms)
@@ -479,10 +582,16 @@ def clean_streaming_exact(archive, chunk_nsub: int, config: CleanConfig,
         check_tile_grid(mesh, min(int(chunk_nsub), cube.shape[0]),
                         cube.shape[1])
     tiles = _tile_slices(cube.shape[0], int(chunk_nsub))
-    result = _clean_exact(
-        cube, archive.weights, archive.freqs_mhz, archive.dm,
-        archive.centre_freq_mhz, archive.period_s, config, tiles,
-        archive.dedispersed, registry=registry, mesh=mesh)
+    if config.backend == "numpy":
+        result = _clean_exact_numpy(
+            cube, archive.weights, archive.freqs_mhz, archive.dm,
+            archive.centre_freq_mhz, archive.period_s, config, tiles,
+            archive.dedispersed)
+    else:
+        result = _clean_exact(
+            cube, archive.weights, archive.freqs_mhz, archive.dm,
+            archive.centre_freq_mhz, archive.period_s, config, tiles,
+            archive.dedispersed, registry=registry, mesh=mesh)
     if mesh is not None and mesh.rank != 0:
         return None
     return apply_bad_parts(result, config)

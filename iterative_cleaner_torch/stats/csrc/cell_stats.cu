@@ -50,79 +50,113 @@
 // upcast cube, the staged bytes halve, and the DFT, which bounds it, is
 // unchanged.
 //
+// A float64 cube (`kind` 2; dtype="float64") runs the same kernel in
+// double (cell_stats.cuh): the reference's float64 route computes these
+// planes in float64 through XLA (no TPU kernel takes float64).  The DFT is
+// then DFMA chains (no tensor-core path keeps them exact): about 4.2 ms
+// at 1024x4096x128 at the 34 TFLOP/s FP64 rate outside the tensor cores,
+// twice the float32 floor, and the cube read doubles (1.34 ms).
+//
 // A batch of equal-shaped archives is one launch over all their cells
 // (`cpa` cells an archive; cell_stats.cuh): the TPU kernels fold the
 // batch into their subint grid (_FusedScaffold's batch=).
 
 #include "cell_stats.cuh"
 
+// Launch K2 on cubes of element type T (`nyq` null: no Nyquist term).
+template <class T>
+static int icln_cell_stats_disp_t(CellStatsArgs<icln_real_t<T>> p, int ctile, int producers,
+                                  int threads, int grid, long long smem_bytes, void* stream) {
+  return p.nyq ? icln_cell_stats_launch<ResDisp<T, true>>(p, ctile, producers, threads, grid,
+                                                          smem_bytes, stream)
+               : icln_cell_stats_launch<ResDisp<T, false>>(p, ctile, producers, threads, grid,
+                                                           smem_bytes, stream);
+}
+
+// `kind`: the cubes' storage, 0 float32, 1 bf16, 2 float64 (every other
+// pointer then double).
 extern "C" int icln_cell_stats_disp(
-    const void* disp, const float* rott, const float* nyq, const float* w,
-    const unsigned char* mask, const float* cos_t, const float* sin_t,
-    const float* tt, float* d_std, float* d_mean, float* d_ptp, float* d_fft,
-    long long ncells, long long cpa, int nchan, int nbin, int group, int ctile, int kchunk,
-    int bchunk, int nkp, int producers, int threads, int grid, long long smem_bytes, float inv_n,
-    int bf16, void* stream) {
-  CellStatsArgs p = icln_cell_stats_args(mask, w, cos_t, sin_t, tt, d_std,
-                                         d_mean, d_ptp, d_fft, ncells, nchan,
-                                         nbin, group, kchunk, bchunk, nkp,
-                                         inv_n);
-  p.cpa = cpa;
+    const void* disp, const void* rott, const void* nyq, const void* w,
+    const unsigned char* mask, const void* cos_t, const void* sin_t, const void* tt,
+    void* d_std, void* d_mean, void* d_ptp, void* d_fft, long long ncells, long long cpa,
+    int nchan, int nbin, int group, int ctile, int kchunk, int bchunk, int nkp, int producers,
+    int threads, int grid, long long smem_bytes, double inv_n, int kind, void* stream) {
+  if (kind == 2) {
+    CellStatsArgs<double> p = icln_cell_stats_args<double>(
+        mask, w, cos_t, sin_t, tt, d_std, d_mean, d_ptp, d_fft, ncells, cpa, nchan, nbin, group,
+        kchunk, bchunk, nkp, inv_n);
+    p.cube = disp;
+    p.rott = static_cast<const double*>(rott);
+    p.nyq = static_cast<const double*>(nyq);
+    return icln_cell_stats_disp_t<double>(p, ctile, producers, threads, grid, smem_bytes,
+                                          stream);
+  }
+  CellStatsArgs<float> p = icln_cell_stats_args<float>(
+      mask, w, cos_t, sin_t, tt, d_std, d_mean, d_ptp, d_fft, ncells, cpa, nchan, nbin, group,
+      kchunk, bchunk, nkp, inv_n);
   p.cube = disp;
-  p.rott = rott;
-  p.nyq = nyq;
-  if (bf16)
-    return nyq ? icln_cell_stats_launch<ResDisp<icln_bf16, true>>(p, ctile, producers, threads,
-                                                                  grid, smem_bytes, stream)
-               : icln_cell_stats_launch<ResDisp<icln_bf16, false>>(p, ctile, producers, threads,
-                                                                   grid, smem_bytes, stream);
-  return nyq ? icln_cell_stats_launch<ResDisp<float, true>>(p, ctile, producers, threads, grid,
-                                                            smem_bytes, stream)
-             : icln_cell_stats_launch<ResDisp<float, false>>(p, ctile, producers, threads, grid,
-                                                             smem_bytes, stream);
+  p.rott = static_cast<const float*>(rott);
+  p.nyq = static_cast<const float*>(nyq);
+  return kind == 1 ? icln_cell_stats_disp_t<icln_bf16>(p, ctile, producers, threads, grid,
+                                                       smem_bytes, stream)
+                   : icln_cell_stats_disp_t<float>(p, ctile, producers, threads, grid,
+                                                   smem_bytes, stream);
 }
 
 extern "C" int icln_cell_stats_two_read(
-    const void* ded, const void* disp_base, const float* rott,
-    const float* tmpl, const float* w, const unsigned char* mask,
-    const float* cos_t, const float* sin_t, const float* tt, float* d_std,
-    float* d_mean, float* d_ptp, float* d_fft, long long ncells, long long cpa, int nchan,
-    int nbin, int group, int ctile, int kchunk, int bchunk, int nkp, int producers,
-    int threads,
-    int grid, long long smem_bytes, float inv_n, int bf16,
-    void* stream) {
-  CellStatsArgs p = icln_cell_stats_args(mask, w, cos_t, sin_t, tt, d_std,
-                                         d_mean, d_ptp, d_fft, ncells, nchan,
-                                         nbin, group, kchunk, bchunk, nkp,
-                                         inv_n);
-  p.cpa = cpa;
+    const void* ded, const void* disp_base, const void* rott, const void* tmpl, const void* w,
+    const unsigned char* mask, const void* cos_t, const void* sin_t, const void* tt,
+    void* d_std, void* d_mean, void* d_ptp, void* d_fft, long long ncells, long long cpa,
+    int nchan, int nbin, int group, int ctile, int kchunk, int bchunk, int nkp, int producers,
+    int threads, int grid, long long smem_bytes, double inv_n, int kind, void* stream) {
+  if (kind == 2) {
+    CellStatsArgs<double> p = icln_cell_stats_args<double>(
+        mask, w, cos_t, sin_t, tt, d_std, d_mean, d_ptp, d_fft, ncells, cpa, nchan, nbin, group,
+        kchunk, bchunk, nkp, inv_n);
+    p.cube = ded;
+    p.base = disp_base;
+    p.rott = static_cast<const double*>(rott);
+    p.tmpl = static_cast<const double*>(tmpl);
+    return icln_cell_stats_launch<ResTwoRead<double>>(p, ctile, producers, threads, grid,
+                                                      smem_bytes, stream);
+  }
+  CellStatsArgs<float> p = icln_cell_stats_args<float>(
+      mask, w, cos_t, sin_t, tt, d_std, d_mean, d_ptp, d_fft, ncells, cpa, nchan, nbin, group,
+      kchunk, bchunk, nkp, inv_n);
   p.cube = ded;
   p.base = disp_base;
-  p.rott = rott;
-  p.tmpl = tmpl;
-  return bf16 ? icln_cell_stats_launch<ResTwoRead<icln_bf16>>(p, ctile, producers, threads, grid,
-                                                          smem_bytes, stream)
-              : icln_cell_stats_launch<ResTwoRead<float>>(p, ctile, producers, threads, grid,
-                                                      smem_bytes, stream);
+  p.rott = static_cast<const float*>(rott);
+  p.tmpl = static_cast<const float*>(tmpl);
+  return kind == 1 ? icln_cell_stats_launch<ResTwoRead<icln_bf16>>(p, ctile, producers, threads,
+                                                                   grid, smem_bytes, stream)
+                   : icln_cell_stats_launch<ResTwoRead<float>>(p, ctile, producers, threads,
+                                                               grid, smem_bytes, stream);
 }
 
 extern "C" int icln_cell_stats_dedisp(
-    const void* ded, const float* tmpl, const float* win, const float* w,
-    const unsigned char* mask, const float* cos_t, const float* sin_t,
-    const float* tt, float* d_std, float* d_mean, float* d_ptp, float* d_fft,
-    long long ncells, long long cpa, int nchan, int nbin, int group, int ctile, int kchunk,
-    int bchunk, int nkp, int producers, int threads, int grid, long long smem_bytes, float inv_n,
-    int bf16, void* stream) {
-  CellStatsArgs p = icln_cell_stats_args(mask, w, cos_t, sin_t, tt, d_std,
-                                         d_mean, d_ptp, d_fft, ncells, nchan,
-                                         nbin, group, kchunk, bchunk, nkp,
-                                         inv_n);
-  p.cpa = cpa;
+    const void* ded, const void* tmpl, const void* win, const void* w, const unsigned char* mask,
+    const void* cos_t, const void* sin_t, const void* tt, void* d_std, void* d_mean,
+    void* d_ptp, void* d_fft, long long ncells, long long cpa, int nchan, int nbin, int group,
+    int ctile, int kchunk, int bchunk, int nkp, int producers, int threads, int grid,
+    long long smem_bytes, double inv_n, int kind, void* stream) {
+  if (kind == 2) {
+    CellStatsArgs<double> p = icln_cell_stats_args<double>(
+        mask, w, cos_t, sin_t, tt, d_std, d_mean, d_ptp, d_fft, ncells, cpa, nchan, nbin, group,
+        kchunk, bchunk, nkp, inv_n);
+    p.cube = ded;
+    p.tmpl = static_cast<const double*>(tmpl);
+    p.win = static_cast<const double*>(win);
+    return icln_cell_stats_launch<ResDedisp<double>>(p, ctile, producers, threads, grid,
+                                                     smem_bytes, stream);
+  }
+  CellStatsArgs<float> p = icln_cell_stats_args<float>(
+      mask, w, cos_t, sin_t, tt, d_std, d_mean, d_ptp, d_fft, ncells, cpa, nchan, nbin, group,
+      kchunk, bchunk, nkp, inv_n);
   p.cube = ded;
-  p.tmpl = tmpl;
-  p.win = win;
-  return bf16 ? icln_cell_stats_launch<ResDedisp<icln_bf16>>(p, ctile, producers, threads, grid,
-                                                          smem_bytes, stream)
-              : icln_cell_stats_launch<ResDedisp<float>>(p, ctile, producers, threads, grid,
-                                                      smem_bytes, stream);
+  p.tmpl = static_cast<const float*>(tmpl);
+  p.win = static_cast<const float*>(win);
+  return kind == 1 ? icln_cell_stats_launch<ResDedisp<icln_bf16>>(p, ctile, producers, threads,
+                                                                  grid, smem_bytes, stream)
+                   : icln_cell_stats_launch<ResDedisp<float>>(p, ctile, producers, threads,
+                                                              grid, smem_bytes, stream);
 }

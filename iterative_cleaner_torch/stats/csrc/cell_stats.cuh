@@ -57,7 +57,7 @@
 // 2-byte elements (Res<icln_bf16>): the stage slots hold the group's bf16
 // run (half the bytes of a float32 slot; a run is staged where it starts
 // and ends on a 16-byte word, 8 elements), and each element is upcast to
-// float32 where phase 1 reads it (icln_f32, icln_ldf), the counterpart of
+// float32 where phase 1 reads it (icln_real, icln_ldr), the counterpart of
 // _wres_disp / _wres_dedisp / _cell_stats_kernel upcasting each staged
 // block on the TPU.  A float32 slot doubles as the row's working buffer
 // (the residual is written over the staged row); a bf16 slot cannot hold
@@ -66,6 +66,16 @@
 // operations on the same values, so the centred rows, and all four
 // planes, are bit-equal to the float32 kernel's on the upcast cube.  The
 // centred-row buffers the DFT reads stay float32.
+// A float64 cube (dtype="float64"; the reference's float64 route is its
+// XLA einsums and FFT, no TPU kernel) is the same kernel in double
+// (Res<double>: icln_real_t<double> is double): the rows, templates,
+// weights, DFT tables, centred-row buffers and planes are double, every
+// sum and the DFT's chains (__fma_rn) double, the 16-byte words of the
+// stage slots and of the phase-2 loads hold 2 doubles (a CT = 4 tile's
+// cells and columns are two loads each), the per-cell maxima meet in an
+// int64 atomicMax, and the masked ptp is 1e20 as a double.  Its block
+// is at most 16 warps (Res::kMaxThreads), so that a consumer's 32 double
+// accumulators stay in registers.
 // Named barriers hand the two centred-row buffers between the roles
 // (ICLN_BAR_FULL / ICLN_BAR_EMPTY); each role also has its own.  The
 // split is the measured design: with one role per block and the phases
@@ -79,38 +89,49 @@
 
 #include "common.cuh"
 
+// R: the arithmetic type (float for float32 and bf16 cubes, double for
+// float64 ones); every operand but the cubes is R.
+template <class R>
 struct CellStatsArgs {
   const void* cube;    // K2, K10 disp: disp; K6, K7, K10 dedisp: ded — (ncells, nbin),
-                       // float or icln_bf16 (the Res struct's element type)
+                       // float, icln_bf16 or double (the Res struct's element type)
   const void* base;    // K7: disp_base (ncells, nbin), of the cube's type
-  const float* rott;   // K2, K7: (B, nchan, nbin) rotated template rows
-  const float* nyq;    // K2: (B, nchan, nbin) Nyquist rows, or null
-  const float* tmpl;   // K6, K7: (B, nbin) templates
-  const float* win;    // K6: (nbin,) pulse window, shared
-  const float* w;
+  const R* rott;       // K2, K7: (B, nchan, nbin) rotated template rows
+  const R* nyq;        // K2: (B, nchan, nbin) Nyquist rows, or null
+  const R* tmpl;       // K6, K7: (B, nbin) templates
+  const R* win;        // K6: (nbin,) pulse window, shared
+  const R* w;
   const unsigned char* mask;
-  const float* cos_t;  // (nbin, nkp), zero past nbin/2 + 1
-  const float* sin_t;
-  const float* tt;     // (B, 2): [<t,t> (1 where 0), 1 if <t,t> == 0]
-  float* d_std;
-  float* d_mean;
-  float* d_ptp;
-  float* d_fft;
+  const R* cos_t;      // (nbin, nkp), zero past nbin/2 + 1
+  const R* sin_t;
+  const R* tt;         // (B, 2): [<t,t> (1 where 0), 1 if <t,t> == 0]
+  R* d_std;
+  R* d_mean;
+  R* d_ptp;
+  R* d_fft;
   long long ncells;    // B * cpa
   long long cpa;       // cells per archive, nsub * nchan
   int nchan, nbin, group, kchunk, bchunk, nkp;
-  float inv_n;
+  R inv_n;
   int aligned;         // the cube starts 16-byte aligned
   int producers;       // warps running phase 1; the rest run phase 2
 };
 
+template <class R>
+struct IclnTT {
+  R tt;    // <t,t>, 1 where it is 0
+  R zero;  // 1 if <t,t> == 0
+};
+
 // tt = (<t,t> (1 where 0), 1 if <t,t> == 0) of archive `arch`
-__device__ __forceinline__ float2 icln_tt(const CellStatsArgs& p, long long arch) {
-  return make_float2(p.tt[2 * arch], p.tt[2 * arch + 1]);
+template <class R>
+__device__ __forceinline__ IclnTT<R> icln_tt(const CellStatsArgs<R>& p, long long arch) {
+  return IclnTT<R>{p.tt[2 * arch], p.tt[2 * arch + 1]};
 }
 
-__device__ __forceinline__ float icln_amp(float2 tt, float tp) {
-  return tt.y != 0.0f ? 1.0f : tp / tt.x;
+template <class R>
+__device__ __forceinline__ R icln_amp(IclnTT<R> tt, R tp) {
+  return tt.zero != R(0) ? R(1) : tp / tt.tt;
 }
 
 // Each residual struct works a bin at a time, so that phase 1 can run
@@ -125,34 +146,47 @@ __device__ __forceinline__ float icln_amp(float2 tt, float tp) {
 
 // K2 (_wres_disp): (amp * rot_t - (disp + nq * nyq)) * w; the Nyquist
 // term only with NYQ (fourier rotation, even nbin).
+// The most threads a block of the kernel over cube elements T takes:
+// 20 warps (at most 102 registers a thread), 16 for double arithmetic.
+#define ICLN_CELL_MAX_THREADS 640
+#define ICLN_CELL_MAX_THREADS_F64 512
+
+template <class T>
+__host__ __device__ constexpr int icln_cell_max_threads() {
+  return std::is_same<icln_real_t<T>, double>::value ? ICLN_CELL_MAX_THREADS_F64
+                                                     : ICLN_CELL_MAX_THREADS;
+}
+
 template <class T, bool NYQ>
 struct ResDisp {
   using Elem = T;
+  using Real = icln_real_t<T>;
+  using R = Real;
   static constexpr bool kStaged = true;
-  const float* rt;
-  const float* nr;
-  float amp, nq, wc;
-  __device__ void setup(const CellStatsArgs& p, long long, int c, long long a) {
+  const R* rt;
+  const R* nr;
+  R amp, nq, wc;
+  __device__ void setup(const CellStatsArgs<R>& p, long long, int c, long long a) {
     const size_t row = ((size_t)a * p.nchan + c) * p.nbin;
     rt = p.rott + row;
     // (the pointer test stays: written as `NYQ ? ...` it compiled to a
     // slower K2 on sm_90a, the loop laid out differently)
     nr = p.nyq ? p.nyq + row : nullptr;
   }
-  __device__ void fit(const T* x, float* row, int b, float& tp, float& q) const {
-    const float v = icln_f32(x[b]);
-    if constexpr (std::is_same<T, float>::value) row[b] = v;
+  __device__ void fit(const T* x, R* row, int b, R& tp, R& q) const {
+    const R v = icln_real(x[b]);
+    if constexpr (std::is_same<T, R>::value) row[b] = v;
     tp += v * __ldg(rt + b);
     q += (b & 1) ? -v : v;  // disp * (-1)^b
   }
-  __device__ void finish(float2 tt, float w, float tp, float q) {
+  __device__ void finish(IclnTT<R> tt, R w, R tp, R q) {
     nq = q;
     amp = icln_amp(tt, tp);
     wc = w;
   }
-  __device__ float at(const T* row, int b) const {
-    const float v = icln_f32(row[b]);
-    const float base = NYQ ? v + nq * __ldg(nr + b) : v;
+  __device__ R at(const T* row, int b) const {
+    const R v = icln_real(row[b]);
+    const R base = NYQ ? v + nq * __ldg(nr + b) : v;
     return (amp * __ldg(rt + b) - base) * wc;
   }
 };
@@ -164,27 +198,29 @@ struct ResDisp {
 template <class T>
 struct ResTwoRead {
   using Elem = T;
+  using Real = icln_real_t<T>;
+  using R = Real;
   static constexpr bool kStaged = false;
   const T* x;
-  const float* t;
-  const float* rt;
+  const R* t;
+  const R* rt;
   const T* y;
-  float amp, wc;
-  __device__ void setup(const CellStatsArgs& p, long long cell, int c, long long a) {
+  R amp, wc;
+  __device__ void setup(const CellStatsArgs<R>& p, long long cell, int c, long long a) {
     x = static_cast<const T*>(p.cube) + cell * p.nbin;
     t = p.tmpl + a * p.nbin;
     rt = p.rott + ((size_t)a * p.nchan + c) * p.nbin;
     y = static_cast<const T*>(p.base) + cell * p.nbin;
   }
-  __device__ void fit(const T*, float*, int b, float& tp, float&) const {
-    tp += icln_ldf(x + b) * __ldg(t + b);
+  __device__ void fit(const T*, R*, int b, R& tp, R&) const {
+    tp += icln_ldr(x + b) * __ldg(t + b);
   }
-  __device__ void finish(float2 tt, float w, float tp, float) {
+  __device__ void finish(IclnTT<R> tt, R w, R tp, R) {
     amp = icln_amp(tt, tp);
     wc = w;
   }
-  __device__ float at(const T*, int b) const {
-    return (amp * __ldg(rt + b) - icln_ldf(y + b)) * wc;
+  __device__ R at(const T*, int b) const {
+    return (amp * __ldg(rt + b) - icln_ldr(y + b)) * wc;
   }
 };
 
@@ -192,34 +228,38 @@ struct ResTwoRead {
 template <class T>
 struct ResDedisp {
   using Elem = T;
+  using Real = icln_real_t<T>;
+  using R = Real;
   static constexpr bool kStaged = true;
-  const float* t;
-  const float* win;
-  float amp, wc;
-  __device__ void setup(const CellStatsArgs& p, long long, int, long long a) {
+  const R* t;
+  const R* win;
+  R amp, wc;
+  __device__ void setup(const CellStatsArgs<R>& p, long long, int, long long a) {
     t = p.tmpl + a * p.nbin;
     win = p.win;
   }
-  __device__ void fit(const T* x, float* row, int b, float& tp, float&) const {
-    const float v = icln_f32(x[b]);
-    if constexpr (std::is_same<T, float>::value) row[b] = v;
+  __device__ void fit(const T* x, R* row, int b, R& tp, R&) const {
+    const R v = icln_real(x[b]);
+    if constexpr (std::is_same<T, R>::value) row[b] = v;
     tp += v * __ldg(t + b);
   }
-  __device__ void finish(float2 tt, float w, float tp, float) {
+  __device__ void finish(IclnTT<R> tt, R w, R tp, R) {
     amp = icln_amp(tt, tp);
     wc = w;
   }
-  __device__ float at(const T* row, int b) const {
-    return ((amp * __ldg(t + b) - icln_f32(row[b])) * __ldg(win + b)) * wc;
+  __device__ R at(const T* row, int b) const {
+    return ((amp * __ldg(t + b) - icln_real(row[b])) * __ldg(win + b)) * wc;
   }
 };
 
 // Byte offsets of the block's shared memory (kernels.cell_stats_smem
 // mirrors its size): the two stage slots' mbarriers, the cos and sin table
 // chunks (bchunk rows of kchunk columns each), two buffers of centred
-// rows transposed [b][group] (float32), two stage slots of `group` rows
-// of `es`-byte cube elements (none at one cell a group), the per-cell
-// maxima (int), and two rows each of weights and mask bytes.
+// rows transposed [b][group], two stage slots of `group` rows of
+// `es`-byte cube elements (none at one cell a group), the per-cell maxima
+// (the bits of each as an int of the value's width), and two rows each of
+// weights and mask bytes; the tables, rows, maxima and weights are of the
+// `rs`-byte arithmetic type.
 struct IclnCellLayout {
   long long tables, cen, cslot, sslot, stage, red, wsm, msm, total;
 };
@@ -227,24 +267,23 @@ struct IclnCellLayout {
 __host__ __device__ inline long long icln_a16(long long x) { return (x + 15) / 16 * 16; }
 
 __host__ __device__ inline IclnCellLayout icln_cell_layout(int nbin, int group, int kchunk,
-                                                           int bchunk, int es) {
+                                                           int bchunk, int es, int rs) {
   IclnCellLayout L;
   L.tables = 16;
-  L.cen = L.tables + 2LL * bchunk * kchunk * 4;
-  L.cslot = icln_a16((long long)group * nbin * 4);
+  L.cen = L.tables + 2LL * bchunk * kchunk * rs;
+  L.cslot = icln_a16((long long)group * nbin * rs);
   L.sslot = icln_a16((long long)group * nbin * es);
   // one cell a group (the longest profiles): no staging, phase 1 works in
   // the centred-row buffer itself, [b][1] being the row (a bf16 cube's
   // phase 1 keeps no row)
   L.stage = group == 1 ? L.cen : L.cen + 2 * L.cslot;
   L.red = group == 1 ? L.cen + 2 * L.cslot : L.stage + 2 * L.sslot;
-  L.wsm = L.red + (long long)group * 4;
-  L.msm = L.wsm + 2LL * group * 4;
+  L.wsm = L.red + (long long)group * rs;
+  L.msm = L.wsm + 2LL * group * rs;
   L.total = L.msm + 2LL * group;
   return L;
 }
 
-#define ICLN_CELL_MAX_THREADS 640  // 20 warps: at most 102 registers a thread
 // named barriers (0 is __syncthreads)
 #define ICLN_BAR_PRODUCERS 1
 #define ICLN_BAR_CONSUMERS 2
@@ -262,21 +301,22 @@ __device__ __forceinline__ void icln_bar_arrive(int id, int n) {
 // Whether group `cell0` (of `cells` cells) comes by bulk copy: the
 // producer and every consumer decide alike.
 template <class Res>
-__device__ __forceinline__ bool icln_group_staged(const CellStatsArgs& p, long long cell0,
-                                                  int cells) {
+__device__ __forceinline__ bool icln_group_staged(const CellStatsArgs<typename Res::Real>& p,
+                                                  long long cell0, int cells) {
   constexpr int kWord = 16 / (int)sizeof(typename Res::Elem);  // elements a 16-byte word
   return Res::kStaged && p.group > 1 && p.aligned && (cell0 * p.nbin) % kWord == 0
          && ((long long)cells * p.nbin) % kWord == 0;
 }
 
-__device__ __forceinline__ int icln_group_cells(const CellStatsArgs& p, long long grp) {
+template <class R>
+__device__ __forceinline__ int icln_group_cells(const CellStatsArgs<R>& p, long long grp) {
   return (int)min((long long)p.group, p.ncells - grp * p.group);
 }
 
 // One thread: start group grp's run into `slot`, or arm the barrier alone.
 template <class Res>
-__device__ void icln_cell_issue(const CellStatsArgs& p, long long grp, void* slot,
-                                uint64_t* bar) {
+__device__ void icln_cell_issue(const CellStatsArgs<typename Res::Real>& p, long long grp,
+                                void* slot, uint64_t* bar) {
   using T = typename Res::Elem;
   const long long cell0 = grp * p.group;
   const int cells = icln_group_cells(p, grp);
@@ -290,25 +330,62 @@ __device__ void icln_cell_issue(const CellStatsArgs& p, long long grp, void* slo
 }
 
 // Threads t < the group's cell count: its weights and mask into smem.
-__device__ __forceinline__ void icln_cell_scalars(const CellStatsArgs& p, long long grp,
-                                                  int t, float* wsm, unsigned char* msm) {
+template <class R>
+__device__ __forceinline__ void icln_cell_scalars(const CellStatsArgs<R>& p, long long grp,
+                                                  int t, R* wsm, unsigned char* msm) {
   if (t < icln_group_cells(p, grp)) {
     wsm[t] = p.w[grp * p.group + t];
     msm[t] = p.mask[grp * p.group + t];
   }
 }
 
+// Four consecutive values, 16-byte aligned: one 16-byte load of float32,
+// two of float64.
+__device__ __forceinline__ void icln_ld4(const float* p, float (&v)[4]) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+}
+
+__device__ __forceinline__ void icln_ld4(const double* p, double (&v)[4]) {
+  const double2 x = *reinterpret_cast<const double2*>(p);
+  const double2 y = *reinterpret_cast<const double2*>(p + 2);
+  v[0] = x.x, v[1] = x.y, v[2] = y.x, v[3] = y.y;
+}
+
+__device__ __forceinline__ void icln_copy4(float* dst, const float* src) {
+  *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
+}
+
+__device__ __forceinline__ void icln_copy4(double* dst, const double* src) {
+  *reinterpret_cast<double2*>(dst) = *reinterpret_cast<const double2*>(src);
+  *reinterpret_cast<double2*>(dst + 2) = *reinterpret_cast<const double2*>(src + 2);
+}
+
+// the bits of a per-cell maximum (>= +0 or the positive quiet NaN: their
+// signed int order is the value order, NaN on top), and back
+__device__ __forceinline__ int icln_max_bits(float x) { return __float_as_int(x); }
+
+__device__ __forceinline__ long long icln_max_bits(double x) { return __double_as_longlong(x); }
+
+__device__ __forceinline__ float icln_from_bits(int b) { return __int_as_float(b); }
+
+__device__ __forceinline__ double icln_from_bits(long long b) { return __longlong_as_double(b); }
+
+template <class R>
+using icln_bits_t = typename std::conditional<sizeof(R) == 8, long long, int>::type;
+
 // Threads t of nt: table rows [b0, b0 + bn) x columns [4 * kt0,
 // 4 * (kt0 + mc)) into the chunk buffers at pitch kchunk, 16 bytes a load.
-__device__ __forceinline__ void icln_fill_tables(const CellStatsArgs& p, float* cos_s,
-                                                 float* sin_s, int b0, int bn, int kt0,
-                                                 int mc, int t, int nt) {
+template <class R>
+__device__ __forceinline__ void icln_fill_tables(const CellStatsArgs<R>& p, R* cos_s,
+                                                 R* sin_s, int b0, int bn, int kt0, int mc,
+                                                 int t, int nt) {
   for (int i = t; i < bn * mc; i += nt) {
     const int r = i / mc, q = i % mc;
     const size_t src = (size_t)(b0 + r) * p.nkp + 4 * (kt0 + q);
     const int dst = r * p.kchunk + 4 * q;
-    *reinterpret_cast<float4*>(cos_s + dst) = *reinterpret_cast<const float4*>(p.cos_t + src);
-    *reinterpret_cast<float4*>(sin_s + dst) = *reinterpret_cast<const float4*>(p.sin_t + src);
+    icln_copy4(cos_s + dst, p.cos_t + src);
+    icln_copy4(sin_s + dst, p.sin_t + src);
   }
 }
 
@@ -319,22 +396,26 @@ __device__ __forceinline__ void icln_fill_tables(const CellStatsArgs& p, float* 
 // wait) and EMPTY + j (consumers arrive once their DFT is done, producers
 // wait before rewriting the buffer).
 template <class Res, int CT, bool BATCH>
-__global__ void __launch_bounds__(ICLN_CELL_MAX_THREADS)
-    icln_cell_stats_kernel(const CellStatsArgs p) {
+__global__ void __launch_bounds__(icln_cell_max_threads<typename Res::Elem>())
+    icln_cell_stats_kernel(const CellStatsArgs<typename Res::Real> p) {
   using T = typename Res::Elem;
-  constexpr bool kF32 = std::is_same<T, float>::value;
+  using R = typename Res::Real;
+  using Bits = icln_bits_t<R>;
+  // the staged row is the working row (float32 and float64 cubes)
+  constexpr bool kRow = std::is_same<T, R>::value;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int nbin = p.nbin, group = p.group, kchunk = p.kchunk, bchunk = p.bchunk;
-  const IclnCellLayout L = icln_cell_layout(nbin, group, kchunk, bchunk, (int)sizeof(T));
+  const IclnCellLayout L =
+      icln_cell_layout(nbin, group, kchunk, bchunk, (int)sizeof(T), (int)sizeof(R));
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw);
-  float* cos_s = reinterpret_cast<float*>(smem_raw + L.tables);
-  float* sin_s = cos_s + bchunk * kchunk;
-  const long long slot_fl = L.cslot / 4;
-  float* cen_base = reinterpret_cast<float*>(smem_raw + L.cen);
+  R* cos_s = reinterpret_cast<R*>(smem_raw + L.tables);
+  R* sin_s = cos_s + bchunk * kchunk;
+  const long long slot_fl = L.cslot / (long long)sizeof(R);
+  R* cen_base = reinterpret_cast<R*>(smem_raw + L.cen);
   unsigned char* stage = smem_raw + L.stage;
   const T* cube = static_cast<const T*>(p.cube);
-  int* rmax = reinterpret_cast<int*>(smem_raw + L.red);
-  float* wsm = reinterpret_cast<float*>(smem_raw + L.wsm);
+  Bits* rmax = reinterpret_cast<Bits*>(smem_raw + L.red);
+  R* wsm = reinterpret_cast<R*>(smem_raw + L.wsm);
   unsigned char* msm = smem_raw + L.msm;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -359,7 +440,7 @@ __global__ void __launch_bounds__(ICLN_CELL_MAX_THREADS)
   if (warp < npw) {
     // ---- producers, phase 1: weighted residual + moments, one warp per
     // cell, the centred rows written transposed ----
-    const float2 tt1 = BATCH ? make_float2(0.0f, 0.0f) : icln_tt(p, 0);
+    const IclnTT<R> tt1 = BATCH ? IclnTT<R>{R(0), R(0)} : icln_tt(p, 0);
     if (tid == 0 && nit > 0) icln_cell_issue<Res>(p, blockIdx.x, stage, &bar[0]);
     for (long long it = 0; it < nit; ++it) {
       const int j = (int)(it & 1);
@@ -381,30 +462,31 @@ __global__ void __launch_bounds__(ICLN_CELL_MAX_THREADS)
       const bool staged = icln_group_staged<Res>(p, cell0, cells);
       const int chan0 = (int)(cell0 % p.nchan);  // the group's first channel
       T* buf = reinterpret_cast<T*>(stage + j * L.sslot);
-      float* cen = cen_base + j * slot_fl;
-      const float* wg = wsm + j * group;
+      R* cen = cen_base + j * slot_fl;
+      const R* wg = wsm + j * group;
       const unsigned char* mg = msm + j * group;
       for (int g = warp; g < cells; g += npw) {
         const long long cell = cell0 + g, arch = BATCH ? cell / p.cpa : 0;
-        // a float32 cube's row is the staged one, or a copy in its place;
-        // a bf16 cube's is read where it lies, staged or in device memory
+        // a float32 (float64) cube's row is the staged one, or a copy in
+        // its place; a bf16 cube's is read where it lies, staged or in
+        // device memory
         T* srow = buf + (size_t)g * nbin;
         const T* x = staged ? srow : cube + cell * nbin;
-        float* row = kF32 ? reinterpret_cast<float*>(srow) : nullptr;
-        const float2 tt = BATCH ? icln_tt(p, arch) : tt1;
+        R* row = kRow ? reinterpret_cast<R*>(srow) : nullptr;
+        const IclnTT<R> tt = BATCH ? icln_tt(p, arch) : tt1;
         Res res;
         res.setup(p, cell, (chan0 + g) % p.nchan, arch);
-        float tp = 0.0f, q = 0.0f;
+        R tp = R(0), q = R(0);
 #pragma unroll 4
         for (int b = lane; b < nbin; b += 32) res.fit(x, row, b, tp, q);
         tp = icln_warp_sum(tp);
         q = icln_warp_sum(q);
         res.finish(tt, wg[g], tp, q);
-        float sum = 0.0f, mx = -INFINITY, mn = INFINITY;
+        R sum = R(0), mx = -INFINITY, mn = INFINITY;
 #pragma unroll 4
         for (int b = lane; b < nbin; b += 32) {
-          float wres;
-          if constexpr (kF32) {
+          R wres;
+          if constexpr (kRow) {
             wres = res.at(srow, b);
             row[b] = wres;
           } else {
@@ -417,14 +499,14 @@ __global__ void __launch_bounds__(ICLN_CELL_MAX_THREADS)
         sum = icln_warp_sum(sum);
         mx = icln_warp_max(mx);
         mn = icln_warp_min(mn);
-        const float mean = sum * p.inv_n;
+        const R mean = sum * p.inv_n;
         const bool m = mg[g] != 0;
-        const float centre = m ? 0.0f : mean;
-        float var = 0.0f;
+        const R centre = m ? R(0) : mean;
+        R var = R(0);
 #pragma unroll 4
         for (int b = lane; b < nbin; b += 32) {
-          float cv;
-          if constexpr (kF32) {
+          R cv;
+          if constexpr (kRow) {
             cv = row[b] - centre;
           } else {
             cv = res.at(x, b) - centre;
@@ -434,9 +516,9 @@ __global__ void __launch_bounds__(ICLN_CELL_MAX_THREADS)
         }
         var = icln_warp_sum(var);
         if (lane == 0) {
-          p.d_mean[cell] = m ? 0.0f : mean;
-          p.d_ptp[cell] = m ? 1e20f : mx - mn;
-          p.d_std[cell] = m ? 0.0f : sqrtf(var * p.inv_n);
+          p.d_mean[cell] = m ? R(0) : mean;
+          p.d_ptp[cell] = m ? icln_ma_fill<R>() : mx - mn;
+          p.d_std[cell] = m ? R(0) : icln_sqrt(var * p.inv_n);
         }
       }
       icln_bar_arrive(ICLN_BAR_FULL + j, nthreads);
@@ -450,18 +532,18 @@ __global__ void __launch_bounds__(ICLN_CELL_MAX_THREADS)
       const int j = (int)(it & 1);
       const long long cell0 = (blockIdx.x + it * gridDim.x) * group;
       const int cells = icln_group_cells(p, blockIdx.x + it * gridDim.x);
-      if (t < cells) rmax[t] = 0;  // +0.0f: every |X_k|^2 is at least that
+      if (t < cells) rmax[t] = 0;  // +0: every |X_k|^2 is at least that
       icln_bar_sync(ICLN_BAR_FULL + j, nthreads);
-      const float* cen = cen_base + j * slot_fl;
+      const R* cen = cen_base + j * slot_fl;
       for (int kc = 0; kc < nkc; ++kc) {
         const int kt0 = kc * per, mc = min(per, ktiles - kt0);
         const bool mine = t < ct * mc;
         const int ctl = t % ct, ktl = t / ct;
-        float re[CT][4], im[CT][4];
+        R re[CT][4], im[CT][4];
 #pragma unroll
         for (int c = 0; c < CT; ++c)
 #pragma unroll
-          for (int q = 0; q < 4; ++q) re[c][q] = im[c][q] = 0.0f;
+          for (int q = 0; q < 4; ++q) re[c][q] = im[c][q] = R(0);
         for (int bc = 0; bc < nbc; ++bc) {
           const int b0 = bc * bchunk, bn = min(bchunk, nbin - b0);
           if (!resident) {
@@ -470,33 +552,30 @@ __global__ void __launch_bounds__(ICLN_CELL_MAX_THREADS)
             icln_bar_sync(ICLN_BAR_CONSUMERS, ncons);
           }
           if (mine) {
-            const float* tc = cos_s + 4 * ktl;
-            const float* ts = sin_s + 4 * ktl;
-            const float* cv = cen + (size_t)b0 * group + CT * ctl;
+            const R* tc = cos_s + 4 * ktl;
+            const R* ts = sin_s + 4 * ktl;
+            const R* cv = cen + (size_t)b0 * group + CT * ctl;
 #pragma unroll 8
             for (int b = 0; b < bn; ++b) {
-              float v[CT];
+              R v[CT];
               if constexpr (CT == 4) {
-                const float4 v4 = *reinterpret_cast<const float4*>(cv + (size_t)b * group);
-                v[0] = v4.x;
-                v[1] = v4.y;
-                v[2] = v4.z;
-                v[3] = v4.w;
+                icln_ld4(cv + (size_t)b * group, v);
               } else {
                 v[0] = cv[(size_t)b * group];
               }
-              const float4 c4 = *reinterpret_cast<const float4*>(tc + b * kchunk);
-              const float4 s4 = *reinterpret_cast<const float4*>(ts + b * kchunk);
+              R c4[4], s4[4];
+              icln_ld4(tc + b * kchunk, c4);
+              icln_ld4(ts + b * kchunk, s4);
 #pragma unroll
               for (int c = 0; c < CT; ++c) {
-                re[c][0] = __fmaf_rn(v[c], c4.x, re[c][0]);
-                im[c][0] = __fmaf_rn(v[c], s4.x, im[c][0]);
-                re[c][1] = __fmaf_rn(v[c], c4.y, re[c][1]);
-                im[c][1] = __fmaf_rn(v[c], s4.y, im[c][1]);
-                re[c][2] = __fmaf_rn(v[c], c4.z, re[c][2]);
-                im[c][2] = __fmaf_rn(v[c], s4.z, im[c][2]);
-                re[c][3] = __fmaf_rn(v[c], c4.w, re[c][3]);
-                im[c][3] = __fmaf_rn(v[c], s4.w, im[c][3]);
+                re[c][0] = icln_fma(v[c], c4[0], re[c][0]);
+                im[c][0] = icln_fma(v[c], s4[0], im[c][0]);
+                re[c][1] = icln_fma(v[c], c4[1], re[c][1]);
+                im[c][1] = icln_fma(v[c], s4[1], im[c][1]);
+                re[c][2] = icln_fma(v[c], c4[2], re[c][2]);
+                im[c][2] = icln_fma(v[c], s4[2], im[c][2]);
+                re[c][3] = icln_fma(v[c], c4[3], re[c][3]);
+                im[c][3] = icln_fma(v[c], s4[3], im[c][3]);
               }
             }
           }
@@ -504,17 +583,17 @@ __global__ void __launch_bounds__(ICLN_CELL_MAX_THREADS)
         if (mine) {
 #pragma unroll
           for (int c = 0; c < CT; ++c) {
-            float best = 0.0f;
+            R best = R(0);
 #pragma unroll
             for (int q = 0; q < 4; ++q)
               best = icln_max(best, re[c][q] * re[c][q] + im[c][q] * im[c][q]);
             const int g = CT * ctl + c;
-            if (g < cells) atomicMax(&rmax[g], __float_as_int(best));
+            if (g < cells) atomicMax(&rmax[g], icln_max_bits(best));
           }
         }
       }
       icln_bar_sync(ICLN_BAR_CONSUMERS, ncons);  // every column folded in
-      if (t < cells) p.d_fft[cell0 + t] = sqrtf(__int_as_float(rmax[t]));
+      if (t < cells) p.d_fft[cell0 + t] = icln_sqrt(icln_from_bits(rmax[t]));
       // the producers wait for buffer j only where they will fill it again
       if (it + 2 < nit) icln_bar_arrive(ICLN_BAR_EMPTY + j, nthreads);
       icln_bar_sync(ICLN_BAR_CONSUMERS, ncons);  // rmax is reset next group
@@ -523,8 +602,8 @@ __global__ void __launch_bounds__(ICLN_CELL_MAX_THREADS)
 }
 
 template <class Res, int CT, bool BATCH>
-static cudaError_t icln_cell_stats_start(const CellStatsArgs& p, int threads, int grid,
-                                         long long smem_bytes, cudaStream_t stream) {
+static cudaError_t icln_cell_stats_start(const CellStatsArgs<typename Res::Real>& p, int threads,
+                                         int grid, long long smem_bytes, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(icln_cell_stats_kernel<Res, CT, BATCH>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem_bytes);
@@ -534,20 +613,21 @@ static cudaError_t icln_cell_stats_start(const CellStatsArgs& p, int threads, in
 }
 
 template <class Res, int CT>
-static cudaError_t icln_cell_stats_start(const CellStatsArgs& p, int threads, int grid,
-                                         long long smem_bytes, cudaStream_t stream) {
+static cudaError_t icln_cell_stats_start(const CellStatsArgs<typename Res::Real>& p, int threads,
+                                         int grid, long long smem_bytes, cudaStream_t stream) {
   return p.cpa == p.ncells
              ? icln_cell_stats_start<Res, CT, false>(p, threads, grid, smem_bytes, stream)
              : icln_cell_stats_start<Res, CT, true>(p, threads, grid, smem_bytes, stream);
 }
 
 template <class Res>
-static int icln_cell_stats_launch(CellStatsArgs p, int ctile, int producers, int threads,
-                                  int grid, long long smem_bytes, void* stream) {
+static int icln_cell_stats_launch(CellStatsArgs<typename Res::Real> p, int ctile, int producers,
+                                  int threads, int grid, long long smem_bytes, void* stream) {
+  using T = typename Res::Elem;
   const IclnCellLayout L = icln_cell_layout(p.nbin, p.group, p.kchunk, p.bchunk,
-                                            (int)sizeof(typename Res::Elem));
+                                            (int)sizeof(T), (int)sizeof(typename Res::Real));
   const int ncons = threads - 32 * producers;
-  if (L.total > smem_bytes || threads > ICLN_CELL_MAX_THREADS || threads % 32
+  if (L.total > smem_bytes || threads > icln_cell_max_threads<T>() || threads % 32
       || producers < 1 || ncons < 32 || p.group > ncons || p.kchunk % 4 || p.nkp % 4
       || (ctile != 4 && ctile != 1) || p.group % ctile
       || (p.group / ctile) * (p.kchunk / 4) > ncons || p.cpa < 1 || p.ncells % p.cpa
@@ -560,29 +640,33 @@ static int icln_cell_stats_launch(CellStatsArgs p, int ctile, int producers, int
                           : icln_cell_stats_start<Res, 1>(p, threads, grid, smem_bytes, st));
 }
 
-static CellStatsArgs icln_cell_stats_args(
-    const unsigned char* mask, const float* w, const float* cos_t,
-    const float* sin_t, const float* tt, float* d_std, float* d_mean,
-    float* d_ptp, float* d_fft, long long ncells, int nchan, int nbin,
-    int group, int kchunk, int bchunk, int nkp, float inv_n) {
-  CellStatsArgs p = {};
-  p.w = w;
+// The entries' arguments: every pointer but the cubes' is of the
+// arithmetic type R (float for float32 and bf16 cubes, double for float64
+// ones); inv_n is float32(1/nbin) for float, 1/nbin for double.
+template <class R>
+static CellStatsArgs<R> icln_cell_stats_args(
+    const unsigned char* mask, const void* w, const void* cos_t, const void* sin_t,
+    const void* tt, void* d_std, void* d_mean, void* d_ptp, void* d_fft, long long ncells,
+    long long cpa, int nchan, int nbin, int group, int kchunk, int bchunk, int nkp,
+    double inv_n) {
+  CellStatsArgs<R> p = {};
+  p.w = static_cast<const R*>(w);
   p.mask = mask;
-  p.cos_t = cos_t;
-  p.sin_t = sin_t;
-  p.tt = tt;
-  p.d_std = d_std;
-  p.d_mean = d_mean;
-  p.d_ptp = d_ptp;
-  p.d_fft = d_fft;
+  p.cos_t = static_cast<const R*>(cos_t);
+  p.sin_t = static_cast<const R*>(sin_t);
+  p.tt = static_cast<const R*>(tt);
+  p.d_std = static_cast<R*>(d_std);
+  p.d_mean = static_cast<R*>(d_mean);
+  p.d_ptp = static_cast<R*>(d_ptp);
+  p.d_fft = static_cast<R*>(d_fft);
   p.ncells = ncells;
-  p.cpa = ncells;  // one archive; the batched entries set their own
+  p.cpa = cpa;
   p.nchan = nchan;
   p.nbin = nbin;
   p.group = group;
   p.kchunk = kchunk;
   p.bchunk = bchunk;
   p.nkp = nkp;
-  p.inv_n = inv_n;
+  p.inv_n = (R)inv_n;
   return p;
 }

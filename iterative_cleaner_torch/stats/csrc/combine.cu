@@ -13,41 +13,58 @@
 // 1024x4096); a dozen integer ops per cell.
 //
 // Design: one thread per cell, consecutive threads on consecutive cells.
+//
+// float64 planes (dtype="float64") are the same kernel in double with
+// the 64-bit keys (icln_ordered_key(double)): 88 bytes per cell, 369 MB
+// at 1024x4096.
 
 #include "common.cuh"
 
+template <class T>
 __global__ void icln_combine_zap_kernel(
-    const float* __restrict__ c0, const float* __restrict__ c1,
-    const float* __restrict__ c2, const float* __restrict__ c3,
-    const float* __restrict__ s0, const float* __restrict__ s1,
-    const float* __restrict__ s2, const float* __restrict__ s3,
-    const float* __restrict__ worig, float* __restrict__ new_w,
-    float* __restrict__ scores, long long n) {
+    const T* __restrict__ c0, const T* __restrict__ c1, const T* __restrict__ c2,
+    const T* __restrict__ c3, const T* __restrict__ s0, const T* __restrict__ s1,
+    const T* __restrict__ s2, const T* __restrict__ s3, const T* __restrict__ worig,
+    T* __restrict__ new_w, T* __restrict__ scores, long long n) {
+  using IK = IclnKeys<T>;
+  using Key = typename IK::Key;
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const float a = icln_max(c0[i], s0[i]);
-  const float b = icln_max(c1[i], s1[i]);
-  const float c = icln_max(c2[i], s2[i]);
-  const float d = icln_max(c3[i], s3[i]);
+  const T a = icln_max(c0[i], s0[i]);
+  const T b = icln_max(c1[i], s1[i]);
+  const T c = icln_max(c2[i], s2[i]);
+  const T d = icln_max(c3[i], s3[i]);
   const bool any_nan = icln_isnan(a) || icln_isnan(b) || icln_isnan(c) || icln_isnan(d);
-  const int ka = icln_ordered_key(a), kb = icln_ordered_key(b);
-  const int kc = icln_ordered_key(c), kd = icln_ordered_key(d);
-  const int x = max(min(ka, kb), min(kc, kd));
-  const int y = min(max(ka, kb), max(kc, kd));
-  const float med = icln_key_to_float(min(x, y)) * 0.5f + icln_key_to_float(max(x, y)) * 0.5f;
-  const float score = any_nan ? icln_nan() : med;
+  const Key ka = IK::key(a), kb = IK::key(b);
+  const Key kc = IK::key(c), kd = IK::key(d);
+  const Key x = max(min(ka, kb), min(kc, kd));
+  const Key y = min(max(ka, kb), max(kc, kd));
+  const T med = IK::value(min(x, y)) * T(0.5) + IK::value(max(x, y)) * T(0.5);
+  const T score = any_nan ? icln_nan_of<T>() : med;
   scores[i] = score;
-  new_w[i] = score >= 1.0f ? 0.0f : worig[i];
+  new_w[i] = score >= T(1) ? T(0) : worig[i];
 }
 
-extern "C" int icln_combine_zap(const float* c0, const float* c1, const float* c2,
-                                const float* c3, const float* s0, const float* s1,
-                                const float* s2, const float* s3, const float* worig,
-                                float* new_w, float* scores, long long n,
-                                void* stream) {
+template <class T>
+static int icln_combine_zap_launch(const void* const* p, const void* worig, void* new_w,
+                                   void* scores, long long n, cudaStream_t st) {
   const int threads = 256;
   const long long blocks = (n + threads - 1) / threads;
-  icln_combine_zap_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      c0, c1, c2, c3, s0, s1, s2, s3, worig, new_w, scores, n);
+  icln_combine_zap_kernel<T><<<(unsigned)blocks, threads, 0, st>>>(
+      static_cast<const T*>(p[0]), static_cast<const T*>(p[1]), static_cast<const T*>(p[2]),
+      static_cast<const T*>(p[3]), static_cast<const T*>(p[4]), static_cast<const T*>(p[5]),
+      static_cast<const T*>(p[6]), static_cast<const T*>(p[7]), static_cast<const T*>(worig),
+      static_cast<T*>(new_w), static_cast<T*>(scores), n);
   return (int)cudaGetLastError();
+}
+
+// f64: the planes are float64 (double), else float32.
+extern "C" int icln_combine_zap(const void* c0, const void* c1, const void* c2, const void* c3,
+                                const void* s0, const void* s1, const void* s2, const void* s3,
+                                const void* worig, void* new_w, void* scores, long long n,
+                                int f64, void* stream) {
+  const void* const p[8] = {c0, c1, c2, c3, s0, s1, s2, s3};
+  cudaStream_t st = (cudaStream_t)stream;
+  return f64 ? icln_combine_zap_launch<double>(p, worig, new_w, scores, n, st)
+             : icln_combine_zap_launch<float>(p, worig, new_w, scores, n, st);
 }

@@ -1,20 +1,23 @@
 // Shared device helpers of the port's kernels: the order-preserving
-// float32 -> int32 key map of the exact k-th select, NaN-propagating
-// min/max (the reductions the reference's compiler lowers jnp.max/min
-// and jnp.maximum to), and warp/block reductions with a fixed order.
+// float -> integer key maps of the exact k-th select (float32 -> int32,
+// float64 -> int64), NaN-propagating min/max (the reductions the
+// reference's compiler lowers jnp.max/min and jnp.maximum to), and
+// warp/block reductions with a fixed order.
 //
-// Build with -fmad=false: the kernels reproduce the reference's float32
-// op sequences, and a contracted multiply-add would round differently.
+// Build with -fmad=false: the kernels reproduce the reference's op
+// sequences, and a contracted multiply-add would round differently.
 // Where a kernel wants a fused multiply-add (the DFT), it says so with
-// __fmaf_rn.
+// __fmaf_rn / __fma_rn (icln_fma).
 #pragma once
 
 #include <climits>
 #include <cmath>
 #include <cstdint>
+#include <type_traits>
 #include <cuda_runtime.h>
 
 #define ICLN_KEY_MASKED 0x7F800000  // key of +inf: the masked sentinel
+#define ICLN_KEY64_MASKED 0x7FF0000000000000LL  // key of +inf as a double
 
 __device__ __forceinline__ int icln_ordered_key(float x) {
   // signed int order of the key == float order; NaN above +inf
@@ -27,30 +30,135 @@ __device__ __forceinline__ float icln_key_to_float(int o) {
   return __int_as_float(o ^ ((o >> 31) & 0x7FFFFFFF));
 }
 
+// the float64 keys: signed int64 order == double order, NaN above +inf,
+// -0 below +0 (as the 32-bit keys)
+__device__ __forceinline__ long long icln_ordered_key(double x) {
+  const long long b = __double_as_longlong(x);
+  return b ^ ((b >> 63) & 0x7FFFFFFFFFFFFFFFLL);
+}
+
+__device__ __forceinline__ double icln_key_to_double(long long o) {
+  return __longlong_as_double(o ^ ((o >> 63) & 0x7FFFFFFFFFFFFFFFLL));
+}
+
+// The key type of each value type, for the selects (K3, K9) and the
+// combine: Key (signed, the value order), Radix (unsigned, the same
+// order: key ^ the sign bit), kPasses 8-bit digits, the masked sentinel.
+template <class T>
+struct IclnKeys;
+
+template <>
+struct IclnKeys<float> {
+  using Key = int;
+  using Radix = unsigned;
+  static constexpr int kPasses = 4;
+  static constexpr Key kMasked = ICLN_KEY_MASKED;
+  static constexpr Key kLowest = INT_MIN;
+  static constexpr Key kHighest = INT_MAX;
+  static __device__ __forceinline__ Key key(float x) { return icln_ordered_key(x); }
+  static __device__ __forceinline__ float value(Key k) { return icln_key_to_float(k); }
+  static __device__ __forceinline__ Radix radix(Key k) { return (unsigned)k ^ 0x80000000u; }
+  static __device__ __forceinline__ Key from_radix(Radix r) { return (int)(r ^ 0x80000000u); }
+};
+
+template <>
+struct IclnKeys<double> {
+  using Key = long long;
+  using Radix = unsigned long long;
+  static constexpr int kPasses = 8;
+  static constexpr Key kMasked = ICLN_KEY64_MASKED;
+  static constexpr Key kLowest = LLONG_MIN;
+  static constexpr Key kHighest = LLONG_MAX;
+  static __device__ __forceinline__ Key key(double x) { return icln_ordered_key(x); }
+  static __device__ __forceinline__ double value(Key k) { return icln_key_to_double(k); }
+  static __device__ __forceinline__ Radix radix(Key k) {
+    return (unsigned long long)k ^ 0x8000000000000000ull;
+  }
+  static __device__ __forceinline__ Key from_radix(Radix r) {
+    return (long long)(r ^ 0x8000000000000000ull);
+  }
+};
+
 // A bf16-stored cube element (the mixed-precision mode): the high 16 bits
 // of a float32, so the upcast is a shift and exact.  K1, K2, K6, K7 and
-// K10 read every cube element through icln_f32 / icln_ldf, the one
+// K10 read every cube element through icln_real / icln_ldr, the one
 // upcast point of each, as the TPU kernels upcast each staged block.
 struct icln_bf16 {
   unsigned short bits;
 };
 
-__device__ __forceinline__ float icln_f32(float x) { return x; }
+// The arithmetic type of a cube element type: float for float32 and
+// bf16 storage, double for float64 (storage and arithmetic alike).
+template <class T>
+struct IclnReal {
+  using type = float;
+};
 
-__device__ __forceinline__ float icln_f32(icln_bf16 x) {
+template <>
+struct IclnReal<double> {
+  using type = double;
+};
+
+template <class T>
+using icln_real_t = typename IclnReal<T>::type;
+
+__device__ __forceinline__ float icln_real(float x) { return x; }
+
+__device__ __forceinline__ double icln_real(double x) { return x; }
+
+__device__ __forceinline__ float icln_real(icln_bf16 x) {
   return __uint_as_float((unsigned)x.bits << 16);
 }
 
-// a read-only (__ldg) load of a cube element, as float32
-__device__ __forceinline__ float icln_ldf(const float* p) { return __ldg(p); }
+// a read-only (__ldg) load of a cube element, in its arithmetic type
+__device__ __forceinline__ float icln_ldr(const float* p) { return __ldg(p); }
 
-__device__ __forceinline__ float icln_ldf(const icln_bf16* p) {
+__device__ __forceinline__ double icln_ldr(const double* p) { return __ldg(p); }
+
+__device__ __forceinline__ float icln_ldr(const icln_bf16* p) {
   return __uint_as_float((unsigned)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
 }
 
+__device__ __forceinline__ float icln_fma(float a, float b, float c) { return __fmaf_rn(a, b, c); }
+
+__device__ __forceinline__ double icln_fma(double a, double b, double c) {
+  return __fma_rn(a, b, c);
+}
+
+__device__ __forceinline__ float icln_abs(float x) { return fabsf(x); }
+
+__device__ __forceinline__ double icln_abs(double x) { return fabs(x); }
+
+__device__ __forceinline__ float icln_sqrt(float x) { return sqrtf(x); }
+
+__device__ __forceinline__ double icln_sqrt(double x) { return sqrt(x); }
+
+// numpy.ma's float fill value, as the value type rounds it
+template <class R>
+__device__ __forceinline__ R icln_ma_fill();
+
+template <>
+__device__ __forceinline__ float icln_ma_fill<float>() { return 1e20f; }
+
+template <>
+__device__ __forceinline__ double icln_ma_fill<double>() { return 1e20; }
+
 __device__ __forceinline__ float icln_nan() { return __int_as_float(0x7FC00000); }
 
+// the quiet NaN of the value type
+template <class R>
+__device__ __forceinline__ R icln_nan_of() {
+  return icln_nan();
+}
+
+template <>
+__device__ __forceinline__ double icln_nan_of<double>() {
+  return __longlong_as_double(0x7FF8000000000000LL);
+}
+
 __device__ __forceinline__ bool icln_isnan(float x) { return x != x; }
+
+__device__ __forceinline__ bool icln_isnan(double x) { return x != x; }
 
 __device__ __forceinline__ float icln_max(float a, float b) {
   return (icln_isnan(a) || icln_isnan(b)) ? icln_nan() : fmaxf(a, b);
@@ -60,18 +168,29 @@ __device__ __forceinline__ float icln_min(float a, float b) {
   return (icln_isnan(a) || icln_isnan(b)) ? icln_nan() : fminf(a, b);
 }
 
-__device__ __forceinline__ float icln_warp_sum(float v) {
+__device__ __forceinline__ double icln_max(double a, double b) {
+  return (icln_isnan(a) || icln_isnan(b)) ? icln_nan_of<double>() : fmax(a, b);
+}
+
+__device__ __forceinline__ double icln_min(double a, double b) {
+  return (icln_isnan(a) || icln_isnan(b)) ? icln_nan_of<double>() : fmin(a, b);
+}
+
+template <class R>
+__device__ __forceinline__ R icln_warp_sum(R v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
 
-__device__ __forceinline__ float icln_warp_max(float v) {
+template <class R>
+__device__ __forceinline__ R icln_warp_max(R v) {
   for (int o = 16; o > 0; o >>= 1)
     v = icln_max(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 
-__device__ __forceinline__ float icln_warp_min(float v) {
+template <class R>
+__device__ __forceinline__ R icln_warp_min(R v) {
   for (int o = 16; o > 0; o >>= 1)
     v = icln_min(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
@@ -122,21 +241,22 @@ __device__ __forceinline__ int icln_block_reduce_int(int v, int* red, int& parit
 //
 // The select of the reference's _select_kth / _select_adjacent /
 // _masked_median_lanes (pallas_kernels.py:136-213), ported once for K3
-// and K9.  Over a line's keys, nv of them valid (masked entries hold
-// ICLN_KEY_MASKED and stay in the population): lo is the k_lo-th key,
+// and K9.  Over a line's keys, nv of them valid (masked entries hold the
+// masked key, +inf's, and stay in the population): lo is the k_lo-th key,
 // k_lo = max(nv-1, 0)/2; hi is lo when more than k_hi = nv/2 keys lie at
-// or below lo, else the least key above lo; the median 0.5f*(lo+hi),
-// 0.0f for a line with no valid entry.  The select is exact, so any
-// algorithm finding these keys gives the reference's bits.
+// or below lo, else the least key above lo; the median 0.5*(lo+hi) in the
+// value type, 0 for a line with no valid entry.  The select is exact, so
+// any algorithm finding these keys gives the reference's bits.
 //
-// Four 8-bit passes over key ^ 0x80000000 (unsigned order == signed key
-// order): pass p histograms digit p of the keys whose higher digits equal
-// the prefix found so far, then one warp scans the 256 bins for the digit
-// holding the remaining rank.  The keys below lo are summed on the way
-// and the last pass counts the keys equal to lo, which tells whether hi
-// is lo; where it is not, hi is the next nonempty bin of the last pass's
-// bucket, or the least key above that bucket, which the last pass also
-// takes: no pass of its own.
+// 8-bit passes over the keys' radix, key ^ the sign bit (unsigned order
+// == signed key order): four for the 32-bit keys of float32, eight for
+// the 64-bit keys of float64.  Pass p histograms digit p of the keys
+// whose higher digits equal the prefix found so far, then one warp scans
+// the 256 bins for the digit holding the remaining rank.  The keys below
+// lo are summed on the way and the last pass counts the keys equal to
+// lo, which tells whether hi is lo; where it is not, hi is the next
+// nonempty bin of the last pass's bucket, or the least key above that
+// bucket, which the last pass also takes: no pass of its own.
 
 #define ICLN_FULL 0xffffffffu
 #define ICLN_LOAD_BATCH 4   // entries a thread loads before it uses any
@@ -187,112 +307,147 @@ __device__ __forceinline__ IclnPick icln_warp_pick(const int (&b)[8], int k) {
   return p;
 }
 
-// The select's per-line state, in shared memory for the block select.
+// The select's per-line state, in shared memory for the block select, of
+// the keys of value type T.
+template <class T>
 struct IclnSelState {
+  using Key = typename IclnKeys<T>::Key;
+  using Radix = typename IclnKeys<T>::Radix;
   int nv[ICLN_SEL_LINES];          // valid entries (set by the caller)
   int moff[ICLN_SEL_LINES];        // the line's mask words, or -1 (set by the caller)
-  unsigned prefix[ICLN_SEL_LINES];  // digits of lo found so far
+  Radix prefix[ICLN_SEL_LINES];    // digits of lo found so far
   int krem[ICLN_SEL_LINES];        // rank left inside the prefix's bucket
   int clast[ICLN_SEL_LINES];       // keys equal to lo (after the last pass)
-  unsigned above[ICLN_SEL_LINES];   // least radix above the last pass's bucket
-  int succ[ICLN_SEL_LINES];        // least key above lo
+  Radix above[ICLN_SEL_LINES];     // least radix above the last pass's bucket
+  Key succ[ICLN_SEL_LINES];        // least key above lo
 };
 
 // Does line m need the successor pass: are there at most k_hi keys at or
 // below lo (the keys below lo, k_lo - krem, and those equal, clast)?
-__device__ __forceinline__ bool icln_sel_needs_successor(const IclnSelState& st, int m) {
+template <class T>
+__device__ __forceinline__ bool icln_sel_needs_successor(const IclnSelState<T>& st, int m) {
   const int nv = st.nv[m];
   return nv > 0 && icln_sel_klo(nv) - st.krem[m] + st.clast[m] <= nv / 2;
 }
 
-__device__ __forceinline__ float icln_sel_median_of(int lo, int hi, int nv) {
-  const float med = 0.5f * (icln_key_to_float(lo) + icln_key_to_float(hi));
-  return nv == 0 ? 0.0f : med;
+template <class T>
+__device__ __forceinline__ T icln_sel_median_of(typename IclnKeys<T>::Key lo,
+                                                typename IclnKeys<T>::Key hi, int nv) {
+  using IK = IclnKeys<T>;
+  const T med = T(0.5) * (IK::value(lo) + IK::value(hi));
+  return nv == 0 ? T(0) : med;
 }
 
-__device__ __forceinline__ float icln_sel_median(const IclnSelState& st, int m) {
-  const int lo = (int)icln_radix((int)st.prefix[m]);
-  return icln_sel_median_of(lo, icln_sel_needs_successor(st, m) ? st.succ[m] : lo, st.nv[m]);
+template <class T>
+__device__ __forceinline__ T icln_sel_median(const IclnSelState<T>& st, int m) {
+  using IK = IclnKeys<T>;
+  const typename IK::Key lo = IK::from_radix(st.prefix[m]);
+  return icln_sel_median_of<T>(lo, icln_sel_needs_successor(st, m) ? st.succ[m] : lo, st.nv[m]);
 }
 
-// Shared-memory int32 keys a line of n takes in a block select: n
-// rounded up to 32, plus 4, so that rows stay 16-byte aligned and the
-// same entry of adjacent lines falls 4 banks apart.
+// Shared-memory keys a line of n takes in a block select: n rounded up
+// to 32, plus 4, so that rows stay 16-byte aligned and the same entry of
+// adjacent lines falls 4 (32-bit keys) or 8 (64-bit keys) banks apart.
 __device__ __forceinline__ int icln_key_stride(int n) { return ((n + 31) & ~31) + 4; }
 
 #define ICLN_SEL_CHUNK 256  // entries of a line a warp takes at a time: 8 a lane
 
 // The least radix above lo, from the last pass's bins of lo's bucket (lane
-// l holding bins 8l..8l+7 in b; lo's digit `digit`, the bucket's 24-bit
-// prefix `bucket`): the next nonempty bin's radix, else `above`, the
-// least radix above the bucket.  Every lane of the warp gets it.
-__device__ __forceinline__ unsigned icln_successor_radix(const int (&b)[8], int digit,
-                                                         unsigned bucket, unsigned above) {
+// l holding bins 8l..8l+7 in b; lo's digit `digit`, the bucket's prefix
+// `bucket`): the next nonempty bin's radix, else `above`, the least radix
+// above the bucket.  Every lane of the warp gets it.
+template <class U>
+__device__ __forceinline__ U icln_successor_radix(const int (&b)[8], int digit, U bucket,
+                                                  U above) {
   const int lane = threadIdx.x & 31;
   int next = 256;
 #pragma unroll
   for (int i = 7; i >= 0; --i)
     if (b[i] > 0 && 8 * lane + i > digit) next = 8 * lane + i;
   next = icln_warp_min_int(next);
-  return next < 256 ? (bucket << 8) | (unsigned)next : above;
+  return next < 256 ? (bucket << 8) | (U)next : above;
 }
 
-// Block select over M <= ICLN_SEL_LINES lines of n keys in shared memory
-// (line m at keys + m * icln_key_stride(n), 16-byte aligned), each with
-// its own 256 bins in hist: every pass serves all M lines, so the chain
-// is 4 passes of two barriers each.  A pass's work is cut into chunks of
-// ICLN_SEL_CHUNK entries of one line, dealt out to the warps in turn: a
-// lane reads eight keys with two 16-byte loads and adds each counted
-// digit to its bin with an int32 shared atomic (exact in any order).
-// The last pass also takes the least key above its bucket, so the least
-// key above lo (the median's upper middle where lo's run ends at k_lo)
-// comes from its bins or that minimum, with no pass of its own.  Line
-// m's masked entries are the set bits of mbits + st.moff[m] (one word a
-// 32 entries) and take the key ICLN_KEY_MASKED whatever their key slot
-// holds; a line with moff -1 has none.  Call with st.nv and st.moff set,
-// hist zero and a barrier after them; returns with hist zero again, a
-// barrier after the last read of the keys, and icln_sel_median(st, m)
-// readable by every thread.
-__device__ inline void icln_block_select(const int* keys, int n, int M, int* hist,
-                                         const unsigned* mbits, IclnSelState& st) {
+// Eight consecutive keys from shared memory, 16-byte aligned: two 16-byte
+// loads of 32-bit keys, four of 64-bit ones.
+__device__ __forceinline__ void icln_load8(const int* k, int (&q)[8]) {
+  const int4 v0 = *reinterpret_cast<const int4*>(k);
+  const int4 v1 = *reinterpret_cast<const int4*>(k + 4);
+  q[0] = v0.x, q[1] = v0.y, q[2] = v0.z, q[3] = v0.w;
+  q[4] = v1.x, q[5] = v1.y, q[6] = v1.z, q[7] = v1.w;
+}
+
+__device__ __forceinline__ void icln_load8(const long long* k, long long (&q)[8]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const longlong2 v = *reinterpret_cast<const longlong2*>(k + 2 * i);
+    q[2 * i] = v.x;
+    q[2 * i + 1] = v.y;
+  }
+}
+
+// Block select over M <= ICLN_SEL_LINES lines of n keys of value type T
+// in shared memory (line m at keys + m * icln_key_stride(n), 16-byte
+// aligned), each with its own 256 bins in hist: every pass serves all M
+// lines, so the chain is kPasses passes (4 for float32, 8 for float64) of
+// two barriers each.  A pass's work is cut into chunks of ICLN_SEL_CHUNK
+// entries of one line, dealt out to the warps in turn: a lane reads eight
+// keys with 16-byte loads and adds each counted digit to its bin with an
+// int32 shared atomic (exact in any order).  The last pass also takes the
+// least key above its bucket, so the least key above lo (the median's
+// upper middle where lo's run ends at k_lo) comes from its bins or that
+// minimum, with no pass of its own.  Line m's masked entries are the set
+// bits of mbits + st.moff[m] (one word a 32 entries) and take the masked
+// key whatever their key slot holds; a line with moff -1 has none.  Call
+// with st.nv and st.moff set, hist zero and a barrier after them; returns
+// with hist zero again, a barrier after the last read of the keys, and
+// icln_sel_median(st, m) readable by every thread.
+template <class T>
+__device__ inline void icln_block_select(const typename IclnKeys<T>::Key* keys, int n, int M,
+                                         int* hist, const unsigned* mbits,
+                                         IclnSelState<T>& st) {
+  using IK = IclnKeys<T>;
+  using Key = typename IK::Key;
+  using Radix = typename IK::Radix;
+  constexpr int kPasses = IK::kPasses;
+  constexpr Radix kNone = ~(Radix)0;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
   const int ls = icln_key_stride(n);
   const int cpl = (n + ICLN_SEL_CHUNK - 1) / ICLN_SEL_CHUNK;  // chunks a line
-  for (int pass = 0; pass < 4; ++pass) {
-    const int shift = 24 - 8 * pass;
+  for (int pass = 0; pass < kPasses; ++pass) {
+    const int shift = 8 * (kPasses - 1 - pass);
+    const bool last = pass == kPasses - 1;
     for (int it = warp; it < M * cpl; it += nwarps) {
       const int m = it / cpl;
       const int e = (it - m * cpl) * ICLN_SEL_CHUNK + 8 * lane;
       const int lim = min(8, n - e);  // this lane's entries: 8, fewer at the end
-      const unsigned want = st.prefix[m];
+      const Radix want = st.prefix[m];
       int* h = hist + m * 256;
-      unsigned above = 0xffffffffu;
+      Radix above = kNone;
       if (lim > 0) {
-        const int* k = keys + m * ls + e;
-        const int4 v0 = *reinterpret_cast<const int4*>(k);
-        const int4 v1 = *reinterpret_cast<const int4*>(k + 4);
-        int q[8] = {v0.x, v0.y, v0.z, v0.w, v1.x, v1.y, v1.z, v1.w};
+        Key q[8];
+        icln_load8(keys + m * ls + e, q);
         if (st.moff[m] >= 0) {
           const unsigned bits = (mbits[st.moff[m] + (e >> 5)] >> (e & 31)) & 255u;
           if (bits) {
 #pragma unroll
             for (int j = 0; j < 8; ++j)
-              if ((bits >> j) & 1u) q[j] = ICLN_KEY_MASKED;
+              if ((bits >> j) & 1u) q[j] = IK::kMasked;
           }
         }
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           if (j >= lim) break;
-          const unsigned u = icln_radix(q[j]);
+          const Radix u = IK::radix(q[j]);
           if (pass == 0 || (u >> (shift + 8)) == want)
-            atomicAdd(&h[(u >> shift) & 255u], 1);
-          else if (pass == 3 && (u >> 8) > want)
+            atomicAdd(&h[(unsigned)(u >> shift) & 255u], 1);
+          else if (last && (u >> 8) > want)
             above = min(above, u);
         }
       }
-      if (pass == 3) {
+      if (last) {
         for (int o = 16; o > 0; o >>= 1) above = min(above, __shfl_xor_sync(ICLN_FULL, above, o));
-        if (lane == 0 && above != 0xffffffffu) atomicMin(&st.above[m], above);
+        if (lane == 0 && above != kNone) atomicMin(&st.above[m], above);
       }
     }
     __syncthreads();
@@ -305,14 +460,14 @@ __device__ inline void icln_block_select(const int* keys, int n, int M, int* his
       for (int i = 0; i < 8; ++i) h[i] = 0;
       const int k = pass == 0 ? icln_sel_klo(st.nv[m]) : st.krem[m];
       const IclnPick p = icln_warp_pick(b, k);
-      const unsigned succ =
-          pass == 3 ? icln_successor_radix(b, p.digit, st.prefix[m], st.above[m]) : 0u;
+      const Radix succ =
+          last ? icln_successor_radix<Radix>(b, p.digit, st.prefix[m], st.above[m]) : (Radix)0;
       if (lane == 0) {
         st.krem[m] = k - p.below;
-        st.prefix[m] = pass == 0 ? (unsigned)p.digit : (st.prefix[m] << 8) | (unsigned)p.digit;
+        st.prefix[m] = pass == 0 ? (Radix)p.digit : (st.prefix[m] << 8) | (Radix)p.digit;
         st.clast[m] = p.count;
-        st.above[m] = 0xffffffffu;
-        st.succ[m] = (int)icln_radix((int)succ);
+        st.above[m] = kNone;
+        st.succ[m] = IK::from_radix(succ);
       }
     }
     __syncthreads();

@@ -62,18 +62,35 @@
 // takes nbin a multiple of 8 there (4 for float32); the weights stay
 // float32 (nchan a multiple of 4).  Bound: 2 * nsub * nchan * nbin bytes,
 // half the float32 cube's.
+//
+// A float64 cube (dtype="float64"; the reference's float64 route is its
+// XLA einsum pair, no TPU kernel) is the same kernel in double: the
+// weights, every sum, the partials and the outputs double, the same
+// fixed-order partials and second pass, no float atomics.  Its slabs are
+// 8-byte elements, so a stage holds twice the float32 stage's bytes and
+// the ring has two stages, not three (64 KB each at 128 bins: one block
+// an SM, 128 KB in flight); TMA takes nbin even and nchan even.  Bound:
+// 8 * nsub * nchan * nbin bytes, 4.29 GB at 1024x4096x128, 1.28 ms at
+// 3.35 TB/s.
 
 #include "common.cuh"
 
 #define ICLN_MARG_THREADS 256
 #define ICLN_MARG_J 32      // channels per thread
-#define ICLN_MARG_STAGES 3
+#define ICLN_MARG_STAGES 3  // float32 and bf16 cubes; float64 takes 2
 
+// the stages of the ring for cube elements of type T
+template <class T>
+__host__ __device__ constexpr int icln_marg_stages() {
+  return sizeof(T) == 8 ? 2 : ICLN_MARG_STAGES;
+}
+
+template <class R>
 struct MargArgs {
-  const void* disp;   // (nb, nsub, nchan, nbin) float or icln_bf16: archive blockIdx.z
-  const float* w;
-  float* a_part;   // (nb, nsb, nchan, nbin)
-  float* t1_part;  // (nb, ncb, nsub, nbin)
+  const void* disp;   // (nb, nsub, nchan, nbin) float, icln_bf16 or double: archive blockIdx.z
+  const R* w;
+  R* a_part;   // (nb, nsb, nchan, nbin)
+  R* t1_part;  // (nb, ncb, nsub, nbin)
   int nsub, nchan, nbin;
   int sb, cb, bb;  // subints per run, channels and bins per tile
   int lanes;       // bin lanes per channel group (a power of two >= bb)
@@ -82,19 +99,19 @@ struct MargArgs {
 };
 
 // bytes of one stage: the slab of `es`-byte elements at pitch bb, then
-// the tile's float32 weights
-__host__ __device__ inline int icln_marg_stage_bytes(int cb, int bb, int es) {
-  return cb * bb * es + cb * (int)sizeof(float);
+// the tile's weights of `ws` bytes each
+__host__ __device__ inline int icln_marg_stage_bytes(int cb, int bb, int es, int ws) {
+  return cb * bb * es + cb * ws;
 }
 
 // Issue the bulk copies of subint s of this block's tile into `st`.
-template <class T>
-static __device__ void icln_marg_issue(const MargArgs& p, const T* disp, int s, int c0,
+template <class T, class R>
+static __device__ void icln_marg_issue(const MargArgs<R>& p, const T* disp, int s, int c0,
                                        int cn, int b0, int bn, unsigned char* st,
                                        uint64_t* bar) {
   const size_t row0 = (size_t)s * p.nchan + c0;
   T* slab = reinterpret_cast<T*>(st);
-  icln_mbar_arrive_tx(bar, (unsigned)(cn * bn * sizeof(T) + cn * sizeof(float)));
+  icln_mbar_arrive_tx(bar, (unsigned)(cn * bn * sizeof(T) + cn * sizeof(R)));
   if (bn == p.nbin) {
     icln_bulk_load(slab, disp + row0 * p.nbin, (unsigned)(cn * bn * sizeof(T)), bar);
   } else {
@@ -103,12 +120,14 @@ static __device__ void icln_marg_issue(const MargArgs& p, const T* disp, int s, 
                      (unsigned)(bn * sizeof(T)), bar);
   }
   icln_bulk_load(st + (size_t)p.cb * p.bb * sizeof(T), p.w + row0,
-                 (unsigned)(cn * sizeof(float)), bar);
+                 (unsigned)(cn * sizeof(R)), bar);
 }
 
 template <class T, bool TMA>
 __global__ void __launch_bounds__(ICLN_MARG_THREADS)
-    icln_marginals_kernel(MargArgs p) {
+    icln_marginals_kernel(MargArgs<icln_real_t<T>> p) {
+  using R = icln_real_t<T>;
+  constexpr int kStages = icln_marg_stages<T>();
   const T* disp;
   {  // this block's archive
     const size_t z = blockIdx.z, cells = (size_t)p.nsub * p.nchan;
@@ -118,10 +137,10 @@ __global__ void __launch_bounds__(ICLN_MARG_THREADS)
     p.t1_part += z * p.ncb * (size_t)p.nsub * p.nbin;
   }
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw);  // ICLN_MARG_STAGES
-  float* red = reinterpret_cast<float*>(smem_raw + 32);    // 2 x 256
-  unsigned char* stages = smem_raw + 32 + 2 * ICLN_MARG_THREADS * sizeof(float);
-  const int sbytes = icln_marg_stage_bytes(p.cb, p.bb, (int)sizeof(T));
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem_raw);  // kStages
+  R* red = reinterpret_cast<R*>(smem_raw + 32);           // 2 x 256
+  unsigned char* stages = smem_raw + 32 + 2 * ICLN_MARG_THREADS * sizeof(R);
+  const int sbytes = icln_marg_stage_bytes(p.cb, p.bb, (int)sizeof(T), (int)sizeof(R));
   const int tid = threadIdx.x;
   const int cblk = blockIdx.x % p.ncb, bblk = blockIdx.x / p.ncb;
   const int sblk = blockIdx.y;
@@ -134,46 +153,46 @@ __global__ void __launch_bounds__(ICLN_MARG_THREADS)
 
   if (TMA) {
     if (tid == 0) {
-      for (int i = 0; i < ICLN_MARG_STAGES; ++i) icln_mbar_init(&bar[i], 1);
+      for (int i = 0; i < kStages; ++i) icln_mbar_init(&bar[i], 1);
       icln_mbar_init_fence();
     }
     __syncthreads();
     if (tid == 0)
-      for (int i = 0; i < min(ICLN_MARG_STAGES, sn); ++i)
+      for (int i = 0; i < min(kStages, sn); ++i)
         icln_marg_issue<T>(p, disp, s0 + i, c0, cn, b0, bn, stages + i * sbytes, &bar[i]);
   }
 
-  float acc[ICLN_MARG_J];
+  R acc[ICLN_MARG_J];
 #pragma unroll
-  for (int j = 0; j < ICLN_MARG_J; ++j) acc[j] = 0.0f;
+  for (int j = 0; j < ICLN_MARG_J; ++j) acc[j] = R(0);
 
   for (int i = 0; i < sn; ++i) {
-    const int slot = i % ICLN_MARG_STAGES;
+    const int slot = i % kStages;
     const T* st = reinterpret_cast<const T*>(stages + slot * sbytes);
-    const float* wst = reinterpret_cast<const float*>(st + p.cb * p.bb);
+    const R* wst = reinterpret_cast<const R*>(st + p.cb * p.bb);
     const size_t srow = (size_t)(s0 + i);
-    if (TMA) icln_mbar_wait(&bar[slot], (unsigned)((i / ICLN_MARG_STAGES) & 1));
-    float t = 0.0f;
+    if (TMA) icln_mbar_wait(&bar[slot], (unsigned)((i / kStages) & 1));
+    R t = R(0);
     if (live) {
 #pragma unroll
       for (int j = 0; j < ICLN_MARG_J; ++j) {
         const int c = j * G + g;
         if (c < cn) {
-          float v, wc;
+          R v, wc;
           if (TMA) {
-            v = icln_f32(st[c * p.bb + lb]);
+            v = icln_real(st[c * p.bb + lb]);
             wc = wst[c];
           } else {
-            v = icln_f32(disp[(srow * p.nchan + c0 + c) * p.nbin + b0 + lb]);
+            v = icln_real(disp[(srow * p.nchan + c0 + c) * p.nbin + b0 + lb]);
             wc = p.w[srow * p.nchan + c0 + c];
           }
-          const float x = v * wc;
+          const R x = v * wc;
           acc[j] += x;
           t += x;
         }
       }
     }
-    float* t1_out = p.t1_part + ((size_t)cblk * p.nsub + srow) * p.nbin + b0;
+    R* t1_out = p.t1_part + ((size_t)cblk * p.nsub + srow) * p.nbin + b0;
     if (G == 1) {
       if (live) t1_out[lb] = t;
     } else {
@@ -181,19 +200,19 @@ __global__ void __launch_bounds__(ICLN_MARG_THREADS)
     }
     __syncthreads();  // the stage is consumed; the group partials are in
     if (G > 1 && g == 0 && live) {
-      const float* r = red + (i & 1) * ICLN_MARG_THREADS + lb;
-      float tt = r[0];
+      const R* r = red + (i & 1) * ICLN_MARG_THREADS + lb;
+      R tt = r[0];
       for (int q = 1; q < G; ++q) tt += r[q * p.lanes];
       t1_out[lb] = tt;
     }
-    if (TMA && tid == 0 && i + ICLN_MARG_STAGES < sn) {
+    if (TMA && tid == 0 && i + kStages < sn) {
       icln_fence_proxy_async();
-      icln_marg_issue<T>(p, disp, s0 + i + ICLN_MARG_STAGES, c0, cn, b0, bn,
-                         stages + slot * sbytes, &bar[slot]);
+      icln_marg_issue<T>(p, disp, s0 + i + kStages, c0, cn, b0, bn, stages + slot * sbytes,
+                         &bar[slot]);
     }
   }
   if (live) {
-    float* a_out = p.a_part + ((size_t)sblk * p.nchan + c0) * p.nbin + b0 + lb;
+    R* a_out = p.a_part + ((size_t)sblk * p.nchan + c0) * p.nbin + b0 + lb;
 #pragma unroll
     for (int j = 0; j < ICLN_MARG_J; ++j) {
       const int c = j * G + g;
@@ -204,19 +223,20 @@ __global__ void __launch_bounds__(ICLN_MARG_THREADS)
 
 // out[z, i] = sum_p part[z, p, i] for archive z = blockIdx.y, partials
 // added in index order.
-__global__ void icln_sum_parts(const float* __restrict__ part,
-                               float* __restrict__ out, int nparts, size_t n) {
+template <class R>
+__global__ void icln_sum_parts(const R* __restrict__ part, R* __restrict__ out, int nparts,
+                               size_t n) {
   const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   part += (size_t)blockIdx.y * nparts * n;
-  float t = 0.0f;
+  R t = R(0);
   for (int p = 0; p < nparts; ++p) t += part[(size_t)p * n + i];
   out[(size_t)blockIdx.y * n + i] = t;
 }
 
 template <class T, bool TMA>
-static cudaError_t icln_marginals_start(const MargArgs& p, dim3 grid, long long smem_bytes,
-                                        cudaStream_t st) {
+static cudaError_t icln_marginals_start(const MargArgs<icln_real_t<T>>& p, dim3 grid,
+                                        long long smem_bytes, cudaStream_t st) {
   const cudaError_t err =
       cudaFuncSetAttribute(icln_marginals_kernel<T, TMA>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
@@ -225,47 +245,63 @@ static cudaError_t icln_marginals_start(const MargArgs& p, dim3 grid, long long 
   return cudaGetLastError();
 }
 
-// `bf16`: the cube is bf16-stored (icln_bf16 elements), else float32.
-extern "C" int icln_weighted_marginals(const void* disp, const float* w,
-                                       float* a_part, float* t1_part,
-                                       float* a, float* t1, int nb, int nsub,
-                                       int nchan, int nbin, int sb, int cb, int bb,
-                                       int lanes, int bf16, long long smem_bytes,
-                                       void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
+template <class T>
+static int icln_marginals_t(const void* disp, const void* w, void* a_part, void* t1_part,
+                            void* a, void* t1, int nb, int nsub, int nchan, int nbin, int sb,
+                            int cb, int bb, int lanes, long long smem_bytes, cudaStream_t st) {
+  using R = icln_real_t<T>;
   const int nbt = (nbin + bb - 1) / bb, nsb = (nsub + sb - 1) / sb;
-  const int es = bf16 ? (int)sizeof(icln_bf16) : (int)sizeof(float);
-  MargArgs p{disp, w, a_part, t1_part, nsub, nchan, nbin, sb, cb, bb, lanes,
-             (nchan + cb - 1) / cb, nsb};
-  const long long need = 32 + 2LL * ICLN_MARG_THREADS * sizeof(float)
-                         + (long long)ICLN_MARG_STAGES * icln_marg_stage_bytes(cb, bb, es);
+  const int es = (int)sizeof(T), ws = (int)sizeof(R);
+  MargArgs<R> p{disp, static_cast<const R*>(w), static_cast<R*>(a_part),
+                static_cast<R*>(t1_part), nsub, nchan, nbin, sb, cb, bb, lanes,
+                (nchan + cb - 1) / cb, nsb};
+  const long long need = 32 + 2LL * ICLN_MARG_THREADS * ws
+                         + (long long)icln_marg_stages<T>() * icln_marg_stage_bytes(cb, bb, es, ws);
   if (need > smem_bytes || cb != (ICLN_MARG_THREADS / lanes) * ICLN_MARG_J || bb > lanes
       || nb < 1 || nb > 65535)
     return (int)cudaErrorInvalidValue;
   // every archive's cube slab and weights start 16-byte aligned: the first
   // one's pointers, and the archive strides a multiple of 16 bytes; a row
-  // of bins is whole 16-byte words (4 float32 or 8 bf16 elements)
+  // of bins is whole 16-byte words (4 float32, 8 bf16 or 2 float64
+  // elements), and so is a tile's row of weights
   const size_t cells = (size_t)nsub * nchan;
-  const bool tma = nbin % (16 / es) == 0 && nchan % 4 == 0 && (uintptr_t)disp % 16 == 0
+  const bool tma = nbin % (16 / es) == 0 && nchan % (16 / ws) == 0 && (uintptr_t)disp % 16 == 0
                    && (uintptr_t)w % 16 == 0 && (cells * nbin * es) % 16 == 0
-                   && (cells * sizeof(float)) % 16 == 0;
+                   && (cells * ws) % 16 == 0;
   const dim3 grid((unsigned)(p.ncb * nbt), (unsigned)nsb, (unsigned)nb);
-  cudaError_t err;
-  if (bf16)
-    err = tma ? icln_marginals_start<icln_bf16, true>(p, grid, smem_bytes, st)
-              : icln_marginals_start<icln_bf16, false>(p, grid, smem_bytes, st);
-  else
-    err = tma ? icln_marginals_start<float, true>(p, grid, smem_bytes, st)
-              : icln_marginals_start<float, false>(p, grid, smem_bytes, st);
+  cudaError_t err = tma ? icln_marginals_start<T, true>(p, grid, smem_bytes, st)
+                        : icln_marginals_start<T, false>(p, grid, smem_bytes, st);
   if (err != cudaSuccess) return (int)err;
   const size_t na = (size_t)nchan * nbin, nt = (size_t)nsub * nbin;
-  icln_sum_parts<<<dim3((unsigned)((na + 255) / 256), (unsigned)nb), 256, 0, st>>>(
-      a_part, a, nsb, na);
+  icln_sum_parts<R><<<dim3((unsigned)((na + 255) / 256), (unsigned)nb), 256, 0, st>>>(
+      p.a_part, static_cast<R*>(a), nsb, na);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  icln_sum_parts<<<dim3((unsigned)((nt + 255) / 256), (unsigned)nb), 256, 0, st>>>(
-      t1_part, t1, p.ncb, nt);
+  icln_sum_parts<R><<<dim3((unsigned)((nt + 255) / 256), (unsigned)nb), 256, 0, st>>>(
+      p.t1_part, static_cast<R*>(t1), p.ncb, nt);
   return (int)cudaGetLastError();
+}
+
+// `kind`: the cube's storage, 0 float32, 1 bf16 (icln_bf16 elements; the
+// weights and outputs float32), 2 float64 (weights and outputs double).
+extern "C" int icln_weighted_marginals(const void* disp, const void* w, void* a_part,
+                                       void* t1_part, void* a, void* t1, int nb, int nsub,
+                                       int nchan, int nbin, int sb, int cb, int bb, int lanes,
+                                       int kind, long long smem_bytes, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (kind) {
+    case 0:
+      return icln_marginals_t<float>(disp, w, a_part, t1_part, a, t1, nb, nsub, nchan, nbin, sb,
+                                     cb, bb, lanes, smem_bytes, st);
+    case 1:
+      return icln_marginals_t<icln_bf16>(disp, w, a_part, t1_part, a, t1, nb, nsub, nchan, nbin,
+                                         sb, cb, bb, lanes, smem_bytes, st);
+    case 2:
+      return icln_marginals_t<double>(disp, w, a_part, t1_part, a, t1, nb, nsub, nchan, nbin,
+                                      sb, cb, bb, lanes, smem_bytes, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" const char* icln_error_string(int err) {

@@ -40,11 +40,20 @@
 // Every thread issues the loads of four entries before it uses any.  A
 // line is (start, stride) into the tensor as it lies: no transposed copy
 // is made.
+//
+// float64 values (dtype="float64"; the reference's float64 route is its
+// XLA sort) take the same kernels over 64-bit keys (icln_ordered_key of
+// a double, the masked key +inf's, 0x7FF0000000000000): eight passes a
+// select, so the grid route is the memset and eight launches, its
+// integer-atomic histograms counted once a pass; the block route's keys
+// take 8 bytes each in shared memory, so along dim 0 fewer lines a block
+// fit (stats.kernels.masked_median_geometry).  Bound: 9 bytes an entry.
 
 #include "common.cuh"
 
+template <class T>
 struct IclnMmLines {
-  const float* vals;
+  const T* vals;
   const unsigned char* mask;
   int n;                  // entries per line
   int chunk;              // entries per block (grid route)
@@ -54,37 +63,42 @@ struct IclnMmLines {
 };
 
 // The keys of entries e + j * step of a line (j < ICLN_LOAD_BATCH), all
-// loads issued before any is used; an entry at or past e1 gets
-// INT_MIN and counts as masked.  Masked entries take +inf's key.
-__device__ __forceinline__ void icln_mm_keys(const IclnMmLines& L, long long base, int e,
-                                             int step, int e1, int (&key)[ICLN_LOAD_BATCH],
+// loads issued before any is used; an entry at or past e1 gets the
+// lowest key and counts as masked.  Masked entries take +inf's key.
+template <class T>
+__device__ __forceinline__ void icln_mm_keys(const IclnMmLines<T>& L, long long base, int e,
+                                             int step, int e1,
+                                             typename IclnKeys<T>::Key (&key)[ICLN_LOAD_BATCH],
                                              bool (&masked)[ICLN_LOAD_BATCH]) {
-  float v[ICLN_LOAD_BATCH];
+  using IK = IclnKeys<T>;
+  T v[ICLN_LOAD_BATCH];
 #pragma unroll
   for (int j = 0; j < ICLN_LOAD_BATCH; ++j) {
     const int ej = e + j * step;
     const long long off = base + (long long)ej * L.elem_stride;
     masked[j] = ej >= e1 || L.mask[off] != 0;
-    v[j] = ej < e1 ? L.vals[off] : 0.0f;
+    v[j] = ej < e1 ? L.vals[off] : T(0);
   }
 #pragma unroll
   for (int j = 0; j < ICLN_LOAD_BATCH; ++j)
-    key[j] = e + j * step >= e1 ? INT_MIN : masked[j] ? ICLN_KEY_MASKED : icln_ordered_key(v[j]);
+    key[j] = e + j * step >= e1 ? IK::kLowest : masked[j] ? IK::kMasked : IK::key(v[j]);
 }
 
 // ---- block route: W lines a block, one launch ----
 
+template <class T>
 __global__ void __launch_bounds__(1024)
-    icln_mm_block_kernel(IclnMmLines L, int nlines, int W, float* __restrict__ out) {
-  extern __shared__ int smem[];
-  __shared__ IclnSelState st;
+    icln_mm_block_kernel(IclnMmLines<T> L, int nlines, int W, T* __restrict__ out) {
+  using Key = typename IclnKeys<T>::Key;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ IclnSelState<T> st;
   const int ls = icln_key_stride(L.n);
-  int* keys = smem;
-  int* hist = keys + W * ls;
+  Key* keys = reinterpret_cast<Key*>(smem_raw);
+  int* hist = reinterpret_cast<int*>(keys + W * ls);
   for (int i = threadIdx.x; i < W * 256; i += blockDim.x) hist[i] = 0;
   if (threadIdx.x < W) {
     st.nv[threadIdx.x] = 0;
-    st.moff[threadIdx.x] = -1;  // the keys hold the mask (ICLN_KEY_MASKED)
+    st.moff[threadIdx.x] = -1;  // the keys hold the mask (the masked key)
   }
   __syncthreads();
   const int c = threadIdx.x & (W - 1);
@@ -94,38 +108,42 @@ __global__ void __launch_bounds__(1024)
   int valid = 0;
   const int rstep = blockDim.x / W;
   for (int rb = threadIdx.x / W; rb < L.n; rb += ICLN_LOAD_BATCH * rstep) {
-    int key[ICLN_LOAD_BATCH];
+    Key key[ICLN_LOAD_BATCH];
     bool masked[ICLN_LOAD_BATCH];
     icln_mm_keys(L, base, rb, rstep, live ? L.n : 0, key, masked);
 #pragma unroll
     for (int j = 0; j < ICLN_LOAD_BATCH; ++j) {
       const int r = rb + j * rstep;
       if (r >= L.n) break;
-      keys[c * ls + r] = live ? key[j] : 0;
+      keys[c * ls + r] = live ? key[j] : Key(0);
       valid += !masked[j];
     }
   }
   icln_lines_add(valid, W, st.nv);
   __syncthreads();
-  icln_block_select(keys, L.n, W, hist, nullptr, st);
+  icln_block_select<T>(keys, L.n, W, hist, nullptr, st);
   if (threadIdx.x < W && (long long)blockIdx.x * W + threadIdx.x < nlines)
     out[(long long)blockIdx.x * W + threadIdx.x] = icln_sel_median(st, threadIdx.x);
 }
 
 // ---- grid route: a line over bpl blocks, a launch a pass ----
 
+template <class T>
 struct IclnMmState {
-  int* hist;         // 256 bins a line
-  int* nvalid;       // valid entries a line
-  int* ticket;       // blocks of the line done with the current launch
-  int* above;        // least key above the last pass's bucket
-  int* krem;         // rank left inside the prefix's bucket
-  unsigned* prefix;  // digits of lo found so far
+  using Key = typename IclnKeys<T>::Key;
+  using Radix = typename IclnKeys<T>::Radix;
+  int* hist;      // 256 bins a line
+  int* nvalid;    // valid entries a line
+  int* ticket;    // blocks of the line done with the current launch
+  int* krem;      // rank left inside the prefix's bucket
+  Key* above;     // least key above the last pass's bucket
+  Radix* prefix;  // digits of lo found so far
 };
 
 // After a block's atomics: true in the block that finished the line's
 // launch last (its ticket resets for the next launch).
-__device__ __forceinline__ bool icln_mm_last_block(const IclnMmState& S, int line, int bpl) {
+template <class T>
+__device__ __forceinline__ bool icln_mm_last_block(const IclnMmState<T>& S, int line, int bpl) {
   __shared__ bool last;
   __threadfence();
   __syncthreads();
@@ -140,17 +158,34 @@ __device__ __forceinline__ bool icln_mm_last_block(const IclnMmState& S, int lin
 
 #define ICLN_MM_GRID_WARPS 8  // the grid route's blocks: 256 threads
 
-// Pass PASS: the histogram of the digit at shift 24 - 8 * PASS over the
-// keys whose higher digits equal the line's prefix (pass 0: every key,
-// and the valid count; pass 3: also the least key above the bucket),
-// each warp into its own 256 shared bins, their sums added to the line's
-// bins in device memory; then the last block's pick, which after pass 3
-// takes the least key above lo and writes the median.
-template <int PASS>
-__global__ void icln_mm_pass_kernel(IclnMmLines L, IclnMmState S, float* __restrict__ out) {
+__device__ __forceinline__ long long icln_block_reduce_min(long long v, int* red, int& parity) {
+  // the int64 minimum as two exact int32 reductions: the high words, then
+  // the low words (as unsigned order) of the entries holding the least high
+  const int hi = icln_block_reduce_int<ICLN_MIN>((int)(v >> 32), red, parity);
+  const unsigned lo = (int)(v >> 32) == hi ? (unsigned)v : 0xffffffffu;
+  const int lo_m = icln_block_reduce_int<ICLN_MIN>((int)(lo ^ 0x80000000u), red, parity);
+  return ((long long)hi << 32) | (unsigned)((unsigned)lo_m ^ 0x80000000u);
+}
+
+__device__ __forceinline__ int icln_block_reduce_min(int v, int* red, int& parity) {
+  return icln_block_reduce_int<ICLN_MIN>(v, red, parity);
+}
+
+// Pass PASS: the histogram of the digit at shift 8 * (kPasses - 1 - PASS)
+// over the keys whose higher digits equal the line's prefix (pass 0:
+// every key, and the valid count; the last pass: also the least key above
+// the bucket), each warp into its own 256 shared bins, their sums added
+// to the line's bins in device memory; then the last block's pick, which
+// after the last pass takes the least key above lo and writes the median.
+template <class T, int PASS>
+__global__ void icln_mm_pass_kernel(IclnMmLines<T> L, IclnMmState<T> S, T* __restrict__ out) {
+  using IK = IclnKeys<T>;
+  using Key = typename IK::Key;
+  using Radix = typename IK::Radix;
+  constexpr int kLast = IK::kPasses - 1;
   __shared__ int bins[ICLN_MM_GRID_WARPS][256];
   __shared__ int red[64];
-  const int shift = 24 - 8 * PASS;
+  const int shift = 8 * (kLast - PASS);
   const int line = blockIdx.x / L.bpl;
   const int e0 = (blockIdx.x - line * L.bpl) * L.chunk;
   const int e1 = min(L.n, e0 + L.chunk);
@@ -158,21 +193,22 @@ __global__ void icln_mm_pass_kernel(IclnMmLines L, IclnMmState S, float* __restr
   for (int i = threadIdx.x; i < ICLN_MM_GRID_WARPS * 256; i += blockDim.x) (&bins[0][0])[i] = 0;
   __syncthreads();
   int* wbins = bins[threadIdx.x >> 5];
-  const unsigned want = PASS == 0 ? 0u : S.prefix[line];
+  const Radix want = PASS == 0 ? (Radix)0 : S.prefix[line];
   const int lane = threadIdx.x & 31;
-  int valid = 0, above = INT_MAX;
+  int valid = 0;
+  Key above = IK::kHighest;
   for (int eb = e0 + threadIdx.x; eb < e1; eb += ICLN_LOAD_BATCH * blockDim.x) {
-    int key[ICLN_LOAD_BATCH];
+    Key key[ICLN_LOAD_BATCH];
     bool masked[ICLN_LOAD_BATCH];
     icln_mm_keys(L, base, eb, blockDim.x, e1, key, masked);
 #pragma unroll
     for (int j = 0; j < ICLN_LOAD_BATCH; ++j) {
       if (eb + j * blockDim.x >= e1) break;
-      const unsigned u = icln_radix(key[j]);
+      const Radix u = IK::radix(key[j]);
       valid += !masked[j];
       if (PASS == 0 || (u >> (shift + 8)) == want)
-        atomicAdd(&wbins[(u >> shift) & 255u], 1);
-      else if (PASS == 3 && (u >> 8) > want)
+        atomicAdd(&wbins[(unsigned)(u >> shift) & 255u], 1);
+      else if (PASS == kLast && (u >> 8) > want)
         above = min(above, key[j]);
     }
   }
@@ -188,9 +224,9 @@ __global__ void icln_mm_pass_kernel(IclnMmLines L, IclnMmState S, float* __restr
     valid = icln_block_reduce_int<ICLN_SUM>(valid, red, parity);
     if (threadIdx.x == 0 && valid) atomicAdd(&S.nvalid[line], valid);
   }
-  if (PASS == 3) {
-    above = icln_block_reduce_int<ICLN_MIN>(above, red, parity);
-    if (threadIdx.x == 0 && above != INT_MAX) atomicMin(&S.above[line], above);
+  if (PASS == kLast) {
+    above = icln_block_reduce_min(above, red, parity);
+    if (threadIdx.x == 0 && above != IK::kHighest) atomicMin(&S.above[line], above);
   }
   if (!icln_mm_last_block(S, line, L.bpl) || threadIdx.x >= 32) return;
   int b[8];
@@ -199,64 +235,91 @@ __global__ void icln_mm_pass_kernel(IclnMmLines L, IclnMmState S, float* __restr
   const int nv = __ldcg(&S.nvalid[line]);
   const int k = PASS == 0 ? icln_sel_klo(nv) : S.krem[line];
   const IclnPick p = icln_warp_pick(b, k);
-  if (PASS < 3) {
+  if (PASS < kLast) {
     if (lane == 0) {
       S.krem[line] = k - p.below;
-      S.prefix[line] = PASS == 0 ? (unsigned)p.digit : (want << 8) | (unsigned)p.digit;
-      if (PASS == 2) S.above[line] = INT_MAX;
+      S.prefix[line] = PASS == 0 ? (Radix)p.digit : (want << 8) | (Radix)p.digit;
+      if (PASS == kLast - 1) S.above[line] = IK::kHighest;
     }
     return;
   }
   // lo, and hi where more than k_hi keys lie at or below lo, else the
   // least key above lo (K3's icln_sel_median)
-  const unsigned succ = icln_successor_radix(b, p.digit, want, icln_radix(__ldcg(&S.above[line])));
+  const Radix succ = icln_successor_radix<Radix>(b, p.digit, want,
+                                                 IK::radix(__ldcg(&S.above[line])));
   if (lane == 0) {
-    const int lo = (int)icln_radix((int)((want << 8) | (unsigned)p.digit));
+    const Key lo = IK::from_radix((want << 8) | (Radix)p.digit);
     const int count_le = icln_sel_klo(nv) - (k - p.below) + p.count;
     const bool need = nv > 0 && count_le <= nv / 2;
-    out[line] = icln_sel_median_of(lo, need ? (int)icln_radix((int)succ) : lo, nv);
+    out[line] = icln_sel_median_of<T>(lo, need ? IK::from_radix(succ) : lo, nv);
   }
 }
 
-// Block route (bpl == 1): `lines` (W) lines a block of `threads` threads
-// and smem_bytes of dynamic shared memory; scratch unused.  Grid route:
-// scratch is int32 [nlines * 256 bins | nvalid | ticket | above | krem |
-// prefix], nlines * 261 entries, the wrapper's allocation.
-extern "C" int icln_masked_median(const float* vals, const unsigned char* mask, float* out,
-                                  int* scratch, int n, int nlines, long long line_stride,
-                                  long long elem_stride, int chunk, int bpl, int lines,
-                                  int threads, long long smem_bytes, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const IclnMmLines L{vals, mask, n, chunk, bpl, line_stride, elem_stride};
+template <class T, int PASS>
+static cudaError_t icln_mm_passes(const IclnMmLines<T>& L, const IclnMmState<T>& S, T* out,
+                                  unsigned grid, unsigned threads, cudaStream_t s) {
+  icln_mm_pass_kernel<T, PASS><<<grid, threads, 0, s>>>(L, S, out);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  if constexpr (PASS + 1 < IclnKeys<T>::kPasses)
+    return icln_mm_passes<T, PASS + 1>(L, S, out, grid, threads, s);
+  return cudaSuccess;
+}
+
+template <class T>
+static int icln_masked_median_t(const void* vals, const unsigned char* mask, void* out,
+                                int* scratch, int n, int nlines, long long line_stride,
+                                long long elem_stride, int chunk, int bpl, int lines,
+                                int threads, long long smem_bytes, cudaStream_t s) {
+  using Key = typename IclnKeys<T>::Key;
+  using Radix = typename IclnKeys<T>::Radix;
+  const IclnMmLines<T> L{static_cast<const T*>(vals), mask, n, chunk, bpl, line_stride,
+                         elem_stride};
+  T* o = static_cast<T*>(out);
   cudaError_t err;
   if (bpl == 1) {
     if (lines < 1 || lines > 8 || (lines & (lines - 1)) || threads % 32 || threads > 1024)
       return (int)cudaErrorInvalidConfiguration;
-    err = cudaFuncSetAttribute(icln_mm_block_kernel,
+    err = cudaFuncSetAttribute(icln_mm_block_kernel<T>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem_bytes);
     if (err != cudaSuccess) return (int)err;
-    icln_mm_block_kernel<<<(nlines + lines - 1) / lines, threads, (size_t)smem_bytes, s>>>(
-        L, nlines, lines, out);
+    icln_mm_block_kernel<T><<<(nlines + lines - 1) / lines, threads, (size_t)smem_bytes, s>>>(
+        L, nlines, lines, o);
     return (int)cudaGetLastError();
   }
-  IclnMmState S;
+  IclnMmState<T> S;
   S.hist = scratch;
   S.nvalid = S.hist + (long long)nlines * 256;
   S.ticket = S.nvalid + nlines;
-  S.above = S.ticket + nlines;
-  S.krem = S.above + nlines;
-  S.prefix = reinterpret_cast<unsigned*>(S.krem + nlines);
+  S.krem = S.ticket + nlines;
+  const size_t kw = sizeof(Key) / sizeof(int);
+  const size_t wide = ((size_t)nlines * 259 + kw - 1) / kw * kw;
+  S.above = reinterpret_cast<Key*>(scratch + wide);
+  S.prefix = reinterpret_cast<Radix*>(scratch + wide + kw * (size_t)nlines);
   const long long blocks = (long long)nlines * bpl;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
   const unsigned grid = (unsigned)blocks, threads_g = 32 * ICLN_MM_GRID_WARPS;
+  // the bins, the valid counts and the tickets start at zero
   err = cudaMemsetAsync(scratch, 0, sizeof(int) * (size_t)nlines * 258, s);
   if (err != cudaSuccess) return (int)err;
-  icln_mm_pass_kernel<0><<<grid, threads_g, 0, s>>>(L, S, out);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  icln_mm_pass_kernel<1><<<grid, threads_g, 0, s>>>(L, S, out);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  icln_mm_pass_kernel<2><<<grid, threads_g, 0, s>>>(L, S, out);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  icln_mm_pass_kernel<3><<<grid, threads_g, 0, s>>>(L, S, out);
-  return (int)cudaGetLastError();
+  return (int)icln_mm_passes<T, 0>(L, S, o, grid, threads_g, s);
+}
+
+// Block route (bpl == 1): `lines` (W) lines a block of `threads` threads
+// and smem_bytes of dynamic shared memory; scratch unused.  Grid route:
+// scratch is int32 [nlines * 256 bins | nvalid | ticket | krem | above |
+// prefix] (above and prefix in the keys' width, 8-byte aligned), the
+// wrapper's allocation (stats.kernels._median_scratch_ints entries).
+// f64: float64 values (double), else float32.
+extern "C" int icln_masked_median(const void* vals, const unsigned char* mask, void* out,
+                                  int* scratch, int n, int nlines, long long line_stride,
+                                  long long elem_stride, int chunk, int bpl, int lines,
+                                  int threads, long long smem_bytes, int f64, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  return f64 ? icln_masked_median_t<double>(vals, mask, out, scratch, n, nlines, line_stride,
+                                            elem_stride, chunk, bpl, lines, threads,
+                                            smem_bytes, s)
+             : icln_masked_median_t<float>(vals, mask, out, scratch, n, nlines, line_stride,
+                                           elem_stride, chunk, bpl, lines, threads, smem_bytes,
+                                           s);
 }

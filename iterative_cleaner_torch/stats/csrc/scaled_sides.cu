@@ -45,26 +45,36 @@
 // columns may straddle two archives; each line's select is its own, so
 // every archive's sides are bit-equal to a launch on it alone.  One
 // archive is lpa = nlines, archive_stride = 0.
+//
+// float64 planes (dtype="float64"; no TPU kernel takes them: the
+// reference runs float64 through its XLA sort route) are the same kernel
+// over double values and 64-bit keys (icln_ordered_key(double)): eight
+// 8-bit passes a select, 8 bytes a key in shared memory, so a block
+// takes lines of up to LONGEST_BLOCK_LINE_F64 entries
+// (stats.kernels.scaled_sides_geometry), and every float op in double,
+// the threshold a multiply by float64(1/thresh).  Bound: 69 bytes per
+// cell (eight float64 planes, the mask), 289 MB at 1024x4096.
 
 #include "common.cuh"
 
-template <int D>
+template <class T, int D>
 __global__ void __launch_bounds__(1024)
-    icln_scaled_sides_kernel(const float* __restrict__ d0, const float* __restrict__ d1,
-                             const float* __restrict__ d2, const float* __restrict__ d3,
-                             const unsigned char* __restrict__ mask, float* __restrict__ o0,
-                             float* __restrict__ o1, float* __restrict__ o2,
-                             float* __restrict__ o3, int n, int nlines, long long line_stride,
-                             long long elem_stride, long long lpa, long long archive_stride,
-                             int W, float inv_t) {
-  extern __shared__ int smem[];
-  __shared__ IclnSelState st;
+    icln_scaled_sides_kernel(const T* __restrict__ d0, const T* __restrict__ d1,
+                             const T* __restrict__ d2, const T* __restrict__ d3,
+                             const unsigned char* __restrict__ mask, T* __restrict__ o0,
+                             T* __restrict__ o1, T* __restrict__ o2, T* __restrict__ o3,
+                             int n, int nlines, long long line_stride, long long elem_stride,
+                             long long lpa, long long archive_stride, int W, T inv_t) {
+  using IK = IclnKeys<T>;
+  using Key = typename IK::Key;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ IclnSelState<T> st;
   __shared__ int nvalid[8], nan_in[8], nan_abs[8];  // per line of the block
   const int M = W * D;
   const int ls = icln_key_stride(n);  // line m = d * W + c at keys + m * ls
   const int nw = (n + 31) >> 5;         // mask words a line
-  int* keys = smem;
-  int* hist = keys + M * ls;
+  Key* keys = reinterpret_cast<Key*>(smem_raw);
+  int* hist = reinterpret_cast<int*>(keys + M * ls);
   unsigned* mbits = reinterpret_cast<unsigned*>(hist + M * 256);
   for (int i = threadIdx.x; i < M * 256; i += blockDim.x) hist[i] = 0;
   for (int i = threadIdx.x; i < W * nw; i += blockDim.x) mbits[i] = 0u;
@@ -80,8 +90,8 @@ __global__ void __launch_bounds__(1024)
   const long long base = (line / lpa) * archive_stride + (line % lpa) * line_stride;
   unsigned* mb = mbits + c * nw;
 
-  const float* const ins[4] = {d0, d1, d2, d3};
-  float* const outs[4] = {o0, o1, o2, o3};
+  const T* const ins[4] = {d0, d1, d2, d3};
+  T* const outs[4] = {o0, o1, o2, o3};
   for (int g = 0; g < 4; g += D) {
     // the previous group's threads have read st and their medians
     if (g) __syncthreads();
@@ -94,7 +104,7 @@ __global__ void __launch_bounds__(1024)
     // ICLN_LOAD_BATCH entries' loads in flight a thread
     int valid = 0, nan_v = 0;
     for (int rb = r0; rb < n; rb += ICLN_LOAD_BATCH * rstep) {
-      float v[ICLN_LOAD_BATCH][D];
+      T v[ICLN_LOAD_BATCH][D];
       bool mk[ICLN_LOAD_BATCH];
 #pragma unroll
       for (int j = 0; j < ICLN_LOAD_BATCH; ++j) {
@@ -103,7 +113,7 @@ __global__ void __launch_bounds__(1024)
         const long long off = base + (long long)r * elem_stride;
         mk[j] = g == 0 && (!in || mask[off]);
 #pragma unroll
-        for (int d = 0; d < D; ++d) v[j][d] = in ? ins[g + d][off] : 0.0f;
+        for (int d = 0; d < D; ++d) v[j][d] = in ? ins[g + d][off] : T(0);
       }
 #pragma unroll
       for (int j = 0; j < ICLN_LOAD_BATCH; ++j) {
@@ -115,7 +125,7 @@ __global__ void __launch_bounds__(1024)
         }
 #pragma unroll
         for (int d = 0; d < D; ++d) {
-          keys[(d * W + c) * ls + r] = live ? icln_ordered_key(v[j][d]) : 0;
+          keys[(d * W + c) * ls + r] = live ? IK::key(v[j][d]) : Key(0);
           if (g + d == 3) nan_v |= icln_isnan(v[j][d]);
         }
       }
@@ -129,12 +139,12 @@ __global__ void __launch_bounds__(1024)
     }
 
     // round 1: the medians; then each unmasked key becomes |centred|'s
-    icln_block_select(keys, n, M, hist, mbits, st);
-    float med[D];
+    icln_block_select<T>(keys, n, M, hist, mbits, st);
+    T med[D];
 #pragma unroll
     for (int d = 0; d < D; ++d) {
       med[d] = icln_sel_median(st, d * W + c);
-      if (g + d == 3 && nan_in[c]) med[d] = icln_nan();
+      if (g + d == 3 && nan_in[c]) med[d] = icln_nan_of<T>();
     }
     int nan_a = 0;
 #pragma unroll 2
@@ -144,9 +154,9 @@ __global__ void __launch_bounds__(1024)
       for (int d = 0; d < D; ++d) {
         const int i = g + d;
         if (i < 3 && masked) continue;  // masked entries pass through
-        int* kp = keys + (d * W + c) * ls + r;
-        const float a = fabsf(icln_key_to_float(*kp) - med[d]);
-        *kp = icln_ordered_key(a);
+        Key* kp = keys + (d * W + c) * ls + r;
+        const T a = icln_abs(IK::value(*kp) - med[d]);
+        *kp = IK::key(a);
         if (i == 3) nan_a |= icln_isnan(a);
       }
     }
@@ -154,13 +164,13 @@ __global__ void __launch_bounds__(1024)
     __syncthreads();
 
     // round 2: the MADs; then the sides
-    icln_block_select(keys, n, M, hist, mbits, st);
+    icln_block_select<T>(keys, n, M, hist, mbits, st);
     if (!live) continue;
-    float mad[D];
+    T mad[D];
 #pragma unroll
     for (int d = 0; d < D; ++d) {
       mad[d] = icln_sel_median(st, d * W + c);
-      if (g + d == 3 && nan_abs[c]) mad[d] = icln_nan();
+      if (g + d == 3 && nan_abs[c]) mad[d] = icln_nan_of<T>();
     }
     const bool empty = nvalid[c] == 0;
 #pragma unroll 2
@@ -171,17 +181,17 @@ __global__ void __launch_bounds__(1024)
       for (int d = 0; d < D; ++d) {
         const int i = g + d;
         // |centred|, or a masked entry's value (it passes through)
-        const float a = icln_key_to_float(keys[(d * W + c) * ls + r]);
-        float out;
+        const T a = IK::value(keys[(d * W + c) * ls + r]);
+        T out;
         if (i == 3) {
-          out = fabsf(a / mad[d]) * inv_t;
+          out = icln_abs(a / mad[d]) * inv_t;
         } else if (masked) {
-          out = fabsf(a);  // _masked_side: undivided
+          out = icln_abs(a);  // _masked_side: undivided
         } else {
           // _masked_side: zero-MAD / empty lines go dead, data undivided
-          const bool line_dead = (mad[d] == 0.0f) || empty;
-          const float safe_mad = line_dead ? 1.0f : mad[d];
-          const float mag = line_dead ? a : fabsf(a / safe_mad);
+          const bool line_dead = (mad[d] == T(0)) || empty;
+          const T safe_mad = line_dead ? T(1) : mad[d];
+          const T mag = line_dead ? a : icln_abs(a / safe_mad);
           out = line_dead ? mag : mag * inv_t;
         }
         outs[i][off] = out;
@@ -190,53 +200,65 @@ __global__ void __launch_bounds__(1024)
   }
 }
 
-template <int D>
-static int icln_scaled_sides_launch(const float* d0, const float* d1, const float* d2,
-                                    const float* d3, const unsigned char* mask, float* o0,
-                                    float* o1, float* o2, float* o3, int n, int nlines,
-                                    long long line_stride, long long elem_stride, long long lpa,
-                                    long long archive_stride, float inv_t, int lines,
+template <class T, int D>
+static int icln_scaled_sides_launch(const void* const* d, const unsigned char* mask,
+                                    void* const* o, int n, int nlines, long long line_stride,
+                                    long long elem_stride, long long lpa,
+                                    long long archive_stride, double inv_t, int lines,
                                     int threads, long long smem_bytes, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(icln_scaled_sides_kernel<D>,
+  cudaError_t err = cudaFuncSetAttribute(icln_scaled_sides_kernel<T, D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem_bytes);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (nlines + lines - 1) / lines;
-  icln_scaled_sides_kernel<D><<<blocks, threads, (size_t)smem_bytes, stream>>>(
-      d0, d1, d2, d3, mask, o0, o1, o2, o3, n, nlines, line_stride, elem_stride, lpa,
-      archive_stride, lines, inv_t);
+  icln_scaled_sides_kernel<T, D><<<blocks, threads, (size_t)smem_bytes, stream>>>(
+      static_cast<const T*>(d[0]), static_cast<const T*>(d[1]), static_cast<const T*>(d[2]),
+      static_cast<const T*>(d[3]), mask, static_cast<T*>(o[0]), static_cast<T*>(o[1]),
+      static_cast<T*>(o[2]), static_cast<T*>(o[3]), n, nlines, line_stride, elem_stride, lpa,
+      archive_stride, lines, (T)inv_t);
   return (int)cudaGetLastError();
 }
 
+template <class T>
+static int icln_scaled_sides_diags(const void* const* d, const unsigned char* mask,
+                                   void* const* o, int n, int nlines, long long line_stride,
+                                   long long elem_stride, long long lpa, long long archive_stride,
+                                   double inv_t, int lines, int diags, int threads,
+                                   long long smem_bytes, cudaStream_t s) {
+  switch (diags) {
+    case 4:
+      return icln_scaled_sides_launch<T, 4>(d, mask, o, n, nlines, line_stride, elem_stride, lpa,
+                                            archive_stride, inv_t, lines, threads, smem_bytes, s);
+    case 2:
+      return icln_scaled_sides_launch<T, 2>(d, mask, o, n, nlines, line_stride, elem_stride, lpa,
+                                            archive_stride, inv_t, lines, threads, smem_bytes, s);
+    case 1:
+      return icln_scaled_sides_launch<T, 1>(d, mask, o, n, nlines, line_stride, elem_stride, lpa,
+                                            archive_stride, inv_t, lines, threads, smem_bytes, s);
+    default:
+      return (int)cudaErrorInvalidConfiguration;
+  }
+}
+
 // lines: W (1, 2, 4 or 8), diags: D (1, 2 or 4); threads a multiple of 32.
-extern "C" int icln_scaled_sides(const float* d0, const float* d1, const float* d2,
-                                 const float* d3, const unsigned char* mask,
-                                 float* o0, float* o1, float* o2, float* o3, int n,
-                                 int nlines, long long line_stride,
+// f64: the planes are float64 (double), else float32; inv_t is the
+// threshold's reciprocal in the planes' type (a float32 value for them).
+extern "C" int icln_scaled_sides(const void* d0, const void* d1, const void* d2,
+                                 const void* d3, const unsigned char* mask, void* o0, void* o1,
+                                 void* o2, void* o3, int n, int nlines, long long line_stride,
                                  long long elem_stride, long long lpa,
-                                 long long archive_stride, float inv_t, int lines, int diags,
-                                 int threads, long long smem_bytes, void* stream) {
+                                 long long archive_stride, double inv_t, int lines, int diags,
+                                 int threads, long long smem_bytes, int f64, void* stream) {
   if (lines < 1 || lines > 8 || (lines & (lines - 1)) || diags * lines > ICLN_SEL_LINES ||
       threads % 32 || threads > 1024 || lpa < 1 || nlines % lpa)
     return (int)cudaErrorInvalidConfiguration;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (diags) {
-    case 4:
-      return icln_scaled_sides_launch<4>(d0, d1, d2, d3, mask, o0, o1, o2, o3, n, nlines,
-                                         line_stride, elem_stride, lpa, archive_stride, inv_t,
-                                         lines, threads,
-                                         smem_bytes, s);
-    case 2:
-      return icln_scaled_sides_launch<2>(d0, d1, d2, d3, mask, o0, o1, o2, o3, n, nlines,
-                                         line_stride, elem_stride, lpa, archive_stride, inv_t,
-                                         lines, threads,
-                                         smem_bytes, s);
-    case 1:
-      return icln_scaled_sides_launch<1>(d0, d1, d2, d3, mask, o0, o1, o2, o3, n, nlines,
-                                         line_stride, elem_stride, lpa, archive_stride, inv_t,
-                                         lines, threads,
-                                         smem_bytes, s);
-    default:
-      return (int)cudaErrorInvalidConfiguration;
-  }
+  const void* const d[4] = {d0, d1, d2, d3};
+  void* const o[4] = {o0, o1, o2, o3};
+  return f64 ? icln_scaled_sides_diags<double>(d, mask, o, n, nlines, line_stride, elem_stride,
+                                               lpa, archive_stride, inv_t, lines, diags,
+                                               threads, smem_bytes, s)
+             : icln_scaled_sides_diags<float>(d, mask, o, n, nlines, line_stride, elem_stride,
+                                              lpa, archive_stride, inv_t, lines, diags, threads,
+                                              smem_bytes, s);
 }

@@ -17,53 +17,51 @@
 // stage theirs by TMA bulk copy too, the three are one kernel, and K10's
 // planes are bit-equal to K2's and K6's on the same shard.  A bf16-stored
 // block (`bf16`; the TPU kernels' _dma_scratch stages the storage dtype)
-// takes K2's and K6's bf16 instantiations.
+// takes K2's and K6's bf16 instantiations.  A float64 block (`kind` 2)
+// is refused: K10's float64 build is ROADMAP item 1b.
 
 #include "cell_stats.cuh"
 
+// `kind`: the block's storage, 0 float32 or 1 bf16; 2 (float64) is refused.
 extern "C" int icln_shard_stats_disp(
-    const void* disp, const float* rott, const float* nyq, const float* w,
-    const unsigned char* mask, const float* cos_t, const float* sin_t,
-    const float* tt, float* d_std, float* d_mean, float* d_ptp, float* d_fft,
-    long long ncells, long long cpa, int nchan, int nbin, int group, int ctile, int kchunk,
-    int bchunk, int nkp, int producers, int threads, int grid, long long smem_bytes, float inv_n,
-    int bf16, void* stream) {
-  CellStatsArgs p = icln_cell_stats_args(mask, w, cos_t, sin_t, tt, d_std,
-                                         d_mean, d_ptp, d_fft, ncells, nchan,
-                                         nbin, group, kchunk, bchunk, nkp,
-                                         inv_n);
-  p.cpa = cpa;
+    const void* disp, const void* rott, const void* nyq, const void* w,
+    const unsigned char* mask, const void* cos_t, const void* sin_t, const void* tt,
+    void* d_std, void* d_mean, void* d_ptp, void* d_fft, long long ncells, long long cpa,
+    int nchan, int nbin, int group, int ctile, int kchunk, int bchunk, int nkp, int producers,
+    int threads, int grid, long long smem_bytes, double inv_n, int kind, void* stream) {
+  if (kind != 0 && kind != 1) return (int)cudaErrorInvalidValue;
+  CellStatsArgs<float> p = icln_cell_stats_args<float>(
+      mask, w, cos_t, sin_t, tt, d_std, d_mean, d_ptp, d_fft, ncells, cpa, nchan, nbin, group,
+      kchunk, bchunk, nkp, inv_n);
   p.cube = disp;
-  p.rott = rott;
-  p.nyq = nyq;
-  if (bf16)
-    return nyq ? icln_cell_stats_launch<ResDisp<icln_bf16, true>>(p, ctile, producers, threads,
-                                                                  grid, smem_bytes, stream)
-               : icln_cell_stats_launch<ResDisp<icln_bf16, false>>(p, ctile, producers, threads,
-                                                                   grid, smem_bytes, stream);
-  return nyq ? icln_cell_stats_launch<ResDisp<float, true>>(p, ctile, producers, threads, grid,
-                                                            smem_bytes, stream)
-             : icln_cell_stats_launch<ResDisp<float, false>>(p, ctile, producers, threads, grid,
-                                                             smem_bytes, stream);
+  p.rott = static_cast<const float*>(rott);
+  p.nyq = static_cast<const float*>(nyq);
+  if (kind == 1)
+    return p.nyq ? icln_cell_stats_launch<ResDisp<icln_bf16, true>>(p, ctile, producers, threads,
+                                                                    grid, smem_bytes, stream)
+                 : icln_cell_stats_launch<ResDisp<icln_bf16, false>>(
+                       p, ctile, producers, threads, grid, smem_bytes, stream);
+  return p.nyq ? icln_cell_stats_launch<ResDisp<float, true>>(p, ctile, producers, threads, grid,
+                                                              smem_bytes, stream)
+               : icln_cell_stats_launch<ResDisp<float, false>>(p, ctile, producers, threads,
+                                                               grid, smem_bytes, stream);
 }
 
 extern "C" int icln_shard_stats_dedisp(
-    const void* ded, const float* tmpl, const float* win, const float* w,
-    const unsigned char* mask, const float* cos_t, const float* sin_t,
-    const float* tt, float* d_std, float* d_mean, float* d_ptp, float* d_fft,
-    long long ncells, long long cpa, int nchan, int nbin, int group, int ctile, int kchunk,
-    int bchunk, int nkp, int producers, int threads, int grid, long long smem_bytes, float inv_n,
-    int bf16, void* stream) {
-  CellStatsArgs p = icln_cell_stats_args(mask, w, cos_t, sin_t, tt, d_std,
-                                         d_mean, d_ptp, d_fft, ncells, nchan,
-                                         nbin, group, kchunk, bchunk, nkp,
-                                         inv_n);
-  p.cpa = cpa;
+    const void* ded, const void* tmpl, const void* win, const void* w, const unsigned char* mask,
+    const void* cos_t, const void* sin_t, const void* tt, void* d_std, void* d_mean,
+    void* d_ptp, void* d_fft, long long ncells, long long cpa, int nchan, int nbin, int group,
+    int ctile, int kchunk, int bchunk, int nkp, int producers, int threads, int grid,
+    long long smem_bytes, double inv_n, int kind, void* stream) {
+  if (kind != 0 && kind != 1) return (int)cudaErrorInvalidValue;
+  CellStatsArgs<float> p = icln_cell_stats_args<float>(
+      mask, w, cos_t, sin_t, tt, d_std, d_mean, d_ptp, d_fft, ncells, cpa, nchan, nbin, group,
+      kchunk, bchunk, nkp, inv_n);
   p.cube = ded;
-  p.tmpl = tmpl;
-  p.win = win;
-  return bf16 ? icln_cell_stats_launch<ResDedisp<icln_bf16>>(p, ctile, producers, threads, grid,
-                                                          smem_bytes, stream)
-              : icln_cell_stats_launch<ResDedisp<float>>(p, ctile, producers, threads, grid,
-                                                      smem_bytes, stream);
+  p.tmpl = static_cast<const float*>(tmpl);
+  p.win = static_cast<const float*>(win);
+  return kind == 1 ? icln_cell_stats_launch<ResDedisp<icln_bf16>>(p, ctile, producers, threads,
+                                                                  grid, smem_bytes, stream)
+                   : icln_cell_stats_launch<ResDedisp<float>>(p, ctile, producers, threads,
+                                                              grid, smem_bytes, stream);
 }

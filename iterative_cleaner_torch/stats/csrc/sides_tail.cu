@@ -29,6 +29,10 @@
 // records both per line in an int (bit 1, bit 2; integer atomicOr, exact
 // in any order) and side_scale applies them, a NaN median making every
 // centred entry NaN.
+//
+// float64 planes (dtype="float64") take the same kernels in double, with
+// K9's float64 build for the medians (lines over LONGEST_BLOCK_LINE_F64
+// entries): twice the bytes an entry.
 
 #include "common.cuh"
 
@@ -36,52 +40,51 @@ __device__ __forceinline__ long long icln_tail_line(long long i, int nchan, int 
   return axis == 0 ? i % nchan : i / nchan;
 }
 
-template <bool MASKED>
-__global__ void icln_side_centre_kernel(const float* __restrict__ d,
+template <class T, bool MASKED>
+__global__ void icln_side_centre_kernel(const T* __restrict__ d,
                                         const unsigned char* __restrict__ mask,
-                                        const float* __restrict__ med,
-                                        float* __restrict__ centred,
-                                        float* __restrict__ absc, int* __restrict__ flags,
+                                        const T* __restrict__ med, T* __restrict__ centred,
+                                        T* __restrict__ absc, int* __restrict__ flags,
                                         long long n, int nchan, int axis) {
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += (long long)gridDim.x * blockDim.x) {
     const long long line = icln_tail_line(i, nchan, axis);
-    const float v = d[i];
-    float c;
+    const T v = d[i];
+    T c;
     if (MASKED) {
       c = mask[i] ? v : v - med[line];
     } else {
       c = v - med[line];
-      const int f = (icln_isnan(v) ? 1 : 0) | (icln_isnan(fabsf(c)) ? 2 : 0);
+      const int f = (icln_isnan(v) ? 1 : 0) | (icln_isnan(icln_abs(c)) ? 2 : 0);
       if (f) atomicOr(&flags[line], f);
     }
     centred[i] = c;
-    absc[i] = fabsf(c);
+    absc[i] = icln_abs(c);
   }
 }
 
-template <bool MASKED>
-__global__ void icln_side_scale_kernel(const float* __restrict__ centred,
+template <class T, bool MASKED>
+__global__ void icln_side_scale_kernel(const T* __restrict__ centred,
                                        const unsigned char* __restrict__ mask,
-                                       const float* __restrict__ mad,
-                                       const int* __restrict__ flags, float* __restrict__ out,
-                                       long long n, int nchan, int axis, float inv_t) {
+                                       const T* __restrict__ mad,
+                                       const int* __restrict__ flags, T* __restrict__ out,
+                                       long long n, int nchan, int axis, T inv_t) {
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += (long long)gridDim.x * blockDim.x) {
     const long long line = icln_tail_line(i, nchan, axis);
-    const float c = centred[i];
-    const float m = mad[line];
+    const T c = centred[i];
+    const T m = mad[line];
     if (MASKED) {
-      const bool line_dead = m == 0.0f;
-      const float safe_mad = line_dead ? 1.0f : m;
+      const bool line_dead = m == T(0);
+      const T safe_mad = line_dead ? T(1) : m;
       const bool dead = mask[i] || line_dead;
-      const float mag = fabsf(dead ? c : c / safe_mad);
+      const T mag = icln_abs(dead ? c : c / safe_mad);
       out[i] = dead ? mag : mag * inv_t;
     } else {
       const int f = flags[line];
-      const float ce = (f & 1) ? icln_nan() : c;
-      const float me = f ? icln_nan() : m;
-      out[i] = fabsf(ce / me) * inv_t;
+      const T ce = (f & 1) ? icln_nan_of<T>() : c;
+      const T me = f ? icln_nan_of<T>() : m;
+      out[i] = icln_abs(ce / me) * inv_t;
     }
   }
 }
@@ -91,28 +94,60 @@ static unsigned icln_tail_blocks(long long n) {
   return (unsigned)(b < 65535LL * 16 ? b : 65535LL * 16);
 }
 
-extern "C" int icln_side_centre(const float* d, const unsigned char* mask, const float* med,
-                                float* centred, float* absc, int* flags, long long n,
-                                int nchan, int axis, int masked, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
+template <class T>
+static int icln_side_centre_launch(const void* d, const unsigned char* mask, const void* med,
+                                   void* centred, void* absc, int* flags, long long n,
+                                   int nchan, int axis, int masked, cudaStream_t st) {
+  const T* dd = static_cast<const T*>(d);
+  const T* mm = static_cast<const T*>(med);
+  T* cc = static_cast<T*>(centred);
+  T* aa = static_cast<T*>(absc);
   if (masked)
-    icln_side_centre_kernel<true><<<icln_tail_blocks(n), 256, 0, st>>>(
-        d, mask, med, centred, absc, flags, n, nchan, axis);
+    icln_side_centre_kernel<T, true><<<icln_tail_blocks(n), 256, 0, st>>>(
+        dd, mask, mm, cc, aa, flags, n, nchan, axis);
   else
-    icln_side_centre_kernel<false><<<icln_tail_blocks(n), 256, 0, st>>>(
-        d, mask, med, centred, absc, flags, n, nchan, axis);
+    icln_side_centre_kernel<T, false><<<icln_tail_blocks(n), 256, 0, st>>>(
+        dd, mask, mm, cc, aa, flags, n, nchan, axis);
   return (int)cudaGetLastError();
 }
 
-extern "C" int icln_side_scale(const float* centred, const unsigned char* mask,
-                               const float* mad, const int* flags, float* out, long long n,
-                               int nchan, int axis, int masked, float inv_t, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
+template <class T>
+static int icln_side_scale_launch(const void* centred, const unsigned char* mask,
+                                  const void* mad, const int* flags, void* out, long long n,
+                                  int nchan, int axis, int masked, double inv_t,
+                                  cudaStream_t st) {
+  const T* cc = static_cast<const T*>(centred);
+  const T* md = static_cast<const T*>(mad);
+  T* oo = static_cast<T*>(out);
   if (masked)
-    icln_side_scale_kernel<true><<<icln_tail_blocks(n), 256, 0, st>>>(
-        centred, mask, mad, flags, out, n, nchan, axis, inv_t);
+    icln_side_scale_kernel<T, true><<<icln_tail_blocks(n), 256, 0, st>>>(
+        cc, mask, md, flags, oo, n, nchan, axis, (T)inv_t);
   else
-    icln_side_scale_kernel<false><<<icln_tail_blocks(n), 256, 0, st>>>(
-        centred, mask, mad, flags, out, n, nchan, axis, inv_t);
+    icln_side_scale_kernel<T, false><<<icln_tail_blocks(n), 256, 0, st>>>(
+        cc, mask, md, flags, oo, n, nchan, axis, (T)inv_t);
   return (int)cudaGetLastError();
+}
+
+// f64: the planes are float64 (double), else float32.
+extern "C" int icln_side_centre(const void* d, const unsigned char* mask, const void* med,
+                                void* centred, void* absc, int* flags, long long n,
+                                int nchan, int axis, int masked, int f64, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  return f64 ? icln_side_centre_launch<double>(d, mask, med, centred, absc, flags, n, nchan,
+                                               axis, masked, st)
+             : icln_side_centre_launch<float>(d, mask, med, centred, absc, flags, n, nchan,
+                                              axis, masked, st);
+}
+
+// inv_t: the threshold's reciprocal in the planes' type (a float32 value
+// for float32 planes).
+extern "C" int icln_side_scale(const void* centred, const unsigned char* mask,
+                               const void* mad, const int* flags, void* out, long long n,
+                               int nchan, int axis, int masked, double inv_t, int f64,
+                               void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  return f64 ? icln_side_scale_launch<double>(centred, mask, mad, flags, out, n, nchan, axis,
+                                              masked, inv_t, st)
+             : icln_side_scale_launch<float>(centred, mask, mad, flags, out, n, nchan, axis,
+                                             masked, inv_t, st);
 }

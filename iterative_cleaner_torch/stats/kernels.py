@@ -67,6 +67,18 @@ takes the B archives' lines as B lines.  The batch moves only the index:
 each archive's outputs are bit-equal to the same kernel launched on that
 archive alone.  The plain versions take the batch too, one archive at a
 time.
+
+float64 (``CleanConfig(dtype="float64")``, the reference's oracle-parity
+mode) has builds of K1, K2, K6, K7, K3, the combine, K9 and the tail
+kernels: the same kernels with double storage and arithmetic and 64-bit
+order-preserving keys in the selects (:func:`ordered_key` of a float64
+tensor).  No TPU kernel takes float64 (the reference runs it through its
+XLA route); each float64 build computes what that route computes, held to
+its plain version in float64.  Their launches are counted apart
+(``launches_f64``; ``<name>_f64`` in :func:`launch_counts`).  K10's
+float64 build is ROADMAP item 1b: a float64 block on the card raises.
+The plain versions follow their inputs' dtype (a bf16 cube is read as
+float32).
 """
 
 from __future__ import annotations
@@ -90,6 +102,7 @@ from iterative_cleaner_torch.ops.dsp import (
     each_archive,
     fit_template_amplitudes,
     fit_template_amplitudes_disp,
+    upcast_stored,
     weighted_marginal_totals,
 )
 from iterative_cleaner_torch.stats.masked_torch import (
@@ -115,16 +128,22 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
 # Longest profile the cube kernels take: their DFT tables, nbin x
 # (nbin/2 + 1) x 8 bytes, are 1.07 GB on the card at 16384 bins (and
 # the plain version's as much on the host).  Longer profiles wait for
-# the rFFT route.
+# the rFFT route.  float64 tables take twice the bytes (2.15 GB at 16384
+# bins) and a float64 block's two centred rows of 16384 bins (256 KB) do
+# not fit its shared memory: float64 profiles stop at 8192 bins (0.54 GB
+# of tables).
 MAX_NBIN = 16384
+MAX_NBIN_F64 = 8192
 _SMEM_LIMIT = 232448    # dynamic shared memory one Hopper block may use
 
 
-def _check_nbin(nbin: int) -> None:
-    if nbin > MAX_NBIN:
+def _check_nbin(nbin: int, realsize: int = 4) -> None:
+    limit = MAX_NBIN_F64 if realsize == 8 else MAX_NBIN
+    if nbin > limit:
+        what = "float64 " if realsize == 8 else ""
         raise NotImplementedError(
-            f"nbin {nbin} > {MAX_NBIN}: longer profiles need the rFFT "
-            f"route (ROADMAP item 9, long-profile spectra)")
+            f"nbin {nbin} > {limit} for {what}profiles: longer profiles "
+            f"need the rFFT route (ROADMAP item 9, long-profile spectra)")
 
 
 _LIB = None
@@ -185,27 +204,27 @@ def build_library() -> Path:
     return out
 
 
-_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
-    ctypes.c_float
+_P, _I, _LL, _D = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_double
 _SIGNATURES = {
     "icln_weighted_marginals": [_P] * 6 + [_I] * 9 + [_LL, _P],
     "icln_cell_stats_disp": [_P] * 12 + [_LL] * 2 + [_I] * 10
-    + [_LL, _F, _I, _P],
+    + [_LL, _D, _I, _P],
     "icln_cell_stats_two_read": [_P] * 13 + [_LL] * 2 + [_I] * 10
-    + [_LL, _F, _I, _P],
+    + [_LL, _D, _I, _P],
     "icln_cell_stats_dedisp": [_P] * 12 + [_LL] * 2 + [_I] * 10
-    + [_LL, _F, _I, _P],
+    + [_LL, _D, _I, _P],
     "icln_shard_stats_disp": [_P] * 12 + [_LL] * 2 + [_I] * 10
-    + [_LL, _F, _I, _P],
+    + [_LL, _D, _I, _P],
     "icln_shard_stats_dedisp": [_P] * 12 + [_LL] * 2 + [_I] * 10
-    + [_LL, _F, _I, _P],
-    "icln_scaled_sides": [_P] * 9 + [_I, _I, _LL, _LL, _LL, _LL, _F, _I, _I,
-                                     _I, _LL, _P],
-    "icln_combine_zap": [_P] * 11 + [_LL, _P],
+    + [_LL, _D, _I, _P],
+    "icln_scaled_sides": [_P] * 9 + [_I, _I, _LL, _LL, _LL, _LL, _D, _I, _I,
+                                     _I, _LL, _I, _P],
+    "icln_combine_zap": [_P] * 11 + [_LL, _I, _P],
     "icln_masked_median": [_P] * 4 + [_I, _I, _LL, _LL, _I, _I, _I, _I, _LL,
-                                      _P],
-    "icln_side_centre": [_P] * 6 + [_LL, _I, _I, _I, _P],
-    "icln_side_scale": [_P] * 5 + [_LL, _I, _I, _I, _F, _P],
+                                      _I, _P],
+    "icln_side_centre": [_P] * 6 + [_LL, _I, _I, _I, _I, _P],
+    "icln_side_scale": [_P] * 5 + [_LL, _I, _I, _I, _D, _I, _P],
 }
 
 
@@ -243,7 +262,39 @@ def _on_card(*tensors) -> bool:
 
 
 # the storage dtypes of the cube operands K1, K2, K6, K7 and K10 read
-CUBE_DTYPES = (torch.float32, torch.bfloat16)
+# (K10: float32 and bf16 only, ROADMAP item 1b)
+CUBE_DTYPES = (torch.float32, torch.bfloat16, torch.float64)
+# the arithmetic (and plane) dtypes: float64 for a float64 cube, float32
+# for the others
+REAL_DTYPES = (torch.float32, torch.float64)
+# the kinds the cube kernels' entries take
+_KIND = {torch.float32: 0, torch.bfloat16: 1, torch.float64: 2}
+
+
+def real_dtype(dtype):
+    """The arithmetic dtype of a cube stored as ``dtype``: float64 for
+    float64, float32 for float32 and bf16."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def _real_of(*tensors):
+    """The one real dtype of float planes (float32 or float64); a mix
+    raises."""
+    dtypes = {t.dtype for t in tensors}
+    if len(dtypes) != 1 or not dtypes <= set(REAL_DTYPES):
+        raise TypeError(f"expected float32 or float64 planes of one dtype, "
+                        f"got {sorted(map(str, dtypes))}")
+    return dtypes.pop()
+
+
+def _inv_thresh(thresh, dtype) -> float:
+    """The threshold's reciprocal as the kernels multiply by it:
+    float32(1) / float32(thresh) for float32 planes, 1 / thresh for
+    float64 (:func:`~iterative_cleaner_torch.stats.masked_torch.
+    inverse_threshold`)."""
+    if dtype == torch.float64:
+        return float(np.float64(1.0) / np.float64(thresh))
+    return float(np.float32(1.0) / np.float32(thresh))
 
 
 def _require(t, name, dtype, shape):
@@ -270,11 +321,14 @@ def _ptr(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
-def _count(fn, cube) -> None:
-    """One launch of cube kernel ``fn``, counted by the cube's storage:
-    ``fn.launches`` (float32) or ``fn.launches_bf16``."""
-    if cube.dtype == torch.bfloat16:
+def _count(fn, t) -> None:
+    """One launch of kernel ``fn``, counted by the dtype of ``t`` (the
+    cube, or the planes): ``fn.launches`` (float32), ``fn.launches_bf16``
+    or ``fn.launches_f64``."""
+    if t.dtype == torch.bfloat16:
         fn.launches_bf16 += 1
+    elif t.dtype == torch.float64:
+        fn.launches_f64 += 1
     else:
         fn.launches += 1
 
@@ -309,7 +363,8 @@ class MarginalsPlan(NamedTuple):
 
 MARGINALS_THREADS = 256
 MARGINALS_CHANNELS_PER_THREAD = 32
-MARGINALS_STAGES = 3
+MARGINALS_STAGES = 3        # float32 and bf16 cubes
+MARGINALS_STAGES_F64 = 2    # float64 cubes: each stage twice the bytes
 
 
 def marginals_tiles(nsub: int, nchan: int, nbin: int,
@@ -317,23 +372,28 @@ def marginals_tiles(nsub: int, nchan: int, nbin: int,
     """K1's tile plan (``marginals.cu``): whole rows up to 256 bins, the
     bins tiled by 256 above; subint runs sized so that the grid is about
     two waves of two blocks per SM.  ``itemsize``: the cube's element
-    bytes (2 for a bf16 cube: its slabs take half the shared memory)."""
-    _check_nbin(nbin)
+    bytes (2 for a bf16 cube: its slabs take half the shared memory; 8
+    for a float64 one, whose weights and sums are float64 too and whose
+    ring has two stages)."""
+    realsize = 8 if itemsize == 8 else 4
+    _check_nbin(nbin, realsize)
     bb = nbin if nbin <= 256 else 256
     lanes = 1 << (bb - 1).bit_length()
     cb = MARGINALS_THREADS // lanes * MARGINALS_CHANNELS_PER_THREAD
     ntiles = -(-nchan // cb) * -(-nbin // bb)
     nsb = max(1, min(nsub, 4 * sm_count // ntiles))
     sb = -(-nsub // nsb)
-    smem = 32 + 4 * 2 * MARGINALS_THREADS \
-        + MARGINALS_STAGES * (cb * bb * itemsize + 4 * cb)
+    stages = MARGINALS_STAGES_F64 if itemsize == 8 else MARGINALS_STAGES
+    smem = 32 + realsize * 2 * MARGINALS_THREADS \
+        + stages * (cb * bb * itemsize + realsize * cb)
     return MarginalsPlan(sb, cb, bb, lanes, smem)
 
 
 def weighted_marginals_plain(disp, weights):
     """The plain version of K1: :func:`weighted_marginal_totals` of the
-    float32 cube, per archive of a batch."""
-    disp = disp.float()
+    cube as it computes (:func:`upcast_stored`), per archive of a
+    batch."""
+    disp = upcast_stored(disp)
     if disp.dim() == 4:
         return _stack_each(weighted_marginal_totals, disp.shape[0],
                            (disp, True), (weights, True))
@@ -346,19 +406,21 @@ def weighted_marginals(disp, weights):
     on the CPU.  A batch, (B, nsub, nchan, nbin) ``disp`` and (B, nsub,
     nchan) ``weights``, gives (B, nchan, nbin) and (B, nsub, nbin) in one
     launch (grid.z the archive, one archive's plan).  ``disp`` may be
-    bf16-stored (the outputs stay float32)."""
+    bf16-stored (the outputs stay float32) or float64 (the weights and
+    the outputs float64: the float64 build)."""
     if not _on_card(disp, weights):
         return weighted_marginals_plain(disp, weights)
     batched = disp.dim() == 4
     nb = disp.shape[0] if batched else 1
     nsub, nchan, nbin = disp.shape[-3:]
     lead = (nb,) if batched else ()
+    real = real_dtype(disp.dtype)
     _require(disp, "disp", CUBE_DTYPES, lead + (nsub, nchan, nbin))
-    _require(weights, "weights", torch.float32, lead + (nsub, nchan))
+    _require(weights, "weights", real, lead + (nsub, nchan))
     plan = marginals_tiles(nsub, nchan, nbin, _sm_count(str(disp.device)),
                            disp.element_size())
     nsb, ncb = -(-nsub // plan.sb), -(-nchan // plan.cb)
-    kw = dict(dtype=torch.float32, device=disp.device)
+    kw = dict(dtype=real, device=disp.device)
     a_part = torch.empty((nb, nsb, nchan, nbin), **kw)
     t1_part = torch.empty((nb, ncb, nsub, nbin), **kw)
     a = torch.empty(lead + (nchan, nbin), **kw)
@@ -368,8 +430,7 @@ def weighted_marginals(disp, weights):
         rc = lib.icln_weighted_marginals(
             _ptr(disp), _ptr(weights), _ptr(a_part), _ptr(t1_part), _ptr(a),
             _ptr(t1), nb, nsub, nchan, nbin, plan.sb, plan.cb, plan.bb,
-            plan.lanes, int(disp.dtype == torch.bfloat16), plan.smem,
-            _stream(disp))
+            plan.lanes, _KIND[disp.dtype], plan.smem, _stream(disp))
     _count(weighted_marginals, disp)
     _check_rc(rc, "weighted_marginals")
     return a, t1
@@ -377,6 +438,7 @@ def weighted_marginals(disp, weights):
 
 weighted_marginals.launches = 0
 weighted_marginals.launches_bf16 = 0
+weighted_marginals.launches_f64 = 0
 
 
 # --------------------------------------------------------------------------
@@ -427,70 +489,94 @@ class CellStatsPlan(NamedTuple):
 
 
 CELL_WARPS = 20     # cell_stats.cuh's ICLN_CELL_MAX_THREADS / 32
+CELL_WARPS_F64 = 16  # ICLN_CELL_MAX_THREADS_F64 / 32: double accumulators
 
 
 def cell_stats_smem(nbin: int, group: int, kchunk: int, bchunk: int,
-                    itemsize: int = 4) -> int:
+                    itemsize: int = 4, realsize: int = 4) -> int:
     """Bytes of ``cell_stats.cuh``'s shared memory (its
     ``icln_cell_layout``): two mbarriers, the cos and sin table chunks,
-    two buffers of centred rows ``[b][cell]`` (float32), two stage slots
-    of ``group`` rows of ``itemsize``-byte cube elements (none at one
-    cell a group: phase 1 then works in the centred-row buffers), the
-    per-cell maxima, two rows each of weights and mask bytes."""
-    slot = -(-group * nbin * 4 // 16) * 16
+    two buffers of centred rows ``[b][cell]``, two stage slots of
+    ``group`` rows of ``itemsize``-byte cube elements (none at one cell a
+    group: phase 1 then works in the centred-row buffers), the per-cell
+    maxima, two rows each of weights and mask bytes; the tables, rows,
+    maxima and weights of the ``realsize``-byte arithmetic type (8 for a
+    float64 cube)."""
+    slot = -(-group * nbin * realsize // 16) * 16
     stage = -(-group * nbin * itemsize // 16) * 16
     stages = 0 if group == 1 else 2 * stage
-    return 16 + 2 * bchunk * kchunk * 4 + 2 * slot + stages + 14 * group
+    return (16 + 2 * bchunk * kchunk * realsize + 2 * slot + stages
+            + (3 * realsize + 2) * group)
 
 
-def cell_stats_geometry(nbin: int, itemsize: int = 4):
-    """The :class:`CellStatsPlan` of K2, K6, K7 and K10 at ``nbin``.
+def cell_stats_plans(nbin: int, itemsize: int = 4):
+    """Every :class:`CellStatsPlan` of K2, K6, K7 and K10 at ``nbin``
+    whose shared memory fits a block, each with its estimated time per
+    cell, as ``(cost, plan)`` in :func:`cell_stats_geometry`'s order.
 
     A block of ``CELL_WARPS`` warps: the consumers (phase 2) hold at
     most one tile (``ctile`` cells x 4 columns) each per table chunk and
     one cell each for the final write; the rest are producers (phase 1,
-    one warp per cell).  Among the plans whose shared memory fits a
-    block, the one with the least estimated time per cell: the larger of
-    the consumers' DFT issue slots (chunks x rows x the 3 shared loads
-    and 8 * ctile FMAs of a row, per busy warp, over at most 4
-    schedulers) and the producers' latency (about 1000 clocks a cell per
-    warp), a fifth of the other, and the table refills of a chunked
-    plan.  ``itemsize``: the cube's element bytes (2 for bf16, whose
-    stage slots are half the size); the planes do not depend on the
-    plan."""
-    _check_nbin(nbin)
+    one warp per cell).  The estimate: the larger of the consumers' DFT
+    issue slots (chunks x rows x the 3 shared loads and 8 * ctile FMAs of
+    a row, per busy warp, over at most 4 schedulers) and the producers'
+    latency (about 1000 clocks a cell per warp), a fifth of the other,
+    and the table refills of a chunked plan (2000 clocks a chunk).
+    ``itemsize``: the cube's element bytes (2 for bf16, whose stage slots
+    are half the size; 8 for float64, whose arithmetic, tables and rows
+    are float64 too and whose block has CELL_WARPS_F64 warps).  For
+    float64 a row's loads take twice the slots (two 16-byte words per
+    four values) and its FMAs twice (DFMA at half the FFMA rate), and a
+    refill 250 clocks: the constants that pick the fastest or a plan
+    within 10% of it at nbin 64, 128, 256 and 512 among every plan timed
+    on one H100 (``tools/time_cell_stats.py --f64-plans``; PERF.md)."""
+    realsize = 8 if itemsize == 8 else 4
+    warps = CELL_WARPS_F64 if realsize == 8 else CELL_WARPS
+    wide = realsize // 4          # 2 for float64: twice the load/FMA slots
+    refill_clocks = 250 if realsize == 8 else 2000
+    _check_nbin(nbin, realsize)
     nk = nbin // 2 + 1
     nkp = -(-nk // 4) * 4
     ktiles = nkp // 4
-    best = None
     for ctile in (4, 1):
-        for group in range(ctile, 32 * (CELL_WARPS - 8) + 1, ctile):
+        for group in range(ctile, 32 * (warps - 8) + 1, ctile):
             ct = group // ctile
-            per = min(ktiles, 32 * (CELL_WARPS - 8) // ct)
+            per = min(ktiles, 32 * (warps - 8) // ct)
             if per == 0:
                 break
             nkc = -(-ktiles // per)
             per = -(-ktiles // nkc)
             consumers = -(-max(ct * per, group) // 32)
-            producers = CELL_WARPS - consumers
+            producers = warps - consumers
             kchunk = 4 * per
             room = _SMEM_LIMIT - cell_stats_smem(nbin, group, kchunk, 0,
-                                                 itemsize)
-            bchunk = min(nbin, room // (8 * kchunk)) if room > 0 else 0
+                                                 itemsize, realsize)
+            bchunk = min(nbin, room // (2 * realsize * kchunk)) \
+                if room > 0 else 0
             if bchunk < 1:
                 continue
             nbc = -(-nbin // bchunk)
-            dft = (-(-ct * per // 32) * nkc * nbin * (3 + 8 * ctile)
+            dft = (-(-ct * per // 32) * nkc * nbin * wide * (3 + 8 * ctile)
                    / min(4, consumers))
             phase1 = -(-group // producers) * 1000
             refill = (0 if nkc == nbc == 1
-                      else nkc * nbc * 2000 + 8 * nbin * nkp // (32 * consumers))
+                      else nkc * nbc * refill_clocks
+                      + 8 * nbin * nkp // (32 * consumers))
             cost = (max(dft, phase1) + min(dft, phase1) / 5 + refill) / group
-            if best is None or cost < best[0]:
-                smem = cell_stats_smem(nbin, group, kchunk, bchunk,
-                                       itemsize)
-                best = (cost, CellStatsPlan(group, ctile, kchunk, bchunk, nkp,
-                                            producers, 32 * CELL_WARPS, smem))
+            smem = cell_stats_smem(nbin, group, kchunk, bchunk, itemsize,
+                                   realsize)
+            yield cost, CellStatsPlan(group, ctile, kchunk, bchunk, nkp,
+                                      producers, 32 * warps, smem)
+
+
+def cell_stats_geometry(nbin: int, itemsize: int = 4):
+    """The :class:`CellStatsPlan` of K2, K6, K7 and K10 at ``nbin``: of
+    :func:`cell_stats_plans`, the first with the least estimated time
+    per cell.  The planes do not depend on the plan."""
+    best = None
+    for cost, plan in cell_stats_plans(nbin, itemsize):
+        if best is None or cost < best[0]:
+            best = (cost, plan)
     if best is None:
         raise NotImplementedError(
             f"nbin {nbin}: no cell-diagnostics plan fits a block")
@@ -498,13 +584,15 @@ def cell_stats_geometry(nbin: int, itemsize: int = 4):
 
 
 @functools.lru_cache(maxsize=8)
-def _dft_tables_padded(nbin: int, nkp: int, device: str):
+def _dft_tables_padded(nbin: int, nkp: int, device: str,
+                       dtype=torch.float32):
     """The (nbin, nkp) cos/sin tables the kernels read: ``dft_tables``
-    with zero columns past nbin/2 + 1 (|X|^2 = 0 there, which never wins
-    the max; a row holding NaN or inf is NaN in a real column too)."""
+    at the arithmetic ``dtype`` (float64 for the float64 builds) with
+    zero columns past nbin/2 + 1 (|X|^2 = 0 there, which never wins the
+    max; a row holding NaN or inf is NaN in a real column too)."""
     out = []
-    for t in dft_tables(nbin, torch.float32, torch.device(device)):
-        pad = torch.zeros((nbin, nkp), dtype=torch.float32, device=device)
+    for t in dft_tables(nbin, dtype, torch.device(device)):
+        pad = torch.zeros((nbin, nkp), dtype=dtype, device=device)
         pad[:, : t.shape[1]] = t
         out.append(pad)
     return tuple(out)
@@ -517,10 +605,11 @@ def _sm_count(device: str) -> int:
 
 def cell_diagnostics_disp_plain(disp, rot_t, nyq_row, template, weights,
                                 cell_mask):
-    """The plain version of K2: :func:`wres_disp` of the float32 cube,
-    then :func:`~iterative_cleaner_torch.stats.masked_torch.
-    cell_diagnostics` with the DFT (per archive of a batch)."""
-    disp = disp.float()
+    """The plain version of K2: :func:`wres_disp` of the cube as it
+    computes (:func:`upcast_stored`), then :func:`~iterative_cleaner_torch.
+    stats.masked_torch.cell_diagnostics` with the DFT (per archive of a
+    batch)."""
+    disp = upcast_stored(disp)
     if disp.dim() == 4:
         return _stack_each(cell_diagnostics_disp_plain, disp.shape[0],
                            (disp, True), (rot_t, True), (nyq_row, True),
@@ -551,28 +640,30 @@ def _launch_cell_stats(entry, cube, template, weights, cell_mask, cubes,
     order.  A batch (K2, K6, K7) has a leading dimension B on the cubes,
     the channel rows, the template, the weights and the mask (not on
     ``bin_rows``: the pulse window is shared) and is one launch over its
-    B * nsub * nchan cells.  The cubes are float32 or all bf16-stored.
-    ``out`` is an optional 4-tuple of contiguous planes of the weights'
-    shape the kernel writes (a tile's rows of the full planes).  Returns
-    the entry's return code and the four planes."""
+    B * nsub * nchan cells.  The cubes are all float32, all bf16-stored
+    or all float64 (every other float operand float64 then, else
+    float32).  ``out`` is an optional 4-tuple of contiguous planes of the
+    weights' shape the kernel writes (a tile's rows of the full planes).
+    Returns the entry's return code and the four planes."""
     batched = cube.dim() == 4
     lead = cube.shape[:1] if batched else ()
     nsub, nchan, nbin = cube.shape[-3:]
     for name, t in cubes:
         _require(t, name, cube.dtype if cube.dtype in CUBE_DTYPES
                  else CUBE_DTYPES, lead + (nsub, nchan, nbin))
+    real = real_dtype(cube.dtype)
     for name, t in chan_rows:
-        _require(t, name, torch.float32, lead + (nchan, nbin))
+        _require(t, name, real, lead + (nchan, nbin))
     for name, t in bin_rows:
-        _require(t, name, torch.float32, (nbin,))
-    _require(template, "template", torch.float32, lead + (nbin,))
-    _require(weights, "weights", torch.float32, lead + (nsub, nchan))
+        _require(t, name, real, (nbin,))
+    _require(template, "template", real, lead + (nbin,))
+    _require(weights, "weights", real, lead + (nsub, nchan))
     _require(cell_mask, "cell_mask", torch.bool, lead + (nsub, nchan))
     plan = cell_stats_geometry(nbin, cube.element_size())
     info = tt_info(template)
-    cos_t, sin_t = _dft_tables_padded(nbin, plan.nkp, str(cube.device))
+    cos_t, sin_t = _dft_tables_padded(nbin, plan.nkp, str(cube.device), real)
     if out is None:
-        outs = [torch.empty(lead + (nsub, nchan), dtype=torch.float32,
+        outs = [torch.empty(lead + (nsub, nchan), dtype=real,
                             device=cube.device) for _ in range(4)]
     else:
         outs = list(out)
@@ -580,21 +671,22 @@ def _launch_cell_stats(entry, cube, template, weights, cell_mask, cubes,
             if o.device != cube.device:
                 raise ValueError(f"out[{i}] on {o.device}, cube on "
                                  f"{cube.device}")
-            _require(o, f"out[{i}]", torch.float32, lead + (nsub, nchan))
+            _require(o, f"out[{i}]", real, lead + (nsub, nchan))
     cpa = nsub * nchan
     ncells = weights.numel()
     per_sm = max(1, min(2048 // plan.threads,
                         (_SMEM_LIMIT + 1024) // (plan.smem + 1024)))
     grid = max(1, min(-(-ncells // plan.group),
                       per_sm * _sm_count(str(cube.device))))
-    inv_n = float(np.float32(1.0 / nbin))
+    inv_n = 1.0 / nbin if real == torch.float64 \
+        else float(np.float32(1.0 / nbin))
     fn = getattr(load_library(), entry)
     with torch.cuda.device(cube.device):
         rc = fn(*ptrs, _ptr(cos_t), _ptr(sin_t), _ptr(info),
                 *(_ptr(o) for o in outs), ncells, cpa, nchan, nbin,
                 plan.group, plan.ctile, plan.kchunk, plan.bchunk, plan.nkp,
                 plan.producers, plan.threads, grid, plan.smem, inv_n,
-                int(cube.dtype == torch.bfloat16), _stream(cube))
+                _KIND[cube.dtype], _stream(cube))
     return rc, tuple(outs)
 
 
@@ -622,6 +714,7 @@ def cell_diagnostics_disp(disp, rot_t, nyq_row, template, weights,
 
 cell_diagnostics_disp.launches = 0
 cell_diagnostics_disp.launches_bf16 = 0
+cell_diagnostics_disp.launches_f64 = 0
 
 
 # --------------------------------------------------------------------------
@@ -642,8 +735,9 @@ def cell_diagnostics_two_read_plain(ded, disp_base, rot_t, template,
                                     weights, cell_mask):
     """The plain version of K7: :func:`wres_two_read`, then
     :func:`~iterative_cleaner_torch.stats.masked_torch.cell_diagnostics`
-    with the DFT (per archive of a batch), the cubes read as float32."""
-    ded, disp_base = ded.float(), disp_base.float()
+    with the DFT (per archive of a batch), the cubes read as they compute
+    (:func:`upcast_stored`)."""
+    ded, disp_base = upcast_stored(ded), upcast_stored(disp_base)
     if ded.dim() == 4:
         return _stack_each(cell_diagnostics_two_read_plain, ded.shape[0],
                            (ded, True), (disp_base, True), (rot_t, True),
@@ -675,6 +769,7 @@ def cell_diagnostics_two_read(ded, disp_base, rot_t, template, weights,
 
 cell_diagnostics_two_read.launches = 0
 cell_diagnostics_two_read.launches_bf16 = 0
+cell_diagnostics_two_read.launches_f64 = 0
 
 
 # --------------------------------------------------------------------------
@@ -694,8 +789,8 @@ def cell_diagnostics_dedisp_plain(ded, template, window, weights,
     """The plain version of K6: :func:`wres_dedisp`, then
     :func:`~iterative_cleaner_torch.stats.masked_torch.cell_diagnostics`
     with the DFT (per archive of a batch; the window shared), the cube
-    read as float32."""
-    ded = ded.float()
+    read as it computes (:func:`upcast_stored`)."""
+    ded = upcast_stored(ded)
     if ded.dim() == 4:
         return _stack_each(cell_diagnostics_dedisp_plain, ded.shape[0],
                            (ded, True), (template, True), (window, False),
@@ -727,11 +822,21 @@ def cell_diagnostics_dedisp(ded, template, window, weights, cell_mask,
 
 cell_diagnostics_dedisp.launches = 0
 cell_diagnostics_dedisp.launches_bf16 = 0
+cell_diagnostics_dedisp.launches_f64 = 0
 
 
 # --------------------------------------------------------------------------
 # K10: one rank's shard of the cell-sharded clean (K2's and K6's values)
 # --------------------------------------------------------------------------
+
+def _shard_dtype(cube) -> None:
+    """K10 takes float32 and bf16 blocks; its float64 build is ROADMAP
+    item 1b."""
+    if cube.dtype == torch.float64:
+        raise NotImplementedError(
+            "K10 on a float64 block: ROADMAP.md 'Modules still to port' "
+            "item 1b (float64 on a mesh and in a batch)")
+
 
 def shard_diagnostics_disp(disp, rot_t, nyq_row, template, weights,
                            cell_mask):
@@ -743,6 +848,7 @@ def shard_diagnostics_disp(disp, rot_t, nyq_row, template, weights,
     if not _on_card(disp, rot_t, template, weights, cell_mask):
         return cell_diagnostics_disp_plain(disp, rot_t, nyq_row, template,
                                            weights, cell_mask)
+    _shard_dtype(disp)
     rows = [("rot_t", rot_t)] + ([] if nyq_row is None
                                  else [("nyq_row", nyq_row)])
     rc, outs = _launch_cell_stats(
@@ -766,6 +872,7 @@ def shard_diagnostics_dedisp(ded, template, window, weights, cell_mask):
     if not _on_card(ded, template, window, weights, cell_mask):
         return cell_diagnostics_dedisp_plain(ded, template, window, weights,
                                              cell_mask)
+    _shard_dtype(ded)
     rc, outs = _launch_cell_stats(
         "icln_shard_stats_dedisp", ded, template, weights, cell_mask,
         [("ded", ded)], [], [("window", window)],
@@ -784,28 +891,40 @@ shard_diagnostics_dedisp.launches_bf16 = 0
 # K3: scaled sides, one orientation
 # --------------------------------------------------------------------------
 
-_KEY_MASKED = 0x7F800000
+_KEY_MASKED = 0x7F800000            # the key of +inf as a float32
+_KEY64_MASKED = 0x7FF0000000000000   # the key of +inf as a float64
+# value dtype: (key dtype, sign shift, magnitude mask, masked key)
+_KEYS = {torch.float32: (torch.int32, 31, 0x7FFFFFFF, _KEY_MASKED),
+         torch.float64: (torch.int64, 63, 0x7FFFFFFFFFFFFFFF,
+                         _KEY64_MASKED)}
+_VALUES = {torch.int32: torch.float32, torch.int64: torch.float64}
 
 
 def ordered_key(x):
-    """float32 -> int32 keys whose signed order is the float order (NaN
-    above +inf): the reference's ``_ordered_key``."""
-    b = x.contiguous().view(torch.int32)
-    return b ^ ((b >> 31) & 0x7FFFFFFF)
+    """float32 -> int32 (float64 -> int64) keys whose signed order is the
+    float order, NaN above +inf and -0 below +0: the reference's
+    ``_ordered_key``, and its 64-bit counterpart for float64."""
+    kdt, sh, mag, _ = _KEYS[x.dtype]
+    b = x.contiguous().view(kdt)
+    return b ^ ((b >> sh) & mag)
 
 
 def key_to_float(k):
-    """Inverse of :func:`ordered_key` (the map is an involution)."""
-    return (k ^ ((k >> 31) & 0x7FFFFFFF)).view(torch.float32)
+    """Inverse of :func:`ordered_key` (the map is an involution): int32
+    keys to float32, int64 keys to float64."""
+    vdt = _VALUES[k.dtype]
+    _, sh, mag, _ = _KEYS[vdt]
+    return (k ^ ((k >> sh) & mag)).view(vdt)
 
 
 def masked_median_keys(values, mask, dim):
     """Median of the unmasked entries along ``dim`` (keepdims) by exact
-    order statistics of the ordered keys — what the kernel's bisection
+    order statistics of the ordered keys — what the kernel's radix
     select computes: keys of masked entries are +inf's, ``k_lo =
     (n-1)//2``, ``k_hi = n//2``, ``0.5*(lo+hi)``, 0.0 on an empty line.
     Returns ``(median, n_valid)``."""
-    keys = torch.where(mask, torch.full_like(ordered_key(values), _KEY_MASKED),
+    keys = torch.where(mask, torch.full_like(ordered_key(values),
+                                             _KEYS[values.dtype][3]),
                        ordered_key(values))
     ordered = torch.sort(keys, dim=dim).values
     n = torch.sum(~mask, dim=dim, keepdim=True)
@@ -837,10 +956,23 @@ def _select_threads(entries: int) -> int:
 
 
 def _key_stride(n: int) -> int:
-    """Shared-memory int32 keys a line of ``n`` takes (common.cuh's
+    """Shared-memory keys a line of ``n`` takes (common.cuh's
     ``icln_key_stride``): ``n`` rounded up to 32, plus 4, so that rows stay
-    16-byte aligned and adjacent lines start 4 banks apart."""
+    16-byte aligned and adjacent lines start 4 (int32 keys) or 8 (int64)
+    banks apart."""
     return -(-n // 32) * 32 + 4
+
+
+def _key_bytes(dtype) -> int:
+    """Bytes of a select's key: 4 for float32 values, 8 for float64."""
+    return 8 if dtype == torch.float64 else 4
+
+
+def _select_static_smem(key_bytes: int) -> int:
+    """Static shared memory of a block-select kernel: SELECT_STATIC_SMEM
+    for 32-bit keys; twice that for 64-bit ones (the select's state holds
+    three 8-byte words a line: 1,376 bytes with K3's per-line flags)."""
+    return SELECT_STATIC_SMEM * (2 if key_bytes == 8 else 1)
 
 
 class MedianPlan(NamedTuple):
@@ -857,29 +989,47 @@ class MedianPlan(NamedTuple):
     smem: int
 
 
-def masked_median_geometry(n: int, dim: int = 1) -> MedianPlan:
+def masked_median_geometry(n: int, dim: int = 1,
+                           key_bytes: int = 4) -> MedianPlan:
     """K9's :class:`MedianPlan` on lines of ``n`` entries along ``dim``:
     the block route where a line has at most MEDIAN_BLOCK_ENTRIES (8
     lines a block along dim 0, whose lines are columns: a warp then reads
-    32-byte row segments; 1 along dim 1), else the grid route with as few
-    blocks a line as hold MEDIAN_BLOCK_ENTRIES each, the entries shared out
-    evenly."""
+    32-byte row segments; 1 along dim 1; with the 8-byte keys of float64
+    values the most of 8, 4, 2 lines whose keys fit), else the grid route
+    with as few blocks a line as hold MEDIAN_BLOCK_ENTRIES each, the
+    entries shared out evenly."""
     bpl = max(1, -(-n // MEDIAN_BLOCK_ENTRIES))
     if bpl > 1:
         return MedianPlan("grid", -(-n // bpl), bpl, 1, 256, 0)
-    lines = 8 if dim == 0 else 1
-    smem = 4 * lines * (_key_stride(n) + 256)
-    return MedianPlan("block", n, 1, lines, _select_threads(lines * n), smem)
+    room = _SMEM_LIMIT - _select_static_smem(key_bytes)
+    for lines in ((8, 4, 2, 1) if dim == 0 else (1,)):
+        smem = lines * (key_bytes * _key_stride(n) + 4 * 256)
+        if smem <= room:
+            return MedianPlan("block", n, 1, lines,
+                              _select_threads(lines * n), smem)
+    raise ValueError(f"masked_median: lines of {n} do not fit a block")
+
+
+def _median_scratch_ints(nlines: int, key_bytes: int) -> int:
+    """int32 entries of K9's grid-route scratch (the layout
+    ``icln_masked_median_t`` in masked_median.cu cuts it into): 256 bins,
+    the valid count, the ticket and the rank left (int32) a line, then the
+    least key above the bucket and the prefix in the keys' width, 8-byte
+    aligned."""
+    kw = key_bytes // 4
+    return -(-nlines * 259 // kw) * kw + 2 * kw * nlines
 
 
 def masked_median(values, mask, dim):
-    """``np.ma.median`` of the float32 ``values`` along ``dim`` (0 or
-    1, keepdims) over the entries whose bool ``mask`` is False; 0.0 on a
-    line with no valid entry.  Kernel K9 on the card,
-    ``masked_median_keys(values, mask, dim)[0]`` on the CPU; bit-equal to
-    the reference's ``masked_median_pallas``."""
-    if values.dtype != torch.float32:
-        raise TypeError(f"masked_median requires float32, got {values.dtype}")
+    """``np.ma.median`` of the float32 (or float64) ``values`` along
+    ``dim`` (0 or 1, keepdims) over the entries whose bool ``mask`` is
+    False; 0.0 on a line with no valid entry.  Kernel K9 on the card (its
+    float64 build on float64 values), ``masked_median_keys(values, mask,
+    dim)[0]`` on the CPU; bit-equal to the reference's
+    ``masked_median_pallas`` on float32 values."""
+    if values.dtype not in REAL_DTYPES:
+        raise TypeError(f"masked_median requires float32 or float64, got "
+                        f"{values.dtype}")
     if dim not in (0, 1):
         raise ValueError("dim must be 0 or 1 for 2-D values")
     if values.dim() != 2:
@@ -887,41 +1037,47 @@ def masked_median(values, mask, dim):
     if not _on_card(values, mask):
         return masked_median_keys(values, mask, dim)[0]
     nrow, ncol = values.shape
-    _require(values, "values", torch.float32, (nrow, ncol))
+    _require(values, "values", values.dtype, (nrow, ncol))
     _require(mask, "mask", torch.bool, (nrow, ncol))
+    kw = dict(dtype=values.dtype, device=values.device)
     if dim == 0:
         n, nlines, line_stride, elem_stride = nrow, ncol, 1, ncol
-        out = torch.empty((1, ncol), dtype=torch.float32, device=values.device)
+        out = torch.empty((1, ncol), **kw)
     else:
         n, nlines, line_stride, elem_stride = ncol, nrow, ncol, 1
-        out = torch.empty((nrow, 1), dtype=torch.float32, device=values.device)
+        out = torch.empty((nrow, 1), **kw)
     if n == 0 or nlines == 0:
         raise ValueError(f"masked_median of an empty line set "
                          f"{tuple(values.shape)} along dim {dim}")
-    plan = masked_median_geometry(n, dim)
+    key_bytes = _key_bytes(values.dtype)
+    plan = masked_median_geometry(n, dim, key_bytes)
     # the grid route's 256 histogram bins and five per-line states (see
     # masked_median.cu); the block route needs none
-    scratch = torch.empty((nlines * 261 if plan.route == "grid" else 1,),
-                          dtype=torch.int32, device=values.device)
+    scratch = torch.empty(
+        (_median_scratch_ints(nlines, key_bytes) if plan.route == "grid"
+         else 1,), dtype=torch.int32, device=values.device)
     lib = load_library()
     with torch.cuda.device(values.device):
         rc = lib.icln_masked_median(
             _ptr(values), _ptr(mask), _ptr(out), _ptr(scratch), n, nlines,
             line_stride, elem_stride, plan.chunk, plan.bpl, plan.lines,
-            plan.threads, plan.smem, _stream(values))
-    masked_median.launches += 1
+            plan.threads, plan.smem, int(values.dtype == torch.float64),
+            _stream(values))
+    _count(masked_median, values)
     _check_rc(rc, "masked_median")
     return out
 
 
 masked_median.launches = 0
+masked_median.launches_f64 = 0
 
 
 def scaled_sides_plain(diagnostics, cell_mask, axis, thresh):
     """The plain version of K3 (the reference's ``_scaled_sides_body``
     along ``axis``): masked median -> centring -> MAD -> ``_masked_side``
     for the three masked diagnostics; the plain NaN-patched path for the
-    rFFT one.  Per archive of a batch of (B, nsub, nchan) planes."""
+    rFFT one.  Per archive of a batch of (B, nsub, nchan) planes; float32
+    or float64 planes, in their dtype."""
     if cell_mask.dim() == 3:
         return _stack_each(
             lambda *a: scaled_sides_plain(a[:4], a[4], axis, thresh),
@@ -960,19 +1116,22 @@ class SidesPlan(NamedTuple):
     smem: int
 
 
-def scaled_sides_smem(n: int, diags: int, lines: int) -> int:
+def scaled_sides_smem(n: int, diags: int, lines: int,
+                      key_bytes: int = 4) -> int:
     """Bytes of K3's dynamic shared memory: ``lines * diags`` lines of
-    int32 keys and 256 int32 bins each, and each line's mask as bits."""
-    return 4 * (lines * diags * (_key_stride(n) + 256)
-                + lines * -(-n // 32))
+    keys (int32 for float32 planes, int64 for float64) and 256 int32
+    bins each, and each line's mask as bits."""
+    return (key_bytes * lines * diags * _key_stride(n)
+            + 4 * (lines * diags * 256 + lines * -(-n // 32)))
 
 
-def _sides_fits(n: int, diags: int, lines: int) -> bool:
-    return (scaled_sides_smem(n, diags, lines) + SELECT_STATIC_SMEM
-            <= _SMEM_LIMIT)
+def _sides_fits(n: int, diags: int, lines: int, key_bytes: int = 4) -> bool:
+    return (scaled_sides_smem(n, diags, lines, key_bytes)
+            + _select_static_smem(key_bytes) <= _SMEM_LIMIT)
 
 
-def scaled_sides_geometry(n: int, axis: int) -> SidesPlan:
+def scaled_sides_geometry(n: int, axis: int,
+                          key_bytes: int = 4) -> SidesPlan:
     """K3's :class:`SidesPlan` on lines of ``n`` entries along ``axis``:
     the most lines a block that fit — along axis 0 (a line is a column of
     the row-major plane) up to 8, so that a warp reads 32-byte row
@@ -982,12 +1141,14 @@ def scaled_sides_geometry(n: int, axis: int) -> SidesPlan:
     subints 8 columns x 2 diagnostics take 0.49 ms against 0.59 for 4 x 4,
     at 4096 8 x 1 take 0.97 ms against 1.19 for 4 x 2 and 1.49 for 2 x 4
     (``tools/time_cell_stats.py --k3-plans``, H100 80GB HBM3 at 700 W).
+    ``key_bytes`` 8: float64 planes, whose keys take twice the room.
     Every block line of :func:`scaled_sides_route` has a plan."""
     for lines in ((8, 4, 2, 1) if axis == 0 else (1,)):
         for diags in (4, 2, 1):
-            if _sides_fits(n, diags, lines):
+            if _sides_fits(n, diags, lines, key_bytes):
                 return SidesPlan(lines, diags, _select_threads(lines * n),
-                                 scaled_sides_smem(n, diags, lines))
+                                 scaled_sides_smem(n, diags, lines,
+                                                   key_bytes))
     raise ValueError(f"scaled_sides: lines of {n} entries do not fit a "
                      f"block (scaled_sides_route takes them long)")
 
@@ -996,12 +1157,19 @@ def scaled_sides_geometry(n: int, axis: int) -> SidesPlan:
 # scaled_sides_long.  The boundary is kept where the port has always drawn
 # it, so that no shape changes route.
 LONGEST_BLOCK_LINE = 46486
+# The same for float64 planes: the longest line whose 8-byte keys, bins,
+# mask bits and the select's static state fit one block (one line, one
+# diagnostic at a time).
+LONGEST_BLOCK_LINE_F64 = 28224
 
 
-def scaled_sides_route(n: int) -> str:
+def scaled_sides_route(n: int, dtype=torch.float32) -> str:
     """``"block"`` where K3 takes a line of ``n`` entries in one block
-    (n up to LONGEST_BLOCK_LINE), ``"long"`` above."""
-    return "block" if n <= LONGEST_BLOCK_LINE else "long"
+    (n up to LONGEST_BLOCK_LINE, LONGEST_BLOCK_LINE_F64 for float64
+    planes), ``"long"`` above."""
+    longest = LONGEST_BLOCK_LINE_F64 if dtype == torch.float64 \
+        else LONGEST_BLOCK_LINE
+    return "block" if n <= longest else "long"
 
 
 def _line_dims(plane, axis):
@@ -1031,9 +1199,10 @@ def side_centre(d, mask, med, axis, masked):
     if not _on_card(d, mask, med):
         return side_centre_plain(d, mask, med, axis, masked)
     shape = tuple(d.shape)
-    _require(d, "d", torch.float32, shape)
+    real = _real_of(d, med)
+    _require(d, "d", real, shape)
     _require(mask, "mask", torch.bool, shape)
-    _require(med, "med", torch.float32, _line_dims(d, axis))
+    _require(med, "med", real, _line_dims(d, axis))
     centred, absc = torch.empty_like(d), torch.empty_like(d)
     flags = None if masked else torch.zeros(_line_dims(d, axis),
                                             dtype=torch.int32,
@@ -1043,18 +1212,20 @@ def side_centre(d, mask, med, axis, masked):
         rc = lib.icln_side_centre(
             _ptr(d), _ptr(mask), _ptr(med), _ptr(centred), _ptr(absc),
             None if masked else _ptr(flags), d.numel(), shape[1], axis,
-            int(masked), _stream(d))
-    side_centre.launches += 1
+            int(masked), int(real == torch.float64), _stream(d))
+    _count(side_centre, d)
     _check_rc(rc, "side_centre")
     return centred, absc, flags
 
 
 side_centre.launches = 0
+side_centre.launches_f64 = 0
 
 
 def side_scale_plain(centred, mask, mad, flags, axis, thresh, masked):
     """The plain version of :func:`side_scale`: ``_masked_side``, or the
-    NaN-patched ``|c / mad| * float32(1/thresh)``."""
+    NaN-patched ``|c / mad| * (1/thresh)`` (its reciprocal in the planes'
+    dtype)."""
     if masked:
         n = torch.sum(~mask, dim=axis, keepdim=True)
         return _masked_side(centred, mad, mask, n, thresh)
@@ -1072,25 +1243,27 @@ def side_scale(centred, mask, mad, flags, axis, thresh, masked):
         return side_scale_plain(centred, mask, mad, flags, axis, thresh,
                                 masked)
     shape = tuple(centred.shape)
-    _require(centred, "centred", torch.float32, shape)
+    real = _real_of(centred, mad)
+    _require(centred, "centred", real, shape)
     _require(mask, "mask", torch.bool, shape)
-    _require(mad, "mad", torch.float32, _line_dims(centred, axis))
+    _require(mad, "mad", real, _line_dims(centred, axis))
     if not masked:
         _require(flags, "flags", torch.int32, _line_dims(centred, axis))
     out = torch.empty_like(centred)
-    inv_t = float(np.float32(1.0) / np.float32(thresh))
     lib = load_library()
     with torch.cuda.device(centred.device):
         rc = lib.icln_side_scale(
             _ptr(centred), _ptr(mask), _ptr(mad),
             None if masked else _ptr(flags), _ptr(out), centred.numel(),
-            shape[1], axis, int(masked), inv_t, _stream(centred))
-    side_scale.launches += 1
+            shape[1], axis, int(masked), _inv_thresh(thresh, real),
+            int(real == torch.float64), _stream(centred))
+    _count(side_scale, centred)
     _check_rc(rc, "side_scale")
     return out
 
 
 side_scale.launches = 0
+side_scale.launches_f64 = 0
 
 
 def scaled_sides_long(diagnostics, cell_mask, axis, thresh):
@@ -1134,17 +1307,18 @@ def scaled_sides(diagnostics, cell_mask, axis, thresh):
     nb = cell_mask.shape[0] if batched else 1
     nsub, nchan = cell_mask.shape[-2:]
     lead = (nb,) if batched else ()
+    real = _real_of(*diagnostics)
     for i, d in enumerate(diagnostics):
-        _require(d, f"diagnostics[{i}]", torch.float32, lead + (nsub, nchan))
+        _require(d, f"diagnostics[{i}]", real, lead + (nsub, nchan))
     _require(cell_mask, "cell_mask", torch.bool, lead + (nsub, nchan))
     n = nsub if axis == 0 else nchan
-    if scaled_sides_route(n) == "long":
+    if scaled_sides_route(n, real) == "long":
         if not batched:
             return scaled_sides_long(diagnostics, cell_mask, axis, thresh)
         return _stack_each(
             lambda *a: scaled_sides_long(a[:4], a[4], axis, thresh), nb,
             *((d, True) for d in diagnostics), (cell_mask, True))
-    plan = scaled_sides_geometry(n, axis)
+    plan = scaled_sides_geometry(n, axis, _key_bytes(real))
     # lpa lines an archive, archive_stride elements apart (K3's stride)
     if axis == 0:
         nlines, line_stride, elem_stride = nb * nchan, 1, nchan
@@ -1152,22 +1326,25 @@ def scaled_sides(diagnostics, cell_mask, axis, thresh):
     else:
         nlines, line_stride, elem_stride = nb * nsub, nchan, 1
         lpa, archive_stride = nlines, 0
-    inv_t = float(np.float32(1.0) / np.float32(thresh))
     outs = [torch.empty_like(diagnostics[0]) for _ in range(4)]
     lib = load_library()
     with torch.cuda.device(cell_mask.device):
         rc = lib.icln_scaled_sides(
             *(_ptr(d) for d in diagnostics), _ptr(cell_mask),
             *(_ptr(o) for o in outs), n, nlines, line_stride, elem_stride,
-            lpa, archive_stride, inv_t, plan.lines, plan.diags, plan.threads,
-            plan.smem,
+            lpa, archive_stride, _inv_thresh(thresh, real), plan.lines,
+            plan.diags, plan.threads, plan.smem, int(real == torch.float64),
             _stream(cell_mask))
-    scaled_sides.launches[axis] += 1
+    if real == torch.float64:
+        scaled_sides.launches_f64[axis] += 1
+    else:
+        scaled_sides.launches[axis] += 1
     _check_rc(rc, f"scaled_sides(axis={axis})")
     return tuple(outs)
 
 
 scaled_sides.launches = [0, 0]
+scaled_sides.launches_f64 = [0, 0]
 
 
 # --------------------------------------------------------------------------
@@ -1177,7 +1354,7 @@ scaled_sides.launches = [0, 0]
 def median4_keys(a, b, c, d):
     """``np.median`` of four planes elementwise, as the reference's
     ``_median4``: min/max network on ordered keys, ``lo*0.5 + hi*0.5``,
-    NaN wherever any input is NaN."""
+    NaN wherever any input is NaN; float32 or float64 planes."""
     any_nan = torch.isnan(a) | torch.isnan(b) | torch.isnan(c) | torch.isnan(d)
     ka, kb, kc, kd = (ordered_key(v) for v in (a, b, c, d))
     x = torch.maximum(torch.minimum(ka, kb), torch.minimum(kc, kd))
@@ -1204,8 +1381,9 @@ def combine_zap(chan_sides, sub_sides, orig_weights):
     if not _on_card(*chan_sides, *sub_sides, orig_weights):
         return combine_zap_plain(chan_sides, sub_sides, orig_weights)
     shape = tuple(orig_weights.shape)
+    real = _real_of(*chan_sides, *sub_sides, orig_weights)
     for i, p in enumerate((*chan_sides, *sub_sides, orig_weights)):
-        _require(p, f"plane {i}", torch.float32, shape)
+        _require(p, f"plane {i}", real, shape)
     new_w = torch.empty_like(orig_weights)
     scores = torch.empty_like(orig_weights)
     lib = load_library()
@@ -1213,13 +1391,15 @@ def combine_zap(chan_sides, sub_sides, orig_weights):
         rc = lib.icln_combine_zap(
             *(_ptr(p) for p in chan_sides), *(_ptr(p) for p in sub_sides),
             _ptr(orig_weights), _ptr(new_w), _ptr(scores),
-            orig_weights.numel(), _stream(orig_weights))
-    combine_zap.launches += 1
+            orig_weights.numel(), int(real == torch.float64),
+            _stream(orig_weights))
+    _count(combine_zap, orig_weights)
     _check_rc(rc, "combine_zap")
     return new_w, scores
 
 
 combine_zap.launches = 0
+combine_zap.launches_f64 = 0
 
 
 # --------------------------------------------------------------------------
@@ -1251,11 +1431,13 @@ def fused_combine(diagnostics, cell_mask, orig_weights, chanthresh,
     chan = scaled_sides(diagnostics, cell_mask, 0, chanthresh)
     sub = scaled_sides(diagnostics, cell_mask, 1, subintthresh)
     out = combine_zap(chan, sub, orig_weights)
-    fused_combine.launches += 1   # one sequence of the three launches above
+    # one sequence of the three launches above
+    _count(fused_combine, orig_weights)
     return out
 
 
 fused_combine.launches = 0
+fused_combine.launches_f64 = 0
 
 
 _CUBE_WRAPPERS = (weighted_marginals, cell_diagnostics_disp,
@@ -1263,20 +1445,25 @@ _CUBE_WRAPPERS = (weighted_marginals, cell_diagnostics_disp,
                   shard_diagnostics_disp, shard_diagnostics_dedisp)
 
 
+# the wrappers with a float64 build (K10 has none: ROADMAP item 1b)
+_F64_WRAPPERS = (weighted_marginals, cell_diagnostics_disp,
+                 cell_diagnostics_two_read, cell_diagnostics_dedisp,
+                 combine_zap, fused_combine, masked_median, side_centre,
+                 side_scale)
+
+
 def reset_launch_counts() -> None:
     for fn in _CUBE_WRAPPERS:
         fn.launches = fn.launches_bf16 = 0
+    for fn in _F64_WRAPPERS:
+        fn.launches = fn.launches_f64 = 0
     scaled_sides.launches = [0, 0]
-    combine_zap.launches = 0
-    fused_combine.launches = 0
-    masked_median.launches = 0
-    side_centre.launches = 0
-    side_scale.launches = 0
+    scaled_sides.launches_f64 = [0, 0]
 
 
 def launch_counts() -> dict:
     """Every wrapper's launches, the cube kernels' bf16 builds as
-    ``<name>_bf16``."""
+    ``<name>_bf16`` and the float64 builds as ``<name>_f64``."""
     return {
         **{fn.__name__: fn.launches for fn in _CUBE_WRAPPERS},
         "scaled_sides_axis0": scaled_sides.launches[0],
@@ -1287,4 +1474,10 @@ def launch_counts() -> dict:
         "side_centre": side_centre.launches,
         "side_scale": side_scale.launches,
         **{fn.__name__ + "_bf16": fn.launches_bf16 for fn in _CUBE_WRAPPERS},
+        **{fn.__name__ + "_f64": fn.launches_f64 for fn in _F64_WRAPPERS
+           if fn not in (side_centre, side_scale)},
+        "scaled_sides_axis0_f64": scaled_sides.launches_f64[0],
+        "scaled_sides_axis1_f64": scaled_sides.launches_f64[1],
+        "side_centre_f64": side_centre.launches_f64,
+        "side_scale_f64": side_scale.launches_f64,
     }

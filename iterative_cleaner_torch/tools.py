@@ -7,9 +7,17 @@
   (``.npz``, ``.icar``, PSRFITS ``.sf``/``.rf``/``.fits``/``.ar``;
   TIMER-format ``.ar`` through the psrchive bridge).
 
-``diff``, ``sweep``, ``borderline`` and ``selftest`` are parsed as the
-reference package's tools parse them and raise ``NotImplementedError``:
-ROADMAP.md 'Modules still to port' item 2c (checkpoints and models).
+- ``selftest [--device D]``: the installation check.  Cleans a synthetic
+  archive with known RFI on the float64 numpy oracle and on the torch
+  engine in float64 on ``--device`` (default ``cuda``, the card's float64
+  kernel builds; ``cpu`` their plain versions), and exits 0 only when the
+  two masks are bit-identical and the injected RFI is flagged.  Without
+  a card it exits 1 unless ``--device cpu`` is given: it never falls back
+  to the CPU.
+
+``diff``, ``sweep`` and ``borderline`` are parsed as the reference
+package's tools parse them and raise ``NotImplementedError``: ROADMAP.md
+'Modules still to port' item 2c (checkpoints and models).
 """
 
 from __future__ import annotations
@@ -77,6 +85,51 @@ def cmd_info(args) -> int:
     return 0
 
 
+def cmd_selftest(args) -> int:
+    """Clean the reference selftest's synthetic archive (16 x 32 x 128,
+    seed 0, 5 prezapped cells, RFI at 60 sigma) on both backends at
+    float64; fail unless the masks are bit-identical and at least 60% of
+    the injected-RFI cells are flagged (the reference's bound)."""
+    import torch
+
+    from iterative_cleaner_torch.backends import clean_archive
+    from iterative_cleaner_torch.config import CleanConfig
+    from iterative_cleaner_torch.io.synthetic import make_synthetic_archive
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        print(f"FAIL: device {args.device!r} requested but no CUDA device "
+              f"is present; pass --device cpu to check the plain versions")
+        return 1
+    ar, truth = make_synthetic_archive(nsub=16, nchan=32, nbin=128, seed=0,
+                                       n_prezapped=5, rfi_strength=60.0)
+    results = {}
+    for backend in ("numpy", "torch"):
+        results[backend] = clean_archive(
+            ar, CleanConfig(backend=backend, dtype="float64",
+                            device=args.device))
+        where = "host" if backend == "numpy" else (
+            torch.cuda.get_device_name(device) if device.type == "cuda"
+            else "cpu")
+        print(f"{backend:5s} [{where}]: loops={results[backend].loops} "
+              f"rfi_frac={results[backend].rfi_fraction:.4f}")
+    a = results["numpy"].final_weights == 0
+    b = results["torch"].final_weights == 0
+    if not np.array_equal(a, b):
+        print(f"FAIL: backend masks differ on "
+              f"{int((a != b).sum())}/{a.size} cells")
+        return 1
+    expected = truth.expected_zap(ar.nsub, ar.nchan)
+    caught = (b & expected).sum()
+    if caught < 0.6 * expected.sum():
+        print(f"FAIL: only {caught}/{int(expected.sum())} injected-RFI "
+              "cells flagged")
+        return 1
+    print(f"OK: masks bit-identical across backends; "
+          f"{caught}/{int(expected.sum())} injected-RFI cells flagged")
+    return 0
+
+
 def _not_ported(args) -> int:
     raise NotImplementedError(f"tools {args.cmd} {_NOT_PORTED}")
 
@@ -127,9 +180,15 @@ def main(argv=None) -> int:
                    default="surgical_scrub")
     p.set_defaults(fn=_not_ported)
 
-    p = sub.add_parser("selftest", help="installation check (not ported "
-                                        "yet)")
-    p.set_defaults(fn=_not_ported)
+    p = sub.add_parser("selftest",
+                       help="end-to-end installation check: clean a "
+                            "synthetic archive on the numpy oracle and "
+                            "the torch engine at float64, assert "
+                            "bit-identical masks + RFI catch (exit 0 = ok)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device of the engine's clean (default "
+                        "cuda; cpu runs the kernels' plain versions)")
+    p.set_defaults(fn=cmd_selftest)
 
     args = parser.parse_args(argv)
     return args.fn(args)

@@ -46,6 +46,19 @@ its bf16 name; on a bf16-exact archive the whole clean on every route,
 exact streaming (the cube uploads halved), the batch and the one-rank
 NCCL sharded clean bit-equal to their float32 runs, with no
 ``compute_dtype_ineligible`` count.
+
+float64 (``dtype='float64'``): the float64 builds of K1, K2, K6, K7, K3,
+the combine, K8, K9 and the tail kernels against their plain float64
+versions at the float32 cases' shapes and at odd nbin (K1, K2, K6 and K7
+within 1e-12 of each plane's scale, masked cells exact; the selects,
+the combine and K9 bit-equal, NaN by position), K3 on lines either side
+of ``LONGEST_BLOCK_LINE_F64`` (the long side through K9 and the tail
+kernels), each counted under its ``_f64`` name; the whole clean on
+every route and the exact stream at budget 0 (8 bytes a sample
+uploaded) against the CPU's float64 clean (masks, loops; scores within
+1e-9); K10 refusing a float64 block (ROADMAP item 1b); and the float32
+builds' planes SHA-256-equal to the ones the tree before the float64
+builds computed (``F32_PLANE_DIGESTS``).
 """
 
 import numpy as np
@@ -198,8 +211,8 @@ def test_routes_on_card_match_cpu(card, name):
     diag = ("cell_diagnostics_dedisp" if name == "dedispersed"
             else "cell_diagnostics_two_read")
     for k, v in counts.items():
-        ran = k == diag or k.startswith(("scaled_sides", "combine")) \
-            or k == "masked_median"
+        ran = k == diag or k in ("scaled_sides_axis0", "scaled_sides_axis1",
+                                 "combine_zap", "masked_median")
         assert v == (on_card.loops if ran else 0), counts
     np.testing.assert_array_equal(on_card.final_weights, on_cpu.final_weights)
     assert (on_card.loops, on_card.converged) == (on_cpu.loops,
@@ -446,8 +459,9 @@ def test_k9_masked_median_bit_equal_on_card(card, case):
 
 def test_k9_masked_median_refuses_on_card(card):
     v, m = median_edge_lines()
+    # float32 and float64 (its float64 build) are taken; half is not
     with pytest.raises(TypeError, match="float32"):
-        tk.masked_median(v.double().to(card), m.to(card), 1)
+        tk.masked_median(v.half().to(card), m.to(card), 1)
     with pytest.raises(ValueError, match="dim"):
         tk.masked_median(v.to(card), m.to(card), 2)
 
@@ -1014,3 +1028,248 @@ def test_bf16_exact_stream_batch_and_shard_on_card(bf16_card, tmp_path):
     assert counts["shard_diagnostics_disp"] == 0
     _assert_bit_equal(got, clean_archive(ar, cfg))
     assert tb.compute_dtype_ineligible_counts() == counts0
+
+
+# --------------------------------------------------------------------------
+# float64 (dtype="float64"): the float64 builds
+# --------------------------------------------------------------------------
+
+F64_GEOMS = GEOMS + [(9, 50, 37, "fourier"), (12, 20, 8, "fourier")]
+
+
+def _f64_inputs(nsub, nchan, nbin, rotation, dev, seed=0):
+    disp, w, mask, template, rot_t, _ = _inputs(nsub, nchan, nbin, rotation,
+                                                "cpu", seed)
+    g = torch.Generator().manual_seed(seed + 7)
+    shifts = (torch.rand(nchan, generator=g, dtype=torch.float64) * nbin
+              / 1.5 - nbin / 3)
+    d = torch.float64
+    nyq = nyq_correction_row(shifts, nbin, rotation, d)
+    return (disp.to(dev, d), w.to(dev, d), mask.to(dev), template.to(dev, d),
+            rot_t.to(dev, d), None if nyq is None else nyq.to(dev))
+
+
+def _f64_bits_mismatch(got, want):
+    nan_g, nan_w = torch.isnan(got), torch.isnan(want)
+    same = (got.view(torch.int64) == want.view(torch.int64)) \
+        | (nan_g & nan_w)
+    return int((~same).sum())
+
+
+def _f64_planes_close(got, want, mask=None):
+    for g, p in zip(got, want):
+        assert g.dtype == torch.float64
+        fin = torch.isfinite(p)
+        scale = float(p[fin].abs().max()) if bool(fin.any()) else 1.0
+        assert bool(((g - p).abs() <= 1e-12 * scale)[fin].all())
+        assert torch.equal(torch.isfinite(g), fin)
+        if mask is not None:
+            assert _f64_bits_mismatch(g[mask], p[mask]) == 0
+
+
+@pytest.mark.parametrize("nsub,nchan,nbin,rotation", F64_GEOMS)
+def test_f64_kernels_match_plain_on_card(card, nsub, nchan, nbin, rotation):
+    disp, w, mask, template, rot_t, nyq = _f64_inputs(nsub, nchan, nbin,
+                                                      rotation, card)
+    tk.reset_launch_counts()
+    _f64_planes_close(tk.weighted_marginals(disp, w),
+                      tk.weighted_marginals_plain(disp, w))
+    diags = tk.cell_diagnostics_disp(disp, rot_t, nyq, template, w, mask)
+    _f64_planes_close(diags, tk.cell_diagnostics_disp_plain(
+        disp, rot_t, nyq, template, w, mask), mask)
+    base = disp * 0.5 + 1.0
+    _f64_planes_close(
+        tk.cell_diagnostics_two_read(disp, base, rot_t, template, w, mask),
+        tk.cell_diagnostics_two_read_plain(disp, base, rot_t, template, w,
+                                           mask), mask)
+    window = torch.ones(nbin, dtype=torch.float64, device=card)
+    window[nbin // 4: nbin // 2] = 0.2
+    _f64_planes_close(
+        tk.cell_diagnostics_dedisp(disp, template, window, w, mask),
+        tk.cell_diagnostics_dedisp_plain(disp, template, window, w, mask),
+        mask)
+    sides = []
+    for axis in (0, 1):
+        got = tk.scaled_sides(diags, mask, axis, 5.0)
+        want = tk.scaled_sides_plain(diags, mask, axis, 5.0)
+        assert [_f64_bits_mismatch(g, p) for g, p in zip(got, want)] \
+            == [0] * 4
+        sides.append(got)
+    new_w, scores = tk.combine_zap(sides[0], sides[1], w)
+    pw, ps = tk.combine_zap_plain(sides[0], sides[1], w)
+    assert scores.dtype == torch.float64
+    assert _f64_bits_mismatch(scores, ps) + _f64_bits_mismatch(new_w, pw) == 0
+    fw, fs = tk.fused_combine(diags, mask, w, 5.0, 5.0)
+    pw, ps = tk.fused_combine_plain(diags, mask, w, 5.0, 5.0)
+    assert _f64_bits_mismatch(fs, ps) + _f64_bits_mismatch(fw, pw) == 0
+    lines = [(diags[0], mask, 0), (diags[0], mask, 1),
+             (diags[0].reshape(1, -1), mask.reshape(1, -1), 1)]
+    for v, m, dim in lines:
+        assert _f64_bits_mismatch(tk.masked_median(v, m, dim),
+                                  tk.masked_median_keys(v, m, dim)[0]) == 0
+    counts = tk.launch_counts()
+    for name in ("weighted_marginals", "cell_diagnostics_disp",
+                 "cell_diagnostics_two_read", "cell_diagnostics_dedisp",
+                 "scaled_sides_axis0", "scaled_sides_axis1", "combine_zap",
+                 "fused_combine", "masked_median"):
+        assert counts[name + "_f64"] >= 1, counts
+        assert counts[name] == 0, counts
+
+
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("offset", [-1, 0, 1])
+def test_f64_k3_either_side_of_its_block_line_on_card(card, axis, offset):
+    n = tk.LONGEST_BLOCK_LINE_F64 + offset
+    g = torch.Generator().manual_seed(n + axis)
+    shape = (n, 5) if axis == 0 else (5, n)
+    d = [torch.randn(*shape, generator=g, dtype=torch.float64)
+         for _ in range(4)]
+    d[1][:, 2 if axis == 0 else 0] = 3.0      # a zero-MAD line
+    d[3].view(-1)[17] = float("nan")
+    m = torch.rand(*shape, generator=g) < 0.05
+    want = tk.scaled_sides_plain(d, m, axis, 5.0)
+    d, m = [x.to(card) for x in d], m.to(card)
+    tk.reset_launch_counts()
+    got = tk.scaled_sides(d, m, axis, 5.0)
+    assert [_f64_bits_mismatch(x.cpu(), y) for x, y in zip(got, want)] \
+        == [0] * 4
+    counts = tk.launch_counts()
+    long = offset > 0
+    assert (counts["side_centre_f64"] > 0) == long, counts
+    assert (counts[f"scaled_sides_axis{axis}_f64"] == 1) == (not long)
+
+
+@pytest.mark.parametrize("dim", [0, 1])
+@pytest.mark.parametrize("reps", [1, 601])
+def test_f64_k9_edge_lines_on_card(card, dim, reps):
+    v, m = median_edge_lines()
+    v, m = v.double().repeat(1, reps), m.repeat(1, reps)
+    if dim == 0:
+        v, m = v.t().contiguous(), m.t().contiguous()
+    want = tk.masked_median_keys(v, m, dim)[0]
+    got = tk.masked_median(v.to(card), m.to(card), dim).cpu()
+    assert _f64_bits_mismatch(got, want) == 0
+
+
+F64_ROUTES = {"default": dict(), "profile": dict(baseline_mode="profile"),
+              "dedispersed": dict(stats_frame="dedispersed"),
+              "pulse": dict(pulse_region=(0.2, 30, 60), unload_res=True),
+              "dedisp1": dict()}
+
+
+@pytest.mark.parametrize("name", sorted(F64_ROUTES))
+def test_f64_routes_on_card_match_cpu(card, name):
+    ar, _ = make_synthetic_archive(nsub=64, nchan=256, nbin=128,
+                                   n_prezapped=30, seed=1,
+                                   disperse=name != "dedisp1")
+    ar.dedispersed = name == "dedisp1"
+    kwargs = F64_ROUTES[name]
+    route = select_route(CleanConfig(**kwargs), ar.dedispersed)
+    tk.reset_launch_counts()
+    on_card = clean_archive(ar, CleanConfig(dtype="float64", **kwargs))
+    counts = tk.launch_counts()
+    on_cpu = clean_archive(ar, CleanConfig(dtype="float64", device="cpu",
+                                           **kwargs))
+    own = storage_kernels(ROUTE_KERNELS[route], "float32", "float64")
+    for k, v in counts.items():
+        assert (v >= 1) == (k in own), counts
+    np.testing.assert_array_equal(on_card.final_weights, on_cpu.final_weights)
+    assert (on_card.loops, on_card.converged) == (on_cpu.loops,
+                                                  on_cpu.converged)
+    assert on_card.scores.dtype == np.float64
+    np.testing.assert_allclose(on_card.scores, on_cpu.scores, rtol=1e-9,
+                               atol=1e-9)
+    if on_cpu.residual is not None:
+        np.testing.assert_allclose(
+            on_card.residual, on_cpu.residual, rtol=0,
+            atol=1e-9 * np.abs(on_cpu.residual).max())
+
+
+def test_f64_exact_stream_on_card(card):
+    from iterative_cleaner_torch.parallel.tile_cache import DictRegistry
+
+    ar, _ = make_synthetic_archive(nsub=64, nchan=256, nbin=128,
+                                   n_prezapped=30, seed=1)
+    whole = clean_archive(ar, CleanConfig(dtype="float64"))
+    reg = DictRegistry()
+    tk.reset_launch_counts()
+    got = clean_streaming(ar, 16, CleanConfig(dtype="float64",
+                                              stream_hbm_mb=0), registry=reg)
+    counts = tk.launch_counts()
+    np.testing.assert_array_equal(got.final_weights, whole.final_weights)
+    assert (got.loops, got.converged) == (whole.loops, whole.converged)
+    cube_bytes = 64 * 256 * 128 * 8
+    assert reg.counters["stream_h2d_cube_bytes"] \
+        == (1 + 2 * got.loops) * cube_bytes
+    own = storage_kernels(STREAM_KERNELS["default"], "float32", "float64")
+    assert all(counts[k] >= 1 for k in own), counts
+    assert not any(v for k, v in counts.items() if k not in own), counts
+
+
+# SHA-256 (first 16 hex digits) of the float32 planes of K1, K2, K6, K7,
+# K3 (both axes), the combine and K9 on _f32_plane_inputs, as the float32
+# builds of the port's PR 11 tree (58923b8) computed them on an NVIDIA H100
+# 80GB HBM3: the float64 builds must leave every float32 launch's bits as
+# they were.
+F32_PLANE_DIGESTS = {
+    "K1": "ef3ed6fd605e5824", "K2": "5276b207f3e0f10a",
+    "K6": "3c3e1957288ffe33", "K7": "ead09ae6198ebc7d",
+    "K3_axis0": "807486c285a5b07f", "K3_axis1": "4f52b89671286439",
+    "combine": "d693650f87a5dd4a", "K9": "3ca52f474a9d852c",
+}
+
+
+def _f32_plane_digests(dev):
+    """The digests of :data:`F32_PLANE_DIGESTS` from this tree's kernels,
+    on inputs made with numpy (seed 12; no library product on the card)."""
+    import hashlib
+
+    rng = np.random.default_rng(12)
+    nsub, nchan, nbin = 64, 256, 128
+
+    def card(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    disp = card(rng.normal(1.0, 3.0, (nsub, nchan, nbin)))
+    base = card(rng.normal(0.0, 1.0, (nsub, nchan, nbin)))
+    w = card(rng.random((nsub, nchan)) > 0.1)
+    mask = w == 0
+    template = card(np.abs(rng.normal(0.0, 1.0, nbin)) * 1e4)
+    rot_t = card(rng.normal(0.0, 1e4, (nchan, nbin)))
+    nyq = card(rng.normal(0.0, 1e-3, (nchan, nbin)))
+    window = card(np.where((np.arange(nbin) >= 30) & (np.arange(nbin) < 60),
+                           0.2, 1.0))
+    diags = tk.cell_diagnostics_disp(disp, rot_t, nyq, template, w, mask)
+    sides = [tk.scaled_sides(diags, mask, axis, 5.0) for axis in (0, 1)]
+    planes = {
+        "K1": tk.weighted_marginals(disp, w),
+        "K2": diags,
+        "K6": tk.cell_diagnostics_dedisp(disp, template, window, w, mask),
+        "K7": tk.cell_diagnostics_two_read(disp, base, rot_t, template, w,
+                                           mask),
+        "K3_axis0": sides[0], "K3_axis1": sides[1],
+        "combine": tk.combine_zap(sides[0], sides[1], w),
+        "K9": (tk.masked_median(diags[0].reshape(1, -1),
+                                mask.reshape(1, -1), 1),),
+    }
+    out = {}
+    for name, ts in planes.items():
+        h = hashlib.sha256()
+        for t in ts:
+            h.update(t.contiguous().cpu().numpy().tobytes())
+        out[name] = h.hexdigest()[:16]
+    return out
+
+
+def test_f32_planes_bit_equal_to_before_on_card(card):
+    assert _f32_plane_digests(card) == F32_PLANE_DIGESTS
+
+
+def test_k10_refuses_a_float64_block_on_card(card):
+    disp, w, mask, template, rot_t, nyq = _f64_inputs(8, 16, 32, "fourier",
+                                                      card)
+    with pytest.raises(NotImplementedError, match="item 1b"):
+        tk.shard_diagnostics_disp(disp, rot_t, nyq, template, w, mask)
+    window = torch.ones(32, dtype=torch.float64, device=card)
+    with pytest.raises(NotImplementedError, match="item 1b"):
+        tk.shard_diagnostics_dedisp(disp, template, window, w, mask)

@@ -1,5 +1,7 @@
 """The port stands alone: importing it and running its main path (the
-whole clean, both streaming modes, the batched clean (``--batch``), the
+whole clean, in float32 and float64, the numpy oracle whole and in both
+streaming modes, ``tools selftest``, both streaming modes, the batched
+clean (``--batch``), the
 cell-sharded clean on one rank
 on the default and two_read routes, both streaming modes over that rank,
 the CLI session on a PSRFITS archive with its run report, Prometheus
@@ -86,6 +88,17 @@ assert res.loops >= 1
 for mode in ("exact", "online"):
     assert clean_streaming(ar, 3, CleanConfig(device="cpu"),
                            mode=mode).loops >= 1
+# float64, the numpy oracle (whole and streamed) and tools selftest
+import iterative_cleaner_torch.backends.numpy_backend
+import iterative_cleaner_torch.ops.dsp_numpy
+import iterative_cleaner_torch.ops.psrchive_baseline_numpy
+import iterative_cleaner_torch.stats.masked_numpy
+import iterative_cleaner_torch.tools
+assert clean_archive(ar, CleanConfig(device="cpu", dtype="float64")).loops >= 1
+for mode in ("exact", "online"):
+    assert clean_streaming(ar, 3, CleanConfig(backend="numpy"),
+                           mode=mode).loops >= 1
+assert iterative_cleaner_torch.tools.main(["selftest", "--device", "cpu"]) == 0
 from iterative_cleaner_torch.parallel import clean_archives_batched
 assert [r.loops for r in clean_archives_batched(
     [ar, ar], CleanConfig(device="cpu"))] == [res.loops] * 2

@@ -411,8 +411,10 @@ def test_tools_convert_writes_what_reference_writes(tmp_path, src_ext,
         theirs)))
 
 
+# (selftest is ported: tests/test_torch_oracle.py runs it)
 @pytest.mark.parametrize("argv", [["diff", "a", "b"], ["sweep", "a"],
-                                  ["borderline", "a"], ["selftest"]])
+                                  ["borderline", "a"],
+                                  ["sweep", "a", "--backend", "numpy"]])
 def test_tools_unported_commands_name_their_item(argv):
     with pytest.raises(NotImplementedError, match="item 2c"):
         tools.main(argv)

@@ -120,12 +120,19 @@ def test_route_kernels_cover_every_launch_counter():
     instead); the sharded two_read route launches the whole route's
     kernels (K7 per block; K3, the combine and K9 on the gathered
     planes).  Each cube kernel's bf16 build (``storage_kernels``) is
-    counted under its own name."""
+    counted under its own name, and so is the float64 build of every
+    kernel of the single-card routes, exact streaming and the long lines
+    (K10 has none)."""
     named = {k for table in (ROUTE_KERNELS, STREAM_KERNELS, SHARD_KERNELS)
              for ks in table.values()
              for cd in ("float32", "bfloat16")
              for k in storage_kernels(ks, cd)}
-    assert named | set(LONG_LINE_KERNELS) == set(launch_counts())
+    named |= {k for table in (ROUTE_KERNELS, STREAM_KERNELS)
+              for ks in table.values()
+              for k in storage_kernels(ks, "float32", "float64")}
+    long_line = set(LONG_LINE_KERNELS) | set(
+        storage_kernels(LONG_LINE_KERNELS, "float32", "float64"))
+    assert named | long_line == set(launch_counts())
     for route, kernels in ROUTE_KERNELS.items():
         assert set(STREAM_KERNELS[route]) == set(kernels) | {"fused_combine"}
     k10 = {"cell_diagnostics_disp": "shard_diagnostics_disp",

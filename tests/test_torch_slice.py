@@ -100,16 +100,19 @@ def test_synthetic_archive_byte_identical(kwargs):
     dict(dtype="float64"),
 ])
 def test_out_of_slice_configs_refused(kwargs):
-    """float64 waits for its ROADMAP item; dtype='bfloat16' (arithmetic
-    in bf16, which the reference's clean cannot run either) is refused
-    with the pointer to compute_dtype='bfloat16', the bf16 storage
-    mode."""
+    """float64 on a mesh waits for its ROADMAP item (1b; a single clean
+    runs it); dtype='bfloat16' (arithmetic in bf16, which the reference's
+    clean cannot run either) is refused with the pointer to
+    compute_dtype='bfloat16', the bf16 storage mode."""
     if kwargs["dtype"] == "bfloat16":
-        error, match = ValueError, "compute_dtype='bfloat16'"
-    else:
-        error, match = NotImplementedError, "ROADMAP"
-    with pytest.raises(error, match=match):
-        CleanConfig(device="cpu", **kwargs)
+        with pytest.raises(ValueError, match="compute_dtype='bfloat16'"):
+            CleanConfig(device="cpu", **kwargs)
+        return
+    from iterative_cleaner_torch.config import check_mesh
+
+    cfg = CleanConfig(device="cpu", **kwargs)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 1b"):
+        check_mesh("cell", cfg)
 
 
 def test_default_device_is_the_card():

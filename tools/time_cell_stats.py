@@ -5,7 +5,7 @@ K8 and K9 (the residual-std telemetry's one line, and along both axes of
 the d_std plane); and fingerprint what they compute.
 
     python tools/time_cell_stats.py [--shape S C B] [--reps N] [--no-selects]
-        [--k3-plans W:D ...] [--bf16]
+        [--k3-plans W:D ...] [--bf16] [--f64-plans]
 
 Random inputs of the given shape (default the full-size golden's,
 1024 x 4096 x 128), made on the card from seed 0, CUDA-event means over
@@ -16,7 +16,12 @@ at W columns a block and D diagnostics at once, plans the package's
 ``scaled_sides_geometry`` may not pick (``ms_k3_plans``).  ``--bf16``
 (a package with bf16 cube storage) also times each cube kernel on the
 cube rounded to bf16 (``<name>_bf16``) and checks its planes bit-equal
-to the float32 launch on the upcast cube (``bf16_bit_equal``).  Run it by path
+to the float32 launch on the upcast cube (``bf16_bit_equal``).
+``--f64-plans`` (a package with float64 builds) times K2's float64 build
+on the cube as float64 under every launch plan ``cell_stats_plans``
+yields at its nbin (``ms_f64_plans``: ms, the plan, the planes bit-equal
+to the chosen plan's; the plan ``cell_stats_geometry`` picks marked),
+and nothing else.  Run it by path
 with ``PYTHONPATH`` naming the checkout whose ``iterative_cleaner_torch`` to
 time: the same script then times two trees in turns (parent, change,
 change, parent) in one call on one card, and equal digests show their
@@ -62,6 +67,8 @@ def main() -> int:
                    help="also time K3 along axis 0 under these plans")
     p.add_argument("--bf16", action="store_true",
                    help="also time the cube kernels on a bf16 cube")
+    p.add_argument("--f64-plans", action="store_true",
+                   help="time K2's float64 build under every plan")
     args = p.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("time_cell_stats: no CUDA device present")
@@ -105,6 +112,10 @@ def main() -> int:
             c, rot_t, nyq, t, w, mask)
         on["shard_diagnostics_dedisp"] = \
             lambda c, b: K.shard_diagnostics_dedisp(c, t, window, w, mask)
+    if args.f64_plans:
+        print(json.dumps(_f64_plans(K, card, cube, rot_t, nyq, t, w, mask,
+                                    args.reps)))
+        return 0
     calls = {name: functools.partial(fn, cube, base)
              for name, fn in on.items()}
     diags = K.cell_diagnostics_disp(cube, rot_t, nyq, t, w, mask)
@@ -147,6 +158,28 @@ def main() -> int:
     return 0
 
 
+def _f64_plans(K, card, cube, rot_t, nyq, t, w, mask, reps):
+    """K2's float64 build under every plan of ``K.cell_stats_plans``."""
+    d = torch.float64
+    args = (cube.to(d), rot_t.to(d), None if nyq is None else nyq.to(d),
+            t.to(d), w.to(d), mask)
+    nbin = cube.shape[-1]
+    chosen = K.cell_stats_geometry(nbin, 8)
+    want = _digest(K.cell_diagnostics_disp(*args))
+    geometry, rows = K.cell_stats_geometry, []
+    try:
+        for cost, plan in K.cell_stats_plans(nbin, 8):
+            K.cell_stats_geometry = lambda nbin, itemsize=4, p=plan: p
+            fn = functools.partial(K.cell_diagnostics_disp, *args)
+            rows.append([_ms(fn, reps), plan._asdict(), _digest(fn()) == want,
+                         plan == chosen])
+    finally:
+        K.cell_stats_geometry = geometry
+    rows.sort(key=lambda r: r[0])
+    return {"card": card, "shape": list(cube.shape), "reps": reps,
+            "chosen": chosen._asdict(), "ms_f64_plans": rows}
+
+
 def _digest(planes):
     """SHA-256 of the output planes' bytes, in order."""
     torch.cuda.synchronize()
@@ -166,10 +199,12 @@ def _k3_axis0_under(K, diags, mask, lines, nd):
                          f"{n} subints")
     outs = [torch.empty_like(diags[0]) for _ in range(4)]
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    # a package with float64 builds takes a float64 flag after the plan
+    f64 = (0,) if hasattr(K, "LONGEST_BLOCK_LINE_F64") else ()
     rc = K.load_library().icln_scaled_sides(
         *map(ptr, diags), ptr(mask), *map(ptr, outs), n, nchan, 1, nchan,
         float(np.float32(1) / np.float32(5.0)), lines, nd,
-        K._select_threads(lines * n), smem,
+        K._select_threads(lines * n), smem, *f64,
         torch.cuda.current_stream().cuda_stream)
     if rc:
         raise SystemExit(f"K3 plan {lines}:{nd}: CUDA error {rc}")
