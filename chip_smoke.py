@@ -127,6 +127,29 @@ operations at PEAK_F64_PER_S) and listed in the kernels line; a
 float64 builds), held to its whole float64 clean.  Each float64 phase
 prints its seconds.
 
+The rest of the CLI surface: ``--model quicklook`` on the golden archive
+in float32 and float64 (K6 with a zero template and a window of ones, K3
+twice and the combine once each, and no other launch; the float32 mask
+held to the float64 one under the goldens' flip rule; the whole-clean ms
+and the peak beside the default clean's; K6's zero-template planes
+against its plain version and d_mean's sign flipped back giving
+bit-equal scores; the float64 quicklook bit-equal to the numpy twin on a
+64 x 128 x 128 archive), each run's launches in the kernels line's
+``launches_by_route`` (``quicklook``, ``quicklook f64``); ``tools sweep
+--device cuda`` over a 3 x 3 grid on a 64 x 128 x 128 archive for both
+models, each row held to an in-process clean; then on the CLI phase's
+``golden.sf``: ``--checkpoint`` (a first session saving, its output the
+in-process clean's mask; a second printing the resume line, launching no
+kernel and writing a byte-identical output; ``tools diff`` of its
+checkpoint and one saved from the in-process clean exiting 0; ``-c 4.9``
+cleaning again; the seconds of the checkpoint write, the fast-path
+resume and the whole-cube fingerprint), ``tools borderline --backend
+torch --device cuda`` listing every cell where the float32 clean differs
+from the golden, and ``--trace DIR`` on a spawned process (the session's
+seconds without and with it; the trace's five stage ranges once per loop
+and each of the port's kernels as often as the launch counters say, a
+disagreeing trace printed and taken again up to TRACE_ATTEMPTS times).
+
 It exits non-zero, printing no result, when no CUDA device is present
 or when the port's package is not beside it.  It imports nothing of JAX
 or of the reference package.
@@ -813,6 +836,11 @@ def cli_phase(ar, whole, want_counts, tag):
                  "native_load_s": native_s, "pure_load_s": pure_s,
                  "cli_s": cli_s, **{f"{k}_s": v for k, v in phases.items()}}
         times.update(prefetch_phase(ar, whole, want_counts, tag))
+        # 3n. --checkpoint and its resume, tools borderline and --trace on
+        # the same golden.sf
+        times.update(checkpoint_phase(ar, whole, want_counts, tag))
+        times.update(borderline_phase(whole, tag))
+        times.update(trace_phase(work, want_counts, tag))
         return times
     finally:
         os.chdir(cwd)
@@ -2313,7 +2341,11 @@ def float64_phases(ar, configs, results, counts, clean_ms, peak_gib,
                         f"{line}",
             "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": pms, "bound_ms": bms, "bound_by": bby,
-            "library_ms": lms, "launches_route": run, **extra})
+            "library_ms": lms, "launches_route": run,
+            # the build's launches in every counted run that launched it
+            "launches_by_route": {r: c[name + "_f64"]
+                                  for r, c in counts.items()
+                                  if c.get(name + "_f64")}, **extra})
         lib = "null" if lms is None else f"{lms:.4f}"
         print(f"time {name}_f64: {ms:.4f} ms, bound {bms:.4f} ms ({bby}), "
               f"plain {pms:.4f} ms, library {lib} ms, {launches} launches "
@@ -2366,6 +2398,421 @@ def float64_phases(ar, configs, results, counts, clean_ms, peak_gib,
     print(f"float64 phase (5), long lines: "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     return kernels
+
+
+# The quicklook phase's small archive (the numpy twin runs on the host)
+# and the sweep phase's archive and grid.
+QUICKLOOK_TWIN_ARCHIVE = dict(nsub=64, nchan=128, nbin=128, seed=21,
+                              n_prezapped=40, n_rfi_cells=30)
+SWEEP_ARCHIVE = dict(nsub=64, nchan=128, nbin=128, seed=22, n_prezapped=40,
+                     n_rfi_cells=30)
+SWEEP_GRID = ("4", "5", "6")
+# Stage ranges every iteration of the default route's session shows in
+# its --trace file, and the kernels' names in it against their launch
+# counters: K1 as its kernel and its two partial sums, K9 as 1 to 4 device
+# operations a call.
+TRACE_RANGES = ("icln_template", "icln_residual_stats", "icln_scores",
+                "icln_zap", "icln_iter_metrics")
+TRACE_KERNELS = {"icln_marginals_kernel": ("weighted_marginals", 1),
+                 "icln_sum_parts": ("weighted_marginals", 2),
+                 "icln_cell_stats_kernel": ("cell_diagnostics_disp", 1),
+                 "icln_scaled_sides_kernel": ("scaled_sides_axis0", 2),
+                 "icln_combine_zap_kernel": ("combine_zap", 1)}
+
+
+def captured(fn, *args):
+    """``fn(*args)``'s return value and what it printed."""
+    import contextlib
+    import io
+
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        rc = fn(*args)
+    return rc, text.getvalue()
+
+
+def checkpoint_phase(ar, whole, want_counts, tag):
+    """``--checkpoint`` on ``golden.sf``, in the working directory of
+    phase 3e: a first session cleans (``want_counts``), saves, and writes
+    the in-process clean's mask; a second prints the resume line, launches
+    no kernel and writes a byte-identical output; ``tools diff`` of its
+    checkpoint and one saved from the in-process clean exits 0; a session
+    with ``-c 4.9`` finds the checkpoint stale and cleans again.  Prints
+    the seconds of the checkpoint write, the fast-path resume and the
+    whole-cube fingerprint of the float64 archive.  Returns the times."""
+    import filecmp
+
+    import torch
+
+    from iterative_cleaner_torch import cli, tools
+    from iterative_cleaner_torch.engine.loop import ROUTE_KERNELS
+    from iterative_cleaner_torch.io import psrfits
+    from iterative_cleaner_torch.stats import kernels as K
+    from iterative_cleaner_torch.utils import checkpoint as ckpt
+
+    for name in ("golden.icar", "golden.icar_cleaned.icar",
+                 "golden.sf_cleaned.sf"):   # room for two more outputs
+        if os.path.exists(name):
+            os.remove(name)
+
+    def session(out, *more):
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc, text = captured(cli.main, ["-l", "--checkpoint", "ck", "-o", out,
+                                       *more, "golden.sf"])
+        torch.cuda.synchronize()
+        if rc != 0:
+            fail(f"checkpoint: session {more} exit code {rc}")
+        return time.perf_counter() - t0, K.launch_counts(), text
+
+    path = ckpt.checkpoint_path("ck", "golden.sf")
+    first_s, first, text1 = session("ck1.sf")
+    w1 = psrfits.read_psrfits_info("ck1.sf")[1]
+    n_mask = int(((w1 == 0) != (whole.final_weights == 0)).sum())
+    second_s, second, text2 = session("ck2.sf")
+    same_bytes = filecmp.cmp("ck1.sf", "ck2.sf", shallow=False)
+    os.remove("ck2.sf")
+    resumed = f"Resumed from checkpoint: {path}" in text2
+    cfg = cli.config_of(cli.build_parser().parse_args(
+        ["--checkpoint", "ck", "golden.sf"]))
+    t0 = time.perf_counter()
+    hit = ckpt.load_matching_checkpoint("ck", "golden.sf", ar, cfg)
+    fast_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fp = ckpt.fingerprint_archive(ar)
+    fp_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ckpt.save_clean_checkpoint("inproc.ckpt.npz", whole, cfg, fp)
+    write_s = time.perf_counter() - t0
+    rc_d, text_d = captured(tools.main, ["diff", path, "inproc.ckpt.npz"])
+    diff = json.loads(text_d)
+    stale_s, stale, text3 = session("ck3.sf", "-c", "4.9")
+    os.remove("ck3.sf")
+    os.remove("ck1.sf")
+    def ran(c):
+        return json.dumps({k: v for k, v in c.items() if v})
+
+    print(f"checkpoint: first session {first_s:.1f} s (kernels "
+          f"{ran(first)}; output mask against the in-process clean "
+          f"{n_mask} cells differ, tolerance 0; resume line printed "
+          f"{'Resumed' in text1}); second session {second_s:.1f} s, resume "
+          f"line printed {resumed}, kernels {ran(second)}, output "
+          f"byte-identical {same_bytes}; the fast-path resume "
+          f"(load_matching_checkpoint) {fast_s:.3f} s, the whole-cube "
+          f"fingerprint of the {ar.data.dtype} archive ({ar.data.nbytes / 1e9:.2f} "
+          f"GB) {fp_s:.3f} s, the checkpoint write {write_s:.3f} s "
+          f"({os.path.getsize('inproc.ckpt.npz') / 1e6:.1f} MB); tools diff "
+          f"against the in-process clean's checkpoint: exit {rc_d}, "
+          f"{diff['changed']} cells changed, same_input "
+          f"{diff['same_input']}; -c 4.9 session {stale_s:.1f} s, resume "
+          f"line printed {'Resumed' in text3}, kernels {ran(stale)} "
+          f"{tag}", flush=True)
+    if first != want_counts or "Resumed" in text1 or n_mask:
+        fail("checkpoint: the first session differs from the CLI phase's")
+    if not resumed or any(second.values()) or not same_bytes:
+        fail("checkpoint: the resumed session cleaned or wrote another file")
+    if hit is None or rc_d != 0 or diff["changed"]:
+        fail("checkpoint: the fast path missed, or the diff found changes")
+    if "Resumed" in text3 or any(stale[k] < 1
+                                 for k in ROUTE_KERNELS["default"]):
+        fail("checkpoint: the stale checkpoint was resumed")
+    return {"checkpoint_first_s": first_s, "checkpoint_resume_s": second_s,
+            "checkpoint_fast_path_s": fast_s, "fingerprint_s": fp_s,
+            "checkpoint_write_s": write_s}
+
+
+def borderline_phase(whole, tag):
+    """``tools borderline --backend torch --device cuda`` on ``golden.sf``
+    (phase 3e's directory): every cell where the float32 clean ``whole``
+    differs from ``fullsize_mask.npz`` is in its list, with that clean's
+    decision."""
+    from iterative_cleaner_torch import tools
+
+    shape = whole.final_weights.shape
+    _, want_zap = golden_mask("", shape)
+    flips = {(int(i), int(c)) for i, c in
+             np.argwhere(want_zap != (whole.final_weights == 0))}
+    t0 = time.perf_counter()
+    rc, text = captured(tools.main, ["borderline", "golden.sf", "--backend",
+                                     "torch", "--device", "cuda"])
+    seconds = time.perf_counter() - t0
+    lines = [json.loads(ln) for ln in text.splitlines()]
+    rows, summary = lines[:-1], lines[-1]
+    listed = {(r["isub"], r["ichan"]): r["zapped"] for r in rows}
+    missing = sorted(flips - set(listed))
+    wrong = sorted(k for k in flips & set(listed)
+                   if listed[k] != bool(whole.final_weights[k] == 0))
+    print(f"borderline: tools borderline --backend torch --device cuda on "
+          f"golden.sf in {seconds:.1f} s: {summary['borderline']} cells "
+          f"within {summary['eps']} of the threshold "
+          f"({summary['zapped_borderline']} zapped), {summary['loops']} "
+          f"loops; the float32 clean's {len(flips)} flips against the "
+          f"golden {sorted(flips)}: {len(missing)} not listed, {len(wrong)} "
+          f"listed with another decision {tag}", flush=True)
+    if rc != 0 or missing or wrong or summary["loops"] != whole.loops:
+        fail("borderline: a golden flip is not among the borderline cells")
+    return {"borderline_s": seconds, "borderline_cells": len(rows)}
+
+
+def trace_worker(workdir, attempts):
+    """The ``--trace`` phase's process: in ``workdir`` (``golden.sf``
+    there), one session without ``--trace`` and then up to ``attempts``
+    with it, each timed, each traced one's launch counters and trace
+    (its stage ranges and the port's kernels by name) returned; stops at
+    the first trace that agrees with its counters (``trace_agrees``)."""
+    import torch
+
+    from iterative_cleaner_torch import cli
+    from iterative_cleaner_torch.stats import kernels as K
+    from iterative_cleaner_torch.utils.tracing import (
+        trace_event_counts,
+        trace_path,
+    )
+
+    os.chdir(workdir)
+    K.load_library()
+    runs = []
+    for attempt in range(attempts + 1):
+        trace = [] if attempt == 0 else ["--trace", f"tr{attempt}"]
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = cli.main(["-q", "-l", *trace, "--metrics-json", "trace.json",
+                       "-o", "traced.sf", "golden.sf"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        with open("trace.json") as f:
+            phases = json.load(f)["phases_s"]
+        run = {"rc": rc, "s": seconds, "counts": K.launch_counts(),
+               "phases": phases}
+        if trace:
+            path = trace_path(f"tr{attempt}")
+            run["ranges"] = trace_event_counts(path, "user_annotation")
+            kernels = trace_event_counts(path, "kernel")
+            run["kernels"] = {n: sum(v for k, v in kernels.items() if n in k)
+                              for n in (*TRACE_KERNELS, "icln_mm_")}
+            run["mb"] = os.path.getsize(path) / 1e6
+            shutil.rmtree(f"tr{attempt}")
+        runs.append(run)
+        if trace and trace_agrees(run)[0]:
+            break
+    os.remove("traced.sf")
+    os.remove("trace.json")
+    return runs
+
+
+def trace_agrees(run):
+    """Whether a traced session's file holds each stage range once per
+    loop and each of the port's kernels as often as its launch counters
+    say (K9: 1 to 4 device operations a launch), and what disagrees."""
+    c = run["counts"]
+    loops = c["masked_median"]
+    bad = {r: run["ranges"].get(r, 0) for r in TRACE_RANGES
+           if run["ranges"].get(r, 0) != loops}
+    for name, (counter, per) in TRACE_KERNELS.items():
+        want = per * c[counter] if counter != "scaled_sides_axis0" else (
+            c["scaled_sides_axis0"] + c["scaled_sides_axis1"])
+        if run["kernels"][name] != want:
+            bad[name] = (run["kernels"][name], want)
+    if not loops <= run["kernels"]["icln_mm_"] <= 4 * loops:
+        bad["icln_mm_"] = (run["kernels"]["icln_mm_"], loops)
+    return not bad and loops > 0, bad
+
+
+def phase_line(run) -> str:
+    """A session's phase seconds, as its run report gives them."""
+    return ", ".join(f"{k} {v:.2f} s" for k, v in sorted(
+        run["phases"].items()))
+
+
+def trace_phase(workdir, want_counts, tag):
+    """``--trace DIR`` on ``golden.sf``, in a spawned process (a trace
+    that is its process's first: see ``batch_trace_phase``): the
+    session's seconds without the trace and with it, and the trace's
+    stage ranges and kernels against the launch counters.  A trace that
+    disagrees with its counters is printed and taken again, up to
+    TRACE_ATTEMPTS times (each retry is fault (c) of ROADMAP.md showing);
+    the phase fails unless one agrees."""
+    import multiprocessing
+
+    with ProcessPoolExecutor(
+            max_workers=1,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        runs = pool.submit(trace_worker, workdir, TRACE_ATTEMPTS).result()
+    plain = runs[0]
+    if plain["rc"] != 0 or plain["counts"] != want_counts:
+        fail(f"trace: the untraced session's launch counts "
+             f"{plain['counts']}, want {want_counts}")
+    for attempt, run in enumerate(runs[1:], 1):
+        ok, bad = trace_agrees(run)
+        print(f"trace: session with --trace (attempt {attempt}) "
+              f"{run['s']:.1f} s against {plain['s']:.1f} s without (phases "
+              f"{phase_line(run)} against {phase_line(plain)}; the rest, "
+              f"the profiler's start, stop and export among it, "
+              f"{run['s'] - sum(run['phases'].values()):.2f} s against "
+              f"{plain['s'] - sum(plain['phases'].values()):.2f} s); trace "
+              f"file {run['mb']:.1f} MB; ranges "
+              f"{json.dumps({r: run['ranges'].get(r, 0) for r in TRACE_RANGES})}"
+              f"; kernels in the trace {json.dumps(run['kernels'])} against "
+              f"the launch counters {json.dumps({k: v for k, v in run['counts'].items() if v})}; "
+              f"disagreeing {json.dumps(bad)} {tag}", flush=True)
+        if run["rc"] != 0 or run["counts"] != want_counts:
+            fail("trace: the traced session launched other kernels")
+        if ok:
+            if attempt > 1:
+                print(f"trace: {attempt - 1} retries (fault (c): a trace "
+                      f"short of what the counters say)", flush=True)
+            return {"trace_s": run["s"], "untraced_s": plain["s"],
+                    "trace_phases_s": run["phases"],
+                    "untraced_phases_s": plain["phases"],
+                    "trace_retries": attempt - 1}
+    fail(f"trace: no one of {len(runs) - 1} traces agreed with its launch "
+         f"counters")
+
+
+def quicklook_phase(ar, counts, clean_ms, peak_gib, dev, tag):
+    """``--model quicklook`` on the golden archive on the card: float32
+    and float64, each launching exactly K6, K3 twice and the combine once
+    (their float64 builds in float64), the float32 mask held to the
+    float64 one under the goldens' flip rule (the float64 scores
+    standing in for the oracle's), the whole-clean ms and the peak beside
+    the default clean's; K6's zero-template planes against its plain
+    version (and d_mean's sign flipped back giving bit-equal scores); the
+    float64 quicklook bit-equal to the numpy twin on a 64 x 128 x 128
+    archive.  Adds the runs' launch counts to ``counts``."""
+    import torch
+
+    from iterative_cleaner_torch import CleanConfig
+    from iterative_cleaner_torch.backends.torch_backend import (
+        upload,
+        upload_meta,
+    )
+    from iterative_cleaner_torch.engine.loop import scores_and_zap
+    from iterative_cleaner_torch.io.synthetic import make_synthetic_archive
+    from iterative_cleaner_torch.models import QUICKLOOK, get_model
+    from iterative_cleaner_torch.models.quicklook import (
+        QUICKLOOK_KERNELS,
+        quicklook_prepare,
+    )
+    from iterative_cleaner_torch.stats import kernels as K
+
+    quicklook = get_model(QUICKLOOK)
+    res = {}
+    for key, dtype, suffix in (("quicklook", "float32", ""),
+                               ("quicklook f64", "float64", "_f64")):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        res[key] = r = quicklook(ar, CleanConfig(dtype=dtype))
+        torch.cuda.synchronize()
+        clean_ms[key] = (time.perf_counter() - t0) * 1e3
+        counts[key] = c = K.launch_counts()
+        peak_gib[key] = torch.cuda.max_memory_allocated() / 2 ** 30
+        want = dict.fromkeys(c, 0)
+        want.update({k + suffix: 1 for k in QUICKLOOK_KERNELS})
+        print(f"{key}: kernels {json.dumps({k: v for k, v in c.items() if v})}"
+              f", whole clean {clean_ms[key]:.1f} ms (the default clean "
+              f"{clean_ms['default']:.1f} ms), peak device memory "
+              f"{peak_gib[key]:.2f} GiB (the default clean "
+              f"{peak_gib['default']:.2f} GiB), zapped "
+              f"{int((r.final_weights == 0).sum())} {tag}", flush=True)
+        if c != want or (r.loops, r.converged) != (1, True) \
+                or not np.all(np.isfinite(r.final_weights)):
+            fail(f"{key}: launches {c}, want K6, K3 x 2 and the combine once")
+    s64 = res["quicklook f64"].scores
+    flips = np.argwhere((res["quicklook"].final_weights == 0)
+                        != (res["quicklook f64"].final_weights == 0))
+    near = [abs(float(s64[i, c]) - 1.0) for i, c in flips]
+    print(f"quicklook: float32 against float64 on the card: {len(flips)} "
+          f"flips (cap {MAX_BORDERLINE_FLIPS}), the float64 |score - 1| of "
+          f"each {[round(x, 5) for x in near]} (limit {FLIP_NOISE_ENV})",
+          flush=True)
+    if len(flips) > MAX_BORDERLINE_FLIPS or any(x > FLIP_NOISE_ENV
+                                                for x in near):
+        fail("quicklook: float32 mask outside the flip rule of float64's")
+
+    cfg = CleanConfig()
+    w = upload(ar.weights, dev)
+    mask = w == 0
+    ded = quicklook_prepare(upload(ar.total_intensity(), dev), w,
+                            *upload_meta(ar.freqs_mhz, ar.dm,
+                                         ar.centre_freq_mhz, ar.period_s,
+                                         dev), cfg, dedispersed=False)
+    nbin = ded.shape[-1]
+    zero = torch.zeros(nbin, device=dev)
+    ones = torch.ones(nbin, device=dev)
+    diags = K.cell_diagnostics_dedisp(ded, zero, ones, w, mask)
+    plain = K.cell_diagnostics_dedisp_plain(ded, zero, ones, w, mask)
+    err, ok = diags_check(diags, plain, mask, torch)
+    _, scores = scores_and_zap(diags, mask, w, 5.0, 5.0)
+    _, s_flip = scores_and_zap((diags[0], -diags[1], diags[2], diags[3]),
+                               mask, w, 5.0, 5.0)
+    n_sign = bits_mismatch(s_flip, scores, torch)
+    n_run = bits_mismatch(scores.cpu(), torch.from_numpy(
+        res["quicklook"].scores), torch)
+    k6_ms = cuda_ms(lambda: K.cell_diagnostics_dedisp(ded, zero, ones, w,
+                                                      mask), 5, torch)
+    print(f"quicklook: K6 with a zero template and a ones window against "
+          f"its plain version: max abs error {err:.3e} (rtol {K2_RTOL:g} of "
+          f"each plane's scale, masked cells bit-equal): {ok}; scores with "
+          f"d_mean's sign flipped back: {n_sign} cells differ in bits; "
+          f"against the quicklook run's scores {n_run}; K6 {k6_ms:.4f} ms "
+          f"{tag}", flush=True)
+    if not ok or n_sign or n_run:
+        fail("quicklook: K6's zero-template planes or scores disagree")
+    del ded, diags, plain, scores, s_flip
+
+    small, _ = make_synthetic_archive(**QUICKLOOK_TWIN_ARCHIVE)
+    t0 = time.perf_counter()
+    twin = quicklook(small, CleanConfig(backend="numpy"))
+    twin_s = time.perf_counter() - t0
+    card = quicklook(small, CleanConfig(dtype="float64"))
+    n_bits = int((twin.final_weights != card.final_weights).sum())
+    print(f"quicklook: float64 on the card against the numpy twin on "
+          f"{tuple(QUICKLOOK_TWIN_ARCHIVE[k] for k in ('nsub', 'nchan', 'nbin'))}"
+          f": {n_bits} weights differ (tolerance 0), "
+          f"{int((twin.final_weights == 0).sum())} zapped, the twin "
+          f"{twin_s:.2f} s on the host, max |score difference| "
+          f"{float(np.nanmax(np.abs(twin.scores - card.scores))):.3e} {tag}",
+          flush=True)
+    if n_bits:
+        fail("quicklook: the float64 card mask differs from the numpy twin")
+
+
+def sweep_phase(tag):
+    """``tools sweep --device cuda`` over a SWEEP_GRID x SWEEP_GRID grid of
+    thresholds on a 64 x 128 x 128 archive, for both models, each row
+    held to an in-process clean on the card; prints the seconds."""
+    from iterative_cleaner_torch import CleanConfig, tools
+    from iterative_cleaner_torch.io import save_archive
+    from iterative_cleaner_torch.io.synthetic import make_synthetic_archive
+    from iterative_cleaner_torch.models import get_model
+
+    ar, _ = make_synthetic_archive(**SWEEP_ARCHIVE)
+    with tempfile.TemporaryDirectory(prefix="icln_chip_smoke_sweep_") as wd:
+        path = os.path.join(wd, "sweep.npz")
+        save_archive(ar, path)
+        for model in ("surgical_scrub", "quicklook"):
+            t0 = time.perf_counter()
+            rc, text = captured(tools.main, [
+                "sweep", path, "--device", "cuda", "--model", model,
+                "-c", *SWEEP_GRID, "-s", *SWEEP_GRID])
+            seconds = time.perf_counter() - t0
+            rows = [json.loads(ln) for ln in text.splitlines()]
+            bad = [r for r in rows if r["rfi_frac"] != round(get_model(model)(
+                ar, CleanConfig(chanthresh=r["chanthresh"],
+                                subintthresh=r["subintthresh"])
+            ).rfi_fraction, 6)]
+            print(f"sweep: tools sweep --model {model} --device cuda, "
+                  f"{len(rows)} points in {seconds:.2f} s, zap fractions "
+                  f"{[r['rfi_frac'] for r in rows]}, {len(bad)} rows off "
+                  f"the in-process cleans {tag}", flush=True)
+            if rc != 0 or len(rows) != len(SWEEP_GRID) ** 2 or bad:
+                fail(f"sweep: --model {model} rows differ from in-process "
+                     f"cleans")
 
 
 def main() -> int:
@@ -2504,6 +2951,11 @@ def main() -> int:
     print(f"residual of pulse_unload: {res.shape} {res.dtype}, finite",
           flush=True)
     results["pulse_unload"].residual = res = None   # 2 GB of host memory
+
+    # ---- 3m. --model quicklook on the card: K6 (zero template), K3 x 2
+    # and the combine, float32 and float64; tools sweep on both models
+    quicklook_phase(ar, counts, clean_ms, peak_gib, dev, tag)
+    sweep_phase(tag)
 
     # ---- 3j. batches of equal-shaped archives (parallel/batch.py), each
     # kernel launched once per batch iteration: (a) BATCH_SEEDS small

@@ -30,7 +30,14 @@ the kernels' float64 builds on the card) on every single-card route and
 in both streaming modes; ``CleanConfig(backend="numpy")`` (the CLI's
 ``--backend numpy``) cleans on the port's own float64 numpy oracle on
 the host, which ``python -m iterative_cleaner_torch.tools selftest``
-holds the card's float64 masks to.
+holds the card's float64 masks to.  The CLI also resumes a batch from
+its checkpoints (``--checkpoint``, :mod:`iterative_cleaner_torch.utils.
+checkpoint`, the reference's file format), cleans with the single-pass
+quicklook (``--model quicklook``, :mod:`iterative_cleaner_torch.models`:
+K6, K3 and the combine on the card) and captures a ``torch.profiler``
+trace of a session (``--trace``, :mod:`iterative_cleaner_torch.utils.
+tracing`); the tools diff checkpoints and archives, sweep thresholds and
+list borderline decisions.
 
 Entry points run on the card (``CleanConfig.device`` defaults to
 ``"cuda"``); ``device="cpu"`` runs every kernel's plain PyTorch version
@@ -47,14 +54,16 @@ Layout, host boundary first:
 - :mod:`~iterative_cleaner_torch.engine` — the iteration loop
 - :mod:`~iterative_cleaner_torch.backends` — ``clean_archive`` (the
   torch engine or the numpy oracle)
+- :mod:`~iterative_cleaner_torch.models` — the cleaning strategies by
+  name: the flagship ``surgical_scrub`` and ``quicklook``
 - :mod:`~iterative_cleaner_torch.parallel` — ``clean_streaming``,
   ``clean_archive_sharded``, ``clean_archives_batched``
 - :mod:`~iterative_cleaner_torch.telemetry`,
   :mod:`~iterative_cleaner_torch.utils` — the CLI session's run report,
-  metrics, event log and ``clean.log``
+  metrics, event log and ``clean.log``, the checkpoints and the trace
 - :mod:`~iterative_cleaner_torch.cli` — ``python -m iterative_cleaner_torch``;
-  :mod:`~iterative_cleaner_torch.tools` — ``info``, ``convert`` and
-  ``selftest``
+  :mod:`~iterative_cleaner_torch.tools` — ``info``, ``convert``,
+  ``selftest``, ``diff``, ``sweep`` and ``borderline``
 """
 
 __version__ = "0.1.0"

@@ -4,7 +4,8 @@
 [-l] [-r] [-o] [--memory] [--bad_chan] [--bad_subint] [--backend
 torch|numpy] [--rotation fourier|roll] [--baseline_mode] [--stats_frame]
 [--compute-dtype float32|bfloat16] [--record_history] [--device]
-[--stream N [--stream_mode exact|online]
+[--model surgical_scrub|quicklook|online_ewt] [--checkpoint DIR]
+[--trace DIR] [--stream N [--stream_mode exact|online]
 [--stream_hbm_mb MB]] [--batch B] [--mesh off|cell|batch] [--prefetch N]
 [--io-workers N]
 [--metrics-json PATH] [--prom-textfile PATH] [--event-log PATH]
@@ -39,8 +40,26 @@ or with ``--stream N`` in both modes; with ``--batch B > 1`` or a mesh it
 is a parser error, as in the reference.
 ``--memory`` is accepted and does nothing (the reference's compatibility
 flag: the input is never mutated); ``--record_history`` keeps every
-iteration's weights in the clean's result, as the reference does, and
-writes nothing more.
+iteration's weights in the clean's result (and its checkpoint), as the
+reference does.
+``--checkpoint DIR`` saves each archive's cleaning state in DIR
+(``utils/checkpoint.py``) after a fresh clean, and an archive whose
+content and config still match its checkpoint is not cleaned again: it
+prints ``Resumed from checkpoint: PATH`` and is written, logged and
+recorded in the run report as a cleaned one.  On ``--mesh cell`` rank 0
+takes the resume decision and broadcasts it before any collective, and
+rank 0 alone saves.
+``--model quicklook`` cleans with the single-pass template-free
+quicklook (``models/quicklook.py``: K6, K3 twice and the combine on the
+card); ``--model online_ewt`` is not ported (ROADMAP.md 'Modules still to
+port' item 5).  ``--checkpoint`` and a model other than the flagship each
+refuse what the reference's parser refuses (exit 2).
+``--trace DIR`` captures a ``torch.profiler`` trace of the whole session
+into ``DIR/trace.rank<r>.json`` (``utils/tracing.py``: the host phases
+``icln:load``/``icln:clean``/``icln:write``, each iteration's
+``icln_template``, ``icln_residual_stats``, ``icln_scores`` and
+``icln_zap`` ranges, and on a card its kernels); every rank of a mesh
+writes its own file.
 ``--stream N`` cleans in N-subint tiles (``parallel/streaming.py``).
 ``--mesh cell`` cleans each archive over the ranks of a
 ``torch.distributed`` job (``parallel/sharding.py``; with ``--stream N``
@@ -62,9 +81,8 @@ ignored with B > 1.  ``--mesh batch`` splits each group over the ranks
 of a ``torchrun`` job (``torchrun --nproc_per_node N -m
 iterative_cleaner_torch --batch B --mesh batch ...``): each rank cleans
 its share, rank 0 writes.
-Not ported yet: ``--checkpoint`` and ``--model`` (ROADMAP.md 'Modules still
-to port' item 2c), the live ``--stream DIR`` session (item 5), ``--fleet``
-(item 3).
+Not ported yet: the live ``--stream DIR`` session (ROADMAP.md 'Modules
+still to port' item 5), ``--fleet`` (item 3).
 """
 
 from __future__ import annotations
@@ -78,12 +96,24 @@ import sys
 from iterative_cleaner_torch.config import (
     BACKENDS,
     MESH_MODES,
+    ROADMAP_ONLINE,
     CleanConfig,
     check_mesh,
 )
 from iterative_cleaner_torch.io import load_archive, peek_shape, save_archive
+from iterative_cleaner_torch.models import (
+    ONLINE_EWT,
+    ONLINE_EWT_NOT_PORTED,
+    QUICKLOOK,
+    SURGICAL_SCRUB,
+    get_model,
+)
 from iterative_cleaner_torch.telemetry import RunTelemetry
+from iterative_cleaner_torch.utils import checkpoint as ckpt
 from iterative_cleaner_torch.utils.logging import append_clean_log
+from iterative_cleaner_torch.utils.tracing import device_trace
+
+MODELS = (SURGICAL_SCRUB, QUICKLOOK, ONLINE_EWT)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -155,7 +185,26 @@ def build_parser() -> argparse.ArgumentParser:
                         "environment variable, else float32.")
     p.add_argument("--record_history", action="store_true",
                    help="Keep every iteration's weight matrix in the "
-                        "clean's result (regression diffing).")
+                        "result/checkpoint (regression diffing).")
+    p.add_argument("--checkpoint", type=str, default="", metavar="DIR",
+                   help="Checkpoint directory: each archive's cleaning "
+                        "state is saved there, and re-runs reuse "
+                        "checkpoints whose input content and config "
+                        "still match (batch resume).")
+    p.add_argument("--trace", type=str, default="", metavar="DIR",
+                   help="Capture a torch.profiler trace of the whole run "
+                        "into DIR (Chrome/Perfetto JSON, one file per "
+                        "rank). Engine stages appear as icln_template / "
+                        "icln_residual_stats / icln_scores / icln_zap "
+                        "ranges; host phases as icln:load etc.")
+    p.add_argument("--model", choices=MODELS, default="surgical_scrub",
+                   help="Cleaning strategy: the flagship iterative "
+                        "surgical scrub (reference algorithm); the "
+                        "single-pass template-free quicklook triage "
+                        "cleaner (models/quicklook.py; no template stage, "
+                        "so --max_iter, -r/--pulse_region and "
+                        "--stats_frame do not apply); or online_ewt, the "
+                        "online mode's pass (not ported yet).")
     p.add_argument("--stats_frame",
                    choices=("auto", "dispersed", "dedispersed"),
                    default="auto",
@@ -255,8 +304,7 @@ def stream_chunk(value: str) -> int:
     except ValueError:
         raise NotImplementedError(
             f"--stream {value!r}: the live online session over a "
-            f"directory is not ported yet: ROADMAP.md 'Modules still to "
-            f"port' item 5 (online)") from None
+            f"directory is not ported yet: {ROADMAP_ONLINE}") from None
     if chunk < 0:
         raise ValueError(f"--stream must be >= 0, got {chunk}")
     return chunk
@@ -345,6 +393,28 @@ def iter_archives(paths, prefetch: int, workers: int = 1):
                 next_i += 1
 
 
+def resume_checkpoint(directory: str, in_path: str, ar, cfg: CleanConfig,
+                      mesh=None):
+    """``(resumed, result)``: whether the checkpoint of ``in_path`` in
+    ``directory`` still matches the archive and ``cfg``, and its result.
+    On a cell ``mesh`` rank 0 alone reads the checkpoint, and its decision
+    reaches every rank (an int32 all-reduce) before any collective of the
+    clean: a rank that read a file caught mid-replace while another
+    resumed would leave the job waiting.  The other ranks get
+    ``(resumed, None)``."""
+    lead = mesh is None or mesh.rank == 0
+    result = ckpt.load_matching_checkpoint(directory, in_path, ar, cfg) \
+        if lead else None
+    resumed = result is not None
+    if mesh is not None:
+        import torch
+
+        flag = torch.tensor([int(resumed)], dtype=torch.int32,
+                            device=mesh.device)
+        resumed = bool(mesh.reduce_int(flag, "max")[0])
+    return resumed, result
+
+
 def clean_one(in_path: str, args, telemetry: RunTelemetry, mesh=None,
               preloaded=None, result=None):
     """Load, clean and write one archive, its phases timed into the
@@ -352,13 +422,12 @@ def clean_one(in_path: str, args, telemetry: RunTelemetry, mesh=None,
     the output's name.  ``preloaded`` is the ``--prefetch`` loader's
     future, read inside the load phase (which then times the wait), or
     the loaded archive itself; ``result`` a clean already computed (the
-    ``--batch`` path), which skips the clean.  Under ``mesh`` (``--mesh
-    cell``) every rank cleans its block and only rank 0 reports, writes
-    and records (the others return None)."""
-    from iterative_cleaner_torch.backends import (
-        clean_archive,
-        clean_archive_sharded,
-    )
+    ``--batch`` path), which skips the clean.  With ``--checkpoint`` a
+    matching checkpoint stands for the clean (:func:`resume_checkpoint`),
+    and a fresh clean's result is saved.  Under ``mesh`` (``--mesh
+    cell``) every rank cleans its block and only rank 0 reports, writes,
+    saves and records (the others return None)."""
+    from iterative_cleaner_torch.backends import clean_archive_sharded
     from iterative_cleaner_torch.parallel import clean_streaming
 
     timer = telemetry.registry.timer
@@ -374,7 +443,14 @@ def clean_one(in_path: str, args, telemetry: RunTelemetry, mesh=None,
     if say:
         print("Total number of profiles: %s" % ar.weights.size)
     chunk = stream_chunk(args.stream)
-    if result is None:
+    resumed = False
+    if result is None and args.checkpoint:
+        resumed, result = resume_checkpoint(args.checkpoint, in_path, ar,
+                                            cfg, mesh)
+        if resumed and say:
+            print("Resumed from checkpoint: %s"
+                  % ckpt.checkpoint_path(args.checkpoint, in_path))
+    if result is None and not resumed:
         with timer.phase("clean"):
             notice_compute_dtype_downgrade(cfg, telemetry)
             if chunk > 0:
@@ -383,9 +459,15 @@ def clean_one(in_path: str, args, telemetry: RunTelemetry, mesh=None,
             elif mesh is not None:
                 result = clean_archive_sharded(ar, cfg, mesh)
             else:
-                result = clean_archive(ar, cfg)
+                result = get_model(args.model)(ar, cfg)
     if result is None:
         return None
+    if args.checkpoint and not resumed:
+        os.makedirs(args.checkpoint, exist_ok=True)
+        ckpt.save_clean_checkpoint(
+            ckpt.checkpoint_path(args.checkpoint, in_path), result, cfg,
+            ckpt.fingerprint_archive(ar),
+            file_sig=ckpt.file_signature(in_path))
     if say:
         if result.loop_diffs is not None:   # the online mode has none
             for i, (d, f) in enumerate(zip(result.loop_diffs,
@@ -432,17 +514,20 @@ def clean_one(in_path: str, args, telemetry: RunTelemetry, mesh=None,
 
 
 @contextlib.contextmanager
-def run_session(args, lead: bool = True):
+def run_session(args, lead: bool = True, rank: int = 0):
     """One CLI session: yields its :class:`RunTelemetry` (``run_start``
     emitted), and at its end, however it ends, writes the metric exports
     and ``run_end`` and prints the one ``--timing`` report.  A rank other
     than the ``lead`` (rank 0 of ``--mesh cell``) gets a telemetry with
-    nothing configured and prints nothing."""
+    nothing configured and prints nothing.  With ``--trace DIR`` the
+    session runs under :func:`~iterative_cleaner_torch.utils.tracing.
+    device_trace`, which writes this ``rank``'s trace file."""
     telemetry = RunTelemetry.from_args(args) if lead else RunTelemetry()
     if telemetry.events is not None:
         telemetry.events.emit("run_start", n_archives=len(args.archive))
     try:
-        yield telemetry
+        with device_trace(args.trace, rank):
+            yield telemetry
     finally:
         telemetry.finalize()
         if args.timing and lead:
@@ -482,7 +567,7 @@ def run_batched(args, telemetry: RunTelemetry, mesh=None) -> list:
 
     lead = mesh is None or mesh.rank == 0
     # the batch keeps no weight history, and the session writes none
-    # (only a checkpoint would, ROADMAP item 2c)
+    # (only a checkpoint would, and --batch refuses --checkpoint)
     cfg = dataclasses.replace(config_of(args), record_history=False)
     phase = telemetry.registry.timer.phase
     paths = bucket_by_shape(list(args.archive))
@@ -546,7 +631,8 @@ def run_archives(args, mesh=None) -> int:
     (without it a failure raises)."""
     lead = mesh is None or mesh.rank == 0
     failed = []
-    with run_session(args, lead) as telemetry:
+    with run_session(args, lead, 0 if mesh is None else mesh.rank) \
+            as telemetry:
         if args.batch > 1:
             failed = run_batched(args, telemetry, mesh)
         else:
@@ -580,10 +666,25 @@ def main(argv=None) -> int:
         parser.error(f"--io-workers must be >= 1, got {args.io_workers}")
     # refuse a directory, and what the mesh does not run, before any clean
     chunk = stream_chunk(args.stream)
-    if args.batch > 1 and (args.unload_res or chunk > 0
+    if args.batch > 1 and (args.unload_res or chunk > 0 or args.checkpoint
                            or args.mesh == "cell"):
-        parser.error("--batch is incompatible with --unload_res, --stream "
-                     "and --mesh cell")
+        parser.error("--batch is incompatible with --unload_res, --stream, "
+                     "--checkpoint and --mesh cell")
+    if args.model != SURGICAL_SCRUB and (args.batch > 1 or args.unload_res
+                                         or args.checkpoint
+                                         or args.record_history
+                                         or args.mesh != "off"):
+        parser.error(
+            "--model %s is incompatible with --batch/--unload_res/"
+            "--checkpoint/--record_history/--mesh (single-pass: no "
+            "residual, no weight history; checkpoints are keyed to the "
+            "flagship strategy)" % args.model)
+    if chunk > 0 and (args.checkpoint or args.model != SURGICAL_SCRUB):
+        parser.error("--stream is incompatible with --checkpoint and "
+                     "--model quicklook (checkpoints are keyed to "
+                     "whole-archive cleaning)")
+    if args.model == ONLINE_EWT:
+        raise NotImplementedError(ONLINE_EWT_NOT_PORTED)
     if args.mesh == "batch" and args.batch <= 1:
         parser.error("--mesh batch splits the --batch groups over the "
                      "ranks; pass --batch B (B > 1)")

@@ -29,6 +29,7 @@ from typing import Optional, Tuple
 # ROADMAP.md "Modules still to port" items the refusals point at.
 ROADMAP_F64_MESH = ("ROADMAP.md 'Modules still to port' item 1b (float64 "
                     "on a mesh and in a batch)")
+ROADMAP_ONLINE = "ROADMAP.md 'Modules still to port' item 5 (online)"
 
 BACKENDS = ("torch", "numpy")
 

@@ -20,6 +20,12 @@
 
 - Every route's iteration also takes the residual-std telemetry value,
   the masked median of the unmasked cells' ``d_std`` (kernel K9).
+- Each stage runs under a ``torch.profiler`` range of the reference's
+  scope name (``utils/tracing.stage``): ``icln_template``,
+  ``icln_residual_stats`` (the cell kernel), ``icln_scores`` (K3 along
+  each axis), ``icln_zap`` (the combine kernel's 4-way median and zap)
+  and ``icln_iter_metrics`` (K9), so a ``--trace`` file shows them; with
+  no profiler on a range is one flag check.
 - Convergence is cycle detection against every earlier weight matrix,
   held in a ``(max_iter+1)``-deep history seeded with the original
   weights.  That flag is the loop's only host synchronisation; the
@@ -113,6 +119,7 @@ from iterative_cleaner_torch.stats.kernels import (
     shard_diagnostics_disp,
     weighted_marginals,
 )
+from iterative_cleaner_torch.utils.tracing import stage
 
 # columns of CleanOutputs.iter_metrics
 ITER_METRICS_WIDTH = 4  # zap_count, mask_churn, residual_std, template_peak
@@ -578,21 +585,37 @@ def iteration_step(prep: Prepared, weights, orig_weights, cell_mask, *,
     residual_std, template_peak)``, the last two as device scalars for
     the telemetry rows ((B,) for a batch: each kernel launched once for
     the whole batch)."""
-    template = build_template(prep, weights, rotation=rotation,
-                              baseline_duty=baseline_duty, mesh=mesh)
+    with stage("icln_template"):
+        template = build_template(prep, weights, rotation=rotation,
+                                  baseline_duty=baseline_duty, mesh=mesh)
     if mesh is not None:
         new_weights, scores, rstd = _sharded_sweep(
             prep, template, orig_weights, cell_mask, mesh,
             chanthresh=chanthresh, subintthresh=subintthresh,
             rotation=rotation)
         return new_weights, scores, rstd, torch.max(template)
-    diags = route_diagnostics(prep, template, orig_weights, cell_mask,
-                             rotation=rotation)
-    chan = scaled_sides(diags, cell_mask, 0, chanthresh)
-    sub = scaled_sides(diags, cell_mask, 1, subintthresh)
-    new_weights, scores = combine_zap(chan, sub, orig_weights)
-    return (new_weights, scores, residual_std(diags[0], cell_mask),
-            torch.amax(template, dim=-1))
+    with stage("icln_residual_stats"):
+        diags = route_diagnostics(prep, template, orig_weights, cell_mask,
+                                  rotation=rotation)
+    new_weights, scores = scores_and_zap(diags, cell_mask, orig_weights,
+                                         chanthresh, subintthresh)
+    with stage("icln_iter_metrics"):
+        return (new_weights, scores, residual_std(diags[0], cell_mask),
+                torch.amax(template, dim=-1))
+
+
+def scores_and_zap(diags, cell_mask, orig_weights, chanthresh,
+                   subintthresh):
+    """``(new_weights, scores)`` of the four diagnostic planes: K3 along
+    each axis (the ``icln_scores`` range), then the combine kernel's
+    4-way median and zap (the ``icln_zap`` range: one kernel takes the
+    median and the zap, so the reference's last ``icln_scores`` step, the
+    median, runs under ``icln_zap`` here)."""
+    with stage("icln_scores"):
+        chan = scaled_sides(diags, cell_mask, 0, chanthresh)
+        sub = scaled_sides(diags, cell_mask, 1, subintthresh)
+    with stage("icln_zap"):
+        return combine_zap(chan, sub, orig_weights)
 
 
 def _sharded_sweep(prep: Prepared, template, orig_weights, cell_mask, mesh,
@@ -609,22 +632,29 @@ def _sharded_sweep(prep: Prepared, template, orig_weights, cell_mask, mesh,
         tree_combine_zap,
     )
 
+    with stage("icln_residual_stats"):
+        if prep.route == "two_read":
+            diags = route_diagnostics(prep, template, orig_weights,
+                                      cell_mask, rotation=rotation)
+        elif prep.route == "dedispersed":
+            diags = shard_diagnostics_dedisp(prep.ded, template, prep.window,
+                                             orig_weights, cell_mask)
+        else:
+            rot_t, nyq_row = _dispersed_rows(prep, template, rotation)
+            diags = shard_diagnostics_disp(prep.disp_base, rot_t, nyq_row,
+                                           template, orig_weights, cell_mask)
     if prep.route == "two_read":
-        diags = route_diagnostics(prep, template, orig_weights, cell_mask,
-                                  rotation=rotation)
-        new_weights, scores, d_std, whole_mask = sharded_scale_and_combine(
+        # the gathered planes are whole on every rank
+        new_weights, scores, d_std, d_mask = sharded_scale_and_combine(
             mesh, diags, orig_weights, chanthresh, subintthresh)
-        return new_weights, scores, residual_std(d_std, whole_mask)
-    if prep.route == "dedispersed":
-        diags = shard_diagnostics_dedisp(prep.ded, template, prep.window,
-                                         orig_weights, cell_mask)
+        d_mesh = None
     else:
-        rot_t, nyq_row = _dispersed_rows(prep, template, rotation)
-        diags = shard_diagnostics_disp(prep.disp_base, rot_t, nyq_row,
-                                       template, orig_weights, cell_mask)
-    new_weights, scores = tree_combine_zap(diags, cell_mask, orig_weights,
-                                           chanthresh, subintthresh, mesh)
-    return new_weights, scores, residual_std(diags[0], cell_mask, mesh)
+        new_weights, scores = tree_combine_zap(
+            diags, cell_mask, orig_weights, chanthresh, subintthresh, mesh)
+        d_std, d_mask, d_mesh = diags[0], cell_mask, mesh
+    with stage("icln_iter_metrics"):
+        rstd = residual_std(d_std, d_mask, d_mesh)
+    return new_weights, scores, rstd
 
 
 def residual_std(d_std, cell_mask, mesh=None):

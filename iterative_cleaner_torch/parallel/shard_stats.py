@@ -42,6 +42,7 @@ from iterative_cleaner_torch.stats.masked_torch import (
     _masked_side,
     inverse_threshold,
 )
+from iterative_cleaner_torch.utils.tracing import stage
 
 _INT32_MIN, _INT32_MAX = -2 ** 31, 2 ** 31 - 1
 
@@ -155,9 +156,12 @@ def tree_combine_zap(diagnostics, cell_mask, orig_weights, chanthresh,
     :func:`tree_scaled_sides`, then the combine kernel on the shard (an
     elementwise max, 4-way median and zap).  Returns ``(new_weights,
     scores)``, bit-equal to the whole planes' K3 x 2 + combine."""
-    chan = tree_scaled_sides(diagnostics, cell_mask, 0, chanthresh, mesh)
-    sub = tree_scaled_sides(diagnostics, cell_mask, 1, subintthresh, mesh)
-    return combine_zap(chan, sub, orig_weights)
+    with stage("icln_scores"):
+        chan = tree_scaled_sides(diagnostics, cell_mask, 0, chanthresh, mesh)
+        sub = tree_scaled_sides(diagnostics, cell_mask, 1, subintthresh,
+                                mesh)
+    with stage("icln_zap"):
+        return combine_zap(chan, sub, orig_weights)
 
 
 def sharded_scale_and_combine(mesh, diagnostics, orig_weights, chanthresh,
@@ -173,12 +177,14 @@ def sharded_scale_and_combine(mesh, diagnostics, orig_weights, chanthresh,
     ``(new_weights, scores, d_std, cell_mask)``, the last two the whole
     planes the residual-std telemetry reads."""
     s, c = orig_weights.shape
-    whole = mesh.gather_cells(torch.stack([*diagnostics, orig_weights]))
-    diags, weights = tuple(whole[:4]), whole[4]
-    cell_mask = weights == 0
-    chan = scaled_sides(diags, cell_mask, 0, chanthresh)
-    sub = scaled_sides(diags, cell_mask, 1, subintthresh)
-    new_w, scores = combine_zap(chan, sub, weights)
+    with stage("icln_scores"):
+        whole = mesh.gather_cells(torch.stack([*diagnostics, orig_weights]))
+        diags, weights = tuple(whole[:4]), whole[4]
+        cell_mask = weights == 0
+        chan = scaled_sides(diags, cell_mask, 0, chanthresh)
+        sub = scaled_sides(diags, cell_mask, 1, subintthresh)
+    with stage("icln_zap"):
+        new_w, scores = combine_zap(chan, sub, weights)
     i, j = mesh.coords
     block = (slice(i * s, (i + 1) * s), slice(j * c, (j + 1) * c))
     return (new_w[block].contiguous(), scores[block].contiguous(),

@@ -15,9 +15,24 @@
   a card it exits 1 unless ``--device cpu`` is given: it never falls back
   to the CPU.
 
-``diff``, ``sweep`` and ``borderline`` are parsed as the reference
-package's tools parse them and raise ``NotImplementedError``: ROADMAP.md
-'Modules still to port' item 2c (checkpoints and models).
+- ``diff A B``: the mask regression diff of two checkpoints
+  (``--checkpoint``, either package's), two cleaned archives or one of
+  each, as one JSON object; exit 1 when the masks differ.  Only the
+  weights are read (``.icar`` by header offset, PSRFITS by its header
+  and weights column, ``.npz`` member by member), never the cube.
+- ``sweep PATH``: the archive loaded once and cleaned across a
+  ``-c`` x ``-s`` threshold grid, one JSON line per point (zap fractions,
+  loops, convergence), with ``--model`` (the flagship or quicklook),
+  ``--backend torch|numpy`` and ``--device`` (default ``cuda``).
+- ``borderline PATH``: one clean, then every decision whose score lies
+  within ``--eps`` of the threshold, one JSON line per cell and a
+  summary: the cells whose zap a float32 clean may decide differently
+  from the float64 oracle (``--backend numpy``, the default) or under
+  other thresholds.  ``--backend torch`` cleans on ``--device``.
+
+Every command that cleans on the torch backend runs on ``--device``
+(default ``cuda``) and raises where no card is present unless
+``--device cpu`` is given: none falls back to the CPU.
 """
 
 from __future__ import annotations
@@ -29,8 +44,100 @@ import zipfile
 
 import numpy as np
 
-_NOT_PORTED = ("is not ported yet (ROADMAP.md 'Modules still to port' item "
-               "2c: checkpoints and models)")
+
+def _is_checkpoint(path: str) -> bool:
+    """Whether ``path`` is an ``.npz`` checkpoint (any unreadable or
+    foreign file is not one: an archive)."""
+    try:
+        with np.load(path, allow_pickle=False) as z:
+            return "version" in z.files and "final_weights" in z.files
+    except (OSError, ValueError, EOFError, zipfile.BadZipFile):
+        return False
+
+
+def _load_weights(path: str):
+    """The (nsub, nchan) weights of a checkpoint or an archive, never its
+    cube."""
+    from iterative_cleaner_torch.io import native, psrfits
+
+    if path.endswith(".icar"):
+        return native.read_icar_weights(path)
+    if psrfits.is_fits(path):
+        return psrfits.read_psrfits_info(path)[1]
+    with np.load(path, allow_pickle=False) as z:
+        return z["final_weights" if "final_weights" in z.files
+                 else "weights"]
+
+
+def cmd_diff(args) -> int:
+    from iterative_cleaner_torch.utils import checkpoint as ckpt
+
+    if _is_checkpoint(args.a) and _is_checkpoint(args.b):
+        out = ckpt.diff_checkpoints(args.a, args.b)
+    else:
+        out = ckpt.diff_masks(_load_weights(args.a), _load_weights(args.b))
+    print(json.dumps(out))
+    return 1 if out["changed"] else 0
+
+
+def _clean_config(args, **thresholds):
+    from iterative_cleaner_torch.config import CleanConfig
+
+    return CleanConfig(backend=args.backend, max_iter=args.max_iter,
+                       device=args.device, **thresholds)
+
+
+def cmd_sweep(args) -> int:
+    """The reference's rows: thresholds, the final and the newly zapped
+    fractions (rounded to 6 places), loops and convergence."""
+    from iterative_cleaner_torch.io import load_archive
+    from iterative_cleaner_torch.models import get_model
+
+    ar = load_archive(args.path)
+    prezap = np.asarray(ar.weights) == 0
+    clean_fn = get_model(args.model)
+    for c in args.chanthresh:
+        for s in args.subintthresh:
+            res = clean_fn(ar, _clean_config(args, chanthresh=float(c),
+                                             subintthresh=float(s)))
+            new = res.zap_mask() & ~prezap
+            print(json.dumps({
+                "chanthresh": float(c), "subintthresh": float(s),
+                "rfi_frac": round(res.rfi_fraction, 6),
+                "new_zap_frac": round(float(new.mean()), 6),
+                "loops": int(res.loops),
+                "converged": bool(res.converged),
+            }), flush=True)
+    return 0
+
+
+def cmd_borderline(args) -> int:
+    """The cells whose final score is within ``--eps`` of 1, pre-zapped
+    cells left out (they stay zapped whatever their score: not
+    decisions), then the reference's summary line."""
+    from iterative_cleaner_torch.io import load_archive
+    from iterative_cleaner_torch.models import get_model
+
+    ar = load_archive(args.path)
+    prezap = np.asarray(ar.weights) == 0
+    res = get_model(args.model)(ar, _clean_config(
+        args, chanthresh=args.chanthresh, subintthresh=args.subintthresh))
+    s = np.asarray(res.scores, dtype=np.float64)
+    zapped = res.zap_mask()
+    band = np.isfinite(s) & (np.abs(s - 1.0) < args.eps) & ~prezap
+    for isub, ichan in np.argwhere(band):
+        print(json.dumps({
+            "isub": int(isub), "ichan": int(ichan),
+            "score": round(float(s[isub, ichan]), 6),
+            "zapped": bool(zapped[isub, ichan]),
+        }), flush=True)
+    print(json.dumps({
+        "total_cells": int(s.size),
+        "borderline": int(band.sum()),
+        "zapped_borderline": int((band & zapped).sum()),
+        "eps": args.eps, "loops": int(res.loops),
+    }), flush=True)
+    return 0
 
 
 def cmd_convert(args) -> int:
@@ -130,21 +237,31 @@ def cmd_selftest(args) -> int:
     return 0
 
 
-def _not_ported(args) -> int:
-    raise NotImplementedError(f"tools {args.cmd} {_NOT_PORTED}")
+def _clean_options(p, default_backend: str) -> None:
+    """The options of a command that cleans: ``-m``, ``--backend``,
+    ``--model`` and ``--device``."""
+    p.add_argument("-m", "--max_iter", type=int, default=5)
+    p.add_argument("--backend", choices=("torch", "numpy"),
+                   default=default_backend)
+    p.add_argument("--model", choices=("surgical_scrub", "quicklook"),
+                   default="surgical_scrub")
+    p.add_argument("--device", default="cuda",
+                   help="torch device of --backend torch (default cuda; "
+                        "cpu runs the kernels' plain versions)")
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="python -m iterative_cleaner_torch.tools",
-        description="Container utilities of the port")
+        description="Checkpoint/regression and container utilities of the "
+                    "port")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
     p = sub.add_parser("diff", help="mask diff of two checkpoints/archives "
-                                    "(not ported yet)")
+                                    "(exit 1 if masks differ)")
     p.add_argument("a")
     p.add_argument("b")
-    p.set_defaults(fn=_not_ported)
+    p.set_defaults(fn=cmd_diff)
 
     p = sub.add_parser("convert", help="convert between archive containers")
     p.add_argument("src")
@@ -155,30 +272,28 @@ def main(argv=None) -> int:
     p.add_argument("path")
     p.set_defaults(fn=cmd_info)
 
-    p = sub.add_parser("sweep", help="threshold sweep (not ported yet)")
+    p = sub.add_parser("sweep",
+                       help="clean one archive across a chanthresh x "
+                            "subintthresh grid; one JSON line per point "
+                            "(zap fractions, loops)")
     p.add_argument("path")
     p.add_argument("-c", "--chanthresh", type=float, nargs="+",
                    default=[3.0, 4.0, 5.0, 6.0, 8.0])
     p.add_argument("-s", "--subintthresh", type=float, nargs="+",
                    default=[3.0, 4.0, 5.0, 6.0, 8.0])
-    p.add_argument("-m", "--max_iter", type=int, default=5)
-    p.add_argument("--backend", choices=("jax", "numpy"), default="jax")
-    p.add_argument("--model", choices=("surgical_scrub", "quicklook"),
-                   default="surgical_scrub")
-    p.set_defaults(fn=_not_ported)
+    _clean_options(p, default_backend="torch")
+    p.set_defaults(fn=cmd_sweep)
 
     p = sub.add_parser("borderline",
-                       help="zap decisions near the threshold (not ported "
-                            "yet)")
+                       help="list zap decisions within --eps of the "
+                            "threshold (precision/convention-sensitive "
+                            "cells); one JSON line per cell + a summary")
     p.add_argument("path")
     p.add_argument("--eps", type=float, default=0.05)
     p.add_argument("-c", "--chanthresh", type=float, default=5.0)
     p.add_argument("-s", "--subintthresh", type=float, default=5.0)
-    p.add_argument("-m", "--max_iter", type=int, default=5)
-    p.add_argument("--backend", choices=("jax", "numpy"), default="numpy")
-    p.add_argument("--model", choices=("surgical_scrub", "quicklook"),
-                   default="surgical_scrub")
-    p.set_defaults(fn=_not_ported)
+    _clean_options(p, default_backend="numpy")
+    p.set_defaults(fn=cmd_borderline)
 
     p = sub.add_parser("selftest",
                        help="end-to-end installation check: clean a "

@@ -59,6 +59,15 @@ uploaded) against the CPU's float64 clean (masks, loops; scores within
 1e-9); K10 refusing a float64 block (ROADMAP item 1b); and the float32
 builds' planes SHA-256-equal to the ones the tree before the float64
 builds computed (``F32_PLANE_DIGESTS``).
+
+The rest of the CLI surface: K6 with a zero template and a window of
+ones (quicklook's diagnostics) against its plain version in float32 and
+float64, K3 and the combine on its planes bit-equal, and ``d_mean``'s
+sign flipped back giving bit-equal scores; quicklook on the card against
+the CPU's (masks equal, scores within 1e-4, 1e-9 in float64), launching
+K6, K3 twice and the combine once each and nothing else; a CLI session
+resumed from its checkpoint launching no kernel; ``tools sweep --device
+cuda`` mask-equal point for point to in-process cleans.
 """
 
 import numpy as np
@@ -1273,3 +1282,134 @@ def test_k10_refuses_a_float64_block_on_card(card):
     window = torch.ones(32, dtype=torch.float64, device=card)
     with pytest.raises(NotImplementedError, match="item 1b"):
         tk.shard_diagnostics_dedisp(disp, template, window, w, mask)
+
+
+# ---------------------------------------------------------------------------
+# the rest of the CLI surface: quicklook on K6 + K3 + combine, the CLI's
+# resume, tools sweep on the card
+# ---------------------------------------------------------------------------
+
+QUICKLOOK_GEOMS = [(20, 40, 128), (16, 32, 63), (7, 300, 1024)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nsub,nchan,nbin", QUICKLOOK_GEOMS)
+def test_k6_zero_template_matches_plain_on_card(card, nsub, nchan, nbin,
+                                                dtype):
+    """K6 with an all-zero template and a window of ones (quicklook's
+    diagnostics of -(w * ded)) against its plain version; K3 and the
+    combine on its planes bit-equal to theirs; d_mean's sign flipped back
+    gives bit-equal scores (every scaler side takes |d - median|)."""
+    ded, w, mask, _, _, _ = _inputs(nsub, nchan, nbin, "fourier", "cpu",
+                                    seed=3)
+    ded, w, mask = ded.to(card, dtype), w.to(card, dtype), mask.to(card)
+    zero = torch.zeros(nbin, dtype=dtype, device=card)
+    ones = torch.ones(nbin, dtype=dtype, device=card)
+    tk.reset_launch_counts()
+    diags = tk.cell_diagnostics_dedisp(ded, zero, ones, w, mask)
+    suffix = "_f64" if dtype == torch.float64 else ""
+    assert tk.launch_counts()["cell_diagnostics_dedisp" + suffix] == 1
+    plain = tk.cell_diagnostics_dedisp_plain(ded, zero, ones, w, mask)
+    if dtype == torch.float64:
+        _f64_planes_close(diags, plain, mask)
+        bits = _f64_bits_mismatch
+    else:
+        _assert_diags_match(diags, plain, mask)
+        bits = _bits_mismatch
+    from iterative_cleaner_torch.engine.loop import scores_and_zap
+
+    new_w, scores = scores_and_zap(diags, mask, w, 5.0, 5.0)
+    pw, ps = tk.combine_zap_plain(
+        *(tk.scaled_sides_plain(diags, mask, axis, 5.0) for axis in (0, 1)),
+        w)
+    assert bits(scores, ps) == 0 and bits(new_w, pw) == 0
+    flipped = (diags[0], -diags[1], diags[2], diags[3])
+    _, s_flip = scores_and_zap(flipped, mask, w, 5.0, 5.0)
+    assert bits(s_flip, scores) == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("kwargs", [{}, dict(baseline_mode="profile")])
+def test_quicklook_on_card_matches_cpu(card, dtype, kwargs):
+    from iterative_cleaner_torch.models import QUICKLOOK, get_model
+    from iterative_cleaner_torch.models.quicklook import QUICKLOOK_KERNELS
+
+    ar, _ = make_synthetic_archive(nsub=64, nchan=256, nbin=128,
+                                   n_prezapped=30, seed=1)
+    tk.reset_launch_counts()
+    on_card = get_model(QUICKLOOK)(ar, CleanConfig(dtype=dtype, **kwargs))
+    counts = tk.launch_counts()
+    on_cpu = get_model(QUICKLOOK)(ar, CleanConfig(device="cpu", dtype=dtype,
+                                                  **kwargs))
+    suffix = "_f64" if dtype == "float64" else ""
+    want = dict.fromkeys(counts, 0)
+    want.update({k + suffix: 1 for k in QUICKLOOK_KERNELS})
+    assert counts == want
+    np.testing.assert_array_equal(on_card.final_weights, on_cpu.final_weights)
+    tol = 1e-4 if dtype == "float32" else 1e-9
+    np.testing.assert_allclose(on_card.scores, on_cpu.scores, rtol=tol,
+                               atol=tol)
+    assert on_card.scores.dtype == np.dtype(dtype)
+
+
+def test_cli_resume_launches_no_kernel_on_card(card, tmp_path, monkeypatch,
+                                               capsys):
+    from iterative_cleaner_torch import cli
+    from iterative_cleaner_torch.io import load_archive, save_archive
+
+    monkeypatch.chdir(tmp_path)
+    ar, _ = make_synthetic_archive(nsub=64, nchan=256, nbin=128,
+                                   n_prezapped=30, seed=2)
+    save_archive(ar, "obs.npz")
+    counts = []
+    for out in ("first.npz", "second.npz"):
+        tk.reset_launch_counts()
+        assert cli.main(["-l", "--checkpoint", "ck", "-o", out,
+                         "obs.npz"]) == 0
+        torch.cuda.synchronize()
+        counts.append(tk.launch_counts())
+    assert all(counts[0][k] > 0 for k in ROUTE_KERNELS["default"])
+    assert not any(counts[1].values()), counts[1]
+    assert "Resumed from checkpoint" in capsys.readouterr().out
+    np.testing.assert_array_equal(load_archive("first.npz").weights,
+                                  load_archive("second.npz").weights)
+
+
+@pytest.mark.parametrize("model", ["surgical_scrub", "quicklook"])
+def test_tools_sweep_on_card_matches_in_process_cleans(card, model,
+                                                       tmp_path, monkeypatch,
+                                                       capsys):
+    """tools sweep --device cuda: each grid point's mask equal to an
+    in-process clean's on the card, and its row their fractions."""
+    import json
+
+    from iterative_cleaner_torch import models, tools
+    from iterative_cleaner_torch.io import save_archive
+
+    monkeypatch.chdir(tmp_path)
+    ar, _ = make_synthetic_archive(nsub=32, nchan=64, nbin=128,
+                                   n_prezapped=20, seed=4)
+    save_archive(ar, "o.npz")
+    seen = []
+    real = models.get_model
+
+    def spy(name):
+        fn = real(name)
+
+        def run(a, cfg):
+            seen.append((cfg, fn(a, cfg)))
+            return seen[-1][1]
+        return run
+
+    monkeypatch.setattr(models, "get_model", spy)
+    assert tools.main(["sweep", "o.npz", "--device", "cuda", "--model",
+                       model, "-c", "4", "5", "6", "-s", "4", "6"]) == 0
+    rows = [json.loads(ln) for ln in capsys.readouterr().out.splitlines()]
+    assert len(rows) == len(seen) == 6
+    for row, (cfg, res) in zip(rows, seen):
+        assert cfg.device == "cuda"
+        want = real(model)(ar, CleanConfig(chanthresh=row["chanthresh"],
+                                           subintthresh=row["subintthresh"]))
+        np.testing.assert_array_equal(res.final_weights == 0,
+                                      want.final_weights == 0)
+        assert row["rfi_frac"] == round(want.rfi_fraction, 6)

@@ -5,8 +5,10 @@ clean (``--batch``), the
 cell-sharded clean on one rank
 on the default and two_read routes, both streaming modes over that rank,
 the CLI session on a PSRFITS archive with its run report, Prometheus
-file and event log, and PSRFITS and ``.icar`` files read through the
-port's host library) never loads ``jax`` or the reference package; no
+file and event log, PSRFITS and ``.icar`` files read through the
+port's host library, ``--checkpoint`` and its resume, ``--model
+quicklook``, ``--trace`` and ``tools diff``, ``sweep`` and
+``borderline``) never loads ``jax`` or the reference package; no
 source of the port (``parallel/*``, ``telemetry/*``, ``utils/*`` and
 ``io/*`` included) or ``chip_smoke.py`` imports either, and none names
 the reference's ``native/`` directory or its ``libicar.so``."""
@@ -69,6 +71,15 @@ def test_no_reference_native_library_in_source(path):
 def test_batch_module_is_scanned():
     """The batched clean's module is among the scanned sources."""
     assert os.path.join(PKG, "parallel", "batch.py") in set(_port_sources())
+
+
+@pytest.mark.parametrize("module", [
+    ("models", "__init__.py"), ("models", "quicklook.py"),
+    ("utils", "checkpoint.py"), ("utils", "tracing.py")])
+def test_cli_surface_modules_are_scanned(module):
+    """The modules of the rest of the CLI surface (checkpoints, models,
+    the trace) are among the scanned sources."""
+    assert os.path.join(PKG, *module) in set(_port_sources())
 
 
 def test_main_path_runs_without_jax():
@@ -142,6 +153,23 @@ for name in ("obs.sf", "obs.icar"):
 assert native.load_counts() == {"psrfits": 1, "icar": 1}
 assert iterative_cleaner_torch.cli.main([
     "--device", "cpu", "-q", "--batch", "2", "obs.sf", "obs.icar"]) == 0
+# the CLI surface of item 2c: --checkpoint and its resume, --model
+# quicklook, --trace, tools diff, sweep and borderline
+import iterative_cleaner_torch.models.quicklook
+import iterative_cleaner_torch.utils.checkpoint
+import iterative_cleaner_torch.utils.tracing
+for _ in range(2):
+    assert iterative_cleaner_torch.cli.main([
+        "--device", "cpu", "-q", "--checkpoint", "ck", "--trace", "tr",
+        "obs.icar"]) == 0
+assert iterative_cleaner_torch.cli.main([
+    "--device", "cpu", "-q", "--model", "quicklook", "-o", "ql.icar",
+    "obs.icar"]) == 0
+tools = iterative_cleaner_torch.tools
+assert tools.main(["diff", "obs.icar_cleaned.icar", "obs.sf_cleaned.sf"]) == 0
+for cmd in (["sweep", "obs.icar", "-c", "5", "-s", "5", "--device", "cpu",
+             "--model", "quicklook"], ["borderline", "obs.icar"]):
+    assert tools.main(cmd) == 0
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "iterative_cleaner_tpu"))
 print("LOADED", bad)

@@ -411,13 +411,27 @@ def test_tools_convert_writes_what_reference_writes(tmp_path, src_ext,
         theirs)))
 
 
-# (selftest is ported: tests/test_torch_oracle.py runs it)
-@pytest.mark.parametrize("argv", [["diff", "a", "b"], ["sweep", "a"],
-                                  ["borderline", "a"],
-                                  ["sweep", "a", "--backend", "numpy"]])
-def test_tools_unported_commands_name_their_item(argv):
-    with pytest.raises(NotImplementedError, match="item 2c"):
-        tools.main(argv)
+# every command of the reference's tools runs (selftest:
+# tests/test_torch_oracle.py; diff, sweep, borderline in depth:
+# tests/test_torch_tools.py)
+@pytest.mark.parametrize("argv", [
+    ["diff", "a.icar", "a.icar"], ["sweep", "a.icar", "--device", "cpu",
+                                   "-c", "5", "-s", "5"],
+    ["borderline", "a.icar"],
+    ["sweep", "a.icar", "--backend", "numpy", "-c", "5", "-s", "5"]])
+def test_tools_commands_run(argv, tmp_path, monkeypatch, capsys):
+    monkeypatch.chdir(tmp_path)
+    _, ar = _pair()
+    save_archive(ar, "a.icar")
+    assert tools.main(argv) == 0
+    assert all(json.loads(ln) for ln in
+               capsys.readouterr().out.strip().splitlines())
+
+
+def test_cli_model_online_ewt_names_item_5(tmp_path):
+    with pytest.raises(NotImplementedError, match="item 5"):
+        cli.main(["--device", "cpu", "--model", "online_ewt",
+                  str(tmp_path / "x.npz")])
 
 
 def test_tools_entry_point_runs(tmp_path):
