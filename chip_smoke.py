@@ -5,7 +5,9 @@ Run from the root of a checkout:
     python3 chip_smoke.py
 
 In order, it: prints the card; builds the CUDA kernels from the sources
-in the checkout; rebuilds the full-size (1024 x 4096 x 128, seed 0)
+in the checkout (through the first of the fleet's warm-start sessions,
+below, whose fresh ``--compile-cache`` this process then loads them
+from); rebuilds the full-size (1024 x 4096 x 128, seed 0)
 golden archive once with the port's synthetic generator and cleans it
 through ``clean_archive`` on the card four times, covering every route
 of the engine — the default configuration (K1, K2), ``baseline_mode=
@@ -149,6 +151,30 @@ from the golden, and ``--trace DIR`` on a spawned process (the session's
 seconds without and with it; the trace's five stage ranges once per loop
 and each of the port's kernels as often as the launch counters say, a
 disagreeing trace printed and taken again up to TRACE_ATTEMPTS times).
+
+The fleet phases (after batch (d), on PSRFITS files in a temporary
+directory): (f1) 24 archives of three shapes interleaved (16 of 64 x 128
+x 512, 4 of 64 x 120 x 512 that ``--bucket-pad 0,32`` puts in the 64 x
+128 bucket, 4 of 256 x 1024 x 128) through ``--fleet --batch 8
+--bucket-pad 0,32``, ``--batch 8`` and the sequential session: every
+output mask and run-report entry of the fleet equal to the sequential
+session's, each batch's kernels launched once per batch iteration, the
+three sessions' seconds; (f2) the injected ladder (``--faults
+load:err@2,write:once,exec:oom@1,exec:hang@3 --stage-timeout``) on a
+spawned session: exit 1 with the hung archive alone failed, one watchdog
+trip, an OOM split, the others' masks equal; (f3) a real
+``torch.OutOfMemoryError`` on a spawned process under
+``set_per_process_memory_fraction`` set from the batch's measured peaks:
+a group of 8 halved until it fits, masks bit-equal to the single cleans,
+then an archive that does not fit at all degraded to the numpy oracle,
+bit-equal to ``--backend numpy``; (f4) a ``--journal`` fleet killed with
+SIGKILL after its second journaled group, then ``--resume``: each archive
+journaled once, the outputs the sequential ones; (f5) two sessions over
+one fresh ``--compile-cache`` (the first is step 1's build: ``nvcc`` once,
+on its warm-up thread; the second builds nothing and hits every bucket);
+(f6) two ``--hosts 2`` processes over one journal: each archive cleaned
+once, the masks the sequential ones, each host's owned and stolen
+buckets printed.
 
 It exits non-zero, printing no result, when no CUDA device is present
 or when the port's package is not beside it.  It imports nothing of JAX
@@ -2815,6 +2841,580 @@ def sweep_phase(tag):
                      f"cleans")
 
 
+# ---- the fleet phases (parallel/fleet.py, --fleet): f1-f6 ----------------
+# (f1) the mixed fleet: FLEET_MIX archives of each shape, interleaved; the
+# 64 x 120 archives share the 64 x 128 bucket under --bucket-pad 0,32
+FLEET_MIX = (((64, 128, 512), 16), ((64, 120, 512), 4),
+             ((256, 1024, 128), 4))
+FLEET_GROUP, FLEET_PAD = 8, "0,32"
+# (f2) the ladder's drill: over the first FLEET_DRILL_N 64 x 128 archives
+# in groups of 2, a transient load fault, a transient write, an OOM on the
+# first clean (its halves are the second and third) and a hang on the third
+FLEET_DRILL = "load:err@2,write:once,exec:oom@1,exec:hang@3"
+FLEET_DRILL_N, FLEET_STAGE_TIMEOUT_S = 6, 6.0
+# (f3) the real OOM: a group of FLEET_OOM_N 256 x 1024 x 128 archives (the
+# (f1) files, each linked under several names)
+FLEET_OOM_N = 8
+# (f5) the warm start: two archives of each shape, two fleet sessions over
+# one fresh --compile-cache; the first is the script's kernel build
+FLEET_WARM_SHAPES = ((64, 128, 512), (64, 120, 512), (32, 64, 128))
+# (f4) the kill: a --journal fleet over the first FLEET_KILL_N small
+# archives in groups of 2 on one IO thread, wedged by a hang on load 5
+FLEET_KILL_N = 8
+# spawned sessions: start-up (torch, the library load) and work
+FLEET_SUB_TIMEOUT_S = 300
+
+
+def fleet_files(work):
+    """The fleet phases' PSRFITS files in ``work``: FLEET_MIX interleaved
+    (one of each shape in turn while each lasts), seeds 300 up.  Returns
+    the paths in that order and each path's shape."""
+    from iterative_cleaner_torch.io import save_archive
+
+    queues = [[shape] * n for shape, n in FLEET_MIX]
+    order = []
+    while any(queues):
+        for q in queues:
+            if q:
+                order.append(q.pop())
+    paths, shapes = [], {}
+    for i, shape in enumerate(order):
+        p = os.path.join(work, f"fleet{i:02d}.sf")
+        save_archive(batch_small_archive(300 + i, shape), p)
+        paths.append(p)
+        shapes[p] = shape
+    return paths, shapes
+
+
+def linked(paths, d):
+    """Symlinks to ``paths`` in a new directory ``d`` (each session writes
+    its outputs beside its inputs)."""
+    os.makedirs(d)
+    out = []
+    for p in paths:
+        out.append(os.path.join(d, os.path.basename(p)))
+        os.symlink(p, out[-1])
+    return out
+
+
+def cli_session(links, d, extra):
+    """One in-process CLI session in ``d``: ``(rc, run report, seconds,
+    launch counts)``."""
+    from iterative_cleaner_torch.cli import main as cli_main
+    from iterative_cleaner_torch.stats import kernels as K
+
+    import torch
+
+    cwd = os.getcwd()
+    os.chdir(d)
+    try:
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = cli_main(["-q", "--timing", "--metrics-json", "run.json",
+                       *extra, *links])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = K.launch_counts()
+    finally:
+        os.chdir(cwd)
+    with open(os.path.join(d, "run.json")) as fh:
+        doc = json.load(fh)
+    return rc, doc, secs, counts
+
+
+def fleet_sub(args, cwd, timeout=FLEET_SUB_TIMEOUT_S, **env):
+    """A CLI session on a spawned process (a fault that hangs a thread
+    must not outlive its session in this one): ``(rc, stdout, stderr,
+    seconds)``."""
+    e = dict(os.environ, **env)
+    e["PYTHONPATH"] = os.pathsep.join(
+        [HERE] + ([e["PYTHONPATH"]] if e.get("PYTHONPATH") else []))
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "iterative_cleaner_torch",
+                          *args], cwd=cwd, env=e, capture_output=True,
+                         text=True, timeout=timeout)
+    return out.returncode, out.stdout, out.stderr, time.perf_counter() - t0
+
+
+def out_mask(link):
+    from iterative_cleaner_torch.io import load_archive
+
+    return load_archive(link + "_cleaned.sf").weights == 0
+
+
+def masks_off(links, seq_masks) -> int:
+    """Mask cells of the outputs beside ``links`` that differ from the
+    sequential session's (by file name); a missing output counts all."""
+    n = 0
+    for p in links:
+        want = seq_masks[os.path.basename(p)]
+        if not os.path.exists(p + "_cleaned.sf"):
+            n += int(want.size)
+            continue
+        n += int((out_mask(p) != want).sum())
+    return n
+
+
+def entry_diff(got, want, rtol):
+    """Fields of two run-report entries that differ: exactly for
+    integers, bools and strings, within ``rtol`` for floats (0: exact)."""
+    bad = []
+
+    def walk(a, b, where):
+        if isinstance(a, dict) and isinstance(b, dict):
+            if set(a) != set(b):
+                bad.append(where + ":keys")
+            for k in set(a) & set(b):
+                walk(a[k], b[k], f"{where}.{k}")
+        elif isinstance(a, list) and isinstance(b, list):
+            if len(a) != len(b):
+                bad.append(where + ":len")
+            for i, (x, y) in enumerate(zip(a, b)):
+                walk(x, y, f"{where}[{i}]")
+        elif isinstance(a, float) or isinstance(b, float):
+            x, y = float(a), float(b)
+            if not (x == y or (math.isnan(x) and math.isnan(y))
+                    or abs(x - y) <= rtol * max(abs(x), abs(y))):
+                bad.append(where)
+        elif a != b:
+            bad.append(where)
+
+    walk({k: v for k, v in got.items() if k != "path"},
+         {k: v for k, v in want.items() if k != "path"}, "entry")
+    return bad
+
+
+def fleet_f1(paths, work, tag):
+    """(f1): the mixed fleet through the sequential session, ``--batch
+    FLEET_GROUP`` and ``--fleet --batch FLEET_GROUP --bucket-pad
+    FLEET_PAD``; every fleet output mask and report entry held to the
+    sequential session's, each group's launches to its batch iterations.
+    Returns the sequential masks by file name."""
+    from iterative_cleaner_torch.engine.loop import ROUTE_KERNELS
+    from iterative_cleaner_torch.io import peek_shape
+    from iterative_cleaner_torch.parallel.fleet import plan_fleet
+
+    runs = {}
+    for run, extra in (("sequential", []),
+                       ("batch", ["--batch", str(FLEET_GROUP)]),
+                       ("fleet", ["--fleet", "--batch", str(FLEET_GROUP),
+                                  "--bucket-pad", FLEET_PAD])):
+        d = os.path.join(work, run)
+        links = linked(paths, d)
+        rc, doc, secs, counts = cli_session(links, d, extra)
+        if rc != 0:
+            fail(f"fleet (f1): the {run} session exited {rc}")
+        runs[run] = (links, doc, secs, counts)
+    seq_links, seq_doc = runs["sequential"][:2]
+    seq_masks = {os.path.basename(p): out_mask(p) for p in seq_links}
+    seq_entries = {os.path.basename(e["path"]): e
+                   for e in seq_doc["archives"]}
+    links, doc, secs, counts = runs["fleet"]
+    n_mask = masks_off(links, seq_masks)
+    n_entry = sum(bool(entry_diff(e, seq_entries[os.path.basename(
+        e["path"])], 0.0)) for e in doc["archives"])
+    # each batch's launches: once per batch iteration, the iterations of
+    # its slowest archive; a batch is one raw geometry of a group (the
+    # port pads no cell, parallel/fleet.py item 4)
+    loops = {os.path.basename(e["path"]): e["loops"]
+             for e in doc["archives"]}
+    pad = tuple(int(v) for v in FLEET_PAD.split(","))
+    plan = plan_fleet([(p, peek_shape(p)) for p in links], bucket_pad=pad,
+                      group_size=FLEET_GROUP)
+    batches = []
+    for b in plan.buckets:
+        for g in b.groups():
+            by_raw = {}
+            for it in g:
+                by_raw.setdefault(it.raw_shape, []).append(
+                    loops[os.path.basename(it.path)])
+            batches.extend(by_raw.values())
+    iters = sum(max(ls) for ls in batches)
+    want = {k: (iters if k in ROUTE_KERNELS["default"] else 0)
+            for k in counts}
+    c = doc["counters"]
+    h = doc["histograms"]
+    stall = h.get("fleet_load_stall_s", {}).get("sum", 0.0)
+    print(f"fleet (f1): --fleet --batch {FLEET_GROUP} --bucket-pad "
+          f"{FLEET_PAD} over {len(paths)} PSRFITS files "
+          f"({', '.join(f'{n} of {s}' for s, n in FLEET_MIX)}, interleaved): "
+          f"{plan.n_groups} groups in {len(plan.buckets)} buckets, "
+          f"{len(batches)} batches of one raw geometry each; against the "
+          f"sequential session {n_mask} mask cells and {n_entry} report "
+          f"entries differ (tolerance 0 and 0); kernels "
+          f"{json.dumps(counts)} for "
+          f"{iters} batch iterations; fleet_load_stall_s {stall:.4f}, "
+          f"fleet_precompile_hits {c.get('fleet_precompile_hits', 0):g}, "
+          f"misses {c.get('fleet_precompile_misses', 0):g}, "
+          f"fleet_pad_cells {c.get('fleet_pad_cells', 0):g}, "
+          f"fleet_pad_lanes {c.get('fleet_pad_lanes', 0):g}; session "
+          f"{secs:.2f} s against --batch {FLEET_GROUP} "
+          f"{runs['batch'][2]:.2f} s and sequential {runs['sequential'][2]:.2f}"
+          f" s (host clock) {tag}", flush=True)
+    if n_mask or n_entry or counts != want \
+            or c.get("fleet_cleaned") != len(paths):
+        fail(f"fleet (f1): the fleet session differs from the sequential "
+             f"one (launches {counts}, want {want})")
+    return seq_masks
+
+
+def fleet_f2(small, seq_masks, work, tag):
+    """(f2): the ladder by the injector, on a spawned process (the hung
+    attempt's thread must not outlive its session in this one)."""
+    small = small[:FLEET_DRILL_N]
+    d = os.path.join(work, "drill")
+    links = linked(small, d)
+    rc, out, err, secs = fleet_sub(
+        ["-q", "-l", "--fleet", "--batch", "2", "--faults", FLEET_DRILL,
+         "--stage-timeout", str(FLEET_STAGE_TIMEOUT_S), "--io-workers", "1",
+         "--metrics-json", "run.json", *links], d,
+        ICLEAN_FAULT_HANG_S="3600")
+    doc = json.load(open(os.path.join(d, "run.json")))
+    c = doc["counters"]
+    failed = [os.path.basename(p) for p in links
+              if not os.path.exists(p + "_cleaned.sf")]
+    done = [p for p in links if os.path.exists(p + "_cleaned.sf")]
+    n_mask = masks_off(done, seq_masks)
+    print(f"fleet (f2): --faults {FLEET_DRILL} --stage-timeout "
+          f"{FLEET_STAGE_TIMEOUT_S:g} over {len(links)} archives in groups "
+          f"of 2: exit {rc}, failed {failed}; fleet_retries "
+          f"{c.get('fleet_retries', 0):g}, fleet_oom_splits "
+          f"{c.get('fleet_oom_splits', 0):g}, fleet_watchdog_trips "
+          f"{c.get('fleet_watchdog_trips', 0):g}, fault_injected "
+          f"{c.get('fault_injected', 0):g}; {len(done)} outputs, {n_mask} "
+          f"mask cells off the sequential session's (tolerance 0); "
+          f"{secs:.1f} s with start-up {tag}", flush=True)
+    if rc != 1 or len(failed) != 1 or n_mask \
+            or c.get("fleet_watchdog_trips") != 1 \
+            or c.get("fleet_oom_splits", 0) < 1 \
+            or c.get("fleet_retries", 0) < 2:
+        fail(f"fleet (f2): the drill did not take the ladder: {err[-3000:]}")
+
+
+def fleet_oom_worker(paths, small):
+    """(f3) on a spawned process: ``paths`` (FLEET_OOM_N 256 x 1024 x 128
+    archives) cleaned one by one, then their batch's reserved peaks at 2
+    and at FLEET_OOM_N measured; the card capped (set_per_process_memory_
+    fraction) between them and the fleet run at FLEET_OOM_N a group; then
+    capped below one ``small`` archive's peak and ``small`` run alone.
+    Returns what the parent checks."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    from iterative_cleaner_torch import CleanConfig
+    from iterative_cleaner_torch.backends import clean_archive
+    from iterative_cleaner_torch.io import load_archive
+    from iterative_cleaner_torch.parallel.batch import clean_archives_batched
+    from iterative_cleaner_torch.parallel.fleet import clean_fleet
+    from iterative_cleaner_torch.telemetry.registry import MetricsRegistry
+
+    cfg = CleanConfig()
+    ars = [load_archive(p) for p in paths]
+    singles = [clean_archive(a, cfg).final_weights == 0 for a in ars]
+
+    def reserved_peak(fn):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_reserved()
+
+    p2 = reserved_peak(lambda: clean_archives_batched(ars[:2], cfg))
+    p8 = reserved_peak(lambda: clean_archives_batched(ars, cfg))
+    total = torch.cuda.get_device_properties(0).total_memory
+    cap = p2 + 0.15 * (p8 - p2)
+    torch.cuda.empty_cache()
+    torch.cuda.set_per_process_memory_fraction(cap / total)
+    reg = MetricsRegistry()
+    rep = clean_fleet(paths, dataclasses.replace(
+        cfg, fleet_group_size=FLEET_OOM_N), registry=reg)
+    got = [rep.results[p].final_weights == 0 if p in rep.results else None
+           for p in paths]
+    off = [None if g is None else int((g != s).sum())
+           for g, s in zip(got, singles)]
+    # one archive that does not fit: its peak, then a cap below it
+    torch.cuda.set_per_process_memory_fraction(1.0)
+    ar_s = load_archive(small)
+    p1 = reserved_peak(lambda: clean_archives_batched([ar_s], cfg))
+    torch.cuda.empty_cache()
+    torch.cuda.set_per_process_memory_fraction(0.5 * p1 / total)
+    reg1 = MetricsRegistry()
+    rep1 = clean_fleet([small], cfg, registry=reg1)
+    torch.cuda.set_per_process_memory_fraction(1.0)
+    oracle = clean_archive(ar_s, dataclasses.replace(cfg, backend="numpy"))
+    deg = rep1.results.get(small)
+    return {"p2": p2, "p8": p8, "cap": cap, "p1": p1, "total": total,
+            "failures": [(p, s, repr(e)) for p, s, e in rep.failures],
+            "off": off, "counters": dict(reg.counters),
+            "failures1": [(p, s, repr(e)) for p, s, e in rep1.failures],
+            "counters1": dict(reg1.counters),
+            "degraded_off": (None if deg is None else int(
+                ((deg.final_weights == 0)
+                 != (oracle.final_weights == 0)).sum())),
+            "degraded_loops": (None if deg is None
+                               else (deg.loops, oracle.loops))}
+
+
+def fleet_f3(work, large, small, tag):
+    """(f3): a real device OOM halving a group, then degrading one archive
+    to the numpy oracle, on a spawned process (the cap must not leak).
+    The group is FLEET_OOM_N links to the ``large`` files, each file under
+    several names (distinct archives to the fleet)."""
+    import multiprocessing
+
+    d = os.path.join(work, "oom")
+    os.makedirs(d)
+    paths = []
+    for i in range(FLEET_OOM_N):
+        paths.append(os.path.join(d, f"oom{i:02d}.sf"))
+        os.symlink(large[i % len(large)], paths[-1])
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(
+            max_workers=1,
+            mp_context=multiprocessing.get_context("spawn")) as pool:
+        r = pool.submit(fleet_oom_worker, paths, small).result(
+            timeout=FLEET_SUB_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    c, c1 = r["counters"], r["counters1"]
+    gib = 2 ** 30
+    print(f"fleet (f3): reserved peak of a batch of 2 "
+          f"{r['p2'] / gib:.2f} GiB, of {FLEET_OOM_N} {r['p8'] / gib:.2f} "
+          f"GiB; capped at {r['cap'] / gib:.2f} GiB of "
+          f"{r['total'] / gib:.1f}: fleet_oom_splits "
+          f"{c.get('fleet_oom_splits', 0):g}, fleet_degraded "
+          f"{c.get('fleet_degraded', 0):g}, failures {r['failures']}, "
+          f"mask cells off the single cleans {r['off']} (tolerance 0 "
+          f"each); one 64 x 128 x 512 archive (peak {r['p1'] / gib:.3f} "
+          f"GiB) capped at half of it: fleet_oom_splits "
+          f"{c1.get('fleet_oom_splits', 0):g}, fleet_degraded "
+          f"{c1.get('fleet_degraded', 0):g}, mask cells off --backend "
+          f"numpy's {r['degraded_off']} (tolerance 0), loops "
+          f"{r['degraded_loops']}; {secs:.1f} s with start-up {tag}",
+          flush=True)
+    if r["failures"] or any(o != 0 for o in r["off"]) \
+            or c.get("fleet_oom_splits", 0) < 1 \
+            or c.get("fleet_degraded", 0) or c.get("fault_injected", 0):
+        fail("fleet (f3): a real OOM did not halve the group to bit-equal "
+             "masks")
+    if r["failures1"] or c1.get("fleet_degraded") != 1 \
+            or r["degraded_off"] != 0:
+        fail(f"fleet (f3): the archive that does not fit did not degrade "
+             f"to the oracle's mask: {r['failures1']}")
+
+
+def fleet_f4(small, seq_masks, work, tag):
+    """(f4): a --journal fleet killed with SIGKILL after its second
+    journaled group, then --resume; no archive cleaned twice."""
+    import signal
+
+    small = small[:FLEET_KILL_N]
+    d = os.path.join(work, "kill")
+    links = linked(small, d)
+    base = ["-q", "-l", "--fleet", "--batch", "2", "--io-workers", "1",
+            "--journal", "j.jsonl"]
+    e = dict(os.environ, ICLEAN_FAULT_HANG_S="3600")
+    e["PYTHONPATH"] = os.pathsep.join(
+        [HERE] + ([e["PYTHONPATH"]] if e.get("PYTHONPATH") else []))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "iterative_cleaner_torch", *base,
+         "--faults", "load:hang@5", *links], cwd=d, env=e,
+        stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+    jpath = os.path.join(d, "j.jsonl")
+    deadline = time.time() + FLEET_SUB_TIMEOUT_S
+    while time.time() < deadline:
+        text = open(jpath).read() if os.path.exists(jpath) else ""
+        if text.endswith("\n") and len(text.strip().splitlines()) >= 4:
+            break
+        if proc.poll() is not None:
+            fail(f"fleet (f4): the journaled run exited early "
+                 f"(rc {proc.returncode})")
+        time.sleep(0.2)
+    else:
+        proc.kill()
+        fail("fleet (f4): the journal showed no progress")
+    os.kill(proc.pid, signal.SIGKILL)
+    proc.wait(timeout=60)
+    pre = len(open(jpath).read().strip().splitlines())
+    rc, out, err, secs = fleet_sub(
+        ["--fleet", "--batch", "2", "--io-workers", "1", "--journal",
+         "j.jsonl", "--resume", "-l", *links], d)
+    entries = [json.loads(ln) for ln in open(jpath).read().splitlines()
+               if ln.strip()]
+    done = [en["path"] for en in entries if en.get("event") == "done"]
+    once = sorted(done) == sorted(os.path.abspath(p) for p in links)
+    n_mask = masks_off(links, seq_masks)
+    resumed = [ln for ln in out.splitlines() if ln.startswith("resumed:")]
+    print(f"fleet (f4): SIGKILL after {pre} journaled archives, then "
+          f"--resume: exit {rc}, {resumed}; done lines {len(done)} for "
+          f"{len(links)} archives (each once: {once}); {n_mask} mask cells "
+          f"off the sequential session's (tolerance 0); "
+          f"{time.perf_counter() - t0:.1f} s with two start-ups {tag}",
+          flush=True)
+    if rc != 0 or not once or n_mask or not resumed \
+            or f"resumed: {pre} archive" not in resumed[0]:
+        fail(f"fleet (f4): kill and resume: {err[-3000:]}")
+
+
+def fleet_f5_start(work):
+    """(f5), first session: FLEET_WARM_SHAPES' archives written to
+    ``work``, then a --fleet session over them with a fresh
+    --compile-cache started on a process of its own: it builds the kernel
+    library there (nvcc on its warm-up thread while its loads go on), and
+    this script's process then loads it from there.  Returns the state
+    :func:`fleet_f5_cold` and :func:`fleet_f5` read."""
+    from iterative_cleaner_torch.io import save_archive
+
+    d = os.path.join(work, "warm_cold")
+    os.makedirs(d)
+    links = []
+    for i, shape in enumerate(FLEET_WARM_SHAPES * 2):
+        links.append(os.path.join(d, f"warm{i:02d}.sf"))
+        save_archive(batch_small_archive(500 + i, shape), links[-1])
+    cache = os.path.join(work, "kcache")
+    e = dict(os.environ)
+    e["PYTHONPATH"] = os.pathsep.join(
+        [HERE] + ([e["PYTHONPATH"]] if e.get("PYTHONPATH") else []))
+    out = open(os.path.join(d, "out.txt"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "iterative_cleaner_torch", "-q", "-l",
+         "--fleet", "--batch", str(FLEET_GROUP), "--compile-cache", cache,
+         "--metrics-json", "run.json", *links], cwd=d, env=e, stdout=out,
+        stderr=subprocess.STDOUT)
+    return {"dir": d, "links": links, "cache": cache, "proc": proc,
+            "out": out, "t0": time.perf_counter()}
+
+
+def fleet_f5_cold(state):
+    """Wait for the first (f5) session; its seconds and run report."""
+    rc = state["proc"].wait(timeout=FLEET_SUB_TIMEOUT_S)
+    state["out"].close()
+    state["cold_s"] = time.perf_counter() - state["t0"]
+    if rc != 0:
+        fail(f"fleet (f5): the cold session (the kernel build) exited {rc}: "
+             + open(os.path.join(state["dir"], "out.txt")).read()[-3000:])
+    state["cold"] = json.load(open(os.path.join(state["dir"], "run.json")))
+    return state
+
+
+def fleet_f5(state, tag):
+    """(f5), second session: over the same --compile-cache, in a fresh
+    process: no nvcc, every bucket a precompile hit, the masks the first
+    session's."""
+    d = os.path.join(os.path.dirname(state["dir"]), "warm_warm")
+    links = linked(state["links"], d)
+    rc, out, err, warm_s = fleet_sub(
+        ["-q", "-l", "--fleet", "--batch", str(FLEET_GROUP),
+         "--compile-cache", state["cache"], "--metrics-json", "run.json",
+         *links], d)
+    if rc != 0:
+        fail(f"fleet (f5): the warm session exited {rc}: {err[-3000:]}")
+    c0, h0 = state["cold"]["counters"], state["cold"]["histograms"]
+    c1 = json.load(open(os.path.join(d, "run.json")))["counters"]
+    warm_up = h0.get("batch_precompile_s", {}).get("sum", 0.0)
+    stall = h0.get("fleet_compile_stall_s", {}).get("sum", 0.0)
+    n_mask = sum(int((out_mask(a) != out_mask(b)).sum())
+                 for a, b in zip(state["links"], links))
+    n_buckets = len(FLEET_WARM_SHAPES)
+    print(f"fleet (f5): --compile-cache over {len(links)} archives in "
+          f"{n_buckets} buckets: cold kernel_library_builds "
+          f"{c0.get('kernel_library_builds', 0):g} (on the warm-up thread "
+          f"{c0.get('fleet_precompile_builds', 0):g}), warm-up "
+          f"{warm_up:.2f} s of which the loads hid {warm_up - stall:.2f} s "
+          f"(the serve loop waited {stall:.2f} s); warm "
+          f"kernel_library_builds {c1.get('kernel_library_builds', 0):g}, "
+          f"fleet_precompile_hits {c1.get('fleet_precompile_hits', 0):g}, "
+          f"{n_mask} mask cells off the cold session's (tolerance 0); "
+          f"sessions {state['cold_s']:.1f} s and {warm_s:.1f} s with "
+          f"start-up {tag}", flush=True)
+    if c0.get("kernel_library_builds") != 1 \
+            or c0.get("fleet_precompile_builds") != 1 \
+            or c1.get("kernel_library_builds", 0) != 0 \
+            or c1.get("fleet_precompile_hits") != n_buckets or n_mask:
+        fail("fleet (f5): the warm restart built the library or missed a "
+             "bucket")
+
+
+def fleet_f6(paths, seq_masks, work, tag):
+    """(f6): two host processes sharing one journal on this card."""
+    d = os.path.join(work, "hosts")
+    links = linked(paths, d)
+    e = dict(os.environ)
+    e["PYTHONPATH"] = os.pathsep.join(
+        [HERE] + ([e["PYTHONPATH"]] if e.get("PYTHONPATH") else []))
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "iterative_cleaner_torch", "--fleet",
+         "--batch", str(FLEET_GROUP), "--hosts", "2", "--host-id", str(h),
+         "--journal", "shared.jsonl", "--claim-ttl", "30", "-l",
+         "--metrics-json", f"run{h}.json", *links], cwd=d, env=e,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for h in (0, 1)]
+    outs = [p.communicate(timeout=FLEET_SUB_TIMEOUT_S) for p in procs]
+    secs = time.perf_counter() - t0
+    rcs = [p.returncode for p in procs]
+    lines = [next((ln for ln in o.splitlines() if ln.startswith("host ")),
+                  "") for o, _ in outs]
+    cleaned = [json.load(open(os.path.join(d, f"run{h}.json")))["counters"]
+               .get("fleet_cleaned", 0) for h in (0, 1)]
+    entries = [json.loads(ln) for ln in
+               open(os.path.join(d, "shared.jsonl")).read().splitlines()
+               if ln.strip()]
+    done = [en["path"] for en in entries if en.get("event") == "done"]
+    once = sorted(done) == sorted(os.path.abspath(p) for p in links)
+    n_mask = masks_off(links, seq_masks)
+    print(f"fleet (f6): two hosts over one journal: exits {rcs}; {lines}; "
+          f"fleet_cleaned {cleaned} (sum {sum(cleaned):g} of "
+          f"{len(links)}); done lines {len(done)}, each archive once: "
+          f"{once}; {n_mask} mask cells off the sequential session's "
+          f"(tolerance 0); {secs:.1f} s for both processes {tag}",
+          flush=True)
+    if rcs != [0, 0] or not once or sum(cleaned) != len(links) or n_mask:
+        fail(f"fleet (f6): two hosts: {[err[-2000:] for _, err in outs]}")
+
+
+def fleet_phases(work, files, warm, tag):
+    """The fleet phases (f1)-(f6) in ``work``: ``files`` is the future of
+    :func:`fleet_files` (written on a worker process while the earlier
+    phases ran), ``warm`` the state of (f5)'s first session (the script's
+    kernel build).  (f2), (f3), (f4) and (f6), each on processes of its
+    own over its own links, run at once; then (f5)'s second session.
+    Prints their seconds."""
+    t_all = time.perf_counter()
+    paths, shapes = files.result(timeout=FLEET_SUB_TIMEOUT_S)
+    timings = {}
+    t0 = time.perf_counter()
+    seq_masks = fleet_f1(paths, work, tag)
+    timings["f1"] = time.perf_counter() - t0
+    small = [p for p in paths if shapes[p] == (64, 128, 512)]
+    large = [p for p in paths if shapes[p] == (256, 1024, 128)]
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        fn(*args)
+        return name, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=4) as pool:
+        futs = [pool.submit(timed, "f2", fleet_f2, small, seq_masks, work,
+                            tag),
+                pool.submit(timed, "f3", fleet_f3, work, large, small[0],
+                            tag),
+                pool.submit(timed, "f4", fleet_f4, small, seq_masks, work,
+                            tag),
+                pool.submit(timed, "f6", fleet_f6, paths, seq_masks, work,
+                            tag)]
+        # a phase's fail() raises SystemExit on its thread: result()
+        # raises it here
+        timings.update(f.result() for f in futs)
+    timings.update([timed("f5", fleet_f5, warm, tag)])
+    print(f"fleet phases: {time.perf_counter() - t_all:.1f} s in all ("
+          + ", ".join(f"{k} {v:.1f} s" for k, v in sorted(timings.items()))
+          + f"; f2, f3, f4 and f6 at once; the first (f5) session was the "
+          f"kernel build, {warm['cold_s']:.1f} s) {tag}", flush=True)
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
 
@@ -2864,25 +3464,33 @@ def main() -> int:
           f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)",
           flush=True)
 
-    # ---- 1. build the kernels from source, and beside them the host
-    # I/O library (g++) the CLI phases read and write archives through
+    # ---- 1. build the kernels from source: the first of phase (f5)'s two
+    # --fleet sessions, over a fresh --compile-cache, builds them on its
+    # warm-up thread and this process loads them from there (every process
+    # the script starts after it finds them through ICLEAN_COMPILE_CACHE);
+    # beside it the host I/O library (g++) the CLI phases read and write
+    # archives through
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=1) as pool:
-        host_build = pool.submit(host_io.build_library)
-        lib_path = K.build_library()
-        host_path = host_build.result()
+    fleet_work = tempfile.mkdtemp(prefix="icln_chip_smoke_fleet_")
+    atexit.register(shutil.rmtree, fleet_work, True)
+    warm = fleet_f5_start(fleet_work)
+    host_path = host_io.build_library()
+    fleet_f5_cold(warm)
+    K.configure_build_dir(warm["cache"])
+    os.environ[K.ENV_COMPILE_CACHE] = warm["cache"]
+    lib_path = K.build_library()
+    builds = K.library_builds()
     K.load_library()
     host_io.load_library()
     build_s = time.perf_counter() - t0
-    print(f"build: {os.path.relpath(lib_path, HERE)} and "
-          f"{os.path.relpath(host_path, HERE)} in {build_s:.1f} s",
-          flush=True)
-    log_path = os.path.join(K.BUILD_DIR, "build.log")
-    if os.path.exists(log_path):
-        for line in open(log_path):
-            if "registers" in line or "spill" in line or line.startswith("=="):
-                print("  " + line.strip())
-
+    print(f"build: {os.path.basename(str(lib_path))} built by the first "
+          f"(f5) --fleet session into its --compile-cache "
+          f"({warm['cold_s']:.1f} s with the process start and the "
+          f"session), {builds} builds in this process, and "
+          f"{os.path.relpath(host_path, HERE)}: {build_s:.1f} s", flush=True)
+    if builds:
+        fail("the kernel library was built twice")
+    log_path = os.path.join(K.build_dir(), "build.log")
     # the batch phase's other full-size archives, built on worker
     # processes while the phases before it run
     import multiprocessing
@@ -2894,6 +3502,10 @@ def main() -> int:
         mp_context=multiprocessing.get_context("spawn"))
     fullsize_futs = [archive_pool.submit(build_fullsize_seed, s, batch_dir)
                      for s in FULLSIZE_BATCH_SEEDS]
+    # and the fleet phases' PSRFITS files, on a worker of their own
+    fleet_pool = ProcessPoolExecutor(
+        max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+    fleet_files_fut = fleet_pool.submit(fleet_files, fleet_work)
 
     # ---- 2. each route, counted: the full-size archive through
     # clean_archive, launch counts set to 0 just before and read just after
@@ -2968,6 +3580,12 @@ def main() -> int:
     archive_pool.shutdown()
     shutil.rmtree(batch_dir, ignore_errors=True)
     batch_cli_phase(tag)
+    # ---- 3n. the fleet (--fleet): (f1) a mixed fleet against --batch and
+    # the sequential session, (f2) the injected ladder, (f3) a real OOM,
+    # (f4) kill -9 and --resume, (f5) a warm --compile-cache restart after
+    # the cold session of step 1, (f6) two hosts over one journal
+    fleet_phases(fleet_work, fleet_files_fut, warm, tag)
+    fleet_pool.shutdown()
 
     # ---- 3b. streaming, counted like the whole cleans: (a) exact with
     # nothing pinned, the regime of an archive larger than the card; (b)

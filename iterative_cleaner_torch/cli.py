@@ -7,7 +7,10 @@ torch|numpy] [--rotation fourier|roll] [--baseline_mode] [--stats_frame]
 [--model surgical_scrub|quicklook|online_ewt] [--checkpoint DIR]
 [--trace DIR] [--stream N [--stream_mode exact|online]
 [--stream_hbm_mb MB]] [--batch B] [--mesh off|cell|batch] [--prefetch N]
-[--io-workers N]
+[--io-workers N] [--fleet [--bucket-pad NSUB,NCHAN] [--retries N]
+[--stage-timeout S] [--faults SPEC [--fault-seed SEED]] [--journal PATH
+[--journal-segment-mb MB] [--resume]] [--hosts N --host-id I
+[--claim-ttl S]]] [--precompile] [--compile-cache DIR]
 [--metrics-json PATH] [--prom-textfile PATH] [--event-log PATH]
 [--log-format text|json] [--timing] [--keep_going] obs.sf ...``
 cleans each archive (``.npz``, ``.icar``, fold-mode PSRFITS: ``.sf``,
@@ -81,8 +84,29 @@ ignored with B > 1.  ``--mesh batch`` splits each group over the ranks
 of a ``torchrun`` job (``torchrun --nproc_per_node N -m
 iterative_cleaner_torch --batch B --mesh batch ...``): each rank cleans
 its share, rank 0 writes.
+``--fleet`` serves the archive list through the shape-bucketed fleet
+scheduler (``parallel/fleet.py``): archives group by (nsub, nchan, nbin,
+DEDISP) (``--bucket-pad`` rounds nsub/nchan up to a grid so near-miss
+shapes share a bucket), each group of up to ``--batch B`` (default 8)
+is one batched clean, loads stay one group ahead on ``--io-workers``
+threads and writes drain behind; outputs, console lines and logs are
+:func:`clean_one`'s, written under one lock, in bucket order.  Failures
+stay with their archive (exit 1 if any failed) and go through the
+resilience ladder: ``--retries``, ``--stage-timeout``, the fault drill
+``--faults``/``--fault-seed``, OOM halving down to the numpy oracle,
+and ``--journal PATH`` (a file, or a directory for the segmented
+journal) with ``--resume``, which prints ``resumed: N archives already
+complete in PATH``.  ``--hosts N --host-id I`` serves one host's share
+of a fleet that N processes split through one shared ``--journal``.
+``--compile-cache DIR`` is the directory the CUDA kernel library is
+built into and loaded from (a warm restart builds nothing);
+``--precompile --compile-cache DIR`` plans the buckets of the given
+archives or ``NSUBxNCHANxNBIN`` geometries, warms each and exits.
 Not ported yet: the live ``--stream DIR`` session (ROADMAP.md 'Modules
-still to port' item 5), ``--fleet`` (item 3).
+still to port' item 5); ``--coordinator`` and ``--fleet --mesh batch``
+(item 3b); ``--serve``, ``--trace-out``, ``--flight-recorder`` and
+``--journal-fsck`` (item 8).  Each raises ``NotImplementedError`` naming
+its item.
 """
 
 from __future__ import annotations
@@ -96,6 +120,8 @@ import sys
 from iterative_cleaner_torch.config import (
     BACKENDS,
     MESH_MODES,
+    ROADMAP_CONTROL_PLANE,
+    ROADMAP_FLEET_3B,
     ROADMAP_ONLINE,
     CleanConfig,
     check_mesh,
@@ -108,12 +134,31 @@ from iterative_cleaner_torch.models import (
     SURGICAL_SCRUB,
     get_model,
 )
+from iterative_cleaner_torch.parallel.fleet import resolve_io_workers
 from iterative_cleaner_torch.telemetry import RunTelemetry
 from iterative_cleaner_torch.utils import checkpoint as ckpt
 from iterative_cleaner_torch.utils.logging import append_clean_log
 from iterative_cleaner_torch.utils.tracing import device_trace
 
 MODELS = (SURGICAL_SCRUB, QUICKLOOK, ONLINE_EWT)
+
+
+def _parse_bucket_pad(text: str):
+    """argparse type for --bucket-pad: 'NSUB,NCHAN' non-negative ints."""
+    try:
+        parts = tuple(int(v) for v in text.split(","))
+        if len(parts) != 2 or any(v < 0 for v in parts):
+            raise ValueError
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"expected two non-negative grid steps 'NSUB,NCHAN' "
+            f"(e.g. 0,64; 0 disables that axis), got {text!r}") from None
+    return parts
+
+
+def _env_int(name: str):
+    value = os.environ.get(name, "")
+    return int(value) if value else None
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -256,7 +301,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "archives as one batch on the card (one launch of "
                         "each kernel per iteration for the whole batch; "
                         "for many small archives). Incompatible with "
-                        "--unload_res and --stream.")
+                        "--unload_res and --stream. With --fleet, B sets "
+                        "the fleet group size instead.")
     p.add_argument("--prefetch", type=int, default=0, metavar="N",
                    help="Load up to N archives ahead on background "
                         "threads while the card cleans the current one "
@@ -267,6 +313,123 @@ def build_parser() -> argparse.ArgumentParser:
                    dest="io_workers", metavar="N",
                    help="Threads of the --prefetch loader (default: the "
                         "ICLEAN_IO_WORKERS environment variable, else 2).")
+    p.add_argument("--fleet", action="store_true",
+                   help="Serve the archive list through the shape-bucketed "
+                        "fleet scheduler (parallel/fleet.py): archives "
+                        "group by (nsub, nchan, nbin, DEDISP), each group "
+                        "of up to --batch B (default 8) cleans as one "
+                        "batch on the card, and host load/write overlap "
+                        "the clean through the --io-workers pools. Handles "
+                        "mixed-shape fleets; per-archive failures "
+                        "(including write-back) never abort the fleet "
+                        "(exit code 1 if any failed).")
+    p.add_argument("--bucket-pad", "--bucket_pad", type=_parse_bucket_pad,
+                   default=(0, 0), dest="bucket_pad", metavar="NSUB,NCHAN",
+                   help="Fleet geometry quantization: round each archive's "
+                        "nsub/nchan up to these grid steps so near-miss "
+                        "shapes share one bucket (0 = no rounding on that "
+                        "axis; default 0,0 buckets by exact shape). Padded "
+                        "cells carry zero weight and final masks stay "
+                        "bit-equal, but nsub padding can change a "
+                        "borderline cell's iteration trajectory (opt-in).")
+    p.add_argument("--retries", type=int, default=None, metavar="N",
+                   help="Fleet resilience: retry a transiently failing "
+                        "peek/load/execute/write stage up to N times with "
+                        "bounded deterministic backoff before failing that "
+                        "archive (default: ICLEAN_RETRIES env var, else 2; "
+                        "0 disables retries).")
+    p.add_argument("--stage-timeout", "--stage_timeout", type=float,
+                   default=None, dest="stage_timeout", metavar="S",
+                   help="Fleet resilience: per-stage watchdog deadline in "
+                        "seconds — a hung load/compile/execute/write "
+                        "attempt fails its archive(s) after S seconds "
+                        "instead of wedging the whole run (default: "
+                        "ICLEAN_STAGE_TIMEOUT env var, else off; 0 "
+                        "disables).")
+    p.add_argument("--faults", type=str, default="", metavar="SPEC",
+                   help="Fleet fault-injection drill: deterministic "
+                        "'site:action' spec, comma-separated — sites "
+                        "peek/load/compile/execute/write (intake/sched "
+                        "parse for the serve daemon); actions a "
+                        "probability ('load:0.1'), 'once', a kind "
+                        "(err|oom|perm|hang) or 'kind@N' for the Nth call "
+                        "('exec:oom@2'). Mirrors ICLEAN_FAULTS; seeded by "
+                        "--fault-seed, so a failing soak replays exactly.")
+    p.add_argument("--fault-seed", "--fault_seed", type=int, default=0,
+                   dest="fault_seed", metavar="SEED",
+                   help="Seed for --faults probability draws (default 0; "
+                        "mirrors ICLEAN_FAULT_SEED).")
+    p.add_argument("--journal", type=str, default="", metavar="PATH",
+                   help="Fleet crash-safety: append one JSON line per "
+                        "completed archive (after its atomic output write) "
+                        "to PATH, keyed by input signature and config "
+                        "hash; a later --resume run skips journaled work. "
+                        "A DIRECTORY (or a path ending in a separator) "
+                        "selects the segmented backend.")
+    p.add_argument("--journal-segment-mb", "--journal_segment_mb",
+                   type=float, default=None, dest="journal_segment_mb",
+                   metavar="MB",
+                   help="Segmented journal only: seal a shard's active "
+                        "segment once it exceeds MB megabytes (default 4); "
+                        "ignored for single-file journals.")
+    p.add_argument("--resume", action="store_true",
+                   help="Skip archives the --journal records as complete "
+                        "under the same config, after re-verifying the "
+                        "input file signature and the recorded output — a "
+                        "killed fleet run picks up where it stopped with "
+                        "zero duplicated cleans. Requires --journal PATH.")
+    p.add_argument("--hosts", type=int, default=None, metavar="N",
+                   help="Multi-host fleet sharding: serve this --fleet as "
+                        "one of N cooperating processes. Geometry buckets "
+                        "partition across hosts by a deterministic hash; "
+                        "hosts coordinate through the shared --journal "
+                        "(claim leases + work stealing), so a host that "
+                        "finishes early or dies has its buckets re-served "
+                        "exactly once. Requires --journal on storage all "
+                        "hosts share. Mirrors ICLEAN_HOSTS.")
+    p.add_argument("--host-id", "--host_id", type=int, default=None,
+                   dest="host_id", metavar="I",
+                   help="This process's host index in [0, --hosts). "
+                        "Mirrors ICLEAN_HOST_ID.")
+    p.add_argument("--claim-ttl", "--claim_ttl", type=float, default=None,
+                   dest="claim_ttl", metavar="S",
+                   help="Multi-host claim-lease duration in seconds: a "
+                        "serving host heartbeats its bucket's lease at "
+                        "S/3; a dead host's buckets become stealable after "
+                        "at most S. Default: ICLEAN_CLAIM_TTL env var, "
+                        "else 60.")
+    p.add_argument("--coordinator", type=str, default="",
+                   metavar="HOST:PORT",
+                   help="Not ported (ROADMAP item 3b): the journal alone "
+                        "coordinates a multi-host fleet.")
+    p.add_argument("--compile-cache", "--compile_cache", type=str,
+                   default="", dest="compile_cache", metavar="DIR",
+                   help="Directory the CUDA kernel library is built into "
+                        "and loaded from: a warm restart (or any later "
+                        "process) over the same sources finds it there "
+                        "and runs no nvcc. Also settable as "
+                        "ICLEAN_COMPILE_CACHE. Default: the package's "
+                        "_build/ directory.")
+    p.add_argument("--precompile", action="store_true",
+                   help="Warm the --compile-cache for the given "
+                        "archives/geometries and exit without cleaning: "
+                        "each argument is an archive path (shape read from "
+                        "its header) or a bare NSUBxNCHANxNBIN geometry; "
+                        "every resulting fleet bucket is warmed (the "
+                        "kernel library built, its DFT tables and launch "
+                        "plans made). Honours --batch and --bucket-pad.")
+    p.add_argument("--serve", action="store_true",
+                   help="Not ported (ROADMAP item 8): the serve daemon.")
+    p.add_argument("--trace-out", "--trace_out", type=str, default="",
+                   dest="trace_out", metavar="PATH",
+                   help="Not ported (ROADMAP item 8): distributed spans.")
+    p.add_argument("--flight-recorder", "--flight_recorder", type=str,
+                   default=None, dest="flight_recorder", metavar="PATH",
+                   help="Not ported (ROADMAP item 8): the flight recorder.")
+    p.add_argument("--journal-fsck", action="append", default=[],
+                   dest="journal_fsck", metavar="JOURNAL",
+                   help="Not ported (ROADMAP item 8): the journal's "
+                        "protocol checker.")
     p.add_argument("--metrics-json", "--metrics_json", type=str, default="",
                    dest="metrics_json", metavar="PATH",
                    help="Write a JSON run report (counters, phase "
@@ -334,7 +497,20 @@ def config_of(args) -> CleanConfig:
                        compute_dtype=args.compute_dtype,
                        record_history=args.record_history,
                        unload_res=args.unload_res, device=args.device,
-                       stream_hbm_mb=args.stream_hbm_mb)
+                       stream_hbm_mb=args.stream_hbm_mb,
+                       fleet_bucket_pad=tuple(args.bucket_pad),
+                       # --fleet reuses --batch B as its group size
+                       fleet_group_size=(args.batch if args.batch > 1
+                                         else CleanConfig.fleet_group_size),
+                       fleet_retries=args.retries,
+                       stage_timeout_s=args.stage_timeout,
+                       fleet_hosts=(args.hosts if args.hosts is not None
+                                    else _env_int("ICLEAN_HOSTS")),
+                       fleet_host_id=(args.host_id
+                                      if args.host_id is not None
+                                      else _env_int("ICLEAN_HOST_ID")),
+                       fleet_claim_ttl_s=args.claim_ttl,
+                       compile_cache_dir=args.compile_cache or None)
 
 
 def notice_compute_dtype_downgrade(cfg: CleanConfig, telemetry) -> str:
@@ -354,18 +530,6 @@ def notice_compute_dtype_downgrade(cfg: CleanConfig, telemetry) -> str:
 
     return config_compute_dtype(cfg, "engine", clean_device(cfg),
                                 telemetry.registry)
-
-
-def resolve_io_workers(value=None) -> int:
-    """The ``--prefetch`` loader's width: ``value``, else the
-    ``ICLEAN_IO_WORKERS`` environment variable, else 2."""
-    if value is None:
-        env = os.environ.get("ICLEAN_IO_WORKERS", "")
-        value = int(env) if env else 2
-    value = int(value)
-    if value < 1:
-        raise ValueError(f"io_workers must be >= 1, got {value}")
-    return value
 
 
 def iter_archives(paths, prefetch: int, workers: int = 1):
@@ -625,6 +789,144 @@ def run_batched(args, telemetry: RunTelemetry, mesh=None) -> list:
     return failed
 
 
+def run_fleet(args, telemetry: RunTelemetry) -> list:
+    """The ``--fleet`` session: the whole (possibly mixed-shape) archive
+    list through :func:`~iterative_cleaner_torch.parallel.fleet.
+    clean_fleet`, each archive's output, console lines and logs written by
+    :func:`clean_one` under one lock (stdout, the zap plot and
+    ``clean.log`` are not thread-safe), in the buckets' order.  Returns the
+    failed paths."""
+    import threading
+
+    from iterative_cleaner_torch.parallel.distributed import (
+        resolve_host_topology,
+    )
+    from iterative_cleaner_torch.parallel.fleet import clean_fleet
+    from iterative_cleaner_torch.resilience import (
+        FaultInjector,
+        FleetJournal,
+        ResiliencePlan,
+        RetryPolicy,
+        resolve_retries,
+        resolve_stage_timeout,
+    )
+
+    cfg = config_of(args)
+    topo = resolve_host_topology(cfg.fleet_hosts, cfg.fleet_host_id)
+    failed: list = []
+    write_lock = threading.Lock()
+
+    def write_one(path, ar, result):
+        with write_lock:
+            clean_one(path, args, telemetry, preloaded=ar, result=result)
+
+    def on_error(path, exc, stage):
+        failed.append(path)
+        telemetry.record_failure(path, exc)
+        print("ERROR %s %s: %s: %s"
+              % ("writing" if stage == "write" else "cleaning", path,
+                 type(exc).__name__, exc), file=sys.stderr)
+
+    journal_path = args.journal
+    plan = ResiliencePlan(
+        faults=(FaultInjector(args.faults, seed=args.fault_seed)
+                if args.faults else FaultInjector.from_env()),
+        retry=RetryPolicy(max_retries=resolve_retries(cfg.fleet_retries)),
+        stage_timeout_s=resolve_stage_timeout(cfg.stage_timeout_s),
+        journal=(FleetJournal(journal_path,
+                              segment_mb=args.journal_segment_mb,
+                              registry=telemetry.registry)
+                 if journal_path else None),
+        resume=args.resume)
+
+    def default_out_path(p):
+        return p + "_cleaned" + (os.path.splitext(p)[1] or ".npz")
+
+    report = clean_fleet(
+        list(args.archive), cfg, registry=telemetry.registry,
+        events=telemetry.events, io_workers=args.io_workers,
+        write_fn=write_one, on_error=on_error, resilience=plan,
+        # a journal line records the output's path and signature so a
+        # resume can re-verify it; only the default naming is a function
+        # of the input path alone (-o std needs the archive)
+        out_path_fn=default_out_path if args.output == "" else None,
+        hosts=topo)
+    if report.skipped and not args.quiet:
+        print("resumed: %d archive%s already complete in %s"
+              % (len(report.skipped),
+                 "" if len(report.skipped) == 1 else "s", journal_path))
+    if topo.is_multi and not args.quiet:
+        print("host %d/%d: %d cleaned, %d bucket%s owned, %d stolen"
+              % (topo.host_id, topo.n_hosts, len(report.results),
+                 report.n_buckets_owned,
+                 "" if report.n_buckets_owned == 1 else "s",
+                 report.n_stolen))
+    return failed
+
+
+def _parse_geometry_spec(spec: str):
+    """'NSUBxNCHANxNBIN' -> (nsub, nchan, nbin) for --precompile arguments
+    that are not paths; None when the string does not look like one."""
+    parts = spec.lower().split("x")
+    if len(parts) != 3:
+        return None
+    try:
+        dims = tuple(int(v) for v in parts)
+    except ValueError:
+        return None
+    return dims if all(v > 0 for v in dims) else None
+
+
+def run_precompile(args) -> int:
+    """The ``--precompile`` session: each argument resolved to a shape (a
+    header peek for a path, else a parsed NSUBxNCHANxNBIN), the fleet's
+    buckets planned as ``--fleet`` would, and each bucket warmed
+    (:func:`~iterative_cleaner_torch.parallel.batch.warm_bucket`: the
+    kernel library built into ``--compile-cache``, the tables and launch
+    plans made) — then exit.  A later serving process over the same
+    directory builds nothing."""
+    import time
+
+    from iterative_cleaner_torch.parallel.batch import warm_bucket
+    from iterative_cleaner_torch.parallel.fleet import (
+        _default_shape_fn,
+        plan_fleet,
+    )
+
+    cfg = config_of(args)
+    entries = []
+    for spec in args.archive:
+        if os.path.exists(spec):
+            entries.append((spec, _default_shape_fn(spec)))
+            continue
+        dims = _parse_geometry_spec(spec)
+        if dims is None:
+            print("ERROR: --precompile argument %r is neither an existing "
+                  "archive nor a NSUBxNCHANxNBIN geometry" % spec,
+                  file=sys.stderr)
+            return 2
+        entries.append((spec, (*dims, False)))
+    plan = plan_fleet(entries, bucket_pad=cfg.fleet_bucket_pad,
+                      group_size=cfg.fleet_group_size)
+    for bucket in plan.buckets:
+        nsub, nchan, nbin, ded = bucket.key
+        t0 = time.perf_counter()
+        warm_bucket(cfg, nsub, nchan, nbin, ded, bucket.batch_dim).release()
+        if not args.quiet:
+            print("precompiled %dx%dx%d%s batch=%d (%d archive%s) in %.2fs"
+                  % (nsub, nchan, nbin, " dedispersed" if ded else "",
+                     bucket.batch_dim, len(bucket.items),
+                     "" if len(bucket.items) == 1 else "s",
+                     time.perf_counter() - t0))
+    if not args.quiet:
+        from iterative_cleaner_torch.stats.kernels import build_dir
+
+        print("compile cache warmed: %d bucket%s -> %s"
+              % (len(plan.buckets), "" if len(plan.buckets) == 1 else "s",
+                 build_dir()))
+    return 0
+
+
 def run_archives(args, mesh=None) -> int:
     """Clean every archive of ``args`` in one session; 1 if any failed
     under ``--keep_going`` (or a ``--batch`` write failed), else 0
@@ -633,7 +935,9 @@ def run_archives(args, mesh=None) -> int:
     failed = []
     with run_session(args, lead, 0 if mesh is None else mesh.rank) \
             as telemetry:
-        if args.batch > 1:
+        if args.fleet:
+            failed = run_fleet(args, telemetry)
+        elif args.batch > 1:
             failed = run_batched(args, telemetry, mesh)
         else:
             for path, preloaded in iter_archives(
@@ -659,6 +963,97 @@ def run_archives(args, mesh=None) -> int:
     return 0
 
 
+def check_fleet_args(parser, args, chunk: int) -> None:
+    """The reference parser's refusals of the fleet's flags (exit 2), and
+    the flags whose modules are not ported (``NotImplementedError``
+    naming the item)."""
+    if args.serve or args.trace_out or args.flight_recorder is not None \
+            or args.journal_fsck:
+        raise NotImplementedError(
+            f"--serve/--trace-out/--flight-recorder/--journal-fsck: "
+            f"{ROADMAP_CONTROL_PLANE}")
+    if args.coordinator or os.environ.get("ICLEAN_COORDINATOR"):
+        raise NotImplementedError(f"--coordinator: {ROADMAP_FLEET_3B}")
+    if args.resume and not args.journal:
+        parser.error("--resume needs an explicit --journal PATH: resuming "
+                     "against an implicit default journal risks skipping "
+                     "work recorded by a different run")
+    if args.fleet and (args.unload_res or args.checkpoint
+                       or args.record_history or chunk > 0
+                       or args.backend != "torch"
+                       or args.model != SURGICAL_SCRUB
+                       or args.mesh == "cell"):
+        parser.error(
+            "--fleet requires --backend torch and is incompatible with "
+            "--unload_res/--checkpoint/--record_history/--stream/"
+            "--model quicklook/--mesh cell (the batched clean gathers no "
+            "residuals or histories; checkpoints are keyed to "
+            "whole-archive cleaning)")
+    if tuple(args.bucket_pad) != (0, 0) and not (args.fleet
+                                                 or args.precompile):
+        parser.error("--bucket-pad only affects the --fleet planner; pass "
+                     "--fleet")
+    if ((args.retries is not None or args.stage_timeout is not None
+         or args.faults or args.journal or args.resume)
+            and not args.fleet):
+        parser.error("--retries/--stage-timeout/--faults/--journal/--resume "
+                     "configure the --fleet resilience ladder; pass --fleet")
+    if ((args.hosts is not None or args.host_id is not None
+         or args.claim_ttl is not None) and not args.fleet):
+        parser.error("--hosts/--host-id/--claim-ttl configure the --fleet "
+                     "multi-host scheduler; pass --fleet")
+    if args.hosts is not None and args.hosts < 1:
+        parser.error(f"--hosts must be >= 1, got {args.hosts}")
+    if args.host_id is not None and args.host_id < 0:
+        parser.error(f"--host-id must be >= 0, got {args.host_id}")
+    if args.claim_ttl is not None and args.claim_ttl <= 0:
+        parser.error(f"--claim-ttl must be > 0, got {args.claim_ttl}")
+    if args.host_id is not None and args.hosts is None \
+            and not os.environ.get("ICLEAN_HOSTS"):
+        parser.error("--host-id needs the host count: pass --hosts N (or "
+                     "set ICLEAN_HOSTS)")
+    eff_hosts = (args.hosts if args.hosts is not None
+                 else _env_int("ICLEAN_HOSTS"))
+    if eff_hosts is not None and eff_hosts > 1 and not args.journal:
+        parser.error("--hosts N > 1 coordinates through the shared journal "
+                     "(claim leases, work stealing, exactly-once "
+                     "accounting); pass --journal PATH on storage every "
+                     "host shares")
+    if args.retries is not None and args.retries < 0:
+        parser.error(f"--retries must be >= 0, got {args.retries}")
+    if args.stage_timeout is not None and args.stage_timeout < 0:
+        parser.error(f"--stage-timeout must be >= 0 (0 disables the "
+                     f"watchdog), got {args.stage_timeout}")
+    if args.faults:
+        from iterative_cleaner_torch.resilience import (
+            FaultSpecError,
+            parse_fault_spec,
+        )
+
+        try:
+            parse_fault_spec(args.faults)
+        except FaultSpecError as exc:
+            parser.error(f"--faults: {exc}")
+    if args.compile_cache and args.backend != "torch":
+        parser.error("--compile-cache requires --backend torch (the numpy "
+                     "oracle builds no kernels)")
+    if args.precompile:
+        if args.backend != "torch":
+            parser.error("--precompile requires --backend torch")
+        if not (args.compile_cache
+                or os.environ.get("ICLEAN_COMPILE_CACHE")):
+            parser.error("--precompile warms the kernel build directory; "
+                         "pass --compile-cache DIR (or set "
+                         "ICLEAN_COMPILE_CACHE)")
+        if args.mesh != "off" or chunk > 0 or args.unload_res \
+                or args.checkpoint or args.model != SURGICAL_SCRUB:
+            parser.error("--precompile warms the --fleet buckets and is "
+                         "incompatible with --mesh/--stream/--unload_res/"
+                         "--checkpoint/--model quicklook")
+    if args.fleet and args.mesh == "batch":
+        raise NotImplementedError(f"--fleet --mesh batch: {ROADMAP_FLEET_3B}")
+
+
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
@@ -666,6 +1061,7 @@ def main(argv=None) -> int:
         parser.error(f"--io-workers must be >= 1, got {args.io_workers}")
     # refuse a directory, and what the mesh does not run, before any clean
     chunk = stream_chunk(args.stream)
+    check_fleet_args(parser, args, chunk)
     if args.batch > 1 and (args.unload_res or chunk > 0 or args.checkpoint
                            or args.mesh == "cell"):
         parser.error("--batch is incompatible with --unload_res, --stream, "
@@ -685,6 +1081,11 @@ def main(argv=None) -> int:
                      "whole-archive cleaning)")
     if args.model == ONLINE_EWT:
         raise NotImplementedError(ONLINE_EWT_NOT_PORTED)
+    from iterative_cleaner_torch.utils import configure_compilation_cache
+
+    configure_compilation_cache(args.compile_cache)
+    if args.precompile:
+        return run_precompile(args)
     if args.mesh == "batch" and args.batch <= 1:
         parser.error("--mesh batch splits the --batch groups over the "
                      "ranks; pass --batch B (B > 1)")

@@ -30,6 +30,11 @@ from typing import Optional, Tuple
 ROADMAP_F64_MESH = ("ROADMAP.md 'Modules still to port' item 1b (float64 "
                     "on a mesh and in a batch)")
 ROADMAP_ONLINE = "ROADMAP.md 'Modules still to port' item 5 (online)"
+ROADMAP_FLEET_3B = ("ROADMAP.md 'Modules still to port' item 3b (--coordinator, "
+                    "a ('batch',) mesh under the fleet, the hybrid batch-cell "
+                    "mesh)")
+ROADMAP_CONTROL_PLANE = ("ROADMAP.md 'Modules still to port' item 8 (the "
+                         "control plane)")
 
 BACKENDS = ("torch", "numpy")
 
@@ -89,6 +94,33 @@ class CleanConfig:
     # nothing (an archive larger than the card: every pass re-streams
     # its tiles)
     stream_hbm_mb: Optional[float] = None
+    # fleet scheduler (parallel/fleet.py): the (nsub_step, nchan_step)
+    # grid the planner rounds raw shapes up to, merging near-miss
+    # geometries into one bucket; (0, 0) buckets by exact shape.  Padded
+    # cells carry zero weight and zero data and are cropped before the
+    # bad-parts sweep; nchan padding is exact, nsub padding may change a
+    # borderline cell's trajectory (opt-in, as in the reference)
+    fleet_bucket_pad: Tuple[int, int] = (0, 0)
+    # largest batch one fleet group cleans at (--batch B with --fleet)
+    fleet_group_size: int = 8
+    # per-stage retry budget of the fleet's resilience ladder; None
+    # defers to ICLEAN_RETRIES, then 2
+    fleet_retries: Optional[int] = None
+    # per-stage watchdog deadline (s) of fleet stage attempts; None
+    # defers to ICLEAN_STAGE_TIMEOUT, then off; 0 means off
+    stage_timeout_s: Optional[float] = None
+    # multi-host fleet: how many hosts share the fleet through one
+    # journal and which one this process is; None defers to
+    # ICLEAN_HOSTS / ICLEAN_HOST_ID, then one host
+    fleet_hosts: Optional[int] = None
+    fleet_host_id: Optional[int] = None
+    # claim-lease duration (s) of a multi-host bucket; None defers to
+    # ICLEAN_CLAIM_TTL, then 60
+    fleet_claim_ttl_s: Optional[float] = None
+    # directory the CUDA kernel library is built into and loaded from
+    # (stats/kernels.py); None defers to ICLEAN_COMPILE_CACHE, then the
+    # package's _build/
+    compile_cache_dir: Optional[str] = None
 
     @property
     def pulse_region_active(self) -> bool:
@@ -140,6 +172,37 @@ class CleanConfig:
         if self.dtype not in DTYPES:
             raise ValueError(f"unknown dtype {self.dtype!r} (choose "
                              f"'float32' or 'float64')")
+        if (len(tuple(self.fleet_bucket_pad)) != 2
+                or any(int(v) < 0 for v in self.fleet_bucket_pad)):
+            raise ValueError(
+                f"fleet_bucket_pad must be two non-negative grid steps "
+                f"(nsub, nchan; 0 = no quantization on that axis), got "
+                f"{self.fleet_bucket_pad!r}")
+        if self.fleet_group_size < 1:
+            raise ValueError(
+                f"fleet_group_size must be >= 1, got {self.fleet_group_size}")
+        if self.fleet_retries is not None and self.fleet_retries < 0:
+            raise ValueError(
+                f"fleet_retries must be >= 0, got {self.fleet_retries}")
+        if self.stage_timeout_s is not None and self.stage_timeout_s < 0:
+            raise ValueError(
+                f"stage_timeout_s must be >= 0 (0/None disables the "
+                f"watchdog), got {self.stage_timeout_s}")
+        if self.fleet_hosts is not None and self.fleet_hosts < 1:
+            raise ValueError(
+                f"fleet_hosts must be >= 1, got {self.fleet_hosts}")
+        if self.fleet_host_id is not None:
+            if self.fleet_hosts is None:
+                raise ValueError(
+                    "fleet_host_id without fleet_hosts: a host index is "
+                    "meaningless without the host count")
+            if not 0 <= self.fleet_host_id < self.fleet_hosts:
+                raise ValueError(
+                    f"fleet_host_id must be in [0, {self.fleet_hosts}), "
+                    f"got {self.fleet_host_id}")
+        if self.fleet_claim_ttl_s is not None and self.fleet_claim_ttl_s <= 0:
+            raise ValueError(
+                f"fleet_claim_ttl_s must be > 0, got {self.fleet_claim_ttl_s}")
 
 
 def check_mesh(mesh: str, config: CleanConfig) -> None:

@@ -25,12 +25,17 @@ collectives the shards exchange, and rank processes on one host.
   explicitly; the kernels still run on the card.
 - :func:`run_local_ranks` runs a function in N spawned rank processes on
   this host and fails if any rank dies or outlives its timeout.
+- The multi-host fleet's topology (:class:`HostTopology`,
+  :func:`resolve_host_topology`, :func:`stable_shard`) is pure host code:
+  no process group and no collective; the hosts coordinate through the
+  fleet's shared journal alone.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import datetime
+import hashlib
 import os
 import pickle
 import time
@@ -47,6 +52,62 @@ FAILURE_GRACE_S = 5.0
 
 _OPS = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN,
         "max": dist.ReduceOp.MAX}
+
+ENV_HOSTS = "ICLEAN_HOSTS"
+ENV_HOST_ID = "ICLEAN_HOST_ID"
+
+
+@dataclasses.dataclass(frozen=True)
+class HostTopology:
+    """This process's slot in a multi-host fleet: which host it is and
+    how many hosts share the work.  Purely logical — N cooperating
+    processes over one shared journal, on one machine or many."""
+
+    host_id: int = 0
+    n_hosts: int = 1
+
+    def __post_init__(self) -> None:
+        if self.n_hosts < 1:
+            raise ValueError(f"n_hosts must be >= 1, got {self.n_hosts}")
+        if not 0 <= self.host_id < self.n_hosts:
+            raise ValueError(
+                f"host_id must be in [0, {self.n_hosts}), got "
+                f"{self.host_id}")
+
+    @property
+    def is_multi(self) -> bool:
+        return self.n_hosts > 1
+
+
+def resolve_host_topology(hosts: Optional[int] = None,
+                          host_id: Optional[int] = None) -> HostTopology:
+    """The fleet's host topology: explicit values, else the
+    ``ICLEAN_HOSTS``/``ICLEAN_HOST_ID`` environment variables, else one
+    host.  A half-specified topology is an error, not a guess."""
+    if hosts is None:
+        env = os.environ.get(ENV_HOSTS, "")
+        hosts = int(env) if env else None
+    if host_id is None:
+        env = os.environ.get(ENV_HOST_ID, "")
+        host_id = int(env) if env else None
+    if hosts is None and host_id is None:
+        return HostTopology()
+    if hosts is None or (host_id is None and hosts > 1):
+        raise ValueError(
+            "half-specified host topology: pass both hosts and host_id "
+            "(or both ICLEAN_HOSTS and ICLEAN_HOST_ID) — guessing the "
+            "missing half would serve the wrong bucket set")
+    return HostTopology(host_id=int(host_id or 0), n_hosts=int(hosts))
+
+
+def stable_shard(key: str, n_shards: int) -> int:
+    """Deterministic, process-independent shard of ``key``: a blake2b of
+    the key string modulo ``n_shards`` (Python's ``hash`` is salted per
+    process, so two hosts would disagree).  The reference's function:
+    both packages route journal segments and fleet buckets alike."""
+    n = max(1, int(n_shards))
+    digest = hashlib.blake2b(str(key).encode(), digest_size=8).digest()
+    return int.from_bytes(digest, "big") % n
 
 
 @dataclasses.dataclass(frozen=True)

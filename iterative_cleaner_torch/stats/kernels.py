@@ -49,6 +49,15 @@ combine) — no size gate.
 The sources are compiled at first use with ``nvcc`` into one shared
 library under ``iterative_cleaner_torch/_build/`` (one ``nvcc`` per
 source, run in parallel, then one link) and bound with ``ctypes``.
+:func:`configure_build_dir` (``CleanConfig.compile_cache_dir``,
+``--compile-cache DIR``, ``ICLEAN_COMPILE_CACHE``) points the build at
+another directory before the first build of the process; a process that
+finds its digest's library there runs no ``nvcc`` at all
+(:func:`library_builds` counts the builds this process ran).  The DFT
+tables of the cell-diagnostics kernels are cached per (nbin, plan width,
+device, dtype) with least-recently-used eviction past 8 entries, except
+for entries a caller pinned (:func:`pin_dft_tables`: the fleet's bucket
+warm-up holds its buckets' tables until their groups are served).
 
 K1, K2, K6, K7 and K10 also read a bf16-stored cube (the mixed-precision
 mode, ``CleanConfig.compute_dtype='bfloat16'``), as the TPU functions do:
@@ -92,6 +101,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from collections import OrderedDict
 from pathlib import Path
 from typing import NamedTuple
 
@@ -147,7 +157,48 @@ def _check_nbin(nbin: int, realsize: int = 4) -> None:
 
 
 _LIB = None
+_LIB_DIR = None          # the directory _LIB was built into / loaded from
 _LIB_LOCK = threading.Lock()
+_BUILD_DIR_OVERRIDE = None
+_LIBRARY_BUILDS = 0      # nvcc builds of the library run by this process
+ENV_COMPILE_CACHE = "ICLEAN_COMPILE_CACHE"
+
+
+def build_dir() -> Path:
+    """Where the library is built and looked for: the directory given to
+    :func:`configure_build_dir`, else ``ICLEAN_COMPILE_CACHE``, else the
+    package's ``_build/``."""
+    if _BUILD_DIR_OVERRIDE is not None:
+        return _BUILD_DIR_OVERRIDE
+    env = os.environ.get(ENV_COMPILE_CACHE, "")
+    return Path(env).resolve() if env else BUILD_DIR
+
+
+def configure_build_dir(directory) -> None:
+    """Point the kernel library's build at ``directory`` (created at the
+    build); falsy leaves the default.  It must act before the library is
+    loaded: ``RuntimeError`` if this process already loaded it from
+    another directory (a second copy cannot replace the bound one)."""
+    global _BUILD_DIR_OVERRIDE
+    if not directory:
+        return
+    target = Path(directory).resolve()
+    with _LIB_LOCK:
+        if _LIB is not None and _LIB_DIR != target:
+            raise RuntimeError(
+                f"the kernel library is already loaded from {_LIB_DIR}; "
+                f"configure the build directory {target} before the "
+                f"first build of the process")
+        _BUILD_DIR_OVERRIDE = target
+
+
+def library_builds() -> int:
+    """How many times this process ran ``nvcc`` to build the library."""
+    return _LIBRARY_BUILDS
+
+
+def library_loaded() -> bool:
+    return _LIB is not None
 
 
 def _nvcc() -> str:
@@ -173,12 +224,15 @@ def build_library() -> Path:
     """Compile the kernel sources into one shared library (cached by
     source digest) and return its path.  The compiler's register and
     shared-memory report is kept in ``build.log`` beside it."""
-    out = BUILD_DIR / f"libicln_kernels_{_source_digest()}.so"
+    global _LIBRARY_BUILDS
+    where = build_dir()
+    out = where / f"libicln_kernels_{_source_digest()}.so"
     if out.exists():
         return out
     nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    where.mkdir(parents=True, exist_ok=True)
+    _LIBRARY_BUILDS += 1
+    with tempfile.TemporaryDirectory(dir=where) as tmp:
         procs = []
         for name in SOURCES:
             obj = os.path.join(tmp, name + ".o")
@@ -191,7 +245,7 @@ def build_library() -> Path:
             logs.append(f"== {name} (rc {proc.returncode})\n{text}")
             if proc.returncode != 0:
                 failed.append(name)
-        (BUILD_DIR / "build.log").write_text("\n".join(logs))
+        (where / "build.log").write_text("\n".join(logs))
         if failed:
             raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
         lib_tmp = os.path.join(tmp, "lib.so")
@@ -230,17 +284,18 @@ _SIGNATURES = {
 
 def load_library():
     """The bound kernel library, built on first use."""
-    global _LIB
+    global _LIB, _LIB_DIR
     with _LIB_LOCK:
         if _LIB is None:
-            lib = ctypes.CDLL(str(build_library()))
+            path = build_library()
+            lib = ctypes.CDLL(str(path))
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
             lib.icln_error_string.argtypes = [ctypes.c_int]
             lib.icln_error_string.restype = ctypes.c_char_p
-            _LIB = lib
+            _LIB, _LIB_DIR = lib, path.parent
         return _LIB
 
 
@@ -569,6 +624,7 @@ def cell_stats_plans(nbin: int, itemsize: int = 4):
                                       producers, 32 * warps, smem)
 
 
+@functools.lru_cache(maxsize=64)
 def cell_stats_geometry(nbin: int, itemsize: int = 4):
     """The :class:`CellStatsPlan` of K2, K6, K7 and K10 at ``nbin``: of
     :func:`cell_stats_plans`, the first with the least estimated time
@@ -583,19 +639,77 @@ def cell_stats_geometry(nbin: int, itemsize: int = 4):
     return best[1]
 
 
-@functools.lru_cache(maxsize=8)
+_TABLES_MAX = 8
+_TABLES: "OrderedDict[tuple, tuple]" = OrderedDict()
+_TABLE_PINS: dict = {}
+_TABLES_LOCK = threading.Lock()
+
+
+def _tables_key(nbin: int, nkp: int, device: str, dtype) -> tuple:
+    return int(nbin), int(nkp), str(device), dtype
+
+
 def _dft_tables_padded(nbin: int, nkp: int, device: str,
                        dtype=torch.float32):
     """The (nbin, nkp) cos/sin tables the kernels read: ``dft_tables``
     at the arithmetic ``dtype`` (float64 for the float64 builds) with
     zero columns past nbin/2 + 1 (|X|^2 = 0 there, which never wins the
-    max; a row holding NaN or inf is NaN in a real column too)."""
+    max; a row holding NaN or inf is NaN in a real column too).  Cached:
+    the least recently used unpinned entry goes past 8 entries."""
+    key = _tables_key(nbin, nkp, device, dtype)
+    with _TABLES_LOCK:
+        hit = _TABLES.get(key)
+        if hit is not None:
+            _TABLES.move_to_end(key)
+            return hit
     out = []
     for t in dft_tables(nbin, dtype, torch.device(device)):
         pad = torch.zeros((nbin, nkp), dtype=dtype, device=device)
         pad[:, : t.shape[1]] = t
         out.append(pad)
-    return tuple(out)
+    with _TABLES_LOCK:
+        hit = _TABLES.setdefault(key, tuple(out))
+        _TABLES.move_to_end(key)
+        for k in list(_TABLES):
+            if len(_TABLES) <= _TABLES_MAX:
+                break
+            if not _TABLE_PINS.get(k):
+                del _TABLES[k]
+    return hit
+
+
+def dft_tables_cached(nbin: int, nkp: int, device: str,
+                      dtype=torch.float32) -> bool:
+    """Whether the tables of this key are in the cache now."""
+    with _TABLES_LOCK:
+        return _tables_key(nbin, nkp, device, dtype) in _TABLES
+
+
+def pin_dft_tables(nbin: int, nkp: int, device: str,
+                   dtype=torch.float32) -> None:
+    """Keep this key's tables from eviction until as many
+    :func:`unpin_dft_tables` calls (pins count)."""
+    key = _tables_key(nbin, nkp, device, dtype)
+    with _TABLES_LOCK:
+        _TABLE_PINS[key] = _TABLE_PINS.get(key, 0) + 1
+
+
+def unpin_dft_tables(nbin: int, nkp: int, device: str,
+                     dtype=torch.float32) -> None:
+    key = _tables_key(nbin, nkp, device, dtype)
+    with _TABLES_LOCK:
+        n = _TABLE_PINS.get(key, 0) - 1
+        if n > 0:
+            _TABLE_PINS[key] = n
+        else:
+            _TABLE_PINS.pop(key, None)
+
+
+def clear_dft_tables() -> None:
+    """Drop every cached table and pin (test isolation)."""
+    with _TABLES_LOCK:
+        _TABLES.clear()
+        _TABLE_PINS.clear()
 
 
 @functools.lru_cache(maxsize=8)

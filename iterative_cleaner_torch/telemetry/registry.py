@@ -25,6 +25,10 @@ import torch
 # Histogram bucket upper bounds for small counts (loops per archive,
 # cells flipped per iteration), the default.
 COUNTS = (1.0, 2.0, 5.0, 10.0, 25.0, 50.0, 100.0)
+# Histogram bucket upper bounds for durations in seconds (the fleet's
+# load and compile stalls, the journal's folds).
+SECONDS = (0.0001, 0.00025, 0.0005, 0.001, 0.0025,
+           0.005, 0.025, 0.1, 0.5, 1.0, 2.5, 10.0, 30.0, 120.0)
 
 
 def labeled(name: str, **labels) -> str:
@@ -144,6 +148,19 @@ class MetricsRegistry:
             if h is None:
                 h = self.histograms[name] = Histogram(buckets)
             h.observe(value)
+
+    def counters_mark(self) -> Dict[str, float]:
+        """A copy of every counter now, for :meth:`counters_since`."""
+        with self._lock:
+            return dict(self.counters)
+
+    def counters_since(self, mark: Dict[str, float]) -> Dict[str, float]:
+        """Each counter's increase since ``mark`` (a :meth:`counters_mark`
+        result); counters that did not move are left out."""
+        with self._lock:
+            return {k: v - mark.get(k, 0.0)
+                    for k, v in self.counters.items()
+                    if v != mark.get(k, 0.0)}
 
     def snapshot(self) -> dict:
         """Deterministic (sorted-key) plain-dict view, JSON-ready."""

@@ -41,7 +41,14 @@ FORMAT_VERSION = 1
 # happens: masks are bit-equal on bf16-exact inputs, and a stage whose
 # parity probe disagrees stays float32, as in the reference).
 _IDENTITY_EXCLUDE = frozenset({"unload_res", "record_history",
-                               "compute_dtype"})
+                               "compute_dtype",
+                               # the fleet's retry budget, watchdog and
+                               # host placement never change a mask: a
+                               # stolen bucket's done lines must satisfy
+                               # the original host's resume
+                               "fleet_retries", "stage_timeout_s",
+                               "fleet_hosts", "fleet_host_id",
+                               "fleet_claim_ttl_s"})
 # Every other field is in config_identity/config_hash.  ``device`` is
 # there on purpose: the card's kernels and the CPU's plain versions are
 # not promised bit-equal, and implementation knobs stay in the hash for
@@ -50,6 +57,9 @@ _IDENTITY_FIELDS = frozenset({
     "chanthresh", "subintthresh", "max_iter", "pulse_region", "bad_chan",
     "bad_subint", "backend", "rotation", "stats_frame", "baseline_duty",
     "baseline_mode", "dtype", "stream_hbm_mb", "device",
+    # the fleet's planning knobs and the kernel build directory, on the
+    # identity side as in the reference
+    "fleet_bucket_pad", "fleet_group_size", "compile_cache_dir",
 })
 
 # a new CleanConfig field fails here until it is classified

@@ -1,6 +1,7 @@
 """The append-only logs of a CLI session: the reference-format
-``clean.log`` line per archive, and the locked append that the event
-log shares."""
+``clean.log`` line per archive, the locked append that the event log
+and the fleet journal share, and the journal's locked compaction and
+seal."""
 
 from __future__ import annotations
 
@@ -13,15 +14,88 @@ def locked_append(path: str, text: str) -> None:
     """Append ``text`` to ``path`` under an exclusive advisory lock
     (``flock``), so processes appending to one log never interleave
     within a line; the seek after locking lands past what another
-    appender wrote meanwhile."""
-    with open(path, "a") as f:
+    appender wrote meanwhile.  After taking the lock the path is
+    re-stat'ed: if :func:`compact_under_lock` or :func:`seal_log`
+    replaced the file while this appender waited, it reopens the new
+    file instead of appending to the orphaned inode (a lost line)."""
+    while True:
+        with open(path, "a") as f:
+            fcntl.flock(f.fileno(), fcntl.LOCK_EX)
+            try:
+                try:
+                    if os.stat(path).st_ino != os.fstat(f.fileno()).st_ino:
+                        continue  # replaced while we waited: reopen
+                except OSError:
+                    continue      # unlinked mid-compact: reopen
+                f.seek(0, os.SEEK_END)
+                f.write(text)
+                f.flush()
+                return
+            finally:
+                fcntl.flock(f.fileno(), fcntl.LOCK_UN)
+
+
+def compact_under_lock(path: str, rewrite) -> bool:
+    """Atomically rewrite ``path`` as ``rewrite(old_text) -> new_text``
+    while excluding concurrent :func:`locked_append` writers: the flock
+    is taken on the current inode and the replacement is an atomic
+    temp-file + ``os.replace`` while it is held, so compacting a journal
+    under live traffic loses no lines.  False (no rewrite) when the file
+    does not exist or a racing compactor replaced it first."""
+    from iterative_cleaner_torch.io.atomic import atomic_output
+
+    if not os.path.exists(path):
+        return False
+    with open(path, "r+") as f:
         fcntl.flock(f.fileno(), fcntl.LOCK_EX)
         try:
-            f.seek(0, os.SEEK_END)
-            f.write(text)
-            f.flush()
+            try:
+                if os.stat(path).st_ino != os.fstat(f.fileno()).st_ino:
+                    return False  # raced another compactor: theirs won
+            except OSError:
+                return False
+            f.seek(0)
+            new_text = rewrite(f.read())
+            with atomic_output(path) as tmp:
+                with open(tmp, "w") as out:
+                    out.write(new_text)
+            return True
         finally:
             fcntl.flock(f.fileno(), fcntl.LOCK_UN)
+
+
+def seal_log(path: str, sealed_path: str) -> bool:
+    """Atomically retire the append-log file at ``path`` to
+    ``sealed_path`` while excluding concurrent :func:`locked_append`
+    writers (the segmented journal's seal step): every append lands in
+    the sealed file or in the fresh active file an appender re-creates.
+    ``sealed_path`` must not exist (sealed segments are immutable).
+    False (no rename) when ``path`` does not exist or ``sealed_path``
+    already does."""
+    while True:
+        if os.path.exists(sealed_path):
+            return False
+        try:
+            f = open(path, "rb")
+        except OSError:
+            return False
+        try:
+            fcntl.flock(f.fileno(), fcntl.LOCK_EX)
+            try:
+                if os.stat(path).st_ino != os.fstat(f.fileno()).st_ino:
+                    continue  # swapped while we waited: retry on the new one
+            except OSError:
+                return False  # unlinked/sealed by a racing sealer
+            if os.path.exists(sealed_path):
+                return False  # racing sealer won while we waited
+            os.replace(path, sealed_path)
+            return True
+        finally:
+            try:
+                fcntl.flock(f.fileno(), fcntl.LOCK_UN)
+            except OSError:
+                pass
+            f.close()
 
 
 def append_clean_log(ar_name: str, args_namespace, loops: int,

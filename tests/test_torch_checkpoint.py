@@ -317,7 +317,9 @@ def test_identity_partition_covers_the_ports_fields():
     fields = {f.name for f in dataclasses.fields(PortConfig)}
     assert ckpt._IDENTITY_FIELDS | ckpt._IDENTITY_EXCLUDE == fields
     assert "device" in ckpt._IDENTITY_FIELDS
-    assert {"unload_res", "record_history", "compute_dtype"} \
+    assert {"unload_res", "record_history", "compute_dtype",
+            "fleet_retries", "stage_timeout_s", "fleet_hosts",
+            "fleet_host_id", "fleet_claim_ttl_s"} \
         == set(ckpt._IDENTITY_EXCLUDE)
     # every field the packages share is classified as the reference does
     shared = fields & {f.name for f in dataclasses.fields(RefConfig)}
@@ -330,6 +332,9 @@ def test_identity_partition_covers_the_ports_fields():
     ("device", "cuda", False), ("chanthresh", 4.0, False),
     ("compute_dtype", "bfloat16", True), ("record_history", True, True),
     ("unload_res", True, True), ("stream_hbm_mb", 0.0, False),
+    ("fleet_retries", 5, True), ("stage_timeout_s", 3.0, True),
+    ("fleet_claim_ttl_s", 9.0, True), ("fleet_group_size", 4, False),
+    ("fleet_bucket_pad", (0, 32), False), ("compile_cache_dir", "kc", False),
 ])
 def test_config_hash_follows_the_identity(knob, value, same):
     base = CleanConfig(**CPU)

@@ -68,6 +68,10 @@ the CPU's (masks equal, scores within 1e-4, 1e-9 in float64), launching
 K6, K3 twice and the combine once each and nothing else; a CLI session
 resumed from its checkpoint launching no kernel; ``tools sweep --device
 cuda`` mask-equal point for point to in-process cleans.
+The fleet: ``--compile-cache DIR``'s library built into DIR once, a
+second process over DIR building nothing; a real ``torch.OutOfMemoryError``
+under a memory fraction classified as OOM; a mixed fleet's results
+bit-equal to the single cleans, each batch's kernels once per iteration.
 """
 
 import numpy as np
@@ -1413,3 +1417,95 @@ def test_tools_sweep_on_card_matches_in_process_cleans(card, model,
         np.testing.assert_array_equal(res.final_weights == 0,
                                       want.final_weights == 0)
         assert row["rfi_frac"] == round(want.rfi_fraction, 6)
+
+
+# --------------------------------------------- the fleet
+
+def test_warm_bucket_builds_into_a_given_directory_once(card, tmp_path):
+    """In a fresh process, ``--compile-cache DIR``'s build lands in DIR
+    (one ``nvcc`` run, on the warm-up), and a second process over the same
+    DIR builds nothing; the warm-up pins its bucket's tables on the card."""
+    import json
+    import subprocess
+    import sys
+
+    code = """
+import json, sys
+from iterative_cleaner_torch import CleanConfig
+from iterative_cleaner_torch.parallel.batch import warm_bucket
+from iterative_cleaner_torch.stats import kernels as K
+from iterative_cleaner_torch.utils import configure_compilation_cache
+configure_compilation_cache(sys.argv[1])
+s = {}
+wb = warm_bucket(CleanConfig(), 16, 32, 128, False, 4, stats_out=s)
+print(json.dumps({"builds": K.library_builds(), "dir": str(K.build_dir()),
+                  "resident": wb.tables_resident(),
+                  "pins": len(K._TABLE_PINS), "fresh": s["fresh"]}))
+"""
+    runs = []
+    for _ in range(2):
+        out = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                             capture_output=True, text=True, timeout=600)
+        assert out.returncode == 0, out.stderr[-3000:]
+        runs.append(json.loads(out.stdout.strip().splitlines()[-1]))
+    assert runs[0]["builds"] == 1 and runs[1]["builds"] == 0
+    assert runs[0]["dir"] == str(tmp_path.resolve())
+    assert all(r["resident"] and r["pins"] == 1 and r["fresh"] for r in runs)
+    assert [p.name for p in tmp_path.glob("libicln_kernels_*.so")]
+
+
+def test_real_oom_under_a_memory_fraction_is_classified_oom(card):
+    """A real ``torch.OutOfMemoryError`` under a per-process memory
+    fraction is classified as OOM, and the card works after
+    ``empty_cache``."""
+    from iterative_cleaner_torch.resilience import OOM, classify_error
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(0).total_memory
+    try:
+        torch.cuda.set_per_process_memory_fraction(2 ** 30 / total)
+        with pytest.raises(torch.OutOfMemoryError) as ei:
+            torch.empty(2 * 2 ** 30, dtype=torch.uint8, device=card)
+        assert classify_error(ei.value) == OOM
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+        torch.cuda.empty_cache()
+    assert float(torch.ones(4, device=card).sum()) == 4.0
+
+
+def test_fleet_batches_are_the_single_cleans_on_card(card, tmp_path):
+    """A mixed fleet on the card: each archive's result bit-equal to its
+    single clean, each batch's kernels launched once per batch iteration
+    (a group of one raw geometry: the port pads no cell)."""
+    from iterative_cleaner_torch.io import save_archive
+    from iterative_cleaner_torch.parallel.fleet import clean_fleet
+
+    shapes = [(32, 64, 128)] * 5 + [(32, 60, 128)] * 2 + [(16, 64, 64)]
+    paths = []
+    for i, (s, c, b) in enumerate(shapes):
+        ar, _ = make_synthetic_archive(nsub=s, nchan=c, nbin=b, seed=70 + i,
+                                       n_rfi_cells=4 + 20 * (i % 3),
+                                       n_prezapped=3)
+        paths.append(str(tmp_path / ("f%02d.npz" % i)))
+        save_archive(ar, paths[-1])
+    cfg = CleanConfig(fleet_group_size=4)
+    tk.reset_launch_counts()
+    rep = clean_fleet(paths, cfg, bucket_pad=(0, 64))
+    counts = tk.launch_counts()
+    assert rep.ok and (rep.n_buckets, rep.n_groups) == (2, 3)
+    # groups: [5 x 32x64, ...] -> (4 of 32x64), (1 of 32x64 + 2 of 32x60),
+    # and the 16x64x64 singleton: batches of one raw geometry each
+    loops = {p: rep.results[p].loops for p in paths}
+    batches = [paths[0:4], paths[4:5], paths[5:7], paths[7:8]]
+    iters = sum(max(loops[p] for p in b) for b in batches)
+    assert {k: v for k, v in counts.items() if v} == {
+        k: iters for k in ROUTE_KERNELS["default"]}
+    from iterative_cleaner_torch.io import load_archive
+
+    for p in paths:
+        want = clean_archive(load_archive(p), CleanConfig())
+        g = rep.results[p]
+        np.testing.assert_array_equal(g.final_weights, want.final_weights)
+        assert (g.loops, g.converged) == (want.loops, want.converged)
+        _assert_bit_equal(g, want)

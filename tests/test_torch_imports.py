@@ -181,3 +181,66 @@ print("LOADED", bad)
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "LOADED []" in out.stdout, out.stdout
+
+
+@pytest.mark.parametrize("module", [
+    ("resilience", "__init__.py"), ("resilience", "faults.py"),
+    ("resilience", "retry.py"), ("resilience", "journal.py"),
+    ("resilience", "segmented.py"), ("parallel", "fleet.py")])
+def test_fleet_modules_are_scanned(module):
+    """The fleet's modules (the resilience package, the scheduler) are
+    among the scanned sources."""
+    assert os.path.join(PKG, *module) in set(_port_sources())
+
+
+def test_fleet_path_runs_without_jax():
+    """Importing the resilience package and the fleet, and running a
+    journaled fleet through the library and the CLI (a fault drill,
+    ``--resume``, ``--precompile``, two hosts over one journal in one
+    process), loads neither ``jax`` nor the reference package."""
+    code = """
+import os, sys, tempfile
+import iterative_cleaner_torch.resilience
+import iterative_cleaner_torch.resilience.faults
+import iterative_cleaner_torch.resilience.journal
+import iterative_cleaner_torch.resilience.retry
+import iterative_cleaner_torch.resilience.segmented
+import iterative_cleaner_torch.parallel.fleet as fleet
+from iterative_cleaner_torch import CleanConfig
+from iterative_cleaner_torch.cli import main
+from iterative_cleaner_torch.io import make_synthetic_archive, save_archive
+from iterative_cleaner_torch.parallel.distributed import HostTopology
+from iterative_cleaner_torch.resilience import (
+    FaultInjector, FleetJournal, ResiliencePlan)
+os.chdir(tempfile.mkdtemp())
+paths = []
+for i, shape in enumerate([(8, 16, 32), (8, 16, 32), (6, 12, 32)]):
+    ar, _ = make_synthetic_archive(nsub=shape[0], nchan=shape[1],
+                                   nbin=shape[2], seed=i)
+    paths.append("a%d.npz" % i)
+    save_archive(ar, paths[-1])
+cfg = CleanConfig(device="cpu")
+rep = fleet.clean_fleet(paths, cfg, resilience=ResiliencePlan(
+    faults=FaultInjector("load:err@1,exec:oom@1", seed=0),
+    journal=FleetJournal("j.d" + os.sep)))
+assert rep.ok and len(rep.results) == 3, rep.failures
+for h in (0, 1):
+    fleet.clean_fleet(paths, cfg, hosts=HostTopology(h, 2),
+                      resilience=ResiliencePlan(journal=FleetJournal("h.jsonl")))
+assert main(["--device", "cpu", "-q", "--fleet", "--journal", "c.jsonl",
+             *paths]) == 0
+assert main(["--device", "cpu", "-q", "--fleet", "--journal", "c.jsonl",
+             "--resume", *paths]) == 0
+assert main(["--device", "cpu", "-q", "--precompile", "--compile-cache",
+             "cc", "16x32x32"]) == 0
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "iterative_cleaner_tpu"))
+print("LOADED", bad)
+"""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [REPO] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
