@@ -5,9 +5,7 @@ Run from the root of a checkout:
     python3 chip_smoke.py
 
 In order, it: prints the card; builds the CUDA kernels from the sources
-in the checkout (through the first of the fleet's warm-start sessions,
-below, whose fresh ``--compile-cache`` this process then loads them
-from); rebuilds the full-size (1024 x 4096 x 128, seed 0)
+in the checkout; rebuilds the full-size (1024 x 4096 x 128, seed 0)
 golden archive once with the port's synthetic generator and cleans it
 through ``clean_archive`` on the card four times, covering every route
 of the engine — the default configuration (K1, K2), ``baseline_mode=
@@ -154,24 +152,26 @@ disagreeing trace printed and taken again up to TRACE_ATTEMPTS times).
 
 The fleet phases (after batch (d), on PSRFITS files in a temporary
 directory): (f1) 24 archives of three shapes interleaved (16 of 64 x 128
-x 512, 4 of 64 x 120 x 512 that ``--bucket-pad 0,32`` puts in the 64 x
-128 bucket, 4 of 256 x 1024 x 128) through ``--fleet --batch 8
---bucket-pad 0,32``, ``--batch 8`` and the sequential session: every
-output mask and run-report entry of the fleet equal to the sequential
+x 512, 4 of 64 x 120 x 512, 4 of 256 x 1024 x 128) through ``--fleet
+--batch 8 --bucket-pad 0,32`` (the grid is accepted and changes no
+bucket: the port pads nothing), ``--batch 8`` and the sequential
+session, in two rounds of opposite order: every output mask and
+run-report entry of each fleet session equal to the first sequential
 session's, each batch's kernels launched once per batch iteration, the
-three sessions' seconds; (f2) the injected ladder (``--faults
+six sessions' seconds in the order they ran; (f2) the injected ladder (``--faults
 load:err@2,write:once,exec:oom@1,exec:hang@3 --stage-timeout``) on a
 spawned session: exit 1 with the hung archive alone failed, one watchdog
 trip, an OOM split, the others' masks equal; (f3) a real
 ``torch.OutOfMemoryError`` on a spawned process under
 ``set_per_process_memory_fraction`` set from the batch's measured peaks:
 a group of 8 halved until it fits, masks bit-equal to the single cleans,
-then an archive that does not fit at all degraded to the numpy oracle,
-bit-equal to ``--backend numpy``; (f4) a ``--journal`` fleet killed with
+then an archive that does not fit at all failed in the clean stage with
+its OOM error (the port cleans nothing off the card by itself); (f4) a ``--journal`` fleet killed with
 SIGKILL after its second journaled group, then ``--resume``: each archive
 journaled once, the outputs the sequential ones; (f5) two sessions over
-one fresh ``--compile-cache`` (the first is step 1's build: ``nvcc`` once,
-on its warm-up thread; the second builds nothing and hits every bucket);
+one fresh ``--compile-cache`` (the first runs ``nvcc`` once, on its
+warm-up, while its first loads go on; the second builds nothing and hits
+every bucket);
 (f6) two ``--hosts 2`` processes over one journal: each archive cleaned
 once, the masks the sequential ones, each host's owned and stolen
 buckets printed.
@@ -194,7 +194,7 @@ import subprocess
 import sys
 import tempfile
 import time
-from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor, wait
 
 import numpy as np
 
@@ -2842,11 +2842,15 @@ def sweep_phase(tag):
 
 
 # ---- the fleet phases (parallel/fleet.py, --fleet): f1-f6 ----------------
-# (f1) the mixed fleet: FLEET_MIX archives of each shape, interleaved; the
-# 64 x 120 archives share the 64 x 128 bucket under --bucket-pad 0,32
+# (f1) the mixed fleet: FLEET_MIX archives of each shape, interleaved,
+# under --bucket-pad 0,32 (accepted; the port pads nothing, so the 64 x 120
+# archives stay a bucket of their own); FLEET_ORDERS, the sessions' order
+# in each round (each session warm in one round and cold-ish in the other)
 FLEET_MIX = (((64, 128, 512), 16), ((64, 120, 512), 4),
              ((256, 1024, 128), 4))
 FLEET_GROUP, FLEET_PAD = 8, "0,32"
+FLEET_ORDERS = (("sequential", "batch", "fleet"),
+                ("fleet", "batch", "sequential"))
 # (f2) the ladder's drill: over the first FLEET_DRILL_N 64 x 128 archives
 # in groups of 2, a transient load fault, a transient write, an OOM on the
 # first clean (its halves are the second and third) and a hang on the third
@@ -2856,7 +2860,7 @@ FLEET_DRILL_N, FLEET_STAGE_TIMEOUT_S = 6, 6.0
 # (f1) files, each linked under several names)
 FLEET_OOM_N = 8
 # (f5) the warm start: two archives of each shape, two fleet sessions over
-# one fresh --compile-cache; the first is the script's kernel build
+# one fresh --compile-cache; the first builds the kernel library there
 FLEET_WARM_SHAPES = ((64, 128, 512), (64, 120, 512), (32, 64, 128))
 # (f4) the kill: a --journal fleet over the first FLEET_KILL_N small
 # archives in groups of 2 on one IO thread, wedged by a hang on load 5
@@ -2988,74 +2992,80 @@ def entry_diff(got, want, rtol):
 def fleet_f1(paths, work, tag):
     """(f1): the mixed fleet through the sequential session, ``--batch
     FLEET_GROUP`` and ``--fleet --batch FLEET_GROUP --bucket-pad
-    FLEET_PAD``; every fleet output mask and report entry held to the
-    sequential session's, each group's launches to its batch iterations.
-    Returns the sequential masks by file name."""
+    FLEET_PAD``, in the rounds of FLEET_ORDERS (the sessions share one
+    process, its page cache and its allocator, so each session runs early
+    in one round and late in the other); every fleet session's output
+    masks and report entries held to the first sequential session's, each
+    group's launches to its batch iterations.  Returns the sequential
+    masks by file name."""
     from iterative_cleaner_torch.engine.loop import ROUTE_KERNELS
     from iterative_cleaner_torch.io import peek_shape
     from iterative_cleaner_torch.parallel.fleet import plan_fleet
 
-    runs = {}
-    for run, extra in (("sequential", []),
-                       ("batch", ["--batch", str(FLEET_GROUP)]),
-                       ("fleet", ["--fleet", "--batch", str(FLEET_GROUP),
-                                  "--bucket-pad", FLEET_PAD])):
-        d = os.path.join(work, run)
-        links = linked(paths, d)
-        rc, doc, secs, counts = cli_session(links, d, extra)
-        if rc != 0:
-            fail(f"fleet (f1): the {run} session exited {rc}")
-        runs[run] = (links, doc, secs, counts)
-    seq_links, seq_doc = runs["sequential"][:2]
+    extras = {"sequential": [],
+              "batch": ["--batch", str(FLEET_GROUP)],
+              "fleet": ["--fleet", "--batch", str(FLEET_GROUP),
+                        "--bucket-pad", FLEET_PAD]}
+    runs = []          # (round, session, links, doc, seconds, counts)
+    for rnd, order in enumerate(FLEET_ORDERS):
+        for run in order:
+            d = os.path.join(work, f"{run}{rnd}")
+            links = linked(paths, d)
+            rc, doc, secs, counts = cli_session(links, d, extras[run])
+            if rc != 0:
+                fail(f"fleet (f1): the {run} session of round {rnd} exited "
+                     f"{rc}")
+            runs.append((rnd, run, links, doc, secs, counts))
+    _, _, seq_links, seq_doc, _, _ = next(r for r in runs
+                                          if r[1] == "sequential")
     seq_masks = {os.path.basename(p): out_mask(p) for p in seq_links}
     seq_entries = {os.path.basename(e["path"]): e
                    for e in seq_doc["archives"]}
-    links, doc, secs, counts = runs["fleet"]
-    n_mask = masks_off(links, seq_masks)
-    n_entry = sum(bool(entry_diff(e, seq_entries[os.path.basename(
-        e["path"])], 0.0)) for e in doc["archives"])
     # each batch's launches: once per batch iteration, the iterations of
-    # its slowest archive; a batch is one raw geometry of a group (the
-    # port pads no cell, parallel/fleet.py item 4)
-    loops = {os.path.basename(e["path"]): e["loops"]
-             for e in doc["archives"]}
-    pad = tuple(int(v) for v in FLEET_PAD.split(","))
-    plan = plan_fleet([(p, peek_shape(p)) for p in links], bucket_pad=pad,
+    # its slowest archive; a group is one raw geometry (the port pads no
+    # cell, parallel/fleet.py item 4)
+    plan = plan_fleet([(p, peek_shape(p)) for p in paths],
                       group_size=FLEET_GROUP)
-    batches = []
-    for b in plan.buckets:
-        for g in b.groups():
-            by_raw = {}
-            for it in g:
-                by_raw.setdefault(it.raw_shape, []).append(
-                    loops[os.path.basename(it.path)])
-            batches.extend(by_raw.values())
-    iters = sum(max(ls) for ls in batches)
-    want = {k: (iters if k in ROUTE_KERNELS["default"] else 0)
-            for k in counts}
-    c = doc["counters"]
-    h = doc["histograms"]
-    stall = h.get("fleet_load_stall_s", {}).get("sum", 0.0)
-    print(f"fleet (f1): --fleet --batch {FLEET_GROUP} --bucket-pad "
-          f"{FLEET_PAD} over {len(paths)} PSRFITS files "
-          f"({', '.join(f'{n} of {s}' for s, n in FLEET_MIX)}, interleaved): "
-          f"{plan.n_groups} groups in {len(plan.buckets)} buckets, "
-          f"{len(batches)} batches of one raw geometry each; against the "
-          f"sequential session {n_mask} mask cells and {n_entry} report "
-          f"entries differ (tolerance 0 and 0); kernels "
-          f"{json.dumps(counts)} for "
-          f"{iters} batch iterations; fleet_load_stall_s {stall:.4f}, "
-          f"fleet_precompile_hits {c.get('fleet_precompile_hits', 0):g}, "
-          f"misses {c.get('fleet_precompile_misses', 0):g}, "
-          f"fleet_pad_cells {c.get('fleet_pad_cells', 0):g}, "
-          f"fleet_pad_lanes {c.get('fleet_pad_lanes', 0):g}; session "
-          f"{secs:.2f} s against --batch {FLEET_GROUP} "
-          f"{runs['batch'][2]:.2f} s and sequential {runs['sequential'][2]:.2f}"
-          f" s (host clock) {tag}", flush=True)
-    if n_mask or n_entry or counts != want \
-            or c.get("fleet_cleaned") != len(paths):
+    bad = []
+    for rnd, run, links, doc, secs, counts in runs:
+        if run != "fleet":
+            continue
+        n_mask = masks_off(links, seq_masks)
+        n_entry = sum(bool(entry_diff(e, seq_entries[os.path.basename(
+            e["path"])], 0.0)) for e in doc["archives"])
+        loops = {os.path.basename(e["path"]): e["loops"]
+                 for e in doc["archives"]}
+        iters = sum(max(loops[os.path.basename(it.path)] for it in g)
+                    for b in plan.buckets for g in b.groups())
+        want = {k: (iters if k in ROUTE_KERNELS["default"] else 0)
+                for k in counts}
+        c = doc["counters"]
+        stall = doc["histograms"].get("fleet_load_stall_s", {}).get(
+            "sum", 0.0)
+        print(f"fleet (f1) round {rnd}: --fleet --batch {FLEET_GROUP} "
+              f"--bucket-pad {FLEET_PAD} over {len(paths)} PSRFITS files "
+              f"({', '.join(f'{n} of {s}' for s, n in FLEET_MIX)}, "
+              f"interleaved): {plan.n_groups} groups in "
+              f"{len(plan.buckets)} buckets; against the first sequential "
+              f"session {n_mask} mask cells and {n_entry} report entries "
+              f"differ (tolerance 0 and 0); kernels {json.dumps(counts)} "
+              f"for {iters} batch iterations; fleet_load_stall_s "
+              f"{stall:.4f}, fleet_precompile_hits "
+              f"{c.get('fleet_precompile_hits', 0):g}, misses "
+              f"{c.get('fleet_precompile_misses', 0):g} {tag}", flush=True)
+        if n_mask or n_entry or counts != want \
+                or c.get("fleet_cleaned") != len(paths):
+            bad.append(f"round {rnd}: launches {counts}, want {want}, "
+                       f"{n_mask} mask cells, {n_entry} entries")
+    print("fleet (f1) seconds (host clock, one process, in the order they "
+          "ran): " + "; ".join(
+              f"round {rnd} " + ", ".join(f"{run} {secs:.3f} s"
+                                          for r2, run, _, _, secs, _ in runs
+                                          if r2 == rnd)
+              for rnd in range(len(FLEET_ORDERS))) + f" {tag}", flush=True)
+    if bad:
         fail(f"fleet (f1): the fleet session differs from the sequential "
-             f"one (launches {counts}, want {want})")
+             f"one: {bad}")
     return seq_masks
 
 
@@ -3097,8 +3107,9 @@ def fleet_oom_worker(paths, small):
     archives) cleaned one by one, then their batch's reserved peaks at 2
     and at FLEET_OOM_N measured; the card capped (set_per_process_memory_
     fraction) between them and the fleet run at FLEET_OOM_N a group; then
-    capped below one ``small`` archive's peak and ``small`` run alone.
-    Returns what the parent checks."""
+    capped below one ``small`` archive's peak and ``small`` run alone,
+    which must fail with its OOM error.  Returns what the parent
+    checks."""
     import torch
 
     sys.path.insert(0, HERE)
@@ -3107,6 +3118,7 @@ def fleet_oom_worker(paths, small):
     from iterative_cleaner_torch.io import load_archive
     from iterative_cleaner_torch.parallel.batch import clean_archives_batched
     from iterative_cleaner_torch.parallel.fleet import clean_fleet
+    from iterative_cleaner_torch.resilience import OOM, classify_error
     from iterative_cleaner_torch.telemetry.registry import MetricsRegistry
 
     cfg = CleanConfig()
@@ -3143,23 +3155,18 @@ def fleet_oom_worker(paths, small):
     reg1 = MetricsRegistry()
     rep1 = clean_fleet([small], cfg, registry=reg1)
     torch.cuda.set_per_process_memory_fraction(1.0)
-    oracle = clean_archive(ar_s, dataclasses.replace(cfg, backend="numpy"))
-    deg = rep1.results.get(small)
     return {"p2": p2, "p8": p8, "cap": cap, "p1": p1, "total": total,
             "failures": [(p, s, repr(e)) for p, s, e in rep.failures],
             "off": off, "counters": dict(reg.counters),
-            "failures1": [(p, s, repr(e)) for p, s, e in rep1.failures],
-            "counters1": dict(reg1.counters),
-            "degraded_off": (None if deg is None else int(
-                ((deg.final_weights == 0)
-                 != (oracle.final_weights == 0)).sum())),
-            "degraded_loops": (None if deg is None
-                               else (deg.loops, oracle.loops))}
+            "failures1": [(p, s, type(e).__name__, classify_error(e) == OOM)
+                          for p, s, e in rep1.failures],
+            "results1": len(rep1.results),
+            "counters1": dict(reg1.counters)}
 
 
 def fleet_f3(work, large, small, tag):
-    """(f3): a real device OOM halving a group, then degrading one archive
-    to the numpy oracle, on a spawned process (the cap must not leak).
+    """(f3): a real device OOM halving a group, then failing one archive
+    that does not fit alone, on a spawned process (the cap must not leak).
     The group is FLEET_OOM_N links to the ``large`` files, each file under
     several names (distinct archives to the fleet)."""
     import multiprocessing
@@ -3183,25 +3190,21 @@ def fleet_f3(work, large, small, tag):
           f"{r['p2'] / gib:.2f} GiB, of {FLEET_OOM_N} {r['p8'] / gib:.2f} "
           f"GiB; capped at {r['cap'] / gib:.2f} GiB of "
           f"{r['total'] / gib:.1f}: fleet_oom_splits "
-          f"{c.get('fleet_oom_splits', 0):g}, fleet_degraded "
-          f"{c.get('fleet_degraded', 0):g}, failures {r['failures']}, "
+          f"{c.get('fleet_oom_splits', 0):g}, failures {r['failures']}, "
           f"mask cells off the single cleans {r['off']} (tolerance 0 "
           f"each); one 64 x 128 x 512 archive (peak {r['p1'] / gib:.3f} "
-          f"GiB) capped at half of it: fleet_oom_splits "
-          f"{c1.get('fleet_oom_splits', 0):g}, fleet_degraded "
-          f"{c1.get('fleet_degraded', 0):g}, mask cells off --backend "
-          f"numpy's {r['degraded_off']} (tolerance 0), loops "
-          f"{r['degraded_loops']}; {secs:.1f} s with start-up {tag}",
-          flush=True)
+          f"GiB) capped at half of it: failures (path, stage, error, "
+          f"classified OOM) {r['failures1']}, {r['results1']} results; "
+          f"{secs:.1f} s with start-up {tag}", flush=True)
     if r["failures"] or any(o != 0 for o in r["off"]) \
             or c.get("fleet_oom_splits", 0) < 1 \
-            or c.get("fleet_degraded", 0) or c.get("fault_injected", 0):
+            or c.get("fault_injected", 0):
         fail("fleet (f3): a real OOM did not halve the group to bit-equal "
              "masks")
-    if r["failures1"] or c1.get("fleet_degraded") != 1 \
-            or r["degraded_off"] != 0:
-        fail(f"fleet (f3): the archive that does not fit did not degrade "
-             f"to the oracle's mask: {r['failures1']}")
+    if r["results1"] or [(f[1], f[3]) for f in r["failures1"]] != [
+            ("clean", True)] or c1.get("fleet_oom_splits", 0):
+        fail(f"fleet (f3): the archive that does not fit did not fail "
+             f"with its OOM error: {r['failures1']}")
 
 
 def fleet_f4(small, seq_masks, work, tag):
@@ -3258,77 +3261,54 @@ def fleet_f4(small, seq_masks, work, tag):
         fail(f"fleet (f4): kill and resume: {err[-3000:]}")
 
 
-def fleet_f5_start(work):
-    """(f5), first session: FLEET_WARM_SHAPES' archives written to
-    ``work``, then a --fleet session over them with a fresh
-    --compile-cache started on a process of its own: it builds the kernel
-    library there (nvcc on its warm-up thread while its loads go on), and
-    this script's process then loads it from there.  Returns the state
-    :func:`fleet_f5_cold` and :func:`fleet_f5` read."""
+def fleet_f5(work, tag):
+    """(f5): FLEET_WARM_SHAPES' archives written to ``work``, then two
+    --fleet sessions over them, each on a process of its own, with one
+    fresh --compile-cache: the first builds the kernel library there
+    (``nvcc`` once, on its warm-up, while its first loads go on), the
+    second builds nothing, every bucket a precompile hit, the masks the
+    first session's."""
     from iterative_cleaner_torch.io import save_archive
 
-    d = os.path.join(work, "warm_cold")
-    os.makedirs(d)
-    links = []
-    for i, shape in enumerate(FLEET_WARM_SHAPES * 2):
-        links.append(os.path.join(d, f"warm{i:02d}.sf"))
-        save_archive(batch_small_archive(500 + i, shape), links[-1])
     cache = os.path.join(work, "kcache")
-    e = dict(os.environ)
-    e["PYTHONPATH"] = os.pathsep.join(
-        [HERE] + ([e["PYTHONPATH"]] if e.get("PYTHONPATH") else []))
-    out = open(os.path.join(d, "out.txt"), "w")
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "iterative_cleaner_torch", "-q", "-l",
-         "--fleet", "--batch", str(FLEET_GROUP), "--compile-cache", cache,
-         "--metrics-json", "run.json", *links], cwd=d, env=e, stdout=out,
-        stderr=subprocess.STDOUT)
-    return {"dir": d, "links": links, "cache": cache, "proc": proc,
-            "out": out, "t0": time.perf_counter()}
-
-
-def fleet_f5_cold(state):
-    """Wait for the first (f5) session; its seconds and run report."""
-    rc = state["proc"].wait(timeout=FLEET_SUB_TIMEOUT_S)
-    state["out"].close()
-    state["cold_s"] = time.perf_counter() - state["t0"]
-    if rc != 0:
-        fail(f"fleet (f5): the cold session (the kernel build) exited {rc}: "
-             + open(os.path.join(state["dir"], "out.txt")).read()[-3000:])
-    state["cold"] = json.load(open(os.path.join(state["dir"], "run.json")))
-    return state
-
-
-def fleet_f5(state, tag):
-    """(f5), second session: over the same --compile-cache, in a fresh
-    process: no nvcc, every bucket a precompile hit, the masks the first
-    session's."""
-    d = os.path.join(os.path.dirname(state["dir"]), "warm_warm")
-    links = linked(state["links"], d)
-    rc, out, err, warm_s = fleet_sub(
-        ["-q", "-l", "--fleet", "--batch", str(FLEET_GROUP),
-         "--compile-cache", state["cache"], "--metrics-json", "run.json",
-         *links], d)
-    if rc != 0:
-        fail(f"fleet (f5): the warm session exited {rc}: {err[-3000:]}")
-    c0, h0 = state["cold"]["counters"], state["cold"]["histograms"]
-    c1 = json.load(open(os.path.join(d, "run.json")))["counters"]
+    links, secs, docs = [], [], []
+    for n, name in enumerate(("warm_cold", "warm_warm")):
+        d = os.path.join(work, name)
+        if n == 0:
+            os.makedirs(d)
+            for i, shape in enumerate(FLEET_WARM_SHAPES * 2):
+                links.append(os.path.join(d, f"warm{i:02d}.sf"))
+                save_archive(batch_small_archive(500 + i, shape), links[-1])
+            here = links
+        else:
+            here = linked(links, d)
+        rc, out, err, t = fleet_sub(
+            ["-q", "-l", "--fleet", "--batch", str(FLEET_GROUP),
+             "--compile-cache", cache, "--metrics-json", "run.json", *here],
+            d)
+        if rc != 0:
+            fail(f"fleet (f5): the {name} session exited {rc}: "
+                 f"{err[-3000:]}")
+        secs.append(t)
+        docs.append(json.load(open(os.path.join(d, "run.json"))))
+        if n:
+            n_mask = sum(int((out_mask(a) != out_mask(b)).sum())
+                         for a, b in zip(links, here))
+    (c0, h0), c1 = (docs[0]["counters"], docs[0]["histograms"]), \
+        docs[1]["counters"]
     warm_up = h0.get("batch_precompile_s", {}).get("sum", 0.0)
-    stall = h0.get("fleet_compile_stall_s", {}).get("sum", 0.0)
-    n_mask = sum(int((out_mask(a) != out_mask(b)).sum())
-                 for a, b in zip(state["links"], links))
+    stall = h0.get("fleet_load_stall_s", {}).get("sum", 0.0)
     n_buckets = len(FLEET_WARM_SHAPES)
     print(f"fleet (f5): --compile-cache over {len(links)} archives in "
           f"{n_buckets} buckets: cold kernel_library_builds "
-          f"{c0.get('kernel_library_builds', 0):g} (on the warm-up thread "
+          f"{c0.get('kernel_library_builds', 0):g} (on the warm-up "
           f"{c0.get('fleet_precompile_builds', 0):g}), warm-up "
-          f"{warm_up:.2f} s of which the loads hid {warm_up - stall:.2f} s "
-          f"(the serve loop waited {stall:.2f} s); warm "
-          f"kernel_library_builds {c1.get('kernel_library_builds', 0):g}, "
-          f"fleet_precompile_hits {c1.get('fleet_precompile_hits', 0):g}, "
-          f"{n_mask} mask cells off the cold session's (tolerance 0); "
-          f"sessions {state['cold_s']:.1f} s and {warm_s:.1f} s with "
-          f"start-up {tag}", flush=True)
+          f"{warm_up:.2f} s, the serve loop's load waits after it "
+          f"{stall:.4f} s; warm kernel_library_builds "
+          f"{c1.get('kernel_library_builds', 0):g}, fleet_precompile_hits "
+          f"{c1.get('fleet_precompile_hits', 0):g}, {n_mask} mask cells off "
+          f"the cold session's (tolerance 0); sessions {secs[0]:.1f} s and "
+          f"{secs[1]:.1f} s with start-up {tag}", flush=True)
     if c0.get("kernel_library_builds") != 1 \
             or c0.get("fleet_precompile_builds") != 1 \
             or c1.get("kernel_library_builds", 0) != 0 \
@@ -3375,13 +3355,12 @@ def fleet_f6(paths, seq_masks, work, tag):
         fail(f"fleet (f6): two hosts: {[err[-2000:] for _, err in outs]}")
 
 
-def fleet_phases(work, files, warm, tag):
+def fleet_phases(work, files, tag):
     """The fleet phases (f1)-(f6) in ``work``: ``files`` is the future of
     :func:`fleet_files` (written on a worker process while the earlier
-    phases ran), ``warm`` the state of (f5)'s first session (the script's
-    kernel build).  (f2), (f3), (f4) and (f6), each on processes of its
-    own over its own links, run at once; then (f5)'s second session.
-    Prints their seconds."""
+    phases ran).  (f1) first, alone; then (f2), (f3), (f4) and (f6), each
+    on processes of its own over its own links, at once, and (f5) once
+    (f2) is done.  Prints their seconds."""
     t_all = time.perf_counter()
     paths, shapes = files.result(timeout=FLEET_SUB_TIMEOUT_S)
     timings = {}
@@ -3396,23 +3375,29 @@ def fleet_phases(work, files, warm, tag):
         fn(*args)
         return name, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(max_workers=4) as pool:
-        futs = [pool.submit(timed, "f2", fleet_f2, small, seq_masks, work,
-                            tag),
+    with ThreadPoolExecutor(max_workers=5) as pool:
+        f2 = pool.submit(timed, "f2", fleet_f2, small, seq_masks, work, tag)
+
+        def f5_after_f2():
+            # (f5)'s nvcc build loads every core: it starts once (f2)'s
+            # watchdog drill is over
+            wait([f2])
+            return timed("f5", fleet_f5, work, tag)
+
+        futs = [f2,
                 pool.submit(timed, "f3", fleet_f3, work, large, small[0],
                             tag),
                 pool.submit(timed, "f4", fleet_f4, small, seq_masks, work,
                             tag),
+                pool.submit(f5_after_f2),
                 pool.submit(timed, "f6", fleet_f6, paths, seq_masks, work,
                             tag)]
         # a phase's fail() raises SystemExit on its thread: result()
         # raises it here
         timings.update(f.result() for f in futs)
-    timings.update([timed("f5", fleet_f5, warm, tag)])
     print(f"fleet phases: {time.perf_counter() - t_all:.1f} s in all ("
           + ", ".join(f"{k} {v:.1f} s" for k, v in sorted(timings.items()))
-          + f"; f2, f3, f4 and f6 at once; the first (f5) session was the "
-          f"kernel build, {warm['cold_s']:.1f} s) {tag}", flush=True)
+          + f"; f2 to f6 at once, f5 after f2) {tag}", flush=True)
 
 
 def main() -> int:
@@ -3464,33 +3449,26 @@ def main() -> int:
           f"{torch.version.cuda}, {torch.cuda.device_count()} device(s)",
           flush=True)
 
-    # ---- 1. build the kernels from source: the first of phase (f5)'s two
-    # --fleet sessions, over a fresh --compile-cache, builds them on its
-    # warm-up thread and this process loads them from there (every process
-    # the script starts after it finds them through ICLEAN_COMPILE_CACHE);
-    # beside it the host I/O library (g++) the CLI phases read and write
-    # archives through
+    # ---- 1. build the kernels from source, and beside them the host
+    # I/O library (g++) the CLI phases read and write archives through
     t0 = time.perf_counter()
-    fleet_work = tempfile.mkdtemp(prefix="icln_chip_smoke_fleet_")
-    atexit.register(shutil.rmtree, fleet_work, True)
-    warm = fleet_f5_start(fleet_work)
-    host_path = host_io.build_library()
-    fleet_f5_cold(warm)
-    K.configure_build_dir(warm["cache"])
-    os.environ[K.ENV_COMPILE_CACHE] = warm["cache"]
-    lib_path = K.build_library()
-    builds = K.library_builds()
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        host_build = pool.submit(host_io.build_library)
+        lib_path = K.build_library()
+        host_path = host_build.result()
     K.load_library()
     host_io.load_library()
     build_s = time.perf_counter() - t0
-    print(f"build: {os.path.basename(str(lib_path))} built by the first "
-          f"(f5) --fleet session into its --compile-cache "
-          f"({warm['cold_s']:.1f} s with the process start and the "
-          f"session), {builds} builds in this process, and "
-          f"{os.path.relpath(host_path, HERE)}: {build_s:.1f} s", flush=True)
-    if builds:
-        fail("the kernel library was built twice")
+    print(f"build: {os.path.relpath(lib_path, HERE)} and "
+          f"{os.path.relpath(host_path, HERE)} in {build_s:.1f} s",
+          flush=True)
     log_path = os.path.join(K.build_dir(), "build.log")
+    if os.path.exists(log_path):
+        for line in open(log_path):
+            if "registers" in line or "spill" in line or line.startswith("=="):
+                print("  " + line.strip())
+    fleet_work = tempfile.mkdtemp(prefix="icln_chip_smoke_fleet_")
+    atexit.register(shutil.rmtree, fleet_work, True)
     # the batch phase's other full-size archives, built on worker
     # processes while the phases before it run
     import multiprocessing
@@ -3582,9 +3560,9 @@ def main() -> int:
     batch_cli_phase(tag)
     # ---- 3n. the fleet (--fleet): (f1) a mixed fleet against --batch and
     # the sequential session, (f2) the injected ladder, (f3) a real OOM,
-    # (f4) kill -9 and --resume, (f5) a warm --compile-cache restart after
-    # the cold session of step 1, (f6) two hosts over one journal
-    fleet_phases(fleet_work, fleet_files_fut, warm, tag)
+    # (f4) kill -9 and --resume, (f5) a cold then a warm --compile-cache
+    # session, (f6) two hosts over one journal
+    fleet_phases(fleet_work, fleet_files_fut, tag)
     fleet_pool.shutdown()
 
     # ---- 3b. streaming, counted like the whole cleans: (a) exact with

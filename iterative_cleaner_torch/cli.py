@@ -86,15 +86,16 @@ iterative_cleaner_torch --batch B --mesh batch ...``): each rank cleans
 its share, rank 0 writes.
 ``--fleet`` serves the archive list through the shape-bucketed fleet
 scheduler (``parallel/fleet.py``): archives group by (nsub, nchan, nbin,
-DEDISP) (``--bucket-pad`` rounds nsub/nchan up to a grid so near-miss
-shapes share a bucket), each group of up to ``--batch B`` (default 8)
+DEDISP) (``--bucket-pad`` is accepted and changes nothing: the port pads
+no cell), each group of up to ``--batch B`` (default 8)
 is one batched clean, loads stay one group ahead on ``--io-workers``
 threads and writes drain behind; outputs, console lines and logs are
 :func:`clean_one`'s, written under one lock, in bucket order.  Failures
 stay with their archive (exit 1 if any failed) and go through the
 resilience ladder: ``--retries``, ``--stage-timeout``, the fault drill
-``--faults``/``--fault-seed``, OOM halving down to the numpy oracle,
-and ``--journal PATH`` (a file, or a directory for the segmented
+``--faults``/``--fault-seed``, OOM halving down to single archives (one
+that does not fit the card alone fails: clean it without ``--fleet``,
+e.g. with ``--backend numpy``), and ``--journal PATH`` (a file, or a directory for the segmented
 journal) with ``--resume``, which prints ``resumed: N archives already
 complete in PATH``.  ``--hosts N --host-id I`` serves one host's share
 of a fleet that N processes split through one shared ``--journal``.
@@ -325,13 +326,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "(exit code 1 if any failed).")
     p.add_argument("--bucket-pad", "--bucket_pad", type=_parse_bucket_pad,
                    default=(0, 0), dest="bucket_pad", metavar="NSUB,NCHAN",
-                   help="Fleet geometry quantization: round each archive's "
-                        "nsub/nchan up to these grid steps so near-miss "
-                        "shapes share one bucket (0 = no rounding on that "
-                        "axis; default 0,0 buckets by exact shape). Padded "
-                        "cells carry zero weight and final masks stay "
-                        "bit-equal, but nsub padding can change a "
-                        "borderline cell's iteration trajectory (opt-in).")
+                   help="The reference's fleet geometry quantization "
+                        "grid, accepted with --fleet for its CLI's sake. "
+                        "The port pads nothing and buckets by exact shape, "
+                        "so it changes no bucket, group or launch.")
     p.add_argument("--retries", type=int, default=None, metavar="N",
                    help="Fleet resilience: retry a transiently failing "
                         "peek/load/execute/write stage up to N times with "
@@ -416,8 +414,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "each argument is an archive path (shape read from "
                         "its header) or a bare NSUBxNCHANxNBIN geometry; "
                         "every resulting fleet bucket is warmed (the "
-                        "kernel library built, its DFT tables and launch "
-                        "plans made). Honours --batch and --bucket-pad.")
+                        "kernel library built). Honours --batch.")
     p.add_argument("--serve", action="store_true",
                    help="Not ported (ROADMAP item 8): the serve daemon.")
     p.add_argument("--trace-out", "--trace_out", type=str, default="",
@@ -803,10 +800,12 @@ def run_fleet(args, telemetry: RunTelemetry) -> list:
     )
     from iterative_cleaner_torch.parallel.fleet import clean_fleet
     from iterative_cleaner_torch.resilience import (
+        OOM,
         FaultInjector,
         FleetJournal,
         ResiliencePlan,
         RetryPolicy,
+        classify_error,
         resolve_retries,
         resolve_stage_timeout,
     )
@@ -823,9 +822,13 @@ def run_fleet(args, telemetry: RunTelemetry) -> list:
     def on_error(path, exc, stage):
         failed.append(path)
         telemetry.record_failure(path, exc)
-        print("ERROR %s %s: %s: %s"
+        hint = ""
+        if stage == "clean" and classify_error(exc) == OOM:
+            hint = (" (it does not fit the device even alone; clean it "
+                    "without --fleet, e.g. with --backend numpy)")
+        print("ERROR %s %s: %s: %s%s"
               % ("writing" if stage == "write" else "cleaning", path,
-                 type(exc).__name__, exc), file=sys.stderr)
+                 type(exc).__name__, exc, hint), file=sys.stderr)
 
     journal_path = args.journal
     plan = ResiliencePlan(
@@ -882,8 +885,7 @@ def run_precompile(args) -> int:
     header peek for a path, else a parsed NSUBxNCHANxNBIN), the fleet's
     buckets planned as ``--fleet`` would, and each bucket warmed
     (:func:`~iterative_cleaner_torch.parallel.batch.warm_bucket`: the
-    kernel library built into ``--compile-cache``, the tables and launch
-    plans made) — then exit.  A later serving process over the same
+    kernel library built into ``--compile-cache``) — then exit.  A later serving process over the same
     directory builds nothing."""
     import time
 
@@ -906,12 +908,11 @@ def run_precompile(args) -> int:
                   file=sys.stderr)
             return 2
         entries.append((spec, (*dims, False)))
-    plan = plan_fleet(entries, bucket_pad=cfg.fleet_bucket_pad,
-                      group_size=cfg.fleet_group_size)
+    plan = plan_fleet(entries, group_size=cfg.fleet_group_size)
     for bucket in plan.buckets:
         nsub, nchan, nbin, ded = bucket.key
         t0 = time.perf_counter()
-        warm_bucket(cfg, nsub, nchan, nbin, ded, bucket.batch_dim).release()
+        warm_bucket(cfg, nsub, nchan, nbin, ded, bucket.batch_dim)
         if not args.quiet:
             print("precompiled %dx%dx%d%s batch=%d (%d archive%s) in %.2fs"
                   % (nsub, nchan, nbin, " dedispersed" if ded else "",
@@ -991,8 +992,9 @@ def check_fleet_args(parser, args, chunk: int) -> None:
             "whole-archive cleaning)")
     if tuple(args.bucket_pad) != (0, 0) and not (args.fleet
                                                  or args.precompile):
-        parser.error("--bucket-pad only affects the --fleet planner; pass "
-                     "--fleet")
+        parser.error("--bucket-pad is a --fleet flag (accepted there for "
+                     "the reference CLI's sake; the port pads nothing); "
+                     "pass --fleet")
     if ((args.retries is not None or args.stage_timeout is not None
          or args.faults or args.journal or args.resume)
             and not args.fleet):

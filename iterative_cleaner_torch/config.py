@@ -94,12 +94,11 @@ class CleanConfig:
     # nothing (an archive larger than the card: every pass re-streams
     # its tiles)
     stream_hbm_mb: Optional[float] = None
-    # fleet scheduler (parallel/fleet.py): the (nsub_step, nchan_step)
-    # grid the planner rounds raw shapes up to, merging near-miss
-    # geometries into one bucket; (0, 0) buckets by exact shape.  Padded
-    # cells carry zero weight and zero data and are cropped before the
-    # bad-parts sweep; nchan padding is exact, nsub padding may change a
-    # borderline cell's trajectory (opt-in, as in the reference)
+    # fleet scheduler (parallel/fleet.py): the reference's (nsub_step,
+    # nchan_step) grid that merges near-miss geometries into one padded
+    # bucket.  Validated and accepted for the reference CLI's sake; the
+    # port pads nothing and buckets by exact shape, so it changes no
+    # bucket, group or launch
     fleet_bucket_pad: Tuple[int, int] = (0, 0)
     # largest batch one fleet group cleans at (--batch B with --fleet)
     fleet_group_size: int = 8

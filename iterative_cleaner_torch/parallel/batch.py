@@ -23,28 +23,20 @@ batch_mesh`) the batch is zero-weight padded to a multiple of the ranks,
 each rank cleans its contiguous share, and the results go to rank 0
 (``distributed.host_fetch``); no collective crosses archives.
 
-The fleet (:mod:`~iterative_cleaner_torch.parallel.fleet`) calls three
-more things.  ``clean_archives_batched``'s ``pad_to`` (zero-weight pad
-slots up to a batch size), ``raw_shapes`` (geometry-padded archives
-cropped back to their own (nsub, nchan) before the bad-parts sweep, the
-zap-count column corrected for the pad cells) and ``stats_out``.
-:func:`batch_rungs` / :func:`next_rung`, the reference's batch-size
-ladder.  And :func:`warm_bucket`, the port's counterpart of the
-reference's ``precompile_batched_executable``: the port compiles no
-program per shape, so what a bucket costs before its first launch is
-the kernel library (``nvcc``, once per source digest and build
-directory), the DFT tables of its nbin and dtype and its launch plans;
-:func:`warm_bucket` makes all three ready on the device behind a memo
-keyed as the reference's program label is, and pins the tables against
-the table cache's eviction until :meth:`WarmBucket.release`.
+The fleet (:mod:`~iterative_cleaner_torch.parallel.fleet`) also calls
+:func:`warm_bucket`, the port's counterpart of the reference's
+``precompile_batched_executable``.  The port compiles no program per
+shape: what a bucket needs before its first launch is the kernel library
+(``nvcc``, once per source digest and build directory), so that is what
+:func:`warm_bucket` makes ready, behind a memo keyed as the reference's
+program label is.
 """
 
 from __future__ import annotations
 
-import dataclasses
 import threading
 import time
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Set
 
 import numpy as np
 import torch
@@ -113,42 +105,25 @@ def stack_archive_batch(archives: Sequence, pad: int, device, like=None):
             sum(int(x.nbytes) for x in host))
 
 
-def unpack_batch_results(outs, n: int, config: CleanConfig,
-                         raw_shapes: Optional[Sequence[Tuple[int, int]]]
-                         = None) -> List[CleanResult]:
+def unpack_batch_results(outs, n: int, config: CleanConfig
+                         ) -> List[CleanResult]:
     """Per-archive :class:`CleanResult` from a batch's outputs (host
     arrays or tensors of :data:`_RESULT_FIELDS`, each with a leading batch
     dimension; slots past ``n``, the padding, dropped), each with the
-    whole-line sweep applied.  ``raw_shapes`` (each archive's (nsub,
-    nchan) before the fleet's geometry padding) crops weights and scores
-    back before the sweep (zero-weight pad lines would otherwise count in
-    the bad-line fractions) and takes the pad cells, which are always
-    zero-weight, out of the iteration rows' zap count and RFI fraction;
-    an archive that was not padded keeps its values untouched."""
+    whole-line sweep applied."""
     host = {k: np.asarray(torch.as_tensor(getattr(outs, k)).cpu())
             for k in _RESULT_FIELDS}
     results = []
     for i in range(n):
         loops = int(host["loops"][i])
-        fw, sc = host["final_weights"][i], host["scores"][i]
-        im, fr = host["iter_metrics"][i][:loops], \
-            host["loop_rfi_frac"][i][:loops]
-        if raw_shapes is not None:
-            rs, rc = raw_shapes[i]
-            pad_cells = fw.shape[0] * fw.shape[1] - rs * rc
-            if pad_cells:
-                fw, sc = fw[:rs, :rc], sc[:rs, :rc]
-                im = im.copy()
-                im[:, 0] -= pad_cells   # zap_count counts pad zeros too
-                fr = (im[:, 0] / float(rs * rc)).astype(fr.dtype)
         results.append(apply_bad_parts(CleanResult(
-            final_weights=fw,
-            scores=sc,
+            final_weights=host["final_weights"][i],
+            scores=host["scores"][i],
             loops=loops,
             converged=bool(host["converged"][i]),
             loop_diffs=host["loop_diffs"][i][:loops],
-            loop_rfi_frac=fr,
-            iter_metrics=im), config))
+            loop_rfi_frac=host["loop_rfi_frac"][i][:loops],
+            iter_metrics=host["iter_metrics"][i][:loops]), config))
     return results
 
 
@@ -174,11 +149,7 @@ def _clean_stack(archives, pad, like, config: CleanConfig, device,
 
 
 def clean_archives_batched(archives: Sequence, config: CleanConfig,
-                           mesh=None, registry=None,
-                           pad_to: Optional[int] = None,
-                           raw_shapes: Optional[Sequence[Tuple[int, int]]]
-                           = None,
-                           stats_out: Optional[dict] = None
+                           mesh=None, registry=None
                            ) -> Optional[List[CleanResult]]:
     """Clean equal-shaped archives as one batch on ``config.device``:
     one list of :class:`CleanResult`, in the archives' order.
@@ -191,15 +162,10 @@ def clean_archives_batched(archives: Sequence, config: CleanConfig,
     ranks return None).  ``registry`` (a telemetry registry) receives the
     bytes this call uploaded as ``batch_h2d_bytes``, the archives as
     ``batch_archives`` and the kernel library builds this call ran as
-    ``kernel_library_builds``.  ``pad_to`` pads the batch with zero-weight
-    archives up to that size (a multiple of the mesh's ranks on a mesh);
-    ``raw_shapes`` crops geometry-padded archives back
-    (:func:`unpack_batch_results`).  ``stats_out`` (a dict) receives
-    ``compiles``, the kernel library builds this call ran (the port's
-    only compile), and ``lanes``, the batch slots it launched (pad slots
-    included).  The residual (``unload_res``) and the weight history
-    (``record_history``) are not batched, nor is the numpy oracle:
-    ``ValueError``; float64 is ROADMAP item 1b: ``NotImplementedError``."""
+    ``kernel_library_builds``.  The residual (``unload_res``) and the
+    weight history (``record_history``) are not batched, nor is the numpy
+    oracle: ``ValueError``; float64 is ROADMAP item 1b:
+    ``NotImplementedError``."""
     if config.backend != "torch":
         raise ValueError("the batched clean requires the torch backend")
     check_float64_mesh(config, "clean_archives_batched")
@@ -212,39 +178,23 @@ def clean_archives_batched(archives: Sequence, config: CleanConfig,
             "clean archive by archive for those outputs")
     check_equal_shapes(archives)
     n = len(archives)
-    if raw_shapes is not None and len(raw_shapes) != n:
-        raise ValueError(
-            f"raw_shapes must have {n} entries (one per archive), got "
-            f"{len(raw_shapes)}")
-    total = n
-    if pad_to is not None:
-        if pad_to < n:
-            raise ValueError(
-                f"pad_to={pad_to} smaller than the batch ({n} archives)")
-        if mesh is not None and pad_to % mesh.size:
-            raise ValueError(
-                f"pad_to={pad_to} must be a multiple of the mesh's batch "
-                f"extent ({mesh.size})")
-        total = int(pad_to)
     device = clean_device(config)
     if registry is not None:
         registry.counter_inc("batch_archives", n)
     from iterative_cleaner_torch.stats import kernels
 
     builds0 = kernels.library_builds()
-    lanes = total
     try:
         if mesh is None:
-            outs = _clean_stack(archives, total - n, archives[0], config,
-                                device, registry)
-            return unpack_batch_results(outs, n, config, raw_shapes)
+            outs = _clean_stack(archives, 0, archives[0], config, device,
+                                registry)
+            return unpack_batch_results(outs, n, config)
         if device.type != mesh.device.type:
             raise ValueError(f"config.device {config.device!r} and the "
                              f"rank's device {mesh.device} differ in type")
         from iterative_cleaner_torch.parallel.distributed import host_fetch
 
-        pad, start, stop = mesh.share(total)
-        lanes = total + pad
+        _, start, stop = mesh.share(n)
         mine = list(archives[start:stop])
         outs = _clean_stack(mine, stop - start - len(mine), archives[0],
                             config, mesh.device, registry)
@@ -254,103 +204,28 @@ def clean_archives_batched(archives: Sequence, config: CleanConfig,
                  for k in _RESULT_FIELDS}
         if mesh.rank != 0:
             return None
-        gathered = BatchOutputs(**{k: torch.cat(v) for k, v in parts.items()},
+        gathered = BatchOutputs(**{k: torch.cat(v)
+                                   for k, v in parts.items()},
                                 template_weights=None, history=None)
-        return unpack_batch_results(gathered, n, config, raw_shapes)
+        return unpack_batch_results(gathered, n, config)
     finally:
         built = kernels.library_builds() - builds0
         if registry is not None and built:
             registry.counter_inc("kernel_library_builds", built)
-        if stats_out is not None:
-            stats_out["compiles"] = built
-            stats_out["lanes"] = lanes
-
-
-def batch_rungs(max_batch: int) -> Tuple[int, ...]:
-    """The reference's batch-size ladder: powers of two up to
-    ``max_batch``, topped by ``max_batch`` itself."""
-    if max_batch < 1:
-        raise ValueError("max_batch must be >= 1")
-    rungs: List[int] = []
-    b = 1
-    while b < int(max_batch):
-        rungs.append(b)
-        b *= 2
-    rungs.append(int(max_batch))
-    return tuple(rungs)
-
-
-def next_rung(n: int, max_batch: int) -> int:
-    """Smallest :func:`batch_rungs` rung >= ``n``."""
-    for r in batch_rungs(max_batch):
-        if r >= n:
-            return r
-    raise ValueError(f"batch of {n} exceeds max_batch={max_batch}")
 
 
 # ------------------------------------------------------------ bucket warm-up
 
-@dataclasses.dataclass
-class WarmBucket:
-    """What :func:`warm_bucket` made ready for one bucket: the DFT tables'
-    cache keys it pinned, the launch plans and, on the card, an event
-    recorded after the tables were written (:meth:`wait` makes the
-    caller's stream wait for it, with no host synchronisation).  Each
-    :func:`warm_bucket` call that returns it holds one pin on its tables
-    until its :meth:`release`."""
-
-    key: tuple
-    device: str
-    table_keys: List[tuple]
-    plans: dict
-    event: Optional[object] = None
-    users: int = 0
-
-    def wait(self) -> None:
-        if self.event is not None:
-            self.event.wait(torch.cuda.current_stream(self.device))
-
-    def tables_resident(self) -> bool:
-        """Whether every table this warm-up made is still cached."""
-        from iterative_cleaner_torch.stats import kernels
-
-        return all(kernels.dft_tables_cached(*k) for k in self.table_keys)
-
-    def acquire(self) -> None:
-        from iterative_cleaner_torch.stats import kernels
-
-        with _WARM_MEMO_LOCK:
-            self.users += 1
-            for k in self.table_keys:
-                kernels.pin_dft_tables(*k)
-
-    def release(self) -> None:
-        from iterative_cleaner_torch.stats import kernels
-
-        with _WARM_MEMO_LOCK:
-            if self.users <= 0:
-                return
-            self.users -= 1
-            for k in self.table_keys:
-                kernels.unpin_dft_tables(*k)
-
-
-# The warm-up memo: one WarmBucket per label (config route knobs,
-# geometry, batch, dtype, device).  An entry is a hit while its tables
-# are cached: pinned while a caller holds it, and after the last release
-# until the table cache evicts them — then it is warmed again (a miss,
-# never a false hit).
-_WARM_MEMO: Dict[tuple, WarmBucket] = {}
-_WARM_MEMO_LOCK = threading.RLock()
+# The warm-up memo: the program labels this process has warmed.  The
+# library, once loaded, stays loaded, so an entry never goes stale.
+_WARMED: Set[tuple] = set()
+_WARMED_LOCK = threading.Lock()
 
 
 def clear_warm_memo() -> None:
-    """Drop every memoized warm-up and its pins (test isolation)."""
-    with _WARM_MEMO_LOCK:
-        for wb in _WARM_MEMO.values():
-            while wb.users:
-                wb.release()
-        _WARM_MEMO.clear()
+    """Forget every warmed label (test isolation)."""
+    with _WARMED_LOCK:
+        _WARMED.clear()
 
 
 def _program_label(config: CleanConfig, nsub: int, nchan: int, nbin: int,
@@ -363,104 +238,62 @@ def _program_label(config: CleanConfig, nsub: int, nchan: int, nbin: int,
             int(nsub), int(nchan), int(nbin), str(device))
 
 
-def _storage_itemsizes(config: CleanConfig) -> Tuple[int, ...]:
-    """The cube storage widths a clean of ``config`` may launch the cell
-    kernels with: float64, or float32 and (with a bf16 compute dtype)
-    bf16, whose plan may be narrower."""
-    if config.dtype == "float64":
-        return (8,)
-    import os
-
-    knob = config.compute_dtype or os.environ.get("ICLEAN_COMPUTE_DTYPE",
-                                                  "")
-    return (4, 2) if knob == "bfloat16" else (4,)
-
-
 def warm_bucket(config: CleanConfig, nsub: int, nchan: int, nbin: int,
                 dedispersed: bool, batch_dim: int, *, registry=None,
-                stats_out: Optional[dict] = None) -> WarmBucket:
-    """Make one bucket ready to launch: the kernel library built and
-    loaded (on the card), the DFT tables of its nbin at each storage
-    width pinned on the device, and its launch plans (K1's tiles, the
-    cell kernels', K3's per orientation) computed.  Memoized per
-    :func:`_program_label`; a fresh warm-up counts ``batch_compiles`` once
-    and each ``nvcc`` run ``kernel_library_builds``.  ``stats_out`` (a
-    dict) receives ``fresh``.  On the CPU the plain versions need no
-    library and no tables: only the plans are made."""
+                stats_out: Optional[dict] = None) -> None:
+    """Make one bucket ready to launch: on the card, the kernel library
+    built (into the configured build directory, if its digest is not
+    there yet) and loaded, and the device's context made; on the CPU the
+    plain versions need nothing.
+    The DFT tables are the clean's to make, at its first launch.
+    Memoized per :func:`_program_label`: a fresh warm-up counts
+    ``batch_compiles`` once and each ``nvcc`` run
+    ``kernel_library_builds``.  ``stats_out`` (a dict) receives ``fresh``
+    and ``library_builds``."""
     from iterative_cleaner_torch.stats import kernels
 
     device = clean_device(config)
     key = _program_label(config, nsub, nchan, nbin, dedispersed, batch_dim,
                          str(device))
-    with _WARM_MEMO_LOCK:
-        hit = _WARM_MEMO.get(key)
-        if hit is not None and (hit.users or hit.tables_resident()):
-            hit.acquire()
-            if stats_out is not None:
-                stats_out["fresh"] = False
-            return hit
-    t0 = time.perf_counter()
-    builds0 = kernels.library_builds()
-    on_card = device.type == "cuda"
-    sm = kernels._sm_count(str(device)) if on_card else 132
-    key_bytes = 8 if config.dtype == "float64" else 4
-    real = torch.float64 if config.dtype == "float64" else torch.float32
-    plans = {
-        "marginals": [kernels.marginals_tiles(nsub, nchan, nbin, sm, size)
-                      for size in _storage_itemsizes(config)],
-        "cell_stats": [kernels.cell_stats_geometry(nbin, size)
-                       for size in _storage_itemsizes(config)],
-        "scaled_sides": [
-            kernels.scaled_sides_geometry(n, axis, key_bytes)
-            if kernels.scaled_sides_route(n, real) != "long" else "long"
-            for axis, n in ((0, nsub), (1, nchan))],
-    }
-    table_keys, event = [], None
-    if on_card:
-        kernels.load_library()
-        for plan in plans["cell_stats"]:
-            tk = (nbin, plan.nkp, str(device), real)
-            if tk not in table_keys:
-                table_keys.append(tk)
-    wb = WarmBucket(key=key, device=str(device), table_keys=table_keys,
-                    plans=plans)
-    wb.acquire()                       # pinned before they are made
-    if on_card:
-        for tk in table_keys:
-            kernels._dft_tables_padded(*tk)
-        wb.event = torch.cuda.Event()
-        wb.event.record(torch.cuda.current_stream(device))
-    with _WARM_MEMO_LOCK:
-        _WARM_MEMO[key] = wb
-    built = kernels.library_builds() - builds0
-    if registry is not None:
-        from iterative_cleaner_torch.telemetry.registry import SECONDS
+    with _WARMED_LOCK:
+        fresh = key not in _WARMED
+    built = 0
+    if fresh:
+        t0 = time.perf_counter()
+        builds0 = kernels.library_builds()
+        if device.type == "cuda":
+            kernels.load_library()
+            # the device's context too: made here, not inside the first
+            # clean's watchdog deadline
+            torch.zeros(1, device=device)
+        built = kernels.library_builds() - builds0
+        with _WARMED_LOCK:
+            _WARMED.add(key)
+        if registry is not None:
+            from iterative_cleaner_torch.telemetry.registry import SECONDS
 
-        registry.counter_inc("batch_compiles")
-        if built:
-            registry.counter_inc("kernel_library_builds", built)
-        registry.histogram_observe("batch_precompile_s",
-                                   time.perf_counter() - t0,
-                                   buckets=SECONDS)
+            registry.counter_inc("batch_compiles")
+            if built:
+                registry.counter_inc("kernel_library_builds", built)
+            registry.histogram_observe("batch_precompile_s",
+                                       time.perf_counter() - t0,
+                                       buckets=SECONDS)
     if stats_out is not None:
-        stats_out["fresh"] = True
+        stats_out["fresh"] = fresh
         stats_out["library_builds"] = built
-    return wb
 
 
 def record_builder_cache_stats(registry) -> None:
-    """The port's caches as registry gauges: the DFT table cache (size,
-    bound, pinned keys), the warm-up memo, and the cell kernels' plan
-    cache hits and misses — the fleet's warm-up evidence."""
+    """The port's caches as registry gauges: the DFT table cache (size
+    and bound), the warm-up memo, and the cell kernels' plan cache hits
+    and misses."""
     from iterative_cleaner_torch.stats import kernels
 
-    with kernels._TABLES_LOCK:
-        registry.gauge_set("dft_tables_cache_size", len(kernels._TABLES))
-        registry.gauge_set("dft_tables_cache_pinned",
-                           len(kernels._TABLE_PINS))
-    registry.gauge_set("dft_tables_cache_maxsize", kernels._TABLES_MAX)
-    with _WARM_MEMO_LOCK:
-        registry.gauge_set("bucket_warm_memo_size", len(_WARM_MEMO))
+    tables = kernels._dft_tables_padded.cache_info()
+    registry.gauge_set("dft_tables_cache_size", tables.currsize)
+    registry.gauge_set("dft_tables_cache_maxsize", tables.maxsize)
+    with _WARMED_LOCK:
+        registry.gauge_set("bucket_warm_memo_size", len(_WARMED))
     info = kernels.cell_stats_geometry.cache_info()
     registry.gauge_set("cell_plan_cache_hits", info.hits)
     registry.gauge_set("cell_plan_cache_misses", info.misses)

@@ -7,10 +7,9 @@ with its public names and semantics.  The batched clean
 archives only; this module buckets a mixed fleet and serves it:
 
 1. **Planner** (:func:`plan_fleet`): archives group by their ``(nsub,
-   nchan, nbin, dedispersed)`` key, optionally quantizing nsub/nchan up
-   to a grid (``bucket_pad``) so near-miss shapes share a bucket (its
-   groups, its warm-up, its claim lease).  Buckets are served in sorted
-   key order; archives keep their input order within a bucket.
+   nchan, nbin, dedispersed)`` key (a bucket: its groups, its warm-up,
+   its claim lease).  Buckets are served in sorted key order; archives
+   keep their input order within a bucket.
 2. **Pipeline** (:func:`clean_fleet`): a load pool (``io_workers``
    threads) stays one group ahead of the card, each group is one batched
    clean (K1, K2 / K6 / K7, K3 per orientation, the combine and K9, each
@@ -23,52 +22,46 @@ archives only; this module buckets a mixed fleet and serves it:
 3. **Bucket warm-up** (:class:`BucketPrecompiler`): the port compiles no
    program per shape, so the counterpart of the reference's background
    AOT compile is :func:`~iterative_cleaner_torch.parallel.batch.
-   warm_bucket` on one worker thread, in bucket order, while the loads
-   run: the kernel library's ``nvcc`` build (once per source digest and
-   build directory — ``--compile-cache DIR`` keeps it across processes,
-   so a warm restart builds nothing), each bucket's DFT tables (pinned
-   against the table cache's eviction until the fleet is served) and its
-   launch plans.  The worker records a CUDA event after its device work
-   and :meth:`BucketPrecompiler.obtain` makes the serving stream wait on
-   it (no host synchronisation, so the load pool is never held up).  A
-   warm-up in flight when its group is ready is waited for and counts as
-   a hit (``fleet_compile_stall_s`` holds the wait); one not started yet
-   is cancelled, and it and a failed one (the ``compile`` fault site)
-   are misses, warmed inline.
+   warm_bucket` for each bucket: the kernel library's ``nvcc`` build,
+   once per source digest and build directory (``--compile-cache DIR``
+   keeps it across processes, so a warm restart builds nothing).  It runs
+   on the serving thread right after the first group's loads are
+   submitted, so the build overlaps them; the DFT tables are made by the
+   clean itself.  A warm-up that fails (the ``compile`` fault site) is a
+   miss, and the bucket is warmed inline before its first group.
 4. **No padding**: the reference pads a short trailing group's batch
-   axis up to the bucket's group size, and a quantized archive's
-   subints and channels up to the bucket's geometry
-   (:func:`pad_archive_geometry`: zero-weight rows/columns, pad channels
-   at the centre frequency), so that a bucket is one compiled program.
-   The port has no program to share, so it pads nothing: a group
-   launches at its own size, one batch for each raw geometry in it.
-   Padding would only add work, and on the card it is not exact: the
-   template stage's channel sums run in another order at the padded
-   width, and on an H100 that moved the mask of one of four 64 x 120 x
-   512 archives padded to 128 channels by one cell.  Unpadded, every
-   archive's result is bit-equal to its single clean
-   (a batch is bit-equal to its single cleans), and no pad cell or pad
-   lane runs (``fleet_pad_cells`` and ``fleet_pad_lanes`` stay 0).
+   axis up to the bucket's group size, and quantizes near-miss geometries
+   into one bucket (``bucket_pad``) by padding subints and channels, so
+   that a bucket is one compiled program.  The port has no program to
+   share, so it pads nothing: a bucket is one raw geometry, and a group
+   launches at its own size.  Padding would only add work, and on the
+   card it is not exact: the template stage's channel sums run in another
+   order at the padded width, and on an H100 that moved the mask of one
+   of four 64 x 120 x 512 archives padded to 128 channels by one cell.
+   Unpadded, every archive's result is bit-equal to its single clean (a
+   batch is bit-equal to its single cleans).  ``CleanConfig.
+   fleet_bucket_pad`` (``--bucket-pad``) is accepted for the reference
+   CLI's sake and changes no bucket, group or launch.
 5. **Resilience ladder** (:mod:`iterative_cleaner_torch.resilience`):
    transient peek/load/write failures retry with bounded deterministic
    backoff (``fleet_retries``); every stage attempt may run under a
    watchdog deadline (``fleet_watchdog_trips``); a device OOM during a
-   group's clean (``torch.OutOfMemoryError``, or the injector's synthetic
-   twin) empties the caching allocator and halves the batch down to
-   singletons (``fleet_oom_splits``), and a singleton that still
-   exhausts the card is cleaned on the host by the port's numpy oracle
-   (``fleet_degraded``).  The oracle is float64: on a small archive its
-   mask is the card's, but on the card a degraded archive may differ from
-   the float32 clean at borderline cells (as the goldens' flip rule
-   allows), so a degraded archive's result is held to ``--backend
-   numpy``'s clean of it, bit for bit, not to the card's.  A watchdog
-   cannot stop a launch: a tripped execute attempt runs on in its daemon
-   thread, launching its batch's remaining iterations and holding their
-   memory beside the next group, and its archives are failed (the
-   ``exec:hang`` drill stalls on the host before any launch).  With a
-   journal, each archive's ``done`` line is written strictly after its
-   atomic output write, so ``--resume`` skips finished work with zero
-   duplicated cleans (``fleet_resumed_skips``).
+   group's clean (``torch.OutOfMemoryError``, a kernel wrapper's "out of
+   memory" error, or the injector's synthetic twin) empties the caching
+   allocator and halves the batch down to singletons
+   (``fleet_oom_splits``).  A singleton that still exhausts the device
+   fails in the ``clean`` stage with its OOM error.  The reference goes
+   one rung further and cleans it on the host with the numpy oracle; the
+   port never moves a clean off the device on its own, so such an
+   archive is named in the report and the session exits 1 — clean it
+   alone with an explicit ``--backend numpy`` (the float64 oracle).  A
+   watchdog cannot stop a launch: a tripped execute attempt runs on in
+   its daemon thread, launching its batch's remaining iterations and
+   holding their memory beside the next group, and its archives are
+   failed (the ``exec:hang`` drill stalls on the host before any
+   launch).  With a journal, each archive's ``done`` line is written
+   strictly after its atomic output write, so ``--resume`` skips finished
+   work with zero duplicated cleans (``fleet_resumed_skips``).
 6. **Multi-host serving** (``hosts=`` / ``--hosts``): buckets partition
    across hosts by :func:`bucket_host`; every host computes the same plan
    and assignment, claims each bucket through the shared journal (a
@@ -93,7 +86,6 @@ import threading
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
-import numpy as np
 
 from iterative_cleaner_torch.archive import Archive
 from iterative_cleaner_torch.backends.base import CleanResult
@@ -150,43 +142,6 @@ def bucket_work_key(key: ShapeKey) -> str:
                                    int(bool(ded)))
 
 
-def quantize_geometry(nsub: int, nchan: int,
-                      bucket_pad: Tuple[int, int] = (0, 0)
-                      ) -> Tuple[int, int]:
-    """Round (nsub, nchan) up to the bucket grid; a step of 0 leaves that
-    axis raw.  nbin is never quantized (profiles are resampled upstream if
-    at all — padding phase bins would change every FFT)."""
-    def up(v: int, step: int) -> int:
-        v, step = int(v), int(step)
-        return v if step <= 0 else -(-v // step) * step
-
-    return up(nsub, bucket_pad[0]), up(nchan, bucket_pad[1])
-
-
-def pad_archive_geometry(ar: Archive, nsub: int, nchan: int) -> Archive:
-    """Zero-weight geometry padding up to (nsub, nchan): appended subint
-    rows/channel columns carry zero data and zero weight, and pad channels
-    sit at the centre frequency so their dispersion shifts are exactly
-    zero.  Zero-weight cells are masked out of every statistic and can
-    never zap (the NaN-never-zaps quirk), so the real cells' cleaning is
-    unchanged; results are cropped back via ``raw_shapes`` in
-    :func:`~iterative_cleaner_torch.parallel.batch.unpack_batch_results`."""
-    if nsub < ar.nsub or nchan < ar.nchan:
-        raise ValueError(
-            f"cannot pad {ar.nsub}x{ar.nchan} down to {nsub}x{nchan}")
-    if nsub == ar.nsub and nchan == ar.nchan:
-        return ar
-    ds, dc = nsub - ar.nsub, nchan - ar.nchan
-    freqs = np.asarray(ar.freqs_mhz)
-    return dataclasses.replace(
-        ar,
-        data=np.pad(ar.data, ((0, ds), (0, 0), (0, dc), (0, 0))),
-        weights=np.pad(ar.weights, ((0, ds), (0, dc))),
-        freqs_mhz=np.concatenate(
-            [freqs, np.full(dc, ar.centre_freq_mhz, dtype=freqs.dtype)]),
-    )
-
-
 @dataclasses.dataclass(frozen=True)
 class FleetItem:
     """One archive's slot in the plan."""
@@ -199,9 +154,9 @@ class FleetItem:
 
 @dataclasses.dataclass
 class FleetBucket:
-    """The archives of one (quantized) bucket key."""
+    """The archives of one bucket key."""
 
-    key: ShapeKey                    # the quantized geometry
+    key: ShapeKey                    # the archives' geometry
     items: List[FleetItem]
     batch_dim: int                   # the largest group's batch size
 
@@ -215,7 +170,6 @@ class FleetBucket:
 @dataclasses.dataclass
 class FleetPlan:
     buckets: List[FleetBucket]
-    bucket_pad: Tuple[int, int]
     group_size: int
 
     @property
@@ -228,24 +182,20 @@ class FleetPlan:
 
 
 def plan_fleet(entries: Sequence[Tuple[str, ShapeKey]],
-               bucket_pad: Tuple[int, int] = (0, 0),
                group_size: int = 8,
                batch_multiple: int = 1) -> FleetPlan:
-    """Bucket ``(path, (nsub, nchan, nbin, dedispersed))`` entries by their
-    quantized geometry.
+    """Bucket ``(path, (nsub, nchan, nbin, dedispersed))`` entries by
+    their geometry.
 
-    Quantization is a pure per-key function, so distinct raw shapes can
-    merge but never split: K' buckets <= K raw shapes.  Bucket order is
-    sorted by key — deterministic whatever the input order — and archives
-    keep input order within each bucket.  ``batch_multiple`` rounds each
-    bucket's batch dimension up (a ('batch',) mesh needs the padded batch
-    divisible by its rank count)."""
+    Bucket order is sorted by key — deterministic whatever the input
+    order — and archives keep input order within each bucket.
+    ``batch_multiple`` rounds each bucket's batch dimension up (a
+    ('batch',) mesh needs the batch divisible by its rank count)."""
     if group_size < 1:
         raise ValueError(f"group_size must be >= 1, got {group_size}")
     buckets: Dict[ShapeKey, List[FleetItem]] = {}
     for index, (path, (nsub, nchan, nbin, ded)) in enumerate(entries):
-        q_nsub, q_nchan = quantize_geometry(nsub, nchan, bucket_pad)
-        key = (q_nsub, q_nchan, int(nbin), bool(ded))
+        key = (int(nsub), int(nchan), int(nbin), bool(ded))
         buckets.setdefault(key, []).append(
             FleetItem(index=index, path=path,
                       raw_shape=(int(nsub), int(nchan), int(nbin)),
@@ -256,91 +206,65 @@ def plan_fleet(entries: Sequence[Tuple[str, ShapeKey]],
         dim = min(int(group_size), len(items))
         dim = -(-dim // int(batch_multiple)) * int(batch_multiple)
         out.append(FleetBucket(key=key, items=items, batch_dim=dim))
-    return FleetPlan(buckets=out, bucket_pad=tuple(bucket_pad),
-                     group_size=int(group_size))
-
-
+    return FleetPlan(buckets=out, group_size=int(group_size))
 
 
 class BucketPrecompiler:
-    """Background bucket warm-up for a fleet plan: one worker thread runs
-    :func:`~iterative_cleaner_torch.parallel.batch.warm_bucket` for every
-    bucket in the plan's (sorted) serving order while the load pool reads
-    archives.  One worker: the library build is one ``nvcc`` job set, the
-    bucket needed first is warmed first, and a single queue makes the
-    cancel-not-started fallback race-free.
+    """The warm-up of a fleet plan's buckets: :func:`~iterative_cleaner_
+    torch.parallel.batch.warm_bucket` for each bucket, in the plan's
+    (sorted) serving order, when :meth:`start` is called — the serve loop
+    calls it right after submitting the first group's loads, so the
+    library's one ``nvcc`` build runs while they read.
 
     Fresh warm-ups count once into ``fleet_compiles`` (and
-    ``batch_compiles``) from the worker; memo hits count nothing.  A
-    failed warm-up (the ``compile`` fault site) is not fatal:
-    :meth:`obtain` returns no handle and the serve loop warms the bucket
-    inline.  :meth:`shutdown` releases every handle's table pins."""
+    ``batch_compiles``), and the builds they ran into
+    ``fleet_precompile_builds``; memo hits count nothing.  A failed
+    warm-up (the ``compile`` fault site) is not fatal: :meth:`obtain`
+    answers a miss and the serve loop warms the bucket inline."""
 
     def __init__(self, plan: FleetPlan, config: CleanConfig, *,
                  registry=None, faults=None) -> None:
+        self._plan = plan
         self._config = config
         self._registry = registry
         self._faults = faults
-        self._pool = cf.ThreadPoolExecutor(
-            max_workers=1, thread_name_prefix="icln-precompile")
-        self._futures = {
-            bucket.key: self._pool.submit(self._warm, bucket)
-            for bucket in plan.buckets
-        }
+        self._ready: Optional[Dict[ShapeKey, bool]] = None
 
-    def _warm(self, bucket: FleetBucket):
+    def start(self) -> None:
+        """Warm every bucket of the plan (once; later calls return)."""
         from iterative_cleaner_torch.parallel.batch import warm_bucket
 
-        nsub, nchan, nbin, ded = bucket.key
-        if self._faults is not None:
-            # the "compile" fault site: a failed warm-up must send the
-            # bucket to the inline path, never fail it
-            self._faults.fire("compile", detail="%dx%dx%d" % (nsub, nchan,
-                                                              nbin))
-        stats: Dict[str, object] = {}
-        wb = warm_bucket(self._config, nsub, nchan, nbin, ded,
-                         bucket.batch_dim, registry=self._registry,
-                         stats_out=stats)
-        if self._registry is not None:
-            if stats.get("fresh"):
-                self._registry.counter_inc("fleet_compiles")
-            if stats.get("library_builds"):
-                self._registry.counter_inc("fleet_precompile_builds",
-                                           stats["library_builds"])
-        return wb
+        if self._ready is not None:
+            return
+        self._ready = {}
+        for bucket in self._plan.buckets:
+            nsub, nchan, nbin, ded = bucket.key
+            stats: Dict[str, object] = {}
+            try:
+                if self._faults is not None:
+                    # the "compile" fault site: a failed warm-up must send
+                    # the bucket to the inline path, never fail it
+                    self._faults.fire("compile", detail="%dx%dx%d" % (
+                        nsub, nchan, nbin))
+                warm_bucket(self._config, nsub, nchan, nbin, ded,
+                            bucket.batch_dim, registry=self._registry,
+                            stats_out=stats)
+            except Exception:  # noqa: BLE001 -- a failed warm-up is a miss; the inline path warms the bucket and surfaces a real fault
+                self._ready[bucket.key] = False
+                continue
+            self._ready[bucket.key] = True
+            if self._registry is not None:
+                if stats.get("fresh"):
+                    self._registry.counter_inc("fleet_compiles")
+                if stats.get("library_builds"):
+                    self._registry.counter_inc("fleet_precompile_builds",
+                                               stats["library_builds"])
 
-    def obtain(self, bucket: FleetBucket):
-        """The serve loop's rendezvous: ``(handle | None, ready,
-        stall_s)``.  Warmed -> a hit, zero stall.  In flight -> block
-        until it is done: a hit, with the wait as its stall (the port's
-        warm-up is the whole cost, so waiting for it never does the work
-        twice).  Still queued -> cancelled, a miss (the serve loop warms
-        the bucket inline with the data in hand).  A failed warm-up -> no
-        handle, a miss.  The caller's stream waits on a handle's event."""
-        fut = self._futures.get(bucket.key)
-        if fut is None:
-            return None, False, 0.0
-        stall = 0.0
-        if not fut.done():
-            if fut.cancel():
-                return None, False, 0.0
-            t0 = time.perf_counter()
-            cf.wait([fut])
-            stall = time.perf_counter() - t0
-        try:
-            wb = fut.result()
-        except Exception:  # noqa: BLE001 -- a cancelled or failed warm-up is a miss; the inline path warms the bucket and surfaces a real fault
-            return None, False, stall
-        wb.wait()
-        return wb, True, stall
-
-    def shutdown(self) -> None:
-        for fut in self._futures.values():
-            fut.cancel()
-        self._pool.shutdown(wait=True)
-        for fut in self._futures.values():
-            if fut.done() and not fut.cancelled() and fut.exception() is None:
-                fut.result().release()
+    def obtain(self, bucket: FleetBucket) -> bool:
+        """Whether ``bucket`` was warmed (a hit); a bucket outside the
+        plan or whose warm-up failed is a miss."""
+        self.start()
+        return bool(self._ready.get(bucket.key, False))
 
 
 @dataclasses.dataclass
@@ -362,7 +286,6 @@ class FleetReport:
     n_compiles: int = 0
     n_retries: int = 0
     n_oom_splits: int = 0
-    n_degraded: int = 0
     n_watchdog_trips: int = 0
     host_id: int = 0
     n_hosts: int = 1
@@ -405,7 +328,6 @@ def clean_fleet(paths: Sequence[str], config: CleanConfig, *,
                 mesh=None, registry=None, events=None,
                 io_workers: Optional[int] = None,
                 group_size: Optional[int] = None,
-                bucket_pad: Optional[Tuple[int, int]] = None,
                 load_fn: Optional[Callable[[str], Archive]] = None,
                 write_fn: Optional[Callable[[str, Archive, CleanResult],
                                             None]] = None,
@@ -419,21 +341,19 @@ def clean_fleet(paths: Sequence[str], config: CleanConfig, *,
     """Serve an archive-path list through the batched clean on
     ``config.device``.
 
-    ``bucket_pad``/``group_size`` default to the config's
-    ``fleet_bucket_pad``/``fleet_group_size``; ``io_workers`` to
-    :func:`resolve_io_workers`.  ``load_fn(path)``/``write_fn(path,
+    ``group_size`` defaults to the config's ``fleet_group_size``,
+    ``io_workers`` to :func:`resolve_io_workers`.  ``load_fn(path)``/``write_fn(path,
     raw_ar, result)`` are injectable (the CLI wires ``clean_one``);
     ``shape_fn(path)`` feeds the planner (default: a header peek, no cube
-    read).  ``write_fn`` receives the raw (unpadded) archive — results are
-    already cropped to its shape.  Per-archive failures never abort the
+    read).  Per-archive failures never abort the
     fleet: each lands in the returned :class:`FleetReport` (and
     ``on_error(path, exc, stage)`` fires).  ``registry`` collects the
     ``fleet_*`` counters, gauges and histograms; ``events`` (a telemetry
     ``RunEventLog``) gets a ``fleet_plan`` event.
 
-    ``precompile`` (default on) starts the :class:`BucketPrecompiler` as
-    soon as the plan is fixed; off, every bucket warms inline on its
-    first group.  ``config.compile_cache_dir`` (applied here through
+    ``precompile`` (default on) warms the plan's buckets with the
+    :class:`BucketPrecompiler` while the first group loads; off, every
+    bucket warms inline on its first group.  ``config.compile_cache_dir`` (applied here through
     :func:`~iterative_cleaner_torch.utils.configure_compilation_cache`)
     is the kernel library's build directory.
 
@@ -469,8 +389,6 @@ def clean_fleet(paths: Sequence[str], config: CleanConfig, *,
             f"clean_fleet over a ('batch',) mesh: {ROADMAP_FLEET_3B}")
     configure_compilation_cache(config.compile_cache_dir)
 
-    bucket_pad = (tuple(config.fleet_bucket_pad) if bucket_pad is None
-                  else tuple(bucket_pad))
     group_size = (config.fleet_group_size if group_size is None
                   else int(group_size))
     io_workers = resolve_io_workers(io_workers)
@@ -537,7 +455,7 @@ def clean_fleet(paths: Sequence[str], config: CleanConfig, *,
         except Exception as exc:
             fail(p, "peek", exc)
 
-    plan = plan_fleet(entries, bucket_pad=bucket_pad, group_size=group_size)
+    plan = plan_fleet(entries, group_size=group_size)
     groups = [(bucket, chunk)
               for bucket in plan.buckets for chunk in bucket.groups()]
     report.n_buckets = len(plan.buckets)
@@ -548,38 +466,30 @@ def clean_fleet(paths: Sequence[str], config: CleanConfig, *,
     if events is not None:
         events.emit("fleet_plan", n_archives=len(entries),
                     n_buckets=len(plan.buckets), n_groups=len(groups),
-                    bucket_pad=list(bucket_pad), group_size=group_size)
+                    group_size=group_size)
     if not groups and not topo.is_multi:
         return report
 
     serve_t0 = time.perf_counter()
-    held: List = []          # inline warm-ups, released at the end
     if topo.is_multi:
         reg.gauge_set("fleet_hosts", topo.n_hosts)
         reg.gauge_set("fleet_host_id", topo.host_id)
         if groups:
             _serve_multihost(plan, topo, config, reg, report, fail,
                              precompile, io_workers, load_fn, write_fn,
-                             res, cfg_hash, out_path_fn, events, held)
+                             res, cfg_hash, out_path_fn, events)
     else:
         precompiler = (BucketPrecompiler(plan, config, registry=reg,
                                          faults=res.faults)
                        if precompile else None)
-        try:
-            _serve_groups(groups, config, reg, report, fail, precompiler,
-                          io_workers, load_fn, write_fn, res, cfg_hash,
-                          out_path_fn, held)
-        finally:
-            if precompiler is not None:
-                precompiler.shutdown()
-    for wb in held:
-        wb.release()
+        _serve_groups(groups, config, reg, report, fail, precompiler,
+                      io_workers, load_fn, write_fn, res, cfg_hash,
+                      out_path_fn)
     reg.gauge_set("fleet_serve_s", time.perf_counter() - serve_t0)
     delta = reg.counters_since(mark)
     report.n_compiles = int(delta.get("fleet_compiles", 0.0))
     report.n_retries = int(delta.get("fleet_retries", 0.0))
     report.n_oom_splits = int(delta.get("fleet_oom_splits", 0.0))
-    report.n_degraded = int(delta.get("fleet_degraded", 0.0))
     report.n_watchdog_trips = int(delta.get("fleet_watchdog_trips", 0.0))
     reg.counter_inc("fleet_cleaned", len(report.results))
     if topo.is_multi:
@@ -666,7 +576,7 @@ class ClaimHeartbeat:
 
 def _serve_multihost(plan, topo, config, reg, report, fail, precompile,
                      io_workers, load_fn, write_fn, res, cfg_hash,
-                     out_path_fn, events, held) -> None:
+                     out_path_fn, events) -> None:
     """:func:`clean_fleet`'s multi-host serve loop.
 
     Sweep the plan's buckets — own (hash-affine) buckets first, foreign
@@ -694,65 +604,60 @@ def _serve_multihost(plan, topo, config, reg, report, fail, precompile,
                     n_hosts=topo.n_hosts, owned=len(owned),
                     foreign=len(foreign), claim_ttl_s=ttl)
     # the warm-up covers this host's own buckets; stolen ones warm inline
-    own_plan = FleetPlan(buckets=owned, bucket_pad=plan.bucket_pad,
-                         group_size=plan.group_size)
+    own_plan = FleetPlan(buckets=owned, group_size=plan.group_size)
     precompiler = (BucketPrecompiler(own_plan, config, registry=reg,
                                      faults=res.faults)
                    if precompile and owned else None)
     finished = set()        # bucket keys this host is done considering
-    try:
-        while True:
-            progressed = False
-            for bucket in owned + foreign:
-                if bucket.key in finished:
-                    continue
-                own_pending = any(b.key not in finished for b in owned)
-                if bucket.key not in own_keys and own_pending:
-                    continue    # steal only once own work is done
-                done = journal.completed(cfg_hash)
-                remaining = [it for it in bucket.items
-                             if not _journal_done(done, it.path)]
-                if not remaining:
-                    finished.add(bucket.key)
-                    progressed = True
-                    continue
-                work = bucket_work_key(bucket.key)
-                owner = journal.claim_table().get(work)
-                if (owner is not None and owner["live"]
-                        and owner["nonce"] != nonce):
-                    continue    # live lease elsewhere: leave it be
-                stolen = bucket.key not in own_keys
-                if not journal.try_claim(work, host=topo.host_id,
-                                         nonce=nonce, ttl_s=ttl):
-                    reg.counter_inc("fleet_claim_conflicts")
-                    continue    # lost the append race
-                if stolen:
-                    reg.counter_inc("fleet_stolen")
-                if events is not None:
-                    events.emit("fleet_claim", work=work, stolen=stolen,
-                                n_items=len(remaining))
-                sub = FleetBucket(key=bucket.key, items=remaining,
-                                  batch_dim=bucket.batch_dim)
-                sub_groups = [(sub, chunk) for chunk in sub.groups()]
-                hb = ClaimHeartbeat(journal, work, topo.host_id, nonce, ttl,
-                                    registry=reg)
-                try:
-                    _serve_groups(sub_groups, config, reg, report, fail,
-                                  precompiler, io_workers, load_fn,
-                                  write_fn, res, cfg_hash, out_path_fn,
-                                  held, journal_unwritten=True)
-                finally:
-                    hb.stop()
-                journal.release(work, host=topo.host_id, nonce=nonce)
+    while True:
+        progressed = False
+        for bucket in owned + foreign:
+            if bucket.key in finished:
+                continue
+            own_pending = any(b.key not in finished for b in owned)
+            if bucket.key not in own_keys and own_pending:
+                continue    # steal only once own work is done
+            done = journal.completed(cfg_hash)
+            remaining = [it for it in bucket.items
+                         if not _journal_done(done, it.path)]
+            if not remaining:
                 finished.add(bucket.key)
                 progressed = True
-            if all(b.key in finished for b in plan.buckets):
-                break
-            if not progressed:
-                time.sleep(poll_s)
-    finally:
-        if precompiler is not None:
-            precompiler.shutdown()
+                continue
+            work = bucket_work_key(bucket.key)
+            owner = journal.claim_table().get(work)
+            if (owner is not None and owner["live"]
+                    and owner["nonce"] != nonce):
+                continue    # live lease elsewhere: leave it be
+            stolen = bucket.key not in own_keys
+            if not journal.try_claim(work, host=topo.host_id,
+                                     nonce=nonce, ttl_s=ttl):
+                reg.counter_inc("fleet_claim_conflicts")
+                continue    # lost the append race
+            if stolen:
+                reg.counter_inc("fleet_stolen")
+            if events is not None:
+                events.emit("fleet_claim", work=work, stolen=stolen,
+                            n_items=len(remaining))
+            sub = FleetBucket(key=bucket.key, items=remaining,
+                              batch_dim=bucket.batch_dim)
+            sub_groups = [(sub, chunk) for chunk in sub.groups()]
+            hb = ClaimHeartbeat(journal, work, topo.host_id, nonce, ttl,
+                                registry=reg)
+            try:
+                _serve_groups(sub_groups, config, reg, report, fail,
+                              precompiler, io_workers, load_fn,
+                              write_fn, res, cfg_hash, out_path_fn,
+                              journal_unwritten=True)
+            finally:
+                hb.stop()
+            journal.release(work, host=topo.host_id, nonce=nonce)
+            finished.add(bucket.key)
+            progressed = True
+        if all(b.key in finished for b in plan.buckets):
+            break
+        if not progressed:
+            time.sleep(poll_s)
 
 
 def _empty_device_cache(config: CleanConfig) -> None:
@@ -771,11 +676,10 @@ def _empty_device_cache(config: CleanConfig) -> None:
 
 def _serve_groups(groups, config, reg, report, fail, precompiler,
                   io_workers, load_fn, write_fn, res, cfg_hash,
-                  out_path_fn, held, journal_unwritten: bool = False
-                  ) -> None:
-    """:func:`clean_fleet`'s pipeline body: load lookahead -> rendezvous
-    with the warm-up -> batched clean (through the OOM/retry recovery
-    ladder) -> journaled write-back.
+                  out_path_fn, journal_unwritten: bool = False) -> None:
+    """:func:`clean_fleet`'s pipeline body: load lookahead -> the bucket's
+    warm-up -> batched clean (through the OOM/retry recovery ladder) ->
+    journaled write-back.
 
     ``journal_unwritten`` (the multi-host loop sets it) journals a
     ``done`` line even with no ``write_fn``: with no output file the
@@ -823,6 +727,9 @@ def _serve_groups(groups, config, reg, report, fail, precompiler,
                                for it in groups[gi][1]]
 
         submit_loads(0)
+        if precompiler is not None:
+            # the warm-up (the library's build, if any) while they load
+            precompiler.start()
         for gi, (bucket, chunk) in enumerate(groups):
             # the next group's host IO overlaps this group's clean
             submit_loads(gi + 1)
@@ -837,36 +744,27 @@ def _serve_groups(groups, config, reg, report, fail, precompiler,
                 loaded.append((it, ar))
             reg.histogram_observe("fleet_load_stall_s",
                                   time.perf_counter() - t0, buckets=SECONDS)
-            if not loaded:
-                continue
-            # the port pads no cell: each raw geometry of the group is a
-            # batch of its own (see the module docstring, item 4)
-            subsets: Dict[Tuple[int, int, int, bool], List[int]] = {}
-            bad = None
-            for i, (it, ar) in enumerate(loaded):
-                shape = (ar.nsub, ar.nchan, ar.nbin)
-                if shape != tuple(it.raw_shape) or \
-                        bool(ar.dedispersed) != it.dedispersed:
-                    bad = ValueError(
-                        f"{it.path}: loaded as {shape} (dedispersed "
-                        f"{bool(ar.dedispersed)}), its header said "
-                        f"{tuple(it.raw_shape)} ({it.dedispersed})")
-                    break
-                subsets.setdefault((*shape, it.dedispersed), []).append(i)
-            if bad is not None:
+            bad = [(it, ar) for it, ar in loaded
+                   if (ar.nsub, ar.nchan, ar.nbin) != tuple(it.raw_shape)
+                   or bool(ar.dedispersed) != it.dedispersed]
+            if bad:
                 # a shape that disagrees with its header peek (corrupt or
                 # rewritten file): the whole group is suspect
+                it, ar = bad[0]
+                exc = ValueError(
+                    f"{it.path}: loaded as {(ar.nsub, ar.nchan, ar.nbin)} "
+                    f"(dedispersed {bool(ar.dedispersed)}), its header said "
+                    f"{tuple(it.raw_shape)} ({it.dedispersed})")
                 for it, _ar in loaded:
-                    fail(it.path, "load", bad)
+                    fail(it.path, "load", exc)
                 continue
-            wb, ready, stall_s = None, False, 0.0
+            if not loaded:
+                continue
+            ready = False
             if precompiler is not None:
-                wb, ready, stall_s = precompiler.obtain(bucket)
+                ready = precompiler.obtain(bucket)
                 reg.counter_inc("fleet_precompile_hits" if ready
                                 else "fleet_precompile_misses")
-                reg.histogram_observe("fleet_compile_stall_s", stall_s,
-                                      buckets=SECONDS)
-            group_stats = {"compiles": 0}
             results: List[Optional[CleanResult]] = [None] * len(loaded)
 
             def attempt_once(idx):
@@ -886,27 +784,13 @@ def _serve_groups(groups, config, reg, report, fail, precompiler,
                 return call_with_deadline(run, res.stage_timeout_s,
                                           "execute", registry=reg)
 
-            def degrade(i):
-                """The ladder's last rung: the singleton still exhausts
-                the card, so clean it on the host with the numpy oracle
-                (float64; its mask is ``--backend numpy``'s)."""
-                from iterative_cleaner_torch import backends
-
-                _it, raw_ar = loaded[i]
-                out = call_with_deadline(
-                    lambda: backends.clean_archive(
-                        raw_ar, dataclasses.replace(config,
-                                                    backend="numpy")),
-                    res.stage_timeout_s, "execute", registry=reg)
-                reg.counter_inc("fleet_degraded")
-                return out
-
             def serve(idx, attempt=0):
                 """Recovery ladder over ``loaded[idx]``: OOM halves the
-                batch down to singletons then degrades to the oracle,
-                transients retry with backoff, watchdog trips and
-                permanent errors fail the archives.  Fills ``results``
-                holes; never raises."""
+                batch down to singletons, and a singleton that still
+                exhausts the device fails with its OOM error; transients
+                retry with backoff, watchdog trips and permanent errors
+                fail the archives.  Fills ``results`` holes; never
+                raises."""
                 try:
                     out = attempt_once(idx)
                 except StageTimeout as exc:
@@ -925,56 +809,50 @@ def _serve_groups(groups, config, reg, report, fail, precompiler,
                         for i in idx:
                             fail(loaded[i][0].path, "clean", exc)
                         return
-                    out = None
-                if out is not None:
+                    # kept without its traceback, whose frames hold the
+                    # failed attempt's tensors
+                    oom = exc.with_traceback(None)
+                else:
                     for i, r in zip(idx, out):
                         results[i] = r
                     return
-                # OOM, handled outside the except block: the exception's
-                # traceback (and the failed attempt's tensors its frames
-                # hold) is gone, so the allocator can give their blocks back
+                # OOM, handled outside the except block, so the allocator
+                # can give the failed attempt's blocks back
                 _empty_device_cache(config)
-                if len(idx) > 1:
-                    # halve the batch: geometry padding is unchanged and a
-                    # batch is bit-equal to its single cleans
-                    reg.counter_inc("fleet_oom_splits")
-                    mid = len(idx) // 2
-                    serve(idx[:mid])
-                    serve(idx[mid:])
+                if len(idx) == 1:
+                    fail(loaded[idx[0]][0].path, "clean", oom)
                     return
-                try:
-                    results[idx[0]] = degrade(idx[0])
-                except Exception as exc2:
-                    fail(loaded[idx[0]][0].path, "clean", exc2)
+                # halve the batch: a batch is bit-equal to its single
+                # cleans
+                reg.counter_inc("fleet_oom_splits")
+                mid = len(idx) // 2
+                serve(idx[:mid])
+                serve(idx[mid:])
 
             t0 = time.perf_counter()
-            if wb is None:
+            inline_compiles = 0
+            if not ready:
                 # the inline warm-up: no precompiler, or its warm-up of
-                # this bucket was cancelled or failed.  A warm-up that
-                # fails here (a card too full for the tables) leaves the
-                # clean to make them, and to meet the same fault in the
-                # ladder
+                # this bucket failed.  One that fails here leaves the
+                # clean to meet the same fault
                 stats: Dict[str, object] = {}
                 try:
                     nsub, nchan, nbin, ded = bucket.key
-                    held.append(warm_bucket(config, nsub, nchan, nbin, ded,
-                                            bucket.batch_dim, registry=reg,
-                                            stats_out=stats))
-                    group_stats["compiles"] += int(bool(stats.get("fresh")))
-                except Exception:  # noqa: BLE001 -- counted; the clean below makes what the warm-up could not
+                    warm_bucket(config, nsub, nchan, nbin, ded,
+                                bucket.batch_dim, registry=reg,
+                                stats_out=stats)
+                    inline_compiles = int(bool(stats.get("fresh")))
+                except Exception:  # noqa: BLE001 -- counted; the clean below meets the same fault and fails its archives
                     reg.counter_inc("fleet_warm_errors")
-            for idx in subsets.values():
-                serve(idx)
+            serve(list(range(len(loaded))))
             dt = time.perf_counter() - t0
-            inline_compiles = group_stats["compiles"]
             if inline_compiles:
-                # the worker counted its own warm-ups; an inline one
+                # the warm-up pass counted its own warm-ups; an inline one
                 # counts here — never both for one bucket
                 reg.counter_inc("fleet_compiles", inline_compiles)
-            if inline_compiles or stall_s:
                 reg.counter_inc("fleet_compile_misses")
-                reg.histogram_observe("fleet_group_compile_s",
-                                      dt + stall_s, buckets=SECONDS)
+                reg.histogram_observe("fleet_group_compile_s", dt,
+                                      buckets=SECONDS)
             else:
                 reg.counter_inc("fleet_compile_hits")
                 reg.histogram_observe("fleet_group_execute_s", dt,

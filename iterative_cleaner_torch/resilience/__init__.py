@@ -15,15 +15,16 @@ its public names and semantics.  Four pieces, composed by
   watchdog deadlines (a hung stage fails its archive instead of wedging
   the run);
 - the execute path's OOM ladder (in the fleet module): batch-halving
-  down to singletons, then the float64 numpy oracle per archive;
+  down to singletons; a singleton that still exhausts the device fails
+  with its OOM error (the port moves no clean off the device);
 - :mod:`~iterative_cleaner_torch.resilience.journal` — a crash-safe
   JSON-lines completion journal keyed by checkpoint fingerprints,
   backing ``--resume`` with zero duplicated cleans after a ``kill -9``
   (the reference's line format: each package reads the other's files).
 
 Recovery telemetry lands in the shared registry: ``fleet_retries``,
-``fleet_oom_splits``, ``fleet_degraded``, ``fleet_watchdog_trips``,
-``fleet_resumed_skips``, ``fleet_callback_errors``, ``fault_injected``.
+``fleet_oom_splits``, ``fleet_watchdog_trips``, ``fleet_resumed_skips``,
+``fleet_callback_errors``, ``fault_injected``.
 """
 
 from __future__ import annotations

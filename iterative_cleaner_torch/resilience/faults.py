@@ -1,9 +1,9 @@
 """Deterministic fault injection for the fleet pipeline.
 
 Every recovery path in :mod:`iterative_cleaner_torch.parallel.fleet` —
-staged retries, watchdog deadlines, OOM batch-halving, numpy degradation,
-journaled resume — must be drillable in CI without hardware and without
-monkeypatching library internals.  This module is the drill rig: a
+staged retries, watchdog deadlines, OOM batch-halving, journaled resume
+— must be drillable in CI without hardware and without monkeypatching
+library internals.  This module is the drill rig: a
 seed+spec driven injector that raises (or stalls) at named pipeline
 sites, wired through ``--faults`` / ``ICLEAN_FAULTS``.
 
@@ -64,8 +64,8 @@ class SyntheticResourceExhausted(InjectedFault):
     """Synthetic device OOM.  The message carries ``RESOURCE_EXHAUSTED``
     (and "out of memory") so :func:`iterative_cleaner_torch.resilience.
     retry.classify_error` routes it exactly like a real
-    ``torch.OutOfMemoryError`` — the degradation ladder cannot tell them
-    apart, by design."""
+    ``torch.OutOfMemoryError`` — the OOM ladder cannot tell them apart, by
+    design."""
 
 
 @dataclasses.dataclass(frozen=True)

@@ -53,11 +53,7 @@ source, run in parallel, then one link) and bound with ``ctypes``.
 ``--compile-cache DIR``, ``ICLEAN_COMPILE_CACHE``) points the build at
 another directory before the first build of the process; a process that
 finds its digest's library there runs no ``nvcc`` at all
-(:func:`library_builds` counts the builds this process ran).  The DFT
-tables of the cell-diagnostics kernels are cached per (nbin, plan width,
-device, dtype) with least-recently-used eviction past 8 entries, except
-for entries a caller pinned (:func:`pin_dft_tables`: the fleet's bucket
-warm-up holds its buckets' tables until their groups are served).
+(:func:`library_builds` counts the builds this process ran).
 
 K1, K2, K6, K7 and K10 also read a bf16-stored cube (the mixed-precision
 mode, ``CleanConfig.compute_dtype='bfloat16'``), as the TPU functions do:
@@ -101,7 +97,6 @@ import shutil
 import subprocess
 import tempfile
 import threading
-from collections import OrderedDict
 from pathlib import Path
 from typing import NamedTuple
 
@@ -195,10 +190,6 @@ def configure_build_dir(directory) -> None:
 def library_builds() -> int:
     """How many times this process ran ``nvcc`` to build the library."""
     return _LIBRARY_BUILDS
-
-
-def library_loaded() -> bool:
-    return _LIB is not None
 
 
 def _nvcc() -> str:
@@ -639,77 +630,19 @@ def cell_stats_geometry(nbin: int, itemsize: int = 4):
     return best[1]
 
 
-_TABLES_MAX = 8
-_TABLES: "OrderedDict[tuple, tuple]" = OrderedDict()
-_TABLE_PINS: dict = {}
-_TABLES_LOCK = threading.Lock()
-
-
-def _tables_key(nbin: int, nkp: int, device: str, dtype) -> tuple:
-    return int(nbin), int(nkp), str(device), dtype
-
-
+@functools.lru_cache(maxsize=8)
 def _dft_tables_padded(nbin: int, nkp: int, device: str,
                        dtype=torch.float32):
     """The (nbin, nkp) cos/sin tables the kernels read: ``dft_tables``
     at the arithmetic ``dtype`` (float64 for the float64 builds) with
     zero columns past nbin/2 + 1 (|X|^2 = 0 there, which never wins the
-    max; a row holding NaN or inf is NaN in a real column too).  Cached:
-    the least recently used unpinned entry goes past 8 entries."""
-    key = _tables_key(nbin, nkp, device, dtype)
-    with _TABLES_LOCK:
-        hit = _TABLES.get(key)
-        if hit is not None:
-            _TABLES.move_to_end(key)
-            return hit
+    max; a row holding NaN or inf is NaN in a real column too)."""
     out = []
     for t in dft_tables(nbin, dtype, torch.device(device)):
         pad = torch.zeros((nbin, nkp), dtype=dtype, device=device)
         pad[:, : t.shape[1]] = t
         out.append(pad)
-    with _TABLES_LOCK:
-        hit = _TABLES.setdefault(key, tuple(out))
-        _TABLES.move_to_end(key)
-        for k in list(_TABLES):
-            if len(_TABLES) <= _TABLES_MAX:
-                break
-            if not _TABLE_PINS.get(k):
-                del _TABLES[k]
-    return hit
-
-
-def dft_tables_cached(nbin: int, nkp: int, device: str,
-                      dtype=torch.float32) -> bool:
-    """Whether the tables of this key are in the cache now."""
-    with _TABLES_LOCK:
-        return _tables_key(nbin, nkp, device, dtype) in _TABLES
-
-
-def pin_dft_tables(nbin: int, nkp: int, device: str,
-                   dtype=torch.float32) -> None:
-    """Keep this key's tables from eviction until as many
-    :func:`unpin_dft_tables` calls (pins count)."""
-    key = _tables_key(nbin, nkp, device, dtype)
-    with _TABLES_LOCK:
-        _TABLE_PINS[key] = _TABLE_PINS.get(key, 0) + 1
-
-
-def unpin_dft_tables(nbin: int, nkp: int, device: str,
-                     dtype=torch.float32) -> None:
-    key = _tables_key(nbin, nkp, device, dtype)
-    with _TABLES_LOCK:
-        n = _TABLE_PINS.get(key, 0) - 1
-        if n > 0:
-            _TABLE_PINS[key] = n
-        else:
-            _TABLE_PINS.pop(key, None)
-
-
-def clear_dft_tables() -> None:
-    """Drop every cached table and pin (test isolation)."""
-    with _TABLES_LOCK:
-        _TABLES.clear()
-        _TABLE_PINS.clear()
+    return tuple(out)
 
 
 @functools.lru_cache(maxsize=8)

@@ -42,13 +42,18 @@ FORMAT_VERSION = 1
 # parity probe disagrees stays float32, as in the reference).
 _IDENTITY_EXCLUDE = frozenset({"unload_res", "record_history",
                                "compute_dtype",
-                               # the fleet's retry budget, watchdog and
-                               # host placement never change a mask: a
-                               # stolen bucket's done lines must satisfy
-                               # the original host's resume
+                               # the fleet's knobs never change a mask:
+                               # the port pads nothing, so the bucket
+                               # grid and the group size only schedule;
+                               # the retry budget, watchdog and host
+                               # placement neither (a stolen bucket's
+                               # done lines must satisfy the original
+                               # host's resume); the build directory
+                               # is only where the library lives
+                               "fleet_bucket_pad", "fleet_group_size",
                                "fleet_retries", "stage_timeout_s",
                                "fleet_hosts", "fleet_host_id",
-                               "fleet_claim_ttl_s"})
+                               "fleet_claim_ttl_s", "compile_cache_dir"})
 # Every other field is in config_identity/config_hash.  ``device`` is
 # there on purpose: the card's kernels and the CPU's plain versions are
 # not promised bit-equal, and implementation knobs stay in the hash for
@@ -57,9 +62,6 @@ _IDENTITY_FIELDS = frozenset({
     "chanthresh", "subintthresh", "max_iter", "pulse_region", "bad_chan",
     "bad_subint", "backend", "rotation", "stats_frame", "baseline_duty",
     "baseline_mode", "dtype", "stream_hbm_mb", "device",
-    # the fleet's planning knobs and the kernel build directory, on the
-    # identity side as in the reference
-    "fleet_bucket_pad", "fleet_group_size", "compile_cache_dir",
 })
 
 # a new CleanConfig field fails here until it is classified

@@ -317,13 +317,18 @@ def test_identity_partition_covers_the_ports_fields():
     fields = {f.name for f in dataclasses.fields(PortConfig)}
     assert ckpt._IDENTITY_FIELDS | ckpt._IDENTITY_EXCLUDE == fields
     assert "device" in ckpt._IDENTITY_FIELDS
+    scheduling = {"fleet_bucket_pad", "fleet_group_size",
+                  "compile_cache_dir"}
     assert {"unload_res", "record_history", "compute_dtype",
             "fleet_retries", "stage_timeout_s", "fleet_hosts",
-            "fleet_host_id", "fleet_claim_ttl_s"} \
+            "fleet_host_id", "fleet_claim_ttl_s"} | scheduling \
         == set(ckpt._IDENTITY_EXCLUDE)
-    # every field the packages share is classified as the reference does
+    # every field the packages share is classified as the reference does,
+    # but the fleet's bucket grid, group size and build directory: the
+    # reference pads its buckets, so they may change its masks; the port
+    # pads nothing, so they cannot change its
     shared = fields & {f.name for f in dataclasses.fields(RefConfig)}
-    for name in shared:
+    for name in shared - scheduling:
         assert (name in ckpt._IDENTITY_FIELDS) \
             == (name in ref_ckpt._IDENTITY_FIELDS), name
 
@@ -333,8 +338,8 @@ def test_identity_partition_covers_the_ports_fields():
     ("compute_dtype", "bfloat16", True), ("record_history", True, True),
     ("unload_res", True, True), ("stream_hbm_mb", 0.0, False),
     ("fleet_retries", 5, True), ("stage_timeout_s", 3.0, True),
-    ("fleet_claim_ttl_s", 9.0, True), ("fleet_group_size", 4, False),
-    ("fleet_bucket_pad", (0, 32), False), ("compile_cache_dir", "kc", False),
+    ("fleet_claim_ttl_s", 9.0, True), ("fleet_group_size", 4, True),
+    ("fleet_bucket_pad", (0, 32), True), ("compile_cache_dir", "kc", True),
 ])
 def test_config_hash_follows_the_identity(knob, value, same):
     base = CleanConfig(**CPU)

@@ -1,12 +1,10 @@
 """The port's fleet scheduler (``parallel/fleet.py``) on the CPU: the
 planner against the JAX package's, the fleet bit for bit against the
 port's sequential cleans (a trailing partial group and a singleton bucket
-included), against the JAX ``clean_fleet`` on the same mixed fleet, the
-quantized bucket (no cell padded: bit-equal too), ``clean_archives_
-batched``'s ``pad_to`` and ``raw_shapes`` (the zap count corrected for
-pad cells), the load
-lookahead, failure isolation at every stage and the CLI (as
-``tests/test_fleet.py``).
+included), against the JAX ``clean_fleet`` on the same mixed fleet,
+``fleet_bucket_pad`` (accepted, and changing no bucket: the port pads no
+cell), the load lookahead, failure isolation at every stage and the CLI
+(as ``tests/test_fleet.py``).
 
 Tolerances: against the port's own sequential cleans everything is
 bit-equal (a batch is bit-equal to its single cleans).  Against the JAX
@@ -27,7 +25,6 @@ from iterative_cleaner_tpu.io import save_archive as ref_save_archive
 from iterative_cleaner_tpu.io.synthetic import (
     make_synthetic_archive as ref_make_synthetic_archive,
 )
-from iterative_cleaner_tpu.parallel.batch import next_rung as ref_next_rung
 from iterative_cleaner_tpu.parallel.fleet import (
     clean_fleet as ref_clean_fleet,
     plan_fleet as ref_plan_fleet,
@@ -40,16 +37,9 @@ from iterative_cleaner_torch.io import (
     make_synthetic_archive,
     save_archive,
 )
-from iterative_cleaner_torch.parallel.batch import (
-    batch_rungs,
-    clean_archives_batched,
-    next_rung,
-)
 from iterative_cleaner_torch.parallel.fleet import (
     clean_fleet,
-    pad_archive_geometry,
     plan_fleet,
-    quantize_geometry,
     resolve_io_workers,
 )
 from iterative_cleaner_torch.telemetry.registry import MetricsRegistry
@@ -79,37 +69,18 @@ def _same(got, want):
 
 # ---- planner -------------------------------------------------------------
 
-def test_quantize_geometry():
-    assert quantize_geometry(13, 30) == (13, 30)
-    assert quantize_geometry(13, 30, (8, 16)) == (16, 32)
-    assert quantize_geometry(16, 32, (8, 16)) == (16, 32)
-    assert quantize_geometry(17, 33, (8, 16)) == (24, 48)
-    assert quantize_geometry(13, 30, (8, 0)) == (16, 30)
-
-
-def test_plan_fleet_buckets_merge_but_never_split():
-    entries = [("a", (13, 30, 64, True)), ("b", (16, 32, 64, True)),
-               ("c", (15, 31, 64, True)), ("d", (16, 32, 32, True))]
-    raw = plan_fleet(entries)
-    assert len(raw.buckets) == 4
-    quant = plan_fleet(entries, bucket_pad=(8, 16))
-    assert len(quant.buckets) == 2
-    merged = next(b for b in quant.buckets if b.key[2] == 64)
-    assert [it.path for it in merged.items] == ["a", "b", "c"]
-
-
-@pytest.mark.parametrize("pad,group", [((0, 0), 8), ((8, 16), 2),
-                                       ((0, 32), 3)])
-def test_plan_fleet_equals_the_reference_plan(pad, group):
+@pytest.mark.parametrize("group", [8, 2, 3])
+def test_plan_fleet_equals_the_reference_plan(group):
     """The same entries plan into the same buckets, keys, items and
-    batch dimensions in both packages (sorted keys, input order)."""
+    batch dimensions in both packages (sorted keys, input order), the
+    reference bucketing by exact shape as the port does."""
     rng = np.random.default_rng(3)
     entries = [("p%d" % i, (int(rng.integers(6, 20)),
                             int(rng.integers(10, 40)),
                             int(rng.choice([32, 64])), bool(i % 5 == 0)))
                for i in range(30)]
-    got, want = plan_fleet(entries, pad, group), ref_plan_fleet(entries, pad,
-                                                                group)
+    got = plan_fleet(entries, group)
+    want = ref_plan_fleet(entries, (0, 0), group)
     assert [(b.key, b.batch_dim, [it.path for it in b.items])
             for b in got.buckets] == \
         [(b.key, b.batch_dim, [it.path for it in b.items])
@@ -139,34 +110,6 @@ def test_plan_fleet_group_chunking_and_batch_multiple():
         plan_fleet(entries, group_size=0)
 
 
-def test_batch_rungs_and_next_rung():
-    assert batch_rungs(1) == (1,)
-    assert batch_rungs(8) == (1, 2, 4, 8)
-    assert batch_rungs(6) == (1, 2, 4, 6)
-    for mb in (1, 5, 8, 13):
-        for n in range(1, mb + 1):
-            assert next_rung(n, mb) == ref_next_rung(n, mb)
-    with pytest.raises(ValueError):
-        next_rung(9, 8)
-    with pytest.raises(ValueError):
-        batch_rungs(0)
-
-
-def test_pad_archive_geometry_contract():
-    ar, _ = make_synthetic_archive(nsub=6, nchan=12, nbin=32, seed=1)
-    padded = pad_archive_geometry(ar, 8, 16)
-    assert padded.data.shape == (8, ar.data.shape[1], 16, 32)
-    assert padded.weights.shape == (8, 16)
-    assert np.all(padded.weights[6:, :] == 0)
-    assert np.all(padded.weights[:, 12:] == 0)
-    assert np.all(padded.data[6:, :, :, :] == 0)
-    assert np.all(padded.freqs_mhz[12:] == ar.centre_freq_mhz)
-    np.testing.assert_array_equal(padded.freqs_mhz[:12], ar.freqs_mhz)
-    assert pad_archive_geometry(ar, 6, 12) is ar
-    with pytest.raises(ValueError):
-        pad_archive_geometry(ar, 4, 12)
-
-
 def test_resolve_io_workers(monkeypatch):
     monkeypatch.delenv("ICLEAN_IO_WORKERS", raising=False)
     assert resolve_io_workers() == 2
@@ -175,28 +118,6 @@ def test_resolve_io_workers(monkeypatch):
     assert resolve_io_workers() == 3
     with pytest.raises(ValueError):
         resolve_io_workers(0)
-
-
-def test_batched_pad_to_and_raw_shapes():
-    """``pad_to`` adds zero-weight lanes that change no archive's result;
-    ``raw_shapes`` crops a padded archive back and corrects its zap
-    count for the pad cells."""
-    ars = [make_synthetic_archive(nsub=8, nchan=16, nbin=32, seed=s)[0]
-           for s in (1, 2, 3)]
-    stats = {}
-    padded = clean_archives_batched(ars, CFG, pad_to=5, stats_out=stats)
-    assert stats == {"compiles": 0, "lanes": 5}
-    for g, w in zip(padded, clean_archives_batched(ars, CFG)):
-        _same(g, w)
-    with pytest.raises(ValueError):
-        clean_archives_batched(ars, CFG, pad_to=2)
-    with pytest.raises(ValueError):
-        clean_archives_batched(ars, CFG, raw_shapes=[(8, 16)])
-    (res,) = clean_archives_batched([pad_archive_geometry(ars[0], 8, 32)],
-                                    CFG, raw_shapes=[(8, 16)])
-    assert res.final_weights.shape == (8, 16)
-    zaps = int(np.sum(res.final_weights == 0))
-    assert int(res.iter_metrics[res.loops - 1, 0]) == zaps
 
 
 # ---- serving pipeline ----------------------------------------------------
@@ -216,7 +137,6 @@ def test_fleet_matches_sequential_bit_parity(tmp_path):
     assert reg.counters["fleet_cleaned"] == len(paths)
     assert reg.gauges["fleet_buckets"] == 2
     # the trailing group launched at its own size: no pad lane ran
-    assert reg.counters.get("fleet_pad_lanes", 0) == 0
     assert reg.counters["batch_archives"] == len(paths)
 
 
@@ -248,18 +168,18 @@ def test_fleet_matches_jax_clean_fleet(tmp_path):
 
 
 def test_fleet_quantized_bucket_parity(tmp_path):
-    """nchan quantization merges near-miss geometries into one bucket and
-    one group; the port pads no cell (each raw geometry is a batch of its
-    own), so every result is bit-equal to the sequential clean."""
+    """``fleet_bucket_pad`` changes no bucket: the port pads no cell, so
+    near-miss geometries stay buckets of their own, and every result is
+    bit-equal to the sequential clean."""
     paths = _write_fleet(tmp_path, [(8, 12, 32), (8, 16, 32), (8, 10, 32),
                                     (8, 12, 32)])
     seq = {p: clean_archive(load_archive(p), CFG) for p in paths}
     reg = MetricsRegistry()
-    rep = clean_fleet(paths, CFG, registry=reg, bucket_pad=(0, 16),
-                      group_size=4)
-    assert rep.ok and (rep.n_buckets, rep.n_groups) == (1, 1)
-    assert reg.counters.get("fleet_pad_cells", 0) == 0
-    assert reg.counters.get("fleet_pad_lanes", 0) == 0
+    padded = CleanConfig(device="cpu", rotation="roll", max_iter=3,
+                         fleet_bucket_pad=(0, 16))
+    rep = clean_fleet(paths, padded, registry=reg, group_size=4)
+    assert rep.ok and (rep.n_buckets, rep.n_groups) == (3, 3)
+    assert reg.counters["batch_archives"] == len(paths)
     for p in paths:
         assert rep.results[p].final_weights.shape == seq[p].final_weights.shape
         _same(rep.results[p], seq[p])

@@ -154,12 +154,15 @@ def test_config_validates_host_knobs():
 
 
 def test_host_knobs_never_change_run_identity():
-    """Placement, retries and the watchdog must not invalidate journals:
-    a stolen bucket's done lines have to satisfy the original hash."""
+    """Placement, retries, the watchdog, the group size, the bucket grid
+    and the build directory must not invalidate journals: a stolen
+    bucket's done lines have to satisfy the original hash, and a resume
+    with another --batch must skip what was done."""
     assert config_hash(CFG) == config_hash(CleanConfig(
         device="cpu", rotation="roll", max_iter=2, fleet_hosts=2,
         fleet_host_id=1, fleet_claim_ttl_s=3.0, fleet_retries=7,
-        stage_timeout_s=9.0))
+        stage_timeout_s=9.0, fleet_group_size=3, fleet_bucket_pad=(8, 16),
+        compile_cache_dir="kc"))
 
 
 def test_multihost_requires_journal(tmp_path):

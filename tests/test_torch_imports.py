@@ -221,7 +221,7 @@ for i, shape in enumerate([(8, 16, 32), (8, 16, 32), (6, 12, 32)]):
     save_archive(ar, paths[-1])
 cfg = CleanConfig(device="cpu")
 rep = fleet.clean_fleet(paths, cfg, resilience=ResiliencePlan(
-    faults=FaultInjector("load:err@1,exec:oom@1", seed=0),
+    faults=FaultInjector("load:err@1,exec:oom@2", seed=0),
     journal=FleetJournal("j.d" + os.sep)))
 assert rep.ok and len(rep.results) == 3, rep.failures
 for h in (0, 1):

@@ -5,9 +5,12 @@ reference injector's), error classification (``torch.OutOfMemoryError``
 by type, a failed allocation by message, a broken CUDA context as
 permanent), retries and watchdog deadlines, the journal, atomic outputs,
 a seeded fault soak (bit-equal masks, every archive exactly once), the
-OOM ladder down to the float64 numpy oracle (held to the port's own
-``backend="numpy"`` clean, bit for bit), journaled resume in-process and
-after a real ``kill -9``, and the CLI's flag contracts.  Every spawned
+OOM ladder down to single archives (a single archive that still
+exhausts the device fails with its OOM error: the port moves no clean
+off the device, where the reference degrades to the numpy oracle; the
+user's explicit ``--backend numpy`` rerun is the oracle's clean, bit for
+bit), journaled resume in-process and after a real ``kill -9``, and the
+CLI's flag contracts.  Every spawned
 process has its own timeout."""
 
 import dataclasses
@@ -410,7 +413,6 @@ def test_fault_soak_bit_equal_and_exactly_once(tmp_path):
     assert len(plan.journal.completed(config_hash(CFG))) == len(paths)
     assert reg.counters["fault_injected"] >= 6
     assert rep.n_retries >= 4 and rep.n_oom_splits >= 1
-    assert rep.n_degraded == 0
     # the compile fault sent one bucket inline
     assert reg.counters["fleet_precompile_misses"] >= 1
     for p in paths:
@@ -420,24 +422,69 @@ def test_fault_soak_bit_equal_and_exactly_once(tmp_path):
 
 def test_oom_degrades_to_the_numpy_oracle_bit_equal(tmp_path):
     """Every execute OOMs: the ladder splits to singletons, the singleton
-    still OOMs, and each archive is cleaned by the float64 numpy oracle —
-    its result bit-equal to ``backend="numpy"``'s clean of it."""
+    still OOMs, and each archive fails in the clean stage with its OOM
+    error — the fleet never cleans it on the host by itself (the
+    reference's degrade rung).  Through the CLI the session exits 1 and
+    names the rerun; the explicit ``--backend numpy`` rerun writes the
+    float64 oracle's clean, bit for bit."""
+    from iterative_cleaner_torch import backends
+
     paths = _write_fleet(tmp_path, [(6, 16, 32), (8, 16, 32), (6, 16, 32)])
     reg = MetricsRegistry()
+    real = backends.clean_archive
     rep = clean_fleet(paths, CFG, registry=reg, io_workers=1, group_size=2,
                       resilience=ResiliencePlan(
                           faults=FaultInjector("execute:oom", seed=0),
                           retry=FAST))
-    assert rep.ok, rep.failures
-    assert rep.n_degraded == len(paths) and rep.n_oom_splits >= 1
-    assert reg.counters["fleet_degraded"] == len(paths)
-    numpy_cfg = dataclasses.replace(CFG, backend="numpy")
-    for p in paths:
-        want = clean_archive(load_archive(p), numpy_cfg)
-        got = rep.results[p]
-        np.testing.assert_array_equal(got.final_weights, want.final_weights)
-        np.testing.assert_array_equal(got.scores, want.scores)
-        assert got.loops == want.loops
+    assert backends.clean_archive is real
+    assert rep.results == {} and rep.n_oom_splits >= 1
+    assert sorted(p for p, _s, _e in rep.failures) == sorted(paths)
+    assert all(s == "clean" and isinstance(e, SyntheticResourceExhausted)
+               for _p, s, e in rep.failures)
+    assert reg.counters["fleet_failures"] == len(paths)
+    name = os.path.basename(paths[0])
+    r = _cli(["--fleet", "--rotation", "roll", "--max_iter", "3", "-q",
+              "-l", "--faults", "execute:oom", name], tmp_path)
+    assert r.returncode == 1
+    assert "--backend numpy" in r.stderr, r.stderr[-2000:]
+    assert not os.path.exists(paths[0] + "_cleaned.npz")
+    r = _cli(["--backend", "numpy", "--rotation", "roll", "--max_iter", "3",
+              "-q", "-l", name], tmp_path)
+    assert r.returncode == 0, r.stderr[-2000:]
+    want = clean_archive(load_archive(paths[0]),
+                         dataclasses.replace(CFG, backend="numpy"))
+    np.testing.assert_array_equal(
+        load_archive(paths[0] + "_cleaned.npz").weights, want.final_weights)
+
+
+@pytest.mark.parametrize("error", [
+    torch.OutOfMemoryError("CUDA out of memory (simulated)"),
+    RuntimeError("scaled_sides: CUDA error 2 (out of memory)"),
+], ids=["torch", "wrapper"])
+def test_singleton_oom_fails_its_archive_alone(tmp_path, monkeypatch,
+                                               error):
+    """An OOM of every batch holding one particular archive: the group
+    halves down to it, it fails in the clean stage with that error, and
+    the others are cleaned bit-equal to their single cleans."""
+    paths = _write_fleet(tmp_path, [(8, 16, 32)] * 4)
+    heavy = load_archive(paths[2]).data
+    real = batch_mod.clean_archives_batched
+
+    def capped(archives, *a, **kw):
+        if any(np.array_equal(ar.data, heavy) for ar in archives):
+            raise error
+        return real(archives, *a, **kw)
+
+    monkeypatch.setattr(batch_mod, "clean_archives_batched", capped)
+    reg = MetricsRegistry()
+    rep = clean_fleet(paths, CFG, registry=reg, group_size=4)
+    assert [(p, s) for p, s, _e in rep.failures] == [(paths[2], "clean")]
+    assert rep.failures[0][2] is error
+    assert reg.counters["fleet_oom_splits"] == 2     # 4 -> 2 + 2 -> 1 + 1
+    for p in paths[:2] + paths[3:]:
+        np.testing.assert_array_equal(
+            rep.results[p].final_weights,
+            clean_archive(load_archive(p), CFG).final_weights)
 
 
 def test_torch_oom_halves_the_group_to_singles(tmp_path, monkeypatch):
@@ -455,7 +502,7 @@ def test_torch_oom_halves_the_group_to_singles(tmp_path, monkeypatch):
     monkeypatch.setattr(batch_mod, "clean_archives_batched", capped)
     reg = MetricsRegistry()
     rep = clean_fleet(paths, CFG, registry=reg, group_size=6)
-    assert rep.ok and rep.n_degraded == 0
+    assert rep.ok
     assert reg.counters["fleet_oom_splits"] == 3     # 6 -> 3 + 3 -> 1+2 x2
     for p in paths:
         np.testing.assert_array_equal(
@@ -465,7 +512,7 @@ def test_torch_oom_halves_the_group_to_singles(tmp_path, monkeypatch):
 
 def test_broken_context_fails_without_retry_or_split(tmp_path, monkeypatch):
     """An illegal address leaves the CUDA context broken: the group's
-    archives fail at once — no retry, no halving, no degrade."""
+    archives fail at once — no retry, no halving."""
     paths = _write_fleet(tmp_path, [(8, 16, 32)] * 4)
     calls = {"n": 0}
 
@@ -481,7 +528,7 @@ def test_broken_context_fails_without_retry_or_split(tmp_path, monkeypatch):
     assert calls["n"] == 1
     assert sorted(p for p, s, _e in rep.failures) == sorted(paths)
     assert all(s == "clean" for _p, s, _e in rep.failures)
-    for k in ("fleet_retries", "fleet_oom_splits", "fleet_degraded"):
+    for k in ("fleet_retries", "fleet_oom_splits"):
         assert reg.counters.get(k, 0) == 0
 
 

@@ -5,14 +5,13 @@ program per bucket and keeps it in jax's persistent cache; the port
 compiles no program per shape, so its warm-up is the kernel library's
 ``nvcc`` build (into the ``--compile-cache`` directory, once per source
 digest: a warm restart builds nothing — held here with a stand-in
-compiler, on the card by ``tests/test_torch_cuda.py``), each bucket's DFT
-tables (pinned against the table cache's eviction) and its launch plans.
-Held: the warm-up memo's fresh and memo-hit accounting, the fleet's
-precompile hits and misses cold and then warm, ``precompile=False``,
-``--precompile`` and its refusals, ``_parse_geometry_spec``, the build
-directory's configuration, and the memo against the table cache's
-eviction (a released bucket whose tables were evicted is warmed again,
-never a false hit)."""
+compiler, on the card by ``tests/test_torch_cuda.py``).  Held: the
+warm-up memo's fresh and memo-hit accounting, the fleet's precompile hits
+and misses cold and then warm, ``precompile=False``, ``--precompile`` and
+its refusals, ``_parse_geometry_spec``, the build directory's
+configuration, and the memo against the table cache's eviction (the memo
+holds no table, so an eviction costs the clean a rebuilt table, never a
+false hit)"""
 
 import os
 import stat
@@ -60,16 +59,12 @@ def _fresh_memo():
 
 def test_warm_bucket_counts_once_then_hits():
     reg, stats = MetricsRegistry(), {}
-    wb = warm_bucket(CFG, 10, 16, 32, False, 3, registry=reg,
-                     stats_out=stats)
+    warm_bucket(CFG, 10, 16, 32, False, 3, registry=reg, stats_out=stats)
     assert stats["fresh"] and stats["library_builds"] == 0
     assert reg.counters["batch_compiles"] == 1
-    assert wb.plans["cell_stats"][0] == K.cell_stats_geometry(32, 4)
-    assert wb.plans["marginals"][0] == K.marginals_tiles(10, 16, 32)
     reg2, stats2 = MetricsRegistry(), {}
-    assert warm_bucket(CFG, 10, 16, 32, False, 3, registry=reg2,
-                       stats_out=stats2) is wb
-    assert not stats2["fresh"]
+    warm_bucket(CFG, 10, 16, 32, False, 3, registry=reg2, stats_out=stats2)
+    assert not stats2["fresh"] and stats2["library_builds"] == 0
     assert reg2.counters.get("batch_compiles", 0) == 0
     # another batch, dtype or geometry is another bucket
     for other in ((CFG, 10, 16, 32, False, 2), (CFG, 10, 16, 64, False, 3),
@@ -78,9 +73,6 @@ def test_warm_bucket_counts_once_then_hits():
         s = {}
         warm_bucket(*other, stats_out=s)
         assert s["fresh"]
-    bf = warm_bucket(CleanConfig(device="cpu", compute_dtype="bfloat16"),
-                     10, 16, 32, False, 3)
-    assert len(bf.plans["cell_stats"]) == 2      # float32 and bf16 plans
     record_builder_cache_stats(reg)
     assert reg.gauges["bucket_warm_memo_size"] == 4
     assert reg.gauges["dft_tables_cache_maxsize"] == 8
@@ -135,62 +127,26 @@ def test_compile_fault_sends_the_bucket_inline(tmp_path):
     assert reg.counters["fleet_compiles"] == 2         # both inline
 
 
-def test_dft_table_cache_pins_survive_eviction():
-    """Past 8 keys the least recently used unpinned tables go; pinned
-    ones stay until unpinned (pins count)."""
-    K.clear_dft_tables()
-    try:
-        pinned = (64, 40, "cpu", torch.float32)
-        K.pin_dft_tables(*pinned)
-        K.pin_dft_tables(*pinned)
-        first = K._dft_tables_padded(*pinned)
-        for nbin in range(8, 8 + 2 * K._TABLES_MAX):
-            K._dft_tables_padded(nbin, nbin // 2 + 1, "cpu")
-        assert K.dft_tables_cached(*pinned)
-        assert K._dft_tables_padded(*pinned) is first
-        assert len(K._TABLES) == K._TABLES_MAX
-        K.unpin_dft_tables(*pinned)
-        for nbin in range(40, 40 + 2 * K._TABLES_MAX):
-            K._dft_tables_padded(nbin, nbin // 2 + 1, "cpu")
-        assert K.dft_tables_cached(*pinned)            # one pin left
-        K.unpin_dft_tables(*pinned)
-        for nbin in range(80, 80 + 2 * K._TABLES_MAX):
-            K._dft_tables_padded(nbin, nbin // 2 + 1, "cpu")
-        assert not K.dft_tables_cached(*pinned)
-        assert len(K._TABLES) == K._TABLES_MAX
-        cos_t, sin_t = first
-        assert cos_t.shape == (64, 40) and torch.all(cos_t[:, 33:] == 0)
-    finally:
-        K.clear_dft_tables()
-
-
-def test_warm_memo_against_eviction():
-    """A warm-up held by a caller is a hit; released, it stays a hit
-    while its tables are cached, and is warmed again (fresh) once the
-    table cache evicted them — never a false hit."""
-    K.clear_dft_tables()
-    try:
-        key = (32, 17, "cpu", torch.float32)
-        wb = warm_bucket(CFG, 10, 16, 32, False, 3)
-        wb.table_keys = [key]          # as on the card: the bucket's tables
-        K._dft_tables_padded(*key)
-        K.pin_dft_tables(*key)         # the pin warm_bucket takes
-        s = {}
-        assert warm_bucket(CFG, 10, 16, 32, False, 3, stats_out=s) is wb
-        assert not s["fresh"] and wb.users == 2
-        wb.release()
-        wb.release()
-        assert wb.users == 0 and not K._TABLE_PINS
-        assert warm_bucket(CFG, 10, 16, 32, False, 3, stats_out=s) is wb
-        assert not s["fresh"]          # released, tables still cached
-        wb.release()
-        for nbin in range(8, 8 + 2 * K._TABLES_MAX):
-            K._dft_tables_padded(nbin, nbin // 2 + 1, "cpu")
-        assert not wb.tables_resident()
-        again = warm_bucket(CFG, 10, 16, 32, False, 3, stats_out=s)
-        assert s["fresh"] and again is not wb
-    finally:
-        K.clear_dft_tables()
+def test_warm_memo_against_eviction(tmp_path):
+    """The memo holds no table: a warmed bucket stays a hit (and the
+    library stays loaded) whatever the table cache evicts, and the clean
+    makes the tables it needs again — the same result."""
+    paths = _write_fleet(tmp_path, [(10, 16, 32)], seed0=90)
+    first = clean_fleet(paths, CFG, group_size=2)
+    K._dft_tables_padded.cache_clear()
+    s = {}
+    warm_bucket(CFG, 10, 16, 32, False, 1, stats_out=s)
+    assert not s["fresh"]
+    for nbin in range(8, 8 + 2 * K._dft_tables_padded.cache_info().maxsize):
+        K._dft_tables_padded(nbin, nbin // 2 + 1, "cpu")
+    reg = MetricsRegistry()
+    again = clean_fleet(paths, CFG, registry=reg, group_size=2)
+    assert reg.counters["fleet_precompile_hits"] == 1
+    assert reg.counters.get("fleet_compiles", 0) == 0
+    np.testing.assert_array_equal(first.results[paths[0]].final_weights,
+                                  again.results[paths[0]].final_weights)
+    np.testing.assert_array_equal(first.results[paths[0]].scores,
+                                  again.results[paths[0]].scores)
 
 
 # ---- the build directory -------------------------------------------------
