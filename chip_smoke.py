@@ -176,6 +176,28 @@ every bucket);
 once, the masks the sequential ones, each host's owned and stolen
 buckets printed.
 
+The online mode (``online/``): (o1) the first 64 subints of the golden
+archive (4096 x 128) streamed through an ``OnlineSession`` with a
+reconcile every 16 subints, each subint's launches read (K6, K3 along
+each axis and the combine once each), each reconcile's mask and scores
+bit-equal to the batch clean of its prefix and the close to
+``clean_archive`` of the 64 subints, no kernel-library build after the
+warm-up, the per-subint p50 and p99 latency and the reconcile and close
+seconds printed; (o2) 16 streams of 8 subints each (the golden's next
+slices) through 16 solo sessions and through one ``StreamMux``
+(max_batch 16, fed round-robin): every lane's provisional mask, scores
+and EW template bit-equal to its solo session's, one launch of each of
+the step's kernels a dispatch, the subints a second of both; (o3) K6, K3
+along each axis and the combine at (1, 1, 4096, 128) and (16, 1, 4096,
+128) in float32, bf16 storage (K6) and float64 against their plain
+versions, each timed beside its bound (the ``online`` entry of its row in
+the kernels line); (o4) ``--stream DIR`` on (o1)'s subints and ``--mux D1
+D2 D3`` on three of (o2)'s streams, written as ``.npy`` chunks with a
+``stream.json``, on spawned processes, their ``stream_cleaned.npz`` masks
+equal to (o1)'s and (o2)'s closes; (o5) ``--model online_ewt`` on (o1)'s
+archive, its provisional mask and scores equal to (o1)'s before its first
+reconcile.
+
 It exits non-zero, printing no result, when no CUDA device is present
 or when the port's package is not beside it.  It imports nothing of JAX
 or of the reference package.
@@ -2841,6 +2863,498 @@ def sweep_phase(tag):
                      f"cleans")
 
 
+# ---- the online phases (online/, --stream DIR, --mux, online_ewt): o1-o5 --
+# (o1) one solo stream: the first ONLINE_SOLO_NSUB subints of the full-size
+# archive (4096 x 128, float32), a reconcile every ONLINE_RECONCILE_EVERY;
+# (o2) a mux of ONLINE_MUX_STREAMS streams of ONLINE_MUX_NSUB subints each
+# (the next slices of the full-size archive), max_batch ONLINE_MUX_STREAMS,
+# fed round-robin, against as many solo sessions; (o3) the step's kernels
+# held to their plain versions at (1, 1, C, B) and (L, 1, C, B), timed;
+# (o4) --stream DIR and --mux D1 D2 D3 on spawned processes; (o5) --model
+# online_ewt on (o1)'s archive.
+ONLINE_SOLO_NSUB = 64
+ONLINE_RECONCILE_EVERY = 16
+ONLINE_MUX_STREAMS = 16
+ONLINE_MUX_NSUB = 8
+ONLINE_CLI_MUX_STREAMS = 3
+ONLINE_SUB_TIMEOUT_S = 300
+
+
+def online_chunk_dir(d, meta, cube):
+    """The directory protocol: ``stream.json``, one ``.npy`` chunk a
+    subint, the close sentinel."""
+    from iterative_cleaner_torch.online import (
+        CLOSE_SENTINEL,
+        save_stream_meta,
+    )
+
+    os.makedirs(d)
+    save_stream_meta(d, meta)
+    for i in range(cube.shape[0]):
+        np.save(os.path.join(d, "%06d.npy" % i), cube[i])
+    open(os.path.join(d, CLOSE_SENTINEL), "w").close()
+
+
+def online_solo(ar, counts, dev, tag):
+    """(o1): one stream through an OnlineSession, each subint's launches
+    read (the step's four kernels once each; on a reconcile's subint the
+    default route's kernels too), each reconcile's mask held to the batch
+    clean of its prefix and the close to ``clean_archive`` of the
+    64-subint archive, bit for bit; no kernel-library build after the
+    warm-up.  Returns ``(meta, cube, session result, provisional weights
+    and scores before the first reconcile, the step's planes for (o3))``."""
+    import torch
+
+    from iterative_cleaner_torch import CleanConfig
+    from iterative_cleaner_torch.backends import clean_archive
+    from iterative_cleaner_torch.engine.loop import ROUTE_KERNELS
+    from iterative_cleaner_torch.online import OnlineSession, StreamMeta
+    from iterative_cleaner_torch.online.session import percentile_ms
+    from iterative_cleaner_torch.online.step import STEP_KERNELS
+    from iterative_cleaner_torch.stats import kernels as K
+    from iterative_cleaner_torch.telemetry import MetricsRegistry
+
+    meta = StreamMeta.from_archive(ar)
+    cube = np.ascontiguousarray(ar.total_intensity()[:ONLINE_SOLO_NSUB])
+    weights = np.asarray(ar.weights[:ONLINE_SOLO_NSUB], np.float64)
+    cfg = CleanConfig(stream_reconcile_every=ONLINE_RECONCILE_EVERY,
+                      device=str(dev))
+    reg = MetricsRegistry()
+    s = OnlineSession(meta, cfg, registry=reg, stream_id="o1")
+    recon_s, held = [], []
+    reconcile = s.reconcile
+
+    def timed_reconcile():
+        t0 = time.perf_counter()
+        drift = reconcile()
+        recon_s.append(time.perf_counter() - t0)
+        return drift
+
+    s.reconcile = timed_reconcile
+    total = dict.fromkeys(K.launch_counts(), 0)
+    step_ok, before = True, None
+    torch.cuda.synchronize()
+    t_all = time.perf_counter()
+    for i in range(ONLINE_SOLO_NSUB):
+        K.reset_launch_counts()
+        s.ingest(cube[i], weights[i])
+        c = K.launch_counts()
+        for k, v in c.items():
+            total[k] += v
+        stepped = {k: v for k, v in c.items() if v}
+        if (i + 1) % ONLINE_RECONCILE_EVERY:
+            step_ok &= stepped == dict.fromkeys(STEP_KERNELS, 1)
+        else:
+            step_ok &= all(c[k] >= 1 for k in ROUTE_KERNELS["default"])
+            step_ok &= all(c[k] >= 1 for k in STEP_KERNELS)
+            # the reconcile's mask: the batch clean of the prefix
+            prefix = clean_archive(s.assembled(), cfg)
+            bits = int(np.sum(s.provisional_weights
+                              != prefix.final_weights)) + int(np.sum(
+                ~((s.provisional_scores == prefix.scores)
+                  | (np.isnan(s.provisional_scores)
+                     & np.isnan(prefix.scores)))))
+            held.append(bits)
+        if i == ONLINE_RECONCILE_EVERY - 2:
+            before = (s.provisional_weights, s.provisional_scores)
+    ingest_s = time.perf_counter() - t_all
+    t0 = time.perf_counter()
+    res = s.close()
+    close_s = time.perf_counter() - t0
+    counts["online (o1)"] = total
+    whole = clean_archive(s.assembled(), cfg)
+    close_bits = int(np.sum(res.archive.weights != whole.final_weights))
+    parts = online_subint_parts(meta, cube, weights, cfg, s.alpha, dev)
+    parts_text = ", ".join(f"{k} {np.median(v):.3f} ms"
+                           for k, v in parts.items())
+    lat = res.latencies_s
+    steady = [v for i, v in enumerate(lat) if i]
+    print(f"online (o1) solo stream, {ONLINE_SOLO_NSUB} subints of "
+          f"{meta.nchan} x {meta.nbin}, a reconcile every "
+          f"{ONLINE_RECONCILE_EVERY}: per-subint latency p50 "
+          f"{percentile_ms(lat, 50):.3f} ms, p99 {percentile_ms(lat, 99):.3f}"
+          f" ms (first subint {lat[0] * 1e3:.3f} ms; after it p50 "
+          f"{percentile_ms(steady, 50):.3f}, p99 "
+          f"{percentile_ms(steady, 99):.3f}, max {max(steady) * 1e3:.3f} "
+          f"ms; a subint's parts, medians of {len(parts['step'])}: "
+          f"{parts_text}); reconciles {json.dumps([round(v, 4) for v in recon_s])} s,"
+          f" close {close_s:.3f} s, {ONLINE_SOLO_NSUB} ingests "
+          f"{ingest_s:.3f} s in all; launches a subint (no reconcile): "
+          f"K6 1, K3 1 + 1, combine 1: {'ok' if step_ok else 'FAIL'}; "
+          f"kernels {json.dumps({k: v for k, v in total.items() if v})}; "
+          f"reconcile masks and scores against the prefix's batch clean: "
+          f"{held} cells differ in bits (tolerance: 0); the close against "
+          f"clean_archive: {close_bits} (tolerance: 0); drift "
+          f"{res.mask_drift} mid + {res.final_drift} final; "
+          f"{res.warmup_compiles} warm-up and {res.recompiles_steady} steady"
+          f" kernel-library builds {tag}", flush=True)
+    if not step_ok or any(held) or close_bits or res.recompiles_steady \
+            or len(held) != ONLINE_SOLO_NSUB // ONLINE_RECONCILE_EVERY \
+            or res.reconciles != len(held):
+        fail("online (o1): launches, reconciles or the close off")
+    if not np.all(np.isfinite(res.archive.weights)) \
+            or res.archive.weights.shape != (ONLINE_SOLO_NSUB, meta.nchan):
+        fail("online (o1): the closed archive's weights are malformed")
+    return meta, cube, res, before
+
+
+def online_subint_parts(meta, cube, weights, cfg, alpha, dev, n=16):
+    """A subint's time in its parts, each on the host clock after a
+    synchronise, over ``n`` subints: the float64 tile's conversion and
+    upload, the step (the preamble, the EW update and the four kernels)
+    and the one download.  ``{part: [ms, ...]}``."""
+    import torch
+
+    from iterative_cleaner_torch.backends.torch_backend import (
+        upload,
+        upload_meta,
+    )
+    from iterative_cleaner_torch.online.session import download_rows
+    from iterative_cleaner_torch.online.step import build_subint_step
+
+    step, _, dtype = build_subint_step(cfg, meta.nchan, meta.nbin,
+                                       meta.dedispersed, alpha)
+    args = upload_meta(np.asarray(meta.freqs_mhz), meta.dm,
+                       meta.centre_freq_mhz, meta.period_s, dev, dtype)
+    template = torch.zeros((meta.nbin,), dtype=dtype, device=dev)
+    count = torch.zeros((), dtype=torch.int32, device=dev)
+    parts = {"upload": [], "step": [], "download": []}
+    for i in range(min(n, cube.shape[0])):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tile = upload(cube[i][None], dev, dtype)
+        w_row = upload(weights[i][None], dev, dtype)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        new_w, scores, template, updated = step(tile, w_row, *args,
+                                                template, count)
+        count = count + updated.to(torch.int32)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        download_rows(new_w, scores)
+        t3 = time.perf_counter()
+        for k, a, b in (("upload", t0, t1), ("step", t1, t2),
+                        ("download", t2, t3)):
+            parts[k].append((b - a) * 1e3)
+    return parts
+
+
+def online_mux(ar, meta, counts, dev, tag):
+    """(o2): ONLINE_MUX_STREAMS streams, each ONLINE_MUX_NSUB subints of
+    the full-size archive after (o1)'s, through ONLINE_MUX_STREAMS solo
+    sessions and then one StreamMux (max_batch ONLINE_MUX_STREAMS, fed
+    round-robin): every lane's provisional mask, scores and EW template
+    bit-equal to its solo session's, the closes equal, each dispatch one
+    launch of each of the step's kernels.  Returns ``(streams, solo
+    sessions' close weights, the step inputs of the lanes' first subints
+    for (o3))``."""
+    import torch
+
+    from iterative_cleaner_torch import CleanConfig
+    from iterative_cleaner_torch.online import OnlineSession, StreamMux
+    from iterative_cleaner_torch.online.step import STEP_KERNELS
+    from iterative_cleaner_torch.stats import kernels as K
+    from iterative_cleaner_torch.telemetry import MetricsRegistry
+
+    cfg = CleanConfig(stream_reconcile_every=0, device=str(dev))
+    n, m = ONLINE_MUX_STREAMS, ONLINE_MUX_NSUB
+    full = ar.total_intensity()
+    streams = [np.ascontiguousarray(
+        full[ONLINE_SOLO_NSUB + k * m:ONLINE_SOLO_NSUB + (k + 1) * m])
+        for k in range(n)]
+    # each session with a registry, as the mux's (its quality monitor)
+    solos = [OnlineSession(meta, cfg, registry=MetricsRegistry(),
+                           stream_id=f"s{k}") for k in range(n)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rounds = []
+    for i in range(m):
+        t1 = time.perf_counter()
+        for s, cube in zip(solos, streams):
+            s.ingest(cube[i])
+        rounds.append((time.perf_counter() - t1) * 1e3)
+    solo_s = time.perf_counter() - t0
+    reg = MetricsRegistry()
+    mux = StreamMux(max_batch=n, max_wait_ms=60_000.0, registry=reg)
+    for k in range(n):
+        mux.open(f"s{k}", meta, cfg)
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ticks = []
+    for i in range(m):
+        t1 = time.perf_counter()
+        for k, cube in enumerate(streams):
+            mux.ingest(f"s{k}", cube[i])
+        mux.pump()
+        ticks.append((time.perf_counter() - t1) * 1e3)
+    mux_s = time.perf_counter() - t0
+    counts["online (o2)"] = c = K.launch_counts()
+    step_h = reg.snapshot()["histograms"]["mux_dispatch_s"]
+    launched = {k: v for k, v in c.items() if v}
+    bad = 0
+    for k, solo in enumerate(solos):
+        lane = mux.session(f"s{k}")
+        bad += int(np.sum(lane.provisional_weights
+                          != solo.provisional_weights))
+        bad += int(np.sum(~((lane.provisional_scores
+                             == solo.provisional_scores)
+                            | (np.isnan(lane.provisional_scores)
+                               & np.isnan(solo.provisional_scores)))))
+        bad += int(np.sum(lane.template() != solo.template()))
+    closes = [s.close().archive.weights for s in solos]
+    close_bad = sum(int(np.sum(mux.close_stream(f"s{k}").archive.weights
+                               != closes[k])) for k in range(n))
+    lat = [v for s in solos for v in s.latencies_s]
+    print(f"online (o2) mux, {n} streams x {m} subints of {meta.nchan} x "
+          f"{meta.nbin}, max_batch {n}, round-robin: {mux.dispatches} "
+          f"dispatches, occupancy {mux.occupancy_mean():.3f}, "
+          f"{mux.partial_dispatches} partial; {n * m} subints in "
+          f"{mux_s:.3f} s ({n * m / mux_s:.1f} subints/s) against "
+          f"{solo_s:.3f} s ({n * m / solo_s:.1f} subints/s) for {n} solo "
+          f"sessions (their per-subint p50 "
+          f"{np.percentile(np.asarray(lat) * 1e3, 50):.3f} ms); a round of "
+          f"{n} subints, ingest and dispatch, ms: mux "
+          f"{json.dumps([round(v, 2) for v in ticks])}, solo "
+          f"{json.dumps([round(v, 2) for v in rounds])}; of the mux's "
+          f"rounds, the step and its download (mux_dispatch_s) "
+          f"{step_h['sum'] / step_h['count'] * 1e3:.2f} ms a dispatch, "
+          f"the rest ingest, staging and commits; launches "
+          f"{json.dumps(launched)} ({mux.dispatches} dispatches: one K6, "
+          f"one K3 per axis, one combine each); lanes against the solo "
+          f"sessions: {bad} masks, scores and template values differ in "
+          f"bits, the closes {close_bad} cells (tolerance: 0 and 0); "
+          f"{mux.warmup_compiles} warm-up and {mux.recompiles_steady} steady"
+          f" kernel-library builds {tag}", flush=True)
+    if bad or close_bad or launched != dict.fromkeys(STEP_KERNELS,
+                                                     mux.dispatches) \
+            or mux.dispatches != m or mux.recompiles_steady:
+        fail("online (o2): the mux's lanes, closes or launches off")
+    return streams, closes, solos
+
+
+def online_kernels(meta, streams, solos, dev, tag):
+    """(o3): K6, K3 along each axis and the combine at the step's shapes,
+    (1, 1, C, B) solo and (L, 1, C, B) lane-batched, in float32, bf16
+    storage (K6) and float64, on the preamble of (o2)'s streams' first
+    subints with their solo sessions' EW templates: each against its
+    plain version (K6 within its tolerance, the rest bit-equal, NaN by
+    position) and timed by CUDA events beside its bound.  Returns
+    ``{kernel name: {shape label: numbers}}`` for the kernels line."""
+    import torch
+
+    from iterative_cleaner_torch.backends.torch_backend import (
+        upload,
+        upload_meta,
+    )
+    from iterative_cleaner_torch.engine.loop import scores_and_zap
+    from iterative_cleaner_torch.ops.dsp import prepare_cube_with_correction
+    from iterative_cleaner_torch.stats import kernels as K
+
+    C, B = meta.nchan, meta.nbin
+    L = len(streams)
+    out = {}
+
+    def planes(dtype, nb):
+        teds, tts = [], []
+        for k in range(nb):
+            ded = prepare_cube_with_correction(
+                upload(streams[k][:1], dev, dtype),
+                torch.ones((1, C), dtype=dtype, device=dev),
+                *upload_meta(np.asarray(meta.freqs_mhz), meta.dm,
+                             meta.centre_freq_mhz, meta.period_s, dev, dtype),
+                baseline_duty=0.15, rotation="fourier",
+                dedispersed=False, baseline_mode="profile")[0]
+            teds.append(ded)
+            tts.append(torch.from_numpy(solos[k].template()).to(dev, dtype))
+        ded, t = torch.stack(teds), torch.stack(tts)
+        w = torch.ones((nb, 1, C), dtype=dtype, device=dev)
+        w[:, :, 7::97] = 0.0           # a few upstream-flagged channels
+        return ded, t, w, w == 0
+
+    ok = True
+    for label, dtype, store, nb in (
+            ("solo", torch.float32, None, 1),
+            (f"lanes{L}", torch.float32, None, L),
+            ("solo bf16", torch.float32, torch.bfloat16, 1),
+            (f"lanes{L} bf16", torch.float32, torch.bfloat16, L),
+            ("solo f64", torch.float64, None, 1),
+            (f"lanes{L} f64", torch.float64, None, L)):
+        ded, t, w, mask = planes(dtype, nb)
+        if nb == 1:
+            ded, t, w, mask = ded[0], t[0], w[0], mask[0]
+        if store is not None:
+            ded = ded.to(store)
+        win = torch.ones((B,), dtype=dtype, device=dev)
+        f64 = dtype == torch.float64
+        sfx = "_f64" if f64 else ("_bf16" if store is not None else "")
+        kb = kernel_bounds(1, C, B, cube_bytes=8 if f64 else (
+            2 if store is not None else 4))
+        diags = K.cell_diagnostics_dedisp(ded, t, win, w, mask)
+        plain = K.cell_diagnostics_dedisp_plain(ded, t, win, w, mask)
+        err6, ok6 = diags_check(diags, plain, mask, torch,
+                                rtol=1e-12 if f64 else K2_RTOL)
+        sides = [K.scaled_sides(diags, mask, a, 5.0) for a in (0, 1)]
+        errs, ok3 = [], True
+        for a in (0, 1):
+            want = K.scaled_sides_plain(diags, mask, a, 5.0)
+            ok3 &= all(bits_mismatch(g, p, torch) == 0
+                       for g, p in zip(sides[a], want))
+            errs.append(max(max_abs_diff(g, p, torch)
+                            for g, p in zip(sides[a], want)))
+        new_w, scores = K.combine_zap(sides[0], sides[1], w)
+        pw, ps = K.combine_zap_plain(sides[0], sides[1], w)
+        okc = bits_mismatch(scores, ps, torch) \
+            + bits_mismatch(new_w, pw, torch) == 0
+        errc = max_abs_diff(scores, ps, torch)
+        nw2, sc2 = scores_and_zap(diags, mask, w, 5.0, 5.0)
+        okc &= bits_mismatch(sc2, scores, torch) == 0
+        ok &= ok6 and ok3 and okc
+        calls = {
+            "cell_diagnostics_dedisp": (
+                err6, lambda: K.cell_diagnostics_dedisp(ded, t, win, w, mask),
+                lambda: K.cell_diagnostics_dedisp_plain(ded, t, win, w,
+                                                        mask)),
+            "scaled_sides_axis0": (
+                errs[0], lambda: K.scaled_sides(diags, mask, 0, 5.0),
+                lambda: K.scaled_sides_plain(diags, mask, 0, 5.0)),
+            "scaled_sides_axis1": (
+                errs[1], lambda: K.scaled_sides(diags, mask, 1, 5.0),
+                lambda: K.scaled_sides_plain(diags, mask, 1, 5.0)),
+            "combine_zap": (
+                errc, lambda: K.combine_zap(sides[0], sides[1], w),
+                lambda: K.combine_zap_plain(sides[0], sides[1], w)),
+        }
+        for name, (err, kfn, pfn) in calls.items():
+            if store is not None and name != "cell_diagnostics_dedisp":
+                continue     # the planes are float32: the float32 rows
+            ms = cuda_ms(kfn, 50, torch)
+            pms = cuda_ms(pfn, 3, torch)
+            bms, bby = kb[name]
+            key = name + sfx
+            out.setdefault(key, {})[label.split(" ")[0]] = {
+                "shape": [nb, 1, C, B], "ms": ms, "plain_ms": pms,
+                "bound_ms": nb * bms, "bound_by": bby, "max_abs_err": err}
+            print(f"online (o3) {key} at ({nb}, 1, {C}, {B}): {ms:.4f} ms, "
+                  f"bound {nb * bms:.4f} ms ({bby}), plain {pms:.4f} ms, "
+                  f"max abs err {err:.3e} {tag}", flush=True)
+        print(f"online (o3) check {label}: K6 against its plain version "
+              f"{'ok' if ok6 else 'FAIL'} (max abs {err6:.3e}), K3 axis 0 "
+              f"and 1 bit-equal {'ok' if ok3 else 'FAIL'}, the combine "
+              f"bit-equal {'ok' if okc else 'FAIL'} (NaN by position) {tag}",
+              flush=True)
+    if not ok:
+        fail("online (o3): a step kernel disagrees with its plain version")
+    return out
+
+
+def online_cli(meta, cube, solo_res, streams, closes, dev, tag):
+    """(o4): ``--stream DIR`` on (o1)'s subints and ``--mux D1 D2 D3`` on
+    three of (o2)'s streams, written as ``.npy`` chunks with a
+    ``stream.json``, each a spawned process: their ``stream_cleaned.npz``
+    masks equal (o1)'s close and (o2)'s closes."""
+    from iterative_cleaner_torch.io import load_archive
+
+    with tempfile.TemporaryDirectory(prefix="icln_chip_smoke_online_") as wd:
+        solo_dir = os.path.join(wd, "solo")
+        online_chunk_dir(solo_dir, meta, cube)
+        mux_dirs = [os.path.join(wd, f"m{k}")
+                    for k in range(ONLINE_CLI_MUX_STREAMS)]
+        for d, s in zip(mux_dirs, streams):
+            online_chunk_dir(d, meta, s)
+        env = dict(os.environ, ICLEAN_STREAM_IDLE_S="60")
+        runs = {
+            "--stream": [sys.executable, "-m", "iterative_cleaner_torch",
+                         "-q", "--device", str(dev), "--stream", solo_dir,
+                         "--stream-reconcile-every",
+                         str(ONLINE_RECONCILE_EVERY)],
+            "--mux": [sys.executable, "-m", "iterative_cleaner_torch",
+                      "--device", str(dev), "--mux", *mux_dirs,
+                      "--stream-reconcile-every", "0",
+                      "--mux-max-batch", str(ONLINE_CLI_MUX_STREAMS)]}
+        procs = {k: subprocess.Popen(v, cwd=HERE, env=env, text=True,
+                                     stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE)
+                 for k, v in runs.items()}
+        t0 = time.perf_counter()
+        for name, p in procs.items():
+            try:
+                out, err = p.communicate(timeout=ONLINE_SUB_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.communicate()
+                fail(f"online (o4) {name}: timed out")
+            if p.returncode != 0:
+                fail(f"online (o4) {name}: exit {p.returncode}: "
+                     f"{err[-2000:]}")
+            print(f"  {name} exited 0 after {time.perf_counter() - t0:.1f} s"
+                  + (f": {out.strip().splitlines()[-1]}" if out.strip()
+                     else ""), flush=True)
+        off = int(np.sum(load_archive(os.path.join(
+            solo_dir, "stream_cleaned.npz")).weights
+            != solo_res.archive.weights))
+        moff = sum(int(np.sum(load_archive(os.path.join(
+            d, "stream_cleaned.npz")).weights != closes[k]))
+            for k, d in enumerate(mux_dirs))
+    print(f"online (o4) CLI: --stream DIR ({cube.shape[0]} chunks) against "
+          f"(o1)'s close: {off} cells differ; --mux over "
+          f"{ONLINE_CLI_MUX_STREAMS} directories against (o2)'s closes: "
+          f"{moff} cells differ (tolerance: 0 and 0) {tag}", flush=True)
+    if off or moff:
+        fail("online (o4): the CLI's masks differ from the in-process runs")
+
+
+def online_model(ar, before, dev, tag):
+    """(o5): ``--model online_ewt`` through ``cli.main`` on (o1)'s
+    archive: its provisional mask (and scores, NaN by position) equal to
+    (o1)'s before its first reconcile."""
+    import dataclasses
+
+    from iterative_cleaner_torch import cli
+    from iterative_cleaner_torch import CleanConfig
+    from iterative_cleaner_torch.io import load_archive, save_archive
+    from iterative_cleaner_torch.models import ONLINE_EWT, get_model
+
+    sub = dataclasses.replace(
+        ar, data=np.ascontiguousarray(ar.data[:ONLINE_SOLO_NSUB]),
+        weights=np.ascontiguousarray(ar.weights[:ONLINE_SOLO_NSUB]))
+    n = before[0].shape[0]
+    with tempfile.TemporaryDirectory(prefix="icln_chip_smoke_ewt_") as wd:
+        path = os.path.join(wd, "o1.icar")
+        save_archive(sub, path)
+        t0 = time.perf_counter()
+        rc, _ = captured(cli.main, ["-q", "-l", "--device", str(dev),
+                                    "--model", ONLINE_EWT, path])
+        seconds = time.perf_counter() - t0
+        got = load_archive(path + "_cleaned.icar").weights
+    scores = get_model(ONLINE_EWT)(sub, CleanConfig(device=str(dev))).scores
+    off = int(np.sum(got[:n] != before[0])) + int(np.sum(~(
+        (scores[:n] == before[1]) | (np.isnan(scores[:n])
+                                     & np.isnan(before[1])))))
+    print(f"online (o5) --model online_ewt on (o1)'s {ONLINE_SOLO_NSUB} "
+          f"subints in {seconds:.2f} s: against (o1)'s provisional mask and "
+          f"scores before its first reconcile ({n} subints): {off} values "
+          f"differ in bits (tolerance: 0); {int(np.sum(got == 0))} cells "
+          f"zapped {tag}", flush=True)
+    if rc != 0 or off:
+        fail("online (o5): --model online_ewt differs from (o1)")
+
+
+def online_phases(ar, counts, dev, tag):
+    """The online phases (o1)-(o5); returns (o3)'s kernel numbers for the
+    kernels line.  Prints their seconds."""
+    t_all = time.perf_counter()
+    meta, cube, solo_res, before = online_solo(ar, counts, dev, tag)
+    streams, closes, solos = online_mux(ar, meta, counts, dev, tag)
+    times = online_kernels(meta, streams, solos, dev, tag)
+    online_cli(meta, cube, solo_res, streams[:ONLINE_CLI_MUX_STREAMS],
+               closes, dev, tag)
+    online_model(ar, before, dev, tag)
+    print(f"online phases: {time.perf_counter() - t_all:.1f} s in all {tag}",
+          flush=True)
+    return times
+
+
 # ---- the fleet phases (parallel/fleet.py, --fleet): f1-f6 ----------------
 # (f1) the mixed fleet: FLEET_MIX archives of each shape, interleaved,
 # under --bucket-pad 0,32 (accepted; the port pads nothing, so the 64 x 120
@@ -3546,6 +4060,10 @@ def main() -> int:
     # and the combine, float32 and float64; tools sweep on both models
     quicklook_phase(ar, counts, clean_ms, peak_gib, dev, tag)
     sweep_phase(tag)
+    # ---- 3o. the online mode: (o1) a solo stream, (o2) a mux of 16
+    # streams, (o3) the step's kernels at nsub = 1 and in lanes, (o4)
+    # --stream DIR and --mux DIR..., (o5) --model online_ewt
+    online_times = online_phases(ar, counts, dev, tag)
 
     # ---- 3j. batches of equal-shaped archives (parallel/batch.py), each
     # kernel launched once per batch iteration: (a) BATCH_SEEDS small
@@ -4300,6 +4818,10 @@ def main() -> int:
               f"{tag}", flush=True)
     kernels.extend(tail_ms)
     kernels.extend(f64_kernels)
+    for k in kernels:
+        # the online step's kernels at its shapes, (o3)
+        if k["name"] in online_times:
+            k["online"] = online_times[k["name"]]
     ms_of = {k["name"]: k["ms"] for k in kernels}
     tail = (ms_of["scaled_sides_axis0"] + ms_of["scaled_sides_axis1"]
             + ms_of["combine_zap"])

@@ -37,7 +37,11 @@ quicklook (``--model quicklook``, :mod:`iterative_cleaner_torch.models`:
 K6, K3 and the combine on the card) and captures a ``torch.profiler``
 trace of a session (``--trace``, :mod:`iterative_cleaner_torch.utils.
 tracing`); the tools diff checkpoints and archives, sweep thresholds and
-list borderline decisions.
+list borderline decisions.  The online mode (:mod:`iterative_cleaner_torch.
+online`) cleans a live stream subint by subint on the card (``--stream
+DIR``; the per-subint step is K6, K3 and the combine at nsub = 1, with
+periodic reconciles through the batch clean), many streams through one
+batched step a tick (``--mux DIR...``), and gives the ``online_ewt`` model.
 
 Entry points run on the card (``CleanConfig.device`` defaults to
 ``"cuda"``); ``device="cpu"`` runs every kernel's plain PyTorch version
@@ -55,9 +59,10 @@ Layout, host boundary first:
 - :mod:`~iterative_cleaner_torch.backends` — ``clean_archive`` (the
   torch engine or the numpy oracle)
 - :mod:`~iterative_cleaner_torch.models` — the cleaning strategies by
-  name: the flagship ``surgical_scrub`` and ``quicklook``
+  name: the flagship ``surgical_scrub``, ``quicklook`` and ``online_ewt``
 - :mod:`~iterative_cleaner_torch.parallel` — ``clean_streaming``,
   ``clean_archive_sharded``, ``clean_archives_batched``
+- :mod:`~iterative_cleaner_torch.online` — ``OnlineSession``, ``StreamMux``
 - :mod:`~iterative_cleaner_torch.telemetry`,
   :mod:`~iterative_cleaner_torch.utils` — the CLI session's run report,
   metrics, event log and ``clean.log``, the checkpoints and the trace

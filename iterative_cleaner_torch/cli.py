@@ -6,10 +6,12 @@ torch|numpy] [--rotation fourier|roll] [--baseline_mode] [--stats_frame]
 [--compute-dtype float32|bfloat16] [--record_history] [--device]
 [--model surgical_scrub|quicklook|online_ewt] [--checkpoint DIR]
 [--trace DIR] [--stream N [--stream_mode exact|online]
-[--stream_hbm_mb MB]] [--batch B] [--mesh off|cell|batch] [--prefetch N]
-[--io-workers N] [--fleet [--bucket-pad NSUB,NCHAN] [--retries N]
-[--stage-timeout S] [--faults SPEC [--fault-seed SEED]] [--journal PATH
-[--journal-segment-mb MB] [--resume]] [--hosts N --host-id I
+[--stream_hbm_mb MB]] [--stream DIR | --mux DIR...
+[--stream-reconcile-every K] [--stream-ew-alpha A] [--quality-window K]
+[--quality-drift F] [--mux-max-wait-ms MS] [--mux-max-batch B]]
+[--batch B] [--mesh off|cell|batch] [--prefetch N] [--io-workers N]
+[--fleet [--bucket-pad NSUB,NCHAN] [--retries N] [--stage-timeout S]
+[--faults SPEC [--fault-seed SEED]] [--journal PATH [--journal-segment-mb MB] [--resume]] [--hosts N --host-id I
 [--claim-ttl S]]] [--precompile] [--compile-cache DIR]
 [--metrics-json PATH] [--prom-textfile PATH] [--event-log PATH]
 [--log-format text|json] [--timing] [--keep_going] obs.sf ...``
@@ -54,9 +56,10 @@ takes the resume decision and broadcasts it before any collective, and
 rank 0 alone saves.
 ``--model quicklook`` cleans with the single-pass template-free
 quicklook (``models/quicklook.py``: K6, K3 twice and the combine on the
-card); ``--model online_ewt`` is not ported (ROADMAP.md 'Modules still to
-port' item 5).  ``--checkpoint`` and a model other than the flagship each
-refuse what the reference's parser refuses (exit 2).
+card); ``--model online_ewt`` writes the online mode's provisional mask
+(``online/model.py``: the archive streamed subint by subint through the
+per-subint step).  ``--checkpoint`` and a model other than the flagship
+each refuse what the reference's parser refuses (exit 2).
 ``--trace DIR`` captures a ``torch.profiler`` trace of the whole session
 into ``DIR/trace.rank<r>.json`` (``utils/tracing.py``: the host phases
 ``icln:load``/``icln:clean``/``icln:write``, each iteration's
@@ -64,6 +67,19 @@ into ``DIR/trace.rank<r>.json`` (``utils/tracing.py``: the host phases
 ``icln_zap`` ranges, and on a card its kernels); every rank of a mesh
 writes its own file.
 ``--stream N`` cleans in N-subint tiles (``parallel/streaming.py``).
+``--stream DIR`` is the online mode (``online/``): it tails DIR for
+chunk files (bare ``.npy`` tiles with a ``stream.json`` header, or
+archive containers) in sorted-name order, cleans each subint as it lands
+(:class:`~iterative_cleaner_torch.online.OnlineSession`: the provisional
+zap, a reconcile every ``--stream-reconcile-every`` subints) and ends on a
+``stream.close`` sentinel, or after ``ICLEAN_STREAM_IDLE_S`` seconds
+(default 30) with no new chunk; it writes ``DIR/stream_cleaned.npz`` (or
+``-o``), whose mask is the batch clean's of the same subints.  ``--mux
+DIR...`` tails several such directories through one
+:class:`~iterative_cleaner_torch.online.StreamMux` (one batched step a
+tick, ``--mux-max-wait-ms``, ``--mux-max-batch``), each stream closing on
+its own sentinel and writing its ``DIR/stream_cleaned.npz``.  Both take
+no archive arguments and need ``--backend torch``.
 ``--mesh cell`` cleans each archive over the ranks of a
 ``torch.distributed`` job (``parallel/sharding.py``; with ``--stream N``
 each tile over the ranks, ``parallel/streaming.py``), started as
@@ -103,11 +119,10 @@ of a fleet that N processes split through one shared ``--journal``.
 built into and loaded from (a warm restart builds nothing);
 ``--precompile --compile-cache DIR`` plans the buckets of the given
 archives or ``NSUBxNCHANxNBIN`` geometries, warms each and exits.
-Not ported yet: the live ``--stream DIR`` session (ROADMAP.md 'Modules
-still to port' item 5); ``--coordinator`` and ``--fleet --mesh batch``
-(item 3b); ``--serve``, ``--trace-out``, ``--flight-recorder`` and
-``--journal-fsck`` (item 8).  Each raises ``NotImplementedError`` naming
-its item.
+Not ported yet: ``--coordinator`` and ``--fleet --mesh batch`` (ROADMAP.md
+'Modules still to port' item 3b); ``--serve`` (bare ``--mux`` included),
+``--trace-out``, ``--flight-recorder`` and ``--journal-fsck`` (item 8).
+Each raises ``NotImplementedError`` naming its item.
 """
 
 from __future__ import annotations
@@ -123,14 +138,12 @@ from iterative_cleaner_torch.config import (
     MESH_MODES,
     ROADMAP_CONTROL_PLANE,
     ROADMAP_FLEET_3B,
-    ROADMAP_ONLINE,
     CleanConfig,
     check_mesh,
 )
 from iterative_cleaner_torch.io import load_archive, peek_shape, save_archive
 from iterative_cleaner_torch.models import (
     ONLINE_EWT,
-    ONLINE_EWT_NOT_PORTED,
     QUICKLOOK,
     SURGICAL_SCRUB,
     get_model,
@@ -166,9 +179,10 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m iterative_cleaner_torch",
         description="Iterative RFI cleaner (PyTorch/CUDA port)")
-    p.add_argument("archive", nargs="+",
+    p.add_argument("archive", nargs="*",
                    help="The chosen archives (.npz, or PSRFITS: .sf, .rf, "
-                        ".fits, .psrfits, .ar)")
+                        ".fits, .psrfits, .ar); none with --stream DIR or "
+                        "--mux DIR...")
     p.add_argument("-c", "--chanthresh", type=float, default=5,
                    metavar="channel_threshold",
                    help="Sigma threshold for a profile to stand out "
@@ -250,7 +264,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "cleaner (models/quicklook.py; no template stage, "
                         "so --max_iter, -r/--pulse_region and "
                         "--stats_frame do not apply); or online_ewt, the "
-                        "online mode's pass (not ported yet).")
+                        "online mode's provisional mask (online/model.py: "
+                        "each subint cleaned as it would arrive, no "
+                        "reconcile).")
     p.add_argument("--stats_frame",
                    choices=("auto", "dispersed", "dedispersed"),
                    default="auto",
@@ -269,11 +285,68 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device to clean on (default cuda; 'cpu' "
                         "runs the kernels' plain PyTorch versions).")
-    p.add_argument("--stream", type=str, default="0", metavar="CHUNK",
+    p.add_argument("--stream", type=str, default="0", metavar="CHUNK|DIR",
                    help="An integer CHUNK > 0 cleans each archive in "
                         "CHUNK-subint tiles (--stream_mode) instead of "
                         "one device footprint: for archives larger than "
-                        "the card. 0 (default) disables.")
+                        "the card. 0 (default) disables. A directory "
+                        "instead runs the ONLINE mode (online/): tail DIR "
+                        "for per-subint chunk files (.npy with a "
+                        "stream.json header, or archive containers; "
+                        "sorted name order), clean each as it lands, and "
+                        "finish on a 'stream.close' sentinel file (or "
+                        "ICLEAN_STREAM_IDLE_S seconds idle, default 30); "
+                        "the output's mask is the batch clean's of the "
+                        "same subints.")
+    p.add_argument("--stream-reconcile-every", "--stream_reconcile_every",
+                   type=int, default=None, dest="stream_reconcile_every",
+                   metavar="K",
+                   help="Online mode: re-clean the accumulated subints "
+                        "through the batch pipeline every K subints, "
+                        "repairing provisional-mask drift (default: "
+                        "ICLEAN_STREAM_RECONCILE_EVERY, else 8; 0 "
+                        "reconciles only at close, so the final mask is "
+                        "unaffected).")
+    p.add_argument("--stream-ew-alpha", "--stream_ew_alpha", type=float,
+                   default=None, dest="stream_ew_alpha", metavar="A",
+                   help="Online mode: the weight of the newest subint's "
+                        "profile in the running template, 0 < A <= 1 "
+                        "(default: ICLEAN_STREAM_EW_ALPHA, else 0.2). Only "
+                        "the provisional zap sees the template.")
+    p.add_argument("--quality-window", "--quality_window", type=int,
+                   default=None, dest="quality_window", metavar="K",
+                   help="Online mode: the trailing window (subints) of the "
+                        "zap-fraction drift detector behind "
+                        "quality_drift_alerts (telemetry/quality.py; it "
+                        "never changes a mask). Default: "
+                        "ICLEAN_QUALITY_WINDOW, else 16.")
+    p.add_argument("--quality-drift", "--quality_drift", type=float,
+                   default=None, dest="quality_drift", metavar="F",
+                   help="Online mode: the zap-fraction departure from the "
+                        "window's median that raises quality_drift_alerts "
+                        "(default: ICLEAN_QUALITY_DRIFT, else 0.15).")
+    p.add_argument("--mux", nargs="*", default=None, metavar="DIR",
+                   help="Multiplex live streams through one batched step "
+                        "(online/mux.py): with one or more DIRs, tail each "
+                        "chunk directory as a stream of its own (as "
+                        "--stream DIR does) until every stream closes; "
+                        "pending subints of streams of one geometry run "
+                        "as one (B, 1, nchan, nbin) step a tick, each "
+                        "stream's masks bit-equal to its solo session's. "
+                        "Bare --mux belongs to the --serve daemon (not "
+                        "ported).")
+    p.add_argument("--mux-max-wait-ms", "--mux_max_wait_ms", type=float,
+                   default=None, dest="mux_max_wait_ms", metavar="MS",
+                   help="Mux deadline: a pending subint never waits longer "
+                        "than MS before its bucket dispatches partly full "
+                        "(default: ICLEAN_MUX_MAX_WAIT_MS, else 5). 0 "
+                        "dispatches every pending subint at once.")
+    p.add_argument("--mux-max-batch", "--mux_max_batch", type=int,
+                   default=None, dest="mux_max_batch", metavar="B",
+                   help="Largest multiplexed dispatch, in streams "
+                        "(default: ICLEAN_MUX_MAX_BATCH, else 64). A "
+                        "dispatch runs exactly its lanes: nothing is "
+                        "padded.")
     p.add_argument("--stream_mode", choices=("exact", "online"),
                    default="exact",
                    help="exact (default): masks equal to the whole "
@@ -456,15 +529,24 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def split_stream_arg(args) -> None:
+    """Split ``--stream`` the reference's way: an integer is the tile
+    size (``args.stream``), anything else the online mode's chunk
+    directory (``args.stream_dir``, the tile size then 0); and ``--mux``:
+    its directories (``args.mux_dirs``) and whether it was given at all
+    (``args.mux_on``; bare, it belongs to the serve daemon)."""
+    raw = str(args.stream)
+    if raw.lstrip("-").isdigit():
+        args.stream_dir = ""
+    else:
+        args.stream_dir, args.stream = raw, "0"
+    args.mux_dirs = list(args.mux) if args.mux else []
+    args.mux_on = args.mux is not None
+
+
 def stream_chunk(value: str) -> int:
-    """``--stream``'s tile size; 0 disables streaming.  A directory (the
-    reference's live online session) is not ported."""
-    try:
-        chunk = int(value)
-    except ValueError:
-        raise NotImplementedError(
-            f"--stream {value!r}: the live online session over a "
-            f"directory is not ported yet: {ROADMAP_ONLINE}") from None
+    """``--stream``'s tile size; 0 disables tiled streaming."""
+    chunk = int(value)
     if chunk < 0:
         raise ValueError(f"--stream must be >= 0, got {chunk}")
     return chunk
@@ -507,7 +589,11 @@ def config_of(args) -> CleanConfig:
                                       if args.host_id is not None
                                       else _env_int("ICLEAN_HOST_ID")),
                        fleet_claim_ttl_s=args.claim_ttl,
-                       compile_cache_dir=args.compile_cache or None)
+                       compile_cache_dir=args.compile_cache or None,
+                       stream_reconcile_every=args.stream_reconcile_every,
+                       stream_ew_alpha=args.stream_ew_alpha,
+                       quality_window=args.quality_window,
+                       quality_drift=args.quality_drift)
 
 
 def notice_compute_dtype_downgrade(cfg: CleanConfig, telemetry) -> str:
@@ -928,6 +1014,232 @@ def run_precompile(args) -> int:
     return 0
 
 
+def _stream_idle_s() -> float:
+    return float(os.environ.get("ICLEAN_STREAM_IDLE_S", "30"))
+
+
+def run_stream(args, telemetry: RunTelemetry) -> int:
+    """The ``--stream DIR`` session: one live stream on this host.  Tails
+    DIR for chunk files in sorted-name order, ingests each through an
+    :class:`~iterative_cleaner_torch.online.OnlineSession` (the per-subint
+    step on the card, the provisional zap, periodic reconciles), and ends
+    on a ``stream.close`` sentinel, or after ``ICLEAN_STREAM_IDLE_S``
+    seconds (default 30) with no new chunk, so an interrupted producer
+    still gets its archive.  The close makes the output's mask the batch
+    clean's of the same subints.  Returns the exit code."""
+    import time
+
+    from iterative_cleaner_torch.online import (
+        CLOSE_SENTINEL,
+        OnlineSession,
+        is_chunk_name,
+        load_chunk,
+        load_stream_meta,
+    )
+
+    cfg = config_of(args)
+    d = os.path.abspath(args.stream_dir)
+    if not os.path.isdir(d):
+        print("ERROR: --stream directory %s does not exist" % d,
+              file=sys.stderr)
+        return 2
+    idle_s = _stream_idle_s()
+    meta = load_stream_meta(d)   # None until an archive-container chunk
+    session = None
+    seen: set = set()
+    last_new = time.monotonic()
+    closed_by = "idle"
+    while True:
+        try:
+            names = sorted(os.listdir(d))
+        except OSError as exc:
+            print("ERROR: cannot list %s: %s" % (d, exc), file=sys.stderr)
+            return 1
+        progressed = False
+        for name in names:
+            if name in seen or not is_chunk_name(name):
+                continue
+            path = os.path.join(d, name)
+            seen.add(name)   # never spin on a chunk, good or bad
+            try:
+                data, weights, meta = load_chunk(path, meta)
+            except (OSError, ValueError) as exc:
+                print("ERROR reading chunk %s: %s" % (name, exc),
+                      file=sys.stderr)
+                continue
+            if session is None:
+                session = OnlineSession(
+                    meta, cfg, registry=telemetry.registry,
+                    stream_id=os.path.basename(d) or "stream")
+            n = session.ingest(data, weights, label=name)
+            progressed = True
+            if not args.quiet:
+                print("stream: subint %d <- %s (%.1f ms)"
+                      % (n, name, session.latencies_s[-1] * 1e3),
+                      flush=True)
+        if progressed:
+            last_new = time.monotonic()
+            continue   # drain what is present before the close checks
+        if CLOSE_SENTINEL in names:
+            closed_by = "sentinel"
+            break
+        if time.monotonic() - last_new >= idle_s:
+            break
+        time.sleep(0.05)
+    if session is None:
+        print("ERROR: stream %s closed (%s) with no chunks ingested"
+              % (d, closed_by), file=sys.stderr)
+        return 1
+    result = session.close()
+    out = (args.output if args.output not in ("", "std")
+           else os.path.join(d, "stream_cleaned.npz"))
+    save_archive(result.archive, out)
+    if not args.quiet:
+        print("stream: closed (%s) after %d subints — p99 %.1f ms, "
+              "%d warm-up compile%s, %d steady recompiles (kernel-library "
+              "builds), %d reconciles, drift %d mid + %d final"
+              % (closed_by, result.n_subints, result.p99_ms(),
+                 result.warmup_compiles,
+                 "" if result.warmup_compiles == 1 else "s",
+                 result.recompiles_steady, result.reconciles,
+                 result.mask_drift, result.final_drift))
+        print("Cleaned archive: %s" % out)
+    return 0
+
+
+def run_mux(args, telemetry: RunTelemetry) -> int:
+    """The ``--mux DIR...`` session: several live streams on this host.
+    Tails every DIR for chunk files in sorted-name order and feeds them
+    all through one :class:`~iterative_cleaner_torch.online.StreamMux`,
+    whose dispatcher thread runs the pending subints of streams of one
+    bucket as one batched step a tick (a bounded ring, a deadline).  Each
+    stream closes on its own ``stream.close`` sentinel, or after
+    ``ICLEAN_STREAM_IDLE_S`` seconds with no new chunk anywhere, and
+    writes ``DIR/stream_cleaned.npz``, bit-equal to a ``--stream DIR``
+    run of the same chunks.  Returns the exit code."""
+    import time
+
+    from iterative_cleaner_torch.online import (
+        CLOSE_SENTINEL,
+        StreamMux,
+        is_chunk_name,
+        load_chunk,
+        load_stream_meta,
+    )
+
+    cfg = config_of(args)
+    dirs, keys = [], {}
+    for raw in args.mux_dirs:
+        d = os.path.abspath(raw)
+        if not os.path.isdir(d):
+            print("ERROR: --mux directory %s does not exist" % d,
+                  file=sys.stderr)
+            return 2
+        if d in keys.values():
+            continue   # the same directory twice is one stream
+        key = os.path.basename(d) or "stream"
+        if key in keys:
+            # stream ids label the telemetry and the summary: unique even
+            # where two directories share a base name
+            key = "%s-%d" % (key, len(keys))
+        keys[key] = d
+        dirs.append((key, d))
+    idle_s = _stream_idle_s()
+    mux = StreamMux(max_batch=args.mux_max_batch,
+                    max_wait_ms=args.mux_max_wait_ms,
+                    registry=telemetry.registry)
+    mux.start()
+    # each stream's tail state; a stream leaves open_dirs when its close
+    # sentinel appears or the whole tail goes idle
+    state = {key: {"seen": set(), "meta": load_stream_meta(d),
+                   "opened": False} for key, d in dirs}
+    open_dirs = dict(dirs)
+    results, failed = {}, []
+    last_new = time.monotonic()
+    try:
+        while open_dirs:
+            progressed = False
+            for key in list(open_dirs):
+                d, st = open_dirs[key], state[key]
+                try:
+                    names = sorted(os.listdir(d))
+                except OSError as exc:
+                    print("ERROR: cannot list %s: %s" % (d, exc),
+                          file=sys.stderr)
+                    failed.append(key)
+                    del open_dirs[key]
+                    if st["opened"]:
+                        mux.abandon_stream(key)
+                    continue
+                for name in names:
+                    if name in st["seen"] or not is_chunk_name(name):
+                        continue
+                    st["seen"].add(name)   # never spin on a bad chunk
+                    try:
+                        data, weights, st["meta"] = load_chunk(
+                            os.path.join(d, name), st["meta"])
+                    except (OSError, ValueError) as exc:
+                        print("ERROR reading chunk %s/%s: %s"
+                              % (key, name, exc), file=sys.stderr)
+                        continue
+                    if not st["opened"]:
+                        mux.open(key, st["meta"], cfg)
+                        st["opened"] = True
+                    # block: a full ring holds the tail back (the
+                    # dispatcher thread drains it), never drops a chunk
+                    mux.ingest(key, data, weights, label=name, block=True)
+                    progressed = True
+                    if not args.quiet:
+                        n = mux.session(key).n_subints + mux.pending(key)
+                        print("mux: %s subint %d <- %s" % (key, n, name),
+                              flush=True)
+                if CLOSE_SENTINEL in names and not progressed:
+                    del open_dirs[key]
+                    if not st["opened"]:
+                        print("ERROR: stream %s closed (sentinel) with no "
+                              "chunks ingested" % key, file=sys.stderr)
+                        failed.append(key)
+                        continue
+                    results[key] = mux.close_stream(key)
+            if progressed:
+                last_new = time.monotonic()
+                continue   # drain what is present before the idle check
+            if open_dirs and time.monotonic() - last_new >= idle_s:
+                # an interrupted producer still gets its archives
+                for key in list(open_dirs):
+                    del open_dirs[key]
+                    if not state[key]["opened"]:
+                        print("ERROR: stream %s closed (idle) with no "
+                              "chunks ingested" % key, file=sys.stderr)
+                        failed.append(key)
+                        continue
+                    results[key] = mux.close_stream(key)
+                break
+            if open_dirs:
+                time.sleep(0.05)
+    finally:
+        mux.stop()
+    for key, result in results.items():
+        out = os.path.join(keys[key], "stream_cleaned.npz")
+        save_archive(result.archive, out)
+        if not args.quiet:
+            print("mux: %s closed after %d subints — p99 %.1f ms, %d "
+                  "reconciles, drift %d mid + %d final -> %s"
+                  % (key, result.n_subints, result.p99_ms(),
+                     result.reconciles, result.mask_drift,
+                     result.final_drift, out))
+    if not args.quiet and results:
+        print("mux: %d stream%s, %d subints in %d dispatches (occupancy "
+              "%.2f), %d warm-up compile%s, %d steady recompiles "
+              "(kernel-library builds)"
+              % (len(results), "" if len(results) == 1 else "s",
+                 mux.subints, mux.dispatches, mux.occupancy_mean(),
+                 mux.warmup_compiles,
+                 "" if mux.warmup_compiles == 1 else "s",
+                 mux.recompiles_steady))
+    return 1 if failed or not results else 0
+
+
 def run_archives(args, mesh=None) -> int:
     """Clean every archive of ``args`` in one session; 1 if any failed
     under ``--keep_going`` (or a ``--batch`` write failed), else 0
@@ -1056,14 +1368,96 @@ def check_fleet_args(parser, args, chunk: int) -> None:
         raise NotImplementedError(f"--fleet --mesh batch: {ROADMAP_FLEET_3B}")
 
 
+def check_online_args(parser, args, chunk: int) -> None:
+    """The reference parser's refusals of the online mode's flags (exit
+    2): ``--stream DIR`` and ``--mux DIR...`` take no archives, run one
+    mode at a time with the flagship on the torch backend, and their
+    knobs refuse to run without them; bare ``--mux`` belongs to the serve
+    daemon."""
+    if not args.archive and not args.stream_dir and not args.mux_dirs:
+        if args.mux_on:
+            parser.error("bare --mux multiplexes the --serve daemon's live "
+                         "streams; pass --serve with it, or give --mux the "
+                         "chunk directories to drive standalone")
+        parser.error("at least one archive path is required (or pass "
+                     "--serve, --stream DIR for the online mode, or --mux "
+                     "DIR... for multiplexed streams)")
+    if args.stream_dir:
+        if args.archive:
+            parser.error("--stream DIR (online mode) takes no archive "
+                         "arguments: the chunks in DIR are the input")
+        if (args.fleet or args.precompile or args.batch > 1
+                or args.prefetch > 0 or args.mesh != "off"
+                or args.unload_res or args.checkpoint
+                or args.record_history or args.model != SURGICAL_SCRUB):
+            parser.error(
+                "--stream DIR (online mode) is incompatible with "
+                "--fleet/--precompile/--batch/--prefetch/--mesh/"
+                "--unload_res/--checkpoint/--record_history/--model "
+                "(one live stream, cleaned with the flagship strategy)")
+        if args.backend != "torch":
+            parser.error("--stream DIR (online mode) requires --backend "
+                         "torch (the per-subint step runs on the torch "
+                         "engine)")
+    if ((args.stream_reconcile_every is not None
+         or args.stream_ew_alpha is not None)
+            and not (args.stream_dir or args.mux_dirs
+                     or args.model == ONLINE_EWT)):
+        parser.error("--stream-reconcile-every/--stream-ew-alpha configure "
+                     "the online mode; pass --stream DIR, --mux DIR..., "
+                     "--model online_ewt, or --serve (whose stream requests "
+                     "inherit them)")
+    if args.mux_dirs:
+        if args.archive:
+            parser.error("--mux DIR... (multiplexed online mode) takes no "
+                         "archive arguments: the chunks in each DIR are the "
+                         "input")
+        if args.stream_dir:
+            parser.error("--stream DIR drives ONE live stream; --mux DIR... "
+                         "multiplexes many — pass one mode, not both")
+        if (args.fleet or args.precompile or args.batch > 1
+                or args.prefetch > 0 or args.mesh != "off"
+                or args.unload_res or args.checkpoint
+                or args.record_history or chunk > 0
+                or args.output or args.model != SURGICAL_SCRUB):
+            parser.error(
+                "--mux DIR... (multiplexed online mode) is incompatible "
+                "with --fleet/--precompile/--batch/--prefetch/--mesh/"
+                "--unload_res/--checkpoint/--record_history/--stream/"
+                "-o/--model (live streams, cleaned with the flagship "
+                "strategy; each stream writes DIR/stream_cleaned.npz)")
+        if args.backend != "torch":
+            parser.error("--mux (multiplexed online mode) requires "
+                         "--backend torch (the shared batched per-subint "
+                         "step runs on the torch engine)")
+    elif args.mux_on:
+        parser.error("bare --mux multiplexes the --serve daemon's live "
+                     "streams; pass --serve with it, or give --mux the "
+                     "chunk directories to drive standalone")
+    if ((args.mux_max_wait_ms is not None or args.mux_max_batch is not None)
+            and not args.mux_on and not os.environ.get("ICLEAN_MUX")):
+        parser.error("--mux-max-wait-ms/--mux-max-batch tune the stream "
+                     "multiplexer; pass --mux (bare under --serve, or with "
+                     "the chunk directories)")
+    if args.mux_max_wait_ms is not None and args.mux_max_wait_ms < 0:
+        parser.error(f"--mux-max-wait-ms must be >= 0 (0 dispatches "
+                     f"immediately), got {args.mux_max_wait_ms}")
+    if args.mux_max_batch is not None and args.mux_max_batch < 1:
+        parser.error(f"--mux-max-batch must be >= 1, got "
+                     f"{args.mux_max_batch}")
+
+
 def main(argv=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
     if args.io_workers is not None and args.io_workers < 1:
         parser.error(f"--io-workers must be >= 1, got {args.io_workers}")
-    # refuse a directory, and what the mesh does not run, before any clean
+    # what is not ported, then what the reference's parser refuses,
+    # before any clean
+    split_stream_arg(args)
     chunk = stream_chunk(args.stream)
     check_fleet_args(parser, args, chunk)
+    check_online_args(parser, args, chunk)
     if args.batch > 1 and (args.unload_res or chunk > 0 or args.checkpoint
                            or args.mesh == "cell"):
         parser.error("--batch is incompatible with --unload_res, --stream, "
@@ -1081,13 +1475,15 @@ def main(argv=None) -> int:
         parser.error("--stream is incompatible with --checkpoint and "
                      "--model quicklook (checkpoints are keyed to "
                      "whole-archive cleaning)")
-    if args.model == ONLINE_EWT:
-        raise NotImplementedError(ONLINE_EWT_NOT_PORTED)
     from iterative_cleaner_torch.utils import configure_compilation_cache
 
     configure_compilation_cache(args.compile_cache)
     if args.precompile:
         return run_precompile(args)
+    if args.stream_dir or args.mux_dirs:
+        with run_session(args) as telemetry:
+            return (run_stream if args.stream_dir else run_mux)(args,
+                                                                telemetry)
     if args.mesh == "batch" and args.batch <= 1:
         parser.error("--mesh batch splits the --batch groups over the "
                      "ranks; pass --batch B (B > 1)")

@@ -29,7 +29,6 @@ from typing import Optional, Tuple
 # ROADMAP.md "Modules still to port" items the refusals point at.
 ROADMAP_F64_MESH = ("ROADMAP.md 'Modules still to port' item 1b (float64 "
                     "on a mesh and in a batch)")
-ROADMAP_ONLINE = "ROADMAP.md 'Modules still to port' item 5 (online)"
 ROADMAP_FLEET_3B = ("ROADMAP.md 'Modules still to port' item 3b (--coordinator, "
                     "a ('batch',) mesh under the fleet, the hybrid batch-cell "
                     "mesh)")
@@ -120,6 +119,22 @@ class CleanConfig:
     # (stats/kernels.py); None defers to ICLEAN_COMPILE_CACHE, then the
     # package's _build/
     compile_cache_dir: Optional[str] = None
+    # online mode (online/session.py): mid-stream reconciliation period in
+    # subints; None defers to ICLEAN_STREAM_RECONCILE_EVERY, then 8; 0
+    # reconciles only at close (the close reconcile always runs, so
+    # neither online knob can change a closed stream's final mask)
+    stream_reconcile_every: Optional[int] = None
+    # EW running-template weight of the online per-subint step
+    # (online/ewt.py): T_n = (1-alpha) T_{n-1} + alpha p_n; None defers
+    # to ICLEAN_STREAM_EW_ALPHA, then 0.2
+    stream_ew_alpha: Optional[float] = None
+    # a live stream's quality monitor (telemetry/quality.py): the
+    # trailing window (subints) and the zap-fraction departure from its
+    # median that raises quality_drift_alerts{stream=}; None defers to
+    # ICLEAN_QUALITY_WINDOW / ICLEAN_QUALITY_DRIFT, then 16 / 0.15.
+    # Observers of host copies: they never change a mask
+    quality_window: Optional[int] = None
+    quality_drift: Optional[float] = None
 
     @property
     def pulse_region_active(self) -> bool:
@@ -151,6 +166,23 @@ class CleanConfig:
             raise ValueError(
                 f"stream_hbm_mb must be >= 0 (0 disables the stream tile "
                 f"cache), got {self.stream_hbm_mb}")
+        if self.stream_reconcile_every is not None \
+                and self.stream_reconcile_every < 0:
+            raise ValueError(
+                f"stream_reconcile_every must be >= 0 (0 = reconcile only "
+                f"at close), got {self.stream_reconcile_every}")
+        if self.stream_ew_alpha is not None \
+                and not 0 < self.stream_ew_alpha <= 1:
+            raise ValueError(
+                f"stream_ew_alpha must be in (0, 1], got "
+                f"{self.stream_ew_alpha}")
+        if self.quality_window is not None and self.quality_window < 2:
+            raise ValueError(
+                f"quality_window must be >= 2 (a drift baseline needs at "
+                f"least two subints), got {self.quality_window}")
+        if self.quality_drift is not None and self.quality_drift <= 0:
+            raise ValueError(
+                f"quality_drift must be > 0, got {self.quality_drift}")
         if self.compute_dtype is not None \
                 and self.compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(

@@ -60,4 +60,8 @@ def config_from_reference(cfg, device: str = "cuda") -> CleanConfig:
         unload_res=bool(cfg.unload_res),
         device=device,
         stream_hbm_mb=getattr(cfg, "stream_hbm_mb", None),
+        stream_reconcile_every=getattr(cfg, "stream_reconcile_every", None),
+        stream_ew_alpha=getattr(cfg, "stream_ew_alpha", None),
+        quality_window=getattr(cfg, "quality_window", None),
+        quality_drift=getattr(cfg, "quality_drift", None),
     )

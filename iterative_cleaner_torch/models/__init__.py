@@ -3,21 +3,19 @@
 ``SURGICAL_SCRUB`` is the flagship, the reference algorithm
 (:func:`iterative_cleaner_torch.backends.clean_archive`); ``QUICKLOOK``
 (:mod:`iterative_cleaner_torch.models.quicklook`) the single-pass,
-template-free triage cleaner; ``ONLINE_EWT``, the reference's streaming
-exponentially-weighted-template pass, is not ported and raises
-``NotImplementedError`` naming its ROADMAP item.  Each strategy is a
+template-free triage cleaner; ``ONLINE_EWT``
+(:mod:`iterative_cleaner_torch.online.model`) the online mode's
+provisional mask, the archive streamed subint by subint through the
+exponentially weighted template step.  Each strategy is a
 ``callable(archive, config) -> CleanResult``.
 """
 
 from iterative_cleaner_torch.backends import CleanResult, clean_archive  # noqa: F401
-from iterative_cleaner_torch.config import ROADMAP_ONLINE, CleanConfig  # noqa: F401
+from iterative_cleaner_torch.config import CleanConfig  # noqa: F401
 
 SURGICAL_SCRUB = "surgical_scrub"
 QUICKLOOK = "quicklook"
 ONLINE_EWT = "online_ewt"
-ONLINE_EWT_NOT_PORTED = (
-    f"model {ONLINE_EWT!r} (the online mode's exponentially weighted "
-    f"template) is not ported yet: {ROADMAP_ONLINE}")
 
 
 def _quicklook(archive, config):
@@ -29,7 +27,11 @@ def _quicklook(archive, config):
 
 
 def _online_ewt(archive, config):
-    raise NotImplementedError(ONLINE_EWT_NOT_PORTED)
+    from iterative_cleaner_torch.online.model import (
+        clean_archive_online_ewt,
+    )
+
+    return clean_archive_online_ewt(archive, config)
 
 
 # name -> callable(archive, config) -> CleanResult

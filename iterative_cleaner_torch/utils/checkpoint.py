@@ -53,7 +53,10 @@ _IDENTITY_EXCLUDE = frozenset({"unload_res", "record_history",
                                "fleet_bucket_pad", "fleet_group_size",
                                "fleet_retries", "stage_timeout_s",
                                "fleet_hosts", "fleet_host_id",
-                               "fleet_claim_ttl_s", "compile_cache_dir"})
+                               "fleet_claim_ttl_s", "compile_cache_dir",
+                               # a live stream's quality monitor reads
+                               # host copies of its masks only
+                               "quality_window", "quality_drift"})
 # Every other field is in config_identity/config_hash.  ``device`` is
 # there on purpose: the card's kernels and the CPU's plain versions are
 # not promised bit-equal, and implementation knobs stay in the hash for
@@ -62,6 +65,7 @@ _IDENTITY_FIELDS = frozenset({
     "chanthresh", "subintthresh", "max_iter", "pulse_region", "bad_chan",
     "bad_subint", "backend", "rotation", "stats_frame", "baseline_duty",
     "baseline_mode", "dtype", "stream_hbm_mb", "device",
+    "stream_reconcile_every", "stream_ew_alpha",
 })
 
 # a new CleanConfig field fails here until it is classified

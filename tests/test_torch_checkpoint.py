@@ -321,7 +321,8 @@ def test_identity_partition_covers_the_ports_fields():
                   "compile_cache_dir"}
     assert {"unload_res", "record_history", "compute_dtype",
             "fleet_retries", "stage_timeout_s", "fleet_hosts",
-            "fleet_host_id", "fleet_claim_ttl_s"} | scheduling \
+            "fleet_host_id", "fleet_claim_ttl_s", "quality_window",
+            "quality_drift"} | scheduling \
         == set(ckpt._IDENTITY_EXCLUDE)
     # every field the packages share is classified as the reference does,
     # but the fleet's bucket grid, group size and build directory: the

@@ -68,6 +68,15 @@ the CPU's (masks equal, scores within 1e-4, 1e-9 in float64), launching
 K6, K3 twice and the combine once each and nothing else; a CLI session
 resumed from its checkpoint launching no kernel; ``tools sweep --device
 cuda`` mask-equal point for point to in-process cleans.
+The online mode: K6, K3 along each axis and the combine at nsub = 1,
+solo and in 1, 3 and 16 lanes, at 4096 x 128, 300 x 63 and 40 x 1024, in
+float32 and float64, against their plain versions (K3 and the combine
+bit-equal, NaN by position) and each lane bit-equal to its solo launch;
+K6 on a bf16 one-subint tile bit-equal to its float32 launch; a session
+on the card against the same session on the CPU (float32, float64, bf16
+storage, the pulse window): the step's four kernels once a subint, each
+reconcile the batch clean of its prefix; a StreamMux's lanes bit-equal
+to solo sessions at max_batch 2 and 8.
 The fleet: ``--compile-cache DIR``'s library built into DIR once, a
 second process over DIR building nothing; a real ``torch.OutOfMemoryError``
 under a memory fraction classified as OOM; a mixed fleet's results
@@ -1509,3 +1518,175 @@ def test_fleet_batches_are_the_single_cleans_on_card(card, tmp_path):
         np.testing.assert_array_equal(g.final_weights, want.final_weights)
         assert (g.loops, g.converged) == (want.loops, want.converged)
         _assert_bit_equal(g, want)
+
+
+# ---------------------------------------------------------------------------
+# the online mode: K6, K3 x 2 and the combine at nsub = 1, lane-batched
+# ---------------------------------------------------------------------------
+
+ONLINE_GEOMS = [(4096, 128), (300, 63), (40, 1024)]
+
+
+def _online_planes(nb, nchan, nbin, dtype, dev, seed=0):
+    """``nb`` lanes of one-subint K6 inputs (``nb`` None: one solo
+    plane): a dedispersed tile, weights with a dead channel, the mask and
+    a template per lane, in ``dtype``."""
+    lanes = [_inputs(1, nchan, nbin, "fourier", "cpu", seed=seed + s)
+             for s in range(1 if nb is None else nb)]
+    ded, w, mask, template = (torch.stack([lane[i] for lane in lanes])
+                              for i in range(4))
+    if nb is None:
+        ded, w, mask, template = ded[0], w[0], mask[0], template[0]
+    return (ded.to(dev, dtype), w.to(dev, dtype), mask.to(dev),
+            template.to(dev, dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nb", [None, 1, 3, 16])
+@pytest.mark.parametrize("nchan,nbin", ONLINE_GEOMS)
+def test_online_step_kernels_at_nsub_1_on_card(card, nchan, nbin, nb, dtype):
+    """The per-subint step's kernels on one-subint planes, solo and as a
+    lane batch: K6 within its plain version's tolerance; K3 along axis 0
+    (lines of one entry) and axis 1, and the combine, bit-equal to their
+    plain versions (NaN by position); a batch's lanes bit-equal to each
+    lane launched alone; each kernel counted once a call."""
+    from iterative_cleaner_torch.engine.loop import scores_and_zap
+
+    ded, w, mask, template = _online_planes(nb, nchan, nbin, dtype, card)
+    window = pulse_window(nbin, (nbin // 4, nbin // 2), 0.3, True, dtype,
+                          card)
+    bits = _f64_bits_mismatch if dtype == torch.float64 else _bits_mismatch
+    tk.reset_launch_counts()
+    diags = tk.cell_diagnostics_dedisp(ded, template, window, w, mask)
+    new_w, scores = scores_and_zap(diags, mask, w, 5.0, 5.0)
+    sfx = "_f64" if dtype == torch.float64 else ""
+    counts = tk.launch_counts()
+    for name in ("cell_diagnostics_dedisp", "scaled_sides_axis0",
+                 "scaled_sides_axis1", "combine_zap"):
+        assert counts[name + sfx] == 1, name
+    plain = tk.cell_diagnostics_dedisp_plain(ded, template, window, w, mask)
+    if dtype == torch.float64:
+        _f64_planes_close(diags, plain, mask)
+    else:
+        _assert_diags_match(diags, plain, mask)
+    sides = [tk.scaled_sides(diags, mask, axis, 5.0) for axis in (0, 1)]
+    for axis in (0, 1):
+        want = tk.scaled_sides_plain(diags, mask, axis, 5.0)
+        assert sum(bits(g, p) for g, p in zip(sides[axis], want)) == 0
+    pw, ps = tk.combine_zap_plain(sides[0], sides[1], w)
+    assert bits(scores, ps) == 0 and bits(new_w, pw) == 0
+    if nb is not None:
+        for b in range(nb):
+            d1 = tk.cell_diagnostics_dedisp(ded[b], template[b], window,
+                                            w[b], mask[b])
+            assert sum(bits(g[b], s) for g, s in zip(diags, d1)) == 0
+            w1, s1 = scores_and_zap(d1, mask[b], w[b], 5.0, 5.0)
+            assert bits(scores[b], s1) == 0 and bits(new_w[b], w1) == 0
+
+
+@pytest.mark.parametrize("nb", [None, 16])
+def test_online_k6_bf16_tile_on_card(card, nb):
+    """K6 on a bf16-stored one-subint tile (solo and lane-batched):
+    bit-equal to its float32 launch on the upcast tile."""
+    ded, w, mask, template = _online_planes(nb, 4096, 128, torch.float32,
+                                            card, seed=3)
+    ones = torch.ones(128, device=card)
+    d16 = ded.to(torch.bfloat16)
+    tk.reset_launch_counts()
+    got = tk.cell_diagnostics_dedisp(d16, template, ones, w, mask)
+    assert tk.launch_counts()["cell_diagnostics_dedisp_bf16"] == 1
+    want = tk.cell_diagnostics_dedisp(d16.float(), template, ones, w, mask)
+    assert sum(_bits_mismatch(g, p) for g, p in zip(got, want)) == 0
+
+
+def _online_stream(nsub, nchan, nbin, seed):
+    ar, _ = make_synthetic_archive(nsub=nsub, nchan=nchan, nbin=nbin,
+                                   seed=seed, n_prezapped=3)
+    return ar
+
+
+@pytest.mark.parametrize("kw", [{}, dict(dtype="float64"),
+                                dict(compute_dtype="bfloat16"),
+                                dict(pulse_region=(0.3, 20, 50))])
+def test_online_session_on_card_matches_cpu(card, kw):
+    """A session on the card against the same session on the CPU: the
+    provisional masks equal (NaN scores by position), every reconcile's
+    mask the card's batch clean of its prefix, the close the card's
+    clean_archive; the step's four kernels launched once a subint and no
+    kernel-library build after the warm-up."""
+    from iterative_cleaner_torch.online import OnlineSession, StreamMeta
+    from iterative_cleaner_torch.online.step import STEP_KERNELS
+
+    ar = _online_stream(12, 64, 128, seed=31)
+    meta = StreamMeta.from_archive(ar)
+    cube = ar.total_intensity()
+    sessions = {dev: OnlineSession(meta, CleanConfig(device=dev, max_iter=3,
+                                                     **kw),
+                                   reconcile_every=4)
+                for dev in ("cuda", "cpu")}
+    sfx = "_f64" if kw.get("dtype") == "float64" else ""
+    for i in range(12):
+        tk.reset_launch_counts()
+        sessions["cuda"].ingest(cube[i], ar.weights[i])
+        counts = tk.launch_counts()
+        # the first subint also runs the bf16 parity probe's cleans
+        if i and (i + 1) % 4:
+            for name in STEP_KERNELS:
+                if name == "cell_diagnostics_dedisp" \
+                        and kw.get("compute_dtype"):
+                    name += "_bf16"
+                assert counts[name + sfx] == 1, name
+        sessions["cpu"].ingest(cube[i], ar.weights[i])
+        if (i + 1) % 4 == 0:
+            s = sessions["cuda"]
+            prefix = clean_archive(s.assembled(), s.config)
+            np.testing.assert_array_equal(s.provisional_weights,
+                                          prefix.final_weights)
+    got, want = sessions["cuda"], sessions["cpu"]
+    assert np.array_equal(np.isnan(got.provisional_scores),
+                          np.isnan(want.provisional_scores))
+    res = got.close()
+    assert res.recompiles_steady == 0 and res.reconciles == 3
+    np.testing.assert_array_equal(
+        res.archive.weights,
+        clean_archive(got.assembled(), got.config).final_weights)
+
+
+def test_online_mux_lanes_bit_equal_to_solo_sessions_on_card(card):
+    """Five streams through a StreamMux on the card (max_batch 2 and 8):
+    every lane's provisional mask, scores and EW template bit-equal to a
+    solo session's, each dispatch one launch of the step's kernels."""
+    from iterative_cleaner_torch.online import (
+        OnlineSession,
+        StreamMeta,
+        StreamMux,
+    )
+
+    cfg = CleanConfig(max_iter=3, stream_reconcile_every=0)
+    ars = [_online_stream(6, 256, 128, seed=50 + k) for k in range(5)]
+    metas = [StreamMeta.from_archive(ar) for ar in ars]
+    solos = []
+    for meta, ar in zip(metas, ars):
+        s = OnlineSession(meta, cfg)
+        s.ingest(ar.total_intensity(), ar.weights)
+        solos.append(s)
+    for max_batch in (2, 8):
+        mux = StreamMux(max_batch=max_batch, max_wait_ms=0.0)
+        for k, meta in enumerate(metas):
+            mux.open(f"s{k}", meta, cfg)
+        tk.reset_launch_counts()
+        for i in range(6):
+            for k, ar in enumerate(ars):
+                mux.ingest(f"s{k}", ar.total_intensity()[i], ar.weights[i])
+            mux.pump(force=True)
+        counts = tk.launch_counts()
+        assert counts["cell_diagnostics_dedisp"] == mux.dispatches \
+            == 6 * -(-5 // max_batch)
+        assert counts["combine_zap"] == mux.dispatches
+        for k, solo in enumerate(solos):
+            lane = mux.session(f"s{k}")
+            np.testing.assert_array_equal(lane.provisional_weights,
+                                          solo.provisional_weights)
+            assert np.array_equal(lane.provisional_scores,
+                                  solo.provisional_scores, equal_nan=True)
+            np.testing.assert_array_equal(lane.template(), solo.template())

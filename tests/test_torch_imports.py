@@ -8,7 +8,10 @@ the CLI session on a PSRFITS archive with its run report, Prometheus
 file and event log, PSRFITS and ``.icar`` files read through the
 port's host library, ``--checkpoint`` and its resume, ``--model
 quicklook``, ``--trace`` and ``tools diff``, ``sweep`` and
-``borderline``) never loads ``jax`` or the reference package; no
+``borderline``; the fleet; the online mode: ``OnlineSession``, its
+reconciles and close, ``StreamMux`` with its dispatcher thread,
+``--stream DIR``, ``--mux D1 D2`` and ``--model online_ewt``) never loads
+``jax`` or the reference package; no
 source of the port (``parallel/*``, ``telemetry/*``, ``utils/*`` and
 ``io/*`` included) or ``chip_smoke.py`` imports either, and none names
 the reference's ``native/`` directory or its ``libicar.so``."""
@@ -233,6 +236,73 @@ assert main(["--device", "cpu", "-q", "--fleet", "--journal", "c.jsonl",
              "--resume", *paths]) == 0
 assert main(["--device", "cpu", "-q", "--precompile", "--compile-cache",
              "cc", "16x32x32"]) == 0
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "iterative_cleaner_tpu"))
+print("LOADED", bad)
+"""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [REPO] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+@pytest.mark.parametrize("name", [
+    "__init__.py", "chunks.py", "ewt.py", "step.py", "session.py",
+    "reconcile.py", "model.py", "mux.py"])
+def test_online_modules_are_scanned(name):
+    """The online mode's modules are among the scanned sources."""
+    assert os.path.join(PKG, "online", name) in set(_port_sources())
+
+
+def test_online_path_runs_without_jax():
+    """Driving an ``OnlineSession`` (steps, a reconcile, the close), a
+    ``StreamMux`` (by hand and through its dispatcher thread),
+    ``--stream DIR``, ``--mux D1 D2`` and ``--model online_ewt`` on the
+    CPU loads neither ``jax`` nor the reference package."""
+    code = """
+import os, sys, tempfile
+import numpy as np
+import iterative_cleaner_torch.online as online
+import iterative_cleaner_torch.online.model
+from iterative_cleaner_torch import CleanConfig
+from iterative_cleaner_torch.cli import main
+from iterative_cleaner_torch.io import make_synthetic_archive, save_archive
+from iterative_cleaner_torch.telemetry import MetricsRegistry
+os.chdir(tempfile.mkdtemp())
+cfg = CleanConfig(device="cpu", max_iter=2)
+ar, _ = make_synthetic_archive(nsub=6, nchan=8, nbin=16, seed=0)
+meta = online.StreamMeta.from_archive(ar)
+s = online.OnlineSession(meta, cfg, reconcile_every=3,
+                         registry=MetricsRegistry(), stream_id="a")
+s.ingest(ar.total_intensity(), ar.weights)
+assert s.reconciles == 2 and s.close().n_subints == 6
+mux = online.StreamMux(max_batch=2, max_wait_ms=0.0)
+for key in ("a", "b"):
+    mux.open(key, meta, cfg)
+    mux.ingest(key, ar.total_intensity()[:3])
+assert mux.pump(force=True) == 3
+mux.start()
+mux.ingest("a", ar.total_intensity()[3])
+mux.drain()
+mux.stop()
+assert mux.close_stream("a").n_subints == 4
+for d in ("s0", "s1", "s2"):
+    os.makedirs(d)
+    online.save_stream_meta(d, meta)
+    for i in range(3):
+        np.save(os.path.join(d, "%03d.npy" % i), ar.total_intensity()[i])
+    open(os.path.join(d, online.CLOSE_SENTINEL), "w").close()
+assert main(["--device", "cpu", "-q", "--stream", "s0"]) == 0
+assert main(["--device", "cpu", "-q", "--mux", "s1", "s2"]) == 0
+save_archive(ar, "obs.npz")
+assert main(["--device", "cpu", "-q", "--model", "online_ewt",
+             "obs.npz"]) == 0
+assert all(os.path.exists(p) for p in (
+    "s0/stream_cleaned.npz", "s1/stream_cleaned.npz",
+    "s2/stream_cleaned.npz", "obs.npz_cleaned.npz"))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "iterative_cleaner_tpu"))
 print("LOADED", bad)

@@ -17,8 +17,10 @@ reference package's (``iterative_cleaner_tpu/models``).
   bit-equal to the plain diagnostics of ``w * ded``, ``d_mean`` exactly
   negated) and the scores bit-equal, in float32 and float64.
 - The CLI's ``--model`` against the reference CLI's (``tests/test_cli.py``
-  quicklook cases): outputs, refusals, ``online_ewt`` naming ROADMAP item
-  5, no fallback to the CPU.
+  quicklook cases): outputs, refusals, ``online_ewt`` (ported with the
+  online mode; ``tests/test_torch_online.py`` holds it against the JAX
+  model) writing the online session's provisional mask, no fallback to
+  the CPU.
 """
 
 import numpy as np
@@ -247,9 +249,17 @@ def test_quicklook_without_a_card_raises():
 
 
 def test_online_ewt_names_item_5():
+    """Item 5 is ported: ``online_ewt`` is the online session's
+    provisional mask, no longer a refusal naming the item."""
+    from iterative_cleaner_torch.online import OnlineSession, StreamMeta
+
     ar, _ = make_synthetic_archive(nsub=4, nchan=8, nbin=32, seed=1)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        get_model(ONLINE_EWT)(ar, CleanConfig(**CPU))
+    res = get_model(ONLINE_EWT)(ar, CleanConfig(**CPU))
+    s = OnlineSession(StreamMeta.from_archive(ar), CleanConfig(**CPU),
+                      reconcile_every=0)
+    s.ingest(ar.total_intensity(), ar.weights)
+    np.testing.assert_array_equal(res.final_weights, s.provisional_weights)
+    assert (res.loops, res.converged) == (1, True)
 
 
 # ---------------------------------------------------------------------------
@@ -290,11 +300,16 @@ def test_model_incompatible_flags_are_the_reference_parsers(model, more,
 
 
 def test_model_online_ewt_names_item_5(archive_file, tmp_path, monkeypatch):
+    """Item 5 is ported: ``--model online_ewt`` cleans, writing the
+    model's provisional mask."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        cli.main(["-q", "--device", "cpu", "--model", "online_ewt",
-                  archive_file])
-    assert not (tmp_path / "obs.npz_cleaned.npz").exists()
+    assert cli.main(["-q", "--device", "cpu", "--model", "online_ewt",
+                     archive_file]) == 0
+    want = get_model(ONLINE_EWT)(load_archive(archive_file),
+                                 CleanConfig(**CPU))
+    np.testing.assert_array_equal(
+        load_archive(archive_file + "_cleaned.npz").weights,
+        want.final_weights)
 
 
 def test_model_quicklook_numpy_backend_matches_torch(archive_file, tmp_path,

@@ -428,10 +428,16 @@ def test_tools_commands_run(argv, tmp_path, monkeypatch, capsys):
                capsys.readouterr().out.strip().splitlines())
 
 
-def test_cli_model_online_ewt_names_item_5(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 5"):
-        cli.main(["--device", "cpu", "--model", "online_ewt",
-                  str(tmp_path / "x.npz")])
+def test_cli_model_online_ewt_names_item_5(tmp_path, monkeypatch):
+    """Item 5 is ported: ``--model online_ewt`` cleans an ``.icar``
+    archive read through the host library."""
+    monkeypatch.chdir(tmp_path)
+    _, ar = _pair()
+    save_archive(ar, "a.icar")
+    assert cli.main(["--device", "cpu", "-q", "--model", "online_ewt",
+                     "a.icar"]) == 0
+    assert load_archive("a.icar_cleaned.icar").weights.shape \
+        == ar.weights.shape
 
 
 def test_tools_entry_point_runs(tmp_path):

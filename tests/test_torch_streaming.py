@@ -664,10 +664,13 @@ def test_online_unload_res_reassembles_the_residual():
 
 
 def test_cli_stream_directory_refused(tmp_path):
+    """A directory is the online mode (ported), which takes no archive
+    argument: a parser error, as in the reference."""
     path = str(tmp_path / "obs.npz")
     save_archive(archive_from_reference(_small(2)), path)
-    with pytest.raises(NotImplementedError, match="item 5"):
+    with pytest.raises(SystemExit) as ei:
         cli_main(["--device", "cpu", "--stream", str(tmp_path), path])
+    assert ei.value.code == 2
     with pytest.raises(ValueError, match=">= 0"):
         cli_main(["--device", "cpu", "--stream", "-2", path])
     assert not os.path.exists(path + "_cleaned.npz")
