@@ -198,6 +198,30 @@ equal to (o1)'s and (o2)'s closes; (o5) ``--model online_ewt`` on (o1)'s
 archive, its provisional mask and scores equal to (o1)'s before its first
 reconcile.
 
+The serve daemon (``serve/``, ``--serve``), after the ``--trace`` phase in
+the CLI phase's directory, each daemon a spawned ``python -m
+iterative_cleaner_torch --serve`` process on the card with ``--journal``,
+``--trace-out``, ``--result-cache`` and the default flight recorder: (s1)
+``golden.sf`` through ``POST /submit``, 8 PSRFITS files of 64 x 128 x 512
+dropped in the spool as one request and a ``baseline_mode="profile"``
+override, each output bit-equal to the in-process ``clean_archive``, the
+golden under the goldens' flip rule, each request's launches (the
+daemon's ``/debug/vars`` counts before and after it) its fleet batches'
+kernels once per batch iteration; (s2) the golden's first 32 subints as
+one ``kind: "stream"`` request over ``POST /stream/<id>/subint``, its
+close bit-equal to ``clean_archive`` of the prefix, the per-subint
+latency p50/p99; (s3) ``POST /profile?seconds=1`` during the spool
+request: the capture published whole, its manifest naming the card, its
+trace holding each kernel the counters counted (taken again up to
+TRACE_ATTEMPTS times), the ``prof_hbm_util``/``prof_roofline_frac``
+gauges in (0, 1.05]; (s4) the spool request again answered from the
+result cache with no launch, SIGTERM (exit 0), the journal's one done
+line per request and the span export's request, execute, load and write
+spans under each request's trace id, then a request killed with SIGKILL
+mid-fleet and a restart on the same journal: each archive journaled done
+once, the outputs (s1)'s.  The kernels line's K1, K2, K3, K7, K9, K6 and
+combine rows gain a ``serve`` entry with their launches in (s1) and (s2).
+
 It exits non-zero, printing no result, when no CUDA device is present
 or when the port's package is not beside it.  It imports nothing of JAX
 or of the reference package.
@@ -246,14 +270,14 @@ CONTRACT_LIMITS = {   # route: (cells disagreeing, of them one-sided)
     "pulse_unload": (1000, 300),
 }
 
-# H100 SXM published peaks (NVIDIA data sheet, at the 700 W limit): HBM3
-# bandwidth and the float32 rate outside the tensor cores (TF32 is off on
-# this route; the selects' integer compares are counted at this rate too).
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_PER_S = 67e12
-# The float64 rate outside the tensor cores (the same data sheet): the
-# float64 builds' DFT is DFMA chains, their selects 8 radix passes.
-PEAK_F64_PER_S = 34e12
+# The H100 SXM peaks and the kernels' bytes-and-operations model the
+# bounds come from live in the port's profiler (telemetry/profiling.py:
+# PEAK_BYTES_PER_S, PEAK_F32_PER_S, PEAK_F64_PER_S, kernel_bounds,
+# bound_ms), which the serve daemon's roofline gauges read too.
+try:
+    from iterative_cleaner_torch.telemetry import profiling
+except ImportError:     # the package is not beside this script: main fails
+    profiling = None
 
 # Exact streaming against the whole default clean of the same run: the
 # cross-tile template sum may flip a cell the whole run scored this close
@@ -889,10 +913,471 @@ def cli_phase(ar, whole, want_counts, tag):
         times.update(checkpoint_phase(ar, whole, want_counts, tag))
         times.update(borderline_phase(whole, tag))
         times.update(trace_phase(work, want_counts, tag))
+        # the serve daemon on the same golden.sf
+        times.update(serve_phases(work, ar, whole, want_counts, tag))
         return times
     finally:
         os.chdir(cwd)
         shutil.rmtree(work, ignore_errors=True)
+
+
+# ---- the serve phases (serve/, --serve): s1-s4 -------------------------
+# (s1) SERVE_SMALL_N PSRFITS files of BATCH_SHAPE dropped in the spool as
+# one request, beside golden.sf through /submit and a baseline_mode
+# override; (s2) the golden's first SERVE_STREAM_NSUB subints as one
+# stream request; (s3) a SERVE_PROFILE_S capture during (s1)'s spool
+# request; (s4) the spool request again under --result-cache, then a
+# request of SERVE_KILL_N small archives (two shapes) wedged by a load
+# hang, its daemon killed with SIGKILL and restarted on the same journal
+SERVE_SMALL_N = 8
+# the kernels line's rows that get a "serve" entry (K1, K2, K3, K7, K9,
+# K6, the combine)
+SERVE_KERNELS = ("weighted_marginals", "cell_diagnostics_disp",
+                 "scaled_sides_axis0", "scaled_sides_axis1",
+                 "cell_diagnostics_two_read", "masked_median",
+                 "cell_diagnostics_dedisp", "combine_zap")
+SERVE_STREAM_NSUB = 32
+SERVE_PROFILE_S = 1.0
+SERVE_KILL_N = 4
+SERVE_TIMEOUT_S = 300
+# each counter of the default route and the kernel symbol it launches
+SERVE_TRACE_NAMES = {"weighted_marginals": "icln_marginals_kernel",
+                     "cell_diagnostics_disp": "icln_cell_stats_kernel",
+                     "scaled_sides_axis0": "icln_scaled_sides_kernel",
+                     "scaled_sides_axis1": "icln_scaled_sides_kernel",
+                     "combine_zap": "icln_combine_zap_kernel",
+                     "masked_median": "icln_mm_"}
+
+
+class ServeDaemonProc:
+    """One ``python -m iterative_cleaner_torch --serve`` process in ``d``
+    (journal, spool and span export there, the result cache on, the
+    default flight recorder), its HTTP port read from its first lines by
+    :meth:`ready` (the caller works meanwhile: a start takes seconds)."""
+
+    def __init__(self, d, extra=(), **env):
+        e = dict(os.environ, **env)
+        e["PYTHONPATH"] = os.pathsep.join(
+            [HERE] + ([e["PYTHONPATH"]] if e.get("PYTHONPATH") else []))
+        n = len([f for f in os.listdir(d) if f.startswith("daemon.")])
+        self.out_path = os.path.join(d, f"daemon.{n}.out")
+        self.t0 = time.perf_counter()
+        with open(self.out_path, "w") as out:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "iterative_cleaner_torch", "--serve",
+                 "--http-port", "0", "--spool", "spool", "--journal",
+                 "serve.journal.jsonl", "--trace-out", "serve.trace.json",
+                 "--result-cache", *extra],
+                cwd=d, env=e, stdout=out, stderr=subprocess.STDOUT)
+        # a phase that fails leaves no daemon running
+        atexit.register(self.stop)
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=SERVE_TIMEOUT_S)
+
+    def ready(self):
+        """Wait for the port; returns the seconds since the spawn."""
+        needle = "serve: http listening on 127.0.0.1:"
+        deadline = time.time() + SERVE_TIMEOUT_S
+        while time.time() < deadline:
+            for line in open(self.out_path).read().splitlines():
+                if line.startswith(needle):
+                    self.url = "http://127.0.0.1:" + line[len(needle):]
+                    return time.perf_counter() - self.t0
+            if self.proc.poll() is not None:
+                break
+            time.sleep(0.05)
+        self.proc.kill()
+        fail(f"serve: the daemon never listened:\n{self.tail()}")
+
+    def tail(self, n=3000):
+        return open(self.out_path).read()[-n:]
+
+    def get(self, path):
+        import urllib.request
+
+        with urllib.request.urlopen(self.url + path,
+                                    timeout=SERVE_TIMEOUT_S) as r:
+            return r.read()
+
+    def post(self, path, doc):
+        import urllib.request
+
+        req = urllib.request.Request(self.url + path,
+                                     data=json.dumps(doc).encode())
+        with urllib.request.urlopen(req, timeout=SERVE_TIMEOUT_S) as r:
+            return json.loads(r.read())
+
+    def launches(self):
+        return json.loads(self.get("/debug/vars"))["kernel_launches"]
+
+    def wait(self, rid):
+        import urllib.error
+
+        deadline = time.time() + SERVE_TIMEOUT_S
+        while time.time() < deadline:
+            try:
+                state = json.loads(self.get("/requests/" + rid))
+            except urllib.error.HTTPError as exc:
+                if exc.code != 404:      # 404: not admitted yet (spool)
+                    raise
+                state = {"state": None}
+            if state["state"] in ("done", "failed"):
+                return state
+            if self.proc.poll() is not None:
+                break
+            time.sleep(0.02)
+        fail(f"serve: request {rid} never finished:\n{self.tail()}")
+
+    def drain(self):
+        self.proc.send_signal(__import__("signal").SIGTERM)
+        rc = self.proc.wait(timeout=SERVE_TIMEOUT_S)
+        return rc, time.perf_counter() - self.t0
+
+
+def launch_delta(after, before):
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if v - before.get(k, 0)}
+
+
+def serve_request(daemon, rid, doc, spool=None):
+    """One request through ``/submit`` (or dropped in ``spool``), waited
+    for: ``(state, launches it caused, client seconds)``."""
+    before = daemon.launches()
+    t0 = time.perf_counter()
+    if spool is None:
+        daemon.post("/submit", dict(doc, id=rid))
+    else:
+        tmp = os.path.join(spool, f".{rid}.tmp")
+        with open(tmp, "w") as f:
+            json.dump(doc, f)
+        os.replace(tmp, os.path.join(spool, rid + ".json"))
+    state = daemon.wait(rid)
+    seconds = time.perf_counter() - t0
+    if state["state"] != "done":
+        fail(f"serve: request {rid} failed: {state}\n{daemon.tail()}")
+    return state, launch_delta(daemon.launches(), before), seconds
+
+
+def weights_off(path, want) -> int:
+    """Cells of the output beside ``path`` whose weight is not ``want``'s
+    (the in-process clean's final weights, cast as the output stores
+    them), bit for bit."""
+    from iterative_cleaner_torch.io import load_archive
+
+    got = load_archive(path).weights
+    return int(np.sum(got != np.asarray(want).astype(got.dtype)))
+
+
+def serve_capture_ok(cap_dir, kind):
+    """A published profile capture: its trace's kernel families (by the
+    default route's counters) and whether its manifest names ``kind``."""
+    from iterative_cleaner_torch.utils.tracing import trace_event_counts
+
+    with open(os.path.join(cap_dir, "profile_manifest.json")) as f:
+        manifest = json.load(f)
+    kernels = trace_event_counts(os.path.join(cap_dir, "trace.json"),
+                                 "kernel")
+    fams = {c: sum(v for k, v in kernels.items() if sym in k)
+            for c, sym in SERVE_TRACE_NAMES.items()}
+    return fams, manifest["device_kind"] == kind
+
+
+def serve_phases(work, ar, whole, want_counts, tag):
+    """The serve phases in ``work`` (``golden.sf`` there), each daemon a
+    spawned ``--serve`` process on the card (journal, span export, profile
+    directory, result cache; the default flight recorder): (s1) golden.sf
+    through ``/submit``, SERVE_SMALL_N PSRFITS files of BATCH_SHAPE as one
+    spool request and a ``baseline_mode="profile"`` override, each output
+    bit-equal to the in-process ``clean_archive`` on the card, the golden
+    under the goldens' flip rule, each request's kernels those of its
+    fleet batches once per batch iteration; (s2) the golden's first
+    SERVE_STREAM_NSUB subints as one stream request over ``POST
+    /stream/<id>/subint``, its close bit-equal to ``clean_archive`` of the
+    prefix; (s3) ``POST /profile`` during the spool request: the capture
+    published whole, its manifest naming the card, its trace holding each
+    kernel the counters counted (retried under TRACE_ATTEMPTS), the
+    ``prof_*`` gauges in (0, 1.05]; (s4) the spool request again,
+    answered from the result cache with no launch; SIGTERM drains (exit
+    0), the journal holds each request done once and the span export
+    each archive request's request, execute, load and write spans under
+    its trace id; then a request of small archives in two shapes wedged
+    by a load hang, its daemon killed with SIGKILL after the first bucket
+    journaled and restarted on the same journal: each archive journaled
+    done once, the outputs (s1)'s and the in-process cleans'.  Returns
+    the phases' seconds and the kernels' launches in (s1) and (s2)."""
+    import threading
+
+    import torch
+
+    from iterative_cleaner_torch import CleanConfig
+    from iterative_cleaner_torch.backends import clean_archive
+    from iterative_cleaner_torch.engine.loop import ROUTE_KERNELS
+    from iterative_cleaner_torch.io import load_archive, save_archive
+    from iterative_cleaner_torch.online import StreamMeta
+    from iterative_cleaner_torch.online.chunks import assemble_archive
+    from iterative_cleaner_torch.online.session import percentile_ms
+    from iterative_cleaner_torch.resilience import FleetJournal
+    from iterative_cleaner_torch.telemetry import parse_prometheus_text
+    from iterative_cleaner_torch.utils.tracing import trace_event_counts
+
+    t_all = time.perf_counter()
+    kind = torch.cuda.get_device_name(0)
+    d = os.path.join(work, "serve")
+    os.makedirs(os.path.join(d, "spool"))
+    # the daemon starts while the inputs and the in-process references
+    # below are made
+    daemon = ServeDaemonProc(d, ["--profile-dir", "prof"])
+    golden = os.path.join(d, "golden.sf")
+    os.symlink(os.path.join(work, "golden.sf"), golden)
+    small = []
+    for i in range(SERVE_SMALL_N):
+        small.append(os.path.join(d, f"small{i}.sf"))
+        save_archive(batch_small_archive(400 + i), small[-1])
+    prof_path = os.path.join(d, "profile.sf")
+    save_archive(batch_small_archive(400), prof_path)
+    prof_cfg = CleanConfig(baseline_mode="profile")
+    want = {p: clean_archive(load_archive(p), CleanConfig()) for p in small}
+    want[prof_path] = clean_archive(load_archive(prof_path), prof_cfg)
+    small_loops = max(want[p].loops for p in small)
+    # (s2)'s chunks and the prefix's clean
+    meta = StreamMeta.from_archive(ar)
+    cube = np.ascontiguousarray(ar.total_intensity()[:SERVE_STREAM_NSUB])
+    sdir = os.path.join(d, "stream")
+    os.makedirs(sdir)
+    chunks = []
+    for i in range(SERVE_STREAM_NSUB):
+        chunks.append(os.path.join(sdir, "%06d.npy" % i))
+        np.save(chunks[-1], cube[i])
+    prefix = clean_archive(assemble_archive(
+        meta, cube, np.ones((SERVE_STREAM_NSUB, meta.nchan))), CleanConfig())
+    # (s4)'s request: SERVE_KILL_N links to (s1)'s small archives and as
+    # many of another shape (a second bucket)
+    kdir = os.path.join(d, "kill")
+    links = linked(small[:SERVE_KILL_N], kdir)
+    other = []
+    for i in range(SERVE_KILL_N):
+        other.append(os.path.join(kdir, f"other{i}.sf"))
+        save_archive(batch_small_archive(500 + i, (64, 120, 512)),
+                     other[-1])
+    want_other = {p: clean_archive(load_archive(p), CleanConfig())
+                  for p in other}
+    kill_paths = links + other
+
+    serve_launches = {}
+    times = {}
+    start_s = daemon.ready()
+    # (s1) golden.sf through /submit
+    st, golden_k, golden_s = serve_request(daemon, "golden",
+                                           {"paths": [golden]})
+    n_golden = weights_off(golden + "_cleaned.sf", whole.final_weights)
+    golden_check("serve (s1)", dataclasses.replace(
+        whole, final_weights=load_archive(golden + "_cleaned.sf").weights),
+        "", whole.final_weights.shape)
+    want_golden = {k: whole.loops for k in ROUTE_KERNELS["default"]}
+    # (s1) + (s3): the spool request with a capture running over it
+    spool = os.path.join(d, "spool")
+    caps, cap_ok, small_k, small_s = [], False, None, None
+    for attempt in range(TRACE_ATTEMPTS):
+        links = small
+        rid = "small" if attempt == 0 else f"small-retry{attempt}"
+        if attempt:
+            links = linked(small, os.path.join(d, rid))
+        got = {}
+        cap = threading.Thread(target=lambda: got.setdefault(
+            "r", daemon.post(f"/profile?seconds={SERVE_PROFILE_S}", {})))
+        cap.start()
+        time.sleep(0.1)
+        st, k, s = serve_request(daemon, rid, {"paths": links}, spool=spool)
+        cap.join(SERVE_TIMEOUT_S)
+        if attempt == 0:
+            small_k, small_s = k, s
+        cap_dir = got["r"]["profile_dir"]
+        fams, names_card = serve_capture_ok(cap_dir, kind)
+        whole_dir = sorted(os.listdir(cap_dir)) == ["profile_manifest.json",
+                                                    "trace.json"]
+        missing = [c for c, v in k.items()
+                   if c in SERVE_TRACE_NAMES and not fams[c]]
+        caps.append({"attempt": attempt + 1, "kernels": fams,
+                     "missing": missing, "manifest_names_card": names_card,
+                     "whole": whole_dir})
+        if whole_dir and names_card and not missing \
+                and set(k) <= set(SERVE_TRACE_NAMES):
+            cap_ok = True
+            break
+    want_small = {k: small_loops for k in ROUTE_KERNELS["default"]}
+    n_small = sum(weights_off(p + "_cleaned.sf", want[p].final_weights)
+                  for p in small)
+    # (s1) the profile-baseline override
+    st, prof_k, prof_s = serve_request(
+        daemon, "profile", {"paths": [prof_path],
+                            "overrides": {"baseline_mode": "profile"}})
+    n_prof = weights_off(prof_path + "_cleaned.sf",
+                         want[prof_path].final_weights)
+    want_prof = {k: want[prof_path].loops for k in ROUTE_KERNELS["two_read"]}
+    metrics = parse_prometheus_text(daemon.get("/metrics").decode())
+    prof_gauges = {k: v for k, v in metrics.items()
+                   if k.startswith(("icln_prof_hbm_util",
+                                    "icln_prof_roofline_frac"))}
+    gauges_ok = (len(prof_gauges) >= 4
+                 and all(0 < v <= 1.05 for v in prof_gauges.values())
+                 and metrics.get("icln_prof_peak_nominal") == 0.0)
+    print(f"serve (s1): daemon listening {start_s:.1f} s after its spawn (the "
+          f"inputs and the in-process references made meanwhile); golden.sf "
+          f"through /submit {golden_s:.2f} s, kernels "
+          f"{json.dumps(golden_k)} (want {json.dumps(want_golden)}), output "
+          f"weights against the in-process clean: {n_golden} cells differ "
+          f"(tolerance 0); {SERVE_SMALL_N} x {BATCH_SHAPE} from the spool "
+          f"{small_s:.2f} s, kernels {json.dumps(small_k)} (want "
+          f"{json.dumps(want_small)}: one batch), {n_small} cells differ; "
+          f"baseline_mode=profile override {prof_s:.2f} s, kernels "
+          f"{json.dumps(prof_k)} (want {json.dumps(want_prof)}), {n_prof} "
+          f"cells differ {tag}", flush=True)
+    print(f"serve (s3): POST /profile?seconds={SERVE_PROFILE_S} during the "
+          f"spool request: {json.dumps(caps)}; prof gauges "
+          f"{json.dumps(prof_gauges)}, nominal peaks "
+          f"{metrics.get('icln_prof_peak_nominal')} {tag}", flush=True)
+    if len(caps) > 1:
+        print(f"serve (s3): {len(caps) - 1} retries (fault (c): a trace "
+              f"short of what the counters say)", flush=True)
+    if n_golden or n_small or n_prof or golden_k != want_golden \
+            or small_k != want_small or prof_k != want_prof:
+        fail("serve (s1): an output or a request's launches differ")
+    if not cap_ok or not gauges_ok:
+        fail("serve (s3): the capture or the prof gauges are off")
+    # (s2) the golden's first subints as one stream request
+    before = daemon.launches()
+    daemon.post("/submit", {"id": "live", "kind": "stream",
+                            "meta": meta.to_dict()})
+    lat = []
+    for i, c in enumerate(chunks):
+        t0 = time.perf_counter()
+        if not daemon.post("/stream/live/subint",
+                           {"path": c, "seq": i}).get("ingested"):
+            fail(f"serve (s2): subint {i} not ingested")
+        lat.append(time.perf_counter() - t0)
+    dup = daemon.post("/stream/live/subint", {"path": chunks[0], "seq": 0})
+    t0 = time.perf_counter()
+    daemon.post("/stream/live/close", {})
+    live = daemon.wait("live")
+    close_s = time.perf_counter() - t0
+    stream_k = launch_delta(daemon.launches(), before)
+    n_live = weights_off(live["out"], prefix.final_weights)
+    print(f"serve (s2): stream of {SERVE_STREAM_NSUB} subints of "
+          f"{meta.nchan} x {meta.nbin}: per-subint POST latency p50 "
+          f"{percentile_ms(lat, 50):.3f} ms, p99 {percentile_ms(lat, 99):.3f}"
+          f" ms (the daemon's p99 {live.get('subint_p99_ms')} ms), close and "
+          f"write {close_s:.2f} s, {live.get('reconciles')} reconciles, "
+          f"{live.get('recompiles_steady')} steady builds; a repeated seq "
+          f"answered duplicate: {bool(dup.get('duplicate'))}; kernels "
+          f"{json.dumps(stream_k)}; the close against clean_archive of the "
+          f"prefix: {n_live} cells differ (tolerance 0) {tag}", flush=True)
+    if n_live or not dup.get("duplicate") or live.get("recompiles_steady") \
+            or stream_k.get("cell_diagnostics_dedisp", 0) < SERVE_STREAM_NSUB:
+        fail("serve (s2): the stream's close or its launches are off")
+    for part in (golden_k, small_k, prof_k, stream_k):
+        for k, v in part.items():
+            serve_launches[k] = serve_launches.get(k, 0) + v
+    # (s4) the spool request again: the result cache, no launch
+    st, cached_k, cached_s = serve_request(daemon, "small-again",
+                                           {"paths": small})
+    # (s4)'s first daemon on the same journal starts while this one
+    # drains (every request above is journaled done).  io-workers 1: the
+    # first bucket's loads, then the second's, the first of which hangs;
+    # the first bucket cleans and journals
+    t_kill = time.perf_counter()
+    victim = ServeDaemonProc(d, ["--faults",
+                                 f"load:hang@{SERVE_KILL_N + 1}",
+                                 "--io-workers", "1"],
+                             ICLEAN_FAULT_HANG_S="600")
+    rc, session_s = daemon.drain()
+    jpath = os.path.join(d, "serve.journal.jsonl")
+    lines = [json.loads(ln) for ln in open(jpath) if ln.strip()]
+    done_lines = {}
+    for ln in lines:
+        if ln.get("event") == "req" and ln.get("state") == "done":
+            done_lines[ln["req"]] = done_lines.get(ln["req"], 0) + 1
+    states = FleetJournal(jpath).request_states()
+    with open(os.path.join(d, "serve.trace.json")) as f:
+        spans = [e for e in json.load(f)["traceEvents"] if e["ph"] == "X"]
+    span_ok = {}
+    for rid in ("golden", "small", "profile"):
+        names = {e["name"] for e in spans
+                 if e["args"].get("trace_id") == states[rid]["trace_id"]}
+        span_ok[rid] = {"request", "execute", "load", "write"} <= names
+    print(f"serve (s4): the spool request again under --result-cache "
+          f"{cached_s:.3f} s, {st.get('n_cached')} cached, kernels "
+          f"{json.dumps(cached_k)} (want none); SIGTERM: exit {rc}, the "
+          f"daemon's session {session_s:.1f} s; done lines per request "
+          f"{json.dumps(done_lines, sort_keys=True)}; request, execute, load "
+          f"and write spans under each trace id {json.dumps(span_ok)} {tag}",
+          flush=True)
+    if cached_k or st.get("n_cached") != SERVE_SMALL_N or rc != 0 \
+            or any(v != 1 for v in done_lines.values()) \
+            or not all(span_ok.values()):
+        fail("serve (s4): the cache, the drain, the journal or the spans "
+             "are off")
+    # (s4) kill -9 mid-request and a restart on the same journal
+    def done_in_kill():
+        out = []
+        for ln in open(jpath):
+            try:
+                e = json.loads(ln)
+            except ValueError:
+                continue
+            if e.get("event") == "done" and \
+                    os.path.dirname(e.get("path", "")) == kdir:
+                out.append(e["path"])
+        return out
+
+    daemon = victim
+    daemon.ready()
+    daemon.post("/submit", {"id": "kill", "paths": kill_paths})
+    deadline = time.time() + SERVE_TIMEOUT_S
+    while len(done_in_kill()) < SERVE_KILL_N:
+        if time.time() > deadline or daemon.proc.poll() is not None:
+            daemon.proc.kill()
+            fail(f"serve (s4): no bucket journaled before the kill:\n"
+                 f"{daemon.tail()}")
+        time.sleep(0.05)
+    daemon.proc.kill()
+    daemon.proc.wait(timeout=SERVE_TIMEOUT_S)
+    before_restart = len(done_in_kill())
+    daemon = ServeDaemonProc(d)
+    daemon.ready()
+    kstate = daemon.wait("kill")
+    rc2, _ = daemon.drain()
+    kill_s = time.perf_counter() - t_kill
+    done = done_in_kill()
+    n_kill = sum(weights_off(p + "_cleaned.sf",
+                             load_archive(s + "_cleaned.sf").weights)
+                 for p, s in zip(links, small))
+    n_kill += sum(weights_off(p + "_cleaned.sf", want_other[p].final_weights)
+                  for p in other)
+    recovered = "serve: recovered 1 journaled request" in daemon.tail(20000)
+    print(f"serve (s4): kill -9 after {before_restart} of "
+          f"{len(kill_paths)} archives journaled, restart on the same "
+          f"journal: recovered {recovered}, request {kstate['state']} "
+          f"({kstate.get('n_skipped')} resumed, {kstate.get('n_cleaned')} "
+          f"cleaned), done lines {len(done)} for {len(set(done))} archives, "
+          f"outputs against (s1)'s and the in-process cleans: {n_kill} cells "
+          f"differ (tolerance 0); SIGTERM exit {rc2}; {kill_s:.1f} s {tag}",
+          flush=True)
+    if kstate["state"] != "done" or len(done) != len(kill_paths) \
+            or len(set(done)) != len(kill_paths) or n_kill or rc2 != 0 \
+            or not recovered or kstate.get("n_skipped") != before_restart:
+        fail("serve (s4): the restart cleaned an archive twice or differs")
+    times.update(serve_golden_s=golden_s, serve_small_s=small_s,
+                 serve_profile_s=prof_s, serve_session_s=session_s,
+                 serve_stream_p50_ms=percentile_ms(lat, 50),
+                 serve_stream_p99_ms=percentile_ms(lat, 99),
+                 serve_kill_s=kill_s, serve_launches=serve_launches)
+    print(f"serve phases: {time.perf_counter() - t_all:.1f} s in all {tag}",
+          flush=True)
+    shutil.rmtree(d, ignore_errors=True)
+    return times
 
 
 def prefetch_phase(ar, whole, want_counts, tag):
@@ -1579,62 +2064,6 @@ def batch_mesh_phase(ars, counts, tag):
         fail("batch (e): the gloo batch mesh differs from the plain batch")
 
 
-def kernel_bounds(S, C, B, cube_bytes=4):
-    """The least time of each kernel on one S x C x B archive: the larger
-    of the bytes it must move over PEAK_BYTES_PER_S and its least
-    operations over PEAK_F32_PER_S, ``(ms, "bytes" or "operations")``.
-    A batch of N such archives is bound by N times it.  ``cube_bytes``:
-    the bytes of a cube element (2 for the bf16 storage mode; every
-    other operand is float32; 8 for float64, whose every operand is
-    float64, whose operations count at PEAK_F64_PER_S and whose selects
-    take 8 radix passes)."""
-    cells, nk = S * C, B // 2 + 1
-    cb = cube_bytes
-    f64 = cube_bytes == 8
-    rb = 8 if f64 else 4                 # a plane element's bytes
-    peak = PEAK_F64_PER_S if f64 else PEAK_F32_PER_S
-    passes = 8 if f64 else 4
-
-    def bound(nbytes, nops):
-        tb, to = nbytes / PEAK_BYTES_PER_S * 1e3, nops / peak * 1e3
-        return (tb, "bytes") if tb >= to else (to, "operations")
-
-    # The cell diagnostics' least work per cell: the residual, the fit and
-    # the moments (about 12 operations a bin), and max_k |rfft(row)|,
-    # whose least count is an FFT's: 2.5 B log2 B for a real row (half of
-    # a complex FFT's 5 N log2 N) and 4 per k for |X_k|^2 and the max.
-    # The kernels' DFT against tables does about 4 B (B/2 + 1) instead.
-    diag_ops = cells * (2.5 * B * math.log2(B) + 4 * nk + 12 * B)
-    # the weights, the mask and the four output planes
-    diag_io = rb * (cells + 4 * cells) + cells
-    # the select: `passes` counting passes per median (the radix digits;
-    # the upper middle comes from the last pass), 2 medians per diagnostic
-    sel_ops = passes * 2 * 4 * cells
-    sides = bound(cells * (4 * rb + 1 + 4 * rb), sel_ops)
-    return {
-        "weighted_marginals": bound(cb * cells * B
-                                    + rb * (cells + C * B + S * B),
-                                    3 * cells * B),
-        "cell_diagnostics_disp": bound(cb * cells * B + rb * (2 * C * B + B)
-                                       + diag_io, diag_ops),
-        "cell_diagnostics_two_read": bound(cb * 2 * cells * B
-                                           + rb * (C * B + B) + diag_io,
-                                           diag_ops),
-        "cell_diagnostics_dedisp": bound(cb * cells * B + rb * 2 * B
-                                         + diag_io, diag_ops),
-        "scaled_sides_axis0": sides,
-        "scaled_sides_axis1": sides,
-        "combine_zap": bound(cells * (9 * rb + 2 * rb), 16 * cells),
-        # K8: four planes, the mask and the weights in, new weights and
-        # scores out; both orientations' selects and the combine
-        "fused_combine": bound(cells * (4 * rb + 1 + rb + 2 * rb),
-                               2 * sel_ops + 16 * cells),
-        # K9 on the telemetry's line: the values and the mask read once,
-        # one value out; `passes` passes of a few integer ops an entry
-        "masked_median": bound((rb + 1) * cells + rb, passes * 8 * cells),
-    }
-
-
 # The bf16 storage mode's phases (compute_dtype="bfloat16"): the
 # archive of phase 2 made bf16-exact as the reference's tests make it
 # (samples on the bf16 grid, DM 0, the baseline window exactly 0), cleaned
@@ -2110,7 +2539,7 @@ def tail_entries(plane, pmask, launches, route, suffix, tag):
             "replaces": "iterative_cleaner_tpu/stats/pallas_kernels.py:433",
             "launches": launches[name + suffix], "max_abs_err": err,
             "ms": cuda_ms(kfn, 50, torch), "plain_ms": cuda_ms(pfn, 10, torch),
-            "bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bound_ms": profiling.bound_ms(nbytes, 0)[0], "bound_by": "bytes",
             "library_ms": None, "launches_route": route})
         print(f"time {name}{suffix}: {entries[-1]['ms']:.4f} ms, bound "
               f"{entries[-1]['bound_ms']:.4f} ms (bytes), plain "
@@ -2329,7 +2758,7 @@ def float64_phases(ar, configs, results, counts, clean_ms, peak_gib,
           f"bit-equal, NaN included)", flush=True)
     if not (ok and bad == 0 and bad8 == 0 and bad9 == 0):
         fail("a float64 build disagrees with its plain version")
-    kb = kernel_bounds(NSUB, NCHAN, NBIN, cube_bytes=8)
+    kb = profiling.kernel_bounds(NSUB, NCHAN, NBIN, cube_bytes=8)
     pp, pd = ri["p"], ri["pd"]
     entries = [
         ("weighted_marginals", "marginals.cu", ":633", "default", err1,
@@ -3188,7 +3617,7 @@ def online_kernels(meta, streams, solos, dev, tag):
         win = torch.ones((B,), dtype=dtype, device=dev)
         f64 = dtype == torch.float64
         sfx = "_f64" if f64 else ("_bf16" if store is not None else "")
-        kb = kernel_bounds(1, C, B, cube_bytes=8 if f64 else (
+        kb = profiling.kernel_bounds(1, C, B, cube_bytes=8 if f64 else (
             2 if store is not None else 4))
         diags = K.cell_diagnostics_dedisp(ded, t, win, w, mask)
         plain = K.cell_diagnostics_dedisp_plain(ded, t, win, w, mask)
@@ -3917,7 +4346,8 @@ def fleet_phases(work, files, tag):
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
 
-    if not os.path.isdir(os.path.join(HERE, "iterative_cleaner_torch")):
+    if not os.path.isdir(os.path.join(HERE, "iterative_cleaner_torch")) \
+            or profiling is None:
         fail("the iterative_cleaner_torch package is not beside this script")
     if not os.path.isdir(GOLDENS):
         fail("tests/goldens is not beside this script")
@@ -4400,7 +4830,8 @@ def main() -> int:
     # through the native reader (held bit for bit to the pure-Python
     # one); 3h. the same archive as .icar and as PSRFITS in one session
     # with --prefetch 1
-    cli_phase(ar, whole, counts["default"], tag)
+    serve_launches = cli_phase(ar, whole, counts["default"],
+                               tag)["serve_launches"]
 
     # ---- 3f. long profiles: an archive of 8192 bins (the DFT tables
     # streamed in chunks, two cells a group) on the default,
@@ -4633,34 +5064,17 @@ def main() -> int:
 
     # ---- 5. times: kernel, plain version, library yardstick, bound ----
     S, C, B = NSUB, NCHAN, NBIN
-    cells = S * C
-    nk = B // 2 + 1
-
-    def bound(nbytes, nops):
-        tb, to = nbytes / PEAK_BYTES_PER_S * 1e3, nops / PEAK_F32_PER_S * 1e3
-        return (tb, "bytes") if tb >= to else (to, "operations")
-
-    kb = kernel_bounds(S, C, B)
+    kb = profiling.kernel_bounds(S, C, B)
     b1, b2, b7, b6, b3, bc, b9 = (kb[k] for k in (
         "weighted_marginals", "cell_diagnostics_disp",
         "cell_diagnostics_two_read", "cell_diagnostics_dedisp",
         "scaled_sides_axis0", "combine_zap", "masked_median"))
-    # as kernel_bounds counts them
-    diag_ops = cells * (2.5 * B * math.log2(B) + 4 * nk + 12 * B)
-    diag_io = 4 * (cells + 4 * cells) + cells
-    sel_ops = 4 * 2 * 4 * cells
-    # K4 and K5 are one launch on the TPU: the cube and the template rows
-    # in, the weights and mask in, new weights, scores and d_std out
-    sweep_io = 4 * cells + cells + 3 * 4 * cells
-    sweep_ops = diag_ops + 2 * sel_ops + 16 * cells
-    b4 = bound(4 * (cells * B + 2 * C * B + B) + sweep_io, sweep_ops)
-    b5 = bound(4 * (cells * B + 2 * B) + sweep_io, sweep_ops)
+    # K4 and K5 are one launch on the TPU
+    b4, b5 = kb["fused_sweep"], kb["fused_sweep_dedisp"]
     b8 = kb["fused_combine"]
-    # K10 on a 2 x 2 shard: K2's and K6's bounds at a quarter of the cells
-    # and half of the channel rows
-    b2q = bound(4 * (cells // 4 * B + C * B + B) + diag_io // 4,
-                diag_ops / 4)
-    b6q = bound(4 * (cells // 4 * B + 2 * B) + diag_io // 4, diag_ops / 4)
+    # K10 on a 2 x 2 shard: K2's and K6's bounds at half of each axis
+    kbq = profiling.kernel_bounds(S // 2, C // 2, B)
+    b2q, b6q = kbq["cell_diagnostics_disp"], kbq["cell_diagnostics_dedisp"]
     entries = [
         ("weighted_marginals", "marginals.cu", "_marginals_kernel :633",
          "default", err1,
@@ -4721,7 +5135,7 @@ def main() -> int:
     # the bf16 builds: their cube bytes at 2 a sample, their launches in
     # the bf16 phases' runs of their routes, no library call computing the
     # same function (a bf16 einsum rounds its output to bf16)
-    kb16 = kernel_bounds(S, C, B, cube_bytes=2)
+    kb16 = profiling.kernel_bounds(S, C, B, cube_bytes=2)
     kb16["shard_diagnostics_disp"] = kb16["cell_diagnostics_disp"]
     kb16["shard_diagnostics_dedisp"] = kb16["cell_diagnostics_dedisp"]
     bf16_route = {"weighted_marginals": "bf16 default",
@@ -4775,7 +5189,7 @@ def main() -> int:
             kernels[-1]["batch"] = {}
             for label, (bms_b, singles) in batch_times[name].items():
                 nb_b, (bs, bc_, bb_) = batch_shapes[label]
-                bound_b, by_b = kernel_bounds(bs, bc_, bb_)[name]
+                bound_b, by_b = profiling.kernel_bounds(bs, bc_, bb_)[name]
                 kernels[-1]["batch"][label] = {
                     "ms": bms_b, "b_x_single_ms": singles,
                     "bound_ms": nb_b * bound_b, "bound_by": by_b}
@@ -4822,6 +5236,9 @@ def main() -> int:
         # the online step's kernels at its shapes, (o3)
         if k["name"] in online_times:
             k["online"] = online_times[k["name"]]
+        # the serve daemon's launches in (s1) and (s2), on its process
+        if k["name"] in SERVE_KERNELS:
+            k["serve"] = {"launches": serve_launches.get(k["name"], 0)}
     ms_of = {k["name"]: k["ms"] for k in kernels}
     tail = (ms_of["scaled_sides_axis0"] + ms_of["scaled_sides_axis1"]
             + ms_of["combine_zap"])

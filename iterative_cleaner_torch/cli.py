@@ -12,9 +12,14 @@ torch|numpy] [--rotation fourier|roll] [--baseline_mode] [--stats_frame]
 [--batch B] [--mesh off|cell|batch] [--prefetch N] [--io-workers N]
 [--fleet [--bucket-pad NSUB,NCHAN] [--retries N] [--stage-timeout S]
 [--faults SPEC [--fault-seed SEED]] [--journal PATH [--journal-segment-mb MB] [--resume]] [--hosts N --host-id I
-[--claim-ttl S]]] [--precompile] [--compile-cache DIR]
+[--claim-ttl S]] [--trace-out PATH] [--flight-recorder PATH]]
+[--precompile] [--compile-cache DIR] [--profile-dir DIR] [--no-donate]
 [--metrics-json PATH] [--prom-textfile PATH] [--event-log PATH]
 [--log-format text|json] [--timing] [--keep_going] obs.sf ...``
+and ``python -m iterative_cleaner_torch --serve [--spool DIR] [--http-port
+PORT] [--max-inflight N] [--journal PATH] [--join [--member-ttl S]]
+[--result-cache] [--mux] [--trace-out PATH] [--flight-recorder PATH]
+[--profile-dir DIR] [--faults SPEC] ...``
 cleans each archive (``.npz``, ``.icar``, fold-mode PSRFITS: ``.sf``,
 ``.rf``, ``.fits``, ``.psrfits`` and ``.ar`` files with the FITS magic,
 and TIMER-format ``.ar`` through the psrchive bindings), writes
@@ -119,10 +124,28 @@ of a fleet that N processes split through one shared ``--journal``.
 built into and loaded from (a warm restart builds nothing);
 ``--precompile --compile-cache DIR`` plans the buckets of the given
 archives or ``NSUBxNCHANxNBIN`` geometries, warms each and exits.
+``--trace-out PATH`` (or ``ICLEAN_TRACE_OUT``) records the fleet's spans
+(``telemetry/tracing.py``) and renders them as a Chrome/Perfetto file at
+PATH; ``--flight-recorder PATH`` (or ``ICLEAN_FLIGHT_RECORDER``) keeps the
+black box a watchdog trip dumps there (``telemetry/recorder.py``).
+``--profile-dir DIR`` (or ``ICLEAN_PROFILE_DIR``) records a
+``torch.profiler`` capture of the session into a fresh ``DIR/capture-*``
+directory with its manifest (``telemetry/profiling.py``; ``--trace`` wins
+where both are given) and turns on the profiler's program measurements.
+``--serve`` runs the long-lived cleaning daemon (``serve/``): requests
+from a ``--spool`` directory and/or the ``--http-port`` endpoint, each
+archive request cleaned through the fleet and each ``kind: "stream"``
+request through an online session (bare ``--mux``: one shared
+``StreamMux``), journaled in ``--journal`` (default
+``serve.journal.jsonl``), with ``--join`` pools, ``--result-cache`` and
+``POST /profile`` captures into ``--profile-dir``; SIGTERM drains it (exit
+0).  ``--no-donate`` is accepted and changes nothing (the port donates no
+buffer).  The reference's route knobs (``--fused-sweep``, ``--stats_impl``,
+``--median_impl``, ``--fft_mode``) are a parser error: the port has one
+route.
 Not ported yet: ``--coordinator`` and ``--fleet --mesh batch`` (ROADMAP.md
-'Modules still to port' item 3b); ``--serve`` (bare ``--mux`` included),
-``--trace-out``, ``--flight-recorder`` and ``--journal-fsck`` (item 8).
-Each raises ``NotImplementedError`` naming its item.
+'Modules still to port' item 3b); ``--selfcheck`` and ``--journal-fsck``
+(item 8).  Each raises ``NotImplementedError`` naming its item.
 """
 
 from __future__ import annotations
@@ -173,6 +196,20 @@ def _parse_bucket_pad(text: str):
 def _env_int(name: str):
     value = os.environ.get(name, "")
     return int(value) if value else None
+
+
+# The reference's TPU route knobs: the port has one route.
+ROUTE_FLAGS = ("--fused-sweep", "--stats_impl", "--median_impl",
+               "--fft_mode")
+
+
+class _NoRouteKnob(argparse.Action):
+    """A reference route flag: a parser error (exit 2) saying the port
+    has one route and no such knob."""
+
+    def __call__(self, parser, namespace, values, option_string=None):
+        parser.error(f"{option_string}: the port has one route (the card's "
+                     f"hand-written kernels) and no such knob")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -489,17 +526,94 @@ def build_parser() -> argparse.ArgumentParser:
                         "every resulting fleet bucket is warmed (the "
                         "kernel library built). Honours --batch.")
     p.add_argument("--serve", action="store_true",
-                   help="Not ported (ROADMAP item 8): the serve daemon.")
+                   help="Run as a long-lived cleaning service instead of a "
+                        "batch run: keep the process (the kernel library, "
+                        "the bucket warm-ups) warm and take requests from "
+                        "a --spool directory and/or an --http-port JSON "
+                        "endpoint, with admission control, priorities, "
+                        "deadlines and a crash-safe request journal. "
+                        "SIGTERM drains gracefully (exit 0). Takes no "
+                        "archive arguments.")
+    p.add_argument("--spool", type=str, default="", metavar="DIR",
+                   help="--serve intake: watch DIR for request .json files "
+                        "(write-then-rename into place; claimed files are "
+                        "renamed .accepted/.rejected). Mirrors "
+                        "ICLEAN_SPOOL.")
+    p.add_argument("--http-port", "--http_port", type=int, default=None,
+                   dest="http_port", metavar="PORT",
+                   help="--serve intake: HTTP/JSON endpoint on "
+                        "127.0.0.1:PORT (POST /submit, GET /healthz, GET "
+                        "/metrics, GET /requests/<id>, POST /profile ...); "
+                        "0 binds an ephemeral port (printed at startup). "
+                        "Mirrors ICLEAN_HTTP_PORT.")
+    p.add_argument("--max-inflight", "--max_inflight", type=int,
+                   default=None, dest="max_inflight", metavar="N",
+                   help="--serve admission control: max requests one tenant "
+                        "may have admitted but unfinished before new "
+                        "submissions draw 429/REJECTED (default 8; mirrors "
+                        "ICLEAN_MAX_INFLIGHT; the global queue bound is "
+                        "ICLEAN_SERVE_QUEUE, default 64).")
+    p.add_argument("--join", action="store_true",
+                   help="--serve: join the elastic pool sharing this "
+                        "daemon's --journal (journaled membership leases, "
+                        "adoption of any member's accepted requests, a "
+                        "dead member's requests stolen after "
+                        "--member-ttl). Mirrors ICLEAN_JOIN.")
+    p.add_argument("--member-ttl", "--member_ttl", type=float, default=None,
+                   dest="member_ttl", metavar="S",
+                   help="--join membership and request lease in seconds "
+                        "(default 15; mirrors ICLEAN_MEMBER_TTL).")
+    p.add_argument("--result-cache", "--result_cache", action="store_true",
+                   dest="result_cache",
+                   help="--serve: answer a resubmission of the same "
+                        "archives under the same config from the "
+                        "journal's verified output index, with no device "
+                        "work. Mirrors ICLEAN_RESULT_CACHE.")
     p.add_argument("--trace-out", "--trace_out", type=str, default="",
                    dest="trace_out", metavar="PATH",
-                   help="Not ported (ROADMAP item 8): distributed spans.")
+                   help="Export the run's spans (request -> queue -> fleet "
+                        "-> group -> load/execute/write) as a Chrome/"
+                        "Perfetto trace_events JSON at PATH; spans spool "
+                        "to PATH.spans.jsonl, so hosts sharing PATH render "
+                        "one file. With --fleet or --serve. Mirrors "
+                        "ICLEAN_TRACE_OUT.")
     p.add_argument("--flight-recorder", "--flight_recorder", type=str,
                    default=None, dest="flight_recorder", metavar="PATH",
-                   help="Not ported (ROADMAP item 8): the flight recorder.")
+                   help="Crash flight recorder: a bounded ring of recent "
+                        "spans and events per subsystem, dumped with every "
+                        "thread's stack to PATH on watchdog trips, "
+                        "unhandled daemon exceptions, SIGQUIT and a "
+                        "second-signal force exit. --serve defaults to "
+                        "serve.flight.json; '' disables. With --fleet or "
+                        "--serve. Mirrors ICLEAN_FLIGHT_RECORDER.")
+    p.add_argument("--profile-dir", "--profile_dir", type=str, default="",
+                   dest="profile_dir", metavar="DIR",
+                   help="Record a torch.profiler capture of the session "
+                        "(CPU and CUDA activities) into a fresh "
+                        "DIR/capture-* directory with its manifest, and "
+                        "measure the bucket, online and mux programs' "
+                        "device peaks (prof_* gauges). Under --serve, DIR "
+                        "arms POST /profile captures instead. Default: "
+                        "ICLEAN_PROFILE_DIR, else off.")
+    p.add_argument("--selfcheck", action="store_true",
+                   help="Not ported (ROADMAP item 8c): the static "
+                        "analyzer.")
+    p.add_argument("--selfcheck-format", "--format",
+                   choices=("text", "json"), default=None,
+                   dest="selfcheck_format",
+                   help="--selfcheck's output format (not ported, ROADMAP "
+                        "item 8c).")
     p.add_argument("--journal-fsck", action="append", default=[],
                    dest="journal_fsck", metavar="JOURNAL",
-                   help="Not ported (ROADMAP item 8): the journal's "
+                   help="Not ported (ROADMAP item 8c): the journal's "
                         "protocol checker.")
+    p.add_argument("--no-donate", "--no_donate", action="store_true",
+                   dest="no_donate",
+                   help="Accepted for the reference CLI's sake and changes "
+                        "nothing: the port donates no buffer.")
+    for flag in ROUTE_FLAGS:
+        p.add_argument(flag, action=_NoRouteKnob, metavar="MODE",
+                       help=argparse.SUPPRESS)
     p.add_argument("--metrics-json", "--metrics_json", type=str, default="",
                    dest="metrics_json", metavar="PATH",
                    help="Write a JSON run report (counters, phase "
@@ -772,10 +886,25 @@ def run_session(args, lead: bool = True, rank: int = 0):
     telemetry = RunTelemetry.from_args(args) if lead else RunTelemetry()
     if telemetry.events is not None:
         telemetry.events.emit("run_start", n_archives=len(args.archive))
+    # --profile-dir (or ICLEAN_PROFILE_DIR): the session in a published
+    # torch.profiler capture.  --trace holds the one profiler slot, so with
+    # both --trace wins and the directory only turns on the program
+    # measurements; under --serve it arms POST /profile instead
+    from iterative_cleaner_torch.telemetry import profiling
+
+    prof_dir = args.profile_dir or os.environ.get("ICLEAN_PROFILE_DIR", "")
+    capture = contextlib.nullcontext()
+    if prof_dir and lead:
+        profiling.set_enabled(True)
+        if not args.trace and not args.serve:
+            capture = profiling.trace_capture(
+                prof_dir, registry=telemetry.registry, label="run")
     try:
-        with device_trace(args.trace, rank):
+        with capture, device_trace(args.trace, rank):
             yield telemetry
     finally:
+        if prof_dir and lead:
+            profiling.set_enabled(None)
         telemetry.finalize()
         if args.timing and lead:
             print(telemetry.registry.timer.report())
@@ -931,15 +1060,55 @@ def run_fleet(args, telemetry: RunTelemetry) -> list:
     def default_out_path(p):
         return p + "_cleaned" + (os.path.splitext(p)[1] or ".npz")
 
-    report = clean_fleet(
-        list(args.archive), cfg, registry=telemetry.registry,
-        events=telemetry.events, io_workers=args.io_workers,
-        write_fn=write_one, on_error=on_error, resilience=plan,
-        # a journal line records the output's path and signature so a
-        # resume can re-verify it; only the default naming is a function
-        # of the input path alone (-o std needs the archive)
-        out_path_fn=default_out_path if args.output == "" else None,
-        hosts=topo)
+    # opt-in spans and flight recorder (the serve daemon builds its own
+    # from its ServeConfig)
+    trace_out = args.trace_out or os.environ.get("ICLEAN_TRACE_OUT", "")
+    flight = (args.flight_recorder if args.flight_recorder is not None
+              else os.environ.get("ICLEAN_FLIGHT_RECORDER", ""))
+    recorder = tracer = None
+    if flight:
+        from iterative_cleaner_torch.telemetry.recorder import (
+            FlightRecorder,
+            set_active,
+        )
+
+        recorder = FlightRecorder(path=flight)
+        set_active(recorder)
+    if trace_out:
+        from iterative_cleaner_torch.telemetry.tracing import (
+            Tracer,
+            spool_path_for,
+        )
+
+        tracer = Tracer(host="h%d" % topo.host_id,
+                        spool_path=spool_path_for(trace_out),
+                        events=telemetry.events, recorder=recorder)
+    try:
+        report = clean_fleet(
+            list(args.archive), cfg, registry=telemetry.registry,
+            events=telemetry.events, io_workers=args.io_workers,
+            write_fn=write_one, on_error=on_error, resilience=plan,
+            # a journal line records the output's path and signature so a
+            # resume can re-verify it; only the default naming is a
+            # function of the input path alone (-o std needs the archive)
+            out_path_fn=default_out_path if args.output == "" else None,
+            hosts=topo, tracer=tracer)
+    finally:
+        if tracer is not None:
+            try:
+                tracer.flush_perfetto(trace_out)
+            except OSError as exc:
+                print("WARNING: could not write trace file %s: %s"
+                      % (trace_out, exc), file=sys.stderr)
+        if recorder is not None:
+            from iterative_cleaner_torch.telemetry.recorder import (
+                get_active,
+                set_active,
+            )
+
+            # the process-global black box, released if still ours
+            if get_active() is recorder:
+                set_active(None)
     if report.skipped and not args.quiet:
         print("resumed: %d archive%s already complete in %s"
               % (len(report.skipped),
@@ -951,6 +1120,47 @@ def run_fleet(args, telemetry: RunTelemetry) -> list:
                  "" if report.n_buckets_owned == 1 else "s",
                  report.n_stolen))
     return failed
+
+
+def run_serve(args, telemetry: RunTelemetry) -> int:
+    """The ``--serve`` session: the daemon's :class:`~iterative_cleaner_
+    torch.config.ServeConfig` from the flags over their ``ICLEAN_*``
+    mirrors, run until drained.  The session's registry is the daemon's,
+    so ``--metrics-json``/``--prom-textfile`` hold its lifetime counters
+    when the drain completes."""
+    from iterative_cleaner_torch.config import ServeConfig
+    from iterative_cleaner_torch.resilience import FaultInjector
+    from iterative_cleaner_torch.serve import run_serve as serve
+
+    cfg = config_of(args)
+    try:
+        serve_cfg = ServeConfig.from_env(
+            spool_dir=args.spool or None,
+            http_port=args.http_port,
+            max_inflight=args.max_inflight,
+            journal_path=args.journal or None,
+            journal_segment_mb=args.journal_segment_mb,
+            trace_out=args.trace_out or None,
+            # store_true flags: absent defers to the env mirror
+            join=args.join or None,
+            member_ttl_s=args.member_ttl,
+            result_cache=args.result_cache or None,
+            # None: not passed (env or default); '' disables
+            flight_recorder=args.flight_recorder,
+            profile_dir=args.profile_dir or None,
+            # bare --mux multiplexes the daemon's streams; absent defers
+            # to ICLEAN_MUX
+            mux=(True if args.mux_on else None),
+            mux_max_wait_ms=args.mux_max_wait_ms,
+            mux_max_batch=args.mux_max_batch,
+        )
+    except ValueError as exc:
+        build_parser().error(f"--serve: {exc}")
+    faults = (FaultInjector(args.faults, seed=args.fault_seed)
+              if args.faults else FaultInjector.from_env())
+    return serve(serve_cfg, cfg, registry=telemetry.registry, faults=faults,
+                 io_workers=args.io_workers, quiet=args.quiet,
+                 events=telemetry.events)
 
 
 def _parse_geometry_spec(spec: str):
@@ -1276,15 +1486,77 @@ def run_archives(args, mesh=None) -> int:
     return 0
 
 
+def check_serve_args(parser, args, chunk: int) -> None:
+    """The reference parser's refusals of the daemon's flags (exit 2):
+    ``--serve`` takes no archives, none of the batch-run flags, and at
+    least one intake; ``--join`` needs ``--journal``; the intake knobs,
+    ``--trace-out`` and ``--flight-recorder`` need the mode they
+    configure.  The daemon cleans on ``--backend torch`` (the reference
+    says jax)."""
+    if args.selfcheck_format is not None and not args.selfcheck:
+        parser.error("--format/--selfcheck-format only applies to "
+                     "--selfcheck; pass --selfcheck")
+    if args.serve:
+        if args.archive:
+            parser.error("--serve takes no archive arguments: the daemon's "
+                         "requests arrive via --spool/--http-port (drop the "
+                         "paths, or drop --serve for a batch run)")
+        if (args.fleet or args.precompile or args.resume or args.checkpoint
+                or chunk > 0 or args.stream_dir or args.unload_res
+                or args.batch > 1 or args.prefetch > 0 or args.output
+                or args.model != SURGICAL_SCRUB or args.mesh != "off"):
+            parser.error(
+                "--serve is incompatible with the batch-run flags "
+                "--fleet/--precompile/--resume/--checkpoint/--stream/"
+                "--unload_res/--batch/--prefetch/-o/--model quicklook/"
+                "--mesh (requests carry their own per-request overrides; "
+                "live streams arrive as kind: \"stream\" requests; the "
+                "daemon cleans on one card)")
+        if args.backend != "torch":
+            parser.error("--serve requires --backend torch (the daemon "
+                         "cleans on the card; a request may not move to "
+                         "the host)")
+        if not (args.spool or args.http_port is not None
+                or os.environ.get("ICLEAN_SPOOL")
+                or os.environ.get("ICLEAN_HTTP_PORT")):
+            parser.error("--serve needs at least one intake: --spool DIR "
+                         "and/or --http-port PORT (or their ICLEAN_SPOOL/"
+                         "ICLEAN_HTTP_PORT mirrors)")
+        if args.join and not args.journal:
+            parser.error("--join needs an explicit --journal PATH on "
+                         "storage every pool member shares: the journal IS "
+                         "the pool (an implicit per-cwd default would give "
+                         "each member a private pool of one)")
+        if args.member_ttl is not None and not args.join \
+                and not os.environ.get("ICLEAN_JOIN"):
+            parser.error("--member-ttl tunes the --join membership lease; "
+                         "pass --join")
+        if args.mux_dirs:
+            parser.error("--serve runs --mux bare (daemon streams arrive as "
+                         "kind: \"stream\" requests); the DIR form is the "
+                         "standalone multiplexed mode — drop --serve or the "
+                         "directories")
+    elif (args.spool or args.http_port is not None
+          or args.max_inflight is not None or args.join
+          or args.member_ttl is not None or args.result_cache):
+        parser.error("--spool/--http-port/--max-inflight/--join/"
+                     "--member-ttl/--result-cache configure the --serve "
+                     "daemon; pass --serve")
+    if args.trace_out and not (args.fleet or args.serve):
+        parser.error("--trace-out records the --fleet/--serve pipeline "
+                     "spans; pass --fleet or --serve")
+    if args.flight_recorder is not None and not (args.fleet or args.serve):
+        parser.error("--flight-recorder instruments the --fleet/--serve "
+                     "pipelines; pass --fleet or --serve")
+
+
 def check_fleet_args(parser, args, chunk: int) -> None:
     """The reference parser's refusals of the fleet's flags (exit 2), and
     the flags whose modules are not ported (``NotImplementedError``
     naming the item)."""
-    if args.serve or args.trace_out or args.flight_recorder is not None \
-            or args.journal_fsck:
+    if args.selfcheck or args.journal_fsck:
         raise NotImplementedError(
-            f"--serve/--trace-out/--flight-recorder/--journal-fsck: "
-            f"{ROADMAP_CONTROL_PLANE}")
+            f"--selfcheck/--journal-fsck: {ROADMAP_CONTROL_PLANE}")
     if args.coordinator or os.environ.get("ICLEAN_COORDINATOR"):
         raise NotImplementedError(f"--coordinator: {ROADMAP_FLEET_3B}")
     if args.resume and not args.journal:
@@ -1309,9 +1581,10 @@ def check_fleet_args(parser, args, chunk: int) -> None:
                      "pass --fleet")
     if ((args.retries is not None or args.stage_timeout is not None
          or args.faults or args.journal or args.resume)
-            and not args.fleet):
+            and not (args.fleet or args.serve)):
         parser.error("--retries/--stage-timeout/--faults/--journal/--resume "
-                     "configure the --fleet resilience ladder; pass --fleet")
+                     "configure the --fleet/--serve resilience ladder; pass "
+                     "--fleet or --serve")
     if ((args.hosts is not None or args.host_id is not None
          or args.claim_ttl is not None) and not args.fleet):
         parser.error("--hosts/--host-id/--claim-ttl configure the --fleet "
@@ -1374,7 +1647,8 @@ def check_online_args(parser, args, chunk: int) -> None:
     mode at a time with the flagship on the torch backend, and their
     knobs refuse to run without them; bare ``--mux`` belongs to the serve
     daemon."""
-    if not args.archive and not args.stream_dir and not args.mux_dirs:
+    if not args.archive and not args.stream_dir and not args.mux_dirs \
+            and not args.serve:
         if args.mux_on:
             parser.error("bare --mux multiplexes the --serve daemon's live "
                          "streams; pass --serve with it, or give --mux the "
@@ -1401,7 +1675,7 @@ def check_online_args(parser, args, chunk: int) -> None:
                          "engine)")
     if ((args.stream_reconcile_every is not None
          or args.stream_ew_alpha is not None)
-            and not (args.stream_dir or args.mux_dirs
+            and not (args.stream_dir or args.mux_dirs or args.serve
                      or args.model == ONLINE_EWT)):
         parser.error("--stream-reconcile-every/--stream-ew-alpha configure "
                      "the online mode; pass --stream DIR, --mux DIR..., "
@@ -1430,7 +1704,7 @@ def check_online_args(parser, args, chunk: int) -> None:
             parser.error("--mux (multiplexed online mode) requires "
                          "--backend torch (the shared batched per-subint "
                          "step runs on the torch engine)")
-    elif args.mux_on:
+    elif args.mux_on and not args.serve:
         parser.error("bare --mux multiplexes the --serve daemon's live "
                      "streams; pass --serve with it, or give --mux the "
                      "chunk directories to drive standalone")
@@ -1457,6 +1731,7 @@ def main(argv=None) -> int:
     split_stream_arg(args)
     chunk = stream_chunk(args.stream)
     check_fleet_args(parser, args, chunk)
+    check_serve_args(parser, args, chunk)
     check_online_args(parser, args, chunk)
     if args.batch > 1 and (args.unload_res or chunk > 0 or args.checkpoint
                            or args.mesh == "cell"):
@@ -1480,6 +1755,9 @@ def main(argv=None) -> int:
     configure_compilation_cache(args.compile_cache)
     if args.precompile:
         return run_precompile(args)
+    if args.serve:
+        with run_session(args) as telemetry:
+            return run_serve(args, telemetry)
     if args.stream_dir or args.mux_dirs:
         with run_session(args) as telemetry:
             return (run_stream if args.stream_dir else run_mux)(args,

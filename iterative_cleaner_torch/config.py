@@ -24,6 +24,7 @@ item that will bring it, never silently approximated.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional, Tuple
 
 # ROADMAP.md "Modules still to port" items the refusals point at.
@@ -33,7 +34,8 @@ ROADMAP_FLEET_3B = ("ROADMAP.md 'Modules still to port' item 3b (--coordinator, 
                     "a ('batch',) mesh under the fleet, the hybrid batch-cell "
                     "mesh)")
 ROADMAP_CONTROL_PLANE = ("ROADMAP.md 'Modules still to port' item 8 (the "
-                         "control plane)")
+                         "control plane's checks, item 8c: --selfcheck and "
+                         "--journal-fsck)")
 
 BACKENDS = ("torch", "numpy")
 
@@ -264,3 +266,169 @@ def check_float64_mesh(config: CleanConfig, what: str) -> None:
     if config.dtype == "float64":
         raise NotImplementedError(
             f"dtype='float64' with {what}: {ROADMAP_F64_MESH}")
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    """The service daemon's knobs (``--serve``; ``serve/`` package).  The
+    device its requests clean on is its base :class:`CleanConfig`'s
+    (``device="cuda"`` by default: a daemon with no card raises at
+    start, it never cleans on the host by itself).
+
+    Deliberately a SEPARATE record from :class:`CleanConfig`: none of
+    these change any archive's mask, so they must stay out of the
+    checkpoint/journal config identity — a request served under a
+    different queue bound still matches its journal entries.  The CLI
+    builds one from the ``--spool``/``--http-port``/``--max-inflight``
+    (and elastic ``--join``/``--member-ttl``/``--result-cache``) flags;
+    the env mirrors (``ICLEAN_SPOOL``, ``ICLEAN_HTTP_PORT``,
+    ``ICLEAN_MAX_INFLIGHT``, ``ICLEAN_SERVE_QUEUE``, ``ICLEAN_JOIN``,
+    ``ICLEAN_MEMBER_TTL``, ``ICLEAN_RESULT_CACHE``) cover container
+    deployments where flags are awkward (explicit flags win).
+    """
+
+    # watched spool directory: drop `<request>.json` files here to submit
+    # (claimed files are renamed, so a submission is ingested exactly once);
+    # None disables the spool intake
+    spool_dir: Optional[str] = None
+    # HTTP/JSON intake + live /healthz + /metrics on 127.0.0.1:<port>;
+    # 0 binds an ephemeral port (printed at startup), None disables HTTP
+    http_port: Optional[int] = None
+    # admission control: max requests one tenant may have admitted but not
+    # yet finished (queued + running); the 429/REJECTED backpressure bound
+    max_inflight: int = 8
+    # global bound on the scheduler's queue across all tenants
+    queue_limit: int = 64
+    # spool scan / idle loop period (seconds)
+    poll_s: float = 0.2
+    # request lifecycle + per-archive completion journal (crash-safe
+    # restart state); relative paths resolve against the daemon's cwd
+    journal_path: str = "serve.journal.jsonl"
+    # growth bounds for a long-lived process: compact the journal when it
+    # exceeds journal_max_mb, trim clean.log beyond log_max_mb
+    journal_max_mb: float = 16.0
+    log_max_mb: float = 16.0
+    # segmented journal (``--journal DIR``): seal a shard's active
+    # segment once it reaches this size (``--journal-segment-mb`` /
+    # ``ICLEAN_JOURNAL_SEGMENT_MB``); None = backend default (4 MB).
+    # Ignored by the single-file backend.
+    journal_segment_mb: Optional[float] = None
+    # Perfetto/Chrome trace_events export path: every finished span also
+    # spools to `<trace_out>.spans.jsonl` and the daemon renders the full
+    # trace file at shutdown; None disables the export (spans still live
+    # in the bounded in-memory store behind GET /trace/<id>)
+    trace_out: Optional[str] = None
+    # crash flight-recorder dump path (written on watchdog trips,
+    # unhandled daemon exceptions, SIGQUIT and second-signal force-exit);
+    # ON by default for a long-lived daemon — "" disables
+    flight_recorder: str = "serve.flight.json"
+    # elastic pool membership (``--join`` / ``ICLEAN_JOIN``): announce
+    # this daemon in the shared journal, adopt journaled requests from
+    # other members, evict members whose heartbeat lapses and steal
+    # their claimed requests.  Requires every member to share one
+    # journal_path (and usually one spool) on common storage.
+    join: bool = False
+    # membership + request-claim lease duration: a SIGKILLed member's
+    # requests become stealable this many seconds after its last
+    # heartbeat (``--member-ttl`` / ``ICLEAN_MEMBER_TTL``)
+    member_ttl_s: float = 15.0
+    # content-addressed result cache (``--result-cache`` /
+    # ``ICLEAN_RESULT_CACHE``): serve repeat archive+config submissions
+    # from journaled 'cache' lines with zero device work (entries are
+    # signature-verified before reuse; failures fall through to a clean)
+    result_cache: bool = False
+    # torch.profiler capture directory for POST /profile, which also turns
+    # on the profiler's first-call peak measurements of the bucket, online
+    # and mux programs (``--profile-dir`` / ``ICLEAN_PROFILE_DIR``); None
+    # disables on-demand trace capture
+    profile_dir: Optional[str] = None
+    # stream multiplexing (``--mux`` / ``ICLEAN_MUX``): route every
+    # kind:"stream" request through one shared StreamMux so concurrent
+    # streams' subints batch into one device dispatch per tick
+    # (online/mux.py); per-stream masks stay bit-equal with the
+    # per-request sessions this replaces, so — like every knob here —
+    # it must stay out of the config identity
+    mux: bool = False
+    # mux latency SLO: a pending subint never waits longer than this
+    # before its bucket dispatches a partial batch (``--mux-max-wait-ms``
+    # / ``ICLEAN_MUX_MAX_WAIT_MS``; None = online/mux.py default)
+    mux_max_wait_ms: Optional[float] = None
+    # largest batched dispatch (``--mux-max-batch`` /
+    # ``ICLEAN_MUX_MAX_BATCH``; None = online/mux.py default)
+    mux_max_batch: Optional[int] = None
+
+    @classmethod
+    def from_env(cls, **overrides) -> "ServeConfig":
+        """Resolve the env mirrors, explicit ``overrides`` winning."""
+        def env(name, cast, default):
+            raw = os.environ.get(name, "")
+            return cast(raw) if raw else default
+
+        def flag(raw):
+            return str(raw).strip().lower() in ("1", "true", "yes", "on")
+
+        fields = {
+            "spool_dir": env("ICLEAN_SPOOL", str, None),
+            "http_port": env("ICLEAN_HTTP_PORT", int, None),
+            "max_inflight": env("ICLEAN_MAX_INFLIGHT", int, 8),
+            "queue_limit": env("ICLEAN_SERVE_QUEUE", int, 64),
+            "trace_out": env("ICLEAN_TRACE_OUT", str, None),
+            "join": env("ICLEAN_JOIN", flag, False),
+            "journal_segment_mb": env("ICLEAN_JOURNAL_SEGMENT_MB",
+                                      float, None),
+            "member_ttl_s": env("ICLEAN_MEMBER_TTL", float, 15.0),
+            "result_cache": env("ICLEAN_RESULT_CACHE", flag, False),
+            "profile_dir": env("ICLEAN_PROFILE_DIR", str, None),
+            "mux": env("ICLEAN_MUX", flag, False),
+            "mux_max_wait_ms": env("ICLEAN_MUX_MAX_WAIT_MS", float, None),
+            "mux_max_batch": env("ICLEAN_MUX_MAX_BATCH", int, None),
+        }
+        # "" is a meaningful override here (recorder OFF), so resolve it
+        # outside the none-filtered update below
+        fields["flight_recorder"] = os.environ.get(
+            "ICLEAN_FLIGHT_RECORDER", "serve.flight.json")
+        if "flight_recorder" in overrides \
+                and overrides["flight_recorder"] is not None:
+            fields["flight_recorder"] = overrides["flight_recorder"]
+        overrides = {k: v for k, v in overrides.items()
+                     if k != "flight_recorder"}
+        fields.update({k: v for k, v in overrides.items() if v is not None})
+        return cls(**fields)
+
+    def __post_init__(self) -> None:
+        if self.spool_dir is None and self.http_port is None:
+            raise ValueError(
+                "serve needs at least one intake: a spool directory "
+                "and/or an HTTP port")
+        if self.http_port is not None and not 0 <= self.http_port <= 65535:
+            raise ValueError(
+                f"http_port must be in [0, 65535] (0 = ephemeral), got "
+                f"{self.http_port}")
+        if self.max_inflight < 1:
+            raise ValueError(
+                f"max_inflight must be >= 1, got {self.max_inflight}")
+        if self.queue_limit < 1:
+            raise ValueError(
+                f"queue_limit must be >= 1, got {self.queue_limit}")
+        if self.poll_s <= 0:
+            raise ValueError(f"poll_s must be > 0, got {self.poll_s}")
+        if not self.journal_path:
+            raise ValueError("serve requires a journal path (the "
+                             "crash-safe queue state lives there)")
+        if self.journal_max_mb <= 0 or self.log_max_mb <= 0:
+            raise ValueError("journal_max_mb/log_max_mb must be > 0")
+        if self.journal_segment_mb is not None \
+                and self.journal_segment_mb <= 0:
+            raise ValueError(
+                f"journal_segment_mb must be > 0 (the segmented "
+                f"backend's seal threshold), got {self.journal_segment_mb}")
+        if self.member_ttl_s <= 0:
+            raise ValueError(
+                f"member_ttl_s must be > 0 (the membership lease "
+                f"duration), got {self.member_ttl_s}")
+        if self.mux_max_wait_ms is not None and self.mux_max_wait_ms < 0:
+            raise ValueError(
+                f"mux_max_wait_ms must be >= 0, got {self.mux_max_wait_ms}")
+        if self.mux_max_batch is not None and self.mux_max_batch < 1:
+            raise ValueError(
+                f"mux_max_batch must be >= 1, got {self.mux_max_batch}")

@@ -44,6 +44,12 @@ closing stream's drain.
 Builds: the port's only builds are the kernel library's (``stats.
 kernels.library_builds``); one during a bucket's first dispatch is
 warm-up, a later one a steady recompile (which must stay 0).
+
+Profiling: a bucket's dispatch of B lanes is the profiler's
+``mux_step/<nchan>x<nbin>x<B>`` program (``telemetry/profiling.py``: the
+step's kernels' modelled cost on B lanes), captured at its first
+dispatch (with its device peak when profiling is on); each later
+dispatch's seconds are its walltime.
 """
 
 from __future__ import annotations
@@ -182,16 +188,20 @@ class StreamMux:
         self.batch_occupancies: List[float] = []
 
     # ------------------------------------------------------------ streams
-    def open(self, key: str, meta: StreamMeta,
-             config: CleanConfig) -> OnlineSession:
+    def open(self, key: str, meta: StreamMeta, config: CleanConfig, *,
+             trace_id: Optional[str] = None,
+             parent_span_id: Optional[str] = None,
+             profile: Optional[bool] = None) -> OnlineSession:
         """Register a stream.  Its session is built as the solo path
         builds it (the same knobs, its own quality monitor labelled
-        ``key``), but it never steps alone: the mux's batched step does
-        every dispatch."""
+        ``key``, its spans under ``trace_id``/``parent_span_id``), but it
+        never steps alone: the mux's batched step does every dispatch."""
         from iterative_cleaner_torch.online.step import step_build_key
 
         session = OnlineSession(meta, config, registry=self.registry,
-                                tracer=self.tracer, stream_id=key)
+                                tracer=self.tracer, trace_id=trace_id,
+                                parent_span_id=parent_span_id,
+                                stream_id=key, profile=profile)
         alpha = session.alpha
         bucket = step_build_key(config, meta.nchan, meta.nbin,
                                 meta.dedispersed, alpha)
@@ -339,7 +349,9 @@ class StreamMux:
         ``_dispatch_lock`` held and ``_lock`` NOT held: a commit may
         reconcile (a whole batch clean) and must not stall ingest."""
         from iterative_cleaner_torch.backends.torch_backend import upload
+        from iterative_cleaner_torch.online.session import step_costs
         from iterative_cleaner_torch.online.step import build_subint_step
+        from iterative_cleaner_torch.telemetry import profiling
 
         b = len(lanes)
         before = library_builds()
@@ -360,17 +372,28 @@ class StreamMux:
         ws = np.stack([pend.w_row for _, pend in lanes])[:, None]
         meta = [torch.stack([s._meta_args[i] for s in sessions])
                 for i in range(4)]
+        program = "mux_step/%dx%dx%d" % (binfo.nchan, binfo.nbin, b)
+        warm = profiling.has_cost(program)
+        if not warm:
+            profiling.capture_compiled(
+                program, step_costs(binfo.config, binfo.nchan, binfo.nbin,
+                                    lanes=b),
+                registry=self.registry, dtype=binfo.config.dtype)
         t0 = time.perf_counter()
         # the previous dispatch ended in a synchronising download, so its
         # copy out of the staging buffer is done (on the CPU the step
         # consumes the buffer itself, which the next dispatch rewrites)
-        new_w, scores, new_t, updated = binfo.step(
-            stage.to(device, non_blocking=True), upload(ws, device, dtype),
-            *meta,
-            torch.stack([s._template for s in sessions]),
-            torch.stack([s._count for s in sessions]))
-        host_w, host_s, host_t = download_rows(new_w, scores, new_t)
+        with profiling.first_call_peak(program, device,
+                                       registry=self.registry):
+            new_w, scores, new_t, updated = binfo.step(
+                stage.to(device, non_blocking=True),
+                upload(ws, device, dtype), *meta,
+                torch.stack([s._template for s in sessions]),
+                torch.stack([s._count for s in sessions]))
+            host_w, host_s, host_t = download_rows(new_w, scores, new_t)
         dt = time.perf_counter() - t0
+        if warm:
+            profiling.record_walltime(program, dt, registry=self.registry)
         built = library_builds() - before
         for i, (st, pend) in enumerate(lanes):
             st.session.commit_subint(pend, host_w[i], host_s[i], new_t[i],

@@ -37,14 +37,19 @@ provisional zap is driven by how a cell stands against the rest of its
 own subint; the reconciles replace those decisions with the batch
 cleaner's.
 
-``tracer`` is an optional object with the reference's ``start(name,
-**fields)`` returning a span with ``set`` and ``end``; the port's own
-tracer comes with the control plane (ROADMAP.md item 8), as does the
-reference's ``profile=`` capture of the step's cost.
+``tracer`` (a :class:`~iterative_cleaner_torch.telemetry.tracing.Tracer`)
+records a ``subint`` span per subint, a ``reconcile`` span per reconcile
+and a ``close_reconcile`` span, parented by ``trace_id`` /
+``parent_span_id`` (the serve daemon's request).  ``profile`` (default:
+:func:`~iterative_cleaner_torch.telemetry.profiling.profiling_enabled`)
+captures the step as the profiler's ``online_step/<nchan>x<nbin>``
+program: its kernels' modelled cost, its first call's device peak and
+each later subint's latency as its walltime.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 import os
@@ -129,6 +134,21 @@ class OnlineResult:
         return percentile_ms(self.latencies_s, 99.0)
 
 
+_NO_PEAK = contextlib.nullcontext()
+
+
+def step_costs(config: CleanConfig, nchan: int, nbin: int, lanes: int = 1):
+    """The profiler's ``(operations, bytes)`` of one step on ``lanes``
+    subints of ``nchan`` x ``nbin``: its kernels' (K6, K3 x 2, the
+    combine) modelled cost at nsub = 1; the preamble is not counted."""
+    from iterative_cleaner_torch.online.step import STEP_KERNELS
+    from iterative_cleaner_torch.parallel.batch import _cube_bytes
+    from iterative_cleaner_torch.telemetry.profiling import program_costs
+
+    return program_costs(STEP_KERNELS, 1, nchan, nbin,
+                         cube_bytes=_cube_bytes(config), batch=lanes)
+
+
 def download_rows(new_w, scores, template=None):
     """Host float64 copies of a step's ``new_w`` and ``scores`` (and of
     ``template`` where given) in one device-to-host transfer: the step's
@@ -151,7 +171,8 @@ class OnlineSession:
                  reconcile_every: Optional[int] = None, registry=None,
                  tracer=None, trace_id: Optional[str] = None,
                  parent_span_id: Optional[str] = None,
-                 stream_id: Optional[str] = None):
+                 stream_id: Optional[str] = None,
+                 profile: Optional[bool] = None):
         self.meta = meta
         self.config = config
         self.alpha = resolve_ew_alpha(config.stream_ew_alpha)
@@ -176,6 +197,12 @@ class OnlineSession:
             self.quality = QualityMonitor(
                 stream=stream_id or "local", window=config.quality_window,
                 drift=config.quality_drift, registry=registry)
+        from iterative_cleaner_torch.telemetry.profiling import (
+            profiling_enabled,
+        )
+
+        self._profile = profiling_enabled(profile)
+        self._program = None     # the profiler's name of the solo step
         self.closed = False
         # the host ring: raw tiles and their weights as ingested (what the
         # reconciles clean) and the provisional view
@@ -314,15 +341,27 @@ class OnlineSession:
         from iterative_cleaner_torch.online.step import build_subint_step
 
         pend = self.begin_subint(tile, w_row, label=label)
+        from iterative_cleaner_torch.telemetry import profiling
+
         before = library_builds()
         if self._step is None:
             meta = self.meta
             self._step = build_subint_step(
                 self.config, meta.nchan, meta.nbin, meta.dedispersed,
                 self.alpha, self.registry)[0]
-        outs = self._step(upload(pend.tile[None], self.device, self.dtype),
-                          upload(pend.w_row[None], self.device, self.dtype),
-                          *self._meta_args, self._template, self._count)
+            if self._profile:
+                self._program = "online_step/%dx%d" % (meta.nchan, meta.nbin)
+                profiling.capture_compiled(
+                    self._program, step_costs(self.config, meta.nchan,
+                                              meta.nbin),
+                    registry=self.registry, dtype=self.config.dtype)
+        with profiling.first_call_peak(self._program, self.device,
+                                       registry=self.registry) \
+                if self._program is not None else _NO_PEAK:
+            outs = self._step(
+                upload(pend.tile[None], self.device, self.dtype),
+                upload(pend.w_row[None], self.device, self.dtype),
+                *self._meta_args, self._template, self._count)
         self._record_compiles(library_builds() - before,
                               warmup=self._n == 0)
         self.commit_subint(pend, *outs)
@@ -390,6 +429,12 @@ class OnlineSession:
             self.registry.gauge_set("online_nsub", self._n)
             self.registry.histogram_observe("online_subint_s", dt,
                                             buckets=SECONDS)
+        if self._program is not None and self._n > 1:
+            # warm subints only: the first one's latency holds the build
+            from iterative_cleaner_torch.telemetry import profiling
+
+            profiling.record_walltime(self._program, dt,
+                                      registry=self.registry)
         if self.quality is not None:
             self.quality.observe_subint(self._pweights[self._n - 1],
                                         template=template_host)

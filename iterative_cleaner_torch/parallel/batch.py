@@ -238,6 +238,31 @@ def _program_label(config: CleanConfig, nsub: int, nchan: int, nbin: int,
             int(nsub), int(nchan), int(nbin), str(device))
 
 
+def bucket_program(config: CleanConfig, nsub: int, nchan: int, nbin: int,
+                   dedispersed: bool, batch_dim: int) -> str:
+    """The roofline profiler's name of a bucket's batch iteration
+    (``telemetry/profiling.py``): ``fleet_bucket/<route>/<nsub>x<nchan>x
+    <nbin>x<batch>``, with ``/bf16`` or ``/f64`` for those storages."""
+    from iterative_cleaner_torch.engine.loop import select_route
+
+    name = "fleet_bucket/%s/%dx%dx%dx%d" % (
+        select_route(config, dedispersed), int(nsub), int(nchan), int(nbin),
+        int(batch_dim))
+    cube_bytes = _cube_bytes(config)
+    return name + {2: "/bf16", 8: "/f64"}.get(cube_bytes, "")
+
+
+def _cube_bytes(config: CleanConfig) -> int:
+    """A cube element's bytes under ``config``: 8 in float64, 2 in bf16
+    storage (the config's or ``ICLEAN_COMPUTE_DTYPE``'s), else 4."""
+    import os
+
+    if config.dtype == "float64":
+        return 8
+    cd = config.compute_dtype or os.environ.get("ICLEAN_COMPUTE_DTYPE", "")
+    return 2 if cd == "bfloat16" else 4
+
+
 def warm_bucket(config: CleanConfig, nsub: int, nchan: int, nbin: int,
                 dedispersed: bool, batch_dim: int, *, registry=None,
                 stats_out: Optional[dict] = None) -> None:
@@ -248,9 +273,16 @@ def warm_bucket(config: CleanConfig, nsub: int, nchan: int, nbin: int,
     The DFT tables are the clean's to make, at its first launch.
     Memoized per :func:`_program_label`: a fresh warm-up counts
     ``batch_compiles`` once and each ``nvcc`` run
-    ``kernel_library_builds``.  ``stats_out`` (a dict) receives ``fresh``
-    and ``library_builds``."""
+    ``kernel_library_builds``, and captures the bucket's batch iteration
+    as a profiler program (:func:`bucket_program`: its route's kernels'
+    modelled cost at the bucket's shapes and batch).  ``stats_out`` (a
+    dict) receives ``fresh`` and ``library_builds``."""
+    from iterative_cleaner_torch.engine.loop import (
+        ROUTE_KERNELS,
+        select_route,
+    )
     from iterative_cleaner_torch.stats import kernels
+    from iterative_cleaner_torch.telemetry import profiling
 
     device = clean_device(config)
     key = _program_label(config, nsub, nchan, nbin, dedispersed, batch_dim,
@@ -269,14 +301,22 @@ def warm_bucket(config: CleanConfig, nsub: int, nchan: int, nbin: int,
         built = kernels.library_builds() - builds0
         with _WARMED_LOCK:
             _WARMED.add(key)
+        warm_s = time.perf_counter() - t0
+        profiling.capture_compiled(
+            bucket_program(config, nsub, nchan, nbin, dedispersed,
+                           batch_dim),
+            profiling.program_costs(
+                ROUTE_KERNELS[select_route(config, dedispersed)], nsub,
+                nchan, nbin, cube_bytes=_cube_bytes(config),
+                batch=batch_dim),
+            registry=registry, compile_s=warm_s, dtype=config.dtype)
         if registry is not None:
             from iterative_cleaner_torch.telemetry.registry import SECONDS
 
             registry.counter_inc("batch_compiles")
             if built:
                 registry.counter_inc("kernel_library_builds", built)
-            registry.histogram_observe("batch_precompile_s",
-                                       time.perf_counter() - t0,
+            registry.histogram_observe("batch_precompile_s", warm_s,
                                        buckets=SECONDS)
     if stats_out is not None:
         stats_out["fresh"] = fresh

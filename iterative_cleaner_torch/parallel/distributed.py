@@ -110,6 +110,19 @@ def stable_shard(key: str, n_shards: int) -> int:
     return int.from_bytes(digest, "big") % n
 
 
+def shard_owner(key: str, members) -> Optional[str]:
+    """Deterministic key -> member affinity over a changing member set
+    (the serve pool's counterpart of ``bucket_host`` over a fixed host
+    count): every process sorting the same live member ids picks the same
+    owner, so pool members adopting journaled work agree on who goes
+    first without talking; the others still take the work once the owner
+    is gone.  None for an empty set."""
+    members = sorted(str(m) for m in members)
+    if not members:
+        return None
+    return members[stable_shard(key, len(members))]
+
+
 @dataclasses.dataclass(frozen=True)
 class RankContext:
     """This process's place in the process group."""

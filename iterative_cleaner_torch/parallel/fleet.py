@@ -71,9 +71,21 @@ archives only; this module buckets a mixed fleet and serves it:
    others; whole-slice telemetry folds from the journal's per-host
    ``stats`` lines.
 
-Not here: the reference's ``tracer=`` / ``trace=`` spans (ROADMAP item
-8, ``telemetry/tracing.py``), and a ``('batch',)`` mesh under the fleet
-(ROADMAP item 3b): ``mesh`` raises ``NotImplementedError``.
+7. **Spans** (``tracer=``, a :class:`~iterative_cleaner_torch.telemetry.
+   tracing.Tracer`; None costs one comparison per site): a ``fleet`` root
+   span (parented by ``trace=``, e.g. the serve daemon's execute span),
+   one ``group`` span per group with its ``execute`` child (retry and
+   OOM-split events), a ``load`` and a ``write`` span per archive, and on
+   a multi-host fleet one ``serve_bucket`` span per claimed bucket,
+   parented by the victim's trace context when the bucket was stolen (the
+   journal's claim lines carry it).
+8. **Roofline**: each bucket's batch iteration is a program of
+   :mod:`~iterative_cleaner_torch.telemetry.profiling` (captured by the
+   warm-up); a full group's clean seconds over its iterations pair with
+   it.
+
+Not here: a ``('batch',)`` mesh under the fleet (ROADMAP item 3b):
+``mesh`` raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -337,7 +349,8 @@ def clean_fleet(paths: Sequence[str], config: CleanConfig, *,
                 precompile: bool = True,
                 resilience=None,
                 out_path_fn: Optional[Callable[[str], str]] = None,
-                hosts=None) -> FleetReport:
+                hosts=None, tracer=None,
+                trace: Optional[dict] = None) -> FleetReport:
     """Serve an archive-path list through the batched clean on
     ``config.device``.
 
@@ -366,6 +379,11 @@ def clean_fleet(paths: Sequence[str], config: CleanConfig, *,
     distributed.HostTopology`, default from the config's ``fleet_hosts``/
     ``fleet_host_id`` and their mirrors) serves this process's share of a
     multi-host fleet through the shared journal, which it then requires.
+    ``tracer`` (a :class:`~iterative_cleaner_torch.telemetry.tracing.
+    Tracer`, default None: tracing off) records the fleet's spans;
+    ``trace`` (a ``{"trace_id", "span_id"}`` context, e.g. the serve
+    daemon's execute span) parents its root span, and rides the
+    journal's completion and claim lines.
     ``mesh`` is ROADMAP item 3b: ``NotImplementedError``."""
     from iterative_cleaner_torch.io import load_archive
     from iterative_cleaner_torch.parallel.batch import (
@@ -410,6 +428,16 @@ def clean_fleet(paths: Sequence[str], config: CleanConfig, *,
             "accounting); pass a ResiliencePlan with a journal on "
             "storage every host shares (--journal PATH)")
 
+    # the run's root span; with no tracer every span site below is a None
+    # check
+    fleet_span = None
+    if tracer is not None:
+        ctx = trace or {}
+        fleet_span = tracer.start(
+            "fleet", trace_id=ctx.get("trace_id"),
+            parent_id=ctx.get("span_id"), subsystem="fleet", lane="fleet",
+            host_id=topo.host_id, n_paths=len(paths))
+
     report = FleetReport(results={}, failures=[],
                          host_id=topo.host_id, n_hosts=topo.n_hosts)
 
@@ -451,7 +479,7 @@ def clean_fleet(paths: Sequence[str], config: CleanConfig, *,
             entries.append((p, run_with_retries(
                 lambda p=p: shape_fn(p), stage="peek", policy=res.retry,
                 registry=reg, faults=res.faults,
-                deadline_s=res.stage_timeout_s)))
+                deadline_s=res.stage_timeout_s, span=fleet_span)))
         except Exception as exc:
             fail(p, "peek", exc)
 
@@ -467,7 +495,12 @@ def clean_fleet(paths: Sequence[str], config: CleanConfig, *,
         events.emit("fleet_plan", n_archives=len(entries),
                     n_buckets=len(plan.buckets), n_groups=len(groups),
                     group_size=group_size)
+    if fleet_span is not None:
+        fleet_span.set("n_buckets", len(plan.buckets))
+        fleet_span.set("n_groups", len(groups))
     if not groups and not topo.is_multi:
+        if fleet_span is not None:
+            fleet_span.end()
         return report
 
     serve_t0 = time.perf_counter()
@@ -477,14 +510,17 @@ def clean_fleet(paths: Sequence[str], config: CleanConfig, *,
         if groups:
             _serve_multihost(plan, topo, config, reg, report, fail,
                              precompile, io_workers, load_fn, write_fn,
-                             res, cfg_hash, out_path_fn, events)
+                             res, cfg_hash, out_path_fn, events,
+                             tracer=tracer, parent_span=fleet_span)
     else:
         precompiler = (BucketPrecompiler(plan, config, registry=reg,
                                          faults=res.faults)
                        if precompile else None)
         _serve_groups(groups, config, reg, report, fail, precompiler,
                       io_workers, load_fn, write_fn, res, cfg_hash,
-                      out_path_fn)
+                      out_path_fn, tracer=tracer,
+                      trace=(fleet_span.context()
+                             if fleet_span is not None else trace))
     reg.gauge_set("fleet_serve_s", time.perf_counter() - serve_t0)
     delta = reg.counters_since(mark)
     report.n_compiles = int(delta.get("fleet_compiles", 0.0))
@@ -513,6 +549,10 @@ def clean_fleet(paths: Sequence[str], config: CleanConfig, *,
         # next maintenance pass can compact them
         res.journal.seal()
     record_builder_cache_stats(reg)
+    if fleet_span is not None:
+        fleet_span.set("n_cleaned", len(report.results))
+        fleet_span.set("n_failed", len(report.failures))
+        fleet_span.end("ok" if not report.failures else "partial")
     return report
 
 
@@ -576,7 +616,8 @@ class ClaimHeartbeat:
 
 def _serve_multihost(plan, topo, config, reg, report, fail, precompile,
                      io_workers, load_fn, write_fn, res, cfg_hash,
-                     out_path_fn, events) -> None:
+                     out_path_fn, events, tracer=None,
+                     parent_span=None) -> None:
     """:func:`clean_fleet`'s multi-host serve loop.
 
     Sweep the plan's buckets — own (hash-affine) buckets first, foreign
@@ -586,7 +627,10 @@ def _serve_multihost(plan, topo, config, reg, report, fail, precompile,
     another host's live lease are left alone.  The loop exits when every
     bucket is journal-complete or was attempted here, so a host whose
     peers are still serving waits for their ``done`` lines (or their
-    lease expiry) rather than exiting with the slice incomplete."""
+    lease expiry) rather than exiting with the slice incomplete.  A stolen
+    bucket's ``serve_bucket`` span is parented by the trace context on the
+    victim's claim line, so the originating request's trace shows the
+    bucket moving hosts."""
     journal = res.journal
     ttl = resolve_claim_ttl(config.fleet_claim_ttl_s)
     poll_s = min(1.0, ttl / 4.0)
@@ -630,12 +674,36 @@ def _serve_multihost(plan, topo, config, reg, report, fail, precompile,
                     and owner["nonce"] != nonce):
                 continue    # live lease elsewhere: leave it be
             stolen = bucket.key not in own_keys
-            if not journal.try_claim(work, host=topo.host_id,
-                                     nonce=nonce, ttl_s=ttl):
+            bspan = None
+            if tracer is not None:
+                vtrace = (owner or {}).get("trace")
+                if stolen and isinstance(vtrace, dict) \
+                        and vtrace.get("trace_id"):
+                    b_tid, b_pid = vtrace.get("trace_id"), \
+                        vtrace.get("span_id")
+                else:
+                    pctx = (parent_span.context()
+                            if parent_span is not None else {})
+                    b_tid, b_pid = pctx.get("trace_id"), pctx.get("span_id")
+                bspan = tracer.start(
+                    "serve_bucket", trace_id=b_tid, parent_id=b_pid,
+                    subsystem="fleet", lane=work, host_id=topo.host_id,
+                    stolen=stolen, n_items=len(remaining))
+            if not journal.try_claim(
+                    work, host=topo.host_id, nonce=nonce, ttl_s=ttl,
+                    trace=(bspan.context() if bspan is not None
+                           else None)):
                 reg.counter_inc("fleet_claim_conflicts")
+                if bspan is not None:
+                    bspan.end("claim_lost")
                 continue    # lost the append race
             if stolen:
                 reg.counter_inc("fleet_stolen")
+                if bspan is not None:
+                    bspan.event(
+                        "stolen", from_host=int((owner or {}).get("host", -1)),
+                        recovered_trace=isinstance(
+                            (owner or {}).get("trace"), dict))
             if events is not None:
                 events.emit("fleet_claim", work=work, stolen=stolen,
                             n_items=len(remaining))
@@ -648,10 +716,14 @@ def _serve_multihost(plan, topo, config, reg, report, fail, precompile,
                 _serve_groups(sub_groups, config, reg, report, fail,
                               precompiler, io_workers, load_fn,
                               write_fn, res, cfg_hash, out_path_fn,
-                              journal_unwritten=True)
+                              journal_unwritten=True, tracer=tracer,
+                              trace=(bspan.context() if bspan is not None
+                                     else None))
             finally:
                 hb.stop()
             journal.release(work, host=topo.host_id, nonce=nonce)
+            if bspan is not None:
+                bspan.end()
             finished.add(bucket.key)
             progressed = True
         if all(b.key in finished for b in plan.buckets):
@@ -676,15 +748,20 @@ def _empty_device_cache(config: CleanConfig) -> None:
 
 def _serve_groups(groups, config, reg, report, fail, precompiler,
                   io_workers, load_fn, write_fn, res, cfg_hash,
-                  out_path_fn, journal_unwritten: bool = False) -> None:
+                  out_path_fn, journal_unwritten: bool = False,
+                  tracer=None, trace: Optional[dict] = None) -> None:
     """:func:`clean_fleet`'s pipeline body: load lookahead -> the bucket's
     warm-up -> batched clean (through the OOM/retry recovery ladder) ->
     journaled write-back.
 
     ``journal_unwritten`` (the multi-host loop sets it) journals a
     ``done`` line even with no ``write_fn``: with no output file the
-    clean's completion is the unit of work peers must not repeat."""
+    clean's completion is the unit of work peers must not repeat.
+    ``tracer``/``trace`` as :func:`clean_fleet`'s: the spans parent under
+    ``trace`` and each ``done`` line records it."""
+    from iterative_cleaner_torch.backends.torch_backend import resolve_device
     from iterative_cleaner_torch.parallel.batch import (
+        bucket_program,
         clean_archives_batched,
         warm_bucket,
     )
@@ -696,25 +773,39 @@ def _serve_groups(groups, config, reg, report, fail, precompiler,
         run_with_retries,
     )
     from iterative_cleaner_torch.resilience import classify_error as classify
+    from iterative_cleaner_torch.telemetry import profiling
     from iterative_cleaner_torch.telemetry.registry import SECONDS
+    from iterative_cleaner_torch.telemetry.tracing import maybe_span
+
+    ctx = trace or {}
+    t_tid, t_pid = ctx.get("trace_id"), ctx.get("span_id")
+    done_trace = dict(trace) if trace else None
 
     def load_task(path: str) -> Archive:
-        return run_with_retries(
-            lambda: load_fn(path), stage="load", policy=res.retry,
-            registry=reg, faults=res.faults, deadline_s=res.stage_timeout_s)
+        with maybe_span(tracer, "load", trace_id=t_tid, parent_id=t_pid,
+                        subsystem="fleet", lane="io",
+                        path=os.path.basename(path)) as s:
+            return run_with_retries(
+                lambda: load_fn(path), stage="load", policy=res.retry,
+                registry=reg, faults=res.faults,
+                deadline_s=res.stage_timeout_s, span=s)
 
     def write_task(path: str, ar: Archive, result: CleanResult) -> None:
-        run_with_retries(
-            lambda: write_fn(path, ar, result), stage="write",
-            policy=res.retry, registry=reg, faults=res.faults,
-            deadline_s=res.stage_timeout_s)
+        with maybe_span(tracer, "write", trace_id=t_tid, parent_id=t_pid,
+                        subsystem="fleet", lane="io",
+                        path=os.path.basename(path)) as s:
+            run_with_retries(
+                lambda: write_fn(path, ar, result), stage="write",
+                policy=res.retry, registry=reg, faults=res.faults,
+                deadline_s=res.stage_timeout_s, span=s)
         if res.journal is not None:
             # journal strictly after the (atomic) output write: a crash
             # between the two re-cleans the archive on resume — never a
             # journaled path with no output
             res.journal.record_done(
                 path, config_hash=cfg_hash,
-                out_path=out_path_fn(path) if out_path_fn else None)
+                out_path=out_path_fn(path) if out_path_fn else None,
+                trace=done_trace)
 
     with cf.ThreadPoolExecutor(max_workers=io_workers) as load_pool, \
             cf.ThreadPoolExecutor(max_workers=io_workers) as write_pool:
@@ -733,6 +824,14 @@ def _serve_groups(groups, config, reg, report, fail, precompiler,
         for gi, (bucket, chunk) in enumerate(groups):
             # the next group's host IO overlaps this group's clean
             submit_loads(gi + 1)
+            # one span per group, its lane the bucket's work key; ended at
+            # every exit (Span.end is idempotent)
+            gspan = None
+            if tracer is not None:
+                gspan = tracer.start(
+                    "group", trace_id=t_tid, parent_id=t_pid,
+                    subsystem="fleet", lane=bucket_work_key(bucket.key),
+                    group=gi, n_items=len(chunk))
             loaded = []
             t0 = time.perf_counter()
             for it, fut in pending.pop(gi):
@@ -742,8 +841,11 @@ def _serve_groups(groups, config, reg, report, fail, precompiler,
                     fail(it.path, "load", exc)
                     continue
                 loaded.append((it, ar))
-            reg.histogram_observe("fleet_load_stall_s",
-                                  time.perf_counter() - t0, buckets=SECONDS)
+            load_stall = time.perf_counter() - t0
+            reg.histogram_observe("fleet_load_stall_s", load_stall,
+                                  buckets=SECONDS)
+            if gspan is not None:
+                gspan.set("load_stall_s", round(load_stall, 6))
             bad = [(it, ar) for it, ar in loaded
                    if (ar.nsub, ar.nchan, ar.nbin) != tuple(it.raw_shape)
                    or bool(ar.dedispersed) != it.dedispersed]
@@ -757,15 +859,28 @@ def _serve_groups(groups, config, reg, report, fail, precompiler,
                     f"{tuple(it.raw_shape)} ({it.dedispersed})")
                 for it, _ar in loaded:
                     fail(it.path, "load", exc)
+                if gspan is not None:
+                    gspan.end("load_error")
                 continue
             if not loaded:
+                if gspan is not None:
+                    gspan.end("empty")
                 continue
             ready = False
             if precompiler is not None:
                 ready = precompiler.obtain(bucket)
                 reg.counter_inc("fleet_precompile_hits" if ready
                                 else "fleet_precompile_misses")
+            if gspan is not None:
+                gspan.set("precompiled", bool(ready))
             results: List[Optional[CleanResult]] = [None] * len(loaded)
+            espan = None
+            if gspan is not None:
+                espan = tracer.start(
+                    "execute", trace_id=t_tid, parent_id=gspan.span_id,
+                    subsystem="fleet", lane=bucket_work_key(bucket.key),
+                    n_items=len(loaded))
+            program = bucket_program(config, *bucket.key, bucket.batch_dim)
 
             def attempt_once(idx):
                 """One batched-clean attempt over ``loaded[idx]`` at its
@@ -778,11 +893,28 @@ def _serve_groups(groups, config, reg, report, fail, precompiler,
                                                      bucket.key[1],
                                                      bucket.key[2],
                                                      len(idx)))
-                    return clean_archives_batched(
-                        [loaded[i][1] for i in idx], config, registry=reg)
+                    ars = [loaded[i][1] for i in idx]
+                    if len(idx) != bucket.batch_dim:
+                        return clean_archives_batched(ars, config,
+                                                      registry=reg)
+                    # the bucket's program at its size: its first call's
+                    # peak (profiling on) and its seconds an iteration
+                    t_run = time.perf_counter()
+                    with profiling.first_call_peak(
+                            program, resolve_device(config.device),
+                            registry=reg):
+                        out = clean_archives_batched(ars, config,
+                                                     registry=reg)
+                    loops = max((r.loops for r in out), default=0)
+                    if loops:
+                        profiling.record_walltime(
+                            program, (time.perf_counter() - t_run) / loops,
+                            registry=reg)
+                    return out
 
                 return call_with_deadline(run, res.stage_timeout_s,
-                                          "execute", registry=reg)
+                                          "execute", registry=reg,
+                                          span=espan)
 
             def serve(idx, attempt=0):
                 """Recovery ladder over ``loaded[idx]``: OOM halves the
@@ -803,6 +935,10 @@ def _serve_groups(groups, config, reg, report, fail, precompiler,
                         if kind == TRANSIENT \
                                 and attempt < res.retry.max_retries:
                             reg.counter_inc("fleet_retries")
+                            if espan is not None:
+                                espan.event("retry", stage="execute",
+                                            attempt=attempt,
+                                            error=type(exc).__name__)
                             time.sleep(res.retry.backoff(attempt))
                             serve(idx, attempt + 1)
                             return
@@ -825,6 +961,8 @@ def _serve_groups(groups, config, reg, report, fail, precompiler,
                 # halve the batch: a batch is bit-equal to its single
                 # cleans
                 reg.counter_inc("fleet_oom_splits")
+                if espan is not None:
+                    espan.event("oom_split", n=len(idx))
                 mid = len(idx) // 2
                 serve(idx[:mid])
                 serve(idx[mid:])
@@ -846,6 +984,10 @@ def _serve_groups(groups, config, reg, report, fail, precompiler,
                     reg.counter_inc("fleet_warm_errors")
             serve(list(range(len(loaded))))
             dt = time.perf_counter() - t0
+            if espan is not None:
+                espan.set("compiles", inline_compiles)
+                espan.end("ok" if all(r is not None for r in results)
+                          else "failed")
             if inline_compiles:
                 # the warm-up pass counted its own warm-ups; an inline one
                 # counts here — never both for one bucket
@@ -869,7 +1011,9 @@ def _serve_groups(groups, config, reg, report, fail, precompiler,
                     res.journal.record_done(
                         it.path, config_hash=cfg_hash,
                         out_path=out_path_fn(it.path) if out_path_fn
-                        else None)
+                        else None, trace=done_trace)
+            if gspan is not None:
+                gspan.end()
         for it, fut in write_futs:
             try:
                 fut.result()

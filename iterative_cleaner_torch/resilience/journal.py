@@ -385,10 +385,19 @@ class FleetJournal:
     def _append(self, entry: dict) -> None:
         text = json.dumps(entry, sort_keys=True) + "\n"
         healed = self.log.append(entry_key(entry), text)
-        if healed and self.registry is not None:
+        if healed:
             # a heal means some writer died mid-line here since the last
-            # append: counted, so post-crash restarts are not silent
-            self.registry.counter_inc("journal_torn_heals")
+            # append: counted, with a flight-recorder breadcrumb, so
+            # post-crash restarts are not silent
+            if self.registry is not None:
+                self.registry.counter_inc("journal_torn_heals")
+            from iterative_cleaner_torch.telemetry.recorder import (
+                record_active,
+            )
+
+            record_active("journal", "event",
+                          {"name": "torn_heal", "path": self.path,
+                           "backend": self.log.backend})
 
     def _scan_text(self) -> str:
         """The backend's full text, fold-timed into ``journal_fold_s``

@@ -124,7 +124,7 @@ class RetryPolicy:
 def call_with_deadline(fn: Callable[[], object],
                        timeout_s: Optional[float],
                        stage: str,
-                       registry=None):
+                       registry=None, span=None):
     """Run ``fn`` under a watchdog deadline.
 
     ``timeout_s`` None/0 runs inline (zero overhead — the default).
@@ -134,7 +134,12 @@ def call_with_deadline(fn: Callable[[], object],
     daemon so a wedged call can never block interpreter exit.  On the
     card an abandoned execute attempt that was already launching goes on
     launching its batch's kernels and holding their memory until its
-    loop ends: the fleet's next group runs beside it."""
+    loop ends: the fleet's next group runs beside it.
+
+    A trip is a black-box moment: it lands as an event on ``span`` (a
+    tracing span, when tracing) and dumps the active flight recorder at
+    once (``telemetry/recorder.py``), whose dump holds every thread's
+    stack, the abandoned attempt's among them."""
     if not timeout_s:
         return fn()
     done = threading.Event()
@@ -154,6 +159,17 @@ def call_with_deadline(fn: Callable[[], object],
     if not done.wait(timeout_s):
         if registry is not None:
             registry.counter_inc("fleet_watchdog_trips")
+        if span is not None:
+            span.event("watchdog_trip", stage=stage, timeout_s=timeout_s)
+        from iterative_cleaner_torch.telemetry.recorder import (
+            dump_active,
+            record_active,
+        )
+
+        record_active("retry", "event",
+                      {"name": "watchdog_trip", "stage": stage,
+                       "timeout_s": timeout_s})
+        dump_active("watchdog-trip:" + stage)
         raise StageTimeout(
             f"{stage} stage exceeded its {timeout_s:g}s watchdog deadline")
     if "error" in box:
@@ -165,14 +181,17 @@ def run_with_retries(fn: Callable[[], object], *, stage: str,
                      policy: RetryPolicy, registry=None, faults=None,
                      site: Optional[str] = None,
                      deadline_s: Optional[float] = None,
-                     sleep: Callable[[float], None] = time.sleep):
+                     sleep: Callable[[float], None] = time.sleep,
+                     span=None):
     """The per-stage resilience ladder for peek/load/write (execute has
     its own OOM-splitting ladder in the fleet module).
 
     Each attempt optionally fires the fault injector at ``site`` and runs
     under the watchdog deadline.  Transient errors retry up to
     ``policy.max_retries`` times (counting ``fleet_retries``); permanent
-    errors, OOM and watchdog trips propagate immediately."""
+    errors, OOM and watchdog trips propagate immediately.  ``span`` (a
+    tracing span, optional) receives one ``retry`` event per transient
+    retry."""
     site = site or stage
     attempt = 0
     while True:
@@ -183,7 +202,7 @@ def run_with_retries(fn: Callable[[], object], *, stage: str,
 
         try:
             return call_with_deadline(guarded, deadline_s, stage,
-                                      registry=registry)
+                                      registry=registry, span=span)
         except StageTimeout:
             raise
         except Exception as exc:
@@ -192,5 +211,9 @@ def run_with_retries(fn: Callable[[], object], *, stage: str,
                 raise
             if registry is not None:
                 registry.counter_inc("fleet_retries")
+            if span is not None:
+                span.event("retry", stage=stage, attempt=attempt,
+                           error="%s: %s" % (type(exc).__name__,
+                                             str(exc)[:120]))
             sleep(policy.backoff(attempt))
             attempt += 1

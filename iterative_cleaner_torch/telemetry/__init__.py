@@ -21,9 +21,18 @@ far as the CLI session uses it:
 - :class:`~iterative_cleaner_torch.telemetry.run.RunTelemetry`: the one
   object a CLI session threads through, flushed at its end.
 
-Profiling, request tracing, the flight recorder, the benchmark tracker
-and the live quality monitor are not ported (ROADMAP.md 'Modules still
-to port' items 5 and 8).
+- :mod:`~iterative_cleaner_torch.telemetry.tracing`: spans across the
+  serve daemon, the fleet and its hosts, their spool and the Perfetto
+  export (``--trace-out``).
+- :mod:`~iterative_cleaner_torch.telemetry.recorder`: the flight
+  recorder (``--flight-recorder``), dumped on watchdog trips, daemon
+  crashes, SIGQUIT and a forced exit.
+- :mod:`~iterative_cleaner_torch.telemetry.profiling`: the hot programs'
+  modelled costs against the H100's peaks (``prof_*`` gauges) and
+  ``torch.profiler`` captures (``--profile-dir``, ``POST /profile``).
+
+The benchmark tracker is not ported (ROADMAP.md 'Modules still to port'
+item 8c).
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """The append-only logs of a CLI session: the reference-format
 ``clean.log`` line per archive, the locked append that the event log
-and the fleet journal share, and the journal's locked compaction and
-seal."""
+and the fleet journal share, the journal's locked compaction and seal,
+and the serve daemon's size bounds on its logs (:func:`trim_log`,
+:func:`rotate_log`)."""
 
 from __future__ import annotations
 
@@ -96,6 +97,44 @@ def seal_log(path: str, sealed_path: str) -> bool:
             except OSError:
                 pass
             f.close()
+
+
+def trim_log(path: str, max_bytes: int, keep_lines: int = 10000) -> bool:
+    """Bound an append-only log of a long-lived process: once ``path``
+    exceeds ``max_bytes``, rewrite it as its last ``keep_lines`` lines
+    under :func:`compact_under_lock` (concurrent appenders lose nothing).
+    False below the threshold or when the file is absent."""
+    try:
+        if os.path.getsize(path) <= max_bytes:
+            return False
+    except OSError:
+        return False
+
+    def rewrite(text: str) -> str:
+        return "".join(text.splitlines(keepends=True)[-keep_lines:])
+
+    return compact_under_lock(path, rewrite)
+
+
+def rotate_log(path: str, max_bytes: int) -> bool:
+    """Keep-one rotation for a log whose old lines still matter (the
+    event log carries the spans): once ``path`` exceeds ``max_bytes`` its
+    whole text moves to ``path.1`` (replacing the previous generation)
+    and the live file restarts empty, under :func:`compact_under_lock`."""
+    try:
+        if os.path.getsize(path) <= max_bytes:
+            return False
+    except OSError:
+        return False
+    from iterative_cleaner_torch.io.atomic import atomic_output
+
+    def rewrite(text: str) -> str:
+        with atomic_output(path + ".1") as tmp:
+            with open(tmp, "w") as f:
+                f.write(text)
+        return ""
+
+    return compact_under_lock(path, rewrite)
 
 
 def append_clean_log(ar_name: str, args_namespace, loops: int,

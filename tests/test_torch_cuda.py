@@ -81,6 +81,11 @@ The fleet: ``--compile-cache DIR``'s library built into DIR once, a
 second process over DIR building nothing; a real ``torch.OutOfMemoryError``
 under a memory fraction classified as OOM; a mixed fleet's results
 bit-equal to the single cleans, each batch's kernels once per iteration.
+The serve daemon: an archive request's outputs on the card equal to
+``clean_archive``'s (its kernels once per batch iteration), a stream
+request's close bit-equal to a solo session, the bucket program's
+roofline gauges against the H100's peaks; a ``torch.profiler`` capture
+holding the route's kernels as often as the launch counters say.
 """
 
 import numpy as np
@@ -1690,3 +1695,132 @@ def test_online_mux_lanes_bit_equal_to_solo_sessions_on_card(card):
             assert np.array_equal(lane.provisional_scores,
                                   solo.provisional_scores, equal_nan=True)
             np.testing.assert_array_equal(lane.template(), solo.template())
+
+
+# ---------------------------------------------------------------------------
+# the serve daemon (serve/) and the profiler on the card
+# ---------------------------------------------------------------------------
+
+def _serve_get(url):
+    import json
+    import urllib.request
+
+    return json.loads(urllib.request.urlopen(url, timeout=120).read())
+
+
+def _serve_post(url, doc):
+    import json
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(doc).encode())
+    return json.loads(urllib.request.urlopen(req, timeout=120).read())
+
+
+def _serve_done(url, rid):
+    import time
+
+    deadline = time.time() + 300
+    while time.time() < deadline:
+        state = _serve_get(url + "/requests/" + rid)
+        if state["state"] in ("done", "failed"):
+            return state
+        time.sleep(0.05)
+    pytest.fail(f"request {rid} never finished")
+
+
+def test_serve_daemon_on_card_bit_equal_to_clean_archive(card, tmp_path):
+    """An in-process daemon on the card: an archive request's outputs
+    bit-equal to ``clean_archive`` on the card, its kernels launched once
+    per batch iteration; a stream request's close bit-equal to a solo
+    ``OnlineSession`` on the card; the bucket program's roofline gauges
+    against the H100's (not nominal) peaks, in (0, 1.05]."""
+    import signal
+    import threading
+    import time
+
+    from iterative_cleaner_torch.config import ServeConfig
+    from iterative_cleaner_torch.io import load_archive, save_archive
+    from iterative_cleaner_torch.online import OnlineSession, StreamMeta
+    from iterative_cleaner_torch.serve import ServeDaemon
+    from iterative_cleaner_torch.telemetry import labeled, profiling
+
+    cfg = CleanConfig(max_iter=3)
+    paths = []
+    for i in range(3):
+        ar, _ = make_synthetic_archive(nsub=32, nchan=64, nbin=128,
+                                       seed=90 + i, n_rfi_cells=10 * i + 4)
+        paths.append(str(tmp_path / ("s%d.sf" % i)))
+        save_archive(ar, paths[-1])
+    d = ServeDaemon(ServeConfig(
+        http_port=0, poll_s=0.02, journal_path=str(tmp_path / "j.jsonl"),
+        flight_recorder=str(tmp_path / "f.json"),
+        profile_dir=str(tmp_path / "prof")), cfg, quiet=True)
+    t = threading.Thread(target=d.run, daemon=True)
+    t.start()
+    while d._httpd is None:
+        time.sleep(0.01)
+    url = "http://127.0.0.1:%d" % d._httpd.server_address[1]
+    try:
+        tk.reset_launch_counts()
+        _serve_post(url + "/submit", {"paths": paths, "id": "a"})
+        assert _serve_done(url, "a")["state"] == "done"
+        counts = tk.launch_counts()
+        ar, _ = make_synthetic_archive(nsub=6, nchan=256, nbin=128, seed=5)
+        meta = StreamMeta.from_archive(ar)
+        cube = ar.total_intensity()
+        chunks = []
+        for i in range(ar.nsub):
+            chunks.append(str(tmp_path / ("%03d.npy" % i)))
+            np.save(chunks[-1], cube[i])
+        _serve_post(url + "/submit", {"id": "live", "kind": "stream",
+                                      "meta": meta.to_dict()})
+        for i, c in enumerate(chunks):
+            _serve_post(url + "/stream/live/subint", {"path": c, "seq": i})
+        _serve_post(url + "/stream/live/close", {})
+        live = _serve_done(url, "live")
+        gauges = dict(d.registry.gauges)
+    finally:
+        d._on_signal(signal.SIGTERM, None)
+        t.join(120)
+    wants = {p: clean_archive(load_archive(p), cfg) for p in paths}
+    iters = max(w.loops for w in wants.values())
+    assert {k: v for k, v in counts.items() if v} == {
+        k: iters for k in ROUTE_KERNELS["default"]}
+    for p, want in wants.items():
+        got = load_archive(p + "_cleaned.sf").weights
+        np.testing.assert_array_equal(got == 0, want.final_weights == 0)
+    solo = OnlineSession(meta, cfg)
+    for tile in cube:
+        solo.ingest(tile)
+    np.testing.assert_array_equal(load_archive(live["out"]).weights,
+                                  solo.close().archive.weights)
+    name = "fleet_bucket/default/32x64x128x3"
+    assert gauges["prof_peak_nominal"] == 0.0
+    assert 0 < gauges[labeled("prof_hbm_util", program=name)] <= 1.05
+    assert 0 < gauges[labeled("prof_roofline_frac", program=name)] <= 1.05
+    assert gauges[labeled("prof_peak_bytes", program=name)] > 0
+    assert not profiling.profiling_enabled()
+
+
+def test_profile_capture_holds_the_cards_kernels(card, tmp_path):
+    """A ``torch.profiler`` capture around a clean on the card: its trace
+    holds the route's kernels as often as the launch counters say, and
+    its manifest names the card."""
+    import json
+    import os
+
+    from iterative_cleaner_torch.telemetry import profiling
+    from iterative_cleaner_torch.utils.tracing import trace_event_counts
+
+    ar, _ = make_synthetic_archive(nsub=32, nchan=64, nbin=128, seed=4)
+    clean_archive(ar, CleanConfig(max_iter=2))        # warm
+    tk.reset_launch_counts()
+    with profiling.trace_capture(str(tmp_path)) as final:
+        res = clean_archive(ar, CleanConfig(max_iter=2))
+    counts = tk.launch_counts()
+    kernels = trace_event_counts(os.path.join(final, "trace.json"),
+                                 "kernel")
+    got = sum(v for k, v in kernels.items() if "icln_cell_stats_kernel" in k)
+    assert got == counts["cell_diagnostics_disp"] == res.loops
+    with open(os.path.join(final, "profile_manifest.json")) as f:
+        assert json.load(f)["device_kind"] == torch.cuda.get_device_name()

@@ -316,9 +316,10 @@ def test_cli_fleet_flag_validation(tmp_path, monkeypatch, capsys, argv,
 @pytest.mark.parametrize("argv,item", [
     (["--fleet", "--coordinator", "localhost:1234"], "item 3b"),
     (["--fleet", "--mesh", "batch"], "item 3b"),
-    (["--serve"], "item 8"),
-    (["--fleet", "--trace-out", "t.json"], "item 8"),
-    (["--fleet", "--flight-recorder", "f.json"], "item 8"),
+    # item 8c: --serve, --trace-out and --flight-recorder are ported
+    (["--selfcheck"], "item 8"),
+    (["--selfcheck", "--format", "json"], "item 8"),
+    (["--fleet", "--journal-fsck", "j.jsonl"], "item 8"),
     (["--journal-fsck", "j.jsonl"], "item 8"),
 ])
 def test_cli_flags_left_out_raise_with_their_item(tmp_path, monkeypatch,

@@ -10,7 +10,8 @@ port's host library, ``--checkpoint`` and its resume, ``--model
 quicklook``, ``--trace`` and ``tools diff``, ``sweep`` and
 ``borderline``; the fleet; the online mode: ``OnlineSession``, its
 reconciles and close, ``StreamMux`` with its dispatcher thread,
-``--stream DIR``, ``--mux D1 D2`` and ``--model online_ewt``) never loads
+``--stream DIR``, ``--mux D1 D2`` and ``--model online_ewt``; the serve
+daemon with its spans, flight recorder and profiler) never loads
 ``jax`` or the reference package; no
 source of the port (``parallel/*``, ``telemetry/*``, ``utils/*`` and
 ``io/*`` included) or ``chip_smoke.py`` imports either, and none names
@@ -303,6 +304,88 @@ assert main(["--device", "cpu", "-q", "--model", "online_ewt",
 assert all(os.path.exists(p) for p in (
     "s0/stream_cleaned.npz", "s1/stream_cleaned.npz",
     "s2/stream_cleaned.npz", "obs.npz_cleaned.npz"))
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "iterative_cleaner_tpu"))
+print("LOADED", bad)
+"""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [REPO] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+@pytest.mark.parametrize("module", [
+    ("serve", "__init__.py"), ("serve", "request.py"),
+    ("serve", "scheduler.py"), ("serve", "spool.py"), ("serve", "http.py"),
+    ("serve", "daemon.py"), ("serve", "membership.py"),
+    ("serve", "result_cache.py"), ("telemetry", "tracing.py"),
+    ("telemetry", "recorder.py"), ("telemetry", "profiling.py")])
+def test_serve_modules_are_scanned(module):
+    """The serve daemon's modules and the tracer, flight recorder and
+    profiler are among the scanned sources."""
+    assert os.path.join(PKG, *module) in set(_port_sources())
+
+
+def test_serve_path_runs_without_jax():
+    """Importing ``serve`` and ``telemetry.{tracing,recorder,profiling}``
+    and running a daemon in this process (an archive request over HTTP
+    with the result cache, a stream request, a profile capture, the drain)
+    and ``--fleet --trace-out --flight-recorder`` loads neither ``jax`` nor
+    the reference package."""
+    code = """
+import json, os, signal, sys, tempfile, threading, time, urllib.request
+import numpy as np
+import iterative_cleaner_torch.serve
+import iterative_cleaner_torch.telemetry.tracing
+import iterative_cleaner_torch.telemetry.recorder
+import iterative_cleaner_torch.telemetry.profiling
+from iterative_cleaner_torch import CleanConfig, online
+from iterative_cleaner_torch.cli import main
+from iterative_cleaner_torch.config import ServeConfig
+from iterative_cleaner_torch.io import make_synthetic_archive, save_archive
+from iterative_cleaner_torch.serve import ServeDaemon
+os.chdir(tempfile.mkdtemp())
+ar, _ = make_synthetic_archive(nsub=4, nchan=8, nbin=16, seed=1)
+save_archive(ar, "a.npz")
+for i in range(4):
+    np.save("%03d.npy" % i, ar.total_intensity()[i])
+d = ServeDaemon(ServeConfig(http_port=0, poll_s=0.02, journal_path="j.jsonl",
+                            flight_recorder="f.json", trace_out="t.json",
+                            result_cache=True, profile_dir="prof"),
+                CleanConfig(device="cpu", max_iter=2), quiet=True)
+t = threading.Thread(target=d.run, daemon=True)
+t.start()
+while d._httpd is None:
+    time.sleep(0.01)
+url = "http://127.0.0.1:%d" % d._httpd.server_address[1]
+def post(path, doc):
+    req = urllib.request.Request(url + path, data=json.dumps(doc).encode())
+    return json.loads(urllib.request.urlopen(req, timeout=60).read())
+def done(rid):
+    for _ in range(1200):
+        s = json.loads(urllib.request.urlopen(url + "/requests/" + rid).read())
+        if s["state"] in ("done", "failed"):
+            return s
+        time.sleep(0.05)
+post("/submit", {"paths": [os.path.abspath("a.npz")], "id": "r1"})
+assert done("r1")["state"] == "done"
+post("/submit", {"paths": [os.path.abspath("a.npz")], "id": "r2"})
+assert done("r2")["n_cached"] == 1
+post("/submit", {"id": "s", "kind": "stream",
+                 "meta": online.StreamMeta.from_archive(ar).to_dict()})
+for i in range(4):
+    post("/stream/s/subint", {"path": os.path.abspath("%03d.npy" % i)})
+post("/stream/s/close", {})
+assert done("s")["state"] == "done"
+assert os.path.isdir(post("/profile?seconds=0.1", {})["profile_dir"])
+d._on_signal(signal.SIGTERM, None)
+t.join(60)
+assert os.path.exists("t.json")
+assert main(["--device", "cpu", "-q", "--fleet", "--trace-out", "f.json",
+             "--flight-recorder", "box.json", "-o", "x.npz", "a.npz"]) == 0
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "iterative_cleaner_tpu"))
 print("LOADED", bad)

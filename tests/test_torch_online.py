@@ -626,6 +626,22 @@ def test_cli_online_refusals_are_the_reference_parsers(argv, tmp_path,
         assert ei.value.code == 2, main
 
 
-def test_cli_bare_mux_under_serve_names_item_8(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 8"):
-        cli.main(["--device", "cpu", "--serve", "--mux"])
+def test_cli_bare_mux_under_serve_names_item_8(tmp_path, monkeypatch):
+    """Bare ``--mux`` belongs to ``--serve`` (item 8b, ported): without
+    an intake both parsers refuse it (exit 2); with one, the daemon's
+    ServeConfig multiplexes its streams."""
+    import iterative_cleaner_torch.serve as serve
+
+    for name in ("ICLEAN_MUX", "ICLEAN_SPOOL", "ICLEAN_HTTP_PORT"):
+        monkeypatch.delenv(name, raising=False)
+    monkeypatch.chdir(tmp_path)
+    for main in (cli.main, ref_cli.main):
+        with pytest.raises(SystemExit) as ei:
+            main(["--serve", "--mux"])
+        assert ei.value.code == 2, main
+    got = {}
+    monkeypatch.setattr(serve, "run_serve",
+                        lambda sc, cfg, **kw: got.setdefault("sc", sc) and 0)
+    assert cli.main(["--device", "cpu", "--serve", "--mux", "--spool",
+                     "sp", "--flight-recorder", ""]) == 0
+    assert got["sc"].mux and got["sc"].spool_dir == "sp"
