@@ -60,9 +60,22 @@ the DFT tables streamed in chunks) on the default, profile-baseline and
 dedispersed routes with each mask held to the port's CPU clean and each
 kernel to its plain version there; holds K3 and K8 bit for bit to their
 plain versions on scaler lines of 50,000 entries (longer than a block
-holds: K9 and the two tail kernels of ``sides_tail.cu`` in place of K3)
-and streams a 48,000 x 4 x 32 archive exactly at budget 0, its mask
-held to the whole clean's; times each kernel, its plain version and the
+holds: the thread-block-cluster kernel of ``sides_cluster.cu`` in place
+of K3, one launch) and streams a 48,000 x 4 x 32 archive exactly at
+budget 0, its mask held to the whole clean's; on lines past the
+cluster's capacity (4 x 1,000,000 in float32 and float64) holds K9 and
+the two tail kernels of ``sides_tail.cu`` to the plain version; cleans
+the single-pulse archive (65,536 x 128 x 64, the golden's sample count,
+built on a worker process from the start) through ``clean_archive(ar,
+CleanConfig())``: one cluster launch and one K3 axis-1 launch an
+iteration and K9 only for the telemetry, the first iteration's four
+planes through the cluster kernel bit-equal to ``scaled_sides_plain`` and
+to ``scaled_sides_long`` in float32 and float64, the whole clean's
+weights, scores and loops bit-equal to the same clean with
+``engine.loop.scaled_sides`` swapped in this process for the old
+composition, the cluster kernel, the old composition and the tail
+kernels timed at its planes beside their bounds, ms per iteration, the
+scalers' share and peak memory; times each kernel, its plain version and the
 library yardstick beside the least time the card could take, and each
 route's iteration; prints one JSON line with the kernels and, last,
 ``{"ok": true, "device": ...}``.
@@ -586,6 +599,35 @@ def build_fullsize_seed(seed, out_dir):
                                    **bench_rfi_density(nsub, nchan),
                                    seed=seed, dtype=np.float64, disperse=True)
     path = os.path.join(out_dir, f"seed{seed}.npy")
+    np.save(path, ar.data)
+    return path, {f.name: getattr(ar, f.name) for f in dc.fields(ar)
+                  if f.name != "data"}
+
+
+# The single-pulse archive (one subint a rotation: 65,536 pulses, 4.6 h of
+# a 0.253 s pulsar): the golden's sample count, its channel lines 65,536
+# subints long, so the channel scaler takes the cluster kernel.
+SINGLE_PULSE_SHAPE = (65536, 128, 64)
+
+
+def build_single_pulse(out_dir):
+    """The single-pulse archive (``SINGLE_PULSE_SHAPE``, seed 17, the
+    golden's RFI density rules, float64, dispersed), its cube saved to
+    ``out_dir`` as a ``.npy`` (run on a worker process); returns the
+    path and the other fields."""
+    import dataclasses as dc
+
+    from iterative_cleaner_torch.io.synthetic import (
+        bench_rfi_density,
+        make_synthetic_archive,
+    )
+
+    nsub, nchan, nbin = SINGLE_PULSE_SHAPE
+    ar, _ = make_synthetic_archive(nsub=nsub, nchan=nchan, nbin=nbin,
+                                   **bench_rfi_density(nsub, nchan),
+                                   n_prezapped=2000, seed=17,
+                                   dtype=np.float64, disperse=True)
+    path = os.path.join(out_dir, "single_pulse.npy")
     np.save(path, ar.data)
     return path, {f.name: getattr(ar, f.name) for f in dc.fields(ar)
                   if f.name != "data"}
@@ -2422,11 +2464,10 @@ def long_phase(configs, dev, tag):
 
 
 def long_line_phase(dev, counts, clean_ms, tag):
-    """Phase 3g: K3 and K8 on 50,000-entry lines along both axes, bit-equal
-    to their plain versions; an exact stream at budget 0 of a 48,000 x 4
-    x 32 archive (its channel lines 48,000 long) against the whole clean;
-    the tail kernels timed on the stream's planes.  Returns the tail
-    kernels' entries for the kernels line."""
+    """Phase 3g: K3 and K8 on 50,000-entry lines along both axes (the
+    cluster kernel in place of K3), bit-equal to their plain versions; an
+    exact stream at budget 0 of a 48,000 x 4 x 32 archive (its channel
+    lines 48,000 long) against the whole clean."""
     import torch
 
     from iterative_cleaner_torch import CleanConfig, clean_streaming
@@ -2458,7 +2499,8 @@ def long_line_phase(dev, counts, clean_ms, tag):
               f"50,000): {bad} cells differ in bits, K8 fused_combine "
               f"{bad8} (tolerance: bit-equal, NaN included); launches "
               f"{json.dumps(used)}", flush=True)
-        ok &= bad == 0 and bad8 == 0 and used["side_centre"] == 4 \
+        ok &= bad == 0 and bad8 == 0 and used["side_centre"] == 0 \
+            and used[f"scaled_sides_cluster_axis{axis}"] == 1 \
             and used[f"scaled_sides_axis{axis}"] == 0
     if not ok:
         fail("long lines: K3 or K8 disagrees with its plain version")
@@ -2478,16 +2520,55 @@ def long_line_phase(dev, counts, clean_ms, tag):
           f"budget 0: kernels {json.dumps(counts[key])}, {r.loops} loops "
           f"(whole {whole.loops}), {clean_ms[key]:.1f} ms; against the whole "
           f"clean {n_mask} mask cells differ (tolerance 0) {tag}", flush=True)
-    if n_mask or r.loops != whole.loops or counts[key]["side_centre"] < 1 \
-            or counts[key]["scaled_sides_axis0"]:
+    if n_mask or r.loops != whole.loops \
+            or counts[key]["scaled_sides_cluster_axis0"] < 1 \
+            or counts[key]["side_centre"] or counts[key]["scaled_sides_axis0"]:
         fail(f"{key}: mask, loops or launches off")
 
-    # the tail kernels at the stream's shapes: one diagnostic plane of
-    # 48,000 x 4 along axis 0
-    plane = torch.from_numpy(np.ascontiguousarray(r.scores,
-                                                  dtype=np.float32)).to(dev)
-    pmask = torch.from_numpy(r.final_weights == 0).to(dev)
-    return tail_entries(plane, pmask, counts[key], key, "", tag)
+
+def past_capacity_phase(dev, counts, tag):
+    """Lines past the cluster kernel's capacity (4 columns of 1,000,000
+    subints, masked, NaN and +-inf entries, in float32 and float64): K9
+    and the tail kernels, bit-equal to the plain version, counted under
+    ``counts["past capacity"]``."""
+    import torch
+
+    from iterative_cleaner_torch.stats import kernels as K
+
+    key = "past capacity"
+    K.reset_launch_counts()
+    for dtype in (torch.float32, torch.float64):
+        n = 1000000
+        g = torch.Generator(device=dev).manual_seed(13)
+        shape = (n, 4)
+        d = [torch.randn(shape, generator=g, device=dev, dtype=dtype) * s
+             for s in (1.0, 0.3, 5.0, 2.0)]
+        mask = torch.rand(shape, generator=g, device=dev) < 0.2
+        mask[:, 1] = True
+        d[0][mask] = 0.0
+        d[2][mask] = 1e20
+        d[3].view(-1)[[21, 40]] = float("nan")
+        d[3].view(-1)[22] = float("inf")
+        route = K.scaled_sides_route(n, dtype)
+        bad = sum(bits_mismatch(a, b, torch) for a, b in zip(
+            K.scaled_sides(d, mask, 0, 5.0),
+            K.scaled_sides_plain(d, mask, 0, 5.0)))
+        cap = K.scaled_sides_cluster_capacity(K._key_bytes(dtype))
+        print(f"check K3's function past the cluster's capacity ({cap} "
+              f"entries; {shape} along axis 0, {dtype}): route {route}, "
+              f"{bad} cells differ in bits from the plain version "
+              f"(tolerance: bit-equal, NaN included) {tag}", flush=True)
+        if route != "long" or bad:
+            fail(f"past the cluster's capacity ({dtype}): route {route}, "
+                 f"{bad} cells off")
+    counts[key] = K.launch_counts()
+    used = {k: v for k, v in counts[key].items() if v}
+    print(f"{key}: launches {json.dumps(used)}", flush=True)
+    want = {"side_centre": 4, "side_scale": 4, "masked_median": 8}
+    for sfx in ("", "_f64"):
+        if any(counts[key][k + sfx] != v for k, v in want.items()) \
+                or counts[key]["scaled_sides_cluster_axis0" + sfx]:
+            fail(f"{key}: the long route's launches are off: {used}")
 
 
 # The float64 phases (dtype="float64", the reference's oracle-parity
@@ -2500,6 +2581,189 @@ F64_LONG_ARCHIVE = dict(nsub=48000, nchan=4, nbin=32, n_prezapped=50,
                         seed=12)
 F64_CLI_ARCHIVE = dict(nsub=64, nchan=128, nbin=128, n_prezapped=20,
                        seed=21)
+
+
+def single_pulse_phase(sp_fut, dev, counts, clean_ms, peak_gib, tag):
+    """Phase 3p: the single-pulse archive (``SINGLE_PULSE_SHAPE``, built on
+    a worker process) through ``clean_archive(ar, CleanConfig())``,
+    counted (one cluster launch and one K3 axis-1 launch an iteration, K9
+    the telemetry's once, no tail launch), its first iteration's four
+    planes captured; the cluster kernel on them bit-equal to the plain
+    version and to the long-line composition, in float32 and float64; the
+    whole clean bit-equal (weights, scores, loops) to the same clean with
+    the scaler's cluster lines through ``scaled_sides_long`` (substituted
+    in this process only); ms per iteration, the cluster kernel, the old
+    composition and the tail kernels at this shape beside their bounds,
+    peak memory.  Returns the kernels line's entries of the cluster
+    kernel and the tail kernels (their launches: ``counts["past
+    capacity"]``)."""
+    import torch
+
+    import iterative_cleaner_torch.engine.loop as loop
+    from iterative_cleaner_torch import CleanConfig
+    from iterative_cleaner_torch.archive import Archive
+    from iterative_cleaner_torch.backends import clean_archive
+    from iterative_cleaner_torch.stats import kernels as K
+
+    t_phase = time.perf_counter()
+    path, fields = sp_fut.result()
+    ar = Archive(data=np.load(path), **fields)
+    os.remove(path)
+    S, C, B = SINGLE_PULSE_SHAPE
+    cfg = CleanConfig()
+    key = "single pulse"
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = clean_archive(ar, cfg)
+    torch.cuda.synchronize()
+    clean_ms[key] = (time.perf_counter() - t0) * 1e3
+    counts[key] = K.launch_counts()
+    peak_gib[key] = torch.cuda.max_memory_allocated() / 2 ** 30
+    used = {k: v for k, v in counts[key].items() if v}
+    want = {k: got.loops for k in (
+        "weighted_marginals", "cell_diagnostics_disp",
+        "scaled_sides_cluster_axis0", "scaled_sides_axis1", "combine_zap",
+        "masked_median")}
+    print(f"{key}: {S}x{C}x{B} through clean_archive(ar, CleanConfig()): "
+          f"kernels {json.dumps(used)}, {got.loops} loops, whole clean "
+          f"{clean_ms[key]:.1f} ms, peak device memory {peak_gib[key]:.2f} "
+          f"GiB {tag}", flush=True)
+    if used != want:
+        fail(f"{key}: launches {used}, want one cluster launch, one K3 "
+             f"axis-1 launch and K9 once an iteration: {want}")
+    if not np.all(np.isfinite(got.scores[got.final_weights != 0])) \
+            or got.final_weights.shape != (S, C):
+        fail(f"{key}: scores or weights malformed")
+
+    # the same clean with the scaler's cluster lines through the old
+    # composition, its first iteration's four planes captured
+    real = loop.scaled_sides
+    first = {}
+
+    def via_long(diags, mask, axis, thresh):
+        if not first:
+            first.update(planes=[d.clone() for d in diags],
+                         mask=mask.clone(), thresh=thresh)
+        n = mask.shape[-2] if axis == 0 else mask.shape[-1]
+        if K.scaled_sides_route(n, diags[0].dtype) == "cluster":
+            return K.scaled_sides_long(diags, mask, axis, thresh)
+        return real(diags, mask, axis, thresh)
+
+    loop.scaled_sides = via_long
+    try:
+        K.reset_launch_counts()
+        old = clean_archive(ar, cfg)
+        torch.cuda.synchronize()
+        old_counts = {k: v for k, v in K.launch_counts().items() if v}
+    finally:
+        loop.scaled_sides = real
+    n_bits = sum(bits_mismatch(torch.from_numpy(np.ascontiguousarray(a)),
+                               torch.from_numpy(np.ascontiguousarray(b)),
+                               torch)
+                 for a, b in ((got.final_weights, old.final_weights),
+                              (got.scores, old.scores),
+                              (got.iter_metrics, old.iter_metrics)))
+    print(f"{key}: the clean through scaled_sides_long (launches "
+          f"{json.dumps(old_counts)}): {n_bits} weights, scores and "
+          f"telemetry values differ in bits (tolerance: bit-equal), loops "
+          f"{old.loops} against {got.loops} {tag}", flush=True)
+    if n_bits or old.loops != got.loops:
+        fail(f"{key}: the cluster kernel's clean differs from the clean "
+             f"through scaled_sides_long")
+    del old
+
+    # the first iteration's four planes: the cluster kernel against the
+    # plain version and the old composition, float32 and float64
+    planes, mask, thresh = first["planes"], first["mask"], first["thresh"]
+    entries = []
+    bound = profiling.kernel_bounds(S, C, B)["scaled_sides_cluster_axis0"]
+    bound64 = profiling.kernel_bounds(S, C, B, cube_bytes=8)[
+        "scaled_sides_cluster_axis0"]
+    for sfx, ps, (bms, bby) in (("", planes, bound),
+                                ("_f64", [p.double() for p in planes],
+                                 bound64)):
+        plan = K.scaled_sides_cluster_geometry(S, 0, 8 if sfx else 4)
+        cl = K.scaled_sides_cluster(ps, mask, 0, thresh)
+        pl = K.scaled_sides_plain(ps, mask, 0, thresh)
+        lo = K.scaled_sides_long(ps, mask, 0, thresh)
+        bad_p = sum(bits_mismatch(a, b, torch) for a, b in zip(cl, pl))
+        bad_l = sum(bits_mismatch(a, b, torch) for a, b in zip(cl, lo))
+        err = max(max_abs_diff(a, b, torch) for a, b in zip(cl, pl))
+        print(f"check the cluster kernel{sfx} on the first iteration's four "
+              f"planes ({S} x {C} along axis 0, {plan.cluster} blocks a "
+              f"line, {plan.lines} lines a cluster, {plan.diags} "
+              f"diagnostics at once): {bad_p} cells differ in bits from "
+              f"scaled_sides_plain, {bad_l} from scaled_sides_long "
+              f"(tolerance: bit-equal, NaN included) {tag}", flush=True)
+        if bad_p or bad_l:
+            fail(f"{key}: the cluster kernel{sfx} disagrees")
+        ms = cuda_ms(lambda: K.scaled_sides_cluster(ps, mask, 0, thresh), 20,
+                     torch)
+        long_ms = cuda_ms(lambda: K.scaled_sides_long(ps, mask, 0, thresh),
+                          5, torch)
+        plain_ms = cuda_ms(lambda: K.scaled_sides_plain(ps, mask, 0, thresh),
+                           2, torch)
+        name = "scaled_sides_cluster_axis0" + sfx
+        # the float64 build's launches: the float64 long-lines stream's
+        run = "f64 stream (long lines)" if sfx else key
+        launches = counts[run][name]
+        entries.append({
+            "name": name, "route": "cuda",
+            "source": "iterative_cleaner_torch/stats/csrc/sides_cluster.cu",
+            "replaces": "iterative_cleaner_tpu/stats/pallas_kernels.py:433",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby,
+            "library_ms": None, "long_composition_ms": long_ms,
+            "shape": [S, C], "plan": plan._asdict(),
+            "launches_by_route": {r: c[name] for r, c in counts.items()
+                                  if c.get(name)}})
+        print(f"time {name}: {ms:.4f} ms, bound {bms:.4f} ms ({bby}), plain "
+              f"{plain_ms:.4f} ms, the old composition (scaled_sides_long, "
+              f"K9 x 8 + side_centre x 4 + side_scale x 4) {long_ms:.4f} ms, "
+              f"at {S} x {C} along axis 0; {launches} launches in the "
+              f"{run} run {tag}", flush=True)
+        # the tail kernels on the first plane at this shape
+        d0 = ps[0]
+        entries += tail_entries(d0, mask, counts["past capacity"],
+                                "past capacity", sfx, tag)
+        del cl, pl, lo
+
+    # ms per iteration on the resident cube, the scalers' share
+    weights = torch.from_numpy(np.ascontiguousarray(
+        ar.weights, dtype=np.float32)).to(dev)
+    meta = [torch.from_numpy(np.ascontiguousarray(
+        ar.freqs_mhz, dtype=np.float32)).to(dev)]
+    meta += [torch.tensor(v, dtype=torch.float32, device=dev)
+             for v in (ar.dm, ar.centre_freq_mhz, ar.period_s)]
+    cube32 = torch.from_numpy(np.ascontiguousarray(
+        ar.total_intensity(), dtype=np.float32)).to(dev)
+    dedispersed = ar.dedispersed
+    del ar
+    prep = loop.prepare(cube32, weights, *meta, cfg, dedispersed=dedispersed)
+    del cube32
+    common = dict(chanthresh=cfg.chanthresh, subintthresh=cfg.subintthresh,
+                  rotation=cfg.rotation, baseline_duty=cfg.baseline_duty)
+    wmask = weights == 0
+    it_ms = cuda_ms(lambda: loop.iteration_step(prep, weights, weights,
+                                                wmask, **common), 5, torch)
+    ax1_ms = cuda_ms(lambda: K.scaled_sides(planes, mask, 1,
+                                            cfg.subintthresh), 20, torch)
+    sides_ms = entries[0]["ms"] + ax1_ms
+    print(f"clean {key}: {got.loops} loops, whole clean {clean_ms[key]:.1f} "
+          f"ms, {it_ms:.3f} ms per iteration (device, resident cube), the "
+          f"scalers {sides_ms:.4f} ms of it ({100 * sides_ms / it_ms:.1f}%: "
+          f"cluster axis 0 {entries[0]['ms']:.4f}, K3 axis 1 {ax1_ms:.4f}), "
+          f"through the old composition "
+          f"{entries[0]['long_composition_ms'] + ax1_ms:.4f} ms; peak device "
+          f"memory of the clean {peak_gib[key]:.2f} GiB {tag}", flush=True)
+    del prep, planes, mask, first
+    torch.cuda.empty_cache()
+    print(f"phase 3p, the single-pulse archive: "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return entries
 
 
 def tail_entries(plane, pmask, launches, route, suffix, tag):
@@ -2844,7 +3108,7 @@ def float64_phases(ar, configs, results, counts, clean_ms, peak_gib,
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # ---- (5) long scaler lines in float64: an exact stream of 48,000
-    # subints at budget 0 (K9 and the tail kernels in place of K3)
+    # subints at budget 0 (the cluster kernel in place of K3)
     t_phase = time.perf_counter()
     lar, _ = make_synthetic_archive(**F64_LONG_ARCHIVE)
     whole = clean_archive(lar, CleanConfig(dtype="float64"))
@@ -2866,12 +3130,10 @@ def float64_phases(ar, configs, results, counts, clean_ms, peak_gib,
           f"against the whole float64 clean {n_mask} mask cells differ "
           f"(tolerance 0) {tag}", flush=True)
     if n_mask or r.loops != whole.loops or stray \
-            or counts[key]["side_centre_f64"] < 1 \
+            or counts[key]["scaled_sides_cluster_axis0_f64"] < 1 \
+            or counts[key]["side_centre_f64"] \
             or counts[key]["scaled_sides_axis0_f64"]:
         fail(f"{key}: mask, loops or launches off")
-    plane = torch.from_numpy(np.ascontiguousarray(r.scores)).to(dev)
-    pmask = torch.from_numpy(r.final_weights == 0).to(dev)
-    kernels.extend(tail_entries(plane, pmask, counts[key], key, "_f64", tag))
     print(f"float64 phase (5), long lines: "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     return kernels
@@ -4424,6 +4686,10 @@ def main() -> int:
         mp_context=multiprocessing.get_context("spawn"))
     fullsize_futs = [archive_pool.submit(build_fullsize_seed, s, batch_dir)
                      for s in FULLSIZE_BATCH_SEEDS]
+    # and the single-pulse archive of phase 3p, after them
+    sp_dir = tempfile.mkdtemp(prefix="icln_chip_smoke_single_pulse_")
+    atexit.register(shutil.rmtree, sp_dir, True)
+    sp_fut = archive_pool.submit(build_single_pulse, sp_dir)
     # and the fleet phases' PSRFITS files, on a worker of their own
     fleet_pool = ProcessPoolExecutor(
         max_workers=1, mp_context=multiprocessing.get_context("spawn"))
@@ -4503,7 +4769,9 @@ def main() -> int:
     batch_times, batch_shapes, batch_ars = batch_phases(
         ar, results["default"], counts, clean_ms, peak_gib, dev, tag,
         fullsize_futs)
-    archive_pool.shutdown()
+    # the single-pulse archive may still be building: its worker is
+    # reaped after phase 3p
+    archive_pool.shutdown(wait=False)
     shutil.rmtree(batch_dir, ignore_errors=True)
     batch_cli_phase(tag)
     # ---- 3n. the fleet (--fleet): (f1) a mixed fleet against --batch and
@@ -4840,10 +5108,19 @@ def main() -> int:
     long_phase(configs, dev, tag)
 
     # ---- 3g. scaler lines longer than a block holds: K3 and K8 on
-    # 50,000-entry lines (K9 and the tail kernels in place of K3), and an
-    # exact stream at budget 0 of an archive of 48,000 subints, its mask
-    # held to the whole clean's
-    tail_ms = long_line_phase(dev, counts, clean_ms, tag)
+    # 50,000-entry lines (the cluster kernel in place of K3), and an exact
+    # stream at budget 0 of an archive of 48,000 subints, its mask held to
+    # the whole clean's; lines past the cluster's capacity (K9 and the
+    # tail kernels)
+    long_line_phase(dev, counts, clean_ms, tag)
+    past_capacity_phase(dev, counts, tag)
+    # ---- 3p. the single-pulse archive (65,536 x 128 x 64) through
+    # clean_archive: the channel scaler one cluster launch an iteration,
+    # held to the clean through scaled_sides_long; the cluster kernel and
+    # the tail kernels timed at its planes
+    long_entries = single_pulse_phase(sp_fut, dev, counts, clean_ms,
+                                      peak_gib, tag)
+    archive_pool.shutdown()
 
     # ---- 4. each kernel against its plain version, at its route's
     # shapes: the first iteration's inputs of the same archive ----
@@ -5230,7 +5507,7 @@ def main() -> int:
         print(f"time {name}: {ms:.4f} ms, bound {bms:.4f} ms ({bby}), plain "
               f"{pms:.4f} ms, library {lib} ms, {what} on the {route} route "
               f"{tag}", flush=True)
-    kernels.extend(tail_ms)
+    kernels.extend(long_entries)
     kernels.extend(f64_kernels)
     for k in kernels:
         # the online step's kernels at its shapes, (o3)

@@ -172,10 +172,15 @@ def storage_kernels(kernels, compute_dtype: str,
     return tuple(k + "_bf16" if k in CUBE_KERNELS else k for k in kernels)
 
 
-# K3's route on scaler lines over 46,486 entries (the archive's subints
-# or channels): K9 for the medians and these two for the centring and
-# the side (stats.kernels.scaled_sides_long), on any route.
-LONG_LINE_KERNELS = ("side_centre", "side_scale")
+# K3's routes on scaler lines over 46,486 entries (the archive's subints
+# or channels; 28,224 in float64), on any route: the cluster kernel, one
+# thread-block cluster a line, up to its capacity
+# (stats.kernels.scaled_sides_route "cluster"); past it K9 for the
+# medians and the two tail kernels for the centring and the side
+# (stats.kernels.scaled_sides_long).
+LONG_LINE_KERNELS = ("scaled_sides_cluster_axis0",
+                     "scaled_sides_cluster_axis1", "side_centre",
+                     "side_scale")
 
 
 def iter_quality_series(iter_metrics, n_cells: int) -> dict:

@@ -350,7 +350,8 @@ def clean_fleet(paths: Sequence[str], config: CleanConfig, *,
                 resilience=None,
                 out_path_fn: Optional[Callable[[str], str]] = None,
                 hosts=None, tracer=None,
-                trace: Optional[dict] = None) -> FleetReport:
+                trace: Optional[dict] = None,
+                identity: Optional[CleanConfig] = None) -> FleetReport:
     """Serve an archive-path list through the batched clean on
     ``config.device``.
 
@@ -383,7 +384,10 @@ def clean_fleet(paths: Sequence[str], config: CleanConfig, *,
     Tracer`, default None: tracing off) records the fleet's spans;
     ``trace`` (a ``{"trace_id", "span_id"}`` context, e.g. the serve
     daemon's execute span) parents its root span, and rides the
-    journal's completion and claim lines.
+    journal's completion and claim lines.  ``identity`` (default
+    ``config``) is the config whose hash keys the journal's lines: the
+    serve daemon's request config, whose ``backend`` may name the numpy
+    oracle while ``config`` names the torch engine.
     ``mesh`` is ROADMAP item 3b: ``NotImplementedError``."""
     from iterative_cleaner_torch.io import load_archive
     from iterative_cleaner_torch.parallel.batch import (
@@ -457,7 +461,8 @@ def clean_fleet(paths: Sequence[str], config: CleanConfig, *,
     # report's n_* fields are this run's deltas
     mark = reg.counters_mark()
 
-    cfg_hash = config_hash(config) if res.journal is not None else ""
+    cfg_hash = (config_hash(config if identity is None else identity)
+                if res.journal is not None else "")
     pending_paths = list(paths)
     if res.resume and res.journal is not None:
         done = res.journal.completed(cfg_hash)

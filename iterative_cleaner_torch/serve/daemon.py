@@ -14,7 +14,8 @@ batch iteration), stream requests through :class:`~iterative_cleaner_
 torch.online.OnlineSession` (K6, K3 x 2 and the combine a subint) or,
 with ``--mux``, the daemon's :class:`~iterative_cleaner_torch.online.
 StreamMux`.  A request whose clean fails ends ``failed``; nothing is
-retried on the host.
+retried on the host.  A request's ``backend`` override (the numpy oracle)
+is part of its config's identity, not its engine (:func:`engine_config`).
 
 Lifecycle (one request)::
 
@@ -97,6 +98,15 @@ class _StreamState:
     keys: set = dataclasses.field(default_factory=set)
     lock: threading.Lock = dataclasses.field(default_factory=threading.Lock)
     closed: bool = False
+
+
+def engine_config(cfg: CleanConfig) -> CleanConfig:
+    """The config a request is cleaned under: its own with the torch
+    engine.  The request's own config stays its identity (journal lines,
+    result-cache key)."""
+    # the reference's batched clean reads no backend, so a numpy request
+    # is cleaned on the card there too
+    return dataclasses.replace(cfg, backend="torch")
 
 
 def default_out_path(p: str) -> str:
@@ -856,7 +866,8 @@ class ServeDaemon:
                 stage_timeout_s=self.stage_timeout_s,
                 journal=self.journal, resume=True)
             report = clean_fleet(
-                req.paths, cfg, registry=self.registry,
+                req.paths, engine_config(cfg), identity=cfg,
+                registry=self.registry,
                 io_workers=self.io_workers,
                 write_fn=self._write_one, resilience=plan,
                 out_path_fn=default_out_path,
@@ -1015,14 +1026,15 @@ class ServeDaemon:
             cfg = st.req.effective_config(self.base_config)
             if self.mux is not None:
                 st.session = self.mux.open(
-                    st.req.request_id, meta, cfg,
+                    st.req.request_id, meta, engine_config(cfg),
                     trace_id=st.req.trace_id,
                     parent_span_id=st.req.root_span_id,
                     profile=(True if self.serve_config.profile_dir
                              else None))
             else:
                 st.session = OnlineSession(
-                    meta, cfg, registry=self.registry, tracer=self.tracer,
+                    meta, engine_config(cfg), registry=self.registry,
+                    tracer=self.tracer,
                     trace_id=st.req.trace_id,
                     parent_span_id=st.req.root_span_id,
                     stream_id=st.req.request_id,

@@ -28,13 +28,14 @@ Every parse failure raises :class:`RequestError` with a message fit for a
 400 response or a spool ``.rejected`` marker — a malformed submission
 must never take the daemon down.
 
-The port's differences from the reference's wire format: the reference's
+The port's difference from the reference's wire format: the reference's
 TPU route knobs (``fft_mode``, ``median_impl``, ``stats_impl``) are not
 overridable, since the port has one route and no such knob (the CLI's
-parser refuses them too); and a request whose effective config is the
-numpy oracle (``backend: "numpy"``) is refused at admission, because
-the daemon cleans through the fleet's batched clean, which runs the
-torch engine only (a torch request is never moved to the host).
+parser refuses them too).  ``backend: "numpy"`` is accepted as the
+reference accepts it; the daemon keeps it in the request's config (its
+journal lines and result-cache key) and cleans on the card, as the
+reference's batched clean does whatever ``backend`` names
+(:func:`~iterative_cleaner_torch.serve.daemon.engine_config`).
 """
 
 from __future__ import annotations
@@ -53,8 +54,7 @@ from iterative_cleaner_torch.telemetry.tracing import (
 
 # CleanConfig fields a request may override: the per-request cleaning
 # semantics, nothing that changes where outputs land or how the daemon
-# survives.  (backend is named as in the reference, but only "torch" is
-# served: see _check_backend.)
+# survives.  (backend is included: a tenant may ask for the numpy oracle.)
 OVERRIDABLE = (
     "chanthresh", "subintthresh", "max_iter", "pulse_region",
     "bad_chan", "bad_subint", "backend", "rotation", "stats_frame",
@@ -110,16 +110,13 @@ class ServeRequest:
     def effective_config(self, base: CleanConfig) -> CleanConfig:
         """The request's cleaning config: daemon base + overrides.  The
         CleanConfig validators run here, so an override combination the
-        config rejects fails the REQUEST, not the daemon; so does a
-        config the daemon does not serve (:func:`_check_backend`)."""
-        cfg = base
-        if self.overrides:
-            try:
-                cfg = dataclasses.replace(base, **self.overrides)
-            except (TypeError, ValueError) as exc:
-                raise RequestError(f"invalid overrides: {exc}") from exc
-        _check_backend(cfg)
-        return cfg
+        config rejects fails the REQUEST, not the daemon."""
+        if not self.overrides:
+            return base
+        try:
+            return dataclasses.replace(base, **self.overrides)
+        except (TypeError, ValueError) as exc:
+            raise RequestError(f"invalid overrides: {exc}") from exc
 
     def journal_fields(self) -> dict:
         """What the 'accepted' journal entry records — everything needed
@@ -177,19 +174,6 @@ class ServeRequest:
             trace_id=(str(entry["trace_id"]) if entry.get("trace_id")
                       else new_trace_id()),
         )
-
-
-def _check_backend(cfg: CleanConfig) -> None:
-    """Refuse a config whose backend the daemon does not serve: its
-    archive requests run through ``parallel/fleet.clean_fleet``, whose
-    batched clean runs the torch engine only, and its stream requests
-    through ``OnlineSession``, likewise.  The numpy oracle stays the
-    CLI's (``--backend numpy``, one archive at a time)."""
-    if cfg.backend != "torch":
-        raise RequestError(
-            f"backend {cfg.backend!r} is not served: the daemon cleans "
-            f"through the fleet's batched clean, which requires the torch "
-            f"backend (clean it with the CLI's --backend numpy instead)")
 
 
 def _check_overrides(overrides: dict) -> dict:

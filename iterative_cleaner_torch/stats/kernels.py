@@ -19,6 +19,8 @@ K2     :func:`cell_diagnostics_disp`      ``cell_diagnostics_pallas_disp``
        (csrc/cell_stats.cu)               (``_wres_disp`` + ``_diag_tail``)
 K3     :func:`scaled_sides`               ``scaled_sides_pallas``, both axes
        (csrc/scaled_sides.cu)             (body ``_scaled_sides_body``)
+K3c    :func:`scaled_sides_cluster`       the same, on lines over one block:
+       (csrc/sides_cluster.cu)            one thread-block cluster a line
 K4     K2 + K3 x 2 + :func:`combine_zap`  ``fused_sweep_pallas`` (tail
        (csrc/combine.cu)                  ``_combine_zap`` / ``_median4``)
 K5     K6 + K3 x 2 + :func:`combine_zap`  ``fused_sweep_pallas_dedisp``
@@ -35,8 +37,9 @@ K10    :func:`shard_diagnostics_disp`,    ``sweep_shard_diags_disp``,
        :func:`shard_diagnostics_dedisp`   ``sweep_shard_diags_dedisp``
        (csrc/shard_stats.cu)              (the cell-sharded clean's shard)
 tail   :func:`side_centre`,               ``_scaled_sides_body``'s centring
-       :func:`side_scale`                 and side on lines too long for K3
-       (csrc/sides_tail.cu)               (:func:`scaled_sides_long`, with K9)
+       :func:`side_scale`                 and side on lines too long for a
+       (csrc/sides_tail.cu)               cluster (:func:`scaled_sides_long`,
+                                          with K9)
 =====  =================================  ==================================
 
 Each source file states what bounds its kernel on the card and what its
@@ -74,14 +77,15 @@ archive alone.  The plain versions take the batch too, one archive at a
 time.
 
 float64 (``CleanConfig(dtype="float64")``, the reference's oracle-parity
-mode) has builds of K1, K2, K6, K7, K3, the combine, K9 and the tail
-kernels: the same kernels with double storage and arithmetic and 64-bit
-order-preserving keys in the selects (:func:`ordered_key` of a float64
-tensor).  No TPU kernel takes float64 (the reference runs it through its
-XLA route); each float64 build computes what that route computes, held to
-its plain version in float64.  Their launches are counted apart
-(``launches_f64``; ``<name>_f64`` in :func:`launch_counts`).  K10's
-float64 build is ROADMAP item 1b: a float64 block on the card raises.
+mode) has builds of K1, K2, K6, K7, K3 (block and cluster), the combine,
+K9 and the tail kernels: the same kernels with double storage and
+arithmetic and 64-bit order-preserving keys in the selects
+(:func:`ordered_key` of a float64 tensor).  No TPU kernel takes float64
+(the reference runs it through its XLA route); each float64 build
+computes what that route computes, held to its plain version in float64.
+Their launches are counted apart (``launches_f64``; ``<name>_f64`` in
+:func:`launch_counts`).  K10's float64 build is ROADMAP item 1b: a
+float64 block on the card raises.
 The plain versions follow their inputs' dtype (a bf16 cube is read as
 float32).
 """
@@ -123,7 +127,7 @@ CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = _PKG_DIR / "_build"
 SOURCES = ("marginals.cu", "cell_stats.cu", "shard_stats.cu",
            "scaled_sides.cu", "combine.cu", "masked_median.cu",
-           "sides_tail.cu")
+           "sides_tail.cu", "sides_cluster.cu")
 # -fmad=false: no contraction of a*b+c, so the kernels round as the
 # reference does; no fast-math; sm_90a (Hopper).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -268,6 +272,8 @@ _SIGNATURES = {
     "icln_combine_zap": [_P] * 11 + [_LL, _I, _P],
     "icln_masked_median": [_P] * 4 + [_I, _I, _LL, _LL, _I, _I, _I, _I, _LL,
                                       _I, _P],
+    "icln_sides_cluster": [_P] * 9 + [_I, _I, _I, _LL, _LL, _LL, _LL, _D,
+                                      _I, _I, _I, _I, _LL, _I, _P],
     "icln_side_centre": [_P] * 6 + [_LL, _I, _I, _I, _I, _P],
     "icln_side_scale": [_P] * 5 + [_LL, _I, _I, _I, _D, _I, _P],
 }
@@ -1148,8 +1154,9 @@ def scaled_sides_plain(diagnostics, cell_mask, axis, thresh):
 
 
 # --------------------------------------------------------------------------
-# The scaler's tail on long lines: K9 for the medians, two elementwise
-# kernels for the centring and the side (csrc/sides_tail.cu)
+# K3's launch plans: one block a line (scaled_sides.cu), one thread-block
+# cluster a line (sides_cluster.cu); and the route between them and the
+# long-line composition
 # --------------------------------------------------------------------------
 
 class SidesPlan(NamedTuple):
@@ -1197,27 +1204,116 @@ def scaled_sides_geometry(n: int, axis: int,
                                  scaled_sides_smem(n, diags, lines,
                                                    key_bytes))
     raise ValueError(f"scaled_sides: lines of {n} entries do not fit a "
-                     f"block (scaled_sides_route takes them long)")
+                     f"block (scaled_sides_route takes them to a cluster)")
 
 
-# The longest line K3 takes in one block; longer lines go through
-# scaled_sides_long.  The boundary is kept where the port has always drawn
-# it, so that no shape changes route.
+# The longest line K3 takes in one block; longer lines go to a cluster
+# of blocks (sides_cluster.cu) or, past its capacity, through
+# scaled_sides_long.  The boundary is kept where the port has always
+# drawn it, so that no shape below it changes route.
 LONGEST_BLOCK_LINE = 46486
 # The same for float64 planes: the longest line whose 8-byte keys, bins,
 # mask bits and the select's static state fit one block (one line, one
 # diagnostic at a time).
 LONGEST_BLOCK_LINE_F64 = 28224
 
+# The cluster kernel: at most SIDES_CLUSTER_MAX blocks a line (the
+# portable cluster size: the non-portable 16 is not taken), from the
+# cluster sizes SIDES_CLUSTER_SIZES; its static shared memory (the
+# select's state and three pairs of per-line flags) beside each block's
+# dynamic shared memory.
+SIDES_CLUSTER_SIZES = (2, 4, 8)
+SIDES_CLUSTER_MAX = SIDES_CLUSTER_SIZES[-1]
+
+
+class SidesClusterPlan(NamedTuple):
+    """The cluster kernel's launch (``sides_cluster.cu``): ``cluster``
+    (C) blocks a line, each holding ``slice`` entries of it (a multiple of
+    32; C * slice >= n), ``lines`` (W) adjacent lines a cluster,
+    ``diags`` (D) of the four diagnostics at once, ``threads`` a block and
+    ``smem`` bytes of dynamic shared memory a block."""
+    cluster: int
+    slice: int
+    lines: int
+    diags: int
+    threads: int
+    smem: int
+
+
+def sides_cluster_static_smem(key_bytes: int) -> int:
+    """Static shared memory of the cluster kernel: a block select's
+    (:func:`_select_static_smem`) and 1 KB for its per-line flags and
+    their cluster totals (1,088 bytes in all with 32-bit keys, 1,472 with
+    64-bit ones)."""
+    return _select_static_smem(key_bytes) + 1024
+
+
+def _cluster_slice(n: int, cluster: int) -> int:
+    """Entries of a line one of ``cluster`` blocks holds: n / C rounded up
+    to 32, so that every block's keys and mask words start aligned."""
+    per = -(-n // cluster)
+    return -(-per // 32) * 32
+
+
+def _cluster_fits(slice_: int, diags: int, lines: int,
+                  key_bytes: int) -> bool:
+    return (scaled_sides_smem(slice_, diags, lines, key_bytes)
+            + sides_cluster_static_smem(key_bytes) <= _SMEM_LIMIT)
+
+
+def scaled_sides_cluster_geometry(n: int, axis: int,
+                                  key_bytes: int = 4) -> SidesClusterPlan:
+    """The cluster kernel's :class:`SidesClusterPlan` on lines of ``n``
+    entries along ``axis``: as K3's plan, the most lines a cluster that
+    fit (up to 8 columns along axis 0, one row along axis 1), then the
+    most diagnostics at once (4, 2 or 1), then the fewest blocks a line of
+    SIDES_CLUSTER_SIZES whose slices fit.  ``ValueError`` past
+    :func:`scaled_sides_cluster_capacity`."""
+    for lines in ((8, 4, 2, 1) if axis == 0 else (1,)):
+        for diags in (4, 2, 1):
+            for cluster in SIDES_CLUSTER_SIZES:
+                sl = _cluster_slice(n, cluster)
+                if _cluster_fits(sl, diags, lines, key_bytes):
+                    return SidesClusterPlan(
+                        cluster, sl, lines, diags,
+                        _select_threads(lines * sl),
+                        scaled_sides_smem(sl, diags, lines, key_bytes))
+    raise ValueError(f"scaled_sides: lines of {n} entries do not fit a "
+                     f"cluster of {SIDES_CLUSTER_MAX} blocks "
+                     f"(scaled_sides_route takes them long)")
+
+
+@functools.lru_cache(maxsize=None)
+def scaled_sides_cluster_capacity(key_bytes: int = 4) -> int:
+    """The longest line the cluster kernel takes: SIDES_CLUSTER_MAX
+    blocks, each holding the longest slice (a multiple of 32) of one
+    line and one diagnostic that fits its shared memory (444,672 entries
+    for float32 planes, 224,768 for float64)."""
+    sl = 32
+    while _cluster_fits(sl + 32, 1, 1, key_bytes):
+        sl += 32
+    return SIDES_CLUSTER_MAX * sl
+
 
 def scaled_sides_route(n: int, dtype=torch.float32) -> str:
-    """``"block"`` where K3 takes a line of ``n`` entries in one block
-    (n up to LONGEST_BLOCK_LINE, LONGEST_BLOCK_LINE_F64 for float64
-    planes), ``"long"`` above."""
-    longest = LONGEST_BLOCK_LINE_F64 if dtype == torch.float64 \
+    """How K3's function runs on lines of ``n`` entries: ``"block"`` (K3,
+    one block a line) up to LONGEST_BLOCK_LINE (LONGEST_BLOCK_LINE_F64
+    for float64 planes), ``"cluster"`` (one thread-block cluster a line)
+    up to :func:`scaled_sides_cluster_capacity`, ``"long"``
+    (:func:`scaled_sides_long`: K9 and the tail kernels) above."""
+    key_bytes = _key_bytes(dtype)
+    longest = LONGEST_BLOCK_LINE_F64 if key_bytes == 8 \
         else LONGEST_BLOCK_LINE
-    return "block" if n <= longest else "long"
+    if n <= longest:
+        return "block"
+    return "cluster" if n <= scaled_sides_cluster_capacity(key_bytes) \
+        else "long"
 
+
+# --------------------------------------------------------------------------
+# The long-line composition past a cluster: K9 for the medians, two
+# elementwise kernels for the centring and the side (csrc/sides_tail.cu)
+# --------------------------------------------------------------------------
 
 def _line_dims(plane, axis):
     nsub, nchan = plane.shape
@@ -1318,7 +1414,9 @@ def scaled_sides_long(diagnostics, cell_mask, axis, thresh):
     diagnostic K9 for the median, :func:`side_centre`, K9 on the
     magnitudes for the MAD, :func:`side_scale`; the rFFT diagnostic the
     same with an all-False mask and the NaN-line flags.  Each step is its
-    kernel on the card and its plain version on the CPU."""
+    kernel on the card and its plain version on the CPU.
+    :func:`scaled_sides` takes it on lines past the cluster kernel's
+    capacity (:func:`scaled_sides_route` ``"long"``)."""
     d0, d1, d2, d3 = diagnostics
     outs = []
     for d in (d0, d1, d2):
@@ -1335,21 +1433,18 @@ def scaled_sides_long(diagnostics, cell_mask, axis, thresh):
     return tuple(outs)
 
 
-def scaled_sides(diagnostics, cell_mask, axis, thresh):
-    """All four scaled sides of one orientation: ``axis=0`` scales each
-    channel down the subints (channel threshold), ``axis=1`` each subint
-    across channels.  Kernel K3 on the card where a line fits a block
-    (:func:`scaled_sides_route`), :func:`scaled_sides_long` above;
-    :func:`scaled_sides_plain` on the CPU.  Bit-equal to the reference's
-    ``scaled_sides_pallas``.  A batch of (B, nsub, nchan) planes is one
-    launch: along axis 1 its B * nsub rows, along axis 0 its B * nchan
-    columns, each archive's read in place through K3's per-archive stride
-    (no transposed copy); lines too long for a block take
-    :func:`scaled_sides_long` archive by archive."""
-    if axis not in (0, 1):
-        raise ValueError("axis must be 0 or 1")
-    if not _on_card(*diagnostics, cell_mask):
-        return scaled_sides_plain(diagnostics, cell_mask, axis, thresh)
+def _sides_lines(nb: int, nsub: int, nchan: int, axis: int):
+    """K3's line addressing of (nb, nsub, nchan) planes along ``axis``:
+    ``(n, nlines, line_stride, elem_stride, lpa, archive_stride)``, line
+    l of ``n`` entries ``elem_stride`` apart starting at (l / lpa) *
+    archive_stride + (l % lpa) * line_stride (``scaled_sides.cu``)."""
+    if axis == 0:
+        return nsub, nb * nchan, 1, nchan, nchan, nsub * nchan
+    return nchan, nb * nsub, nchan, 1, nb * nsub, 0
+
+
+def _check_sides(diagnostics, cell_mask):
+    """The planes' real dtype, batch and (nsub, nchan), checked."""
     batched = cell_mask.dim() == 3
     nb = cell_mask.shape[0] if batched else 1
     nsub, nchan = cell_mask.shape[-2:]
@@ -1358,21 +1453,75 @@ def scaled_sides(diagnostics, cell_mask, axis, thresh):
     for i, d in enumerate(diagnostics):
         _require(d, f"diagnostics[{i}]", real, lead + (nsub, nchan))
     _require(cell_mask, "cell_mask", torch.bool, lead + (nsub, nchan))
-    n = nsub if axis == 0 else nchan
-    if scaled_sides_route(n, real) == "long":
-        if not batched:
+    return real, nb, nsub, nchan
+
+
+def scaled_sides_cluster(diagnostics, cell_mask, axis, thresh):
+    """K3's function on lines over one block (:func:`scaled_sides_route`
+    ``"cluster"``), one thread-block cluster a line: the cluster kernel
+    on the card (its plan :func:`scaled_sides_cluster_geometry`; a batch
+    of (B, nsub, nchan) planes in one launch, read in place), a
+    ``ValueError`` on lines past its capacity; :func:`scaled_sides_plain`
+    on the CPU.  Bit-equal to K3 and to the plain version.  A launch the
+    card refuses, or a cluster it cannot schedule, raises."""
+    if axis not in (0, 1):
+        raise ValueError("axis must be 0 or 1")
+    if not _on_card(*diagnostics, cell_mask):
+        return scaled_sides_plain(diagnostics, cell_mask, axis, thresh)
+    real, nb, nsub, nchan = _check_sides(diagnostics, cell_mask)
+    n, nlines, line_stride, elem_stride, lpa, archive_stride = \
+        _sides_lines(nb, nsub, nchan, axis)
+    plan = scaled_sides_cluster_geometry(n, axis, _key_bytes(real))
+    outs = [torch.empty_like(diagnostics[0]) for _ in range(4)]
+    lib = load_library()
+    with torch.cuda.device(cell_mask.device):
+        rc = lib.icln_sides_cluster(
+            *(_ptr(d) for d in diagnostics), _ptr(cell_mask),
+            *(_ptr(o) for o in outs), n, plan.slice, nlines, line_stride,
+            elem_stride, lpa, archive_stride, _inv_thresh(thresh, real),
+            plan.cluster, plan.lines, plan.diags, plan.threads, plan.smem,
+            int(real == torch.float64), _stream(cell_mask))
+    if real == torch.float64:
+        scaled_sides_cluster.launches_f64[axis] += 1
+    else:
+        scaled_sides_cluster.launches[axis] += 1
+    _check_rc(rc, f"scaled_sides_cluster(axis={axis})")
+    return tuple(outs)
+
+
+scaled_sides_cluster.launches = [0, 0]
+scaled_sides_cluster.launches_f64 = [0, 0]
+
+
+def scaled_sides(diagnostics, cell_mask, axis, thresh):
+    """All four scaled sides of one orientation: ``axis=0`` scales each
+    channel down the subints (channel threshold), ``axis=1`` each subint
+    across channels.  On the card by :func:`scaled_sides_route`: kernel
+    K3 where a line fits a block, :func:`scaled_sides_cluster` where it
+    fits a cluster of blocks, :func:`scaled_sides_long` above;
+    :func:`scaled_sides_plain` on the CPU.  Bit-equal to the reference's
+    ``scaled_sides_pallas``.  A batch of (B, nsub, nchan) planes is one
+    launch of K3 or the cluster kernel: along axis 1 its B * nsub rows,
+    along axis 0 its B * nchan columns, each archive's read in place
+    through K3's per-archive stride (no transposed copy); lines past a
+    cluster take :func:`scaled_sides_long` archive by archive."""
+    if axis not in (0, 1):
+        raise ValueError("axis must be 0 or 1")
+    if not _on_card(*diagnostics, cell_mask):
+        return scaled_sides_plain(diagnostics, cell_mask, axis, thresh)
+    real, nb, nsub, nchan = _check_sides(diagnostics, cell_mask)
+    n, nlines, line_stride, elem_stride, lpa, archive_stride = \
+        _sides_lines(nb, nsub, nchan, axis)
+    route = scaled_sides_route(n, real)
+    if route == "cluster":
+        return scaled_sides_cluster(diagnostics, cell_mask, axis, thresh)
+    if route == "long":
+        if cell_mask.dim() == 2:
             return scaled_sides_long(diagnostics, cell_mask, axis, thresh)
         return _stack_each(
             lambda *a: scaled_sides_long(a[:4], a[4], axis, thresh), nb,
             *((d, True) for d in diagnostics), (cell_mask, True))
     plan = scaled_sides_geometry(n, axis, _key_bytes(real))
-    # lpa lines an archive, archive_stride elements apart (K3's stride)
-    if axis == 0:
-        nlines, line_stride, elem_stride = nb * nchan, 1, nchan
-        lpa, archive_stride = nchan, nsub * nchan
-    else:
-        nlines, line_stride, elem_stride = nb * nsub, nchan, 1
-        lpa, archive_stride = nlines, 0
     outs = [torch.empty_like(diagnostics[0]) for _ in range(4)]
     lib = load_library()
     with torch.cuda.device(cell_mask.device):
@@ -1504,8 +1653,9 @@ def reset_launch_counts() -> None:
         fn.launches = fn.launches_bf16 = 0
     for fn in _F64_WRAPPERS:
         fn.launches = fn.launches_f64 = 0
-    scaled_sides.launches = [0, 0]
-    scaled_sides.launches_f64 = [0, 0]
+    for fn in (scaled_sides, scaled_sides_cluster):
+        fn.launches = [0, 0]
+        fn.launches_f64 = [0, 0]
 
 
 def launch_counts() -> dict:
@@ -1515,6 +1665,8 @@ def launch_counts() -> dict:
         **{fn.__name__: fn.launches for fn in _CUBE_WRAPPERS},
         "scaled_sides_axis0": scaled_sides.launches[0],
         "scaled_sides_axis1": scaled_sides.launches[1],
+        "scaled_sides_cluster_axis0": scaled_sides_cluster.launches[0],
+        "scaled_sides_cluster_axis1": scaled_sides_cluster.launches[1],
         "combine_zap": combine_zap.launches,
         "fused_combine": fused_combine.launches,
         "masked_median": masked_median.launches,
@@ -1525,6 +1677,8 @@ def launch_counts() -> dict:
            if fn not in (side_centre, side_scale)},
         "scaled_sides_axis0_f64": scaled_sides.launches_f64[0],
         "scaled_sides_axis1_f64": scaled_sides.launches_f64[1],
+        **{f"scaled_sides_cluster_axis{a}_f64":
+           scaled_sides_cluster.launches_f64[a] for a in (0, 1)},
         "side_centre_f64": side_centre.launches_f64,
         "side_scale_f64": side_scale.launches_f64,
     }

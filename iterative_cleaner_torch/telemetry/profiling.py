@@ -151,6 +151,9 @@ def kernel_costs(S: int, C: int, B: int,
                                     diag_ops),
         "scaled_sides_axis0": sides,
         "scaled_sides_axis1": sides,
+        # the cluster kernel computes K3's function on longer lines
+        "scaled_sides_cluster_axis0": sides,
+        "scaled_sides_cluster_axis1": sides,
         "combine_zap": (cells * (9 * rb + 2 * rb), 16 * cells),
         # K8: four planes, the mask and the weights in, new weights and
         # scores out; both orientations' selects and the combine

@@ -22,8 +22,14 @@ cells, along both axes of a 1024 x 4096 plane and on hand-made edge
 lines.  Long profiles (nbin 8192) and ragged shapes (odd nbin, nbin/2 + 1
 not a multiple of the DFT tile, a short last group, a cube not 16-byte
 aligned) within the same tolerances, K1 bit-equal from run to run, and
-K3 and K8 bit-equal on scaler lines of 50,000 and 100,000 entries (K9
-and the tail kernels in place of K3).  K3 bit-equal along both axes on
+K3 and K8 bit-equal on scaler lines of 50,000 and 100,000 entries (the
+cluster kernel in place of K3).  The cluster kernel (one thread-block
+cluster a line) bit-equal to the plain version at 46,487 (28,225 in
+float64), 65,536, 131,072 entries and its capacity, along both axes, in
+float32 and float64, one launch and no other; a batch in one launch
+bit-equal archive by archive to single launches; a refused cluster
+launch raising; one entry past the capacity K9 and the tail kernels,
+bit-equal.  K3 bit-equal along both axes on
 the edge lines and on tie-heavy lines (three distinct values, zero-MAD,
 fully masked and one-valid lines, NaN and +inf) at 1 to 46,486 entries,
 both sides of the plan's change from four diagnostics at once to two,
@@ -52,8 +58,8 @@ the combine, K8, K9 and the tail kernels against their plain float64
 versions at the float32 cases' shapes and at odd nbin (K1, K2, K6 and K7
 within 1e-12 of each plane's scale, masked cells exact; the selects,
 the combine and K9 bit-equal, NaN by position), K3 on lines either side
-of ``LONGEST_BLOCK_LINE_F64`` (the long side through K9 and the tail
-kernels), each counted under its ``_f64`` name; the whole clean on
+of ``LONGEST_BLOCK_LINE_F64`` (the long side through the cluster
+kernel), each counted under its ``_f64`` name; the whole clean on
 every route and the exact stream at budget 0 (8 bytes a sample
 uploaded) against the CPU's float64 clean (masks, loops; scores within
 1e-9); K10 refusing a float64 block (ROADMAP item 1b); and the float32
@@ -547,9 +553,9 @@ def test_k1_twice_bit_equal_on_card(card, shifted):
 @pytest.mark.parametrize("axis", [0, 1])
 @pytest.mark.parametrize("n", [50000, 100000])
 def test_k3_k8_long_lines_bit_equal_on_card(card, n, axis):
-    """Lines over 46,486 entries take K9 and the two tail kernels in
-    place of K3: the sides and K8's weights and scores bit-equal to the
-    plain versions, NaN and +-inf included."""
+    """Lines over 46,486 entries take the cluster kernel in place of K3
+    (one launch, no K9 or tail launch): the sides and K8's weights and
+    scores bit-equal to the plain versions, NaN and +-inf included."""
     g = torch.Generator().manual_seed(6)
     shape = (n, 3) if axis == 0 else (3, n)
     d = [torch.randn(shape, generator=g) * s for s in (1.0, 0.3, 5.0, 2.0)]
@@ -566,8 +572,9 @@ def test_k3_k8_long_lines_bit_equal_on_card(card, n, axis):
     got = tk.scaled_sides(d, mask, axis, 5.0)
     counts = tk.launch_counts()
     assert counts["scaled_sides_axis%d" % axis] == 0
-    assert counts["side_centre"] == 4 and counts["side_scale"] == 4
-    assert counts["masked_median"] == 8
+    assert counts["scaled_sides_cluster_axis%d" % axis] == 1
+    assert counts["side_centre"] == 0 and counts["side_scale"] == 0
+    assert counts["masked_median"] == 0
     want = tk.scaled_sides_plain(d, mask, axis, 5.0)
     assert [_bits_mismatch(a, b) for a, b in zip(got, want)] == [0] * 4
     worig = (~mask).float()
@@ -575,6 +582,126 @@ def test_k3_k8_long_lines_bit_equal_on_card(card, n, axis):
     pw, ps = tk.fused_combine_plain(d, mask, worig, 5.0, 4.0)
     assert _bits_mismatch(fs, ps) == 0
     assert _bits_mismatch(fw, pw) == 0
+
+
+# The cluster kernel (sides_cluster.cu): K3's function on lines over one
+# block, at the block line + 1, the single-pulse archive's 65,536, 131,072
+# and the cluster's capacity, along both axes, in float32 and float64.
+
+CLUSTER_DTYPES = {"f32": (torch.float32, tk.LONGEST_BLOCK_LINE, 4, ""),
+                  "f64": (torch.float64, tk.LONGEST_BLOCK_LINE_F64, 8,
+                          "_f64")}
+
+
+def _cluster_planes(n, nlines, axis, dtype, seed):
+    """Four planes of ``nlines`` lines of ``n`` entries along ``axis``: 20%
+    masked, a fully masked line, an unmasked line, a constant (zero-MAD)
+    d1 line, NaN and +-inf in d3."""
+    g = torch.Generator().manual_seed(seed)
+    shape = (n, nlines) if axis == 0 else (nlines, n)
+    d = [torch.randn(shape, generator=g, dtype=dtype) * s
+         for s in (1.0, 0.3, 5.0, 2.0)]
+    mask = torch.rand(shape, generator=g) < 0.2
+    def line(i):
+        return (slice(None), i) if axis == 0 else (i, slice(None))
+
+    mask[line(1)] = True
+    mask[line(2)] = False
+    d[1][line(3)] = 0.25
+    d[0][mask] = 0.0
+    d[2][mask] = 1e20
+    d[3].view(-1)[[21, 40]] = float("nan")
+    d[3].view(-1)[[22, 23]] = torch.tensor([float("inf"), -float("inf")],
+                                           dtype=dtype)
+    return d, mask
+
+
+def _any_bits_mismatch(got, want):
+    return (_f64_bits_mismatch if got.dtype == torch.float64
+            else _bits_mismatch)(got, want)
+
+
+@pytest.mark.parametrize("name", sorted(CLUSTER_DTYPES))
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("where", ["block+1", "65536", "131072",
+                                   "capacity"])
+def test_cluster_kernel_bit_equal_on_card(card, name, axis, where):
+    dtype, block, kb, sfx = CLUSTER_DTYPES[name]
+    cap = tk.scaled_sides_cluster_capacity(kb)
+    n = {"block+1": block + 1, "65536": 65536, "131072": 131072,
+         "capacity": cap}[where]
+    assert tk.scaled_sides_route(n, dtype) == "cluster"
+    d, mask = _cluster_planes(n, 5, axis, dtype, seed=n + axis)
+    want = tk.scaled_sides_plain(d, mask, axis, 5.0)
+    d, mask = [p.to(card) for p in d], mask.to(card)
+    tk.reset_launch_counts()
+    got = tk.scaled_sides(d, mask, axis, 5.0)
+    counts = tk.launch_counts()
+    assert {k: v for k, v in counts.items() if v} == {
+        f"scaled_sides_cluster_axis{axis}{sfx}": 1}
+    assert [_any_bits_mismatch(x.cpu(), y) for x, y in zip(got, want)] \
+        == [0] * 4
+
+
+@pytest.mark.parametrize("name", sorted(CLUSTER_DTYPES))
+@pytest.mark.parametrize("axis", [0, 1])
+def test_cluster_kernel_batch_per_archive_on_card(card, name, axis):
+    """Three archives' planes in one cluster launch (5 lines each: along
+    axis 0 a cluster's columns straddle two archives): each archive's
+    sides bit-equal to a launch on it alone."""
+    dtype, _, _, sfx = CLUSTER_DTYPES[name]
+    parts = [_cluster_planes(65536, 5, axis, dtype, seed=40 + b)
+             for b in range(3)]
+    planes = [torch.stack([p[0][i] for p in parts]).to(card)
+              for i in range(4)]
+    mask = torch.stack([p[1] for p in parts]).to(card)
+    tk.reset_launch_counts()
+    got = tk.scaled_sides(planes, mask, axis, 5.0)
+    assert tk.launch_counts()[f"scaled_sides_cluster_axis{axis}{sfx}"] == 1
+    for b in range(3):
+        one = tk.scaled_sides([p[b] for p in planes], mask[b], axis, 5.0)
+        assert [_any_bits_mismatch(x[b], y) for x, y in zip(got, one)] \
+            == [0] * 4
+
+
+@pytest.mark.parametrize("name", sorted(CLUSTER_DTYPES))
+def test_lines_past_a_cluster_take_the_long_route_on_card(card, name):
+    """One entry past the cluster's capacity: K9 and the tail kernels,
+    bit-equal to the plain version, and no cluster launch."""
+    dtype, _, kb, sfx = CLUSTER_DTYPES[name]
+    n = tk.scaled_sides_cluster_capacity(kb) + 1
+    assert tk.scaled_sides_route(n, dtype) == "long"
+    d, mask = _cluster_planes(n, 4, 0, dtype, seed=9)
+    want = tk.scaled_sides_plain(d, mask, 0, 5.0)
+    d, mask = [p.to(card) for p in d], mask.to(card)
+    tk.reset_launch_counts()
+    got = tk.scaled_sides(d, mask, 0, 5.0)
+    counts = tk.launch_counts()
+    assert counts["side_centre" + sfx] == counts["side_scale" + sfx] == 4
+    assert counts["scaled_sides_cluster_axis0" + sfx] == 0
+    assert [_any_bits_mismatch(x.cpu(), y) for x, y in zip(got, want)] \
+        == [0] * 4
+
+
+def test_cluster_launch_refusal_raises_on_card(card, monkeypatch):
+    """A cluster launch the card refuses (here: more shared memory than a
+    block may have) raises; nothing falls back to another route."""
+    d, mask = _cluster_planes(65536, 5, 0, torch.float32, seed=1)
+    d, mask = [p.to(card) for p in d], mask.to(card)
+    plan = tk.scaled_sides_cluster_geometry(65536, 0)
+    monkeypatch.setattr(tk, "scaled_sides_cluster_geometry",
+                        lambda *a: plan._replace(smem=tk._SMEM_LIMIT + 16))
+    tk.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="scaled_sides_cluster"):
+        tk.scaled_sides(d, mask, 0, 5.0)
+    counts = tk.launch_counts()
+    assert counts["side_centre"] == counts["masked_median"] == 0
+    assert counts["scaled_sides_axis0"] == 0
+    # the refusal leaves no error behind for the next launch
+    monkeypatch.undo()
+    got = tk.scaled_sides(d, mask, 0, 5.0)
+    want = tk.scaled_sides_plain(d, mask, 0, 5.0)
+    assert [_bits_mismatch(a, b) for a, b in zip(got, want)] == [0] * 4
 
 
 # K3's and K9's block radix select (common.cuh): the edge lines, tie-heavy
@@ -834,8 +961,8 @@ def test_batched_kernels_bit_equal_to_single_launches_on_card(
 
 
 def test_batched_k3_long_lines_per_archive_on_card(card):
-    """Scaler lines over 46,486 entries in a batch take K9 + the tail
-    kernels archive by archive: bit-equal to the plain version."""
+    """Scaler lines over 46,486 entries in a batch take the cluster
+    kernel, the batch in one launch: bit-equal to the plain version."""
     g = torch.Generator().manual_seed(3)
     planes = [torch.randn(2, 50000, 4, generator=g).to(card)
               for _ in range(4)]
@@ -1161,9 +1288,10 @@ def test_f64_k3_either_side_of_its_block_line_on_card(card, axis, offset):
     assert [_f64_bits_mismatch(x.cpu(), y) for x, y in zip(got, want)] \
         == [0] * 4
     counts = tk.launch_counts()
-    long = offset > 0
-    assert (counts["side_centre_f64"] > 0) == long, counts
-    assert (counts[f"scaled_sides_axis{axis}_f64"] == 1) == (not long)
+    cluster = offset > 0
+    assert counts["side_centre_f64"] == 0, counts
+    assert (counts[f"scaled_sides_cluster_axis{axis}_f64"] == 1) == cluster
+    assert (counts[f"scaled_sides_axis{axis}_f64"] == 1) == (not cluster)
 
 
 @pytest.mark.parametrize("dim", [0, 1])

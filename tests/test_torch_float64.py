@@ -240,11 +240,14 @@ def test_k9_plain_float64_bit_equal_to_reference(axis):
 
 @pytest.mark.parametrize("axis", [0, 1])
 def test_float64_long_lines_bit_equal_to_k3_plain(axis):
-    """Past LONGEST_BLOCK_LINE_F64 the card takes K9 and the tail
-    kernels: their plain versions give K3's bits."""
+    """Past LONGEST_BLOCK_LINE_F64 the card takes the cluster kernel, and
+    past its capacity K9 and the tail kernels: their plain versions give
+    K3's bits."""
     n = tk.LONGEST_BLOCK_LINE_F64 + 1
-    assert tk.scaled_sides_route(n, F64) == "long"
+    assert tk.scaled_sides_route(n, F64) == "cluster"
     assert tk.scaled_sides_route(n - 1, F64) == "block"
+    assert tk.scaled_sides_route(tk.scaled_sides_cluster_capacity(8) + 1,
+                                 F64) == "long"
     rng = np.random.default_rng(6)
     shape = (n, 3) if axis == 0 else (3, n)
     d = [torch.from_numpy(rng.normal(0.0, 1.0, shape)) for _ in range(4)]
@@ -296,7 +299,7 @@ def test_float64_launch_plans():
     assert not tk._sides_fits(tk.LONGEST_BLOCK_LINE_F64 + 1, 1, 1, 8)
     assert tk.LONGEST_BLOCK_LINE == 46486
     assert tk.scaled_sides_route(46486) == "block"
-    assert tk.scaled_sides_route(46487) == "long"
+    assert tk.scaled_sides_route(46487) == "cluster"
     for n in (1, 33, 4096, tk.LONGEST_BLOCK_LINE_F64):
         for axis in (0, 1):
             plan = tk.scaled_sides_geometry(n, axis, 8)

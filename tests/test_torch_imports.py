@@ -14,7 +14,8 @@ reconciles and close, ``StreamMux`` with its dispatcher thread,
 daemon with its spans, flight recorder and profiler) never loads
 ``jax`` or the reference package; no
 source of the port (``parallel/*``, ``telemetry/*``, ``utils/*`` and
-``io/*`` included) or ``chip_smoke.py`` imports either, and none names
+``io/*`` included), its timing tools (``tools/*.py``) or ``chip_smoke.py``
+imports either, and none names
 the reference's ``native/`` directory or its ``libicar.so``."""
 
 import ast
@@ -40,6 +41,10 @@ def _port_sources(exts=(".py",)):
         for name in files:
             if name.endswith(exts):
                 yield os.path.join(root, name)
+    tools = os.path.join(REPO, "tools")
+    for name in sorted(os.listdir(tools)):
+        if name.endswith(exts):
+            yield os.path.join(tools, name)
     yield os.path.join(REPO, "chip_smoke.py")
 
 
@@ -70,6 +75,14 @@ def test_no_reference_native_library_in_source(path):
         text = f.read()
     bad = [s for s in FORBIDDEN_STRINGS if s in text]
     assert not bad, f"{path} names {bad}"
+
+
+def test_cluster_kernel_and_its_timing_tool_are_scanned():
+    """The scaler's cluster kernel and the tool that times it are among
+    the scanned sources."""
+    scanned = set(_port_sources((".py", ".cu")))
+    assert os.path.join(PKG, "stats", "csrc", "sides_cluster.cu") in scanned
+    assert os.path.join(REPO, "tools", "time_long_sides.py") in scanned
 
 
 def test_batch_module_is_scanned():

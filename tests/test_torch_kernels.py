@@ -303,6 +303,7 @@ def test_wrappers_raise_on_cuda_without_a_card():
         lambda: tk.cell_diagnostics_dedisp(fake, fake, fake, fake, fake),
         lambda: tk.scaled_sides([fake] * 4, fake, 0, 5.0),
         lambda: tk.scaled_sides([fake] * 4, fake, 1, 5.0),
+        lambda: tk.scaled_sides_cluster([fake] * 4, fake, 0, 5.0),
         lambda: tk.combine_zap([fake] * 4, [fake] * 4, fake),
         lambda: tk.side_centre(fake, fake, fake, 0, True),
         lambda: tk.side_scale(fake, fake, fake, None, 0, 5.0, True),

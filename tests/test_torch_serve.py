@@ -9,12 +9,15 @@ the kernels' plain versions).
 - Requests and admission: ``parse_request``, ``request_key`` and the
   scheduler's pop order, caps, queue bound and expiry give the JAX
   package's fields, order and rejection reasons on the same payloads and
-  clock; the route knobs and the numpy oracle are refused at intake.
+  clock; the route knobs are refused at intake, and ``backend: "numpy"``
+  parses as the reference parses it.
 - The daemon in process: an HTTP round trip whose outputs are bit-equal
   to the port's ``clean_archive`` and mask-equal to the JAX default
   route, its journal read by the JAX package's ``FleetJournal``; the 429
   and 503 answers; a stream request's close bit-equal to the port's
-  ``OnlineSession``; the result cache answering with no clean.
+  ``OnlineSession``; the result cache answering with no clean; a
+  ``backend: "numpy"`` request cleaned on the engine under its own
+  identity.
 - The subprocess contracts: kill -9 and a restart clean no archive
   twice, SIGTERM drains (exit 0) and a second signal forces exit 70.
 """
@@ -276,17 +279,25 @@ def test_route_knob_overrides_are_refused_with_the_ports_message(knob):
                       base_config=CFG)
 
 
-def test_numpy_backend_override_is_refused_at_intake():
-    """The daemon serves through the fleet's batched clean, which runs
-    the torch engine only: a numpy-oracle request is refused at
-    admission, naming the fleet's refusal, never moved to the host."""
-    with pytest.raises(RequestError, match="torch backend"):
-        parse_request({"paths": ["/a"], "overrides": {"backend": "numpy"}},
-                      base_config=CFG)
-    req = parse_request({"paths": ["/a"], "overrides": {"backend":
-                                                        "torch"}},
-                        base_config=CFG)
-    assert req.effective_config(CFG).backend == "torch"
+def test_numpy_backend_override_parses_as_the_references():
+    """``backend: "numpy"`` (the reference's ``OVERRIDABLE`` names it: a
+    tenant may ask for the numpy oracle) is accepted by both parsers
+    with the same journal fields and the same effective config."""
+    from iterative_cleaner_torch.convert import config_from_reference
+
+    payload = {"paths": ["/a"], "overrides": {"backend": "numpy"},
+               "trace": "req-np"}
+    got = parse_request(payload, base_config=CFG, now=1.0)
+    want = ref_parse_request(payload, base_config=RefConfig(max_iter=3),
+                             now=1.0)
+    g, w = got.journal_fields(), want.journal_fields()
+    for d in (g, w):
+        d.pop("submitted_ts")
+    assert g == w and g["overrides"] == {"backend": "numpy"}
+    ref_cfg = want.effective_config(RefConfig(max_iter=3))
+    assert ref_cfg.backend == "numpy"
+    assert got.effective_config(CFG) == config_from_reference(
+        ref_cfg, device="cpu")
 
 
 def test_request_key_orders_as_the_reference():
@@ -622,6 +633,65 @@ def test_daemon_result_cache_answers_without_a_clean(tmp_path):
     for k in ("fleet_cleaned", "fleet_archives", "batch_archives"):
         assert after.get(k) == before.get(k), k
     assert after["serve_cache_hits"] == 2
+
+
+def test_daemon_serves_a_numpy_backend_request_on_the_engine(tmp_path):
+    """A spool request overriding ``backend: "numpy"`` is served through
+    the fleet's batched clean, as the reference's daemon serves it: its
+    outputs bit-equal to ``clean_archive`` under the torch engine, its
+    journal lines keyed by its own config's hash (``backend`` included,
+    as the reference's ``config_hash`` includes it), and its result-cache
+    entry apart from a torch request's on the same archives."""
+    from iterative_cleaner_tpu.utils.checkpoint import (
+        config_identity as ref_config_identity,
+    )
+    from iterative_cleaner_torch.utils.checkpoint import (
+        config_hash,
+        config_identity,
+    )
+
+    paths = _write(tmp_path, [(6, 12, 32), (6, 12, 32)], seed0=90)
+    numpy_cfg = dataclasses.replace(CFG, backend="numpy")
+    jpath = str(tmp_path / "serve.jsonl")
+    spool = str(tmp_path / "spool")
+    d = _daemon(tmp_path, spool_dir=spool, result_cache=True)
+    t, url = _start(d)
+    try:
+        _spool_submit(spool, "np1", {"paths": paths,
+                                     "overrides": {"backend": "numpy"}})
+        deadline = time.time() + WAIT_S
+        while not _get(url + "/requests")["requests"]:
+            assert time.time() < deadline, "the spool request never arrived"
+            time.sleep(0.05)
+        first = _wait_done(url, "np1")
+        # the fleet's done lines, keyed by the request's own config
+        done_np = FleetJournal(jpath).completed(config_hash(numpy_cfg))
+        done_torch = FleetJournal(jpath).completed(config_hash(CFG))
+        _post(url + "/submit", {"paths": paths, "id": "np2",
+                                "overrides": {"backend": "numpy"}})
+        again = _wait_done(url, "np2")
+        _post(url + "/submit", {"paths": paths, "id": "torch1"})
+        torch1 = _wait_done(url, "torch1")
+    finally:
+        _stop(d, t)
+    assert first["state"] == "done" and first["n_cleaned"] == 2
+    # the numpy resubmission is answered from its cache entry; a torch
+    # request is another identity: cleaned again
+    assert again["n_cached"] == 2 and again["n_cleaned"] == 0
+    assert torch1["n_cleaned"] == 2 and torch1.get("n_cached", 0) == 0
+    for p in paths:
+        got = load_archive(p + "_cleaned.npz").weights
+        want = clean_archive(load_archive(p), CFG).final_weights
+        np.testing.assert_array_equal(got, want.astype(got.dtype))
+    assert set(done_np) == {os.path.abspath(p) for p in paths}
+    assert not done_torch
+    assert config_hash(numpy_cfg) != config_hash(CFG)
+    assert json.loads(config_identity(numpy_cfg))["backend"] == "numpy"
+    assert json.loads(ref_config_identity(
+        RefConfig(backend="numpy")))["backend"] == "numpy"
+    states = RefJournal(jpath).request_states()
+    assert states["np1"]["overrides"] == {"backend": "numpy"}
+    assert states["np1"]["state"] == "done"
 
 
 # ------------------------------------------------- subprocess contracts

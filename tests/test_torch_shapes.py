@@ -5,8 +5,8 @@ to ``MAX_NBIN``, 16384) and scaler lines longer than one block holds
 - The launch plans of K1 (``marginals_tiles``) and of the
   cell-diagnostics kernels (``cell_stats_geometry``) cover every element
   and every DFT column once and fit a Hopper block's 232,448 bytes of
-  shared memory; K3's route switches to K9 and the tail kernels past
-  46,486 entries; profiles past ``MAX_NBIN`` raise NotImplementedError
+  shared memory; K3's route switches to the cluster kernel past 46,486
+  entries; profiles past ``MAX_NBIN`` raise NotImplementedError
   naming their ROADMAP item.
 - A 4 x 8 x 8192 archive cleaned by the port (plain versions) and by the
   JAX package on its route above 4096 bins (``stats_impl='xla'``):
@@ -19,6 +19,10 @@ to ``MAX_NBIN``, 16384) and scaler lines longer than one block holds
   ``scaled_sides_plain`` bit-equal to the JAX package's sort-route
   scaler, and the long-line composition (K9, side_centre, side_scale
   through their plain versions) bit-equal to ``scaled_sides_plain``.
+- The scaler on lines of the cluster route (2 lines of 70,000 entries:
+  masked, NaN, +-inf and a fully masked line), one archive and a batch
+  of two: ``scaled_sides`` (its plain version on the CPU) bit-equal,
+  archive by archive, to the JAX package's masked and plain scalers.
 """
 
 import jax
@@ -99,7 +103,7 @@ def test_cell_stats_plan_fits_and_covers_every_column(nbin):
 
 def test_k3_route_switches_past_one_block():
     assert tk.scaled_sides_route(46486) == "block"
-    assert tk.scaled_sides_route(46487) == "long"
+    assert tk.scaled_sides_route(46487) == "cluster"
     assert 5 * 46486 + 16 <= tk._SMEM_LIMIT < 5 * 46487 + 16
 
 
@@ -172,3 +176,42 @@ def test_scaled_sides_on_long_lines_bit_equal(axis):
         _bits_equal(g.numpy(), r)
     for g, r in zip(tk.scaled_sides_long(planes, m, axis, thresh), got):
         _bits_equal(g.numpy(), r.numpy())
+
+
+def _jax_sides(d, mask, axis, thresh):
+    """The JAX package's scaler on one archive's planes (numpy)."""
+    return jax.jit(lambda ds, mm: [
+        masked_jax.scale_lines_masked(x, mm, axis, thresh) for x in ds[:3]]
+        + [masked_jax.scale_lines_plain(ds[3], axis, thresh)])(
+        [jnp.asarray(p) for p in d], jnp.asarray(mask))
+
+
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("nb", [1, 2])
+def test_scaled_sides_on_cluster_lines_bit_equal_to_jax(axis, nb):
+    n = 70000
+    assert tk.scaled_sides_route(n) == "cluster"
+    archives = []
+    for b in range(nb):
+        d, mask = _long_planes(n, axis, seed=30 + b)
+        cut = (slice(None), slice(0, 2)) if axis == 0 else slice(0, 2)
+        archives.append(([np.ascontiguousarray(p[cut]) for p in d],
+                         np.ascontiguousarray(mask[cut])))
+    # the second line fully masked in the first archive, unmasked in the
+    # second
+    line = (slice(None), 1) if axis == 0 else (1, slice(None))
+    archives[0][1][line] = True
+    if nb == 2:
+        archives[1][1][line] = False
+    thresh = 5.0 if axis == 0 else 3.7
+    if nb == 1:
+        planes = [torch.from_numpy(p) for p in archives[0][0]]
+        m = torch.from_numpy(archives[0][1])
+    else:
+        planes = [torch.from_numpy(np.stack([a[0][i] for a in archives]))
+                  for i in range(4)]
+        m = torch.from_numpy(np.stack([a[1] for a in archives]))
+    got = tk.scaled_sides(planes, m, axis, thresh)
+    for b, (d, mask) in enumerate(archives):
+        for g, r in zip(got, _jax_sides(d, mask, axis, thresh)):
+            _bits_equal((g if nb == 1 else g[b]).numpy(), r)
