@@ -235,6 +235,20 @@ mid-fleet and a restart on the same journal: each archive journaled done
 once, the outputs (s1)'s.  The kernels line's K1, K2, K3, K7, K9, K6 and
 combine rows gain a ``serve`` entry with their launches in (s1) and (s2).
 
+The control plane (``analysis/``), after the fleet and serve phases: (c1)
+``python -m iterative_cleaner_torch --selfcheck --format json`` on a
+spawned process on the card, its ``ok`` held: zero unsuppressed lint
+findings over the package and every registered hot program's card
+contracts (no host sync inside a step, one per loop iteration, no
+float64, the pinned dispatch count, the cube read by its kernels alone,
+no cube-sized allocation), each program's host reads, ops, launches and
+peak per iteration printed with the seconds it took; (c2)
+``--journal-fsck`` over the journals the fleet phases (f4) (a SIGKILL'd
+run and its resume) and (f6) (two hosts) and the serve daemon leave
+behind, each required ok, a torn tail passing as a warning; (c3) an
+``.item()`` seeded into the online step, caught on the card by the
+dispatch count and by the sync debug mode.
+
 It exits non-zero, printing no result, when no CUDA device is present
 or when the port's package is not beside it.  It imports nothing of JAX
 or of the reference package.
@@ -252,6 +266,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor, wait
 
@@ -323,6 +338,29 @@ CLI_DISK_FACTOR = 4.5
 K1_RTOL = 1e-5   # of sum |w * disp|: float32 sums in another order
 K2_RTOL = 1e-4   # of each plane's scale (K2, K6, K7): float32
 #                  reassociation; masked cells exact
+
+
+# The control-plane phase: the spawned --selfcheck's time limit, and the
+# journals the fleet and serve phases leave, copied aside (name -> path)
+# for its --journal-fsck: the serve phase's directory goes with the CLI
+# phase's, the fleet's at exit
+CONTROL_TIMEOUT_S = 300
+KEPT_JOURNALS = {}
+_KEEP_LOCK = threading.Lock()
+_KEEP_DIR = None
+
+
+def keep_journal(path: str, name: str) -> None:
+    """Copy journal ``path`` (a file) aside for the control-plane phase
+    as ``name``; the fleet phases call it from their threads."""
+    global _KEEP_DIR
+    with _KEEP_LOCK:
+        if _KEEP_DIR is None:
+            _KEEP_DIR = tempfile.mkdtemp(prefix="icln_chip_smoke_journals_")
+            atexit.register(shutil.rmtree, _KEEP_DIR, True)
+        dst = os.path.join(_KEEP_DIR, name)
+        shutil.copyfile(path, dst)
+        KEPT_JOURNALS[name] = dst
 
 
 def fail(msg: str) -> None:
@@ -1411,6 +1449,7 @@ def serve_phases(work, ar, whole, want_counts, tag):
             or len(set(done)) != len(kill_paths) or n_kill or rc2 != 0 \
             or not recovered or kstate.get("n_skipped") != before_restart:
         fail("serve (s4): the restart cleaned an archive twice or differs")
+    keep_journal(jpath, "serve.journal.jsonl")
     times.update(serve_golden_s=golden_s, serve_small_s=small_s,
                  serve_profile_s=prof_s, serve_session_s=session_s,
                  serve_stream_p50_ms=percentile_ms(lat, 50),
@@ -4464,6 +4503,7 @@ def fleet_f4(small, seq_masks, work, tag):
     if rc != 0 or not once or n_mask or not resumed \
             or f"resumed: {pre} archive" not in resumed[0]:
         fail(f"fleet (f4): kill and resume: {err[-3000:]}")
+    keep_journal(jpath, "fleet_f4.jsonl")
 
 
 def fleet_f5(work, tag):
@@ -4558,6 +4598,7 @@ def fleet_f6(paths, seq_masks, work, tag):
           flush=True)
     if rcs != [0, 0] or not once or sum(cleaned) != len(links) or n_mask:
         fail(f"fleet (f6): two hosts: {[err[-2000:] for _, err in outs]}")
+    keep_journal(os.path.join(d, "shared.jsonl"), "fleet_f6.jsonl")
 
 
 def fleet_phases(work, files, tag):
@@ -4603,6 +4644,102 @@ def fleet_phases(work, files, tag):
     print(f"fleet phases: {time.perf_counter() - t_all:.1f} s in all ("
           + ", ".join(f"{k} {v:.1f} s" for k, v in sorted(timings.items()))
           + f"; f2 to f6 at once, f5 after f2) {tag}", flush=True)
+
+
+def control_plane_phase(dev, tag):
+    """(c1) ``--selfcheck --format json`` on a spawned process on the
+    card; (c2) ``--journal-fsck`` over the kept fleet and serve journals;
+    (c3) a host sync seeded into the online step, caught on the card."""
+    from iterative_cleaner_torch.analysis import card_contracts as cc
+
+    t_all = time.perf_counter()
+    e = dict(os.environ)
+    e["PYTHONPATH"] = os.pathsep.join(
+        [HERE] + ([e["PYTHONPATH"]] if e.get("PYTHONPATH") else []))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "iterative_cleaner_torch", "--selfcheck",
+         "--format", "json"], cwd=HERE, env=e, capture_output=True,
+        text=True, timeout=CONTROL_TIMEOUT_S)
+    secs = time.perf_counter() - t0
+    try:
+        doc = json.loads(proc.stdout)
+    except ValueError:
+        fail(f"control (c1): --selfcheck printed no report (rc "
+             f"{proc.returncode}):\n{proc.stdout[-3000:]}"
+             f"{proc.stderr[-3000:]}")
+    def num(x):
+        return "-" if x is None else f"{x:g}"
+
+    for c in doc["contracts"]:
+        peak = c["peak_delta_bytes"] or 0
+        print(f"control (c1) {c['program']}: {'ok' if c['ok'] else 'FAIL'}; "
+              f"{c['iterations']} iteration(s); per iteration "
+              f"{num(c['host_reads_per_iter'])} host reads "
+              f"({num(c['sync_warnings_per_iter'])} sync warnings), "
+              f"{num(c['ops_per_iter'])} aten ops, "
+              f"{num(c['launches_per_iter'])} launches; peak {peak} B = "
+              f"{peak / max(1, c['cube_bytes']):.3f} of the "
+              f"{c['cube_bytes']} B cube; kernels "
+              f"{json.dumps(c['kernel_launches'], sort_keys=True)} {tag}",
+              flush=True)
+        for v in c["violations"]:
+            print(f"  {v['contract']}: {v['detail']}", flush=True)
+    print(f"control (c1): --selfcheck on the card: exit "
+          f"{proc.returncode}, ok {doc['ok']}, {doc['files_scanned']} files "
+          f"linted, {len(doc['findings'])} findings, "
+          f"{len(doc['suppressed'])} suppressed, {len(doc['contracts'])} "
+          f"programs; {secs:.1f} s with the process start {tag}",
+          flush=True)
+    if proc.returncode != 0 or not doc["ok"] or doc["findings"] \
+            or len(doc["contracts"]) != len(cc.HOT_PROGRAMS):
+        fail(f"control (c1): --selfcheck: {proc.stderr[-3000:]}")
+    # (c2) every journal the fleet (f4, f6) and serve phases left
+    names = sorted(KEPT_JOURNALS)
+    if names != ["fleet_f4.jsonl", "fleet_f6.jsonl", "serve.journal.jsonl"]:
+        fail(f"control (c2): journals kept {names}")
+    t0 = time.perf_counter()
+    fsck = subprocess.run(
+        [sys.executable, "-m", "iterative_cleaner_torch.analysis",
+         "--format", "json"]
+        + [a for n in names for a in ("--journal-fsck", KEPT_JOURNALS[n])],
+        cwd=HERE, env=e, capture_output=True, text=True,
+        timeout=CONTROL_TIMEOUT_S)
+    fsck_s = time.perf_counter() - t0
+    try:
+        fdoc = json.loads(fsck.stdout)
+    except ValueError:
+        fail(f"control (c2): --journal-fsck printed no report (rc "
+             f"{fsck.returncode}):\n{fsck.stdout[-3000:]}"
+             f"{fsck.stderr[-3000:]}")
+    for n, j in zip(names, fdoc["journals"]):
+        print(f"control (c2) --journal-fsck {n}: ok {j['ok']}, "
+              f"{j['n_lines']} lines {json.dumps(j['counts'], sort_keys=True)}"
+              f", {len(j['errors'])} errors, warnings "
+              f"{[w['kind'] for w in j['warnings']]} {tag}", flush=True)
+        for err in j["errors"]:
+            print(f"  line {err['line']}: {err['kind']}: {err['message']}",
+                  flush=True)
+    print(f"control (c2): exit {fsck.returncode}, {fsck_s:.1f} s with the "
+          f"process start {tag}", flush=True)
+    if fsck.returncode != 0 or not fdoc["ok"] \
+            or any(w["kind"] != "torn-line" for j in fdoc["journals"]
+                   for w in j["warnings"]):
+        fail("control (c2): a fleet or serve journal failed its fsck")
+    # (c3) the seeded host sync, in this process
+    t0 = time.perf_counter()
+    seeded = cc.verify_program(
+        cc.seeded(cc.program_named("online_step"), "host-sync"), dev)
+    caught = {v.contract for v in seeded.violations}
+    print(f"control (c3): an .item() seeded into the online step: "
+          f"violations {sorted(caught)}, {seeded.host_reads} host reads "
+          f"counted, {seeded.sync_warnings} sync warnings; "
+          f"{time.perf_counter() - t0:.1f} s {tag}", flush=True)
+    if "no-host-sync" not in caught or seeded.host_reads != 1 \
+            or seeded.sync_warnings != 1:
+        fail("control (c3): the seeded host sync was not caught")
+    print(f"control phases: {time.perf_counter() - t_all:.1f} s in all "
+          f"{tag}", flush=True)
 
 
 def main() -> int:
@@ -5100,6 +5237,10 @@ def main() -> int:
     # with --prefetch 1
     serve_launches = cli_phase(ar, whole, counts["default"],
                                tag)["serve_launches"]
+    # ---- 3q. the control plane, after the fleet and serve phases: the
+    # --selfcheck (lint and card contracts) on a spawned process, the
+    # journals' fsck, a seeded host sync caught
+    control_plane_phase(dev, tag)
 
     # ---- 3f. long profiles: an archive of 8192 bins (the DFT tables
     # streamed in chunks, two cells a group) on the default,

@@ -143,9 +143,14 @@ request through an online session (bare ``--mux``: one shared
 buffer).  The reference's route knobs (``--fused-sweep``, ``--stats_impl``,
 ``--median_impl``, ``--fft_mode``) are a parser error: the port has one
 route.
+``--selfcheck`` runs the port's analyzer (``analysis/``: the lint rules,
+the card contracts on ``--device``, ``cuda`` unless ``--device cpu`` is
+given) and exits 0 or 1; ``--journal-fsck JOURNAL`` with it validates
+journals too.  The daemon and the ``--precompile`` session publish the
+lint verdict (``lint_findings{rule=...}``, ``lint_ok``) in their metrics.
 Not ported yet: ``--coordinator`` and ``--fleet --mesh batch`` (ROADMAP.md
-'Modules still to port' item 3b); ``--selfcheck`` and ``--journal-fsck``
-(item 8).  Each raises ``NotImplementedError`` naming its item.
+'Modules still to port' item 3b), each raising ``NotImplementedError``
+naming its item.
 """
 
 from __future__ import annotations
@@ -156,10 +161,10 @@ import dataclasses
 import os
 import sys
 
+from iterative_cleaner_torch.analysis.cli import record_package_lint
 from iterative_cleaner_torch.config import (
     BACKENDS,
     MESH_MODES,
-    ROADMAP_CONTROL_PLANE,
     ROADMAP_FLEET_3B,
     CleanConfig,
     check_mesh,
@@ -596,17 +601,22 @@ def build_parser() -> argparse.ArgumentParser:
                         "arms POST /profile captures instead. Default: "
                         "ICLEAN_PROFILE_DIR, else off.")
     p.add_argument("--selfcheck", action="store_true",
-                   help="Not ported (ROADMAP item 8c): the static "
-                        "analyzer.")
+                   help="Run the port's analyzer and exit: the lint rules "
+                        "over iterative_cleaner_torch/ and the card "
+                        "contracts of the hot programs on --device (cuda "
+                        "unless --device cpu; no fallback). Exit 0 clean, "
+                        "1 findings or violations, 2 no card or a usage "
+                        "error. Takes no archives or run modes.")
     p.add_argument("--selfcheck-format", "--format",
                    choices=("text", "json"), default=None,
                    dest="selfcheck_format",
-                   help="--selfcheck's output format (not ported, ROADMAP "
-                        "item 8c).")
+                   help="--selfcheck's output format (default text).")
     p.add_argument("--journal-fsck", action="append", default=[],
                    dest="journal_fsck", metavar="JOURNAL",
-                   help="Not ported (ROADMAP item 8c): the journal's "
-                        "protocol checker.")
+                   help="With --selfcheck: also validate a fleet journal "
+                        "(a file or a segmented directory) against the "
+                        "protocol state machine; repeatable. The "
+                        "icln-lint-torch script runs it alone.")
     p.add_argument("--no-donate", "--no_donate", action="store_true",
                    dest="no_donate",
                    help="Accepted for the reference CLI's sake and changes "
@@ -1158,6 +1168,9 @@ def run_serve(args, telemetry: RunTelemetry) -> int:
         build_parser().error(f"--serve: {exc}")
     faults = (FaultInjector(args.faults, seed=args.fault_seed)
               if args.faults else FaultInjector.from_env())
+    # the daemon's live /metrics carries the analyzer's verdict for the
+    # build it runs (lint_findings{rule=...}, lint_ok)
+    record_package_lint(telemetry.registry, quiet=args.quiet)
     return serve(serve_cfg, cfg, registry=telemetry.registry, faults=faults,
                  io_workers=args.io_workers, quiet=args.quiet,
                  events=telemetry.events)
@@ -1493,9 +1506,6 @@ def check_serve_args(parser, args, chunk: int) -> None:
     ``--trace-out`` and ``--flight-recorder`` need the mode they
     configure.  The daemon cleans on ``--backend torch`` (the reference
     says jax)."""
-    if args.selfcheck_format is not None and not args.selfcheck:
-        parser.error("--format/--selfcheck-format only applies to "
-                     "--selfcheck; pass --selfcheck")
     if args.serve:
         if args.archive:
             parser.error("--serve takes no archive arguments: the daemon's "
@@ -1554,9 +1564,6 @@ def check_fleet_args(parser, args, chunk: int) -> None:
     """The reference parser's refusals of the fleet's flags (exit 2), and
     the flags whose modules are not ported (``NotImplementedError``
     naming the item)."""
-    if args.selfcheck or args.journal_fsck:
-        raise NotImplementedError(
-            f"--selfcheck/--journal-fsck: {ROADMAP_CONTROL_PLANE}")
     if args.coordinator or os.environ.get("ICLEAN_COORDINATOR"):
         raise NotImplementedError(f"--coordinator: {ROADMAP_FLEET_3B}")
     if args.resume and not args.journal:
@@ -1726,9 +1733,28 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     if args.io_workers is not None and args.io_workers < 1:
         parser.error(f"--io-workers must be >= 1, got {args.io_workers}")
+    split_stream_arg(args)
+    # --selfcheck runs the analyzer and exits: no archives, no session
+    if args.selfcheck:
+        if (args.archive or args.serve or args.fleet or args.stream_dir
+                or args.precompile or str(args.stream) != "0"
+                or args.mux_on):
+            parser.error("--selfcheck analyzes the installed package and "
+                         "takes no archives or run modes")
+        from iterative_cleaner_torch.analysis.cli import run_selfcheck
+
+        return run_selfcheck(fmt=args.selfcheck_format or "text",
+                             device=args.device,
+                             journal_fsck=args.journal_fsck)
+    if args.selfcheck_format is not None:
+        parser.error("--format/--selfcheck-format only applies to "
+                     "--selfcheck; pass --selfcheck")
+    if args.journal_fsck:
+        parser.error("--journal-fsck only applies to --selfcheck; pass "
+                     "--selfcheck (or use the icln-lint-torch console "
+                     "script)")
     # what is not ported, then what the reference's parser refuses,
     # before any clean
-    split_stream_arg(args)
     chunk = stream_chunk(args.stream)
     check_fleet_args(parser, args, chunk)
     check_serve_args(parser, args, chunk)
@@ -1754,7 +1780,11 @@ def main(argv=None) -> int:
 
     configure_compilation_cache(args.compile_cache)
     if args.precompile:
-        return run_precompile(args)
+        with run_session(args) as telemetry:
+            # the analyzer's verdict rides the warm-up: a fleet warmed
+            # from a lint-dirty build says so in the exported metrics
+            record_package_lint(telemetry.registry, quiet=args.quiet)
+            return run_precompile(args)
     if args.serve:
         with run_session(args) as telemetry:
             return run_serve(args, telemetry)

@@ -33,9 +33,6 @@ ROADMAP_F64_MESH = ("ROADMAP.md 'Modules still to port' item 1b (float64 "
 ROADMAP_FLEET_3B = ("ROADMAP.md 'Modules still to port' item 3b (--coordinator, "
                     "a ('batch',) mesh under the fleet, the hybrid batch-cell "
                     "mesh)")
-ROADMAP_CONTROL_PLANE = ("ROADMAP.md 'Modules still to port' item 8 (the "
-                         "control plane's checks, item 8c: --selfcheck and "
-                         "--journal-fsck)")
 
 BACKENDS = ("torch", "numpy")
 

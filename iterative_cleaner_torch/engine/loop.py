@@ -25,7 +25,7 @@
   ``icln_residual_stats`` (the cell kernel), ``icln_scores`` (K3 along
   each axis), ``icln_zap`` (the combine kernel's 4-way median and zap)
   and ``icln_iter_metrics`` (K9), so a ``--trace`` file shows them; with
-  no profiler on a range is one flag check.
+  no profiler on a range is two flag checks.
 - Convergence is cycle detection against every earlier weight matrix,
   held in a ``(max_iter+1)``-deep history seeded with the original
   weights.  That flag is the loop's only host synchronisation; the

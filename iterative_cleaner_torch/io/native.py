@@ -39,7 +39,6 @@ import os
 import shutil
 import struct
 import subprocess
-import tempfile
 import threading
 from pathlib import Path
 
@@ -103,16 +102,15 @@ def _source_digest() -> str:
 
 def build_library() -> Path:
     """Compile the host sources into one shared library (cached by
-    digest) and return its path.  The build writes into a temporary
-    directory and renames the result into place, so a process racing
-    this one never loads a half-written file."""
+    digest) and return its path.  The compiler writes a temporary file
+    beside it that is renamed into place (``io/atomic.py``), so a process
+    racing this one never loads a half-written file."""
     out = BUILD_DIR / f"libicln_io_{_source_digest()}.so"
     if out.exists():
         return out
     cxx = _compiler()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        lib_tmp = os.path.join(tmp, out.name)
+    with atomic_output(str(out)) as lib_tmp:
         proc = subprocess.run(
             [cxx, *CXX_FLAGS, "-o", lib_tmp,
              *(str(CSRC_DIR / name) for name in SOURCES)],
@@ -121,7 +119,6 @@ def build_library() -> Path:
             raise RuntimeError(
                 f"building the host I/O library with {cxx} failed (rc "
                 f"{proc.returncode}):\n{proc.stdout}{proc.stderr}")
-        os.replace(lib_tmp, out)
     return out
 
 

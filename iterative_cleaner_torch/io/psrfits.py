@@ -356,7 +356,7 @@ def save_psrfits(ar: Archive, path: str, nbits: "int | None" = None) -> None:
         offs = np.zeros((nsub, npol, nchan))
         rows_data = cube.astype(data_np)
 
-    # callers (io/npz.save_archive) give a temp name and rename it
+    # icln: ignore[atomic-write] -- callers (io/npz.save_archive) hand this an atomic_output temp name; the publish rename is theirs
     with open(path, "wb") as f:
         f.write(primary)
         f.write(subint)

@@ -117,12 +117,16 @@ def weighted_channel_sum(weights, cube):
     return each_archive(one, 2, weights, cube)
 
 
-def _irfft_weights(nbin: int, device):
-    """irfft reconstruction weights over k, float64 as the reference
-    forms them: DC and (even-n) Nyquist count once, the rest twice."""
+def _irfft_weights(nbin: int, device, dtype):
+    """irfft reconstruction weights over k divided by n, in ``dtype``: DC
+    and (even-n) Nyquist count once, the rest twice.  The reference forms
+    them in float64 and rounds; 1/n and 2/n round once to the same float32
+    either way (the binary expansion of 1/n has no run of zeros long
+    enough for the float64 rounding to land on a float32 tie; checked for
+    every n below 70,000), so a float32 route makes no float64 tensor."""
     k = torch.arange(nbin // 2 + 1, device=device)
     return torch.where((k == 0) | ((k == nbin // 2) & (nbin % 2 == 0)),
-                       1.0, 2.0).to(torch.float64)
+                       1.0, 2.0).to(dtype) / nbin
 
 
 def _use_matmul_rotation(nchan: int, nbin: int, ndim: int, dtype) -> bool:
@@ -175,7 +179,7 @@ def _rotate_rows(x, s_chan, group=None):
     pi_ = -torch.sin(theta)
     xr_p = xr * pr - xi * pi_
     xi_p = xr * pi_ + xi * pr
-    wk = (_irfft_weights(nbin, x.device) / nbin).to(dtype)[None, :]
+    wk = _irfft_weights(nbin, x.device, dtype)[None, :]
     return mm(xr_p * wk, cos_bk.T) - mm(xi_p * wk, sin_bk.T)
 
 
@@ -190,7 +194,7 @@ def rotation_operators(s_chan, nbin: int):
     b = torch.arange(nbin, dtype=dtype, device=dev)
     alpha = (2.0 * math.pi / nbin) * kf[:, None, None] * (
         b[None, None, :] - b[None, :, None])       # (k, b, i): i - b
-    wk = (_irfft_weights(nbin, dev) / nbin).to(dtype)[:, None, None]
+    wk = _irfft_weights(nbin, dev, dtype)[:, None, None]
     cos_tab = (wk * torch.cos(alpha)).reshape(nk, nbin * nbin)
     sin_tab = (wk * torch.sin(alpha)).reshape(nk, nbin * nbin)
     theta = (2.0 * math.pi / nbin) * torch.outer(s_chan, kf)

@@ -44,6 +44,8 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from iterative_cleaner_torch.io.atomic import atomic_output
+
 # Seconds a collective waits for the other ranks before it raises.
 DEFAULT_TIMEOUT_S = 600.0
 # After a rank of run_local_ranks fails, how long the others may take to
@@ -277,8 +279,9 @@ def _rank_main(target, args, rank, world_size, init_method, backend, device,
                world_size=world_size)
     try:
         result = target(*args)
-        with open(out_path, "wb") as f:
-            pickle.dump(result, f)
+        with atomic_output(out_path) as tmp:
+            with open(tmp, "wb") as f:
+                pickle.dump(result, f)
     finally:
         shutdown()
 

@@ -261,7 +261,7 @@ class BucketPrecompiler:
                 warm_bucket(self._config, nsub, nchan, nbin, ded,
                             bucket.batch_dim, registry=self._registry,
                             stats_out=stats)
-            except Exception:  # noqa: BLE001 -- a failed warm-up is a miss; the inline path warms the bucket and surfaces a real fault
+            except Exception:  # noqa: BLE001  # icln: ignore[broad-except] -- a failed warm-up is a miss; the inline path warms the bucket and surfaces a real fault
                 self._ready[bucket.key] = False
                 continue
             self._ready[bucket.key] = True
@@ -807,6 +807,7 @@ def _serve_groups(groups, config, reg, report, fail, precompiler,
             # journal strictly after the (atomic) output write: a crash
             # between the two re-cleans the archive on resume — never a
             # journaled path with no output
+            # icln: ignore[journal-append-without-claim] -- runs under the bucket lease: _serve_multihost try_claim'd it before serve()
             res.journal.record_done(
                 path, config_hash=cfg_hash,
                 out_path=out_path_fn(path) if out_path_fn else None,

@@ -53,6 +53,7 @@ class DictRegistry:
         self.counters, self.gauges = {}, {}
 
     def counter_inc(self, name, value=1):
+        # icln: ignore[thread-shared-state] -- one TileCache's own registry, written by the one thread that streams its tiles; the http label is the daemon's MetricsRegistry.counter_inc, a method of the same name
         self.counters[name] = self.counters.get(name, 0) + value
 
     def gauge_set(self, name, value):

@@ -53,6 +53,7 @@ from iterative_cleaner_torch.engine.loop import (
     prepare,
     select_route,
 )
+from iterative_cleaner_torch.io.atomic import atomic_output
 from iterative_cleaner_torch.io.synthetic import make_fullsize_archive
 from iterative_cleaner_torch.parallel.streaming_exact import STREAM_ITERATION
 from iterative_cleaner_torch.stats import kernels as K
@@ -226,8 +227,9 @@ def main(argv=None) -> int:
     if args.stream > 0:
         report = profile_stream(ar, cfg, args, card, tag)
         if args.report:
-            with open(args.report, "w") as f:
-                json.dump(report, f, indent=1)
+            with atomic_output(args.report) as tmp:
+                with open(tmp, "w") as f:
+                    json.dump(report, f, indent=1)
         return 0
     phases = {}
     # whole cleans first, so that the first one pays the process's
@@ -309,8 +311,9 @@ def main(argv=None) -> int:
               "profile_busy_ms_per_iter": busy / args.reps,
               "kernels_ms_per_iter": {n: ms / args.reps for n, ms in rows}}
     if args.report:
-        with open(args.report, "w") as f:
-            json.dump(report, f, indent=1)
+        with atomic_output(args.report) as tmp:
+            with open(tmp, "w") as f:
+                json.dump(report, f, indent=1)
     return 0
 
 

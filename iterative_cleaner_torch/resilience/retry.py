@@ -148,7 +148,7 @@ def call_with_deadline(fn: Callable[[], object],
     def run() -> None:
         try:
             box["value"] = fn()
-        except BaseException as exc:  # noqa: BLE001 -- boxed and re-raised on the caller's thread below
+        except BaseException as exc:  # noqa: BLE001  # icln: ignore[broad-except] -- not swallowed: boxed and re-raised on the caller's thread below
             box["error"] = exc
         finally:
             done.set()

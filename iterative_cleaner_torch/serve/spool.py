@@ -151,8 +151,7 @@ class SpoolWatcher:
         except Rejection as exc:
             self._reject(claimed, exc.detail)
             return 0
-        # a rename between two spool names (.claimed -> .accepted), not
-        # a file publish
+        # icln: ignore[atomic-write] -- state-machine rename between two existing spool names (.claimed -> .accepted), not a file publish
         os.replace(claimed, path + ACCEPTED_SUFFIX)
         return 1
 
@@ -161,7 +160,7 @@ class SpoolWatcher:
         print(f"serve: rejected spool file "
               f"{os.path.basename(claimed)}: {detail}", flush=True)
         try:
-            # a rename between two spool names (.claimed -> .rejected)
+            # icln: ignore[atomic-write] -- state-machine rename between two existing spool names (.claimed -> .rejected), not a file publish
             os.replace(claimed, claimed[:-len(".claimed")] + REJECTED_SUFFIX)
         except OSError:
             pass

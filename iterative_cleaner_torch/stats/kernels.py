@@ -107,6 +107,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from iterative_cleaner_torch.io.atomic import atomic_output
 from iterative_cleaner_torch.ops.dsp import (
     each_archive,
     fit_template_amplitudes,
@@ -243,13 +244,14 @@ def build_library() -> Path:
         (where / "build.log").write_text("\n".join(logs))
         if failed:
             raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
-        lib_tmp = os.path.join(tmp, "lib.so")
-        link = subprocess.run(
-            [nvcc, "-shared", "-o", lib_tmp, *(obj for _n, obj, _p in procs)],
-            capture_output=True, text=True)
-        if link.returncode != 0:
-            raise RuntimeError(f"link failed:\n{link.stdout}{link.stderr}")
-        os.replace(lib_tmp, out)
+        with atomic_output(str(out)) as lib_tmp:
+            link = subprocess.run(
+                [nvcc, "-shared", "-o", lib_tmp,
+                 *(obj for _n, obj, _p in procs)],
+                capture_output=True, text=True)
+            if link.returncode != 0:
+                raise RuntimeError(
+                    f"link failed:\n{link.stdout}{link.stderr}")
     return out
 
 

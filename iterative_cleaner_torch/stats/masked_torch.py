@@ -43,7 +43,8 @@ def masked_median(values, mask, dim):
     ``0.5 * (lo + hi)``; lines with no valid entry give 0.0.  Sort route:
     masked entries become +inf and sort above every real (NaN above
     +inf)."""
-    sentinel = torch.tensor(math.inf, dtype=values.dtype, device=values.device)
+    sentinel = torch.full((), math.inf, dtype=values.dtype,
+                          device=values.device)
     ordered = torch.sort(torch.where(mask, sentinel, values), dim=dim).values
     n = torch.sum(~mask, dim=dim, keepdim=True)
     size = values.shape[dim]
@@ -61,8 +62,10 @@ def inverse_threshold(thresh, like):
     so the port multiplies too — with a device tensor, so that no
     backend picks its own scalar-division shortcut."""
     one = torch.ones((), dtype=like.dtype, device=like.device)
-    return one / torch.tensor(float(thresh), dtype=like.dtype,
-                              device=like.device)
+    # filled on the device: a tensor made from a host value would be a
+    # blocking host-to-card copy each call
+    return one / torch.full((), float(thresh), dtype=like.dtype,
+                            device=like.device)
 
 
 def _masked_side(centred, mad, mask, n, thresh):
@@ -143,7 +146,7 @@ def cell_diagnostics(resid_weighted, cell_mask, fft_mode="dft"):
     centred = x - torch.where(m, zero, mean_b)[..., None]
     var = torch.sum(centred * centred, dim=2) / n
     d_std = torch.where(m, zero, torch.sqrt(var))
-    fill = torch.tensor(MA_FILL, dtype=x.dtype, device=x.device)
+    fill = torch.full((), MA_FILL, dtype=x.dtype, device=x.device)
     d_ptp = torch.where(m, fill, torch.amax(x, dim=2) - torch.amin(x, dim=2))
     d_fft = torch.amax(rfft_magnitudes(centred, fft_mode), dim=2)
     return d_std, d_mean, d_ptp, d_fft

@@ -81,7 +81,7 @@ def device_kind() -> str:
         if not torch.cuda.is_available():
             return "cpu"
         return str(torch.cuda.get_device_name(torch.cuda.current_device()))
-    except Exception:  # noqa: BLE001 -- an unconfigured runtime degrades the gauges to the nominal peaks, it never fails a clean
+    except Exception:  # noqa: BLE001  # icln: ignore[broad-except] -- an unconfigured runtime degrades the gauges to the nominal peaks, it never fails a clean
         return "cpu"
 
 

@@ -108,7 +108,7 @@ class FlightRecorder:
                     json.dump(doc, f, sort_keys=True, indent=1)
                     f.write("\n")
             return target
-        except Exception:  # noqa: BLE001 -- the recorder dumps from crash and watchdog paths and must never make a bad situation worse; None says no file landed
+        except Exception:  # noqa: BLE001  # icln: ignore[broad-except] -- the recorder dumps from crash and watchdog paths and must never make a bad situation worse; None says no file landed
             return None
 
 

@@ -9,7 +9,7 @@ host phases as ``icln:load``, ``icln:clean`` and ``icln:write``
 ``icln_template``, ``icln_residual_stats``, ``icln_scores``, ``icln_zap``
 and ``icln_iter_metrics`` (:data:`STAGES`, the reference's scope names,
 ``engine/loop.py``).  Without ``--trace`` no profiler starts, and the
-stage ranges cost one flag check each.
+stage ranges cost two flag checks each.
 """
 
 from __future__ import annotations
@@ -28,11 +28,19 @@ STAGES = ("icln_template", "icln_residual_stats", "icln_scores", "icln_zap")
 _NO_RANGE = contextlib.nullcontext()
 
 
+# A callable ``name -> context manager`` that observes every stage range
+# (``analysis.card_contracts`` attributes the operations it records to
+# their stage); None outside a contract run.
+STAGE_LISTENER = None
+
+
 def stage(name: str):
     """A ``record_function`` range of one iteration stage while a profiler
     is on, else a shared no-op context: a ``record_function`` enters the
     dispatcher even with no profiler to record it, and an iteration opens
-    five ranges."""
+    five ranges.  Under a contract run, the listener's context."""
+    if STAGE_LISTENER is not None:
+        return STAGE_LISTENER(name)
     if torch._C._autograd._profiler_enabled():
         return torch.profiler.record_function(name)
     return _NO_RANGE

@@ -92,6 +92,11 @@ The serve daemon: an archive request's outputs on the card equal to
 request's close bit-equal to a solo session, the bucket program's
 roofline gauges against the H100's peaks; a ``torch.profiler`` capture
 holding the route's kernels as often as the launch counters say.
+The card contracts (``analysis/card_contracts.py``): every registered
+hot program holds all five on the card; a seeded host sync inside a step
+caught by the dispatch count and by the sync debug mode alike; a seeded
+float64 upcast, extra op and cube copy caught; the single-cube-read
+launch counters equal to each route's kernels, once an iteration.
 """
 
 import numpy as np
@@ -1952,3 +1957,74 @@ def test_profile_capture_holds_the_cards_kernels(card, tmp_path):
     assert got == counts["cell_diagnostics_disp"] == res.loops
     with open(os.path.join(final, "profile_manifest.json")) as f:
         assert json.load(f)["device_kind"] == torch.cuda.get_device_name()
+
+
+# ------------------------------------------------------- card contracts
+
+def _contracts():
+    from iterative_cleaner_torch.analysis import card_contracts as cc
+
+    return cc
+
+
+@pytest.mark.parametrize("name", ["clean_loop", "clean_loop_batch",
+                                  "online_step", "mux_step", "sweep",
+                                  "sweep_bf16", "sharded_sweep"])
+def test_card_contracts_hold_on_card(card, name):
+    """Every registered program holds all five contracts on the card: at
+    most its pinned host reads an iteration (the sync debug mode giving
+    the same count), no float64, its pinned dispatch count, the cube
+    read by its kernels alone, no cube-sized allocation."""
+    cc = _contracts()
+    program = cc.program_named(name)
+    report = cc.verify_program(program, card)
+    assert report.ok, [v.render() for v in report.violations]
+    assert report.decided == cc.CONTRACTS
+    assert report.sync_warnings == report.host_reads \
+        == program.host_reads * report.iterations
+    assert 0 < report.peak_delta_bytes < report.cube_bytes
+    assert report.ops + report.launches <= program.max_ops \
+        * report.iterations
+
+
+def test_seeded_host_sync_caught_by_count_and_sync_mode_on_card(card):
+    """An ``.item()`` inside the online step: one host read by the
+    dispatch count and one warning of the sync debug mode."""
+    cc = _contracts()
+    report = cc.verify_program(
+        cc.seeded(cc.program_named("online_step"), "host-sync"), card)
+    assert "no-host-sync" in {v.contract for v in report.violations}
+    assert report.host_reads == 1 and report.sync_warnings == 1
+
+
+@pytest.mark.parametrize("seed,contract", [("f64", "no-f64"),
+                                           ("extra-op", "dispatch-bound"),
+                                           ("cube-copy", "no-cube-copy")])
+def test_seeded_violations_caught_on_card(card, seed, contract):
+    cc = _contracts()
+    report = cc.verify_program(cc.seeded(cc.program_named("sweep"), seed),
+                               card)
+    assert contract in {v.contract for v in report.violations}
+    if seed == "cube-copy":
+        assert "single-cube-read" in {v.contract for v in report.violations}
+
+
+@pytest.mark.parametrize("name,kernels", [
+    ("clean_loop", ROUTE_KERNELS["default"]),
+    ("clean_loop_batch", ROUTE_KERNELS["default"]),
+    ("online_step", ("cell_diagnostics_dedisp", "scaled_sides_axis0",
+                     "scaled_sides_axis1", "combine_zap")),
+    ("mux_step", ("cell_diagnostics_dedisp", "scaled_sides_axis0",
+                  "scaled_sides_axis1", "combine_zap")),
+    ("sweep_bf16", storage_kernels(ROUTE_KERNELS["default"], "bfloat16")),
+    ("sharded_sweep", SHARD_KERNELS["default"][1:]),
+])
+def test_single_cube_read_counters_match_the_route_kernels(card, name,
+                                                           kernels):
+    """The launch counters of ``single-cube-read``: each of the route's
+    kernels once an iteration (the batch's and the lanes' folded into one
+    launch; the sharded sweep's template, K1, is built before it), and
+    nothing else."""
+    cc = _contracts()
+    report = cc.verify_program(cc.program_named(name), card)
+    assert report.kernel_launches == {k: report.iterations for k in kernels}

@@ -13,6 +13,7 @@ with a 1e-4 floor — the port's DFT spectra against the reference's
 kernel route (ROADMAP §3), as ``tests/test_torch_batch.py`` holds the
 batched clean."""
 
+import json
 import os
 import threading
 import time
@@ -316,11 +317,6 @@ def test_cli_fleet_flag_validation(tmp_path, monkeypatch, capsys, argv,
 @pytest.mark.parametrize("argv,item", [
     (["--fleet", "--coordinator", "localhost:1234"], "item 3b"),
     (["--fleet", "--mesh", "batch"], "item 3b"),
-    # item 8c: --serve, --trace-out and --flight-recorder are ported
-    (["--selfcheck"], "item 8"),
-    (["--selfcheck", "--format", "json"], "item 8"),
-    (["--fleet", "--journal-fsck", "j.jsonl"], "item 8"),
-    (["--journal-fsck", "j.jsonl"], "item 8"),
 ])
 def test_cli_flags_left_out_raise_with_their_item(tmp_path, monkeypatch,
                                                    argv, item):
@@ -329,6 +325,35 @@ def test_cli_flags_left_out_raise_with_their_item(tmp_path, monkeypatch,
     monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError, match=item):
         main(["--device", "cpu", "-q", *argv, "x.npz"])
+
+
+@pytest.mark.parametrize("argv,rc", [
+    (["--selfcheck"], 0),
+    (["--selfcheck", "--format", "json"], 0),
+    (["--fleet", "--journal-fsck", "j.jsonl", "x.npz"], 2),
+    (["--journal-fsck", "j.jsonl", "x.npz"], 2),
+])
+def test_cli_selfcheck_runs_and_fsck_needs_it(tmp_path, monkeypatch,
+                                              capsys, argv, rc):
+    """``--selfcheck`` runs the port's analyzer (exit 0 on this tree:
+    the lint is clean and the contracts the CPU decides hold);
+    ``--journal-fsck`` without ``--selfcheck`` is a parser error."""
+    from iterative_cleaner_torch.cli import main
+
+    monkeypatch.chdir(tmp_path)
+    if rc == 2:
+        with pytest.raises(SystemExit) as ei:
+            main(["--device", "cpu", "-q", *argv])
+        assert ei.value.code == 2
+        assert "--journal-fsck only applies to --selfcheck" \
+            in capsys.readouterr().err
+        return
+    assert main(["--device", "cpu", "-q", *argv]) == 0
+    out = capsys.readouterr().out
+    if "json" in argv:
+        assert json.loads(out[out.index("{\n"):])["ok"] is True
+    else:
+        assert "0 findings" in out
 
 
 def test_cli_fleet_write_failure_exit_nonzero(tmp_path, monkeypatch):

@@ -11,7 +11,9 @@ quicklook``, ``--trace`` and ``tools diff``, ``sweep`` and
 ``borderline``; the fleet; the online mode: ``OnlineSession``, its
 reconciles and close, ``StreamMux`` with its dispatcher thread,
 ``--stream DIR``, ``--mux D1 D2`` and ``--model online_ewt``; the serve
-daemon with its spans, flight recorder and profiler) never loads
+daemon with its spans, flight recorder and profiler; the analyzer: its
+lint, journal fsck, race sweep, card contracts and ``--selfcheck``) never
+loads
 ``jax`` or the reference package; no
 source of the port (``parallel/*``, ``telemetry/*``, ``utils/*`` and
 ``io/*`` included), its timing tools (``tools/*.py``) or ``chip_smoke.py``
@@ -399,6 +401,60 @@ t.join(60)
 assert os.path.exists("t.json")
 assert main(["--device", "cpu", "-q", "--fleet", "--trace-out", "f.json",
              "--flight-recorder", "box.json", "-o", "x.npz", "a.npz"]) == 0
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "iterative_cleaner_tpu"))
+print("LOADED", bad)
+"""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [REPO] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+@pytest.mark.parametrize("name", [
+    "__init__.py", "__main__.py", "core.py", "rules_io.py",
+    "rules_project.py", "rules_threads.py", "journal_fsck.py",
+    "interleave.py", "card_contracts.py", "cli.py"])
+def test_analysis_modules_are_scanned(name):
+    """The analyzer's modules are among the scanned sources."""
+    assert os.path.join(PKG, "analysis", name) in set(_port_sources())
+
+
+def test_analysis_path_runs_without_jax():
+    """The port's analyzer — the lint over the package, ``--journal-fsck``
+    of a fleet journal, the race sweep of a scenario with a seeded bug
+    and its clean twin, the card contracts on the CPU and
+    ``--selfcheck --device cpu`` through the CLI — loads neither ``jax``
+    nor the reference package."""
+    code = """
+import os, sys, tempfile
+import iterative_cleaner_torch.analysis
+import iterative_cleaner_torch.analysis.card_contracts as cc
+import iterative_cleaner_torch.analysis.interleave as il
+from iterative_cleaner_torch.analysis import lint_paths
+from iterative_cleaner_torch.analysis.cli import main as lint_main
+from iterative_cleaner_torch.analysis.journal_fsck import fsck_journal
+from iterative_cleaner_torch.cli import main
+from iterative_cleaner_torch.resilience import FleetJournal
+assert lint_paths().ok
+os.chdir(tempfile.mkdtemp())
+j = FleetJournal("j.jsonl")
+j.record_request("r", "accepted")
+j.try_claim("req:r", host=0, nonce="n", ttl_s=5.0)
+j.record_request("r", "done")
+assert fsck_journal("j.jsonl").ok
+assert lint_main(["--journal-fsck", "j.jsonl"]) == 0
+assert not il.explore(il.build_scenario("claim-race", bug="no-readback"),
+                      budget_s=60).ok
+assert il.explore(il.build_scenario("claim-race", backend="segmented"),
+                  budget_s=60).ok
+assert all(r.ok for r in cc.verify_hot_programs(
+    "cpu", names=["online_step", "sharded_sweep"]))
+assert main(["--selfcheck", "--device", "cpu", "--journal-fsck",
+             "j.jsonl"]) == 0
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "iterative_cleaner_tpu"))
 print("LOADED", bad)

@@ -141,10 +141,19 @@ def test_cli_route_flags_exit_2_with_the_ports_message(flag, tmp_path,
 @pytest.mark.parametrize("argv", [["--selfcheck"],
                                   ["--selfcheck", "--format", "json"],
                                   ["--journal-fsck", "j.jsonl"]])
-def test_cli_selfcheck_and_fsck_name_item_8(argv, tmp_path, monkeypatch):
+def test_cli_selfcheck_runs_and_fsck_alone_exits_2(argv, tmp_path,
+                                                   monkeypatch, capsys):
+    """``--selfcheck`` answers 0 (the lint is clean, the contracts the
+    CPU decides hold), as the reference's does; ``--journal-fsck``
+    without it is the reference's parser error."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="item 8"):
+    if "--selfcheck" in argv:
+        assert cli.main(["--device", "cpu", *argv]) == 0
+        return
+    with pytest.raises(SystemExit) as ei:
         cli.main(["--device", "cpu", *argv])
+    assert ei.value.code == 2
+    assert "--selfcheck" in capsys.readouterr().err
 
 
 def test_cli_no_donate_changes_nothing(tmp_path, monkeypatch):
