@@ -2853,14 +2853,19 @@ def tail_entries(plane, pmask, launches, route, suffix, tag):
 
 
 def float64_phases(ar, configs, results, counts, clean_ms, peak_gib,
-                   stream_regs, dev, tag):
+                   stream_regs, mesh1, dev, tag):
     """The float64 phases, each printing its seconds: (1) the golden
     archive on the default, profile, dedispersed and pulse-window routes
     in float64, counted (every kernel of the route its float64 build,
     nothing else), the default and profile masks held to the goldens with
     0 flips and the golden's loops and convergence, the other two to the
-    float64 default mask under the frames' contract; (2) stream (a) in
-    float64 at budget 0, held to the whole float64 clean with 0 cells off,
+    float64 default mask under the frames' contract; (m1) the golden
+    archive through ``clean_archive_sharded`` on the one NCCL rank
+    ``mesh1``, default route and dedispersed frame, in float64 (K10's
+    float64 build, 64-bit keys in the tree-reduced selects), each
+    bit-equal to its whole float64 clean, the default with 0 golden flips,
+    every launch a float64 build of the sharded route's kernels; (2) stream
+    (a) in float64 at budget 0, held to the whole float64 clean with 0 cells off,
     its cube uploads exactly twice stream (a)'s bytes a loop; (3)
     ``tools selftest`` on the card as a subprocess, and ``--backend
     numpy`` through the CLI on a small archive, equal to the float64 card
@@ -2869,17 +2874,24 @@ def float64_phases(ar, configs, results, counts, clean_ms, peak_gib,
     F64_K1_RTOL, K2, K6 and K7 within F64_PLANE_RTOL, masked cells exact;
     K3, the combine, K8 and K9 bit-equal), timed beside its bound (bytes
     at 8 a sample, operations at PEAK_F64_PER_S), its plain version and a
-    library call; (5) a 48,000 x 4 x 32 archive streamed exactly at budget
+    library call, and K10's float64 build on the whole cube and on one
+    2 x 2 shard within F64_PLANE_RTOL of its plain version and bit-equal to
+    K2's and K6's float64 builds; (5) a 48,000 x 4 x 32 archive streamed
+    exactly at budget
     0 in float64 (K9 and the tail kernels' float64 builds in place of K3),
     held to its whole float64 clean.  Returns the float64 builds'
     kernels-line entries."""
     import torch
 
     from iterative_cleaner_torch import CleanConfig, clean_streaming, cli
-    from iterative_cleaner_torch.backends import clean_archive
+    from iterative_cleaner_torch.backends import (
+        clean_archive,
+        clean_archive_sharded,
+    )
     from iterative_cleaner_torch.engine.loop import (
         LONG_LINE_KERNELS,
         ROUTE_KERNELS,
+        SHARD_KERNELS,
         STREAM_KERNELS,
         iteration_step,
         select_route,
@@ -2937,6 +2949,47 @@ def float64_phases(ar, configs, results, counts, clean_ms, peak_gib,
     contract("pulse_unload", base, results["f64 pulse window"])
     print(f"float64 phase (1), the golden archive on four routes: "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # ---- (m1) the golden archive sharded over the one NCCL rank
+    t_phase = time.perf_counter()
+    for name in ("default", "dedispersed"):
+        key = f"f64 sharded 1 ({name})"
+        cfg = runs[name]
+        route = select_route(cfg, ar.dedispersed)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        results[key] = r = clean_archive_sharded(ar, cfg, mesh1)
+        torch.cuda.synchronize()
+        clean_ms[key] = (time.perf_counter() - t0) * 1e3
+        counts[key] = K.launch_counts()
+        peak_gib[key] = torch.cuda.max_memory_allocated() / 2 ** 30
+        want = {k: (r.loops if k in f64(SHARD_KERNELS[route]) else 0)
+                for k in counts[key]}
+        whole = results[f"f64 {name}"]
+        n_bits = sum(bits_mismatch(torch.from_numpy(getattr(r, f)),
+                                   torch.from_numpy(getattr(whole, f)), torch)
+                     for f in ("final_weights", "scores"))
+        print(f"float64 (m1) {key}, one NCCL rank, route {route}: kernels "
+              f"{json.dumps({k: v for k, v in counts[key].items() if v})}, "
+              f"{r.loops} loops, whole clean {clean_ms[key]:.1f} ms (the "
+              f"whole float64 clean {clean_ms[f'f64 {name}']:.1f} ms), peak "
+              f"device memory {peak_gib[key]:.2f} GiB; against the whole "
+              f"float64 clean {n_bits} weights and scores differ in bits "
+              f"(tolerance: bit-equal) {tag}", flush=True)
+        if counts[key] != want:
+            fail(f"float64 (m1) {key}: launch counts {counts[key]}, want "
+                 f"{want}")
+        if r.scores.dtype != np.float64 or n_bits \
+                or (r.loops, r.converged) != (whole.loops, whole.converged) \
+                or not np.array_equal(r.iter_metrics, whole.iter_metrics):
+            fail(f"float64 (m1) {key}: differs from the whole float64 clean")
+    golden_check("float64 (m1) sharded 1 (default)",
+                 results["f64 sharded 1 (default)"], "", shape, cap=0)
+    print(f"float64 phase (m1), the golden archive sharded over one NCCL "
+          f"rank: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # ---- (2) stream (a) in float64: budget 0, 128-subint tiles
     t_phase = time.perf_counter()
@@ -3059,10 +3112,60 @@ def float64_phases(ar, configs, results, counts, clean_ms, peak_gib,
           f"(float64; K9 on the telemetry line and along both axes): "
           f"{bad}, {bad8} and {bad9} values differ in bits (tolerance: "
           f"bit-equal, NaN included)", flush=True)
+    # K10's float64 build on the whole cube (the one-rank mesh's shard)
+    # and on one 2 x 2 shard: within F64_PLANE_RTOL of its plain version,
+    # bit-equal to K2's and K6's float64 builds on the same cells
+    pd = ri["pd"]
+    q = (slice(0, NSUB // 2), slice(0, NCHAN // 2))
+    k10_in = {
+        "shard_diagnostics_disp": {
+            "whole cube": (disp, rot_t, nyq, template, weights, mask),
+            "2x2 shard": (disp[q].contiguous(), rot_t[q[1]].contiguous(),
+                          nyq[q[1]].contiguous(), template,
+                          weights[q].contiguous(), mask[q].contiguous())},
+        "shard_diagnostics_dedisp": {
+            "whole cube": (pd.ded, ri["t_d"], pd.window, weights, mask),
+            "2x2 shard": (pd.ded[q].contiguous(), ri["t_d"], pd.window,
+                          weights[q].contiguous(), mask[q].contiguous())},
+    }
+    k10_twin = {
+        "shard_diagnostics_disp": (K.cell_diagnostics_disp,
+                                   K.cell_diagnostics_disp_plain),
+        "shard_diagnostics_dedisp": (K.cell_diagnostics_dedisp,
+                                     K.cell_diagnostics_dedisp_plain)}
+    for name, ins in k10_in.items():
+        twin, plain = k10_twin[name]
+        errs[name] = 0.0
+        for where, args in ins.items():
+            K.reset_launch_counts()
+            got = getattr(K, name)(*args)
+            launched = K.launch_counts()[name + "_f64"]
+            bits = sum(bits_mismatch(g, w, torch)
+                       for g, w in zip(got, twin(*args)))
+            err, good = diags_check(got, plain(*args), args[-1], torch,
+                                    F64_PLANE_RTOL)
+            errs[name] = max(errs[name], err)
+            good &= bits == 0 and launched == 1 and got[0].dtype == \
+                torch.float64
+            ok &= good
+            print(f"check K10 {name} float64 build ({where}, "
+                  f"{tuple(args[0].shape)}): {launched} {name}_f64 launch, "
+                  f"{bits} cells differ in bits from {twin.__name__}'s "
+                  f"float64 build (tolerance: bit-equal); against the plain "
+                  f"version max abs {err:.3e}, tolerance rtol "
+                  f"{F64_PLANE_RTOL:g} of each plane's scale, masked cells "
+                  f"exact: {'ok' if good else 'FAIL'}", flush=True)
+            del got
     if not (ok and bad == 0 and bad8 == 0 and bad9 == 0):
         fail("a float64 build disagrees with its plain version")
     kb = profiling.kernel_bounds(NSUB, NCHAN, NBIN, cube_bytes=8)
-    pp, pd = ri["p"], ri["pd"]
+    kb["shard_diagnostics_disp"] = kb["cell_diagnostics_disp"]
+    kb["shard_diagnostics_dedisp"] = kb["cell_diagnostics_dedisp"]
+    kbq = profiling.kernel_bounds(NSUB // 2, NCHAN // 2, NBIN, cube_bytes=8)
+    k10_shard_bound = {"shard_diagnostics_disp": kbq["cell_diagnostics_disp"],
+                       "shard_diagnostics_dedisp":
+                       kbq["cell_diagnostics_dedisp"]}
+    pp = ri["p"]
     entries = [
         ("weighted_marginals", "marginals.cu", ":633", "default", err1,
          lambda: K.weighted_marginals(disp, weights),
@@ -3097,6 +3200,18 @@ def float64_phases(ar, configs, results, counts, clean_ms, peak_gib,
         ("masked_median", "masked_median.cu", ":1882", "default",
          errs["masked_median"], lambda: K.masked_median(line_v, line_m, 1),
          lambda: K.masked_median_keys(line_v, line_m, 1), None, 20),
+        ("shard_diagnostics_disp", "shard_stats.cu", ":1469",
+         "sharded 1 (default)", errs["shard_diagnostics_disp"],
+         lambda: K.shard_diagnostics_disp(
+             *k10_in["shard_diagnostics_disp"]["whole cube"]),
+         lambda: K.cell_diagnostics_disp_plain(
+             *k10_in["shard_diagnostics_disp"]["whole cube"]), None, 3),
+        ("shard_diagnostics_dedisp", "shard_stats.cu", ":1492",
+         "sharded 1 (dedispersed)", errs["shard_diagnostics_dedisp"],
+         lambda: K.shard_diagnostics_dedisp(
+             *k10_in["shard_diagnostics_dedisp"]["whole cube"]),
+         lambda: K.cell_diagnostics_dedisp_plain(
+             *k10_in["shard_diagnostics_dedisp"]["whole cube"]), None, 3),
     ]
     k8_parts = ["scaled_sides_axis0_f64", "scaled_sides_axis1_f64",
                 "combine_zap_f64"]
@@ -3126,10 +3241,20 @@ def float64_phases(ar, configs, results, counts, clean_ms, peak_gib,
             "launches_by_route": {r: c[name + "_f64"]
                                   for r, c in counts.items()
                                   if c.get(name + "_f64")}, **extra})
+        what = ""
+        if name in k10_in:
+            # on one 2 x 2 shard too, the shape each of four ranks gives it
+            args = k10_in[name]["2x2 shard"]
+            sms = cuda_ms(lambda: getattr(K, name)(*args), reps * 2, torch)
+            sbms, sbby = k10_shard_bound[name]
+            kernels[-1].update(shard_shape=list(args[0].shape), shard_ms=sms,
+                               shard_bound_ms=sbms, shard_bound_by=sbby)
+            what = (f"; on a 2x2 shard {tuple(args[0].shape)}: {sms:.4f} ms, "
+                    f"bound {sbms:.4f} ms ({sbby})")
         lib = "null" if lms is None else f"{lms:.4f}"
         print(f"time {name}_f64: {ms:.4f} ms, bound {bms:.4f} ms ({bby}), "
               f"plain {pms:.4f} ms, library {lib} ms, {launches} launches "
-              f"in the {run} run {tag}", flush=True)
+              f"in the {run} run{what} {tag}", flush=True)
     common = dict(chanthresh=5.0, subintthresh=5.0, rotation="fourier",
                   baseline_duty=0.15)
     for route, prep in ri["preps"].items():
@@ -3141,7 +3266,7 @@ def float64_phases(ar, configs, results, counts, clean_ms, peak_gib,
               f"clean {clean_ms[key]:.1f} ms, {it_ms:.3f} ms per iteration "
               f"(device, resident cubes), peak device memory of the clean "
               f"{peak_gib[key]:.2f} GiB {tag}", flush=True)
-    del ri, diags, sides, fw, fs, pfw, pfs, new_w, scores, pw, ps
+    del ri, diags, sides, fw, fs, pfw, pfs, new_w, scores, pw, ps, k10_in
     torch.cuda.empty_cache()
     print(f"float64 phase (4), the float64 builds at full size: "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
@@ -4111,6 +4236,9 @@ FLEET_WARM_SHAPES = ((64, 128, 512), (64, 120, 512), (32, 64, 128))
 FLEET_KILL_N = 8
 # spawned sessions: start-up (torch, the library load) and work
 FLEET_SUB_TIMEOUT_S = 300
+# (f1)'s sequential session's run-report entries by file name, which
+# (m5) holds its entries to
+SEQ_ENTRIES = {}
 
 
 def fleet_files(work):
@@ -4263,6 +4391,8 @@ def fleet_f1(paths, work, tag):
     _, _, seq_links, seq_doc, _, _ = next(r for r in runs
                                           if r[1] == "sequential")
     seq_masks = {os.path.basename(p): out_mask(p) for p in seq_links}
+    SEQ_ENTRIES.update((os.path.basename(en["path"]), en)
+                       for en in seq_doc["archives"])
     seq_entries = {os.path.basename(e["path"]): e
                    for e in seq_doc["archives"]}
     # each batch's launches: once per batch iteration, the iterations of
@@ -4605,8 +4735,9 @@ def fleet_phases(work, files, tag):
     """The fleet phases (f1)-(f6) in ``work``: ``files`` is the future of
     :func:`fleet_files` (written on a worker process while the earlier
     phases ran).  (f1) first, alone; then (f2), (f3), (f4) and (f6), each
-    on processes of its own over its own links, at once, and (f5) once
-    (f2) is done.  Prints their seconds."""
+    on processes of its own over its own links, at once, and (f5), the
+    mesh fleet (m5) and the coordinator hosts (m6) once (f2) is done.
+    Prints their seconds."""
     t_all = time.perf_counter()
     paths, shapes = files.result(timeout=FLEET_SUB_TIMEOUT_S)
     timings = {}
@@ -4621,29 +4752,446 @@ def fleet_phases(work, files, tag):
         fn(*args)
         return name, time.perf_counter() - t0
 
-    with ThreadPoolExecutor(max_workers=5) as pool:
+    with ThreadPoolExecutor(max_workers=7) as pool:
         f2 = pool.submit(timed, "f2", fleet_f2, small, seq_masks, work, tag)
 
-        def f5_after_f2():
-            # (f5)'s nvcc build loads every core: it starts once (f2)'s
-            # watchdog drill is over
+        def after_f2(name, fn, *args):
+            # (f5)'s nvcc build and the multi-process fleets of (m5) and
+            # (m6) load every core: they start once (f2)'s watchdog drill
+            # is over, so its executes stay inside its stage timeout
             wait([f2])
-            return timed("f5", fleet_f5, work, tag)
+            return timed(name, fn, *args)
 
         futs = [f2,
                 pool.submit(timed, "f3", fleet_f3, work, large, small[0],
                             tag),
                 pool.submit(timed, "f4", fleet_f4, small, seq_masks, work,
                             tag),
-                pool.submit(f5_after_f2),
+                pool.submit(after_f2, "f5", fleet_f5, work, tag),
                 pool.submit(timed, "f6", fleet_f6, paths, seq_masks, work,
-                            tag)]
+                            tag),
+                pool.submit(after_f2, "m5", fleet_m5, small, seq_masks,
+                            SEQ_ENTRIES, work, tag),
+                pool.submit(after_f2, "m6", fleet_m6,
+                            small + [p for p in paths
+                                     if shapes[p] == (64, 120, 512)],
+                            work, tag)]
         # a phase's fail() raises SystemExit on its thread: result()
         # raises it here
         timings.update(f.result() for f in futs)
     print(f"fleet phases: {time.perf_counter() - t_all:.1f} s in all ("
           + ", ".join(f"{k} {v:.1f} s" for k, v in sorted(timings.items()))
-          + f"; f2 to f6 at once, f5 after f2) {tag}", flush=True)
+          + f"; f2, f3, f4 and f6 at once, f5, m5 and m6 after f2) {tag}",
+          flush=True)
+
+
+# ---- the multi-process and float64-mesh phases: m2-m6 -------------------
+# (m2) four gloo ranks on the card (2 x 2) cleaning a float64 archive of
+# the streamed shard phase's shape whole and streamed at budget 0; (m3)
+# batch (a)'s archives in float64; (m4) the hybrid batch-cell mesh on four
+# gloo ranks (batch 2 x a 1 x 2 cell mesh) over HYBRID_ARCHIVES archives of
+# BATCH_SHAPE (one pad slot), float32 and float64; (m5) --fleet --mesh
+# batch as two gloo-backed ranks on the card over (f1)'s small archives
+# with one seeded load fault; (m6) two --coordinator hosts over one
+# journal, one process a host, then two torchrun ranks a host on the card.
+HYBRID_ARCHIVES, HYBRID_BATCH = 3, 2
+FLEET_MESH_RANKS, FLEET_MESH_FAULT = 2, "load:perm@3"
+MESH_PHASE_TIMEOUT_S = 300
+
+
+def gloo_f64_rank():
+    """One of the GLOO_RANKS ranks of (m2), started by ``run_local_ranks``
+    with gloo on cuda:0: the SHARD_STREAM_ARCHIVE in float64 through
+    ``clean_archive_sharded`` and through the exact stream at budget 0 in
+    SHARD_STREAM_CHUNK-subint tiles, over the 2 x 2 mesh.  Returns its
+    counts, times and (rank 0) the results."""
+    import torch
+
+    from iterative_cleaner_torch import CleanConfig, clean_streaming
+    from iterative_cleaner_torch.backends import clean_archive_sharded
+    from iterative_cleaner_torch.io.synthetic import make_synthetic_archive
+    from iterative_cleaner_torch.parallel.mesh import cell_mesh
+    from iterative_cleaner_torch.stats import kernels as K
+
+    ar, _ = make_synthetic_archive(**SHARD_STREAM_ARCHIVE)
+    mesh = cell_mesh()
+    out = {"rank": mesh.rank, "coords": mesh.coords}
+    for run, fn in (
+            ("whole", lambda: clean_archive_sharded(
+                ar, CleanConfig(device="cuda:0", dtype="float64"), mesh)),
+            ("stream", lambda: clean_streaming(
+                ar, SHARD_STREAM_CHUNK,
+                CleanConfig(device="cuda:0", dtype="float64",
+                            stream_hbm_mb=0), mesh))):
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        out[run] = fn()
+        torch.cuda.synchronize()
+        out[run + "_ms"] = (time.perf_counter() - t0) * 1e3
+        out[run + "_counts"] = {k: v for k, v in K.launch_counts().items()
+                                if v}
+    return out
+
+
+def gloo_hybrid_rank(seeds):
+    """One of the four ranks of (m4), started by ``run_local_ranks`` with
+    gloo on cuda:0: the small archives of ``seeds`` through
+    ``clean_archives_hybrid`` over ``hybrid_batch_cell_mesh(HYBRID_BATCH)``
+    in float32 and float64.  Returns its slot, cell coordinates, counts
+    and (rank 0) the results."""
+    import torch
+
+    from iterative_cleaner_torch import CleanConfig
+    from iterative_cleaner_torch.parallel import (
+        clean_archives_hybrid,
+        hybrid_batch_cell_mesh,
+    )
+    from iterative_cleaner_torch.stats import kernels as K
+
+    ars = [batch_small_archive(sd) for sd in seeds]
+    mesh = hybrid_batch_cell_mesh(HYBRID_BATCH)
+    out = {"shape": mesh.shape, "slot": mesh.slot,
+           "coords": mesh.cells.coords}
+    for dtype in ("float32", "float64"):
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        out[dtype] = clean_archives_hybrid(
+            ars, CleanConfig(device="cuda:0", dtype=dtype), mesh)
+        torch.cuda.synchronize()
+        out[dtype + "_ms"] = (time.perf_counter() - t0) * 1e3
+        out[dtype + "_counts"] = {k: v for k, v in K.launch_counts().items()
+                                  if v}
+    return out
+
+
+def gloo_fleet_rank(paths, faults):
+    """One of the FLEET_MESH_RANKS ranks of (m5), started by
+    ``run_local_ranks`` with gloo on cuda:0: ``clean_fleet`` over the
+    ('batch',) mesh of the ranks, the seeded ``faults`` on rank 0, groups
+    of FLEET_GROUP.  Returns its report as plain data: each result's
+    mask, each failure's path, stage and error type."""
+    from iterative_cleaner_torch import CleanConfig
+    from iterative_cleaner_torch.parallel.fleet import clean_fleet
+    from iterative_cleaner_torch.parallel.mesh import batch_mesh
+    from iterative_cleaner_torch.resilience import (
+        FaultInjector,
+        ResiliencePlan,
+    )
+
+    mesh = batch_mesh()
+    report = clean_fleet(
+        paths, CleanConfig(device="cuda:0", fleet_group_size=FLEET_GROUP),
+        mesh=mesh, io_workers=1,
+        resilience=ResiliencePlan(faults=FaultInjector(faults, seed=0)))
+    return {"rank": mesh.rank,
+            "masks": {os.path.basename(p): r.final_weights == 0
+                      for p, r in report.results.items()},
+            "failures": sorted((os.path.basename(p), st, type(e).__name__)
+                               for p, st, e in report.failures)}
+
+
+def multiprocess_phases(batch_ars, counts, clean_ms, tag):
+    """(m2)-(m4): the float64 cell mesh on four gloo ranks, batch (a) in
+    float64, the hybrid batch-cell mesh; see the comment above
+    HYBRID_ARCHIVES.  Prints each phase's seconds."""
+    import torch
+
+    from iterative_cleaner_torch import CleanConfig, clean_streaming
+    from iterative_cleaner_torch.backends import clean_archive
+    from iterative_cleaner_torch.engine.loop import (
+        ROUTE_KERNELS,
+        SHARD_KERNELS,
+        STREAM_KERNELS,
+        storage_kernels,
+    )
+    from iterative_cleaner_torch.io.synthetic import make_synthetic_archive
+    from iterative_cleaner_torch.parallel import distributed
+    from iterative_cleaner_torch.parallel.batch import clean_archives_batched
+    from iterative_cleaner_torch.stats import kernels as K
+
+    f64 = lambda ks: storage_kernels(ks, "float32", "float64")  # noqa: E731
+
+    # ---- (m2) four gloo ranks, float64, whole and streamed
+    t_phase = time.perf_counter()
+    ar_s, _ = make_synthetic_archive(**SHARD_STREAM_ARCHIVE)
+    single = clean_archive(ar_s, CleanConfig(dtype="float64"))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="icln_chip_smoke_ranks_") as wd:
+        try:
+            ranks = distributed.run_local_ranks(
+                gloo_f64_rank, GLOO_RANKS, (), workdir=wd, device="cuda:0",
+                backend="gloo", timeout_s=GLOO_TIMEOUT_S)
+        except (RuntimeError, TimeoutError) as exc:
+            fail(f"float64 (m2) gloo: {exc}")
+    n_tiles = -(-ar_s.nsub // SHARD_STREAM_CHUNK)
+    shape_s = tuple(SHARD_STREAM_ARCHIVE[k] for k in ("nsub", "nchan",
+                                                      "nbin"))
+    bad = []
+    for run in ("whole", "stream"):
+        r = ranks[0][run]
+        if run == "whole":
+            want = {k: r.loops for k in f64(SHARD_KERNELS["default"])}
+        else:
+            full = {k: 0 for k in K.launch_counts()}
+            full.update(ranks[0]["stream_counts"])
+            want = {k: v for k, v in stream_counts(
+                f64(STREAM_KERNELS["default"]), full, r.loops,
+                n_tiles).items() if v}
+        for rk in ranks:
+            print(f"float64 (m2) {run} rank {rk['rank']} "
+                  f"{tuple(rk['coords'])}: kernels "
+                  f"{json.dumps(rk[run + '_counts'])}, "
+                  f"{rk[run + '_ms']:.1f} ms {tag}", flush=True)
+            if rk[run + "_counts"] != want:
+                bad.append(f"{run} rank {rk['rank']} launches "
+                           f"{rk[run + '_counts']}, want {want}")
+        n_mask = int(((r.final_weights == 0)
+                      != (single.final_weights == 0)).sum())
+        print(f"float64 (m2) {run} over {GLOO_RANKS} gloo ranks, {shape_s}"
+              f"{'' if run == 'whole' else f' in tiles of {SHARD_STREAM_CHUNK} at budget 0'}"
+              f": {r.loops} loops (single {single.loops}); against the "
+              f"single-card float64 clean {n_mask} mask cells differ "
+              f"(tolerance: 0), {int((single.final_weights == 0).sum())} "
+              f"zapped {tag}", flush=True)
+        if n_mask or r.loops != single.loops \
+                or r.final_weights.dtype != np.float64:
+            bad.append(f"{run}: {n_mask} mask cells, loops {r.loops}")
+    if bad or any(rk["whole"] is not None for rk in ranks[1:]):
+        fail(f"float64 (m2): {bad}")
+    print(f"float64 phase (m2), four gloo ranks: "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # ---- (m3) batch (a) in float64
+    t_phase = time.perf_counter()
+    cfg = CleanConfig(dtype="float64")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = clean_archives_batched(batch_ars, cfg)
+    torch.cuda.synchronize()
+    clean_ms["f64 batch"] = (time.perf_counter() - t0) * 1e3
+    counts["f64 batch"] = K.launch_counts()
+    t0 = time.perf_counter()
+    want = [clean_archive(a, cfg) for a in batch_ars]
+    torch.cuda.synchronize()
+    single_ms = (time.perf_counter() - t0) * 1e3
+    iters = max(g.loops for g in got)
+    want_counts = {k: (iters if k in f64(ROUTE_KERNELS["default"]) else 0)
+                   for k in counts["f64 batch"]}
+    print(f"float64 (m3) batch (a): {len(batch_ars)} archives of "
+          f"{BATCH_SHAPE} in float64, kernels "
+          f"{json.dumps({k: v for k, v in counts['f64 batch'].items() if v})}"
+          f" (want each float64 build once per batch iteration, {iters}); "
+          f"whole batch clean {clean_ms['f64 batch']:.1f} ms against "
+          f"{single_ms:.1f} ms for the single float64 cleans (host clock) "
+          f"{tag}", flush=True)
+    if counts["f64 batch"] != want_counts:
+        fail(f"float64 (m3): launch counts {counts['f64 batch']}, want "
+             f"{want_counts}")
+    if any(g.scores.dtype != np.float64 for g in got):
+        fail("float64 (m3): the batch's scores are not float64")
+    batch_vs_single("float64 (m3) batch (a)", got, want, tag)
+    print(f"float64 phase (m3), batch (a) in float64: "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # ---- (m4) the hybrid batch-cell mesh on four gloo ranks
+    t_phase = time.perf_counter()
+    seeds = list(BATCH_SEEDS)[:HYBRID_ARCHIVES]
+    with tempfile.TemporaryDirectory(prefix="icln_chip_smoke_ranks_") as wd:
+        try:
+            ranks = distributed.run_local_ranks(
+                gloo_hybrid_rank, GLOO_RANKS, (seeds,), workdir=wd,
+                device="cuda:0", backend="gloo", timeout_s=GLOO_TIMEOUT_S)
+        except (RuntimeError, TimeoutError) as exc:
+            fail(f"hybrid (m4): {exc}")
+    bad = []
+    for dtype in ("float32", "float64"):
+        singles = [clean_archive(batch_ars[i], CleanConfig(dtype=dtype))
+                   for i in range(HYBRID_ARCHIVES)]
+        res = ranks[0][dtype]
+        n_mask = sum(int(((g.final_weights == 0)
+                          != (w.final_weights == 0)).sum())
+                     + int(g.loops != w.loops) for g, w in zip(res, singles))
+        for rk in ranks:
+            print(f"hybrid (m4) {dtype} rank slot {rk['slot']} cells "
+                  f"{tuple(rk['coords'])}: kernels "
+                  f"{json.dumps(rk[dtype + '_counts'])}, "
+                  f"{rk[dtype + '_ms']:.1f} ms {tag}", flush=True)
+        print(f"hybrid (m4) {dtype}: mesh {ranks[0]['shape']}, "
+              f"{HYBRID_ARCHIVES} archives of {BATCH_SHAPE} (one pad slot), "
+              f"{len(res)} results on rank 0, loops "
+              f"{[g.loops for g in res]}; against the single {dtype} cleans "
+              f"{n_mask} mask cells or loop counts differ (tolerance: 0) "
+              f"{tag}", flush=True)
+        if len(res) != HYBRID_ARCHIVES or n_mask \
+                or any(g.final_weights.dtype != np.dtype(dtype) for g in res):
+            bad.append(dtype)
+    if bad or [rk["shape"] for rk in ranks] != [(2, 1, 2)] * 4 \
+            or any(rk["float32"] is not None for rk in ranks[1:]):
+        fail(f"hybrid (m4): {bad}")
+    print(f"phase (m4), the hybrid mesh: {time.perf_counter() - t_phase:.1f} "
+          f"s", flush=True)
+
+
+def fleet_m5(paths, seq_masks, seq_entries, work, tag):
+    """(m5): ``--fleet --mesh batch`` over (f1)'s small archives with one
+    seeded load fault, as FLEET_MESH_RANKS ranks on the card under
+    ``torch.distributed.run`` (rank 0 writes; masks and report entries
+    held to the sequential session's), then ``clean_fleet`` over as many
+    gloo ranks, every rank's report the same."""
+    from iterative_cleaner_torch.parallel import distributed
+
+    d = os.path.join(work, "mesh")
+    links = linked(paths, d)
+    e = dict(os.environ)
+    e["PYTHONPATH"] = os.pathsep.join(
+        [HERE] + ([e["PYTHONPATH"]] if e.get("PYTHONPATH") else []))
+    t0 = time.perf_counter()
+    try:
+        out = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", str(FLEET_MESH_RANKS), "-m",
+             "iterative_cleaner_torch", "--device", "cuda:0", "--fleet",
+             "--mesh", "batch", "--batch", str(FLEET_GROUP),
+             "--io-workers", "1", "--faults", FLEET_MESH_FAULT, "-l",
+             "--metrics-json", "run.json", *links], cwd=d, env=e,
+            capture_output=True, text=True, timeout=MESH_PHASE_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        fail(f"fleet (m5): --fleet --mesh batch ran past "
+             f"{MESH_PHASE_TIMEOUT_S} s")
+    cli_s = time.perf_counter() - t0
+    doc = json.load(open(os.path.join(d, "run.json")))
+    missing = [p for p in links if not os.path.exists(p + "_cleaned.sf")]
+    n_mask = sum(int((out_mask(p) != seq_masks[os.path.basename(p)]).sum())
+                 for p in links if p not in missing)
+    n_entry = sum(bool(entry_diff(en, seq_entries[os.path.basename(
+        en["path"])], 0.0)) for en in doc["archives"])
+    errors = [ln for ln in out.stderr.splitlines() if ln.startswith("ERROR")]
+    print(f"fleet (m5) --fleet --mesh batch --batch {FLEET_GROUP} on "
+          f"{FLEET_MESH_RANKS} ranks (gloo side groups), {len(links)} "
+          f"archives, --faults {FLEET_MESH_FAULT}: exit {out.returncode}, "
+          f"{len(missing)} archive without output, {len(errors)} error "
+          f"line(s) {errors}; against the sequential session {n_mask} mask "
+          f"cells and {n_entry} report entries differ (tolerance 0 and 0); "
+          f"fleet_cleaned {doc['counters'].get('fleet_cleaned', 0):g}, "
+          f"archives_failed {doc['counters'].get('archives_failed', 0):g}; "
+          f"{cli_s:.1f} s {tag}", flush=True)
+    if out.returncode != 1 or len(missing) != 1 or len(errors) != 1 \
+            or n_mask or n_entry \
+            or len(doc["archives"]) != len(links) - 1:
+        fail(f"fleet (m5): the CLI mesh fleet differs: "
+             f"{out.stderr[-3000:]}")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="icln_chip_smoke_ranks_") as wd:
+        try:
+            ranks = distributed.run_local_ranks(
+                gloo_fleet_rank, FLEET_MESH_RANKS, (links, FLEET_MESH_FAULT),
+                workdir=wd, device="cuda:0", backend="gloo",
+                timeout_s=MESH_PHASE_TIMEOUT_S)
+        except (RuntimeError, TimeoutError) as exc:
+            fail(f"fleet (m5) gloo ranks: {exc}")
+    n_mask = sum(int((m != seq_masks[name]).sum())
+                 for rk in ranks for name, m in rk["masks"].items())
+    print(f"fleet (m5) clean_fleet over {FLEET_MESH_RANKS} gloo ranks: "
+          f"failures by rank {[rk['failures'] for rk in ranks]}, results by "
+          f"rank {[len(rk['masks']) for rk in ranks]}; {n_mask} mask cells "
+          f"off the sequential session's (tolerance 0); "
+          f"{time.perf_counter() - t0:.1f} s {tag}", flush=True)
+    fails = [rk["failures"] for rk in ranks]
+    if n_mask or len(fails[0]) != 1 or any(f != fails[0] for f in fails) \
+            or fails[0][0][0] != os.path.basename(missing[0]) \
+            or any(set(rk["masks"]) != set(ranks[0]["masks"])
+                   for rk in ranks):
+        fail("fleet (m5): the ranks' reports differ")
+
+
+def fleet_m6(paths, work, tag):
+    """(m6): two ``--hosts 2 --coordinator`` hosts over one journal, first
+    one process a host, then two ``torch.distributed.run`` ranks a host on
+    the card (``--mesh batch``: each host's groups split over its ranks);
+    every counter the coordinator's reduction sums equal in both reports
+    to the hosts' sum (the fleet counters as the journal's per-host stats
+    fold them, the archive counters from the hosts' event logs and the
+    outputs)."""
+    import socket
+
+    from iterative_cleaner_torch.io import load_archive
+    from iterative_cleaner_torch.resilience import FleetJournal
+    from iterative_cleaner_torch.telemetry.run import _AGGREGATED_COUNTERS
+
+    e = dict(os.environ)
+    e["PYTHONPATH"] = os.pathsep.join(
+        [HERE] + ([e["PYTHONPATH"]] if e.get("PYTHONPATH") else []))
+    torchrun = [sys.executable, "-m", "torch.distributed.run",
+                "--standalone", "--nproc_per_node", "2"]
+    forms = [("one process a host", "coordinator", [sys.executable], []),
+             ("two ranks a host", "coordinator_mesh", torchrun,
+              ["--mesh", "batch", "--device", "cuda:0", "--io-workers",
+               "1"])]
+    for form, sub, launch, extra in forms:
+        d = os.path.join(work, sub)
+        links = linked(paths, d)
+        with socket.socket() as sk:
+            sk.bind(("127.0.0.1", 0))
+            port = sk.getsockname()[1]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            launch + ["-m", "iterative_cleaner_torch", "--fleet",
+                      "--batch", str(FLEET_GROUP), "--hosts", "2",
+                      "--host-id", str(h), "--coordinator",
+                      f"127.0.0.1:{port}", "--journal", "shared.jsonl",
+                      "--claim-ttl", "30", "-l", "-q", "--metrics-json",
+                      f"run{h}.json", "--event-log", f"events{h}.jsonl",
+                      *extra, *links], cwd=d, env=e,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for h in (0, 1)]
+        try:
+            outs = [p.communicate(timeout=MESH_PHASE_TIMEOUT_S)
+                    for p in procs]
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+            fail(f"fleet (m6) {form}: the coordinator hosts ran past "
+                 f"{MESH_PHASE_TIMEOUT_S} s")
+        secs = time.perf_counter() - t0
+        rcs = [p.returncode for p in procs]
+        if rcs != [0, 0]:
+            fail(f"fleet (m6) {form}: exits {rcs}: "
+                 f"{[err[-2000:] for _, err in outs]}")
+        fold = FleetJournal(os.path.join(d, "shared.jsonl")).host_stats()
+        share = {k: sum(float(fold[h].get(k, 0.0)) for h in fold)
+                 for k in _AGGREGATED_COUNTERS if k.startswith("fleet_")}
+        arch = [json.loads(ln) for h in (0, 1)
+                for ln in open(os.path.join(d, f"events{h}.jsonl"))]
+        arch = [a for a in arch if a.get("event") == "archive"]
+        share.update(
+            archives_cleaned=float(len(arch)),
+            archives_converged=float(sum(a["converged"] for a in arch)),
+            archives_failed=share["fleet_failures"],
+            iterations_total=float(sum(a["loops"] for a in arch)),
+            cells_zapped=float(sum(a["cells_zapped"] for a in arch)),
+            cells_total=float(sum(load_archive(p).weights.size
+                                  for p in links)))
+        bad = []
+        for h in (0, 1):
+            c = json.load(open(os.path.join(d, f"run{h}.json")))["counters"]
+            for k in _AGGREGATED_COUNTERS:
+                if c.get(k, 0.0) != share[k]:
+                    bad.append((h, k, c.get(k, 0.0), share[k]))
+            if c.get("telemetry_degraded"):
+                bad.append((h, "telemetry_degraded"))
+        print(f"fleet (m6) two --coordinator hosts over one journal, "
+              f"{form}, {len(links)} archives: exits {rcs}; the hosts' sums "
+              f"{json.dumps(share)}; counters off the sums in the two "
+              f"reports {bad} (tolerance: none); journal hosts "
+              f"{sorted(fold)}; {secs:.1f} s {tag}", flush=True)
+        if bad or sorted(fold) != [0, 1] \
+                or share["archives_cleaned"] != len(links):
+            fail(f"fleet (m6) {form}: the coordinator's counters are not "
+                 f"the hosts' sums: {bad}")
 
 
 def control_plane_phase(dev, tag):
@@ -5184,7 +5732,7 @@ def main() -> int:
     # held to the goldens with no flip, stream (a), selftest and the numpy
     # oracle, the float64 builds against their plain versions, long lines
     f64_kernels = float64_phases(ar, configs, results, counts, clean_ms,
-                                 peak_gib, stream_regs, dev, tag)
+                                 peak_gib, stream_regs, mesh1, dev, tag)
     # ---- batch (e): --mesh batch over the one NCCL rank and over four
     # gloo ranks sharing the card
     batch_mesh_phase(batch_ars, counts, tag)
@@ -5229,6 +5777,10 @@ def main() -> int:
                                                 single.converged):
         fail("shard stream 4 (gloo): mask or loops differ from the "
              "single-card exact stream")
+
+    # ---- (m2)-(m4): the float64 cell mesh on four gloo ranks, batch (a)
+    # in float64, the hybrid batch-cell mesh
+    multiprocess_phases(batch_ars, counts, clean_ms, tag)
 
     # ---- 3e. the CLI session a user runs, on the archive as PSRFITS,
     # counted like the default whole clean and held to it, its load

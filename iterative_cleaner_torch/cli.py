@@ -12,7 +12,7 @@ torch|numpy] [--rotation fourier|roll] [--baseline_mode] [--stats_frame]
 [--batch B] [--mesh off|cell|batch] [--prefetch N] [--io-workers N]
 [--fleet [--bucket-pad NSUB,NCHAN] [--retries N] [--stage-timeout S]
 [--faults SPEC [--fault-seed SEED]] [--journal PATH [--journal-segment-mb MB] [--resume]] [--hosts N --host-id I
-[--claim-ttl S]] [--trace-out PATH] [--flight-recorder PATH]]
+[--claim-ttl S] [--coordinator HOST:PORT]] [--trace-out PATH] [--flight-recorder PATH]]
 [--precompile] [--compile-cache DIR] [--profile-dir DIR] [--no-donate]
 [--metrics-json PATH] [--prom-textfile PATH] [--event-log PATH]
 [--log-format text|json] [--timing] [--keep_going] obs.sf ...``
@@ -119,7 +119,18 @@ that does not fit the card alone fails: clean it without ``--fleet``,
 e.g. with ``--backend numpy``), and ``--journal PATH`` (a file, or a directory for the segmented
 journal) with ``--resume``, which prints ``resumed: N archives already
 complete in PATH``.  ``--hosts N --host-id I`` serves one host's share
-of a fleet that N processes split through one shared ``--journal``.
+of a fleet that N processes split through one shared ``--journal``;
+``--coordinator HOST:PORT`` (or ``ICLEAN_COORDINATOR``) joins the N hosts
+in a process group at ``tcp://HOST:PORT`` (host I its rank; under
+``torchrun`` with ``--mesh batch``, host I's local rank L is rank
+I * LOCAL_WORLD_SIZE + L), whose one collective sums the run's counters
+in every host's metric export (``parallel/distributed.py``, a failed
+reduction degrading to the host's own, counted as
+``telemetry_degraded``).  ``--fleet --mesh batch`` splits each group's
+batch over the ranks of a ``torchrun`` job (over this host's ranks,
+``LOCAL_WORLD_SIZE``, on a multi-host fleet): rank 0 decides and
+writes, and every rank follows its plan, loads and retries
+(``parallel/fleet.py``).
 ``--compile-cache DIR`` is the directory the CUDA kernel library is
 built into and loaded from (a warm restart builds nothing);
 ``--precompile --compile-cache DIR`` plans the buckets of the given
@@ -148,9 +159,6 @@ the card contracts on ``--device``, ``cuda`` unless ``--device cpu`` is
 given) and exits 0 or 1; ``--journal-fsck JOURNAL`` with it validates
 journals too.  The daemon and the ``--precompile`` session publish the
 lint verdict (``lint_findings{rule=...}``, ``lint_ok``) in their metrics.
-Not ported yet: ``--coordinator`` and ``--fleet --mesh batch`` (ROADMAP.md
-'Modules still to port' item 3b), each raising ``NotImplementedError``
-naming its item.
 """
 
 from __future__ import annotations
@@ -165,7 +173,6 @@ from iterative_cleaner_torch.analysis.cli import record_package_lint
 from iterative_cleaner_torch.config import (
     BACKENDS,
     MESH_MODES,
-    ROADMAP_FLEET_3B,
     CleanConfig,
     check_mesh,
 )
@@ -513,8 +520,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "else 60.")
     p.add_argument("--coordinator", type=str, default="",
                    metavar="HOST:PORT",
-                   help="Not ported (ROADMAP item 3b): the journal alone "
-                        "coordinates a multi-host fleet.")
+                   help="Join the --hosts N fleet processes in a process "
+                        "group at tcp://HOST:PORT (this process's rank is "
+                        "--host-id): each host's metric export then sums "
+                        "the run's counters over every host. The journal "
+                        "still coordinates the work. Mirrors "
+                        "ICLEAN_COORDINATOR.")
     p.add_argument("--compile-cache", "--compile_cache", type=str,
                    default="", dest="compile_cache", metavar="DIR",
                    help="Directory the CUDA kernel library is built into "
@@ -1011,13 +1022,15 @@ def run_batched(args, telemetry: RunTelemetry, mesh=None) -> list:
     return failed
 
 
-def run_fleet(args, telemetry: RunTelemetry) -> list:
+def run_fleet(args, telemetry: RunTelemetry, mesh=None) -> list:
     """The ``--fleet`` session: the whole (possibly mixed-shape) archive
     list through :func:`~iterative_cleaner_torch.parallel.fleet.
     clean_fleet`, each archive's output, console lines and logs written by
     :func:`clean_one` under one lock (stdout, the zap plot and
-    ``clean.log`` are not thread-safe), in the buckets' order.  Returns the
-    failed paths."""
+    ``clean.log`` are not thread-safe), in the buckets' order.  Over a
+    ``--mesh batch`` (``mesh``) every rank serves the groups and rank 0
+    alone writes, journals, prints and records.  Returns the failed
+    paths."""
     import threading
 
     from iterative_cleaner_torch.parallel.distributed import (
@@ -1037,6 +1050,7 @@ def run_fleet(args, telemetry: RunTelemetry) -> list:
 
     cfg = config_of(args)
     topo = resolve_host_topology(cfg.fleet_hosts, cfg.fleet_host_id)
+    lead = mesh is None or mesh.rank == 0
     failed: list = []
     write_lock = threading.Lock()
 
@@ -1047,6 +1061,8 @@ def run_fleet(args, telemetry: RunTelemetry) -> list:
     def on_error(path, exc, stage):
         failed.append(path)
         telemetry.record_failure(path, exc)
+        if not lead:
+            return
         hint = ""
         if stage == "clean" and classify_error(exc) == OOM:
             hint = (" (it does not fit the device even alone; clean it "
@@ -1055,7 +1071,7 @@ def run_fleet(args, telemetry: RunTelemetry) -> list:
               % ("writing" if stage == "write" else "cleaning", path,
                  type(exc).__name__, exc, hint), file=sys.stderr)
 
-    journal_path = args.journal
+    journal_path = args.journal if lead else ""
     plan = ResiliencePlan(
         faults=(FaultInjector(args.faults, seed=args.fault_seed)
                 if args.faults else FaultInjector.from_env()),
@@ -1076,7 +1092,7 @@ def run_fleet(args, telemetry: RunTelemetry) -> list:
     flight = (args.flight_recorder if args.flight_recorder is not None
               else os.environ.get("ICLEAN_FLIGHT_RECORDER", ""))
     recorder = tracer = None
-    if flight:
+    if flight and lead:
         from iterative_cleaner_torch.telemetry.recorder import (
             FlightRecorder,
             set_active,
@@ -1084,7 +1100,7 @@ def run_fleet(args, telemetry: RunTelemetry) -> list:
 
         recorder = FlightRecorder(path=flight)
         set_active(recorder)
-    if trace_out:
+    if trace_out and lead:
         from iterative_cleaner_torch.telemetry.tracing import (
             Tracer,
             spool_path_for,
@@ -1097,7 +1113,8 @@ def run_fleet(args, telemetry: RunTelemetry) -> list:
         report = clean_fleet(
             list(args.archive), cfg, registry=telemetry.registry,
             events=telemetry.events, io_workers=args.io_workers,
-            write_fn=write_one, on_error=on_error, resilience=plan,
+            write_fn=write_one if lead else None, on_error=on_error,
+            resilience=plan, mesh=mesh,
             # a journal line records the output's path and signature so a
             # resume can re-verify it; only the default naming is a
             # function of the input path alone (-o std needs the archive)
@@ -1119,11 +1136,11 @@ def run_fleet(args, telemetry: RunTelemetry) -> list:
             # the process-global black box, released if still ours
             if get_active() is recorder:
                 set_active(None)
-    if report.skipped and not args.quiet:
+    if report.skipped and lead and not args.quiet:
         print("resumed: %d archive%s already complete in %s"
               % (len(report.skipped),
                  "" if len(report.skipped) == 1 else "s", journal_path))
-    if topo.is_multi and not args.quiet:
+    if topo.is_multi and lead and not args.quiet:
         print("host %d/%d: %d cleaned, %d bucket%s owned, %d stolen"
               % (topo.host_id, topo.n_hosts, len(report.results),
                  report.n_buckets_owned,
@@ -1472,7 +1489,7 @@ def run_archives(args, mesh=None) -> int:
     with run_session(args, lead, 0 if mesh is None else mesh.rank) \
             as telemetry:
         if args.fleet:
-            failed = run_fleet(args, telemetry)
+            failed = run_fleet(args, telemetry, mesh)
         elif args.batch > 1:
             failed = run_batched(args, telemetry, mesh)
         else:
@@ -1562,10 +1579,23 @@ def check_serve_args(parser, args, chunk: int) -> None:
 
 def check_fleet_args(parser, args, chunk: int) -> None:
     """The reference parser's refusals of the fleet's flags (exit 2), and
-    the flags whose modules are not ported (``NotImplementedError``
-    naming the item)."""
-    if args.coordinator or os.environ.get("ICLEAN_COORDINATOR"):
-        raise NotImplementedError(f"--coordinator: {ROADMAP_FLEET_3B}")
+    the coordinator's."""
+    if args.coordinator and not args.fleet:
+        parser.error("--coordinator joins the hosts of a multi-host "
+                     "--fleet; pass --fleet")
+    if args.fleet and coordinator_of(args):
+        hosts = (args.hosts if args.hosts is not None
+                 else _env_int("ICLEAN_HOSTS"))
+        host_id = (args.host_id if args.host_id is not None
+                   else _env_int("ICLEAN_HOST_ID"))
+        if hosts is None or host_id is None:
+            parser.error("--coordinator needs the host count and this "
+                         "host's index: pass --hosts N --host-id I (or set "
+                         "ICLEAN_HOSTS and ICLEAN_HOST_ID)")
+        if (_env_int("LOCAL_WORLD_SIZE") or 1) > 1 and args.mesh != "batch":
+            parser.error("--coordinator under torchrun with several ranks "
+                         "a host splits each group over them: pass --mesh "
+                         "batch (or start one process a host)")
     if args.resume and not args.journal:
         parser.error("--resume needs an explicit --journal PATH: resuming "
                      "against an implicit default journal risks skipping "
@@ -1644,8 +1674,12 @@ def check_fleet_args(parser, args, chunk: int) -> None:
             parser.error("--precompile warms the --fleet buckets and is "
                          "incompatible with --mesh/--stream/--unload_res/"
                          "--checkpoint/--model quicklook")
-    if args.fleet and args.mesh == "batch":
-        raise NotImplementedError(f"--fleet --mesh batch: {ROADMAP_FLEET_3B}")
+
+
+def coordinator_of(args) -> str:
+    """The fleet's ``--coordinator`` address, else
+    ``ICLEAN_COORDINATOR``'s, else empty."""
+    return args.coordinator or os.environ.get("ICLEAN_COORDINATOR", "")
 
 
 def check_online_args(parser, args, chunk: int) -> None:
@@ -1799,15 +1833,35 @@ def main(argv=None) -> int:
         parser.error("--batch B > 1 and --mesh cell|batch require "
                      "--backend torch")
     check_mesh(args.mesh, config_of(args))
-    if args.mesh == "off":
+    coordinator = coordinator_of(args) if args.fleet else ""
+    if args.mesh == "off" and not coordinator:
         return run_archives(args)
     from iterative_cleaner_torch.parallel import distributed
-    from iterative_cleaner_torch.parallel.mesh import batch_mesh, cell_mesh
+    from iterative_cleaner_torch.parallel.mesh import (
+        batch_mesh,
+        cell_mesh,
+        local_batch_mesh,
+    )
 
-    distributed.initialize(device=args.device)
+    if coordinator:
+        # the hosts' process group (the reference's jax.distributed
+        # bootstrap): its one collective is the counters' reduction
+        cfg = config_of(args)
+        distributed.initialize(device=args.device, coordinator=coordinator,
+                               world_size=cfg.fleet_hosts,
+                               rank=cfg.fleet_host_id)
+    else:
+        distributed.initialize(device=args.device)
     try:
-        return run_archives(
-            args, batch_mesh() if args.mesh == "batch" else cell_mesh())
+        if args.mesh == "off":
+            return run_archives(args)
+        if args.mesh == "cell":
+            return run_archives(args, cell_mesh())
+        # a multi-host fleet's mesh is this host's ranks: a group never
+        # waits on another host, which may die
+        multi = (config_of(args).fleet_hosts or 1) > 1
+        return run_archives(args, local_batch_mesh()
+                            if args.fleet and multi else batch_mesh())
     finally:
         distributed.shutdown()
 

@@ -16,9 +16,9 @@ float32 (resolved, env mirror and parity probe included, by
 resolve_compute_dtype`).  The route itself follows from
 the algorithm fields and the archive, as in the reference
 (``disp_iteration_enabled`` and the stats frame; see
-:mod:`iterative_cleaner_torch.engine.loop`).  What the port cannot run
-yet is refused here with ``NotImplementedError`` naming the ROADMAP.md
-item that will bring it, never silently approximated.
+:mod:`iterative_cleaner_torch.engine.loop`).  What the reference
+refuses is refused here too (``ValueError``), never silently
+approximated.
 """
 
 from __future__ import annotations
@@ -26,13 +26,6 @@ from __future__ import annotations
 import dataclasses
 import os
 from typing import Optional, Tuple
-
-# ROADMAP.md "Modules still to port" items the refusals point at.
-ROADMAP_F64_MESH = ("ROADMAP.md 'Modules still to port' item 1b (float64 "
-                    "on a mesh and in a batch)")
-ROADMAP_FLEET_3B = ("ROADMAP.md 'Modules still to port' item 3b (--coordinator, "
-                    "a ('batch',) mesh under the fleet, the hybrid batch-cell "
-                    "mesh)")
 
 BACKENDS = ("torch", "numpy")
 
@@ -239,7 +232,7 @@ def check_mesh(mesh: str, config: CleanConfig) -> None:
     """Refuse what the multi-GPU clean does not run: on a mesh, the
     outputs that are not gathered across ranks (``unload_res``,
     ``record_history``) and the numpy oracle (``ValueError``, as in the
-    reference); float64 (``NotImplementedError``, item 1b).
+    reference).  float64 runs on either mesh.
     ``mesh='cell'`` runs every route, whole or streamed in subint tiles;
     ``mesh='batch'`` splits a batch of archives over the ranks
     (``parallel/batch.py``)."""
@@ -254,15 +247,6 @@ def check_mesh(mesh: str, config: CleanConfig) -> None:
             "unload_res/record_history are not supported on the sharded "
             "path (residual cubes and weight histories are not gathered); "
             "clean unsharded for those outputs")
-    check_float64_mesh(config, f"mesh={mesh!r}")
-
-
-def check_float64_mesh(config: CleanConfig, what: str) -> None:
-    """Refuse ``dtype='float64'`` where it would need K10's float64 build
-    or 64-bit sharded selects: on a mesh and in a batch."""
-    if config.dtype == "float64":
-        raise NotImplementedError(
-            f"dtype='float64' with {what}: {ROADMAP_F64_MESH}")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -68,9 +68,10 @@ order of addition, by the shape it is given).
 
 float64 (``CleanConfig.dtype='float64'``, the reference's oracle-parity
 mode): the uploads, the cubes, every plane, sum, select and score are
-float64 on every single-card route, and each kernel launches its float64
-build (:func:`storage_kernels`); ``iter_metrics`` stays float32, as in
-the reference.
+float64 on every route, whole, streamed, batched or sharded, and each
+kernel launches its float64 build (:func:`storage_kernels`; on a mesh
+K10's, and the tree-reduced selects take 64-bit keys); ``iter_metrics``
+stays float32, as in the reference.
 
 Mixed precision (``CleanConfig.compute_dtype='bfloat16'``, the
 reference's ``compute_dtype``): :func:`store_prepared` narrows the
@@ -163,8 +164,7 @@ def storage_kernels(kernels, compute_dtype: str,
     the others) run under at ``compute_dtype``: the cube kernels' bf16
     builds under ``'bfloat16'``, the rest (float32 planes) as named.
     Under ``dtype='float64'`` every kernel's float64 build
-    (``<name>_f64``; the single-card routes', exact streaming's and the
-    long lines' kernels have one, K10 none)."""
+    (``<name>_f64``; every kernel has one)."""
     if dtype == "float64":
         return tuple(k + "_f64" for k in kernels)
     if compute_dtype != "bfloat16":

@@ -21,7 +21,7 @@ launches read them.
 On a ('batch',) mesh (:func:`~iterative_cleaner_torch.parallel.mesh.
 batch_mesh`) the batch is zero-weight padded to a multiple of the ranks,
 each rank cleans its contiguous share, and the results go to rank 0
-(``distributed.host_fetch``); no collective crosses archives.
+(``BatchMesh.fetch``); no collective crosses archives.
 
 The fleet (:mod:`~iterative_cleaner_torch.parallel.fleet`) also calls
 :func:`warm_bucket`, the port's counterpart of the reference's
@@ -34,6 +34,7 @@ program label is.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from typing import List, Optional, Sequence, Set
@@ -46,7 +47,7 @@ from iterative_cleaner_torch.backends.torch_backend import (
     clean_device,
     config_compute_dtype,
 )
-from iterative_cleaner_torch.config import CleanConfig, check_float64_mesh
+from iterative_cleaner_torch.config import CleanConfig
 from iterative_cleaner_torch.engine.loop import (
     BatchOutputs,
     clean_loop_batch,
@@ -75,13 +76,15 @@ def check_equal_shapes(archives: Sequence) -> None:
             "Archive.dedispersed first")
 
 
-def stack_archive_batch(archives: Sequence, pad: int, device, like=None):
+def stack_archive_batch(archives: Sequence, pad: int, device, like=None,
+                        dtype=np.float32):
     """The batch's inputs on ``device``, stacked along a leading batch
     axis with ``pad`` trailing zero-weight slots: ``(cubes, weights,
-    freqs, dms, refs, periods)`` as float32 tensors, and the bytes
-    uploaded.  Each archive's total-intensity cube is converted to
-    float32 straight into its slot of one host buffer (never a stack of
-    the float64 cubes), which is uploaded once.  The pad slots' cube and
+    freqs, dms, refs, periods)`` as tensors of ``dtype`` (float32, or
+    float64 under ``dtype='float64'``), and the bytes uploaded.  Each
+    archive's total-intensity cube is converted straight into its slot of
+    one host buffer (never a stack of the float64 cubes), which is
+    uploaded once.  The pad slots' cube and
     weights are 0, their frequencies, reference frequency and period 1
     and their DM 0, so their dispersion shifts are exactly zero and they
     clean trivially.  ``like`` gives the shape where ``archives`` is
@@ -89,9 +92,9 @@ def stack_archive_batch(archives: Sequence, pad: int, device, like=None):
     nb = len(archives) + pad
     like = archives[0] if archives else like
     nsub, nchan, nbin = like.nsub, like.nchan, like.nbin
-    cubes = np.zeros((nb, nsub, nchan, nbin), dtype=np.float32)
-    weights = np.zeros((nb, nsub, nchan), dtype=np.float32)
-    freqs = np.ones((nb, nchan), dtype=np.float32)
+    cubes = np.zeros((nb, nsub, nchan, nbin), dtype=dtype)
+    weights = np.zeros((nb, nsub, nchan), dtype=dtype)
+    freqs = np.ones((nb, nchan), dtype=dtype)
     meta = np.zeros((3, nb), dtype=np.float64)   # dm, ref freq, period
     meta[1:, len(archives):] = 1.0
     for b, a in enumerate(archives):
@@ -99,7 +102,7 @@ def stack_archive_batch(archives: Sequence, pad: int, device, like=None):
         weights[b] = a.weights
         freqs[b] = a.freqs_mhz
         meta[:, b] = (a.dm, a.centre_freq_mhz, a.period_s)
-    host = (cubes, weights, freqs, *meta.astype(np.float32))
+    host = (cubes, weights, freqs, *meta.astype(dtype))
     return (tuple(torch.from_numpy(np.ascontiguousarray(x)).to(device)
                   for x in host),
             sum(int(x.nbytes) for x in host))
@@ -133,7 +136,9 @@ def _clean_stack(archives, pad, like, config: CleanConfig, device,
     slots; ``like`` an archive of the batch's shape and DEDISP state) on
     ``device``."""
     (cubes, weights, freqs, dms, refs, periods), nbytes = \
-        stack_archive_batch(archives, pad, device, like)
+        stack_archive_batch(archives, pad, device, like,
+                            np.float64 if config.dtype == "float64"
+                            else np.float32)
     if registry is not None:
         registry.counter_inc("batch_h2d_bytes", nbytes)
     prep = prepare_batch(
@@ -164,54 +169,90 @@ def clean_archives_batched(archives: Sequence, config: CleanConfig,
     ``batch_archives`` and the kernel library builds this call ran as
     ``kernel_library_builds``.  The residual (``unload_res``) and the
     weight history (``record_history``) are not batched, nor is the numpy
-    oracle: ``ValueError``; float64 is ROADMAP item 1b:
-    ``NotImplementedError``."""
+    oracle: ``ValueError``.  ``dtype='float64'`` uploads float64 and
+    launches every kernel's float64 build for the whole batch."""
     if config.backend != "torch":
         raise ValueError("the batched clean requires the torch backend")
-    check_float64_mesh(config, "clean_archives_batched")
     if not archives:
         return []
+    n = len(archives)
+    device = _check_batch(archives, config, mesh, registry)
+    with _counting_builds(registry):
+        if mesh is None:
+            outs = _clean_stack(archives, 0, archives[0], config, device,
+                                registry)
+            return unpack_batch_results(outs, n, config)
+        outs = _clean_share(archives, config, mesh, registry)
+        # (converged as int32: not every backend gathers bool tensors)
+        parts = {k: mesh.fetch(getattr(outs, k).to(torch.int32)
+                               if k == "converged" else getattr(outs, k))
+                 for k in _RESULT_FIELDS}
+    if mesh.rank != 0:
+        return None
+    gathered = BatchOutputs(**{k: torch.cat(v) for k, v in parts.items()},
+                            template_weights=None, history=None)
+    return unpack_batch_results(gathered, n, config)
+
+
+def _check_batch(archives, config: CleanConfig, mesh, registry):
+    """The batch's checks (config, shapes, the mesh's device type), its
+    ``batch_archives`` count, and the device it runs on."""
+    if config.backend != "torch":
+        raise ValueError("the batched clean requires the torch backend")
     if config.unload_res or config.record_history:
         raise ValueError(
             "unload_res/record_history are not supported on the batched "
             "path (residual cubes and weight histories are not batched); "
             "clean archive by archive for those outputs")
     check_equal_shapes(archives)
-    n = len(archives)
     device = clean_device(config)
+    if mesh is not None and device.type != mesh.device.type:
+        raise ValueError(f"config.device {config.device!r} and the "
+                         f"rank's device {mesh.device} differ in type")
     if registry is not None:
-        registry.counter_inc("batch_archives", n)
+        registry.counter_inc("batch_archives", len(archives))
+    return device
+
+
+@contextlib.contextmanager
+def _counting_builds(registry):
+    """The kernel library builds run inside, counted as
+    ``kernel_library_builds`` however the block ends."""
     from iterative_cleaner_torch.stats import kernels
 
     builds0 = kernels.library_builds()
     try:
-        if mesh is None:
-            outs = _clean_stack(archives, 0, archives[0], config, device,
-                                registry)
-            return unpack_batch_results(outs, n, config)
-        if device.type != mesh.device.type:
-            raise ValueError(f"config.device {config.device!r} and the "
-                             f"rank's device {mesh.device} differ in type")
-        from iterative_cleaner_torch.parallel.distributed import host_fetch
-
-        _, start, stop = mesh.share(n)
-        mine = list(archives[start:stop])
-        outs = _clean_stack(mine, stop - start - len(mine), archives[0],
-                            config, mesh.device, registry)
-        # (converged as int32: not every backend gathers bool tensors)
-        parts = {k: host_fetch(getattr(outs, k).to(torch.int32)
-                               if k == "converged" else getattr(outs, k))
-                 for k in _RESULT_FIELDS}
-        if mesh.rank != 0:
-            return None
-        gathered = BatchOutputs(**{k: torch.cat(v)
-                                   for k, v in parts.items()},
-                                template_weights=None, history=None)
-        return unpack_batch_results(gathered, n, config)
+        yield
     finally:
         built = kernels.library_builds() - builds0
         if registry is not None and built:
             registry.counter_inc("kernel_library_builds", built)
+
+
+def _clean_share(archives, config: CleanConfig, mesh,
+                 registry) -> BatchOutputs:
+    """This rank's contiguous share of the zero-weight padded batch,
+    cleaned on its device."""
+    _, start, stop = mesh.share(len(archives))
+    mine = list(archives[start:stop])
+    return _clean_stack(mine, stop - start - len(mine), archives[0], config,
+                        mesh.device, registry)
+
+
+def clean_batch_share(archives: Sequence, config: CleanConfig, mesh,
+                      registry=None) -> dict:
+    """This rank's share of :func:`clean_archives_batched` over
+    ``mesh``, without the gather: the :data:`_RESULT_FIELDS` of its slots
+    of the padded batch as host arrays, with the same checks and counts.
+    The fleet exchanges them over the mesh's side group (with its
+    timeout) once every rank's clean is known to have succeeded; the
+    shares, concatenated in rank order, are what
+    :func:`unpack_batch_results` takes."""
+    _check_batch(archives, config, mesh, registry)
+    with _counting_builds(registry):
+        outs = _clean_share(archives, config, mesh, registry)
+        return {k: np.asarray(getattr(outs, k).cpu())
+                for k in _RESULT_FIELDS}
 
 
 # ------------------------------------------------------------ bucket warm-up

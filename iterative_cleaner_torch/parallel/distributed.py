@@ -13,7 +13,7 @@ collectives the shards exchange, and rank processes on one host.
 - The collectives (the reference's ``jax.lax.psum``/``pmin``/``pmax``
   and ``host_fetch``, ``iterative_cleaner_tpu/parallel/distributed.py``
   and ``parallel/shard_stats.py``): int32 all-reduces for the select's
-  counts and keys, :func:`gather_in_rank_order` for float partials —
+  counts, int32 or int64 (float64 planes) for its keys, :func:`gather_in_rank_order` for float partials —
   gathered and added in group-rank order, so every rank adds the same
   floats in the same order and holds the same bits; no float sum crosses
   ranks through an all-reduce, whose order the backend picks —,
@@ -28,7 +28,22 @@ collectives the shards exchange, and rank processes on one host.
 - The multi-host fleet's topology (:class:`HostTopology`,
   :func:`resolve_host_topology`, :func:`stable_shard`) is pure host code:
   no process group and no collective; the hosts coordinate through the
-  fleet's shared journal alone.
+  fleet's shared journal.  ``--coordinator HOST:PORT`` adds a process
+  group of the hosts (:func:`initialize`'s ``coordinator`` form:
+  ``tcp://HOST:PORT``, one process a host, or under torchrun each host's
+  ``LOCAL_WORLD_SIZE`` ranks) whose one collective over the hosts' first
+  ranks, :func:`aggregate_metrics_across_processes`, sums the run's
+  counters at export; it degrades to the local counters when the
+  collective fails (a dead host), counted and logged.
+- :func:`object_group` is a gloo group over every rank of an NCCL job,
+  made at its first use, for the host-side collectives (the fleet's
+  decisions over a ('batch',) mesh, the results of
+  :func:`clean_archives_hybrid`); under gloo they run over the default
+  group.
+- :func:`hybrid_batch_cell_mesh` lays the ranks out as the reference's
+  ('batch', 'sub', 'chan') mesh: contiguous batch slots of ranks, each a
+  cell mesh; :func:`clean_archives_hybrid` cleans a batch of archives
+  over it, each slot its share, each archive through the sharded clean.
 """
 
 from __future__ import annotations
@@ -39,6 +54,7 @@ import hashlib
 import os
 import pickle
 import time
+import sys
 from typing import Optional
 
 import torch
@@ -57,6 +73,7 @@ _OPS = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN,
 
 ENV_HOSTS = "ICLEAN_HOSTS"
 ENV_HOST_ID = "ICLEAN_HOST_ID"
+ENV_COORDINATOR = "ICLEAN_COORDINATOR"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,17 +144,26 @@ def shard_owner(key: str, members) -> Optional[str]:
 
 @dataclasses.dataclass(frozen=True)
 class RankContext:
-    """This process's place in the process group."""
+    """This process's place in the process group, and the seconds its
+    groups' collectives wait before they raise."""
 
     rank: int
     world_size: int
     device: torch.device
     backend: str
+    timeout_s: float = DEFAULT_TIMEOUT_S
 
 
 # The context :func:`initialize` started, mirroring torch's own
 # process-wide default group; None before it (or after :func:`shutdown`).
 _CONTEXT: Optional[RankContext] = None
+# The job's gloo group over every rank once object_group made it (None:
+# the default group, which is gloo already); _UNMADE before.
+_UNMADE = object()
+_OBJECT_GROUP = _UNMADE
+# On the first rank of each host of a --coordinator job: (the hosts' group,
+# the host count); None on every other process.
+_HOSTS: Optional[tuple] = None
 
 
 def rank_device(device: str, local_rank: int) -> torch.device:
@@ -157,24 +183,69 @@ def rank_device(device: str, local_rank: int) -> torch.device:
     return dev
 
 
+def coordinator_address(address: str) -> str:
+    """The ``init_method`` of a ``--coordinator`` address: ``HOST:PORT``
+    as ``tcp://HOST:PORT`` (an address with a scheme is kept)."""
+    address = str(address).strip()
+    if "://" in address:
+        return address
+    host, sep, port = address.rpartition(":")
+    if not sep or not host or not port.isdigit():
+        raise ValueError(f"coordinator address must be HOST:PORT, got "
+                         f"{address!r}")
+    return f"tcp://{address}"
+
+
 def initialize(backend: Optional[str] = None,
                init_method: Optional[str] = None, *, device: str = "cuda",
                rank: Optional[int] = None,
-               world_size: Optional[int] = None) -> RankContext:
+               world_size: Optional[int] = None,
+               coordinator: Optional[str] = None,
+               timeout_s: float = DEFAULT_TIMEOUT_S) -> RankContext:
     """Start this rank's process group and return its context.  ``rank``
     and ``world_size`` default to torchrun's ``RANK``/``WORLD_SIZE``,
     ``init_method`` to ``env://``; a process that torchrun did not start
     and that names neither is a job of one rank.  ``backend`` None is
-    NCCL on a CUDA device and gloo on the CPU."""
-    global _CONTEXT
-    store = None
-    if init_method is None and rank is None and "RANK" not in os.environ:
+    NCCL on a CUDA device and gloo on the CPU.
+
+    ``coordinator`` (``HOST:PORT``; the CLI's ``--coordinator`` or
+    ``ICLEAN_COORDINATOR``) is the multi-host fleet's form, the
+    reference's ``jax.distributed.initialize(coordinator_address=...)``:
+    the hosts joined at ``tcp://HOST:PORT``, ``world_size`` the host
+    count and ``rank`` the host's index (both required), gloo unless
+    ``backend`` says otherwise (its collectives are host-side).  A host
+    is one process on its first card, or, under torchrun, its
+    ``LOCAL_WORLD_SIZE`` ranks, local rank ``l`` of host ``h`` being
+    rank ``h * LOCAL_WORLD_SIZE + l`` on card ``l``.  Every collective
+    of the job's groups raises after ``timeout_s``: a dead rank or host
+    never hangs the others."""
+    global _CONTEXT, _OBJECT_GROUP, _HOSTS
+    store, per_host, local_rank = None, 1, None
+    timeout = datetime.timedelta(seconds=timeout_s)
+    if coordinator:
+        if rank is None or world_size is None:
+            raise ValueError("a coordinator needs the host count and this "
+                             "host's index (world_size and rank)")
+        init_method = coordinator_address(coordinator)
+        backend = backend or "gloo"
+        per_host = int(os.environ.get("LOCAL_WORLD_SIZE", "") or 1)
+        local_rank = int(os.environ.get("LOCAL_RANK", "") or 0)
+        n_hosts = world_size
+        rank, world_size = rank * per_host + local_rank, n_hosts * per_host
+        if init_method.startswith("tcp://"):
+            # the store is made here: under torchrun a tcp:// init_method
+            # would join the launcher's own store instead of rank 0's
+            host, port = init_method[len("tcp://"):].rsplit(":", 1)
+            store = dist.TCPStore(host, int(port), world_size, rank == 0,
+                                  timeout=timeout)
+    elif init_method is None and rank is None and "RANK" not in os.environ:
         store, rank, world_size = dist.HashStore(), 0, 1
     if rank is None:
         rank = int(os.environ["RANK"])
     if world_size is None:
         world_size = int(os.environ["WORLD_SIZE"])
-    local_rank = int(os.environ.get("LOCAL_RANK", rank))
+    if local_rank is None:
+        local_rank = int(os.environ.get("LOCAL_RANK", rank))
     dev = rank_device(device, local_rank)
     if backend is None:
         backend = "nccl" if dev.type == "cuda" else "gloo"
@@ -186,9 +257,18 @@ def initialize(backend: Optional[str] = None,
         torch.cuda.set_device(dev)
     dist.init_process_group(
         backend, init_method=None if store else init_method or "env://",
-        store=store, rank=rank, world_size=world_size,
-        timeout=datetime.timedelta(seconds=DEFAULT_TIMEOUT_S))
-    _CONTEXT = RankContext(rank, world_size, dev, backend)
+        store=store, rank=rank, world_size=world_size, timeout=timeout)
+    _OBJECT_GROUP, _HOSTS = _UNMADE, None
+    if coordinator:
+        # the hosts' first ranks, over which the counters are summed; the
+        # group is made on every rank, as dist.new_group requires
+        firsts = list(range(0, world_size, per_host))
+        group = (None if per_host == 1 and backend == "gloo"
+                 else dist.new_group(firsts, backend="gloo",
+                                     timeout=timeout))
+        if local_rank == 0:
+            _HOSTS = (group, len(firsts))
+    _CONTEXT = RankContext(rank, world_size, dev, backend, float(timeout_s))
     return _CONTEXT
 
 
@@ -197,12 +277,81 @@ def context() -> Optional[RankContext]:
     return _CONTEXT
 
 
+def object_group():
+    """The job's gloo group over every rank, for host-side collectives
+    beside an NCCL job; None (the default group) when the job is gloo
+    itself or one rank.  Made at its first call, which every rank must
+    reach in the same order as its other group creations (``dist.
+    new_group`` is collective over the job), with the job's timeout."""
+    global _OBJECT_GROUP
+    if _OBJECT_GROUP is _UNMADE:
+        if _CONTEXT is None or not dist.is_initialized():
+            raise RuntimeError("object_group needs the process group of "
+                               "parallel.distributed.initialize")
+        _OBJECT_GROUP = (
+            None if _CONTEXT.backend == "gloo" or _CONTEXT.world_size == 1
+            else dist.new_group(backend="gloo", timeout=datetime.timedelta(
+                seconds=_CONTEXT.timeout_s)))
+    return _OBJECT_GROUP
+
+
 def shutdown() -> None:
     """Destroy the default process group started by :func:`initialize`."""
-    global _CONTEXT
+    global _CONTEXT, _OBJECT_GROUP, _HOSTS
     if dist.is_initialized():
         dist.destroy_process_group()
-    _CONTEXT = None
+    _CONTEXT, _OBJECT_GROUP, _HOSTS = None, _UNMADE, None
+
+
+def coordinated_processes() -> int:
+    """How many hosts the ``--coordinator`` group joins, on a host's first
+    rank; 1 on any other rank and when this process started none."""
+    if _HOSTS is None or not dist.is_initialized():
+        return 1
+    return _HOSTS[1]
+
+
+def aggregate_metrics_across_processes(counters: dict, registry=None,
+                                       events=None) -> dict:
+    """The ``{name: value}`` counters summed over the processes of the
+    ``--coordinator`` group (the reference's function): each host cleans
+    its own share, so the run's totals need one reduction before the
+    export.  A single process returns a copy unchanged, with no
+    collective.  Every process must call it with the same key set at the
+    same point; the values are summed as float64 in sorted key order,
+    host by host in rank order, over the gloo group of the hosts' first
+    ranks.
+
+    A finished run's telemetry never fails it: when the collective fails
+    (a host died; the group's timeout turns the wait into an error), the
+    local counters are returned, ``telemetry_degraded`` is counted on
+    ``registry`` and a ``telemetry_degraded`` event emitted on ``events``
+    (a ``RunEventLog``), and only when neither sink is given is a note
+    printed on stderr."""
+    if coordinated_processes() == 1:
+        return dict(counters)
+    names = sorted(counters)
+    local = torch.tensor([float(counters[k]) for k in names],
+                         dtype=torch.float64)
+    group = _HOSTS[0] if _HOSTS is not None else None
+    try:
+        parts = _all_gather(local, group)
+    except Exception as exc:  # noqa: BLE001 -- the reference's rule: a failed reduction exports the local counters, counted and logged
+        detail = "%s: %s" % (type(exc).__name__, str(exc)[:200])
+        if registry is not None:
+            registry.counter_inc("telemetry_degraded")
+        if events is not None:
+            events.emit("telemetry_degraded", stage="metric_reduction",
+                        error=detail, scope="local_counters_only")
+        if registry is None and events is None:
+            print("WARNING: cross-process metric reduction unavailable "
+                  f"({type(exc).__name__}); exporting this process's "
+                  "local counters", file=sys.stderr)
+        return dict(counters)
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p
+    return {k: float(v) for k, v in zip(names, total.tolist())}
 
 
 def _staged(x, group):
@@ -214,11 +363,12 @@ def _staged(x, group):
 
 
 def all_reduce_int(x, op: str = "sum", group=None):
-    """An int32 tensor all-reduced (``op``: sum, min or max) over
-    ``group``: a new tensor on ``x``'s device, the same on every rank.
-    Integer adds and extrema are exact in any order."""
-    if x.dtype != torch.int32:
-        raise TypeError(f"all_reduce_int takes int32, got {x.dtype}")
+    """An int32 or int64 tensor all-reduced (``op``: sum, min or max)
+    over ``group``: a new tensor on ``x``'s device, the same on every
+    rank.  Integer adds and extrema are exact in any order."""
+    if x.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"all_reduce_int takes int32 or int64, got "
+                        f"{x.dtype}")
     y = _staged(x, group)
     dist.all_reduce(y, op=_OPS[op], group=group)
     return y.to(x.device)
@@ -261,22 +411,23 @@ def gather_in_rank_order(x, group=None):
 
 
 def host_fetch(x, group=None):
-    """Every rank's ``x`` gathered to rank 0 as host tensors, in rank
-    order; None on the other ranks."""
+    """Every group member's ``x`` gathered to the group's rank 0 as host
+    tensors, in group-rank order; None on the other members."""
     src = _staged(x, group)
-    rank = dist.get_rank()
+    lead = dist.get_rank(group) == 0
     parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))] \
-        if rank == 0 else None
-    dist.gather(src, gather_list=parts, dst=0, group=group)
+        if lead else None
+    dst = 0 if group is None else dist.get_global_rank(group, 0)
+    dist.gather(src, gather_list=parts, dst=dst, group=group)
     return None if parts is None else [p.cpu() for p in parts]
 
 
 def _rank_main(target, args, rank, world_size, init_method, backend, device,
-               out_path, threads):
+               out_path, threads, group_timeout_s):
     if threads:
         torch.set_num_threads(threads)
     initialize(backend, init_method, device=device, rank=rank,
-               world_size=world_size)
+               world_size=world_size, timeout_s=group_timeout_s)
     try:
         result = target(*args)
         with atomic_output(out_path) as tmp:
@@ -289,14 +440,16 @@ def _rank_main(target, args, rank, world_size, init_method, backend, device,
 def run_local_ranks(target, world_size: int, args=(), *, workdir: str,
                     device: str = "cpu", backend: Optional[str] = None,
                     timeout_s: float = DEFAULT_TIMEOUT_S,
-                    threads: Optional[int] = None) -> list:
+                    threads: Optional[int] = None,
+                    group_timeout_s: float = DEFAULT_TIMEOUT_S) -> list:
     """Run ``target(*args)`` in ``world_size`` spawned rank processes on
     this host, joined through a ``file://`` store in ``workdir``, and
     return each rank's result in rank order.  ``target`` must be
     importable by name from a spawned process.  A rank that exits with an
     error or is still running after ``timeout_s`` fails the call: every
     rank is then stopped and RuntimeError (or TimeoutError) raised.
-    ``threads`` sets each rank's torch thread count."""
+    ``threads`` sets each rank's torch thread count, ``group_timeout_s``
+    the seconds each collective of the job waits (:func:`initialize`)."""
     import multiprocessing
 
     ctx = multiprocessing.get_context("spawn")
@@ -304,7 +457,7 @@ def run_local_ranks(target, world_size: int, args=(), *, workdir: str,
     outs = [os.path.join(workdir, f"rank{r}.pkl") for r in range(world_size)]
     procs = [ctx.Process(target=_rank_main, args=(
         target, args, r, world_size, f"file://{store}", backend, device,
-        outs[r], threads)) for r in range(world_size)]
+        outs[r], threads, group_timeout_s)) for r in range(world_size)]
     for p in procs:
         p.start()
     deadline = time.monotonic() + timeout_s
@@ -340,4 +493,101 @@ def run_local_ranks(target, world_size: int, args=(), *, workdir: str,
     for path in outs:
         with open(path, "rb") as f:
             results.append(pickle.load(f))
+    return results
+
+
+def hybrid_layout(world: int, batch: int) -> tuple:
+    """The ('batch', 'sub', 'chan') shape of ``world`` ranks with a batch
+    axis of ``batch``: each slot's ranks in the most-square cell grid.
+    ``ValueError`` when ``batch`` does not divide ``world``."""
+    from iterative_cleaner_torch.parallel.mesh import factor_2d
+
+    if batch < 1 or world % batch:
+        raise ValueError(f"{world} ranks do not divide into a batch axis "
+                         f"of {batch}")
+    return (batch, *factor_2d(world // batch))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class HybridMesh:
+    """This rank's place in a ('batch', 'sub', 'chan') rank layout: batch
+    slot ``slot`` of ``batch``, whose ranks form the cell mesh
+    ``cells``."""
+
+    batch: int
+    slot: int
+    cells: object       # parallel.mesh.CellMesh of the slot's ranks
+
+    @property
+    def shape(self) -> tuple:
+        return (self.batch, *self.cells.shape)
+
+    @property
+    def device(self) -> torch.device:
+        return self.cells.device
+
+
+def hybrid_batch_cell_mesh(batch: Optional[int] = None) -> HybridMesh:
+    """The reference's ``hybrid_batch_cell_mesh`` over the ranks of the
+    process group :func:`initialize` started: archives split over a
+    'batch' axis of ``batch`` slots (default the number of hosts: the
+    ranks over torchrun's ``LOCAL_WORLD_SIZE``, one a rank without it),
+    each slot's cell grid over its ranks.  Slot ``k`` holds the
+    contiguous ranks ``[k * per, (k + 1) * per)``, ``per = world //
+    batch``, as a :func:`~iterative_cleaner_torch.parallel.mesh.cell_mesh`;
+    every slot's groups are made on every rank, in slot order.  A world
+    that ``batch`` does not divide raises ``ValueError``."""
+    from iterative_cleaner_torch.parallel.mesh import cell_mesh
+
+    if _CONTEXT is None or not dist.is_initialized():
+        raise RuntimeError("hybrid_batch_cell_mesh needs the process group "
+                           "of parallel.distributed.initialize")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if batch is None:
+        local = int(os.environ.get("LOCAL_WORLD_SIZE", "") or 1)
+        batch = max(1, world // local)
+    hybrid_layout(world, batch)
+    per = world // batch
+    # every slot's groups on every rank (dist.new_group is collective over
+    # the whole job); cell_mesh gives None for a slot this rank is not in.
+    # The results travel over the object group: made here too
+    meshes = [cell_mesh(range(k * per, (k + 1) * per)) for k in range(batch)]
+    object_group()
+    return HybridMesh(batch, rank // per, meshes[rank // per])
+
+
+def clean_archives_hybrid(archives, config, mesh: HybridMesh):
+    """Clean equal-shaped archives over a :class:`HybridMesh` (the
+    reference's ``clean_archives_hybrid``): the batch is padded with
+    zero-weight archives to a multiple of the batch axis, each slot
+    takes its contiguous share of the padded batch and cleans its
+    archives one after another through the sharded clean over its cell
+    mesh (K1, K10, the tree-reduced selects and the combine on each
+    rank's block), and global rank 0 gathers the results in archive
+    order over the job's gloo group (:func:`object_group`).  A pad slot
+    holds nothing to clean (a zero-weight archive's result is dropped),
+    so it is not run.  Every rank passes the same archives; rank 0 gets
+    the list of :class:`CleanResult`, the other ranks None."""
+    from iterative_cleaner_torch.parallel.batch import check_equal_shapes
+    from iterative_cleaner_torch.parallel.sharding import (
+        clean_archive_sharded,
+    )
+
+    archives = list(archives)
+    if archives:
+        check_equal_shapes(archives)
+    n = len(archives)
+    per = (n + (-n) % mesh.batch) // mesh.batch
+    share = archives[mesh.slot * per:(mesh.slot + 1) * per]
+    mine = [clean_archive_sharded(ar, config, mesh.cells) for ar in share]
+    lead = mesh.cells.rank == 0
+    parts = [None] * dist.get_world_size() if dist.get_rank() == 0 else None
+    dist.gather_object(mine if lead else None, parts, dst=0,
+                       group=object_group())
+    if parts is None:
+        return None
+    results = [r for part in parts if part is not None for r in part]
+    if len(results) != n:
+        raise RuntimeError(f"{len(results)} hybrid results gathered for "
+                           f"{n} archives")
     return results

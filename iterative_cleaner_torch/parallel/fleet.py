@@ -84,8 +84,26 @@ archives only; this module buckets a mixed fleet and serves it:
    warm-up); a full group's clean seconds over its iterations pair with
    it.
 
-Not here: a ``('batch',)`` mesh under the fleet (ROADMAP item 3b):
-``mesh`` raises ``NotImplementedError``.
+9. **A ('batch',) mesh** (``mesh=``, a :class:`~iterative_cleaner_torch.
+   parallel.mesh.BatchMesh`; ``--fleet --mesh batch``): each group's
+   batch is split over the mesh's ranks, one process a card, as
+   ``clean_archives_batched`` splits it (every bucket's batch a multiple
+   of the ranks).  Every rank runs the same groups with the same
+   contents, so the mesh's rank 0 decides and :class:`MeshDecisions`
+   carries each decision to the others over the mesh's gloo side group
+   before it is acted on: the resume skips, the peeks and the plan, each
+   load's outcome (an archive whose load failed on any rank leaves the
+   group on every rank; seeded ``--faults`` fire on rank 0 alone), each
+   execute attempt's outcome (a failure anywhere is every rank's, so
+   retries and OOM halvings follow one ladder), and on a multi-host
+   fleet rank 0's claims.  The ranks' shares are exchanged over the same
+   group, so every rank's report holds the whole results; rank 0 alone
+   writes, journals and claims.  Every collective of the side group
+   raises after its timeout, and that fails the group
+   (:class:`MeshTimeout`): a dead rank never hangs the others.  After
+   one collective has failed the ranks are out of step, so none runs
+   again: every group still to serve fails at once.  Without a mesh the
+   fleet runs on a mesh of one rank, whose decisions run no collective.
 """
 
 from __future__ import annotations
@@ -101,7 +119,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 from iterative_cleaner_torch.archive import Archive
 from iterative_cleaner_torch.backends.base import CleanResult
-from iterative_cleaner_torch.config import ROADMAP_FLEET_3B, CleanConfig
+from iterative_cleaner_torch.config import CleanConfig
+from iterative_cleaner_torch.resilience.retry import StageTimeout
 
 # (nsub, nchan, nbin, dedispersed) — a bucket's key
 ShapeKey = Tuple[int, int, int, bool]
@@ -336,6 +355,97 @@ def _default_shape_fn(path: str) -> ShapeKey:
     return shape
 
 
+class MeshTimeout(StageTimeout):
+    """A collective of the fleet's mesh failed or ran past its timeout
+    (a rank died or stalled): the group it served fails, as a watchdog
+    trip fails it, and nothing retries it."""
+
+
+def portable_error(exc: BaseException) -> BaseException:
+    """``exc`` as it can travel to another rank: itself when it
+    pickles, else a ``RuntimeError`` naming its type and message."""
+    import pickle
+
+    exc = exc.with_traceback(None)
+    try:
+        pickle.loads(pickle.dumps(exc))
+    except Exception:  # noqa: BLE001 -- any exception a clean may raise must reach the other ranks, pickled or not
+        return RuntimeError("%s: %s" % (type(exc).__name__, exc))
+    return exc
+
+
+class MeshDecisions:
+    """The fleet's agreement over a ('batch',) mesh: rank 0's
+    decisions (:meth:`decide`) and every rank's outcomes (:meth:`gather`)
+    over the mesh's gloo side group.  A mesh of one rank runs no
+    collective.  A collective that fails or passes the side group's
+    timeout raises :class:`MeshTimeout`, and so does every later call:
+    a rank that was only slow would otherwise pair its late call with
+    another group's."""
+
+    def __init__(self, mesh) -> None:
+        import torch.distributed as dist
+
+        self.mesh = mesh
+        self.lead = mesh.rank == 0
+        self._dist = dist
+        self._group = mesh.side_group
+        self._broken: Optional[str] = None
+        if mesh.size == 1:
+            return
+        if not dist.is_initialized() or dist.get_backend(
+                self._group) != "gloo":
+            raise ValueError("a fleet over a ('batch',) mesh of more than "
+                             "one rank needs the mesh's process group and "
+                             "its gloo side group (parallel.mesh.batch_mesh "
+                             "or local_batch_mesh)")
+        self._src = (0 if self._group is None
+                     else dist.get_global_rank(self._group, 0))
+
+    def _run(self, what: str, collective) -> None:
+        if self._broken is not None:
+            raise MeshTimeout("fleet mesh out of step since: " + self._broken)
+        try:
+            collective()
+        except Exception as exc:  # noqa: BLE001 -- a failed or timed-out collective fails the group, whatever the backend raised
+            self._broken = "%s failed: %s: %s" % (what, type(exc).__name__,
+                                                  exc)
+            raise MeshTimeout("fleet mesh " + self._broken) from None
+
+    def decide(self, obj):
+        """Rank 0's ``obj`` on every rank (the others pass anything)."""
+        if self.mesh.size == 1:
+            return obj
+        box = [obj if self.lead else None]
+        self._run("broadcast", lambda: self._dist.broadcast_object_list(
+            box, src=self._src, group=self._group))
+        return box[0]
+
+    def gather(self, obj) -> list:
+        """Every rank's ``obj``, in mesh-rank order, on every rank."""
+        if self.mesh.size == 1:
+            return [obj]
+        out = [None] * self.mesh.size
+        self._run("gather", lambda: self._dist.all_gather_object(
+            out, obj, group=self._group))
+        return out
+
+    def portable(self, exc: BaseException) -> BaseException:
+        """``exc`` as it can travel to the other ranks
+        (:func:`portable_error`); itself, traceback and all, on a mesh of
+        one rank."""
+        return exc if self.mesh.size == 1 else portable_error(exc)
+
+    def agree(self, errors: list) -> list:
+        """Per item, the error every rank takes: ``errors`` is this
+        rank's (None for an item that succeeded here); an item failed if
+        it failed on any rank, with the error of the first such rank."""
+        mine = [None if e is None else self.portable(e) for e in errors]
+        ranks = self.gather(mine)
+        return [next((r[i] for r in ranks if r[i] is not None), None)
+                for i in range(len(errors))]
+
+
 def clean_fleet(paths: Sequence[str], config: CleanConfig, *,
                 mesh=None, registry=None, events=None,
                 io_workers: Optional[int] = None,
@@ -388,7 +498,12 @@ def clean_fleet(paths: Sequence[str], config: CleanConfig, *,
     ``config``) is the config whose hash keys the journal's lines: the
     serve daemon's request config, whose ``backend`` may name the numpy
     oracle while ``config`` names the torch engine.
-    ``mesh`` is ROADMAP item 3b: ``NotImplementedError``."""
+    ``mesh`` (a :class:`~iterative_cleaner_torch.parallel.mesh.
+    BatchMesh`) splits each group over its ranks (see the module
+    docstring, 9): every rank of the mesh calls with the same paths and
+    configuration; rank 0 alone writes through ``write_fn``, journals and
+    claims, and every rank's report holds the same results and
+    failures."""
     from iterative_cleaner_torch.io import load_archive
     from iterative_cleaner_torch.parallel.batch import (
         record_builder_cache_stats,
@@ -406,10 +521,14 @@ def clean_fleet(paths: Sequence[str], config: CleanConfig, *,
     from iterative_cleaner_torch.utils import configure_compilation_cache
     from iterative_cleaner_torch.utils.checkpoint import config_hash
 
-    if mesh is not None:
-        raise NotImplementedError(
-            f"clean_fleet over a ('batch',) mesh: {ROADMAP_FLEET_3B}")
     configure_compilation_cache(config.compile_cache_dir)
+    if mesh is None:
+        import torch
+
+        from iterative_cleaner_torch.parallel.mesh import BatchMesh
+
+        mesh = BatchMesh(1, 0, torch.device(config.device))
+    dec = MeshDecisions(mesh)
 
     group_size = (config.fleet_group_size if group_size is None
                   else int(group_size))
@@ -419,13 +538,18 @@ def clean_fleet(paths: Sequence[str], config: CleanConfig, *,
     reg = registry if registry is not None else MetricsRegistry()
     res = (resilience if resilience is not None
            else ResiliencePlan.from_env(config))
+    if not dec.lead:
+        # rank 0 decides: the other ranks inject no fault, keep no
+        # journal and write nothing; they follow its decisions
+        res = dataclasses.replace(res, faults=None, journal=None)
+        write_fn = None
     if res.faults is not None:
         res.faults.bind(reg)
 
     topo: HostTopology = (hosts if hosts is not None
                           else resolve_host_topology(config.fleet_hosts,
                                                      config.fleet_host_id))
-    if topo.is_multi and res.journal is None:
+    if topo.is_multi and res.journal is None and dec.lead:
         raise ValueError(
             "multi-host fleet serving coordinates through the shared "
             "journal (claim leases, work stealing, exactly-once "
@@ -464,31 +588,42 @@ def clean_fleet(paths: Sequence[str], config: CleanConfig, *,
     cfg_hash = (config_hash(config if identity is None else identity)
                 if res.journal is not None else "")
     pending_paths = list(paths)
+    resumed = []
     if res.resume and res.journal is not None:
         done = res.journal.completed(cfg_hash)
         keep = []
         for p in pending_paths:
             entry = done.get(os.path.abspath(p))
             if entry is not None and entry_is_current(entry):
-                report.skipped.append(p)
-                reg.counter_inc("fleet_resumed_skips")
-                if events is not None:
-                    events.emit("fleet_resume_skip", path=p)
+                resumed.append(p)
             else:
                 keep.append(p)
         pending_paths = keep
+    entries, peek_failures = [], []
+    if dec.lead:
+        for p in pending_paths:
+            try:
+                entries.append((p, run_with_retries(
+                    lambda p=p: shape_fn(p), stage="peek", policy=res.retry,
+                    registry=reg, faults=res.faults,
+                    deadline_s=res.stage_timeout_s, span=fleet_span)))
+            except Exception as exc:
+                peek_failures.append((p, exc))
+    # one plan on every rank: rank 0's resume skips and peeks (a mesh that
+    # cannot agree on it raises MeshTimeout: nothing has run yet)
+    resumed, pending_paths, entries, peek_failures = dec.decide(
+        (resumed, pending_paths, entries,
+         [(p, dec.portable(e)) for p, e in peek_failures]))
+    for p in resumed:
+        report.skipped.append(p)
+        reg.counter_inc("fleet_resumed_skips")
+        if events is not None:
+            events.emit("fleet_resume_skip", path=p)
+    for p, exc in peek_failures:
+        fail(p, "peek", exc)
 
-    entries = []
-    for p in pending_paths:
-        try:
-            entries.append((p, run_with_retries(
-                lambda p=p: shape_fn(p), stage="peek", policy=res.retry,
-                registry=reg, faults=res.faults,
-                deadline_s=res.stage_timeout_s, span=fleet_span)))
-        except Exception as exc:
-            fail(p, "peek", exc)
-
-    plan = plan_fleet(entries, group_size=group_size)
+    plan = plan_fleet(entries, group_size=group_size,
+                      batch_multiple=mesh.size)
     groups = [(bucket, chunk)
               for bucket in plan.buckets for chunk in bucket.groups()]
     report.n_buckets = len(plan.buckets)
@@ -512,10 +647,13 @@ def clean_fleet(paths: Sequence[str], config: CleanConfig, *,
     if topo.is_multi:
         reg.gauge_set("fleet_hosts", topo.n_hosts)
         reg.gauge_set("fleet_host_id", topo.host_id)
-        if groups:
+        if groups and not dec.lead:
+            _follow_multihost(plan, config, reg, report, fail, io_workers,
+                              load_fn, res, dec)
+        elif groups:
             _serve_multihost(plan, topo, config, reg, report, fail,
                              precompile, io_workers, load_fn, write_fn,
-                             res, cfg_hash, out_path_fn, events,
+                             res, cfg_hash, out_path_fn, events, dec,
                              tracer=tracer, parent_span=fleet_span)
     else:
         precompiler = (BucketPrecompiler(plan, config, registry=reg,
@@ -523,7 +661,7 @@ def clean_fleet(paths: Sequence[str], config: CleanConfig, *,
                        if precompile else None)
         _serve_groups(groups, config, reg, report, fail, precompiler,
                       io_workers, load_fn, write_fn, res, cfg_hash,
-                      out_path_fn, tracer=tracer,
+                      out_path_fn, dec, tracer=tracer,
                       trace=(fleet_span.context()
                              if fleet_span is not None else trace))
     reg.gauge_set("fleet_serve_s", time.perf_counter() - serve_t0)
@@ -533,7 +671,7 @@ def clean_fleet(paths: Sequence[str], config: CleanConfig, *,
     report.n_oom_splits = int(delta.get("fleet_oom_splits", 0.0))
     report.n_watchdog_trips = int(delta.get("fleet_watchdog_trips", 0.0))
     reg.counter_inc("fleet_cleaned", len(report.results))
-    if topo.is_multi:
+    if topo.is_multi and dec.lead:
         report.n_buckets_owned = int(delta.get("fleet_buckets_owned", 0.0))
         report.n_stolen = int(delta.get("fleet_stolen", 0.0))
         # paths another host finished land in `skipped`: every input path
@@ -553,6 +691,7 @@ def clean_fleet(paths: Sequence[str], config: CleanConfig, *,
         # a segmented journal's active segments are sealed on exit, so the
         # next maintenance pass can compact them
         res.journal.seal()
+    _share_report_tail(report, dec, fail)
     record_builder_cache_stats(reg)
     if fleet_span is not None:
         fleet_span.set("n_cleaned", len(report.results))
@@ -579,6 +718,58 @@ def _publish_host_stats(topo, reg, report, journal, delta) -> None:
             slice_totals[k] = slice_totals.get(k, 0.0) + float(v)
     for k in sorted(slice_totals):
         reg.gauge_set(k + "_slice", slice_totals[k])
+
+
+def _share_report_tail(report: FleetReport, dec: MeshDecisions,
+                       fail) -> None:
+    """After the serve loop, what rank 0 alone knows reaches the other
+    ranks' reports: its write failures (rank 0 alone writes), the
+    archives skipped (a peer host's done lines included) and the
+    multi-host counts.  Once the mesh is out of step (a collective
+    failed) each rank keeps its own report."""
+    try:
+        tail = dec.decide((
+            [(p, dec.portable(e)) for p, stage, e in report.failures
+             if stage == "write"],
+            list(report.skipped), report.n_buckets_owned, report.n_stolen,
+            dict(report.host_counters)) if dec.lead else None)
+    except MeshTimeout:
+        return
+    if dec.lead:
+        return
+    writes, report.skipped, report.n_buckets_owned, report.n_stolen, \
+        report.host_counters = tail
+    for p, exc in writes:
+        fail(p, "write", exc)
+
+
+def _follow_multihost(plan, config, reg, report, fail, io_workers,
+                      load_fn, res, dec: MeshDecisions) -> None:
+    """A multi-host fleet's serve loop on a mesh rank other than 0:
+    each bucket rank 0 claimed, with the archives it left to serve, is
+    served here too (the groups' collectives need every rank); rank 0's
+    idle polls keep the wait under the side group's timeout.  Once the
+    mesh is out of step the loop ends: rank 0 fails what it has left."""
+    by_key = {b.key: b for b in plan.buckets}
+    while True:
+        try:
+            action = dec.decide(None)
+        except MeshTimeout:
+            return
+        if action[0] == "end":
+            return
+        if action[0] != "serve":
+            continue    # rank 0 is waiting for a peer host
+        _, key, indices = action
+        bucket = by_key[key]
+        keep = set(indices)
+        sub = FleetBucket(key=key,
+                          items=[it for it in bucket.items
+                                 if it.index in keep],
+                          batch_dim=bucket.batch_dim)
+        _serve_groups([(sub, chunk) for chunk in sub.groups()], config, reg,
+                      report, fail, None, io_workers, load_fn, None, res,
+                      "", None, dec)
 
 
 def _journal_done(done: Dict[str, dict], path: str) -> bool:
@@ -621,7 +812,7 @@ class ClaimHeartbeat:
 
 def _serve_multihost(plan, topo, config, reg, report, fail, precompile,
                      io_workers, load_fn, write_fn, res, cfg_hash,
-                     out_path_fn, events, tracer=None,
+                     out_path_fn, events, dec: MeshDecisions, tracer=None,
                      parent_span=None) -> None:
     """:func:`clean_fleet`'s multi-host serve loop.
 
@@ -635,7 +826,12 @@ def _serve_multihost(plan, topo, config, reg, report, fail, precompile,
     lease expiry) rather than exiting with the slice incomplete.  A stolen
     bucket's ``serve_bucket`` span is parented by the trace context on the
     victim's claim line, so the originating request's trace shows the
-    bucket moving hosts."""
+    bucket moving hosts.  ``dec`` is rank 0's: each claimed bucket's
+    remaining archives are sent to the mesh's other ranks before it is
+    served, an idle poll sends a wait, and the loop's end an end
+    (:func:`_follow_multihost`).  Once the mesh is out of step each
+    claimed bucket's archives fail (its lease released), and no wait or
+    end is sent."""
     journal = res.journal
     ttl = resolve_claim_ttl(config.fleet_claim_ttl_s)
     poll_s = min(1.0, ttl / 4.0)
@@ -702,6 +898,19 @@ def _serve_multihost(plan, topo, config, reg, report, fail, precompile,
                 if bspan is not None:
                     bspan.end("claim_lost")
                 continue    # lost the append race
+            # read the done lines again under the lease: an owner that
+            # wrote them and released between the two reads above must
+            # not have its archives cleaned a second time
+            done = journal.completed(cfg_hash)
+            remaining = [it for it in remaining
+                         if not _journal_done(done, it.path)]
+            if not remaining:
+                journal.release(work, host=topo.host_id, nonce=nonce)
+                if bspan is not None:
+                    bspan.end("done_elsewhere")
+                finished.add(bucket.key)
+                progressed = True
+                continue
             if stolen:
                 reg.counter_inc("fleet_stolen")
                 if bspan is not None:
@@ -718,12 +927,17 @@ def _serve_multihost(plan, topo, config, reg, report, fail, precompile,
             hb = ClaimHeartbeat(journal, work, topo.host_id, nonce, ttl,
                                 registry=reg)
             try:
+                dec.decide(("serve", bucket.key,
+                            [it.index for it in remaining]))
                 _serve_groups(sub_groups, config, reg, report, fail,
                               precompiler, io_workers, load_fn,
-                              write_fn, res, cfg_hash, out_path_fn,
+                              write_fn, res, cfg_hash, out_path_fn, dec,
                               journal_unwritten=True, tracer=tracer,
                               trace=(bspan.context() if bspan is not None
                                      else None))
+            except MeshTimeout as exc:
+                for it in remaining:
+                    fail(it.path, "clean", exc)
             finally:
                 hb.stop()
             journal.release(work, host=topo.host_id, nonce=nonce)
@@ -735,6 +949,14 @@ def _serve_multihost(plan, topo, config, reg, report, fail, precompile,
             break
         if not progressed:
             time.sleep(poll_s)
+            try:
+                dec.decide(("wait",))
+            except MeshTimeout:
+                pass    # the followers have ended on their own
+    try:
+        dec.decide(("end",))
+    except MeshTimeout:
+        pass
 
 
 def _empty_device_cache(config: CleanConfig) -> None:
@@ -753,7 +975,8 @@ def _empty_device_cache(config: CleanConfig) -> None:
 
 def _serve_groups(groups, config, reg, report, fail, precompiler,
                   io_workers, load_fn, write_fn, res, cfg_hash,
-                  out_path_fn, journal_unwritten: bool = False,
+                  out_path_fn, dec: MeshDecisions,
+                  journal_unwritten: bool = False,
                   tracer=None, trace: Optional[dict] = None) -> None:
     """:func:`clean_fleet`'s pipeline body: load lookahead -> the bucket's
     warm-up -> batched clean (through the OOM/retry recovery ladder) ->
@@ -763,11 +986,14 @@ def _serve_groups(groups, config, reg, report, fail, precompiler,
     ``done`` line even with no ``write_fn``: with no output file the
     clean's completion is the unit of work peers must not repeat.
     ``tracer``/``trace`` as :func:`clean_fleet`'s: the spans parent under
-    ``trace`` and each ``done`` line records it."""
+    ``trace`` and each ``done`` line records it.  ``dec``: every rank of
+    its mesh loads the whole group, the loads' and each execute attempt's
+    outcomes are agreed before they are acted on, each rank cleans its
+    share and the shares are exchanged (module docstring, 9)."""
     from iterative_cleaner_torch.backends.torch_backend import resolve_device
     from iterative_cleaner_torch.parallel.batch import (
         bucket_program,
-        clean_archives_batched,
+        clean_batch_share,
         warm_bucket,
     )
     from iterative_cleaner_torch.resilience import (
@@ -838,15 +1064,25 @@ def _serve_groups(groups, config, reg, report, fail, precompiler,
                     "group", trace_id=t_tid, parent_id=t_pid,
                     subsystem="fleet", lane=bucket_work_key(bucket.key),
                     group=gi, n_items=len(chunk))
-            loaded = []
+            loaded, errors = [], []
             t0 = time.perf_counter()
             for it, fut in pending.pop(gi):
                 try:
-                    ar = fut.result()
+                    loaded.append((it, fut.result()))
+                    errors.append(None)
                 except Exception as exc:
+                    loaded.append((it, None))
+                    errors.append(exc)
+            # an archive whose load failed on any rank leaves the group
+            # on every rank
+            try:
+                errors = dec.agree(errors)
+            except MeshTimeout as exc:
+                errors = [exc] * len(loaded)
+            for (it, _ar), exc in zip(loaded, errors):
+                if exc is not None:
                     fail(it.path, "load", exc)
-                    continue
-                loaded.append((it, ar))
+            loaded = [x for x, exc in zip(loaded, errors) if exc is None]
             load_stall = time.perf_counter() - t0
             reg.histogram_observe("fleet_load_stall_s", load_stall,
                                   buckets=SECONDS)
@@ -890,7 +1126,9 @@ def _serve_groups(groups, config, reg, report, fail, precompiler,
 
             def attempt_once(idx):
                 """One batched-clean attempt over ``loaded[idx]`` at its
-                own size, fault site and watchdog applied."""
+                own size, fault site and watchdog applied: this rank's
+                share, its outcome agreed with the other ranks', then the
+                shares exchanged."""
                 def run():
                     if res.faults is not None:
                         res.faults.fire(
@@ -901,26 +1139,37 @@ def _serve_groups(groups, config, reg, report, fail, precompiler,
                                                      len(idx)))
                     ars = [loaded[i][1] for i in idx]
                     if len(idx) != bucket.batch_dim:
-                        return clean_archives_batched(ars, config,
-                                                      registry=reg)
+                        return clean_batch_share(ars, config, dec.mesh,
+                                                 registry=reg)
                     # the bucket's program at its size: its first call's
                     # peak (profiling on) and its seconds an iteration
                     t_run = time.perf_counter()
                     with profiling.first_call_peak(
                             program, resolve_device(config.device),
                             registry=reg):
-                        out = clean_archives_batched(ars, config,
-                                                     registry=reg)
-                    loops = max((r.loops for r in out), default=0)
+                        out = clean_batch_share(ars, config, dec.mesh,
+                                                registry=reg)
+                    loops = int(max(out["loops"]))
                     if loops:
                         profiling.record_walltime(
                             program, (time.perf_counter() - t_run) / loops,
                             registry=reg)
                     return out
 
-                return call_with_deadline(run, res.stage_timeout_s,
-                                          "execute", registry=reg,
-                                          span=espan)
+                share, err = None, None
+                try:
+                    share = call_with_deadline(run, res.stage_timeout_s,
+                                               "execute", registry=reg,
+                                               span=espan)
+                except Exception as exc:  # noqa: BLE001  # icln: ignore[broad-except] -- raised below on every rank once the ranks agree on it
+                    err = exc
+                # a failure on any rank is every rank's, so that every
+                # rank takes the same rung of the ladder next
+                agreed, = dec.agree([err])
+                if agreed is not None:
+                    raise agreed
+                shares = dec.gather(share)
+                return _unpack_shares(shares, len(idx), config)
 
             def serve(idx, attempt=0):
                 """Recovery ladder over ``loaded[idx]``: OOM halves the
@@ -1028,3 +1277,21 @@ def _serve_groups(groups, config, reg, report, fail, precompiler,
                 # and the rest of the fleet's outputs must still land
                 reg.counter_inc("fleet_write_failures")
                 fail(it.path, "write", exc)
+
+
+def _unpack_shares(shares: list, n: int, config: CleanConfig) -> list:
+    """The mesh ranks' :func:`~iterative_cleaner_torch.parallel.batch.
+    clean_batch_share` outputs, in rank order, as the ``n`` archives'
+    results."""
+    import numpy as np
+
+    from iterative_cleaner_torch.engine.loop import BatchOutputs
+    from iterative_cleaner_torch.parallel.batch import (
+        _RESULT_FIELDS,
+        unpack_batch_results,
+    )
+
+    whole = BatchOutputs(**{k: np.concatenate([sh[k] for sh in shares])
+                            for k in _RESULT_FIELDS},
+                         template_weights=None, history=None)
+    return unpack_batch_results(whole, n, config)

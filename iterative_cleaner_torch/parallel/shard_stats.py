@@ -12,14 +12,19 @@ grid instead, as the reference's callers do before they assert it.
 
 The scalers' medians and MADs run the reference's exact select
 (``_select_kth``/``_select_adjacent``, ``stats/pallas_kernels.py``) as a
-merge of per-shard counts: each of the 32 bisection steps counts, on
-this rank's shard, the keys at or below the step's midpoint, and one
-int32 all-reduce over the reduction axis's subgroup sums the counts, so
-every rank walks the same global bisection; then the successor's count
-(sum) and minimum (min).  The four diagnostics' counts ride one stacked
-tensor per step, so an orientation costs 2 x 35 collectives (the line
-counts with the rFFT diagnostic's NaN presence, 32 steps, the successor
-pair; once for the medians, once for the MADs).  Integer adds and
+merge of per-shard counts: each bisection step counts, on this rank's
+shard, the keys at or below the step's midpoint, and one int32
+all-reduce over the reduction axis's subgroup sums the counts, so every
+rank walks the same global bisection; then the successor's count (sum)
+and minimum (min).  The keys are the plane dtype's order-preserving keys
+(:func:`~iterative_cleaner_torch.stats.kernels.ordered_key`): int32 and
+32 steps for float32 planes, int64 and 64 steps for float64 planes (the
+reference's bisection over its plane dtype's key; the successor's
+minimum then crosses ranks as int64, the counts stay int32).  The four
+diagnostics' counts ride one stacked tensor per step, so a float32
+orientation costs 2 x 35 collectives (the line counts with the rFFT
+diagnostic's NaN presence, 32 steps, the successor pair; once for the
+medians, once for the MADs), a float64 one 2 x 67.  Integer adds and
 minima are exact in any order and the float epilogues run on identical
 operands, so the distributed medians, MADs and scaled sides are
 bit-equal to kernel K3 on the whole planes.  The steps are torch ops on
@@ -31,7 +36,7 @@ from __future__ import annotations
 import torch
 
 from iterative_cleaner_torch.stats.kernels import (
-    _KEY_MASKED,
+    _KEYS,
     combine_zap,
     key_to_float,
     ordered_key,
@@ -44,13 +49,24 @@ from iterative_cleaner_torch.stats.masked_torch import (
 )
 from iterative_cleaner_torch.utils.tracing import stage
 
-_INT32_MIN, _INT32_MAX = -2 ** 31, 2 ** 31 - 1
+# key dtype: (bisection steps, smallest key, largest key)
+_KEY_RANGE = {torch.int32: (32, -2 ** 31, 2 ** 31 - 1),
+              torch.int64: (64, -2 ** 63, 2 ** 63 - 1)}
+
+
+def _masked_keys(values, mask):
+    """The ordered keys of ``values`` (int32 for float32, int64 for
+    float64), a masked entry's the key of +inf (above every finite
+    value, below NaN)."""
+    keys = ordered_key(values)
+    return torch.where(mask, torch.full_like(keys, _KEYS[values.dtype][3]),
+                       keys)
 
 
 def tree_reducers(mesh, axis: str):
-    """(reduce_sum, reduce_min, reduce_any) of int32 per-line tensors over
-    ``axis`` ('sub', 'chan' or 'all'): the reference's psum, pmin and
-    pmax-as-any."""
+    """(reduce_sum, reduce_min, reduce_any) of integer per-line tensors
+    over ``axis`` ('sub', 'chan' or 'all'): the reference's psum, pmin and
+    pmax-as-any (int32 counts and flags, int32 or int64 keys)."""
     def reduce_sum(x):
         return mesh.reduce_int(x, "sum", axis)
 
@@ -67,10 +83,12 @@ def _select_adjacent(keys, k_lo, k_hi, dim, reduce_sum, reduce_min):
     """The ``k_lo``-th and ``k_hi``-th smallest keys along ``dim`` of
     ``keys`` (``k_hi`` is ``k_lo`` or ``k_lo + 1``), with the counts and
     the successor merged across the shards of ``dim``.  ``k_lo``/``k_hi``
-    have ``keys``' shape with ``dim`` of size 1."""
-    lo = torch.full_like(k_lo, _INT32_MIN)
-    hi = torch.full_like(k_lo, _INT32_MAX)
-    for _ in range(32):
+    have ``keys``' shape with ``dim`` of size 1; the bisection runs over
+    the keys' dtype, 32 steps for int32 keys and 64 for int64."""
+    steps, kmin, kmax = _KEY_RANGE[keys.dtype]
+    lo = torch.full(k_lo.shape, kmin, dtype=keys.dtype, device=keys.device)
+    hi = torch.full(k_lo.shape, kmax, dtype=keys.dtype, device=keys.device)
+    for _ in range(steps):
         mid = (lo >> 1) + (hi >> 1) + (lo & hi & 1)   # floor midpoint
         cnt = reduce_sum(torch.sum(keys <= mid, dim=dim, keepdim=True,
                                    dtype=torch.int32))
@@ -78,7 +96,7 @@ def _select_adjacent(keys, k_lo, k_hi, dim, reduce_sum, reduce_min):
         lo, hi = torch.where(go_low, lo, mid + 1), torch.where(go_low, mid, hi)
     cnt_le = reduce_sum(torch.sum(keys <= lo, dim=dim, keepdim=True,
                                   dtype=torch.int32))
-    above = torch.where(keys > lo, keys, torch.full_like(keys, _INT32_MAX))
+    above = torch.where(keys > lo, keys, torch.full_like(keys, kmax))
     succ = reduce_min(torch.amin(above, dim=dim, keepdim=True))
     return lo, torch.where(cnt_le > k_hi, lo, succ)
 
@@ -99,9 +117,7 @@ def tree_masked_median_lanes(values, mask, dim, reducers):
     over; returns ``(median, n_valid)`` with the global count.  Equal to
     the single-device select on the concatenated shards."""
     reduce_sum, reduce_min, _ = reducers
-    keys = torch.where(mask, torch.full_like(ordered_key(values),
-                                             _KEY_MASKED),
-                       ordered_key(values))
+    keys = _masked_keys(values, mask)
     n_valid = reduce_sum(torch.sum(~mask, dim=dim, keepdim=True,
                                    dtype=torch.int32))
     return _median_of_keys(keys, n_valid, dim, reduce_sum, reduce_min), \
@@ -129,9 +145,7 @@ def tree_scaled_sides(diagnostics, cell_mask, axis, thresh, mesh):
     n_all = torch.stack([n_valid] * 3 + [n_line])               # (4, 1|s, c|1)
 
     def keys_of(x3, x_plain):
-        k = torch.where(m3, torch.full_like(ordered_key(x3), _KEY_MASKED),
-                        ordered_key(x3))
-        return torch.cat([k, ordered_key(x_plain)[None]])
+        return torch.cat([_masked_keys(x3, m3), ordered_key(x_plain)[None]])
 
     med = _median_of_keys(keys_of(masked, d3), n_all, dim, reduce_sum,
                           reduce_min)

@@ -9,7 +9,10 @@ per rank where the reference shards one program over a device mesh:
 - the cell grid is padded up to the grid's divisibility with zero-weight
   subints and channels, the frequencies edge-padded (a padded channel's
   dispersion shift stays finite), as the reference pads;
-- each rank converts and uploads only its block of the cube;
+- each rank converts and uploads only its block of the cube, in the
+  engine's dtype (float32, or float64 under ``dtype='float64'``: K10's
+  float64 build, 64-bit keys in the tree-reduced selects, the partial
+  sums added in rank order, so every rank holds the same bits);
 - :func:`~iterative_cleaner_torch.engine.loop.prepare` and
   :func:`~iterative_cleaner_torch.engine.loop.clean_loop` run on the
   block (stored bf16 after the preamble under ``compute_dtype=
@@ -39,11 +42,11 @@ from iterative_cleaner_torch.backends.base import CleanResult
 from iterative_cleaner_torch.backends.torch_backend import (
     clean_device,
     config_compute_dtype,
+    engine_dtype,
     upload_meta,
 )
 from iterative_cleaner_torch.config import CleanConfig, check_mesh
 from iterative_cleaner_torch.engine.loop import clean_loop, prepare_stored
-from iterative_cleaner_torch.parallel.distributed import host_fetch
 from iterative_cleaner_torch.parallel.mesh import CellMesh, cell_mesh
 
 
@@ -89,31 +92,33 @@ def check_tile_grid(mesh: CellMesh, tile_nsub: int, nchan: int) -> None:
             f"adjust chunk_nsub or the mesh")
 
 
-def _block(a, layout: ShardLayout) -> np.ndarray:
+def _block(a, layout: ShardLayout, dtype=np.float32) -> np.ndarray:
     """This rank's block of the host (nsub, nchan, ...) array ``a`` as
-    float32, zero where the block covers padding.  Only the block is
-    read and converted."""
+    ``dtype`` (float32 or float64), zero where the block covers padding.
+    Only the block is read and converted."""
     out = np.zeros((layout.s1 - layout.s0, layout.c1 - layout.c0)
-                   + tuple(a.shape[2:]), dtype=np.float32)
+                   + tuple(a.shape[2:]), dtype=dtype)
     rs = max(0, min(layout.s1, layout.nsub) - layout.s0)
     rc = max(0, min(layout.c1, layout.nchan) - layout.c0)
     out[:rs, :rc] = a[layout.s0:layout.s0 + rs, layout.c0:layout.c0 + rc]
     return out
 
 
-def shard_host(cube, weights, freqs_mhz, layout: ShardLayout):
-    """This rank's block of the cube and the weights as float32 host
-    arrays, and its channels' frequencies (a padded channel takes the
-    last real channel's)."""
+def shard_host(cube, weights, freqs_mhz, layout: ShardLayout,
+               dtype=np.float32):
+    """This rank's block of the cube and the weights as host arrays of
+    ``dtype`` (float32 or float64), and its channels' frequencies (a
+    padded channel takes the last real channel's)."""
     chans = np.minimum(np.arange(layout.c0, layout.c1), layout.nchan - 1)
-    return (_block(cube, layout), _block(weights, layout),
+    return (_block(cube, layout, dtype), _block(weights, layout, dtype),
             np.asarray(freqs_mhz)[chans])
 
 
-def upload_shard(cube, weights, freqs_mhz, layout: ShardLayout, device):
-    """:func:`shard_host`'s block and weights as tensors on ``device``,
-    and the frequencies."""
-    c, w, f = shard_host(cube, weights, freqs_mhz, layout)
+def upload_shard(cube, weights, freqs_mhz, layout: ShardLayout, device,
+                 dtype=np.float32):
+    """:func:`shard_host`'s block and weights as tensors of ``dtype``
+    on ``device``, and the frequencies."""
+    c, w, f = shard_host(cube, weights, freqs_mhz, layout, dtype)
     return torch.from_numpy(c).to(device), torch.from_numpy(w).to(device), f
 
 
@@ -136,12 +141,16 @@ def clean_cube_sharded(cube, weights, freqs_mhz, dm, centre_freq_mhz,
     nsub, nchan = int(cube.shape[0]), int(cube.shape[1])
     layout = shard_layout(mesh, nsub, nchan)
     compute_dtype = config_compute_dtype(config, "mesh", mesh.device)
-    block, w_host, freqs = shard_host(cube, weights, freqs_mhz, layout)
+    real = engine_dtype(config)
+    block, w_host, freqs = shard_host(
+        cube, weights, freqs_mhz, layout,
+        np.float64 if real == torch.float64 else np.float32)
     w_t = torch.from_numpy(w_host).to(mesh.device)
     # each upload of the block is consumed by the preamble
     prep = prepare_stored(
         lambda sl: torch.from_numpy(block[sl]).to(mesh.device), block.shape,
-        w_t, *upload_meta(freqs, dm, centre_freq_mhz, period_s, mesh.device),
+        w_t, *upload_meta(freqs, dm, centre_freq_mhz, period_s, mesh.device,
+                          real),
         config, dedispersed=dedispersed, compute_dtype=compute_dtype,
         mesh=mesh)
     del block
@@ -149,12 +158,12 @@ def clean_cube_sharded(cube, weights, freqs_mhz, dm, centre_freq_mhz,
         prep, w_t, max_iter=config.max_iter, chanthresh=config.chanthresh,
         subintthresh=config.subintthresh, rotation=config.rotation,
         baseline_duty=config.baseline_duty, mesh=mesh)
-    parts = host_fetch(torch.stack([outs.final_weights, outs.scores]))
+    parts = mesh.fetch(torch.stack([outs.final_weights, outs.scores]))
     if parts is None:
         return None
     a, b = mesh.shape
     s_loc, c_loc = layout.s1 - layout.s0, layout.c1 - layout.c0
-    full = np.empty((2, a * s_loc, b * c_loc), dtype=np.float32)
+    full = np.empty((2, a * s_loc, b * c_loc), dtype=parts[0].numpy().dtype)
     for r, part in enumerate(parts):
         i, j = divmod(r, b)
         full[:, i * s_loc:(i + 1) * s_loc, j * c_loc:(j + 1) * c_loc] = \

@@ -84,8 +84,9 @@ arithmetic and 64-bit order-preserving keys in the selects
 (the reference runs it through its XLA route); each float64 build
 computes what that route computes, held to its plain version in float64.
 Their launches are counted apart (``launches_f64``; ``<name>_f64`` in
-:func:`launch_counts`).  K10's float64 build is ROADMAP item 1b: a
-float64 block on the card raises.
+:func:`launch_counts`).  K10's float64 build (a float64 shard of the
+cell-sharded clean) is K2's and K6's float64 instantiation under K10's
+entries, so its planes are bit-equal to theirs on the same shard.
 The plain versions follow their inputs' dtype (a bf16 cube is read as
 float32).
 """
@@ -316,7 +317,6 @@ def _on_card(*tensors) -> bool:
 
 
 # the storage dtypes of the cube operands K1, K2, K6, K7 and K10 read
-# (K10: float32 and bf16 only, ROADMAP item 1b)
 CUBE_DTYPES = (torch.float32, torch.bfloat16, torch.float64)
 # the arithmetic (and plane) dtypes: float64 for a float64 cube, float32
 # for the others
@@ -884,26 +884,17 @@ cell_diagnostics_dedisp.launches_f64 = 0
 # K10: one rank's shard of the cell-sharded clean (K2's and K6's values)
 # --------------------------------------------------------------------------
 
-def _shard_dtype(cube) -> None:
-    """K10 takes float32 and bf16 blocks; its float64 build is ROADMAP
-    item 1b."""
-    if cube.dtype == torch.float64:
-        raise NotImplementedError(
-            "K10 on a float64 block: ROADMAP.md 'Modules still to port' "
-            "item 1b (float64 on a mesh and in a batch)")
-
-
 def shard_diagnostics_disp(disp, rot_t, nyq_row, template, weights,
                            cell_mask):
     """K2's four planes on one rank's (subint, channel) shard — kernel
     K10 on the card (K2's kernel under the shard's entry and launch
     count, so bit-equal to :func:`cell_diagnostics_disp` on the same
     shard), :func:`cell_diagnostics_disp_plain` on the CPU.  ``rot_t``
-    and ``nyq_row`` are the shard's channel rows."""
+    and ``nyq_row`` are the shard's channel rows.  A float32, bf16 or
+    float64 block, each its own build and count."""
     if not _on_card(disp, rot_t, template, weights, cell_mask):
         return cell_diagnostics_disp_plain(disp, rot_t, nyq_row, template,
                                            weights, cell_mask)
-    _shard_dtype(disp)
     rows = [("rot_t", rot_t)] + ([] if nyq_row is None
                                  else [("nyq_row", nyq_row)])
     rc, outs = _launch_cell_stats(
@@ -918,6 +909,7 @@ def shard_diagnostics_disp(disp, rot_t, nyq_row, template, weights,
 
 shard_diagnostics_disp.launches = 0
 shard_diagnostics_disp.launches_bf16 = 0
+shard_diagnostics_disp.launches_f64 = 0
 
 
 def shard_diagnostics_dedisp(ded, template, window, weights, cell_mask):
@@ -927,7 +919,6 @@ def shard_diagnostics_dedisp(ded, template, window, weights, cell_mask):
     if not _on_card(ded, template, window, weights, cell_mask):
         return cell_diagnostics_dedisp_plain(ded, template, window, weights,
                                              cell_mask)
-    _shard_dtype(ded)
     rc, outs = _launch_cell_stats(
         "icln_shard_stats_dedisp", ded, template, weights, cell_mask,
         [("ded", ded)], [], [("window", window)],
@@ -940,6 +931,7 @@ def shard_diagnostics_dedisp(ded, template, window, weights, cell_mask):
 
 shard_diagnostics_dedisp.launches = 0
 shard_diagnostics_dedisp.launches_bf16 = 0
+shard_diagnostics_dedisp.launches_f64 = 0
 
 
 # --------------------------------------------------------------------------
@@ -1643,9 +1635,10 @@ _CUBE_WRAPPERS = (weighted_marginals, cell_diagnostics_disp,
                   shard_diagnostics_disp, shard_diagnostics_dedisp)
 
 
-# the wrappers with a float64 build (K10 has none: ROADMAP item 1b)
+# the wrappers with a float64 build
 _F64_WRAPPERS = (weighted_marginals, cell_diagnostics_disp,
                  cell_diagnostics_two_read, cell_diagnostics_dedisp,
+                 shard_diagnostics_disp, shard_diagnostics_dedisp,
                  combine_zap, fused_combine, masked_median, side_centre,
                  side_scale)
 

@@ -6,7 +6,11 @@ log and the per-archive iteration histories, and writes them to the
 end.  Under ``--mesh cell`` every rank cleans the same archive and rank
 0 alone writes the output, so rank 0 alone records: the other ranks
 hold an empty :class:`RunTelemetry` (nothing configured), and no
-counter crosses ranks.
+counter crosses ranks.  A multi-host fleet started with
+``--coordinator`` is one process a host, each exporting its own share:
+there :meth:`RunTelemetry.report` sums :data:`_AGGREGATED_COUNTERS`
+over the hosts (``parallel.distributed.
+aggregate_metrics_across_processes``), the reference's reduction.
 """
 
 from __future__ import annotations
@@ -19,6 +23,20 @@ from iterative_cleaner_torch.telemetry.exporters import (
     write_prometheus_textfile,
 )
 from iterative_cleaner_torch.telemetry.registry import COUNTS, MetricsRegistry
+
+# Counters summed over the hosts of a --coordinator group at export (the
+# reference's tuple).  A fixed key set (a missing key counts 0) keeps the
+# reduction's shape the same on every host, whatever its share did; a
+# host that served nothing takes part with zeros.  The reduction runs on
+# the session's exit path, which every live host reaches; a host killed
+# mid-run leaves the others to degrade to their local counters, and the
+# fleet's whole-slice totals fold from the journal's per-host stats lines
+# (parallel/fleet._publish_host_stats) without any collective.
+_AGGREGATED_COUNTERS = ("archives_cleaned", "archives_converged",
+                        "archives_failed", "cells_total", "cells_zapped",
+                        "iterations_total", "fleet_cleaned",
+                        "fleet_failures", "fleet_resumed_skips",
+                        "fleet_stolen", "fleet_buckets_owned")
 
 
 class RunTelemetry:
@@ -104,10 +122,27 @@ class RunTelemetry:
 
     def report(self) -> dict:
         """The run report: the registry's snapshot, the schema and the
-        archives' entries."""
+        archives' entries.  In a ``--coordinator`` group of more than one
+        host process the :data:`_AGGREGATED_COUNTERS` are the hosts' sums
+        (every host must reach this point: it sits on the session's exit
+        path); otherwise no collective runs."""
+        from iterative_cleaner_torch.parallel import distributed
         from iterative_cleaner_torch.telemetry import METRICS_SCHEMA
 
         doc = self.registry.snapshot()
+        if distributed.coordinated_processes() > 1:
+            local = {k: doc["counters"].get(k, 0.0)
+                     for k in _AGGREGATED_COUNTERS}
+            doc["counters"].update(
+                {k: v for k, v in
+                 distributed.aggregate_metrics_across_processes(
+                     local, registry=self.registry,
+                     events=self.events).items() if v})
+            # a degrade counted just now belongs in this export
+            degraded = self.registry.snapshot()["counters"].get(
+                "telemetry_degraded")
+            if degraded:
+                doc["counters"]["telemetry_degraded"] = degraded
         doc["schema"] = METRICS_SCHEMA
         doc["archives"] = list(self.archives)
         return doc

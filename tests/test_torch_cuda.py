@@ -62,7 +62,9 @@ of ``LONGEST_BLOCK_LINE_F64`` (the long side through the cluster
 kernel), each counted under its ``_f64`` name; the whole clean on
 every route and the exact stream at budget 0 (8 bytes a sample
 uploaded) against the CPU's float64 clean (masks, loops; scores within
-1e-9); K10 refusing a float64 block (ROADMAP item 1b); and the float32
+1e-9); K10's float64 build within 1e-12 of its plain version and
+bit-equal to K2's and K6's float64 builds on the same shard; and the
+float32
 builds' planes SHA-256-equal to the ones the tree before the float64
 builds computed (``F32_PLANE_DIGESTS``).
 
@@ -1425,14 +1427,36 @@ def test_f32_planes_bit_equal_to_before_on_card(card):
     assert _f32_plane_digests(card) == F32_PLANE_DIGESTS
 
 
-def test_k10_refuses_a_float64_block_on_card(card):
-    disp, w, mask, template, rot_t, nyq = _f64_inputs(8, 16, 32, "fourier",
-                                                      card)
-    with pytest.raises(NotImplementedError, match="item 1b"):
-        tk.shard_diagnostics_disp(disp, rot_t, nyq, template, w, mask)
-    window = torch.ones(32, dtype=torch.float64, device=card)
-    with pytest.raises(NotImplementedError, match="item 1b"):
-        tk.shard_diagnostics_dedisp(disp, template, window, w, mask)
+@pytest.mark.parametrize("nsub,nchan,nbin,rotation", F64_GEOMS)
+def test_k10_float64_build_on_card(card, nsub, nchan, nbin, rotation):
+    """K10's float64 build: within 1e-12 of each plane's scale of its
+    plain version (masked cells exact), bit-equal to K2's and K6's float64
+    builds on the same shard, counted as ``<name>_f64``."""
+    disp, w, mask, template, rot_t, nyq = _f64_inputs(nsub, nchan, nbin,
+                                                      rotation, card)
+    g = torch.Generator().manual_seed(11)
+    window = (0.5 + torch.rand(nbin, generator=g, dtype=torch.float64)
+              ).to(card)
+    tk.reset_launch_counts()
+    got_d = tk.shard_diagnostics_disp(disp, rot_t, nyq, template, w, mask)
+    got_x = tk.shard_diagnostics_dedisp(disp, template, window, w, mask)
+    counts = tk.launch_counts()
+    assert counts["shard_diagnostics_disp_f64"] == 1
+    assert counts["shard_diagnostics_dedisp_f64"] == 1
+    assert counts["shard_diagnostics_disp"] == 0
+    plain_d = tk.cell_diagnostics_disp_plain(
+        disp.cpu(), rot_t.cpu(), None if nyq is None else nyq.cpu(),
+        template.cpu(), w.cpu(), mask.cpu())
+    plain_x = tk.cell_diagnostics_dedisp_plain(
+        disp.cpu(), template.cpu(), window.cpu(), w.cpu(), mask.cpu())
+    _f64_planes_close([p.cpu() for p in got_d], plain_d, mask.cpu())
+    _f64_planes_close([p.cpu() for p in got_x], plain_x, mask.cpu())
+    for got, want in ((got_d, tk.cell_diagnostics_disp(
+            disp, rot_t, nyq, template, w, mask)),
+                      (got_x, tk.cell_diagnostics_dedisp(
+            disp, template, window, w, mask))):
+        for a, b in zip(got, want):
+            assert _f64_bits_mismatch(a, b) == 0
 
 
 # ---------------------------------------------------------------------------

@@ -19,6 +19,7 @@ import threading
 import time
 
 import numpy as np
+import torch
 import pytest
 
 from iterative_cleaner_tpu.config import CleanConfig as RefConfig
@@ -257,9 +258,38 @@ def test_fleet_empty_and_all_failed(tmp_path):
     assert not rep.ok and rep.results == {}
 
 
-def test_fleet_refuses_a_mesh(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 3b"):
-        clean_fleet([], CFG, mesh=object())
+def test_fleet_on_a_one_rank_mesh_equals_the_fleet(tmp_path):
+    """A ('batch',) mesh of one rank (no process group needed: its
+    decisions and exchanges run no collective) serves the fleet as
+    without a mesh, bit for bit, and as the JAX ``clean_fleet`` over a
+    ('batch',) mesh of one host device: masks and loops equal, the same
+    failures."""
+    from iterative_cleaner_tpu.parallel.mesh import batch_mesh
+    from iterative_cleaner_torch.parallel.mesh import BatchMesh
+
+    paths = _write_fleet(tmp_path, [(8, 16, 32), (8, 16, 32), (6, 12, 32)])
+    paths.append(str(tmp_path / "missing.npz"))
+    mesh = BatchMesh(1, 0, torch.device("cpu"))
+    got = clean_fleet(paths, CFG, mesh=mesh)
+    want = clean_fleet(paths, CFG)
+    ref = ref_clean_fleet(paths, RefConfig(
+        dtype="float32", median_impl="pallas", stats_impl="fused",
+        fused_sweep="on", fft_mode="dft", rotation="roll", max_iter=3),
+        mesh=batch_mesh(1), io_workers=1)
+    assert set(got.results) == set(want.results) == set(ref.results) \
+        == set(paths[:3])
+    for p in paths[:3]:
+        for field in ("final_weights", "scores", "loop_diffs"):
+            np.testing.assert_array_equal(getattr(got.results[p], field),
+                                          getattr(want.results[p], field))
+        np.testing.assert_array_equal(got.results[p].final_weights,
+                                      ref.results[p].final_weights)
+        assert got.results[p].loops == ref.results[p].loops
+    assert [(p, st) for p, st, _e in got.failures] == \
+        [(p, st) for p, st, _e in want.failures] == \
+        [(p, st) for p, st, _e in ref.failures]
+    with pytest.raises(ValueError, match="side group"):
+        clean_fleet(paths, CFG, mesh=BatchMesh(2, 0, torch.device("cpu")))
 
 
 # ---- CLI -----------------------------------------------------------------
@@ -314,17 +344,47 @@ def test_cli_fleet_flag_validation(tmp_path, monkeypatch, capsys, argv,
     assert needle in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--fleet", "--coordinator", "localhost:1234"], "item 3b"),
-    (["--fleet", "--mesh", "batch"], "item 3b"),
+@pytest.mark.parametrize("argv,needle,local_world", [
+    (["--fleet", "--coordinator", "localhost:1234"], "--hosts N --host-id",
+     ""),
+    (["--coordinator", "localhost:1234"], "pass --fleet", ""),
+    (["--fleet", "--mesh", "batch"], "--batch B", ""),
+    (["--fleet", "--hosts", "2", "--host-id", "0", "--coordinator",
+      "localhost:1234"], "--mesh batch", "2"),
 ])
-def test_cli_flags_left_out_raise_with_their_item(tmp_path, monkeypatch,
-                                                   argv, item):
+def test_cli_multiprocess_flags_validation(tmp_path, monkeypatch, capsys,
+                                           argv, needle, local_world):
+    """``--coordinator`` needs a multi-host ``--fleet`` with its host
+    count and index, and under torchrun with several ranks a host
+    (``LOCAL_WORLD_SIZE``) ``--mesh batch``; ``--fleet --mesh batch`` the
+    group size it splits (``--batch B > 1``): parser errors, exit 2,
+    before any process group starts."""
     from iterative_cleaner_torch.cli import main
 
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match=item):
+    monkeypatch.delenv("ICLEAN_HOSTS", raising=False)
+    monkeypatch.delenv("ICLEAN_HOST_ID", raising=False)
+    monkeypatch.setenv("LOCAL_WORLD_SIZE", local_world)
+    with pytest.raises(SystemExit) as ei:
         main(["--device", "cpu", "-q", *argv, "x.npz"])
+    assert ei.value.code == 2
+    assert needle in capsys.readouterr().err
+
+
+def test_cli_fleet_mesh_batch_one_rank(tmp_path, monkeypatch):
+    """``--fleet --mesh batch`` without torchrun is a job of one rank:
+    its outputs equal the fleet's without a mesh."""
+    from iterative_cleaner_torch.cli import main
+
+    monkeypatch.chdir(tmp_path)
+    paths = _write_fleet(tmp_path, [(8, 16, 32), (8, 16, 32), (6, 12, 32)])
+    assert main(["--device", "cpu", "-q", "--fleet", "--mesh", "batch",
+                 "--batch", "2", "--rotation", "roll", "--max_iter", "3",
+                 *paths]) == 0
+    for p in paths:
+        np.testing.assert_array_equal(
+            load_archive(p + "_cleaned.npz").weights,
+            clean_archive(load_archive(p), CFG).final_weights)
 
 
 @pytest.mark.parametrize("argv,rc", [

@@ -7,9 +7,10 @@ sharing one journal (every archive cleaned once, masks bit-equal to a
 single-host serve, whole-slice counters folded from the journal), one
 survivor draining the slice, and a host killed with SIGKILL while it
 holds a lease, whose bucket the other steals with no duplicate clean.
-Every spawned process has its own timeout.  The reference's
-``jax.distributed`` round trip has no counterpart: ``--coordinator`` is
-ROADMAP item 3b, and the journal alone coordinates the hosts."""
+Every spawned process has its own timeout.  The journal coordinates
+the hosts' work; ``--coordinator`` (the reference's ``jax.distributed``
+round trip) joins them in a process group whose counters reduction is
+held in ``tests/test_torch_coordinator.py``."""
 
 import json
 import os
@@ -254,6 +255,46 @@ def test_one_survivor_drains_whole_slice(tmp_path):
     assert rep.n_stolen >= 1
     for p in paths:
         np.testing.assert_array_equal(rep.results[p].final_weights, want[p])
+
+
+def test_owner_done_between_the_reads_is_not_cleaned_twice(tmp_path):
+    """Host 0, its own bucket served, reads the done lines and then the
+    claim table for host 1's bucket.  Between the two reads host 1
+    serves that bucket whole: done lines written, lease released.  Host
+    0's claim then succeeds, and it must read the done lines again
+    under it: every archive done exactly once, host 1's archives skipped
+    by host 0."""
+    paths = _write_fleet(tmp_path, n=4)
+    jpath = str(tmp_path / "j.jsonl")
+    cfg = CleanConfig(device="cpu", rotation="roll", max_iter=2,
+                      fleet_claim_ttl_s=5.0)
+    own0 = {os.path.abspath(p) for p in paths[0::2]}
+    out = {}
+
+    class PeerFinishesBetweenReads(FleetJournal):
+        fired = False
+
+        def claim_table(self, now=None):
+            if not self.fired and own0 <= set(
+                    self.completed(config_hash(cfg))):
+                self.fired = True
+                out[1] = clean_fleet(
+                    paths, cfg, hosts=HostTopology(host_id=1, n_hosts=2),
+                    resilience=ResiliencePlan(journal=FleetJournal(jpath)),
+                    registry=MetricsRegistry())
+            return super().claim_table(now=now)
+
+    journal = PeerFinishesBetweenReads(jpath)
+    out[0] = clean_fleet(
+        paths, cfg, hosts=HostTopology(host_id=0, n_hosts=2),
+        resilience=ResiliencePlan(journal=journal),
+        registry=MetricsRegistry())
+    assert journal.fired
+    assert not out[0].failures and not out[1].failures
+    assert sorted(out[0].results) == sorted(paths[0::2])
+    assert sorted(out[1].results) == sorted(paths[1::2])
+    assert set(paths[1::2]) <= set(out[0].skipped)
+    assert _done_counts(jpath) == {os.path.abspath(p): 1 for p in paths}
 
 
 def _cli_cmd(paths, metrics, extra):

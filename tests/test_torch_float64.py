@@ -24,10 +24,12 @@ oracle.
   divides), K9 (bit-equal), and the tail kernels' plain versions
   bit-equal to K3's on lines past ``LONGEST_BLOCK_LINE_F64``.
 - The 64-bit order-preserving keys (hypothesis), the float64 launch
-  plans, and the refusals: float64 on a mesh and in a batch raise
-  ``NotImplementedError`` citing item 1b; ``compute_dtype="bfloat16"``
-  with float64 raises ``ValueError``; ``ICLEAN_COMPUTE_DTYPE=bfloat16``
-  with float64 takes the ``reason=dtype`` downgrade.
+  plans, and the configuration's rules: float64 passes the mesh check on
+  both meshes and runs in a batch (bit-equal to its single cleans; the
+  meshes and the batch are held in ``tests/test_torch_mesh_f64.py``);
+  ``compute_dtype="bfloat16"`` with float64 raises ``ValueError``;
+  ``ICLEAN_COMPUTE_DTYPE=bfloat16`` with float64 takes the
+  ``reason=dtype`` downgrade.
 """
 
 import jax.numpy as jnp
@@ -47,11 +49,10 @@ from iterative_cleaner_tpu.parallel.streaming import (
     clean_streaming as ref_clean_streaming,
 )
 from iterative_cleaner_tpu.stats import masked_jax as ref_mj
-from iterative_cleaner_torch import CleanConfig, StreamingCleaner
+from iterative_cleaner_torch import CleanConfig
 from iterative_cleaner_torch import clean_streaming
 from iterative_cleaner_torch.backends import (
     clean_archive,
-    clean_archive_sharded,
     clean_archives_batched,
 )
 from iterative_cleaner_torch.backends import torch_backend as tb
@@ -336,21 +337,21 @@ def test_float64_launch_count_names():
 
 
 def test_float64_refusals(monkeypatch):
+    """float64 passes the mesh check on every mesh and runs in a batch
+    (each archive bit-equal to its single float64 clean); what the
+    reference refuses stays a ``ValueError``."""
     cfg = CleanConfig(dtype="float64", device="cpu")
     ar = archive_from_reference(_archive(SMALL))
-    for mesh in ("cell", "batch"):
-        with pytest.raises(NotImplementedError, match="item 1b"):
-            check_mesh(mesh, cfg)
-    check_mesh("off", cfg)
-    with pytest.raises(NotImplementedError, match="item 1b"):
-        clean_archive_sharded(ar, cfg, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 1b"):
-        clean_archives_batched([ar, ar], cfg)
-    with pytest.raises(NotImplementedError, match="item 1b"):
-        StreamingCleaner(8, cfg, ar.freqs_mhz, ar.dm, ar.centre_freq_mhz,
-                         ar.period_s, mesh=object())
-    with pytest.raises(NotImplementedError, match="item 1b"):
-        clean_streaming(ar, 8, cfg, mesh=object())
+    for mesh in ("off", "cell", "batch"):
+        check_mesh(mesh, cfg)
+    single = clean_archive(ar, cfg)
+    for got in clean_archives_batched([ar, ar], cfg):
+        assert got.final_weights.dtype == np.float64
+        for field in ("final_weights", "scores", "loop_diffs",
+                      "loop_rfi_frac"):
+            np.testing.assert_array_equal(getattr(got, field),
+                                          getattr(single, field))
+        assert got.loops == single.loops
     with pytest.raises(ValueError, match="torch backend"):
         check_mesh("cell", CleanConfig(backend="numpy"))
     with pytest.raises(ValueError, match="torch backend"):

@@ -466,3 +466,69 @@ print("LOADED", bad)
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert "LOADED []" in out.stdout, out.stdout
+
+
+@pytest.mark.parametrize("module", [
+    ("parallel", "distributed.py"), ("parallel", "mesh.py"),
+    ("parallel", "shard_stats.py"), ("parallel", "sharding.py"),
+    ("parallel", "batch.py"), ("parallel", "fleet.py"),
+    ("telemetry", "run.py"), ("stats", "csrc", "shard_stats.cu")])
+def test_multiprocess_modules_are_scanned(module):
+    """The modules of the float64 meshes and batch and of the fleet's
+    multi-process pieces (the coordinator's reduction, the hybrid mesh,
+    this host's batch mesh, the fleet over a mesh), and K10's source, are
+    among the scanned sources."""
+    assert os.path.join(PKG, *module) in set(_port_sources((".py", ".cu")))
+
+
+def test_multiprocess_path_runs_without_jax():
+    """float64 on one rank's cell mesh and in a batch, the hybrid clean
+    over one slot, this host's batch mesh, the fleet over a batch mesh,
+    the coordinator's reduction, and the CLI's ``--fleet --mesh batch``
+    and ``--coordinator`` load neither ``jax`` nor the reference
+    package."""
+    code = """
+import os, socket, sys, tempfile
+from iterative_cleaner_torch import CleanConfig
+from iterative_cleaner_torch.cli import main
+from iterative_cleaner_torch.io import make_synthetic_archive, save_archive
+from iterative_cleaner_torch.parallel import (
+    aggregate_metrics_across_processes, clean_archive_sharded,
+    clean_archives_batched, clean_archives_hybrid, distributed,
+    hybrid_batch_cell_mesh, local_batch_mesh)
+from iterative_cleaner_torch.parallel.fleet import clean_fleet
+from iterative_cleaner_torch.parallel.mesh import batch_mesh, cell_mesh
+os.chdir(tempfile.mkdtemp())
+f64 = CleanConfig(device="cpu", dtype="float64", max_iter=2)
+ar, _ = make_synthetic_archive(nsub=8, nchan=16, nbin=32, seed=0)
+assert len(clean_archives_batched([ar, ar], f64)) == 2
+assert aggregate_metrics_across_processes({"a": 1.0}) == {"a": 1.0}
+distributed.initialize(device="cpu")
+try:
+    assert clean_archive_sharded(ar, f64, cell_mesh()).loops >= 1
+    assert len(clean_archives_hybrid([ar, ar], f64,
+                                     hybrid_batch_cell_mesh(1))) == 2
+    assert local_batch_mesh().size == 1
+    save_archive(ar, "a.npz")
+    assert clean_fleet(["a.npz"], f64, mesh=batch_mesh()).ok
+finally:
+    distributed.shutdown()
+assert main(["--device", "cpu", "-q", "--fleet", "--mesh", "batch",
+             "--batch", "2", "a.npz"]) == 0
+with socket.socket() as s:
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+assert main(["--device", "cpu", "-q", "--fleet", "--hosts", "1",
+             "--host-id", "0", "--coordinator", "127.0.0.1:%d" % port,
+             "--journal", "j.jsonl", "a.npz"]) == 0
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "iterative_cleaner_tpu"))
+print("LOADED", bad)
+"""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [REPO] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout

@@ -468,14 +468,14 @@ def test_singleton_oom_fails_its_archive_alone(tmp_path, monkeypatch,
     the others are cleaned bit-equal to their single cleans."""
     paths = _write_fleet(tmp_path, [(8, 16, 32)] * 4)
     heavy = load_archive(paths[2]).data
-    real = batch_mod.clean_archives_batched
+    real = batch_mod.clean_batch_share
 
     def capped(archives, *a, **kw):
         if any(np.array_equal(ar.data, heavy) for ar in archives):
             raise error
         return real(archives, *a, **kw)
 
-    monkeypatch.setattr(batch_mod, "clean_archives_batched", capped)
+    monkeypatch.setattr(batch_mod, "clean_batch_share", capped)
     reg = MetricsRegistry()
     rep = clean_fleet(paths, CFG, registry=reg, group_size=4)
     assert [(p, s) for p, s, _e in rep.failures] == [(paths[2], "clean")]
@@ -492,14 +492,14 @@ def test_torch_oom_halves_the_group_to_singles(tmp_path, monkeypatch):
     raises) from any batch of more than two archives halves the group
     until it fits; results bit-equal to the single cleans, no degrade."""
     paths = _write_fleet(tmp_path, [(8, 16, 32)] * 6)
-    real = batch_mod.clean_archives_batched
+    real = batch_mod.clean_batch_share
 
     def capped(archives, *a, **kw):
         if len(archives) > 2:
             raise torch.OutOfMemoryError("CUDA out of memory (simulated)")
         return real(archives, *a, **kw)
 
-    monkeypatch.setattr(batch_mod, "clean_archives_batched", capped)
+    monkeypatch.setattr(batch_mod, "clean_batch_share", capped)
     reg = MetricsRegistry()
     rep = clean_fleet(paths, CFG, registry=reg, group_size=6)
     assert rep.ok
@@ -521,7 +521,7 @@ def test_broken_context_fails_without_retry_or_split(tmp_path, monkeypatch):
         raise RuntimeError("combine_zap: CUDA error 700 (an illegal memory "
                            "access was encountered)")
 
-    monkeypatch.setattr(batch_mod, "clean_archives_batched", broken)
+    monkeypatch.setattr(batch_mod, "clean_batch_share", broken)
     reg = MetricsRegistry()
     rep = clean_fleet(paths, CFG, registry=reg, group_size=4,
                       resilience=ResiliencePlan(retry=FAST))

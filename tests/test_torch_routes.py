@@ -121,13 +121,13 @@ def test_route_kernels_cover_every_launch_counter():
     kernels (K7 per block; K3, the combine and K9 on the gathered
     planes).  Each cube kernel's bf16 build (``storage_kernels``) is
     counted under its own name, and so is the float64 build of every
-    kernel of the single-card routes, exact streaming and the long lines
-    (K10 has none)."""
+    kernel of the single-card routes, exact streaming, the sharded routes
+    (K10's float64 build) and the long lines."""
     named = {k for table in (ROUTE_KERNELS, STREAM_KERNELS, SHARD_KERNELS)
              for ks in table.values()
              for cd in ("float32", "bfloat16")
              for k in storage_kernels(ks, cd)}
-    named |= {k for table in (ROUTE_KERNELS, STREAM_KERNELS)
+    named |= {k for table in (ROUTE_KERNELS, STREAM_KERNELS, SHARD_KERNELS)
               for ks in table.values()
               for k in storage_kernels(ks, "float32", "float64")}
     long_line = set(LONG_LINE_KERNELS) | set(

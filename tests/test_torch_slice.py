@@ -100,10 +100,11 @@ def test_synthetic_archive_byte_identical(kwargs):
     dict(dtype="float64"),
 ])
 def test_out_of_slice_configs_refused(kwargs):
-    """float64 on a mesh waits for its ROADMAP item (1b; a single clean
-    runs it); dtype='bfloat16' (arithmetic in bf16, which the reference's
-    clean cannot run either) is refused with the pointer to
-    compute_dtype='bfloat16', the bf16 storage mode."""
+    """dtype='bfloat16' (arithmetic in bf16, which the reference's clean
+    cannot run either) is refused with the pointer to
+    compute_dtype='bfloat16', the bf16 storage mode; float64 is in the
+    slice on every mesh, as in the reference (the meshes' float64 cleans
+    are held in tests/test_torch_mesh_f64.py)."""
     if kwargs["dtype"] == "bfloat16":
         with pytest.raises(ValueError, match="compute_dtype='bfloat16'"):
             CleanConfig(device="cpu", **kwargs)
@@ -111,8 +112,11 @@ def test_out_of_slice_configs_refused(kwargs):
     from iterative_cleaner_torch.config import check_mesh
 
     cfg = CleanConfig(device="cpu", **kwargs)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 1b"):
-        check_mesh("cell", cfg)
+    for mesh in ("cell", "batch"):
+        check_mesh(mesh, cfg)
+    with pytest.raises(ValueError, match="torch backend"):
+        check_mesh("cell", CleanConfig(device="cpu", backend="numpy",
+                                       **kwargs))
 
 
 def test_default_device_is_the_card():

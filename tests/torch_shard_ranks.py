@@ -104,3 +104,86 @@ def scaler_rank(planes, mask, weights, chanthresh, subintthresh):
     return ((lay.s0, lay.c0),
             [[s.numpy() for s in side] for side in sides],
             new_w.numpy(), scores.numpy())
+
+
+def hybrid_rank(paths, config_kwargs, batch):
+    """The hybrid batch-cell clean of the archives at ``paths`` over
+    ``hybrid_batch_cell_mesh(batch)``, once per entry of
+    ``config_kwargs``: this rank's mesh shape, slot and cell coordinates,
+    and rank 0's results (None on the other ranks)."""
+    from iterative_cleaner_torch.parallel.distributed import (
+        clean_archives_hybrid,
+        hybrid_batch_cell_mesh,
+    )
+
+    mesh = hybrid_batch_cell_mesh(batch)
+    ars = [load_archive(p) for p in paths]
+    results = [clean_archives_hybrid(ars, CleanConfig(device="cpu", **kw),
+                                     mesh) for kw in config_kwargs]
+    return (mesh.shape, mesh.slot, mesh.cells.coords,
+            None if results[0] is None else results)
+
+
+def local_mesh_rank(local_size):
+    """This rank's local_batch_mesh over hosts of ``local_size`` ranks:
+    its size, rank within the host, its group's global ranks, and a sum
+    over the host's ranks of the global ranks (the group's collective)."""
+    from iterative_cleaner_torch.parallel.mesh import local_batch_mesh
+
+    mesh = local_batch_mesh(local_size)
+    total = torch.tensor([dist.get_rank()], dtype=torch.int32)
+    if mesh.group is not None or mesh.size > 1:
+        dist.all_reduce(total, group=mesh.group)
+    ranks = (list(range(dist.get_world_size())) if mesh.group is None
+             else dist.get_process_group_ranks(mesh.group))
+    return mesh.size, mesh.rank, ranks, int(total[0])
+
+
+def fleet_rank(paths, config, faults, seed, stall_s=0.0):
+    """clean_fleet (``config``, a CleanConfig) over the ('batch',) mesh of
+    every rank, with the seeded fault spec ``faults`` on rank 0; with
+    ``stall_s``, rank 1's first load sleeps that long first (a rank that
+    is slow but alive).  This rank's report as plain data (each result's
+    weights and loops, each failure's path, stage and error type, the
+    skipped paths)."""
+    import time
+
+    from iterative_cleaner_torch.parallel.fleet import clean_fleet
+    from iterative_cleaner_torch.resilience import (
+        FaultInjector,
+        ResiliencePlan,
+    )
+
+    stalled = []
+
+    def load(path):
+        if stall_s and dist.get_rank() == 1 and not stalled:
+            stalled.append(path)
+            time.sleep(stall_s)
+        return load_archive(path)
+
+    plan = ResiliencePlan(faults=FaultInjector(faults, seed=seed)
+                          if faults else None)
+    report = clean_fleet(list(paths), config, mesh=batch_mesh(),
+                         resilience=plan, io_workers=1, load_fn=load)
+    return ({p: (r.final_weights, r.loops) for p, r in report.results.items()},
+            sorted((p, st, type(e).__name__) for p, st, e in report.failures),
+            sorted(report.skipped))
+
+
+def aggregate_rank(store, counters_by_rank):
+    """aggregate_metrics_across_processes over a coordinator group of
+    every rank (joined again at the ``file://`` ``store``): each rank's
+    counters from ``counters_by_rank``, the sums it gets back."""
+    from iterative_cleaner_torch.parallel import distributed
+    from iterative_cleaner_torch.telemetry.registry import MetricsRegistry
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    distributed.shutdown()
+    distributed.initialize(device="cpu", coordinator=f"file://{store}",
+                           rank=rank, world_size=world)
+    reg = MetricsRegistry()
+    return (distributed.coordinated_processes(),
+            distributed.aggregate_metrics_across_processes(
+                counters_by_rank[rank], registry=reg),
+            reg.snapshot()["counters"].get("telemetry_degraded", 0))
