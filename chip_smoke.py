@@ -249,6 +249,30 @@ behind, each required ok, a torn tail passing as a warning; (c3) an
 ``.item()`` seeded into the online step, caught on the card by the
 dispatch count and by the sync debug mode.
 
+Long profiles past the DFT tables (``csrc/cell_fft.cu``, the FFT build
+of the cell diagnostics), after phase 3p: (L1) every entry of the FFT
+build (K2 with and without the Nyquist term, K7, K6, K10's two) against
+its plain version on the card in float32, bf16 and float64, one block a
+cell (16 x 64 x 32768; float64 16,384), a thread-block cluster (8 x 32 x
+65536; float64 32,768), the radix-3 stage (8 x 32 x 24576) and a batch of
+two, within 1e-4 of each plane's scale (1e-12 in float64), K10's
+bit-equal to K2's and K6's on a 2 x 2 shard and the batch to its
+archives' own launches, each entry timed at the cluster shape; (L2) K2
+(the DFT route) and the FFT build called as a function on the same
+inputs at 8192 and 16,384 bins, each against the float64 plain version
+and the two against each other, both timed (where the crossover lies);
+(L3) a 32 x 256 x 65536 archive (a 3.75 s pulsar folded at 57 us, built
+on a worker process from the start) through ``clean_archive`` on the
+default route in float32, the dedispersed frame and float64 (the
+slice's main path), then the profile baseline and the one-rank sharded
+default and dedispersed cleans, each counted (the route's FFT build once
+an iteration, no DFT launch), the float32 mask held to the float64 one
+by the goldens' flip rule, the dedispersed one to the default by the
+frames' contract, the sharded cleans bit-equal to the whole ones; the
+main path's FFT builds timed at full width beside their bounds, their
+plain versions and ``torch.fft.rfft`` alone on the centred rows, with ms
+an iteration and peak memory.
+
 It exits non-zero, printing no result, when no CUDA device is present
 or when the port's package is not beside it.  It imports nothing of JAX
 or of the reference package.
@@ -5290,6 +5314,576 @@ def control_plane_phase(dev, tag):
           f"{tag}", flush=True)
 
 
+# ---- the long-profile phases (csrc/cell_fft.cu, the FFT build of the cell
+# diagnostics past the DFT tables): L1-L3 ------------------------------
+
+# The long-profile archive: a 3.75 s pulsar folded at 57 us a bin (65,536
+# bins) in 32 subints of a minute over 256 channels, the golden's sample
+# count; its cell diagnostics take the FFT build's cluster form.
+LONG_PROFILE_SHAPE = (32, 256, 65536)
+LONG_PROFILE_PERIOD_S = 3.75
+# L1's shapes: (batch or 0, nsub, nchan, nbin) by storage; one block a
+# cell, a thread-block cluster, the radix-3 stage, a batch of two
+L1_SHAPES = {
+    "float32": ((0, 16, 64, 32768), (0, 8, 32, 65536), (0, 8, 32, 24576),
+                (2, 4, 32, 65536)),
+    "bfloat16": ((0, 16, 64, 32768), (0, 8, 32, 65536), (0, 8, 32, 24576),
+                 (2, 4, 32, 65536)),
+    "float64": ((0, 16, 64, 16384), (0, 8, 32, 32768), (0, 8, 32, 24576),
+                (2, 4, 32, 32768)),
+}
+# L2: the DFT route and the FFT build on the same inputs at these lengths
+L2_NBINS = (8192, 16384)
+L2_CELLS = (16, 64)
+
+
+def build_long_profile(out_dir):
+    """The long-profile archive (``LONG_PROFILE_SHAPE``, seed 19, the
+    golden's RFI density rules, float64, dispersed), its cube saved to
+    ``out_dir`` as a ``.npy`` (run on a worker process); returns the path
+    and the other fields."""
+    import dataclasses as dc
+
+    from iterative_cleaner_torch.io.synthetic import (
+        bench_rfi_density,
+        make_synthetic_archive,
+    )
+
+    nsub, nchan, nbin = LONG_PROFILE_SHAPE
+    ar, _ = make_synthetic_archive(nsub=nsub, nchan=nchan, nbin=nbin,
+                                   **bench_rfi_density(nsub, nchan),
+                                   period_s=LONG_PROFILE_PERIOD_S, seed=19,
+                                   dtype=np.float64, disperse=True)
+    path = os.path.join(out_dir, "long_profile.npy")
+    np.save(path, ar.data)
+    return path, {f.name: getattr(ar, f.name) for f in dc.fields(ar)
+                  if f.name != "data"}
+
+
+def fft_operands(nb, nsub, nchan, nbin, storage, seed, dev):
+    """Random FFT-build operands made with numpy: a cube with a pulse and
+    a spike in ``storage`` (float32, bfloat16 or float64), template rows,
+    Nyquist rows, a window, weights with zeros and their mask, the other
+    operands in the arithmetic dtype; a batch of ``nb`` (0: one
+    archive)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    real = torch.float64 if storage == "float64" else torch.float32
+    lead = (nb,) if nb else ()
+    ph = np.arange(nbin)
+    t = np.exp(-0.5 * ((ph - nbin / 3) / (nbin / 64)) ** 2)
+    cube = rng.standard_normal(lead + (nsub, nchan, nbin)) + 3.0 * t
+    cube[..., nsub - 1, nchan - 1, 100] = 60.0
+    rot = np.stack([np.roll(t, 5 * c) for c in range(nchan)])
+    nyq = rng.standard_normal((nchan, nbin)) * 1e-3
+    w = rng.random(lead + (nsub, nchan))
+    w[w < 0.15] = 0.0
+    win = np.ones(nbin)
+    win[nbin // 4: nbin // 3] = 0.5
+
+    def up(a, shape=None):
+        a = np.array(np.broadcast_to(a, shape)) if shape else a
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, real)
+
+    wt = up(w)
+    cube_t = up(cube).to(getattr(torch, storage))
+    return dict(cube=cube_t, base=(up(cube) * 0.5).to(cube_t.dtype),
+                rot=up(rot, lead + rot.shape), nyq=up(nyq, lead + nyq.shape),
+                tmpl=up(t, lead + t.shape), w=wt, mask=wt == 0, win=up(win))
+
+
+def fft_forms(o):
+    """(form, the routed wrapper, its plain version) of every entry on the
+    operands ``o`` of :func:`fft_operands`, at lengths past the DFT tables
+    (the FFT build's route): K2 with and without the Nyquist term, K7, K6
+    and K10's two entries."""
+    from iterative_cleaner_torch.stats import kernels as K
+
+    c, b, r, n, t, w, m, win = (o[k] for k in ("cube", "base", "rot", "nyq",
+                                              "tmpl", "w", "mask", "win"))
+    assert K.cell_stats_route(c.shape[-1], c.element_size()) == "fft"
+    return [
+        ("disp", lambda: K.cell_diagnostics_disp(c, r, n, t, w, m),
+         lambda: K.cell_diagnostics_disp_plain(c, r, n, t, w, m)),
+        ("disp (no Nyquist term)",
+         lambda: K.cell_diagnostics_disp(c, r, None, t, w, m),
+         lambda: K.cell_diagnostics_disp_plain(c, r, None, t, w, m)),
+        ("two_read", lambda: K.cell_diagnostics_two_read(c, b, r, t, w, m),
+         lambda: K.cell_diagnostics_two_read_plain(c, b, r, t, w, m)),
+        ("dedisp", lambda: K.cell_diagnostics_dedisp(c, t, win, w, m),
+         lambda: K.cell_diagnostics_dedisp_plain(c, t, win, w, m)),
+        ("shard disp", lambda: K.shard_diagnostics_disp(c, r, n, t, w, m),
+         lambda: K.cell_diagnostics_disp_plain(c, r, n, t, w, m)),
+        ("shard dedisp",
+         lambda: K.shard_diagnostics_dedisp(c, t, win, w, m),
+         lambda: K.cell_diagnostics_dedisp_plain(c, t, win, w, m)),
+    ]
+
+
+def plane_err(got, want, mask, rtol, torch):
+    """The largest |got - want| over (|want| + each plane's scale) and
+    whether it is within ``rtol`` with the masked cells bit-equal (a
+    batch's planes archive by archive)."""
+    if mask.dim() == 3:
+        errs = [plane_err([g[i] for g in got], [w[i] for w in want], mask[i],
+                          rtol, torch) for i in range(mask.shape[0])]
+        return max(e for e, _ in errs), all(ok for _, ok in errs)
+    err, ok = 0.0, True
+    for g, w in zip(got, want):
+        scale = float(w[~mask].abs().max())
+        rel = float(((g - w).abs() / (w.abs() + scale)).max())
+        err = max(err, rel)
+        ok &= rel <= rtol and bits_mismatch(g[mask], w[mask], torch) == 0
+    return err, ok
+
+
+def l1_phase(dev, tag):
+    """(L1) Every FFT-build entry against its plain version on the card in
+    float32, bf16 and float64, at L1_SHAPES (one block a cell, a cluster,
+    the radix-3 stage, a batch of two): within 1e-4 of each plane's scale
+    (1e-12 in float64), masked cells bit-equal; K10's entries bit-equal to
+    K2's and K6's on one 2 x 2 shard; each archive of the batch bit-equal
+    to its own launch.  Each entry timed at the cluster shape.  Returns
+    ``{name: {max_abs_err, ms, plain_ms, bound_ms, bound_by, shape}}``."""
+    import torch
+
+    from iterative_cleaner_torch.stats import kernels as K
+
+    t0 = time.perf_counter()
+    names = {"disp": "cell_diagnostics_disp",
+             "two_read": "cell_diagnostics_two_read",
+             "dedisp": "cell_diagnostics_dedisp",
+             "shard disp": "shard_diagnostics_disp",
+             "shard dedisp": "shard_diagnostics_dedisp"}
+    out, ok_all = {}, True
+    for storage, shapes in L1_SHAPES.items():
+        rtol = F64_PLANE_RTOL if storage == "float64" else K2_RTOL
+        sfx = {"float32": "", "bfloat16": "_bf16", "float64": "_f64"}[storage]
+        for nb, nsub, nchan, nbin in shapes:
+            o = fft_operands(nb, nsub, nchan, nbin, storage, nbin % 101, dev)
+            plan = K.cell_fft_plan(nbin, o["cube"].element_size())
+            errs = []
+            for form, kfn, pfn in fft_forms(o):
+                got, want = kfn(), pfn()
+                err, ok = plane_err(got, want, o["mask"], rtol, torch)
+                ok_all &= ok
+                errs.append(f"{form} {err:.2e}{'' if ok else ' FAIL'}")
+                name = names.get(form)
+                if name:
+                    key = f"{name}_fft{sfx}"
+                    out.setdefault(key, {"max_abs_err": 0.0})
+                    out[key]["max_abs_err"] = max(
+                        out[key]["max_abs_err"],
+                        max_abs_diff_planes(got, want, torch))
+                    if not nb and plan.cluster > 1 and nbin % 3:
+                        out[key].update(time_fft_entry(
+                            name, kfn, pfn, nsub, nchan, nbin, storage))
+            if nb:
+                whole = K.cell_diagnostics_disp(o["cube"], o["rot"], o["nyq"],
+                                                o["tmpl"], o["w"], o["mask"])
+                bad = sum(bits_mismatch(g[i], s, torch)
+                          for i in range(nb)
+                          for g, s in zip(whole, K.cell_diagnostics_disp(
+                              *(o[k][i].contiguous() for k in (
+                                  "cube", "rot", "nyq", "tmpl", "w",
+                                  "mask")))))
+                what = f"batch of {nb}: {bad} cells differ in bits from each " \
+                       f"archive's own launch"
+            else:
+                hs, hc = nsub // 2, nchan // 2
+                cells = {k: o[k][:hs, :hc].contiguous()
+                         for k in ("cube", "w", "mask")}
+                args = (cells["cube"], o["rot"][:hc].contiguous(),
+                        o["nyq"][:hc].contiguous(), o["tmpl"], cells["w"],
+                        cells["mask"])
+                dargs = (cells["cube"], o["tmpl"], o["win"], cells["w"],
+                         cells["mask"])
+                bad = sum(bits_mismatch(a, b, torch) for a, b in zip(
+                    K.shard_diagnostics_disp(*args)
+                    + K.shard_diagnostics_dedisp(*dargs),
+                    K.cell_diagnostics_disp(*args)
+                    + K.cell_diagnostics_dedisp(*dargs)))
+                what = f"K10 on a 2 x 2 shard: {bad} cells differ in bits " \
+                       f"from K2's and K6's FFT builds"
+            ok_all &= bad == 0
+            print(f"L1 FFT build {storage} {(nb or 1, nsub, nchan, nbin)} "
+                  f"({plan.cluster} block(s) a cell, odd part {plan.odd}): "
+                  f"largest error over (|plain| + plane scale) "
+                  f"{', '.join(errs)} (tolerance {rtol:g}); {what} "
+                  f"(tolerance: bit-equal) {tag}", flush=True)
+            del o
+    torch.cuda.empty_cache()
+    print(f"phase L1: {time.perf_counter() - t0:.1f} s", flush=True)
+    if not ok_all:
+        fail("L1: an FFT-build entry disagrees with its plain version, K10 "
+             "with K2/K6, or a batch with its archives")
+    return out
+
+
+def max_abs_diff_planes(got, want, torch) -> float:
+    return max(max_abs_diff(g, w, torch) for g, w in zip(got, want))
+
+
+def time_fft_entry(name, kfn, pfn, nsub, nchan, nbin, storage):
+    """An FFT build's ms, its plain version's, and its bound at the
+    operands' shape."""
+    import torch
+
+    cb = {"float32": 4, "bfloat16": 2, "float64": 8}[storage]
+    bms, bby = profiling.kernel_bounds(nsub, nchan, nbin,
+                                       cube_bytes=cb)[name + "_fft"]
+    return {"ms": cuda_ms(kfn, 10, torch), "plain_ms": cuda_ms(pfn, 2, torch),
+            "bound_ms": bms, "bound_by": bby, "shape": [nsub, nchan, nbin]}
+
+
+def l2_phase(dev, tag):
+    """(L2) The DFT route (K2) and the FFT build (``cell_fft_disp``, called
+    as a function, no knob) on the same inputs at L2_NBINS bins, each
+    against the float64 plain version on the card and against each other;
+    both timed.  The FFT build within 1e-4 of each plane's scale of the
+    float64 planes; the two builds within 1e-4 of each other on the
+    moments' planes and on d_fft within 1e-4 beyond K2's own error there
+    (the DFT's float32 angle tables: 1.3e-4 and 4.1e-4 of the plane's
+    scale at 8192 and 16,384 bins on the CPU).  Returns the times."""
+    import torch
+
+    from iterative_cleaner_torch.stats import kernels as K
+
+    t0 = time.perf_counter()
+    times, ok = {}, True
+    for nbin in L2_NBINS:
+        o = fft_operands(0, *L2_CELLS, nbin, "float32", 7, dev)
+        args = (o["cube"], o["rot"], o["nyq"], o["tmpl"], o["w"], o["mask"])
+        o64 = {k: (v.double() if v.is_floating_point() else v)
+               for k, v in o.items()}
+        ref = K.cell_diagnostics_disp_plain(
+            *(o64[k] for k in ("cube", "rot", "nyq", "tmpl", "w", "mask")),
+            "fft")
+        ref = [r.float() for r in ref]
+        assert K.cell_stats_route(nbin) == "dft"
+        dft, fft = K.cell_diagnostics_disp(*args), K.cell_fft_disp(*args)
+        e_fft = [plane_err([g], [r], o["mask"], 1.0, torch)[0]
+                 for g, r in zip(fft, ref)]
+        e_dft = [plane_err([g], [r], o["mask"], 1.0, torch)[0]
+                 for g, r in zip(dft, ref)]
+        e_pair = [plane_err([g], [r], o["mask"], 1.0, torch)[0]
+                  for g, r in zip(fft, dft)]
+        here = (all(e <= K2_RTOL for e in e_fft)
+                and all(e <= K2_RTOL for e in e_pair[:3])
+                and e_pair[3] <= max(K2_RTOL, e_dft[3] + K2_RTOL))
+        ok &= here
+        ms_dft = cuda_ms(lambda: K.cell_diagnostics_disp(*args), 5, torch)
+        ms_fft = cuda_ms(lambda: K.cell_fft_disp(*args), 10, torch)
+        times[nbin] = {"dft_ms": ms_dft, "fft_ms": ms_fft,
+                       "shape": [*L2_CELLS, nbin]}
+        fmt = lambda es: "/".join(f"{e:.1e}" for e in es)  # noqa: E731
+        print(f"L2 at {L2_CELLS[0]} x {L2_CELLS[1]} x {nbin}: K2 (DFT route) "
+              f"{ms_dft:.4f} ms, FFT build {ms_fft:.4f} ms; errors over "
+              f"(|ref| + plane scale), d_std/d_mean/d_ptp/d_fft, against "
+              f"the float64 plain version: FFT build {fmt(e_fft)}, K2 "
+              f"{fmt(e_dft)}; FFT build against K2 {fmt(e_pair)}: "
+              f"{'ok' if here else 'FAIL'} {tag}", flush=True)
+        del o, o64
+    print(f"phase L2: {time.perf_counter() - t0:.1f} s", flush=True)
+    if not ok:
+        fail("L2: the FFT build and K2 disagree past their tolerance")
+    return times
+
+
+def l3_operands(ar, cfg, dev):
+    """The first iteration's operands of ``cfg``'s route on ``ar`` in the
+    configuration's dtype: the prepared cubes and template, and the
+    route's FFT build with its plain version and its residual."""
+    import torch
+
+    import iterative_cleaner_torch.engine.loop as loop
+    from iterative_cleaner_torch.stats import kernels as K
+
+    real = torch.float64 if cfg.dtype == "float64" else torch.float32
+    npd = np.float64 if cfg.dtype == "float64" else np.float32
+    weights = torch.from_numpy(np.ascontiguousarray(ar.weights,
+                                                    dtype=npd)).to(dev)
+    meta = [torch.from_numpy(np.ascontiguousarray(ar.freqs_mhz,
+                                                  dtype=npd)).to(dev)]
+    meta += [torch.tensor(v, dtype=real, device=dev)
+             for v in (ar.dm, ar.centre_freq_mhz, ar.period_s)]
+    cube = torch.from_numpy(np.ascontiguousarray(ar.total_intensity(),
+                                                 dtype=npd)).to(dev)
+    prep = loop.prepare(cube, weights, *meta, cfg, dedispersed=ar.dedispersed)
+    del cube
+    template = loop.build_template(prep, weights, rotation=cfg.rotation,
+                                   baseline_duty=cfg.baseline_duty)
+    mask = weights == 0
+    if prep.route == "dedispersed":
+        args = (prep.ded, template, prep.window, weights, mask)
+        kfn = lambda: K.cell_diagnostics_dedisp(*args)  # noqa: E731
+        pfn = lambda: K.cell_diagnostics_dedisp_plain(*args)  # noqa: E731
+        wfn = lambda: K.wres_dedisp(*args[:4])  # noqa: E731
+        name = "cell_diagnostics_dedisp"
+    else:
+        rot_t, nyq = loop._dispersed_rows(prep, template, cfg.rotation)
+        args = (prep.disp_base, rot_t, nyq, template, weights, mask)
+        kfn = lambda: K.cell_diagnostics_disp(*args)  # noqa: E731
+        pfn = lambda: K.cell_diagnostics_disp_plain(*args)  # noqa: E731
+        wfn = lambda: K.wres_disp(*args[:5])  # noqa: E731
+        name = "cell_diagnostics_disp"
+    return prep, weights, mask, name, kfn, pfn, wfn
+
+
+def l3_phase(lp_fut, mesh1, counts, clean_ms, peak_gib, dev, tag):
+    """(L3) The long-profile archive (``LONG_PROFILE_SHAPE``, built on a
+    worker process) through ``clean_archive`` on the card: the default
+    route in float32, the dedispersed frame, the default route in float64
+    (the main path), then the profile baseline (K7's FFT build) and the
+    one-rank sharded default and dedispersed cleans (K10's FFT build),
+    each counted: its route's FFT build once an iteration and no DFT
+    launch.  The float32 mask against the float64
+    one by the goldens' flip rule (at most MAX_BORDERLINE_FLIPS flips,
+    each with |score64 - 1| <= FLIP_NOISE_ENV, equal loops); the
+    dedispersed mask against the default one by the frames' contract; the
+    sharded cleans' masks and scores bit-equal to the whole cleans'.  On
+    the first iteration's operands of the default (float32 and float64)
+    and dedispersed cleans: the FFT build, K1 (default route), K3 x 2, the
+    combine and K9 held to their plain versions (:func:`l3_kernel_checks`);
+    timed: ms an iteration, the FFT build against its bound, its plain
+    version, ``torch.fft.rfft`` alone on the centred rows; peak memory.
+    Returns the kernels line's entries of the main path's FFT builds and
+    the other kernels' checks by name."""
+    import torch
+
+    import iterative_cleaner_torch.engine.loop as loop
+    from iterative_cleaner_torch import CleanConfig
+    from iterative_cleaner_torch.archive import Archive
+    from iterative_cleaner_torch.backends import (
+        clean_archive,
+        clean_archive_sharded,
+    )
+    from iterative_cleaner_torch.engine.loop import (
+        ROUTE_KERNELS,
+        SHARD_KERNELS,
+        select_route,
+        spectrum_kernels,
+        storage_kernels,
+    )
+    from iterative_cleaner_torch.stats import kernels as K
+
+    t_phase = time.perf_counter()
+    path, fields = lp_fut.result()
+    ar = Archive(data=np.load(path), **fields)
+    os.remove(path)
+    S, C, B = LONG_PROFILE_SHAPE
+    runs = {
+        "long default": (CleanConfig(), None),
+        "long dedispersed": (CleanConfig(stats_frame="dedispersed"), None),
+        "long f64": (CleanConfig(dtype="float64"), None),
+        "long profile": (CleanConfig(baseline_mode="profile"), None),
+        "long sharded 1": (CleanConfig(), mesh1),
+        "long sharded 1 (dedispersed)":
+            (CleanConfig(stats_frame="dedispersed"), mesh1),
+    }
+    res = {}
+    for key, (cfg, mesh) in runs.items():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        r = res[key] = (clean_archive(ar, cfg) if mesh is None
+                        else clean_archive_sharded(ar, cfg, mesh))
+        torch.cuda.synchronize()
+        clean_ms[key] = (time.perf_counter() - t0) * 1e3
+        counts[key] = K.launch_counts()
+        peak_gib[key] = torch.cuda.max_memory_allocated() / 2 ** 30
+        route = select_route(cfg, ar.dedispersed)
+        table = SHARD_KERNELS if mesh is not None else ROUTE_KERNELS
+        own = storage_kernels(spectrum_kernels(table[route], B, cfg.dtype),
+                              cfg.compute_dtype, cfg.dtype)
+        want = {k: (r.loops if k in own else 0) for k in counts[key]}
+        used = {k: v for k, v in counts[key].items() if v}
+        print(f"{key}: {S}x{C}x{B} ({route} route{', one NCCL rank' if mesh else ''}"
+              f", {cfg.dtype}, {cfg.compute_dtype} storage): kernels "
+              f"{json.dumps(used)}, {r.loops} loops, whole clean "
+              f"{clean_ms[key]:.1f} ms, peak device memory "
+              f"{peak_gib[key]:.2f} GiB {tag}", flush=True)
+        if counts[key] != want:
+            fail(f"{key}: launches {used}, want each of the route's kernels "
+                 f"(its FFT build in place of the DFT one) once an "
+                 f"iteration: {want}")
+        if r.final_weights.shape != (S, C) \
+                or not np.all(np.isfinite(r.scores[r.final_weights != 0])):
+            fail(f"{key}: weights or scores malformed")
+    base, r64 = res["long default"], res["long f64"]
+    flips = np.argwhere((base.final_weights == 0) != (r64.final_weights == 0))
+    wide = [(int(i), int(c)) for i, c in flips
+            if abs(float(r64.scores[i, c]) - 1.0) > FLIP_NOISE_ENV]
+    print(f"long default against long f64: {len(flips)} mask flips (limit "
+          f"{MAX_BORDERLINE_FLIPS}), {len(wide)} of them with |score64 - 1| "
+          f"> {FLIP_NOISE_ENV}; loops {base.loops} and {r64.loops} "
+          f"{tag}", flush=True)
+    if len(flips) > MAX_BORDERLINE_FLIPS or wide or base.loops != r64.loops:
+        fail("long profiles: the float32 mask breaks the flip rule against "
+             "the float64 one")
+    contract("dedispersed", base, res["long dedispersed"])
+    for key, whole in (("long sharded 1", "long default"),
+                       ("long sharded 1 (dedispersed)", "long dedispersed")):
+        got, want = res[key], res[whole]
+        n = int(((got.final_weights == 0) != (want.final_weights == 0)).sum())
+        n_bits = bits_mismatch(torch.from_numpy(got.scores),
+                               torch.from_numpy(want.scores), torch)
+        print(f"{key} against {whole}: {n} mask cells and {n_bits} scores "
+              f"differ in bits (tolerance: 0 and 0); loops {got.loops} and "
+              f"{want.loops} {tag}", flush=True)
+        if n or n_bits or got.loops != want.loops:
+            fail(f"{key}: differs from the whole clean (K10's FFT build is "
+                 f"K2's and K6's)")
+    del res
+
+    # the main path's FFT builds timed on the first iteration's operands,
+    # and its other kernels held there to their plain versions
+    entries, checks = [], {}
+    common = dict(chanthresh=CleanConfig().chanthresh,
+                  subintthresh=CleanConfig().subintthresh)
+    for key, sfx in (("long default", ""), ("long dedispersed", ""),
+                     ("long f64", "_f64")):
+        cfg = runs[key][0]
+        prep, weights, mask, name, kfn, pfn, wfn = l3_operands(ar, cfg, dev)
+        name_fft = f"{name}_fft{sfx}"
+        got, want = kfn(), pfn()
+        err = max_abs_diff_planes(got, want, torch)
+        rel, ok = plane_err(got, want, mask,
+                            F64_PLANE_RTOL if sfx else K2_RTOL, torch)
+        del want
+        # the path's other kernels on this iteration's operands: K1 on
+        # the default route's cube, K3 x 2, the combine and K9 on the FFT
+        # build's planes
+        checks_ok = l3_kernel_checks(key, prep, weights, mask, got, cfg,
+                                     sfx, checks, tag)
+        del got
+        wres = wfn()
+        centred = wres - torch.where(mask, torch.zeros_like(wres[..., 0]),
+                                     wres.mean(dim=-1))[..., None]
+        del wres
+        rfft_ms = cuda_ms(lambda: torch.fft.rfft(centred, dim=-1), 3, torch)
+        del centred
+        ms = cuda_ms(kfn, 10, torch)
+        plain_ms = cuda_ms(pfn, 2, torch)
+        it_ms = cuda_ms(lambda: loop.iteration_step(
+            prep, weights, weights, mask, rotation=cfg.rotation,
+            baseline_duty=cfg.baseline_duty, **common), 5, torch)
+        bms, bby = profiling.kernel_bounds(
+            S, C, B, cube_bytes=8 if sfx else 4)[name_fft.replace("_f64", "")]
+        entries.append({
+            "name": name_fft, "route": "cuda",
+            "source": "iterative_cleaner_torch/stats/csrc/cell_fft.cu",
+            "replaces": "iterative_cleaner_tpu/stats/masked_jax.py:155",
+            "launches": counts[key][name_fft], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bms, "bound_by": bby,
+            "library_ms": None, "rfft_ms": rfft_ms, "iteration_ms": it_ms,
+            "shape": [S, C, B], "plan": K.cell_fft_plan(
+                B, 8 if sfx else 4)._asdict(),
+            "launches_by_route": {r: c[name_fft] for r, c in counts.items()
+                                  if c.get(name_fft)}})
+        print(f"time {name_fft} ({key}, {S} x {C} x {B}): {ms:.4f} ms, bound "
+              f"{bms:.4f} ms ({bby}), plain {plain_ms:.4f} ms, torch.fft.rfft "
+              f"alone on the centred rows {rfft_ms:.4f} ms; {it_ms:.3f} ms "
+              f"per iteration (device, resident cube); against its plain "
+              f"version {rel:.2e} of each plane's scale: "
+              f"{'ok' if ok else 'FAIL'}; whole clean {clean_ms[key]:.1f} ms, "
+              f"peak device memory {peak_gib[key]:.2f} GiB {tag}", flush=True)
+        if not ok:
+            fail(f"{key}: the FFT build disagrees with its plain version at "
+                 f"full width")
+        if not checks_ok:
+            fail(f"{key}: K1, K3, the combine or K9 disagrees with its plain "
+                 f"version on the first iteration's operands at full width")
+        del prep, weights, mask, kfn, pfn, wfn
+        torch.cuda.empty_cache()
+    del ar
+    print(f"phase L3, the long-profile archive: "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return entries, checks
+
+
+def l3_kernel_checks(key, prep, weights, mask, diags, cfg, sfx, checks,
+                     tag):
+    """K1 (default route: its plain version within K1_RTOL, F64_K1_RTOL in
+    float64, of sum|w*disp|), K3 along both axes, the combine and K9 (on
+    the telemetry's line, as ``residual_std`` takes it) on the
+    first iteration's operands of the long-profile run ``key``, each
+    bit-equal to its plain version.  Records each kernel's largest error
+    in ``checks`` (by its counter name) and returns whether all held."""
+    import torch
+
+    from iterative_cleaner_torch.stats import kernels as K
+
+    shape = list(weights.shape)
+    results = {}
+    if prep.route == "default":
+        err, ok = check_k1(prep.disp_base, weights,
+                           f" ({key}, {tuple(prep.disp_base.shape)})",
+                           F64_K1_RTOL if sfx else K1_RTOL)
+        results["weighted_marginals"] = (err, ok, list(prep.disp_base.shape))
+    sides = {}
+    for axis, thresh in ((0, cfg.chanthresh), (1, cfg.subintthresh)):
+        got = sides[axis] = K.scaled_sides(diags, mask, axis, thresh)
+        want = K.scaled_sides_plain(diags, mask, axis, thresh)
+        bad = sum(bits_mismatch(g, w, torch) for g, w in zip(got, want))
+        results[f"scaled_sides_axis{axis}"] = (
+            max(max_abs_diff(g, w, torch) for g, w in zip(got, want)),
+            bad == 0, shape)
+    new_w, scores = K.combine_zap(sides[0], sides[1], weights)
+    pw, ps = K.combine_zap_plain(sides[0], sides[1], weights)
+    bad = bits_mismatch(scores, ps, torch) + bits_mismatch(new_w, pw, torch)
+    results["combine_zap"] = (max_abs_diff(scores, ps, torch), bad == 0,
+                              shape)
+    line_v, line_m = diags[0].reshape(1, -1), mask.reshape(1, -1)
+    bad9 = bits_mismatch(K.masked_median(line_v, line_m, 1),
+                         K.masked_median_keys(line_v, line_m, 1)[0], torch)
+    results["masked_median"] = (0.0 if bad9 == 0 else float("inf"),
+                                bad9 == 0, list(line_v.shape))
+    all_ok = True
+    for name, (err, ok, at) in results.items():
+        all_ok &= ok
+        rec = checks.setdefault(name + sfx, {"max_abs_err": 0.0, "runs": {}})
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        rec["runs"][key] = {"shape": at, "max_abs_err": err, "ok": ok}
+    print(f"L3 {key}: the path's kernels against their plain versions on "
+          f"the first iteration's operands "
+          + ", ".join(f"{n} {e:.3e} {'ok' if ok else 'FAIL'}"
+                      for n, (e, ok, _) in results.items())
+          + f" (tolerance: K1 {F64_K1_RTOL if sfx else K1_RTOL:g} of "
+          f"sum|w*disp|, the others bit-equal) {tag}", flush=True)
+    return all_ok
+
+
+def long_profile_entries(l1, l3, counts):
+    """The kernels line's rows of the FFT builds: the main path's (L3,
+    timed at full width) and the others' (timed at L1's cluster shape),
+    each with its launches on the long-profile runs."""
+    rows = {e["name"]: e for e in l3}
+    for name, r in l1.items():
+        if name in rows:
+            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"],
+                                            r["max_abs_err"])
+            continue
+        launches = sum(c.get(name, 0) for k, c in counts.items()
+                       if k.startswith("long "))
+        if not launches or "ms" not in r:
+            continue
+        rows[name] = {
+            "name": name, "route": "cuda",
+            "source": "iterative_cleaner_torch/stats/csrc/cell_fft.cu",
+            "replaces": "iterative_cleaner_tpu/stats/masked_jax.py:155",
+            "launches": launches, "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None, "shape": r["shape"],
+            "launches_by_route": {k: c[name] for k, c in counts.items()
+                                  if c.get(name)}}
+    return list(rows.values())
+
+
 def main() -> int:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args()
 
@@ -5375,6 +5969,10 @@ def main() -> int:
     sp_dir = tempfile.mkdtemp(prefix="icln_chip_smoke_single_pulse_")
     atexit.register(shutil.rmtree, sp_dir, True)
     sp_fut = archive_pool.submit(build_single_pulse, sp_dir)
+    # and the long-profile archive of phase L3, after it
+    lp_dir = tempfile.mkdtemp(prefix="icln_chip_smoke_long_profile_")
+    atexit.register(shutil.rmtree, lp_dir, True)
+    lp_fut = archive_pool.submit(build_long_profile, lp_dir)
     # and the fleet phases' PSRFITS files, on a worker of their own
     fleet_pool = ProcessPoolExecutor(
         max_workers=1, mp_context=multiprocessing.get_context("spawn"))
@@ -5813,6 +6411,17 @@ def main() -> int:
     # the tail kernels timed at its planes
     long_entries = single_pulse_phase(sp_fut, dev, counts, clean_ms,
                                       peak_gib, tag)
+    # ---- 3r. long profiles past the DFT tables (csrc/cell_fft.cu, the FFT
+    # build): (L1) every entry against its plain version in three dtypes,
+    # one block and a cluster a cell, a batch; (L2) the DFT route and the
+    # FFT build on the same inputs at 8192 and 16,384 bins; (L3) the
+    # 32 x 256 x 65536 archive through clean_archive (default, dedispersed,
+    # float64; profile, sharded), counted, held to the flip rule, every
+    # kernel of the path held to its plain version at that width, timed
+    fft_l1 = l1_phase(dev, tag)
+    fft_l2 = l2_phase(dev, tag)
+    fft_l3, l3_checks = l3_phase(lp_fut, mesh1, counts, clean_ms, peak_gib,
+                                 dev, tag)
     archive_pool.shutdown()
 
     # ---- 4. each kernel against its plain version, at its route's
@@ -6202,7 +6811,16 @@ def main() -> int:
               f"{tag}", flush=True)
     kernels.extend(long_entries)
     kernels.extend(f64_kernels)
+    fft_rows = long_profile_entries(fft_l1, fft_l3, counts)
+    fft_rows[0]["crossover"] = fft_l2
+    kernels.extend(fft_rows)
     for k in kernels:
+        # the path's kernels held to their plain versions on the
+        # long-profile archive's first iteration, (L3)
+        if k["name"] in l3_checks:
+            k["long_profile"] = l3_checks[k["name"]]
+            k["max_abs_err"] = max(k["max_abs_err"],
+                                   l3_checks[k["name"]]["max_abs_err"])
         # the online step's kernels at its shapes, (o3)
         if k["name"] in online_times:
             k["online"] = online_times[k["name"]]

@@ -111,6 +111,7 @@ from iterative_cleaner_torch.ops.psrchive_baseline import (
 )
 from iterative_cleaner_torch.stats.kernels import (
     cell_diagnostics_dedisp,
+    cell_stats_route,
     cell_diagnostics_disp,
     cell_diagnostics_two_read,
     combine_zap,
@@ -151,11 +152,31 @@ SHARD_KERNELS = {
     "two_read": ROUTE_KERNELS["two_read"],
     "dedispersed": ("shard_diagnostics_dedisp", "combine_zap"),
 }
+# Past the DFT tables (stats.kernels.cell_stats_route "fft": more than
+# 16,384 bins, 8,192 in float64) every route's cell-diagnostics kernel
+# runs its FFT build (csrc/cell_fft.cu), counted as ``<name>_fft`` in its
+# place (:func:`spectrum_kernels`).
+FFT_KERNELS = {k: k + "_fft" for k in (
+    "cell_diagnostics_disp", "cell_diagnostics_two_read",
+    "cell_diagnostics_dedisp", "shard_diagnostics_disp",
+    "shard_diagnostics_dedisp")}
 # The kernels that read the cube, each with a build for a bf16-stored
 # cube counted apart (``<name>_bf16`` in stats.kernels.launch_counts).
 CUBE_KERNELS = ("weighted_marginals", "cell_diagnostics_disp",
                 "cell_diagnostics_two_read", "cell_diagnostics_dedisp",
-                "shard_diagnostics_disp", "shard_diagnostics_dedisp")
+                "shard_diagnostics_disp", "shard_diagnostics_dedisp",
+                *FFT_KERNELS.values())
+
+
+def spectrum_kernels(kernels, nbin: int, dtype: str = "float32") -> tuple:
+    """The launch-count names ``kernels`` (of :data:`ROUTE_KERNELS` and
+    the others) run under at ``nbin`` bins: each cell-diagnostics kernel
+    under its FFT build's name (:data:`FFT_KERNELS`) where
+    ``stats.kernels.cell_stats_route`` takes the profiles past the DFT
+    tables (``dtype`` ``"float64"``: the float64 limit)."""
+    if cell_stats_route(nbin, 8 if dtype == "float64" else 4) == "dft":
+        return tuple(kernels)
+    return tuple(FFT_KERNELS.get(k, k) for k in kernels)
 
 
 def storage_kernels(kernels, compute_dtype: str,

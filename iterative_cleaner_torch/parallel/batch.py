@@ -321,6 +321,7 @@ def warm_bucket(config: CleanConfig, nsub: int, nchan: int, nbin: int,
     from iterative_cleaner_torch.engine.loop import (
         ROUTE_KERNELS,
         select_route,
+        spectrum_kernels,
     )
     from iterative_cleaner_torch.stats import kernels
     from iterative_cleaner_torch.telemetry import profiling
@@ -347,9 +348,10 @@ def warm_bucket(config: CleanConfig, nsub: int, nchan: int, nbin: int,
             bucket_program(config, nsub, nchan, nbin, dedispersed,
                            batch_dim),
             profiling.program_costs(
-                ROUTE_KERNELS[select_route(config, dedispersed)], nsub,
-                nchan, nbin, cube_bytes=_cube_bytes(config),
-                batch=batch_dim),
+                spectrum_kernels(
+                    ROUTE_KERNELS[select_route(config, dedispersed)], nbin,
+                    config.dtype), nsub, nchan, nbin,
+                cube_bytes=_cube_bytes(config), batch=batch_dim),
             registry=registry, compile_s=warm_s, dtype=config.dtype)
         if registry is not None:
             from iterative_cleaner_torch.telemetry.registry import SECONDS

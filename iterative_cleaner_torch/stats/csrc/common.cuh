@@ -16,6 +16,14 @@
 #include <type_traits>
 #include <cuda_runtime.h>
 
+// a refused call's error, taken off the runtime's last-error state so
+// that the next launch's check does not report it again (the cluster
+// kernels' launches)
+static inline cudaError_t icln_take_error(cudaError_t err) {
+  cudaGetLastError();
+  return err;
+}
+
 #define ICLN_KEY_MASKED 0x7F800000  // key of +inf: the masked sentinel
 #define ICLN_KEY64_MASKED 0x7FF0000000000000LL  // key of +inf as a double
 

@@ -68,13 +68,6 @@ namespace cg = cooperative_groups;
 
 #define ICLN_CLUSTER_MAX 8   // portable cluster size
 
-// a refused call's error, taken off the runtime's last-error state so
-// that the next launch's check does not report it again
-static cudaError_t icln_take_error(cudaError_t err) {
-  cudaGetLastError();
-  return err;
-}
-
 // common.cuh's block select over this block's slice of M lines (sn keys
 // of each, line m at keys + m * ls), the counts of every block of the
 // cluster summed into the leader's (rank 0's) bins.  Call with st.nv set

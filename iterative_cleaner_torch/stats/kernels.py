@@ -36,6 +36,10 @@ K9     :func:`masked_median`              ``masked_median_pallas``
 K10    :func:`shard_diagnostics_disp`,    ``sweep_shard_diags_disp``,
        :func:`shard_diagnostics_dedisp`   ``sweep_shard_diags_dedisp``
        (csrc/shard_stats.cu)              (the cell-sharded clean's shard)
+K2f    K2's, K6's, K7's, K10's wrappers  no Pallas kernel: the reference's
+       (csrc/cell_fft.cu)                 XLA route past 4096 bins
+                                          (``masked_jax.cell_diagnostics_jax``
+                                          with ``jnp.fft.rfft``)
 tail   :func:`side_centre`,               ``_scaled_sides_body``'s centring
        :func:`side_scale`                 and side on lines too long for a
        (csrc/sides_tail.cu)               cluster (:func:`scaled_sides_long`,
@@ -75,6 +79,18 @@ takes the B archives' lines as B lines.  The batch moves only the index:
 each archive's outputs are bit-equal to the same kernel launched on that
 archive alone.  The plain versions take the batch too, one archive at a
 time.
+
+The cell diagnostics (K2, K6, K7 and K10) take one of two builds by the
+profile's length, with no knob (:func:`cell_stats_route`): up to
+``MAX_NBIN`` bins (``MAX_NBIN_F64`` in float64) the DFT kernels of
+``cell_stats.cuh``; past it the FFT build K2f (``cell_fft.cu``: one block
+or one thread-block cluster a cell, the spectrum by an rFFT in shared
+memory), counted apart under the same wrapper (``launches_fft``,
+``launches_fft_bf16``, ``launches_fft_f64``; ``<name>_fft``,
+``<name>_fft_bf16`` and ``<name>_fft_f64`` in :func:`launch_counts`).
+Their plain versions take the DFT or ``torch.fft`` by the same rule.
+:func:`cell_fft_disp` runs K2's FFT build at any length it takes (to
+hold it against K2 where both routes take the shape).
 
 float64 (``CleanConfig(dtype="float64")``, the reference's oracle-parity
 mode) has builds of K1, K2, K6, K7, K3 (block and cluster), the combine,
@@ -129,32 +145,35 @@ CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = _PKG_DIR / "_build"
 SOURCES = ("marginals.cu", "cell_stats.cu", "shard_stats.cu",
            "scaled_sides.cu", "combine.cu", "masked_median.cu",
-           "sides_tail.cu", "sides_cluster.cu")
+           "sides_tail.cu", "sides_cluster.cu", "cell_fft.cu")
 # -fmad=false: no contraction of a*b+c, so the kernels round as the
 # reference does; no fast-math; sm_90a (Hopper).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-fmad=false", "-std=c++17", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-# Longest profile the cube kernels take: their DFT tables, nbin x
-# (nbin/2 + 1) x 8 bytes, are 1.07 GB on the card at 16384 bins (and
-# the plain version's as much on the host).  Longer profiles wait for
-# the rFFT route.  float64 tables take twice the bytes (2.15 GB at 16384
-# bins) and a float64 block's two centred rows of 16384 bins (256 KB) do
-# not fit its shared memory: float64 profiles stop at 8192 bins (0.54 GB
-# of tables).
+# Where the DFT route of the cell diagnostics ends and the FFT build
+# begins (cell_stats_route): the DFT tables, nbin x (nbin/2 + 1) x 8
+# bytes, are 1.07 GB on the card at 16384 bins, and a float64 block's two
+# centred rows of 16384 bins (256 KB) do not fit its shared memory, so
+# float64 profiles leave the DFT route past 8192 bins (0.54 GB of
+# tables).  Longer profiles take the FFT build (cell_fft.cu), which needs
+# no tables; K1 tiles the bins and takes any length.
 MAX_NBIN = 16384
 MAX_NBIN_F64 = 8192
 _SMEM_LIMIT = 232448    # dynamic shared memory one Hopper block may use
+_ITEM9 = "ROADMAP item 9, long-profile spectra"
 
 
 def _check_nbin(nbin: int, realsize: int = 4) -> None:
+    """The DFT plan's refusal past its limit (the wrappers route such
+    profiles to the FFT build first)."""
     limit = MAX_NBIN_F64 if realsize == 8 else MAX_NBIN
     if nbin > limit:
         what = "float64 " if realsize == 8 else ""
         raise NotImplementedError(
-            f"nbin {nbin} > {limit} for {what}profiles: longer profiles "
-            f"need the rFFT route (ROADMAP item 9, long-profile spectra)")
+            f"nbin {nbin} > {limit}: past the DFT route for {what}profiles "
+            f"(cell_stats_route takes them to the FFT build; {_ITEM9})")
 
 
 _LIB = None
@@ -270,6 +289,16 @@ _SIGNATURES = {
     + [_LL, _D, _I, _P],
     "icln_shard_stats_dedisp": [_P] * 12 + [_LL] * 2 + [_I] * 10
     + [_LL, _D, _I, _P],
+    "icln_cell_fft_disp": [_P] * 11 + [_LL] * 2 + [_I] * 5
+    + [_LL, _D, _I, _P],
+    "icln_cell_fft_two_read": [_P] * 12 + [_LL] * 2 + [_I] * 5
+    + [_LL, _D, _I, _P],
+    "icln_cell_fft_dedisp": [_P] * 11 + [_LL] * 2 + [_I] * 5
+    + [_LL, _D, _I, _P],
+    "icln_shard_fft_disp": [_P] * 11 + [_LL] * 2 + [_I] * 5
+    + [_LL, _D, _I, _P],
+    "icln_shard_fft_dedisp": [_P] * 11 + [_LL] * 2 + [_I] * 5
+    + [_LL, _D, _I, _P],
     "icln_scaled_sides": [_P] * 9 + [_I, _I, _LL, _LL, _LL, _LL, _D, _I, _I,
                                      _I, _LL, _I, _P],
     "icln_combine_zap": [_P] * 11 + [_LL, _I, _P],
@@ -375,16 +404,18 @@ def _ptr(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
-def _count(fn, t) -> None:
+def _count(fn, t, route: str = "dft") -> None:
     """One launch of kernel ``fn``, counted by the dtype of ``t`` (the
     cube, or the planes): ``fn.launches`` (float32), ``fn.launches_bf16``
-    or ``fn.launches_f64``."""
+    or ``fn.launches_f64``; a cell-diagnostics wrapper's FFT build
+    (``route`` ``"fft"``) under ``fn.launches_fft`` and its bf16 and
+    float64 siblings."""
+    name = "launches_fft" if route == "fft" else "launches"
     if t.dtype == torch.bfloat16:
-        fn.launches_bf16 += 1
+        name += "_bf16"
     elif t.dtype == torch.float64:
-        fn.launches_f64 += 1
-    else:
-        fn.launches += 1
+        name += "_f64"
+    setattr(fn, name, getattr(fn, name) + 1)
 
 
 def _stack_each(fn, nb: int, *args):
@@ -430,7 +461,6 @@ def marginals_tiles(nsub: int, nchan: int, nbin: int,
     for a float64 one, whose weights and sums are float64 too and whose
     ring has two stages)."""
     realsize = 8 if itemsize == 8 else 4
-    _check_nbin(nbin, realsize)
     bb = nbin if nbin <= 256 else 256
     lanes = 1 << (bb - 1).bit_length()
     cb = MARGINALS_THREADS // lanes * MARGINALS_CHANNELS_PER_THREAD
@@ -658,20 +688,45 @@ def _sm_count(device: str) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def cell_stats_route(nbin: int, itemsize: int = 4) -> str:
+    """Which build of the cell diagnostics (K2, K6, K7, K10) takes
+    profiles of ``nbin`` bins of a cube of ``itemsize``-byte elements (8:
+    float64; 4 and 2, float32 and bf16, share the float32 limits):
+    ``"dft"`` (``cell_stats.cuh``, the DFT tables) up to MAX_NBIN
+    (MAX_NBIN_F64 in float64), ``"fft"`` (the FFT build, ``cell_fft.cu``)
+    above.  A function of the shape alone; NotImplementedError naming
+    ROADMAP item 9 where the FFT build does not take ``nbin`` either
+    (:func:`cell_fft_plan`), before anything is launched."""
+    limit = MAX_NBIN_F64 if itemsize == 8 else MAX_NBIN
+    if nbin <= limit:
+        return "dft"
+    cell_fft_plan(nbin, itemsize)
+    return "fft"
+
+
+def _cube_itemsize(cube) -> int:
+    """The element bytes the cell-diagnostics route is chosen by: 8 for
+    a float64 cube, 4 for float32 and bf16 (which compute in float32)."""
+    return 8 if cube.dtype == torch.float64 else 4
+
+
 def cell_diagnostics_disp_plain(disp, rot_t, nyq_row, template, weights,
-                                cell_mask):
+                                cell_mask, spectrum=None):
     """The plain version of K2: :func:`wres_disp` of the cube as it
     computes (:func:`upcast_stored`), then :func:`~iterative_cleaner_torch.
-    stats.masked_torch.cell_diagnostics` with the DFT (per archive of a
-    batch)."""
+    stats.masked_torch.cell_diagnostics` (per archive of a batch), the
+    spectrum by the DFT or ``torch.fft`` as :func:`cell_stats_route`
+    routes the shape (``spectrum`` ``"dft"`` or ``"fft"`` fixes it)."""
     disp = upcast_stored(disp)
+    spectrum = spectrum or cell_stats_route(disp.shape[-1],
+                                            _cube_itemsize(disp))
     if disp.dim() == 4:
-        return _stack_each(cell_diagnostics_disp_plain, disp.shape[0],
-                           (disp, True), (rot_t, True), (nyq_row, True),
-                           (template, True), (weights, True),
-                           (cell_mask, True))
+        return _stack_each(
+            lambda *a: cell_diagnostics_disp_plain(*a, spectrum=spectrum),
+            disp.shape[0], (disp, True), (rot_t, True), (nyq_row, True),
+            (template, True), (weights, True), (cell_mask, True))
     wres = wres_disp(disp, rot_t, nyq_row, template, weights)
-    return cell_diagnostics(wres, cell_mask, "dft")
+    return cell_diagnostics(wres, cell_mask, spectrum)
 
 
 def _plain_into(planes, out):
@@ -685,24 +740,44 @@ def _plain_into(planes, out):
     return tuple(out)
 
 
+def _inv_n(nbin: int, real) -> float:
+    """1/nbin as the kernels multiply by it: float32(1/nbin) for float32
+    arithmetic, 1/nbin for float64."""
+    return 1.0 / nbin if real == torch.float64 \
+        else float(np.float32(1.0 / nbin))
+
+
+# the FFT build's entry beside each DFT entry (cell_fft.cu)
+_FFT_ENTRIES = {"icln_cell_stats_disp": "icln_cell_fft_disp",
+                "icln_cell_stats_two_read": "icln_cell_fft_two_read",
+                "icln_cell_stats_dedisp": "icln_cell_fft_dedisp",
+                "icln_shard_stats_disp": "icln_shard_fft_disp",
+                "icln_shard_stats_dedisp": "icln_shard_fft_dedisp"}
+
+
 def _launch_cell_stats(entry, cube, template, weights, cell_mask, cubes,
-                       chan_rows, bin_rows, ptrs, out=None):
+                       chan_rows, bin_rows, ptrs, out=None, route=None):
     """Check and launch one of the cell-diagnostics kernels (K2, K6, K7
-    and K10 share ``cell_stats.cuh``'s kernel and launch plan).
-    ``cubes``, ``chan_rows`` and ``bin_rows`` are ``(name, tensor)``
-    pairs checked as (nsub, nchan, nbin) cubes, (nchan, nbin) rows and
-    (nbin,) rows; ``ptrs`` are the entry's leading pointer arguments in
-    order.  A batch (K2, K6, K7) has a leading dimension B on the cubes,
-    the channel rows, the template, the weights and the mask (not on
-    ``bin_rows``: the pulse window is shared) and is one launch over its
-    B * nsub * nchan cells.  The cubes are all float32, all bf16-stored
-    or all float64 (every other float operand float64 then, else
-    float32).  ``out`` is an optional 4-tuple of contiguous planes of the
-    weights' shape the kernel writes (a tile's rows of the full planes).
-    Returns the entry's return code and the four planes."""
+    and K10 share ``cell_stats.cuh``'s kernel and launch plan, and
+    ``cell_fft.cu``'s past the DFT tables).  ``entry`` names the DFT
+    entry; ``route`` (``"dft"`` or ``"fft"``, else
+    :func:`cell_stats_route` of the shape, which refuses before any
+    launch) picks the build.  ``cubes``, ``chan_rows`` and ``bin_rows``
+    are ``(name, tensor)`` pairs checked as (nsub, nchan, nbin) cubes,
+    (nchan, nbin) rows and (nbin,) rows; ``ptrs`` are the entry's leading
+    pointer arguments in order.  A batch (K2, K6, K7) has a leading
+    dimension B on the cubes, the channel rows, the template, the weights
+    and the mask (not on ``bin_rows``: the pulse window is shared) and is
+    one launch over its B * nsub * nchan cells.  The cubes are all
+    float32, all bf16-stored or all float64 (every other float operand
+    float64 then, else float32).  ``out`` is an optional 4-tuple of
+    contiguous planes of the weights' shape the kernel writes (a tile's
+    rows of the full planes).  Returns the entry's return code, the four
+    planes and the route taken."""
     batched = cube.dim() == 4
     lead = cube.shape[:1] if batched else ()
     nsub, nchan, nbin = cube.shape[-3:]
+    route = route or cell_stats_route(nbin, _cube_itemsize(cube))
     for name, t in cubes:
         _require(t, name, cube.dtype if cube.dtype in CUBE_DTYPES
                  else CUBE_DTYPES, lead + (nsub, nchan, nbin))
@@ -714,9 +789,6 @@ def _launch_cell_stats(entry, cube, template, weights, cell_mask, cubes,
     _require(template, "template", real, lead + (nbin,))
     _require(weights, "weights", real, lead + (nsub, nchan))
     _require(cell_mask, "cell_mask", torch.bool, lead + (nsub, nchan))
-    plan = cell_stats_geometry(nbin, cube.element_size())
-    info = tt_info(template)
-    cos_t, sin_t = _dft_tables_padded(nbin, plan.nkp, str(cube.device), real)
     if out is None:
         outs = [torch.empty(lead + (nsub, nchan), dtype=real,
                             device=cube.device) for _ in range(4)]
@@ -727,44 +799,83 @@ def _launch_cell_stats(entry, cube, template, weights, cell_mask, cubes,
                 raise ValueError(f"out[{i}] on {o.device}, cube on "
                                  f"{cube.device}")
             _require(o, f"out[{i}]", real, lead + (nsub, nchan))
+    info = tt_info(template)
     cpa = nsub * nchan
     ncells = weights.numel()
+    if route == "fft":
+        plan = cell_fft_plan(nbin, _cube_itemsize(cube))
+        tw = _fft_twiddles(nbin, str(cube.device), real)
+        fn = getattr(load_library(), _FFT_ENTRIES[entry])
+        with torch.cuda.device(cube.device):
+            rc = fn(*ptrs, _ptr(tw), _ptr(info), *(_ptr(o) for o in outs),
+                    ncells, cpa, nchan, nbin, plan.cluster, plan.odd,
+                    plan.threads, plan.smem, _inv_n(nbin, real),
+                    _KIND[cube.dtype], _stream(cube))
+        return rc, tuple(outs), route
+    plan = cell_stats_geometry(nbin, cube.element_size())
+    cos_t, sin_t = _dft_tables_padded(nbin, plan.nkp, str(cube.device), real)
     per_sm = max(1, min(2048 // plan.threads,
                         (_SMEM_LIMIT + 1024) // (plan.smem + 1024)))
     grid = max(1, min(-(-ncells // plan.group),
                       per_sm * _sm_count(str(cube.device))))
-    inv_n = 1.0 / nbin if real == torch.float64 \
-        else float(np.float32(1.0 / nbin))
     fn = getattr(load_library(), entry)
     with torch.cuda.device(cube.device):
         rc = fn(*ptrs, _ptr(cos_t), _ptr(sin_t), _ptr(info),
                 *(_ptr(o) for o in outs), ncells, cpa, nchan, nbin,
                 plan.group, plan.ctile, plan.kchunk, plan.bchunk, plan.nkp,
-                plan.producers, plan.threads, grid, plan.smem, inv_n,
-                _KIND[cube.dtype], _stream(cube))
-    return rc, tuple(outs)
+                plan.producers, plan.threads, grid, plan.smem,
+                _inv_n(nbin, real), _KIND[cube.dtype], _stream(cube))
+    return rc, tuple(outs), route
+
+
+def _counted(fn, cube, entry, route, *args):
+    """:func:`_launch_cell_stats` of ``entry`` on ``args`` (its arguments
+    after ``entry``), counted on the wrapper ``fn`` by the route taken;
+    raises on a failed launch."""
+    rc, outs, route = _launch_cell_stats(entry, *args, route=route)
+    _count(fn, cube, route)
+    _check_rc(rc, f"{fn.__name__} ({route} build)")
+    return outs
+
+
+def _disp_args(disp, rot_t, nyq_row, template, weights, cell_mask, out):
+    """:func:`_launch_cell_stats`'s arguments for K2's residual."""
+    rows = [("rot_t", rot_t)] + ([] if nyq_row is None
+                                 else [("nyq_row", nyq_row)])
+    return (disp, template, weights, cell_mask, [("disp", disp)], rows, [],
+            [_ptr(disp), _ptr(rot_t),
+             None if nyq_row is None else _ptr(nyq_row), _ptr(weights),
+             _ptr(cell_mask)], out)
 
 
 def cell_diagnostics_disp(disp, rot_t, nyq_row, template, weights,
                           cell_mask, out=None):
     """``(d_std, d_mean, d_ptp, d_fft)`` of the dispersed-frame weighted
-    residual — kernel K2 on the card, :func:`cell_diagnostics_disp_plain`
-    on the CPU.  ``nyq_row`` is None where the rotation round-trips
-    exactly (roll, odd nbin); a batch and ``out`` as in
+    residual — kernel K2 on the card (its FFT build past the DFT tables,
+    :func:`cell_stats_route`), :func:`cell_diagnostics_disp_plain` on the
+    CPU.  ``nyq_row`` is None where the rotation round-trips exactly
+    (roll, odd nbin); a batch and ``out`` as in
     :func:`_launch_cell_stats`."""
     if not _on_card(disp, rot_t, template, weights, cell_mask):
         return _plain_into(cell_diagnostics_disp_plain(
             disp, rot_t, nyq_row, template, weights, cell_mask), out)
-    rows = [("rot_t", rot_t)] + ([] if nyq_row is None
-                                 else [("nyq_row", nyq_row)])
-    rc, outs = _launch_cell_stats(
-        "icln_cell_stats_disp", disp, template, weights, cell_mask,
-        [("disp", disp)], rows, [],
-        [_ptr(disp), _ptr(rot_t), None if nyq_row is None else _ptr(nyq_row),
-         _ptr(weights), _ptr(cell_mask)], out)
-    _count(cell_diagnostics_disp, disp)
-    _check_rc(rc, "cell_diagnostics_disp")
-    return outs
+    return _counted(cell_diagnostics_disp, disp, "icln_cell_stats_disp", None,
+                    *_disp_args(disp, rot_t, nyq_row, template, weights,
+                                cell_mask, out))
+
+
+def cell_fft_disp(disp, rot_t, nyq_row, template, weights, cell_mask,
+                  out=None):
+    """:func:`cell_diagnostics_disp` by its FFT build at any length the
+    build takes (:func:`cell_fft_plan`; counted as
+    ``cell_diagnostics_disp.launches_fft``), the plain version with
+    ``torch.fft`` on the CPU."""
+    if not _on_card(disp, rot_t, template, weights, cell_mask):
+        return _plain_into(cell_diagnostics_disp_plain(
+            disp, rot_t, nyq_row, template, weights, cell_mask, "fft"), out)
+    return _counted(cell_diagnostics_disp, disp, "icln_cell_stats_disp",
+                    "fft", *_disp_args(disp, rot_t, nyq_row, template,
+                                       weights, cell_mask, out))
 
 
 cell_diagnostics_disp.launches = 0
@@ -790,36 +901,43 @@ def cell_diagnostics_two_read_plain(ded, disp_base, rot_t, template,
                                     weights, cell_mask):
     """The plain version of K7: :func:`wres_two_read`, then
     :func:`~iterative_cleaner_torch.stats.masked_torch.cell_diagnostics`
-    with the DFT (per archive of a batch), the cubes read as they compute
-    (:func:`upcast_stored`)."""
+    (per archive of a batch), the cubes read as they compute
+    (:func:`upcast_stored`), the spectrum by the DFT or ``torch.fft`` as
+    :func:`cell_stats_route` routes the shape."""
     ded, disp_base = upcast_stored(ded), upcast_stored(disp_base)
     if ded.dim() == 4:
-        return _stack_each(cell_diagnostics_two_read_plain, ded.shape[0],
-                           (ded, True), (disp_base, True), (rot_t, True),
-                           (template, True), (weights, True),
-                           (cell_mask, True))
+        return _stack_each(
+            cell_diagnostics_two_read_plain, ded.shape[0], (ded, True),
+            (disp_base, True), (rot_t, True), (template, True),
+            (weights, True), (cell_mask, True))
     wres = wres_two_read(ded, disp_base, rot_t, template, weights)
-    return cell_diagnostics(wres, cell_mask, "dft")
+    return cell_diagnostics(wres, cell_mask, cell_stats_route(
+        ded.shape[-1], _cube_itemsize(ded)))
+
+
+def _two_read_args(ded, disp_base, rot_t, template, weights, cell_mask,
+                   out):
+    """:func:`_launch_cell_stats`'s arguments for K7's residual."""
+    return (ded, template, weights, cell_mask,
+            [("ded", ded), ("disp_base", disp_base)], [("rot_t", rot_t)],
+            [], [_ptr(ded), _ptr(disp_base), _ptr(rot_t), _ptr(template),
+                 _ptr(weights), _ptr(cell_mask)], out)
 
 
 def cell_diagnostics_two_read(ded, disp_base, rot_t, template, weights,
                               cell_mask, out=None):
     """``(d_std, d_mean, d_ptp, d_fft)`` of the two-read weighted
-    residual — kernel K7 on the card,
+    residual — kernel K7 on the card (its FFT build past the DFT tables),
     :func:`cell_diagnostics_two_read_plain` on the CPU.  ``rot_t`` is the
     rotation of the WINDOWED template, ``template`` the unwindowed one
     the fit uses; a batch and ``out`` as in :func:`_launch_cell_stats`."""
     if not _on_card(ded, disp_base, rot_t, template, weights, cell_mask):
         return _plain_into(cell_diagnostics_two_read_plain(
             ded, disp_base, rot_t, template, weights, cell_mask), out)
-    rc, outs = _launch_cell_stats(
-        "icln_cell_stats_two_read", ded, template, weights, cell_mask,
-        [("ded", ded), ("disp_base", disp_base)], [("rot_t", rot_t)], [],
-        [_ptr(ded), _ptr(disp_base), _ptr(rot_t), _ptr(template),
-         _ptr(weights), _ptr(cell_mask)], out)
-    _count(cell_diagnostics_two_read, ded)
-    _check_rc(rc, "cell_diagnostics_two_read")
-    return outs
+    return _counted(cell_diagnostics_two_read, ded,
+                    "icln_cell_stats_two_read", None,
+                    *_two_read_args(ded, disp_base, rot_t, template, weights,
+                                    cell_mask, out))
 
 
 cell_diagnostics_two_read.launches = 0
@@ -843,36 +961,41 @@ def cell_diagnostics_dedisp_plain(ded, template, window, weights,
                                   cell_mask):
     """The plain version of K6: :func:`wres_dedisp`, then
     :func:`~iterative_cleaner_torch.stats.masked_torch.cell_diagnostics`
-    with the DFT (per archive of a batch; the window shared), the cube
-    read as it computes (:func:`upcast_stored`)."""
+    (per archive of a batch; the window shared), the cube read as it
+    computes (:func:`upcast_stored`), the spectrum as
+    :func:`cell_diagnostics_two_read_plain` takes it."""
     ded = upcast_stored(ded)
     if ded.dim() == 4:
-        return _stack_each(cell_diagnostics_dedisp_plain, ded.shape[0],
-                           (ded, True), (template, True), (window, False),
-                           (weights, True), (cell_mask, True))
+        return _stack_each(
+            cell_diagnostics_dedisp_plain, ded.shape[0], (ded, True),
+            (template, True), (window, False), (weights, True),
+            (cell_mask, True))
     wres = wres_dedisp(ded, template, window, weights)
-    return cell_diagnostics(wres, cell_mask, "dft")
+    return cell_diagnostics(wres, cell_mask, cell_stats_route(
+        ded.shape[-1], _cube_itemsize(ded)))
+
+
+def _dedisp_args(ded, template, window, weights, cell_mask, out):
+    """:func:`_launch_cell_stats`'s arguments for K6's residual."""
+    return (ded, template, weights, cell_mask, [("ded", ded)], [],
+            [("window", window)], [_ptr(ded), _ptr(template), _ptr(window),
+                                   _ptr(weights), _ptr(cell_mask)], out)
 
 
 def cell_diagnostics_dedisp(ded, template, window, weights, cell_mask,
                             out=None):
     """``(d_std, d_mean, d_ptp, d_fft)`` of the dedispersed-frame
-    weighted residual — kernel K6 on the card,
-    :func:`cell_diagnostics_dedisp_plain` on the CPU.  ``window`` is the
-    (nbin,) pulse-window multiplier (all ones when the window is off),
-    shared by a batch; a batch and ``out`` as in
+    weighted residual — kernel K6 on the card (its FFT build past the DFT
+    tables), :func:`cell_diagnostics_dedisp_plain` on the CPU.
+    ``window`` is the (nbin,) pulse-window multiplier (all ones when the
+    window is off), shared by a batch; a batch and ``out`` as in
     :func:`_launch_cell_stats`."""
     if not _on_card(ded, template, window, weights, cell_mask):
         return _plain_into(cell_diagnostics_dedisp_plain(
             ded, template, window, weights, cell_mask), out)
-    rc, outs = _launch_cell_stats(
-        "icln_cell_stats_dedisp", ded, template, weights, cell_mask,
-        [("ded", ded)], [], [("window", window)],
-        [_ptr(ded), _ptr(template), _ptr(window), _ptr(weights),
-         _ptr(cell_mask)], out)
-    _count(cell_diagnostics_dedisp, ded)
-    _check_rc(rc, "cell_diagnostics_dedisp")
-    return outs
+    return _counted(cell_diagnostics_dedisp, ded, "icln_cell_stats_dedisp",
+                    None, *_dedisp_args(ded, template, window, weights,
+                                        cell_mask, out))
 
 
 cell_diagnostics_dedisp.launches = 0
@@ -889,22 +1012,16 @@ def shard_diagnostics_disp(disp, rot_t, nyq_row, template, weights,
     """K2's four planes on one rank's (subint, channel) shard — kernel
     K10 on the card (K2's kernel under the shard's entry and launch
     count, so bit-equal to :func:`cell_diagnostics_disp` on the same
-    shard), :func:`cell_diagnostics_disp_plain` on the CPU.  ``rot_t``
-    and ``nyq_row`` are the shard's channel rows.  A float32, bf16 or
-    float64 block, each its own build and count."""
+    shard; its FFT build past the DFT tables, bit-equal to K2's),
+    :func:`cell_diagnostics_disp_plain` on the CPU.  ``rot_t`` and
+    ``nyq_row`` are the shard's channel rows.  A float32, bf16 or float64
+    block, each its own build and count."""
     if not _on_card(disp, rot_t, template, weights, cell_mask):
         return cell_diagnostics_disp_plain(disp, rot_t, nyq_row, template,
                                            weights, cell_mask)
-    rows = [("rot_t", rot_t)] + ([] if nyq_row is None
-                                 else [("nyq_row", nyq_row)])
-    rc, outs = _launch_cell_stats(
-        "icln_shard_stats_disp", disp, template, weights, cell_mask,
-        [("disp", disp)], rows, [],
-        [_ptr(disp), _ptr(rot_t), None if nyq_row is None else _ptr(nyq_row),
-         _ptr(weights), _ptr(cell_mask)])
-    _count(shard_diagnostics_disp, disp)
-    _check_rc(rc, "shard_diagnostics_disp")
-    return outs
+    return _counted(shard_diagnostics_disp, disp, "icln_shard_stats_disp",
+                    None, *_disp_args(disp, rot_t, nyq_row, template,
+                                      weights, cell_mask, None))
 
 
 shard_diagnostics_disp.launches = 0
@@ -914,24 +1031,121 @@ shard_diagnostics_disp.launches_f64 = 0
 
 def shard_diagnostics_dedisp(ded, template, window, weights, cell_mask):
     """K6's four planes on one rank's shard — kernel K10 on the card
-    (bit-equal to :func:`cell_diagnostics_dedisp` on the same shard),
-    :func:`cell_diagnostics_dedisp_plain` on the CPU."""
+    (bit-equal to :func:`cell_diagnostics_dedisp` on the same shard, its
+    FFT build too), :func:`cell_diagnostics_dedisp_plain` on the CPU."""
     if not _on_card(ded, template, window, weights, cell_mask):
         return cell_diagnostics_dedisp_plain(ded, template, window, weights,
                                              cell_mask)
-    rc, outs = _launch_cell_stats(
-        "icln_shard_stats_dedisp", ded, template, weights, cell_mask,
-        [("ded", ded)], [], [("window", window)],
-        [_ptr(ded), _ptr(template), _ptr(window), _ptr(weights),
-         _ptr(cell_mask)])
-    _count(shard_diagnostics_dedisp, ded)
-    _check_rc(rc, "shard_diagnostics_dedisp")
-    return outs
+    return _counted(shard_diagnostics_dedisp, ded, "icln_shard_stats_dedisp",
+                    None, *_dedisp_args(ded, template, window, weights,
+                                        cell_mask, None))
 
 
 shard_diagnostics_dedisp.launches = 0
 shard_diagnostics_dedisp.launches_bf16 = 0
 shard_diagnostics_dedisp.launches_f64 = 0
+
+
+# --------------------------------------------------------------------------
+# K2f's launch plan: one block a cell, or one thread-block cluster
+# (cell_fft.cu); the twiddles
+# --------------------------------------------------------------------------
+
+# N = 2^a x an odd part of FFT_ODD_PARTS (one radix-3 or radix-5 stage
+# beside the radix-2 ones); a cell is one block or a cluster of
+# FFT_CLUSTER_SIZES[1:] blocks (the portable sizes), each holding its
+# slice of the row in place (4 or 8 bytes a bin) beside
+# FFT_STATIC_SMEM bytes of static shared memory (the reductions' partials,
+# under 1 KB).  The plan takes one block of FFT_THREADS (FFT_THREADS_F64)
+# where the row fits, else the largest cluster of FFT_CLUSTER_THREADS a
+# block: in tools/time_cell_fft.py's sweep over every size and width on
+# an H100 (8 x 256 cells), 8 blocks of 256 threads beat the fewest blocks
+# that fit (2 of 1024) by 15% at 65,536 float32 bins, and 8 of 256 came
+# within 2% of the best float64 plan at 32,768, 12% under 2 of 512.
+FFT_ODD_PARTS = (1, 3, 5)
+FFT_CLUSTER_SIZES = (1, 2, 4, 8)
+FFT_THREADS = 1024       # cell_fft.cu's ICLN_FFT_THREADS
+FFT_THREADS_F64 = 512    # ICLN_FFT_THREADS_F64
+FFT_CLUSTER_THREADS = 256
+FFT_STATIC_SMEM = 1024
+
+
+class CellFftPlan(NamedTuple):
+    """The FFT build's launch (``cell_fft.cu``): ``cluster`` blocks a
+    cell (1: one block), ``odd`` the odd part P of nbin (nbin/2 = P *
+    2^m), ``threads`` a block and ``smem`` bytes of dynamic shared memory
+    a block (its 1/``cluster`` of the row)."""
+    cluster: int
+    odd: int
+    threads: int
+    smem: int
+
+
+def _odd_part(n: int) -> int:
+    while n > 0 and n % 2 == 0:
+        n //= 2
+    return n
+
+
+def _fft_fits(nbin: int, cluster: int, realsize: int) -> bool:
+    """Whether ``cluster`` blocks take a row of ``nbin``: the power of two
+    of nbin/2 splits into 2 * cluster slices, and a slice fits a block."""
+    lpow = nbin // 2 // _odd_part(nbin)
+    return (lpow % (2 * cluster) == 0
+            and -(-nbin * realsize // cluster // 16) * 16 + FFT_STATIC_SMEM
+            <= _SMEM_LIMIT)
+
+
+@functools.lru_cache(maxsize=None)
+def cell_fft_capacity(realsize: int = 4, odd: int = 1) -> int:
+    """The longest row of odd part ``odd`` the FFT build takes: 262,144
+    float32 bins (393,216 at odd part 3, 327,680 at 5), 131,072 float64
+    bins (196,608 and 163,840)."""
+    cap, n = 0, 4 * odd
+    while n * realsize // FFT_CLUSTER_SIZES[-1] <= _SMEM_LIMIT:
+        if any(_fft_fits(n, c, realsize)
+               for c in (1, FFT_CLUSTER_SIZES[-1])):
+            cap = n
+        n *= 2
+    return cap
+
+
+@functools.lru_cache(maxsize=64)
+def cell_fft_plan(nbin: int, itemsize: int = 4) -> CellFftPlan:
+    """The FFT build's :class:`CellFftPlan` at ``nbin`` for a cube of
+    ``itemsize``-byte elements (8: float64 rows and twiddles): one block a
+    cell where the row fits, else a cluster of FFT_CLUSTER_SIZES[-1]
+    blocks of FFT_CLUSTER_THREADS.
+    NotImplementedError naming ROADMAP item 9 where nbin's odd part is
+    not 1, 3 or 5 (or nbin/2 has no factor 2) or the row is past
+    :func:`cell_fft_capacity`."""
+    realsize = 8 if itemsize == 8 else 4
+    odd = _odd_part(nbin)
+    if odd not in FFT_ODD_PARTS or nbin < 4 * odd:
+        raise NotImplementedError(
+            f"nbin {nbin}: the FFT build takes 2^a x 1, 3 or 5 bins (a >= "
+            f"2); this one's odd part is {odd} ({_ITEM9})")
+    for cluster, threads in ((1, FFT_THREADS_F64 if realsize == 8
+                              else FFT_THREADS),
+                             (FFT_CLUSTER_SIZES[-1], FFT_CLUSTER_THREADS)):
+        if _fft_fits(nbin, cluster, realsize):
+            return CellFftPlan(cluster, odd, threads,
+                               -(-nbin * realsize // cluster // 16) * 16)
+    raise NotImplementedError(
+        f"nbin {nbin}: past the FFT build's capacity "
+        f"({cell_fft_capacity(realsize, odd)} bins of odd part {odd} in "
+        f"{'float64' if realsize == 8 else 'float32'}; {_ITEM9})")
+
+
+@functools.lru_cache(maxsize=8)
+def _fft_twiddles(nbin: int, device: str, dtype=torch.float32):
+    """The (nbin/2, 2) twiddles W_N^j = (cos, sin)(-2 pi j / N) the FFT
+    build reads: computed in float64 on the host, rounded to the
+    arithmetic ``dtype``."""
+    j = np.arange(nbin // 2, dtype=np.float64)
+    ang = (-2.0 * np.pi / nbin) * j
+    tw = np.stack([np.cos(ang), np.sin(ang)], axis=1)
+    return torch.from_numpy(tw).to(device=device, dtype=dtype).contiguous()
 
 
 # --------------------------------------------------------------------------
@@ -1633,6 +1847,9 @@ fused_combine.launches_f64 = 0
 _CUBE_WRAPPERS = (weighted_marginals, cell_diagnostics_disp,
                   cell_diagnostics_two_read, cell_diagnostics_dedisp,
                   shard_diagnostics_disp, shard_diagnostics_dedisp)
+# the wrappers with an FFT build past the DFT tables (cell_fft.cu), its
+# float32, bf16 and float64 launches counted apart
+_FFT_WRAPPERS = _CUBE_WRAPPERS[1:]
 
 
 # the wrappers with a float64 build
@@ -1648,14 +1865,21 @@ def reset_launch_counts() -> None:
         fn.launches = fn.launches_bf16 = 0
     for fn in _F64_WRAPPERS:
         fn.launches = fn.launches_f64 = 0
+    for fn in _FFT_WRAPPERS:
+        fn.launches_fft = fn.launches_fft_bf16 = fn.launches_fft_f64 = 0
     for fn in (scaled_sides, scaled_sides_cluster):
         fn.launches = [0, 0]
         fn.launches_f64 = [0, 0]
 
 
+reset_launch_counts()
+
+
 def launch_counts() -> dict:
     """Every wrapper's launches, the cube kernels' bf16 builds as
-    ``<name>_bf16`` and the float64 builds as ``<name>_f64``."""
+    ``<name>_bf16``, the float64 builds as ``<name>_f64`` and the cell
+    diagnostics' FFT build as ``<name>_fft``, ``<name>_fft_bf16`` and
+    ``<name>_fft_f64``."""
     return {
         **{fn.__name__: fn.launches for fn in _CUBE_WRAPPERS},
         "scaled_sides_axis0": scaled_sides.launches[0],
@@ -1676,4 +1900,6 @@ def launch_counts() -> dict:
            scaled_sides_cluster.launches_f64[a] for a in (0, 1)},
         "side_centre_f64": side_centre.launches_f64,
         "side_scale_f64": side_scale.launches_f64,
+        **{f"{fn.__name__}_fft{sfx}": getattr(fn, "launches_fft" + sfx)
+           for fn in _FFT_WRAPPERS for sfx in ("", "_bf16", "_f64")},
     }

@@ -138,6 +138,10 @@ def kernel_costs(S: int, C: int, B: int,
     # in, the weights and mask in, new weights, scores and d_std out
     sweep_io = rb * cells + cells + 3 * rb * cells
     sweep_ops = diag_ops + 2 * sel_ops + 16 * cells
+    # The FFT build past the DFT tables (csrc/cell_fft.cu), the same
+    # function: K2's, K7's and K6's bytes, and per cell the real FFT's
+    # (5/2) B log2 B and 6 B for the residual, the moments and the split.
+    fft_ops = cells * (2.5 * B * math.log2(max(B, 2)) + 6 * B)
     return {
         "weighted_marginals": (cb * cells * B
                                + rb * (cells + C * B + S * B),
@@ -166,6 +170,19 @@ def kernel_costs(S: int, C: int, B: int,
                         sweep_ops),
         "fused_sweep_dedisp": (cb * cells * B + rb * 2 * B + sweep_io,
                                sweep_ops),
+        "cell_diagnostics_disp_fft": (cb * cells * B + rb * (2 * C * B + B)
+                                      + diag_io, fft_ops),
+        "cell_diagnostics_two_read_fft": (cb * 2 * cells * B
+                                          + rb * (C * B + B) + diag_io,
+                                          fft_ops),
+        "cell_diagnostics_dedisp_fft": (cb * cells * B + rb * 2 * B
+                                        + diag_io, fft_ops),
+        # K10's FFT build on a shard of S x C cells: K2's and K6's
+        "shard_diagnostics_disp_fft": (cb * cells * B
+                                       + rb * (2 * C * B + B) + diag_io,
+                                       fft_ops),
+        "shard_diagnostics_dedisp_fft": (cb * cells * B + rb * 2 * B
+                                         + diag_io, fft_ops),
     }
 
 

@@ -99,6 +99,15 @@ hot program holds all five on the card; a seeded host sync inside a step
 caught by the dispatch count and by the sync debug mode alike; a seeded
 float64 upcast, extra op and cube copy caught; the single-cube-read
 launch counters equal to each route's kernels, once an iteration.
+The FFT build of the cell diagnostics past the DFT tables (K2f,
+``cell_fft.cu``): every entry (K2 with and without the Nyquist term, K7,
+K6, K10's two) in float32, bf16 and float64, one block a cell, a
+thread-block cluster and the radix-3 stage, within 1e-4 of each plane's
+scale (1e-12 in float64), masked cells exact, one launch under its
+``_fft`` counter; K10's bit-equal to K2's and K6's, a batch bit-equal to
+single launches, bf16 bit-equal to float32 on the upcast cube; long-
+profile cleans on every route, in float32 and float64, a batch and an
+exact stream, on the card against the CPU's.
 """
 
 import numpy as np
@@ -117,6 +126,7 @@ from iterative_cleaner_torch.engine.loop import (
     nyq_correction_row,
     pulse_window,
     select_route,
+    spectrum_kernels,
     storage_kernels,
 )
 from iterative_cleaner_torch.io.synthetic import (
@@ -2052,3 +2062,212 @@ def test_single_cube_read_counters_match_the_route_kernels(card, name,
     cc = _contracts()
     report = cc.verify_program(cc.program_named(name), card)
     assert report.kernel_launches == {k: report.iterations for k in kernels}
+
+
+# ---- the FFT build of the cell diagnostics past the DFT tables (K2f) ----
+
+FFT_SHAPES = {   # storage: (one block, a cluster, the radix-3 stage)
+    torch.float32: ((4, 16, 32768), (2, 8, 65536), (2, 8, 24576)),
+    torch.bfloat16: ((4, 16, 32768), (2, 8, 65536), (2, 8, 24576)),
+    torch.float64: ((4, 16, 16384), (2, 8, 32768), (2, 8, 24576)),
+}
+
+
+def _fft_operands(dev, lead, nsub, nchan, nbin, storage, seed):
+    """Cube (with a pulse and a spike) in ``storage``, template rows,
+    Nyquist rows, template, weights with zeros, mask and window, made with
+    numpy; a leading batch ``lead`` (a tuple) on the per-archive ones."""
+    rng = np.random.default_rng(seed)
+    real = tk.real_dtype(storage)
+    t = np.exp(-0.5 * ((np.arange(nbin) - nbin / 3) / (nbin / 64)) ** 2)
+    cube = rng.standard_normal(lead + (nsub, nchan, nbin)) + 3.0 * t
+    cube[..., nsub - 1, nchan - 1, 100] = 60.0
+    rot = np.stack([np.roll(t, 5 * c) for c in range(nchan)])
+    nyq = rng.standard_normal((nchan, nbin)) * 1e-3
+    w = rng.random(lead + (nsub, nchan))
+    w[w < 0.15] = 0.0
+    win = np.ones(nbin)
+    win[nbin // 4: nbin // 3] = 0.5
+
+    def up(a, shape=None):
+        a = np.array(np.broadcast_to(a, shape)) if shape else a
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev, real)
+
+    wt = up(w)
+    c = up(cube)
+    return (c.to(storage), (c * 0.5).to(storage), up(rot, lead + rot.shape),
+            up(nyq, lead + nyq.shape), up(t, lead + t.shape), wt, wt == 0,
+            up(win))
+
+
+def _fft_forms(ops):
+    """(counter name, the routed wrapper, its plain version) of every
+    entry, at lengths past the DFT tables (the FFT build's route)."""
+    c, b, r, n, t, w, m, win = ops
+    assert tk.cell_stats_route(c.shape[-1], c.element_size()) == "fft"
+    return [
+        ("cell_diagnostics_disp",
+         lambda: tk.cell_diagnostics_disp(c, r, n, t, w, m),
+         lambda: tk.cell_diagnostics_disp_plain(c, r, n, t, w, m)),
+        ("cell_diagnostics_disp",
+         lambda: tk.cell_diagnostics_disp(c, r, None, t, w, m),
+         lambda: tk.cell_diagnostics_disp_plain(c, r, None, t, w, m)),
+        ("cell_diagnostics_two_read",
+         lambda: tk.cell_diagnostics_two_read(c, b, r, t, w, m),
+         lambda: tk.cell_diagnostics_two_read_plain(c, b, r, t, w, m)),
+        ("cell_diagnostics_dedisp",
+         lambda: tk.cell_diagnostics_dedisp(c, t, win, w, m),
+         lambda: tk.cell_diagnostics_dedisp_plain(c, t, win, w, m)),
+        ("shard_diagnostics_disp",
+         lambda: tk.shard_diagnostics_disp(c, r, n, t, w, m),
+         lambda: tk.cell_diagnostics_disp_plain(c, r, n, t, w, m)),
+        ("shard_diagnostics_dedisp",
+         lambda: tk.shard_diagnostics_dedisp(c, t, win, w, m),
+         lambda: tk.cell_diagnostics_dedisp_plain(c, t, win, w, m)),
+    ]
+
+
+def _fft_planes_close(got, want, mask, rtol):
+    """Within ``rtol`` of (|want| + each plane's scale), masked cells
+    bit-equal; a batch archive by archive."""
+    if mask.dim() == 3:
+        for i in range(mask.shape[0]):
+            _fft_planes_close([g[i] for g in got], [w[i] for w in want],
+                              mask[i], rtol)
+        return
+    for g, w in zip(got, want):
+        scale = w[~mask].abs().max()
+        assert bool(((g - w).abs() <= rtol * (w.abs() + scale)).all())
+        assert torch.equal(g[mask], w[mask])
+
+
+@pytest.mark.parametrize("storage", list(FFT_SHAPES))
+@pytest.mark.parametrize("kind", [0, 1, 2])
+def test_fft_build_matches_plain_on_card(card, storage, kind):
+    """Every entry of the FFT build (one block a cell, a cluster, the
+    radix-3 stage) within 1e-4 of each plane's scale (1e-12 in float64),
+    masked cells exact, one launch under its ``_fft`` counter."""
+    nsub, nchan, nbin = FFT_SHAPES[storage][kind]
+    ops = _fft_operands(card, (), nsub, nchan, nbin, storage, nbin % 89)
+    plan = tk.cell_fft_plan(nbin, ops[0].element_size())
+    assert (plan.cluster > 1) == (kind == 1)
+    sfx = {torch.bfloat16: "_bf16", torch.float64: "_f64"}.get(storage, "")
+    rtol = 1e-12 if storage == torch.float64 else 1e-4
+    for name, kfn, pfn in _fft_forms(ops):
+        tk.reset_launch_counts()
+        got = kfn()
+        torch.cuda.synchronize()
+        assert {k: v for k, v in tk.launch_counts().items() if v} \
+            == {f"{name}_fft{sfx}": 1}
+        _fft_planes_close(got, pfn(), ops[6], rtol)
+
+
+@pytest.mark.parametrize("storage", list(FFT_SHAPES))
+def test_fft_build_k10_and_batch_bit_equal_on_card(card, storage):
+    """K10's FFT build bit-equal to K2's and K6's on the same cells; a
+    batch of two bit-equal archive by archive to single launches."""
+    nsub, nchan, nbin = FFT_SHAPES[storage][1]
+    c, b, r, n, t, w, m, win = _fft_operands(card, (), nsub, nchan, nbin,
+                                             storage, 3)
+    for x, y in zip(tk.shard_diagnostics_disp(c, r, n, t, w, m)
+                    + tk.shard_diagnostics_dedisp(c, t, win, w, m),
+                    tk.cell_diagnostics_disp(c, r, n, t, w, m)
+                    + tk.cell_diagnostics_dedisp(c, t, win, w, m)):
+        assert torch.equal(x, y)
+    ops = _fft_operands(card, (2,), nsub, nchan, nbin, storage, 4)
+    c, b, r, n, t, w, m, win = ops
+    for batched, single in (
+            (tk.cell_diagnostics_disp(c, r, n, t, w, m),
+             lambda i: tk.cell_diagnostics_disp(c[i], r[i], n[i], t[i], w[i],
+                                                m[i])),
+            (tk.cell_diagnostics_two_read(c, b, r, t, w, m),
+             lambda i: tk.cell_diagnostics_two_read(c[i], b[i], r[i], t[i],
+                                                    w[i], m[i])),
+            (tk.cell_diagnostics_dedisp(c, t, win, w, m),
+             lambda i: tk.cell_diagnostics_dedisp(c[i], t[i], win, w[i],
+                                                  m[i]))):
+        for i in range(2):
+            for x, y in zip(batched, single(i)):
+                assert torch.equal(x[i], y)
+
+
+def test_fft_build_bf16_bit_equal_to_float32_on_upcast_cube(card):
+    ops = _fft_operands(card, (), 2, 8, 65536, torch.bfloat16, 5)
+    up = (ops[0].float(), ops[1].float()) + ops[2:]
+    for (_, k16, _), (_, k32, _) in zip(_fft_forms(ops), _fft_forms(up)):
+        for x, y in zip(k16(), k32()):
+            assert torch.equal(x, y)
+
+
+LONG_CLEANS = {   # case: (nbin, configuration)
+    "default": (32768, {}),
+    "dedispersed": (32768, dict(stats_frame="dedispersed")),
+    "profile": (32768, dict(baseline_mode="profile")),
+    "float64 16384": (16384, dict(dtype="float64")),
+    "float64 default": (32768, dict(dtype="float64")),
+    "float64 dedispersed": (32768, dict(stats_frame="dedispersed",
+                                        dtype="float64")),
+    "float64 profile": (32768, dict(baseline_mode="profile",
+                                    dtype="float64")),
+    "float64 odd part 3": (24576, dict(dtype="float64")),
+}
+
+
+def _long_archive(nbin, seed=41):
+    ar, _ = make_synthetic_archive(nsub=4, nchan=8, nbin=nbin,
+                                   n_prezapped=2, seed=seed)
+    return ar
+
+
+def _assert_long_clean(got, ar, kw):
+    """Masks and loops equal to the CPU clean's (as chip_smoke's phase 3f
+    holds long profiles), scores finite; float64 scores within 1e-9 of
+    the CPU's.  The float32 scores are not compared: on these 4 x 8
+    archives the card's lie about 10x farther from the float64 clean than
+    the CPU's (0.0165 against 0.0016, relative with a 1e-3 floor, on the
+    default route), from the integration baseline's offsets, a float32
+    contraction over the bins that the card sums less exactly (ROADMAP
+    section 3); the FFT build itself matches its plain version on the
+    card's own inputs."""
+    want = clean_archive(ar, CleanConfig(device="cpu", **kw))
+    np.testing.assert_array_equal(got.final_weights == 0,
+                                  want.final_weights == 0)
+    assert got.loops == want.loops
+    assert np.all(np.isfinite(got.scores[got.final_weights != 0]))
+    if kw.get("dtype") == "float64":
+        np.testing.assert_allclose(got.scores, want.scores, rtol=1e-9,
+                                   atol=1e-9)
+
+
+@pytest.mark.parametrize("case", list(LONG_CLEANS))
+def test_long_profile_clean_on_card_matches_cpu(card, case):
+    """A 4 x 8 archive past the DFT tables cleaned on the card through the
+    FFT build: its route's FFT build once an iteration and no DFT launch,
+    held to the CPU clean by :func:`_assert_long_clean`."""
+    nbin, kw = LONG_CLEANS[case]
+    ar = _long_archive(nbin)
+    cfg = CleanConfig(**kw)
+    tk.reset_launch_counts()
+    got = clean_archive(ar, cfg)
+    counts = tk.launch_counts()
+    route = select_route(cfg, ar.dedispersed)
+    own = storage_kernels(spectrum_kernels(ROUTE_KERNELS[route], nbin,
+                                           cfg.dtype), "float32", cfg.dtype)
+    assert {k: v for k, v in counts.items() if v} \
+        == {k: got.loops for k in own}
+    _assert_long_clean(got, ar, kw)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_long_profile_batch_and_stream_on_card_match_cpu(card, dtype):
+    """A batch of two 4 x 8 x 32768 archives (one launch of each kernel an
+    iteration) and an exact stream in tiles of 2 on the card, each held
+    to the CPU clean by :func:`_assert_long_clean`."""
+    from iterative_cleaner_torch.parallel.batch import clean_archives_batched
+
+    ars = [_long_archive(32768, s) for s in (26, 27)]
+    kw = dict(dtype=dtype)
+    for got, ar in zip(clean_archives_batched(ars, CleanConfig(**kw)), ars):
+        _assert_long_clean(got, ar, kw)
+    ar = _long_archive(32768, 28)
+    _assert_long_clean(clean_streaming(ar, 2, CleanConfig(**kw)), ar, kw)

@@ -28,8 +28,13 @@ CFG = CleanConfig(device="cpu", max_iter=2)
 
 @pytest.fixture(autouse=True)
 def fresh_costs(monkeypatch):
+    from iterative_cleaner_torch.parallel.batch import clear_warm_memo
+
     monkeypatch.delenv("ICLEAN_PROFILE_DIR", raising=False)
     profiling.clear_costs()
+    # a bucket warmed by an earlier test in this process is not captured
+    # again: forget the warm-ups so that each test captures its own
+    clear_warm_memo()
     yield
     profiling.clear_costs()
     profiling.set_enabled(None)

@@ -35,6 +35,7 @@ from iterative_cleaner_torch.convert import (
     config_from_reference,
 )
 from iterative_cleaner_torch.engine.loop import (
+    FFT_KERNELS,
     LONG_LINE_KERNELS,
     ROUTE_KERNELS,
     SHARD_KERNELS,
@@ -122,7 +123,8 @@ def test_route_kernels_cover_every_launch_counter():
     planes).  Each cube kernel's bf16 build (``storage_kernels``) is
     counted under its own name, and so is the float64 build of every
     kernel of the single-card routes, exact streaming, the sharded routes
-    (K10's float64 build) and the long lines."""
+    (K10's float64 build) and the long lines; the cell kernels' FFT
+    builds past the DFT tables (``FFT_KERNELS``) in every storage."""
     named = {k for table in (ROUTE_KERNELS, STREAM_KERNELS, SHARD_KERNELS)
              for ks in table.values()
              for cd in ("float32", "bfloat16")
@@ -132,7 +134,13 @@ def test_route_kernels_cover_every_launch_counter():
               for k in storage_kernels(ks, "float32", "float64")}
     long_line = set(LONG_LINE_KERNELS) | set(
         storage_kernels(LONG_LINE_KERNELS, "float32", "float64"))
-    assert named | long_line == set(launch_counts())
+    # the cell kernels' FFT builds past the DFT tables, each storage
+    fft = {k for cd, dt in (("float32", "float32"), ("bfloat16", "float32"),
+                            ("float32", "float64"))
+           for k in storage_kernels(FFT_KERNELS.values(), cd, dt)}
+    assert fft == {f"{k}_fft{s}" for k in FFT_KERNELS
+                   for s in ("", "_bf16", "_f64")}
+    assert named | long_line | fft == set(launch_counts())
     for route, kernels in ROUTE_KERNELS.items():
         assert set(STREAM_KERNELS[route]) == set(kernels) | {"fused_combine"}
     k10 = {"cell_diagnostics_disp": "shard_diagnostics_disp",

@@ -6,8 +6,9 @@ to ``MAX_NBIN``, 16384) and scaler lines longer than one block holds
   cell-diagnostics kernels (``cell_stats_geometry``) cover every element
   and every DFT column once and fit a Hopper block's 232,448 bytes of
   shared memory; K3's route switches to the cluster kernel past 46,486
-  entries; profiles past ``MAX_NBIN`` raise NotImplementedError
-  naming their ROADMAP item.
+  entries; past ``MAX_NBIN`` K1 still plans and the cell diagnostics
+  take the FFT build, and a length neither build takes raises
+  NotImplementedError naming its ROADMAP item.
 - A 4 x 8 x 8192 archive cleaned by the port (plain versions) and by the
   JAX package on its route above 4096 bins (``stats_impl='xla'``):
   masks equal, loops equal, scores within rtol 1e-3 with a 1e-3 floor.
@@ -109,12 +110,20 @@ def test_k3_route_switches_past_one_block():
 
 @pytest.mark.parametrize("plan", ["marginals", "cell_stats"])
 def test_nbin_above_max_refused_naming_roadmap_item(plan):
+    """Past ``MAX_NBIN`` K1 plans as below it (it tiles the bins) and the
+    cell diagnostics leave the DFT route for the FFT build; 16,385 bins
+    (odd part 16,385) neither takes: refused naming ROADMAP item 9."""
     nbin = tk.MAX_NBIN + 1
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        if plan == "marginals":
-            tk.marginals_tiles(4, 8, nbin)
-        else:
-            tk.cell_stats_geometry(nbin)
+    if plan == "marginals":
+        for n in (nbin, 4 * tk.MAX_NBIN):
+            assert tk.marginals_tiles(4, 8, n).smem \
+                == tk.marginals_tiles(4, 8, tk.MAX_NBIN).smem
+    else:
+        assert tk.cell_stats_route(tk.MAX_NBIN) == "dft"
+        assert tk.cell_stats_route(2 * tk.MAX_NBIN) == "fft"
+        for refuse in (tk.cell_stats_geometry, tk.cell_stats_route):
+            with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
+                refuse(nbin)
 
 
 @pytest.mark.parametrize("baseline_mode", ["integration", "profile"])
