@@ -252,10 +252,11 @@ dispatch count and by the sync debug mode.
 Long profiles past the DFT tables (``csrc/cell_fft.cu``, the FFT build
 of the cell diagnostics), after phase 3p: (L1) every entry of the FFT
 build (K2 with and without the Nyquist term, K7, K6, K10's two) against
-its plain version on the card in float32, bf16 and float64, one block a
-cell (16 x 64 x 32768; float64 16,384), a thread-block cluster (8 x 32 x
-65536; float64 32,768), the radix-3 stage (8 x 32 x 24576) and a batch of
-two, within 1e-4 of each plane's scale (1e-12 in float64), K10's
+its plain version on the card in float32, bf16 and float64, a cluster of
+4 blocks a cell (16 x 64 x 32768; float64 16,384, a cluster of 2), a
+cluster of 8 (8 x 32 x 65536; float64 32,768, a cluster of 4), the
+radix-3 stage (8 x 32 x 24576) and a batch of two, within 1e-4 of each
+plane's scale (1e-12 in float64), K10's
 bit-equal to K2's and K6's on a 2 x 2 shard and the batch to its
 archives' own launches, each entry timed at the cluster shape; (L2) K2
 (the DFT route) and the FFT build called as a function on the same
@@ -271,7 +272,12 @@ by the goldens' flip rule, the dedispersed one to the default by the
 frames' contract, the sharded cleans bit-equal to the whole ones; the
 main path's FFT builds timed at full width beside their bounds, their
 plain versions and ``torch.fft.rfft`` alone on the centred rows, with ms
-an iteration and peak memory.
+an iteration and peak memory; (L4) the long-profile card tests' archive
+(4 x 8 x 32768, seed 41): the integration and profile baselines'
+float32 offsets on the card within 3.4e-7 of the float64 offsets' scale
+(and whether they are the CPU's bits), and the float32 cleans on the default,
+dedispersed and profile routes, their scores no farther from the
+float64 clean's than the CPU's float32 scores by more than 1e-3.
 
 It exits non-zero, printing no result, when no CUDA device is present
 or when the port's package is not beside it.  It imports nothing of JAX
@@ -5322,8 +5328,9 @@ def control_plane_phase(dev, tag):
 # count; its cell diagnostics take the FFT build's cluster form.
 LONG_PROFILE_SHAPE = (32, 256, 65536)
 LONG_PROFILE_PERIOD_S = 3.75
-# L1's shapes: (batch or 0, nsub, nchan, nbin) by storage; one block a
-# cell, a thread-block cluster, the radix-3 stage, a batch of two
+# L1's shapes: (batch or 0, nsub, nchan, nbin) by storage; the fewest
+# blocks a cell, the shape the entries are timed at, the radix-3 stage, a
+# batch of two
 L1_SHAPES = {
     "float32": ((0, 16, 64, 32768), (0, 8, 32, 65536), (0, 8, 32, 24576),
                 (2, 4, 32, 65536)),
@@ -5440,11 +5447,13 @@ def plane_err(got, want, mask, rtol, torch):
 
 def l1_phase(dev, tag):
     """(L1) Every FFT-build entry against its plain version on the card in
-    float32, bf16 and float64, at L1_SHAPES (one block a cell, a cluster,
-    the radix-3 stage, a batch of two): within 1e-4 of each plane's scale
-    (1e-12 in float64), masked cells bit-equal; K10's entries bit-equal to
-    K2's and K6's on one 2 x 2 shard; each archive of the batch bit-equal
-    to its own launch.  Each entry timed at the cluster shape.  Returns
+    float32, bf16 and float64, at L1_SHAPES (clusters of 2, 4 and 8 blocks
+    a cell, the radix-3 stage, a batch of two) under the plan
+    ``cell_fft_plan`` picks: within 1e-4 of each plane's scale (1e-12 in
+    float64),
+    masked cells bit-equal; K10's entries bit-equal to K2's and K6's on
+    one 2 x 2 shard; each archive of the batch bit-equal to its own
+    launch.  Each entry timed at the 65,536-bin cluster shape.  Returns
     ``{name: {max_abs_err, ms, plain_ms, bound_ms, bound_by, shape}}``."""
     import torch
 
@@ -5476,7 +5485,7 @@ def l1_phase(dev, tag):
                     out[key]["max_abs_err"] = max(
                         out[key]["max_abs_err"],
                         max_abs_diff_planes(got, want, torch))
-                    if not nb and plan.cluster > 1 and nbin % 3:
+                    if (nb, nsub, nchan, nbin) == shapes[1]:
                         out[key].update(time_fft_entry(
                             name, kfn, pfn, nsub, nchan, nbin, storage))
             if nb:
@@ -5589,6 +5598,101 @@ def l2_phase(dev, tag):
     if not ok:
         fail("L2: the FFT build and K2 disagree past their tolerance")
     return times
+
+
+# (L4): the long-profile card tests' archive, and its bounds: the
+# baselines' float32 offsets within twice the CPU's old distance from
+# float64 (1.681e-7 of the offsets' scale, the integration contraction on
+# the CPU); the whole float32 cleans' scores no farther from the float64
+# clean than the CPU's float32 scores, by more than 1e-3 (relative, with
+# a 1e-3 floor)
+L4_ARCHIVE = dict(nsub=4, nchan=8, nbin=32768, n_prezapped=2, seed=41)
+L4_OFFSET_BOUND = 3.4e-7
+L4_SCORE_MARGIN = 1e-3
+
+
+def l4_phase(dev, tag):
+    """(L4) Float32 against float64 on long profiles (ROADMAP section 3
+    (f)): on the L4_ARCHIVE archive, the integration baseline's and the
+    profile baseline's offsets on the card and on the CPU against the
+    float64 offsets (the card's within L4_OFFSET_BOUND of their scale;
+    whether they are the CPU's bits is printed: the window sums are, the
+    integration window's placement comes from a library contraction),
+    then the whole clean on the default,
+    dedispersed and profile routes on the card in float32, on the CPU in
+    float32 and float64: the card's scores no farther from float64 than
+    the CPU's by more than L4_SCORE_MARGIN, its mask the CPU's.  Returns
+    the distances."""
+    import torch
+
+    from iterative_cleaner_torch import CleanConfig
+    from iterative_cleaner_torch.backends import clean_archive
+    from iterative_cleaner_torch.io.synthetic import make_synthetic_archive
+    from iterative_cleaner_torch.ops import dsp
+    from iterative_cleaner_torch.ops.psrchive_baseline import (
+        baseline_offsets_integration,
+    )
+
+    t0 = time.perf_counter()
+    ar, _ = make_synthetic_archive(**L4_ARCHIVE)
+    duty = CleanConfig().baseline_duty
+    cube = np.array(ar.total_intensity(), dtype=np.float64)
+    w = np.array(ar.weights, dtype=np.float64)
+    out, ok = {"offsets": {}, "scores": {}}, True
+    for name, fn in (
+            ("integration", lambda c, x: baseline_offsets_integration(
+                c, x, duty)),
+            ("profile", lambda c, x: dsp.baseline_offsets(c, duty))):
+        want = fn(torch.from_numpy(cube), torch.from_numpy(w))
+        c32, w32 = (torch.from_numpy(a.astype(np.float32)) for a in (cube, w))
+        cpu = fn(c32, w32)
+        card = fn(c32.to(dev), w32.to(dev)).cpu()
+        scale = float(want.abs().max())
+        e_card = float((card.double() - want).abs().max()) / scale
+        e_cpu = float((cpu.double() - want).abs().max()) / scale
+        same = torch.equal(card, cpu)
+        here = e_card <= L4_OFFSET_BOUND
+        ok &= here
+        out["offsets"][name] = {"card": e_card, "cpu": e_cpu,
+                                "bit_equal": same}
+        print(f"L4 {name} baseline offsets of the {L4_ARCHIVE['nsub']} x "
+              f"{L4_ARCHIVE['nchan']} x {L4_ARCHIVE['nbin']} archive (seed "
+              f"{L4_ARCHIVE['seed']}), float32 from float64 over their scale: "
+              f"card {e_card:.3e}, CPU {e_cpu:.3e}, card bit-equal to the CPU "
+              f"{same} (bound {L4_OFFSET_BOUND:g}): "
+              f"{'ok' if here else 'FAIL'} {tag}", flush=True)
+    for route, kw in (("default", {}),
+                      ("dedispersed", dict(stats_frame="dedispersed")),
+                      ("profile", dict(baseline_mode="profile"))):
+        card = clean_archive(ar, CleanConfig(**kw))
+        cpu = clean_archive(ar, CleanConfig(device="cpu", **kw))
+        f64 = clean_archive(ar, CleanConfig(device="cpu", dtype="float64",
+                                            **kw))
+        e_card = score_err(card.scores, f64.scores)
+        e_cpu = score_err(cpu.scores, f64.scores)
+        masks = bool(np.array_equal(card.final_weights == 0,
+                                    cpu.final_weights == 0))
+        here = e_card <= e_cpu + L4_SCORE_MARGIN and masks \
+            and card.loops == cpu.loops
+        ok &= here
+        out["scores"][route] = {"card": e_card, "cpu": e_cpu,
+                                "masks_equal": masks}
+        print(f"L4 {route} route, whole float32 clean's scores from the "
+              f"float64 clean's (largest |d| / (|s64| + 1e-3)): card "
+              f"{e_card:.4f}, CPU {e_cpu:.4f} (bound: the CPU's + "
+              f"{L4_SCORE_MARGIN:g}); mask equal to the CPU's {masks}, loops "
+              f"{card.loops} and {cpu.loops}: {'ok' if here else 'FAIL'} "
+              f"{tag}", flush=True)
+    print(f"phase L4: {time.perf_counter() - t0:.1f} s", flush=True)
+    if not ok:
+        fail("L4: the card's float32 baselines or scores lie farther from "
+             "float64 than their bound (ROADMAP section 3 (f))")
+    return out
+
+
+def score_err(got, want) -> float:
+    """Largest |got - want| / (|want| + 1e-3) over cells."""
+    return float(np.max(np.abs(got - want) / (np.abs(want) + 1e-3)))
 
 
 def l3_operands(ar, cfg, dev):
@@ -6413,13 +6517,14 @@ def main() -> int:
                                       peak_gib, tag)
     # ---- 3r. long profiles past the DFT tables (csrc/cell_fft.cu, the FFT
     # build): (L1) every entry against its plain version in three dtypes,
-    # one block and a cluster a cell, a batch; (L2) the DFT route and the
+    # clusters and one block a cell, a batch; (L2) the DFT route and the
     # FFT build on the same inputs at 8192 and 16,384 bins; (L3) the
     # 32 x 256 x 65536 archive through clean_archive (default, dedispersed,
     # float64; profile, sharded), counted, held to the flip rule, every
     # kernel of the path held to its plain version at that width, timed
     fft_l1 = l1_phase(dev, tag)
     fft_l2 = l2_phase(dev, tag)
+    l4_phase(dev, tag)
     fft_l3, l3_checks = l3_phase(lp_fut, mesh1, counts, clean_ms, peak_gib,
                                  dev, tag)
     archive_pool.shutdown()

@@ -251,12 +251,121 @@ def rotate_bins(x, shift_bins, method="fourier"):
     return out.reshape(x.shape)
 
 
+def tree_sum(x):
+    """The sum over the last axis by a fixed binary tree of elementwise
+    adds: zero-padded to a power of two, then halved (``x[:h] + x[h:]``)
+    until one value is left.  Elementwise IEEE adds round alike on every
+    device, and the tree depends on the axis's length alone, so the sums
+    are bit-equal on the CPU and the card, whatever the other dimensions
+    (a tile's, a shard's or a batch's rows give the whole archive's
+    bits); pairwise, they lie within about log2(n) roundings of the exact
+    sum where a running float32 sum drifts by n."""
+    n = x.shape[-1]
+    p = 1 << max(0, n - 1).bit_length()
+    if p != n:
+        x = torch.cat([x, x.new_zeros(x.shape[:-1] + (p - n,))], dim=-1)
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]
+
+
+def _window_sums_doubling(profiles, w: int):
+    """The ``[c, c + w)`` circular window sums by doubling: ``s_k[c]``,
+    the sum of the ``2^k`` bins from ``c``, is ``s_(k-1)[c] + s_(k-1)[c +
+    2^(k-1)]``, and each window is the sum of the ``s_k`` of ``w``'s set
+    bits, lowest first, each from where the last ends (zeros where ``w``
+    is 0).  Elementwise adds in an order fixed by ``w`` alone (see
+    :func:`tree_sum`); no running sum whose differences cancel."""
+    acc, s, off, k = None, profiles, 0, 0
+    while w >> k:
+        if (w >> k) & 1:
+            piece = torch.roll(s, -off, dims=-1) if off else s
+            acc = piece if acc is None else acc + piece
+            off += 1 << k
+        if w >> (k + 1):
+            s = s + torch.roll(s, -(1 << k), dims=-1)
+        k += 1
+    return torch.zeros_like(profiles) if acc is None else acc
+
+
+# Bins a block of the fixed-order window sums (:func:`_block_windows`)
+_WINDOW_BLOCK = 16
+
+
+def _block_windows(rows, w: int):
+    """The ``[c, c + w)`` circular window sums of ``rows`` (..., n) in a
+    fixed order, as B tensors (..., n / B): the r-th holds the windows at
+    c = q B + r.  B is the largest power of two dividing n, at most
+    _WINDOW_BLOCK and a quarter of w (a block's prefix sums, whose
+    differences the windows take, then stay under a quarter of the
+    window's sum; B = 1, the doubling over the bins, for the shortest
+    windows).  With w = a B + b, the window at c = q B + r is the sum of
+    the m whole blocks from block q (m = a, or a + 1 where r + b >= B),
+    less the bins of block q before c, plus the bins of block q + m before
+    c + w: each block's prefix sums by a running sum over its B bins, the
+    m-block sums by :func:`_window_sums_doubling` over the block sums,
+    then one subtraction and one add a window.  Elementwise adds in an
+    order fixed by n and w alone (the same bits on the CPU and the card,
+    whatever the other dimensions); about six passes over the rows where
+    the doubling over the bins takes 2 (log2 w + popcount w): the profile
+    baseline's offsets over the whole cube (:func:`baseline_offsets`) in
+    28.5 ms against 90.5 ms at 32 x 256 x 65536 on an H100
+    (tools/time_baselines.py, PERF.md §6)."""
+    n = rows.shape[-1]
+    bs = min(_WINDOW_BLOCK, n & -n, 1 << (max(1, w // 4).bit_length() - 1))
+    a, b = divmod(w, bs)
+    # (B, ..., n / B): bin r of every block is one contiguous plane
+    xt = rows.reshape(rows.shape[:-1] + (n // bs, bs)).movedim(-1, 0) \
+        .contiguous()
+    pre = torch.empty_like(xt)      # each block's bins before bin r
+    pre[0].zero_()
+    for r in range(1, bs):
+        torch.add(pre[r - 1], xt[r - 1], out=pre[r])
+    blocks = pre[bs - 1] + xt[bs - 1]
+    fa = _window_sums_doubling(blocks, a)
+    fa1 = fa + torch.roll(blocks, -a, dims=-1)
+    out = []
+    for r in range(bs):
+        carry = r + b >= bs
+        m = a + carry
+        out.append((fa1 if carry else fa) - pre[r]
+                   + torch.roll(pre[r + b - bs * carry], -m, dims=-1))
+    return out
+
+
+def fixed_order_windows(profiles) -> bool:
+    """Whether the baselines sum their windows in a fixed order of
+    elementwise adds (:func:`tree_sum`, :func:`_window_sums_doubling`,
+    :func:`_block_windows`): float32 profiles past 1024 bins.  There a
+    float32 sum over the row in the library's order (the integration
+    offsets' contraction, the profile baseline's cumulative sum, whose
+    differences cancel) lay up to 1e-5 of the offsets' scale from float64
+    on the card; at 1024 bins and below (the reference's circulant-matmul
+    range) and in float64 the library's sums are kept, as the reference
+    computes them."""
+    return profiles.shape[-1] > 1024 and profiles.dtype != torch.float64
+
+
+def window_means(sums, w: int, profiles):
+    """``sums / w``, window sums of ``profiles``' bins: in the fixed-order
+    form (:func:`fixed_order_windows`) divided by ``w`` as a tensor on the
+    sums' device, a true division on every device (a CUDA kernel
+    multiplies by the reciprocal of a host scalar), so the means keep the
+    sums' agreement between the CPU and the card; else by the scalar, as
+    the reference divides."""
+    return sums / (sums.new_full((), w) if fixed_order_windows(profiles)
+                   else w)
+
+
 def circular_window_sums(profiles, w: int, centred=False):
     """Sliding circular window sums along the last axis.  ``centred=
     False``: the window at ``c`` covers ``[c, c+w)``; ``centred=True``:
     ``[c - w//2, c - w//2 + w)``.  float32 with nbin <= 1024: one 0/1
-    circulant matmul (the reference's float32 form); otherwise the
-    reference's cumulative-sum form."""
+    circulant matmul (the reference's float32 form); float32 past that:
+    :func:`_window_sums_doubling` (a total profile's or a template's rows:
+    fewer launches than :func:`_block_windows`), the same bits on the CPU
+    and the card; float64: the reference's cumulative-sum form."""
     nbin = profiles.shape[-1]
     shift = (w // 2) if centred else 0
     if nbin <= 1024 and profiles.dtype == torch.float32:
@@ -264,22 +373,40 @@ def circular_window_sums(profiles, w: int, centred=False):
         box = (torch.remainder(j[:, None] - j[None, :] + shift, nbin)
                < w).to(profiles.dtype)
         return profiles @ box
-    ext = torch.cat([profiles, profiles[..., : w - 1]], dim=-1) \
-        if w > 1 else profiles
-    cs = torch.cumsum(ext, dim=-1)
-    cz = torch.cat([torch.zeros_like(cs[..., :1]), cs], dim=-1)
-    sums = cz[..., w: w + nbin] - cz[..., :nbin]
+    if fixed_order_windows(profiles):
+        sums = _window_sums_doubling(profiles, w)
+    else:
+        ext = torch.cat([profiles, profiles[..., : w - 1]], dim=-1) \
+            if w > 1 else profiles
+        cs = torch.cumsum(ext, dim=-1)
+        cz = torch.cat([torch.zeros_like(cs[..., :1]), cs], dim=-1)
+        sums = cz[..., w: w + nbin] - cz[..., :nbin]
     return torch.roll(sums, shift, dims=-1) if shift else sums
 
 
 def baseline_offsets(profiles, duty=0.15):
     """Per-profile baseline level of ``baseline_mode='profile'``: the
     mean of the ``round(duty * nbin)``-bin circular window with the
-    smallest mean."""
+    smallest mean.  In the fixed-order form by :func:`_block_windows`, a
+    piece of profiles at a time (:data:`_ROTATE_CHUNK_ELEMS` each), so
+    that its temporaries stay a
+    few pieces' and not a few cubes'; each profile's sums are its own,
+    so the pieces change no bit."""
     from iterative_cleaner_torch.ops.psrchive_baseline import window_width
 
-    w = window_width(profiles.shape[-1], duty)
-    return torch.min(circular_window_sums(profiles, w), dim=-1).values / w
+    nbin = profiles.shape[-1]
+    w = window_width(nbin, duty)
+    if not fixed_order_windows(profiles):
+        return window_means(torch.min(circular_window_sums(profiles, w),
+                                      dim=-1).values, w, profiles)
+    rows = profiles.reshape(-1, nbin)
+    step = max(1, _ROTATE_CHUNK_ELEMS // nbin)
+    mins = []
+    for r in range(0, rows.shape[0], step):
+        parts = [p.amin(dim=-1) for p in _block_windows(rows[r: r + step], w)]
+        mins.append(torch.stack(parts).amin(dim=0))
+    return window_means(torch.cat(mins).reshape(profiles.shape[:-1]), w,
+                        profiles)
 
 
 def remove_baseline(profiles, duty=0.15):

@@ -22,9 +22,13 @@ def window_width(nbin: int, duty: float) -> int:
 
 def centred_window_means(profiles, w: int):
     """Mean of the ``w``-bin circular window centred at every bin."""
-    from iterative_cleaner_torch.ops.dsp import circular_window_sums
+    from iterative_cleaner_torch.ops.dsp import (
+        circular_window_sums,
+        window_means,
+    )
 
-    return circular_window_sums(profiles, w, centred=True) / w
+    return window_means(circular_window_sums(profiles, w, centred=True), w,
+                        profiles)
 
 
 def integration_window_centres(total_profiles, duty: float):
@@ -36,22 +40,48 @@ def integration_window_centres(total_profiles, duty: float):
 def baseline_offsets_integration(cube, weights, duty: float, mesh=None):
     """Per-(subint, channel) baseline levels, (nsub, nchan).
 
-    Each channel's level is its mean over the subint's shared window:
-    the cube contracted with the subint's 0/1 window row, then ``/ w`` —
+    Each channel's level is its mean over the subint's shared window,
     the column of the reference's circulant window-sum matmul at the
-    centre bin, without forming the other ``nbin - 1`` columns.  On a
-    cell ``mesh`` (a rank's shard) the weighted total profile sums over
-    the channel blocks of the rank's row."""
-    nbin = cube.shape[-1]
+    centre bin, without forming the other ``nbin - 1`` columns: the cube
+    contracted with the subint's 0/1 window row, then ``/ w``; in float32
+    past 1024 bins (:func:`~iterative_cleaner_torch.ops.dsp.
+    fixed_order_windows`) the window's ``w`` bins gathered in the
+    window's order and summed by :func:`~iterative_cleaner_torch.ops.
+    dsp.tree_sum` instead, a :func:`~iterative_cleaner_torch.ops.dsp.
+    subint_chunks` piece at a time (a fixed tree of elementwise adds: the
+    same bits on the CPU and the card, and in a tile, a shard or a batch
+    as in the whole archive; the contraction over 32,768 bins lay 1e-5
+    of the offsets' scale from float64 on the card).  On a cell ``mesh``
+    (a rank's shard) the weighted total profile sums over the channel
+    blocks of the rank's row."""
+    from iterative_cleaner_torch.ops.dsp import (
+        fixed_order_windows,
+        subint_chunks,
+        tree_sum,
+        window_means,
+    )
+
+    nsub, nchan, nbin = cube.shape
     w = window_width(nbin, duty)
     total = torch.einsum("sc,scb->sb", weights, cube)
     if mesh is not None:
         total = mesh.total(total, "chan")
     centres = integration_window_centres(total, duty)
-    j = torch.arange(nbin, device=cube.device)
-    window = torch.remainder(j[None, :] - centres[:, None] + w // 2,
-                             nbin) < w
-    return torch.einsum("scb,sb->sc", cube, window.to(cube.dtype)) / w
+    if not fixed_order_windows(cube):
+        j = torch.arange(nbin, device=cube.device)
+        window = torch.remainder(j[None, :] - centres[:, None] + w // 2,
+                                 nbin) < w
+        sums = torch.einsum("scb,sb->sc", cube, window.to(cube.dtype))
+        return window_means(sums, w, cube)
+    bins = torch.remainder(
+        centres[:, None] - w // 2 + torch.arange(w, device=cube.device),
+        nbin)
+    out = cube.new_empty((nsub, nchan))
+    for sl in subint_chunks(nsub, nchan, nbin):
+        rows = torch.gather(cube[sl], -1,
+                            bins[sl, None, :].expand(-1, nchan, -1))
+        out[sl] = tree_sum(rows)
+    return window_means(out, w, cube)
 
 
 def template_correction(disp_clean, base_offsets, weights, duty,

@@ -189,6 +189,16 @@ struct ResDisp {
     const R base = NYQ ? v + nq * __ldg(nr + b) : v;
     return (amp * __ldg(rt + b) - base) * wc;
   }
+  // fit() and at() on the cube's value v at bin b, the row kept by the
+  // caller (the FFT build, cell_fft.cu: its own shared-memory layout)
+  __device__ void fitv(R v, int b, R& tp, R& q) const {
+    tp += v * __ldg(rt + b);
+    q += (b & 1) ? -v : v;
+  }
+  __device__ R atv(R v, int b) const {
+    const R base = NYQ ? v + nq * __ldg(nr + b) : v;
+    return (amp * __ldg(rt + b) - base) * wc;
+  }
 };
 
 // K7 (_cell_stats_kernel): tp = <ded, t>, (amp * rot_t - disp_base) * w.
@@ -222,6 +232,9 @@ struct ResTwoRead {
   __device__ R at(const T*, int b) const {
     return (amp * __ldg(rt + b) - icln_ldr(y + b)) * wc;
   }
+  // the FFT build's forms (v unused: both cubes are read here)
+  __device__ void fitv(R, int b, R& tp, R&) const { tp += icln_ldr(x + b) * __ldg(t + b); }
+  __device__ R atv(R, int b) const { return (amp * __ldg(rt + b) - icln_ldr(y + b)) * wc; }
 };
 
 // K6 (_wres_dedisp): ((amp * t - ded) * window) * w
@@ -250,6 +263,9 @@ struct ResDedisp {
   __device__ R at(const T* row, int b) const {
     return ((amp * __ldg(t + b) - icln_real(row[b])) * __ldg(win + b)) * wc;
   }
+  // the FFT build's forms on the cube's value v at bin b
+  __device__ void fitv(R v, int b, R& tp, R&) const { tp += v * __ldg(t + b); }
+  __device__ R atv(R v, int b) const { return ((amp * __ldg(t + b) - v) * __ldg(win + b)) * wc; }
 };
 
 // Byte offsets of the block's shared memory (kernels.cell_stats_smem

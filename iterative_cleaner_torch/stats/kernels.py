@@ -83,8 +83,8 @@ time.
 The cell diagnostics (K2, K6, K7 and K10) take one of two builds by the
 profile's length, with no knob (:func:`cell_stats_route`): up to
 ``MAX_NBIN`` bins (``MAX_NBIN_F64`` in float64) the DFT kernels of
-``cell_stats.cuh``; past it the FFT build K2f (``cell_fft.cu``: one block
-or one thread-block cluster a cell, the spectrum by an rFFT in shared
+``cell_stats.cuh``; past it the FFT build K2f (``cell_fft.cu``: one
+thread-block cluster a cell, the spectrum by an rFFT in shared
 memory), counted apart under the same wrapper (``launches_fft``,
 ``launches_fft_bf16``, ``launches_fft_f64``; ``<name>_fft``,
 ``<name>_fft_bf16`` and ``<name>_fft_f64`` in :func:`launch_counts`).
@@ -1047,32 +1047,36 @@ shard_diagnostics_dedisp.launches_f64 = 0
 
 
 # --------------------------------------------------------------------------
-# K2f's launch plan: one block a cell, or one thread-block cluster
-# (cell_fft.cu); the twiddles
+# K2f's launch plan: one thread-block cluster a cell (cell_fft.cu); the
+# two-level twiddle table
 # --------------------------------------------------------------------------
 
 # N = 2^a x an odd part of FFT_ODD_PARTS (one radix-3 or radix-5 stage
-# beside the radix-2 ones); a cell is one block or a cluster of
-# FFT_CLUSTER_SIZES[1:] blocks (the portable sizes), each holding its
-# slice of the row in place (4 or 8 bytes a bin) beside
-# FFT_STATIC_SMEM bytes of static shared memory (the reductions' partials,
-# under 1 KB).  The plan takes one block of FFT_THREADS (FFT_THREADS_F64)
-# where the row fits, else the largest cluster of FFT_CLUSTER_THREADS a
-# block: in tools/time_cell_fft.py's sweep over every size and width on
-# an H100 (8 x 256 cells), 8 blocks of 256 threads beat the fewest blocks
-# that fit (2 of 1024) by 15% at 65,536 float32 bins, and 8 of 256 came
-# within 2% of the best float64 plan at 32,768, 12% under 2 of 512.
+# beside the radix-2 ones); a cell is a cluster of FFT_CLUSTER_SIZES
+# blocks (the portable sizes), each holding its slice of the row in place
+# (4 or 8 bytes a bin) and the two-level twiddle table
+# (:func:`_fft_twiddles`) beside FFT_STATIC_SMEM bytes of static shared
+# memory (the reductions' partials, under 2 KB).  The plan takes the
+# fewest blocks a cell whose slices hold at most FFT_SLICE_BINS bins (the
+# largest cluster where no size gets there), FFT_PLAN_THREADS a block,
+# from tools/time_cell_fft.py's sweeps on an H100 (every cluster size, 128
+# and 256 threads; PERF.md §6): the fastest plan at 8 x 256 x 65536
+# in both dtypes (clusters of 8) and at 8 x 256 x 16,384 (float32) and
+# 32,768 (float64), and within 7% of the fastest at 8 x 256 cells of
+# 16,384 to 32,768 bins and at 32 x 256 x 24,576, in both dtypes.  At
+# 256 cells of 24,576 float32 bins (a 0.2 ms launch whose plans reorder
+# from run to run) it was the fastest in one sweep and 22% behind it in
+# another.
 FFT_ODD_PARTS = (1, 3, 5)
-FFT_CLUSTER_SIZES = (1, 2, 4, 8)
-FFT_THREADS = 1024       # cell_fft.cu's ICLN_FFT_THREADS
-FFT_THREADS_F64 = 512    # ICLN_FFT_THREADS_F64
-FFT_CLUSTER_THREADS = 256
-FFT_STATIC_SMEM = 1024
+FFT_CLUSTER_SIZES = (2, 4, 8)
+FFT_SLICE_BINS = 8192
+FFT_PLAN_THREADS = 128
+FFT_STATIC_SMEM = 2048
 
 
 class CellFftPlan(NamedTuple):
     """The FFT build's launch (``cell_fft.cu``): ``cluster`` blocks a
-    cell (1: one block), ``odd`` the odd part P of nbin (nbin/2 = P *
+    cell, ``odd`` the odd part P of nbin (nbin/2 = P *
     2^m), ``threads`` a block and ``smem`` bytes of dynamic shared memory
     a block (its 1/``cluster`` of the row)."""
     cluster: int
@@ -1087,12 +1091,42 @@ def _odd_part(n: int) -> int:
     return n
 
 
+def _fft_table_lt(nbin: int) -> int:
+    """log2 of the twiddle table's low part at ``nbin`` bins: half of
+    ceil(log2 nbin) (cell_fft.cu's icln_fft_table_lt)."""
+    return (nbin - 1).bit_length() // 2
+
+
+def _fft_table_len(nbin: int) -> int:
+    """The two-level twiddle table's entries: 2^lt low ones and
+    ceil(nbin / 2^lt) high ones."""
+    t = 1 << _fft_table_lt(nbin)
+    return t + -(-nbin // t)
+
+
+def _fft_table_slots(nbin: int) -> int:
+    """The twiddle table's entries in shared memory: the high part padded
+    to a whole run of 16 (the swizzle's; cell_fft.cu's
+    icln_fft_table_slots)."""
+    t = 1 << _fft_table_lt(nbin)
+    return t + (-(-nbin // t) + 15) // 16 * 16
+
+
+def _fft_smem(nbin: int, cluster: int, realsize: int) -> int:
+    """A block's dynamic shared memory: its slice of the row and the
+    twiddle table (complex entries of ``realsize``-byte parts), in 16-byte
+    words."""
+    row = nbin * realsize // cluster + 2 * realsize * _fft_table_slots(nbin)
+    return -(-row // 16) * 16
+
+
 def _fft_fits(nbin: int, cluster: int, realsize: int) -> bool:
     """Whether ``cluster`` blocks take a row of ``nbin``: the power of two
-    of nbin/2 splits into 2 * cluster slices, and a slice fits a block."""
+    of nbin/2 splits into 2 * cluster slices, and a slice fits a block
+    beside the twiddle table."""
     lpow = nbin // 2 // _odd_part(nbin)
     return (lpow % (2 * cluster) == 0
-            and -(-nbin * realsize // cluster // 16) * 16 + FFT_STATIC_SMEM
+            and _fft_smem(nbin, cluster, realsize) + FFT_STATIC_SMEM
             <= _SMEM_LIMIT)
 
 
@@ -1103,8 +1137,7 @@ def cell_fft_capacity(realsize: int = 4, odd: int = 1) -> int:
     bins (196,608 and 163,840)."""
     cap, n = 0, 4 * odd
     while n * realsize // FFT_CLUSTER_SIZES[-1] <= _SMEM_LIMIT:
-        if any(_fft_fits(n, c, realsize)
-               for c in (1, FFT_CLUSTER_SIZES[-1])):
+        if _fft_fits(n, FFT_CLUSTER_SIZES[-1], realsize):
             cap = n
         n *= 2
     return cap
@@ -1113,24 +1146,26 @@ def cell_fft_capacity(realsize: int = 4, odd: int = 1) -> int:
 @functools.lru_cache(maxsize=64)
 def cell_fft_plan(nbin: int, itemsize: int = 4) -> CellFftPlan:
     """The FFT build's :class:`CellFftPlan` at ``nbin`` for a cube of
-    ``itemsize``-byte elements (8: float64 rows and twiddles): one block a
-    cell where the row fits, else a cluster of FFT_CLUSTER_SIZES[-1]
-    blocks of FFT_CLUSTER_THREADS.
+    ``itemsize``-byte elements (8: float64 rows and twiddles): the fewest
+    blocks a cell (of FFT_CLUSTER_SIZES) whose slices of the row hold at
+    most FFT_SLICE_BINS bins, else the largest cluster; FFT_PLAN_THREADS a
+    block.
     NotImplementedError naming ROADMAP item 9 where nbin's odd part is
-    not 1, 3 or 5 (or nbin/2 has no factor 2) or the row is past
+    not 1, 3 or 5 (or nbin/2 has no factor 4: a cluster of 2 takes a
+    quarter of it a block) or the row is past
     :func:`cell_fft_capacity`."""
     realsize = 8 if itemsize == 8 else 4
     odd = _odd_part(nbin)
-    if odd not in FFT_ODD_PARTS or nbin < 4 * odd:
+    if odd not in FFT_ODD_PARTS or nbin < 8 * odd:
         raise NotImplementedError(
             f"nbin {nbin}: the FFT build takes 2^a x 1, 3 or 5 bins (a >= "
-            f"2); this one's odd part is {odd} ({_ITEM9})")
-    for cluster, threads in ((1, FFT_THREADS_F64 if realsize == 8
-                              else FFT_THREADS),
-                             (FFT_CLUSTER_SIZES[-1], FFT_CLUSTER_THREADS)):
-        if _fft_fits(nbin, cluster, realsize):
-            return CellFftPlan(cluster, odd, threads,
-                               -(-nbin * realsize // cluster // 16) * 16)
+            f"3); this one's odd part is {odd} ({_ITEM9})")
+    for cluster in FFT_CLUSTER_SIZES:
+        if _fft_fits(nbin, cluster, realsize) and (
+                nbin // cluster <= FFT_SLICE_BINS
+                or cluster == FFT_CLUSTER_SIZES[-1]):
+            return CellFftPlan(cluster, odd, FFT_PLAN_THREADS,
+                               _fft_smem(nbin, cluster, realsize))
     raise NotImplementedError(
         f"nbin {nbin}: past the FFT build's capacity "
         f"({cell_fft_capacity(realsize, odd)} bins of odd part {odd} in "
@@ -1139,11 +1174,14 @@ def cell_fft_plan(nbin: int, itemsize: int = 4) -> CellFftPlan:
 
 @functools.lru_cache(maxsize=8)
 def _fft_twiddles(nbin: int, device: str, dtype=torch.float32):
-    """The (nbin/2, 2) twiddles W_N^j = (cos, sin)(-2 pi j / N) the FFT
-    build reads: computed in float64 on the host, rounded to the
+    """The FFT build's two-level twiddle table, (T + ceil(N / T), 2) with
+    T = 2^:func:`_fft_table_lt`: W_N^j = (cos, sin)(-2 pi j / N) for j < T,
+    then W_N^(h T) for each h, so that W_N^e = W_N^(e >> lt) W_N^(e & (T -
+    1)) for every e < N; computed in float64 on the host, rounded to the
     arithmetic ``dtype``."""
-    j = np.arange(nbin // 2, dtype=np.float64)
-    ang = (-2.0 * np.pi / nbin) * j
+    t = 1 << _fft_table_lt(nbin)
+    j = np.concatenate([np.arange(t), t * np.arange(-(-nbin // t))])
+    ang = (-2.0 * np.pi / nbin) * j.astype(np.float64)
     tw = np.stack([np.cos(ang), np.sin(ang)], axis=1)
     return torch.from_numpy(tw).to(device=device, dtype=dtype).contiguous()
 

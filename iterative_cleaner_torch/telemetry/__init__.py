@@ -32,7 +32,7 @@ far as the CLI session uses it:
   ``torch.profiler`` captures (``--profile-dir``, ``POST /profile``).
 
 The benchmark tracker is not ported (ROADMAP.md 'Modules still to port'
-item 8c).
+item 2a, the bench entry point).
 """
 
 from __future__ import annotations

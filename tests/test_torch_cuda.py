@@ -101,8 +101,8 @@ float64 upcast, extra op and cube copy caught; the single-cube-read
 launch counters equal to each route's kernels, once an iteration.
 The FFT build of the cell diagnostics past the DFT tables (K2f,
 ``cell_fft.cu``): every entry (K2 with and without the Nyquist term, K7,
-K6, K10's two) in float32, bf16 and float64, one block a cell, a
-thread-block cluster and the radix-3 stage, within 1e-4 of each plane's
+K6, K10's two) in float32, bf16 and float64, thread-block clusters of
+2, 4 and 8 and the radix-3 stage, within 1e-4 of each plane's
 scale (1e-12 in float64), masked cells exact, one launch under its
 ``_fft`` counter; K10's bit-equal to K2's and K6's, a batch bit-equal to
 single launches, bf16 bit-equal to float32 on the upcast cube; long-
@@ -2066,10 +2066,11 @@ def test_single_cube_read_counters_match_the_route_kernels(card, name,
 
 # ---- the FFT build of the cell diagnostics past the DFT tables (K2f) ----
 
-FFT_SHAPES = {   # storage: (one block, a cluster, the radix-3 stage)
+FFT_SHAPES = {   # storage: (a cluster of 4 (float64: 2), a cluster of 8,
+    #               the radix-3 stage on a cluster of 4)
     torch.float32: ((4, 16, 32768), (2, 8, 65536), (2, 8, 24576)),
     torch.bfloat16: ((4, 16, 32768), (2, 8, 65536), (2, 8, 24576)),
-    torch.float64: ((4, 16, 16384), (2, 8, 32768), (2, 8, 24576)),
+    torch.float64: ((4, 16, 16384), (2, 8, 65536), (2, 8, 24576)),
 }
 
 
@@ -2144,13 +2145,14 @@ def _fft_planes_close(got, want, mask, rtol):
 @pytest.mark.parametrize("storage", list(FFT_SHAPES))
 @pytest.mark.parametrize("kind", [0, 1, 2])
 def test_fft_build_matches_plain_on_card(card, storage, kind):
-    """Every entry of the FFT build (one block a cell, a cluster, the
+    """Every entry of the FFT build (clusters of 2 or 4, of 8, the
     radix-3 stage) within 1e-4 of each plane's scale (1e-12 in float64),
     masked cells exact, one launch under its ``_fft`` counter."""
     nsub, nchan, nbin = FFT_SHAPES[storage][kind]
     ops = _fft_operands(card, (), nsub, nchan, nbin, storage, nbin % 89)
     plan = tk.cell_fft_plan(nbin, ops[0].element_size())
-    assert (plan.cluster > 1) == (kind == 1)
+    want = (2 if storage == torch.float64 else 4, 8, 4)[kind]
+    assert (plan.cluster, plan.odd) == (want, 3 if kind == 2 else 1)
     sfx = {torch.bfloat16: "_bf16", torch.float64: "_f64"}.get(storage, "")
     rtol = 1e-12 if storage == torch.float64 else 1e-4
     for name, kfn, pfn in _fft_forms(ops):
@@ -2219,16 +2221,21 @@ def _long_archive(nbin, seed=41):
     return ar
 
 
+def _score_err(got, want):
+    """Largest |got - want| / (|want| + 1e-3) over cells."""
+    return float(np.max(np.abs(got - want) / (np.abs(want) + 1e-3)))
+
+
 def _assert_long_clean(got, ar, kw):
     """Masks and loops equal to the CPU clean's (as chip_smoke's phase 3f
     holds long profiles), scores finite; float64 scores within 1e-9 of
-    the CPU's.  The float32 scores are not compared: on these 4 x 8
-    archives the card's lie about 10x farther from the float64 clean than
-    the CPU's (0.0165 against 0.0016, relative with a 1e-3 floor, on the
-    default route), from the integration baseline's offsets, a float32
-    contraction over the bins that the card sums less exactly (ROADMAP
-    section 3); the FFT build itself matches its plain version on the
-    card's own inputs."""
+    the CPU's; float32 scores no farther from the CPU's float64 clean
+    than the CPU's float32 scores are, by more than 1e-3 (relative, with
+    a 1e-3 floor, as tests/test_torch_long_profiles.py holds the port to
+    the reference).  The baselines' window sums are fixed trees of
+    elementwise adds, the same bits on both devices (ROADMAP section 3
+    (f), repaired): a float32 contraction over the bins had put the
+    card's scores about 10x farther (0.0165 against 0.0016)."""
     want = clean_archive(ar, CleanConfig(device="cpu", **kw))
     np.testing.assert_array_equal(got.final_weights == 0,
                                   want.final_weights == 0)
@@ -2237,6 +2244,40 @@ def _assert_long_clean(got, ar, kw):
     if kw.get("dtype") == "float64":
         np.testing.assert_allclose(got.scores, want.scores, rtol=1e-9,
                                    atol=1e-9)
+        return
+    f64 = clean_archive(ar, CleanConfig(**{**kw, "device": "cpu",
+                                           "dtype": "float64"}))
+    assert _score_err(got.scores, f64.scores) \
+        <= _score_err(want.scores, f64.scores) + 1e-3
+
+
+@pytest.mark.parametrize("nbin", [128, 32768])
+def test_baseline_offsets_on_card_bit_equal_to_cpu(card, nbin):
+    """The integration and profile baselines' offsets of a float32 cube
+    past 1024 bins on the card bit-equal to the CPU's (fixed trees of
+    elementwise adds) and within 3e-7 of the float64 offsets' scale; at
+    128 bins (the library's contraction and the circulant matmul, as the
+    reference sums them) within 1e-6 of the CPU's."""
+    from iterative_cleaner_torch.ops import dsp
+    from iterative_cleaner_torch.ops.psrchive_baseline import (
+        baseline_offsets_integration,
+    )
+
+    ar = _long_archive(nbin)
+    cube = np.array(ar.total_intensity(), dtype=np.float64)
+    w = np.array(ar.weights, dtype=np.float64)
+    for name, fn in (("integration", lambda c, x: baseline_offsets_integration(
+            c, x, 0.15)), ("profile", lambda c, x: dsp.baseline_offsets(c))):
+        want64 = fn(torch.from_numpy(cube), torch.from_numpy(w))
+        c32, w32 = (torch.from_numpy(a.astype(np.float32)) for a in (cube, w))
+        cpu = fn(c32, w32)
+        got = fn(c32.to(card), w32.to(card)).cpu()
+        scale = float(want64.abs().max())
+        if nbin <= 1024:
+            assert float((got - cpu).abs().max()) <= 1e-6 * scale, name
+            continue
+        assert torch.equal(got, cpu), name
+        assert float((got.double() - want64).abs().max()) <= 3e-7 * scale
 
 
 @pytest.mark.parametrize("case", list(LONG_CLEANS))

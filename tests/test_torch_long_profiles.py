@@ -28,8 +28,10 @@ float64), against the JAX package.
   dedispersed frame) and the port's up to 0.004; at 24,576 bins both
   lie 0.086 from them on one cell.
 - The route and the FFT build's plan: the DFT route up to 16,384 bins
-  (8,192 in float64), one block a cell at 20,480 (odd part 5), 32,768 and
-  49,152, a thread-block cluster at 65,536 and 262,144; NotImplementedError
+  (8,192 in float64), the fewest blocks a cell (a cluster of 2, 4 or 8)
+  whose slices hold at most 8192 bins (2 at 8,192 and 16,384 float64
+  bins; 4 at 20,480 (odd part 5), 24,576 and 32,768; 8 at 49,152, 65,536
+  and 262,144), 128 threads a block; NotImplementedError
   naming ROADMAP item 9 at 16,411 (a prime factor over 5) and past the
   build's capacity, raised before anything is launched; K1's plan fits
   at 65,536 bins in float32, bf16 and float64; a failed FFT launch
@@ -285,24 +287,31 @@ def test_route_by_shape(nbin, itemsize, route):
 
 
 @pytest.mark.parametrize("nbin,itemsize,cluster,odd", [
-    (20480, 4, 1, 5), (32768, 4, 1, 1), (49152, 4, 1, 3),
-    (65536, 4, 8, 1), (262144, 4, 8, 1), (16384, 8, 1, 1),
-    (32768, 8, 8, 1), (131072, 8, 8, 1), (24576, 2, 1, 3)])
+    (20480, 4, 4, 5), (32768, 4, 4, 1), (49152, 4, 8, 3),
+    (65536, 4, 8, 1), (262144, 4, 8, 1), (16384, 8, 2, 1),
+    (32768, 8, 4, 1), (131072, 8, 8, 1), (24576, 2, 4, 3),
+    (8192, 4, 2, 1), (4096, 8, 2, 1), (12288, 4, 2, 3), (65536, 8, 8, 1),
+    (24576, 8, 4, 3)])
 def test_fft_plan(nbin, itemsize, cluster, odd):
     plan = tk.cell_fft_plan(nbin, itemsize)
     realsize = 8 if itemsize == 8 else 4
     assert (plan.cluster, plan.odd) == (cluster, odd)
-    assert plan.smem == nbin * realsize // cluster
+    # a block's slice of the row and the two-level twiddle table, its
+    # high part padded to a whole run of the swizzle
+    slots = tk._fft_table_slots(nbin)
+    assert tk._fft_table_len(nbin) <= slots < tk._fft_table_len(nbin) + 16
+    assert plan.smem == -(-(nbin * realsize // cluster + 2 * realsize
+                            * slots) // 16) * 16
     assert plan.smem + tk.FFT_STATIC_SMEM <= tk._SMEM_LIMIT
-    # one block of the most threads where the row fits, else a cluster
-    # of the largest portable size with 256 threads a block
-    assert plan.threads == (256 if cluster > 1
-                            else 512 if realsize == 8 else 1024)
+    # the fewest blocks whose slices hold at most 8192 bins (the largest
+    # cluster where none does), 128 threads a block (the plan sweep's)
+    assert plan.threads == tk.FFT_PLAN_THREADS == 128
+    assert nbin // cluster <= tk.FFT_SLICE_BINS == 8192 or cluster == 8
+    if cluster > 2:
+        assert nbin // (cluster // 2) > tk.FFT_SLICE_BINS
     # the power of two of nbin/2 splits into 2 * cluster slices
     lpow = nbin // 2 // odd
     assert lpow & (lpow - 1) == 0 and lpow % (2 * cluster) == 0
-    if cluster > 1:
-        assert nbin * realsize + tk.FFT_STATIC_SMEM > tk._SMEM_LIMIT
 
 
 @pytest.mark.parametrize("nbin,itemsize", [

@@ -1,11 +1,12 @@
 """Trace where a float32 clean on the card parts from the float32 clean
 on the CPU: the first iteration's stages (dispersion shifts, the
-integration baseline's offsets, the prepared cube, K1's marginals, the
-template, the rotated template rows, the four diagnostic planes, the
-scores), each as its largest distance from the float64 CPU clean's over
-that stage's float64 scale, on the card and on the CPU; then the card's
-cell diagnostics on the CPU's float32 inputs; then the whole cleans'
-scores against the float64 clean's.
+integration baseline's offsets, on the profile route the profile
+baseline's offsets and the baseline-removed cube, the prepared cube,
+K1's marginals, the template, the rotated template rows, the four
+diagnostic planes, the scores), each as its largest distance from the
+float64 CPU clean's over that stage's float64 scale, on the card and on
+the CPU; then the card's cell diagnostics on the CPU's float32 inputs;
+then the whole cleans' scores against the float64 clean's.
 
     python tools/trace_float32_stages.py [--shape NSUB NCHAN NBIN]
         [--seed S]
@@ -34,6 +35,7 @@ def _first_iteration(ar, cfg, dev):
     subtraction leaves ``ar`` as it is); returns the stages on the CPU in
     float64, and the prepared operands."""
     import iterative_cleaner_torch.engine.loop as loop
+    from iterative_cleaner_torch.ops import dsp
     from iterative_cleaner_torch.stats import kernels as K
 
     npd = np.float64 if cfg.dtype == "float64" else np.float32
@@ -43,10 +45,17 @@ def _first_iteration(ar, cfg, dev):
     meta += [torch.tensor(v, dtype=real, device=dev)
              for v in (ar.dm, ar.centre_freq_mhz, ar.period_s)]
     cube = torch.from_numpy(np.array(ar.total_intensity(), dtype=npd)).to(dev)
+    st = {}
+    if cfg.baseline_mode == "profile":
+        # the profile route's own stages: each profile's baseline level
+        # and the cube with it removed (before the dedispersion)
+        st["profile offsets"] = dsp.baseline_offsets(cube,
+                                                     cfg.baseline_duty)
+        st["baseline-removed"] = cube - st["profile offsets"][..., None]
     prep = loop.prepare(cube, w, *meta, cfg, dedispersed=ar.dedispersed)
     t = loop.build_template(prep, w, rotation=cfg.rotation,
                             baseline_duty=cfg.baseline_duty)
-    st = {"shifts": prep.back_shifts, "offsets": prep.base_offsets}
+    st.update({"shifts": prep.back_shifts, "offsets": prep.base_offsets})
     if prep.route == "default":
         st["disp_base"] = prep.disp_base
         st["K1 A"], st["K1 t1"] = K.weighted_marginals(prep.disp_base, w)
