@@ -152,31 +152,37 @@ SHARD_KERNELS = {
     "two_read": ROUTE_KERNELS["two_read"],
     "dedispersed": ("shard_diagnostics_dedisp", "combine_zap"),
 }
-# Past the DFT tables (stats.kernels.cell_stats_route "fft": more than
-# 16,384 bins, 8,192 in float64) every route's cell-diagnostics kernel
-# runs its FFT build (csrc/cell_fft.cu), counted as ``<name>_fft`` in its
-# place (:func:`spectrum_kernels`).
-FFT_KERNELS = {k: k + "_fft" for k in (
-    "cell_diagnostics_disp", "cell_diagnostics_two_read",
-    "cell_diagnostics_dedisp", "shard_diagnostics_disp",
-    "shard_diagnostics_dedisp")}
+# Past the DFT tables (more than 16,384 bins, 8,192 in float64) every
+# route's cell-diagnostics kernel runs one of its FFT builds, counted in
+# its place (:func:`spectrum_kernels`): the cluster build
+# (stats.kernels.cell_stats_route "fft", csrc/cell_fft.cu) as
+# ``<name>_fft``, the device-memory build ("fft_global",
+# csrc/cell_fft_global.cu) as ``<name>_fftg``.
+_SPECTRUM_KERNELS = ("cell_diagnostics_disp", "cell_diagnostics_two_read",
+                     "cell_diagnostics_dedisp", "shard_diagnostics_disp",
+                     "shard_diagnostics_dedisp")
+FFT_KERNELS = {k: k + "_fft" for k in _SPECTRUM_KERNELS}
+FFTG_KERNELS = {k: k + "_fftg" for k in _SPECTRUM_KERNELS}
 # The kernels that read the cube, each with a build for a bf16-stored
 # cube counted apart (``<name>_bf16`` in stats.kernels.launch_counts).
 CUBE_KERNELS = ("weighted_marginals", "cell_diagnostics_disp",
                 "cell_diagnostics_two_read", "cell_diagnostics_dedisp",
                 "shard_diagnostics_disp", "shard_diagnostics_dedisp",
-                *FFT_KERNELS.values())
+                *FFT_KERNELS.values(), *FFTG_KERNELS.values())
 
 
 def spectrum_kernels(kernels, nbin: int, dtype: str = "float32") -> tuple:
     """The launch-count names ``kernels`` (of :data:`ROUTE_KERNELS` and
     the others) run under at ``nbin`` bins: each cell-diagnostics kernel
-    under its FFT build's name (:data:`FFT_KERNELS`) where
-    ``stats.kernels.cell_stats_route`` takes the profiles past the DFT
-    tables (``dtype`` ``"float64"``: the float64 limit)."""
-    if cell_stats_route(nbin, 8 if dtype == "float64" else 4) == "dft":
+    under its FFT build's name (:data:`FFT_KERNELS` or
+    :data:`FFTG_KERNELS`) where ``stats.kernels.cell_stats_route`` takes
+    the profiles past the DFT tables (``dtype`` ``"float64"``: the
+    float64 limits)."""
+    route = cell_stats_route(nbin, 8 if dtype == "float64" else 4)
+    if route == "dft":
         return tuple(kernels)
-    return tuple(FFT_KERNELS.get(k, k) for k in kernels)
+    names = FFT_KERNELS if route == "fft" else FFTG_KERNELS
+    return tuple(names.get(k, k) for k in kernels)
 
 
 def storage_kernels(kernels, compute_dtype: str,

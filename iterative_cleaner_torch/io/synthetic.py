@@ -74,6 +74,51 @@ def _disperse_cube(cube, freqs_mhz, dm, ref_freq_mhz, period_s):
     return np.fft.irfft(spec * phase, n=nbin, axis=-1).astype(cube.dtype)
 
 
+def _dispersion_phase(freqs_mhz, dm, ref_freq_mhz, period_s, nbin, device):
+    """:func:`_disperse_cube`'s phase ramp, (nchan, nbin/2 + 1), in torch
+    complex128 on ``device``."""
+    import torch
+
+    freqs = np.asarray(freqs_mhz, dtype=np.float64)
+    delay_s = KDM_S * dm * (freqs ** -2.0 - ref_freq_mhz ** -2.0)
+    shift = torch.from_numpy(delay_s / period_s * nbin).to(device)
+    k = torch.arange(nbin // 2 + 1, dtype=torch.float64, device=device)
+    return torch.exp(-2j * np.pi * k[None, :] * shift[:, None] / nbin)
+
+
+def _disperse_rows_torch(x, phase):
+    """:func:`_disperse_cube`'s rotation of the (..., nchan, nbin) float64
+    tensor ``x`` (the same formula in torch; another FFT's rounding)."""
+    import torch
+
+    spec = torch.fft.rfft(x, dim=-1) * phase
+    return torch.fft.irfft(spec, n=x.shape[-1], dim=-1)
+
+
+def _noisy_cube_torch(clean_row, nsub, noise_sigma, baseline_level, seed,
+                      phase, device):
+    """The clean pulse (one subint's (nchan, nbin) rows) plus Gaussian
+    noise drawn on ``device`` (a torch generator seeded with ``seed``:
+    another stream than numpy's) plus the baseline, each subint
+    dispersed there with ``phase`` (None: not dispersed), as a float64
+    numpy cube: a long profile's cube in seconds where numpy takes
+    minutes (a prime length's FFT)."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(seed)
+    clean = torch.from_numpy(np.ascontiguousarray(clean_row,
+                                                  dtype=np.float64)).to(device)
+    out = np.empty((nsub,) + clean.shape, dtype=np.float64)
+    for s in range(nsub):
+        x = clean + noise_sigma * torch.randn(
+            clean.shape, generator=g, dtype=torch.float64, device=device)
+        x = x + baseline_level
+        if phase is not None:
+            x = _disperse_rows_torch(x, phase)
+        out[s] = x.cpu().numpy()
+    return out
+
+
 def make_synthetic_archive(
     nsub: int = 16,
     nchan: int = 32,
@@ -94,13 +139,17 @@ def make_synthetic_archive(
     seed: int = 0,
     dtype=np.float64,
     disperse: bool = True,
+    device=None,
 ):
     """Build a dispersed, noisy archive with injected RFI.
 
     Returns ``(Archive, SyntheticTruth)``.  The pulse is a Gaussian in
     phase with a smooth per-channel spectral index; the cube is dispersed
     with the archive's DM so dedispersion has real work to do
-    (``disperse=False`` skips that rotation).
+    (``disperse=False`` skips that rotation).  ``device`` (a torch
+    device) draws the noise and runs the dispersion there
+    (:func:`_noisy_cube_torch`: another random stream than numpy's, the
+    same pulse, baseline, RFI rules and fields).
     """
     rng = np.random.default_rng(seed)
     freqs = centre_freq_mhz + bandwidth_mhz * (np.arange(nchan) / nchan - 0.5)
@@ -113,13 +162,18 @@ def make_synthetic_archive(
     spectrum = (freqs / centre_freq_mhz) ** -1.4
     amp = pulse_snr * noise_sigma
     clean = amp * spectrum[None, :, None] * profile[None, None, :]
-    clean = np.broadcast_to(clean, (nsub, nchan, nbin)).astype(dtype).copy()
-
-    noise = rng.normal(0.0, noise_sigma, size=(nsub, nchan, nbin))
-    cube = clean + noise + baseline_level
-
-    if disperse:
-        cube = _disperse_cube(cube, freqs, dm, centre_freq_mhz, period_s)
+    if device is not None:
+        phase_ramp = _dispersion_phase(freqs, dm, centre_freq_mhz, period_s,
+                                       nbin, device) if disperse else None
+        cube = _noisy_cube_torch(clean[0].astype(dtype), nsub, noise_sigma,
+                                 baseline_level, seed, phase_ramp, device)
+    else:
+        clean = np.broadcast_to(clean,
+                                (nsub, nchan, nbin)).astype(dtype).copy()
+        noise = rng.normal(0.0, noise_sigma, size=(nsub, nchan, nbin))
+        cube = clean + noise + baseline_level
+        if disperse:
+            cube = _disperse_cube(cube, freqs, dm, centre_freq_mhz, period_s)
 
     # --- inject RFI (after dispersion: RFI is not dispersed) ---
     if nsub * nchan > 65536:

@@ -58,7 +58,7 @@
 //                 FFT's first pass subtracts the mean as it loads each value
 //                 and sums the squares (folded in the same fixed order, the
 //                 blocks' partials met in the leader in rank order);
-//   the FFT       N/2 = P 2^m with P = 1, 3 or 5, decimation in frequency
+//   the FFT       N/2 = P 2^m with P = 3^a 5^b, decimation in frequency
 //                 in passes of 2^r-point butterflies held in registers: a
 //                 pass at stride s = P 2^x loads the 2^r values u0 P + v +
 //                 k s (k < 2^r) of one group, runs r radix-2 stages on them
@@ -76,12 +76,19 @@
 //                 remainder (a group whose offset i is 0 skips its unit
 //                 twiddles); at 65,536 float32 bins on a cluster of 8, one
 //                 cluster step and four local passes where the first design
-//                 ran 15 stages and 15 barriers.  Then one radix-P stage
-//                 on contiguous groups of P; Z[rev_m(s) + 2^m t] lands at
-//                 position s P + t.  Every span and
+//                 ran 15 stages and 15 barriers.  Then the odd part's
+//                 stages on contiguous groups of P, radix 5 while the span
+//                 holds a factor 5, then radix 3, each with its own
+//                 twiddles W_sp^(j t) from the table (icln_fft_odd; at P =
+//                 3 or 5 one stage, the first design's, its indices free
+//                 of run-time divisions); Z[rev_m(s) + 2^m
+//                 f(t)] lands at position s P + t, f(t) the odd stages'
+//                 digit reversal (icln_fft_odd_freq).  Every span and
 //                 slice is P times a power of two: positions are u P + v
 //                 with u's fields taken by shifts and masks, P a multiplier
-//                 (a template parameter only where it sizes registers);
+//                 (the radix a template parameter only where it sizes
+//                 registers); a slice is padded to a whole run of the
+//                 swizzle in shared memory;
 //   the twiddles  a group of 2^L values takes W_N^(m e1), m < 2^L: its L
 //                 powers of two from a two-level table, W_N^e = W_N^(e_hi
 //                 T) W_N^(e_lo), of T + N / T entries (T = 2^(ceil(log2 N)
@@ -127,7 +134,7 @@
 #include <mutex>
 #include <tuple>
 
-#include "cell_stats.cuh"
+#include "fft_common.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -160,47 +167,6 @@ __host__ __device__ constexpr int icln_fft_min_blocks() {
 template <class R>
 __host__ __device__ constexpr int icln_fft_sw() {
   return sizeof(R) == 8 ? 3 : 4;
-}
-
-template <class R>
-struct IclnCplx;
-
-template <>
-struct IclnCplx<float> {
-  using type = float2;
-};
-
-template <>
-struct IclnCplx<double> {
-  using type = double2;
-};
-
-template <class R>
-using icln_cplx_t = typename IclnCplx<R>::type;
-
-template <class C2>
-__device__ __forceinline__ C2 icln_cadd(C2 a, C2 b) {
-  C2 r;
-  r.x = a.x + b.x;
-  r.y = a.y + b.y;
-  return r;
-}
-
-template <class C2>
-__device__ __forceinline__ C2 icln_csub(C2 a, C2 b) {
-  C2 r;
-  r.x = a.x - b.x;
-  r.y = a.y - b.y;
-  return r;
-}
-
-// a * w, each part one multiply and one fused multiply-add
-template <class C2>
-__device__ __forceinline__ C2 icln_cmul(C2 a, C2 w) {
-  C2 r;
-  r.x = icln_fma(a.x, w.x, -(a.y * w.y));
-  r.y = icln_fma(a.x, w.y, a.y * w.x);
-  return r;
 }
 
 template <class R>
@@ -314,90 +280,6 @@ __device__ __forceinline__ void icln_cluster_wait() {
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
-struct IclnFftSum {
-  template <class R>
-  __device__ R operator()(R a, R b) const {
-    return a + b;
-  }
-};
-
-struct IclnFftMax {
-  template <class R>
-  __device__ R operator()(R a, R b) const {
-    return icln_max(a, b);
-  }
-};
-
-struct IclnFftMin {
-  template <class R>
-  __device__ R operator()(R a, R b) const {
-    return icln_min(a, b);
-  }
-};
-
-// A fixed-order block reduction: warp shuffles, then lane 0's partials of
-// the warps in order; every thread returns the same value.
-template <class R, class Op>
-__device__ __forceinline__ R icln_fft_fold(R v, R* red, Op op) {
-  for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_xor_sync(ICLN_FULL, v, o));
-  const int nw = blockDim.x >> 5;
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  R r = red[0];
-  for (int i = 1; i < nw; ++i) r = op(r, red[i]);
-  __syncthreads();  // red is free again
-  return r;
-}
-
-// Two or three fixed-order block reductions at once (one pair of
-// barriers): the sums a and b (the fit's dot products), or a sum, a max
-// and a min (the residual's).
-template <class R>
-__device__ __forceinline__ void icln_fft_fold2(R& a, R& b, R* red) {
-  for (int o = 16; o > 0; o >>= 1) {
-    a += __shfl_xor_sync(ICLN_FULL, a, o);
-    b += __shfl_xor_sync(ICLN_FULL, b, o);
-  }
-  const int nw = blockDim.x >> 5;
-  if ((threadIdx.x & 31) == 0) {
-    red[threadIdx.x >> 5] = a;
-    red[32 + (threadIdx.x >> 5)] = b;
-  }
-  __syncthreads();
-  a = red[0];
-  b = red[32];
-  for (int i = 1; i < nw; ++i) {
-    a += red[i];
-    b += red[32 + i];
-  }
-  __syncthreads();
-}
-
-template <class R>
-__device__ __forceinline__ void icln_fft_fold3(R& sum, R& mx, R& mn, R* red) {
-  for (int o = 16; o > 0; o >>= 1) {
-    sum += __shfl_xor_sync(ICLN_FULL, sum, o);
-    mx = icln_max(mx, __shfl_xor_sync(ICLN_FULL, mx, o));
-    mn = icln_min(mn, __shfl_xor_sync(ICLN_FULL, mn, o));
-  }
-  const int nw = blockDim.x >> 5;
-  if ((threadIdx.x & 31) == 0) {
-    red[threadIdx.x >> 5] = sum;
-    red[32 + (threadIdx.x >> 5)] = mx;
-    red[64 + (threadIdx.x >> 5)] = mn;
-  }
-  __syncthreads();
-  sum = red[0];
-  mx = red[32];
-  mn = red[64];
-  for (int i = 1; i < nw; ++i) {
-    sum += red[i];
-    mx = icln_max(mx, red[32 + i]);
-    mn = icln_min(mn, red[64 + i]);
-  }
-  __syncthreads();
-}
-
 // This block's partial into slot `rank` of `slot` in every block of the
 // cluster (read after the next cluster barrier).
 template <class R, class G>
@@ -488,47 +370,96 @@ __device__ __forceinline__ void icln_fft_cross(G& grp, icln_cplx_t<R>* z,
   }
 }
 
-// One length-P DFT (P = 3 or 5) on each contiguous group of P of this
-// block's Q = P 2^lq values: the last stage of the decimation in
-// frequency; W_P^v = W_N^(v 2L).
-template <int P, class R>
-__device__ void icln_fft_radix(icln_cplx_t<R>* z, const icln_cplx_t<R>* lo,
-                               const icln_cplx_t<R>* hi, int lt, int lq, int two_l) {
+// The odd part's stages: P = 3^a 5^b points on each contiguous group of P
+// of this block's Q = P 2^lq values, the last stages of the decimation in
+// frequency, radix 5 while the span holds a factor 5, then radix 3.  A
+// stage of radix p at span sp (sp = P first, then sp / p, ...) runs the
+// p-point DFT on the values j + u d (d = sp / p, j < d, u < p) of each
+// span, output t times W_sp^(j t) (no product where j t is 0) back at j +
+// t d; W_p^v = W_N^(v N / p) and W_sp^e = W_N^(e N / sp), N / sp = 2L P /
+// sp.  ONE: the odd part is p itself (P = 3 or 5), one stage whose spans
+// are the groups (d = 1, j = 0), every index a shift or a product by a
+// constant: the radix-P stage of the first design, the same operations in
+// the same order, with no division.
+template <int p, bool ONE, class R>
+__device__ __forceinline__ void icln_fft_odd_stage(icln_cplx_t<R>* z, const icln_cplx_t<R>* lo,
+                                                   const icln_cplx_t<R>* hi, int lt, int lq,
+                                                   int P, int sp, int nsp) {
   using C2 = icln_cplx_t<R>;
   constexpr int S = icln_fft_sw<R>();
-  C2 w[P];
+  const int d = ONE ? 1 : sp / p, per = ONE ? 1 : P / p;
+  C2 w[p];
 #pragma unroll
-  for (int v = 0; v < P; ++v) w[v] = icln_tw(lo, hi, lt, v * two_l);
-  for (int s = threadIdx.x; s < (1 << lq); s += blockDim.x) {
-    C2 in[P];
+  for (int v = 0; v < p; ++v) w[v] = icln_tw(lo, hi, lt, v * (nsp * d));
+  for (int idx = threadIdx.x; idx < (per << lq); idx += blockDim.x) {
+    const int s = ONE ? idx : idx / per, r = ONE ? 0 : idx - s * per, j = ONE ? 0 : r % d;
+    const int base = ONE ? s * p : s * P + (r / d) * sp + j;
+    C2 in[p];
 #pragma unroll
-    for (int u = 0; u < P; ++u) in[u] = z[icln_swz<S>(s * P + u)];
+    for (int u = 0; u < p; ++u) in[u] = z[icln_swz<S>(base + u * d)];
 #pragma unroll
-    for (int t = 0; t < P; ++t) {
+    for (int t = 0; t < p; ++t) {
       C2 acc = in[0];
 #pragma unroll
-      for (int u = 1; u < P; ++u) acc = icln_cadd(acc, icln_cmul(in[u], w[(u * t) % P]));
-      z[icln_swz<S>(s * P + t)] = acc;
+      for (int u = 1; u < p; ++u) acc = icln_cadd(acc, icln_cmul(in[u], w[(u * t) % p]));
+      if (j != 0 && t != 0) acc = icln_cmul(acc, icln_tw(lo, hi, lt, j * t * nsp));
+      z[icln_swz<S>(base + t * d)] = acc;
     }
   }
 }
 
-// |X_k|^2 of the real row's spectrum from A = Z[k] and B = Z[N/2 - k]:
-// X[k] = (A + conj B) / 2 - i W^k (A - conj B) / 2
-template <class R, class C2>
-__device__ __forceinline__ R icln_split_one(C2 A, C2 B, C2 w) {
-  const R er = R(0.5) * (A.x + B.x), ei = R(0.5) * (A.y - B.y);
-  const R orr = R(0.5) * (A.x - B.x), oi = R(0.5) * (A.y + B.y);
-  const R wor = w.x * orr - w.y * oi, woi = w.x * oi + w.y * orr;
-  const R xr = er + woi, xi = ei - wor;
-  return xr * xr + xi * xi;
+// the radix of the odd stage at span sp: 5 while sp holds a factor 5
+__host__ __device__ __forceinline__ int icln_fft_odd_radix(int sp) { return sp % 5 == 0 ? 5 : 3; }
+
+// every odd stage; two_l = 2L = N / P
+template <class R>
+__device__ void icln_fft_odd(icln_cplx_t<R>* z, const icln_cplx_t<R>* lo,
+                             const icln_cplx_t<R>* hi, int lt, int lq, int P, int two_l) {
+  if (P == 3) return icln_fft_odd_stage<3, true, R>(z, lo, hi, lt, lq, 3, 3, two_l);
+  if (P == 5) return icln_fft_odd_stage<5, true, R>(z, lo, hi, lt, lq, 5, 5, two_l);
+  for (int sp = P; sp > 1;) {
+    const int p = icln_fft_odd_radix(sp), nsp = two_l * (P / sp);
+    if (p == 5) icln_fft_odd_stage<5, false, R>(z, lo, hi, lt, lq, P, sp, nsp);
+    if (p == 3) icln_fft_odd_stage<3, false, R>(z, lo, hi, lt, lq, P, sp, nsp);
+    sp /= p;
+    if (sp > 1) __syncthreads();
+  }
+}
+
+// The odd stages' order: position t of a group of P holds the P-point
+// DFT's output f = t_1 + p_1 t_2 + p_1 p_2 t_3 + ... for t = t_1 P / p_1 +
+// t_2 P / (p_1 p_2) + ... (the digits of t in the stages' radices, most
+// significant first); icln_fft_odd_pos is the inverse map.  Both are the
+// identity at P = 1, 3 and 5, where the split does not call them.
+__device__ __forceinline__ int icln_fft_odd_freq(int P, int t) {
+  int f = 0, mult = 1;
+  for (int sp = P; sp > 1;) {
+    const int p = icln_fft_odd_radix(sp), d = sp / p, digit = t / d;
+    t -= digit * d;
+    f += digit * mult;
+    mult *= p;
+    sp = d;
+  }
+  return f;
+}
+
+__device__ __forceinline__ int icln_fft_odd_pos(int P, int f) {
+  int t = 0;
+  for (int sp = P; sp > 1;) {
+    const int p = icln_fft_odd_radix(sp), d = sp / p, digit = f % p;
+    f /= p;
+    t += digit * d;
+    sp = d;
+  }
+  return t;
 }
 
 // The split's max of |X_k|^2 over this block's share of the pairs (k,
 // N/2 - k), k <= N/2 - k, each pair's two bins from its two values (so
 // every value is read once): position s P + t (s = rank 2^lq + sl) holds
-// Z[k], k = rev_m(s) + 2^m t; its partner Z[N/2 - k] is found by the
-// inverse map, in whichever block holds it, and W^(N/2 - k) = -conj W^k.
+// Z[k], k = rev_m(s) + 2^m f(t) (f the odd stages' order,
+// icln_fft_odd_freq); its partner Z[N/2 - k] is found by the inverse
+// maps, in whichever block holds it, and W^(N/2 - k) = -conj W^k.
 // With odd part 1 the pairs' first members are the even positions and
 // position 1 (k = N/4, its own partner); else every position is visited
 // and the second members pass.
@@ -546,12 +477,14 @@ __device__ __forceinline__ R icln_fft_split(G& grp, icln_cplx_t<R>* z,
     const int t = P == 1 ? 0 : idx >> lq;
     const int sl = P == 1 ? (idx < even ? 2 * idx : 1) : idx & mq;
     const int s = (rank << lq) + sl;
-    const int kk = (int)(__brev((unsigned)s) >> (32 - lm)) + (t << lm);
+    const int kk =
+        (int)(__brev((unsigned)s) >> (32 - lm)) + ((P <= 5 ? t : icln_fft_odd_freq(P, t)) << lm);
     const int kp = kk == 0 ? 0 : half - kk;
     if (kk > kp) continue;
     const int sp = (int)(__brev((unsigned)(kp & (L - 1))) >> (32 - lm));
     const C2 A = z[icln_swz<S>(sl * P + t)];
-    const C2 B = grp.at(z, sp >> lq)[icln_swz<S>((sp & mq) * P + (kp >> lm))];
+    const int tp = P <= 5 ? kp >> lm : icln_fft_odd_pos(P, kp >> lm);
+    const C2 B = grp.at(z, sp >> lq)[icln_swz<S>((sp & mq) * P + tp)];
     const C2 w = icln_tw(lo, hi, lt, kk);
     best = icln_max(best, icln_split_one<R>(A, B, w));
     if (kp != kk) {  // X[N/2 - k]
@@ -614,7 +547,9 @@ __global__ void __launch_bounds__(ICLN_FFT_THREADS,
   const int P = a.odd, lm = a.log2l, lq = lm - lc, Q = P << lq;
   const int tid = threadIdx.x, nt = blockDim.x;
   C2* z = reinterpret_cast<C2*>(smem_raw);
-  C2* lo = z + Q;
+  // the slice padded to a whole run of the swizzle, which then maps it
+  // into itself
+  C2* lo = z + ((Q + (1 << S) - 1) >> S << S);
   C2* hi = lo + (1 << a.lt);
   for (int e = tid; e < a.ntw; e += nt) {
     const int h = e - (1 << a.lt);
@@ -720,8 +655,7 @@ __global__ void __launch_bounds__(ICLN_FFT_THREADS,
       if (lr == 3) icln_fft_pass<3, R>(z, lo, hi, a.lt, P, lq, lx, sh);
       __syncthreads();
     }
-    if (P == 3) icln_fft_radix<3, R>(z, lo, hi, a.lt, lq, 2 << lm);
-    if (P == 5) icln_fft_radix<5, R>(z, lo, hi, a.lt, lq, 2 << lm);
+    if (P > 1) icln_fft_odd<R>(z, lo, hi, a.lt, lq, P, 2 << lm);
     grp.sync();  // the whole spectrum, every block's, before the split
     if (rank == 0 && tid == 0) {
       var = icln_fft_meet(xch[5], C, IclnFftSum());
@@ -797,13 +731,18 @@ static int icln_cell_fft_launch(const CellFftArgs<typename Res::Real>& a, int cl
   using R = typename Res::Real;
   const CellStatsArgs<R>& p = a.c;
   const int half = p.nbin / 2;
-  if (p.nbin < 4 || p.nbin % 2 || (a.odd != 1 && a.odd != 3 && a.odd != 5) || a.log2l < 1 ||
+  int odd = a.odd;
+  while (odd > 1 && odd % 5 == 0) odd /= 5;
+  while (odd > 1 && odd % 3 == 0) odd /= 3;
+  const long long run = 1LL << icln_fft_sw<R>();
+  const long long slice = ((long long)p.nbin / (2 * cluster) + run - 1) / run * run;
+  if (p.nbin < 4 || p.nbin % 2 || a.odd < 1 || odd != 1 || a.log2l < 1 ||
       a.log2l > 30 || (long long)a.odd << a.log2l != half ||
       (cluster != 2 && cluster != 4 && cluster != ICLN_FFT_CLUSTER_MAX) ||
       (1 << a.log2l) % (2 * cluster) || threads % 32 || threads < 32 ||
       threads > ICLN_FFT_THREADS ||
       a.ntw != icln_fft_table_len(p.nbin) ||
-      smem_bytes < (long long)p.nbin / cluster * (long long)sizeof(R) +
+      smem_bytes < slice * 2 * (long long)sizeof(R) +
                        2LL * icln_fft_table_slots(p.nbin) * (long long)sizeof(R) ||
       p.cpa < 1 || p.ncells % p.cpa || p.cpa % p.nchan || p.ncells * cluster > 0x7FFFFFFFLL)
     return (int)cudaErrorInvalidValue;
@@ -898,7 +837,7 @@ static int icln_cell_fft_dedisp_t(CellFftArgs<icln_real_t<T>> a, const void* ded
 // (every other pointer then double); `tw` the (T + N/T, 2) two-level
 // twiddle table of the arithmetic type (kernels._fft_twiddles); inv_n float32(1/nbin) for float, 1/nbin for
 // double; cluster the blocks a cell (2, 4 or 8), odd the odd part of
-// nbin/2 (1, 3 or 5).
+// nbin/2 (3^a 5^b).
 
 #define ICLN_FFT_ARGS(R)                                                                      \
   icln_cell_fft_args<R>(mask, w, tw, tt, d_std, d_mean, d_ptp, d_fft, ncells, cpa, nchan, nbin, \

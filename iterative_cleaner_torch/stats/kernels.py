@@ -40,6 +40,8 @@ K2f    K2's, K6's, K7's, K10's wrappers  no Pallas kernel: the reference's
        (csrc/cell_fft.cu)                 XLA route past 4096 bins
                                           (``masked_jax.cell_diagnostics_jax``
                                           with ``jnp.fft.rfft``)
+K2g    the same wrappers                  the same route, on the rows K2f
+       (csrc/cell_fft_global.cu)          does not take
 tail   :func:`side_centre`,               ``_scaled_sides_body``'s centring
        :func:`side_scale`                 and side on lines too long for a
        (csrc/sides_tail.cu)               cluster (:func:`scaled_sides_long`,
@@ -80,15 +82,20 @@ each archive's outputs are bit-equal to the same kernel launched on that
 archive alone.  The plain versions take the batch too, one archive at a
 time.
 
-The cell diagnostics (K2, K6, K7 and K10) take one of two builds by the
-profile's length, with no knob (:func:`cell_stats_route`): up to
+The cell diagnostics (K2, K6, K7 and K10) take one of three builds by
+the profile's length, with no knob (:func:`cell_stats_route`): up to
 ``MAX_NBIN`` bins (``MAX_NBIN_F64`` in float64) the DFT kernels of
 ``cell_stats.cuh``; past it the FFT build K2f (``cell_fft.cu``: one
-thread-block cluster a cell, the spectrum by an rFFT in shared
-memory), counted apart under the same wrapper (``launches_fft``,
-``launches_fft_bf16``, ``launches_fft_f64``; ``<name>_fft``,
-``<name>_fft_bf16`` and ``<name>_fft_f64`` in :func:`launch_counts`).
-Their plain versions take the DFT or ``torch.fft`` by the same rule.
+thread-block cluster a cell, the spectrum by an rFFT in shared memory,
+nbin = 2^a 3^b 5^c within a cluster's capacity), counted apart under the
+same wrapper (``launches_fft``, ``launches_fft_bf16``,
+``launches_fft_f64``; ``<name>_fft``, ``<name>_fft_bf16`` and
+``<name>_fft_f64`` in :func:`launch_counts`); every other length K2g
+(``cell_fft_global.cu``: the transform in passes through a scratch
+buffer in device memory, Bluestein's chirp convolution where nbin/2 is
+not 2^a 3^b 5^c), counted as ``<name>_fftg`` and its bf16 and float64
+siblings.  Their plain versions take the DFT or ``torch.fft`` by the
+same rule.
 :func:`cell_fft_disp` runs K2's FFT build at any length it takes (to
 hold it against K2 where both routes take the shape).
 
@@ -145,20 +152,22 @@ CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = _PKG_DIR / "_build"
 SOURCES = ("marginals.cu", "cell_stats.cu", "shard_stats.cu",
            "scaled_sides.cu", "combine.cu", "masked_median.cu",
-           "sides_tail.cu", "sides_cluster.cu", "cell_fft.cu")
+           "sides_tail.cu", "sides_cluster.cu", "cell_fft.cu",
+           "cell_fft_global.cu")
 # -fmad=false: no contraction of a*b+c, so the kernels round as the
 # reference does; no fast-math; sm_90a (Hopper).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-fmad=false", "-std=c++17", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-# Where the DFT route of the cell diagnostics ends and the FFT build
-# begins (cell_stats_route): the DFT tables, nbin x (nbin/2 + 1) x 8
+# Where the DFT route of the cell diagnostics ends and the FFT builds
+# begin (cell_stats_route): the DFT tables, nbin x (nbin/2 + 1) x 8
 # bytes, are 1.07 GB on the card at 16384 bins, and a float64 block's two
 # centred rows of 16384 bins (256 KB) do not fit its shared memory, so
 # float64 profiles leave the DFT route past 8192 bins (0.54 GB of
-# tables).  Longer profiles take the FFT build (cell_fft.cu), which needs
-# no tables; K1 tiles the bins and takes any length.
+# tables).  Longer profiles take an FFT build (cell_fft.cu, else
+# cell_fft_global.cu), which needs no tables; K1 tiles the bins and takes
+# any length.
 MAX_NBIN = 16384
 MAX_NBIN_F64 = 8192
 _SMEM_LIMIT = 232448    # dynamic shared memory one Hopper block may use
@@ -173,7 +182,7 @@ def _check_nbin(nbin: int, realsize: int = 4) -> None:
         what = "float64 " if realsize == 8 else ""
         raise NotImplementedError(
             f"nbin {nbin} > {limit}: past the DFT route for {what}profiles "
-            f"(cell_stats_route takes them to the FFT build; {_ITEM9})")
+            f"(cell_stats_route takes them to an FFT build; {_ITEM9})")
 
 
 _LIB = None
@@ -299,6 +308,13 @@ _SIGNATURES = {
     + [_LL, _D, _I, _P],
     "icln_shard_fft_dedisp": [_P] * 11 + [_LL] * 2 + [_I] * 5
     + [_LL, _D, _I, _P],
+    **{name: [_P] * 16 + [_LL] * 2 + [_I] * 14 + [_D, _I, _P]
+       for name in ("icln_cell_fftg_disp", "icln_cell_fftg_dedisp",
+                    "icln_shard_fftg_disp", "icln_shard_fftg_dedisp")},
+    "icln_cell_fftg_two_read": [_P] * 17 + [_LL] * 2 + [_I] * 14
+    + [_D, _I, _P],
+    "icln_fftg_passes": [_P, _P, _LL] + [_I] * 9 + [_P] * 3 + [_I] * 4
+    + [_P],
     "icln_scaled_sides": [_P] * 9 + [_I, _I, _LL, _LL, _LL, _LL, _D, _I, _I,
                                      _I, _LL, _I, _P],
     "icln_combine_zap": [_P] * 11 + [_LL, _I, _P],
@@ -404,13 +420,17 @@ def _ptr(t):
     return ctypes.c_void_p(t.data_ptr())
 
 
+_ROUTE_COUNTS = {"dft": "launches", "fft": "launches_fft",
+                 "fft_global": "launches_fftg"}
+
+
 def _count(fn, t, route: str = "dft") -> None:
     """One launch of kernel ``fn``, counted by the dtype of ``t`` (the
     cube, or the planes): ``fn.launches`` (float32), ``fn.launches_bf16``
-    or ``fn.launches_f64``; a cell-diagnostics wrapper's FFT build
-    (``route`` ``"fft"``) under ``fn.launches_fft`` and its bf16 and
-    float64 siblings."""
-    name = "launches_fft" if route == "fft" else "launches"
+    or ``fn.launches_f64``; a cell-diagnostics wrapper's FFT builds
+    (``route`` ``"fft"``, ``"fft_global"``) under ``fn.launches_fft`` and
+    ``fn.launches_fftg`` and their bf16 and float64 siblings."""
+    name = _ROUTE_COUNTS[route]
     if t.dtype == torch.bfloat16:
         name += "_bf16"
     elif t.dtype == torch.float64:
@@ -693,15 +713,25 @@ def cell_stats_route(nbin: int, itemsize: int = 4) -> str:
     profiles of ``nbin`` bins of a cube of ``itemsize``-byte elements (8:
     float64; 4 and 2, float32 and bf16, share the float32 limits):
     ``"dft"`` (``cell_stats.cuh``, the DFT tables) up to MAX_NBIN
-    (MAX_NBIN_F64 in float64), ``"fft"`` (the FFT build, ``cell_fft.cu``)
-    above.  A function of the shape alone; NotImplementedError naming
-    ROADMAP item 9 where the FFT build does not take ``nbin`` either
-    (:func:`cell_fft_plan`), before anything is launched."""
+    (MAX_NBIN_F64 in float64); above it ``"fft"`` (the cluster build K2f,
+    ``cell_fft.cu``) where :func:`cell_fft_plan` takes the row (odd parts
+    of at most FFT_ODD_STAGES stages, where it is the faster), else
+    ``"fft_global"`` (the device-memory build K2g, ``cell_fft_global.cu``,
+    :func:`cell_fft_global_plan`).  A function of the shape alone, decided
+    before anything is launched."""
     limit = MAX_NBIN_F64 if itemsize == 8 else MAX_NBIN
     if nbin <= limit:
         return "dft"
-    cell_fft_plan(nbin, itemsize)
-    return "fft"
+    if _cell_fft_takes(nbin, 8 if itemsize == 8 else 4)[0]:
+        return "fft"
+    cell_fft_global_plan(nbin, itemsize)
+    return "fft_global"
+
+
+def _spectrum(route: str) -> str:
+    """The plain versions' spectrum on a route: the DFT on ``"dft"``,
+    ``torch.fft`` on both FFT builds' routes."""
+    return "dft" if route == "dft" else "fft"
 
 
 def _cube_itemsize(cube) -> int:
@@ -716,10 +746,11 @@ def cell_diagnostics_disp_plain(disp, rot_t, nyq_row, template, weights,
     computes (:func:`upcast_stored`), then :func:`~iterative_cleaner_torch.
     stats.masked_torch.cell_diagnostics` (per archive of a batch), the
     spectrum by the DFT or ``torch.fft`` as :func:`cell_stats_route`
-    routes the shape (``spectrum`` ``"dft"`` or ``"fft"`` fixes it)."""
+    routes the shape (``spectrum`` ``"dft"`` or ``"fft"`` fixes it; both
+    FFT builds' routes take ``torch.fft``)."""
     disp = upcast_stored(disp)
-    spectrum = spectrum or cell_stats_route(disp.shape[-1],
-                                            _cube_itemsize(disp))
+    spectrum = spectrum or _spectrum(cell_stats_route(disp.shape[-1],
+                                                      _cube_itemsize(disp)))
     if disp.dim() == 4:
         return _stack_each(
             lambda *a: cell_diagnostics_disp_plain(*a, spectrum=spectrum),
@@ -747,22 +778,25 @@ def _inv_n(nbin: int, real) -> float:
         else float(np.float32(1.0 / nbin))
 
 
-# the FFT build's entry beside each DFT entry (cell_fft.cu)
+# the FFT builds' entries beside each DFT entry (cell_fft.cu: "fft";
+# cell_fft_global.cu: "fft_global")
 _FFT_ENTRIES = {"icln_cell_stats_disp": "icln_cell_fft_disp",
                 "icln_cell_stats_two_read": "icln_cell_fft_two_read",
                 "icln_cell_stats_dedisp": "icln_cell_fft_dedisp",
                 "icln_shard_stats_disp": "icln_shard_fft_disp",
                 "icln_shard_stats_dedisp": "icln_shard_fft_dedisp"}
+_FFTG_ENTRIES = {k: v.replace("_fft_", "_fftg_")
+                 for k, v in _FFT_ENTRIES.items()}
 
 
 def _launch_cell_stats(entry, cube, template, weights, cell_mask, cubes,
                        chan_rows, bin_rows, ptrs, out=None, route=None):
     """Check and launch one of the cell-diagnostics kernels (K2, K6, K7
-    and K10 share ``cell_stats.cuh``'s kernel and launch plan, and
-    ``cell_fft.cu``'s past the DFT tables).  ``entry`` names the DFT
-    entry; ``route`` (``"dft"`` or ``"fft"``, else
-    :func:`cell_stats_route` of the shape, which refuses before any
-    launch) picks the build.  ``cubes``, ``chan_rows`` and ``bin_rows``
+    and K10 share ``cell_stats.cuh``'s kernel and launch plan, and past
+    the DFT tables ``cell_fft.cu``'s or ``cell_fft_global.cu``'s).
+    ``entry`` names the DFT entry; ``route`` (``"dft"``, ``"fft"`` or
+    ``"fft_global"``, else :func:`cell_stats_route` of the shape) picks
+    the build.  ``cubes``, ``chan_rows`` and ``bin_rows``
     are ``(name, tensor)`` pairs checked as (nsub, nchan, nbin) cubes,
     (nchan, nbin) rows and (nbin,) rows; ``ptrs`` are the entry's leading
     pointer arguments in order.  A batch (K2, K6, K7) has a leading
@@ -812,6 +846,9 @@ def _launch_cell_stats(entry, cube, template, weights, cell_mask, cubes,
                     plan.threads, plan.smem, _inv_n(nbin, real),
                     _KIND[cube.dtype], _stream(cube))
         return rc, tuple(outs), route
+    if route == "fft_global":
+        return _launch_fftg(entry, cube, ptrs, info, outs, ncells, cpa,
+                            nchan, nbin, real), tuple(outs), route
     plan = cell_stats_geometry(nbin, cube.element_size())
     cos_t, sin_t = _dft_tables_padded(nbin, plan.nkp, str(cube.device), real)
     per_sm = max(1, min(2048 // plan.threads,
@@ -826,6 +863,34 @@ def _launch_cell_stats(entry, cube, template, weights, cell_mask, cubes,
                 plan.producers, plan.threads, grid, plan.smem,
                 _inv_n(nbin, real), _KIND[cube.dtype], _stream(cube))
     return rc, tuple(outs), route
+
+
+def _launch_fftg(entry, cube, ptrs, info, outs, ncells, cpa, nchan, nbin,
+                 real):
+    """K2g's launch (``cell_fft_global.cu``): the plan, the twiddle table
+    and the passes' tables, for Bluestein the chirp and its spectrum, and
+    a scratch of min(chunk, ncells) rows allocated for this launch; the
+    entry runs every chunk.  Returns its return code."""
+    plan = cell_fft_global_plan(nbin, _cube_itemsize(cube))
+    dev = str(cube.device)
+    tw = _fft_twiddles(plan.table, dev, real)
+    chirp = bhat = None
+    if plan.mode == "bluestein":
+        chirp = _fftg_chirp(nbin, dev, real)
+        bhat = _fftg_bhat(nbin, dev, real)
+    wf, perm = _fftg_pass_tables(plan.passes, dev, real)
+    scratch = torch.empty((min(plan.chunk, ncells), plan.n, 2), dtype=real,
+                          device=cube.device)
+    fn = getattr(load_library(), _FFTG_ENTRIES[entry])
+    with torch.cuda.device(cube.device):
+        return fn(*ptrs, _ptr(tw), _ptr(wf), _ptr(perm), _ptr(info),
+                  *(_ptr(o) for o in outs),
+                  _ptr(scratch), None if chirp is None else _ptr(chirp),
+                  None if bhat is None else _ptr(bhat), ncells, cpa, nchan,
+                  nbin, plan.n, *_fftg_pass_args(plan), plan.chunk,
+                  _fft_table_lt(plan.table), plan.table // plan.n,
+                  _inv_n(nbin, real), _KIND[cube.dtype],
+                  _stream(cube))
 
 
 def _counted(fn, cube, entry, route, *args):
@@ -911,8 +976,8 @@ def cell_diagnostics_two_read_plain(ded, disp_base, rot_t, template,
             (disp_base, True), (rot_t, True), (template, True),
             (weights, True), (cell_mask, True))
     wres = wres_two_read(ded, disp_base, rot_t, template, weights)
-    return cell_diagnostics(wres, cell_mask, cell_stats_route(
-        ded.shape[-1], _cube_itemsize(ded)))
+    return cell_diagnostics(wres, cell_mask, _spectrum(cell_stats_route(
+        ded.shape[-1], _cube_itemsize(ded))))
 
 
 def _two_read_args(ded, disp_base, rot_t, template, weights, cell_mask,
@@ -971,8 +1036,8 @@ def cell_diagnostics_dedisp_plain(ded, template, window, weights,
             (template, True), (window, False), (weights, True),
             (cell_mask, True))
     wres = wres_dedisp(ded, template, window, weights)
-    return cell_diagnostics(wres, cell_mask, cell_stats_route(
-        ded.shape[-1], _cube_itemsize(ded)))
+    return cell_diagnostics(wres, cell_mask, _spectrum(cell_stats_route(
+        ded.shape[-1], _cube_itemsize(ded))))
 
 
 def _dedisp_args(ded, template, window, weights, cell_mask, out):
@@ -1051,12 +1116,13 @@ shard_diagnostics_dedisp.launches_f64 = 0
 # two-level twiddle table
 # --------------------------------------------------------------------------
 
-# N = 2^a x an odd part of FFT_ODD_PARTS (one radix-3 or radix-5 stage
-# beside the radix-2 ones); a cell is a cluster of FFT_CLUSTER_SIZES
-# blocks (the portable sizes), each holding its slice of the row in place
-# (4 or 8 bytes a bin) and the two-level twiddle table
-# (:func:`_fft_twiddles`) beside FFT_STATIC_SMEM bytes of static shared
-# memory (the reductions' partials, under 2 KB).  The plan takes the
+# N = 2^a x an odd part 3^b 5^c (the odd part's radix-5 and radix-3
+# stages beside the radix-2 ones); a cell is a cluster of
+# FFT_CLUSTER_SIZES blocks (the portable sizes), each holding its slice of
+# the row in place (4 or 8 bytes a bin, padded to a whole run of the
+# swizzle) and the two-level twiddle table (:func:`_fft_twiddles`) beside
+# FFT_STATIC_SMEM bytes of static shared memory (the reductions'
+# partials, under 2 KB).  The plan takes the
 # fewest blocks a cell whose slices hold at most FFT_SLICE_BINS bins (the
 # largest cluster where no size gets there), FFT_PLAN_THREADS a block,
 # from tools/time_cell_fft.py's sweeps on an H100 (every cluster size, 128
@@ -1066,8 +1132,16 @@ shard_diagnostics_dedisp.launches_f64 = 0
 # 16,384 to 32,768 bins and at 32 x 256 x 24,576, in both dtypes.  At
 # 256 cells of 24,576 float32 bins (a 0.2 ms launch whose plans reorder
 # from run to run) it was the fastest in one sweep and 22% behind it in
-# another.
-FFT_ODD_PARTS = (1, 3, 5)
+# another.  An odd part 3^a 5^b runs a + b odd stages; K2f takes at
+# most FFT_ODD_STAGES of them (by the real size), where it is the faster
+# build: tools/time_cell_fft.py --builds at 32 x 256 cells on an H100
+# (PERF.md §6), K2f against K2g in float32 7.76 / 8.96 ms at odd part 45
+# (three stages), 4.54 / 3.74 at 625 (four), 15.40 / 11.95 at 1875
+# (five); in float64 10.97 / 18.15, 5.71 / 7.77 and 23.45 / 23.82 (and
+# past five stages nothing measured).  Every row the cluster build does
+# not take goes to K2g (:func:`cell_fft_global_plan`).
+FFT_ODD_RADICES = (3, 5)
+FFT_ODD_STAGES = {4: 3, 8: 5}
 FFT_CLUSTER_SIZES = (2, 4, 8)
 FFT_SLICE_BINS = 8192
 FFT_PLAN_THREADS = 128
@@ -1088,6 +1162,14 @@ class CellFftPlan(NamedTuple):
 def _odd_part(n: int) -> int:
     while n > 0 and n % 2 == 0:
         n //= 2
+    return n
+
+
+def _strip(n: int, primes) -> int:
+    """``n`` without its factors in ``primes``."""
+    for p in primes:
+        while n > 0 and n % p == 0:
+            n //= p
     return n
 
 
@@ -1113,10 +1195,13 @@ def _fft_table_slots(nbin: int) -> int:
 
 
 def _fft_smem(nbin: int, cluster: int, realsize: int) -> int:
-    """A block's dynamic shared memory: its slice of the row and the
-    twiddle table (complex entries of ``realsize``-byte parts), in 16-byte
-    words."""
-    row = nbin * realsize // cluster + 2 * realsize * _fft_table_slots(nbin)
+    """A block's dynamic shared memory: its slice of the row, nbin / (2
+    cluster) complex values padded to a whole run of the swizzle (16
+    values in float32, 8 in float64), and the twiddle table (complex
+    entries of ``realsize``-byte parts), in 16-byte words."""
+    run = 8 if realsize == 8 else 16
+    q = -(-(nbin // (2 * cluster)) // run) * run
+    row = 2 * realsize * (q + _fft_table_slots(nbin))
     return -(-row // 16) * 16
 
 
@@ -1132,9 +1217,9 @@ def _fft_fits(nbin: int, cluster: int, realsize: int) -> bool:
 
 @functools.lru_cache(maxsize=None)
 def cell_fft_capacity(realsize: int = 4, odd: int = 1) -> int:
-    """The longest row of odd part ``odd`` the FFT build takes: 262,144
-    float32 bins (393,216 at odd part 3, 327,680 at 5), 131,072 float64
-    bins (196,608 and 163,840)."""
+    """The longest row of odd part ``odd`` (3^a 5^b) the cluster build
+    takes: 262,144 float32 bins (393,216 at odd part 3, 327,680 at 5),
+    131,072 float64 bins (196,608 and 163,840); longer rows take K2g."""
     cap, n = 0, 4 * odd
     while n * realsize // FFT_CLUSTER_SIZES[-1] <= _SMEM_LIMIT:
         if _fft_fits(n, FFT_CLUSTER_SIZES[-1], realsize):
@@ -1143,33 +1228,263 @@ def cell_fft_capacity(realsize: int = 4, odd: int = 1) -> int:
     return cap
 
 
+def _odd_stages(odd: int) -> int:
+    """The odd stages of an odd part 3^a 5^b: a + b."""
+    n = 0
+    for p in FFT_ODD_RADICES:
+        while odd % p == 0:
+            odd //= p
+            n += 1
+    return n
+
+
+def _cell_fft_takes(nbin: int, realsize: int):
+    """``(plan, why)``: the cluster build's :class:`CellFftPlan` at
+    ``nbin`` and None, or None and why it does not take the row: an odd
+    part with a prime factor over 5, a power of two of nbin/2 under 4 (a
+    cluster of 2 takes a quarter of it a block), more odd stages than
+    FFT_ODD_STAGES (K2g is faster there), or a row past
+    :func:`cell_fft_capacity`."""
+    odd = _odd_part(nbin)
+    if _strip(odd, FFT_ODD_RADICES) != 1 or nbin < 8 * odd:
+        return None, (f"the cluster build takes 2^a x 3^b 5^c bins (a >= "
+                      f"3); this one's odd part is {odd}")
+    if _odd_stages(odd) > FFT_ODD_STAGES[realsize]:
+        return None, (f"odd part {odd} takes {_odd_stages(odd)} odd stages, "
+                      f"past the {FFT_ODD_STAGES[realsize]} where the cluster "
+                      f"build is the faster")
+    for cluster in FFT_CLUSTER_SIZES:
+        if _fft_fits(nbin, cluster, realsize) and (
+                nbin // cluster <= FFT_SLICE_BINS
+                or cluster == FFT_CLUSTER_SIZES[-1]):
+            return CellFftPlan(cluster, odd, FFT_PLAN_THREADS,
+                               _fft_smem(nbin, cluster, realsize)), None
+    return None, (f"past the cluster build's capacity "
+                  f"({cell_fft_capacity(realsize, odd)} bins of odd part "
+                  f"{odd} in {'float64' if realsize == 8 else 'float32'})")
+
+
 @functools.lru_cache(maxsize=64)
 def cell_fft_plan(nbin: int, itemsize: int = 4) -> CellFftPlan:
     """The FFT build's :class:`CellFftPlan` at ``nbin`` for a cube of
     ``itemsize``-byte elements (8: float64 rows and twiddles): the fewest
     blocks a cell (of FFT_CLUSTER_SIZES) whose slices of the row hold at
     most FFT_SLICE_BINS bins, else the largest cluster; FFT_PLAN_THREADS a
-    block.
-    NotImplementedError naming ROADMAP item 9 where nbin's odd part is
-    not 1, 3 or 5 (or nbin/2 has no factor 4: a cluster of 2 takes a
-    quarter of it a block) or the row is past
-    :func:`cell_fft_capacity`."""
-    realsize = 8 if itemsize == 8 else 4
-    odd = _odd_part(nbin)
-    if odd not in FFT_ODD_PARTS or nbin < 8 * odd:
-        raise NotImplementedError(
-            f"nbin {nbin}: the FFT build takes 2^a x 1, 3 or 5 bins (a >= "
-            f"3); this one's odd part is {odd} ({_ITEM9})")
-    for cluster in FFT_CLUSTER_SIZES:
-        if _fft_fits(nbin, cluster, realsize) and (
-                nbin // cluster <= FFT_SLICE_BINS
-                or cluster == FFT_CLUSTER_SIZES[-1]):
-            return CellFftPlan(cluster, odd, FFT_PLAN_THREADS,
-                               _fft_smem(nbin, cluster, realsize))
+    block.  NotImplementedError where the cluster build does not take
+    ``nbin`` (:func:`_cell_fft_takes`; :func:`cell_stats_route` sends
+    such rows to K2g, :func:`cell_fft_global_plan`)."""
+    plan, why = _cell_fft_takes(nbin, 8 if itemsize == 8 else 4)
+    if plan is None:
+        raise NotImplementedError(f"nbin {nbin}: {why} (K2g takes it)")
+    return plan
+
+
+# --------------------------------------------------------------------------
+# K2g's plan: the FFT build through device memory (cell_fft_global.cu)
+# --------------------------------------------------------------------------
+
+# A row the cluster build does not take is transformed in a scratch buffer
+# in device memory: an even N whose N/2 is 2^a 3^b 5^c as N/2 complex
+# values ("split", the real split after the transform), any other N by
+# Bluestein's chirp convolution of length M, the least 2^a 3^b 5^c >=
+# 2N - 1 ("bluestein").  The transform of n points runs in passes of at
+# most FFTG_PASS_MAX points, each a block's sub-transforms in shared
+# memory (tiles of at most FFTG_TILE_BYTES; the fewest passes, the factors
+# dealt largest first to the pass with the least product), over chunks of
+# cells whose scratch stays within FFTG_SCRATCH_BYTES; the CUDA file sets
+# its blocks' threads.
+FFTG_PASS_MAX = 1024
+FFTG_TILE_BYTES = 65536
+FFTG_MAX_PASSES = 4
+FFTG_SCRATCH_BYTES = 1 << 30
+# a row's scratch indices are 32-bit in the kernels: n < 2^31
+FFTG_MAX_N = (1 << 31) - 1
+
+
+class CellFftGlobalPlan(NamedTuple):
+    """K2g's launch (``cell_fft_global.cu``): ``mode`` ``"split"`` or
+    ``"bluestein"``, ``n`` the transform's points (nbin/2 or M),
+    ``passes`` their points F_1 .. F_k (the first at the largest stride),
+    ``groups`` the columns G_j a block of each pass (dividing its stride,
+    G_j F_j complex values within a tile), ``table`` the twiddle table's
+    length (nbin for a split row, M for Bluestein), ``chunk`` the cells a
+    chunk of scratch holds."""
+    mode: str
+    n: int
+    passes: tuple
+    groups: tuple
+    table: int
+    chunk: int
+
+
+def _smooth(n: int) -> bool:
+    """Whether ``n`` >= 1 is 2^a 3^b 5^c."""
+    return n >= 1 and _strip(n, (2, 3, 5)) == 1
+
+
+def _next_smooth(n: int) -> int:
+    """The least 2^a 3^b 5^c >= ``n`` (each 3^b 5^c <= 2n with its least
+    power of two that reaches ``n``)."""
+    best, p5 = 2 * max(n, 1), 1
+    while p5 < 2 * n:
+        p35 = p5
+        while p35 < 2 * n:
+            m = p35
+            while m < n:
+                m *= 2
+            best = min(best, m)
+            p35 *= 3
+        p5 *= 5
+    return best if n > 1 else 1
+
+
+def _fftg_passes(n: int) -> tuple:
+    """The passes' points of an n-point transform (n 2^a 3^b 5^c): the
+    fewest passes of at most FFTG_PASS_MAX points, n's prime factors
+    dealt largest first, each to the pass with the least product so far
+    (the first such); the passes in that order."""
+    factors = []
+    for p in (5, 3, 2):
+        while n % p == 0:
+            factors.append(p)
+            n //= p
+    for k in range(1, FFTG_MAX_PASSES + 1):
+        prod = [1] * k
+        for f in factors:
+            i = prod.index(min(prod))
+            prod[i] *= f
+        if max(prod) <= FFTG_PASS_MAX:
+            return tuple(prod)
     raise NotImplementedError(
-        f"nbin {nbin}: past the FFT build's capacity "
-        f"({cell_fft_capacity(realsize, odd)} bins of odd part {odd} in "
-        f"{'float64' if realsize == 8 else 'float32'}; {_ITEM9})")
+        f"a transform of {n} points needs more than {FFTG_MAX_PASSES} "
+        f"passes ({_ITEM9})")
+
+
+def _fftg_groups(n: int, passes, realsize: int, fused: bool) -> tuple:
+    """G_j, the columns a block of each pass: the largest divisor of the
+    pass's stride (of the last pass, stride 1: of the row's n / F_k spans,
+    a block taking G_k whole spans) whose tile (G_j F_j complex values;
+    two tiles in the last pass where Bluestein ``fused`` its forward and
+    inverse passes) fits FFTG_TILE_BYTES."""
+    groups, s = [], n
+    for i, f in enumerate(passes):
+        s //= f
+        last = i == len(passes) - 1
+        width = n // f if last else s
+        most = FFTG_TILE_BYTES // (f * 2 * realsize
+                                   * (2 if last and fused else 1))
+        groups.append(max(g for g in range(1, min(width, most) + 1)
+                          if width % g == 0))
+    return tuple(groups)
+
+
+@functools.lru_cache(maxsize=64)
+def cell_fft_global_plan(nbin: int, itemsize: int = 4) -> CellFftGlobalPlan:
+    """K2g's :class:`CellFftGlobalPlan` at ``nbin`` for a cube of
+    ``itemsize``-byte elements (8: float64): a function of nbin and the
+    dtype alone, so batches, tiles and shards launch the same plan.
+    NotImplementedError naming ROADMAP item 9 where a row's transform
+    passes FFTG_MAX_N points (the kernels' 32-bit row indices)."""
+    realsize = 8 if itemsize == 8 else 4
+    if nbin < 2:
+        raise ValueError(f"nbin {nbin}: K2g takes rows of 2 bins or more")
+    if nbin % 2 == 0 and _smooth(nbin // 2):
+        mode, n, table = "split", nbin // 2, nbin
+    else:
+        mode = "bluestein"
+        n = table = _next_smooth(2 * nbin - 1)
+    if n > FFTG_MAX_N:
+        raise NotImplementedError(
+            f"nbin {nbin}: a {n}-point transform a cell is past K2g's "
+            f"32-bit row indices ({_ITEM9})")
+    passes = _fftg_passes(n)
+    chunk = max(1, FFTG_SCRATCH_BYTES // (n * 2 * realsize))
+    return CellFftGlobalPlan(mode, n, passes,
+                             _fftg_groups(n, passes, realsize,
+                                          mode == "bluestein"),
+                             table, chunk)
+
+
+def _fftg_pass_args(plan) -> tuple:
+    """The entries' f0..f3 and g0..g3: the passes' points and columns, 1
+    past the last pass."""
+    pad = (1,) * (FFTG_MAX_PASSES - len(plan.passes))
+    return (*plan.passes, *pad, *plan.groups, *pad)
+
+
+def fftg_chirp(nbin: int) -> np.ndarray:
+    """Bluestein's chirp w_j = exp(-i pi j^2 / nbin), j < nbin, as (nbin,
+    2) float64 (cos, sin): j^2 mod 2 nbin taken in int64 before any
+    float, so the phase keeps its precision at any length."""
+    j = np.arange(nbin, dtype=np.int64)
+    ang = (-np.pi / nbin) * ((j * j) % (2 * nbin)).astype(np.float64)
+    return np.stack([np.cos(ang), np.sin(ang)], axis=1)
+
+
+@functools.lru_cache(maxsize=8)
+def _fftg_chirp(nbin: int, device: str, dtype=torch.float32):
+    """:func:`fftg_chirp` on ``device`` in the arithmetic ``dtype``."""
+    return torch.from_numpy(fftg_chirp(nbin)).to(device=device,
+                                                  dtype=dtype).contiguous()
+
+
+def fftg_chirp_row(nbin: int, m: int) -> np.ndarray:
+    """Bluestein's b of length ``m``: conj w_j at j and at m - j for 0 < j
+    < nbin, conj w_0 at 0, zero between; (m, 2) float64."""
+    w = fftg_chirp(nbin)
+    b = np.zeros((m, 2))
+    b[:nbin, 0], b[:nbin, 1] = w[:, 0], -w[:, 1]
+    b[m - nbin + 1:] = b[1:nbin][::-1]
+    return b
+
+
+def fftg_stage_order(f: int) -> np.ndarray:
+    """perm[q], where the stages of an f-point pass (radix 5, 3, 4, 2,
+    decimation in frequency) leave the DFT's output q: the digits of q in
+    the stages' radices, least significant first, as the position's most
+    significant first."""
+    q, t, sp = np.arange(f), np.zeros(f, dtype=np.int64), f
+    while sp > 1:
+        r = 5 if sp % 5 == 0 else 3 if sp % 3 == 0 else 4 if sp % 4 == 0 \
+            else 2
+        sp //= r
+        t += (q % r) * sp
+        q //= r
+    return t
+
+
+@functools.lru_cache(maxsize=16)
+def _fftg_pass_tables(passes: tuple, device: str, dtype=torch.float32):
+    """K2g's per-pass tables, pass after pass: W_F^e = (cos, sin)(-2 pi e /
+    F) for e < F in float64 on the host, rounded to the arithmetic
+    ``dtype`` ((sum F, 2)), and each pass's :func:`fftg_stage_order`
+    (int32)."""
+    wf = np.concatenate([np.stack([np.cos(-2.0 * np.pi * np.arange(f) / f),
+                                   np.sin(-2.0 * np.pi * np.arange(f) / f)],
+                                  axis=1) for f in passes])
+    perm = np.concatenate([fftg_stage_order(f) for f in passes])
+    return (torch.from_numpy(wf).to(device=device, dtype=dtype).contiguous(),
+            torch.from_numpy(perm.astype(np.int32)).to(device).contiguous())
+
+
+@functools.lru_cache(maxsize=8)
+def _fftg_bhat(nbin: int, device: str, dtype=torch.float32):
+    """The chirp's spectrum B^ in the passes' order, scaled by 1 / M:
+    :func:`fftg_chirp_row` through K2g's forward passes on the card in
+    float64 (its own float64 plan: the same passes), rounded to the
+    arithmetic ``dtype``; made once per (nbin, device, dtype)."""
+    plan = cell_fft_global_plan(nbin, 8)
+    m = plan.n
+    b = torch.from_numpy(fftg_chirp_row(nbin, m)).to(device).contiguous()
+    tw = _fft_twiddles(m, device, torch.float64)
+    wf, perm = _fftg_pass_tables(plan.passes, device, torch.float64)
+    with torch.cuda.device(b.device):
+        rc = load_library().icln_fftg_passes(
+            _ptr(b), None, 1, m, *_fftg_pass_args(plan), _ptr(tw), _ptr(wf),
+            _ptr(perm), _fft_table_lt(m), 1, 0, _KIND[torch.float64],
+            _stream(b))
+    _check_rc(rc, "the chirp's spectrum (K2g's passes)")
+    return (b * (1.0 / m)).to(dtype).contiguous()
 
 
 @functools.lru_cache(maxsize=8)
@@ -1885,8 +2200,9 @@ fused_combine.launches_f64 = 0
 _CUBE_WRAPPERS = (weighted_marginals, cell_diagnostics_disp,
                   cell_diagnostics_two_read, cell_diagnostics_dedisp,
                   shard_diagnostics_disp, shard_diagnostics_dedisp)
-# the wrappers with an FFT build past the DFT tables (cell_fft.cu), its
-# float32, bf16 and float64 launches counted apart
+# the wrappers with FFT builds past the DFT tables (cell_fft.cu and
+# cell_fft_global.cu), their float32, bf16 and float64 launches counted
+# apart
 _FFT_WRAPPERS = _CUBE_WRAPPERS[1:]
 
 
@@ -1904,7 +2220,9 @@ def reset_launch_counts() -> None:
     for fn in _F64_WRAPPERS:
         fn.launches = fn.launches_f64 = 0
     for fn in _FFT_WRAPPERS:
-        fn.launches_fft = fn.launches_fft_bf16 = fn.launches_fft_f64 = 0
+        for route in ("fft", "fftg"):
+            for sfx in ("", "_bf16", "_f64"):
+                setattr(fn, f"launches_{route}{sfx}", 0)
     for fn in (scaled_sides, scaled_sides_cluster):
         fn.launches = [0, 0]
         fn.launches_f64 = [0, 0]
@@ -1916,8 +2234,9 @@ reset_launch_counts()
 def launch_counts() -> dict:
     """Every wrapper's launches, the cube kernels' bf16 builds as
     ``<name>_bf16``, the float64 builds as ``<name>_f64`` and the cell
-    diagnostics' FFT build as ``<name>_fft``, ``<name>_fft_bf16`` and
-    ``<name>_fft_f64``."""
+    diagnostics' FFT builds as ``<name>_fft``, ``<name>_fft_bf16`` and
+    ``<name>_fft_f64`` (K2f) and ``<name>_fftg``, ``<name>_fftg_bf16`` and
+    ``<name>_fftg_f64`` (K2g)."""
     return {
         **{fn.__name__: fn.launches for fn in _CUBE_WRAPPERS},
         "scaled_sides_axis0": scaled_sides.launches[0],
@@ -1938,6 +2257,8 @@ def launch_counts() -> dict:
            scaled_sides_cluster.launches_f64[a] for a in (0, 1)},
         "side_centre_f64": side_centre.launches_f64,
         "side_scale_f64": side_scale.launches_f64,
-        **{f"{fn.__name__}_fft{sfx}": getattr(fn, "launches_fft" + sfx)
-           for fn in _FFT_WRAPPERS for sfx in ("", "_bf16", "_f64")},
+        **{f"{fn.__name__}_{route}{sfx}":
+           getattr(fn, f"launches_{route}{sfx}")
+           for route in ("fft", "fftg") for fn in _FFT_WRAPPERS
+           for sfx in ("", "_bf16", "_f64")},
     }

@@ -138,11 +138,14 @@ def kernel_costs(S: int, C: int, B: int,
     # in, the weights and mask in, new weights, scores and d_std out
     sweep_io = rb * cells + cells + 3 * rb * cells
     sweep_ops = diag_ops + 2 * sel_ops + 16 * cells
-    # The FFT build past the DFT tables (csrc/cell_fft.cu), the same
-    # function: K2's, K7's and K6's bytes, and per cell the real FFT's
-    # (5/2) B log2 B and 6 B for the residual, the moments and the split.
+    # The FFT builds past the DFT tables (csrc/cell_fft.cu, "_fft", and
+    # csrc/cell_fft_global.cu, "_fftg"), the same function: K2's, K7's
+    # and K6's bytes, and per cell the real FFT's (5/2) B log2 B and 6 B
+    # for the residual, the moments and the split.  The device-memory
+    # build's scratch traffic and Bluestein's longer transforms are its
+    # own cost, not the function's: both builds have one bound.
     fft_ops = cells * (2.5 * B * math.log2(max(B, 2)) + 6 * B)
-    return {
+    costs = {
         "weighted_marginals": (cb * cells * B
                                + rb * (cells + C * B + S * B),
                                3 * cells * B),
@@ -184,6 +187,9 @@ def kernel_costs(S: int, C: int, B: int,
         "shard_diagnostics_dedisp_fft": (cb * cells * B + rb * 2 * B
                                          + diag_io, fft_ops),
     }
+    costs.update({name[:-4] + "_fftg": cost for name, cost in costs.items()
+                  if name.endswith("_fft")})
+    return costs
 
 
 def kernel_bounds(S: int, C: int, B: int,

@@ -36,6 +36,7 @@ from iterative_cleaner_torch.convert import (
 )
 from iterative_cleaner_torch.engine.loop import (
     FFT_KERNELS,
+    FFTG_KERNELS,
     LONG_LINE_KERNELS,
     ROUTE_KERNELS,
     SHARD_KERNELS,
@@ -124,7 +125,8 @@ def test_route_kernels_cover_every_launch_counter():
     counted under its own name, and so is the float64 build of every
     kernel of the single-card routes, exact streaming, the sharded routes
     (K10's float64 build) and the long lines; the cell kernels' FFT
-    builds past the DFT tables (``FFT_KERNELS``) in every storage."""
+    builds past the DFT tables (``FFT_KERNELS``, the cluster build, and
+    ``FFTG_KERNELS``, the device-memory build) in every storage."""
     named = {k for table in (ROUTE_KERNELS, STREAM_KERNELS, SHARD_KERNELS)
              for ks in table.values()
              for cd in ("float32", "bfloat16")
@@ -137,8 +139,9 @@ def test_route_kernels_cover_every_launch_counter():
     # the cell kernels' FFT builds past the DFT tables, each storage
     fft = {k for cd, dt in (("float32", "float32"), ("bfloat16", "float32"),
                             ("float32", "float64"))
-           for k in storage_kernels(FFT_KERNELS.values(), cd, dt)}
-    assert fft == {f"{k}_fft{s}" for k in FFT_KERNELS
+           for names in (FFT_KERNELS, FFTG_KERNELS)
+           for k in storage_kernels(names.values(), cd, dt)}
+    assert fft == {f"{k}_{b}{s}" for k in FFT_KERNELS for b in ("fft", "fftg")
                    for s in ("", "_bf16", "_f64")}
     assert named | long_line | fft == set(launch_counts())
     for route, kernels in ROUTE_KERNELS.items():

@@ -111,8 +111,10 @@ def test_k3_route_switches_past_one_block():
 @pytest.mark.parametrize("plan", ["marginals", "cell_stats"])
 def test_nbin_above_max_refused_naming_roadmap_item(plan):
     """Past ``MAX_NBIN`` K1 plans as below it (it tiles the bins) and the
-    cell diagnostics leave the DFT route for the FFT build; 16,385 bins
-    (odd part 16,385) neither takes: refused naming ROADMAP item 9."""
+    cell diagnostics leave the DFT route (whose plan still refuses such
+    rows naming ROADMAP item 9) for an FFT build: 32,768 bins the cluster
+    build, 16,385 (odd part 16,385, a prime factor over 5) the
+    device-memory build K2g, by Bluestein's chirp convolution."""
     nbin = tk.MAX_NBIN + 1
     if plan == "marginals":
         for n in (nbin, 4 * tk.MAX_NBIN):
@@ -121,9 +123,10 @@ def test_nbin_above_max_refused_naming_roadmap_item(plan):
     else:
         assert tk.cell_stats_route(tk.MAX_NBIN) == "dft"
         assert tk.cell_stats_route(2 * tk.MAX_NBIN) == "fft"
-        for refuse in (tk.cell_stats_geometry, tk.cell_stats_route):
-            with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-                refuse(nbin)
+        with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
+            tk.cell_stats_geometry(nbin)
+        assert tk.cell_stats_route(nbin) == "fft_global"
+        assert tk.cell_fft_global_plan(nbin).mode == "bluestein"
 
 
 @pytest.mark.parametrize("baseline_mode", ["integration", "profile"])

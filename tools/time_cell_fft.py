@@ -1,8 +1,10 @@
 """Time the FFT build of the cell diagnostics (``cell_fft.cu``, K2f) on
 the card.
 
-    python tools/time_cell_fft.py [--label NAME] [--reps N]
+    python tools/time_cell_fft.py [--label NAME] [--nbin N ...] [--reps N]
     python tools/time_cell_fft.py --plans [--cells NSUB NCHAN]
+        [--nbin N ...] [--reps N]
+    python tools/time_cell_fft.py --builds [--cells NSUB NCHAN]
         [--nbin N ...] [--reps N]
     python tools/time_cell_fft.py --stages [--cells NSUB NCHAN]
         [--nbin N] [--reps N]
@@ -12,12 +14,22 @@ Default: every entry form through its routed wrapper (the plan
 (``disp``), K6's (``dedisp``) and K7's (``two_read``) — at the shapes
 ``chip_smoke.py`` (L1) and (L3) run them (the fewest blocks a cell, a
 cluster of 8, the radix-3 stage, a batch of two, and 32 x 256 x 65536)
-and at the full-width radix-3 shape 32 x 256 x 24576, in float32, bf16
-storage and float64, each held to its plain version within 1e-4 of
-each plane's scale (1e-12 in float64), beside ``torch.fft.rfft`` alone
-on the cube's rows.  It calls only the wrappers, so the same script
-times another tree of the package (``PYTHONPATH=<tree>``; ``--label``
-names it in the output): parent and change in one call, in turns.
+and at the full-width radix-3 and radix-5 shapes 32 x 256 x 24576 and
+20480, in float32, bf16 storage and float64 (``--nbin``: those of these
+shapes alone), each held to its plain version within 1e-4 of each
+plane's scale (1e-12 in float64), beside ``torch.fft.rfft`` alone on the
+cube's rows.  It calls only the wrappers, so the same script times
+another tree of the package (``PYTHONPATH=<tree>``; ``--label`` names it
+in the output): parent and change in one call, in turns.
+
+``--builds``: K2's residual with the Nyquist term through each FFT
+build that can run the row, the cluster build K2f (``cell_fft.cu``, at
+any odd part 3^a 5^b that fits, past the route's FFT_ODD_STAGES too) and
+the device-memory build K2g (``cell_fft_global.cu``, any row), at ``--cells`` x each ``--nbin``
+(default 32 x 256 x 24576, 20480, 20000, 46080, 60000 and 65536) in
+float32 and float64, each held to its plain version, timed in turns (K2f,
+K2g, K2g, K2f), beside ``torch.fft.rfft``: where the route's choice
+between the two builds stands.
 
 ``--stages``: the (L3) shape (``--cells`` x the first ``--nbin``) in
 float32 and float64 with one stage of the kernel switched off at a time:
@@ -90,15 +102,20 @@ STAGES = {
 }
 
 # (batch or 0, nsub, nchan, nbin) by storage: chip_smoke.py's L1_SHAPES,
-# then the (L3) archive's shape and the full-width radix-3 shape
+# then the (L3) archive's shape and the full-width radix-3 and radix-5
+# shapes
 SHAPES = {
     "float32": ((0, 16, 64, 32768), (0, 8, 32, 65536), (0, 8, 32, 24576),
-                (2, 4, 32, 65536), (0, 32, 256, 65536), (0, 32, 256, 24576)),
+                (2, 4, 32, 65536), (0, 32, 256, 65536), (0, 32, 256, 24576),
+                (0, 32, 256, 20480)),
     "bfloat16": ((0, 16, 64, 32768), (0, 8, 32, 65536), (0, 8, 32, 24576),
-                 (2, 4, 32, 65536), (0, 32, 256, 24576)),
+                 (2, 4, 32, 65536), (0, 32, 256, 24576), (0, 32, 256, 20480)),
     "float64": ((0, 16, 64, 16384), (0, 8, 32, 32768), (0, 8, 32, 24576),
-                (2, 4, 32, 32768), (0, 32, 256, 65536), (0, 32, 256, 24576)),
+                (2, 4, 32, 32768), (0, 32, 256, 65536), (0, 32, 256, 24576),
+                (0, 32, 256, 20480)),
 }
+# --builds: the rows' lengths (odd parts 3, 5, 625, 45, 1875 and 1)
+BUILD_NBINS = (24576, 20480, 20000, 46080, 60000, 65536)
 
 
 def _ms(fn, reps):
@@ -147,9 +164,9 @@ def _card():
         check=True).stdout.strip().splitlines()[0]
 
 
-def time_forms(reps, label, card):
-    """The routed wrappers at SHAPES against their plain versions, and
-    ``torch.fft.rfft`` on the rows."""
+def time_forms(reps, label, card, nbins=None):
+    """The routed wrappers at SHAPES (those of ``nbins`` bins where given)
+    against their plain versions, and ``torch.fft.rfft`` on the rows."""
     from iterative_cleaner_torch.stats import kernels as K
 
     dev = torch.device("cuda")
@@ -158,6 +175,8 @@ def time_forms(reps, label, card):
         storage = getattr(torch, name)
         rtol = 1e-12 if storage == torch.float64 else 1e-4
         for nb, nsub, nchan, nbin in shapes:
+            if nbins and nbin not in nbins:
+                continue
             o = _operands((nb,) if nb else (), nsub, nchan, nbin, storage, dev)
             c, b, r, n, t, w, m, win = (o[k] for k in (
                 "cube", "base", "rot", "nyq", "tmpl", "w", "mask", "win"))
@@ -243,6 +262,66 @@ def time_plans(cells, nbins, reps, card):
     return report
 
 
+def time_builds(cells, nbins, reps, card):
+    """K2's residual through K2f (where it can run the row) and K2g at
+    ``cells`` x each of ``nbins``, in float32 and float64."""
+    from iterative_cleaner_torch.stats import kernels as K
+
+    stages = K.FFT_ODD_STAGES
+    routes = {(d, n): K.cell_stats_route(n, d.itemsize)
+              for d in (torch.float32, torch.float64) for n in nbins}
+    K.FFT_ODD_STAGES = {4: 64, 8: 64}
+    K.cell_fft_plan.cache_clear()
+    try:
+        return _time_builds(cells, nbins, reps, card, routes)
+    finally:
+        K.FFT_ODD_STAGES = stages
+        K.cell_fft_plan.cache_clear()
+
+
+def _time_builds(cells, nbins, reps, card, routes):
+    from iterative_cleaner_torch.stats import kernels as K
+
+    dev = torch.device("cuda")
+    report = []
+    for dtype in (torch.float32, torch.float64):
+        rtol = 1e-12 if dtype == torch.float64 else 1e-4
+        for nbin in nbins:
+            o = _operands((), *cells, nbin, dtype, dev)
+            ops = tuple(o[k] for k in ("cube", "rot", "nyq", "tmpl", "w",
+                                       "mask"))
+            want = K.cell_diagnostics_disp_plain(*ops, "fft")
+            size = ops[0].element_size()
+            builds = ["fft_global"]
+            if K._cell_fft_takes(nbin, size)[0] is not None:
+                builds.insert(0, "fft")
+            fns = {b: (lambda b=b: K._counted(
+                K.cell_diagnostics_disp, ops[0], "icln_cell_stats_disp", b,
+                *K._disp_args(*ops, None))) for b in builds}
+            row = {"dtype": str(dtype), "shape": [*cells, nbin],
+                   "route": routes[(dtype, nbin)], "ms": {}, "err": {}}
+            for b, fn in fns.items():
+                row["err"][b] = _err(fn(), want, ops[5])
+                if not row["err"][b] <= rtol:
+                    raise SystemExit(f"{b} {dtype} {nbin}: error "
+                                     f"{row['err'][b]:.3e} over {rtol:g}")
+                row["ms"][b] = []
+            for b in builds + builds[::-1]:
+                row["ms"][b].append(_ms(fns[b], reps))
+            row["rfft_ms"] = _ms(lambda: torch.fft.rfft(ops[0], dim=-1), reps)
+            print(f"{dtype} {cells[0]}x{cells[1]}x{nbin} (odd part "
+                  f"{K._odd_part(nbin)}, routed to {row['route']}): "
+                  + ", ".join(f"{'K2f' if b == 'fft' else 'K2g'} "
+                              + " / ".join(f"{v:.4f}" for v in row["ms"][b])
+                              + " ms" for b in builds)
+                  + f", torch.fft.rfft {row['rfft_ms']:.4f} ms [{card}]",
+                  flush=True)
+            report.append(row)
+            del o, ops, want, fns
+            torch.cuda.empty_cache()
+    return report
+
+
 def _variant(root, patches):
     """A copy of the package under ``root`` with ``patches`` applied to
     its cell_fft.cu; returns the directory to put on PYTHONPATH."""
@@ -318,34 +397,39 @@ def time_stages(cells, nbin, reps, card):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--plans", action="store_true")
+    ap.add_argument("--builds", action="store_true")
     ap.add_argument("--stages", action="store_true")
     ap.add_argument("--stage-worker", action="store_true",
                     help=argparse.SUPPRESS)
     ap.add_argument("--build-only", action="store_true",
                     help=argparse.SUPPRESS)
-    ap.add_argument("--cells", type=int, nargs=2, default=(8, 256))
-    ap.add_argument("--nbin", type=int, nargs="+", default=(32768, 65536))
+    ap.add_argument("--cells", type=int, nargs=2)
+    ap.add_argument("--nbin", type=int, nargs="+")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--label", default="tree")
     args = ap.parse_args()
+    cells = tuple(args.cells or ((32, 256) if args.builds else (8, 256)))
+    first = (args.nbin or (32768,))[0]
     if args.stage_worker:
-        stage_worker(tuple(args.cells), args.nbin[0], args.reps,
-                     args.build_only)
+        stage_worker(cells, first, args.reps, args.build_only)
         return
     card = _card()
     print(card, flush=True)
     if args.stages:
         print(json.dumps({"card": card, "stages": time_stages(
-            tuple(args.cells), args.nbin[0], args.reps, card)}))
+            cells, first, args.reps, card)}))
         return
     from iterative_cleaner_torch.stats import kernels as K
 
     K.load_library()
     if args.plans:
-        out = {"plans": time_plans(tuple(args.cells), tuple(args.nbin),
+        out = {"plans": time_plans(cells, tuple(args.nbin or (32768, 65536)),
                                    args.reps, card)}
+    elif args.builds:
+        out = {"builds": time_builds(cells, tuple(args.nbin or BUILD_NBINS),
+                                     args.reps, card)}
     else:
-        out = {"forms": time_forms(args.reps, args.label, card)}
+        out = {"forms": time_forms(args.reps, args.label, card, args.nbin)}
     print(json.dumps({"card": card, "label": args.label,
                       "package": K.__file__, **out}))
 
