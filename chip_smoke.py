@@ -281,10 +281,13 @@ float64 clean's than the CPU's float32 scores by more than 1e-3.
 
 Every profile length the reference cleans (K2f's mixed radix-3/5 stages,
 K2g, ``csrc/cell_fft_global.cu``, the FFT build through device memory),
-after (L4) and (L3): (L5e) every K2g entry (Bluestein rows at 16,411,
-28,672 and 65,521 bins, split rows at 524,288, float64 262,144, and in
-float32 and bf16 at 20,000 and 60,000) and K2f at odd parts 45 (float32,
-bf16) and 1875 (float64) against their plain versions in float32, bf16
+after (L4) and (L3): (L5e) every K2g entry (Bluestein rows in a
+thread-block cluster, K2g's cluster mode, at 16,411, 28,672 and 65,521
+bins; Bluestein's passes on the shorter convolution at a prime past the
+cluster, 136,537 bins, float64 69,127; split rows at 524,288, float64
+262,144, and at 20,000 (float32, bf16) and 60,000) and K2f at odd
+parts 45 (float32,
+bf16) and 625 (float64) against their plain versions in float32, bf16
 and float64, within 1e-4 of each plane's scale (1e-12 in float64), the
 moments' masked cells bit-equal (K2g's d_fft by the tolerance on every
 cell: torch.fft on the card does not take an odd-length zero row to
@@ -292,10 +295,10 @@ zero), K10 bit-equal to K2 and K6, a batch of two and ``out=`` tiles
 bit-equal, bf16 bit-equal to float32 on the upcast cube, each K2g entry
 timed; (L5) three archives, each made when its turn comes (its noise
 and dispersion on the card):
-(L5a) 32 x 256 x 60000 (a 3.42 s pulsar at 57 us; odd part 1875: K2f in
-float64, K2g's split row in float32, the faster build at each),
-(L5b) 32 x 256 x 65521 (a prime, K2g's Bluestein route), (L5c) 16 x 64 x
-524288 (PSR J0901-4046's 75.9 s at 145 us, 2^29 samples; past the
+(L5a) 32 x 256 x 60000 (a 3.42 s pulsar at 57 us; odd part 1875, five
+odd stages: K2g's split row in both dtypes, the faster build),
+(L5b) 32 x 256 x 65521 (a prime, K2g's cluster mode: no scratch), (L5c)
+16 x 64 x 524288 (PSR J0901-4046's 75.9 s at 145 us, 2^29 samples; past the
 cluster's capacity, K2g's split route), each through ``clean_archive``
 on the default route in float32 and float64, (L5b) and (L5c) also the
 dedispersed frame and the profile baseline (float32 and float64), (L5c)
@@ -6049,11 +6052,12 @@ def long_profile_entries(l1, l3, counts):
 
 # The (L5) archives: (shape, period in s, seed), made in the (L5) phase
 # (:func:`make_l5_archive`).  (L5a) a 3.42 s pulsar at
-# 57 us a bin: 60,000 = 2^5 x 1875 bins, odd part 3 x 5^4, in float64
-# K2f's clusters of 8 with five odd stages, in float32 K2g's split row
-# (the faster build past three odd stages, kernels.FFT_ODD_STAGES);
+# 57 us a bin: 60,000 = 2^5 x 1875 bins, odd part 3 x 5^4, K2g's split
+# row (the faster build past three odd stages in float32 and four in
+# float64, kernels.FFT_ODD_STAGES);
 # (L5b) a 3.73 s pulsar at 57 us: 65,521 bins,
-# a prime, K2g's Bluestein route (M = 131,072); (L5c) PSR J0901-4046 (P =
+# a prime, K2g's cluster mode (Bluestein on M = 98,304 points in one
+# cluster a cell, no scratch); (L5c) PSR J0901-4046 (P =
 # 75.9 s) at 145 us: 524,288 bins in 16 subints over 64 channels (2^29
 # samples, the golden's count), past the cluster's capacity, K2g's split
 # route
@@ -6083,15 +6087,19 @@ L5_TIMED_RUNS = ("default", "dedispersed", "f64", "profile", "profile f64",
                  "sharded 1")
 # (L5e): every K2g entry, and K2f's mixed odd stages, against its plain
 # version at small width, (batch or 0, nsub, nchan, nbin) by storage; the
-# first shape of each list times the entries
+# first shape of each list times the entries.  65,521, 16,411 and 28,672
+# bins take K2g's cluster mode; 136,537 (float64 69,127), a prime past
+# the cluster, Bluestein's passes on the shorter convolution
 L5_ENTRY_SHAPES = {
     "float32": ((0, 4, 16, 65521), (0, 4, 16, 16411), (0, 4, 16, 28672),
                 (0, 2, 8, 524288), (2, 2, 8, 16411), (0, 4, 16, 60000),
-                (0, 4, 16, 20000), (0, 4, 16, 46080)),
+                (0, 4, 16, 20000), (0, 4, 16, 46080), (0, 2, 8, 136537)),
     "bfloat16": ((0, 4, 16, 65521), (0, 4, 16, 16411), (0, 4, 16, 28672),
-                 (0, 2, 8, 524288), (0, 4, 16, 60000), (0, 4, 16, 46080)),
+                 (0, 2, 8, 524288), (0, 4, 16, 60000), (0, 4, 16, 46080),
+                 (0, 2, 8, 136537)),
     "float64": ((0, 4, 16, 65521), (0, 4, 16, 16411), (0, 2, 8, 262144),
-                (2, 2, 8, 28672), (0, 4, 16, 60000)),
+                (2, 2, 8, 28672), (0, 4, 16, 60000), (0, 2, 8, 69127),
+                (0, 4, 16, 20000)),
 }
 K2G_SOURCE = "iterative_cleaner_torch/stats/csrc/cell_fft_global.cu"
 FFT_REPLACES = "iterative_cleaner_tpu/stats/masked_jax.py:155"
@@ -6199,7 +6207,9 @@ def l5_entries_phase(dev, tag):
                 how = f"K2f, {p.cluster} blocks a cell, odd part {p.odd}"
             else:
                 p = K.cell_fft_global_plan(nbin, c.element_size())
-                how = (f"K2g {p.mode}, {p.n} points in passes of "
+                how = (f"K2g cluster mode, {p.n} points, {p.cluster} blocks "
+                       f"a cell, odd part {p.odd}" if p.mode == "cluster"
+                       else f"K2g {p.mode}, {p.n} points in passes of "
                        f"{' x '.join(map(str, p.passes))}")
             print(f"L5e {storage} {(nb or 1, nsub, nchan, nbin)} ({how}): "
                   f"largest error over (|plain| + plane scale) "
@@ -6239,8 +6249,8 @@ def make_l5_archive(label, dev):
 def l5_phase(mesh1, counts, clean_ms, peak_gib, dev, tag):
     """(L5) Each L5_ARCHIVES archive (:func:`make_l5_archive`) through
     ``clean_archive`` on the card under L5_RUNS, each clean counted: its
-    route's FFT build (at L5a K2f in float64 and K2g in float32, K2g at
-    L5b and L5c) once an iteration and no other spectrum launch (no DFT,
+    route's FFT build (K2g: the split row at L5a and L5c, the cluster
+    mode at L5b) once an iteration and no other spectrum launch (no DFT,
     no ``torch.fft``).  The float32 masks against the float64 ones
     (L5_FLIP_PAIRS) by the goldens' flip rule; the dedispersed mask
     against the default by the frames' contract; the sharded clean
@@ -6399,6 +6409,15 @@ def l5_phase(mesh1, counts, clean_ms, peak_gib, dev, tag):
                     name_fft.replace("_f64", "")]
             plan = (K.cell_fft_plan if build == "_fft"
                     else K.cell_fft_global_plan)(B, 8 if sfx else 4)
+            if label == "L5b" and getattr(plan, "mode", None) != "cluster":
+                fail(f"{key}: (L5b) did not take K2g's cluster mode")
+            if getattr(plan, "mode", None) == "cluster":
+                # no scratch: the launch allocates its planes and the
+                # template row, under one row of the passes' scratch
+                row = plan.n * 2 * (8 if sfx else 4) / 2 ** 30
+                if not own_peak < row:
+                    fail(f"{key}: K2g's cluster mode allocated "
+                         f"{own_peak:.4f} GiB, a row of scratch or more")
             timed.setdefault(name_fft, {})[label] = {
                 "launches": counts[key][name_fft], "max_abs_err": err,
                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bms,
@@ -6406,7 +6425,9 @@ def l5_phase(mesh1, counts, clean_ms, peak_gib, dev, tag):
                 "launch_peak_gib": own_peak, "clean_peak_gib": peak_gib[key],
                 "f64_plain_err": rel64, "shape": [S, C, B],
                 "plan": plan._asdict()}
-            print(f"time {name_fft} ({key}, {S} x {C} x {B}): {ms:.4f} ms, "
+            mode = getattr(plan, "mode", "K2f")
+            print(f"time {name_fft} ({key}, {S} x {C} x {B}, {mode}): "
+                  f"{ms:.4f} ms, "
                   f"bound {bms:.4f} ms ({bby}), plain {plain_ms:.4f} ms, "
                   f"torch.fft.rfft alone on the centred rows {rfft_ms:.4f} "
                   f"ms; {it_ms:.3f} ms per iteration (device, resident "
@@ -7403,8 +7424,7 @@ def main() -> int:
     fft_rows = long_profile_entries(fft_l1, fft_l3, counts)
     fft_rows[0]["crossover"] = fft_l2
     for row in fft_rows:
-        # K2f's mixed odd stages at (L5a) (float64), and at (L5e)'s small
-        # width
+        # K2f's mixed odd stages at (L5e)'s small width
         if row["name"] in fft_l5:
             row["l5"] = fft_l5[row["name"]]
         if row["name"] in fft_l5e:

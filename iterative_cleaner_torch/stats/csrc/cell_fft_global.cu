@@ -15,12 +15,20 @@
 // cells patched per rule 4, and max over k <= N/2 of |rFFT(centred)|.
 //
 // Bound: bytes, as K2f's (the same function; telemetry/profiling.py
-// kernel_costs "*_fftg" counts the same bytes and operations).  This
-// first design moves more: the centred row goes through a scratch buffer
-// in device memory and every pass reads and writes it once.
+// kernel_costs "*_fftg" counts the same bytes and operations).  The
+// passes through device memory move more: the centred row goes through a
+// scratch buffer and every pass reads and writes it once.
 //
-// Design, per chunk of cells (the wrapper sizes the chunk so that its
-// scratch, chunk x n complex values, stays within 1 GiB), four kernels:
+// A Bluestein row needs only the convolution's first K = N/2 + 1 outputs
+// (the max's), which a cyclic convolution of M >= N + N/2 points gives
+// without wrap-around.  Where K2f's cluster takes a transform of M such
+// points (kernels.cell_fft_global_plan, mode "cluster"), the whole
+// convolution of a cell runs in one thread-block cluster, (e) below, and
+// nothing but the cube row, the tables and the planes crosses device
+// memory.  Every other row (the split rows; Bluestein past a cluster, on
+// the least 2^a 3^b 5^c M >= N + N/2) takes the passes, per chunk of
+// cells (the wrapper sizes the chunk so that its scratch, chunk x n
+// complex values, stays within 1 GiB), four kernels:
 //   (a) the residual  one block a cell streams its row through the
 //                     residual structs of cell_stats.cuh (Res::setup /
 //                     finish, fitv / atv, every form's entry) three times:
@@ -32,7 +40,7 @@
 //                     An even N whose N/2 is 2^a 3^b 5^c ("split") packs
 //                     the row as n = N/2 complex values x[2j] + i x[2j+1];
 //                     any other N (Bluestein) takes n = M, the least
-//                     2^a 3^b 5^c >= 2N - 1: the centred row times the
+//                     2^a 3^b 5^c >= N + N/2: the centred row times the
 //                     chirp w_j = exp(-i pi j^2 / N) (the wrapper's table,
 //                     j^2 mod 2N taken in integers, built in float64 on
 //                     the host), zero past N;
@@ -41,19 +49,24 @@
 //                     F <= 1024, kernels.cell_fft_global_plan), decimation
 //                     in frequency: pass j at stride s_j = n / (F_1 ... F_j)
 //                     takes the F_j values c + m s_j of each column c < s_j
-//                     of each span of F_j s_j into one block's shared
-//                     memory (G_j columns a block, G_j dividing s_j, so that
-//                     a row of the tile is G_j contiguous values), runs the
+//                     of each span of F_j s_j into a tile in shared memory
+//                     (G_j columns a tile, G_j dividing s_j, so that a row
+//                     of the tile is G_j contiguous values; a persistent
+//                     grid, each block walking the tiles with the next
+//                     one's cp.async copy in flight while this one's
+//                     stages run, the pass's tables in shared memory), runs the
 //                     F_j-point DFT there in stages of radix 5, 3, 4 and 2
 //                     (each stage's twiddles W_sp^(j q) from the pass's
 //                     table of W_F_j, the tile's indices divided by
 //                     multiplies), and writes output q, in natural order
 //                     (the stages' order undone by the pass's table perm),
-//                     times W_(F_j s_j)^(c q), to c + q s_j.  Position q_1 s_1 + q_2 s_2 + ... + q_k then holds
+//                     times W_(F_j s_j)^(c q), to c + q s_j.  Position
+//                     q_1 s_1 + q_2 s_2 + ... + q_k then holds
 //                     X[q_1 + F_1 q_2 + F_1 F_2 q_3 + ...]: the passes' own
 //                     order, never transposed;
-//   (c) Bluestein     the chirp's spectrum B^ (of b_j = conj w_j for |j| < N,
-//                     zero between), made once per (N, device, dtype) by
+//   (c) Bluestein     the chirp's spectrum B^ (of b_j = conj w_j at the
+//                     lags -N < j < K, zero between), made once per (N,
+//                     device, dtype) by
 //                     the same forward passes on the card in float64,
 //                     scaled by 1 / M and rounded to the arithmetic type,
 //                     is held in the passes' order: the last forward pass
@@ -69,7 +82,19 @@
 //                     in the passes' order, every value read once,
 //                     icln_split_one), for Bluestein |conv_k|^2 (|X_k| =
 //                     |w_k conv_k| = |conv_k|: the post-chirp has modulus
-//                     one and is not applied).
+//                     one and is not applied);
+//   (e) the cluster   Bluestein in one thread-block cluster a cell, on K2f's
+//                     transform of M = P 2^m points (P = 3^a 5^b within
+//                     kernels.FFT_ODD_STAGES, 2M bins within K2f's
+//                     capacity): the residual, centred and times the chirp
+//                     into the blocks' shared memory, K2f's forward, times
+//                     B^ (the host's float64 FFT of the chirp row in the
+//                     forward's order, kernels._fftg_bhat), the forward
+//                     mirrored as its inverse, the max from registers
+//                     (fftg_cluster_impl.cuh, built in its own sources,
+//                     cell_fftg_cluster_{f32,bf16,f64}.cu, one an element
+//                     type, so that the library's parallel build is not
+//                     held by one long compile).
 // The column twiddles W_n^e come from a two-level table
 // (kernels._fft_twiddles) of the table's length (N for a split row, whose
 // n = N/2 reads W_N^(2e); M for Bluestein), the stages' from each pass's
@@ -77,8 +102,8 @@
 // host and read through the read-only cache.  Multiplies and adds
 // fuse where the code says so (icln_fma, icln_cmul); no float atomics;
 // every reduction runs in a fixed order.  The CPU tests hold a numpy
-// model of the passes, the chirp, B^ and the split to np.fft
-// (tests/test_torch_cell_fft_schedule.py).
+// model of the passes, the chirp, B^, the split and the cluster mode's
+// forward and inverse to np.fft (tests/test_torch_cell_fft_schedule.py).
 //
 // A batch of equal-shaped archives is one launch over their cells (cell /
 // cpa is the archive), each cell's arithmetic its own, so each archive's
@@ -89,21 +114,30 @@
 // float32 launch on the upcast cube.  Every launch's error is returned;
 // the wrapper raises on any and never falls back.
 
-#include "fft_common.cuh"
+#include <map>
+#include <mutex>
+#include <tuple>
+
+#include "fftg_cluster.cuh"
 
 // the residual and max kernels' threads
 #define ICLN_FFTG_THREADS 256
-// the pass kernel's threads: a 64 KB tile a block, three blocks an SM
+// the most threads a block of the pass kernel (the plan's,
+// kernels.FFTG_PASS_THREADS, within it)
 #define ICLN_FFTG_PASS_THREADS 512
 #define ICLN_FFTG_MAX_PASSES 4
 #define ICLN_FFTG_PASS_MAX 1024
-#define ICLN_FFTG_TILE_BYTES 65536
+// the largest tile the plan may ask for (kernels.FFTG_TILE_BYTES, within
+// it): two in flight and the pass's tables fit a block's shared memory
+#define ICLN_FFTG_TILE_MAX 65536
 
 // The passes of one transform of n points: F_j points and G_j columns a
-// block, pass j at stride n / (F_1 ... F_j).
+// tile, pass j at stride n / (F_1 ... F_j); `threads` a block, `tile` the
+// bytes a tile may take (the fused pass's two tiles together).
 struct IclnFftgPasses {
   int n, np;
   int f[ICLN_FFTG_MAX_PASSES], g[ICLN_FFTG_MAX_PASSES];
+  int threads, tile;
 };
 
 // W_n^e from the two-level table of W_tab^j (tab = n * mul): W_tab^(e mul)
@@ -117,12 +151,6 @@ struct IclnFftgTable {
     return icln_cmul(__ldg(tw + (1 << lt) + (x >> lt)), __ldg(tw + (x & ((1 << lt) - 1))));
   }
 };
-
-template <class C2>
-__device__ __forceinline__ C2 icln_conj(C2 a) {
-  a.y = -a.y;
-  return a;
-}
 
 // -i a (forward) or i a (inverse)
 template <class C2>
@@ -203,8 +231,8 @@ struct IclnFastDiv {
 
 // One butterfly of a stage of radix P at span sp inside the tile (values
 // [m][G], column gi): the P values m0 + u d, their DFT, output q times
-// W_sp^(j q) = W_F^(j q F / sp) from the pass's table wf (conjugated when
-// inv), back to m0 + q d.
+// W_sp^(j q) = W_F^(j q F / sp) from the pass's table wf in shared memory
+// (conjugated when inv), back to m0 + q d.
 template <int P, class C2>
 __device__ __forceinline__ void icln_fftg_bfly(C2* t, int G, int gi, int m0, int d, int j,
                                                int fsp, const C2* wf, bool inv) {
@@ -216,7 +244,7 @@ __device__ __forceinline__ void icln_fftg_bfly(C2* t, int G, int gi, int m0, int
   for (int q = 0; q < P; ++q) {
     C2 o = y[q];
     if (j != 0 && q != 0) {
-      const C2 w = __ldg(wf + j * q * fsp);
+      const C2 w = wf[j * q * fsp];
       o = icln_cmul(o, inv ? icln_conj(w) : w);
     }
     t[(m0 + q * d) * G + gi] = o;
@@ -246,69 +274,165 @@ __device__ __forceinline__ void icln_fftg_stages(C2* t, int F, int G, const C2* 
   }
 }
 
+// B bytes from device memory into shared memory, asynchronously
+// (cp.async: 16 bytes through L2 alone, 8 bytes through L1)
+template <int B>
+__device__ __forceinline__ void icln_cp_async(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if constexpr (B == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void icln_cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// every group of this thread's copies but the newest complete
+__device__ __forceinline__ void icln_cp_wait_prior() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
 // (b): one pass of F points at stride s over the scratch rows of n values,
-// G columns a block (one tile: F x G values in shared memory, [m][G]): G
-// consecutive columns of one span where s > 1, G consecutive spans (each
-// a contiguous column, c = 0) where s = 1; wf the pass's table W_F^e (e <
-// F) and perm its stages' order (the wrapper's,
-// kernels._fftg_pass_tables).  Forward: load, the stages, output q times
-// W_(F s)^(c q) stored at c + q s.  Inverse (inv): load times conj
-// W_(F s)^(c m), the stages with conjugate twiddles, store.  Fused (the
-// last pass, s = 1, Bluestein): the forward pass, its outputs times B^
-// (mul) into a second tile, and the inverse pass on it.
+// G columns a tile (F x G values in shared memory, [m][G]): G consecutive
+// columns of one span where s > 1, G consecutive spans (each a contiguous
+// column, c = 0) where s = 1; wf the pass's table W_F^e (e < F) and perm
+// its stages' order (the wrapper's, kernels._fftg_pass_tables), both
+// copied into shared memory once a block.  Persistent: each block walks
+// the `total` tiles of the launch by the grid's stride with two tiles in
+// flight, the next tile's copy (cp.async) issued before this tile's
+// stages run and waited for before its own.  Forward: the stages, output
+// q times W_(F s)^(c q) stored at c + q s.  Inverse (inv): the tile times
+// conj W_(F s)^(c m), the stages with conjugate twiddles, stored.  Fused (the last pass, s = 1,
+// Bluestein): the forward pass, its outputs times B^ (mul) into a third
+// tile, and the inverse pass on it.  Each value's operations and their
+// order do not depend on where or when its tile and tables are loaded:
+// any tile size and grid give the same bits.
 template <class R>
 __global__ void __launch_bounds__(ICLN_FFTG_PASS_THREADS)
-    icln_fftg_pass_kernel(icln_cplx_t<R>* buf, int n, int F, int s, int G,
+    icln_fftg_pass_kernel(icln_cplx_t<R>* buf, int n, int F, int s, int G, long long total,
                           IclnFftgTable<icln_cplx_t<R>> tw, const icln_cplx_t<R>* wf,
                           const int* perm, int inv, int fused, const icln_cplx_t<R>* mul) {
   using C2 = icln_cplx_t<R>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  C2* t = reinterpret_cast<C2*>(smem_raw);
-  const int tiles = n / (F * G);
-  const long long row = blockIdx.x / tiles;
-  const long long g0 = (long long)(blockIdx.x - row * tiles) * G;
-  // the tile's groups g0 .. g0 + G - 1: columns of one span (G divides s),
-  // or G whole spans (s = 1)
-  const long long pos0 = (g0 / s) * F * (long long)s + g0 % s;
-  const int c0 = (int)(g0 % s);
-  const bool spans = s == 1;
-  C2* x = buf + row * n + pos0;
-  const long long tS = n / (F * (long long)s);  // W_(F s) = W_n^tS
   const int tot = F * G;
-  // value e of the loop: (column gi, point m), consecutive e on
-  // consecutive addresses (along a span's column where s = 1)
+  C2* slots = reinterpret_cast<C2*>(smem_raw);
+  C2* t2 = slots + 2 * tot;  // the fused pass's inverse tile
+  C2* wfs = t2 + (fused ? tot : 0);
+  int* perms = reinterpret_cast<int*>(wfs + F);
+  for (int e = threadIdx.x; e < F; e += blockDim.x) {
+    wfs[e] = __ldg(wf + e);
+    perms[e] = __ldg(perm + e);
+  }
+  const int tiles = n / tot;  // a row's
+  const bool spans = s == 1;
+  const long long tS = n / (F * (long long)s);  // W_(F s) = W_n^tS
+  // value e of a tile: (column gi, point m), consecutive e on consecutive
+  // addresses (along a span's column where s = 1)
   const IclnFastDiv fg(G), ff(F);
-  for (int e = threadIdx.x; e < tot; e += blockDim.x) {
-    const int gi = spans ? ff.div(e) : e - fg.div(e) * G;
-    const int m = spans ? e - gi * F : fg.div(e);
-    C2 v = x[spans ? e : gi + (long long)m * s];
-    if (inv && !spans) {
-      const long long ex = (long long)(c0 + gi) * m;
-      if (ex) v = icln_cmul(v, icln_conj(tw(ex * tS)));
+  // the tile's groups g0 .. g0 + G - 1: columns of one span (G divides s),
+  // or G whole spans (s = 1); its first value's position in the row
+  auto origin = [&](long long ti, long long& pos0, int& c0) -> C2* {
+    const long long row = ti / tiles;
+    const long long g0 = (ti - row * tiles) * G;
+    pos0 = (g0 / s) * F * (long long)s + g0 % s;
+    c0 = (int)(g0 % s);
+    return buf + row * n + pos0;
+  };
+  // float32 values in pairs, 16 bytes a copy and a store, where a pair of
+  // a tile's row is a pair in the row (G, s and the tile's first
+  // position even; across spans the stores alone, along the row)
+  constexpr bool kPairs = sizeof(C2) == 8;
+  const IclnFastDiv fh(G / 2 > 0 ? G / 2 : 1);
+  auto issue = [&](long long ti, C2* t) {
+    long long pos0;
+    int c0;
+    const C2* x = origin(ti, pos0, c0);
+    if constexpr (kPairs) {
+      if (!spans && G % 2 == 0 && s % 2 == 0 && (x - buf) % 2 == 0) {
+        for (int e = threadIdx.x; e < tot / 2; e += blockDim.x) {
+          const int m = fh.div(e), gi = 2 * (e - m * (G / 2));
+          icln_cp_async<16>(t + m * G + gi, x + gi + (long long)m * s);
+        }
+        return;
+      }
     }
-    t[m * G + gi] = v;
-  }
-  __syncthreads();
-  icln_fftg_stages(t, F, G, wf, inv);
-  if (fused) {
-    C2* t2 = t + tot;
     for (int e = threadIdx.x; e < tot; e += blockDim.x) {
-      const int gi = ff.div(e), u = e - gi * F;
-      t2[u * G + gi] = icln_cmul(t[__ldg(perm + u) * G + gi], __ldg(mul + pos0 + e));
+      const int gi = spans ? ff.div(e) : e - fg.div(e) * G;
+      const int m = spans ? e - gi * F : fg.div(e);
+      icln_cp_async<sizeof(C2)>(t + m * G + gi, x + (spans ? e : gi + (long long)m * s));
     }
-    __syncthreads();
-    icln_fftg_stages(t2, F, G, wf, true);
-    t = t2;
-  }
-  for (int e = threadIdx.x; e < tot; e += blockDim.x) {
+  };
+  // output e of the tile: its value (the stages' order undone, forward
+  // passes times W_(F s)^(c q)) and its place in the row
+  auto output = [&](const C2* tt, int c0, int e, long long& at) -> C2 {
     const int gi = spans ? ff.div(e) : e - fg.div(e) * G;
     const int u = spans ? e - gi * F : fg.div(e);
-    C2 v = t[__ldg(perm + u) * G + gi];
+    C2 v = tt[perms[u] * G + gi];
     if (!inv && !spans) {
       const long long ex = (long long)(c0 + gi) * u;
       if (ex) v = icln_cmul(v, tw(ex * tS));
     }
-    x[spans ? e : gi + (long long)u * s] = v;
+    at = spans ? e : gi + (long long)u * s;
+    return v;
+  };
+  long long ti = blockIdx.x;
+  if (ti < total) issue(ti, slots);
+  icln_cp_commit();
+  for (int cur = 0; ti < total; ti += gridDim.x, cur ^= 1) {
+    if (ti + gridDim.x < total) issue(ti + gridDim.x, slots + (cur ^ 1) * tot);
+    icln_cp_commit();
+    icln_cp_wait_prior();  // this tile's copies, this thread's
+    __syncthreads();       // everyone's, and (the first time) the tables
+    C2* t = slots + cur * tot;
+    long long pos0;
+    int c0;
+    C2* x = origin(ti, pos0, c0);
+    if (inv && !spans) {
+      for (int e = threadIdx.x; e < tot; e += blockDim.x) {
+        const int gi = e - fg.div(e) * G, m = fg.div(e);
+        const long long ex = (long long)(c0 + gi) * m;
+        if (ex) t[m * G + gi] = icln_cmul(t[m * G + gi], icln_conj(tw(ex * tS)));
+      }
+      __syncthreads();
+    }
+    icln_fftg_stages(t, F, G, wfs, inv);
+    if (fused) {
+      for (int e = threadIdx.x; e < tot; e += blockDim.x) {
+        const int gi = ff.div(e), u = e - gi * F;
+        t2[u * G + gi] = icln_cmul(t[perms[u] * G + gi], __ldg(mul + pos0 + e));
+      }
+      __syncthreads();
+      icln_fftg_stages(t2, F, G, wfs, true);
+    }
+    const C2* tt = fused ? t2 : t;
+    bool paired = false;
+    if constexpr (kPairs) {
+      if ((x - buf) % 2 == 0 && (spans ? tot % 2 == 0 : G % 2 == 0 && s % 2 == 0)) {
+        // pairs (e, e + 1) adjacent in the row: along a span where s = 1,
+        // columns gi, gi + 1 of one point where s > 1
+        paired = true;
+        for (int e2 = threadIdx.x; e2 < tot / 2; e2 += blockDim.x) {
+          int e = 2 * e2;
+          if (!spans) {
+            const int m = fh.div(e2);
+            e = m * G + 2 * (e2 - m * (G / 2));
+          }
+          long long at0, at1;
+          const C2 v0 = output(tt, c0, e, at0), v1 = output(tt, c0, e + 1, at1);
+          *reinterpret_cast<float4*>(x + at0) = make_float4(v0.x, v0.y, v1.x, v1.y);
+        }
+      }
+    }
+    if (!paired) {
+      for (int e = threadIdx.x; e < tot; e += blockDim.x) {
+        long long at;
+        const C2 v = output(tt, c0, e, at);
+        x[at] = v;
+      }
+    }
+    __syncthreads();  // the tile is read: its slot takes the tile after next
   }
 }
 
@@ -509,27 +633,63 @@ static bool icln_fftg_smooth(int x) {
 
 // the passes' checks: n = F_1 ... F_k, each F 2^a 3^b 5^c <= 1024, G_j
 // dividing s_j (the last pass's, s = 1: the row's spans), a tile within
-// ICLN_FFTG_TILE_BYTES
+// ps.tile (<= ICLN_FFTG_TILE_MAX; the last pass's two where `fused`),
+// whole warps of threads
 template <class R>
-static bool icln_fftg_passes_ok(const IclnFftgPasses& ps) {
-  if (ps.n < 1 || ps.np < 1 || ps.np > ICLN_FFTG_MAX_PASSES) return false;
+static bool icln_fftg_passes_ok(const IclnFftgPasses& ps, bool fused) {
+  if (ps.n < 1 || ps.np < 1 || ps.np > ICLN_FFTG_MAX_PASSES || ps.tile < 1 ||
+      ps.tile > ICLN_FFTG_TILE_MAX || ps.threads < 32 || ps.threads % 32 ||
+      ps.threads > ICLN_FFTG_PASS_THREADS)
+    return false;
   long long s = ps.n;
   for (int j = 0; j < ps.np; ++j) {
     const int F = ps.f[j], G = ps.g[j];
     if (F < 1 || F > ICLN_FFTG_PASS_MAX || !icln_fftg_smooth(F) || s % F) return false;
     const long long spans = ps.n / s;  // the pass's spans of s values
     s /= F;
+    const long long two = fused && j == ps.np - 1 ? 2 : 1;
     if (G < 1 || (s > 1 ? s % G : spans % G) ||
-        (long long)F * G * 2 * (long long)sizeof(R) > ICLN_FFTG_TILE_BYTES)
+        (long long)F * G * 2 * (long long)sizeof(R) * two > ps.tile)
       return false;
   }
   return s == 1;
 }
 
+// The blocks of `kernel` the current device holds at once at `threads`
+// and `smem` bytes (asked once per device and launch shape): the pass
+// kernel's persistent grid.
+static cudaError_t icln_fftg_resident(const void* kernel, int threads, size_t smem,
+                                      long long* resident) {
+  static std::mutex mu;
+  static std::map<std::tuple<int, const void*, int, size_t>, long long> cache;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const auto key = std::make_tuple(dev, kernel, threads, smem);
+  {
+    std::lock_guard<std::mutex> lock(mu);
+    const auto it = cache.find(key);
+    if (it != cache.end()) {
+      *resident = it->second;
+      return cudaSuccess;
+    }
+  }
+  int per_sm = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  *resident = (long long)per_sm * sms;
+  std::lock_guard<std::mutex> lock(mu);
+  cache[key] = *resident;
+  return cudaSuccess;
+}
+
 // The passes over `rows` rows: `mode` 0 forward (passes 1 .. k), 1
 // inverse (k .. 1), 2 Bluestein's convolution (forward 1 .. k - 1, the
 // fused last pass times `mul`, inverse k - 1 .. 1); wf and perm hold every
-// pass's table and order, pass j's at F_1 + ... + F_(j-1).
+// pass's table and order, pass j's at F_1 + ... + F_(j-1).  Each launch a
+// persistent grid, two tiles a block in flight.
 template <class R>
 static cudaError_t icln_fftg_run_passes(icln_cplx_t<R>* buf, long long rows,
                                         const IclnFftgPasses& ps,
@@ -537,11 +697,8 @@ static cudaError_t icln_fftg_run_passes(icln_cplx_t<R>* buf, long long rows,
                                         const icln_cplx_t<R>* wf, const int* perm, int mode,
                                         const icln_cplx_t<R>* mul, cudaStream_t st) {
   using C2 = icln_cplx_t<R>;
-  void (*kernel)(C2*, int, int, int, int, IclnFftgTable<C2>, const C2*, const int*, int, int,
-                 const C2*) = icln_fftg_pass_kernel<R>;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         ICLN_FFTG_TILE_BYTES);
-  if (err != cudaSuccess) return icln_take_error(err);
+  void (*kernel)(C2*, int, int, int, int, long long, IclnFftgTable<C2>, const C2*, const int*,
+                 int, int, const C2*) = icln_fftg_pass_kernel<R>;
   int strides[ICLN_FFTG_MAX_PASSES], offs[ICLN_FFTG_MAX_PASSES];
   long long s = ps.n;
   for (int j = 0, o = 0; j < ps.np; o += ps.f[j], ++j) {
@@ -562,22 +719,33 @@ static cudaError_t icln_fftg_run_passes(icln_cplx_t<R>* buf, long long rows,
   }
   for (int i = 0; i < ns; ++i) {
     const int j = seq[i][0], F = ps.f[j], G = ps.g[j], fused = seq[i][2];
-    const long long blocks = rows * (ps.n / ((long long)F * G));
-    if (blocks > 0x7FFFFFFFLL) return cudaErrorInvalidValue;
-    const size_t smem = (size_t)F * G * sizeof(C2) * (fused ? 2 : 1);
-    if (smem > ICLN_FFTG_TILE_BYTES) return cudaErrorInvalidValue;
-    kernel<<<(unsigned)blocks, ICLN_FFTG_PASS_THREADS, smem, st>>>(
-        buf, ps.n, F, strides[j], G, tw, wf + offs[j], perm + offs[j], seq[i][1], fused,
-        fused ? mul : nullptr);
+    const long long total = rows * (ps.n / ((long long)F * G));
+    // two tiles in flight, the fused pass's third, the pass's tables
+    const size_t tile = (size_t)F * G * sizeof(C2);
+    const size_t smem = tile * (fused ? 3 : 2) + (size_t)F * (sizeof(C2) + sizeof(int));
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return icln_take_error(err);
+    long long resident = 0;
+    err = icln_fftg_resident((const void*)kernel, ps.threads, smem, &resident);
+    if (err != cudaSuccess) return icln_take_error(err);
+    if (resident < 1) return cudaErrorLaunchOutOfResources;
+    const long long grid = total < resident ? total : resident;
+    kernel<<<(unsigned)grid, ps.threads, smem, st>>>(buf, ps.n, F, strides[j], G, total, tw,
+                                                    wf + offs[j], perm + offs[j], seq[i][1],
+                                                    fused, fused ? mul : nullptr);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
 }
 
-static IclnFftgPasses icln_fftg_make_passes(int n, const int* f, const int* g) {
+static IclnFftgPasses icln_fftg_make_passes(int n, const int* f, const int* g, int threads,
+                                            int tile) {
   IclnFftgPasses ps = {};
   ps.n = n;
+  ps.threads = threads;
+  ps.tile = tile;
   for (int j = 0; j < ICLN_FFTG_MAX_PASSES && f[j] > 1; ++j) {
     ps.f[j] = f[j];
     ps.g[j] = g[j];
@@ -590,27 +758,21 @@ static IclnFftgPasses icln_fftg_make_passes(int n, const int* f, const int* g) {
   return ps;
 }
 
-// the tables a launch reads: the two-level table of W_tab (tw, lt, tmul)
-// and the passes' tables and orders (wf, perm)
-struct IclnFftgTabs {
-  const void* tw;
-  const void* wf;
-  const int* perm;
-  int lt, tmul;
-};
-
 template <class Res>
 static int icln_fftg_launch(const CellStatsArgs<typename Res::Real>& p, void* scratch,
                             const void* chirp, const void* bhat, const IclnFftgPasses& ps,
-                            long long chunk, const IclnFftgTabs& tb, void* stream) {
+                            long long chunk, const IclnFftgTabs& tb, const IclnFftgCluster& cl,
+                            void* stream) {
   using R = typename Res::Real;
   using C2 = icln_cplx_t<R>;
+  if (cl.cluster > 0)
+    return icln_fftg_cluster_launch<Res>(p, chirp, bhat, ps.n, tb, cl, stream);
   const bool blue = chirp != nullptr;
   const long long tab = (long long)ps.n * tb.tmul;
-  if (p.nbin < 2 || !icln_fftg_passes_ok<R>(ps) || chunk < 1 ||
+  if (p.nbin < 2 || !icln_fftg_passes_ok<R>(ps, blue) || chunk < 1 ||
       scratch == nullptr || tb.tw == nullptr || tb.wf == nullptr || tb.perm == nullptr ||
       (blue != (bhat != nullptr)) ||
-      (blue ? (tb.tmul != 1 || ps.n < 2LL * p.nbin - 1)
+      (blue ? (tb.tmul != 1 || ps.n < (long long)p.nbin + p.nbin / 2)
             : (tb.tmul != 2 || p.nbin % 2 || 2LL * ps.n != p.nbin)) ||
       tb.lt < 0 || tb.lt > 30 || (1LL << (2 * tb.lt)) < tab / 2 || p.cpa < 1 ||
       p.ncells % p.cpa || p.cpa % p.nchan || chunk > 0x7FFFFFFFLL)
@@ -652,13 +814,14 @@ template <class T>
 static int icln_fftg_disp_t(CellStatsArgs<icln_real_t<T>> p, const void* disp, const void* rott,
                             const void* nyq, void* scratch, const void* chirp, const void* bhat,
                             const IclnFftgPasses& ps, long long chunk, const IclnFftgTabs& tb,
-                            void* stream) {
+                            const IclnFftgCluster& cl, void* stream) {
   using R = icln_real_t<T>;
   p.cube = disp;
   p.rott = static_cast<const R*>(rott);
   p.nyq = static_cast<const R*>(nyq);
-  return p.nyq ? icln_fftg_launch<ResDisp<T, true>>(p, scratch, chirp, bhat, ps, chunk, tb, stream)
-               : icln_fftg_launch<ResDisp<T, false>>(p, scratch, chirp, bhat, ps, chunk, tb,
+  return p.nyq ? icln_fftg_launch<ResDisp<T, true>>(p, scratch, chirp, bhat, ps, chunk, tb, cl,
+                                                    stream)
+               : icln_fftg_launch<ResDisp<T, false>>(p, scratch, chirp, bhat, ps, chunk, tb, cl,
                                                      stream);
 }
 
@@ -667,44 +830,50 @@ static int icln_fftg_two_read_t(CellStatsArgs<icln_real_t<T>> p, const void* ded
                                 const void* disp_base, const void* rott, const void* tmpl,
                                 void* scratch, const void* chirp, const void* bhat,
                                 const IclnFftgPasses& ps, long long chunk,
-                                const IclnFftgTabs& tb, void* stream) {
+                                const IclnFftgTabs& tb, const IclnFftgCluster& cl,
+                                void* stream) {
   using R = icln_real_t<T>;
   p.cube = ded;
   p.base = disp_base;
   p.rott = static_cast<const R*>(rott);
   p.tmpl = static_cast<const R*>(tmpl);
-  return icln_fftg_launch<ResTwoRead<T>>(p, scratch, chirp, bhat, ps, chunk, tb, stream);
+  return icln_fftg_launch<ResTwoRead<T>>(p, scratch, chirp, bhat, ps, chunk, tb, cl, stream);
 }
 
 template <class T>
 static int icln_fftg_dedisp_t(CellStatsArgs<icln_real_t<T>> p, const void* ded, const void* tmpl,
                               const void* win, void* scratch, const void* chirp, const void* bhat,
                               const IclnFftgPasses& ps, long long chunk, const IclnFftgTabs& tb,
-                              void* stream) {
+                              const IclnFftgCluster& cl, void* stream) {
   using R = icln_real_t<T>;
   p.cube = ded;
   p.tmpl = static_cast<const R*>(tmpl);
   p.win = static_cast<const R*>(win);
-  return icln_fftg_launch<ResDedisp<T>>(p, scratch, chirp, bhat, ps, chunk, tb, stream);
+  return icln_fftg_launch<ResDedisp<T>>(p, scratch, chirp, bhat, ps, chunk, tb, cl, stream);
 }
 
 // The entries.  `kind`: the cubes' storage, 0 float32, 1 bf16, 2 float64
-// (every other pointer then double); `tw` the two-level table of W_tab
-// (kernels._fft_twiddles(tab), tab = n * tmul: nbin for a split row, n =
-// nbin / 2 and tmul 2; M for Bluestein, tmul 1), lt log2 of its low part;
-// `wf` and `perm` the passes' tables W_F^e and stages' orders
+// (every other pointer then double); n the transform's points (nbin / 2
+// for a split row, M for Bluestein); inv_n float32(1/nbin) for float,
+// 1/nbin for double; `chirp` (nbin,) and `bhat` (n,) complex values for
+// Bluestein, both null for a split row.  The passes (cluster 0): `tw` the
+// two-level table of W_tab (kernels._fft_twiddles(tab), tab = n * tmul:
+// nbin for a split row, tmul 2; M for Bluestein, tmul 1), lt log2 of its
+// low part; `wf` and `perm` the passes' tables W_F^e and stages' orders
 // (kernels._fftg_pass_tables), pass after pass; `scratch` (chunk, n)
-// complex values; `chirp` (nbin,) and `bhat` (n,) complex values for
-// Bluestein, both null for a split row; the passes' points f0..f3 and
-// columns g0..g3 (f 1 past the last pass); inv_n float32(1/nbin) for
-// float, 1/nbin for double.
+// complex values; the passes' points f0..f3 and columns g0..g3 (f 1 past
+// the last pass), `threads` a block, `tile` the bytes a tile may take.
+// The cluster mode (cluster 2, 4 or 8 blocks a cell, Bluestein alone):
+// `tw` K2f's table of W_(2M) (lt its low part's log2), n = odd 2^m,
+// `threads` and `smem` a block; wf, perm and scratch unused (null).
 
 #define ICLN_FFTG_PARAMS                                                                        \
   const void *w, const unsigned char *mask, const void *tw, const void *wf, const int *perm,   \
       const void *tt, void *d_std, void *d_mean, void *d_ptp, void *d_fft, void *scratch,      \
       const void *chirp, const void *bhat, long long ncells, long long cpa, int nchan,         \
       int nbin, int n, int f0, int f1, int f2, int f3, int g0, int g1, int g2, int g3,         \
-      int chunk, int lt, int tmul, double inv_n, int kind, void *stream
+      int chunk, int lt, int tmul, int threads, int tile, int cluster, int odd,               \
+      long long smem, double inv_n, int kind, void *stream
 
 #define ICLN_FFTG_ARGS(R)                                                                      \
   icln_cell_stats_args<R>(mask, w, nullptr, nullptr, tt, d_std, d_mean, d_ptp, d_fft, ncells, \
@@ -713,9 +882,11 @@ static int icln_fftg_dedisp_t(CellStatsArgs<icln_real_t<T>> p, const void* ded, 
 #define ICLN_FFTG_PS                                                                           \
   const int fs[ICLN_FFTG_MAX_PASSES] = {f0, f1, f2, f3};                                       \
   const int gs[ICLN_FFTG_MAX_PASSES] = {g0, g1, g2, g3};                                       \
-  const IclnFftgTabs tb = {tw, wf, perm, lt, tmul};
+  const IclnFftgTabs tb = {tw, wf, perm, lt, tmul};                                            \
+  const IclnFftgCluster cl = {cluster, odd, threads, smem};
 
-#define ICLN_FFTG_TAIL scratch, chirp, bhat, icln_fftg_make_passes(n, fs, gs), chunk, tb, stream
+#define ICLN_FFTG_TAIL \
+  scratch, chirp, bhat, icln_fftg_make_passes(n, fs, gs, threads, tile), chunk, tb, cl, stream
 
 static int icln_fftg_disp_entry(const void* disp, const void* rott, const void* nyq,
                                 ICLN_FFTG_PARAMS) {
@@ -743,8 +914,8 @@ static int icln_fftg_dedisp_entry(const void* ded, const void* tmpl, const void*
 
 #define ICLN_FFTG_FWD                                                                          \
   w, mask, tw, wf, perm, tt, d_std, d_mean, d_ptp, d_fft, scratch, chirp, bhat, ncells, cpa,   \
-      nchan, nbin, n, f0, f1, f2, f3, g0, g1, g2, g3, chunk, lt, tmul, inv_n, kind,            \
-      stream
+      nchan, nbin, n, f0, f1, f2, f3, g0, g1, g2, g3, chunk, lt, tmul, threads, tile, cluster, \
+      odd, smem, inv_n, kind, stream
 
 // K2's residual
 extern "C" int icln_cell_fftg_disp(const void* disp, const void* rott, const void* nyq,
@@ -787,28 +958,29 @@ extern "C" int icln_shard_fftg_dedisp(const void* ded, const void* tmpl, const v
 
 // The passes alone on `rows` rows of n complex values in place (kind 0
 // float, 2 double): `mode` 0 forward into the passes' order, 1 inverse from
-// it (`mul` null).  The wrapper makes the chirp's spectrum B^ with mode 0
-// (float64), and the card tests hold the passes to torch.fft.
+// it (`mul` null), `threads` a block, `tile` the bytes a tile may take.
+// The wrapper makes the passes' chirp spectrum B^ with mode 0 (float64),
+// and the card tests hold the passes to torch.fft.
 extern "C" int icln_fftg_passes(void* buf, const void* mul, long long rows, int n, int f0, int f1,
                                 int f2, int f3, int g0, int g1, int g2, int g3, const void* tw,
                                 const void* wf, const int* perm, int lt, int tmul, int mode,
-                                int kind, void* stream) {
+                                int threads, int tile, int kind, void* stream) {
   const int fs[ICLN_FFTG_MAX_PASSES] = {f0, f1, f2, f3};
   const int gs[ICLN_FFTG_MAX_PASSES] = {g0, g1, g2, g3};
   cudaStream_t st = (cudaStream_t)stream;
-  const IclnFftgPasses ps = icln_fftg_make_passes(n, fs, gs);
+  const IclnFftgPasses ps = icln_fftg_make_passes(n, fs, gs, threads, tile);
   if (rows < 1 || lt < 0 || lt > 30 || tmul < 1 || (mode != 0 && mode != 1) || mul != nullptr ||
       tw == nullptr || wf == nullptr || perm == nullptr)
     return (int)cudaErrorInvalidValue;
   if (kind == 2) {
-    if (!icln_fftg_passes_ok<double>(ps)) return (int)cudaErrorInvalidValue;
+    if (!icln_fftg_passes_ok<double>(ps, false)) return (int)cudaErrorInvalidValue;
     const IclnFftgTable<double2> t = {static_cast<const double2*>(tw), lt, tmul};
     return (int)icln_fftg_run_passes<double>(static_cast<double2*>(buf), rows, ps, t,
                                              static_cast<const double2*>(wf), perm, mode,
                                              static_cast<const double2*>(mul), st);
   }
   if (kind == 0) {
-    if (!icln_fftg_passes_ok<float>(ps)) return (int)cudaErrorInvalidValue;
+    if (!icln_fftg_passes_ok<float>(ps, false)) return (int)cudaErrorInvalidValue;
     const IclnFftgTable<float2> t = {static_cast<const float2*>(tw), lt, tmul};
     return (int)icln_fftg_run_passes<float>(static_cast<float2*>(buf), rows, ps, t,
                                             static_cast<const float2*>(wf), perm, mode,

@@ -1,0 +1,6 @@
+// K2g's cluster mode (fftg_cluster_impl.cuh) on bf16-stored cubes (float32 arithmetic): one of the
+// three sources it is built in, so that the library's parallel build is
+// not held by one long compile.
+#include "fftg_cluster_impl.cuh"
+
+ICLN_FFTG_CLUSTER_BUILD(icln_bf16)

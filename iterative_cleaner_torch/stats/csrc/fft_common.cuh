@@ -38,6 +38,13 @@ __device__ __forceinline__ C2 icln_csub(C2 a, C2 b) {
   return r;
 }
 
+// conj a
+template <class C2>
+__device__ __forceinline__ C2 icln_conj(C2 a) {
+  a.y = -a.y;
+  return a;
+}
+
 // a * w, each part one multiply and one fused multiply-add
 template <class C2>
 __device__ __forceinline__ C2 icln_cmul(C2 a, C2 w) {

@@ -91,11 +91,12 @@ nbin = 2^a 3^b 5^c within a cluster's capacity), counted apart under the
 same wrapper (``launches_fft``, ``launches_fft_bf16``,
 ``launches_fft_f64``; ``<name>_fft``, ``<name>_fft_bf16`` and
 ``<name>_fft_f64`` in :func:`launch_counts`); every other length K2g
-(``cell_fft_global.cu``: the transform in passes through a scratch
-buffer in device memory, Bluestein's chirp convolution where nbin/2 is
-not 2^a 3^b 5^c), counted as ``<name>_fftg`` and its bf16 and float64
-siblings.  Their plain versions take the DFT or ``torch.fft`` by the
-same rule.
+(``cell_fft_global.cu``: Bluestein's chirp convolution where nbin/2 is
+not 2^a 3^b 5^c, in one thread-block cluster a cell where a cluster
+holds it, ``fftg_cluster_impl.cuh``, else through device memory as the
+split rows are, the transform in passes through a scratch buffer),
+counted as ``<name>_fftg`` and its bf16 and float64 siblings.  Their
+plain versions take the DFT or ``torch.fft`` by the same rule.
 :func:`cell_fft_disp` runs K2's FFT build at any length it takes (to
 hold it against K2 where both routes take the shape).
 
@@ -153,7 +154,8 @@ BUILD_DIR = _PKG_DIR / "_build"
 SOURCES = ("marginals.cu", "cell_stats.cu", "shard_stats.cu",
            "scaled_sides.cu", "combine.cu", "masked_median.cu",
            "sides_tail.cu", "sides_cluster.cu", "cell_fft.cu",
-           "cell_fft_global.cu")
+           "cell_fft_global.cu", "cell_fftg_cluster_f32.cu",
+           "cell_fftg_cluster_bf16.cu", "cell_fftg_cluster_f64.cu")
 # -fmad=false: no contraction of a*b+c, so the kernels round as the
 # reference does; no fast-math; sm_90a (Hopper).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
@@ -308,12 +310,12 @@ _SIGNATURES = {
     + [_LL, _D, _I, _P],
     "icln_shard_fft_dedisp": [_P] * 11 + [_LL] * 2 + [_I] * 5
     + [_LL, _D, _I, _P],
-    **{name: [_P] * 16 + [_LL] * 2 + [_I] * 14 + [_D, _I, _P]
+    **{name: [_P] * 16 + [_LL] * 2 + [_I] * 18 + [_LL, _D, _I, _P]
        for name in ("icln_cell_fftg_disp", "icln_cell_fftg_dedisp",
                     "icln_shard_fftg_disp", "icln_shard_fftg_dedisp")},
-    "icln_cell_fftg_two_read": [_P] * 17 + [_LL] * 2 + [_I] * 14
-    + [_D, _I, _P],
-    "icln_fftg_passes": [_P, _P, _LL] + [_I] * 9 + [_P] * 3 + [_I] * 4
+    "icln_cell_fftg_two_read": [_P] * 17 + [_LL] * 2 + [_I] * 18
+    + [_LL, _D, _I, _P],
+    "icln_fftg_passes": [_P, _P, _LL] + [_I] * 9 + [_P] * 3 + [_I] * 6
     + [_P],
     "icln_scaled_sides": [_P] * 9 + [_I, _I, _LL, _LL, _LL, _LL, _D, _I, _I,
                                      _I, _LL, _I, _P],
@@ -716,9 +718,9 @@ def cell_stats_route(nbin: int, itemsize: int = 4) -> str:
     (MAX_NBIN_F64 in float64); above it ``"fft"`` (the cluster build K2f,
     ``cell_fft.cu``) where :func:`cell_fft_plan` takes the row (odd parts
     of at most FFT_ODD_STAGES stages, where it is the faster), else
-    ``"fft_global"`` (the device-memory build K2g, ``cell_fft_global.cu``,
-    :func:`cell_fft_global_plan`).  A function of the shape alone, decided
-    before anything is launched."""
+    ``"fft_global"`` (K2g, ``cell_fft_global.cu``: in a cluster or
+    through device memory, :func:`cell_fft_global_plan`).  A function of
+    the shape alone, decided before anything is launched."""
     limit = MAX_NBIN_F64 if itemsize == 8 else MAX_NBIN
     if nbin <= limit:
         return "dft"
@@ -867,30 +869,33 @@ def _launch_cell_stats(entry, cube, template, weights, cell_mask, cubes,
 
 def _launch_fftg(entry, cube, ptrs, info, outs, ncells, cpa, nchan, nbin,
                  real):
-    """K2g's launch (``cell_fft_global.cu``): the plan, the twiddle table
-    and the passes' tables, for Bluestein the chirp and its spectrum, and
-    a scratch of min(chunk, ncells) rows allocated for this launch; the
-    entry runs every chunk.  Returns its return code."""
+    """K2g's launch (``cell_fft_global.cu``): the plan, the twiddle table,
+    for Bluestein the chirp and its spectrum; in the cluster mode nothing
+    more, else the passes' tables and a scratch of min(chunk, ncells) rows
+    allocated for this launch (the entry runs every chunk).  Returns its
+    return code."""
     plan = cell_fft_global_plan(nbin, _cube_itemsize(cube))
     dev = str(cube.device)
     tw = _fft_twiddles(plan.table, dev, real)
-    chirp = bhat = None
-    if plan.mode == "bluestein":
+    chirp = bhat = wf = perm = scratch = None
+    if plan.mode != "split":
         chirp = _fftg_chirp(nbin, dev, real)
         bhat = _fftg_bhat(nbin, dev, real)
-    wf, perm = _fftg_pass_tables(plan.passes, dev, real)
-    scratch = torch.empty((min(plan.chunk, ncells), plan.n, 2), dtype=real,
-                          device=cube.device)
+    if plan.mode != "cluster":
+        wf, perm = _fftg_pass_tables(plan.passes, dev, real)
+        scratch = torch.empty((min(plan.chunk, ncells), plan.n, 2),
+                              dtype=real, device=cube.device)
     fn = getattr(load_library(), _FFTG_ENTRIES[entry])
+    opt = lambda t: None if t is None else _ptr(t)  # noqa: E731
     with torch.cuda.device(cube.device):
-        return fn(*ptrs, _ptr(tw), _ptr(wf), _ptr(perm), _ptr(info),
-                  *(_ptr(o) for o in outs),
-                  _ptr(scratch), None if chirp is None else _ptr(chirp),
-                  None if bhat is None else _ptr(bhat), ncells, cpa, nchan,
-                  nbin, plan.n, *_fftg_pass_args(plan), plan.chunk,
-                  _fft_table_lt(plan.table), plan.table // plan.n,
-                  _inv_n(nbin, real), _KIND[cube.dtype],
-                  _stream(cube))
+        return fn(*ptrs, _ptr(tw), opt(wf), opt(perm), _ptr(info),
+                  *(_ptr(o) for o in outs), opt(scratch), opt(chirp),
+                  opt(bhat), ncells, cpa, nchan, nbin, plan.n,
+                  *_fftg_pass_args(plan), plan.chunk,
+                  _fft_table_lt(plan.table),
+                  1 if plan.mode == "cluster" else plan.table // plan.n,
+                  plan.threads, plan.tile, plan.cluster, plan.odd, plan.smem,
+                  _inv_n(nbin, real), _KIND[cube.dtype], _stream(cube))
 
 
 def _counted(fn, cube, entry, route, *args):
@@ -1135,13 +1140,13 @@ shard_diagnostics_dedisp.launches_f64 = 0
 # another.  An odd part 3^a 5^b runs a + b odd stages; K2f takes at
 # most FFT_ODD_STAGES of them (by the real size), where it is the faster
 # build: tools/time_cell_fft.py --builds at 32 x 256 cells on an H100
-# (PERF.md §6), K2f against K2g in float32 7.76 / 8.96 ms at odd part 45
-# (three stages), 4.54 / 3.74 at 625 (four), 15.40 / 11.95 at 1875
-# (five); in float64 10.97 / 18.15, 5.71 / 7.77 and 23.45 / 23.82 (and
-# past five stages nothing measured).  Every row the cluster build does
-# not take goes to K2g (:func:`cell_fft_global_plan`).
+# (PERF.md §6), K2f against K2g in float32 7.78 / 8.56 ms at odd part 45
+# (three stages), 4.51 / 3.62 at 625 (four), 15.49 / 12.04 at 1875 (five);
+# in float64 10.90 / 15.62, 5.65 / 6.60 and 23.53 / 20.27 (past five
+# stages nothing measured).  Every row the cluster build does not take
+# goes to K2g (:func:`cell_fft_global_plan`).
 FFT_ODD_RADICES = (3, 5)
-FFT_ODD_STAGES = {4: 3, 8: 5}
+FFT_ODD_STAGES = {4: 3, 8: 4}
 FFT_CLUSTER_SIZES = (2, 4, 8)
 FFT_SLICE_BINS = 8192
 FFT_PLAN_THREADS = 128
@@ -1283,18 +1288,35 @@ def cell_fft_plan(nbin: int, itemsize: int = 4) -> CellFftPlan:
 # K2g's plan: the FFT build through device memory (cell_fft_global.cu)
 # --------------------------------------------------------------------------
 
-# A row the cluster build does not take is transformed in a scratch buffer
-# in device memory: an even N whose N/2 is 2^a 3^b 5^c as N/2 complex
-# values ("split", the real split after the transform), any other N by
-# Bluestein's chirp convolution of length M, the least 2^a 3^b 5^c >=
-# 2N - 1 ("bluestein").  The transform of n points runs in passes of at
-# most FFTG_PASS_MAX points, each a block's sub-transforms in shared
-# memory (tiles of at most FFTG_TILE_BYTES; the fewest passes, the factors
-# dealt largest first to the pass with the least product), over chunks of
-# cells whose scratch stays within FFTG_SCRATCH_BYTES; the CUDA file sets
-# its blocks' threads.
+# A row the cluster build does not take goes to K2g.  An even N whose N/2
+# is 2^a 3^b 5^c ("split") is transformed as N/2 complex values (the real
+# split after the transform); any other N by Bluestein's chirp
+# convolution, whose max needs only its first K = N/2 + 1 outputs, so a
+# cyclic convolution of M >= N + N/2 points does (no wrap-around reaches
+# them).  Where K2f's cluster takes a transform of M such points (a row of
+# 2M bins, :func:`_cell_fft_takes`) at the least such M, one cluster a
+# cell runs the whole convolution in shared memory ("cluster", no
+# scratch); else M is the least 2^a 3^b 5^c >= N + N/2 ("bluestein").  The
+# split and Bluestein rows past a cluster run through a scratch buffer in
+# device memory: the transform of n points in passes of at most
+# FFTG_PASS_MAX points, each a persistent grid whose blocks keep two
+# tiles (of at most FFTG_TILE_BYTES; the fused Bluestein pass's pair
+# together) in flight, FFTG_PASS_THREADS a block (the fewest passes, the
+# factors dealt largest first to the pass with the least product), over
+# chunks of cells whose scratch stays within FFTG_SCRATCH_BYTES.  The
+# cluster mode takes FFTG_CLUSTER_THREADS a block, K2f's cluster and
+# shared memory.  Tiles of 32 KB and 256 threads a block: the fastest in
+# tools/time_cell_fft.py --fftg-sweep on an H100 at (L5c) in float32 and
+# float64 and within 1% of the fastest at (L5a) (PERF.md §6); 64 KB tiles
+# at 512 threads (one block an SM) ran 2-9% slower, 16 KB tiles at 128
+# threads 2-8% slower at (L5c).
 FFTG_PASS_MAX = 1024
-FFTG_TILE_BYTES = 65536
+FFTG_TILE_BYTES = 32768
+FFTG_PASS_THREADS = 256
+# the cluster mode's threads a block by the real size, and log2 of its
+# register passes' points (cell_fft_global.cu's ICLN_FFTG_CLUSTER_PASS_LOG)
+FFTG_CLUSTER_THREADS = {4: 256, 8: 512}
+FFTG_CLUSTER_PASS_LOG = 4
 FFTG_MAX_PASSES = 4
 FFTG_SCRATCH_BYTES = 1 << 30
 # a row's scratch indices are 32-bit in the kernels: n < 2^31
@@ -1302,19 +1324,29 @@ FFTG_MAX_N = (1 << 31) - 1
 
 
 class CellFftGlobalPlan(NamedTuple):
-    """K2g's launch (``cell_fft_global.cu``): ``mode`` ``"split"`` or
-    ``"bluestein"``, ``n`` the transform's points (nbin/2 or M),
+    """K2g's launch (``cell_fft_global.cu``): ``mode`` ``"split"``,
+    ``"bluestein"`` (both through device memory) or ``"cluster"``
+    (Bluestein in one thread-block cluster a cell), ``n`` the transform's
+    points (nbin/2 or M), ``table`` the twiddle table's length (nbin for a
+    split row, M for Bluestein's passes, 2M in the cluster mode: K2f's
+    table of a row of 2M bins), ``threads`` a block.  The passes:
     ``passes`` their points F_1 .. F_k (the first at the largest stride),
-    ``groups`` the columns G_j a block of each pass (dividing its stride,
-    G_j F_j complex values within a tile), ``table`` the twiddle table's
-    length (nbin for a split row, M for Bluestein), ``chunk`` the cells a
-    chunk of scratch holds."""
+    ``groups`` the columns G_j a tile of each pass (dividing its stride,
+    G_j F_j complex values within ``tile`` bytes), ``chunk`` the cells a
+    chunk of scratch holds.  The cluster mode: ``cluster`` blocks a cell,
+    ``odd`` M's odd part, ``smem`` bytes of dynamic shared memory a
+    block."""
     mode: str
     n: int
     passes: tuple
     groups: tuple
     table: int
     chunk: int
+    threads: int
+    tile: int = 0
+    cluster: int = 0
+    odd: int = 1
+    smem: int = 0
 
 
 def _smooth(n: int) -> bool:
@@ -1361,9 +1393,9 @@ def _fftg_passes(n: int) -> tuple:
 
 
 def _fftg_groups(n: int, passes, realsize: int, fused: bool) -> tuple:
-    """G_j, the columns a block of each pass: the largest divisor of the
+    """G_j, the columns a tile of each pass: the largest divisor of the
     pass's stride (of the last pass, stride 1: of the row's n / F_k spans,
-    a block taking G_k whole spans) whose tile (G_j F_j complex values;
+    a tile taking G_k whole spans) whose tile (G_j F_j complex values;
     two tiles in the last pass where Bluestein ``fused`` its forward and
     inverse passes) fits FFTG_TILE_BYTES."""
     groups, s = [], n
@@ -1376,6 +1408,33 @@ def _fftg_groups(n: int, passes, realsize: int, fused: bool) -> tuple:
         groups.append(max(g for g in range(1, min(width, most) + 1)
                           if width % g == 0))
     return tuple(groups)
+
+
+def _fftg_cluster(nbin: int, realsize: int):
+    """``(M, plan)``: the least M >= nbin + nbin // 2 of the form P 2^m (P
+    = 3^a 5^b) whose transform K2f's cluster takes (a row of 2M bins,
+    :func:`_cell_fft_takes`: P within FFT_ODD_STAGES, the row within the
+    cluster's capacity) and that :class:`CellFftPlan`; ``(None, None)``
+    where none does."""
+    need = nbin + nbin // 2
+    cands = set()
+    p3 = 1
+    while p3 <= 4 * need:
+        p35 = p3
+        while p35 <= 4 * need:
+            m = p35
+            while m < need:
+                m *= 2
+            while m <= 4 * need:
+                cands.add(m)
+                m *= 2
+            p35 *= 5
+        p3 *= 3
+    for m in sorted(cands):
+        plan, _why = _cell_fft_takes(2 * m, realsize)
+        if plan is not None:
+            return m, plan
+    return None, None
 
 
 @functools.lru_cache(maxsize=64)
@@ -1391,8 +1450,13 @@ def cell_fft_global_plan(nbin: int, itemsize: int = 4) -> CellFftGlobalPlan:
     if nbin % 2 == 0 and _smooth(nbin // 2):
         mode, n, table = "split", nbin // 2, nbin
     else:
+        m, fplan = _fftg_cluster(nbin, realsize)
+        if fplan is not None:
+            return CellFftGlobalPlan("cluster", m, (), (), 2 * m, 0,
+                                     FFTG_CLUSTER_THREADS[realsize], 0,
+                                     fplan.cluster, fplan.odd, fplan.smem)
         mode = "bluestein"
-        n = table = _next_smooth(2 * nbin - 1)
+        n = table = _next_smooth(nbin + nbin // 2)
     if n > FFTG_MAX_N:
         raise NotImplementedError(
             f"nbin {nbin}: a {n}-point transform a cell is past K2g's "
@@ -1402,14 +1466,38 @@ def cell_fft_global_plan(nbin: int, itemsize: int = 4) -> CellFftGlobalPlan:
     return CellFftGlobalPlan(mode, n, passes,
                              _fftg_groups(n, passes, realsize,
                                           mode == "bluestein"),
-                             table, chunk)
+                             table, chunk, FFTG_PASS_THREADS,
+                             FFTG_TILE_BYTES)
 
 
 def _fftg_pass_args(plan) -> tuple:
     """The entries' f0..f3 and g0..g3: the passes' points and columns, 1
-    past the last pass."""
+    past the last pass (all 1 in the cluster mode)."""
     pad = (1,) * (FFTG_MAX_PASSES - len(plan.passes))
     return (*plan.passes, *pad, *plan.groups, *pad)
+
+
+def fft_cluster_order(m: int, odd: int) -> np.ndarray:
+    """The frequency at each position of K2f's forward transform of ``m``
+    = odd 2^l complex points: position s odd + t holds X[rev_l(s) + 2^l
+    f(t)], f the odd stages' digit reversal (cell_fft.cu's
+    icln_fft_odd_freq; the identity at odd parts 1, 3 and 5)."""
+    lg = (m // odd).bit_length() - 1
+    pos = np.arange(m, dtype=np.int64)
+    s, t = pos // odd, pos % odd
+    rev = np.zeros_like(s)
+    for i in range(lg):
+        rev |= ((s >> i) & 1) << (lg - 1 - i)
+    f, mult, sp = np.zeros_like(t), 1, odd
+    while sp > 1:
+        r = 5 if sp % 5 == 0 else 3
+        d = sp // r
+        digit = t // d
+        t = t - digit * d
+        f = f + digit * mult
+        mult *= r
+        sp = d
+    return rev + (f << lg)
 
 
 def fftg_chirp(nbin: int) -> np.ndarray:
@@ -1429,12 +1517,19 @@ def _fftg_chirp(nbin: int, device: str, dtype=torch.float32):
 
 
 def fftg_chirp_row(nbin: int, m: int) -> np.ndarray:
-    """Bluestein's b of length ``m``: conj w_j at j and at m - j for 0 < j
-    < nbin, conj w_0 at 0, zero between; (m, 2) float64."""
+    """Bluestein's b of length ``m`` >= nbin + nbin // 2: conj w_j at the
+    lags j = 0 .. K - 1 (K = nbin // 2 + 1, the outputs the max reads) and
+    at m - j for 0 < j < nbin, zero between; (m, 2) float64.  The two
+    placements do not meet (K - 1 < m - nbin + 1)."""
+    k = nbin // 2 + 1
+    if m < nbin + nbin // 2:
+        raise ValueError(f"a chirp row of {m} points for {nbin} bins: "
+                         f"at least {nbin + nbin // 2}")
     w = fftg_chirp(nbin)
     b = np.zeros((m, 2))
-    b[:nbin, 0], b[:nbin, 1] = w[:, 0], -w[:, 1]
-    b[m - nbin + 1:] = b[1:nbin][::-1]
+    b[:k, 0], b[:k, 1] = w[:k, 0], -w[:k, 1]
+    b[m - nbin + 1:, 0] = w[1:, 0][::-1]
+    b[m - nbin + 1:, 1] = -w[1:, 1][::-1]
     return b
 
 
@@ -1469,20 +1564,32 @@ def _fftg_pass_tables(passes: tuple, device: str, dtype=torch.float32):
 
 @functools.lru_cache(maxsize=8)
 def _fftg_bhat(nbin: int, device: str, dtype=torch.float32):
-    """The chirp's spectrum B^ in the passes' order, scaled by 1 / M:
-    :func:`fftg_chirp_row` through K2g's forward passes on the card in
-    float64 (its own float64 plan: the same passes), rounded to the
-    arithmetic ``dtype``; made once per (nbin, device, dtype)."""
-    plan = cell_fft_global_plan(nbin, 8)
+    """The chirp's spectrum B^ of the plan of (nbin, ``dtype``), scaled by
+    1 / M, in the order of the transform it multiplies, rounded to the
+    arithmetic ``dtype``; made once per (nbin, device, dtype).  The passes
+    (mode "bluestein"): :func:`fftg_chirp_row` through K2g's forward
+    passes on the card in float64 (the same passes), in their order.  The
+    cluster mode: the float64 FFT of the row on the host, put in the
+    order of K2f's forward (:func:`fft_cluster_order`): a float32 cluster
+    row can pass the float64 cluster's capacity."""
+    plan = cell_fft_global_plan(nbin, 8 if dtype == torch.float64 else 4)
     m = plan.n
-    b = torch.from_numpy(fftg_chirp_row(nbin, m)).to(device).contiguous()
+    row = fftg_chirp_row(nbin, m)
+    if plan.mode == "cluster":
+        bh = np.fft.fft(row[:, 0] + 1j * row[:, 1]) * (1.0 / m)
+        bh = bh[fft_cluster_order(m, plan.odd)]
+        return torch.from_numpy(np.stack([bh.real, bh.imag], axis=1)).to(
+            device=device, dtype=dtype).contiguous()
+    b = torch.from_numpy(row).to(device).contiguous()
     tw = _fft_twiddles(m, device, torch.float64)
     wf, perm = _fftg_pass_tables(plan.passes, device, torch.float64)
+    groups = _fftg_groups(m, plan.passes, 8, True)
+    pad = (1,) * (FFTG_MAX_PASSES - len(plan.passes))
     with torch.cuda.device(b.device):
         rc = load_library().icln_fftg_passes(
-            _ptr(b), None, 1, m, *_fftg_pass_args(plan), _ptr(tw), _ptr(wf),
-            _ptr(perm), _fft_table_lt(m), 1, 0, _KIND[torch.float64],
-            _stream(b))
+            _ptr(b), None, 1, m, *plan.passes, *pad, *groups, *pad, _ptr(tw),
+            _ptr(wf), _ptr(perm), _fft_table_lt(m), 1, 0, FFTG_PASS_THREADS,
+            FFTG_TILE_BYTES, _KIND[torch.float64], _stream(b))
     _check_rc(rc, "the chirp's spectrum (K2g's passes)")
     return (b * (1.0 / m)).to(dtype).contiguous()
 

@@ -155,17 +155,24 @@ def _dif_regs(r):
         h //= 2
 
 
-def model_rfft(x, cluster, s, tw, cdtype=np.complex128, lr_max=3):
-    """The kernel's schedule on the real row ``x`` (swizzle runs of 2^s,
-    local passes of 2^lr_max points): returns the rfft bins 0 .. N/2 as
-    the split writes them (each checked to come once)."""
-    n = len(x)
-    half, p = n // 2, _odd(n)
-    lm = (half // p).bit_length() - 1
+def _layout(m, cluster):
+    """(P, lm, lc, lq, Q) of a transform of m = P 2^lm complex points on a
+    cluster of ``cluster`` blocks: Q = P 2^lq values a block."""
+    p = _odd(m)
+    lm = (m // p).bit_length() - 1
     lc = cluster.bit_length() - 1
     lq = lm - lc
-    q = p << lq
-    z = (x[0::2] + 1j * x[1::2]).astype(cdtype)
+    return p, lm, lc, lq, p << lq
+
+
+def model_forward(z, cluster, s, tw, cdtype=np.complex128, lr_max=3):
+    """The kernel's forward transform of the complex row ``z`` (m = P
+    2^lm points; ``tw`` the table of W_(2m)) as it runs it: the
+    cross-cluster step, the local passes, the odd stages; returns the
+    blocks' shared memory (cluster, padded slice) in the swizzled
+    layout."""
+    p, lm, lc, lq, q = _layout(len(z), cluster)
+    z = np.asarray(z).astype(cdtype)
     run = 1 << s        # the slice padded to a whole run of the swizzle
     qpad = -(-q // run) * run
     slots = _swz(np.arange(q), s)
@@ -222,6 +229,18 @@ def model_rfft(x, cluster, s, tw, cdtype=np.complex128, lr_max=3):
                     acc = acc * np.where(j != 0, tw(j * t * nsp), 1)
                 mem[r][_swz(base + t * d, s)] = acc
         sp = d
+    return mem
+
+
+def model_rfft(x, cluster, s, tw, cdtype=np.complex128, lr_max=3):
+    """The kernel's schedule on the real row ``x`` (swizzle runs of 2^s,
+    local passes of 2^lr_max points): returns the rfft bins 0 .. N/2 as
+    the split writes them (each checked to come once)."""
+    n = len(x)
+    half = n // 2
+    p, lm, lc, lq, q = _layout(half, cluster)
+    mem = model_forward(x[0::2] + 1j * x[1::2], cluster, s, tw, cdtype,
+                        lr_max)
     out = np.full(half + 1, np.nan + 0j)
     seen = np.zeros(half + 1, dtype=int)
     even = 1 << (lq - 1)
@@ -491,6 +510,8 @@ def model_k2g(x, itemsize=8):
     k = 0 .. N/2, each bin written once."""
     nbin = len(x)
     plan = tk.cell_fft_global_plan(nbin, itemsize)
+    if plan.mode == "cluster":
+        return model_bluestein_cluster(x, itemsize)
     real = torch.float64 if itemsize == 8 else torch.float32
     cdt = np.complex128 if itemsize == 8 else np.complex64
     tw = _GTable(plan.table, plan.n, real)
@@ -501,7 +522,7 @@ def model_k2g(x, itemsize=8):
         z = np.zeros(plan.n, dtype=cdt)
         z[:nbin] = x * w
         g_passes(z, plan, tw)
-        z = z * _g_bhat(nbin).astype(cdt)
+        z = z * _g_bhat(nbin, itemsize).astype(cdt)
         g_passes(z, plan, tw, inv=True)
         out[:] = (z.real ** 2 + z.imag ** 2)[:nbin // 2 + 1]
         return out
@@ -529,14 +550,130 @@ def model_k2g(x, itemsize=8):
     return out
 
 
-def _g_bhat(nbin):
-    """B^ as the wrapper makes it: the chirp row through the float64
-    passes, times 1 / M."""
-    plan = tk.cell_fft_global_plan(nbin, 8)
+def _g_bhat(nbin, itemsize=8):
+    """B^ as the wrapper makes it for the passes: the chirp row through
+    the float64 passes (of the plan of ``itemsize``), times 1 / M."""
+    plan = tk.cell_fft_global_plan(nbin, itemsize)
     b = tk.fftg_chirp_row(nbin, plan.n)
     z = b[:, 0] + 1j * b[:, 1]
     g_passes(z, plan, _GTable(plan.table, plan.n, torch.float64))
     return z * (1.0 / plan.n)
+
+
+def _dit_regs(r):
+    """The inverse of :func:`_dif_regs`: register k holding output
+    brev(k), the stages in reverse order, each butterfly's conjugate
+    twiddle before it; ends as 2^r times input k."""
+    n = r.shape[-1]
+    h = 1
+    while h < n:
+        for k in range(n):
+            if k & h:
+                continue
+            a = r[..., k].copy()
+            b = r[..., k + h] * np.conj(W16[(k & (h - 1)) * (8 // h)])
+            r[..., k] = a + b
+            r[..., k + h] = a - b
+        h *= 2
+
+
+def model_inverse(mem, m, cluster, s, tw, lr_max=3):
+    """The cluster mode's inverse (decimation in time) of the forward's
+    output order in ``mem`` (:func:`model_forward`): the odd stages last
+    first, the local passes in reverse, the cross-cluster step last, every
+    twiddle conjugated and applied before its butterfly; returns the m
+    values in natural order (m times the inverse DFT)."""
+    p, lm, lc, lq, q = _layout(m, cluster)
+    spans, sp = [], p
+    while sp > 1:
+        spans.append(sp)
+        sp //= _odd_radix(sp)
+    for sp in reversed(spans):
+        rad = _odd_radix(sp)
+        d, nsp = sp // rad, (2 << lm) * (p // sp)
+        w = np.conj(tw(np.arange(rad) * (nsp * d)))
+        per = p // rad
+        idx = np.arange(per << lq)
+        grp, rr = idx // per, idx % per
+        j = rr % d
+        base = grp * p + (rr // d) * sp + j
+        for r in range(cluster):
+            y = np.stack([mem[r][_swz(base + t * d, s)]
+                          for t in range(rad)], 1)
+            for t in range(1, rad):
+                y[:, t] = y[:, t] * np.where(j != 0,
+                                             np.conj(tw(j * t * nsp)), 1)
+            for u in range(rad):
+                acc = y[:, 0].copy()
+                for t in range(1, rad):
+                    acc = acc + y[:, t] * w[(u * t) % rad]
+                mem[r][_swz(base + u * d, s)] = acc
+    r0 = lq % lr_max or lr_max
+    lx = 0
+    while lx < lq:       # the local passes, the forward's last first
+        lr = r0 if lx == lq - r0 else lr_max
+        sh, lg = lm + 1 - (lx + lr), lq - lr
+        g = np.arange(p << lg)
+        v, rest = g >> lg, g & ((1 << lg) - 1)
+        iu = rest & ((1 << lx) - 1)
+        u0 = ((rest >> lx) << (lx + lr)) + iu
+        i = iu * p + v
+        at = np.stack([_swz((u0 + (k << lx)) * p + v, s)
+                       for k in range(1 << lr)], axis=1)
+        w = _powers(tw, lr, i << sh)
+        for r in range(cluster):
+            regs = mem[r][at]
+            for k in range(1, 1 << lr):
+                regs[:, k] *= np.where(i == 0, 1,
+                                       np.conj(w[int(_brev(k, lr))]))
+            _dit_regs(regs)
+            mem[r][at] = regs
+        lx += lr
+    j = np.arange(q)     # the cross-cluster step, last
+    sj = _swz(j, s)
+    regs = mem[:, sj].T.copy()
+    w = _powers(tw, lc, j << 1)
+    for k in range(1, cluster):
+        regs[:, k] *= np.conj(w[int(_brev(k, lc))])
+    _dit_regs(regs)
+    return regs.T.reshape(-1)    # register k is position j + k Q
+
+
+def _cluster_bhat(nbin, plan):
+    """B^ as the wrapper makes it for the cluster mode: the chirp row's
+    float64 spectrum / M in the forward's order."""
+    b = tk.fftg_chirp_row(nbin, plan.n)
+    bh = np.fft.fft(b[:, 0] + 1j * b[:, 1]) / plan.n
+    return bh[tk.fft_cluster_order(plan.n, plan.odd)]
+
+
+def model_bluestein_cluster(x, itemsize=8):
+    """The cluster mode on the real centred row x (complex64 on the
+    float32 tables where itemsize is 4): the chirped row, K2f's forward
+    (on the plan's cluster, its register passes of
+    2^FFTG_CLUSTER_PASS_LOG points), times B^, the inverse; |c_k|^2 for k
+    = 0 .. N/2."""
+    nbin = len(x)
+    plan = tk.cell_fft_global_plan(nbin, itemsize)
+    assert plan.mode == "cluster"
+    real = torch.float64 if itemsize == 8 else torch.float32
+    cdt = np.complex128 if itemsize == 8 else np.complex64
+    s = 3 if itemsize == 8 else 4
+    tw = _Table(plan.table, real)
+    w = tk.fftg_chirp(nbin)
+    w = (w[:, 0] + 1j * w[:, 1]).astype(cdt)
+    z = np.zeros(plan.n, dtype=cdt)
+    z[:nbin] = x.astype(cdt) * w
+    lr = tk.FFTG_CLUSTER_PASS_LOG
+    mem = model_forward(z, plan.cluster, s, tw, cdt, lr)
+    p, lm, lc, lq, q = _layout(plan.n, plan.cluster)
+    bh = _cluster_bhat(nbin, plan).astype(cdt)
+    slots = _swz(np.arange(q), s)
+    for r in range(plan.cluster):
+        mem[r, slots] = mem[r, slots] * bh[r * q:(r + 1) * q]
+    c = model_inverse(mem, plan.n, plan.cluster, s, tw, lr)
+    assert tw.top < len(tw.c)
+    return (c.real ** 2 + c.imag ** 2)[:nbin // 2 + 1]
 
 
 K2G_LENGTHS = [16411, 20001, 28672, 65521, 524288]
@@ -554,36 +691,52 @@ def test_k2g_schedule_matches_rfft(nbin):
     assert np.abs(np.sqrt(got) - np.sqrt(want)).max() <= 1e-10 * np.sqrt(scale)
 
 
-@pytest.mark.parametrize("nbin", [16411, 28672, 524288])
-def test_k2g_passes_order_and_bhat(nbin):
-    """The forward passes leave X[f] at the passes' position of f
-    (np.fft.fft permuted), the inverse passes bring n x back in natural
-    order, and B^ is the chirp row's spectrum / M in that order."""
-    plan = tk.cell_fft_global_plan(nbin, 8)
+@pytest.mark.parametrize("nbin,itemsize", [
+    (16411, 8), (28672, 8), (524288, 8), (136537, 4), (69127, 8)])
+def test_k2g_passes_order_and_bhat(nbin, itemsize):
+    """The forward transform leaves X[f] at its position of f (np.fft.fft
+    permuted: the passes' digits, or K2f's order in the cluster mode),
+    the inverse (the passes', or the cluster mode's decimation in time)
+    brings n x back in natural order, and B^ is the chirp row's spectrum
+    / M in the forward's order."""
+    plan = tk.cell_fft_global_plan(nbin, itemsize)
     n = plan.n
-    assert np.prod(plan.passes) == n and max(plan.passes) <= tk.FFTG_PASS_MAX
-    tw = _GTable(plan.table, n, torch.float64)
     rng = np.random.default_rng(nbin)
     z0 = rng.standard_normal(n) + 1j * rng.standard_normal(n)
-    z = z0.copy()
-    g_passes(z, plan, tw)
-    f = g_freq(plan, np.arange(n))
+    if plan.mode == "cluster":
+        tw = _Table(plan.table, torch.float64)
+        f = tk.fft_cluster_order(n, plan.odd)
+        p, lm, lc, lq, q = _layout(n, plan.cluster)
+        lr = tk.FFTG_CLUSTER_PASS_LOG
+        mem = model_forward(z0, plan.cluster, 3, tw, lr_max=lr)
+        z = mem[:, _swz(np.arange(q), 3)].reshape(-1)
+        back = model_inverse(mem, n, plan.cluster, 3, tw, lr)
+        bhat = _cluster_bhat(nbin, plan)
+    else:
+        assert np.prod(plan.passes) == n
+        assert max(plan.passes) <= tk.FFTG_PASS_MAX
+        tw = _GTable(plan.table, n, torch.float64)
+        z = z0.copy()
+        g_passes(z, plan, tw)
+        f = g_freq(plan, np.arange(n))
+        assert np.array_equal(g_at(plan, f), np.arange(n))
+        back = z.copy()
+        g_passes(back, plan, tw, inv=True)
+        bhat = _g_bhat(nbin, itemsize) if plan.mode == "bluestein" else None
     assert np.array_equal(np.sort(f), np.arange(n))
-    assert np.array_equal(g_at(plan, f), np.arange(n))
     want = np.fft.fft(z0)
     assert np.abs(z - want[f]).max() <= 1e-10 * np.abs(want).max()
-    g_passes(z, plan, tw, inv=True)
-    assert np.abs(z / n - z0).max() <= 1e-12 * np.abs(z0).max()
-    if plan.mode == "bluestein":
+    assert np.abs(back / n - z0).max() <= 1e-12 * np.abs(z0).max()
+    if bhat is not None:
         b = tk.fftg_chirp_row(nbin, n)
         bh = np.fft.fft(b[:, 0] + 1j * b[:, 1]) / n
-        assert np.abs(_g_bhat(nbin) - bh[f]).max() <= 1e-12 * np.abs(bh).max()
+        assert np.abs(bhat - bh[f]).max() <= 1e-12 * np.abs(bh).max()
 
 
 def test_k2g_chirp_reduces_in_integers():
     """w_j = exp(-i pi (j^2 mod 2N) / N): the phase reduced in int64 (j^2
-    passes int32 at j = 46,341), |w| = 1; the chirp row conj w at j and
-    at M - j, zero between."""
+    passes int32 at j = 46,341), |w| = 1; the chirp row conj w at the lags
+    j < K and at M - j, zero between."""
     nbin = 65521
     w = tk.fftg_chirp(nbin)
     j = 65520
@@ -592,10 +745,86 @@ def test_k2g_chirp_reduces_in_integers():
     assert np.allclose(w[j], [np.cos(ang), np.sin(ang)], rtol=0, atol=1e-15)
     assert np.allclose(np.hypot(w[:, 0], w[:, 1]), 1.0, rtol=0, atol=1e-15)
     m = tk.cell_fft_global_plan(nbin).n
+    k = nbin // 2 + 1
     b = tk.fftg_chirp_row(nbin, m)
-    assert np.array_equal(b[1:nbin, 0], b[m - 1:m - nbin:-1, 0])
-    assert np.array_equal(b[1:nbin, 1], -w[1:, 1])
-    assert not b[nbin:m - nbin + 1].any()
+    assert np.array_equal(b[1:k, 0], b[m - 1:m - k:-1, 0])
+    assert np.array_equal(b[m - nbin + 1:, 1][::-1], -w[1:, 1])
+    assert np.array_equal(b[:k, 1], -w[:k, 1])
+    assert not b[k:m - nbin + 1].any()
+
+
+# (nbin, itemsize, M): the least length of the transform's form with M >=
+# N + N // 2: K2f's cluster (P 2^m, P within FFT_ODD_STAGES, the row in
+# the cluster) where one takes it, else 2^a 3^b 5^c for the passes
+SHORT_M = [(65521, 4, 98304), (65521, 8, 98304), (16411, 4, 25600),
+           (16411, 8, 25600), (35035, 4, 55296), (136537, 4, 207360),
+           (69127, 8, 104976), (100003, 8, 151875)]
+
+
+@pytest.mark.parametrize("nbin,itemsize,m", SHORT_M)
+def test_k2g_shorter_convolution_length(nbin, itemsize, m):
+    """The max reads K = N/2 + 1 outputs, so a cyclic convolution of M >=
+    N + N/2 points gives them without wrap-around: M is the least such
+    length of the form the transform takes (98,304 = 3 x 2^15 at 65,521
+    bins, a quarter under the 131,072 of M >= 2N - 1)."""
+    plan = tk.cell_fft_global_plan(nbin, itemsize)
+    assert plan.n == m >= nbin + nbin // 2
+    if plan.mode == "cluster":
+        assert tk._cell_fft_takes(2 * m, 8 if itemsize == 8 else 4)[0] \
+            is not None
+        assert plan.table == 2 * m and plan.passes == () and plan.chunk == 0
+    else:
+        assert plan.mode == "bluestein"
+        assert m == tk._next_smooth(nbin + nbin // 2)
+        assert tk._fftg_cluster(nbin, 8 if itemsize == 8 else 4) \
+            == (None, None)
+
+
+@pytest.mark.parametrize("nbin,m", [(16411, 25600), (65521, 98304),
+                                    (35035, 55296), (7, 12), (8, 12)])
+def test_k2g_chirp_row_placement(nbin, m):
+    """b sits at the lags 0 .. K - 1 and at M - N + 1 .. M - 1, zero in
+    between, the two placements apart (M >= N + N/2); a shorter M, where
+    they would overlap, is refused; and the cyclic convolution of the
+    chirped row with b is the linear one at every k < K."""
+    k = nbin // 2 + 1
+    b = tk.fftg_chirp_row(nbin, m)
+    nz = np.flatnonzero(np.hypot(b[:, 0], b[:, 1]))
+    want = np.concatenate([np.arange(k), np.arange(m - nbin + 1, m)])
+    assert np.array_equal(nz, want)
+    assert k - 1 < m - nbin + 1
+    with pytest.raises(ValueError, match="at least"):
+        tk.fftg_chirp_row(nbin, nbin + nbin // 2 - 1)
+    rng = np.random.default_rng(nbin)
+    x = rng.standard_normal(nbin)
+    w = tk.fftg_chirp(nbin)
+    w = w[:, 0] + 1j * w[:, 1]
+    a = np.zeros(m, dtype=complex)
+    a[:nbin] = x * w
+    c = np.fft.ifft(np.fft.fft(a) * np.fft.fft(b[:, 0] + 1j * b[:, 1]))
+    direct = np.array([np.sum(x * w * np.conj(w[np.abs(kk - np.arange(nbin))]))
+                       for kk in range(k)])
+    assert np.abs(c[:k] - direct).max() <= 1e-9 * np.abs(direct).max()
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("nbin", [16411, 65521, 35035])
+def test_k2g_cluster_bluestein_matches_rfft(nbin, itemsize):
+    """The cluster mode's model (the chirped row through K2f's forward in
+    its order, times B^, the decimation-in-time inverse back to natural
+    order) held to np.fft.rfft at a prime, (L5b)'s prime and an odd
+    composite with a factor 7 (5 7^2 11 13): |X_k| within 1e-12 of the
+    spectrum's scale in float64, 1e-6 in complex64 on the float32 tables
+    (the float32 build's accuracy; numpy does not fuse its multiplies as
+    the kernel does)."""
+    x = _row(nbin, nbin % 79)
+    x = x - x.mean()
+    if itemsize == 4:
+        x = x.astype(np.float32)
+    want = np.abs(np.fft.rfft(x.astype(np.float64)))
+    got = np.sqrt(model_bluestein_cluster(x, itemsize))
+    tol = 1e-12 if itemsize == 8 else 1e-6
+    assert np.abs(got - want).max() <= tol * want.max()
 
 
 @pytest.mark.parametrize("nbin", [65521, 524288])

@@ -108,7 +108,7 @@ scale (1e-12 in float64), masked cells exact, one launch under its
 single launches, bf16 bit-equal to float32 on the upcast cube; long-
 profile cleans on every route, in float32 and float64, a batch and an
 exact stream, on the card against the CPU's.  K2f's mixed radix-3/5
-stages (odd parts 9 and 45 in float32 and bf16, 625 and 1875 in
+stages (odd parts 9 and 45 in float32 and bf16, 45 and 625 in
 float64) held the same way; K2g, the FFT build
 through device memory (``cell_fft_global.cu``: Bluestein rows, odd rows,
 split rows past the cluster's capacity), every entry in three dtypes
@@ -2217,23 +2217,29 @@ def test_fft_build_bf16_bit_equal_to_float32_on_upcast_cube(card):
 # ---- K2f's mixed radix-3/5 stages and K2g, the FFT build through device
 # memory (cell_fft_global.cu) ----
 
-FFTG_SHAPES = {   # storage: (Bluestein, an odd length, the split row)
-    torch.float32: ((4, 16, 65521), (4, 16, 20001), (2, 8, 524288)),
-    torch.bfloat16: ((4, 16, 16411), (4, 16, 20001), (2, 8, 524288)),
-    torch.float64: ((4, 16, 28672), (4, 16, 20001), (2, 8, 262144)),
+FFTG_SHAPES = {   # storage: (Bluestein in a cluster: a prime and an odd
+    # length, the split row, a prime past the cluster: Bluestein's passes)
+    torch.float32: ((4, 16, 65521), (4, 16, 20001), (2, 8, 524288),
+                    (2, 8, 136537)),
+    torch.bfloat16: ((4, 16, 16411), (4, 16, 20001), (2, 8, 524288),
+                     (2, 8, 136537)),
+    torch.float64: ((4, 16, 65521), (4, 16, 20001), (2, 8, 262144),
+                    (2, 8, 69127)),
 }
+FFTG_MODES = ("cluster", "cluster", "split", "bluestein")
 
 
 @pytest.mark.parametrize("storage", list(FFTG_SHAPES))
-@pytest.mark.parametrize("kind", [0, 1, 2])
+@pytest.mark.parametrize("kind", [0, 1, 2, 3])
 def test_fftg_build_matches_plain_on_card(card, storage, kind):
-    """Every entry of K2g within 1e-4 of each plane's scale (1e-12 in
-    float64), the moments' masked cells exact, one launch under its
-    ``_fftg`` counter."""
+    """Every entry of K2g (the cluster mode, the split row, Bluestein's
+    passes) within 1e-4 of each plane's scale (1e-12 in float64), the
+    moments' masked cells exact, one launch under its ``_fftg``
+    counter."""
     nsub, nchan, nbin = FFTG_SHAPES[storage][kind]
     ops = _fft_operands(card, (), nsub, nchan, nbin, storage, nbin % 83)
     plan = tk.cell_fft_global_plan(nbin, ops[0].element_size())
-    assert plan.mode == ("split" if kind == 2 else "bluestein")
+    assert plan.mode == FFTG_MODES[kind]
     sfx = {torch.bfloat16: "_bf16", torch.float64: "_f64"}.get(storage, "")
     rtol = 1e-12 if storage == torch.float64 else 1e-4
     for name, kfn, pfn in _fft_forms(ops):
@@ -2277,7 +2283,7 @@ def test_fftg_k10_batch_and_tiles_bit_equal_on_card(card, storage):
             assert torch.equal(x[i], y)
 
 
-@pytest.mark.parametrize("nbin", [16411, 524288])
+@pytest.mark.parametrize("nbin", [16411, 524288, 136537])
 def test_fftg_bf16_bit_equal_to_float32_on_upcast_cube(card, nbin):
     ops = _fft_operands(card, (), 2, 8, nbin, torch.bfloat16, 5)
     up = (ops[0].float(), ops[1].float()) + ops[2:]
@@ -2286,9 +2292,9 @@ def test_fftg_bf16_bit_equal_to_float32_on_upcast_cube(card, nbin):
             assert torch.equal(x, y)
 
 
-@pytest.mark.parametrize("nbin,real", [(16411, torch.float32),
+@pytest.mark.parametrize("nbin,real", [(136537, torch.float32),
                                        (524288, torch.float32),
-                                       (65521, torch.float64)])
+                                       (69127, torch.float64)])
 def test_fftg_passes_match_torch_fft_on_card(card, nbin, real):
     """K2g's forward passes leave X[f] at the passes' position of f
     (torch.fft.fft permuted), the inverse passes give n x back, and the
@@ -2306,7 +2312,8 @@ def test_fftg_passes_match_torch_fft_on_card(card, nbin, real):
         rc = lib.icln_fftg_passes(
             tk._ptr(z), None, 2, n, *tk._fftg_pass_args(plan), tk._ptr(tw),
             tk._ptr(wf), tk._ptr(perm), tk._fft_table_lt(plan.table),
-            plan.table // n, mode, tk._KIND[real], tk._stream(z))
+            plan.table // n, mode, plan.threads, plan.tile, tk._KIND[real],
+            tk._stream(z))
         torch.cuda.synchronize()
         assert rc == 0
 
@@ -2332,18 +2339,49 @@ def test_fftg_passes_match_torch_fft_on_card(card, nbin, real):
         assert np.abs(got - bh).max() <= 1e-12 * np.abs(bh).max()
 
 
+def test_fftg_cluster_mode_refusal_raises_on_card(card, monkeypatch):
+    """A cluster-mode launch whose cluster does not fit (shared memory
+    past a block's) raises; nothing falls back to the passes or the plain
+    version."""
+    ops = _fft_operands(card, (), 2, 8, 65521, torch.float32, 9)
+    plan = tk.cell_fft_global_plan(65521, 4)
+    assert plan.mode == "cluster"
+    big = plan._replace(smem=tk._SMEM_LIMIT)
+    monkeypatch.setattr(tk, "cell_fft_global_plan", lambda n, i=4: big)
+    monkeypatch.setattr(tk, "cell_diagnostics_disp_plain", None)
+    with pytest.raises(RuntimeError, match="fft_global build"):
+        tk.cell_diagnostics_disp(ops[0], *ops[2:7])
+
+
+def test_fftg_cluster_mode_allocates_no_scratch_on_card(card):
+    """The cluster mode at (L5b)'s length allocates its four planes and
+    the wrapper's template row (``tt_info``), under one row of the
+    passes' scratch (M complex values): no scratch in device memory."""
+    ops = _fft_operands(card, (), 4, 16, 65521, torch.float32, 10)
+    plan = tk.cell_fft_global_plan(65521, 4)
+    tk.cell_diagnostics_disp(ops[0], *ops[2:7])
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    tk.cell_diagnostics_disp(ops[0], *ops[2:7])
+    torch.cuda.synchronize()
+    own = torch.cuda.max_memory_allocated() - before
+    planes = 4 * ops[5].numel() * 4
+    assert own <= planes + 65521 * 4 + 8 * 512 < plan.n * 2 * 4
+
+
 # storage: K2f's rows of several odd stages (nbin, odd part), the most
 # stages the route gives it (kernels.FFT_ODD_STAGES) last
 MIXED_ODD = {torch.float32: ((36864, 9), (46080, 45)),
              torch.bfloat16: ((36864, 9), (46080, 45)),
-             torch.float64: ((20000, 625), (60000, 1875))}
+             torch.float64: ((46080, 45), (20000, 625))}
 
 
 @pytest.mark.parametrize("storage", list(MIXED_ODD))
 @pytest.mark.parametrize("case", [0, 1])
 def test_fft_build_mixed_odd_stages_on_card(card, storage, case):
     """K2f at odd parts of two and three odd stages (float32, bf16) and
-    four and five (float64) within 1e-4 of each plane's scale (1e-12 in
+    three and four (float64) within 1e-4 of each plane's scale (1e-12 in
     float64), masked cells exact, under its ``_fft`` counter."""
     nbin, odd = MIXED_ODD[storage][case]
     ops = _fft_operands(card, (), 4, 16, nbin, storage, 6)

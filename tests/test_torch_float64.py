@@ -318,13 +318,13 @@ def test_float64_launch_plans():
     assert tk.cell_stats_geometry(16384, 4).threads == 640
     # past 8192 float64 bins the cell diagnostics take an FFT build (the
     # DFT plan still refuses them) and K1 tiles any length; 8193 bins (odd
-    # part 8193 = 3 x 2731) the device-memory build K2g, by Bluestein
+    # part 8193 = 3 x 2731) K2g, by Bluestein in a thread-block cluster
     assert tk.cell_stats_route(8192, 8) == "dft"
     assert tk.cell_stats_route(16384, 8) == "fft"
     with pytest.raises(NotImplementedError, match="item 9"):
         tk.cell_stats_geometry(8193, 8)
     assert tk.cell_stats_route(8193, 8) == "fft_global"
-    assert tk.cell_fft_global_plan(8193, 8).mode == "bluestein"
+    assert tk.cell_fft_global_plan(8193, 8).mode == "cluster"
     assert tk.marginals_tiles(4, 4, 8193, 132, 8).smem <= 232448
 
 

@@ -36,14 +36,15 @@ float64), against the JAX package.
   the launch counters and the kernel model's entries of the FFT build
   (its 0.64 ms bound at 32 x 256 x 65536).
 - Every length past the DFT tables: the cluster build K2f at odd parts
-  3^a 5^b of at most three odd stages in float32 and bf16 and five in
+  3^a 5^b of at most three odd stages in float32 and bf16 and four in
   float64, where it is the faster build (its mixed radix-3/5 stages:
-  46,080 = 2^10 x 3^2 x 5; float64 20,000 = 2^5 x 5^4, 60,000 = 2^5 x 3 x
-  5^4); the device-memory build K2g (``cell_fft_global.cu``, route
-  "fft_global") everywhere else: Bluestein at a prime factor over 5 or
-  an odd length (16,411, 20,001, 7 x 4096, 65,521), the split row past
-  the cluster's capacity (524,288; 262,144 in float64) and at float32's
-  longer odd parts (20,000, 60,000).  The shapes
+  46,080 = 2^10 x 3^2 x 5; float64 20,000 = 2^5 x 5^4); K2g
+  (``cell_fft_global.cu``, route "fft_global") everywhere else: Bluestein
+  at a prime factor over 5 or an odd length (16,411, 20,001, 7 x 4096,
+  65,521: in a cluster; 136,537 and float64's 69,127 past one, through
+  the passes), the split row past the cluster's capacity (524,288;
+  262,144 in float64) and at the longer odd parts (20,000 and 60,000 in
+  float32, 60,000 = 2^5 x 3 x 5^4 in float64 too).  The shapes
   refused until K2g now route to it (the same parametrised cases); its
   plans; the one limit left (a transform past 32-bit row indices) still
   names ROADMAP item 9.  The plain planes at 16,411, 28,672, 60,000 and
@@ -177,15 +178,14 @@ _JAX_DIAG = jax.jit(lambda x, mm: cell_diagnostics_jax(x, mm, "fft"))
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 @pytest.mark.parametrize("nbin", [16411, 28672, 60000, 524288])
 def test_planes_match_jax_past_the_cluster_build(form, dtype, nbin):
-    """At lengths the DFT tables and (but 60,000 in float64, K2f's five
-    odd stages) the cluster build do not take (K2g's Bluestein and split
-    rows), every residual form's plain planes on 2 x 4 cells against the
+    """At lengths the DFT tables and the cluster build do not take (K2g's
+    Bluestein and split rows), every residual form's plain planes on 2 x 4
+    cells against the
     JAX package's XLA route: within 1e-4 of each plane's scale (1e-12 in
     float64), the routed wrappers the same planes on the CPU."""
     ops = _operands(2, 4, nbin, dtype, seed=nbin % 89)
     itemsize = np.dtype(dtype).itemsize
-    want_route = "fft" if (nbin, itemsize) == (60000, 8) else "fft_global"
-    assert tk.cell_stats_route(nbin, itemsize) == want_route
+    assert tk.cell_stats_route(nbin, itemsize) == "fft_global"
     plain, routed, wres = _form_calls(form, *ops)
     mask = ops[5]
     want = _JAX_DIAG(jnp.asarray(wres.numpy()), jnp.asarray(mask.numpy()))
@@ -337,14 +337,16 @@ def test_exact_stream_matches_jax(dtype):
 @pytest.mark.parametrize("nbin,itemsize,route", [
     (16384, 4, "dft"), (16384, 2, "dft"), (8192, 8, "dft"),
     (20480, 4, "fft"), (16384, 8, "fft"), (32768, 2, "fft"),
-    (20000, 4, "fft_global"), (60000, 4, "fft_global"), (60000, 8, "fft"),
+    (20000, 4, "fft_global"), (60000, 4, "fft_global"),
+    (60000, 8, "fft_global"),
     (20000, 8, "fft"), (46080, 4, "fft"), (60000, 2, "fft_global"),
     (16411, 4, "fft_global"), (28672, 2, "fft_global"),
     (20001, 8, "fft_global"), (524288, 4, "fft_global")])
 def test_route_by_shape(nbin, itemsize, route):
     """Past the DFT tables K2f takes odd parts of at most three odd
-    stages in float32 and bf16 (45 = 3^2 5), five in float64 (1875 = 3
-    5^4), where it is the faster build; K2g the rest."""
+    stages in float32 and bf16 (45 = 3^2 5), four in float64 (625 = 5^4;
+    at 1875 = 3 5^4, five, K2g is the faster since its passes keep two
+    tiles in flight), where it is the faster build; K2g the rest."""
     assert tk.cell_stats_route(nbin, itemsize) == route
 
 
@@ -354,7 +356,7 @@ def test_route_by_shape(nbin, itemsize, route):
     (32768, 8, 4, 1), (131072, 8, 8, 1), (24576, 2, 4, 3),
     (8192, 4, 2, 1), (4096, 8, 2, 1), (12288, 4, 2, 3), (65536, 8, 8, 1),
     (24576, 8, 4, 3), (20000, 8, 4, 625), (46080, 4, 8, 45),
-    (60000, 8, 8, 1875), (36864, 4, 8, 9), (30720, 4, 4, 15)])
+    (40000, 8, 8, 625), (36864, 4, 8, 9), (30720, 4, 4, 15)])
 def test_fft_plan(nbin, itemsize, cluster, odd):
     plan = tk.cell_fft_plan(nbin, itemsize)
     realsize = 8 if itemsize == 8 else 4
@@ -386,12 +388,18 @@ def test_refusals_name_roadmap_item_9(nbin, itemsize):
     """The shapes the port refused until K2g (a prime factor over 5, rows
     past the cluster build's capacity, float32 odd parts of more than
     three stages) now route to K2g: Bluestein where nbin/2 is not 2^a 3^b
-    5^c, else the split row; none raises."""
+    5^c (in a cluster where one takes its convolution, else through the
+    passes), else the split row; none raises."""
     assert tk.cell_stats_route(nbin, itemsize) == "fft_global"
     plan = tk.cell_fft_global_plan(nbin, itemsize)
     split = nbin % 2 == 0 and tk._smooth(nbin // 2)
-    assert plan.mode == ("split" if split else "bluestein")
-    assert plan.n == (nbin // 2 if split else tk._next_smooth(2 * nbin - 1))
+    if split:
+        assert (plan.mode, plan.n) == ("split", nbin // 2)
+    else:
+        assert plan.mode in ("cluster", "bluestein")
+        assert plan.n >= nbin + nbin // 2
+        if plan.mode == "bluestein":
+            assert plan.n == tk._next_smooth(nbin + nbin // 2)
     with pytest.raises(NotImplementedError, match="K2g takes it"):
         tk.cell_fft_plan(nbin, itemsize)
 
@@ -406,26 +414,42 @@ def test_only_limit_left_names_roadmap_item_9():
 
 
 @pytest.mark.parametrize("nbin,itemsize,mode,n,passes", [
-    (16411, 4, "bluestein", 33750, (225, 150)),
-    (20001, 4, "bluestein", 40500, (150, 270)),
-    (28672, 4, "bluestein", 57600, (240, 240)),
-    (65521, 4, "bluestein", 131072, (512, 256)),
-    (65521, 8, "bluestein", 131072, (512, 256)),
+    (16411, 4, "cluster", 25600, ()),
+    (20001, 4, "cluster", 30720, ()),
+    (28672, 4, "cluster", 46080, ()),
+    (65521, 4, "cluster", 98304, ()),
+    (65521, 8, "cluster", 98304, ()),
+    (136537, 4, "bluestein", 207360, (480, 432)),
+    (69127, 8, "bluestein", 104976, (324, 324)),
     (524288, 4, "split", 262144, (512, 512)),
     (262144, 8, "split", 131072, (512, 256)),
     (3 * 262144, 4, "split", 393216, (768, 512))])
 def test_fft_global_plan(nbin, itemsize, mode, n, passes):
-    """K2g's plan: the mode and the transform's points; the fewest passes
-    of at most 1024 points (two here); each pass's columns a block the
-    largest divisor of its stride (of the last pass, stride 1: of the
-    row's spans) whose tile fits 64 KB (two tiles in Bluestein's fused
-    last pass); chunks of at most 1 GiB of scratch; a function of nbin and
-    the dtype alone, the passes of nbin alone (B^ is made by the float64
-    plan)."""
+    """K2g's plan: the mode and the transform's points (Bluestein's M >= N
+    + N/2).  The cluster mode: K2f's cluster and shared memory for a row
+    of 2M bins, FFTG_CLUSTER_THREADS (by the real size) a block, the
+    table of W_(2M), no
+    passes and no scratch.  The passes: the fewest passes of at most 1024
+    points (two here); each pass's columns a tile the largest divisor of
+    its stride (of the last pass, stride 1: of the row's spans) whose
+    tile fits FFTG_TILE_BYTES (two tiles in Bluestein's fused last pass);
+    FFTG_PASS_THREADS a block; chunks of at most 1 GiB of scratch.  A
+    function of nbin and the dtype alone; the passes of n alone (B^ is
+    made by the float64 passes of the same n)."""
     plan = tk.cell_fft_global_plan(nbin, itemsize)
     realsize = 8 if itemsize == 8 else 4
     assert (plan.mode, plan.n, plan.passes) == (mode, n, passes)
+    if mode == "cluster":
+        fplan = tk.cell_fft_plan(2 * n, realsize)
+        assert (plan.cluster, plan.odd, plan.smem) \
+            == (fplan.cluster, fplan.odd, fplan.smem)
+        assert plan.smem + tk.FFT_STATIC_SMEM <= tk._SMEM_LIMIT
+        assert (plan.table, plan.chunk, plan.groups) == (2 * n, 0, ())
+        assert plan.threads == tk.FFTG_CLUSTER_THREADS[realsize]
+        return
     assert plan.table == (nbin if mode == "split" else n)
+    assert (plan.threads, plan.tile, plan.cluster) \
+        == (tk.FFTG_PASS_THREADS, tk.FFTG_TILE_BYTES, 0)
     s = n
     for i, (f, g) in enumerate(zip(plan.passes, plan.groups)):
         s //= f
@@ -438,7 +462,49 @@ def test_fft_global_plan(nbin, itemsize, mode, n, passes):
     assert s == 1
     assert plan.chunk * n * 2 * realsize <= tk.FFTG_SCRATCH_BYTES
     assert plan.chunk >= 1
-    assert tk.cell_fft_global_plan(nbin, 8).passes == plan.passes
+    assert tk._fftg_passes(n) == plan.passes
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_k2g_cluster_mode_takes_l5b(itemsize):
+    """(L5b)'s prime, 65,521 bins, takes the cluster mode in float32 and
+    float64: M = 98,304 = 3 x 2^15 complex points, a cluster of 8 blocks.
+    In float64 that is the edge: 2M = 196,608 bins is the cluster's
+    capacity at odd part 3, its slice and table within a block's shared
+    memory; one bin more (65,537) takes the next float64 cluster length,
+    102,400 = 2^12 x 5^2, and 69,127 no cluster."""
+    plan = tk.cell_fft_global_plan(65521, itemsize)
+    assert (plan.mode, plan.n, plan.cluster, plan.odd) \
+        == ("cluster", 98304, 8, 3)
+    if itemsize == 8:
+        assert 2 * plan.n == tk.cell_fft_capacity(8, 3)
+        assert plan.smem + tk.FFT_STATIC_SMEM <= tk._SMEM_LIMIT
+        assert tk._cell_fft_takes(2 * 2 * plan.n, 8)[0] is None
+        assert tk.cell_fft_global_plan(65537, 8)[:2] == ("cluster", 102400)
+        assert tk.cell_fft_global_plan(69127, 8).mode == "bluestein"
+
+
+@pytest.mark.parametrize("nbin,itemsize", [(136537, 4), (136537, 2),
+                                           (69127, 8), (100003, 8)])
+def test_k2g_prime_past_the_cluster_takes_shorter_passes(nbin, itemsize):
+    """A prime whose convolution no cluster takes runs Bluestein through
+    the passes, on the shorter M (the least 2^a 3^b 5^c >= N + N/2), with
+    its scratch in chunks."""
+    plan = tk.cell_fft_global_plan(nbin, itemsize)
+    assert plan.mode == "bluestein" and plan.cluster == 0
+    assert plan.n == tk._next_smooth(nbin + nbin // 2) < 2 * nbin - 1
+    assert tk._fftg_cluster(nbin, 8 if itemsize == 8 else 4) == (None, None)
+
+
+@pytest.mark.parametrize("nbin", [16411, 65521, 136537, 524288, 60000])
+def test_k2g_plan_depends_on_nbin_and_dtype_alone(nbin):
+    """The plan is a function of nbin and the dtype: bf16 storage takes
+    float32's plan, the same arguments the same plan object (so batches,
+    tiles and shards launch the same plan and stay bit-equal)."""
+    assert tk.cell_fft_global_plan(nbin, 2) == tk.cell_fft_global_plan(
+        nbin, 4)
+    assert tk.cell_fft_global_plan(nbin, 8) is tk.cell_fft_global_plan(
+        nbin, 8)
 
 
 def test_capacity():
@@ -501,30 +567,35 @@ def _card_fakes(monkeypatch, rc):
     return launched
 
 
-def test_refusal_before_any_launch(monkeypatch):
-    """7 x 4096 bins, refused until K2g, now launch K2g on the card (the
-    fake library): the chirp's spectrum through K2g's passes once per
-    (nbin, device, dtype), then each wrapper's ``_fftg`` entry once,
-    counted under ``<name>_fftg``; no plain version is called."""
+@pytest.mark.parametrize("nbin", [7 * 4096, 136537])
+def test_refusal_before_any_launch(monkeypatch, nbin):
+    """7 x 4096 bins (the cluster mode) and a prime past the cluster (the
+    passes), refused until K2g, now launch K2g on the card (the fake
+    library): the passes' chirp spectrum through K2g's passes once per
+    (nbin, device, dtype) (the cluster mode's is made on the host), then
+    each wrapper's ``_fftg`` entry once, counted under ``<name>_fftg``;
+    no plain version is called."""
     launched = _card_fakes(monkeypatch, 0)
     tk._fftg_bhat.cache_clear()
     tk.reset_launch_counts()
-    cube, rot, nyq, t, w, m, win = _operands(2, 2, 7 * 4096, np.float32, 7)
+    cube, rot, nyq, t, w, m, win = _operands(2, 2, nbin, np.float32, 7)
     tk.cell_diagnostics_disp(cube, rot, nyq, t, w, m)
     tk.cell_diagnostics_dedisp(cube, t, win, w, m)
-    assert launched == ["icln_fftg_passes", "icln_cell_fftg_disp",
-                        "icln_cell_fftg_dedisp"]
+    passes = tk.cell_fft_global_plan(nbin).mode == "bluestein"
+    assert launched == ["icln_fftg_passes"] * passes + [
+        "icln_cell_fftg_disp", "icln_cell_fftg_dedisp"]
     assert {k: v for k, v in tk.launch_counts().items() if v} == {
         "cell_diagnostics_disp_fftg": 1, "cell_diagnostics_dedisp_fftg": 1}
     tk._fftg_bhat.cache_clear()
     tk.reset_launch_counts()
 
 
-@pytest.mark.parametrize("nbin", [16411, 524288])
+@pytest.mark.parametrize("nbin", [16411, 524288, 136537])
 def test_failed_fftg_launch_raises_without_fallback(monkeypatch, nbin):
-    """A failed K2g launch raises, the plain version never called: a
-    Bluestein row's failed chirp spectrum before the entry (nothing
-    counted), a split row's failed entry after its count."""
+    """A failed K2g launch raises, the plain version never called: the
+    failed chirp spectrum of a Bluestein row through the passes before
+    the entry (nothing counted), a split row's or the cluster mode's
+    failed entry after its count."""
     launched = _card_fakes(monkeypatch, 1)
     tk._fftg_bhat.cache_clear()
     tk.reset_launch_counts()

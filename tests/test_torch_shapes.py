@@ -114,7 +114,8 @@ def test_nbin_above_max_refused_naming_roadmap_item(plan):
     cell diagnostics leave the DFT route (whose plan still refuses such
     rows naming ROADMAP item 9) for an FFT build: 32,768 bins the cluster
     build, 16,385 (odd part 16,385, a prime factor over 5) the
-    device-memory build K2g, by Bluestein's chirp convolution."""
+    build K2g, by Bluestein's chirp convolution (in a thread-block
+    cluster: K2g's cluster mode)."""
     nbin = tk.MAX_NBIN + 1
     if plan == "marginals":
         for n in (nbin, 4 * tk.MAX_NBIN):
@@ -126,7 +127,7 @@ def test_nbin_above_max_refused_naming_roadmap_item(plan):
         with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
             tk.cell_stats_geometry(nbin)
         assert tk.cell_stats_route(nbin) == "fft_global"
-        assert tk.cell_fft_global_plan(nbin).mode == "bluestein"
+        assert tk.cell_fft_global_plan(nbin).mode == "cluster"
 
 
 @pytest.mark.parametrize("baseline_mode", ["integration", "profile"])
