@@ -5,8 +5,9 @@ Run from the root of a checkout:
     python3 chip_smoke.py
 
 In order, it: prints the card; builds the CUDA kernels from the sources
-in the checkout; rebuilds the full-size (1024 x 4096 x 128, seed 0)
-golden archive once with the port's synthetic generator and cleans it
+in the checkout and, while the compilers run, rebuilds the full-size
+(1024 x 4096 x 128, seed 0) golden archive once with the port's
+synthetic generator; cleans it
 through ``clean_archive`` on the card four times, covering every route
 of the engine — the default configuration (K1, K2), ``baseline_mode=
 'profile'`` (the two-read route, K7), ``stats_frame='dedispersed'``
@@ -164,8 +165,8 @@ and each of the port's kernels as often as the launch counters say, a
 disagreeing trace printed and taken again up to TRACE_ATTEMPTS times).
 
 The fleet phases (after batch (d), on PSRFITS files in a temporary
-directory): (f1) 24 archives of three shapes interleaved (16 of 64 x 128
-x 512, 4 of 64 x 120 x 512, 4 of 256 x 1024 x 128) through ``--fleet
+directory): (f1) 12 archives of three shapes interleaved (8 of 64 x 128
+x 512, 2 of 64 x 120 x 512, 2 of 256 x 1024 x 128) through ``--fleet
 --batch 8 --bucket-pad 0,32`` (the grid is accepted and changes no
 bucket: the port pads nothing), ``--batch 8`` and the sequential
 session, in two rounds of opposite order: every output mask and
@@ -247,7 +248,23 @@ peak per iteration printed with the seconds it took; (c2)
 run and its resume) and (f6) (two hosts) and the serve daemon leave
 behind, each required ok, a torn tail passing as a warning; (c3) an
 ``.item()`` seeded into the online step, caught on the card by the
-dispatch count and by the sync debug mode.
+dispatch count and by the sync debug mode.  (c1) holds the eighth
+program too, ``mesh_padded_sweep`` (a 257 x 1025 x 256 grid padded
+to 258 x 1026 over four gloo ranks on cuda:0, a 2 x 2 mesh), and prints
+its pads and a line a rank: host reads and sync warnings outside the
+collectives, the collectives and the host reads inside them, ops,
+launches, kernels and the peak against the block's bytes; (c4) seeds
+an ``.item()`` into one of its ranks, caught on that rank alone by the
+count and by the sync debug mode; (c5) drives the same padded path on
+four gloo ranks on cuda:0 and holds its outputs: on each rank K10 on the
+129 x 513 block against ``cell_diagnostics_disp_plain`` (K2_RTOL, masked
+and pad cells bit-equal) and the combine against ``combine_zap_plain``
+(bit-equal), each launched once; the gathered sweep against K3's and the
+combine's plain versions on the whole padded planes, and its mask,
+cropped to 257 x 1025, against the one-card sweep of the unpadded cube,
+bit for bit; the mesh's template within K1_RTOL of the one-card build's.
+(c2), (c4) and (c5) run beside (c1), each on processes of its own, none
+timing the card.
 
 Long profiles past the DFT tables (``csrc/cell_fft.cu``, the FFT build
 of the cell diagnostics), after phase 3p: (L1) every entry of the FFT
@@ -406,6 +423,10 @@ K2_RTOL = 1e-4   # of each plane's scale (K2, K6, K7): float32
 # for its --journal-fsck: the serve phase's directory goes with the CLI
 # phase's, the fleet's at exit
 CONTROL_TIMEOUT_S = 300
+# (c4): the padded mesh program's rank that the host sync is seeded into
+SEEDED_RANK = 2
+# (c5): the time limit of the padded mesh path's four checking ranks
+PADDED_TIMEOUT_S = 240
 KEPT_JOURNALS = {}
 _KEEP_LOCK = threading.Lock()
 _KEEP_DIR = None
@@ -4275,9 +4296,11 @@ def online_phases(ar, counts, dev, tag):
 # (f1) the mixed fleet: FLEET_MIX archives of each shape, interleaved,
 # under --bucket-pad 0,32 (accepted; the port pads nothing, so the 64 x 120
 # archives stay a bucket of their own); FLEET_ORDERS, the sessions' order
-# in each round (each session warm in one round and cold-ish in the other)
-FLEET_MIX = (((64, 128, 512), 16), ((64, 120, 512), 4),
-             ((256, 1024, 128), 4))
+# in each round (each session warm in one round and cold-ish in the other);
+# 12 files hold every shape, bucket and group the fleet phases check, and
+# keep the script inside its time limit
+FLEET_MIX = (((64, 128, 512), 8), ((64, 120, 512), 2),
+             ((256, 1024, 128), 2))
 FLEET_GROUP, FLEET_PAD = 8, "0,32"
 FLEET_ORDERS = (("sequential", "batch", "fleet"),
                 ("fleet", "batch", "sequential"))
@@ -5255,17 +5278,217 @@ def fleet_m6(paths, work, tag):
                  f"the hosts' sums: {bad}")
 
 
+def seeded_rank_run(dev):
+    """(c4): the padded mesh program with an ``.item()`` seeded into rank
+    SEEDED_RANK, its four gloo ranks spawned from this process; the
+    report and its seconds."""
+    from iterative_cleaner_torch.analysis import card_contracts as cc
+
+    t0 = time.perf_counter()
+    report = cc.verify_program(cc.seeded(
+        cc.program_named("mesh_padded_sweep"), "host-sync",
+        rank=SEEDED_RANK), dev)
+    return report, time.perf_counter() - t0
+
+
+def padded_mesh_rank(device="cuda:0"):
+    """One of the four ranks of (c5), started by ``run_local_ranks`` with
+    gloo on ``device`` (cuda:0 in the script): the padded mesh program's block of this rank
+    (``card_contracts.padded_block``, as ``clean_cube_sharded`` cuts it:
+    129 x 513 x 256 of the 258 x 1026 grid, the pad subint or channel of
+    weight 0), its template over the mesh, then K10 on the block against
+    ``cell_diagnostics_disp_plain`` (K2_RTOL of each plane's scale,
+    masked and pad cells bit-equal), the tree-reduced scalers, the
+    combine against ``combine_zap_plain`` (bit-equal), and the sweep
+    ``engine.loop._sharded_sweep`` bit-equal to that sequence.  Rank 0
+    then gathers the planes, and holds the sweep's weights and scores to
+    K3's and the combine's plain versions on the whole padded planes, bit
+    for bit; crops the weights to the archive's 257 x 1025 grid and holds
+    them, bit for bit, to the one-card sweep (K2, K3 x 2, the combine) of
+    the unpadded cube against the mesh's template (the scores are not
+    held there: the rFFT plane's scaler takes its median over the padded
+    line, as the reference's ``clean_cube_sharded`` does); and holds the
+    mesh's template to the one-card build's within K1_RTOL of its
+    largest value (float32 sums in another order).  Returns the rank's
+    errors and counts."""
+    import torch
+
+    from iterative_cleaner_torch.analysis import card_contracts as cc
+    from iterative_cleaner_torch.backends.torch_backend import upload_meta
+    from iterative_cleaner_torch.config import CleanConfig
+    from iterative_cleaner_torch.engine.loop import (
+        _dispersed_rows,
+        _sharded_sweep,
+        build_template,
+        prepare,
+        route_diagnostics,
+        scores_and_zap,
+    )
+    from iterative_cleaner_torch.parallel.mesh import cell_mesh
+    from iterative_cleaner_torch.parallel.shard_stats import (
+        tree_scaled_sides,
+    )
+    from iterative_cleaner_torch.parallel.sharding import shard_layout
+    from iterative_cleaner_torch.stats import kernels as K
+
+    dev = torch.device(device)
+    cfg = CleanConfig(device=device)
+    step = dict(chanthresh=cfg.chanthresh, subintthresh=cfg.subintthresh,
+                rotation=cfg.rotation)
+    mesh = cell_mesh()
+    shape = cc.padded_geometry(dev)
+    layout = shard_layout(mesh, shape[0], shape[1])
+    block, w, meta = cc.padded_block(dev, layout, shape)
+    prep = prepare(block, w, *meta, cfg, dedispersed=False, mesh=mesh)
+    template = build_template(prep, w, rotation=cfg.rotation,
+                              baseline_duty=cfg.baseline_duty, mesh=mesh)
+    mask = w == 0
+    rot_t, nyq = _dispersed_rows(prep, template, cfg.rotation)
+    args = (prep.disp_base, rot_t, nyq, template, w, mask)
+    K.reset_launch_counts()
+    diags = K.shard_diagnostics_disp(*args)
+    chan = tree_scaled_sides(diags, mask, 0, cfg.chanthresh, mesh)
+    sub = tree_scaled_sides(diags, mask, 1, cfg.subintthresh, mesh)
+    new_w, scores = K.combine_zap(chan, sub, w)
+    counts = K.launch_counts()
+    k10_err, k10_ok = diags_check(
+        diags, K.cell_diagnostics_disp_plain(*args), mask, torch)
+    pw, ps = K.combine_zap_plain(chan, sub, w)
+    combine_bad = bits_mismatch(new_w, pw, torch) \
+        + bits_mismatch(scores, ps, torch)
+    sw, ss, _ = _sharded_sweep(prep, template, w, mask, mesh, **step)
+    sweep_bad = bits_mismatch(sw, new_w, torch) \
+        + bits_mismatch(ss, scores, torch)
+    whole = mesh.gather_cells(torch.stack([sw, ss, w, *diags]))
+    out = {"rank": mesh.rank, "block": (layout.s0, layout.s1, layout.c0,
+                                        layout.c1),
+           "pads": (layout.pad_s, layout.pad_c), "k10_err": k10_err,
+           "k10_ok": k10_ok, "combine_bad": combine_bad,
+           "sweep_bad": sweep_bad, "pad_cells": int(mask.sum()),
+           "counts": {k: v for k, v in counts.items() if v}}
+    if mesh.rank != 0:
+        return out
+    nsub, nchan = shape[:2]
+    pad_zapped = bool((whole[0, nsub:] == 0).all()
+                      and (whole[0, :, nchan:] == 0).all())
+    gw, gd = whole[2], tuple(whole[3:])
+    gmask = gw == 0
+    pw, ps = K.combine_zap_plain(
+        K.scaled_sides_plain(gd, gmask, 0, cfg.chanthresh),
+        K.scaled_sides_plain(gd, gmask, 1, cfg.subintthresh), gw)
+    out["scalers_bad"] = bits_mismatch(whole[0], pw, torch) \
+        + bits_mismatch(whole[1], ps, torch)
+    del prep, block, diags, chan, sub, gd
+    cube, wh, freqs, dm, ref, period = cc.mesh_inputs(shape)
+    w1 = torch.from_numpy(wh).to(dev)
+    prep1 = prepare(torch.from_numpy(cube).to(dev), w1,
+                    *upload_meta(freqs, dm, ref, period, dev), cfg,
+                    dedispersed=False)
+    mask1 = w1 == 0
+    ref_w, _ = scores_and_zap(
+        route_diagnostics(prep1, template, w1, mask1,
+                          rotation=cfg.rotation),
+        mask1, w1, cfg.chanthresh, cfg.subintthresh)
+    got_w = whole[0, :nsub, :nchan]
+    t1 = build_template(prep1, w1, rotation=cfg.rotation,
+                        baseline_duty=cfg.baseline_duty)
+    t_err = float((template - t1).abs().max() / t1.abs().max())
+    out.update(
+        mask_bad=int(((got_w == 0) != (ref_w == 0)).sum()),
+        weights_bad=bits_mismatch(got_w, ref_w, torch),
+        zapped=int((ref_w == 0).sum()), pad_zapped=pad_zapped,
+        template_err=t_err)
+    return out
+
+
+def padded_mesh_run():
+    """(c5): :func:`padded_mesh_rank` on four gloo ranks sharing cuda:0;
+    each rank's result and the seconds."""
+    from iterative_cleaner_torch.analysis import card_contracts as cc
+    from iterative_cleaner_torch.parallel import distributed
+
+    t0 = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="icln_chip_smoke_padded_")
+    try:
+        ranks = distributed.run_local_ranks(
+            padded_mesh_rank, cc.MESH_RANKS, ("cuda:0",), workdir=work,
+            device="cuda:0", backend="gloo", timeout_s=PADDED_TIMEOUT_S,
+            threads=2)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    return ranks, time.perf_counter() - t0
+
+
+def padded_mesh_report(ranks, secs, tag):
+    """(c5)'s lines, and its failures."""
+    ok = True
+    for rk in ranks:
+        good = (rk["k10_ok"] and rk["combine_bad"] == 0
+                and rk["sweep_bad"] == 0
+                and rk["counts"] == {"shard_diagnostics_disp": 1,
+                                     "combine_zap": 1})
+        ok &= good
+        print(f"control (c5) padded mesh rank {rk['rank']} block "
+              f"{rk['block']} (pads {rk['pads'][0]} x {rk['pads'][1]}, "
+              f"{rk['pad_cells']} cells of weight 0): K10 against "
+              f"cell_diagnostics_disp_plain max abs {rk['k10_err']:.3e} "
+              f"(rtol {K2_RTOL:g} of each plane's scale, masked and pad "
+              f"cells bit-equal); the combine against combine_zap_plain "
+              f"{rk['combine_bad']} cells differ in bits; the sweep against "
+              f"that sequence {rk['sweep_bad']}; launches "
+              f"{json.dumps(rk['counts'], sort_keys=True)}: "
+              f"{'ok' if good else 'FAIL'} {tag}", flush=True)
+    r0 = ranks[0]
+    good = (r0["scalers_bad"] == 0 and r0["mask_bad"] == 0
+            and r0["weights_bad"] == 0 and r0["pad_zapped"]
+            and r0["template_err"] <= K1_RTOL)
+    ok &= good
+    print(f"control (c5) padded mesh sweep, gathered: against K3's and the "
+          f"combine's plain versions on the whole padded planes "
+          f"{r0['scalers_bad']} weights and scores differ in bits; cropped "
+          f"to the archive's grid, against the one-card sweep of the "
+          f"unpadded cube on the mesh's template {r0['mask_bad']} mask "
+          f"cells and {r0['weights_bad']} weights (tolerance: bit-equal; "
+          f"{r0['zapped']} cells zapped); the pad cells zero: "
+          f"{r0['pad_zapped']}; the mesh's "
+          f"template against the one-card build {r0['template_err']:.3e} "
+          f"of its largest value (tolerance {K1_RTOL:g}); {secs:.1f} s: "
+          f"{'ok' if good else 'FAIL'} {tag}", flush=True)
+    if not ok:
+        fail("control (c5): the padded mesh path disagrees with its plain "
+             "versions or with the one-card sweep")
+
+
 def control_plane_phase(dev, tag):
     """(c1) ``--selfcheck --format json`` on a spawned process on the
     card; (c2) ``--journal-fsck`` over the kept fleet and serve journals;
-    (c3) a host sync seeded into the online step, caught on the card."""
+    (c3) a host sync seeded into the online step, caught on the card;
+    (c4) one seeded into one rank of the padded mesh program; (c5) the
+    padded mesh program's path held to the plain versions on each rank
+    and to the one-card sweep."""
     from iterative_cleaner_torch.analysis import card_contracts as cc
 
     t_all = time.perf_counter()
     e = dict(os.environ)
     e["PYTHONPATH"] = os.pathsep.join(
         [HERE] + ([e["PYTHONPATH"]] if e.get("PYTHONPATH") else []))
+    names = sorted(KEPT_JOURNALS)
+    if names != ["fleet_f4.jsonl", "fleet_f6.jsonl", "serve.journal.jsonl"]:
+        fail(f"control (c2): journals kept {names}")
+    # (c2), (c4) and (c5) start beside (c1): each is processes of its own
+    # (the fsck's, or four ranks), counting ops, reads and launches or
+    # checking values in its own process, none timing the card; this
+    # process only waits for them (their results read in order below)
     t0 = time.perf_counter()
+    fsck = subprocess.Popen(
+        [sys.executable, "-m", "iterative_cleaner_torch.analysis",
+         "--format", "json"]
+        + [a for n in names for a in ("--journal-fsck", KEPT_JOURNALS[n])],
+        cwd=HERE, env=e, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    ranks_pool = ThreadPoolExecutor(max_workers=2)
+    c4 = ranks_pool.submit(seeded_rank_run, dev)
+    c5 = ranks_pool.submit(padded_mesh_run)
     proc = subprocess.run(
         [sys.executable, "-m", "iterative_cleaner_torch", "--selfcheck",
          "--format", "json"], cwd=HERE, env=e, capture_output=True,
@@ -5292,6 +5515,28 @@ def control_plane_phase(dev, tag):
               f"{c['cube_bytes']} B cube; kernels "
               f"{json.dumps(c['kernel_launches'], sort_keys=True)} {tag}",
               flush=True)
+        if c["mesh"] is not None:
+            print(f"control (c1) {c['program']}: a {c['mesh'][0]} x "
+                  f"{c['mesh'][1]} mesh of {len(c['ranks'])} gloo ranks on "
+                  f"cuda:0, pads {c['pads'][0]} x {c['pads'][1]} {tag}",
+                  flush=True)
+        for r, rk in enumerate(c["ranks"]):
+            peak = rk["peak_delta_bytes"] or 0
+            print(f"control (c1) {c['program']} rank {r} block "
+                  f"{rk['block']}: {'ok' if rk['ok'] else 'FAIL'}; per "
+                  f"iteration {num(rk['host_reads_per_iter'])} host reads "
+                  f"({num(rk['sync_warnings_per_iter'])} sync warnings) "
+                  f"outside the collectives, "
+                  f"{num(rk['collectives_per_iter'])} collectives "
+                  f"({num(rk['transport_reads_per_iter'])} host reads, "
+                  f"{num(rk['transport_syncs_per_iter'])} sync warnings "
+                  f"inside them), {num(rk['ops_per_iter'])} aten ops, "
+                  f"{num(rk['launches_per_iter'])} launches; kernels "
+                  f"{json.dumps(rk['kernel_launches'], sort_keys=True)}; "
+                  f"peak {peak} B = "
+                  f"{peak / max(1, rk['cube_bytes']):.3f} of the "
+                  f"{rk['cube_bytes']} B block; {rk['seconds']:.1f} s {tag}",
+                  flush=True)
         for v in c["violations"]:
             print(f"  {v['contract']}: {v['detail']}", flush=True)
     print(f"control (c1): --selfcheck on the card: exit "
@@ -5304,23 +5549,18 @@ def control_plane_phase(dev, tag):
             or len(doc["contracts"]) != len(cc.HOT_PROGRAMS):
         fail(f"control (c1): --selfcheck: {proc.stderr[-3000:]}")
     # (c2) every journal the fleet (f4, f6) and serve phases left
-    names = sorted(KEPT_JOURNALS)
-    if names != ["fleet_f4.jsonl", "fleet_f6.jsonl", "serve.journal.jsonl"]:
-        fail(f"control (c2): journals kept {names}")
-    t0 = time.perf_counter()
-    fsck = subprocess.run(
-        [sys.executable, "-m", "iterative_cleaner_torch.analysis",
-         "--format", "json"]
-        + [a for n in names for a in ("--journal-fsck", KEPT_JOURNALS[n])],
-        cwd=HERE, env=e, capture_output=True, text=True,
-        timeout=CONTROL_TIMEOUT_S)
+    try:
+        fsck_out, fsck_err = fsck.communicate(timeout=CONTROL_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        fsck.kill()
+        fsck.communicate()
+        fail("control (c2): --journal-fsck timed out")
     fsck_s = time.perf_counter() - t0
     try:
-        fdoc = json.loads(fsck.stdout)
+        fdoc = json.loads(fsck_out)
     except ValueError:
         fail(f"control (c2): --journal-fsck printed no report (rc "
-             f"{fsck.returncode}):\n{fsck.stdout[-3000:]}"
-             f"{fsck.stderr[-3000:]}")
+             f"{fsck.returncode}):\n{fsck_out[-3000:]}{fsck_err[-3000:]}")
     for n, j in zip(names, fdoc["journals"]):
         print(f"control (c2) --journal-fsck {n}: ok {j['ok']}, "
               f"{j['n_lines']} lines {json.dumps(j['counts'], sort_keys=True)}"
@@ -5329,8 +5569,8 @@ def control_plane_phase(dev, tag):
         for err in j["errors"]:
             print(f"  line {err['line']}: {err['kind']}: {err['message']}",
                   flush=True)
-    print(f"control (c2): exit {fsck.returncode}, {fsck_s:.1f} s with the "
-          f"process start {tag}", flush=True)
+    print(f"control (c2): exit {fsck.returncode}, read {fsck_s:.1f} s "
+          f"after its start beside (c1) {tag}", flush=True)
     if fsck.returncode != 0 or not fdoc["ok"] \
             or any(w["kind"] != "torn-line" for j in fdoc["journals"]
                    for w in j["warnings"]):
@@ -5347,6 +5587,33 @@ def control_plane_phase(dev, tag):
     if "no-host-sync" not in caught or seeded.host_reads != 1 \
             or seeded.sync_warnings != 1:
         fail("control (c3): the seeded host sync was not caught")
+    # (c4) the same on one rank of the padded mesh program
+    seeded, c4_s = c4.result()
+    per_rank = [(rk["host_reads_per_iter"], rk["sync_warnings_per_iter"])
+                for rk in seeded.ranks]
+    print(f"control (c4): an .item() seeded into rank {SEEDED_RANK} of "
+          f"mesh_padded_sweep: violations "
+          f"{[(v.contract, v.detail.split(':')[0]) for v in seeded.violations]}"
+          f", (host reads, sync warnings) outside the collectives by rank "
+          f"{per_rank}; {c4_s:.1f} s, beside (c1)-(c3) and (c5) {tag}",
+          flush=True)
+    # the .item() is two more ops on that rank too: dispatch-bound may
+    # join no-host-sync there, and no other rank may fail
+    want = [(1, 1) if r == SEEDED_RANK else (0, 0)
+            for r in range(cc.MESH_RANKS)]
+    if per_rank != want \
+            or "no-host-sync" not in {v.contract for v in seeded.violations} \
+            or any(not v.detail.startswith(f"rank {SEEDED_RANK}:")
+                   for v in seeded.violations):
+        fail("control (c4): the host sync seeded on one rank was not "
+             "caught on that rank alone")
+    # (c5) the padded path's outputs
+    try:
+        ranks, c5_s = c5.result()
+    except (RuntimeError, TimeoutError) as exc:
+        fail(f"control (c5): {exc}")
+    ranks_pool.shutdown()
+    padded_mesh_report(ranks, c5_s, tag)
     print(f"control phases: {time.perf_counter() - t_all:.1f} s in all "
           f"{tag}", flush=True)
 
@@ -6536,17 +6803,29 @@ def main() -> int:
           flush=True)
 
     # ---- 1. build the kernels from source, and beside them the host
-    # I/O library (g++) the CLI phases read and write archives through
+    # I/O library (g++) the CLI phases read and write archives through and
+    # the full-size archive of step 2 (numpy, on this process's thread
+    # while the compilers run)
+    NSUB, NCHAN, NBIN = FULLSIZE_SHAPE
+
+    def timed(fn):
+        t = time.perf_counter()
+        return fn(), time.perf_counter() - t
+
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=1) as pool:
+    with ThreadPoolExecutor(max_workers=2) as pool:
         host_build = pool.submit(host_io.build_library)
-        lib_path = K.build_library()
+        lib_build = pool.submit(timed, K.build_library)
+        ar = make_fullsize_archive()
+        ar_s = time.perf_counter() - t0
+        lib_path, build_s = lib_build.result()
         host_path = host_build.result()
     K.load_library()
     host_io.load_library()
-    build_s = time.perf_counter() - t0
     print(f"build: {os.path.relpath(lib_path, HERE)} and "
-          f"{os.path.relpath(host_path, HERE)} in {build_s:.1f} s",
+          f"{os.path.relpath(host_path, HERE)} in {build_s:.1f} s; "
+          f"beside them the archive {NSUB}x{NCHAN}x{NBIN} rebuilt in "
+          f"{ar_s:.1f} s; step 1 {time.perf_counter() - t0:.1f} s",
           flush=True)
     log_path = os.path.join(K.build_dir(), "build.log")
     if os.path.exists(log_path):
@@ -6581,11 +6860,6 @@ def main() -> int:
 
     # ---- 2. each route, counted: the full-size archive through
     # clean_archive, launch counts set to 0 just before and read just after
-    NSUB, NCHAN, NBIN = FULLSIZE_SHAPE
-    t0 = time.perf_counter()
-    ar = make_fullsize_archive()
-    print(f"archive: {NSUB}x{NCHAN}x{NBIN} rebuilt in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
     # "route" below names a configuration; its engine route is
     # select_route's (pulse_unload: the integration two-read route, three
     # resident cubes, and the residual unloaded after the loop)
@@ -7322,8 +7596,9 @@ def main() -> int:
          lambda: K.masked_median_keys(line_v, line_m, 1), None, b9, 50),
     ]
     # the bf16 builds: their cube bytes at 2 a sample, their launches in
-    # the bf16 phases' runs of their routes, no library call computing the
-    # same function (a bf16 einsum rounds its output to bf16)
+    # the bf16 phases' runs of their routes; no library call computes the
+    # same function but K1's yardstick, the two einsums on the bf16 cube
+    # (the weights cast to bf16 beforehand; they round their sums to bf16)
     kb16 = profiling.kernel_bounds(S, C, B, cube_bytes=2)
     kb16["shard_diagnostics_disp"] = kb16["cell_diagnostics_disp"]
     kb16["shard_diagnostics_dedisp"] = kb16["cell_diagnostics_dedisp"]
@@ -7337,10 +7612,15 @@ def main() -> int:
             e[0]: (e[1], e[2]) for e in entries
             if e[0] in bf16_in}.items():
         cubes, rest = bf16_in[name]
+        lib16 = None
+        if name == "weighted_marginals":
+            w16 = weights.to(torch.bfloat16)
+            lib16 = (lambda w=w16: (torch.einsum("sc,scb->cb", w, disp16),
+                                    torch.einsum("sc,scb->sb", w, disp16)))
         entries.append((
             name + "_bf16", src, replaces, bf16_route[name], bf16_err[name],
             lambda fn=getattr(K, name), a=cubes + rest: fn(*a),
-            lambda fn=bf16_plain[name], a=cubes + rest: fn(*a), None,
+            lambda fn=bf16_plain[name], a=cubes + rest: fn(*a), lib16,
             kb16[name], 20 if name == "weighted_marginals" else 5))
     k10_shard_bound = {"shard_diagnostics_disp": b2q,
                        "shard_diagnostics_dedisp": b6q}

@@ -45,12 +45,44 @@ first ``icln_residual_stats`` range, no op takes or allocates a tensor of
 the tile's bytes or more, and the peak is measured from there.
 
 A program that raises gives a ``verifier-error`` violation, never a skip.
+
+One program runs over ranks (:class:`MeshProgram`): ``mesh_padded_sweep``,
+the reference's padded-mesh rung.  Its cell grid is one subint and one
+channel past :func:`geometry` (257 x 1025 x 256 on the card, 5 x 9 x 32
+on the CPU), which no mesh axis above 1 divides; four spawned gloo ranks
+(``parallel.distributed.run_local_ranks``, the spawn context: no rank
+inherits the parent's CUDA context, and the parent makes no process
+group) form a 2 x 2 ``cell_mesh`` on ``cuda:0`` (on the CPU in tests),
+each cutting its block of the padded grid with the calls
+``clean_cube_sharded`` makes (``shard_layout``, ``upload_shard``), and
+each records one steady ``engine.loop._sharded_sweep`` as above.  The
+parent merges the four reports: ok only if every rank's is, each
+violation naming its rank.  Of the reference's two program checks,
+**pad-geometry** is this program's own (the mesh pads nothing on an
+axis, or the padded grid does not divide: the program would no longer
+test padding); **mesh-eligible** (padding keeps the one-launch mesh
+sweep) has no route gate to check in the port, and its counterpart is
+single-cube-read's kernel check: ``shard_diagnostics_disp`` (K10) and
+``combine_zap`` once an iteration on every rank, no other cube kernel.
+
+Four ranks share one card, and NCCL refuses two ranks on one GPU, so the
+ranks run gloo, which stages every CUDA operand of a collective through
+host memory and blocks the host in it.  For this program alone
+(``HotRun.transport``) the host reads and sync warnings raised inside a
+collective of ``parallel.distributed`` (``COLLECTIVE_LISTENER``) are the
+transport's: counted apart (``transport_reads``, ``transport_syncs``),
+as are the collectives (``c10d.*`` ops), and not against the pin.  Any
+host read or sync warning outside a collective stays a violation.  The
+seven other programs count every host read as before.  What the
+transport itself costs on the card is for the four-card NCCL run to
+decide (ROADMAP item 7).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import tempfile
 import threading
 import time
 import warnings
@@ -105,6 +137,14 @@ def geometry(device) -> Tuple[int, int, int]:
         else (NSUB, NCHAN, NBIN)
 
 
+def padded_geometry(device) -> Tuple[int, int, int]:
+    """The padded-mesh program's grid on ``device``: one subint and one
+    channel past :func:`geometry`, indivisible on every mesh axis above
+    1 (257 x 1025 x 256 on the card, 5 x 9 x 32 on the CPU)."""
+    nsub, nchan, nbin = geometry(device)
+    return nsub + 1, nchan + 1, nbin
+
+
 @dataclasses.dataclass(frozen=True)
 class ContractViolation:
     program: str
@@ -130,6 +170,12 @@ class ProgramReport:
     sync_sites: List[str] = dataclasses.field(default_factory=list)
     ops: int = 0
     launches: int = 0
+    #: the collectives (``c10d.*`` ops) among ``ops``, and on a transport
+    #: run the host reads and sync warnings inside them, not in
+    #: ``host_reads`` / ``sync_warnings``
+    collectives: int = 0
+    transport_reads: int = 0
+    transport_syncs: Optional[int] = None   # card only
     peak_delta_bytes: Optional[int] = None  # card only
     cube_bytes: int = 0
     kernel_launches: Dict[str, int] = dataclasses.field(default_factory=dict)
@@ -139,6 +185,14 @@ class ProgramReport:
     seconds: float = 0.0
     violations: List[ContractViolation] = dataclasses.field(
         default_factory=list)
+    #: a program over ranks: the rank grid, the pad subints and channels,
+    #: this rank's block ``(s0, s1, c0, c1)`` of the padded grid, and in
+    #: the merged report each rank's own report (:meth:`to_dict`); the
+    #: merged counts are the largest rank's
+    mesh: Optional[Tuple[int, int]] = None
+    pads: Optional[Tuple[int, int]] = None
+    block: Optional[Tuple[int, int, int, int]] = None
+    ranks: List[dict] = dataclasses.field(default_factory=list)
 
     @property
     def ok(self) -> bool:
@@ -150,6 +204,9 @@ class ProgramReport:
         return total / max(1, self.iterations)
 
     def to_dict(self) -> dict:
+        def opt(x):
+            return None if x is None else list(x)
+
         return {
             "program": self.program,
             "device": self.device,
@@ -161,6 +218,15 @@ class ProgramReport:
             "sync_sites": list(self.sync_sites),
             "ops_per_iter": self.per_iteration(self.ops),
             "launches_per_iter": self.per_iteration(self.launches),
+            "collectives_per_iter": self.per_iteration(self.collectives),
+            "transport_reads_per_iter": self.per_iteration(
+                self.transport_reads),
+            "transport_syncs_per_iter": self.per_iteration(
+                self.transport_syncs),
+            "mesh": opt(self.mesh),
+            "pads": opt(self.pads),
+            "block": opt(self.block),
+            "ranks": [dict(r) for r in self.ranks],
             "peak_delta_bytes": self.peak_delta_bytes,
             "cube_bytes": self.cube_bytes,
             "kernel_launches": dict(self.kernel_launches),
@@ -174,17 +240,39 @@ class ProgramReport:
         def num(x):
             return "-" if x is None else f"{x:g}"
 
-        peak = ("-" if self.peak_delta_bytes is None
-                else f"{self.peak_delta_bytes / self.cube_bytes:.3f} cube"
-                if self.cube_bytes else str(self.peak_delta_bytes))
-        return (f"contracts {self.program} on {self.device}: "
-                f"{'ok' if self.ok else 'FAIL'} ({self.iterations} "
-                f"iteration{'' if self.iterations == 1 else 's'}; per "
-                f"iteration {num(self.per_iteration(self.host_reads))} host "
-                f"reads, {num(self.per_iteration(self.sync_warnings))} sync "
-                f"warnings, {num(self.per_iteration(self.ops))} ops, "
-                f"{num(self.per_iteration(self.launches))} launches; peak "
-                f"{peak}; {self.seconds:.2f} s)")
+        def peak(d):
+            p, cube = d["peak_delta_bytes"], d["cube_bytes"]
+            return "-" if p is None else f"{p / cube:.3f} cube" if cube \
+                else str(p)
+
+        def counts(d):
+            extra = ""
+            if d["collectives_per_iter"]:
+                extra = f", {num(d['collectives_per_iter'])} collectives"
+            if d["mesh"] is not None:
+                extra += (f" ({num(d['transport_reads_per_iter'])} host "
+                          f"reads, {num(d['transport_syncs_per_iter'])} "
+                          f"sync warnings inside them)")
+            return (f"{num(d['host_reads_per_iter'])} host reads, "
+                    f"{num(d['sync_warnings_per_iter'])} sync warnings, "
+                    f"{num(d['ops_per_iter'])} ops, "
+                    f"{num(d['launches_per_iter'])} launches{extra}; peak "
+                    f"{peak(d)}")
+
+        d = self.to_dict()
+        where = "" if self.mesh is None else (
+            f" over a {self.mesh[0]} x {self.mesh[1]} mesh of "
+            f"{len(self.ranks)} ranks, pads {num(self.pads and self.pads[0])}"
+            f" x {num(self.pads and self.pads[1])}")
+        lines = [f"contracts {self.program} on {self.device}{where}: "
+                 f"{'ok' if self.ok else 'FAIL'} ({self.iterations} "
+                 f"iteration{'' if self.iterations == 1 else 's'}; per "
+                 f"iteration {counts(d)}; {self.seconds:.2f} s)"]
+        for r, rd in enumerate(self.ranks):
+            lines.append(f"  rank {r} block {rd['block']}: "
+                         f"{'ok' if rd['ok'] else 'FAIL'}; per iteration "
+                         f"{counts(rd)}; kernels {rd['kernel_launches']}")
+        return "\n".join(lines)
 
 
 @dataclasses.dataclass
@@ -201,7 +289,9 @@ class HotRun:
     program launches to its launches per iteration (a cube kernel once;
     any cube kernel not listed must not launch).  ``probe`` is a small
     tensor of the program's device that seeded violations use;
-    ``close`` tears down what the build started."""
+    ``close`` tears down what the build started.  ``transport``: the
+    host reads and sync warnings inside a collective are the gloo
+    transport's, counted apart (the padded-mesh program only)."""
 
     call: Callable[[], object]
     cube_bytes: int
@@ -212,6 +302,7 @@ class HotRun:
     prepare: Optional[Callable[[], None]] = None
     cube_from: Optional[str] = None
     close: Optional[Callable[[], None]] = None
+    transport: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -225,6 +316,29 @@ class HotProgram:
     build: Callable[[object], HotRun]
     host_reads: int
     max_ops: Optional[float]
+
+
+#: a program over ranks: its ranks (a 2 x 2 ``cell_mesh``), each rank's
+#: timeout (inside the 300 s that ``chip_smoke.py`` gives the whole
+#: --selfcheck) and the seconds one of its collectives waits for a peer
+MESH_RANKS = 4
+RANK_TIMEOUT_S = 180.0
+RANK_GROUP_TIMEOUT_S = 120.0
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshProgram(HotProgram):
+    """A registered program that runs on :data:`MESH_RANKS` spawned gloo
+    rank processes sharing the device, its pins each rank's.  On every rank
+    ``build(device, mesh, layout, shape)`` makes the rank's :class:`HotRun`
+    from its ``cell_mesh`` and that mesh's ``shard_layout`` of the
+    ``shape`` grid (None: :func:`padded_geometry`).  ``seed`` seeds one
+    of :data:`SEEDS` into rank ``seed_rank``'s program alone
+    (:func:`seeded`).  Picklable: it travels to the spawned ranks."""
+
+    shape: Optional[Tuple[int, int, int]] = None
+    seed: Optional[str] = None
+    seed_rank: int = 0
 
 
 # --------------------------------------------------------------------------
@@ -241,6 +355,7 @@ class OpRecord:
     reads_cube: bool
     host_read: bool
     in_window: bool         # at or after the program's cube_from stage
+    in_collective: bool     # inside a collective of parallel.distributed
 
 
 def _storage(t):
@@ -273,6 +388,35 @@ def _is_host_read(name, func_args, kwargs, ins, outs) -> bool:
     if "cuda" in devs_in and "cpu" in devs_out:
         return True
     return "cpu" in devs_in and "cuda" in devs_out and not non_blocking
+
+
+class _CollectiveTracker:
+    """The ``parallel.distributed.COLLECTIVE_LISTENER`` of a record:
+    whether a collective is open, and which of the body's warnings
+    (indices into ``caught``, the live list of the sync debug mode's
+    warnings; None off the card) were raised inside one."""
+
+    def __init__(self):
+        self.depth = 0
+        self.caught: Optional[list] = None
+        self.spans: List[Tuple[int, int]] = []
+
+    @contextlib.contextmanager
+    def _span(self):
+        start = len(self.caught) if self.caught is not None else 0
+        self.depth += 1
+        try:
+            yield
+        finally:
+            self.depth -= 1
+            if self.caught is not None:
+                self.spans.append((start, len(self.caught)))
+
+    def __call__(self):
+        return self._span()
+
+    def inside(self, i: int) -> bool:
+        return any(a <= i < b for a, b in self.spans)
 
 
 class _StageTracker:
@@ -312,13 +456,15 @@ def _recorder_class():
     class OpRecorder(TorchDispatchMode):
         """Records every aten op dispatched on the recording thread."""
 
-        def __init__(self, cube_ptrs, cube_bytes, by_size, tracker):
+        def __init__(self, cube_ptrs, cube_bytes, by_size, tracker,
+                     collectives=None):
             super().__init__()
             self.records: List[OpRecord] = []
             self.cube_ptrs = set(cube_ptrs)
             self.cube_bytes = cube_bytes
             self.by_size = by_size
             self.tracker = tracker
+            self.collectives = collectives
             self.thread = threading.get_ident()
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
@@ -348,7 +494,8 @@ def _recorder_class():
                 name, self.tracker.current,
                 tuple(str(t.dtype) for t in outs), alloc, in_bytes,
                 reads_cube, _is_host_read(name, args, kwargs, ins, outs),
-                self.tracker.window))
+                self.tracker.window,
+                self.collectives is not None and self.collectives.depth > 0))
             return out
 
     return OpRecorder
@@ -367,11 +514,25 @@ def _stage_listener(tracker):
 
 
 @contextlib.contextmanager
-def _sync_warnings(enabled: bool, sites: List[str]):
-    """Collect the sites of the card's synchronisation warnings of the
-    body (``torch.cuda.set_sync_debug_mode("warn")``) into ``sites``."""
-    if not enabled:
+def _collective_listener(tracker):
+    from iterative_cleaner_torch.parallel import distributed
+
+    prev = distributed.COLLECTIVE_LISTENER
+    distributed.COLLECTIVE_LISTENER = tracker
+    try:
         yield
+    finally:
+        distributed.COLLECTIVE_LISTENER = prev
+
+
+@contextlib.contextmanager
+def _sync_warnings(enabled: bool):
+    """The body's warnings under the card's sync debug mode
+    (``torch.cuda.set_sync_debug_mode("warn")``), yielded as the list
+    they are appended to while they are raised (None when not
+    ``enabled``); :func:`_sync_sites` picks the synchronisations."""
+    if not enabled:
+        yield None
         return
     import torch
 
@@ -380,11 +541,16 @@ def _sync_warnings(enabled: bool, sites: List[str]):
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            yield
+            yield caught
         finally:
             torch.cuda.set_sync_debug_mode(prev)
-    sites.extend(f"{w.filename}:{w.lineno}" for w in caught
-                 if SYNC_WARNING in str(w.message))
+
+
+def _sync_sites(caught, keep=lambda _i: True) -> List[str]:
+    """``file:line`` of each synchronisation warning in ``caught`` whose
+    index ``keep`` accepts."""
+    return [f"{w.filename}:{w.lineno}" for i, w in enumerate(caught or ())
+            if SYNC_WARNING in str(w.message) and keep(i)]
 
 
 _PRIMED = set()
@@ -400,7 +566,7 @@ def _prime(dev) -> None:
         return
     tracker = _StageTracker(None, lambda: None)
     with _stage_listener(tracker), \
-            _sync_warnings(dev.type == "cuda", []), \
+            _sync_warnings(dev.type == "cuda"), \
             _recorder_class()([], 0, False, tracker):
         torch.ones(4, device=dev).add_(1.0)
     _PRIMED.add(str(dev))
@@ -432,28 +598,43 @@ def record(program: HotProgram, run: HotRun, device,
             peak_base[0] = torch.cuda.memory_allocated(dev)
 
     tracker = _StageTracker(run.cube_from, on_window)
+    collectives = _CollectiveTracker()
     recorder = _recorder_class()(
         [_storage(c)[0] for c in run.cubes], run.cube_bytes,
-        not run.cubes, tracker)
+        not run.cubes, tracker, collectives)
     if on_card:
         torch.cuda.synchronize(dev)
     if run.cube_from is None:
         on_window()
     before = K.launch_counts()
-    with _stage_listener(tracker), \
-            _sync_warnings(on_card, report.sync_sites), recorder:
-        result = run.call()
+    with _stage_listener(tracker), _collective_listener(collectives), \
+            _sync_warnings(on_card) as caught:
+        collectives.caught = caught
+        with recorder:
+            result = run.call()
     if on_card:
         torch.cuda.synchronize(dev)
         report.peak_delta_bytes = int(
             torch.cuda.max_memory_allocated(dev) - peak_base[0])
+        if run.transport:
+            report.sync_sites = _sync_sites(
+                caught, lambda i: not collectives.inside(i))
+            report.transport_syncs = len(_sync_sites(
+                caught, collectives.inside))
+        else:
+            report.sync_sites = _sync_sites(caught)
         report.sync_warnings = len(report.sync_sites)
     after = K.launch_counts()
     report.kernel_launches = {k: after[k] - before.get(k, 0) for k in after
                               if after[k] != before.get(k, 0)}
     report.iterations = int(run.iterations(result))
     records = recorder.records
-    report.host_reads = sum(1 for r in records if r.host_read)
+    report.transport_reads = sum(1 for r in records if r.host_read
+                                 and run.transport and r.in_collective)
+    report.host_reads = sum(1 for r in records if r.host_read) \
+        - report.transport_reads
+    report.collectives = sum(1 for r in records
+                             if r.name.startswith("c10d."))
     report.ops = len(records)
     for r in records:
         st = r.stage or "-"
@@ -476,7 +657,8 @@ def _decide(program, run, report, records, decided, on_card):
     pin = program.host_reads
     if report.host_reads > pin * n:
         where = sorted({f"{r.name}@{r.stage or '-'}" for r in records
-                        if r.host_read})
+                        if r.host_read
+                        and not (run.transport and r.in_collective)})
         add("no-host-sync",
             f"{report.host_reads} host reads in {n} iteration(s), pinned "
             f"at {pin} per iteration: {', '.join(where)}")
@@ -729,18 +911,40 @@ def _sweep_bf16(device) -> HotRun:
         probe=w)
 
 
-def _sharded_sweep(device) -> HotRun:
-    """``engine.loop._sharded_sweep`` on the default route over a
-    one-rank process group (gloo on the CPU, NCCL on the card): K10 on
-    the shard, the tree-reduced scalers and median, the combine."""
-    import torch.distributed as dist
-
+def _sharded_run(device, mesh, cube, w, meta, **run) -> HotRun:
+    """``engine.loop._sharded_sweep`` on the default route of this
+    rank's block ``cube`` over ``mesh``, after ``prepare`` and
+    ``build_template`` on the block: K10 on the block, the tree-reduced
+    scalers and median, the combine.  ``run``: further :class:`HotRun`
+    fields."""
     from iterative_cleaner_torch.config import CleanConfig
     from iterative_cleaner_torch.engine.loop import (
         _sharded_sweep,
         build_template,
         prepare,
     )
+
+    cfg = CleanConfig(device=str(device))
+    kw = _loop_kwargs(cfg)
+    prep = prepare(cube, w, *meta, cfg, dedispersed=False, mesh=mesh)
+    template = build_template(prep, w, rotation=kw["rotation"],
+                              baseline_duty=kw["baseline_duty"], mesh=mesh)
+    mask = w == 0
+    return HotRun(
+        call=lambda: _sharded_sweep(prep, template, w, mask, mesh,
+                                    chanthresh=kw["chanthresh"],
+                                    subintthresh=kw["subintthresh"],
+                                    rotation=kw["rotation"]),
+        cubes=(prep.disp_clean,), cube_bytes=_cube_nbytes(prep.disp_clean),
+        kernels={"shard_diagnostics_disp": 1, "combine_zap": 1}, probe=w,
+        **run)
+
+
+def _sharded_sweep(device) -> HotRun:
+    """The sharded sweep over a one-rank process group (gloo on the
+    CPU, NCCL on the card), where nothing pads."""
+    import torch.distributed as dist
+
     from iterative_cleaner_torch.parallel import distributed
     from iterative_cleaner_torch.parallel.mesh import cell_mesh
 
@@ -752,34 +956,136 @@ def _sharded_sweep(device) -> HotRun:
                            "process group; this process has "
                            f"{dist.get_world_size()} ranks")
     try:
-        mesh = cell_mesh()
-        cfg = CleanConfig(device=str(device))
-        kw = _loop_kwargs(cfg)
         cube, w, meta = _synthetic_inputs(device, geometry(device))
-        prep = prepare(cube, w, *meta, cfg, dedispersed=False, mesh=mesh)
-        template = build_template(prep, w, rotation=kw["rotation"],
-                                  baseline_duty=kw["baseline_duty"],
-                                  mesh=mesh)
+        return _sharded_run(device, cell_mesh(), cube, w, meta,
+                            close=distributed.shutdown if own else None)
     except BaseException:
         if own:
             distributed.shutdown()
         raise
-    mask = w == 0
-    return HotRun(
-        call=lambda: _sharded_sweep(prep, template, w, mask, mesh,
-                                    chanthresh=kw["chanthresh"],
-                                    subintthresh=kw["subintthresh"],
-                                    rotation=kw["rotation"]),
-        cubes=(prep.disp_clean,), cube_bytes=_cube_nbytes(prep.disp_clean),
-        kernels={"shard_diagnostics_disp": 1, "combine_zap": 1}, probe=w,
-        close=distributed.shutdown if own else None)
+
+
+def mesh_inputs(shape):
+    """The padded-mesh program's whole archive as host arrays, the same
+    on every rank: :func:`_synthetic_inputs`'s seeded construction on
+    the CPU, ``(cube, weights, freqs_mhz, dm, centre_freq_mhz,
+    period_s)``."""
+    cube, w, (freqs, dm, ref, period) = _synthetic_inputs("cpu", shape)
+    return (cube.numpy(), w.numpy(), freqs.numpy(), float(dm), float(ref),
+            float(period))
+
+
+def padded_block(device, layout, shape):
+    """This rank's block of :func:`mesh_inputs` under ``layout``, as
+    ``clean_cube_sharded`` cuts and uploads it: the block and its
+    weights by ``upload_shard`` (zero past the archive's grid), the
+    block's frequencies (a pad channel takes the last real one's) and
+    the dispersion metadata by ``upload_meta``."""
+    from iterative_cleaner_torch.backends.torch_backend import upload_meta
+    from iterative_cleaner_torch.parallel.sharding import upload_shard
+
+    cube, w, freqs, dm, ref, period = mesh_inputs(shape)
+    block, w_t, f = upload_shard(cube, w, freqs, layout, device)
+    return block, w_t, upload_meta(f, dm, ref, period, device)
+
+
+def _padded_sweep(device, mesh, layout, shape) -> HotRun:
+    block, w, meta = padded_block(device, layout, shape)
+    return _sharded_run(device, mesh, block, w, meta, transport=True)
+
+
+def _pad_violations(name, mesh_shape, layout) -> List[ContractViolation]:
+    """The padded-mesh program's pad-geometry check: its grid pads on
+    both axes of ``mesh_shape`` and divides once padded."""
+    a, b = mesh_shape
+    ps, pc = layout.nsub + layout.pad_s, layout.nchan + layout.pad_c
+    if layout.pad_s and layout.pad_c and not ps % a and not pc % b:
+        return []
+    return [ContractViolation(
+        name, "pad-geometry",
+        f"the {layout.nsub} x {layout.nchan} grid pads by {layout.pad_s} x "
+        f"{layout.pad_c} to {ps} x {pc} on the {a} x {b} mesh: the program "
+        f"must pad on both axes and divide once padded")]
+
+
+def _mesh_rank(program: MeshProgram, device: str,
+               decide: Optional[Sequence[str]]) -> ProgramReport:
+    """One rank of a :class:`MeshProgram` (run by ``run_local_ranks`` in
+    a spawned process, its process group started): the rank's report."""
+    from iterative_cleaner_torch.parallel.mesh import cell_mesh
+    from iterative_cleaner_torch.parallel.sharding import shard_layout
+
+    mesh = cell_mesh()
+    shape = program.shape or padded_geometry(device)
+    layout = shard_layout(mesh, shape[0], shape[1])
+    bad = _pad_violations(program.name, mesh.shape, layout)
+    if bad:
+        report = ProgramReport(program.name, device, violations=bad)
+    else:
+        local = HotProgram(
+            program.name,
+            lambda dev: program.build(dev, mesh, layout, shape),
+            program.host_reads, program.max_ops)
+        if program.seed is not None and mesh.rank == program.seed_rank:
+            local = dataclasses.replace(seeded(local, program.seed),
+                                        name=program.name)
+        report = verify_program(local, device, decide)
+    report.mesh = tuple(mesh.shape)
+    report.pads = (layout.pad_s, layout.pad_c)
+    report.block = (layout.s0, layout.s1, layout.c0, layout.c1)
+    return report
+
+
+def _verify_mesh_program(program: MeshProgram, dev,
+                         decide: Optional[Sequence[str]]) -> ProgramReport:
+    """Run ``program`` on its spawned gloo ranks (``cuda:0`` shared on
+    the card, the CPU with one thread a rank) and merge their reports.
+    A rank that dies or outlives :data:`RANK_TIMEOUT_S` fails the whole
+    run with one ``verifier-error``; nothing falls back to fewer
+    ranks."""
+    from iterative_cleaner_torch.parallel.distributed import run_local_ranks
+
+    on_card = dev.type == "cuda"
+    device = f"cuda:{dev.index or 0}" if on_card else "cpu"
+    name = program.name
+    with tempfile.TemporaryDirectory(prefix="icln_contract_ranks_") as work:
+        try:
+            ranks = run_local_ranks(
+                _mesh_rank, MESH_RANKS, (program, device, decide),
+                workdir=work, device=device, backend="gloo",
+                timeout_s=RANK_TIMEOUT_S, threads=2 if on_card else 1,
+                group_timeout_s=RANK_GROUP_TIMEOUT_S)
+        except (RuntimeError, TimeoutError) as exc:
+            return ProgramReport(name, device, violations=[ContractViolation(
+                name, "verifier-error", f"{type(exc).__name__}: {exc}")])
+    first = ranks[0]
+    merged = ProgramReport(name, device, first.decided,
+                           cube_bytes=first.cube_bytes, mesh=first.mesh,
+                           pads=first.pads)
+    for r, rep in enumerate(ranks):
+        merged.violations += [ContractViolation(name, v.contract,
+                                                f"rank {r}: {v.detail}")
+                              for v in rep.violations]
+        merged.ranks.append(rep.to_dict())
+        for k, v in rep.kernel_launches.items():
+            merged.kernel_launches[k] = max(v, merged.kernel_launches.get(
+                k, 0))
+    for field in ("iterations", "host_reads", "ops", "launches",
+                  "collectives", "transport_reads", "sync_warnings",
+                  "transport_syncs", "peak_delta_bytes"):
+        vals = [getattr(rep, field) for rep in ranks
+                if getattr(rep, field) is not None]
+        if vals:
+            setattr(merged, field, max(vals))
+    return merged
 
 
 #: the registered hot programs, the counterparts of the reference's list.
 #: ``host_reads``: the loop's one ``bool(repeat)`` (``active.any()`` for a
 #: batch) per iteration, none inside a step or a sweep.  ``max_ops``: the
-#: aten ops plus launches of one iteration at :data:`CARD_GEOMETRY`,
-#: pinned at the count an NVIDIA H100 80GB HBM3 (700 W) gave, so that one
+#: aten ops plus launches of one iteration at :data:`CARD_GEOMETRY` (the
+#: padded mesh program's, a rank's at :func:`padded_geometry`), pinned at
+#: the count an NVIDIA H100 80GB HBM3 (700 W) gave, so that one
 #: more op or launch per iteration fails; a loop's count holds its setup
 #: over its iterations.  Re-pin from the card's report, deliberately.
 HOT_PROGRAMS: Tuple[HotProgram, ...] = (
@@ -812,6 +1118,14 @@ HOT_PROGRAMS: Tuple[HotProgram, ...] = (
     # combine 2; 2 launches
     HotProgram("sharded_sweep", _sharded_sweep, host_reads=0,
                max_ops=3081),
+    # per rank of four gloo ranks on one card (a 2 x 2 mesh, 129 x 513 x
+    # 256 blocks of the padded 258 x 1026 grid): the tree-reduced scalers
+    # 2560 and telemetry median 598, K10's wrapper 69, the combine 2;
+    # 2 launches.  sharded_sweep's sequence, but each of its 175
+    # collectives (c10d.allreduce_) stages its operand through host
+    # memory and back, two copies where NCCL clones once: 175 more ops
+    MeshProgram("mesh_padded_sweep", _padded_sweep, host_reads=0,
+                max_ops=3231),
 )
 
 #: seeded violations (:func:`seeded`), each with the contract that must
@@ -825,15 +1139,23 @@ SEEDS = {
 }
 
 
-def seeded(program: HotProgram, seed: str) -> HotProgram:
+def seeded(program: HotProgram, seed: str,
+           rank: Optional[int] = None) -> HotProgram:
     """``program`` with a violation seeded into every call (one iteration
     per call for the step and sweep programs): an ``.item()``
     (``host-sync``), a ``.double()`` (``f64``), one extra op
     (``extra-op``), a ``clone()`` of the resident cube (``cube-copy``) or
-    an exception at the build (``raise``)."""
+    an exception at the build (``raise``).  On a :class:`MeshProgram`,
+    into rank ``rank`` (default 0) alone."""
     if seed not in SEEDS:
         raise ValueError(f"unknown seed {seed!r} (known: "
                          f"{', '.join(sorted(SEEDS))})")
+    if isinstance(program, MeshProgram):
+        return dataclasses.replace(program, name=f"{program.name}+{seed}",
+                                   seed=seed, seed_rank=rank or 0)
+    if rank is not None:
+        raise ValueError(f"{program.name} runs on one process: no rank "
+                         f"to seed")
 
     def build(device):
         if seed == "raise":
@@ -863,11 +1185,16 @@ def verify_program(program: HotProgram, device,
                    decide: Optional[Sequence[str]] = None) -> ProgramReport:
     """Build ``program`` on ``device``, warm it up, record one steady
     call and decide the contracts; a program that raises gives one
-    ``verifier-error`` violation."""
+    ``verifier-error`` violation.  A :class:`MeshProgram` does this on
+    each of its spawned ranks, its reports merged."""
     import torch
 
     dev = torch.device(device)
     t0 = time.perf_counter()
+    if isinstance(program, MeshProgram):
+        report = _verify_mesh_program(program, dev, decide)
+        report.seconds = time.perf_counter() - t0
+        return report
     run = None
     try:
         run = program.build(dev)

@@ -70,6 +70,13 @@ class Archive:
     def mjd_mid(self) -> float:
         return 0.5 * (self.mjd_start + self.mjd_end)
 
+    def clone(self) -> "Archive":
+        """A deep copy: ``data``, ``weights`` and ``freqs_mhz`` copied
+        (PSRCHIVE's ``Archive::clone``)."""
+        return dataclasses.replace(
+            self, data=self.data.copy(), weights=self.weights.copy(),
+            freqs_mhz=self.freqs_mhz.copy())
+
     def pscrunch(self) -> None:
         """Collapse to total intensity in place (PSRCHIVE's
         ``pscrunch``); idempotent."""
@@ -82,6 +89,14 @@ class Archive:
             total = self.data[:, 0:1]
         self.data = np.ascontiguousarray(total)
         self.pol_state = "Intensity"
+
+    def get_weights(self) -> np.ndarray:
+        """A copy of the (nsub, nchan) weights."""
+        return self.weights.copy()
+
+    def set_weight(self, isub: int, ichan: int, value: float) -> None:
+        """Write one cell's weight."""
+        self.weights[isub, ichan] = value
 
     def total_intensity(self) -> np.ndarray:
         """The (nsub, nchan, nbin) total-intensity cube, without mutating."""

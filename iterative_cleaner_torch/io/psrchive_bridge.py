@@ -111,3 +111,13 @@ def _set_weights(ar, weights: np.ndarray) -> None:
         integ = ar.get_Integration(isub)
         for ichan in range(ar.get_nchan()):
             integ.set_weight(ichan, float(weights[isub, ichan]))
+
+
+def apply_weights_to_ar(ar_path: str, out_path: str,
+                        weights: np.ndarray) -> None:
+    """Load ``ar_path`` with PSRCHIVE, overwrite its (nsub, nchan)
+    weights with ``weights`` and unload it to ``out_path``."""
+    psr = _psrchive()
+    ar = psr.Archive_load(ar_path)
+    _set_weights(ar, weights)
+    ar.unload(out_path)

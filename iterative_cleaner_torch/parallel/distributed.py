@@ -22,7 +22,9 @@ collectives the shards exchange, and rank processes on one host.
   gathers result planes to rank 0.
 - gloo does not take CUDA tensors in every collective (its ``gather`` is
   CPU-only), so on gloo every CUDA operand is staged through host memory
-  explicitly; the kernels still run on the card.
+  explicitly; the kernels still run on the card.  Each collective, its
+  staging included, runs inside :data:`COLLECTIVE_LISTENER`'s context
+  where one is set.
 - :func:`run_local_ranks` runs a function in N spawned rank processes on
   this host and fails if any rank dies or outlives its timeout.
 - The multi-host fleet's topology (:class:`HostTopology`,
@@ -48,6 +50,7 @@ collectives the shards exchange, and rank processes on one host.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import hashlib
@@ -67,6 +70,12 @@ DEFAULT_TIMEOUT_S = 600.0
 # After a rank of run_local_ranks fails, how long the others may take to
 # exit before they are stopped and the failed ranks reported.
 FAILURE_GRACE_S = 5.0
+
+# A callable returning a context manager that every collective of this
+# module enters, its staging through host memory included
+# (``analysis.card_contracts`` counts a gloo collective's host copies apart
+# from the program's own host reads); None outside a contract run.
+COLLECTIVE_LISTENER = None
 
 _OPS = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN,
         "max": dist.ReduceOp.MAX}
@@ -354,6 +363,14 @@ def aggregate_metrics_across_processes(counters: dict, registry=None,
     return {k: float(v) for k, v in zip(names, total.tolist())}
 
 
+def _collective():
+    """The context one collective runs in: :data:`COLLECTIVE_LISTENER`'s,
+    else none."""
+    if COLLECTIVE_LISTENER is not None:
+        return COLLECTIVE_LISTENER()
+    return contextlib.nullcontext()
+
+
 def _staged(x, group):
     """``x`` as a contiguous tensor the group's backend takes: on gloo a
     CUDA tensor is copied to host memory (see the module docstring)."""
@@ -369,18 +386,21 @@ def all_reduce_int(x, op: str = "sum", group=None):
     if x.dtype not in (torch.int32, torch.int64):
         raise TypeError(f"all_reduce_int takes int32 or int64, got "
                         f"{x.dtype}")
-    y = _staged(x, group)
-    dist.all_reduce(y, op=_OPS[op], group=group)
-    return y.to(x.device)
+    with _collective():
+        y = _staged(x, group)
+        dist.all_reduce(y, op=_OPS[op], group=group)
+        return y.to(x.device)
 
 
 def _all_gather(x, group):
     """Every group member's ``x``, in group-rank order, on ``x``'s
     device."""
-    src = _staged(x, group).reshape(-1)
-    parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, src, group=group)
-    return [p.reshape(x.shape).to(x.device) for p in parts]
+    with _collective():
+        src = _staged(x, group).reshape(-1)
+        parts = [torch.empty_like(src)
+                 for _ in range(dist.get_world_size(group))]
+        dist.all_gather(parts, src, group=group)
+        return [p.reshape(x.shape).to(x.device) for p in parts]
 
 
 def gather_cells(x, grid, group=None):
@@ -413,12 +433,14 @@ def gather_in_rank_order(x, group=None):
 def host_fetch(x, group=None):
     """Every group member's ``x`` gathered to the group's rank 0 as host
     tensors, in group-rank order; None on the other members."""
-    src = _staged(x, group)
     lead = dist.get_rank(group) == 0
-    parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))] \
-        if lead else None
-    dst = 0 if group is None else dist.get_global_rank(group, 0)
-    dist.gather(src, gather_list=parts, dst=dst, group=group)
+    with _collective():
+        src = _staged(x, group)
+        parts = [torch.empty_like(src)
+                 for _ in range(dist.get_world_size(group))] if lead else None
+        dst = 0 if group is None else dist.get_global_rank(group, 0)
+        dist.gather(src, gather_list=parts, dst=dst, group=group)
+    # the fetch to the host is the caller's own read, on any backend
     return None if parts is None else [p.cpu() for p in parts]
 
 

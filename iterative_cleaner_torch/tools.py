@@ -213,7 +213,7 @@ def cmd_selftest(args) -> int:
     results = {}
     for backend in ("numpy", "torch"):
         results[backend] = clean_archive(
-            ar, CleanConfig(backend=backend, dtype="float64",
+            ar.clone(), CleanConfig(backend=backend, dtype="float64",
                             device=args.device))
         where = "host" if backend == "numpy" else (
             torch.cuda.get_device_name(device) if device.type == "cuda"

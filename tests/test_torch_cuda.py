@@ -98,7 +98,9 @@ The card contracts (``analysis/card_contracts.py``): every registered
 hot program holds all five on the card; a seeded host sync inside a step
 caught by the dispatch count and by the sync debug mode alike; a seeded
 float64 upcast, extra op and cube copy caught; the single-cube-read
-launch counters equal to each route's kernels, once an iteration.
+launch counters equal to each route's kernels, once an iteration; the
+padded mesh program's four gloo ranks on the card, each holding them,
+and a host sync seeded on one rank caught on that rank.
 The FFT build of the cell diagnostics past the DFT tables (K2f,
 ``cell_fft.cu``): every entry (K2 with and without the Nyquist term, K7,
 K6, K10's two) in float32, bf16 and float64, thread-block clusters of
@@ -2011,7 +2013,8 @@ def _contracts():
 
 @pytest.mark.parametrize("name", ["clean_loop", "clean_loop_batch",
                                   "online_step", "mux_step", "sweep",
-                                  "sweep_bf16", "sharded_sweep"])
+                                  "sweep_bf16", "sharded_sweep",
+                                  "mesh_padded_sweep"])
 def test_card_contracts_hold_on_card(card, name):
     """Every registered program holds all five contracts on the card: at
     most its pinned host reads an iteration (the sync debug mode giving
@@ -2070,6 +2073,31 @@ def test_single_cube_read_counters_match_the_route_kernels(card, name,
     cc = _contracts()
     report = cc.verify_program(cc.program_named(name), card)
     assert report.kernel_launches == {k: report.iterations for k in kernels}
+
+
+def test_padded_mesh_ranks_on_card(card):
+    """``mesh_padded_sweep`` on four gloo ranks sharing the card: on each
+    rank K10 and the combine once, no host read or sync warning outside
+    the gloo collectives, the peak under one block; then a host sync
+    seeded into rank 2 alone, caught there by the dispatch count and the
+    sync debug mode."""
+    cc = _contracts()
+    program = cc.program_named("mesh_padded_sweep")
+    report = cc.verify_program(program, card)
+    assert report.ok, [v.render() for v in report.violations]
+    assert report.mesh == (2, 2) and report.pads == (1, 1)
+    kernels = SHARD_KERNELS["default"][1:]
+    for rk in report.ranks:
+        assert rk["kernel_launches"] == {k: rk["iterations"] for k in kernels}
+        assert rk["host_reads_per_iter"] == rk["sync_warnings_per_iter"] == 0
+        assert 0 < rk["peak_delta_bytes"] < rk["cube_bytes"]
+    seeded = cc.verify_program(cc.seeded(program, "host-sync", rank=2), card)
+    # the .item() also adds two ops past rank 2's dispatch pin
+    assert {v.contract for v in seeded.violations} \
+        == {"no-host-sync", "dispatch-bound"}
+    assert all(v.detail.startswith("rank 2: ") for v in seeded.violations)
+    assert [(rk["host_reads_per_iter"], rk["sync_warnings_per_iter"])
+            for rk in seeded.ranks] == [(0, 0), (0, 0), (1, 1), (0, 0)]
 
 
 # ---- the FFT build of the cell diagnostics past the DFT tables (K2f) ----

@@ -187,3 +187,11 @@ def aggregate_rank(store, counters_by_rank):
             distributed.aggregate_metrics_across_processes(
                 counters_by_rank[rank], registry=reg),
             reg.snapshot()["counters"].get("telemetry_degraded", 0))
+
+
+def stall_build(device, mesh, layout, shape):
+    """A padded-mesh program's build that never returns (the contract
+    run's rank timeout)."""
+    import time
+
+    time.sleep(600)
